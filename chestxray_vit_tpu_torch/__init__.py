@@ -9,8 +9,13 @@ Every TPU (Pallas) kernel on a ported path is a hand-written Hopper kernel
 in ``csrc/``, built at first use (``kernels``), with a plain PyTorch twin
 beside its wrapper.
 
-Ported so far: the dense serving path (``serve.inference.Predictor``,
-``serve.server``) at ViT-B/16 @384.
+Ported so far, at ViT-B/16 @384:
+
+- the dense serving path (``serve.inference.Predictor``, ``serve.server``);
+- the dense fine-tune and eval steps (``train.steps.make_train_step``,
+  ``make_eval_step``) with AdamW, global-norm clipping, full remat and
+  gradient accumulation (``train.optimizer``), and the on-device AUROC and
+  F1 (``eval.metrics``).
 
 Importing the package imports no JAX, no Triton and loads no compiled
 library.
@@ -18,7 +23,8 @@ library.
 
 __version__ = "0.1.0"
 
-from chestxray_vit_tpu.config import Config, ModelConfig  # noqa: F401
+from chestxray_vit_tpu.config import (  # noqa: F401
+    Config, ModelConfig, TrainConfig)
 
 _LAZY = {
     "Predictor": ("chestxray_vit_tpu_torch.serve.inference", "Predictor"),

@@ -1,10 +1,12 @@
 """Build and bind the hand-written Hopper kernels in ``../csrc``.
 
-Every ``csrc/*.cu`` file is compiled by one ``nvcc`` call into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use, into ``chestxray_vit_tpu_torch/_build/`` (git-ignored), under a
-file name keyed by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads the cached library.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build runs at first use,
+into ``chestxray_vit_tpu_torch/_build/`` (git-ignored), under a file name
+keyed by a hash of the sources (``*.cu`` and the ``*.cuh`` they include)
+and flags, so an edited source rebuilds and an unchanged one loads the
+cached library.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine with no ``nvcc`` and no card. A missing ``nvcc`` or a
@@ -24,8 +26,9 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 # C signatures of the entry points (see the ``extern "C"`` functions in
 # csrc/). Pointers and the stream are c_void_p so that ctypes does not cut
@@ -37,7 +40,15 @@ _SIGNATURES = {
                               _LL, _LL, _LL, _LL, _LL, _LL,
                               _LL, _LL, _LL, _LL, _LL, _LL,
                               _F, _I, _I, _P],
+    "cxr_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _LL, _LL, _LL, _LL, _LL, _LL,
+                          _LL, _LL, _LL, _LL, _LL, _LL,
+                          _F, _I, _I, _P],
+    "cxr_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _P, _F, _I, _I, _P],
     "cxr_layer_norm_fwd": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
+    "cxr_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I,
+                           _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -46,6 +57,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 def _sources() -> list:
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers() -> list:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -62,27 +77,43 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcxr_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the keyed library unless it exists already.
-    The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills per kernel) is kept beside it as ``.log``."""
+    """Compile csrc/*.cu into the keyed library unless it exists already:
+    one ``nvcc -c`` per source, all running at once, then one link. The
+    compilers' output (``-Xptxas -v``: registers, shared memory, spills
+    per kernel) is kept beside the library as ``.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [(src.name, *p.communicate()) for src, p in zip(_sources(), procs)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    failed = [name for (name, _, _), p in zip(logs, procs) if p.returncode]
+    report = "".join(f"== {name}\n{text}" for name, text, _ in logs)
+    if not failed:
+        link = subprocess.run([nvcc, *GENCODE, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        report += f"== link\n{link.stdout}{link.stderr}"
+        if link.returncode:
+            failed = ["link"]
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text(report)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{report[-4000:]}")
     os.replace(tmp, out)          # atomic: a reader never sees half a file
     return out
 

@@ -1,4 +1,4 @@
-"""Vision Transformer forward for serving, ported from
+"""Vision Transformer forward for serving and training, ported from
 ``chestxray_vit_tpu/models/vit.py``.
 
 Parameters live in an ``nn.Module`` tree whose names mirror the JAX
@@ -12,8 +12,14 @@ compute dtype, LayerNorm upcasts to f32 statistics (the final LN keeps its
 f32 scale), GELU computes in f32, attention takes f32 scores and softmax,
 and the classifier head runs in f32 on the CLS features.
 
-Inference only: remat, dropout, the fused Q/K/V projection and token
-merging (``tome_r``) are later slices of the port (ROADMAP Queue 1).
+Training (``train=True``) runs the dense forward with gradients through
+the training attention and LayerNorm kernels; master parameters stay in
+``param_dtype`` and are cast to the compute dtype inside every step, so
+gradients reach them through the casts. ``remat=True`` with the ``full``
+policy checkpoints each block (``jax.checkpoint(scan_body, policy=None)``
+in the reference). Not ported yet, each raising ``NotImplementedError``
+with its ROADMAP item: the other remat policies, dropout, the fused Q/K/V
+projection and token merging (``tome_r``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import copy
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from chestxray_vit_tpu.config import ModelConfig
@@ -188,19 +195,22 @@ def _block(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
 
 
 def _check_supported(cfg: ModelConfig, train: bool) -> None:
-    # remat and dropout act only when training, so train=True covers them
+    # remat and dropout act only when training, where the reference reads
+    # them; at inference they are ignored, as there
     later = {
-        "train=True (training, remat and dropout are ROADMAP Queue 1 "
-        "#2)": train,
         "tome_r (token merging is ROADMAP Queue 1 #7)":
             getattr(cfg, "tome_r", 0),
         "fused_qkv (ROADMAP Queue 1 #2)": cfg.fused_qkv,
+        f"remat_policy={cfg.remat_policy!r} (only 'full' is ported; the "
+        f"selective policies are ROADMAP Queue 1 #2)":
+            train and cfg.remat and cfg.remat_policy != "full",
+        "hidden_dropout / attention_dropout (dropout and the attention "
+        "dropout kernels are ROADMAP Queue 1 #9 and Queue 2 #5)":
+            train and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0),
     }
     for what, on in later.items():
         if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet; the port serves the dense "
-                f"inference forward only")
+            raise NotImplementedError(f"{what} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +237,11 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
 
     Args:
       images: NHWC f32/bf16 [B, img, img, 3].
-      train: must be False (the port serves inference only so far).
+      train: the training forward (attention through the training
+        kernels, which keep what the backward needs; ``cfg.remat``
+        checkpoints each block). False takes the forward-only attention
+        kernel, which refuses tensors that need a gradient: run eval and
+        serving under ``torch.no_grad()`` or ``torch.inference_mode()``.
       return_features: also return the final-LN CLS features.
 
     Returns logits f32 [B, num_classes] (and features if requested).
@@ -235,8 +249,14 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
     _check_supported(cfg, train)
     compute_dtype = torch_dtype(cfg.dtype)
     x = embed(params, images, cfg, compute_dtype)
+    remat = train and cfg.remat and torch.is_grad_enabled()
     for bp in params.blocks:          # the JAX lax.scan over stacked layers
-        x = _block(x, bp, cfg, cfg.attention_impl, compute_dtype, train)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block, x, bp, cfg, cfg.attention_impl, compute_dtype, train,
+                use_reentrant=False)
+        else:
+            x = _block(x, bp, cfg, cfg.attention_impl, compute_dtype, train)
     fl = params.final_ln
     x = layer_norm(x, fl.scale, fl.bias, cfg.layernorm_eps)
     cls_features = x[:, 0, :]

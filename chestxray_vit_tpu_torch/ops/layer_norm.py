@@ -1,18 +1,22 @@
 """LayerNorm over the last dim: f32 statistics, HF eps 1e-12, output in
-x's dtype.
+x's dtype, with the memory-lean gradient of the JAX package's custom VJP.
 
-``layer_norm`` launches the hand-written CUDA kernel
-(``csrc/layer_norm.cu``, the port of the TPU kernel ``_ln_fwd_kernel`` in
-``chestxray_vit_tpu/ops/layer_norm.py``) for CUDA tensors and runs
-``layer_norm_reference`` for CPU tensors. The reference is the math of the
-JAX package's ``_forward_xla`` and the oracle the kernel is held against.
-
-The kernel is forward-only: on a CUDA tensor that needs a gradient the
-wrapper raises (the backward kernel ``_ln_bwd_kernel`` is still to be
-ported, ROADMAP Queue 2).
+- ``layer_norm``: a ``torch.autograd.Function`` that saves only ``x`` and
+  ``scale`` (as ``chestxray_vit_tpu/ops/layer_norm.py``'s ``_fwd`` does) and
+  recomputes mean, var and x̂ in the backward. CUDA tensors take the
+  hand-written kernels in both directions (``csrc/layer_norm.cu``: the
+  ports of ``_ln_fwd_kernel`` and ``_ln_bwd_kernel``); CPU tensors take the
+  plain versions.
+- ``layer_norm_reference`` / ``layer_norm_bwd_reference``: plain PyTorch,
+  the math of ``_forward_xla`` / ``_bwd_xla``, and the oracles the kernels
+  are held against.
+- ``layer_norm_cuda`` / ``layer_norm_bwd_cuda``: the kernel wrappers, each
+  with a launch counter.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -32,28 +36,60 @@ def layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
+def layer_norm_bwd_reference(x: torch.Tensor, scale: torch.Tensor,
+                             dy: torch.Tensor, eps: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Plain LayerNorm backward (the math of ``_bwd_xla``): dx in x's
+    dtype, dscale and dbias summed over every leading dim and cast to
+    ``scale.dtype``."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * inv
+    dy32 = dy.float()
+    rows = tuple(range(dy32.dim() - 1))
+    dscale = (dy32 * xhat).sum(dim=rows)
+    dbias = dy32.sum(dim=rows)
+    g = dy32 * scale.float()
+    dx = (g - g.mean(dim=-1, keepdim=True)
+          - xhat * (g * xhat).mean(dim=-1, keepdim=True)) * inv
+    return dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype)
+
+
+class LayerNorm(torch.autograd.Function):
+    """LayerNorm whose backward saves only x and scale."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return layer_norm_reference(x, scale, bias, eps)
+        return layer_norm_cuda(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx, ds, db = layer_norm_bwd_reference(x, scale, dy, ctx.eps)
+        else:
+            dx, ds, db = layer_norm_bwd_cuda(x, scale, dy, ctx.eps)
+        return dx, ds, db, None
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
-    """LayerNorm over the last axis: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if x.device.type == "cpu":
-        return layer_norm_reference(x, scale, bias, eps)
-    return layer_norm_cuda(x, scale, bias, eps)
+    """LayerNorm over the last axis: the CUDA kernels for CUDA tensors, the
+    plain versions for CPU tensors, in both directions."""
+    return LayerNorm.apply(x, scale, bias, eps)
 
 
-def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
-                    bias: torch.Tensor, eps: float) -> torch.Tensor:
-    """Launch the LayerNorm kernel: x contiguous [..., D] in f32 or bf16,
-    scale/bias contiguous [D] in f32 or bf16 on x's device."""
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm_cuda needs CUDA tensors, got {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
-                                    or bias.requires_grad):
-        raise NotImplementedError(
-            "the LayerNorm kernel is forward-only; its backward "
-            "(_ln_bwd_kernel) is ROADMAP Queue 2 #4")
+def _check_params(x: torch.Tensor, *params: Tuple[str, torch.Tensor]
+                  ) -> None:
     d = x.shape[-1]
-    for name, t in (("scale", scale), ("bias", bias)):
+    for name, t in params:
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
         if t.shape != (d,) or not t.is_contiguous():
@@ -61,9 +97,9 @@ def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
                              f"{tuple(t.shape)}")
         if t.dtype not in _DTYPE_CODES:
             raise TypeError(f"{name} dtype {t.dtype} not supported")
-    if x.dtype not in _DTYPE_CODES or bias.dtype != scale.dtype:
-        raise TypeError(f"unsupported dtypes x {x.dtype}, scale "
-                        f"{scale.dtype}, bias {bias.dtype}")
+    if x.dtype not in _DTYPE_CODES or len({t.dtype for _, t in params}) > 1:
+        raise TypeError(f"unsupported dtypes x {x.dtype}, "
+                        + ", ".join(f"{n} {t.dtype}" for n, t in params))
     vec = 16 // x.element_size()         # elements per 16-byte load
     if not x.is_contiguous() or x.data_ptr() % 16 or d % vec \
             or d > 32 * 8 * vec:
@@ -71,6 +107,21 @@ def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
             f"layer_norm kernel needs a contiguous, 16-byte aligned x with "
             f"D a multiple of {vec} and at most {32 * 8 * vec}; got shape "
             f"{tuple(x.shape)}")
+
+
+def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """Launch the LayerNorm forward kernel: x contiguous [..., D] in f32 or
+    bf16, scale/bias contiguous [D] in f32 or bf16 on x's device. Builds no
+    graph: gradients go through :func:`layer_norm`."""
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm_cuda needs CUDA tensors, got {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        raise RuntimeError("layer_norm_cuda builds no autograd graph; call "
+                           "layer_norm for gradients")
+    _check_params(x, ("scale", scale), ("bias", bias))
+    d = x.shape[-1]
     y = torch.empty_like(x)
     err = kernels.library().cxr_layer_norm_fwd(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
@@ -82,3 +133,40 @@ def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
 
 
 layer_norm_cuda.launches = 0     # kernel launches, read by chip_smoke.py
+
+
+def layer_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
+                        dy: torch.Tensor, eps: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the LayerNorm backward kernel: (dx in x's dtype, dscale and
+    dbias in scale's dtype). Deterministic: each of at most two blocks per
+    SM writes f32 partial sums that a second pass adds in block order."""
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm_bwd_cuda needs CUDA tensors, got "
+                         f"{x.device}")
+    _check_params(x, ("scale", scale))
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} does not "
+                         f"match x {tuple(x.shape)} on {x.device}")
+    dy = dy.to(x.dtype).contiguous()
+    if dy.data_ptr() % 16:
+        dy = dy.clone()
+    d = x.shape[-1]
+    rows = x.numel() // d
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_blocks = max(1, min((rows + 7) // 8, 2 * sms))
+    dx = torch.empty_like(x)
+    dscale = torch.empty(d, dtype=scale.dtype, device=x.device)
+    dbias = torch.empty(d, dtype=scale.dtype, device=x.device)
+    work = torch.empty((n_blocks, 2, d), dtype=torch.float32, device=x.device)
+    err = kernels.library().cxr_layer_norm_bwd(
+        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        dscale.data_ptr(), dbias.data_ptr(), work.data_ptr(), rows, d, eps,
+        n_blocks, _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "layer_norm_bwd")
+    layer_norm_bwd_cuda.launches += 1
+    return dx, dscale, dbias
+
+
+layer_norm_bwd_cuda.launches = 0   # kernel launches, read by chip_smoke.py

@@ -1,4 +1,5 @@
-"""Device-side fused preprocessing, ported from
+"""Device-side preprocessing (``fused_preprocess``, ``normalize_u8`` and the
+batch resolver ``prepare_pixel_values``), ported from
 ``chestxray_vit_tpu/ops/preprocess.py``.
 
 Raw u8 grayscale canvases plus crop boxes in, normalized NHWC RGB out: the
@@ -136,3 +137,28 @@ def normalize_u8(images_u8: torch.Tensor,
     """Host-resized path: u8 grayscale [B, H, W] → normalized RGB
     [B, H, W, 3] (rescale 1/255, processor mean/std)."""
     return _normalize(images_u8.float() / 255.0, mean, std, dtype)
+
+
+def prepare_pixel_values(batch: dict, dtype: torch.dtype = torch.float32, *,
+                         out_size: int = 384,
+                         mean: Tuple[float, ...] = PROCESSOR_MEAN,
+                         std: Tuple[float, ...] = PROCESSOR_STD
+                         ) -> torch.Tensor:
+    """Resolve a batch dict of tensors to normalized [B, H, W, 3] pixel
+    values, from any of the three pipeline placements:
+
+    - ``pixel_values``: pre-normalized NHWC, returned as it is;
+    - ``pixel_values_u8``: host-resized [B, H, W] grayscale, normalized on
+      the tensors' device;
+    - ``canvas_u8`` + ``boxes`` (+ ``flips`` / ``stretches``): raw decode
+      canvases, cropped, padded, resized and normalized on the device.
+    """
+    if "pixel_values" in batch:
+        return batch["pixel_values"]
+    if "canvas_u8" in batch:
+        return fused_preprocess(
+            batch["canvas_u8"], batch["boxes"], out_size,
+            flips=batch.get("flips"), mean=mean, std=std, dtype=dtype,
+            stretches=batch.get("stretches"))
+    return normalize_u8(batch["pixel_values_u8"], mean=mean, std=std,
+                        dtype=dtype)

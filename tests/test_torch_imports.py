@@ -23,6 +23,9 @@ MODULES = [
     "chestxray_vit_tpu_torch.ops.preprocess",
     "chestxray_vit_tpu_torch.models.vit",
     "chestxray_vit_tpu_torch.models.bridge",
+    "chestxray_vit_tpu_torch.train.optimizer",
+    "chestxray_vit_tpu_torch.train.steps",
+    "chestxray_vit_tpu_torch.eval.metrics",
     "chestxray_vit_tpu_torch.serve.inference",
     "chestxray_vit_tpu_torch.serve.server",
 ]

@@ -250,3 +250,34 @@ def test_bf16_ulp_helper():
     nxt = (vals.astype(ml_dtypes.bfloat16).view(np.uint16) + 1).view(
         ml_dtypes.bfloat16).astype(np.float32)
     np.testing.assert_array_equal(np.abs(nxt - vals), ulp)
+
+
+@pytest.mark.parametrize("placement", ["pixel_values", "pixel_values_u8",
+                                       "canvas_u8"])
+def test_prepare_pixel_values_matches_jax(rng, placement):
+    canvases = rng.integers(0, 256, (3, 48, 48), np.uint8)
+    batch = {
+        "pixel_values": rng.standard_normal((3, 16, 16, 3))
+        .astype(np.float32),
+        "pixel_values_u8": rng.integers(0, 256, (3, 16, 16), np.uint8),
+        "canvas_u8": canvases,
+        "boxes": np.array([[0, 0, 48, 48], [4, 2, 20, 40], [1, 9, 44, 13]],
+                          np.int32),
+        "flips": np.array([False, True, False]),
+        "stretches": np.array([False, False, True]),
+    }
+    keep = {"pixel_values": ["pixel_values"],
+            "pixel_values_u8": ["pixel_values_u8"],
+            "canvas_u8": ["canvas_u8", "boxes", "flips", "stretches"]}
+    sub = {k: batch[k] for k in keep[placement]}
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    ref = np.asarray(jpre.prepare_pixel_values(
+        {k: jnp.asarray(v) for k, v in sub.items()}, out_size=16,
+        mean=mean, std=std))
+    got = tpre.prepare_pixel_values(
+        {k: torch.from_numpy(v) for k, v in sub.items()}, out_size=16,
+        mean=mean, std=std)
+    assert got.shape == (3, 16, 16, 3) and got.dtype == torch.float32
+    # f32 products of the same weights on both sides (ImageNet std scales
+    # the [0, 1] pixels up to ~2.6)
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5)

@@ -2,11 +2,14 @@
 ``Predictor`` on the same weights and images, the reused ``MicroBatcher``
 under concurrent submits, and the port's HTTP server."""
 
+import fcntl
 import io
 import json
+import subprocess
 import threading
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -26,6 +29,33 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 CLASSES = list("ABCDE")
+NATIVE_DECODE = Path(__file__).resolve().parent.parent / "native" / "decode"
+
+
+def _build_native_decoder() -> None:
+    """Build native/decode/libcxrdecode.so while this module is collected.
+
+    ``chestxray_vit_tpu.data.decode`` looks for the library once per
+    process and keeps the answer. Under pytest-xdist a worker that reaches
+    the decoder (the Predictor here does) before it runs
+    tests/test_native_decode.py, whose fixture builds the library on
+    demand, keeps "not built" and skips all of that file's tests. Every
+    worker collects every module before it runs any test, so building here
+    settles the answer first. The Makefile's ``g++ -o`` is not atomic, so
+    concurrent workers take a lock on the Makefile; where there is no
+    toolchain the build fails quietly and those tests skip as before."""
+    if (NATIVE_DECODE / "libcxrdecode.so").exists():
+        return
+    try:
+        with open(NATIVE_DECODE / "Makefile") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(["make", "-C", str(NATIVE_DECODE)],
+                           capture_output=True, timeout=300)
+    except (OSError, subprocess.SubprocessError):
+        pass
+
+
+_build_native_decoder()
 
 
 def tiny_cfg(**kw):

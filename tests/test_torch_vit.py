@@ -141,10 +141,23 @@ def test_init_params_is_seeded_trunc_normal():
 
 
 @pytest.mark.parametrize("kw,train", [
-    ({"tome_r": 2}, False), ({"fused_qkv": True}, False), ({}, True)])
+    ({"tome_r": 2}, False), ({"fused_qkv": True}, False),
+    ({"remat": True, "remat_policy": "dots"}, True)])
 def test_unported_paths_raise(kw, train):
     cfg = small_cfg(**kw)
     _, tp = _pair(small_cfg())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tvit.apply(tp, torch.from_numpy(_images(cfg, n=1)), cfg,
                    train=train)
+
+
+def test_params_to_numpy_copies():
+    """The tree does not share memory with the parameters: an in-place
+    update of the weights (the optimizer's) leaves it as it was."""
+    cfg = small_cfg()
+    _, tp = _pair(cfg)
+    tree = bridge.params_to_numpy(tp)
+    before = tree["head"]["kernel"].copy()
+    with torch.no_grad():
+        tp.head.kernel.add_(1.0)
+    np.testing.assert_array_equal(tree["head"]["kernel"], before)
