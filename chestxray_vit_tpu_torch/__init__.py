@@ -2,20 +2,21 @@
 for NVIDIA Hopper (H100).
 
 The JAX package beside it is the reference and stays unchanged; this
-package mirrors its layout module for module. Framework-free modules of the
-JAX package (``config``, ``data.decode``, ``data.geometry``,
-``data.pipeline``, ``serve.batcher``) are imported from it, not copied.
-Every TPU (Pallas) kernel on a ported path is a hand-written Hopper kernel
-in ``csrc/``, built at first use (``kernels``), with a plain PyTorch twin
-beside its wrapper.
+package mirrors its layout module for module and imports nothing of it.
+Where the port needs a framework-free module of the JAX package, it keeps
+its own copy (``config``, ``data.decode``, ``data.geometry`` with
+``host_resize``, ``serve.batcher``). Every TPU (Pallas) kernel on a ported
+path is a hand-written Hopper kernel in ``csrc/``, built at first use
+(``kernels``), with a plain PyTorch twin beside its wrapper.
 
 Ported so far, at ViT-B/16 @384:
 
 - the dense serving path (``serve.inference.Predictor``, ``serve.server``);
-- the dense fine-tune and eval steps (``train.steps.make_train_step``,
+- the fine-tune and eval steps (``train.steps.make_train_step``,
   ``make_eval_step``) with AdamW, global-norm clipping, full remat and
-  gradient accumulation (``train.optimizer``), and the on-device AUROC and
-  F1 (``eval.metrics``).
+  gradient accumulation (``train.optimizer``), attention dropout (the
+  fused dropout kernels), hidden dropout and per-sample mixup, and the
+  on-device AUROC and F1 (``eval.metrics``).
 
 Importing the package imports no JAX, no Triton and loads no compiled
 library.
@@ -23,12 +24,12 @@ library.
 
 __version__ = "0.1.0"
 
-from chestxray_vit_tpu.config import (  # noqa: F401
-    Config, ModelConfig, TrainConfig)
+from chestxray_vit_tpu_torch.config import (  # noqa: F401
+    Config, DataConfig, ModelConfig, TrainConfig)
 
 _LAZY = {
     "Predictor": ("chestxray_vit_tpu_torch.serve.inference", "Predictor"),
-    "MicroBatcher": ("chestxray_vit_tpu.serve.batcher", "MicroBatcher"),
+    "MicroBatcher": ("chestxray_vit_tpu_torch.serve.batcher", "MicroBatcher"),
 }
 
 

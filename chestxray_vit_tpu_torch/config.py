@@ -1,0 +1,174 @@
+"""Typed configuration of the port, a copy of the dataclasses of
+``chestxray_vit_tpu/config.py`` that the port reads.
+
+``DataConfig``, ``ModelConfig``, ``TrainConfig``, ``MeshConfig`` and
+``Config`` keep the JAX package's names, fields, defaults and
+construction-time checks, so a configuration written for one package means
+the same to the other (``tests/test_torch_config.py`` holds them equal),
+fields the port does not act on yet (storage, cadence, mesh) included. The
+presets, the JSON round trip and the command line stay with the JAX
+package until the CLI is ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+# The reference normalizes through HF ViTImageProcessor (google/vit values
+# 0.5 / 0.5); its ImageNet constants are defined but unused.
+PROCESSOR_MEAN: Tuple[float, float, float] = (0.5, 0.5, 0.5)
+PROCESSOR_STD: Tuple[float, float, float] = (0.5, 0.5, 0.5)
+
+
+@dataclass
+class DataConfig:
+    """Input-pipeline and dataset-layout knobs."""
+
+    backend: str = "local"          # 'gcs' | 'local' | 'memory' | 'hf_dataset'
+    hf_dataset_name: str = "kerem/nih-chest-xray-14"
+    gcp_project_id: str = ""
+    gcs_bucket_name: str = ""
+    gcs_image_base_prefix: str = ""
+    local_root: str = ""
+    bbox_csv: str = "BBox_List_2017.csv"
+    data_entry_csv: str = "Data_Entry_2017.csv"
+    train_val_list: str = "train_val_list.txt"
+    test_list: str = "test_list.txt"
+    num_image_folders: int = 12
+    image_folder_template: str = "images_{:03d}/images/"
+    use_subset_data: Optional[int] = None
+    split_scheme: str = "official_lists"    # or 'random_80_10_10'
+    val_fraction: float = 0.15
+    split_seed: int = 42
+    use_bbox_roi: bool = True
+    image_mean: Tuple[float, float, float] = PROCESSOR_MEAN
+    image_std: Tuple[float, float, float] = PROCESSOR_STD
+    augment: bool = False
+    # per-sample mixup inside the train step: λ_i ~ Beta(α, α), partner =
+    # the (micro-)batch rolled by one; images and soft labels mixed. 0 = off
+    mixup_alpha: float = 0.0
+    preprocess_placement: str = "host"      # 'host' | 'device'
+    num_workers: int = 8
+    prefetch_depth: int = 4
+    decode_canvas: int = 1024
+    shuffle_buffer_seed: int = 42
+
+
+@dataclass
+class ModelConfig:
+    """ViT architecture knobs; defaults = google/vit-base-patch16-384."""
+
+    model_name: str = "google/vit-base-patch16-384"
+    img_size: int = 384
+    patch_size: int = 16
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_dim: int = 3072
+    num_classes: int = 15
+    layernorm_eps: float = 1e-12
+    gelu_approximate: bool = False
+    # dropout after the attention output and after the MLP (hidden) and on
+    # the softmax probabilities (attention), training only
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
+    dtype: str = "bfloat16"         # activations; master params stay f32
+    param_dtype: str = "float32"
+    remat: bool = False
+    remat_policy: str = "full"
+    attention_impl: str = "auto"    # 'auto' | 'pallas' | 'xla'
+    fused_qkv: bool = False
+    tome_r: int = 0
+    tome_schedule: str = "constant"
+
+    @property
+    def num_patches(self) -> int:
+        return (self.img_size // self.patch_size) ** 2
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + 1  # + CLS
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    def __post_init__(self):
+        if self.img_size % self.patch_size:
+            raise ValueError(
+                f"img_size {self.img_size} is not a multiple of patch_size "
+                f"{self.patch_size} — patchify cannot tile the image (e.g. "
+                f"patch 14 needs img_size 224/392/448; set model.img_size)")
+        if self.hidden_size % self.num_heads:
+            raise ValueError(
+                f"hidden_size {self.hidden_size} is not divisible by "
+                f"num_heads {self.num_heads}")
+        if self.tome_schedule not in ("constant", "decreasing"):
+            raise ValueError(
+                f"model.tome_schedule must be 'constant' or 'decreasing', "
+                f"got {self.tome_schedule!r}")
+
+
+@dataclass
+class TrainConfig:
+    """Optimization and orchestration knobs."""
+
+    batch_size_per_core: int = 8
+    eval_batch_size_per_core: Optional[int] = None
+    gradient_accumulation_steps: int = 1
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    num_epochs: float = 4
+    max_steps: Optional[int] = None
+    lr_schedule: str = "linear"
+    warmup_steps: int = 0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    max_grad_norm: float = 1.0
+    eval_strategy: str = "steps"
+    eval_steps: int = 500
+    save_strategy: str = "steps"
+    save_steps: int = 500
+    logging_steps: int = 50
+    save_total_limit: int = 2
+    load_best_model_at_end: bool = True
+    metric_for_best_model: str = "avg_auroc"
+    greater_is_better: bool = True
+    bf16: bool = True
+    compilation_cache_dir: Optional[str] = None
+    save_on_preemption: bool = True
+    nan_guard: str = "raise"
+    calibrate_thresholds: bool = False
+    eval_quantize: Optional[str] = None
+    eval_tome_r: int = 0
+    tome_warmup: float = 0
+    seed: int = 42
+    output_dir: str = "./outputs"
+    report_to: str = "tensorboard"
+    resume_from_checkpoint: Optional[str] = None
+    profile_steps: Optional[Tuple[int, int]] = None
+
+    @property
+    def eval_batch_size(self) -> int:
+        return self.eval_batch_size_per_core or self.batch_size_per_core
+
+
+@dataclass
+class MeshConfig:
+    """Device-mesh layout (-1 = every device on the data axis)."""
+
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    axis_names: Tuple[str, ...] = ("data", "fsdp", "tensor")
+    dcn_data: int = 1
+
+
+@dataclass
+class Config:
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)

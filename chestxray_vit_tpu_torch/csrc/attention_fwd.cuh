@@ -1,8 +1,10 @@
 // The attention forward, O = softmax(Q K^T * scale) V, shared by the
-// inference entry point (flash_attention_inf.cu, no lse) and the training
-// one (flash_attention.cu, which also writes the natural-log logsumexp that
-// the backward recomputes P from). See those files for which TPU kernel
-// each replaces.
+// inference entry point (flash_attention_inf.cu, no lse), the training one
+// (flash_attention.cu, which also writes the natural-log logsumexp that the
+// backward recomputes P from) and the dropout one
+// (flash_attention_dropout.cu: kDropout drops probabilities after the
+// softmax, kEmitKeep also writes the mask). See those files for which TPU
+// kernel each replaces.
 //
 // A block owns 64 query rows of one (batch, head) and streams K/V through
 // shared memory in 64-row tiles with an online (running max / running sum)
@@ -40,14 +42,17 @@ constexpr int kHeadDim = 64;  // the only head dim built
 constexpr int kPad = 8;       // bf16 row padding in shared memory (16 bytes)
 
 // 128 threads = 4 warps; warp w owns query rows [16w, 16w + 16) of the
-// block. lse (kLse only) is [B * H, S] contiguous, f32.
-template <bool kLse>
+// block. lse (kLse only) is [B * H, S] contiguous, f32. With kDropout the
+// normalizer l sums the clean P, the PV product takes the masked P, and the
+// output is divided by l * (1 - rate); kEmitKeep writes each element's
+// keep bit to drop.keep.
+template <bool kLse, bool kDropout, bool kEmitKeep>
 __global__ void __launch_bounds__(128)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
               float* __restrict__ lse, int H, int S, Strides qs, Strides ks,
-              Strides vs, Strides os, float scale_log2) {
+              Strides vs, Strides os, float scale_log2, Dropout drop) {
   __shared__ __align__(16) __nv_bfloat16 sQ[kBlockM][kHeadDim + kPad];
   __shared__ __align__(16) __nv_bfloat16 sK[kBlockN][kHeadDim + kPad];
   __shared__ __align__(16) __nv_bfloat16 sVt[kHeadDim][kBlockN + kPad];
@@ -83,6 +88,12 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 (log2 units)
   float l_run[2] = {0.f, 0.f};              // this thread's share of the sum
+  const int row0 = m0 + wr + g, row1 = row0 + 8;
+  uint32_t dbase[2] = {0u, 0u};             // dropout counters of the rows
+  if (kDropout) {
+    dbase[0] = drop_row(drop, blockIdx.y, row0);
+    dbase[1] = drop_row(drop, blockIdx.y, row1);
+  }
 
   for (int n0 = 0; n0 < S; n0 += kBlockN) {
     __syncthreads();  // the previous tile is consumed
@@ -149,6 +160,15 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         s[n][e] = round_bf16(exp2f(s[n][e] - m_run[e >> 1]));
         l_run[e >> 1] += s[n][e];
+        if (kDropout) {
+          const int col = n0 + n * 8 + 2 * t + (e & 1);
+          const bool keep = kept(drop, dbase[e >> 1], col);
+          const int row = e < 2 ? row0 : row1;
+          if (kEmitKeep && row < S && col < S)
+            drop.keep[(static_cast<long long>(blockIdx.y) * S + row) * S +
+                      col] = keep;
+          if (!keep) s[n][e] = 0.f;
+        }
       }
     }
     uint32_t pf[4][4];
@@ -169,8 +189,9 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  const int row0 = m0 + wr + g, row1 = row0 + 8;
-  const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
+  const float keep_prob = kDropout ? drop.keep_prob : 1.f;
+  const float inv0 = 1.f / (l_run[0] * keep_prob);
+  const float inv1 = 1.f / (l_run[1] * keep_prob);
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int c = n * 8 + 2 * t;
@@ -189,13 +210,14 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 }
 
 // f32 path: one thread per query row, K/V tiles in shared memory read as
-// broadcasts, online softmax over chunks of 16 keys.
-template <bool kLse>
+// broadcasts, online softmax over chunks of 16 keys. Dropout as in the bf16
+// path.
+template <bool kLse, bool kDropout, bool kEmitKeep>
 __global__ void __launch_bounds__(kBlockM)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
              float* __restrict__ lse, int H, int S, Strides qs, Strides ks,
-             Strides vs, Strides os, float scale_log2) {
+             Strides vs, Strides os, float scale_log2, Dropout drop) {
   __shared__ __align__(16) float sK[kBlockN][kHeadDim];
   __shared__ __align__(16) float sV[kBlockN][kHeadDim];
 
@@ -219,6 +241,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   float m_run = -INFINITY, l_run = 0.f;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const uint32_t dbase = kDropout ? drop_row(drop, blockIdx.y, row) : 0u;
 
   for (int n0 = 0; n0 < S; n0 += kBlockN) {
     __syncthreads();
@@ -253,8 +276,16 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int d = 0; d < kHeadDim; ++d) acc[d] *= alpha;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const float p = exp2f(s[j] - m_new);
+        float p = exp2f(s[j] - m_new);
         l_run += p;
+        if (kDropout) {
+          const int col = n0 + j0 + j;
+          const bool keep = kept(drop, dbase, col);
+          if (kEmitKeep && valid && col < S)
+            drop.keep[(static_cast<long long>(blockIdx.y) * S + row) * S +
+                      col] = keep;
+          if (!keep) p = 0.f;
+        }
 #pragma unroll
         for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(p, sV[j0 + j][d], acc[d]);
       }
@@ -263,7 +294,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   if (!valid) return;
   float* orow = o + b * os.b + h * os.h + row * os.s;
-  const float inv = 1.f / l_run;
+  const float inv = 1.f / (l_run * (kDropout ? drop.keep_prob : 1.f));
 #pragma unroll
   for (int d = 0; d < kHeadDim; d += 4)
     *reinterpret_cast<float4*>(orow + d) =
@@ -276,11 +307,12 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // Checks the shape, picks the kernel for the dtype (0 = float32,
 // 1 = bfloat16) and launches it on ``stream``.
-template <bool kLse>
+template <bool kLse, bool kDropout = false, bool kEmitKeep = false>
 int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
                     float* lse, int batch, int heads, int seq, int head_dim,
                     Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                    int dtype, int device, void* stream) {
+                    int dtype, int device, void* stream,
+                    Dropout drop = Dropout{}) {
   if (head_dim != kHeadDim || seq <= 0 || batch <= 0 || heads <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -289,15 +321,15 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
   const float scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    attn_fwd_bf16<kLse><<<grid, 128, 0, st>>>(
+    attn_fwd_bf16<kLse, kDropout, kEmitKeep><<<grid, 128, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        lse, heads, seq, qs, ks, vs, os, scale_log2);
+        lse, heads, seq, qs, ks, vs, os, scale_log2, drop);
   } else if (dtype == 0) {
-    attn_fwd_f32<kLse><<<grid, kBlockM, 0, st>>>(
+    attn_fwd_f32<kLse, kDropout, kEmitKeep><<<grid, kBlockM, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, heads, seq,
-        qs, ks, vs, os, scale_log2);
+        qs, ks, vs, os, scale_log2, drop);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -46,6 +46,44 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Attention-probability dropout: the keep mask of the TPU kernels'
+// `_keep_mask` / `_fmix32` (chestxray_vit_tpu/ops/flash_attention.py),
+// hashed in registers from each score element's global index, so the
+// forward and the backward regenerate the same mask and none is stored.
+// Element (bh, row, col) hashes the counter (bh * q_pad + row) * s_pad + col
+// (uint32, wrapping; q_pad and s_pad are the TPU wrapper's padded strides,
+// logical constants here) XOR the mixed seed, and is kept when the murmur3
+// finalizer of that reaches the threshold min(rate * 2^32, 2^32 - 1).
+struct Dropout {
+  uint32_t seed_mix;    // int32 seed read as uint32, times 0x9E3779B9
+  uint32_t threshold;
+  uint32_t q_pad, s_pad;
+  float keep_prob;      // 1 - rate: the forward divides l by it
+  float inv_keep;       // 1 / (1 - rate): the backward's scale
+  unsigned char* keep;  // debug forward only: the mask out, [B * H, S, S]
+};
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  return x ^ (x >> 16);
+}
+
+// The counter of (bh, row, col 0); add the column.
+__device__ __forceinline__ uint32_t drop_row(const Dropout& d, int bh,
+                                             int row) {
+  return (static_cast<uint32_t>(bh) * d.q_pad + static_cast<uint32_t>(row)) *
+         d.s_pad;
+}
+
+__device__ __forceinline__ bool kept(const Dropout& d, uint32_t row_base,
+                                     int col) {
+  return fmix32((row_base + static_cast<uint32_t>(col)) ^ d.seed_mix) >=
+         d.threshold;
+}
+
 // D += A * B on the tensor cores, bf16 in, f32 accumulate. Fragment layout
 // (g = lane / 4, t = lane % 4): A rows g and g + 8, columns 2t, 2t + 1
 // (a0, a1) and 2t + 8, 2t + 9 (a2, a3); B column g, rows 2t, 2t + 1 (b0)

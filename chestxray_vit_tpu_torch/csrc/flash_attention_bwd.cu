@@ -32,6 +32,15 @@
 // are rounded to bf16 before their products, as the TPU kernel does
 // (`p_lo`, `ds_lo`); P is rounded after the exp2, as in the forward. The
 // f32 path (parity runs) is plain FMA with two threads per row.
+//
+// With kDropout the same kernels are the port of `_bwd_kernel_drop`
+// (launched by `_bwd_drop`, entry point cxr_attention_bwd_dropout): each
+// pass regenerates the forward's keep mask M for its own tiles from the
+// element's global (bh, query, key) (cxr::Dropout, common.cuh), so no mask
+// is stored or read. dV = (M * P)^T dO / (1 - rate) and
+// dS = P * (M * dP / (1 - rate) - Delta), with the unchanged Delta pre-pass.
+// The hash adds about ten integer operations per score element to each
+// pass, against 2 x 64 x 4 tensor-core flops per element and pass.
 
 #include <math.h>
 
@@ -105,6 +114,7 @@ __device__ __forceinline__ void load_tile(const __nv_bfloat16* src,
   }
 }
 
+template <bool kDropout>
 __global__ void __launch_bounds__(128)
 attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
@@ -115,7 +125,8 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
                    __nv_bfloat16* __restrict__ dk,
                    __nv_bfloat16* __restrict__ dv, int H, int S,
                    Strides qs, Strides ks, Strides vs, Strides dos,
-                   Strides dks, Strides dvs, float scale, float scale_log2) {
+                   Strides dks, Strides dvs, float scale, float scale_log2,
+                   cxr::Dropout drop) {
   __shared__ __align__(16) __nv_bfloat16 sQ[kTile][kLd];
   __shared__ __align__(16) __nv_bfloat16 sQt[kHeadDim][kLd];
   __shared__ __align__(16) __nv_bfloat16 sdO[kTile][kLd];
@@ -180,9 +191,32 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
         sp[n][e] = key_ok
             ? cxr::round_bf16(exp2f(sp[n][e] * scale_log2 - sL[qc])) : 0.f;
       }
+    // keep bit of element (query m0 + qc, key): bit 4n + e
+    uint32_t kmask = 0u;
+    if (kDropout) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qrow = m0 + n * 8 + 2 * t + (e & 1);
+          if (cxr::kept(drop, cxr::drop_row(drop, bh, qrow),
+                        key0 + (e >> 1) * 8))
+            kmask |= 1u << (4 * n + e);
+        }
+    }
     uint32_t pf[4][4];
-    cxr::acc_to_a(sp, pf);
-    // dV += P^T dO
+    if (kDropout) {
+      float pd[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pd[n][e] = (kmask >> (4 * n + e)) & 1u ? sp[n][e] : 0.f;
+      cxr::acc_to_a(pd, pf);
+    } else {
+      cxr::acc_to_a(sp, pf);
+    }
+    // dV += (M * P)^T dO (the 1 / (1 - rate) is applied at the end)
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -203,8 +237,12 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
         cxr::mma_16816(dp[n], vf[kk], b0, b1);
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[n][e] = sp[n][e] * (dp[n][e] - sD[n * 8 + 2 * t + (e & 1)]);
+      for (int e = 0; e < 4; ++e) {
+        float dpe = dp[n][e];
+        if (kDropout)
+          dpe = (kmask >> (4 * n + e)) & 1u ? dpe * drop.inv_keep : 0.f;
+        dp[n][e] = sp[n][e] * (dpe - sD[n * 8 + 2 * t + (e & 1)]);
+      }
     }
     uint32_t dsf[4][4];
     cxr::acc_to_a(dp, dsf);
@@ -221,6 +259,7 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
 
   __nv_bfloat16* dkp = dk + b * dks.b + h * dks.h;
   __nv_bfloat16* dvp = dv + b * dvs.b + h * dvs.h;
+  const float vscale = kDropout ? drop.inv_keep : 1.f;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int c = n * 8 + 2 * t;
@@ -231,12 +270,14 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
         *reinterpret_cast<uint32_t*>(dkp + key * dks.s + c) =
             cxr::pack_bf16x2(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
         *reinterpret_cast<uint32_t*>(dvp + key * dvs.s + c) =
-            cxr::pack_bf16x2(dva[n][2 * r], dva[n][2 * r + 1]);
+            cxr::pack_bf16x2(dva[n][2 * r] * vscale,
+                             dva[n][2 * r + 1] * vscale);
       }
     }
   }
 }
 
+template <bool kDropout>
 __global__ void __launch_bounds__(128)
 attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -246,7 +287,7 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
                  const float* __restrict__ delta,
                  __nv_bfloat16* __restrict__ dq, int H, int S, Strides qs,
                  Strides ks, Strides vs, Strides dos, Strides dqs, float scale,
-                 float scale_log2) {
+                 float scale_log2, cxr::Dropout drop) {
   __shared__ __align__(16) __nv_bfloat16 sK[kTile][kLd];
   __shared__ __align__(16) __nv_bfloat16 sKt[kHeadDim][kLd];
   __shared__ __align__(16) __nv_bfloat16 sV[kTile][kLd];
@@ -269,12 +310,14 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
 
   const int row0 = m0 + wr + g;
   float l2[2], dl[2];
+  uint32_t dbase[2];  // dropout counters of the two rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     const long long idx = static_cast<long long>(bh) * S + row;
     l2[r] = row < S ? lse[idx] * kLog2e : INFINITY;
     dl[r] = row < S ? delta[idx] : 0.f;
+    dbase[r] = kDropout ? cxr::drop_row(drop, bh, row) : 0u;
   }
   float dqa[8][4];
 #pragma unroll
@@ -301,13 +344,16 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
         cxr::load_b(sV, n * 8, kk * 16, g, t, b0, b1);
         cxr::mma_16816(dp[n], df[kk], b0, b1);
       }
-      // P (bf16, pad keys 0), then dS = P * (dP - Delta)
+      // P (bf16, pad keys 0), then dS = P * (M * dP / (1 - rate) - Delta)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = n0 + n * 8 + 2 * t + (e & 1);
         const float p = key < S
             ? cxr::round_bf16(exp2f(sp[n][e] * scale_log2 - l2[e >> 1])) : 0.f;
-        dp[n][e] = p * (dp[n][e] - dl[e >> 1]);
+        float dpe = dp[n][e];
+        if (kDropout)
+          dpe = cxr::kept(drop, dbase[e >> 1], key) ? dpe * drop.inv_keep : 0.f;
+        dp[n][e] = p * (dpe - dl[e >> 1]);
       }
     }
     uint32_t dsf[4][4];
@@ -363,13 +409,15 @@ __device__ __forceinline__ float pair_dot(const float (&a)[kHalf],
   return s + __shfl_xor_sync(0xffffffffu, s, 1);
 }
 
+template <bool kDropout>
 __global__ void __launch_bounds__(128)
 attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   float* __restrict__ dk, float* __restrict__ dv, int H, int S,
                   Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,
-                  Strides dvs, float scale, float scale_log2) {
+                  Strides dvs, float scale, float scale_log2,
+                  cxr::Dropout drop) {
   __shared__ __align__(16) float sQ[kTile][kHeadDim];
   __shared__ __align__(16) float sdO[kTile][kHeadDim];
   __shared__ float sL[kTile], sD[kTile];
@@ -405,11 +453,17 @@ attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < jn; ++j) {
       const float s = pair_dot(kv, sQ[j], half);
       const float p = key_ok ? exp2f(s * scale_log2 - sL[j]) : 0.f;
-      const float dp = pair_dot(vv, sdO[j], half);
+      float dp = pair_dot(vv, sdO[j], half);
+      float pv = p;  // M * P, the factor of dV
+      if (kDropout) {
+        const bool keep = cxr::kept(drop, cxr::drop_row(drop, bh, m0 + j), key);
+        dp = keep ? dp * drop.inv_keep : 0.f;
+        pv = keep ? p : 0.f;
+      }
       const float ds = p * (dp - sD[j]);
 #pragma unroll
       for (int i = 0; i < kHalf; ++i) {
-        dva[i] = fmaf(p, sdO[j][2 * i + half], dva[i]);
+        dva[i] = fmaf(pv, sdO[j][2 * i + half], dva[i]);
         dka[i] = fmaf(ds, sQ[j][2 * i + half], dka[i]);
       }
     }
@@ -417,20 +471,22 @@ attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (!key_ok) return;
   float* dkr = dk + b * dks.b + h * dks.h + key * dks.s;
   float* dvr = dv + b * dvs.b + h * dvs.h + key * dvs.s;
+  const float vscale = kDropout ? drop.inv_keep : 1.f;
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
     dkr[2 * i + half] = dka[i] * scale;
-    dvr[2 * i + half] = dva[i];
+    dvr[2 * i + half] = dva[i] * vscale;
   }
 }
 
+template <bool kDropout>
 __global__ void __launch_bounds__(128)
 attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dq, int H, int S, Strides qs, Strides ks,
                 Strides vs, Strides dos, Strides dqs, float scale,
-                float scale_log2) {
+                float scale_log2, cxr::Dropout drop) {
   __shared__ __align__(16) float sK[kTile][kHeadDim];
   __shared__ __align__(16) float sV[kTile][kHeadDim];
 
@@ -449,6 +505,7 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   const long long idx = static_cast<long long>(bh) * S + (row_ok ? row : 0);
   const float l2 = lse[idx] * kLog2e, dl = delta[idx];
+  const uint32_t dbase = kDropout ? cxr::drop_row(drop, bh, row) : 0u;
   const float* kp = k + b * ks.b + h * ks.h;
   const float* vp = v + b * vs.b + h * vs.h;
 
@@ -461,7 +518,10 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < jn; ++j) {
       const float s = pair_dot(qv, sK[j], half);
       const float p = exp2f(s * scale_log2 - l2);
-      const float ds = p * (pair_dot(dov, sV[j], half) - dl);
+      float dp = pair_dot(dov, sV[j], half);
+      if (kDropout)
+        dp = cxr::kept(drop, dbase, n0 + j) ? dp * drop.inv_keep : 0.f;
+      const float ds = p * (dp - dl);
 #pragma unroll
       for (int i = 0; i < kHalf; ++i) dqa[i] = fmaf(ds, sK[j][2 * i + half], dqa[i]);
     }
@@ -472,20 +532,17 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < kHalf; ++i) dqr[2 * i + half] = dqa[i] * scale;
 }
 
-}  // namespace
-
 // dtype: 0 = float32, 1 = bfloat16. ``strides`` holds (batch, head, seq)
 // element strides of q, k, v, o, dout, dq, dk, dv in that order (24
 // values); every head dim is contiguous with 16-byte aligned rows (the
 // wrapper checks). lse and the ``delta`` workspace are contiguous f32
 // [batch * heads, seq].
-extern "C" int cxr_attention_bwd(const void* q, const void* k, const void* v,
-                                 const void* o, const void* dout,
-                                 const void* lse, void* delta, void* dq,
-                                 void* dk, void* dv, int batch, int heads,
-                                 int seq, int head_dim,
-                                 const long long* strides, float scale,
-                                 int dtype, int device, void* stream) {
+template <bool kDropout>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lse, void* delta, void* dq,
+               void* dk, void* dv, int batch, int heads, int seq, int head_dim,
+               const long long* strides, float scale, int dtype, int device,
+               void* stream, cxr::Dropout drop) {
   if (head_dim != kHeadDim || seq <= 0 || batch <= 0 || heads <= 0 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -509,33 +566,66 @@ extern "C" int cxr_attention_bwd(const void* q, const void* k, const void* v,
         static_cast<const bf*>(o), static_cast<const bf*>(dout), dl, heads,
         seq, rows, st[3], st[4]);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dkdv_bf16<<<grid, 128, 0, cs>>>(
+    attn_bwd_dkdv_bf16<kDropout><<<grid, 128, 0, cs>>>(
         static_cast<const bf*>(q), static_cast<const bf*>(k),
         static_cast<const bf*>(v), static_cast<const bf*>(dout), l, dl,
         static_cast<bf*>(dk), static_cast<bf*>(dv), heads, seq, st[0],
-        st[1], st[2], st[4], st[6], st[7], scale, scale_log2);
+        st[1], st[2], st[4], st[6], st[7], scale, scale_log2, drop);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dq_bf16<<<grid, 128, 0, cs>>>(
+    attn_bwd_dq_bf16<kDropout><<<grid, 128, 0, cs>>>(
         static_cast<const bf*>(q), static_cast<const bf*>(k),
         static_cast<const bf*>(v), static_cast<const bf*>(dout), l, dl,
         static_cast<bf*>(dq), heads, seq, st[0], st[1], st[2], st[4], st[5],
-        scale, scale_log2);
+        scale, scale_log2, drop);
   } else {
     attn_bwd_delta<float><<<delta_blocks, 256, 0, cs>>>(
         static_cast<const float*>(o), static_cast<const float*>(dout), dl,
         heads, seq, rows, st[3], st[4]);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dkdv_f32<<<grid, 128, 0, cs>>>(
+    attn_bwd_dkdv_f32<kDropout><<<grid, 128, 0, cs>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
         static_cast<float*>(dk), static_cast<float*>(dv), heads, seq, st[0],
-        st[1], st[2], st[4], st[6], st[7], scale, scale_log2);
+        st[1], st[2], st[4], st[6], st[7], scale, scale_log2, drop);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dq_f32<<<grid, 128, 0, cs>>>(
+    attn_bwd_dq_f32<kDropout><<<grid, 128, 0, cs>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
         static_cast<float*>(dq), heads, seq, st[0], st[1], st[2], st[4],
-        st[5], scale, scale_log2);
+        st[5], scale, scale_log2, drop);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int cxr_attention_bwd(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const void* lse, void* delta, void* dq,
+                                 void* dk, void* dv, int batch, int heads,
+                                 int seq, int head_dim,
+                                 const long long* strides, float scale,
+                                 int dtype, int device, void* stream) {
+  return launch_bwd<false>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch,
+                           heads, seq, head_dim, strides, scale, dtype, device,
+                           stream, cxr::Dropout{});
+}
+
+// The dropout backward: the arguments of cxr_attention_bwd plus the mask's
+// scalars (see cxr::Dropout) and 1 / (1 - rate).
+extern "C" int cxr_attention_bwd_dropout(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int batch, int heads, int seq, int head_dim,
+    const long long* strides, float scale, unsigned seed_mix,
+    unsigned threshold, int q_pad, int s_pad, float inv_keep, int dtype,
+    int device, void* stream) {
+  if (q_pad < seq || s_pad < seq || !(inv_keep >= 1.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cxr::Dropout drop{seed_mix, threshold, static_cast<uint32_t>(q_pad),
+                          static_cast<uint32_t>(s_pad), 1.f / inv_keep,
+                          inv_keep, nullptr};
+  return launch_bwd<true>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch,
+                          heads, seq, head_dim, strides, scale, dtype, device,
+                          stream, drop);
 }

@@ -35,6 +35,7 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # them to 32 bits.
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+_U = ctypes.c_uint32
 _SIGNATURES = {
     "cxr_attention_fwd_inf": [_P, _P, _P, _P, _I, _I, _I, _I,
                               _LL, _LL, _LL, _LL, _LL, _LL,
@@ -44,8 +45,15 @@ _SIGNATURES = {
                           _LL, _LL, _LL, _LL, _LL, _LL,
                           _LL, _LL, _LL, _LL, _LL, _LL,
                           _F, _I, _I, _P],
+    "cxr_attention_fwd_dropout": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _LL, _LL, _LL, _LL, _LL, _LL,
+                                  _LL, _LL, _LL, _LL, _LL, _LL,
+                                  _F, _U, _U, _I, _I, _F, _I, _I, _P],
     "cxr_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _P, _F, _I, _I, _P],
+    "cxr_attention_bwd_dropout": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _P, _F, _U, _U, _I, _I,
+                                  _F, _I, _I, _P],
     "cxr_layer_norm_fwd": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
     "cxr_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I,
                            _I, _I, _I, _P],

@@ -18,7 +18,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from chestxray_vit_tpu.config import ModelConfig
+from chestxray_vit_tpu_torch.config import ModelConfig
 from chestxray_vit_tpu_torch.models.vit import ViT
 
 

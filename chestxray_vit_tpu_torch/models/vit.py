@@ -17,26 +17,37 @@ the training attention and LayerNorm kernels; master parameters stay in
 ``param_dtype`` and are cast to the compute dtype inside every step, so
 gradients reach them through the casts. ``remat=True`` with the ``full``
 policy checkpoints each block (``jax.checkpoint(scan_body, policy=None)``
-in the reference). Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP item: the other remat policies, dropout, the fused Q/K/V
-projection and token merging (``tome_r``).
+in the reference). Dropout follows the reference's HF semantics: on the
+softmax probabilities (``attention_dropout``, through the dropout attention
+kernels, whose counter-hash mask is the JAX package's bit for bit) and
+after the attention output and the MLP (``hidden_dropout``). Each takes a
+per-layer integer seed from the caller (``apply(dropout_seeds=...)``; the
+train step draws them), so a block recomputed under remat draws the same
+masks. Not ported yet, each raising ``NotImplementedError`` with its
+ROADMAP item: the other remat policies, the fused Q/K/V projection and
+token merging (``tome_r``).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from chestxray_vit_tpu.config import ModelConfig
-from chestxray_vit_tpu_torch.ops.flash_attention import attention
+from chestxray_vit_tpu_torch.config import ModelConfig
+from chestxray_vit_tpu_torch.ops.flash_attention import (attention,
+                                                         attention_dropout)
 from chestxray_vit_tpu_torch.ops.gelu import gelu
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# One layer's dropout seeds: (attention probabilities, hidden dropout after
+# the attention output, hidden dropout after the MLP).
+LayerSeeds = Tuple[int, int, int]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -163,40 +174,66 @@ def embed(params: ViT, images: torch.Tensor, cfg: ModelConfig,
 
 
 def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
-         compute_dtype: torch.dtype, train: bool = False) -> torch.Tensor:
+         compute_dtype: torch.dtype, train: bool = False,
+         seed: Optional[int] = None) -> torch.Tensor:
     """Multi-head attention on the pre-LN input, non-fused Q/K/V.
 
     Each projection lands as a [B, H, S, hd] view of its [B, S, D] product
     (no copy); the kernel reads those strides in place and writes heads
-    already merged in memory for the output projection."""
+    already merged in memory for the output projection. A training forward
+    with ``attention_dropout`` and a ``seed`` drops probabilities inside
+    the attention (the dropout kernels on the card, their plain version on
+    the CPU or with ``impl='xla'``)."""
     b, s, d = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
 
     def heads(p: Dense) -> torch.Tensor:
         return _linear(x, p, compute_dtype).view(b, s, h, hd).transpose(1, 2)
 
-    o = attention(heads(bp.wq), heads(bp.wk), heads(bp.wv), impl=attn_impl,
-                  inference=not train)
+    q, k, v = heads(bp.wq), heads(bp.wk), heads(bp.wv)
+    if train and cfg.attention_dropout > 0.0 and seed is not None:
+        o = attention_dropout(q, k, v, seed, cfg.attention_dropout,
+                              impl=attn_impl)
+    else:
+        o = attention(q, k, v, impl=attn_impl, inference=not train)
     return _linear(o.transpose(1, 2).reshape(b, s, d), bp.wo, compute_dtype)
 
 
+def _dropout(x: torch.Tensor, rate: float,
+             seed: Optional[int]) -> torch.Tensor:
+    """Hidden dropout, ``where(keep, x / (1 − rate), 0)`` in x's dtype
+    (the reference's ``_dropout``). keep ~ Bernoulli(1 − rate) comes from
+    a generator on x's device seeded with ``seed`` inside the call, so a
+    recompute under remat draws the same mask (checkpoint's RNG replay
+    covers only the default generators). Off at rate 0 or without a seed."""
+    if rate == 0.0 or seed is None:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def _block(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
-           compute_dtype: torch.dtype, train: bool = False) -> torch.Tensor:
+           compute_dtype: torch.dtype, train: bool = False,
+           seeds: Optional[LayerSeeds] = None) -> torch.Tensor:
     """One pre-LN encoder block (HF ViTLayer):
-    x += MHA(LN1(x)); x += MLP(LN2(x)) with erf GELU."""
+    x += drop(MHA(LN1(x))); x += drop(MLP(LN2(x))) with erf GELU."""
     eps = cfg.layernorm_eps
     dt = compute_dtype
+    attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
+    hidden = cfg.hidden_dropout if train else 0.0
     a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt), eps)
-    x = x + _mha(a_in, bp, cfg, attn_impl, dt, train)
+    attn_out = _mha(a_in, bp, cfg, attn_impl, dt, train, attn_seed)
+    x = x + _dropout(attn_out, hidden, seed_attn_out)
     m_in = layer_norm(x, bp.ln2.scale.to(dt), bp.ln2.bias.to(dt), eps)
     hmid = gelu(_linear(m_in, bp.mlp_in, dt),
                 approximate=cfg.gelu_approximate)
-    return x + _linear(hmid, bp.mlp_out, dt)
+    return x + _dropout(_linear(hmid, bp.mlp_out, dt), hidden, seed_mlp_out)
 
 
 def _check_supported(cfg: ModelConfig, train: bool) -> None:
-    # remat and dropout act only when training, where the reference reads
-    # them; at inference they are ignored, as there
+    # remat acts only when training, where the reference reads it; at
+    # inference it is ignored, as there
     later = {
         "tome_r (token merging is ROADMAP Queue 1 #7)":
             getattr(cfg, "tome_r", 0),
@@ -204,9 +241,6 @@ def _check_supported(cfg: ModelConfig, train: bool) -> None:
         f"remat_policy={cfg.remat_policy!r} (only 'full' is ported; the "
         f"selective policies are ROADMAP Queue 1 #2)":
             train and cfg.remat and cfg.remat_policy != "full",
-        "hidden_dropout / attention_dropout (dropout and the attention "
-        "dropout kernels are ROADMAP Queue 1 #9 and Queue 2 #5)":
-            train and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0),
     }
     for what, on in later.items():
         if on:
@@ -232,7 +266,8 @@ def _head(params: ViT, cls_features: torch.Tensor) -> torch.Tensor:
 
 
 def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
-          train: bool = False, return_features: bool = False):
+          train: bool = False, return_features: bool = False,
+          dropout_seeds: Optional[Sequence[LayerSeeds]] = None):
     """Forward pass.
 
     Args:
@@ -243,6 +278,10 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
         kernel, which refuses tensors that need a gradient: run eval and
         serving under ``torch.no_grad()`` or ``torch.inference_mode()``.
       return_features: also return the final-LN CLS features.
+      dropout_seeds: one ``(attention, hidden after attention, hidden
+        after MLP)`` triple of ints per layer, the counterpart of the
+        reference's ``rng``: with ``train`` they switch on the configured
+        dropout rates; None leaves dropout off, as ``rng=None`` does there.
 
     Returns logits f32 [B, num_classes] (and features if requested).
     """
@@ -250,13 +289,19 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
     compute_dtype = torch_dtype(cfg.dtype)
     x = embed(params, images, cfg, compute_dtype)
     remat = train and cfg.remat and torch.is_grad_enabled()
-    for bp in params.blocks:          # the JAX lax.scan over stacked layers
+    if dropout_seeds is not None and len(dropout_seeds) != len(params.blocks):
+        raise ValueError(f"{len(dropout_seeds)} dropout seed triples for "
+                         f"{len(params.blocks)} layers")
+    for i, bp in enumerate(params.blocks):   # the JAX lax.scan over layers
+        seeds = (tuple(dropout_seeds[i]) if dropout_seeds is not None
+                 else None)
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 _block, x, bp, cfg, cfg.attention_impl, compute_dtype, train,
-                use_reentrant=False)
+                seeds, use_reentrant=False)
         else:
-            x = _block(x, bp, cfg, cfg.attention_impl, compute_dtype, train)
+            x = _block(x, bp, cfg, cfg.attention_impl, compute_dtype, train,
+                       seeds)
     fl = params.final_ln
     x = layer_norm(x, fl.scale, fl.bias, cfg.layernorm_eps)
     cls_features = x[:, 0, :]

@@ -13,8 +13,17 @@
   ports of ``_fwd_kernel`` and ``_bwd_kernel``), joined by the autograd
   function ``FlashAttention``, which saves q, k, v, o and lse as the JAX
   custom VJP does (``flash_residual`` and ``flash_out``).
+- ``keep_mask``, ``attention_dropout_{fwd,bwd}_reference``: the dropout
+  mask (the counter hash of ``_keep_mask`` / ``_fmix32``) and the plain
+  math of ``_fwd_drop_impl`` and ``_bwd_kernel_drop``.
+- ``flash_attention_dropout_{fwd,bwd,debug}``: the dropout kernels
+  (``csrc/flash_attention_dropout.cu`` and ``csrc/flash_attention_bwd.cu``,
+  the ports of ``_fwd_kernel_drop``, ``_fwd_kernel_drop_debug`` and
+  ``_bwd_kernel_drop``), joined by ``FlashAttentionDropout``;
+  ``flash_attention_dropout`` has the JAX function's signature.
 - ``attention``: the dispatch of ``chestxray_vit_tpu.ops.flash_attention
-  .attention``.
+  .attention``; ``attention_dropout``: the dropout branch of the reference
+  ViT's ``_mha``.
 
 Each kernel wrapper runs its plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors. The TPU wrapper's tiling
@@ -173,6 +182,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the layout the projections' backward reads without a copy."""
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, o, lse, do, sm_scale)
+    grads = _bwd_launch(q, k, v, o, lse, do, sm_scale)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+flash_attention_bwd.launches = 0         # kernel launches (chip_smoke.py)
+
+
+def _bwd_launch(q, k, v, o, lse, do, sm_scale, dropout=None):
+    """Launch the backward kernels; ``dropout`` = (seed_mix, threshold,
+    q_pad, s_pad, 1/(1 − rate)) takes the dropout entry point."""
     do = do.to(q.dtype)
     if not _fits(do):
         do = do.contiguous()
@@ -187,18 +207,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = [st for t in (q, k, v, o, do, dq, dk, dv)
                for st in t.stride()[:3]]
     strides_c = (ctypes.c_longlong * len(strides))(*strides)
-    err = kernels.library().cxr_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, s, d,
-        ctypes.addressof(strides_c), _scale(q, sm_scale),
-        _DTYPE_CODES[q.dtype], q.device.index, _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, s, d,
+            ctypes.addressof(strides_c), _scale(q, sm_scale))
+    tail = (_DTYPE_CODES[q.dtype], q.device.index, _stream(q))
+    lib = kernels.library()
+    if dropout is None:
+        err = lib.cxr_attention_bwd(*args, *tail)
+    else:
+        err = lib.cxr_attention_bwd_dropout(*args, *dropout, *tail)
     kernels.check(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
     return dq, dk, dv
-
-
-flash_attention_bwd.launches = 0         # kernel launches (chip_smoke.py)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -217,6 +237,267 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.sm_scale)
         return dq, dk, dv, None
+
+
+# ---------------------------------------------------------------------------
+# Attention-probability dropout (HF ViTSelfAttention semantics)
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+DEFAULT_BLOCK_Q = 128       # the TPU wrapper's default Q block
+
+
+def _pad_len(s: int, block: int) -> int:
+    return ((s + block - 1) // block) * block
+
+
+def auto_block_q(seq_len: int) -> int:
+    """The JAX package's Q-block pick (``auto_block_q``): the whole padded
+    sequence up to 1024 rows, else 384-row blocks when they tile, else
+    128. Here it fixes only the mask's logical row stride."""
+    s_pad = _pad_len(seq_len, DEFAULT_BLOCK_Q)
+    if s_pad <= 1024:
+        return s_pad
+    if s_pad % 384 == 0:
+        return 384
+    return DEFAULT_BLOCK_Q
+
+
+def mask_strides(s: int, block_q: int) -> Tuple[int, int]:
+    """(q_pad, s_pad), the padded strides of the TPU wrapper that the
+    dropout counter is built from: Q rows padded to 16 when one block
+    covers the sequence (``_q_blocking``), else to a multiple of
+    ``block_q``; keys to a multiple of 128."""
+    q_pad = _pad_len(s, 16) if block_q >= s else _pad_len(s, block_q)
+    return q_pad, _pad_len(s, DEFAULT_BLOCK_Q)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x · c mod 2³² for int64 x in [0, 2³²): the constant split into
+    16-bit halves, so no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's finalizer on uint32 values held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def dropout_constants(seed: int, rate: float) -> Tuple[int, int]:
+    """(seed · 0x9E3779B9 mod 2³², threshold): the int32 seed read as
+    uint32 and mixed as ``_keep_mask`` does; an element is kept when its
+    hash is at least ``min(int(rate · 2³²), 2³² − 1)``."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    return (((int(seed) & _M32) * 0x9E3779B9) & _M32,
+            min(int(rate * 2.0 ** 32), _M32))
+
+
+def keep_mask(bh: int, q_pad: int, s_pad: int, seed: int, rate: float,
+              device=None) -> torch.Tensor:
+    """The dropout keep mask, bool [bh, q_pad, s_pad], of the JAX package's
+    ``_keep_mask`` / ``_fmix32``: element (b, i, j) hashes the counter
+    (b·q_pad + i)·s_pad + j (uint32, wrapping) XOR the mixed seed and is
+    kept when the hash reaches the threshold. Plain integer tensor code
+    (uint32 arithmetic in int64), so it runs on the CPU and the card."""
+    seed_mix, threshold = dropout_constants(seed, rate)
+    kw = {"dtype": torch.int64, "device": device}
+    row = (torch.arange(bh, **kw)[:, None] * q_pad
+           + torch.arange(q_pad, **kw)[None, :]) & _M32
+    counter = (_mul32(row, s_pad)[:, :, None]
+               + torch.arange(s_pad, **kw)) & _M32
+    return _fmix32(counter ^ seed_mix) >= threshold
+
+
+def _keep(q: torch.Tensor, seed: int, rate: float,
+          block_q: int) -> torch.Tensor:
+    """The [B, H, S, S] keep mask of attention over q's shape."""
+    b, h, s, _ = q.shape
+    q_pad, s_pad = mask_strides(s, block_q)
+    return keep_mask(b * h, q_pad, s_pad, seed, rate,
+                     q.device)[:, :s, :s].reshape(b, h, s, s)
+
+
+def attention_dropout_fwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, seed: int, rate: float,
+                                    sm_scale: Optional[float] = None,
+                                    block_q: int = DEFAULT_BLOCK_Q
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward of ``_fwd_drop_impl``: the clean softmax P (its lse is
+    returned as the dense forward's), kept probabilities scaled by
+    1/(1 − rate), dropped ones zero: (o in q's dtype, lse f32 [B, H, S])."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _scale(
+        q, sm_scale)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(_keep(q, seed, rate, block_q), p, 0.0)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / (1.0 - rate)
+    return o.to(q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def attention_dropout_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, o: torch.Tensor,
+                                    lse: torch.Tensor, do: torch.Tensor,
+                                    seed: int, rate: float,
+                                    sm_scale: Optional[float] = None,
+                                    block_q: int = DEFAULT_BLOCK_Q
+                                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """Plain backward of ``_bwd_kernel_drop``: P recomputed from lse and
+    rounded to q's dtype, the same mask M regenerated, dV = (M∘P)ᵀ·dO/(1−r),
+    dS = P∘(M∘dP/(1−r) − Δ) with the unchanged Δ = rowsum(dO∘O), rounded to
+    q's dtype; dQ = dS·K·scale, dK = dSᵀ·Q·scale."""
+    scale = _scale(q, sm_scale)
+    inv = 1.0 / (1.0 - rate)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = do.to(q.dtype).float()
+    keep = _keep(q, seed, rate, block_q)
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    p = torch.exp(s * scale - lse.float()[..., None]).to(q.dtype).float()
+    dv = torch.matmul(torch.where(keep, p, 0.0).transpose(-1, -2), dof) * inv
+    dp = torch.where(keep, torch.matmul(dof, vf.transpose(-1, -2)) * inv, 0.0)
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep):
+    """Launch the dropout forward kernel; ``keep`` (u8 [B·H, S, S]) makes it
+    the debug variant that also writes the mask."""
+    _check(q, k, v)
+    b, h, s, d = q.shape
+    q_pad, s_pad = mask_strides(s, block_q)
+    seed_mix, threshold = dropout_constants(seed, rate)
+    out = _heads_merged(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    err = kernels.library().cxr_attention_fwd_dropout(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), keep.data_ptr() if keep is not None else None,
+        b, h, s, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], _scale(q, sm_scale), seed_mix, threshold, q_pad,
+        s_pad, 1.0 - rate, _DTYPE_CODES[q.dtype], q.device.index, _stream(q))
+    kernels.check(err, "flash_attention_dropout_fwd")
+    return out, lse
+
+
+def flash_attention_dropout_fwd(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, seed: int, rate: float,
+                                sm_scale: Optional[float] = None,
+                                block_q: int = DEFAULT_BLOCK_Q
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward with dropout: (o, lse f32 [B, H, S]). CPU tensors
+    take :func:`attention_dropout_fwd_reference`; CUDA tensors launch the
+    kernel (``csrc/flash_attention_dropout.cu``), which takes what
+    :func:`flash_attention_fwd` takes and hashes the mask in registers."""
+    if q.device.type == "cpu":
+        return attention_dropout_fwd_reference(q, k, v, seed, rate,
+                                               sm_scale, block_q)
+    out = _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, None)
+    flash_attention_dropout_fwd.launches += 1
+    return out
+
+
+flash_attention_dropout_fwd.launches = 0  # kernel launches (chip_smoke.py)
+
+
+def flash_attention_dropout_debug(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, seed: int, rate: float,
+                                  sm_scale: Optional[float] = None,
+                                  block_q: int = DEFAULT_BLOCK_Q
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, keep bool [B, H, S, S]): the dropout forward that also writes
+    the mask it applied, the oracle of the mask as the JAX package's
+    ``flash_attention_dropout_debug`` is. CPU tensors take the plain
+    forward and :func:`keep_mask`."""
+    if q.device.type == "cpu":
+        o, _ = attention_dropout_fwd_reference(q, k, v, seed, rate,
+                                               sm_scale, block_q)
+        return o, _keep(q, seed, rate, block_q)
+    b, h, s, _ = q.shape
+    keep = torch.empty((b, h, s, s), dtype=torch.bool, device=q.device)
+    o, _ = _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep)
+    flash_attention_dropout_debug.launches += 1
+    return o, keep
+
+
+flash_attention_dropout_debug.launches = 0  # kernel launches
+
+
+def flash_attention_dropout_bwd(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, o: torch.Tensor,
+                                lse: torch.Tensor, do: torch.Tensor,
+                                seed: int, rate: float,
+                                sm_scale: Optional[float] = None,
+                                block_q: int = DEFAULT_BLOCK_Q
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """Training backward with dropout: (dq, dk, dv) in q's dtype, laid
+    out as :func:`flash_attention_bwd` lays them out. CPU tensors take
+    :func:`attention_dropout_bwd_reference`; CUDA tensors launch the
+    kernels of ``csrc/flash_attention_bwd.cu`` with the mask regenerated."""
+    if q.device.type == "cpu":
+        return attention_dropout_bwd_reference(q, k, v, o, lse, do, seed,
+                                               rate, sm_scale, block_q)
+    s = q.shape[2]
+    q_pad, s_pad = mask_strides(s, block_q)
+    seed_mix, threshold = dropout_constants(seed, rate)
+    grads = _bwd_launch(q, k, v, o, lse, do, sm_scale,
+                        (seed_mix, threshold, q_pad, s_pad,
+                         1.0 / (1.0 - rate)))
+    flash_attention_dropout_bwd.launches += 1
+    return grads
+
+
+flash_attention_dropout_bwd.launches = 0  # kernel launches (chip_smoke.py)
+
+
+class FlashAttentionDropout(torch.autograd.Function):
+    """Attention with dropout through the dropout kernels in both
+    directions. Saves q, k, v, o and lse, as :class:`FlashAttention`, and
+    the seed as a Python int: the backward regenerates the mask, so no
+    mask is stored and a recompute under remat replays it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, rate, sm_scale=None,
+                block_q=DEFAULT_BLOCK_Q):
+        o, lse = flash_attention_dropout_fwd(q, k, v, seed, rate, sm_scale,
+                                             block_q)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.seed, ctx.rate = int(seed), rate
+        ctx.sm_scale, ctx.block_q = sm_scale, block_q
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_dropout_bwd(
+            q, k, v, o, lse, do, ctx.seed, ctx.rate, ctx.sm_scale,
+            ctx.block_q)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, seed: int, rate: float,
+                            sm_scale: Optional[float] = None,
+                            block_q: int = DEFAULT_BLOCK_Q) -> torch.Tensor:
+    """Attention with in-kernel probability dropout, the signature of the
+    JAX package's ``flash_attention_dropout`` (``seed`` an int32 value,
+    ``block_q`` fixing only the mask's logical row stride): the autograd
+    function over the kernels for CUDA tensors, the plain forward under
+    plain autograd for CPU tensors. The same seed gives the same mask as
+    the JAX function, bit for bit."""
+    if q.device.type == "cpu":
+        return attention_dropout_fwd_reference(q, k, v, seed, rate,
+                                               sm_scale, block_q)[0]
+    return FlashAttentionDropout.apply(q, k, v, seed, rate, sm_scale,
+                                       block_q)
 
 
 def _fits(t: torch.Tensor) -> bool:
@@ -279,3 +560,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if inference:
         return flash_attention_inference(q, k, v)
     return FlashAttention.apply(q, k, v)
+
+
+def attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      seed: int, rate: float,
+                      impl: str = "auto") -> torch.Tensor:
+    """Training attention with probability dropout, as the reference ViT's
+    ``_mha`` runs it: :func:`flash_attention_dropout` with the automatic
+    Q block (the mask's row stride) for ``'auto'`` and ``'pallas'``; its
+    plain version under plain autograd for ``'xla'``. The reference's XLA
+    path draws another mask stream (``jax.random``); the port keeps the
+    counter hash on every path."""
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    block_q = auto_block_q(q.shape[2])
+    if impl == "xla":
+        return attention_dropout_fwd_reference(q, k, v, seed, rate, None,
+                                               block_q)[0]
+    return flash_attention_dropout(q, k, v, seed, rate, None, block_q)

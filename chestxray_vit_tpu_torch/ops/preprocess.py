@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from chestxray_vit_tpu.config import PROCESSOR_MEAN, PROCESSOR_STD
+from chestxray_vit_tpu_torch.config import PROCESSOR_MEAN, PROCESSOR_STD
 
 
 def _resize_weights(out_size: int, src_extent: torch.Tensor, max_in: int

@@ -5,8 +5,7 @@ Images come in as encoded bytes or decoded u8 grayscale arrays. The host
 half (``stage_chunk``) decodes, crops, pads to a power-of-two bucket and
 starts the host→device copy; the device half (``forward_staged``) runs the
 ViT forward and pulls the logits, and the host takes the sigmoid. The
-reused ``chestxray_vit_tpu.serve.batcher.MicroBatcher`` runs the two halves
-on two threads.
+port's ``serve.batcher.MicroBatcher`` runs the two halves on two threads.
 
 Both halves enqueue their work on one CUDA stream that the Predictor owns,
 so the copy of a batch is ordered before the forward that reads it whatever
@@ -25,9 +24,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from chestxray_vit_tpu.config import ModelConfig
-from chestxray_vit_tpu.data import decode as dec
-from chestxray_vit_tpu.data import geometry as geo
+from chestxray_vit_tpu_torch.config import ModelConfig
+from chestxray_vit_tpu_torch.data import decode as dec
+from chestxray_vit_tpu_torch.data import geometry as geo
 from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.ops.preprocess import (fused_preprocess,
                                                     normalize_u8)
@@ -112,7 +111,6 @@ class Predictor:
         c = self.canvas_size
         n = len(images_bytes) + n_pad
         if self.placement == "host":
-            from chestxray_vit_tpu.data.pipeline import host_resize
             s = self.cfg.img_size
             pixels = np.zeros((n, s, s), np.uint8)
 
@@ -121,7 +119,7 @@ class Predictor:
                 gray = (data if isinstance(data, np.ndarray)
                         else dec.safe_decode_gray(data, dummy_size=(c, c)))
                 h, w = gray.shape
-                pixels[i] = host_resize(gray, geo.full_image_box(w, h), s)
+                pixels[i] = geo.host_resize(gray, geo.full_image_box(w, h), s)
 
             with ThreadPoolExecutor(min(8, max(len(images_bytes), 1))) as ex:
                 list(ex.map(stage_one, enumerate(images_bytes)))

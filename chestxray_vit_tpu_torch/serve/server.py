@@ -5,10 +5,7 @@ GET  /healthz          → {"status": "ok"}
 GET  /metrics          → request/error counts + latency quantiles (JSON)
 
 Stdlib only (ThreadingHTTPServer). Concurrent requests coalesce into shared
-forwards through the JAX package's framework-free
-``chestxray_vit_tpu.serve.batcher.MicroBatcher``, reused as it is. The
-JAX package's ``serve/server.py`` imports its JAX ``Predictor`` at module
-top, so this module is its counterpart rather than a reuse. Attention maps
+forwards through the port's ``serve.batcher.MicroBatcher``. Attention maps
 (``?maps=1``) answer 501 until they are ported. Start with random weights
 (checkpoint loading is a later slice):
 
@@ -27,9 +24,9 @@ from urllib.parse import parse_qs, urlparse
 
 import torch
 
-from chestxray_vit_tpu.config import ModelConfig
-from chestxray_vit_tpu.serve.batcher import MicroBatcher
+from chestxray_vit_tpu_torch.config import ModelConfig
 from chestxray_vit_tpu_torch.models.vit import init_params
+from chestxray_vit_tpu_torch.serve.batcher import MicroBatcher
 from chestxray_vit_tpu_torch.serve.inference import Predictor
 
 # NIH natives are 1024² PNGs (< 1 MB); anything past this is not an X-ray

@@ -9,19 +9,27 @@ strided micro-batch gradient accumulation of the reference. PyTorch runs
 eagerly, so there is no ``jit``: the step mutates the state's parameters
 and moments in place and returns the same state with ``step + 1``.
 
+Random numbers: where the reference splits ``state.rng`` once per step and
+once per micro-batch, the port draws from the state's explicit
+``torch.Generator`` (never the global RNG), per micro-batch in order: the
+per-layer dropout seeds when a dropout rate is set, then the mixup λ when
+``data.mixup_alpha`` is. Tests inject the reference's own draws through
+``train_step(..., draws=...)``.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: mixup, the int8 straight-through forward, token merging and the
-packed step.
+item: the int8 straight-through forward, token merging and the packed
+step.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from chestxray_vit_tpu.config import Config
+from chestxray_vit_tpu_torch.config import Config
 from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.ops.preprocess import prepare_pixel_values
 from chestxray_vit_tpu_torch.train import optimizer as opt
@@ -61,23 +69,63 @@ class TrainState:
 
     @staticmethod
     def create(params: vit.ViT, seed: int) -> "TrainState":
-        """Step 0, zero moments, a generator seeded with ``seed`` (for
-        dropout and augmentation, which the dense step does not draw yet)."""
+        """Step 0, zero moments, a CPU generator seeded with ``seed`` for
+        the dropout seeds and the mixup λ."""
         return TrainState(step=0, params=params,
                           opt_state=opt.init_opt_state(params),
                           generator=torch.Generator().manual_seed(seed))
 
 
+@dataclass
+class Draws:
+    """The random numbers of one micro-batch's forward."""
+
+    # per layer: (attention, hidden after attention, hidden after the MLP);
+    # None when no dropout rate is set
+    seeds: Optional[List[vit.LayerSeeds]] = None
+    # mixup λ per sample, f32 [micro-batch]; None without mixup
+    lam: Optional[np.ndarray] = None
+
+
+def draw(generator: torch.Generator, cfg: Config, batch_size: int) -> Draws:
+    """One micro-batch's draws from ``generator``: 3 seeds per layer when
+    a dropout rate is set (the attention one an int32, as the reference's
+    ``_dropout_seed`` gives), then λ ~ Beta(α, α) per sample, sampled on
+    the host by a numpy generator seeded from ``generator``."""
+    out = Draws()
+    m = cfg.model
+    if m.attention_dropout > 0.0 or m.hidden_dropout > 0.0:
+        raw = torch.randint(0, 2 ** 32, (m.num_layers, 3),
+                            generator=generator, dtype=torch.int64).tolist()
+        out.seeds = [(a - 2 ** 32 if a >= 2 ** 31 else a, h0, h1)
+                     for a, h0, h1 in raw]
+    alpha = cfg.data.mixup_alpha
+    if alpha > 0.0:
+        seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=generator))
+        out.lam = np.random.default_rng(seed).beta(
+            alpha, alpha, batch_size).astype(np.float32)
+    return out
+
+
+def mixup(images: torch.Tensor, labels: torch.Tensor, lam
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample mixup (the reference's, ``train/steps.py``): sample i
+    mixes with the batch rolled by one, ``λ_i·x_i + (1 − λ_i)·x_{i−1}``,
+    on the images and, as f32 soft labels, on the labels."""
+    lam = torch.tensor(lam, dtype=torch.float32).to(images.device)
+    li = lam.view(-1, 1, 1, 1)
+    images = li * images + (1.0 - li) * torch.roll(images, 1, 0)
+    ll = lam.view(-1, 1)
+    labels = (ll * labels.float()
+              + (1.0 - ll) * torch.roll(labels, 1, 0).float())
+    return images, labels
+
+
 def _not_ported(cfg: Config) -> None:
-    later = {
-        "data.mixup_alpha > 0 (per-sample Beta mixup is ROADMAP Queue 1 "
-        "#9, beside dropout)": getattr(cfg.data, "mixup_alpha", 0.0) > 0.0,
-        "model.tome_r (token merging is ROADMAP Queue 1 #7)":
-            getattr(cfg.model, "tome_r", 0),
-    }
-    for what, on in later.items():
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if getattr(cfg.model, "tome_r", 0):
+        raise NotImplementedError(
+            "model.tome_r (token merging is ROADMAP Queue 1 #7) is not "
+            "ported yet")
 
 
 def _images(cfg: Config, batch: Batch) -> torch.Tensor:
@@ -93,10 +141,12 @@ def _images(cfg: Config, batch: Batch) -> torch.Tensor:
 def make_train_step(cfg: Config, total_steps: int, int8_scales=None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """Build the dense train step ``(state, batch) → (state, metrics)``;
-    ``metrics`` holds 0-d f32 tensors ``loss``, ``grad_norm`` and ``lr``
-    on the parameters' device. ``batch`` holds ``labels`` and one pixel
-    placement (see ``prepare_pixel_values``), on the parameters' device."""
+    """Build the train step ``(state, batch, draws=None) → (state,
+    metrics)``; ``metrics`` holds 0-d f32 tensors ``loss``, ``grad_norm``
+    and ``lr`` on the parameters' device. ``batch`` holds ``labels`` and
+    one pixel placement (see ``prepare_pixel_values``), on the parameters'
+    device. ``draws`` (one :class:`Draws` per micro-batch) replaces what
+    the step would draw from ``state.generator``."""
     if int8_scales is not None:
         raise NotImplementedError(
             "int8_scales (the int8 straight-through train forward is "
@@ -110,26 +160,31 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None
         max_grad_norm=cfg.train.max_grad_norm)
     accum = max(cfg.train.gradient_accumulation_steps, 1)
 
-    def loss_fn(params: vit.ViT, batch: Batch) -> torch.Tensor:
-        logits = vit.apply(params, _images(cfg, batch), cfg.model,
-                           train=True)
-        return bce_with_logits(logits, batch["labels"])
+    def loss_fn(params: vit.ViT, batch: Batch, d: Draws) -> torch.Tensor:
+        images, labels = _images(cfg, batch), batch["labels"]
+        if d.lam is not None:
+            images, labels = mixup(images, labels, d.lam)
+        logits = vit.apply(params, images, cfg.model, train=True,
+                           dropout_seeds=d.seeds)
+        return bce_with_logits(logits, labels)
 
-    def grads_of(params: vit.ViT, batch: Batch) -> torch.Tensor:
+    def grads_of(params: vit.ViT, batch: Batch,
+                 draws: Sequence[Draws]) -> torch.Tensor:
         """Loss, with the gradients left in ``.grad``. With accumulation
         the batch is split strided (micro-batch i takes rows i, i + k,
         …, as the reference splits it), k forward/backward passes add
-        their gradients, and the loss and gradients are scaled by 1/k."""
+        their gradients, and the loss and gradients are scaled by 1/k.
+        Micro-batch i takes ``draws[i]``, so mixup pairs rows within it."""
         for p in params.parameters():
             p.grad = None
         if accum == 1:
-            loss = loss_fn(params, batch)
+            loss = loss_fn(params, batch, draws[0])
             loss.backward()
             return loss.detach()
         loss_sum = None
         for i in range(accum):
             micro = {key: val[i::accum] for key, val in batch.items()}
-            loss = loss_fn(params, micro)
+            loss = loss_fn(params, micro, draws[i])
             loss.backward()
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -138,9 +193,15 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None
             p.grad.mul_(inv)
         return loss_sum * inv
 
-    def train_step(state: TrainState, batch: Batch):
+    def train_step(state: TrainState, batch: Batch,
+                   draws: Optional[Sequence[Draws]] = None):
         params = state.params
-        loss = grads_of(params, batch)
+        if draws is None:
+            micro = batch["labels"].shape[0] // accum
+            draws = [draw(state.generator, cfg, micro) for _ in range(accum)]
+        if len(draws) != accum:
+            raise ValueError(f"{len(draws)} draws for {accum} micro-batches")
+        loss = grads_of(params, batch, draws)
         grads, grad_norm = opt.clip_by_global_norm(
             {n: p.grad for n, p in params.named_parameters()},
             adamw_cfg.max_grad_norm)

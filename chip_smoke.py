@@ -1,5 +1,6 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: the serving path and
-the dense fine-tune and eval steps.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: the serving path, the
+fine-tune step (dense, and with attention dropout, hidden dropout and
+mixup) and the eval step.
 
     python3 chip_smoke.py
 
@@ -11,7 +12,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    (one process per source, all at once).
 3. kernel_check: each kernel against its plain PyTorch version on the card,
    at its path's shapes (ViT-B/16 @384: batch 8 for serving, batch 36 for
-   training), with the tolerance stated, and the median time of each.
+   training), with the tolerance stated; the median time of each, of its
+   plain version and of the one PyTorch call that computes the same
+   function (timed only, never used by the port), and its bound. The
+   dropout kernels at [36, 12, 577, 64], rate 0.1: the debug kernel's mask
+   against the plain counter hash (0 mismatches), o, lse and dq/dk/dv.
 4. serving: a Predictor at full ViT-B/16 @384 width in bf16 (random
    weights from seed 0) behind the MicroBatcher answers concurrent
    requests from several threads; every request must be answered with 15
@@ -30,6 +35,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    with the card in bf16.
 8. eval: the eval step over 4 batches of 36 and the on-device AUROC / F1,
    against the row losses and metrics recomputed on the CPU.
+9. train_dropout: the step of 6 with attention dropout 0.1, hidden
+   dropout 0.1 and mixup α 0.2: 2 warm-up and 5 timed steps, finite
+   losses, exact launch counts per step (24 dropout forwards, 12 dropout
+   backwards, no dense training attention), then one step with and one
+   without remat on the same weights, batch and draws.
+10. train_dropout_cross_check: 7 with attention dropout 0.1 and mixup on
+   the same injected draws (the attention mask is a counter hash, equal on
+   the card and the CPU; hidden dropout draws from a generator of the
+   tensor's device, so 9 and the CPU tests cover it).
 
 The second-to-last line is the kernels summary, the last one the result.
 """
@@ -52,7 +66,29 @@ CLIENT_THREADS = 4
 SEED = 0
 TRAIN_BATCH = 36            # bench.py's batch per chip; remat on above 32
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+DROPOUT_WARMUP_STEPS, DROPOUT_TIMED_STEPS = 2, 5
 EVAL_BATCHES = 4
+DROP_RATE, DROP_SEED = 0.1, -123456789   # a negative int32 seed, as JAX's
+MIXUP_ALPHA = 0.2
+
+# The least time the card could take for a kernel's work: the larger of its
+# bytes (each input read once, each output written once) over the memory
+# rate and its operations over the peak rate of their type, from NVIDIA's
+# data sheet for the H100 SXM (dense): products on the tensor cores in bf16,
+# on the CUDA cores (plain FMA) in f32; LayerNorm's arithmetic on the CUDA
+# cores, beside the tensor cores in bf16. The dropout hash is integer work:
+# the data sheet gives no INT32 rate, so it is counted at the SM's 64 INT32
+# lanes per clock (half its 128 FP32 lanes), 132 SMs at the 1,980 MHz boost
+# clock, beside both.
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS, CUDA_CORE_FLOPS = 989e12, 67e12
+INT32_OPS = 132 * 64 * 1.98e9
+# integer operations of the hash per score element: add the column, XOR
+# the seed, murmur3's finalizer (3 shift-XORs, 2 multiplies), compare, select
+HASH_OPS = 12
+# LayerNorm per element: forward mean, variance, normalize, scale, shift;
+# backward the two row sums, dx, and the dscale/dbias sums
+LN_FWD_OPS, LN_BWD_OPS = 8, 12
 
 # Tolerances, each with its reason:
 # - attention, bf16: the bf16 tolerance of tests/test_flash_attention.py
@@ -125,6 +161,71 @@ def time_pair(kernel, plain) -> tuple:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(nbytes: float, flops: float, dtype, core_ops: float = 0.0,
+          int_ops: float = 0.0) -> dict:
+    """``bound_ms`` and ``bound_by`` of a kernel's work (see
+    HBM_BYTES_PER_S): ``flops`` are its products, ``core_ops`` the float
+    work on the CUDA cores beside them, ``int_ops`` the integer work."""
+    if dtype == torch.bfloat16:
+        t_ops = max(flops / BF16_TENSOR_FLOPS, core_ops / CUDA_CORE_FLOPS)
+    else:
+        t_ops = (flops + core_ops) / CUDA_CORE_FLOPS
+    t_ops = max(t_ops, int_ops / INT32_OPS)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bytes": nbytes, "flops": flops, "core_ops": core_ops,
+            "int_ops": int_ops}
+
+
+def attention_bound(shape, dtype, *, backward=False, lse=False,
+                    hash_passes=0, mask_out=False) -> dict:
+    """The attention forward reads q, k, v and writes o (and lse): 4·S²·d
+    flops per head (QKᵀ and PV). The backward reads q, k, v, o, dO and lse
+    and writes dq, dk, dv: 10·S²·d (S again, dV, dP, dQ, dK). The dropout
+    kernels hash each score element in each pass; the debug forward also
+    writes the byte mask."""
+    b, h, s, d = shape
+    e = torch.empty((), dtype=dtype).element_size()
+    tensors = 8 if backward else 4
+    nbytes = (tensors * b * h * s * d * e
+              + (4 * b * h * s if backward or lse else 0)
+              + (b * h * s * s if mask_out else 0))
+    flops = (10 if backward else 4) * b * h * s * s * d
+    return bound(nbytes, flops, dtype,
+                 int_ops=HASH_OPS * hash_passes * b * h * s * s)
+
+
+def layer_norm_bound(rows, d, x_dtype, w_dtype, backward=False) -> dict:
+    """Forward: x, scale, bias in, y out. Backward: x, dy, scale in, dx,
+    dscale, dbias out (the statistics are recomputed from x)."""
+    ex = torch.empty((), dtype=x_dtype).element_size()
+    ew = torch.empty((), dtype=w_dtype).element_size()
+    if backward:
+        return bound(3 * rows * d * ex + 3 * d * ew, 0, x_dtype,
+                     LN_BWD_OPS * rows * d)
+    return bound(2 * rows * d * ex + 2 * d * ew, 0, x_dtype,
+                 LN_FWD_OPS * rows * d)
+
+
+def library_attention(q, k, v, do=None, rate=0.0) -> tuple:
+    """(forward ms, backward ms or None) of PyTorch's flash SDPA, forward
+    with the logsumexp and, given dO, backward, on contiguous [B, H, S, d]
+    copies of the operands (it lays them out otherwise than the kernels
+    read them), with ``dropout_p = rate``: a yardstick, never called by the
+    port."""
+    flash = torch.ops.aten._scaled_dot_product_flash_attention
+    flash_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    fwd_ms = time_ms(lambda: flash(q, k, v, rate))
+    if do is None:
+        return fwd_ms, None
+    do = do.contiguous()
+    o, lse, cq, ck, mq, mk, seed, offset, _ = flash(q, k, v, rate)
+    return fwd_ms, time_ms(lambda: flash_bwd(do, q, k, v, o, lse, cq, ck, mq,
+                                             mk, rate, False, seed, offset))
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
                       - 7)
@@ -138,7 +239,10 @@ def _wrappers() -> dict:
             "layer_norm": ln.layer_norm_cuda,
             "flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
-            "layer_norm_bwd": ln.layer_norm_bwd_cuda}
+            "layer_norm_bwd": ln.layer_norm_bwd_cuda,
+            "flash_attention_dropout_fwd": fa.flash_attention_dropout_fwd,
+            "flash_attention_dropout_debug": fa.flash_attention_dropout_debug,
+            "flash_attention_dropout_bwd": fa.flash_attention_dropout_bwd}
 
 
 def launch_counts() -> dict:
@@ -207,12 +311,14 @@ def phase_kernel_check() -> dict:
                    "shape": [BATCH, 12, s, 64], "dtype": str(dtype),
                    "max_abs_err": err, "tol": ATTN_TOL[dtype],
                    "finite": bool(torch.isfinite(out).all()),
-                   "ms": ms, "plain_ms": plain_ms}
+                   "ms": ms, "plain_ms": plain_ms,
+                   **attention_bound(q.shape, dtype)}
+            if s == 577 and dtype == torch.bfloat16:
+                rec["library_ms"] = library_attention(q, k, v)[0]
+                summary["flash_attention_inference"] = rec
             emit(rec)
             require(rec["finite"] and err <= ATTN_TOL[dtype],
                     f"attention S={s} {dtype}: err {err}")
-            if s == 577 and dtype == torch.bfloat16:
-                summary["attention"] = rec
 
     rows, d = BATCH * 577, 768
     for x_dtype, w_dtype in ((torch.bfloat16, torch.bfloat16),
@@ -236,13 +342,18 @@ def phase_kernel_check() -> dict:
         rec = {"phase": "kernel_check", "kernel": "layer_norm",
                "shape": [rows, d], "dtype": str(x_dtype),
                "scale_dtype": str(w_dtype), "max_abs_err": err, "tol": tol,
-               "ms": ms, "plain_ms": plain_ms}
+               "ms": ms, "plain_ms": plain_ms,
+               **layer_norm_bound(rows, d, x_dtype, w_dtype)}
+        if x_dtype == w_dtype == torch.bfloat16:
+            rec["library_ms"] = time_ms(
+                lambda: torch.nn.functional.layer_norm(x, (d,), s_, b_,
+                                                       1e-12))
+            summary["layer_norm"] = rec
         emit(rec)
         require(ok, f"layer_norm {x_dtype}/{w_dtype}: err {err}")
-        if x_dtype == w_dtype == torch.bfloat16:
-            summary["layer_norm"] = rec
     check_training_attention(randn, summary)
     check_layer_norm_bwd(randn, summary)
+    check_dropout_attention(randn, summary)
     return summary
 
 
@@ -278,7 +389,11 @@ def check_training_attention(randn, summary: dict) -> None:
             rec = {"phase": "kernel_check", "kernel": "attention_fwd",
                    "shape": list(shape), "dtype": str(dtype),
                    "max_abs_err": err_o, "lse_max_abs_err": err_lse,
-                   "tol": tol, "ms": ms, "plain_ms": plain_ms}
+                   "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                   **attention_bound(shape, dtype, lse=True)}
+            summary_row = s == 577 and dtype == torch.bfloat16
+            if summary_row:
+                rec["library_ms"], lib_bwd_ms = library_attention(q, k, v, do)
             emit(rec)
             require(bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
                     and err_o <= tol and err_lse <= tol,
@@ -297,14 +412,16 @@ def check_training_attention(randn, summary: dict) -> None:
                      "max_abs_err": max((g.float() - r.float()).abs().max()
                                         .item() for g, r in zip(grads, refs)),
                      "rel_tol": ATTN_GRAD_TOL[dtype], "ms": ms_b,
-                     "plain_ms": plain_ms_b}
+                     "plain_ms": plain_ms_b,
+                     **attention_bound(shape, dtype, backward=True)}
+            if summary_row:
+                rec_b["library_ms"] = lib_bwd_ms
+                summary["flash_attention_fwd"] = rec
+                summary["flash_attention_bwd"] = rec_b
             emit(rec_b)
             require(all(bool(torch.isfinite(g).all()) for g in grads)
                     and max(errs) <= ATTN_GRAD_TOL[dtype],
                     f"attention bwd S={s} {dtype}: {errs}")
-            if s == 577 and dtype == torch.bfloat16:
-                summary["flash_attention_fwd"] = rec
-                summary["flash_attention_bwd"] = rec_b
 
 
 def check_layer_norm_bwd(randn, summary: dict) -> None:
@@ -349,11 +466,117 @@ def check_layer_norm_bwd(randn, summary: dict) -> None:
                "deterministic": all(torch.equal(a, b)
                                     for a, b in zip(got, again)),
                "tol": "dx as layer_norm; dscale/dbias 1e-5 rel (+1 ulp "
-                      "in bf16)", "ms": ms, "plain_ms": plain_ms}
+                      "in bf16)", "ms": ms, "plain_ms": plain_ms,
+               **layer_norm_bound(rows, d, x_dtype, w_dtype, backward=True)}
+        if x_dtype == w_dtype == torch.bfloat16:
+            # the library's backward takes the forward's statistics
+            _, mean, rstd = torch.ops.aten.native_layer_norm(
+                x, [d], scale, torch.zeros_like(scale), 1e-12)
+            rec["library_ms"] = time_ms(
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [d], mean, rstd, scale, scale, [True] * 3))
+            summary["layer_norm_bwd"] = rec
         emit(rec)
         require(ok, f"layer_norm_bwd {x_dtype}/{w_dtype}: {rec}")
-        if x_dtype == w_dtype == torch.bfloat16:
-            summary["layer_norm_bwd"] = rec
+
+
+def check_dropout_attention(randn, summary: dict) -> None:
+    """The dropout kernels at the training shape, rate 0.1, the automatic
+    Q block: the debug kernel's mask against the plain counter hash (0
+    mismatches), its o and the forward's o and lse and the backward's dq,
+    dk, dv against their plain versions; times beside PyTorch's flash SDPA with
+    ``dropout_p = 0.1`` (the same work on another mask stream)."""
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
+
+    s = 577
+    block_q = fa.auto_block_q(s)
+    q_pad, s_pad = fa.mask_strides(s, block_q)
+    args = (DROP_SEED, DROP_RATE)
+    kw = {"block_q": block_q}
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (TRAIN_BATCH, 12, s, 64)
+        x = randn((TRAIN_BATCH, s, 3, 12, 64), dtype)
+        q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+        do = randn(shape, dtype)
+        tol = ATTN_TOL[dtype]
+
+        o_dbg, keep = fa.flash_attention_dropout_debug(q, k, v, *args, **kw)
+        ref_keep = fa.keep_mask(TRAIN_BATCH * 12, q_pad, s_pad, *args,
+                                device=q.device)[:, :s, :s].reshape(keep.shape)
+        mismatches = int((keep != ref_keep).sum())
+        keep_share = keep.float().mean().item()
+        del ref_keep
+        o, lse = fa.flash_attention_dropout_fwd(q, k, v, *args, **kw)
+        ro, rlse = fa.attention_dropout_fwd_reference(q, k, v, *args, **kw)
+        torch.cuda.synchronize()
+        err_o = (o.float() - ro.float()).abs().max().item()
+        err_lse = (lse - rlse).abs().max().item()
+        err_dbg = (o_dbg.float() - ro.float()).abs().max().item()
+        del ro, rlse, o_dbg, keep
+        ms_d, plain_ms_d = time_pair(
+            lambda: fa.flash_attention_dropout_debug(q, k, v, *args, **kw),
+            lambda: (fa.attention_dropout_fwd_reference(q, k, v, *args, **kw),
+                     fa.keep_mask(TRAIN_BATCH * 12, q_pad, s_pad, *args,
+                                  device=q.device)))
+        ms, plain_ms = time_pair(
+            lambda: fa.flash_attention_dropout_fwd(q, k, v, *args, **kw),
+            lambda: fa.attention_dropout_fwd_reference(q, k, v, *args, **kw))
+        rec_d = {"phase": "kernel_check", "kernel": "attention_dropout_debug",
+                 "shape": list(shape), "dtype": str(dtype), "rate": DROP_RATE,
+                 "seed": DROP_SEED, "q_pad_s_pad": [q_pad, s_pad],
+                 "mask_mismatches": mismatches, "keep_share": keep_share,
+                 "max_abs_err": err_dbg, "tol": tol,
+                 "ms": ms_d, "plain_ms": plain_ms_d,
+                 **attention_bound(shape, dtype, lse=True, hash_passes=1,
+                                   mask_out=True)}
+        rec = {"phase": "kernel_check", "kernel": "attention_dropout_fwd",
+               "shape": list(shape), "dtype": str(dtype), "rate": DROP_RATE,
+               "max_abs_err": err_o, "lse_max_abs_err": err_lse, "tol": tol,
+               "ms": ms, "plain_ms": plain_ms,
+               **attention_bound(shape, dtype, lse=True, hash_passes=1)}
+
+        grads = fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, *args,
+                                               **kw)
+        refs = fa.attention_dropout_bwd_reference(q, k, v, o, lse, do, *args,
+                                                  **kw)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, r) for g, r in zip(grads, refs)]
+        err_g = max((g.float() - r.float()).abs().max().item()
+                    for g, r in zip(grads, refs))
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (o, lse, *grads))
+        del grads, refs
+        ms_b, plain_ms_b = time_pair(
+            lambda: fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, *args,
+                                                   **kw),
+            lambda: fa.attention_dropout_bwd_reference(q, k, v, o, lse, do,
+                                                       *args, **kw))
+        rec_b = {"phase": "kernel_check", "kernel": "attention_dropout_bwd",
+                 "shape": list(shape), "dtype": str(dtype), "rate": DROP_RATE,
+                 "dq_dk_dv_rel_err": errs, "max_abs_err": err_g,
+                 "rel_tol": ATTN_GRAD_TOL[dtype], "ms": ms_b,
+                 "plain_ms": plain_ms_b,
+                 **attention_bound(shape, dtype, backward=True,
+                                   hash_passes=2)}
+        if dtype == torch.bfloat16:
+            # the library's flash kernels take bf16, not f32
+            lib_fwd, lib_bwd = library_attention(q, k, v, do, DROP_RATE)
+            rec_d["library_ms"] = rec["library_ms"] = lib_fwd
+            rec_b["library_ms"] = lib_bwd
+            summary["flash_attention_dropout_debug"] = rec_d
+            summary["flash_attention_dropout_fwd"] = rec
+            summary["flash_attention_dropout_bwd"] = rec_b
+        for r in (rec_d, rec, rec_b):
+            emit(r)
+        require(mismatches == 0, f"dropout mask {dtype}: {mismatches} "
+                                 f"mismatches")
+        require(err_dbg <= tol, f"dropout debug o {dtype}: {err_dbg}")
+        require(abs(keep_share - (1 - DROP_RATE)) < 1e-3,
+                f"keep share {keep_share}")
+        require(finite and err_o <= tol and err_lse <= tol,
+                f"dropout fwd {dtype}: o {err_o}, lse {err_lse}")
+        require(max(errs) <= ATTN_GRAD_TOL[dtype],
+                f"dropout bwd {dtype}: {errs}")
 
 
 def make_requests() -> list:
@@ -469,9 +692,10 @@ def phase_cross_check(params, cfg, images: list, card_logits) -> None:
     require(d_f32 <= F32_LOGIT_TOL, f"f32 card vs f32 CPU: {d_f32}")
 
 
-def train_config(**model):
+def train_config(mixup_alpha: float = 0.0, **model):
     import chestxray_vit_tpu_torch as cxr
     return cxr.Config(model=cxr.ModelConfig(num_classes=15, **model),
+                      data=cxr.DataConfig(mixup_alpha=mixup_alpha),
                       train=cxr.TrainConfig())
 
 
@@ -484,11 +708,11 @@ def phase_train():
     dev = torch.device("cuda")
     cfg = train_config(remat=True)
     n_layers = cfg.model.num_layers
-    per_step = {"flash_attention_fwd": 2 * n_layers,   # forward + recompute
+    per_step = {**dict.fromkeys(_wrappers(), 0),  # every other kernel 0
+                "flash_attention_fwd": 2 * n_layers,   # forward + recompute
                 "flash_attention_bwd": n_layers,
                 "layer_norm": 2 * (2 * n_layers + 1) - 1,  # final LN once
-                "layer_norm_bwd": 2 * n_layers + 1,
-                "flash_attention_inference": 0}
+                "layer_norm_bwd": 2 * n_layers + 1}
     batch = bench_batch(TRAIN_BATCH, SEED, dev)
     params = init_params(torch.Generator().manual_seed(SEED), cfg.model, dev)
     state = steps.TrainState.create(params, seed=42)
@@ -565,34 +789,134 @@ def phase_train():
     return params, cfg, launches
 
 
-def phase_train_cross_check() -> None:
+def phase_train_dropout() -> dict:
+    """The train step of phase_train with attention dropout 0.1 (the
+    dropout kernels), hidden dropout 0.1 and mixup α 0.2, drawing from the
+    state's generator; then one step with remat and one without on the
+    same weights, batch and injected draws, which agree only if every
+    recomputed block redraws the same masks."""
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    drop = {"attention_dropout": DROP_RATE, "hidden_dropout": DROP_RATE}
+    cfg = train_config(MIXUP_ALPHA, remat=True, **drop)
+    n_layers = cfg.model.num_layers
+    per_step = {**dict.fromkeys(_wrappers(), 0),  # dense attention too
+                "flash_attention_dropout_fwd": 2 * n_layers,
+                "flash_attention_dropout_bwd": n_layers,
+                "layer_norm": 2 * (2 * n_layers + 1) - 1,
+                "layer_norm_bwd": 2 * n_layers + 1}
+    batch = bench_batch(TRAIN_BATCH, SEED, dev)
+    params = init_params(torch.Generator().manual_seed(SEED), cfg.model, dev)
+    state = steps.TrainState.create(params, seed=42)
+    train_step = steps.make_train_step(cfg, total_steps=10_000)
+
+    losses, norms, step_counts = [], [], []
+    for i in range(DROPOUT_WARMUP_STEPS + DROPOUT_TIMED_STEPS):
+        if i == DROPOUT_WARMUP_STEPS:       # the timed steps: the main path
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+        before = launch_counts()
+        state, m = train_step(state, batch)
+        after = launch_counts()
+        step_counts.append({k: after[k] - before[k] for k in after})
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).tolist()
+    norms = torch.stack(norms).tolist()
+    rec = {"phase": "train_dropout", "batch": TRAIN_BATCH, "remat": "full",
+           "dtype": cfg.model.dtype, **drop, "mixup_alpha": MIXUP_ALPHA,
+           "warmup_steps": DROPOUT_WARMUP_STEPS,
+           "timed_steps": DROPOUT_TIMED_STEPS,
+           "step_ms": 1e3 * wall / DROPOUT_TIMED_STEPS,
+           "images_per_s": TRAIN_BATCH * DROPOUT_TIMED_STEPS / wall,
+           "max_memory_allocated_gb": peak / 1e9,
+           "losses": losses, "grad_norms": norms,
+           "launches_per_step": step_counts[-1], "launches": launches}
+    emit(rec)
+    require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+            "finite loss and grad_norm at every dropout step")
+    require(all(c == per_step for c in step_counts),
+            f"dropout launches per step {step_counts} != {per_step}")
+    del state, m, params
+
+    # one step with and one without remat: same weights, batch and draws
+    draws = [steps.draw(torch.Generator().manual_seed(SEED + 1), cfg,
+                        TRAIN_BATCH)]
+    out = []
+    for remat in (True, False):
+        p = init_params(torch.Generator().manual_seed(SEED), cfg.model, dev)
+        step = steps.make_train_step(
+            train_config(MIXUP_ALPHA, remat=remat, **drop), 10_000)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        _, m = step(steps.TrainState.create(p, seed=0), batch, draws)
+        torch.cuda.synchronize()
+        out.append((m["loss"].item(),
+                    {n: t.grad for n, t in p.named_parameters()},
+                    1e3 * (time.perf_counter() - t1),
+                    torch.cuda.max_memory_allocated() / 1e9))
+        del p
+    (loss_r, grads_r, ms_r, mem_r), (loss_n, grads_n, ms_n, mem_n) = out
+    loss_diff = abs(loss_n - loss_r)
+    scale = max(g.abs().max().item() for g in grads_r.values())
+    grad_diff = max((grads_n[n] - g).abs().max().item()
+                    for n, g in grads_r.items()) / scale
+    rec_nr = {"phase": "train_dropout_remat_vs_no_remat",
+              "batch": TRAIN_BATCH, "loss_remat": loss_r,
+              "loss_diff": loss_diff, "grad_rel_diff": grad_diff,
+              "tol": [REMAT_LOSS_TOL, REMAT_GRAD_TOL],
+              "remat_one_step_ms": ms_r, "remat_max_memory_gb": mem_r,
+              "no_remat_one_step_ms": ms_n, "no_remat_max_memory_gb": mem_n}
+    emit(rec_nr)
+    require(np.isfinite(loss_r) and loss_diff <= REMAT_LOSS_TOL
+            and grad_diff <= REMAT_GRAD_TOL,
+            f"dropout remat vs no remat: loss {loss_diff}, grads "
+            f"{grad_diff}")
+    del out, grads_r, grads_n
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_cross_check(phase: str = "train_cross_check",
+                            mixup_alpha: float = 0.0, **model) -> None:
     """One train step at full width, depth 2, batch 2: the card in f32 and
-    in bf16 against the CPU in f32 (plain versions), same weights."""
+    in bf16 against the CPU in f32 (plain versions), same weights and the
+    same draws (dropout seeds, mixup λ) injected on both sides."""
     import dataclasses
 
     from chestxray_vit_tpu_torch.models import bridge
     from chestxray_vit_tpu_torch.models.vit import init_params
     from chestxray_vit_tpu_torch.train import steps
 
-    cfg32 = train_config(num_layers=2, dtype="float32")
+    cfg32 = train_config(mixup_alpha, num_layers=2, dtype="float32", **model)
     cfg16 = dataclasses.replace(cfg32, model=dataclasses.replace(
         cfg32.model, dtype="bfloat16"))
     cpu_params = init_params(torch.Generator().manual_seed(SEED), cfg32.model)
     tree = bridge.params_to_numpy(cpu_params)
     batch = bench_batch(2, SEED + 1, "cpu")
+    draws = [steps.draw(torch.Generator().manual_seed(SEED), cfg32, 2)]
 
     def run(cfg, params, device):
         dev_batch = {k: v.to(device) for k, v in batch.items()}
         state, m = steps.make_train_step(cfg, total_steps=10_000)(
-            steps.TrainState.create(params, seed=0), dev_batch)
+            steps.TrainState.create(params, seed=0), dev_batch, draws)
         return ({k: v.item() for k, v in m.items()},
                 _leaves(bridge.grads_to_numpy(state.params)),
                 _leaves(bridge.params_to_numpy(state.params)))
 
     cpu_m, cpu_g, cpu_p = run(cfg32, cpu_params, "cpu")
     g_scale = max(float(np.abs(g).max()) for g in cpu_g)
-    rec = {"phase": "train_cross_check", "depth": 2, "batch": 2,
-           "cpu_f32_loss": cpu_m["loss"], "tol_f32": XCHECK_F32,
+    rec = {"phase": phase, "depth": 2, "batch": 2, "model": model,
+           "mixup_alpha": mixup_alpha, "cpu_f32_loss": cpu_m["loss"], "tol_f32": XCHECK_F32,
            "tol_bf16": XCHECK_BF16}
     for name, cfg in (("f32", cfg32), ("bf16", cfg16)):
         card = bridge.params_from_jax(tree, cfg.model).to("cuda")
@@ -670,17 +994,23 @@ def phase_eval(params, cfg) -> dict:
     return launches
 
 
-KERNELS = (  # name, source, the TPU kernel it replaces, kernel_check key
+KERNELS = (  # name (the kernel_check summary key), source, what it replaces
     ("flash_attention_inference", "csrc/flash_attention_inf.cu",
-     "chestxray_vit_tpu/ops/flash_attention.py:319", "attention"),
+     "chestxray_vit_tpu/ops/flash_attention.py:319"),
     ("layer_norm", "csrc/layer_norm.cu",
-     "chestxray_vit_tpu/ops/layer_norm.py:93", "layer_norm"),
+     "chestxray_vit_tpu/ops/layer_norm.py:93"),
     ("flash_attention_fwd", "csrc/flash_attention.cu",
-     "chestxray_vit_tpu/ops/flash_attention.py:267", "flash_attention_fwd"),
+     "chestxray_vit_tpu/ops/flash_attention.py:267"),
     ("flash_attention_bwd", "csrc/flash_attention_bwd.cu",
-     "chestxray_vit_tpu/ops/flash_attention.py:755", "flash_attention_bwd"),
+     "chestxray_vit_tpu/ops/flash_attention.py:755"),
     ("layer_norm_bwd", "csrc/layer_norm.cu",
-     "chestxray_vit_tpu/ops/layer_norm.py:103", "layer_norm_bwd"),
+     "chestxray_vit_tpu/ops/layer_norm.py:103"),
+    ("flash_attention_dropout_fwd", "csrc/flash_attention_dropout.cu",
+     "chestxray_vit_tpu/ops/flash_attention.py:500"),
+    ("flash_attention_dropout_debug", "csrc/flash_attention_dropout.cu",
+     "chestxray_vit_tpu/ops/flash_attention.py:508"),
+    ("flash_attention_dropout_bwd", "csrc/flash_attention_bwd.cu",
+     "chestxray_vit_tpu/ops/flash_attention.py:516"),
 )
 
 
@@ -698,6 +1028,10 @@ def main() -> int:
     phase_device()
     phase_build()
     checked = phase_kernel_check()
+    # the debug kernel is the mask's oracle and on no main path: its line
+    # gives 0 launches there and its kernel_check launches apart
+    oracle = {"flash_attention_dropout_debug":
+              launch_counts()["flash_attention_dropout_debug"]}
 
     cfg = ModelConfig()                 # ViT-B/16 @384, 15 classes, bf16
     params = init_params(torch.Generator().manual_seed(SEED), cfg)
@@ -708,21 +1042,37 @@ def main() -> int:
     train_params, train_cfg, train_launches = phase_train()
     phase_train_cross_check()
     eval_launches = phase_eval(train_params, train_cfg)
-    require("jax" not in sys.modules, "no JAX imported")
+    del train_params
+    torch.cuda.empty_cache()
+    dropout_launches = phase_train_dropout()
+    phase_train_cross_check("train_dropout_cross_check", MIXUP_ALPHA,
+                            attention_dropout=DROP_RATE)
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "chestxray_vit_tpu")]
+    require(not loaded, f"no JAX and no JAX-package module imported: "
+                        f"{loaded}")
 
     # launches: the sum over the main paths' runs (serving, the timed
-    # train steps, eval), each counted from 0 just before it
-    paths = (serve_launches, train_launches, eval_launches)
+    # train steps, eval, the timed dropout steps), each counted from 0 just
+    # before it
+    paths = (serve_launches, train_launches, eval_launches,
+             dropout_launches)
     summary = []
-    for name, source, replaces, key in KERNELS:
-        launches = sum(p[name] for p in paths)
-        require(launches > 0, f"{name} launched on the main paths")
+    for name, source, replaces in KERNELS:
+        launches = sum(p.get(name, 0) for p in paths)
+        require(launches > 0 or name in oracle,
+                f"{name} launched on the main paths")
+        rec = checked[name]
         summary.append({
             "name": name, "route": "cuda",
             "source": f"chestxray_vit_tpu_torch/{source}",
             "replaces": replaces, "launches": launches,
-            "max_abs_err": checked[key]["max_abs_err"],
-            "ms": checked[key]["ms"], "plain_ms": checked[key]["plain_ms"]})
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms")})
+        if name in oracle:
+            summary[-1]["oracle_launches"] = oracle[name]
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

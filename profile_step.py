@@ -1,0 +1,131 @@
+"""Device-time breakdown of the port's train step on one NVIDIA GPU.
+
+    python3 profile_step.py [--dropout]
+
+bench.py's step (ViT-B/16 @384, bf16, full remat, batch 36, random weights
+from seed 0); ``--dropout`` adds attention dropout 0.1, hidden dropout 0.1
+and mixup α 0.2. After 3 warm-up steps ``torch.profiler`` traces
+2 steps; the kernels of the trace are summed by category, and the
+busy share is the union of their intervals over the traced wall. Prints one
+JSON line (the trace is written beside the kernel build, read and
+removed).
+Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+BATCH, WARMUP_STEPS, STEPS = 36, 3, 2
+
+# kernel-name fragments by category, first match wins
+CATEGORIES = (
+    ("attention_fwd", ("attn_fwd",)),
+    ("attention_bwd", ("attn_bwd",)),
+    ("layer_norm", ("ln_fwd", "ln_bwd", "layer_norm")),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+    ("random", ("philox", "distribution", "uniform", "bernoulli")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "unrolled", "vectorized", "where",
+                     "copy", "fill")),
+)
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
+def busy_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals, in ms (µs input)."""
+    total, end = 0.0, -1.0
+    for s, e in sorted(intervals):
+        if s > end:
+            total, end = total + (e - s), e
+        elif e > end:
+            total, end = total + (e - end), e
+    return total / 1e3
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dropout", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 2
+    import chestxray_vit_tpu_torch as cxr
+    from chestxray_vit_tpu_torch import kernels
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rate = 0.1 if args.dropout else 0.0
+    cfg = cxr.Config(model=cxr.ModelConfig(remat=True, attention_dropout=rate,
+                                           hidden_dropout=rate),
+                     data=cxr.DataConfig(
+                         mixup_alpha=0.2 if args.dropout else 0.0))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    batch = {"pixel_values": torch.from_numpy(rng.standard_normal(
+        (BATCH, 384, 384, 3)).astype(np.float32)).to(dev),
+        "labels": torch.from_numpy((rng.random((BATCH, 15)) < 0.2)
+                                   .astype(np.float32)).to(dev)}
+    params = init_params(torch.Generator().manual_seed(0), cfg.model, dev)
+    state = steps.TrainState.create(params, seed=42)
+    step = steps.make_train_step(cfg, total_steps=10_000)
+    for _ in range(WARMUP_STEPS):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(kernels.BUILD_DIR / "profile_step_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    launched = [e for e in events if e.get("cat") == "kernel"]
+    by_cat: dict = {}
+    for e in launched:
+        c = category(e["name"])
+        by_cat[c] = by_cat.get(c, 0.0) + e["dur"] / 1e3 / STEPS
+    span = [(e["ts"], e["ts"] + e["dur"]) for e in launched]
+    busy = busy_ms(span)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    print(json.dumps({
+        "config": "dropout" if args.dropout else "dense",
+        "batch": BATCH, "steps": STEPS, "nvidia_smi": smi,
+        "wall_ms_per_step": wall_ms / STEPS,
+        "device_ms_per_step": busy / STEPS,
+        "busy_share": busy / wall_ms,
+        "kernels_per_step": len(launched) / STEPS,
+        "ms_per_step_by_category": {k: round(v, 4) for k, v in
+                                    sorted(by_cat.items(),
+                                           key=lambda kv: -kv[1])},
+        "loss": m["loss"].item()}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

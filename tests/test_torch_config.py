@@ -1,0 +1,73 @@
+"""The port's copy of the configuration against the JAX package's: the same
+dataclasses with the same field names, defaults and checks, so that one
+configuration means the same to both packages."""
+
+import dataclasses
+
+import pytest
+
+from chestxray_vit_tpu import config as jconfig
+from chestxray_vit_tpu_torch import config as tconfig
+
+CLASSES = ["DataConfig", "ModelConfig", "TrainConfig", "MeshConfig",
+           "Config"]
+
+
+def _defaults(cls):
+    return [(f.name, f.default if f.default is not dataclasses.MISSING
+             else f.default_factory()) for f in dataclasses.fields(cls)]
+
+
+@pytest.mark.parametrize("name", CLASSES)
+def test_fields_and_defaults_match_jax(name):
+    jcls, tcls = getattr(jconfig, name), getattr(tconfig, name)
+    assert [f.name for f in dataclasses.fields(tcls)] == \
+        [f.name for f in dataclasses.fields(jcls)]
+    # nested defaults compared by their fields (the classes differ)
+    got = [(n, dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
+           for n, v in _defaults(tcls)]
+    want = [(n, dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
+            for n, v in _defaults(jcls)]
+    assert got == want
+
+
+def test_model_properties_and_processor_constants_match_jax():
+    for kw in ({}, {"img_size": 224, "patch_size": 32},
+               {"hidden_size": 128, "num_heads": 2}):
+        j, t = jconfig.ModelConfig(**kw), tconfig.ModelConfig(**kw)
+        assert (t.num_patches, t.seq_len, t.head_dim) == \
+            (j.num_patches, j.seq_len, j.head_dim)
+    assert tconfig.PROCESSOR_MEAN == jconfig.PROCESSOR_MEAN
+    assert tconfig.PROCESSOR_STD == jconfig.PROCESSOR_STD
+    assert tconfig.TrainConfig(batch_size_per_core=4).eval_batch_size == \
+        jconfig.TrainConfig(batch_size_per_core=4).eval_batch_size
+
+
+@pytest.mark.parametrize("kw", [
+    {"img_size": 100, "patch_size": 16}, {"hidden_size": 100,
+                                          "num_heads": 12},
+    {"tome_schedule": "linear"}], ids=["patch", "heads", "tome_schedule"])
+def test_model_config_rejects_what_jax_rejects(kw):
+    with pytest.raises(ValueError) as jerr:
+        jconfig.ModelConfig(**kw)
+    with pytest.raises(ValueError) as terr:
+        tconfig.ModelConfig(**kw)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_a_jax_config_converts_field_for_field():
+    """Each section of a JAX Config builds the port's section from its
+    fields, as the parity tests build the port's config."""
+    cfg = jconfig.Config(
+        model=jconfig.ModelConfig(attention_dropout=0.1, hidden_dropout=0.1,
+                                  remat=True),
+        data=jconfig.DataConfig(mixup_alpha=0.2),
+        train=jconfig.TrainConfig(gradient_accumulation_steps=2))
+    port = tconfig.Config(**{
+        f.name: getattr(tconfig, type(getattr(cfg, f.name)).__name__)(
+            **dataclasses.asdict(getattr(cfg, f.name)))
+        for f in dataclasses.fields(cfg)})
+    assert dataclasses.asdict(port) == dataclasses.asdict(cfg)
+    assert port.model.attention_dropout == 0.1
+    assert port.data.mixup_alpha == 0.2
+    assert port.train.gradient_accumulation_steps == 2

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chestxray_vit_tpu.config import Config, ModelConfig, TrainConfig
+from chestxray_vit_tpu_torch.config import Config, ModelConfig, TrainConfig
 from chestxray_vit_tpu_torch.models import bridge, vit
 from chestxray_vit_tpu_torch.ops import flash_attention as fa
 from chestxray_vit_tpu_torch.ops import layer_norm as ln
@@ -359,3 +359,128 @@ def test_eval_step_on_card_matches_cpu(dev):
     lc, rc = steps.make_eval_step(cfg)(cpu, batch)
     np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), atol=1e-4)
     np.testing.assert_allclose(rg.cpu().numpy(), rc.numpy(), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Attention-dropout kernels
+# ---------------------------------------------------------------------------
+
+_RATE, _SEED = 0.1, -123456789      # a negative int32 seed, as JAX allows
+
+
+@pytest.mark.parametrize("s", [37, 577])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block_q", [0, 32])
+def test_dropout_debug_kernel_mask_is_keep_mask(dev, s, dtype, block_q):
+    """The mask the debug kernel applied equals the plain counter hash bit
+    for bit, single-block (auto) and multi-block (32-row) row strides."""
+    block_q = block_q or fa.auto_block_q(s)
+    q, k, v = _heads_views(2, s, dtype, dev)
+    before = fa.flash_attention_dropout_debug.launches
+    o, keep = fa.flash_attention_dropout_debug(q, k, v, _SEED, _RATE,
+                                               block_q=block_q)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_dropout_debug.launches == before + 1
+    ref_keep = fa._keep(q, _SEED, _RATE, block_q)
+    assert keep.dtype == torch.bool and keep.shape == (2, 12, s, s)
+    assert int((keep != ref_keep).sum()) == 0
+    ro, _ = fa.attention_dropout_fwd_reference(q, k, v, _SEED, _RATE,
+                                               block_q=block_q)
+    torch.testing.assert_close(o.float(), ro.float(), atol=_ATTN_TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("s", [37, 64, 65, 577])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dropout_fwd_bwd_kernels_match_plain(dev, s, dtype):
+    q, k, v = _heads_views(2, s, dtype, dev)
+    do = _randn(q.shape, dtype, dev, seed=5)
+    bq = fa.auto_block_q(s)
+    n_fwd = fa.flash_attention_dropout_fwd.launches
+    n_bwd = fa.flash_attention_dropout_bwd.launches
+    o, lse = fa.flash_attention_dropout_fwd(q, k, v, _SEED, _RATE,
+                                            block_q=bq)
+    grads = fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, _SEED,
+                                           _RATE, block_q=bq)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_dropout_fwd.launches == n_fwd + 1
+    assert fa.flash_attention_dropout_bwd.launches == n_bwd + 1
+    ro, rlse = fa.attention_dropout_fwd_reference(q, k, v, _SEED, _RATE,
+                                                  block_q=bq)
+    torch.testing.assert_close(o.float(), ro.float(), atol=_ATTN_TOL[dtype],
+                               rtol=0)
+    # lse is the clean softmax's, the dense forward's
+    torch.testing.assert_close(lse, rlse, atol=_ATTN_TOL[dtype], rtol=0)
+    refs = fa.attention_dropout_bwd_reference(q, k, v, o, lse, do, _SEED,
+                                              _RATE, block_q=bq)
+    for g, r in zip(grads, refs):
+        assert g.dtype == dtype and g.transpose(1, 2).is_contiguous()
+        assert _rel(g, r) <= _GRAD_TOL[dtype]
+
+
+def test_dropout_bwd_kernel_is_deterministic_and_seeded(dev):
+    q, k, v = _heads_views(2, 577, torch.bfloat16, dev)
+    do = _randn(q.shape, torch.bfloat16, dev, seed=5)
+    o, lse = fa.flash_attention_dropout_fwd(q, k, v, _SEED, _RATE)
+    a = fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, _SEED, _RATE)
+    b = fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, _SEED, _RATE)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    o2, _ = fa.flash_attention_dropout_fwd(q, k, v, _SEED + 1, _RATE)
+    assert not torch.equal(o, o2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dropout_autograd_on_card_matches_plain_autograd(dev, dtype):
+    """FlashAttentionDropout against plain autograd of the plain forward on
+    the same mask, with a non-contiguous upstream gradient."""
+    q, k, v = (t.detach().requires_grad_()
+               for t in _heads_views(2, 577, dtype, dev))
+    go = _randn((2, 577, 12, 64), dtype, dev, seed=7).transpose(1, 2)
+    fa.attention_dropout(q, k, v, _SEED, _RATE).backward(go)
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    fa.attention_dropout(q, k, v, _SEED, _RATE, impl="xla").backward(go)
+    # as test_attention_autograd_on_card_matches_plain_autograd
+    tol = {torch.bfloat16: 3e-2, torch.float32: 1e-5}[dtype]
+    for g, t in zip(got, (q, k, v)):
+        assert _rel(g, t.grad) <= tol
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_with_attention_dropout_on_card_matches_cpu(dev, remat):
+    """One f32 train step with attention dropout through both dropout
+    kernels on the card against the CPU's plain versions, on the same
+    seeds: the counter-hash masks are equal on both sides. (Hidden
+    dropout draws its masks from a generator of the tensor's device, so
+    card and CPU masks differ; the CPU tests cover it.)"""
+    cfg = Config(model=ModelConfig(img_size=64, patch_size=16,
+                                   hidden_size=128, num_layers=2,
+                                   num_heads=2, mlp_dim=256, num_classes=5,
+                                   dtype="float32", remat=remat,
+                                   attention_dropout=0.2),
+                 train=TrainConfig(warmup_steps=1))
+    cpu = vit.init_params(torch.Generator().manual_seed(0), cfg.model)
+    card = bridge.params_from_jax(bridge.params_to_numpy(cpu),
+                                  cfg.model).to(dev)
+    rng = np.random.default_rng(0)
+    batch = {"pixel_values": torch.from_numpy(
+        rng.standard_normal((4, 64, 64, 3)).astype(np.float32)),
+        "labels": torch.from_numpy(
+            (rng.random((4, 5)) < 0.3).astype(np.float32))}
+    draws = [steps.draw(torch.Generator().manual_seed(9), cfg, 4)]
+    n_fwd = fa.flash_attention_dropout_fwd.launches
+    out = []
+    for params, device in ((cpu, "cpu"), (card, dev)):
+        state, m = steps.make_train_step(cfg, 10)(
+            steps.TrainState.create(params, 0),
+            {k: v.to(device) for k, v in batch.items()}, draws)
+        out.append((m, bridge.grads_to_numpy(params)))
+    assert fa.flash_attention_dropout_fwd.launches - n_fwd == (
+        4 if remat else 2)
+    (mc, gc), (mg, gg) = out
+    np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
+                               atol=1e-5)
+    for key in gc:
+        for a, b in zip(_leaves(gg[key]), _leaves(gc[key])):
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-3)

@@ -1,10 +1,15 @@
-"""The PyTorch port imports no JAX, no Triton and no compiled library.
+"""The PyTorch port imports no JAX, no Triton, nothing of the JAX package
+(``chestxray_vit_tpu``) and no compiled library; neither does
+``chip_smoke.py``.
 
 The modules are imported in a fresh interpreter, so that nothing the test
 process already imported (the JAX package's tests import JAX) can hide an
-import.
+import. Imports inside functions run only when the function does, so every
+source file is also read for import statements.
 """
 
+import ast
+import glob
 import json
 import os
 import subprocess
@@ -13,10 +18,14 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "triton", "chestxray_vit_tpu")
 
 MODULES = [
     "chestxray_vit_tpu_torch",
+    "chestxray_vit_tpu_torch.config",
     "chestxray_vit_tpu_torch.kernels",
+    "chestxray_vit_tpu_torch.data.decode",
+    "chestxray_vit_tpu_torch.data.geometry",
     "chestxray_vit_tpu_torch.ops.gelu",
     "chestxray_vit_tpu_torch.ops.layer_norm",
     "chestxray_vit_tpu_torch.ops.flash_attention",
@@ -26,16 +35,23 @@ MODULES = [
     "chestxray_vit_tpu_torch.train.optimizer",
     "chestxray_vit_tpu_torch.train.steps",
     "chestxray_vit_tpu_torch.eval.metrics",
+    "chestxray_vit_tpu_torch.serve.batcher",
     "chestxray_vit_tpu_torch.serve.inference",
     "chestxray_vit_tpu_torch.serve.server",
+    "chip_smoke",
 ]
+SOURCES = sorted(
+    os.path.relpath(p, REPO) for p in
+    glob.glob(os.path.join(REPO, "chestxray_vit_tpu_torch", "**", "*.py"),
+              recursive=True)
+    + [os.path.join(REPO, f) for f in ("chip_smoke.py", "profile_step.py")])
 
 
 @pytest.fixture(scope="module")
 def imported():
     """Import the modules one after another in one fresh interpreter and
-    record, after each, which JAX/Triton modules are loaded and whether the
-    kernel library is. A module that pulls one in shows it at its own step
+    record, after each, which JAX, Triton or JAX-package modules are loaded
+    and whether the kernel library is. A module that pulls one in shows it at its own step
     (what earlier steps loaded is already recorded against them)."""
     code = (
         "import importlib, json, sys\n"
@@ -44,7 +60,7 @@ def imported():
         "    importlib.import_module(name)\n"
         "    from chestxray_vit_tpu_torch import kernels\n"
         "    out[name] = {'mods': sorted(m for m in sys.modules if "
-        "m.split('.')[0] in ('jax', 'jaxlib', 'triton')),"
+        f"m.split('.')[0] in {FORBIDDEN!r}),"
         " 'lib_loaded': kernels._lib is not None}\n"
         "print(json.dumps(out))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -57,3 +73,18 @@ def imported():
 @pytest.mark.parametrize("module", MODULES)
 def test_module_imports_no_jax_or_triton(imported, module):
     assert imported[module] == {"mods": [], "lib_loaded": False}
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_has_no_forbidden_import(source):
+    """No import statement, at top level or inside a function, names JAX,
+    Triton or the JAX package."""
+    with open(os.path.join(REPO, source)) as f:
+        tree = ast.parse(f.read(), source)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert [n for n in names if n.split(".")[0] in FORBIDDEN] == []

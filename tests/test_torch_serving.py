@@ -1,7 +1,8 @@
 """The port's serving slice against the JAX package's, on the CPU: the
-``Predictor`` on the same weights and images, the reused ``MicroBatcher``
+``Predictor`` on the same weights and images, the port's ``MicroBatcher``
 under concurrent submits, and the port's HTTP server."""
 
+import dataclasses
 import fcntl
 import io
 import json
@@ -17,11 +18,12 @@ import pytest
 import torch
 from PIL import Image
 
-from chestxray_vit_tpu.config import ModelConfig
+from chestxray_vit_tpu import config as jconfig
 from chestxray_vit_tpu.models import vit as jvit
-from chestxray_vit_tpu.serve.batcher import MicroBatcher
 from chestxray_vit_tpu.serve.inference import Predictor as JaxPredictor
+from chestxray_vit_tpu_torch.config import ModelConfig
 from chestxray_vit_tpu_torch.models import bridge
+from chestxray_vit_tpu_torch.serve.batcher import MicroBatcher
 from chestxray_vit_tpu_torch.serve.inference import Predictor
 from chestxray_vit_tpu_torch.serve.server import serve
 
@@ -35,8 +37,8 @@ NATIVE_DECODE = Path(__file__).resolve().parent.parent / "native" / "decode"
 def _build_native_decoder() -> None:
     """Build native/decode/libcxrdecode.so while this module is collected.
 
-    ``chestxray_vit_tpu.data.decode`` looks for the library once per
-    process and keeps the answer. Under pytest-xdist a worker that reaches
+    ``chestxray_vit_tpu.data.decode`` (and the port's copy of it) looks
+    for the library once per process and keeps the answer. Under pytest-xdist a worker that reaches
     the decoder (the Predictor here does) before it runs
     tests/test_native_decode.py, whose fixture builds the library on
     demand, keeps "not built" and skips all of that file's tests. Every
@@ -66,8 +68,13 @@ def tiny_cfg(**kw):
     return ModelConfig(**base)
 
 
+def _jax(cfg):
+    """The JAX package's ModelConfig with the port's config's fields."""
+    return jconfig.ModelConfig(**dataclasses.asdict(cfg))
+
+
 def _pair(cfg, seed=2):
-    jp = jvit.init_params(jax.random.key(seed), cfg)
+    jp = jvit.init_params(jax.random.key(seed), _jax(cfg))
     return jp, bridge.params_from_jax(jax.tree.map(np.asarray, jp), cfg)
 
 
@@ -90,7 +97,7 @@ def test_predictor_matches_jax_predictor(rng, placement):
     cfg = tiny_cfg()
     jp, tp = _pair(cfg)
     grays = _grays(rng, 5)
-    ref = JaxPredictor(jp, cfg, classes=CLASSES, batch_size=4,
+    ref = JaxPredictor(jp, _jax(cfg), classes=CLASSES, batch_size=4,
                        canvas_size=64, placement=placement
                        ).predict_arrays(grays)
     pred = Predictor(tp, cfg, classes=CLASSES, batch_size=4, canvas_size=64,

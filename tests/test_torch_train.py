@@ -16,11 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from chestxray_vit_tpu.config import Config, ModelConfig, TrainConfig
+from chestxray_vit_tpu import config as jconfig
 from chestxray_vit_tpu.eval import metrics as jmetrics
 from chestxray_vit_tpu.models import vit as jvit
 from chestxray_vit_tpu.train import optimizer as jopt
 from chestxray_vit_tpu.train import steps as jsteps
+from chestxray_vit_tpu_torch.config import Config, ModelConfig, TrainConfig
 from chestxray_vit_tpu_torch.eval import metrics as tmetrics
 from chestxray_vit_tpu_torch.models import bridge
 from chestxray_vit_tpu_torch.models import vit as tvit
@@ -42,8 +43,16 @@ def tiny_cfg(dtype="float32", accum=1, remat=False, **train):
                           warmup_steps=1, **train))
 
 
+def _jax_cfg(cfg):
+    """The JAX package's Config with the port's config's fields."""
+    return jconfig.Config(**{
+        f.name: getattr(jconfig, type(getattr(cfg, f.name)).__name__)(
+            **dataclasses.asdict(getattr(cfg, f.name)))
+        for f in dataclasses.fields(cfg)})
+
+
 def _params(cfg, seed=0):
-    jp = jvit.init_params(jax.random.key(seed), cfg.model)
+    jp = jvit.init_params(jax.random.key(seed), _jax_cfg(cfg).model)
     return jp, bridge.params_from_jax(jax.tree.map(np.asarray, jp),
                                       cfg.model)
 
@@ -184,7 +193,8 @@ def test_opt_state_bridge_round_trip():
 
 def _jax_grads(jp, cfg, batch):
     def loss(p):
-        logits = jvit.apply(p, batch["pixel_values"], cfg.model, train=True)
+        logits = jvit.apply(p, batch["pixel_values"], _jax_cfg(cfg).model,
+                            train=True)
         return jsteps.bce_with_logits(logits, batch["labels"])
     return jax.jit(jax.value_and_grad(loss))(jp)
 
@@ -196,7 +206,7 @@ def test_train_step_f32_matches_jax(accum):
     cfg = tiny_cfg(accum=accum)
     jp, tp = _params(cfg)
     batches = _batches(3)
-    jstep = jax.jit(jsteps.make_train_step(cfg, total_steps=10))
+    jstep = jax.jit(jsteps.make_train_step(_jax_cfg(cfg), total_steps=10))
     tstep = tsteps.make_train_step(cfg, total_steps=10)
     jstate = jsteps.TrainState.create(jp, seed=0)
     tstate = tsteps.TrainState.create(tp, seed=0)
@@ -287,7 +297,7 @@ def test_train_step_bf16_close_to_jax():
     cfg = tiny_cfg(dtype="bfloat16")
     jp, tp = _params(cfg)
     batch = _batches(1)[0]
-    jstate, jm = jax.jit(jsteps.make_train_step(cfg, 10))(
+    jstate, jm = jax.jit(jsteps.make_train_step(_jax_cfg(cfg), 10))(
         jsteps.TrainState.create(jp, 0), _jax(batch))
     tstate, tm = tsteps.make_train_step(cfg, 10)(
         tsteps.TrainState.create(tp, 0), _torch(batch))
@@ -304,9 +314,11 @@ def test_train_step_bf16_close_to_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("remat_policy", "mlp"), ("hidden_dropout", 0.1),
-    ("attention_dropout", 0.1), ("tome_r", 2)])
+    ("remat_policy", "mlp"), ("remat_policy", "dots"),
+    ("fused_qkv", True), ("tome_r", 2)])
 def test_unported_training_options_raise(field, value):
+    """Dropout is ported since and is held to the reference in
+    tests/test_torch_dropout.py; these options still raise."""
     cfg = tiny_cfg(remat=True)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, **{field: value}))
@@ -317,10 +329,12 @@ def test_unported_training_options_raise(field, value):
 
 
 def test_mixup_int8_and_packed_raise():
+    """Mixup builds a step now (tests/test_torch_dropout.py holds it to
+    the reference); the int8, packed and quantized-eval steps still
+    raise."""
     cfg = tiny_cfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step(dataclasses.replace(
-            cfg, data=dataclasses.replace(cfg.data, mixup_alpha=0.2)), 10)
+    tsteps.make_train_step(dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, mixup_alpha=0.2)), 10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.make_train_step(cfg, 10, int8_scales={})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -339,7 +353,7 @@ def test_eval_step_matches_jax(make):
     cfg = tiny_cfg()
     jp, tp = _params(cfg, seed=1)
     batch = _batches(1, b=5, seed=3)[0]
-    jl, jr = jax.jit(getattr(jsteps, make)(cfg))(jp, _jax(batch))
+    jl, jr = jax.jit(getattr(jsteps, make)(_jax_cfg(cfg)))(jp, _jax(batch))
     tl, tr = getattr(tsteps, make)(cfg)(tp, _torch(batch))
     assert tl.dtype == torch.float32 and tl.shape == (5, 15)
     assert tr.shape == (5,) and not tl.requires_grad

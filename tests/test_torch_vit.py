@@ -4,14 +4,17 @@ Both run the same weights (drawn with ``jax.random`` by the JAX package's
 ``init_params`` and bridged) on the same numpy inputs, on the CPU.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from chestxray_vit_tpu.config import ModelConfig
+from chestxray_vit_tpu import config as jconfig
 from chestxray_vit_tpu.models import vit as jvit
+from chestxray_vit_tpu_torch.config import ModelConfig
 from chestxray_vit_tpu_torch.models import bridge
 from chestxray_vit_tpu_torch.models import vit as tvit
 
@@ -27,8 +30,13 @@ def small_cfg(**kw):
     return ModelConfig(**base)
 
 
+def _jax(cfg):
+    """The JAX package's ModelConfig with the port's config's fields."""
+    return jconfig.ModelConfig(**dataclasses.asdict(cfg))
+
+
 def _pair(cfg, seed=0):
-    jp = jvit.init_params(jax.random.key(seed), cfg)
+    jp = jvit.init_params(jax.random.key(seed), _jax(cfg))
     return jp, bridge.params_from_jax(jax.tree.map(np.asarray, jp), cfg)
 
 
@@ -69,7 +77,7 @@ def test_logits_f32_match_jax():
     cfg = small_cfg()
     jp, tp = _pair(cfg)
     x = _images(cfg)
-    ref = np.asarray(jvit.apply(jp, jnp.asarray(x), cfg))
+    ref = np.asarray(jvit.apply(jp, jnp.asarray(x), _jax(cfg)))
     with torch.inference_mode():
         got = tvit.apply(tp, torch.from_numpy(x), cfg).numpy()
         as_module = tp(torch.from_numpy(x)).numpy()
@@ -82,7 +90,7 @@ def test_logits_bf16_match_jax():
     cfg = small_cfg(dtype="bfloat16", hidden_size=128, num_heads=2)
     jp, tp = _pair(cfg)
     x = _images(cfg)
-    ref = np.asarray(jvit.apply(jp, jnp.asarray(x), cfg))
+    ref = np.asarray(jvit.apply(jp, jnp.asarray(x), _jax(cfg)))
     with torch.inference_mode():
         got = tvit.apply(tp, torch.from_numpy(x), cfg)
     assert got.dtype == torch.float32
@@ -96,7 +104,7 @@ def test_return_features_and_head_logits_match_jax():
     cfg = small_cfg()
     jp, tp = _pair(cfg, seed=1)
     x = _images(cfg, n=2)
-    jl, jf = jvit.apply(jp, jnp.asarray(x), cfg, return_features=True)
+    jl, jf = jvit.apply(jp, jnp.asarray(x), _jax(cfg), return_features=True)
     with torch.inference_mode():
         tl, tf = tvit.apply(tp, torch.from_numpy(x), cfg,
                             return_features=True)
@@ -105,7 +113,7 @@ def test_return_features_and_head_logits_match_jax():
         th = tvit.head_logits(tp, tokens, cfg).numpy()
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), atol=2e-5)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-5)
-    jh = jvit.head_logits(jp, jnp.asarray(tokens.numpy()), cfg)
+    jh = jvit.head_logits(jp, jnp.asarray(tokens.numpy()), _jax(cfg))
     np.testing.assert_allclose(th, np.asarray(jh), atol=2e-5)
 
 
@@ -135,7 +143,7 @@ def test_init_params_is_seeded_trunc_normal():
     assert (a.blocks[0].ln1.scale == 1).all() and (a.head.bias == 0).all()
     # and the tree has the JAX package's shapes
     ref = jax.tree.map(lambda t: t.shape,
-                       jvit.init_params(jax.random.key(0), cfg))
+                       jvit.init_params(jax.random.key(0), _jax(cfg)))
     got = jax.tree.map(lambda t: t.shape, bridge.params_to_numpy(a))
     assert got == ref
 
