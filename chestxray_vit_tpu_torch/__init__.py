@@ -11,12 +11,15 @@ path is a hand-written Hopper kernel in ``csrc/``, built at first use
 
 Ported so far, at ViT-B/16 @384:
 
-- the dense serving path (``serve.inference.Predictor``, ``serve.server``);
+- the serving path (``serve.inference.Predictor``, ``serve.server``), dense
+  and int8 (``quantize='static'`` through the fused int8 kernel, or
+  ``'dynamic'``; ``models.quantized`` with the JAX package's artifact
+  format);
 - the fine-tune and eval steps (``train.steps.make_train_step``,
   ``make_eval_step``) with AdamW, global-norm clipping, full remat and
   gradient accumulation (``train.optimizer``), attention dropout (the
   fused dropout kernels), hidden dropout and per-sample mixup, and the
-  on-device AUROC and F1 (``eval.metrics``).
+  on-device AUROC and F1 (``eval.metrics``), and the int8 eval step.
 
 Importing the package imports no JAX, no Triton and loads no compiled
 library.

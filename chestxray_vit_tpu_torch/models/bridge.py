@@ -8,6 +8,13 @@ order, so each leaf is a copy. A port parameter name maps to one JAX leaf:
 ``head.bias`` is ``tree["head"]["bias"]``. The same mapping carries
 gradients (``grads_to_numpy``) and the AdamW moments, which the port keys
 by parameter name (``opt_state_from_jax`` / ``opt_state_to_numpy``).
+
+The int8 serving tree crosses the same way (``qparams_from_jax`` /
+``qparams_to_numpy``): ``blocks.3.wq.qw.q`` is
+``qtree["blocks"]["wq"]["qw"].q[3]``, static or dynamic alike. One leaf
+is not a copy: the port keeps int8 weights ``[out, in]`` (K-contiguous,
+what the int8 kernel reads) where the JAX ``QuantizedWeight.q`` is
+``[in, out]``, so ``*.qw.q`` leaves are transposed both ways.
 Leaves cross as numpy arrays: this module imports no JAX.
 """
 
@@ -19,33 +26,42 @@ import numpy as np
 import torch
 
 from chestxray_vit_tpu_torch.config import ModelConfig
+from chestxray_vit_tpu_torch.models import quantized
 from chestxray_vit_tpu_torch.models.vit import ViT
 
 
+def _child(node: Any, key: str) -> Any:
+    # a QuantizedWeight named tuple in a JAX tree has fields, not keys
+    return node[key] if isinstance(node, Mapping) else getattr(node, key)
+
+
 def _leaf(tree: Mapping[str, Any], name: str) -> np.ndarray:
-    """The JAX leaf of a port parameter name (a block layer's slice of the
-    stacked leaf for ``blocks.<i>.…``)."""
+    """The JAX leaf of a port parameter or buffer name (a block layer's
+    slice of the stacked leaf for ``blocks.<i>.…``)."""
     parts = name.split(".")
     if parts[0] == "blocks":
         node = tree["blocks"]
         for p in parts[2:]:
-            node = node[p]
+            node = _child(node, p)
         return np.asarray(node)[int(parts[1])]
     node = tree
     for p in parts:
-        node = node[p]
+        node = _child(node, p)
     return np.asarray(node)
 
 
-def _to_tree(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """Port-named tensors → the JAX nested dict with numpy f32 leaves and
-    the blocks stacked to ``[L, ...]``."""
+def _f32(t: torch.Tensor) -> np.ndarray:
+    # a copy: for an f32 CPU tensor .numpy() would share its storage, and
+    # the in-place optimizer update would then change an exported tree
+    return t.detach().float().cpu().numpy().copy()
+
+
+def _to_tree(named: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """Port-named numpy leaves → the JAX nested dict with the blocks
+    stacked to ``[L, ...]``."""
     tree: Dict[str, Any] = {}
     layers: Dict[tuple, list] = {}
-    for name, t in named.items():
-        # a copy: for an f32 CPU tensor .numpy() would share its storage,
-        # and the in-place optimizer update would then change the tree
-        arr = t.detach().float().cpu().numpy().copy()
+    for name, arr in named.items():
         parts = name.split(".")
         if parts[0] == "blocks":
             layers.setdefault(("blocks", *parts[2:]), []).append(
@@ -84,7 +100,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> ViT:
 def params_to_numpy(params: ViT) -> Dict[str, Any]:
     """Port ``ViT`` → the JAX parameter dict with numpy leaves and stacked
     ``[L, ...]`` blocks (the inverse of :func:`params_from_jax`)."""
-    return _to_tree(dict(params.named_parameters()))
+    return _to_tree({n: _f32(p) for n, p in params.named_parameters()})
 
 
 def grads_to_numpy(params: ViT) -> Dict[str, Any]:
@@ -93,7 +109,7 @@ def grads_to_numpy(params: ViT) -> Dict[str, Any]:
     if missing:
         raise ValueError(f"no gradient for {missing[:3]} "
                          f"(+{max(len(missing) - 3, 0)} more)")
-    return _to_tree({n: p.grad for n, p in params.named_parameters()})
+    return _to_tree({n: _f32(p.grad) for n, p in params.named_parameters()})
 
 
 def opt_state_from_jax(opt_state: Dict[str, Any], params: ViT
@@ -114,4 +130,39 @@ def opt_state_to_numpy(opt_state: Mapping[str, Mapping[str, torch.Tensor]]
                        ) -> Dict[str, Any]:
     """The port's AdamW state → ``{"mu": tree, "nu": tree}`` with numpy
     leaves in the JAX parameter layout."""
-    return {key: _to_tree(opt_state[key]) for key in ("mu", "nu")}
+    return {key: _to_tree({n: _f32(t) for n, t in opt_state[key].items()})
+            for key in ("mu", "nu")}
+
+
+def _is_int8_weight(name: str) -> bool:
+    return name.endswith(".qw.q")
+
+
+def qparams_from_jax(qtree: Dict[str, Any], cfg: ModelConfig
+                     ) -> "quantized.QuantizedViT":
+    """A JAX ``quantize_vit_params`` tree (static when it has
+    ``blocks.act``; leaves numpy or JAX arrays, ``qw`` a ``QuantizedWeight``
+    or a ``{"q", "scale"}`` dict) → the port's ``QuantizedViT`` on the
+    CPU. A leaf of the wrong shape raises."""
+    qp = quantized.QuantizedViT(cfg, static="act" in qtree["blocks"])
+    for name, buf in qp.named_buffers():
+        arr = _leaf(qtree, name)
+        if _is_int8_weight(name):
+            arr = arr.T
+        if tuple(arr.shape) != tuple(buf.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != "
+                             f"{tuple(buf.shape)}")
+        buf.copy_(torch.from_numpy(np.array(arr)))
+    return qp
+
+
+def qparams_to_numpy(qparams: "quantized.QuantizedViT") -> Dict[str, Any]:
+    """The port's ``QuantizedViT`` → the JAX tree with numpy leaves in
+    their own dtypes (int8 weights ``[L, in, out]``), blocks stacked, and
+    each ``qw`` a ``{"q", "scale"}`` dict (the inverse of
+    :func:`qparams_from_jax`)."""
+    named = {}
+    for name, buf in qparams.named_buffers():
+        t = buf.detach().cpu()
+        named[name] = (t.t() if _is_int8_weight(name) else t).numpy().copy()
+    return _to_tree(named)

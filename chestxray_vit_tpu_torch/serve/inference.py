@@ -1,5 +1,5 @@
 """Batched inference for serving, ported from
-``chestxray_vit_tpu/serve/inference.py`` (the dense path).
+``chestxray_vit_tpu/serve/inference.py`` (the dense and int8 paths).
 
 Images come in as encoded bytes or decoded u8 grayscale arrays. The host
 half (``stage_chunk``) decodes, crops, pads to a power-of-two bucket and
@@ -17,6 +17,7 @@ that read it has finished.
 from __future__ import annotations
 
 import contextlib
+import sys
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
@@ -27,7 +28,7 @@ import torch
 from chestxray_vit_tpu_torch.config import ModelConfig
 from chestxray_vit_tpu_torch.data import decode as dec
 from chestxray_vit_tpu_torch.data import geometry as geo
-from chestxray_vit_tpu_torch.models import vit
+from chestxray_vit_tpu_torch.models import quantized, vit
 from chestxray_vit_tpu_torch.ops.preprocess import (fused_preprocess,
                                                     normalize_u8)
 
@@ -53,24 +54,54 @@ class Predictor:
     runs on the device). ``device`` is where the forward runs; 'cuda'
     without a card raises.
 
-    Not ported yet, and refused: ``quantize`` (int8 serving),
-    ``data_parallel``, ``tome_r`` (token merging) and attention maps
-    (``with_maps=True``).
+    ``quantize`` serves the int8 forward (``models/quantized.py``), with
+    per-channel int8 weights prepared here once:
+
+    - ``True`` / ``'dynamic'``: per-token dynamic activation scales, on the
+      plain route (``backend="xla"``: the library int8 product and an eager
+      epilogue);
+    - ``'static'``: per-site scales calibrated once on ``calibration`` (u8
+      grayscale arrays or encoded images, staged as requests are;
+      ``'synthetic'`` for a seeded noise batch; None warns and uses that
+      batch), served through the fused int8 kernel (``backend="pallas"``).
+      The JAX ``Predictor`` serves static trees on its "xla" route, a
+      choice it made from TPU measurements; the two routes differ only in
+      where bf16 rounds around the GELU and the requantize.
+
+    ``qparams`` injects a prebuilt quantized tree (``load_quantized`` or
+    ``quantize_vit_params``), moved to ``device``, skipping the quantize
+    pass and, for static mode, the calibration forward; its mode must
+    match ``quantize``.
+
+    Not ported yet, and refused: ``data_parallel``, ``tome_r`` (token
+    merging) and attention maps (``with_maps=True``).
     """
 
     def __init__(self, params: vit.ViT, cfg: ModelConfig,
                  classes: Optional[Sequence[str]] = None,
                  batch_size: int = 8, canvas_size: int = 1024,
                  placement: str = "host", device="cuda",
-                 quantize=False, data_parallel=False, tome_r: int = 0):
-        if quantize:
-            raise _not_ported("quantize (int8 serving)", "#10")
+                 quantize=False, calibration=None, data_parallel=False,
+                 qparams: Optional[quantized.QuantizedViT] = None,
+                 tome_r: int = 0):
         if data_parallel:
             raise _not_ported("data_parallel serving", "#5")
         if tome_r:
             raise _not_ported("tome_r (token merging)", "#7")
         if placement not in ("host", "device"):
             raise ValueError(f"unknown placement {placement!r}")
+        if quantize in (False, None):
+            qmode = None
+        elif quantize in (True, "dynamic"):
+            qmode = "dynamic"
+        elif quantize == "static":
+            qmode = "static"
+        else:
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        if qmode == "static" and cfg.gelu_approximate:
+            raise ValueError("quantize='static' serves through the fused "
+                             "int8 kernel, which computes the exact-erf "
+                             "GELU; gelu_approximate is not supported")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Predictor(device='cuda') but no CUDA device "
@@ -81,10 +112,67 @@ class Predictor:
         self.batch_size = batch_size
         self.canvas_size = canvas_size
         self.placement = placement
+        self.quantize = qmode is not None
+        self.quantize_mode = qmode
         self.forwards = 0           # forward_staged calls (batches)
-        self._fwd_params = vit.inference_params(params, self.device)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+        if qparams is not None:
+            saved = "static" if qparams.static else "dynamic"
+            if saved != qmode:
+                raise ValueError(f"prebuilt qparams are {saved!r} but "
+                                 f"quantize={qmode!r} was requested")
+        # on the Predictor's stream, which every forward runs on: the
+        # weights are ready before the first forward reads them
+        with self._on_stream():
+            if qmode is None:
+                self._fwd_params = vit.inference_params(params, self.device)
+            elif qparams is not None:
+                self._fwd_params = qparams.to(self.device)
+            else:
+                scales = (self._calibrate(calibration) if qmode == "static"
+                          else None)
+                self._fwd_params = quantized.quantize_vit_params(
+                    params, scales, device=self.device)
+        # the fused kernel for static trees, the plain route for dynamic
+        self._backend = "pallas" if qmode == "static" else "xla"
+
+    def _calibrate(self, calibration) -> dict:
+        """Static activation scales from the calibration images, staged
+        and preprocessed as a batch of requests is."""
+        if calibration is None or (isinstance(calibration, str)
+                                   and calibration == "synthetic"):
+            if calibration is None:
+                # loud by design: static scales calibrated on noise can
+                # silently ship in production
+                print("[predictor] WARNING: quantize='static' with no "
+                      "calibration images — activation scales will be "
+                      "calibrated on seeded synthetic noise. Pass "
+                      "calibration= real images (or "
+                      "calibration='synthetic' to silence).",
+                      file=sys.stderr)
+            rng = np.random.default_rng(0)
+            s = self.cfg.img_size
+            calibration = [rng.integers(0, 256, (s, s), np.uint8)
+                           for _ in range(8)]
+        elif isinstance(calibration, str) or not len(calibration):
+            raise ValueError(
+                f"quantize='static' got calibration={calibration!r}: pass "
+                f"real images (a non-EMPTY list), or "
+                f"calibration='synthetic' explicitly")
+        images = self._images_of(self._to_device(
+            self._stage(list(calibration), 0)))
+        return quantized.calibrate_vit_scales(self.params, images, self.cfg)
+
+    def save_quantized(self, directory: str) -> str:
+        """Persist this Predictor's quantized tree (int8 weights, and the
+        static scales when calibrated) as the JAX package's artifact, with
+        the dense weights' fingerprint."""
+        if not self.quantize:
+            raise ValueError("Predictor was built without quantize=")
+        return quantized.save_quantized(
+            directory, self._fwd_params,
+            fingerprint=quantized.model_fingerprint(self.params))
 
     def _on_stream(self):
         return (torch.cuda.stream(self._stream) if self._stream is not None
@@ -197,8 +285,12 @@ class Predictor:
         """f32 logits of the first ``valid`` rows, pulled to the host (the
         pull is the synchronization point)."""
         with torch.inference_mode(), self._on_stream():
-            logits = vit.apply(self._fwd_params, self._images_of(staged),
-                               self.cfg)
+            images = self._images_of(staged)
+            if self.quantize:
+                logits = quantized.apply_quantized(
+                    self._fwd_params, images, self.cfg, backend=self._backend)
+            else:
+                logits = vit.apply(self._fwd_params, images, self.cfg)
             return logits[:valid].cpu().numpy()
 
     def forward_staged(self, staged, valid: int,

@@ -7,9 +7,14 @@ GET  /metrics          → request/error counts + latency quantiles (JSON)
 Stdlib only (ThreadingHTTPServer). Concurrent requests coalesce into shared
 forwards through the port's ``serve.batcher.MicroBatcher``. Attention maps
 (``?maps=1``) answer 501 until they are ported. Start with random weights
-(checkpoint loading is a later slice):
+(checkpoint loading is a later slice), dense or int8:
 
     python -m chestxray_vit_tpu_torch.serve.server --seed 0
+    python -m chestxray_vit_tpu_torch.serve.server --seed 0 --batch-size 32 \
+        --quantize static --calibration a.png b.png ...
+
+The JAX server's token-merging options (``--preset fast_serve``,
+``--auto-accel``, ``--tome-r``) are refused until token merging is ported.
 """
 
 from __future__ import annotations
@@ -146,7 +151,9 @@ def serve(predictor: Predictor, host: str = "127.0.0.1", port: int = 8000,
     return server
 
 
-def main(argv: Optional[list] = None) -> int:
+def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
+    """The server's flags; ``calibration`` comes back as None,
+    ``'synthetic'`` or the files' bytes, as ``Predictor`` takes it."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random ViT-B/16 @384 weights "
@@ -157,11 +164,52 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--placement", choices=("host", "device"), default="host",
                     help="where crop/pad/resize runs (inference.Predictor)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quantize", nargs="?", const="dynamic",
+                    choices=("dynamic", "static"), default=None,
+                    help="serve the int8 forward (per-channel int8 weights, "
+                         "models/quantized.py). 'dynamic' (the default when "
+                         "the flag is bare): per-token activation scales; "
+                         "'static': calibrated per-site scales, served "
+                         "through the fused int8 kernel")
+    ap.add_argument("--calibration", nargs="*", default=None,
+                    help="PNG/JPEG files for --quantize static activation "
+                         "calibration; 'synthetic' opts into the seeded "
+                         "noise batch without the warning")
+    ap.add_argument("--preset", choices=("fast_serve",), default=None,
+                    help="refused: fast_serve carries token merging "
+                         "(tome_r=16), which is not ported yet")
+    ap.add_argument("--auto-accel", action="store_true",
+                    help="refused: it picks token merging, which is not "
+                         "ported yet")
+    ap.add_argument("--tome-r", type=int, default=0,
+                    help="refused when > 0: token merging is not ported yet")
     ns = ap.parse_args(argv)
+    if ns.preset or ns.auto_accel or ns.tome_r:
+        raise NotImplementedError(
+            "--preset fast_serve, --auto-accel and --tome-r serve token "
+            "merging, which is not ported to PyTorch yet (ROADMAP Queue 1 "
+            "#7)")
+    if ns.calibration == ["synthetic"]:
+        ns.calibration = "synthetic"
+    elif ns.calibration is not None:
+        if not ns.calibration:
+            raise SystemExit("--calibration was given but matched no files "
+                             "— pass PNG/JPEG paths or 'synthetic'")
+        files = ns.calibration
+        ns.calibration = []
+        for path in files:
+            with open(path, "rb") as f:
+                ns.calibration.append(f.read())
+    return ns
+
+
+def main(argv: Optional[list] = None) -> int:
+    ns = parse_args(argv)
     cfg = ModelConfig()
     params = init_params(torch.Generator().manual_seed(ns.seed), cfg)
     predictor = Predictor(params, cfg, batch_size=ns.batch_size,
-                          placement=ns.placement, device=ns.device)
+                          placement=ns.placement, device=ns.device,
+                          quantize=ns.quantize, calibration=ns.calibration)
     print("[server] warming up (building kernels, running each bucket)...",
           flush=True)
     predictor.warmup()

@@ -16,9 +16,11 @@ per-layer dropout seeds when a dropout rate is set, then the mixup λ when
 ``data.mixup_alpha`` is. Tests inject the reference's own draws through
 ``train_step(..., draws=...)``.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: the int8 straight-through forward, token merging and the packed
-step.
+The int8 eval step (``make_inference_eval_step(quantized=True)``) runs a
+quantized tree: static trees through the fused int8 kernel, dynamic ones
+on the plain route. Not ported yet, each raising ``NotImplementedError``
+with its ROADMAP item: the int8 straight-through train forward, token
+merging and the packed step.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from chestxray_vit_tpu_torch.config import Config
+from chestxray_vit_tpu_torch.models import quantized as quantized_mod
 from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.ops.preprocess import prepare_pixel_values
 from chestxray_vit_tpu_torch.train import optimizer as opt
@@ -235,14 +238,35 @@ def make_eval_step(cfg: Config) -> Callable[[vit.ViT, Batch],
 
 def make_inference_eval_step(cfg: Config, quantized: bool = False,
                              tome_r: int = 0):
-    """``make_eval_step`` on the serving-accelerated forwards. Only the
-    dense forward is ported: int8 (ROADMAP Queue 1 #10) and token merging
-    (Queue 1 #7) raise."""
-    if quantized or tome_r:
+    """``make_eval_step`` on the serving-accelerated forwards: with
+    ``quantized`` the step takes the quantized tree
+    (``models.quantized.QuantizedViT``) in place of the dense weights,
+    with the same (logits, per-row BCE sums) contract. A static tree runs
+    through the fused int8 kernel (``backend="pallas"``), a dynamic one on
+    the plain route (``"xla"``); the JAX step takes "xla" for both. Token
+    merging (ROADMAP Queue 1 #7) raises."""
+    if tome_r:
         raise NotImplementedError(
-            "the int8 (ROADMAP Queue 1 #10) and token-merging (Queue 1 #7) "
-            "eval forwards are not ported yet")
-    return make_eval_step(cfg)
+            "the token-merging eval forward (ROADMAP Queue 1 #7) is not "
+            "ported yet")
+    if not quantized:
+        return make_eval_step(cfg)
+    _not_ported(cfg)
+
+    @torch.no_grad()
+    def eval_step(qparams: "quantized_mod.QuantizedViT", batch: Batch):
+        logits = quantized_mod.apply_quantized(
+            qparams, _images(cfg, batch), cfg.model,
+            backend="pallas" if qparams.static else "xla")
+        return logits, torch.sum(bce_elements(logits, batch["labels"]),
+                                 dim=-1)
+
+    return eval_step
+
+
+def make_quantized_eval_step(cfg: Config):
+    """The int8 eval step (the JAX package's alias)."""
+    return make_inference_eval_step(cfg, quantized=True)
 
 
 def make_packed_train_step(cfg: Config, total_steps: int,

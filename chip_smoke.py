@@ -44,6 +44,26 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the same injected draws (the attention mask is a counter hash, equal on
    the card and the CPU; hidden dropout draws from a generator of the
    tensor's device, so 9 and the CPU tests cover it).
+11. serving_int8: a static-int8 Predictor (calibrated on 8 of the request
+   images, batch 32, the fused int8 kernel) behind the MicroBatcher answers
+   128 concurrent requests: 15 finite probabilities each, exactly 73 int8
+   kernel launches (1 + 6 per layer), 12 attention and 25 LayerNorm per
+   forwarded batch; beside it a dense bf16 Predictor at batch 32 on the same
+   requests, and the b32 forward time of the fused route, the plain "xla"
+   route, dynamic int8 and dense bf16 on the same images.
+12. int8_cross_check: on that tree and 32 of the images, the card's fused
+   route against the port's CPU plain route (2 images) and the card's
+   "xla" route, in f32 and bf16 (logits within 0.15, correlation above
+   0.995; see INT8_ROUTE_TOL), and the bf16 fused route against the card's
+   dense f32 forward (probabilities within 0.1, logit correlation above
+   0.995).
+13. eval_int8: the int8 eval step on a static tree of the trained weights
+   over the eval batches of 8, against the host's row losses, with exact
+   launch counts.
+
+kernel_check also holds the int8 kernel to its plain version at the batch-32
+serving shapes in its four call forms (patch embed, Q/K/V, the residual
+forms of wo and mlp_out, mlp_in with GELU and requantize).
 
 The second-to-last line is the kernels summary, the last one the result.
 """
@@ -62,6 +82,7 @@ import torch
 
 BATCH = 8
 REQUESTS = 32
+INT8_BATCH, INT8_REQUESTS = 32, 128
 CLIENT_THREADS = 4
 SEED = 0
 TRAIN_BATCH = 36            # bench.py's batch per chip; remat on above 32
@@ -82,6 +103,7 @@ MIXUP_ALPHA = 0.2
 # clock, beside both.
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS, CUDA_CORE_FLOPS = 989e12, 67e12
+INT8_TENSOR_OPS = 1979e12
 INT32_OPS = 132 * 64 * 1.98e9
 # integer operations of the hash per score element: add the column, XOR
 # the seed, murmur3's finalizer (3 shift-XORs, 2 multiplies), compare, select
@@ -89,6 +111,10 @@ HASH_OPS = 12
 # LayerNorm per element: forward mean, variance, normalize, scale, shift;
 # backward the two row sums, dx, and the dscale/dbias sums
 LN_FWD_OPS, LN_BWD_OPS = 8, 12
+# the int8 kernel's epilogue per output element, f32 on the CUDA cores:
+# dequantize and bias 2, residual 1, GELU (erf polynomial, exp2, sign) 21,
+# requantize 4
+INT8_EPI_OPS = {"base": 2, "resid": 1, "gelu": 21, "requant": 4}
 
 # Tolerances, each with its reason:
 # - attention, bf16: the bf16 tolerance of tests/test_flash_attention.py
@@ -126,6 +152,28 @@ REMAT_LOSS_TOL, REMAT_GRAD_TOL = 1e-3, 1e-2
 XCHECK_F32 = {"loss": 1e-5, "grad_norm_rel": 1e-4, "grads_rel": 1e-4,
               "params": 1e-5}
 XCHECK_BF16 = {"loss": 5e-2, "grads_rel": 5e-2, "params": 2.1e-4}
+# - int8 kernel vs its plain version: every output equal, int8 included
+#   (the same exact integer sums, the epilogue rounded at the same points,
+#   its exp2f libdevice's as PyTorch's exp2 on the card).
+# - int8 routes, the fused route against the plain one (the port's CPU
+#   route, the card's "xla" route) on the same tree and images, in f32 and
+#   bf16. The static int8 forward is not continuous: an activation within
+#   a rounding error of an int8 step boundary quantizes one step apart, and
+#   over 12 layers of width 768 such flips re-draw the quantization noise.
+#   LayerNorm and attention sum in other orders on the card and the CPU,
+#   and the routes round GELU → requantize differently, so their logits
+#   differ by about int8's own error against the dense f32 forward (on an
+#   H100 80GB HBM3: 0.033–0.087 against 0.060–0.071), and so does the fused
+#   route on its f32 input moved by noise of f32-rounding size
+#   (``noise_sensitivity``, N(0, 1e-6) on pixels of O(1), measured in every
+#   run). Bound: 0.15 in logits of O(1) with a logit correlation above
+#   0.995 (tests/test_quant.py's correlation bound for int8 against f32); a
+#   wrong scale, bias or residual moves logits by O(1). The int8 kernel
+#   itself equals its plain version (kernel_check). int8 against the dense
+#   f32 forward: tests/test_quant.py's bounds.
+INT8_ROUTE_TOL, INT8_ROUTE_MIN_CORR = 0.15, 0.995
+NOISE_STD = 1e-6
+INT8_PROB_TOL, INT8_MIN_CORR = 0.1, 0.995
 
 
 def emit(obj: dict) -> None:
@@ -164,9 +212,12 @@ def time_pair(kernel, plain) -> tuple:
 def bound(nbytes: float, flops: float, dtype, core_ops: float = 0.0,
           int_ops: float = 0.0) -> dict:
     """``bound_ms`` and ``bound_by`` of a kernel's work (see
-    HBM_BYTES_PER_S): ``flops`` are its products, ``core_ops`` the float
-    work on the CUDA cores beside them, ``int_ops`` the integer work."""
-    if dtype == torch.bfloat16:
+    HBM_BYTES_PER_S): ``flops`` are its products, on the tensor cores in
+    bf16 and int8, ``core_ops`` the float work on the CUDA cores beside
+    them, ``int_ops`` the integer work."""
+    if dtype == torch.int8:
+        t_ops = max(flops / INT8_TENSOR_OPS, core_ops / CUDA_CORE_FLOPS)
+    elif dtype == torch.bfloat16:
         t_ops = max(flops / BF16_TENSOR_FLOPS, core_ops / CUDA_CORE_FLOPS)
     else:
         t_ops = (flops + core_ops) / CUDA_CORE_FLOPS
@@ -234,8 +285,10 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from chestxray_vit_tpu_torch.ops import flash_attention as fa
+    from chestxray_vit_tpu_torch.ops import int8_matmul as i8
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
-    return {"flash_attention_inference": fa.flash_attention_inference,
+    return {"int8_matmul_fused": i8.int8_matmul_fused,
+            "flash_attention_inference": fa.flash_attention_inference,
             "layer_norm": ln.layer_norm_cuda,
             "flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
@@ -351,10 +404,75 @@ def phase_kernel_check() -> dict:
             summary["layer_norm"] = rec
         emit(rec)
         require(ok, f"layer_norm {x_dtype}/{w_dtype}: err {err}")
+    check_int8_matmul(gen, summary)
     check_training_attention(randn, summary)
     check_layer_norm_bwd(randn, summary)
     check_dropout_attention(randn, summary)
     return summary
+
+
+def check_int8_matmul(gen, summary: dict) -> None:
+    """The int8 kernel against its plain version at the batch-32 serving
+    shapes, in the four call forms of the fused route: outputs equal, int8
+    included; times beside ``torch._int_mm`` (the
+    int32 product alone, on the same operands). The mlp_in form is the
+    summary row."""
+    from chestxray_vit_tpu_torch.ops import int8_matmul as i8
+
+    dev = torch.device("cuda")
+    tokens = INT8_BATCH * 577
+    forms = (  # name, M, K, N, residual, GELU + requantize
+        ("patch_embed", INT8_BATCH * 576, 768, 768, False, False),
+        ("q", tokens, 768, 768, False, False),
+        ("wo_resid", tokens, 768, 768, True, False),
+        ("mlp_in_gelu_requant", tokens, 768, 3072, False, True),
+        ("mlp_out_resid", tokens, 3072, 768, True, False))
+    for name, m, k, n, with_resid, gelu in forms:
+        def rint8(*shape):
+            return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+
+        xq, wq = rint8(m, k), rint8(n, k)
+        # scales that put y = acc·scale + bias at O(1), as calibration does
+        scale = (torch.rand(n, generator=gen, device=dev) + 0.5) \
+            / (127.0 * 127.0 * k ** 0.5)
+        bias = torch.randn(n, generator=gen, device=dev) * 0.1
+        kw = {}
+        if with_resid:
+            kw["resid"] = torch.randn(m, n, generator=gen, device=dev).to(
+                torch.bfloat16)
+        if gelu:
+            kw.update(gelu=True,
+                      out_quant_scale=torch.tensor(0.02, device=dev))
+        out = i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
+        ref = i8.int8_matmul_fused_reference(xq, wq, scale, bias, **kw)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        flips = int((diff > 0).sum())
+        ms, plain_ms = time_pair(
+            lambda: i8.int8_matmul_fused(xq, wq, scale, bias, **kw),
+            lambda: i8.int8_matmul_fused_reference(xq, wq, scale, bias,
+                                                   **kw))
+        wt = wq.t()
+        out_bytes = m * n * (1 if gelu else 2)
+        ops = (INT8_EPI_OPS["base"] + INT8_EPI_OPS["resid"] * with_resid
+               + (INT8_EPI_OPS["gelu"] + INT8_EPI_OPS["requant"]) * gelu)
+        rec = {"phase": "kernel_check", "kernel": "int8_matmul_fused",
+               "form": name, "m_k_n": [m, k, n],
+               "out_dtype": str(out.dtype), "max_abs_err": diff.max().item(),
+               "mismatched": flips, "tol": "equal", "ms": ms,
+               "plain_ms": plain_ms,
+               "library_ms": time_ms(lambda: torch._int_mm(xq, wt)),
+               "tops": 2 * m * k * n / ms / 1e9,
+               **bound(m * k + n * k + 8 * n + 2 * m * n * with_resid
+                       + out_bytes, 2 * m * k * n, torch.int8,
+                       core_ops=ops * m * n)}
+        emit(rec)
+        if gelu:
+            summary["int8_matmul_fused"] = rec
+        require(bool(torch.isfinite(out.float()).all()) and flips == 0,
+                f"int8_matmul_fused {name}: {flips} mismatched, max "
+                f"{diff.max().item()}")
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -579,11 +697,11 @@ def check_dropout_attention(randn, summary: dict) -> None:
                 f"dropout bwd {dtype}: {errs}")
 
 
-def make_requests() -> list:
+def make_requests(n: int = REQUESTS) -> list:
     """Seeded u8 grayscale images of varied size up to 1024²."""
     rng = np.random.default_rng(SEED)
     out = []
-    for i in range(REQUESTS):
+    for i in range(n):
         h, w = (1024, 1024) if i == 0 else rng.integers(256, 1025, 2)
         img = rng.integers(0, 256, (h, w), np.uint8)
         # a bright disc, so the images are not pure noise
@@ -594,14 +712,13 @@ def make_requests() -> list:
     return out
 
 
-def phase_serving(params, cfg, images: list):
+def serve_burst(pred, images: list) -> tuple:
+    """Every image submitted to a MicroBatcher over ``pred`` from
+    CLIENT_THREADS threads at once, with the launch counts and the
+    Predictor's forward count set to 0 just before: (results, submit
+    times, done times, launches)."""
     import chestxray_vit_tpu_torch as cxr
 
-    t0 = time.perf_counter()
-    pred = cxr.Predictor(params, cfg, batch_size=BATCH, placement="device",
-                         device="cuda")
-    pred.warmup()
-    warm_s = time.perf_counter() - t0
     batcher = cxr.MicroBatcher(pred)
     submitted = [0.0] * len(images)
     done = [0.0] * len(images)
@@ -615,7 +732,6 @@ def phase_serving(params, cfg, images: list):
                 lambda _f, i=i: done.__setitem__(i, time.perf_counter()))
             futures[i] = fut
 
-    # the counts cover exactly the main path's run
     reset_launch_counts()
     pred.forwards = 0
     try:
@@ -631,40 +747,67 @@ def phase_serving(params, cfg, images: list):
         results = [f.result(timeout=300) for f in futures]
     finally:
         batcher.close()
-    launches = launch_counts()
-    attn_launches = launches["flash_attention_inference"]
-    ln_launches = launches["layer_norm"]
-    forwards = pred.forwards
+    return results, submitted, done, launch_counts()
 
+
+def burst_record(phase: str, pred, images: list, results, submitted, done,
+                 cfg) -> dict:
+    """The serving record of a burst, after checking that every request
+    got 15 finite probabilities in [0, 1]."""
     probs = np.stack([r.probs for r in results])
-    logits = np.stack([r.logits for r in results])
     lat = sorted(d - s for s, d in zip(submitted, done))
     wall = max(done) - min(submitted)
-    rec = {"phase": "serving", "requests": len(images),
+    rec = {"phase": phase, "requests": len(images),
            "answered": len(results), "client_threads": CLIENT_THREADS,
-           "batch_size": BATCH, "forwards": forwards,
-           "attention_launches": attn_launches,
-           "layer_norm_launches": ln_launches,
+           "batch_size": pred.batch_size, "forwards": pred.forwards,
            "probs_shape": list(probs.shape),
            "probs_finite_in_0_1": bool(np.isfinite(probs).all()
                                        and (probs >= 0).all()
                                        and (probs <= 1).all()),
            "images_per_s": len(images) / wall,
            "p50_latency_ms": 1e3 * statistics.median(lat),
-           "max_latency_ms": 1e3 * lat[-1],
-           "warmup_s": warm_s}
-    emit(rec)
-    require(rec["answered"] == len(images), "every request answered")
+           "max_latency_ms": 1e3 * lat[-1]}
+    require(rec["answered"] == len(images), f"{phase}: every request "
+                                            f"answered")
     require(probs.shape == (len(images), cfg.num_classes),
-            "15 probabilities per request")
-    require(rec["probs_finite_in_0_1"], "probabilities finite in [0, 1]")
-    require(forwards > 0 and attn_launches == cfg.num_layers * forwards,
-            f"{attn_launches} attention launches for {forwards} forwards")
-    require(ln_launches == (2 * cfg.num_layers + 1) * forwards,
-            f"{ln_launches} LayerNorm launches for {forwards} forwards")
-    require(sum(launches.values()) == attn_launches + ln_launches,
-            f"serving launched no training kernel: {launches}")
-    return logits, launches
+            f"{phase}: 15 probabilities per request")
+    require(rec["probs_finite_in_0_1"], f"{phase}: probabilities finite in "
+                                        f"[0, 1]")
+    return rec
+
+
+def require_forward_launches(phase: str, launches: dict, forwards: int,
+                             cfg, int8: bool) -> None:
+    """Exactly 12 attention and 25 LayerNorm launches per forward, 73 of
+    the int8 kernel on the fused int8 route, and no other kernel."""
+    want = {**dict.fromkeys(launches, 0),
+            "flash_attention_inference": cfg.num_layers * forwards,
+            "layer_norm": (2 * cfg.num_layers + 1) * forwards}
+    if int8:
+        want["int8_matmul_fused"] = (1 + 6 * cfg.num_layers) * forwards
+    require(forwards > 0 and launches == want,
+            f"{phase}: launches {launches} for {forwards} forwards, "
+            f"expected {want}")
+
+
+def phase_serving(params, cfg, images: list):
+    import chestxray_vit_tpu_torch as cxr
+
+    t0 = time.perf_counter()
+    pred = cxr.Predictor(params, cfg, batch_size=BATCH, placement="device",
+                         device="cuda")
+    pred.warmup()
+    warm_s = time.perf_counter() - t0
+    # the counts cover exactly the main path's run
+    results, submitted, done, launches = serve_burst(pred, images)
+    rec = {**burst_record("serving", pred, images, results, submitted, done,
+                          cfg),
+           "attention_launches": launches["flash_attention_inference"],
+           "layer_norm_launches": launches["layer_norm"], "warmup_s": warm_s}
+    emit(rec)
+    require_forward_launches("serving", launches, pred.forwards, cfg,
+                             int8=False)
+    return np.stack([r.logits for r in results]), launches
 
 
 def phase_cross_check(params, cfg, images: list, card_logits) -> None:
@@ -690,6 +833,131 @@ def phase_cross_check(params, cfg, images: list, card_logits) -> None:
             "finite logits")
     require(d_bf16 <= BF16_LOGIT_TOL, f"bf16 card vs f32 CPU: {d_bf16}")
     require(d_f32 <= F32_LOGIT_TOL, f"f32 card vs f32 CPU: {d_f32}")
+
+
+def phase_serving_int8(params, cfg, images: list):
+    """The static-int8 Predictor at batch 32 on the fused kernel, and beside
+    it the dense bf16 Predictor at batch 32 on the same requests; then the
+    b32 forward times of the fused route, the "xla" route, dynamic int8
+    and dense bf16 on the same 32 images. Returns the static tree, the
+    32 images (preprocessed on the card), the fused route's logits on them
+    and the int8 run's launches."""
+    import chestxray_vit_tpu_torch as cxr
+    from chestxray_vit_tpu_torch.models import quantized, vit
+
+    t0 = time.perf_counter()
+    pred = cxr.Predictor(params, cfg, batch_size=INT8_BATCH,
+                         placement="device", device="cuda",
+                         quantize="static", calibration=images[:8])
+    pred.warmup()
+    warm_s = time.perf_counter() - t0
+    results, submitted, done, launches = serve_burst(pred, images)
+    rec = {**burst_record("serving_int8", pred, images, results, submitted,
+                          done, cfg),
+           "quantize": "static", "launches": launches, "warmup_s": warm_s}
+    require_forward_launches("serving_int8", launches, pred.forwards, cfg,
+                             int8=True)
+
+    dense = cxr.Predictor(params, cfg, batch_size=INT8_BATCH,
+                          placement="device", device="cuda")
+    dense.warmup()
+    d_res, d_sub, d_done, _ = serve_burst(dense, images)
+    d_rec = burst_record("serving_dense_b32", dense, images, d_res, d_sub,
+                         d_done, cfg)
+    rec["dense_b32"] = {k: d_rec[k] for k in ("images_per_s",
+                                              "p50_latency_ms",
+                                              "max_latency_ms", "forwards")}
+
+    qp = pred._fwd_params
+    staged = pred.stage_chunk(images[:INT8_BATCH])
+    torch.cuda.synchronize()        # the copy ran on the Predictor's stream
+    dyn = quantized.quantize_vit_params(params, None, device="cuda")
+    dense_p = dense._fwd_params
+    with torch.inference_mode():
+        imgs = pred._images_of(staged)
+        fwd = {
+            "fused": lambda: quantized.apply_quantized(qp, imgs, cfg,
+                                                       "pallas"),
+            "xla_static": lambda: quantized.apply_quantized(qp, imgs, cfg,
+                                                            "xla"),
+            "xla_dynamic": lambda: quantized.apply_quantized(dyn, imgs, cfg,
+                                                             "xla"),
+            "dense_bf16": lambda: vit.apply(dense_p, imgs, cfg)}
+        rec["forward_ms_b32"] = {k: time_ms(f, reps=5, inner=3)
+                                 for k, f in fwd.items()}
+        fused_logits = fwd["fused"]()
+    emit(rec)
+    del dense, dense_p, dyn
+    torch.cuda.empty_cache()
+    return qp, imgs, fused_logits, launches
+
+
+def phase_int8_cross_check(params, cfg, qp, imgs, fused_logits) -> None:
+    """The fused route on the card against the port's CPU plain route (the
+    same tree and images, 2 of them) and against the card's "xla" route,
+    in f32 and in the serving bf16; and the bf16 fused route against the
+    card's dense f32 forward."""
+    import copy
+    import dataclasses
+
+    from chestxray_vit_tpu_torch.models import quantized, vit
+
+    pick = 2
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    cpu_qp = copy.deepcopy(qp).to("cpu")
+    card_params = copy.deepcopy(params).to("cuda")
+    imgs32 = imgs.float()
+
+    def fused(tree, x, c):
+        return quantized.apply_quantized(tree, x, c, "pallas").cpu()
+
+    with torch.inference_mode():
+        out = {
+            "bf16": (fused_logits.cpu(), fused(cpu_qp, imgs[:pick].cpu(), cfg),
+                     quantized.apply_quantized(qp, imgs, cfg, "xla").cpu()),
+            "f32": (fused(qp, imgs32, f32),
+                    fused(cpu_qp, imgs32[:pick].cpu(), f32),
+                    quantized.apply_quantized(qp, imgs32, f32, "xla").cpu())}
+        dense32 = vit.apply(card_params, imgs32, f32).cpu()
+        noise = torch.randn(imgs32.shape, device=imgs32.device,
+                            generator=torch.Generator(imgs32.device)
+                            .manual_seed(SEED))
+        nudged = fused(qp, imgs32 + NOISE_STD * noise, f32)
+
+    def corr(a, b):
+        return float(np.corrcoef(a.numpy().ravel(), b.numpy().ravel())[0, 1])
+
+    rec = {"phase": "int8_cross_check", "images": INT8_BATCH,
+           "cpu_images": pick, "tol": INT8_ROUTE_TOL,
+           "min_corr": INT8_ROUTE_MIN_CORR,
+           "noise_std": NOISE_STD,
+           "noise_sensitivity": (out["f32"][0] - nudged).abs().max().item()}
+    for dt, (card, cpu, xla) in out.items():
+        require(bool(torch.isfinite(card).all()) and card.shape == (
+            INT8_BATCH, cfg.num_classes), f"finite {dt} int8 logits [32, 15]")
+        rec[f"{dt}_fused_vs_cpu_plain_max_abs"] = \
+            (card[:pick] - cpu).abs().max().item()
+        rec[f"{dt}_fused_vs_xla_max_abs"] = (card - xla).abs().max().item()
+        rec[f"{dt}_fused_vs_cpu_plain_corr"] = corr(card[:pick], cpu)
+        rec[f"{dt}_fused_vs_xla_corr"] = corr(card, xla)
+        rec[f"{dt}_fused_vs_dense_f32_max_abs"] = \
+            (card - dense32).abs().max().item()
+        rec[f"{dt}_xla_vs_dense_f32_max_abs"] = \
+            (xla - dense32).abs().max().item()
+    card = out["bf16"][0]
+    rec["int8_vs_dense_f32_prob_max_abs"] = (
+        torch.sigmoid(card) - torch.sigmoid(dense32)).abs().max().item()
+    rec["int8_vs_dense_f32_logit_corr"] = corr(card, dense32)
+    rec["dense_f32_logits_absmax"] = dense32.abs().max().item()
+    emit(rec)
+    for dt in out:
+        for pair in ("fused_vs_cpu_plain", "fused_vs_xla"):
+            d, c = rec[f"{dt}_{pair}_max_abs"], rec[f"{dt}_{pair}_corr"]
+            require(d <= INT8_ROUTE_TOL and c > INT8_ROUTE_MIN_CORR,
+                    f"{dt} {pair}: {d}, corr {c}")
+    require(rec["int8_vs_dense_f32_prob_max_abs"] <= INT8_PROB_TOL
+            and rec["int8_vs_dense_f32_logit_corr"] > INT8_MIN_CORR,
+            f"int8 vs dense f32: {rec}")
 
 
 def train_config(mixup_alpha: float = 0.0, **model):
@@ -994,7 +1262,53 @@ def phase_eval(params, cfg) -> dict:
     return launches
 
 
+def phase_eval_int8(params, cfg) -> dict:
+    """The int8 eval step on a static tree of ``params`` (calibrated on the
+    first eval batch) over the eval batches: finite logits, row losses
+    against the host's, exact launch counts (73 int8, 12 attention and 25
+    LayerNorm per batch, nothing else)."""
+    from chestxray_vit_tpu_torch.models import quantized
+    from chestxray_vit_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    batches = [bench_batch(TRAIN_BATCH, SEED + 10 + i, dev)
+               for i in range(EVAL_BATCHES)]
+    qp = quantized.quantize_vit_params(
+        params, quantized.calibrate_vit_scales(
+            params, batches[0]["pixel_values"], cfg.model))
+    eval_step = steps.make_inference_eval_step(cfg, quantized=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [eval_step(qp, b) for b in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    logits = torch.cat([o[0] for o in outs])
+    rows = torch.cat([o[1] for o in outs]).cpu().numpy()
+    x = logits.double().cpu().numpy()
+    z = torch.cat([b["labels"] for b in batches]).double().cpu().numpy()
+    host_rows = (np.maximum(x, 0) - x * z
+                 + np.log1p(np.exp(-np.abs(x)))).sum(axis=1)
+    row_err = float(np.abs(rows - host_rows).max())
+    rec = {"phase": "eval_int8", "batches": EVAL_BATCHES,
+           "batch": TRAIN_BATCH, "logits_shape": list(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "row_loss_max_abs_err": row_err, "ms_per_batch":
+               1e3 * wall / EVAL_BATCHES, "launches": launches}
+    emit(rec)
+    require(rec["finite"] and logits.shape == (EVAL_BATCHES * TRAIN_BATCH,
+                                               15),
+            "finite int8 eval logits of the expected shape")
+    require(row_err <= 1e-4, f"int8 row losses vs host: {row_err}")
+    require_forward_launches("eval_int8", launches, EVAL_BATCHES, cfg.model,
+                             int8=True)
+    return launches
+
+
 KERNELS = (  # name (the kernel_check summary key), source, what it replaces
+    ("int8_matmul_fused", "csrc/int8_matmul.cu",
+     "chestxray_vit_tpu/ops/int8_pallas.py:51"),
     ("flash_attention_inference", "csrc/flash_attention_inf.cu",
      "chestxray_vit_tpu/ops/flash_attention.py:319"),
     ("layer_norm", "csrc/layer_norm.cu",
@@ -1035,13 +1349,19 @@ def main() -> int:
 
     cfg = ModelConfig()                 # ViT-B/16 @384, 15 classes, bf16
     params = init_params(torch.Generator().manual_seed(SEED), cfg)
-    images = make_requests()
-    card_logits, serve_launches = phase_serving(params, cfg, images)
+    images = make_requests(INT8_REQUESTS)
+    card_logits, serve_launches = phase_serving(params, cfg,
+                                                images[:REQUESTS])
     phase_cross_check(params, cfg, images, card_logits)
-    del params
+    qp, imgs, fused_logits, serve_int8_launches = phase_serving_int8(
+        params, cfg, images)
+    phase_int8_cross_check(params, cfg, qp, imgs, fused_logits)
+    del params, qp, imgs
+    torch.cuda.empty_cache()
     train_params, train_cfg, train_launches = phase_train()
     phase_train_cross_check()
     eval_launches = phase_eval(train_params, train_cfg)
+    eval_int8_launches = phase_eval_int8(train_params, train_cfg)
     del train_params
     torch.cuda.empty_cache()
     dropout_launches = phase_train_dropout()
@@ -1052,11 +1372,11 @@ def main() -> int:
     require(not loaded, f"no JAX and no JAX-package module imported: "
                         f"{loaded}")
 
-    # launches: the sum over the main paths' runs (serving, the timed
-    # train steps, eval, the timed dropout steps), each counted from 0 just
-    # before it
-    paths = (serve_launches, train_launches, eval_launches,
-             dropout_launches)
+    # launches: the sum over the main paths' runs (serving, int8 serving,
+    # the timed train steps, eval, int8 eval, the timed dropout steps), each
+    # counted from 0 just before it
+    paths = (serve_launches, serve_int8_launches, train_launches,
+             eval_launches, eval_int8_launches, dropout_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)

@@ -1,14 +1,17 @@
-"""Device-time breakdown of the port's train step on one NVIDIA GPU.
+"""Device-time breakdown of the port's train step, or of its static int8
+serving forward, on one NVIDIA GPU.
 
-    python3 profile_step.py [--dropout]
+    python3 profile_step.py [--dropout | --int8]
 
 bench.py's step (ViT-B/16 @384, bf16, full remat, batch 36, random weights
 from seed 0); ``--dropout`` adds attention dropout 0.1, hidden dropout 0.1
-and mixup α 0.2. After 3 warm-up steps ``torch.profiler`` traces
-2 steps; the kernels of the trace are summed by category, and the
-busy share is the union of their intervals over the traced wall. Prints one
-JSON line (the trace is written beside the kernel build, read and
-removed).
+and mixup α 0.2. ``--int8`` profiles the serving forward instead: the
+fused int8 route at batch 32 on a static tree calibrated on 8 images (the
+weights of seed 0, standard-normal images). After 3 warm-up steps
+``torch.profiler`` traces 2 steps (forwards); the kernels of the trace are
+summed by category, and the busy share is the union of their intervals
+over the traced wall. Prints one JSON line (the trace is written beside
+the kernel build, read and removed).
 Needs a CUDA card.
 """
 
@@ -24,10 +27,11 @@ import time
 import numpy as np
 import torch
 
-BATCH, WARMUP_STEPS, STEPS = 36, 3, 2
+BATCH, INT8_BATCH, WARMUP_STEPS, STEPS = 36, 32, 3, 2
 
 # kernel-name fragments by category, first match wins
 CATEGORIES = (
+    ("int8_matmul", ("int8_gemm",)),
     ("attention_fwd", ("attn_fwd",)),
     ("attention_bwd", ("attn_bwd",)),
     ("layer_norm", ("ln_fwd", "ln_bwd", "layer_norm")),
@@ -60,7 +64,9 @@ def busy_ms(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dropout", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--dropout", action="store_true")
+    mode.add_argument("--int8", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -83,17 +89,29 @@ def main() -> int:
         "labels": torch.from_numpy((rng.random((BATCH, 15)) < 0.2)
                                    .astype(np.float32)).to(dev)}
     params = init_params(torch.Generator().manual_seed(0), cfg.model, dev)
-    state = steps.TrainState.create(params, seed=42)
-    step = steps.make_train_step(cfg, total_steps=10_000)
+    if args.int8:
+        run, batch_size, config = int8_forward(params, cfg.model, dev), \
+            INT8_BATCH, "int8"
+    else:
+        state = steps.TrainState.create(params, seed=42)
+        step = steps.make_train_step(cfg, total_steps=10_000)
+
+        def run():
+            nonlocal state
+            state, m = step(state, batch)
+            return m["loss"]
+
+        batch_size = BATCH
+        config = "dropout" if args.dropout else "dense"
     for _ in range(WARMUP_STEPS):
-        state, m = step(state, batch)
+        out = run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
-            state, m = step(state, batch)
+            out = run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -114,8 +132,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     print(json.dumps({
-        "config": "dropout" if args.dropout else "dense",
-        "batch": BATCH, "steps": STEPS, "nvidia_smi": smi,
+        "config": config, "batch": batch_size, "steps": STEPS,
+        "nvidia_smi": smi,
         "wall_ms_per_step": wall_ms / STEPS,
         "device_ms_per_step": busy / STEPS,
         "busy_share": busy / wall_ms,
@@ -123,8 +141,31 @@ def main() -> int:
         "ms_per_step_by_category": {k: round(v, 4) for k, v in
                                     sorted(by_cat.items(),
                                            key=lambda kv: -kv[1])},
-        "loss": m["loss"].item()}))
+        **({"logits_absmax": out.abs().max().item()} if args.int8
+           else {"loss": out.item()})}))
     return 0
+
+
+def int8_forward(params, cfg, dev):
+    """The static int8 serving forward at INT8_BATCH on the fused route,
+    as the ``Predictor`` runs it (under ``inference_mode``)."""
+    from chestxray_vit_tpu_torch.models import quantized
+
+    rng = np.random.default_rng(1)
+
+    def images(n):
+        return torch.from_numpy(rng.standard_normal(
+            (n, 384, 384, 3)).astype(np.float32)).to(dev, torch.bfloat16)
+
+    qp = quantized.quantize_vit_params(
+        params, quantized.calibrate_vit_scales(params, images(8), cfg))
+    x = images(INT8_BATCH)
+
+    def run():
+        with torch.inference_mode():
+            return quantized.apply_quantized(qp, x, cfg, backend="pallas")
+
+    return run
 
 
 if __name__ == "__main__":

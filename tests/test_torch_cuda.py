@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from chestxray_vit_tpu_torch.config import Config, ModelConfig, TrainConfig
-from chestxray_vit_tpu_torch.models import bridge, vit
+from chestxray_vit_tpu_torch.models import bridge, quantized, vit
 from chestxray_vit_tpu_torch.ops import flash_attention as fa
+from chestxray_vit_tpu_torch.ops import int8_matmul as i8
 from chestxray_vit_tpu_torch.ops import layer_norm as ln
 from chestxray_vit_tpu_torch.serve.inference import Predictor
 from chestxray_vit_tpu_torch.train import steps
@@ -484,3 +485,116 @@ def test_train_step_with_attention_dropout_on_card_matches_cpu(dev, remat):
     for key in gc:
         for a, b in zip(_leaves(gg[key]), _leaves(gc[key])):
             np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The int8 kernel and the int8 serving paths
+# ---------------------------------------------------------------------------
+
+def _int8_operands(dev, m, k, n, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rint8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    scale = (torch.rand(n, generator=g, device=dev) + 0.5) \
+        / (127.0 * 127.0 * k ** 0.5)
+    return (rint8(m, k), rint8(n, k), scale,
+            torch.randn(n, generator=g, device=dev) * 0.1,
+            torch.randn(m, n, generator=g, device=dev))
+
+
+@pytest.mark.parametrize("m", [3 * 577, 5])
+@pytest.mark.parametrize("k,n", [(192, 768), (768, 768), (768, 3072),
+                                 (3072, 768)])
+@pytest.mark.parametrize("form", ["plain", "resid", "gelu_requant",
+                                  "plain_f32", "resid_f32"])
+def test_int8_kernel_matches_plain(dev, m, k, n, form):
+    """Every output equals the plain version's, int8 included: the integer
+    sums are exact and the epilogue rounds at the same points, its exp2f
+    included (libdevice's, as PyTorch's exp2 on the card)."""
+    xq, wq, scale, bias, resid = _int8_operands(dev, m, k, n)
+    dtype = torch.float32 if form.endswith("f32") else torch.bfloat16
+    kw = {"out_dtype": dtype}
+    if form.startswith("resid"):
+        kw["resid"] = resid.to(dtype)
+    if form == "gelu_requant":
+        kw.update(gelu=True, out_quant_scale=torch.tensor(0.02, device=dev))
+    before = i8.int8_matmul_fused.launches
+    out = i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
+    ref = i8.int8_matmul_fused_reference(xq, wq, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert i8.int8_matmul_fused.launches == before + 1
+    assert out.dtype == ref.dtype and out.shape == (m, n)
+    assert torch.equal(out, ref)
+
+
+def test_int8_kernel_refuses_what_it_does_not_take(dev):
+    xq, wq, scale, bias, resid = _int8_operands(dev, 40, 768, 64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        i8.int8_matmul_fused(xq[:, :100].contiguous(), wq[:, :100]
+                             .contiguous(), scale, bias)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        i8.int8_matmul_fused(xq, wq[:60].contiguous(), scale[:60], bias[:60])
+    with pytest.raises(TypeError):
+        i8.int8_matmul_fused(xq.float(), wq, scale, bias)
+    with pytest.raises(ValueError, match="resid"):
+        i8.int8_matmul_fused(xq, wq, scale, bias, resid=resid)   # f32, bf16 out
+    with pytest.raises(ValueError, match="contiguous"):
+        i8.int8_matmul_fused(xq.t().contiguous().t(), wq, scale, bias)
+
+
+def _int8_cfg(dtype="float32"):
+    # hidden 128 in 2 heads of 64 (the attention kernel's head dim), K and
+    # N multiples of 64
+    return ModelConfig(img_size=64, patch_size=16, hidden_size=128,
+                       num_layers=2, num_heads=2, mlp_dim=256, num_classes=5,
+                       dtype=dtype)
+
+
+@pytest.mark.parametrize("quantize", ["static", "dynamic"])
+def test_quantized_predictor_on_card_matches_cpu(dev, quantize, tmp_path):
+    """The static Predictor on the card (the int8 kernel, 73 launches per
+    forward at 12 layers: here 1 + 6 · 2) and the dynamic one
+    (``torch._int_mm``) against the CPU's plain versions on the same
+    weights, calibration and images: 2e-2, the JAX package's bound for
+    its two routes (an activation on a rounding boundary may quantize one
+    step apart where LayerNorm or attention sum in another order)."""
+    cfg = _int8_cfg("bfloat16")
+    params = vit.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    grays = [rng.integers(0, 256, (100 + 7 * i, 90), np.uint8)
+             for i in range(5)]
+    kw = dict(batch_size=4, canvas_size=128, placement="device",
+              quantize=quantize, calibration=grays[:3])
+    cpu = Predictor(params, cfg, device="cpu", **kw)
+    card = Predictor(params, cfg, device="cuda",
+                     qparams=quantized.load_quantized(
+                         cpu.save_quantized(str(tmp_path / "q")), cfg), **kw)
+    before = i8.int8_matmul_fused.launches
+    got = card.predict_arrays(grays)
+    launches = i8.int8_matmul_fused.launches - before
+    assert launches == (13 * card.forwards if quantize == "static" else 0)
+    np.testing.assert_allclose(got.logits, cpu.predict_arrays(grays).logits,
+                               atol=2e-2)
+
+
+def test_quantized_eval_step_on_card_matches_cpu(dev):
+    cfg = Config(model=_int8_cfg("bfloat16"), train=TrainConfig())
+    params = vit.init_params(torch.Generator().manual_seed(1), cfg.model)
+    rng = np.random.default_rng(2)
+    batch = {"pixel_values": torch.from_numpy(
+                 rng.standard_normal((6, 64, 64, 3)).astype(np.float32)),
+             "labels": torch.from_numpy(
+                 (rng.random((6, 5)) < 0.2).astype(np.float32))}
+    qp = quantized.quantize_vit_params(params, quantized.calibrate_vit_scales(
+        params, batch["pixel_values"], cfg.model))
+    step = steps.make_inference_eval_step(cfg, quantized=True)
+    cpu_logits, cpu_rows = step(qp, batch)
+    card_logits, card_rows = step(qp.to(dev), {k: v.to(dev)
+                                               for k, v in batch.items()})
+    np.testing.assert_allclose(card_logits.cpu().numpy(), cpu_logits.numpy(),
+                               atol=2e-2)
+    np.testing.assert_allclose(card_rows.cpu().numpy(), cpu_rows.numpy(),
+                               atol=5 * 2e-2)

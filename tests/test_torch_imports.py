@@ -30,8 +30,11 @@ MODULES = [
     "chestxray_vit_tpu_torch.ops.layer_norm",
     "chestxray_vit_tpu_torch.ops.flash_attention",
     "chestxray_vit_tpu_torch.ops.preprocess",
+    "chestxray_vit_tpu_torch.ops.quant",
+    "chestxray_vit_tpu_torch.ops.int8_matmul",
     "chestxray_vit_tpu_torch.models.vit",
     "chestxray_vit_tpu_torch.models.bridge",
+    "chestxray_vit_tpu_torch.models.quantized",
     "chestxray_vit_tpu_torch.train.optimizer",
     "chestxray_vit_tpu_torch.train.steps",
     "chestxray_vit_tpu_torch.eval.metrics",

@@ -138,7 +138,9 @@ def test_predictor_warmup_runs_every_bucket():
     assert pred.forwards == 0       # warmup is not traffic
 
 
-@pytest.mark.parametrize("kw", [{"quantize": "static"},
+# int8 serving is ported (tests/test_torch_quant.py); composed with token
+# merging, as the JAX fast_serve preset does, it is still refused
+@pytest.mark.parametrize("kw", [{"quantize": "static", "tome_r": 16},
                                 {"data_parallel": True}, {"tome_r": 4}])
 def test_predictor_refuses_unported_options(kw):
     cfg = tiny_cfg()

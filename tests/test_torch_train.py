@@ -330,8 +330,9 @@ def test_unported_training_options_raise(field, value):
 
 def test_mixup_int8_and_packed_raise():
     """Mixup builds a step now (tests/test_torch_dropout.py holds it to
-    the reference); the int8, packed and quantized-eval steps still
-    raise."""
+    the reference), and so does the quantized eval step
+    (tests/test_torch_quant.py); the int8 train, packed and token-merging
+    eval steps still raise."""
     cfg = tiny_cfg()
     tsteps.make_train_step(dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, mixup_alpha=0.2)), 10)
@@ -340,7 +341,7 @@ def test_mixup_int8_and_packed_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.make_packed_train_step(cfg, 10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_inference_eval_step(cfg, quantized=True)
+        tsteps.make_inference_eval_step(cfg, quantized=True, tome_r=2)
 
 
 # ---------------------------------------------------------------------------
