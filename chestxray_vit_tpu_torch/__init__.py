@@ -5,7 +5,7 @@ The JAX package beside it is the reference and stays unchanged; this
 package mirrors its layout module for module and imports nothing of it.
 Where the port needs a framework-free module of the JAX package, it keeps
 its own copy (``config``, ``data.decode``, ``data.geometry`` with
-``host_resize``, ``serve.batcher``). Every TPU (Pallas) kernel on a ported
+``host_resize``, ``data.packing``, ``serve.batcher``). Every TPU (Pallas) kernel on a ported
 path is a hand-written Hopper kernel in ``csrc/``, built at first use
 (``kernels``), with a plain PyTorch twin beside its wrapper.
 
@@ -19,7 +19,11 @@ Ported so far, at ViT-B/16 @384:
   ``make_eval_step``) with AdamW, global-norm clipping, full remat and
   gradient accumulation (``train.optimizer``), attention dropout (the
   fused dropout kernels), hidden dropout and per-sample mixup, and the
-  on-device AUROC and F1 (``eval.metrics``), and the int8 eval step.
+  on-device AUROC and F1 (``eval.metrics``), and the int8 eval step;
+- packed variable-resolution training (``data.packing``,
+  ``models.packed``, ``train.steps.make_packed_train_step``) over the
+  segment-masked attention kernels, with within-segment token merging
+  (``ops.tome``) when ``model.tome_r`` is set.
 
 Importing the package imports no JAX, no Triton and loads no compiled
 library.

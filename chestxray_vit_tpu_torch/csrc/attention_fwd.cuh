@@ -3,8 +3,10 @@
 // (flash_attention.cu, which also writes the natural-log logsumexp that the
 // backward recomputes P from) and the dropout one
 // (flash_attention_dropout.cu: kDropout drops probabilities after the
-// softmax, kEmitKeep also writes the mask). See those files for which TPU
-// kernel each replaces.
+// softmax, kEmitKeep also writes the mask) and the segment ones
+// (flash_attention_seg.cu: kSegment masks every score whose query and key
+// carry different segment ids, for packed sequences). See those files for
+// which TPU kernel each replaces.
 //
 // A block owns 64 query rows of one (batch, head) and streams K/V through
 // shared memory in 64-row tiles with an online (running max / running sum)
@@ -27,7 +29,11 @@
 // written for the backward is natural: m * ln 2 + ln l. Rows whose valid
 // scores are all strongly negative stay finite: every key tile holds at
 // least one valid key, so the running max is finite after the first tile
-// and exp2(-inf - m) is exactly 0 for masked columns.
+// and exp2(-inf - m) is exactly 0 for masked columns. With kSegment a tile
+// may hold no key of a row's segment, so the running max can stay -inf past
+// the first tile: the rescale then takes 0 in its place (see safe_max), and
+// a tile none of whose ids lies within the block's range of ids is skipped
+// before it is loaded. Ids are never assumed sorted or contiguous.
 #pragma once
 
 #include <math.h>
@@ -41,24 +47,36 @@ constexpr int kBlockN = 64;   // keys per K/V tile
 constexpr int kHeadDim = 64;  // the only head dim built
 constexpr int kPad = 8;       // bf16 row padding in shared memory (16 bytes)
 
+// The max to subtract in the exp2: 0 while a row has met no unmasked score
+// (kSegment only), so that exp2(-inf - 0) = 0 and not exp2(-inf + inf).
+template <bool kSegment>
+__device__ __forceinline__ float safe_max(float m) {
+  return kSegment && m == -INFINITY ? 0.f : m;
+}
+
 // 128 threads = 4 warps; warp w owns query rows [16w, 16w + 16) of the
 // block. lse (kLse only) is [B * H, S] contiguous, f32. With kDropout the
 // normalizer l sums the clean P, the PV product takes the masked P, and the
 // output is divided by l * (1 - rate); kEmitKeep writes each element's
-// keep bit to drop.keep.
-template <bool kLse, bool kDropout, bool kEmitKeep>
+// keep bit to drop.keep. With kSegment, seg is int32 [B, S] contiguous and
+// a score counts only where its query's and key's ids are equal.
+template <bool kLse, bool kDropout, bool kEmitKeep, bool kSegment>
 __global__ void __launch_bounds__(128)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
               float* __restrict__ lse, int H, int S, Strides qs, Strides ks,
-              Strides vs, Strides os, float scale_log2, Dropout drop) {
+              Strides vs, Strides os, float scale_log2, Dropout drop,
+              const int* __restrict__ seg) {
   __shared__ __align__(16) __nv_bfloat16 sQ[kBlockM][kHeadDim + kPad];
   __shared__ __align__(16) __nv_bfloat16 sK[kBlockN][kHeadDim + kPad];
   __shared__ __align__(16) __nv_bfloat16 sVt[kHeadDim][kBlockN + kPad];
+  __shared__ __align__(8) int sSeg[kSegment ? kBlockN : 2];
+  __shared__ int sRange[2];
 
   const int m0 = blockIdx.x * kBlockM;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int* segp = kSegment ? seg + static_cast<long long>(b) * S : nullptr;
   const __nv_bfloat16* qp = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kp = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vp = v + b * vs.b + h * vs.h;
@@ -81,6 +99,14 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const int wr = warp * 16;
   uint32_t qf[4][4];
   load_a(sQ, wr, g, t, qf);
+  int seg_row[2] = {0, 0}, seg_lo = 0, seg_hi = 0;  // ids of rows g, g + 8
+  if (kSegment) {
+    load_block_ids(segp, m0, S, sSeg, sRange);
+    seg_row[0] = sSeg[wr + g];
+    seg_row[1] = sSeg[wr + g + 8];
+    seg_lo = sRange[0];
+    seg_hi = sRange[1];
+  }
 
   float acc[8][4];
 #pragma unroll
@@ -97,6 +123,7 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 
   for (int n0 = 0; n0 < S; n0 += kBlockN) {
     __syncthreads();  // the previous tile is consumed
+    if (kSegment && !load_tile_ids(segp, n0, S, seg_lo, seg_hi, sSeg)) continue;
     for (int i = tid; i < kBlockN * 8; i += 128) {
       const int r = i >> 3, c = (i & 7) * 8;
       uint4 kv = zero, vv = zero;
@@ -129,19 +156,22 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = n0 + n * 8 + 2 * t + (e & 1);
-        const float val = key < S ? s[n][e] * scale_log2 : -INFINITY;
+        const int kc = n * 8 + 2 * t + (e & 1);
+        bool ok = n0 + kc < S;
+        if (kSegment) ok = ok && sSeg[kc] == seg_row[e >> 1];
+        const float val = ok ? s[n][e] * scale_log2 : -INFINITY;
         s[n][e] = val;
         tile_max[e >> 1] = fmaxf(tile_max[e >> 1], val);
       }
     }
-    float alpha[2];
+    float alpha[2], m_sub[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
       tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
       const float m_new = fmaxf(m_run[r], tile_max[r]);
-      alpha[r] = exp2f(m_run[r] - m_new);
+      m_sub[r] = safe_max<kSegment>(m_new);
+      alpha[r] = exp2f(m_run[r] - m_sub[r]);
       m_run[r] = m_new;
       l_run[r] *= alpha[r];
     }
@@ -158,7 +188,7 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = round_bf16(exp2f(s[n][e] - m_run[e >> 1]));
+        s[n][e] = round_bf16(exp2f(s[n][e] - m_sub[e >> 1]));
         l_run[e >> 1] += s[n][e];
         if (kDropout) {
           const int col = n0 + n * 8 + 2 * t + (e & 1);
@@ -210,18 +240,22 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 }
 
 // f32 path: one thread per query row, K/V tiles in shared memory read as
-// broadcasts, online softmax over chunks of 16 keys. Dropout as in the bf16
-// path.
-template <bool kLse, bool kDropout, bool kEmitKeep>
+// broadcasts, online softmax over chunks of 16 keys. Dropout and the
+// segment mask as in the bf16 path.
+template <bool kLse, bool kDropout, bool kEmitKeep, bool kSegment>
 __global__ void __launch_bounds__(kBlockM)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
              float* __restrict__ lse, int H, int S, Strides qs, Strides ks,
-             Strides vs, Strides os, float scale_log2, Dropout drop) {
+             Strides vs, Strides os, float scale_log2, Dropout drop,
+             const int* __restrict__ seg) {
   __shared__ __align__(16) float sK[kBlockN][kHeadDim];
   __shared__ __align__(16) float sV[kBlockN][kHeadDim];
+  __shared__ int sSeg[kSegment ? kBlockN : 2];
+  __shared__ int sRange[2];
 
   const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int* segp = kSegment ? seg + static_cast<long long>(b) * S : nullptr;
   const float* kp = k + b * ks.b + h * ks.h;
   const float* vp = v + b * vs.b + h * vs.h;
   const int tid = threadIdx.x;
@@ -242,9 +276,17 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float m_run = -INFINITY, l_run = 0.f;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const uint32_t dbase = kDropout ? drop_row(drop, blockIdx.y, row) : 0u;
+  int seg_row = 0, seg_lo = 0, seg_hi = 0;
+  if (kSegment) {
+    load_block_ids(segp, blockIdx.x * kBlockM, S, sSeg, sRange);
+    seg_row = sSeg[tid];
+    seg_lo = sRange[0];
+    seg_hi = sRange[1];
+  }
 
   for (int n0 = 0; n0 < S; n0 += kBlockN) {
     __syncthreads();
+    if (kSegment && !load_tile_ids(segp, n0, S, seg_lo, seg_hi, sSeg)) continue;
     for (int i = tid; i < kBlockN * (kHeadDim / 4); i += kBlockM) {
       const int r = i / (kHeadDim / 4), c = (i % (kHeadDim / 4)) * 4;
       float4 kv = zero, vv = zero;
@@ -265,7 +307,9 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         float dot = 0.f;
 #pragma unroll
         for (int d = 0; d < kHeadDim; ++d) dot = fmaf(qr[d], sK[j0 + j][d], dot);
-        s[j] = n0 + j0 + j < S ? dot * scale_log2 : -INFINITY;
+        bool ok = n0 + j0 + j < S;
+        if (kSegment) ok = ok && sSeg[j0 + j] == seg_row;
+        s[j] = ok ? dot * scale_log2 : -INFINITY;
         m_new = fmaxf(m_new, s[j]);
       }
       if (m_new == -INFINITY) continue;  // a chunk of masked keys only
@@ -307,13 +351,15 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // Checks the shape, picks the kernel for the dtype (0 = float32,
 // 1 = bfloat16) and launches it on ``stream``.
-template <bool kLse, bool kDropout = false, bool kEmitKeep = false>
+template <bool kLse, bool kDropout = false, bool kEmitKeep = false,
+          bool kSegment = false>
 int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
                     float* lse, int batch, int heads, int seq, int head_dim,
                     Strides qs, Strides ks, Strides vs, Strides os, float scale,
                     int dtype, int device, void* stream,
-                    Dropout drop = Dropout{}) {
-  if (head_dim != kHeadDim || seq <= 0 || batch <= 0 || heads <= 0)
+                    Dropout drop = Dropout{}, const int* seg = nullptr) {
+  if (head_dim != kHeadDim || seq <= 0 || batch <= 0 || heads <= 0 ||
+      kSegment != (seg != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -321,15 +367,15 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
   const float scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    attn_fwd_bf16<kLse, kDropout, kEmitKeep><<<grid, 128, 0, st>>>(
+    attn_fwd_bf16<kLse, kDropout, kEmitKeep, kSegment><<<grid, 128, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        lse, heads, seq, qs, ks, vs, os, scale_log2, drop);
+        lse, heads, seq, qs, ks, vs, os, scale_log2, drop, seg);
   } else if (dtype == 0) {
-    attn_fwd_f32<kLse, kDropout, kEmitKeep><<<grid, kBlockM, 0, st>>>(
+    attn_fwd_f32<kLse, kDropout, kEmitKeep, kSegment><<<grid, kBlockM, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, heads, seq,
-        qs, ks, vs, os, scale_log2, drop);
+        qs, ks, vs, os, scale_log2, drop, seg);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

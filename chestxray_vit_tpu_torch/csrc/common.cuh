@@ -1,9 +1,11 @@
 // Helpers shared by the kernels in this directory: strided [B, H, S, d]
-// addressing, bf16 packing, the m16n8k16 tensor-core product and warp sums.
+// addressing, bf16 packing, the m16n8k16 tensor-core product, warp sums,
+// the dropout hash and the segment ids of packed sequences.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace cxr {
@@ -82,6 +84,57 @@ __device__ __forceinline__ bool kept(const Dropout& d, uint32_t row_base,
                                      int col) {
   return fmix32((row_base + static_cast<uint32_t>(col)) ^ d.seed_mix) >=
          d.threshold;
+}
+
+// Segment ids of packed sequences (the kSegment attention kernels): int32
+// [B, S], read in 64-row tiles into shared memory. A tile none of whose
+// ids lies in the block's id range is skipped. Compiled with
+// -DCXR_NO_TILE_SKIP (tile_skip_probe.py, to measure what the test costs
+// and saves) no tile is skipped and neither the range scan nor the
+// per-tile vote runs: the ids ride on the barrier that follows the tile's
+// own loads.
+constexpr int kNoSegment = INT_MIN;  // the id of rows and keys at or past S
+
+// The ids of the block's 64 rows starting at r0 into ``ids`` (kNoSegment at
+// or past S) and their range into ``range``; all threads must call it.
+__device__ __forceinline__ void load_block_ids(const int* __restrict__ seg,
+                                               int r0, int S, int* ids,
+                                               int* range) {
+  const int tid = threadIdx.x;
+  if (tid < 64) ids[tid] = r0 + tid < S ? seg[r0 + tid] : kNoSegment;
+  __syncthreads();
+#ifndef CXR_NO_TILE_SKIP
+  if (tid == 0) {
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int i = 0; i < 64 && r0 + i < S; ++i) {
+      lo = min(lo, ids[i]);
+      hi = max(hi, ids[i]);
+    }
+    range[0] = lo;
+    range[1] = hi;
+  }
+  __syncthreads();
+#endif
+}
+
+// Loads the ids of the 64-row tile at r0 into ``ids`` and tells the whole
+// block whether any of them lies in [lo, hi]; holds a barrier, so all
+// threads must call it, after the previous tile's ids are consumed.
+__device__ __forceinline__ bool load_tile_ids(const int* __restrict__ seg,
+                                              int r0, int S, int lo, int hi,
+                                              int* ids) {
+  const int tid = threadIdx.x;
+  bool hit = false;
+  if (tid < 64) {
+    const int id = r0 + tid < S ? seg[r0 + tid] : kNoSegment;
+    hit = r0 + tid < S && id >= lo && id <= hi;
+    ids[tid] = id;
+  }
+#ifdef CXR_NO_TILE_SKIP
+  return true;
+#else
+  return __syncthreads_or(hit);
+#endif
 }
 
 // D += A * B on the tensor cores, bf16 in, f32 accumulate. Fragment layout

@@ -6,7 +6,8 @@ plain C interface, loaded with ``ctypes``. The build runs at first use,
 into ``chestxray_vit_tpu_torch/_build/`` (git-ignored), under a file name
 keyed by a hash of the sources (``*.cu`` and the ``*.cuh`` they include)
 and flags, so an edited source rebuilds and an unchanged one loads the
-cached library.
+cached library. ``CXR_NVCC_FLAGS`` in the environment adds flags (for a
+measurement build such as ``-DCXR_NO_TILE_SKIP``; see ``csrc/common.cuh``).
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine with no ``nvcc`` and no card. A missing ``nvcc`` or a
@@ -54,6 +55,19 @@ _SIGNATURES = {
     "cxr_attention_bwd_dropout": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P, _F, _U, _U, _I, _I,
                                   _F, _I, _I, _P],
+    "cxr_attention_fwd_seg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _LL, _LL, _LL, _LL, _LL, _LL,
+                              _LL, _LL, _LL, _LL, _LL, _LL,
+                              _F, _I, _I, _P],
+    "cxr_attention_fwd_seg_dropout": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _LL, _LL, _LL, _LL, _LL, _LL,
+                                      _LL, _LL, _LL, _LL, _LL, _LL,
+                                      _F, _U, _U, _I, _I, _F, _I, _I, _P],
+    "cxr_attention_bwd_seg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _P, _F, _I, _I, _P],
+    "cxr_attention_bwd_seg_dropout": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _P, _I, _I, _I, _I, _P, _F, _U,
+                                      _U, _I, _I, _F, _I, _I, _P],
     "cxr_layer_norm_fwd": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
     "cxr_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I,
                            _I, _I, _I, _P],
@@ -84,9 +98,13 @@ def _nvcc() -> str:
                        "of chestxray_vit_tpu_torch cannot be built")
 
 
+def _flags() -> tuple:
+    return (*NVCC_FLAGS, *os.environ.get("CXR_NVCC_FLAGS", "").split())
+
+
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -104,7 +122,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+    procs = [subprocess.Popen([nvcc, *_flags(), "-c", "-o", str(obj),
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(_sources(), objs)]

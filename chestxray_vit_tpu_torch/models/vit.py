@@ -33,6 +33,7 @@ from __future__ import annotations
 import copy
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch import nn
@@ -141,6 +142,78 @@ def inference_params(params: ViT, device: torch.device) -> ViT:
     out.final_ln = copy.deepcopy(params.final_ln).to(device)
     out.head = copy.deepcopy(params.head).to(device)
     return out.requires_grad_(False)
+
+
+# ---------------------------------------------------------------------------
+# Position-embedding resize
+# ---------------------------------------------------------------------------
+
+def _torch_bicubic_weights(out_size: int, in_size: int) -> np.ndarray:
+    """[out, in] f32 1-D resampling matrix with the numerics of
+    ``torch.nn.functional.interpolate(mode='bicubic', align_corners=False)``:
+    the cubic-convolution kernel with a = −0.75, source coordinate
+    (i + 0.5)·scale − 0.5, and taps clamped to the edge (a clamped tap adds
+    its weight to the edge sample). Built in f64 on the host, as the
+    reference builds it."""
+    a = -0.75
+    scale = in_size / out_size
+
+    def cubic(x: float) -> float:
+        x = abs(x)
+        if x <= 1.0:
+            return (a + 2.0) * x ** 3 - (a + 3.0) * x ** 2 + 1.0
+        if x < 2.0:
+            return a * x ** 3 - 5.0 * a * x ** 2 + 8.0 * a * x - 4.0 * a
+        return 0.0
+
+    w = np.zeros((out_size, in_size), np.float64)
+    for i in range(out_size):
+        src = (i + 0.5) * scale - 0.5
+        i0 = int(np.floor(src))
+        t = src - i0
+        for k in range(-1, 3):
+            idx = min(max(i0 + k, 0), in_size - 1)
+            w[i, idx] += cubic(k - t)
+    return w.astype(np.float32)
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor,
+                          new_seq_len: int) -> torch.Tensor:
+    """Resize learned position embeddings to a new patch grid:
+    [1, S_old, D] → [1, S_new, D]. The CLS slot is kept and the patch grid
+    is resampled by the separable bicubic of :func:`_torch_bicubic_weights`
+    as two f32 matrix products on tensors, so the gradient reaches
+    ``pos_embed`` (``F.interpolate`` is the tests' oracle, not called
+    here). An unchanged grid returns ``pos_embed`` itself."""
+    cls_tok, grid = pos_embed[:, :1], pos_embed[:, 1:]
+    g_old = int(grid.shape[1] ** 0.5)
+    g_new = int((new_seq_len - 1) ** 0.5)
+    if g_new * g_new != new_seq_len - 1:
+        raise ValueError(f"seq_len {new_seq_len} is not grid² + 1")
+    if g_new == g_old:
+        return pos_embed
+    d = grid.shape[-1]
+    w = torch.from_numpy(_torch_bicubic_weights(g_new, g_old)).to(
+        pos_embed.device)                                # [g_new, g_old]
+    g = grid.reshape(g_old, g_old, d).float()
+    g = torch.einsum("oi,ijd->ojd", w, g)                # rows
+    g = torch.einsum("oj,njd->nod", w, g)                # then columns
+    resized = g.reshape(1, g_new * g_new, d).to(pos_embed.dtype)
+    return torch.cat([cls_tok, resized], dim=1)
+
+
+def adapt_params_to_img_size(params: ViT, cfg: ModelConfig) -> ViT:
+    """``params`` with position embeddings matched to ``cfg.img_size``:
+    the same tree when they already match, else a copy with ``pos_embed``
+    resized (and ``cfg`` as its config)."""
+    if params.pos_embed.shape[1] == cfg.seq_len:
+        return params
+    out = copy.deepcopy(params)
+    out.cfg = cfg
+    with torch.no_grad():
+        out.pos_embed = nn.Parameter(
+            interpolate_pos_embed(params.pos_embed.detach(), cfg.seq_len))
+    return out
 
 
 # ---------------------------------------------------------------------------

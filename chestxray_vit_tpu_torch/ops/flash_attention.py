@@ -21,6 +21,18 @@
   the ports of ``_fwd_kernel_drop``, ``_fwd_kernel_drop_debug`` and
   ``_bwd_kernel_drop``), joined by ``FlashAttentionDropout``;
   ``flash_attention_dropout`` has the JAX function's signature.
+- ``attention_packed_reference``, ``attention_packed_{fwd,bwd}_reference``,
+  ``attention_packed_dropout_{fwd,bwd}_reference``: block-diagonal
+  attention over segment ids (packed sequences), the math of
+  ``attention_xla_packed``, ``_fwd_seg_impl`` and ``_bwd_seg_impl``.
+- ``flash_attention_packed_{fwd,bwd}``, ``flash_attention_packed_dropout_
+  {fwd,bwd}``: the segment kernels (``csrc/flash_attention_seg.cu`` and
+  ``csrc/flash_attention_seg_bwd.cu``, the ports of ``_fwd_kernel_seg``,
+  ``_bwd_kernel_seg``, ``_fwd_kernel_seg_drop`` and
+  ``_bwd_kernel_seg_drop``), joined by ``FlashAttentionPacked`` and
+  ``FlashAttentionPackedDropout``; ``flash_attention_packed`` and
+  ``flash_attention_packed_dropout`` have the JAX functions' signatures,
+  ``attention_packed`` is the dispatch of the reference's ``_packed_mha``.
 - ``attention``: the dispatch of ``chestxray_vit_tpu.ops.flash_attention
   .attention``; ``attention_dropout``: the dropout branch of the reference
   ViT's ``_mha``.
@@ -190,9 +202,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bwd.launches = 0         # kernel launches (chip_smoke.py)
 
 
-def _bwd_launch(q, k, v, o, lse, do, sm_scale, dropout=None):
+def _bwd_launch(q, k, v, o, lse, do, sm_scale, dropout=None,
+                segment_ids=None):
     """Launch the backward kernels; ``dropout`` = (seed_mix, threshold,
-    q_pad, s_pad, 1/(1 − rate)) takes the dropout entry point."""
+    q_pad, s_pad, 1/(1 − rate)) takes the dropout entry point,
+    ``segment_ids`` (int32 [B, S], checked by the caller) the segment
+    ones."""
     do = do.to(q.dtype)
     if not _fits(do):
         do = do.contiguous()
@@ -213,10 +228,16 @@ def _bwd_launch(q, k, v, o, lse, do, sm_scale, dropout=None):
             ctypes.addressof(strides_c), _scale(q, sm_scale))
     tail = (_DTYPE_CODES[q.dtype], q.device.index, _stream(q))
     lib = kernels.library()
-    if dropout is None:
-        err = lib.cxr_attention_bwd(*args, *tail)
+    if segment_ids is not None:
+        args = (segment_ids.data_ptr(), *args)
+        fn, fn_drop = (lib.cxr_attention_bwd_seg,
+                       lib.cxr_attention_bwd_seg_dropout)
     else:
-        err = lib.cxr_attention_bwd_dropout(*args, *dropout, *tail)
+        fn, fn_drop = lib.cxr_attention_bwd, lib.cxr_attention_bwd_dropout
+    if dropout is None:
+        err = fn(*args, *tail)
+    else:
+        err = fn_drop(*args, *dropout, *tail)
     kernels.check(err, "flash_attention_bwd")
     return dq, dk, dv
 
@@ -498,6 +519,365 @@ def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor,
                                                sm_scale, block_q)[0]
     return FlashAttentionDropout.apply(q, k, v, seed, rate, sm_scale,
                                        block_q)
+
+
+# ---------------------------------------------------------------------------
+# Segment-masked (block-diagonal) attention for packed sequences
+# ---------------------------------------------------------------------------
+
+def packed_block_q(seq_len: int) -> int:
+    """The Q block of the reference's ``_packed_mha``: 384 rows when they
+    tile the sequence padded to 128, else 128. Here it fixes only the
+    dropout mask's strides."""
+    return 384 if _pad_len(seq_len, 128) % 384 == 0 else DEFAULT_BLOCK_Q
+
+
+def packed_mask_strides(s: int, block_q: int) -> Tuple[int, int]:
+    """(q_pad, s_pad) of the segment kernels' dropout counter: the TPU
+    wrapper pads queries and keys alike to a multiple of ``block_q``
+    (``_flash_packed_drop_fwd_rule``), so the counter of element
+    (bh, i, j) is (bh·s_pad + i)·s_pad + j. Not the dense rule of
+    :func:`mask_strides`."""
+    s_pad = _pad_len(s, block_q)
+    return s_pad, s_pad
+
+
+def _same_segment(segment_ids: torch.Tensor) -> torch.Tensor:
+    """bool [B, 1, S, S]: token i attends token j iff their ids are equal
+    (pad slots, id −1, attend each other)."""
+    return segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+
+
+def _packed_keep(q: torch.Tensor, seed: int, rate: float,
+                 block_q: int) -> torch.Tensor:
+    """The [B, H, S, S] keep mask of the segment dropout kernels."""
+    b, h, s, _ = q.shape
+    q_pad, s_pad = packed_mask_strides(s, block_q)
+    return keep_mask(b * h, q_pad, s_pad, seed, rate,
+                     q.device)[:, :s, :s].reshape(b, h, s, s)
+
+
+def attention_packed_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, segment_ids: torch.Tensor,
+                               sm_scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """Plain block-diagonal attention, the math of the JAX package's
+    ``attention_xla_packed``: q, k, v [B, H, S, d], ``segment_ids`` int
+    [B, S]; cross-segment scores are masked before an f32 softmax,
+    probabilities are cast to v's dtype. The CPU path and the segment
+    kernels' oracle."""
+    return attention_packed_fwd_reference(q, k, v, segment_ids, sm_scale)[0]
+
+
+def _packed_fwd_plain(q, k, v, segment_ids, sm_scale, keep, rate):
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _scale(
+        q, sm_scale)
+    s = s.masked_fill(~_same_segment(segment_ids), float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / (1.0 - rate)
+    return o.to(q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def _packed_bwd_plain(q, k, v, segment_ids, o, lse, do, sm_scale, keep,
+                      rate):
+    scale = _scale(q, sm_scale)
+    inv = 1.0 / (1.0 - rate)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = do.to(q.dtype).float()
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    p = torch.exp(s * scale - lse.float()[..., None])
+    p = torch.where(_same_segment(segment_ids), p, 0.0).to(q.dtype).float()
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    p_drop = p
+    if keep is not None:
+        p_drop = torch.where(keep, p, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    dv = torch.matmul(p_drop.transpose(-1, -2), dof) * inv
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def attention_packed_fwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor,
+                                   segment_ids: torch.Tensor,
+                                   sm_scale: Optional[float] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward of ``_fwd_kernel_seg``: (o in q's dtype, lse f32
+    [B, H, S], the logsumexp over the row's own segment)."""
+    return _packed_fwd_plain(q, k, v, segment_ids, sm_scale, None, 0.0)
+
+
+def attention_packed_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor,
+                                   segment_ids: torch.Tensor,
+                                   o: torch.Tensor, lse: torch.Tensor,
+                                   do: torch.Tensor,
+                                   sm_scale: Optional[float] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Plain backward of ``_bwd_kernel_seg``: :func:`attention_bwd_reference`
+    with P recomputed from lse under the segment mask (cross-segment P is
+    exactly 0), rounded to q's dtype where the kernels round it."""
+    return _packed_bwd_plain(q, k, v, segment_ids, o, lse, do, sm_scale,
+                             None, 0.0)
+
+
+def attention_packed_dropout_fwd_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        segment_ids: torch.Tensor, seed: int, rate: float,
+        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward of ``_fwd_kernel_seg_drop``: the clean segment softmax
+    (its lse is returned), kept probabilities scaled by 1/(1 − rate), the
+    mask of :func:`keep_mask` on :func:`packed_mask_strides`."""
+    return _packed_fwd_plain(q, k, v, segment_ids, sm_scale,
+                             _packed_keep(q, seed, rate, block_q), rate)
+
+
+def attention_packed_dropout_bwd_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        segment_ids: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+        do: torch.Tensor, seed: int, rate: float,
+        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward of ``_bwd_kernel_seg_drop``: the same mask M
+    regenerated, dV = (M∘P)ᵀ·dO/(1−r), dS = P∘(M∘dP/(1−r) − Δ)."""
+    return _packed_bwd_plain(q, k, v, segment_ids, o, lse, do, sm_scale,
+                             _packed_keep(q, seed, rate, block_q), rate)
+
+
+def _check_segments(q: torch.Tensor, segment_ids: torch.Tensor) -> None:
+    b, _, s, _ = q.shape
+    if (segment_ids.dtype != torch.int32 or segment_ids.device != q.device
+            or segment_ids.shape != (b, s)
+            or not segment_ids.is_contiguous()):
+        raise ValueError(
+            f"segment_ids must be contiguous int32 [{b}, {s}] on {q.device},"
+            f" got {segment_ids.dtype} {tuple(segment_ids.shape)} on "
+            f"{segment_ids.device}")
+
+
+def _packed_dropout_args(s: int, seed: int, rate: float, block_q: int):
+    """(seed_mix, threshold, q_pad, s_pad) of the segment dropout kernels."""
+    return (*dropout_constants(seed, rate), *packed_mask_strides(s, block_q))
+
+
+def _packed_fwd_launch(q, k, v, segment_ids, sm_scale, dropout=None):
+    """Launch a segment forward kernel; ``dropout`` = (seed_mix, threshold,
+    q_pad, s_pad, 1 − rate) takes the dropout entry point. The ids are read
+    in place as [B, S], once for all heads."""
+    _check(q, k, v)
+    _check_segments(q, segment_ids)
+    b, h, s, d = q.shape
+    out = _heads_merged(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, h, s, d, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            _scale(q, sm_scale))
+    tail = (_DTYPE_CODES[q.dtype], q.device.index, _stream(q))
+    lib = kernels.library()
+    if dropout is None:
+        err = lib.cxr_attention_fwd_seg(*args, *tail)
+    else:
+        err = lib.cxr_attention_fwd_seg_dropout(*args, *dropout, *tail)
+    kernels.check(err, "flash_attention_packed_fwd")
+    return out, lse
+
+
+def flash_attention_packed_fwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, segment_ids: torch.Tensor,
+                               sm_scale: Optional[float] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segment-masked training forward: (o, lse f32 [B, H, S]). CPU tensors
+    take :func:`attention_packed_fwd_reference`; CUDA tensors launch the
+    kernel (``csrc/flash_attention_seg.cu``), which takes what
+    :func:`flash_attention_fwd` takes plus int32 ids [B, S]."""
+    if q.device.type == "cpu":
+        return attention_packed_fwd_reference(q, k, v, segment_ids, sm_scale)
+    out = _packed_fwd_launch(q, k, v, segment_ids, sm_scale)
+    flash_attention_packed_fwd.launches += 1
+    return out
+
+
+flash_attention_packed_fwd.launches = 0   # kernel launches (chip_smoke.py)
+
+
+def flash_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, segment_ids: torch.Tensor,
+                               o: torch.Tensor, lse: torch.Tensor,
+                               do: torch.Tensor,
+                               sm_scale: Optional[float] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Segment-masked training backward: (dq, dk, dv), laid out as
+    :func:`flash_attention_bwd` lays them out. CPU tensors take
+    :func:`attention_packed_bwd_reference`; CUDA tensors launch the kernels
+    of ``csrc/flash_attention_seg_bwd.cu``."""
+    if q.device.type == "cpu":
+        return attention_packed_bwd_reference(q, k, v, segment_ids, o, lse,
+                                              do, sm_scale)
+    _check_segments(q, segment_ids)
+    grads = _bwd_launch(q, k, v, o, lse, do, sm_scale, segment_ids=segment_ids)
+    flash_attention_packed_bwd.launches += 1
+    return grads
+
+
+flash_attention_packed_bwd.launches = 0   # kernel launches (chip_smoke.py)
+
+
+def flash_attention_packed_dropout_fwd(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        segment_ids: torch.Tensor, seed: int, rate: float,
+        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segment-masked training forward with dropout: (o, lse). CPU tensors
+    take :func:`attention_packed_dropout_fwd_reference`; CUDA tensors
+    launch the kernel, which hashes the mask in registers."""
+    if q.device.type == "cpu":
+        return attention_packed_dropout_fwd_reference(
+            q, k, v, segment_ids, seed, rate, sm_scale, block_q)
+    out = _packed_fwd_launch(
+        q, k, v, segment_ids, sm_scale,
+        (*_packed_dropout_args(q.shape[2], seed, rate, block_q), 1.0 - rate))
+    flash_attention_packed_dropout_fwd.launches += 1
+    return out
+
+
+flash_attention_packed_dropout_fwd.launches = 0   # kernel launches
+
+
+def flash_attention_packed_dropout_bwd(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        segment_ids: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+        do: torch.Tensor, seed: int, rate: float,
+        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Segment-masked training backward with dropout. CPU tensors take
+    :func:`attention_packed_dropout_bwd_reference`; CUDA tensors launch the
+    kernels of ``csrc/flash_attention_seg_bwd.cu`` with the mask
+    regenerated."""
+    if q.device.type == "cpu":
+        return attention_packed_dropout_bwd_reference(
+            q, k, v, segment_ids, o, lse, do, seed, rate, sm_scale, block_q)
+    _check_segments(q, segment_ids)
+    grads = _bwd_launch(
+        q, k, v, o, lse, do, sm_scale,
+        (*_packed_dropout_args(q.shape[2], seed, rate, block_q),
+         1.0 / (1.0 - rate)), segment_ids)
+    flash_attention_packed_dropout_bwd.launches += 1
+    return grads
+
+
+flash_attention_packed_dropout_bwd.launches = 0   # kernel launches
+
+
+class FlashAttentionPacked(torch.autograd.Function):
+    """Segment-masked attention with the segment kernels in both
+    directions. Saves q, k, v, the ids, o and lse, the residuals of the
+    JAX custom VJP (``_flash_packed_fwd_rule``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, sm_scale=None):
+        o, lse = flash_attention_packed_fwd(q, k, v, segment_ids, sm_scale)
+        ctx.save_for_backward(q, k, v, segment_ids, o, lse)
+        ctx.sm_scale = sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, segment_ids, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_packed_bwd(q, k, v, segment_ids, o, lse,
+                                                do, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+class FlashAttentionPackedDropout(torch.autograd.Function):
+    """Segment-masked attention with dropout through the segment dropout
+    kernels. Saves what :class:`FlashAttentionPacked` saves and the seed as
+    a Python int, so a recompute under remat replays the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, seed, rate, sm_scale=None,
+                block_q=DEFAULT_BLOCK_Q):
+        o, lse = flash_attention_packed_dropout_fwd(
+            q, k, v, segment_ids, seed, rate, sm_scale, block_q)
+        ctx.save_for_backward(q, k, v, segment_ids, o, lse)
+        ctx.seed, ctx.rate = int(seed), rate
+        ctx.sm_scale, ctx.block_q = sm_scale, block_q
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, segment_ids, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_packed_dropout_bwd(
+            q, k, v, segment_ids, o, lse, do, ctx.seed, ctx.rate,
+            ctx.sm_scale, ctx.block_q)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           segment_ids: torch.Tensor,
+                           sm_scale: Optional[float] = None,
+                           block_q: int = DEFAULT_BLOCK_Q) -> torch.Tensor:
+    """Segment-masked (block-diagonal) attention for packed batches, the
+    signature of the JAX package's ``flash_attention_packed``: q, k, v
+    [B, H, S, 64], ``segment_ids`` int32 [B, S]; token i attends token j
+    iff their ids are equal, and pad slots (id −1) attend each other.
+    ``block_q`` tiled the TPU kernel and changes nothing here. The autograd
+    function over the kernels for CUDA tensors, the plain forward under
+    plain autograd for CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_packed_reference(q, k, v, segment_ids, sm_scale)
+    return FlashAttentionPacked.apply(q, k, v, segment_ids, sm_scale)
+
+
+def flash_attention_packed_dropout(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor,
+                                   segment_ids: torch.Tensor, seed: int,
+                                   rate: float,
+                                   sm_scale: Optional[float] = None,
+                                   block_q: int = DEFAULT_BLOCK_Q
+                                   ) -> torch.Tensor:
+    """:func:`flash_attention_packed` with in-kernel probability dropout,
+    the signature of the JAX package's ``flash_attention_packed_dropout``
+    (``seed`` an int32 value; ``block_q`` fixes the mask's strides, see
+    :func:`packed_mask_strides`). The same seed gives the JAX function's
+    mask, bit for bit."""
+    if q.device.type == "cpu":
+        return attention_packed_dropout_fwd_reference(
+            q, k, v, segment_ids, seed, rate, sm_scale, block_q)[0]
+    return FlashAttentionPackedDropout.apply(q, k, v, segment_ids, seed,
+                                             rate, sm_scale, block_q)
+
+
+def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     segment_ids: torch.Tensor, impl: str = "auto",
+                     seed: Optional[int] = None,
+                     rate: float = 0.0) -> torch.Tensor:
+    """The attention dispatch of the reference's ``_packed_mha``:
+    ``'xla'`` runs the plain version on any device, ``'auto'`` and
+    ``'pallas'`` the segment kernels for CUDA tensors. With a ``seed`` and
+    ``rate > 0`` probabilities are dropped with the counter-hash mask on
+    the automatic Q block (:func:`packed_block_q`) on every path; the
+    reference's XLA path draws another mask stream (``jax.random``)."""
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if seed is None or rate == 0.0:
+        if impl == "xla":
+            return attention_packed_reference(q, k, v, segment_ids)
+        return flash_attention_packed(q, k, v, segment_ids)
+    block_q = packed_block_q(q.shape[2])
+    if impl == "xla":
+        return attention_packed_dropout_fwd_reference(
+            q, k, v, segment_ids, seed, rate, None, block_q)[0]
+    return flash_attention_packed_dropout(q, k, v, segment_ids, seed, rate,
+                                          None, block_q)
 
 
 def _fits(t: torch.Tensor) -> bool:

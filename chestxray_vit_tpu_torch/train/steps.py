@@ -1,5 +1,5 @@
-"""Train and eval steps, ported from the dense parts of
-``chestxray_vit_tpu/train/steps.py``.
+"""Train and eval steps, ported from ``chestxray_vit_tpu/train/steps.py``:
+the dense fine-tune and eval steps and the packed (NaViT-style) train step.
 
 One train step: pixel prep on the batch's device, the ViT training forward
 (bf16 activations, f32 master weights, ``cfg.model.remat`` with the
@@ -18,9 +18,16 @@ per-layer dropout seeds when a dropout rate is set, then the mixup λ when
 
 The int8 eval step (``make_inference_eval_step(quantized=True)``) runs a
 quantized tree: static trees through the fused int8 kernel, dynamic ones
-on the plain route. Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP item: the int8 straight-through train forward, token
-merging and the packed step.
+on the plain route.
+
+The packed step (``make_packed_train_step``) runs the packed forward of
+``models/packed.py`` (with within-segment token merging when
+``model.tome_r`` is set) under the same optimizer stack, with the loss's
+numerator and denominator accumulated apart.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+item: the int8 straight-through train forward and token merging on the
+dense steps.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from chestxray_vit_tpu_torch.config import Config
+from chestxray_vit_tpu_torch.models import packed as packed_model
 from chestxray_vit_tpu_torch.models import quantized as quantized_mod
 from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.ops.preprocess import prepare_pixel_values
@@ -137,6 +145,31 @@ def _images(cfg: Config, batch: Batch) -> torch.Tensor:
                                 std=cfg.data.image_std)
 
 
+def _optimizer(cfg: Config, total_steps: int):
+    """(learning-rate schedule, AdamW settings) of ``cfg.train``."""
+    schedule = opt.SCHEDULES[cfg.train.lr_schedule](
+        cfg.train.learning_rate, total_steps, cfg.train.warmup_steps)
+    return schedule, opt.AdamWConfig(
+        b1=cfg.train.adam_b1, b2=cfg.train.adam_b2, eps=cfg.train.adam_eps,
+        weight_decay=cfg.train.weight_decay,
+        max_grad_norm=cfg.train.max_grad_norm)
+
+
+def _update(state: TrainState, loss: torch.Tensor, schedule, adamw_cfg):
+    """Clip the gradients left in ``.grad``, take the AdamW step and count
+    it: (state, metrics)."""
+    params = state.params
+    grads, grad_norm = opt.clip_by_global_norm(
+        {n: p.grad for n, p in params.named_parameters()},
+        adamw_cfg.max_grad_norm)
+    lr = schedule(state.step)
+    opt.adamw_update(grads, state.opt_state, params, state.step, lr,
+                     adamw_cfg, opt.default_decay_mask(params))
+    state.step += 1
+    return state, {"loss": loss, "grad_norm": grad_norm,
+                   "lr": lr.to(loss.device)}
+
+
 # ---------------------------------------------------------------------------
 # Step builders
 # ---------------------------------------------------------------------------
@@ -155,12 +188,7 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None
             "int8_scales (the int8 straight-through train forward is "
             "ROADMAP Queue 1 #10) is not ported yet")
     _not_ported(cfg)
-    schedule = opt.SCHEDULES[cfg.train.lr_schedule](
-        cfg.train.learning_rate, total_steps, cfg.train.warmup_steps)
-    adamw_cfg = opt.AdamWConfig(
-        b1=cfg.train.adam_b1, b2=cfg.train.adam_b2, eps=cfg.train.adam_eps,
-        weight_decay=cfg.train.weight_decay,
-        max_grad_norm=cfg.train.max_grad_norm)
+    schedule, adamw_cfg = _optimizer(cfg, total_steps)
     accum = max(cfg.train.gradient_accumulation_steps, 1)
 
     def loss_fn(params: vit.ViT, batch: Batch, d: Draws) -> torch.Tensor:
@@ -198,22 +226,13 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None
 
     def train_step(state: TrainState, batch: Batch,
                    draws: Optional[Sequence[Draws]] = None):
-        params = state.params
         if draws is None:
             micro = batch["labels"].shape[0] // accum
             draws = [draw(state.generator, cfg, micro) for _ in range(accum)]
         if len(draws) != accum:
             raise ValueError(f"{len(draws)} draws for {accum} micro-batches")
-        loss = grads_of(params, batch, draws)
-        grads, grad_norm = opt.clip_by_global_norm(
-            {n: p.grad for n, p in params.named_parameters()},
-            adamw_cfg.max_grad_norm)
-        lr = schedule(state.step)
-        opt.adamw_update(grads, state.opt_state, params, state.step, lr,
-                         adamw_cfg, opt.default_decay_mask(params))
-        state.step += 1
-        return state, {"loss": loss, "grad_norm": grad_norm,
-                       "lr": lr.to(loss.device)}
+        loss = grads_of(state.params, batch, draws)
+        return _update(state, loss, schedule, adamw_cfg)
 
     return train_step
 
@@ -271,7 +290,61 @@ def make_quantized_eval_step(cfg: Config):
 
 def make_packed_train_step(cfg: Config, total_steps: int,
                            grids=(16, 24, 32)):
-    """Packed (NaViT-style) training is not ported yet."""
-    raise NotImplementedError(
-        "the packed train step and its segment attention kernels are "
-        "ROADMAP Queue 1 #11 and Queue 2 #6")
+    """Build the train step over NaViT-style packed batches, ``(state,
+    batch, draws=None) → (state, metrics)``: the optimizer stack of
+    :func:`make_train_step`, segment-masked attention, per-image masked
+    BCE. ``batch`` holds tokens, segment_ids, pos_indices, pool_weights,
+    labels and image_mask (see ``data/packing.py``) on the parameters'
+    device. ``model.tome_r`` takes the within-segment merging forward.
+    ``draws`` as in :func:`make_train_step`; the packed step has no mixup,
+    so only the dropout seeds are read."""
+    schedule, adamw_cfg = _optimizer(cfg, total_steps)
+    accum = max(cfg.train.gradient_accumulation_steps, 1)
+    fwd = (packed_model.apply_packed_tome if cfg.model.tome_r > 0
+           else packed_model.apply_packed)
+
+    def loss_parts(params: vit.ViT, batch: Batch, d: Draws):
+        """(BCE element sum over real images, real images × classes)."""
+        logits = fwd(params, batch["tokens"], batch["segment_ids"],
+                     batch["pos_indices"], batch["pool_weights"], cfg.model,
+                     grids, train=True, dropout_seeds=d.seeds)
+        return packed_model.packed_bce_parts(logits, batch["labels"],
+                                             batch["image_mask"])
+
+    def grads_of(params: vit.ViT, batch: Batch,
+                 draws: Sequence[Draws]) -> torch.Tensor:
+        """Loss, with the gradients left in ``.grad``. With accumulation
+        the batch carries accum × batch_seqs sequences, split strided as
+        the dense step splits it. The numerators' gradients add up in
+        ``.grad`` and are divided once by the summed denominator, so the
+        result equals one big batch even when micro-batches pack unequal
+        real-image counts."""
+        for p in params.parameters():
+            p.grad = None
+        num_sum = den_sum = None
+        for i in range(accum):
+            micro = batch if accum == 1 else {
+                key: val[i::accum] for key, val in batch.items()}
+            num, den = loss_parts(params, micro, draws[i])
+            num.backward()
+            num, den = num.detach(), den.detach()
+            num_sum = num if num_sum is None else num_sum + num
+            den_sum = den if den_sum is None else den_sum + den
+        d = den_sum.clamp_min(1.0)
+        for p in params.parameters():
+            if p.grad is None:      # the CLS token: pooled readout instead
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad.div_(d)
+        return num_sum / d
+
+    def train_step(state: TrainState, batch: Batch,
+                   draws: Optional[Sequence[Draws]] = None):
+        if draws is None:
+            draws = [draw(state.generator, cfg, 0) for _ in range(accum)]
+        if len(draws) != accum:
+            raise ValueError(f"{len(draws)} draws for {accum} micro-batches")
+        loss = grads_of(state.params, batch, draws)
+        return _update(state, loss, schedule, adamw_cfg)
+
+    return train_step

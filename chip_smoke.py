@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: the serving path, the
 fine-tune step (dense, and with attention dropout, hidden dropout and
-mixup) and the eval step.
+mixup), the eval step and packed variable-resolution training (with and
+without within-segment token merging).
 
     python3 chip_smoke.py
 
@@ -61,7 +62,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    over the eval batches of 8, against the host's row losses, with exact
    launch counts.
 
-kernel_check also holds the int8 kernel to its plain version at the batch-32
+14. train_packed: the packed (NaViT-style) train step on the packed
+   probe's batch, 32 sequences of 1152 tokens holding two 384 x 384 images
+   each (64 images), bf16, full remat: 3 warm-up and 8 timed steps, the
+   loss falls on the fixed batch, exactly 24 segment-forward and 12
+   segment-backward launches per step and no dense attention kernel; the
+   dense b36 step's images/s of phase 6 beside it.
+15. train_packed_mixed: 32 sequences packed from 256 / 384 / 512 px images
+   (256, 576 and 1024 tokens) with attention dropout 0.1 and hidden
+   dropout 0.1: the two dropout segment kernels, exact launch counts, the
+   pad share of the batch, then remat against no remat on the same draws
+   (8 of the sequences).
+16. train_packed_tome: the batch of 14 with tome_r = 16 under the
+   decreasing schedule: 24 / 12 launches at twelve different lengths.
+17. train_packed_cross_check: depth 2, full width, one f32 step on the
+   card against the CPU (plain versions), packed and packed with merging,
+   with attention dropout on injected seeds.
+
+kernel_check also holds the four segment kernels to their plain versions at
+[32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
+576; mixed with padding (1024 + 128 pad, 576 + 256 + 256 + 64 pad,
+4 x 256 + 128 pad); and ragged with interleaved ids (S = 1136, the order a
+token merge leaves). It also holds the int8 kernel to its plain version at the batch-32
 serving shapes in its four call forms (patch embed, Q/K/V, the residual
 forms of wo and mlp_out, mlp_in with GELU and requantize).
 
@@ -80,6 +102,10 @@ import time
 import numpy as np
 import torch
 
+from smoke_batches import (PACKED_SEQS, TOME_R, TOME_SCHEDULE, bench_batch,
+                           packed_batch, packed_layouts, packed_mixed_batch,
+                           packed_probe_batch, skipped_tile_share, tensors)
+
 BATCH = 8
 REQUESTS = 32
 INT8_BATCH, INT8_REQUESTS = 32, 128
@@ -89,6 +115,8 @@ TRAIN_BATCH = 36            # bench.py's batch per chip; remat on above 32
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 DROPOUT_WARMUP_STEPS, DROPOUT_TIMED_STEPS = 2, 5
 EVAL_BATCHES = 4
+PACKED_WARMUP_STEPS, PACKED_TIMED_STEPS = 3, 8
+PACKED_F32_BATCH = 4                        # kernel_check's f32 batch
 DROP_RATE, DROP_SEED = 0.1, -123456789   # a negative int32 seed, as JAX's
 MIXUP_ALPHA = 0.2
 
@@ -121,6 +149,16 @@ INT8_EPI_OPS = {"base": 2, "resid": 1, "gelu": 21, "requant": 4}
 #   (the kernel rounds P to bf16 before its running normalization, the plain
 #   version after); f32: summation order only.
 ATTN_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-5}
+# - segment attention, bf16, tighter than the dense rows, so that a few
+#   dropped or wrongly masked keys per row, or a wrong guard of the running
+#   max on a few rows, cannot pass: o within two bf16 ulps at |o| in [1, 2)
+#   (1.6e-2; read 0.0078 on an H100, one ulp), the f32 lse within 5e-3
+#   (read 0.0009: P is rounded to bf16 before the kernel's running sum, a
+#   relative error of the sum of at most 2^-9 and far less on average; one
+#   key lost of a segment of 576 moves lse by about 1/576 at equal scores
+#   and by more where it matters). f32: summation order only.
+PACKED_TOL = {torch.bfloat16: {"o": 1.6e-2, "lse": 5e-3},
+              torch.float32: {"o": 1e-5, "lse": 1e-5}}
 # - LayerNorm, bf16: one bf16 ulp of the output (f32 statistics in another
 #   summation order may round the last bit either way) plus 1e-5 for the f32
 #   rounding of the affine step, which shows where x̂·scale and bias cancel
@@ -202,10 +240,13 @@ def time_ms(fn, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def time_pair(kernel, plain) -> tuple:
+def time_pair(kernel, plain, plain_reps: int = 7,
+              plain_inner: int = 10) -> tuple:
     """(kernel ms, plain ms), measured in turns: plain, kernel, kernel,
-    plain."""
-    p1, k1, k2, p2 = (time_ms(f) for f in (plain, kernel, kernel, plain))
+    plain. A plain version that takes tens of ms is given fewer calls."""
+    p1 = time_ms(plain, plain_reps, plain_inner)
+    k1, k2 = time_ms(kernel), time_ms(kernel)
+    p2 = time_ms(plain, plain_reps, plain_inner)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -234,8 +275,10 @@ def attention_bound(shape, dtype, *, backward=False, lse=False,
     """The attention forward reads q, k, v and writes o (and lse): 4·S²·d
     flops per head (QKᵀ and PV). The backward reads q, k, v, o, dO and lse
     and writes dq, dk, dv: 10·S²·d (S again, dV, dP, dQ, dK). The dropout
-    kernels hash each score element in each pass; the debug forward also
-    writes the byte mask."""
+    kernels hash each score element once, forward and backward alike: dq,
+    dk and dv need each keep bit once, so a second hash in a backward that
+    is split into a dK/dV and a dQ kernel is that design's cost, not the
+    function's work. The debug forward also writes the byte mask."""
     b, h, s, d = shape
     e = torch.empty((), dtype=dtype).element_size()
     tensors = 8 if backward else 4
@@ -245,6 +288,25 @@ def attention_bound(shape, dtype, *, backward=False, lse=False,
     flops = (10 if backward else 4) * b * h * s * s * d
     return bound(nbytes, flops, dtype,
                  int_ops=HASH_OPS * hash_passes * b * h * s * s)
+
+
+def packed_attention_bound(seg: torch.Tensor, heads: int, dtype, *,
+                           backward=False, hash_passes=0) -> dict:
+    """The segment kernels' bound counts each input and output once (the
+    ids too, once for all heads) and only same-segment products: the sum
+    over sequences and segments of len², not S²."""
+    b, s = seg.shape
+    d = 64
+    e = torch.empty((), dtype=dtype).element_size()
+    ids = seg.cpu().numpy()
+    pairs = heads * sum(int((np.unique(row, return_counts=True)[1] ** 2)
+                            .sum()) for row in ids)
+    tensors = 8 if backward else 4
+    nbytes = tensors * b * heads * s * d * e + 4 * b * heads * s + 4 * b * s
+    return {**bound(nbytes, (10 if backward else 4) * pairs * d, dtype,
+                    int_ops=HASH_OPS * hash_passes * pairs),
+            "same_segment_pairs": pairs,
+            "share_of_all_pairs": pairs / (b * heads * s * s)}
 
 
 def layer_norm_bound(rows, d, x_dtype, w_dtype, backward=False) -> dict:
@@ -295,7 +357,13 @@ def _wrappers() -> dict:
             "layer_norm_bwd": ln.layer_norm_bwd_cuda,
             "flash_attention_dropout_fwd": fa.flash_attention_dropout_fwd,
             "flash_attention_dropout_debug": fa.flash_attention_dropout_debug,
-            "flash_attention_dropout_bwd": fa.flash_attention_dropout_bwd}
+            "flash_attention_dropout_bwd": fa.flash_attention_dropout_bwd,
+            "flash_attention_packed_fwd": fa.flash_attention_packed_fwd,
+            "flash_attention_packed_bwd": fa.flash_attention_packed_bwd,
+            "flash_attention_packed_dropout_fwd":
+                fa.flash_attention_packed_dropout_fwd,
+            "flash_attention_packed_dropout_bwd":
+                fa.flash_attention_packed_dropout_bwd}
 
 
 def launch_counts() -> dict:
@@ -305,16 +373,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
-
-
-def bench_batch(n: int, seed: int, device) -> dict:
-    """bench.py's synthetic batch: standard-normal f32 NHWC pixels and
-    Bernoulli(0.2) labels over 15 classes, from numpy's generator."""
-    rng = np.random.default_rng(seed)
-    pixels = rng.standard_normal((n, 384, 384, 3)).astype(np.float32)
-    labels = (rng.random((n, 15)) < 0.2).astype(np.float32)
-    return {"pixel_values": torch.from_numpy(pixels).to(device),
-            "labels": torch.from_numpy(labels).to(device)}
 
 
 def phase_device() -> str:
@@ -408,6 +466,7 @@ def phase_kernel_check() -> dict:
     check_training_attention(randn, summary)
     check_layer_norm_bwd(randn, summary)
     check_dropout_attention(randn, summary)
+    check_packed_attention(randn, summary)
     return summary
 
 
@@ -675,7 +734,7 @@ def check_dropout_attention(randn, summary: dict) -> None:
                  "rel_tol": ATTN_GRAD_TOL[dtype], "ms": ms_b,
                  "plain_ms": plain_ms_b,
                  **attention_bound(shape, dtype, backward=True,
-                                   hash_passes=2)}
+                                   hash_passes=1)}
         if dtype == torch.bfloat16:
             # the library's flash kernels take bf16, not f32
             lib_fwd, lib_bwd = library_attention(q, k, v, do, DROP_RATE)
@@ -695,6 +754,116 @@ def check_dropout_attention(randn, summary: dict) -> None:
                 f"dropout fwd {dtype}: o {err_o}, lse {err_lse}")
         require(max(errs) <= ATTN_GRAD_TOL[dtype],
                 f"dropout bwd {dtype}: {errs}")
+
+
+def library_packed_attention(q, k, v, seg, do, rate=0.0) -> tuple:
+    """(forward ms, backward ms) of ``scaled_dot_product_attention`` with
+    the boolean same-segment mask [B, 1, S, S] (and ``dropout_p``) on
+    contiguous copies: a yardstick, never called by the port."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (seg[:, None, :, None] == seg[:, None, None, :])
+    q, k, v = (t.contiguous().requires_grad_() for t in (q, k, v))
+    do = do.contiguous()
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                      dropout_p=rate))
+    o = sdpa(q, k, v, attn_mask=mask, dropout_p=rate)
+    return fwd_ms, time_ms(lambda: torch.autograd.grad(
+        o, (q, k, v), do, retain_graph=True))
+
+
+def check_packed_attention(randn, summary: dict) -> None:
+    """The four segment kernels against their plain versions in three
+    layouts, bf16 at the packed step's batch and f32 at batch 4: o and lse
+    (PACKED_TOL), dq/dk/dv (ATTN_GRAD_TOL, relative), finite everywhere. The
+    two-segment bf16 rows go to the summary."""
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
+
+    plain_calls = {"plain_reps": 2, "plain_inner": 2}
+    for dtype, batch in ((torch.bfloat16, PACKED_SEQS),
+                         (torch.float32, PACKED_F32_BATCH)):
+        for layout, seg in packed_layouts(batch).items():
+            s = seg.shape[1]
+            shape = (batch, 12, s, 64)
+            x = randn((batch, s, 3, 12, 64), dtype)
+            q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+            do = randn(shape, dtype)
+            tiles = skipped_tile_share(seg)
+            for rate in (0.0, DROP_RATE):
+                if rate:
+                    extra = (DROP_SEED, rate, None, fa.packed_block_q(s))
+                    fwd, bwd = (fa.flash_attention_packed_dropout_fwd,
+                                fa.flash_attention_packed_dropout_bwd)
+                    rfwd, rbwd = (fa.attention_packed_dropout_fwd_reference,
+                                  fa.attention_packed_dropout_bwd_reference)
+                else:
+                    extra = ()
+                    fwd, bwd = (fa.flash_attention_packed_fwd,
+                                fa.flash_attention_packed_bwd)
+                    rfwd, rbwd = (fa.attention_packed_fwd_reference,
+                                  fa.attention_packed_bwd_reference)
+                o, lse = fwd(q, k, v, seg, *extra)
+                ro, rlse = rfwd(q, k, v, seg, *extra)
+                torch.cuda.synchronize()
+                err_o = (o.float() - ro.float()).abs().max().item()
+                err_lse = (lse - rlse).abs().max().item()
+                del ro, rlse
+                grads = bwd(q, k, v, seg, o, lse, do, *extra)
+                refs = rbwd(q, k, v, seg, o, lse, do, *extra)
+                torch.cuda.synchronize()
+                errs = [rel_err(g, r) for g, r in zip(grads, refs)]
+                err_g = max((g.float() - r.float()).abs().max().item()
+                            for g, r in zip(grads, refs))
+                finite = all(bool(torch.isfinite(t).all())
+                             for t in (o, lse, *grads))
+                del grads, refs
+                torch.cuda.empty_cache()
+                hashes = 1 if rate else 0
+                rec = {"phase": "kernel_check", "kernel": fwd.__name__,
+                       "layout": layout, "shape": list(shape),
+                       "dtype": str(dtype), "rate": rate,
+                       "max_abs_err": err_o, "lse_max_abs_err": err_lse,
+                       "tol": PACKED_TOL[dtype], **tiles,
+                       **packed_attention_bound(seg, 12, dtype,
+                                                hash_passes=hashes)}
+                rec_b = {"phase": "kernel_check", "kernel": bwd.__name__,
+                         "layout": layout, "shape": list(shape),
+                         "dtype": str(dtype), "rate": rate,
+                         "dq_dk_dv_rel_err": errs, "max_abs_err": err_g,
+                         "rel_tol": ATTN_GRAD_TOL[dtype], **tiles,
+                         **packed_attention_bound(seg, 12, dtype,
+                                                  backward=True,
+                                                  hash_passes=hashes)}
+                if dtype == torch.bfloat16:
+                    timed = layout == "two_segments"
+                    if timed:       # the plain versions take tens of ms
+                        rec["ms"], rec["plain_ms"] = time_pair(
+                            lambda: fwd(q, k, v, seg, *extra),
+                            lambda: rfwd(q, k, v, seg, *extra),
+                            **plain_calls)
+                        rec_b["ms"], rec_b["plain_ms"] = time_pair(
+                            lambda: bwd(q, k, v, seg, o, lse, do, *extra),
+                            lambda: rbwd(q, k, v, seg, o, lse, do, *extra),
+                            **plain_calls)
+                        torch.cuda.empty_cache()
+                        summary[fwd.__name__] = rec
+                        summary[bwd.__name__] = rec_b
+                    else:
+                        rec["ms"] = time_ms(lambda: fwd(q, k, v, seg, *extra))
+                        rec_b["ms"] = time_ms(
+                            lambda: bwd(q, k, v, seg, o, lse, do, *extra))
+                    rec["library_ms"], rec_b["library_ms"] = \
+                        library_packed_attention(q, k, v, seg, do, rate)
+                    torch.cuda.empty_cache()
+                emit(rec)
+                emit(rec_b)
+                tol = PACKED_TOL[dtype]
+                require(finite and err_o <= tol["o"]
+                        and err_lse <= tol["lse"],
+                        f"{fwd.__name__} {layout} {dtype}: o {err_o}, lse "
+                        f"{err_lse}, finite {finite}")
+                require(max(errs) <= ATTN_GRAD_TOL[dtype],
+                        f"{bwd.__name__} {layout} {dtype}: {errs}")
 
 
 def make_requests(n: int = REQUESTS) -> list:
@@ -967,6 +1136,36 @@ def train_config(mixup_alpha: float = 0.0, **model):
                       train=cxr.TrainConfig())
 
 
+def run_steps(train_step, state, batch, warmup: int, timed: int,
+              on_first=None) -> dict:
+    """``warmup`` then ``timed`` steps on a fixed batch. The timed steps are
+    the main path: the launch counts and the peak-memory mark are set to 0
+    just before them and read just after. ``on_first(metrics)`` sees the
+    first step's metrics before the next step runs."""
+    losses, norms, step_counts = [], [], []
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+        before = launch_counts()
+        state, m = train_step(state, batch)
+        after = launch_counts()
+        step_counts.append({k: after[k] - before[k] for k in after})
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        if i == 0 and on_first is not None:
+            on_first(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"losses": torch.stack(losses).tolist(),
+            "grad_norms": torch.stack(norms).tolist(),
+            "step_counts": step_counts, "wall": wall,
+            "step_ms": 1e3 * wall / timed, "launches": launch_counts(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def phase_train():
     """bench.py's train step on the card: ViT-B/16 @384, bf16, full remat,
     batch 36, TrainConfig defaults, over 10,000 scheduled steps."""
@@ -986,34 +1185,19 @@ def phase_train():
     state = steps.TrainState.create(params, seed=42)
     train_step = steps.make_train_step(cfg, total_steps=10_000)
 
-    losses, norms, step_counts = [], [], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        if i == WARMUP_STEPS:               # the timed steps: the main path
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-        before = launch_counts()
-        state, m = train_step(state, batch)
-        after = launch_counts()
-        step_counts.append({k: after[k] - before[k] for k in after})
-        losses.append(m["loss"])
-        norms.append(m["grad_norm"])
-        if i == 0:                          # for the no-remat comparison
-            first = (m["loss"].clone(),
-                     {n: p.grad.clone() for n, p in params.named_parameters()})
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    losses = torch.stack(losses).tolist()
-    norms = torch.stack(norms).tolist()
+    first = []                              # for the no-remat comparison
+    run = run_steps(
+        train_step, state, batch, WARMUP_STEPS, TIMED_STEPS,
+        lambda m: first.extend((m["loss"].clone(), {
+            n: p.grad.clone() for n, p in params.named_parameters()})))
+    losses, norms, step_counts, launches = (
+        run["losses"], run["grad_norms"], run["step_counts"],
+        run["launches"])
     rec = {"phase": "train", "batch": TRAIN_BATCH, "remat": "full",
            "dtype": cfg.model.dtype, "warmup_steps": WARMUP_STEPS,
-           "timed_steps": TIMED_STEPS,
-           "step_ms": 1e3 * wall / TIMED_STEPS,
-           "images_per_s": TRAIN_BATCH * TIMED_STEPS / wall,
-           "max_memory_allocated_gb": peak / 1e9,
+           "timed_steps": TIMED_STEPS, "step_ms": run["step_ms"],
+           "images_per_s": TRAIN_BATCH * TIMED_STEPS / run["wall"],
+           "max_memory_allocated_gb": run["peak_gb"],
            "losses": losses, "grad_norms": norms,
            "launches_per_step": step_counts[-1], "launches": launches}
     emit(rec)
@@ -1025,7 +1209,7 @@ def phase_train():
             f"launches per step {step_counts} != {per_step}")
 
     # one step without remat from the same weights, against the first
-    del state, m
+    del state, run
     params_nr = init_params(torch.Generator().manual_seed(SEED), cfg.model,
                             dev)
     step_nr = steps.make_train_step(train_config(remat=False),
@@ -1054,7 +1238,7 @@ def phase_train():
             f"remat vs no remat: loss {loss_diff}, grads {grad_diff}")
     del state_nr, params_nr
     torch.cuda.empty_cache()
-    return params, cfg, launches
+    return params, cfg, launches, rec["images_per_s"]
 
 
 def phase_train_dropout() -> dict:
@@ -1080,32 +1264,17 @@ def phase_train_dropout() -> dict:
     state = steps.TrainState.create(params, seed=42)
     train_step = steps.make_train_step(cfg, total_steps=10_000)
 
-    losses, norms, step_counts = [], [], []
-    for i in range(DROPOUT_WARMUP_STEPS + DROPOUT_TIMED_STEPS):
-        if i == DROPOUT_WARMUP_STEPS:       # the timed steps: the main path
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-        before = launch_counts()
-        state, m = train_step(state, batch)
-        after = launch_counts()
-        step_counts.append({k: after[k] - before[k] for k in after})
-        losses.append(m["loss"])
-        norms.append(m["grad_norm"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    losses = torch.stack(losses).tolist()
-    norms = torch.stack(norms).tolist()
+    run = run_steps(train_step, state, batch, DROPOUT_WARMUP_STEPS,
+                    DROPOUT_TIMED_STEPS)
+    losses, norms, step_counts, launches = (
+        run["losses"], run["grad_norms"], run["step_counts"],
+        run["launches"])
     rec = {"phase": "train_dropout", "batch": TRAIN_BATCH, "remat": "full",
            "dtype": cfg.model.dtype, **drop, "mixup_alpha": MIXUP_ALPHA,
            "warmup_steps": DROPOUT_WARMUP_STEPS,
-           "timed_steps": DROPOUT_TIMED_STEPS,
-           "step_ms": 1e3 * wall / DROPOUT_TIMED_STEPS,
-           "images_per_s": TRAIN_BATCH * DROPOUT_TIMED_STEPS / wall,
-           "max_memory_allocated_gb": peak / 1e9,
+           "timed_steps": DROPOUT_TIMED_STEPS, "step_ms": run["step_ms"],
+           "images_per_s": TRAIN_BATCH * DROPOUT_TIMED_STEPS / run["wall"],
+           "max_memory_allocated_gb": run["peak_gb"],
            "losses": losses, "grad_norms": norms,
            "launches_per_step": step_counts[-1], "launches": launches}
     emit(rec)
@@ -1113,7 +1282,7 @@ def phase_train_dropout() -> dict:
             "finite loss and grad_norm at every dropout step")
     require(all(c == per_step for c in step_counts),
             f"dropout launches per step {step_counts} != {per_step}")
-    del state, m, params
+    del state, run, params
 
     # one step with and one without remat: same weights, batch and draws
     draws = [steps.draw(torch.Generator().manual_seed(SEED + 1), cfg,
@@ -1206,6 +1375,190 @@ def phase_train_cross_check(phase: str = "train_cross_check",
                      ("grads_rel_diff", XCHECK_BF16["grads_rel"]),
                      ("params_max_abs_diff", XCHECK_BF16["params"])):
         require(rec[f"card_bf16_{key}"] <= tol, f"bf16 {key}: {rec}")
+
+
+def packed_launches_per_step(n_layers: int, dropout: bool) -> dict:
+    """Full remat: every block's attention forward runs twice, its backward
+    once; LayerNorm as in the dense step; no dense attention kernel."""
+    name = "flash_attention_packed_dropout" if dropout \
+        else "flash_attention_packed"
+    return {**dict.fromkeys(_wrappers(), 0),
+            f"{name}_fwd": 2 * n_layers, f"{name}_bwd": n_layers,
+            "layer_norm": 2 * (2 * n_layers + 1) - 1,
+            "layer_norm_bwd": 2 * n_layers + 1}
+
+
+def merged_layer_tiles(params, cfg, data: dict) -> list:
+    """One no-grad merged forward that returns the segment ids each
+    layer's attention saw: per layer the length and the tile shares of
+    :func:`skipped_tile_share` (merges interleave the ids further at every
+    layer, which is what the kernels' tile skip has to live with)."""
+    from chestxray_vit_tpu_torch.models import packed as packed_model
+
+    with torch.no_grad():
+        _, seen = packed_model.apply_packed_tome(
+            params, data["tokens"], data["segment_ids"],
+            data["pos_indices"], data["pool_weights"], cfg.model,
+            return_segment_ids=True)
+    return [{"length": seg.shape[1], **skipped_tile_share(seg)}
+            for seg in seen]
+
+
+def phase_train_packed(phase: str, batch: dict, dense_images_per_s=None,
+                       warmup: int = PACKED_WARMUP_STEPS,
+                       timed: int = PACKED_TIMED_STEPS, **model) -> tuple:
+    """The packed train step at full ViT-B/16 width, bf16, full remat, on a
+    fixed batch: step time, images/s, peak memory, falling loss, exact
+    launch counts per step. Returns (launches of the timed steps, the
+    record)."""
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.ops.tome import r_schedule
+    from chestxray_vit_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    cfg = train_config(remat=True, **model)
+    dropout = cfg.model.attention_dropout > 0.0
+    per_step = packed_launches_per_step(cfg.model.num_layers, dropout)
+    params = init_params(torch.Generator().manual_seed(SEED), cfg.model, dev)
+    state = steps.TrainState.create(params, seed=42)
+    train_step = steps.make_packed_train_step(cfg, total_steps=10_000)
+    data, n_images = tensors(batch), batch["n_images"]
+
+    run = run_steps(train_step, state, data, warmup, timed)
+    losses, norms, step_counts, launches, wall = (
+        run["losses"], run["grad_norms"], run["step_counts"],
+        run["launches"], run["wall"])
+    seg = batch["segment_ids"]
+    rec = {"phase": phase, "sequences": seg.shape[0], "seq_len": seg.shape[1],
+           "images": n_images, "pad_share": (seg < 0).float().mean().item(),
+           "remat": "full", "dtype": cfg.model.dtype, "model": model,
+           "warmup_steps": warmup, "timed_steps": timed,
+           "step_ms": run["step_ms"],
+           "images_per_s": n_images * timed / wall,
+           "tokens_per_s": seg.numel() * timed / wall,
+           "max_memory_allocated_gb": run["peak_gb"],
+           "losses": losses, "grad_norms": norms,
+           "launches_per_step": step_counts[-1], "launches": launches}
+    if cfg.model.tome_r:
+        rs = r_schedule(cfg.model.tome_r, cfg.model.num_layers,
+                        cfg.model.tome_schedule)
+        rec["attention_lengths"] = [seg.shape[1] - sum(rs[:i])
+                                    for i in range(len(rs))]
+        rec["attention_tiles"] = merged_layer_tiles(params, cfg, data)
+    if dense_images_per_s is not None:
+        rec["dense_b36_images_per_s"] = dense_images_per_s
+    emit(rec)
+    require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+            f"{phase}: finite loss and grad_norm at every step")
+    require(losses[-1] < losses[0],
+            f"{phase}: loss fell on the fixed batch: {losses[0]} → "
+            f"{losses[-1]}")
+    require(all(c == per_step for c in step_counts),
+            f"{phase}: launches per step {step_counts[-1]} != {per_step}")
+    require(rec.get("attention_lengths", []) == [
+        t["length"] for t in rec.get("attention_tiles", [])],
+        f"{phase}: the attention lengths follow the merge schedule")
+    del state, run, params
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def phase_packed_remat_vs_no_remat(batch: dict, **model) -> None:
+    """One packed step with remat and one without on the same weights,
+    sequences and injected draws: they agree only if every recomputed
+    block redraws the same masks."""
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    data = tensors(batch)
+    cfg = train_config(remat=True, **model)
+    draws = [steps.draw(torch.Generator().manual_seed(SEED + 1), cfg, 0)]
+    out = []
+    for remat in (True, False):
+        p = init_params(torch.Generator().manual_seed(SEED), cfg.model, dev)
+        step = steps.make_packed_train_step(
+            train_config(remat=remat, **model), 10_000)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        _, m = step(steps.TrainState.create(p, seed=0), data, draws)
+        torch.cuda.synchronize()
+        out.append((m["loss"].item(),
+                    {n: t.grad for n, t in p.named_parameters()},
+                    1e3 * (time.perf_counter() - t1),
+                    torch.cuda.max_memory_allocated() / 1e9))
+        del p
+    (loss_r, grads_r, ms_r, mem_r), (loss_n, grads_n, ms_n, mem_n) = out
+    loss_diff = abs(loss_n - loss_r)
+    scale = max(g.abs().max().item() for g in grads_r.values())
+    grad_diff = max((grads_n[n] - g).abs().max().item()
+                    for n, g in grads_r.items()) / scale
+    emit({"phase": "train_packed_mixed_remat_vs_no_remat",
+          "sequences": data["tokens"].shape[0], "loss_remat": loss_r,
+          "loss_diff": loss_diff, "grad_rel_diff": grad_diff,
+          "tol": [REMAT_LOSS_TOL, REMAT_GRAD_TOL],
+          "remat_one_step_ms": ms_r, "remat_max_memory_gb": mem_r,
+          "no_remat_one_step_ms": ms_n, "no_remat_max_memory_gb": mem_n})
+    require(np.isfinite(loss_r) and loss_diff <= REMAT_LOSS_TOL
+            and grad_diff <= REMAT_GRAD_TOL,
+            f"packed remat vs no remat: loss {loss_diff}, grads {grad_diff}")
+    del out, grads_r, grads_n
+    torch.cuda.empty_cache()
+
+
+def phase_train_packed_cross_check() -> None:
+    """One packed train step at full width, depth 2, f32, on the card
+    against the CPU (plain versions): two sequences (1024 tokens + 128 pad;
+    576 + 576), attention dropout 0.1 on injected seeds (the counter-hash
+    mask is equal on both), without and with token merging."""
+    from chestxray_vit_tpu_torch.models import bridge
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.train import steps
+
+    batch = packed_batch([512, 384, 384], np.random.default_rng(SEED + 2),
+                         "cpu")
+    for tome_r in (0, TOME_R):
+        cfg = train_config(num_layers=2, dtype="float32", remat=True,
+                           attention_dropout=DROP_RATE, tome_r=tome_r,
+                           tome_schedule=TOME_SCHEDULE)
+        draws = [steps.draw(torch.Generator().manual_seed(SEED), cfg, 0)]
+        out = {}
+        for device in ("cpu", "cuda"):
+            params = init_params(torch.Generator().manual_seed(SEED),
+                                 cfg.model).to(device)
+            data = {k: v.to(device) for k, v in tensors(batch).items()}
+            reset_launch_counts()
+            state, m = steps.make_packed_train_step(cfg, 10_000)(
+                steps.TrainState.create(params, seed=0), data, draws)
+            out[device] = ({k: v.item() for k, v in m.items()},
+                           _leaves(bridge.grads_to_numpy(state.params)),
+                           _leaves(bridge.params_to_numpy(state.params)),
+                           launch_counts())
+        (cm, cg, cp, cpu_launches), (gm, gg, gp, launches) = \
+            out["cpu"], out["cuda"]
+        g_scale = max(float(np.abs(g).max()) for g in cg)
+        rec = {"phase": "train_packed_cross_check", "depth": 2,
+               "sequences": 2, "tome_r": tome_r, "cpu_f32_loss": cm["loss"],
+               "tol_f32": XCHECK_F32,
+               "loss_diff": abs(gm["loss"] - cm["loss"]),
+               "grad_norm_rel_diff": abs(gm["grad_norm"] - cm["grad_norm"])
+               / cm["grad_norm"],
+               "grads_rel_diff": max(float(np.abs(a - b).max())
+                                     for a, b in zip(gg, cg)) / g_scale,
+               "params_max_abs_diff": max(float(np.abs(a - b).max())
+                                          for a, b in zip(gp, cp)),
+               "launches": launches}
+        emit(rec)
+        for key, tol in (("loss_diff", XCHECK_F32["loss"]),
+                         ("grad_norm_rel_diff", XCHECK_F32["grad_norm_rel"]),
+                         ("grads_rel_diff", XCHECK_F32["grads_rel"]),
+                         ("params_max_abs_diff", XCHECK_F32["params"])):
+            require(rec[key] <= tol, f"packed f32 {key}: {rec}")
+        require(launches == packed_launches_per_step(2, True)
+                and not any(cpu_launches.values()),
+                f"packed cross-check launches {launches}, on the CPU "
+                f"{cpu_launches}")
 
 
 def _leaves(tree: dict) -> list:
@@ -1325,6 +1678,14 @@ KERNELS = (  # name (the kernel_check summary key), source, what it replaces
      "chestxray_vit_tpu/ops/flash_attention.py:508"),
     ("flash_attention_dropout_bwd", "csrc/flash_attention_bwd.cu",
      "chestxray_vit_tpu/ops/flash_attention.py:516"),
+    ("flash_attention_packed_fwd", "csrc/flash_attention_seg.cu",
+     "chestxray_vit_tpu/ops/flash_attention.py:134"),
+    ("flash_attention_packed_bwd", "csrc/flash_attention_seg_bwd.cu",
+     "chestxray_vit_tpu/ops/flash_attention.py:208"),
+    ("flash_attention_packed_dropout_fwd", "csrc/flash_attention_seg.cu",
+     "chestxray_vit_tpu/ops/flash_attention.py:140"),
+    ("flash_attention_packed_dropout_bwd", "csrc/flash_attention_seg_bwd.cu",
+     "chestxray_vit_tpu/ops/flash_attention.py:216"),
 )
 
 
@@ -1358,7 +1719,8 @@ def main() -> int:
     phase_int8_cross_check(params, cfg, qp, imgs, fused_logits)
     del params, qp, imgs
     torch.cuda.empty_cache()
-    train_params, train_cfg, train_launches = phase_train()
+    train_params, train_cfg, train_launches, dense_images_per_s = \
+        phase_train()
     phase_train_cross_check()
     eval_launches = phase_eval(train_params, train_cfg)
     eval_int8_launches = phase_eval_int8(train_params, train_cfg)
@@ -1367,16 +1729,38 @@ def main() -> int:
     dropout_launches = phase_train_dropout()
     phase_train_cross_check("train_dropout_cross_check", MIXUP_ALPHA,
                             attention_dropout=DROP_RATE)
+    probe = packed_probe_batch("cuda")
+    packed_launches, packed_rec = phase_train_packed(
+        "train_packed", probe, dense_images_per_s)
+    tome_launches, tome_rec = phase_train_packed(
+        "train_packed_tome", probe, tome_r=TOME_R,
+        tome_schedule=TOME_SCHEDULE)
+    emit({"phase": "train_packed_tome_vs_packed",
+          "step_ms": [tome_rec["step_ms"], packed_rec["step_ms"]],
+          "ratio": tome_rec["step_ms"] / packed_rec["step_ms"]})
+    del probe
+    drop = {"attention_dropout": DROP_RATE, "hidden_dropout": DROP_RATE}
+    mixed = packed_mixed_batch("cuda")
+    mixed_launches, _ = phase_train_packed(
+        "train_packed_mixed", mixed, warmup=DROPOUT_WARMUP_STEPS,
+        timed=DROPOUT_TIMED_STEPS, **drop)
+    phase_packed_remat_vs_no_remat(
+        {k: v[:8] if k != "n_images" else v for k, v in mixed.items()},
+        **drop)
+    del mixed
+    phase_train_packed_cross_check()
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "chestxray_vit_tpu")]
     require(not loaded, f"no JAX and no JAX-package module imported: "
                         f"{loaded}")
 
     # launches: the sum over the main paths' runs (serving, int8 serving,
-    # the timed train steps, eval, int8 eval, the timed dropout steps), each
-    # counted from 0 just before it
+    # the timed train steps, eval, int8 eval, the timed dropout steps, the
+    # timed packed, merged and mixed-resolution steps), each counted from 0
+    # just before it
     paths = (serve_launches, serve_int8_launches, train_launches,
-             eval_launches, eval_int8_launches, dropout_launches)
+             eval_launches, eval_int8_launches, dropout_launches,
+             packed_launches, tome_launches, mixed_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)

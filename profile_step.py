@@ -1,13 +1,16 @@
-"""Device-time breakdown of the port's train step, or of its static int8
-serving forward, on one NVIDIA GPU.
+"""Device-time breakdown of the port's train step (dense or packed), or of
+its static int8 serving forward, on one NVIDIA GPU.
 
-    python3 profile_step.py [--dropout | --int8]
+    python3 profile_step.py [--dropout | --int8 | --packed | --packed-tome]
 
 bench.py's step (ViT-B/16 @384, bf16, full remat, batch 36, random weights
 from seed 0); ``--dropout`` adds attention dropout 0.1, hidden dropout 0.1
 and mixup α 0.2. ``--int8`` profiles the serving forward instead: the
 fused int8 route at batch 32 on a static tree calibrated on 8 images (the
-weights of seed 0, standard-normal images). After 3 warm-up steps
+weights of seed 0, standard-normal images). ``--packed`` profiles the
+packed train step on smoke_batches.py's probe batch (32 sequences of 1152
+tokens, two 384 x 384 images each), ``--packed-tome`` the same with
+within-segment token merging (r = 16, decreasing). After 3 warm-up steps
 ``torch.profiler`` traces 2 steps (forwards); the kernels of the trace are
 summed by category, and the busy share is the union of their intervals
 over the traced wall. Prints one JSON line (the trace is written beside
@@ -27,6 +30,8 @@ import time
 import numpy as np
 import torch
 
+from smoke_batches import bench_batch
+
 BATCH, INT8_BATCH, WARMUP_STEPS, STEPS = 36, 32, 3, 2
 
 # kernel-name fragments by category, first match wins
@@ -37,6 +42,7 @@ CATEGORIES = (
     ("layer_norm", ("ln_fwd", "ln_bwd", "layer_norm")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("random", ("philox", "distribution", "uniform", "bernoulli")),
+    ("sort_scatter", ("sort", "scatter", "gather", "radix", "scan")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "unrolled", "vectorized", "where",
                      "copy", "fill")),
@@ -67,6 +73,8 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--dropout", action="store_true")
     mode.add_argument("--int8", action="store_true")
+    mode.add_argument("--packed", action="store_true")
+    mode.add_argument("--packed-tome", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -83,15 +91,14 @@ def main() -> int:
                      data=cxr.DataConfig(
                          mixup_alpha=0.2 if args.dropout else 0.0))
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    batch = {"pixel_values": torch.from_numpy(rng.standard_normal(
-        (BATCH, 384, 384, 3)).astype(np.float32)).to(dev),
-        "labels": torch.from_numpy((rng.random((BATCH, 15)) < 0.2)
-                                   .astype(np.float32)).to(dev)}
+    batch = bench_batch(BATCH, 0, dev)
     params = init_params(torch.Generator().manual_seed(0), cfg.model, dev)
     if args.int8:
         run, batch_size, config = int8_forward(params, cfg.model, dev), \
             INT8_BATCH, "int8"
+    elif args.packed or args.packed_tome:
+        run, batch_size = packed_step(params, args.packed_tome, dev)
+        config = "packed_tome" if args.packed_tome else "packed"
     else:
         state = steps.TrainState.create(params, seed=42)
         step = steps.make_train_step(cfg, total_steps=10_000)
@@ -144,6 +151,30 @@ def main() -> int:
         **({"logits_absmax": out.abs().max().item()} if args.int8
            else {"loss": out.item()})}))
     return 0
+
+
+def packed_step(params, tome: bool, dev):
+    """(the packed train step on smoke_batches.py's probe batch as a callable
+    returning the loss, the images per step)."""
+    import chestxray_vit_tpu_torch as cxr
+    from chestxray_vit_tpu_torch.train import steps
+    from smoke_batches import (TOME_R, TOME_SCHEDULE, packed_probe_batch,
+                               tensors)
+
+    model = cxr.ModelConfig(remat=True, tome_r=TOME_R if tome else 0,
+                            tome_schedule=TOME_SCHEDULE)
+    batch = packed_probe_batch(dev)
+    data = tensors(batch)
+    state = steps.TrainState.create(params, seed=42)
+    step = steps.make_packed_train_step(cxr.Config(model=model),
+                                        total_steps=10_000)
+
+    def run():
+        nonlocal state
+        state, m = step(state, data)
+        return m["loss"]
+
+    return run, batch["n_images"]
 
 
 def int8_forward(params, cfg, dev):

@@ -598,3 +598,222 @@ def test_quantized_eval_step_on_card_matches_cpu(dev):
                                atol=2e-2)
     np.testing.assert_allclose(card_rows.cpu().numpy(), cpu_rows.numpy(),
                                atol=5 * 2e-2)
+
+
+# ---------------------------------------------------------------------------
+# Segment-masked (packed) attention
+# ---------------------------------------------------------------------------
+
+def _merged_order(ids):
+    """Ids in the order a token merge leaves them: the kept even positions,
+    then the odd ones, so two contiguous segments interleave as
+    0…0 1…1 0…0 1…1."""
+    return np.concatenate([ids[0::2], ids[1::2]])
+
+
+_SEG_LAYOUTS = {
+    # name: ids of one sequence (−1 is padding)
+    "two-segments": np.repeat([0, 1], 576),
+    "mixed-pad": np.concatenate([np.repeat([0, 1, 2], [576, 256, 256]),
+                                 np.full(64, -1)]),
+    "interleaved-ragged": _merged_order(np.repeat([0, 1], 576))[:1136],
+    "odd-S": np.repeat([0, 1, -1], [70, 50, 9]),
+    "short": np.repeat([0, 1], [20, 17]),
+    "one-segment": np.zeros(200, np.int64),
+    "all-pad": np.full(130, -1),
+    "first-tiles-foreign": np.repeat([3, 0, 7], [128, 65, 64]),
+    "unsorted": np.random.default_rng(0).integers(-1, 4, 333),
+}
+
+
+def _seg_ids(name, b, dev):
+    """[b, S] int32: the layout, rolled by 7·row so rows differ."""
+    ids = _SEG_LAYOUTS[name]
+    rows = [ids if name == "interleaved-ragged" or i == 0
+            else np.roll(ids, 7 * i) for i in range(b)]
+    return torch.tensor(np.stack(rows), dtype=torch.int32, device=dev)
+
+
+# The segment kernels are held tighter than the dense ones, so that a key
+# dropped or wrongly masked on a few rows cannot pass. bf16 o: one bf16 ulp
+# of the value (at most 2^-7 of it) for the last rounding plus 8e-3 for P
+# rounded to bf16 before the running sum; the f32 lse: 5e-3 (the rounding
+# of P moves the sum by at most 2^-9 of it, and a short segment that loses
+# one key moves lse by far more). f32: summation order only.
+_SEG_O_TOL = {torch.bfloat16: {"atol": 8e-3, "rtol": 2.0 ** -7},
+              torch.float32: {"atol": 1e-5, "rtol": 0}}
+_SEG_LSE_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("layout", sorted(_SEG_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate", [0.0, _RATE])
+def test_packed_fwd_bwd_kernels_match_plain(dev, layout, dtype, rate):
+    seg = _seg_ids(layout, 2, dev)
+    s = seg.shape[1]
+    q, k, v = _heads_views(2, s, dtype, dev)
+    do = _randn(q.shape, dtype, dev, seed=5)
+    if rate:
+        bq = fa.packed_block_q(s)
+        fwd, bwd = (fa.flash_attention_packed_dropout_fwd,
+                    fa.flash_attention_packed_dropout_bwd)
+        rfwd, rbwd = (fa.attention_packed_dropout_fwd_reference,
+                      fa.attention_packed_dropout_bwd_reference)
+        extra = (_SEED, rate, None, bq)
+    else:
+        fwd, bwd = (fa.flash_attention_packed_fwd,
+                    fa.flash_attention_packed_bwd)
+        rfwd, rbwd = (fa.attention_packed_fwd_reference,
+                      fa.attention_packed_bwd_reference)
+        extra = ()
+    n_fwd, n_bwd = fwd.launches, bwd.launches
+    o, lse = fwd(q, k, v, seg, *extra)
+    grads = bwd(q, k, v, seg, o, lse, do, *extra)
+    torch.cuda.synchronize()
+    assert fwd.launches == n_fwd + 1 and bwd.launches == n_bwd + 1
+    ro, rlse = rfwd(q, k, v, seg, *extra)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert lse.shape == (2, 12, s) and lse.dtype == torch.float32
+    torch.testing.assert_close(o.float(), ro.float(), **_SEG_O_TOL[dtype])
+    torch.testing.assert_close(lse, rlse, atol=_SEG_LSE_TOL[dtype], rtol=0)
+    for g, r in zip(grads, rbwd(q, k, v, seg, o, lse, do, *extra)):
+        assert g.dtype == dtype and g.transpose(1, 2).is_contiguous()
+        assert torch.isfinite(g).all()
+        assert _rel(g, r) <= _GRAD_TOL[dtype]
+
+
+def test_packed_kernels_one_segment_agree_with_dense_kernels(dev):
+    """With one segment the mask is empty: the segment kernels do the dense
+    kernels' arithmetic. The two are separate instantiations, which the
+    compiler may contract differently (lse came out a few f32 ulps apart),
+    so: lse within 1e-5, o within one bf16 ulp of values below 1, the
+    gradients within the kernels' own bf16 tolerance (a last-bit
+    difference in lse moves P by a bf16 ulp)."""
+    q, k, v = _heads_views(2, 577, torch.bfloat16, dev)
+    do = _randn(q.shape, torch.bfloat16, dev, seed=5)
+    seg = torch.zeros((2, 577), dtype=torch.int32, device=dev)
+    o, lse = fa.flash_attention_packed_fwd(q, k, v, seg)
+    dense_o, dense_lse = fa.flash_attention_fwd(q, k, v)
+    torch.testing.assert_close(lse, dense_lse, atol=1e-5, rtol=0)
+    torch.testing.assert_close(o.float(), dense_o.float(), atol=2.0 ** -8,
+                               rtol=0)
+    for a, b in zip(fa.flash_attention_packed_bwd(q, k, v, seg, o, lse, do),
+                    fa.flash_attention_bwd(q, k, v, dense_o, dense_lse, do)):
+        assert _rel(a, b) <= _GRAD_TOL[torch.bfloat16]
+
+
+def test_packed_kernels_isolate_segments(dev):
+    """Changing one segment's tokens leaves the other rows' outputs and
+    gradients bit for bit, at interleaved ids."""
+    seg = _seg_ids("interleaved-ragged", 1, dev)
+    q, k, v = _heads_views(1, seg.shape[1], torch.bfloat16, dev)
+    do = _randn(q.shape, torch.bfloat16, dev, seed=5)
+    other = (seg[0] == 1)
+    q2, k2, v2 = (t.clone() for t in (q, k, v))
+    for t in (q2, k2, v2):
+        t[:, :, other] += 1.0
+    o, lse = fa.flash_attention_packed_fwd(q, k, v, seg)
+    o2, lse2 = fa.flash_attention_packed_fwd(q2, k2, v2, seg)
+    assert torch.equal(o[:, :, ~other], o2[:, :, ~other])
+    assert not torch.equal(o[:, :, other], o2[:, :, other])
+    g = fa.flash_attention_packed_bwd(q, k, v, seg, o, lse, do)
+    g2 = fa.flash_attention_packed_bwd(q2, k2, v2, seg, o2, lse2, do)
+    for a, b in zip(g, g2):
+        assert torch.equal(a[:, :, ~other], b[:, :, ~other])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate", [0.0, _RATE])
+def test_packed_autograd_on_card_matches_plain_autograd(dev, dtype, rate):
+    """FlashAttentionPacked / …Dropout through ``attention_packed`` against
+    plain autograd of the plain forward, non-contiguous upstream gradient."""
+    seg = _seg_ids("mixed-pad", 2, dev)
+    s = seg.shape[1]
+    q, k, v = (t.detach().requires_grad_()
+               for t in _heads_views(2, s, dtype, dev))
+    go = _randn((2, s, 12, 64), dtype, dev, seed=7).transpose(1, 2)
+    seed = _SEED if rate else None
+    fa.attention_packed(q, k, v, seg, "auto", seed, rate).backward(go)
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    fa.attention_packed(q, k, v, seg, "xla", seed, rate).backward(go)
+    tol = {torch.bfloat16: 3e-2, torch.float32: 1e-5}[dtype]
+    for g, t in zip(got, (q, k, v)):
+        assert _rel(g, t.grad) <= tol
+
+
+def test_packed_kernels_refuse_what_they_do_not_take(dev):
+    q, k, v = _heads_views(2, 64, torch.bfloat16, dev)
+    seg = torch.zeros((2, 64), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        fa.flash_attention_packed_fwd(q, k, v, seg)
+    with pytest.raises(ValueError, match="int32"):
+        fa.flash_attention_packed_fwd(q, k, v, seg.int()[:, :63])
+    with pytest.raises(ValueError, match="int32"):
+        fa.flash_attention_packed_fwd(q, k, v, seg.int().cpu())
+
+
+def test_tome_tie_rules_on_card_equal_cpu(dev):
+    """Pad pairs all score 2.0: the card picks the pairs the CPU picks."""
+    from chestxray_vit_tpu_torch.ops import tome
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 96, 32), generator=g)
+    metric = torch.randn((3, 96, 16), generator=g)
+    seg = torch.tensor(np.stack([np.repeat([0, 1, -1], [30, 26, 40])] * 3),
+                       dtype=torch.int32)
+    metric[seg < 0] = 0.0
+    pw = torch.rand((3, 2, 96), generator=g) * (seg >= 0)[:, None, :]
+    sizes = torch.ones((3, 96))
+    cpu = tome.tome_merge_packed(x, metric, sizes, seg, pw, 20)
+    card = tome.tome_merge_packed(*(t.to(dev) for t in
+                                    (x, metric, sizes, seg, pw)), 20)
+    for a, b in zip(cpu, card):
+        torch.testing.assert_close(a, b.cpu(), atol=1e-6, rtol=1e-6)
+    assert torch.equal(cpu[2], card[2].cpu())
+
+
+@pytest.mark.parametrize("tome_r", [0, 6])
+def test_packed_train_step_on_card_matches_cpu(dev, tome_r):
+    """One packed f32 step at full width, depth 2, on the card against the
+    CPU (plain versions), with attention dropout on injected seeds."""
+    from chestxray_vit_tpu_torch.data import packing as pk
+    rng = np.random.default_rng(0)
+    sizes = [96, 64, 48, 64, 96, 48]
+    imgs = [rng.integers(0, 255, (s, s), np.uint8) for s in sizes]
+    labs = [(rng.random(15) < 0.3).astype(np.float32) for _ in sizes]
+    grids = (3, 4, 6)
+    pb = pk.pack_images(imgs, labs, patch=16, seq_len=70, grids=grids)
+    keys = ("tokens", "segment_ids", "pos_indices", "pool_weights", "labels",
+            "image_mask")
+    cfg = Config(model=ModelConfig(num_layers=2, img_size=96, dtype="float32",
+                                   remat=True, attention_dropout=0.1,
+                                   tome_r=tome_r,
+                                   tome_schedule="decreasing"),
+                 train=TrainConfig())
+    draws = [steps.Draws(seeds=[(-77, 0, 0), (1234567, 0, 0)])]
+    out = []
+    for device in ("cpu", dev):
+        params = vit.init_params(torch.Generator().manual_seed(0),
+                                 cfg.model).to(device)
+        batch = {k: torch.from_numpy(getattr(pb, k)).to(device)
+                 for k in keys}
+        before = (fa.flash_attention_packed_dropout_fwd.launches,
+                  fa.flash_attention_packed_dropout_bwd.launches)
+        state, m = steps.make_packed_train_step(cfg, 100, grids)(
+            steps.TrainState.create(params, 0), batch, draws)
+        after = (fa.flash_attention_packed_dropout_fwd.launches,
+                 fa.flash_attention_packed_dropout_bwd.launches)
+        if device != "cpu":        # forward + recompute, backward
+            assert (after[0] - before[0], after[1] - before[1]) == (4, 2)
+        out.append((m["loss"].item(), bridge.grads_to_numpy(params)))
+    (l0, g0), (l1, g1) = out
+    assert abs(l0 - l1) <= 1e-5
+
+    def leaves(t):
+        return [x for k in sorted(t) for x in
+                (leaves(t[k]) if isinstance(t[k], dict) else [t[k]])]
+
+    scale = max(float(np.abs(a).max()) for a in leaves(g0))
+    for a, b in zip(leaves(g0), leaves(g1)):
+        assert float(np.abs(a - b).max()) <= 1e-4 * scale

@@ -26,15 +26,18 @@ MODULES = [
     "chestxray_vit_tpu_torch.kernels",
     "chestxray_vit_tpu_torch.data.decode",
     "chestxray_vit_tpu_torch.data.geometry",
+    "chestxray_vit_tpu_torch.data.packing",
     "chestxray_vit_tpu_torch.ops.gelu",
     "chestxray_vit_tpu_torch.ops.layer_norm",
     "chestxray_vit_tpu_torch.ops.flash_attention",
     "chestxray_vit_tpu_torch.ops.preprocess",
     "chestxray_vit_tpu_torch.ops.quant",
     "chestxray_vit_tpu_torch.ops.int8_matmul",
+    "chestxray_vit_tpu_torch.ops.tome",
     "chestxray_vit_tpu_torch.models.vit",
     "chestxray_vit_tpu_torch.models.bridge",
     "chestxray_vit_tpu_torch.models.quantized",
+    "chestxray_vit_tpu_torch.models.packed",
     "chestxray_vit_tpu_torch.train.optimizer",
     "chestxray_vit_tpu_torch.train.steps",
     "chestxray_vit_tpu_torch.eval.metrics",
@@ -47,7 +50,9 @@ SOURCES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "chestxray_vit_tpu_torch", "**", "*.py"),
               recursive=True)
-    + [os.path.join(REPO, f) for f in ("chip_smoke.py", "profile_step.py")])
+    + [os.path.join(REPO, f) for f in ("chip_smoke.py", "profile_step.py",
+                                            "smoke_batches.py",
+                                            "tile_skip_probe.py")])
 
 
 @pytest.fixture(scope="module")

@@ -331,15 +331,21 @@ def test_unported_training_options_raise(field, value):
 def test_mixup_int8_and_packed_raise():
     """Mixup builds a step now (tests/test_torch_dropout.py holds it to
     the reference), and so does the quantized eval step
-    (tests/test_torch_quant.py); the int8 train, packed and token-merging
-    eval steps still raise."""
+    (tests/test_torch_quant.py), and the packed step
+    (tests/test_torch_packed.py), with token merging too
+    (tests/test_torch_tome.py); the int8 train step, token merging on the
+    dense train step and the token-merging eval step still raise."""
     cfg = tiny_cfg()
     tsteps.make_train_step(dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, mixup_alpha=0.2)), 10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.make_train_step(cfg, 10, int8_scales={})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_packed_train_step(cfg, 10)
+    tome = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, tome_r=2))
+    assert callable(tsteps.make_packed_train_step(cfg, 10))
+    assert callable(tsteps.make_packed_train_step(tome, 10))
+    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+        tsteps.make_train_step(tome, 10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.make_inference_eval_step(cfg, quantized=True, tome_r=2)
 
