@@ -6,48 +6,73 @@
 // replaces.
 //
 // The TPU kernel `_bwd_kernel` (chestxray_vit_tpu/ops/flash_attention.py,
-// launched by `_bwd`) holds a whole padded
-// Q block and K/V row in VMEM and produces dQ, dK and dV in one grid step;
-// with several Q blocks it accumulates dK/dV across the sequential grid.
-// Hopper blocks run in no order, so this is the FlashAttention-2 split,
-// without atomics and therefore deterministic:
+// launched by `_bwd`) holds a whole padded Q block and K/V row in VMEM and
+// produces dQ, dK and dV in one grid step; with several Q blocks it
+// accumulates dK/dV across the sequential grid. Hopper blocks run in no
+// order, so this is the FlashAttention-2 split, without atomics and
+// therefore bit-for-bit repeatable:
 //
-// 1. attn_bwd_delta: Delta = rowsum(dO * O) in f32, one [B * H, S] row each.
-// 2. attn_bwd_dkdv: one block per (batch * head, 64-key tile). It walks the
-//    query tiles, recomputes P^T = exp2(S^T * scale * log2 e - lse * log2 e),
-//    and accumulates dV += P^T dO and dK += dS^T Q with
-//    dS = P * (dP - Delta) in f32 registers; dK * scale and dV are written
-//    once, in the input dtype.
-// 3. attn_bwd_dq: one block per (batch * head, 64-query tile), walking the
-//    key tiles the same way and writing dQ * scale once.
+// 1. attn_bwd_dq: one block per (batch * head, 64-query tile). It first
+//    sums Delta = rowsum(dO * O) of its rows (f32, written for pass 2), then
+//    walks the key tiles: S = Q K^T and dP = dO V^T, P = exp2(S * scale *
+//    log2 e - lse * log2 e), dS = P * (dP - Delta), dQ += dS K in f32
+//    registers; dQ * scale is written once, in the input dtype.
+// 2. attn_bwd_dkdv: one block per (batch * head, 64-key tile), walking the
+//    query tiles the same way: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO,
+//    dK += dS^T Q; dK * scale and dV are written once.
+// (f32, the parity path: attn_bwd_delta, then the two passes as plain FMA
+// with two threads per row.)
 //
-// Query rows and key columns at or past S contribute nothing: pad query
-// rows load lse = +inf (P = 0), pad keys are masked, and nothing past S is
-// written. All eight tensors are read and written through their strides,
-// so dq, dk and dv can be [B, H, S, d] views of [B, S, H, d] buffers that
-// the projections' backward reads without a transpose copy.
+// Query rows and key columns at or past S contribute nothing: their tile
+// rows are zero-filled, pad keys and pad queries are masked to P = 0, and
+// nothing past S is written. All eight tensors are read and written through
+// their strides, so dq, dk and dv can be [B, H, S, d] views of [B, S, H, d]
+// buffers that the projections' backward reads without a transpose copy.
 //
-// What bounds it on an H100: tensor-core throughput. Per (query tile, key
-// tile) pair the dK/dV pass runs four 64 x 64 x 64 products (S, dV, dP,
-// dK) and the dQ pass three (S, dP, dQ), 3.5x the forward's two, because
-// S and dP are recomputed by both passes; bf16 runs them all as mma.sync
-// m16n8k16 with f32 accumulation, from 64-row tiles in shared memory. P and dS
-// are rounded to bf16 before their products, as the TPU kernel does
-// (`p_lo`, `ds_lo`); P is rounded after the exp2, as in the forward. The
-// f32 path (parity runs) is plain FMA with two threads per row.
+// How the bf16 passes feed the tensor cores (a block is one warpgroup):
+// - The walked tiles (Q and dO with lse and Delta for dK/dV; K and V for dQ;
+//   the segment ids with either) arrive by cp.async, zero-filled past S, in
+//   a ring of two stages in dynamic shared memory: the next tile's copies
+//   are issued before the current tile's products, and one cp.async wait and
+//   one barrier per tile order them.
+// - Every tile is stored once, 64 rows of 128 bytes under the 128-byte
+//   swizzle, and read by wgmma through a descriptor in either orientation:
+//   K-major where the tile's rows are the product's columns (S, dP, S^T,
+//   dP^T), the transposed-B form where they are the k index (dQ, dV, dK).
+//   No tile is copied transposed and no B fragment passes through
+//   registers.
+// - Each pass is a chain: the accumulators of S and dP become, rounded to
+//   bf16 in registers, the A fragments of the next product (P^T for dV,
+//   dS^T for dK, dS for dQ). The dQ pass holds its own Q and dO as A
+//   fragments (ldmatrix, once); the dK/dV pass, which carries two
+//   accumulators, reads its own K and V from shared memory through
+//   descriptors instead, which keeps it at 168 registers and three blocks an
+//   SM. wgmma groups are committed so that exp2 runs under the dP product
+//   and the dS arithmetic under the dV product; other blocks of the SM fill
+//   the rest.
+// - The last walked tile of a ragged sequence runs only the 16-deep steps
+//   of dQ, dV, dK and the 8-wide slices of the exp2 / dS arithmetic that
+//   hold a row below S; its S and dP products stay whole (wgmma's M is 64
+//   and a narrower N saves little), and so does the block that owns the
+//   ragged tile.
+// What bounds them on an H100: tensor-core throughput (seven 64 x 64 x 64
+// products per tile pair, S and dP being computed by both passes), reached
+// to about a quarter: a block's chain is serial, and twelve warps an SM hide
+// only part of the wgmma, exp2 and barrier latencies. P and dS are rounded
+// to bf16 before their products, as the TPU kernel does (`p_lo`, `ds_lo`);
+// P is rounded after the exp2, as in the forward.
 //
-// With kDropout each pass regenerates the forward's keep mask M for its own tiles from the
-// element's global (bh, query, key) (cxr::Dropout, common.cuh), so no mask
-// is stored or read. dV = (M * P)^T dO / (1 - rate) and
-// dS = P * (M * dP / (1 - rate) - Delta), with the unchanged Delta pre-pass.
-// The hash adds about ten integer operations per score element to each
-// pass, against 2 x 64 x 4 tensor-core flops per element and pass.
+// With kDropout each pass regenerates the forward's keep mask M for its own
+// tiles from the element's global (bh, query, key) (cxr::Dropout,
+// common.cuh), so no mask is stored or read. dV = (M * P)^T dO / (1 - rate)
+// and dS = P * (M * dP / (1 - rate) - Delta), with the unchanged Delta. The
+// hash adds about twelve integer operations per score element to each pass.
 //
 // With kSegment (packed sequences) seg is int32 [B, S] contiguous and P is
 // 0 wherever the query's and the key's segment ids differ, so those pairs
 // add nothing to any gradient; a tile of the walked operand none of whose
-// ids lies within the range of the block's own 64 ids is skipped before it
-// is loaded. Ids are never assumed sorted or contiguous.
+// ids lies within the range of the block's own 64 ids is skipped before its
+// copies are issued (TileWalk). Ids are never assumed sorted or contiguous.
 #pragma once
 
 #include <math.h>
@@ -59,7 +84,6 @@ namespace bwd {
 
 constexpr int kTile = 64;     // query rows or keys per tile
 constexpr int kHeadDim = 64;  // the only head dim built
-constexpr int kLd = kHeadDim + 8;  // bf16 row stride in shared memory
 
 // ---------------------------------------------------------------------------
 // Delta = rowsum(dO * O)
@@ -96,32 +120,114 @@ attn_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core tiles. 128 threads = 4 warps; warp w owns rows
-// [16w, 16w + 16) of the block's tile (keys for dK/dV, queries for dQ).
+// bf16: one warpgroup (128 threads) per block; warp w owns rows
+// [16w, 16w + 16) of the block's own tile (keys for dK/dV, queries for dQ).
 // ---------------------------------------------------------------------------
 
-// Copies a 64 x 64 tile starting at row r0 (rows past S as zeros) into
-// ``dst`` and, if ``dst_t`` is given, its transpose into ``dst_t``.
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* src,
-                                          long long stride, int r0, int S,
-                                          __nv_bfloat16 (*dst)[kLd],
-                                          __nv_bfloat16 (*dst_t)[kLd]) {
-  for (int i = threadIdx.x; i < kTile * 8; i += 128) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = val;
-    if (dst_t != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+// A ring stage: the two walked tiles, then 64 f32 lse, 64 f32 Delta and 64
+// int32 segment ids of the walked rows (the dQ pass uses only the ids). Two
+// stages: the next tile's copies fly under the current tile's products
+// (three and four stages read the same times). With at most 168 registers a
+// thread, three blocks share an SM, so one block's exp2, hash and rounding
+// run under another's products.
+constexpr int kStages = 2;
+constexpr int kBlocksPerSm = 3;
+constexpr int kStageAux = 2 * cxr::kTileBytes;
+constexpr int kStageBytes = kStageAux + 1024;
+// 1024 bytes of slack: the ring starts at the next 1024-byte boundary
+constexpr int kSmemBytes = kStages * kStageBytes + 1024;
+// the dK/dV pass keeps its own K and V tiles behind the ring
+constexpr int kDkdvSmemBytes = kSmemBytes + 2 * cxr::kTileBytes;
+static_assert(kStages >= 2, "the ring overlaps a copy with a tile's products");
+
+// The tiles of the walked operand a block visits, in order. Dense: all of
+// them. kSegment: those with an id inside the range of the block's own ids
+// (conservative, ids in any order), found 32 tiles at a time from the ids in
+// device memory. Every warp computes the same answer from the same ids, so
+// the walk is block-uniform without a barrier or shared memory.
+template <bool kSegment>
+struct TileWalk {
+#ifdef CXR_NO_TILE_SKIP
+  static constexpr bool kSkip = false;
+#else
+  static constexpr bool kSkip = kSegment;
+#endif
+  const int* seg;
+  int S, tiles, lo, hi, base;
+  uint32_t mask;
+
+  // ``seg``: the ids of this batch row; r0: the first row of the own tile.
+  __device__ __forceinline__ TileWalk(const int* seg_, int S_, int r0)
+      : seg(seg_), S(S_), tiles((S_ + kTile - 1) / kTile), lo(0), hi(0),
+        base(kSkip ? -32 : 0), mask(0u) {
+    if (kSkip) {
+      const int lane = threadIdx.x & 31;
+      lo = INT_MAX;
+      hi = INT_MIN;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) dst_t[c + j][r] = e[j];
+      for (int j = 0; j < 2; ++j) {
+        const int r = r0 + lane + 32 * j;
+        if (r < S) {
+          const int id = seg[r];
+          lo = min(lo, id);
+          hi = max(hi, id);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+      }
     }
   }
+
+  // Bit j: tile base + j holds an id in [lo, hi].
+  __device__ __forceinline__ uint32_t scan() const {
+    const int lane = threadIdx.x & 31;
+    uint32_t m = 0u;
+#pragma unroll 8
+    for (int j = 0; j < 32; ++j) {
+      bool hit = false;
+      if (base + j < tiles) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = (base + j) * kTile + lane + 32 * half;
+          if (r < S) {
+            const int id = seg[r];
+            hit = hit || (id >= lo && id <= hi);
+          }
+        }
+      }
+      if (__any_sync(0xffffffffu, hit)) m |= 1u << j;
+    }
+    return m;
+  }
+
+  // The next tile to visit, or -1 when the walk is over.
+  __device__ __forceinline__ int next() {
+    if (kSkip) {
+      while (mask == 0u) {
+        base += 32;
+        if (base >= tiles) return -1;
+        mask = scan();
+      }
+      const int j = __ffs(mask) - 1;
+      mask &= mask - 1u;
+      return base + j;
+    }
+    return base < tiles ? base++ : -1;
+  }
+};
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
 }
 
 template <bool kDropout, bool kSegment>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, kBlocksPerSm)
 attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
@@ -133,13 +239,10 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
                    Strides qs, Strides ks, Strides vs, Strides dos,
                    Strides dks, Strides dvs, float scale, float scale_log2,
                    cxr::Dropout drop, const int* __restrict__ seg) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kTile][kLd];
-  __shared__ __align__(16) __nv_bfloat16 sQt[kHeadDim][kLd];
-  __shared__ __align__(16) __nv_bfloat16 sdO[kTile][kLd];
-  __shared__ __align__(16) __nv_bfloat16 sdOt[kHeadDim][kLd];
-  __shared__ float sL[kTile], sD[kTile];
-  __shared__ int sSeg[kSegment ? kTile : 2];   // ids of the query tile
-  __shared__ int sRange[2];
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = cxr::smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const unsigned char* ring_ptr = smem_raw + (ring - raw);
 
   const int n0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -152,130 +255,175 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wr = warp * 16;
 
-  // this warp's 16 keys and values as A fragments (staged through sQ/sdO)
-  load_tile(k + b * ks.b + h * ks.h, ks.s, n0, S, sQ, nullptr);
-  load_tile(v + b * vs.b + h * vs.h, vs.s, n0, S, sdO, nullptr);
+  // the copies of query tile ``tile`` (Q, dO, lse, Delta, ids) into a stage
+  auto fetch = [&](int stage, int tile) {
+    const int m0 = tile * kTile;
+    const uint32_t st = ring + stage * kStageBytes;
+    cxr::copy_tile_async(st, qp, qs.s, m0, S);
+    cxr::copy_tile_async(st + cxr::kTileBytes, dop, dos.s, m0, S);
+    if (tid < kTile) {
+      const bool ok = m0 + tid < S;
+      const int r = ok ? m0 + tid : 0;
+      cxr::cp_async_4(st + kStageAux + 4 * tid, lp + r, ok);
+      cxr::cp_async_4(st + kStageAux + 256 + 4 * tid, dlp + r, ok);
+      if (kSegment)
+        cxr::cp_async_4(st + kStageAux + 512 + 4 * tid, segp + r, ok);
+    }
+  };
+
+  // the block's own K and V stay in shared memory behind the ring, the A
+  // operands of S^T and dP^T (as fragments they would cost 32 registers a
+  // thread and the third block of the SM)
+  const uint32_t own = ring + kStages * kStageBytes;
+  cxr::copy_tile_async(own, k + b * ks.b + h * ks.h, ks.s, n0, S);
+  cxr::copy_tile_async(own + cxr::kTileBytes, v + b * vs.b + h * vs.h, vs.s,
+                       n0, S);
+  cxr::cp_async_commit();
+  TileWalk<kSegment> walk(segp, S, n0);
+  int fifo[kStages];  // fifo[0]: the tile to compute next; then those in flight
+#pragma unroll
+  for (int d = 0; d < kStages - 1; ++d) {
+    fifo[d] = walk.next();
+    if (fifo[d] >= 0) fetch(d, fifo[d]);
+    cxr::cp_async_commit();
+  }
+  fifo[kStages - 1] = -1;
+  cxr::cp_async_wait<kStages - 1>();
   __syncthreads();
-  uint32_t kf[4][4], vf[4][4];
-  cxr::load_a(sQ, wr, g, t, kf);
-  cxr::load_a(sdO, wr, g, t, vf);
 
   float dka[8][4], dva[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  cxr::acc_fence(dka);
+  cxr::acc_fence(dva);
   const int key0 = n0 + wr + g;  // key of accumulator rows g; +8 for c2, c3
-  int seg_key[2] = {0, 0}, seg_lo = 0, seg_hi = 0;  // ids of the two keys
+  const bool key_ok[2] = {key0 < S, key0 + 8 < S};
+  int seg_key[2] = {0, 0};  // ids of the two keys
   if (kSegment) {
-    cxr::load_block_ids(segp, n0, S, sSeg, sRange);
-    seg_key[0] = sSeg[wr + g];
-    seg_key[1] = sSeg[wr + g + 8];
-    seg_lo = sRange[0];
-    seg_hi = sRange[1];
+    seg_key[0] = key_ok[0] ? segp[key0] : cxr::kNoSegment;
+    seg_key[1] = key_ok[1] ? segp[key0 + 8] : cxr::kNoSegment;
   }
 
-  for (int m0 = 0; m0 < S; m0 += kTile) {
-    __syncthreads();  // the previous tiles (or the K/V staging) are consumed
-    if (kSegment && !cxr::load_tile_ids(segp, m0, S, seg_lo, seg_hi, sSeg))
-      continue;
-    load_tile(qp, qs.s, m0, S, sQ, sQt);
-    load_tile(dop, dos.s, m0, S, sdO, sdOt);
-    if (tid < kTile) {
-      const bool ok = m0 + tid < S;
-      sL[tid] = ok ? lp[m0 + tid] * kLog2e : INFINITY;
-      sD[tid] = ok ? dlp[m0 + tid] : 0.f;
-    }
+  int cs = 0;  // the stage of fifo[0]
+  while (fifo[0] >= 0) {
+    cxr::cp_async_wait<kStages - 2>();
+    // tile fifo[0] has arrived for every thread, and every thread is done
+    // with the stage before it, which the next copies overwrite
     __syncthreads();
+    fifo[kStages - 1] = walk.next();
+    if (fifo[kStages - 1] >= 0)
+      fetch(cs == 0 ? kStages - 1 : cs - 1, fifo[kStages - 1]);
+    cxr::cp_async_commit();
 
-    // S^T: 16 keys x 64 queries
-    float sp[8][4];
+    const int m0 = fifo[0] * kTile, qrows = min(kTile, S - m0);
+    const uint32_t sq = ring + cs * kStageBytes, sdo = sq + cxr::kTileBytes;
+    const float* sL = reinterpret_cast<const float*>(
+        ring_ptr + cs * kStageBytes + kStageAux);
+    const float* sD = sL + kTile;
+    const int* sI = reinterpret_cast<const int*>(sD + kTile);
+
+    {
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries per warp
+      float sp[8][4], dp[8][4];
+      cxr::wgmma_fence();
+      cxr::tile_mma_ss(sp, own, sq);
+      cxr::wgmma_commit();
+      cxr::tile_mma_ss(dp, own + cxr::kTileBytes, sdo);
+      cxr::wgmma_commit();
+      cxr::wgmma_wait<1>(sp);
+
+      // P^T rounded to bf16, packed as the A fragments of the next product;
+      // keep bit of element (query m0 + 8n + 2t + (e & 1), key): bit 4n + e
+      uint32_t pp[4][4], pf[4][4];
+      uint32_t kmask = 0u;
+      const uint32_t dbase =
+          kDropout ? cxr::drop_row(drop, bh, m0) + static_cast<uint32_t>(key0)
+                   : 0u;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      sp[n][0] = sp[n][1] = sp[n][2] = sp[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        cxr::load_b(sQ, n * 8, kk * 16, g, t, b0, b1);
-        cxr::mma_16816(sp[n], kf[kk], b0, b1);
-      }
-    }
-    // P^T in bf16; pad queries have lse = +inf, so exp2 gives exactly 0
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = n * 8 + 2 * t + (e & 1);
-        bool key_ok = key0 + (e >> 1) * 8 < S;
-        if (kSegment) key_ok = key_ok && sSeg[qc] == seg_key[e >> 1];
-        sp[n][e] = key_ok
-            ? cxr::round_bf16(exp2f(sp[n][e] * scale_log2 - sL[qc])) : 0.f;
-      }
-    // keep bit of element (query m0 + qc, key): bit 4n + e
-    uint32_t kmask = 0u;
-    if (kDropout) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 8; ++n) {
+        const int qc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
+        if (n * 8 >= qrows) {  // block-uniform: sub-tiles of pad queries
+          pp[kk][hi] = pp[kk][hi + 1] = 0u;
+          continue;
+        }
+        const float2 l = *reinterpret_cast<const float2*>(sL + qc);
+        const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
+        int id[2] = {0, 0};
+        if (kSegment) {
+          const int2 i2 = *reinterpret_cast<const int2*>(sI + qc);
+          id[0] = i2.x;
+          id[1] = i2.y;
+        }
+        float pe[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qrow = m0 + n * 8 + 2 * t + (e & 1);
-          if (cxr::kept(drop, cxr::drop_row(drop, bh, qrow),
-                        key0 + (e >> 1) * 8))
+          const int j = e & 1, r = e >> 1;
+          bool ok = key_ok[r] && qc + j < qrows;
+          if (kSegment) ok = ok && id[j] == seg_key[r];
+          pe[e] = ok ? exp2f(sp[n][e] * scale_log2 - l2[j]) : 0.f;
+          const uint32_t counter =  // of (query m0 + qc + j, key key0)
+              dbase + static_cast<uint32_t>(qc + j) * drop.s_pad;
+          if (kDropout && cxr::kept(drop, counter, r * 8))
             kmask |= 1u << (4 * n + e);
         }
+        pp[kk][hi] = cxr::pack_bf16x2(pe[0], pe[1]);
+        pp[kk][hi + 1] = cxr::pack_bf16x2(pe[2], pe[3]);
+      }
+      if (kDropout) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int bit = 4 * (2 * kk + (j >> 1)) + 2 * (j & 1);
+            pf[kk][j] = pp[kk][j] & (((kmask >> bit) & 1u ? 0xFFFFu : 0u) |
+                                     ((kmask >> (bit + 1)) & 1u ? 0xFFFF0000u
+                                                                : 0u));
+          }
+      }
+      // dV += (M * P)^T dO (the 1 / (1 - rate) is applied at the end)
+      cxr::wgmma_fence(kDropout ? pf : pp);
+      cxr::tile_mma_rs<true>(dva, kDropout ? pf : pp, sdo, qrows);
+      cxr::wgmma_commit();
+      cxr::wgmma_wait<1>(dp);
+
+      // dS^T = P^T * (M * dP^T / (1 - rate) - Delta), rounded to bf16
+      uint32_t dsf[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int qc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
+        if (n * 8 >= qrows) {
+          dsf[kk][hi] = dsf[kk][hi + 1] = 0u;
+          continue;
+        }
+        const float2 dl = *reinterpret_cast<const float2*>(sD + qc);
+        float de[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t w = pp[kk][hi + (e >> 1)];
+          const float p = e & 1 ? bf16_hi(w) : bf16_lo(w);
+          float dpe = dp[n][e];
+          if (kDropout)
+            dpe = (kmask >> (4 * n + e)) & 1u ? dpe * drop.inv_keep : 0.f;
+          de[e] = p * (dpe - (e & 1 ? dl.y : dl.x));
+        }
+        dsf[kk][hi] = cxr::pack_bf16x2(de[0], de[1]);
+        dsf[kk][hi + 1] = cxr::pack_bf16x2(de[2], de[3]);
+      }
+      // dK += dS^T Q
+      cxr::wgmma_fence(dsf);
+      cxr::tile_mma_rs<true>(dka, dsf, sq, qrows);
+      cxr::wgmma_commit();
+      // the stage is free, and pp, pf, dsf may change, once these are done
+      cxr::wgmma_wait<0>(dva);
+      cxr::acc_fence(dka);
     }
-    uint32_t pf[4][4];
-    if (kDropout) {
-      float pd[8][4];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          pd[n][e] = (kmask >> (4 * n + e)) & 1u ? sp[n][e] : 0.f;
-      cxr::acc_to_a(pd, pf);
-    } else {
-      cxr::acc_to_a(sp, pf);
-    }
-    // dV += (M * P)^T dO (the 1 / (1 - rate) is applied at the end)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        cxr::load_b(sdOt, n * 8, kk * 16, g, t, b0, b1);
-        cxr::mma_16816(dva[n], pf[kk], b0, b1);
-      }
-    // dP^T = V dO^T, then dS^T = P^T * (dP^T - Delta) in place
-    float dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        cxr::load_b(sdO, n * 8, kk * 16, g, t, b0, b1);
-        cxr::mma_16816(dp[n], vf[kk], b0, b1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float dpe = dp[n][e];
-        if (kDropout)
-          dpe = (kmask >> (4 * n + e)) & 1u ? dpe * drop.inv_keep : 0.f;
-        dp[n][e] = sp[n][e] * (dpe - sD[n * 8 + 2 * t + (e & 1)]);
-      }
-    }
-    uint32_t dsf[4][4];
-    cxr::acc_to_a(dp, dsf);
-    // dK += dS^T Q
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        cxr::load_b(sQt, n * 8, kk * 16, g, t, b0, b1);
-        cxr::mma_16816(dka[n], dsf[kk], b0, b1);
-      }
+    for (int d = 0; d < kStages - 1; ++d) fifo[d] = fifo[d + 1];
+    cs = cs + 1 == kStages ? 0 : cs + 1;
   }
+  cxr::cp_async_wait<0>();  // copies never outlive the block
 
   __nv_bfloat16* dkp = dk + b * dks.b + h * dks.h;
   __nv_bfloat16* dvp = dv + b * dvs.b + h * dvs.h;
@@ -286,7 +434,7 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = key0 + 8 * r;
-      if (key < S) {
+      if (key_ok[r]) {
         *reinterpret_cast<uint32_t*>(dkp + key * dks.s + c) =
             cxr::pack_bf16x2(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
         *reinterpret_cast<uint32_t*>(dvp + key * dvs.s + c) =
@@ -298,22 +446,21 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
 }
 
 template <bool kDropout, bool kSegment>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, kBlocksPerSm)
 attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
+                 const __nv_bfloat16* __restrict__ o,
                  const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta,
+                 const float* __restrict__ lse, float* __restrict__ delta,
                  __nv_bfloat16* __restrict__ dq, int H, int S, Strides qs,
-                 Strides ks, Strides vs, Strides dos, Strides dqs, float scale,
-                 float scale_log2, cxr::Dropout drop,
+                 Strides ks, Strides vs, Strides os, Strides dos, Strides dqs,
+                 float scale, float scale_log2, cxr::Dropout drop,
                  const int* __restrict__ seg) {
-  __shared__ __align__(16) __nv_bfloat16 sK[kTile][kLd];
-  __shared__ __align__(16) __nv_bfloat16 sKt[kHeadDim][kLd];
-  __shared__ __align__(16) __nv_bfloat16 sV[kTile][kLd];
-  __shared__ int sSeg[kSegment ? kTile : 2];   // ids of the key tile
-  __shared__ int sRange[2];
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = cxr::smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  unsigned char* ring_ptr = smem_raw + (ring - raw);
 
   const int m0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -324,86 +471,180 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wr = warp * 16;
 
-  // this warp's 16 query rows of Q and dO as A fragments (staged)
-  load_tile(q + b * qs.b + h * qs.h, qs.s, m0, S, sK, nullptr);
-  load_tile(dout + b * dos.b + h * dos.h, dos.s, m0, S, sV, nullptr);
+  // the copies of key tile ``tile`` (K, V, ids) into a stage
+  auto fetch = [&](int stage, int tile) {
+    const int n0 = tile * kTile;
+    const uint32_t st = ring + stage * kStageBytes;
+    cxr::copy_tile_async(st, kp, ks.s, n0, S);
+    cxr::copy_tile_async(st + cxr::kTileBytes, vp, vs.s, n0, S);
+    if (kSegment && tid < kTile) {
+      const bool ok = n0 + tid < S;
+      cxr::cp_async_4(st + kStageAux + 512 + 4 * tid,
+                      segp + (ok ? n0 + tid : 0), ok);
+    }
+  };
+
+  // the block's own Q and dO pass through the last stage into A fragments
+  const uint32_t own = ring + (kStages - 1) * kStageBytes;
+  cxr::copy_tile_async(own, q + b * qs.b + h * qs.h, qs.s, m0, S);
+  cxr::copy_tile_async(own + cxr::kTileBytes, dout + b * dos.b + h * dos.h,
+                       dos.s, m0, S);
+  cxr::cp_async_commit();
+  TileWalk<kSegment> walk(segp, S, m0);
+  int fifo[kStages];  // fifo[0]: the tile to compute next; then those in flight
+#pragma unroll
+  for (int d = 0; d < kStages - 1; ++d) {
+    fifo[d] = walk.next();
+    if (fifo[d] >= 0) fetch(d, fifo[d]);
+    cxr::cp_async_commit();
+  }
+  fifo[kStages - 1] = -1;
+
+  // Delta = rowsum(dO * O) of the block's 64 rows, under the copies: eight
+  // lanes a row, summed in attn_bwd_delta's order. It goes to device memory
+  // for the dK/dV pass, which runs after this one, and through the own
+  // stage's spare words to this block's warps.
+  float* sDelta = reinterpret_cast<float*>(
+      ring_ptr + (kStages - 1) * kStageBytes + kStageAux);
+  {
+    const __nv_bfloat16* op = o + b * os.b + h * os.h;
+    const __nv_bfloat16* dop = dout + b * dos.b + h * dos.h;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = tid + 128 * j, r = i >> 3, part = i & 7, row = m0 + r;
+      float acc = 0.f;
+      if (row < S) {
+        const uint4 ov =
+            *reinterpret_cast<const uint4*>(op + row * os.s + part * 8);
+        const uint4 dv =
+            *reinterpret_cast<const uint4*>(dop + row * dos.s + part * 8);
+        const __nv_bfloat16* oe = reinterpret_cast<const __nv_bfloat16*>(&ov);
+        const __nv_bfloat16* de = reinterpret_cast<const __nv_bfloat16*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc = fmaf(cxr::to_f32(oe[e]), cxr::to_f32(de[e]), acc);
+      }
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (part == 0) {
+        sDelta[r] = acc;
+        if (row < S) delta[static_cast<long long>(bh) * S + row] = acc;
+      }
+    }
+  }
+  cxr::cp_async_wait<kStages - 1>();
   __syncthreads();
   uint32_t qf[4][4], df[4][4];
-  cxr::load_a(sK, wr, g, t, qf);
-  cxr::load_a(sV, wr, g, t, df);
+  cxr::load_a_swizzled(own, wr, lane, qf);
+  cxr::load_a_swizzled(own + cxr::kTileBytes, wr, lane, df);
 
   const int row0 = m0 + wr + g;
   float l2[2], dl[2];
   uint32_t dbase[2];  // dropout counters of the two rows
+  int seg_row[2] = {0, 0};  // ids of the two rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     const long long idx = static_cast<long long>(bh) * S + row;
-    l2[r] = row < S ? lse[idx] * kLog2e : INFINITY;
-    dl[r] = row < S ? delta[idx] : 0.f;
+    l2[r] = row < S ? lse[idx] * kLog2e : INFINITY;  // pad rows: P = 0
+    dl[r] = sDelta[wr + g + 8 * r];                  // pad rows: 0
     dbase[r] = kDropout ? cxr::drop_row(drop, bh, row) : 0u;
+    if (kSegment) seg_row[r] = row < S ? segp[row] : cxr::kNoSegment;
   }
   float dqa[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
     dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-  int seg_row[2] = {0, 0}, seg_lo = 0, seg_hi = 0;  // ids of the two rows
-  if (kSegment) {
-    cxr::load_block_ids(segp, m0, S, sSeg, sRange);
-    seg_row[0] = sSeg[wr + g];
-    seg_row[1] = sSeg[wr + g + 8];
-    seg_lo = sRange[0];
-    seg_hi = sRange[1];
-  }
+  cxr::acc_fence(dqa);
 
-  for (int n0 = 0; n0 < S; n0 += kTile) {
-    __syncthreads();
-    if (kSegment && !cxr::load_tile_ids(segp, n0, S, seg_lo, seg_hi, sSeg))
-      continue;
-    load_tile(kp, ks.s, n0, S, sK, sKt);
-    load_tile(vp, vs.s, n0, S, sV, nullptr);
-    __syncthreads();
+  int cs = 0;  // the stage of fifo[0]
+  while (fifo[0] >= 0) {
+    cxr::cp_async_wait<kStages - 2>();
+    __syncthreads();  // as in the dK/dV pass
+    fifo[kStages - 1] = walk.next();
+    if (fifo[kStages - 1] >= 0)
+      fetch(cs == 0 ? kStages - 1 : cs - 1, fifo[kStages - 1]);
+    cxr::cp_async_commit();
 
-    // S = Q K^T and dP = dO V^T: 16 queries x 64 keys
-    float sp[8][4], dp[8][4];
+    const int n0 = fifo[0] * kTile, krows = min(kTile, S - n0);
+    const uint32_t sk = ring + cs * kStageBytes, sv = sk + cxr::kTileBytes;
+    const int* sI = reinterpret_cast<const int*>(
+        ring_ptr + cs * kStageBytes + kStageAux + 512);
+
+    {
+      // S = Q K^T and dP = dO V^T: 16 queries x 64 keys per warp
+      float sp[8][4], dp[8][4];
+      cxr::wgmma_fence();
+      cxr::tile_mma_rs<false>(sp, qf, sk);
+      cxr::wgmma_commit();
+      cxr::tile_mma_rs<false>(dp, df, sv);
+      cxr::wgmma_commit();
+      cxr::wgmma_wait<1>(sp);
+
+      // P rounded to bf16 (pad keys 0), two to a register
+      uint32_t pp[4][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < 8; ++n) {
+        const int kc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
+        if (n * 8 >= krows) {  // block-uniform: sub-tiles of pad keys
+          pp[kk][hi] = pp[kk][hi + 1] = 0u;
+          continue;
+        }
+        int id[2] = {0, 0};
+        if (kSegment) {
+          const int2 i2 = *reinterpret_cast<const int2*>(sI + kc);
+          id[0] = i2.x;
+          id[1] = i2.y;
+        }
+        float pe[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sp[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        cxr::load_b(sK, n * 8, kk * 16, g, t, b0, b1);
-        cxr::mma_16816(sp[n], qf[kk], b0, b1);
-        cxr::load_b(sV, n * 8, kk * 16, g, t, b0, b1);
-        cxr::mma_16816(dp[n], df[kk], b0, b1);
+        for (int e = 0; e < 4; ++e) {
+          const int j = e & 1, r = e >> 1;
+          bool ok = kc + j < krows;
+          if (kSegment) ok = ok && id[j] == seg_row[r];
+          pe[e] = ok ? exp2f(sp[n][e] * scale_log2 - l2[r]) : 0.f;
+        }
+        pp[kk][hi] = cxr::pack_bf16x2(pe[0], pe[1]);
+        pp[kk][hi + 1] = cxr::pack_bf16x2(pe[2], pe[3]);
       }
-      // P (bf16, pad keys 0), then dS = P * (M * dP / (1 - rate) - Delta)
+      cxr::wgmma_wait<0>(dp);
+
+      // dS = P * (M * dP / (1 - rate) - Delta), rounded to bf16
+      uint32_t dsf[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kc = n * 8 + 2 * t + (e & 1), key = n0 + kc;
-        bool key_ok = key < S;
-        if (kSegment) key_ok = key_ok && sSeg[kc] == seg_row[e >> 1];
-        const float p = key_ok
-            ? cxr::round_bf16(exp2f(sp[n][e] * scale_log2 - l2[e >> 1])) : 0.f;
-        float dpe = dp[n][e];
-        if (kDropout)
-          dpe = cxr::kept(drop, dbase[e >> 1], key) ? dpe * drop.inv_keep : 0.f;
-        dp[n][e] = p * (dpe - dl[e >> 1]);
+      for (int n = 0; n < 8; ++n) {
+        const int kc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
+        if (n * 8 >= krows) {
+          dsf[kk][hi] = dsf[kk][hi + 1] = 0u;
+          continue;
+        }
+        float de[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e & 1, r = e >> 1;
+          const uint32_t w = pp[kk][hi + r];
+          const float p = j ? bf16_hi(w) : bf16_lo(w);
+          float dpe = dp[n][e];
+          if (kDropout)
+            dpe = cxr::kept(drop, dbase[r], n0 + kc + j) ? dpe * drop.inv_keep
+                                                         : 0.f;
+          de[e] = p * (dpe - dl[r]);
+        }
+        dsf[kk][hi] = cxr::pack_bf16x2(de[0], de[1]);
+        dsf[kk][hi + 1] = cxr::pack_bf16x2(de[2], de[3]);
       }
+      // dQ += dS K
+      cxr::wgmma_fence(dsf);
+      cxr::tile_mma_rs<true>(dqa, dsf, sk, krows);
+      cxr::wgmma_commit();
+      cxr::wgmma_wait<0>(dqa);  // the stage is free once this is done
     }
-    uint32_t dsf[4][4];
-    cxr::acc_to_a(dp, dsf);
-    // dQ += dS K
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        cxr::load_b(sKt, n * 8, kk * 16, g, t, b0, b1);
-        cxr::mma_16816(dqa[n], dsf[kk], b0, b1);
-      }
+    for (int d = 0; d < kStages - 1; ++d) fifo[d] = fifo[d + 1];
+    cs = cs + 1 == kStages ? 0 : cs + 1;
   }
+  cxr::cp_async_wait<0>();  // copies never outlive the block
 
   __nv_bfloat16* dqp = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
@@ -617,32 +858,40 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   for (int i = 0; i < 8; ++i)
     st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const long long rows = static_cast<long long>(batch) * heads * seq;
-  const int lanes = dtype == 1 ? 8 : 16;
-  const unsigned delta_blocks =
-      static_cast<unsigned>((rows * lanes + 255) / 256);
   const dim3 grid((seq + kTile - 1) / kTile, batch * heads);
   const float scale_log2 = scale * kLog2e;
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == 1) {
     using bf = __nv_bfloat16;
-    attn_bwd_delta<bf><<<delta_blocks, 256, 0, cs>>>(
-        static_cast<const bf*>(o), static_cast<const bf*>(dout), dl, heads,
-        seq, rows, st[3], st[4]);
+    // more dynamic shared memory than the default limit: opt in (per device,
+    // so on every call); a launch that asks for more than that is refused
+    auto dkdv = attn_bwd_dkdv_bf16<kDropout, kSegment>;
+    auto dqk = attn_bwd_dq_bf16<kDropout, kSegment>;
+    if ((err = cudaFuncSetAttribute(
+             dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             kDkdvSmemBytes)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes)) !=
+            cudaSuccess)
+      return static_cast<int>(err);
+    // the dQ pass first: it also writes Delta, which the dK/dV pass reads
+    dqk<<<grid, 128, kSmemBytes, cs>>>(
+        static_cast<const bf*>(q), static_cast<const bf*>(k),
+        static_cast<const bf*>(v), static_cast<const bf*>(o),
+        static_cast<const bf*>(dout), l, dl, static_cast<bf*>(dq), heads, seq,
+        st[0], st[1], st[2], st[3], st[4], st[5], scale, scale_log2, drop,
+        seg);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dkdv_bf16<kDropout, kSegment><<<grid, 128, 0, cs>>>(
+    dkdv<<<grid, 128, kDkdvSmemBytes, cs>>>(
         static_cast<const bf*>(q), static_cast<const bf*>(k),
         static_cast<const bf*>(v), static_cast<const bf*>(dout), l, dl,
         static_cast<bf*>(dk), static_cast<bf*>(dv), heads, seq, st[0],
         st[1], st[2], st[4], st[6], st[7], scale, scale_log2, drop, seg);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dq_bf16<kDropout, kSegment><<<grid, 128, 0, cs>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k),
-        static_cast<const bf*>(v), static_cast<const bf*>(dout), l, dl,
-        static_cast<bf*>(dq), heads, seq, st[0], st[1], st[2], st[4], st[5],
-        scale, scale_log2, drop, seg);
   } else {
+    const long long rows = static_cast<long long>(batch) * heads * seq;
+    const unsigned delta_blocks =
+        static_cast<unsigned>((rows * 16 + 255) / 256);  // 16 lanes a row
     attn_bwd_delta<float><<<delta_blocks, 256, 0, cs>>>(
         static_cast<const float*>(o), static_cast<const float*>(dout), dl,
         heads, seq, rows, st[3], st[4]);

@@ -1,6 +1,8 @@
 // Helpers shared by the kernels in this directory: strided [B, H, S, d]
 // addressing, bf16 packing, the m16n8k16 tensor-core product, warp sums,
-// the dropout hash and the segment ids of packed sequences.
+// the dropout hash, the segment ids of packed sequences, and the Hopper
+// tile machinery of the attention backward (cp.async into 128-byte
+// swizzled tiles, ldmatrix, wgmma with B read through a descriptor).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -186,6 +188,229 @@ __device__ __forceinline__ void acc_to_a(const float (&c)[8][4],
     a[kk][hi] = pack_bf16x2(c[n][0], c[n][1]);
     a[kk][hi + 1] = pack_bf16x2(c[n][2], c[n][3]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// 64 x 64 bf16 tiles in shared memory under the 128-byte swizzle, filled by
+// cp.async and multiplied by wgmma. A tile is 64 rows of 128 bytes at a
+// 1024-byte aligned shared address; the 16-byte chunk c of row r lies at
+// chunk c ^ (r & 7), which is the layout a wgmma descriptor with the
+// 128-byte swizzle reads and which ldmatrix reads without bank conflicts.
+// Shared addresses are the 32-bit ones of the shared window.
+// ---------------------------------------------------------------------------
+
+constexpr int kTileRows = 64;
+constexpr int kTileBytes = kTileRows * 128;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// 16 or 4 bytes from global to shared memory without passing registers;
+// with ``valid`` false nothing is read and zeros are written.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most kPending of this thread's committed groups are in
+// flight, and makes what arrived visible to wgmma's reads (the async proxy).
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Starts the copies of the 64 x 64 tile whose first row is r0 of the strided
+// [S, 64] operand ``src`` (rows at or past S as zeros) into the swizzled
+// tile at ``dst``: four 16-byte copies per thread of a 128-thread block.
+__device__ __forceinline__ void copy_tile_async(uint32_t dst,
+                                                const __nv_bfloat16* src,
+                                                long long stride, int r0,
+                                                int S) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int i = threadIdx.x + 128 * j, r = i >> 3, c = i & 7;
+    const bool valid = r0 + r < S;
+    cp_async_16(dst + swizzled(r, c),
+                src + (valid ? r0 + r : 0) * stride + c * 8, valid);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
+                                            uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// The A fragments (mma_16816's, which are also wgmma's per-warp A
+// fragments) of rows [r0, r0 + 16) x 64 columns of a swizzled tile.
+__device__ __forceinline__ void load_a_swizzled(uint32_t tile, int r0,
+                                                int lane, uint32_t (&a)[4][4]) {
+  const int i = lane >> 3, row = r0 + (lane & 7) + (i & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    ldmatrix_x4(tile + swizzled(row, kk * 2 + (i >> 1)), a[kk][0], a[kk][1],
+                a[kk][2], a[kk][3]);
+}
+
+// wgmma's shared-memory descriptor of a swizzled tile: start address,
+// leading and stride byte offsets in 16-byte units, and the 128-byte swizzle
+// mode in bits 62-63. K-major (rows are m or n, the 128 bytes run along k;
+// the form of an A operand and of a plain B): groups of 8 rows are 1024
+// bytes apart (stride offset), the leading offset is not used, and k-step
+// kk starts 32 kk bytes further. MN-major (rows are k, the 128 bytes are
+// the 64 values of n; the transposed-B form): groups of 8 k-rows are 1024
+// bytes apart (stride offset), the leading offset would step to a second
+// 64-wide n block, and k-step kk starts 2048 kk bytes further.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// Orders the register and shared-memory accesses of the wgmma that follow
+// after everything before; the operands named here were written by ordinary
+// instructions, which the compiler must not move below the fence.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  wgmma_fence();
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// The compiler keeps every ordinary read and write of ``acc`` on its side
+// of this point: after a wait, before the fence of an accumulator that
+// ordinary instructions have set.
+__device__ __forceinline__ void acc_fence(float (&acc)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[n][e])::"memory");
+}
+// Waits until at most kPending committed groups are in flight; ``acc`` is
+// an accumulator of a group that has then finished.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait(float (&acc)[8][4]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+  acc_fence(acc);
+}
+
+// The 32 accumulator registers of a thread as asm operands %0 ... %31.
+#define CXR_WGMMA_ACC(d)                                              \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),         \
+      "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),     \
+      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),     \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),     \
+      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),     \
+      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),     \
+      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),     \
+      "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+#define CXR_WGMMA_M64N64K16                                            \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31}, "
+
+// One asynchronous m64n64k16 step of a warpgroup: D (+)= A B with this
+// warp's 16 x 16 A fragment in registers (mma_16816's layout), B a 16-deep
+// slice of a swizzled tile through its descriptor (kTransB: MN-major), D the
+// warp's 16 x 64 accumulator in mma_16816's layout, d[n] being columns
+// [8n, 8n + 8). ``accumulate`` 0 overwrites D.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n" CXR_WGMMA_M64N64K16
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : CXR_WGMMA_ACC(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(kTransB));
+}
+
+// The same step with A read from shared memory too, both operands K-major
+// swizzled tiles (rows are m or n, the 128 bytes run along k).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[8][4],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n" CXR_WGMMA_M64N64K16
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : CXR_WGMMA_ACC(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+#undef CXR_WGMMA_ACC
+#undef CXR_WGMMA_M64N64K16
+
+// The 64 x 64 x 64 products of a warpgroup on swizzled tiles, four 16-deep
+// steps each, asynchronous: the caller fences before, commits after and
+// waits before it reads ``acc``.
+//
+// tile_mma_ss: acc = A B^T, both operands tiles in shared memory; A's rows
+// are the product's 64 rows, B's rows its 64 columns (S^T = K Q^T).
+__device__ __forceinline__ void tile_mma_ss(float (&acc)[8][4], uint32_t a_tile,
+                                            uint32_t b_tile) {
+  const uint64_t da = wgmma_desc(a_tile), db = wgmma_desc(b_tile);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16_ss(acc, da + 2 * kk, db + 2 * kk, kk == 0 ? 0 : 1);
+}
+
+// tile_mma_rs: A is 64 x 64 with this warp's 16 rows as fragments ``a``, B
+// one tile. kTransB false: acc = A tile^T, the tile's rows are the
+// product's columns (S = Q K^T with the K tile). kTransB true:
+// acc += A tile, the tile's rows are the k index (dQ += dS K); ``rows``
+// (block-uniform) is the number of leading tile rows that hold data, below
+// 64 only in the ragged last tile of a sequence, and only the 16-deep steps
+// that reach them run.
+template <bool kTransB>
+__device__ __forceinline__ void tile_mma_rs(float (&acc)[8][4],
+                                            const uint32_t (&a)[4][4],
+                                            uint32_t tile,
+                                            int rows = kTileRows) {
+  const uint64_t desc = wgmma_desc(tile);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    if (!kTransB || kk * 16 < rows)
+      wgmma_m64n64k16<kTransB ? 1 : 0>(
+          acc, a[kk], desc + ((kTransB ? kk * 2048 : kk * 32) >> 4),
+          kTransB || kk > 0 ? 1 : 0);
 }
 
 }  // namespace cxr

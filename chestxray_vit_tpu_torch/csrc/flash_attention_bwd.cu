@@ -6,7 +6,8 @@
 // `_bwd_kernel` (launched by `_bwd`; entry point cxr_attention_bwd) and
 // `_bwd_kernel_drop` (launched by `_bwd_drop`; entry point
 // cxr_attention_bwd_dropout, the same kernels with kDropout). What bounds
-// them on an H100 is tensor-core throughput: see attention_bwd.cuh.
+// them on an H100 is tensor-core throughput; attention_bwd.cuh says how the
+// bf16 passes feed the tensor cores (cp.async ring, swizzled tiles, wgmma).
 
 #include "attention_bwd.cuh"
 

@@ -7,15 +7,17 @@
 // launched by `_bwd_seg`). Those hold a Q block and the whole padded K/V
 // row in VMEM, add the -1e6 segment bias to the scores so that
 // cross-segment P underflows to 0, and accumulate dK/dV across the
-// sequential Q-block grid. Here the three passes of attention_bwd.cuh run
-// with kSegment: each recomputes P only where the query's and the key's
-// ids are equal (0 elsewhere, so masked pairs add nothing to any gradient)
-// and skips a 64-row tile of the operand it walks when none of the tile's
-// ids lies within the range of the block's own ids, by a test of the ids
-// and not of positions: after a token merge the ids interleave. The ids
-// are int32 [B, S], read in place once for all heads. With kDropout the
-// mask is regenerated with the segment kernels' strides (q_pad = s_pad =
-// the sequence padded to the TPU wrapper's Q block).
+// sequential Q-block grid. Here the passes of attention_bwd.cuh run with
+// kSegment: each recomputes P only where the query's and the key's ids are
+// equal (0 elsewhere, so masked pairs add nothing to any gradient) and
+// skips a 64-row tile of the operand it walks when none of the tile's ids
+// lies within the range of the block's own ids, by a test of the ids and
+// not of positions: after a token merge the ids interleave. The bf16 passes
+// find the tiles to visit 32 at a time from the ids in device memory, every
+// warp alike, before any copy of a tile is issued. The ids are int32
+// [B, S], read in place once for all heads. With kDropout the mask is
+// regenerated with the segment kernels' strides (q_pad = s_pad = the
+// sequence padded to the TPU wrapper's Q block).
 //
 // What bounds them on an H100: tensor-core throughput over the
 // same-segment tiles only (see attention_bwd.cuh).

@@ -1,0 +1,73 @@
+// A 64 x 64 x 64 product through the tile helpers of common.cuh alone, for
+// the card test that holds them against torch.matmul before any attention
+// kernel is trusted with them: cp.async into swizzled tiles, A fragments by
+// ldmatrix or through a descriptor, B through a wgmma descriptor in both
+// orientations. A wrong
+// descriptor gives plausible numbers, not a fault, so it is tested apart.
+// It replaces no TPU kernel and runs on no path of the port.
+
+#include "common.cuh"
+
+namespace {
+
+// a: [64, 64] bf16 row-major. b: [64, 64] bf16 row-major, of which only the
+// first ``rows`` rows are read (the rest count as zeros). c: [64, 64] f32.
+// mode 0: c = a b^T, a as register fragments (b's rows are the product's
+// columns, K-major). mode 1: c = a b (b's rows are the k index, MN-major).
+// mode 2: c = a b^T with a read from shared memory through a descriptor.
+__global__ void __launch_bounds__(128)
+tile_mma_selftest(const __nv_bfloat16* __restrict__ a,
+                  const __nv_bfloat16* __restrict__ b, float* __restrict__ c,
+                  int mode, int rows) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = cxr::smem_addr(smem_raw);
+  const uint32_t ta = (raw + 1023u) & ~1023u, tb = ta + cxr::kTileBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  cxr::copy_tile_async(ta, a, 64, 0, 64);
+  cxr::copy_tile_async(tb, b, 64, 0, rows);
+  cxr::cp_async_commit();
+  cxr::cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t af[4][4];
+  cxr::load_a_swizzled(ta, warp * 16, lane, af);
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  cxr::acc_fence(acc);
+  cxr::wgmma_fence(af);
+  if (mode == 1)
+    cxr::tile_mma_rs<true>(acc, af, tb, rows);
+  else if (mode == 0)
+    cxr::tile_mma_rs<false>(acc, af, tb);
+  else
+    cxr::tile_mma_ss(acc, ta, tb);
+  cxr::wgmma_commit();
+  cxr::wgmma_wait<0>(acc);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      c[(warp * 16 + g + 8 * (e >> 1)) * 64 + n * 8 + 2 * t + (e & 1)] =
+          acc[n][e];
+}
+
+}  // namespace
+
+extern "C" int cxr_tile_mma_selftest(const void* a, const void* b, void* c,
+                                     int mode, int rows, int device,
+                                     void* stream) {
+  if (rows < 1 || rows > 64 || mode < 0 || mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tile_mma_selftest<<<1, 128, 2 * cxr::kTileBytes + 1024,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<float*>(c), mode,
+      rows);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -73,6 +73,7 @@ _SIGNATURES = {
                            _I, _I, _I, _P],
     "cxr_int8_matmul_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _P],
+    "cxr_tile_mma_selftest": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -214,6 +214,18 @@ NOISE_STD = 1e-6
 INT8_PROB_TOL, INT8_MIN_CORR = 0.1, 0.995
 
 
+# Sequence lengths at which the dense backward kernels are held against
+# their plain versions beside the training lengths: the edges of their
+# 64-row tiles, a tail of one row, and more tiles than the copy ring has
+# stages (checked, not timed).
+EDGE_LENGTHS = (64, 128, 129, 576, 1025)
+# The two dense backward kernels before their redesign (mma.sync from
+# scalar shared-memory loads, synchronous tile loads, transposed copies), at
+# [36, 12, 577, 64] bf16 on an NVIDIA H100 80GB HBM3 at 700.00 W.
+EARLIER_BWD_MS = {"flash_attention_bwd": 1.7810,
+                  "flash_attention_dropout_bwd": 1.9064}
+
+
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -248,6 +260,26 @@ def time_pair(kernel, plain, plain_reps: int = 7,
     k1, k2 = time_ms(kernel), time_ms(kernel)
     p2 = time_ms(plain, plain_reps, plain_inner)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def backward_pass_ms(fn, calls: int = 10) -> dict:
+    """``dkdv_ms`` and ``dq_ms``: mean device milliseconds per call of an
+    attention backward's dK/dV kernel and dQ kernel (``delta_ms``: its
+    pre-pass), from a ``torch.profiler`` trace of ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"delta_ms": 0.0, "dkdv_ms": 0.0, "dq_ms": 0.0}
+    for ev in prof.key_averages():
+        for part in ("delta", "dkdv", "dq"):
+            if f"attn_bwd_{part}" in ev.key:
+                out[f"{part}_ms"] += ev.device_time_total / 1e3 / calls
+    return out
 
 
 def bound(nbytes: float, flops: float, dtype, core_ops: float = 0.0,
@@ -546,7 +578,8 @@ def check_training_attention(randn, summary: dict) -> None:
     versions, at the training batch."""
     from chestxray_vit_tpu_torch.ops import flash_attention as fa
 
-    for s in (577, 512, 37):
+    for s in (577, 512, 37) + EDGE_LENGTHS:
+        timed = s not in EDGE_LENGTHS      # the edge lengths are checked only
         for dtype in (torch.bfloat16, torch.float32):
             shape = (TRAIN_BATCH, 12, s, 64)
             # q, k, v as the projections leave them: [B, H, S, d] views
@@ -560,14 +593,15 @@ def check_training_attention(randn, summary: dict) -> None:
             torch.cuda.synchronize()
             err_o = (o.float() - ro.float()).abs().max().item()
             err_lse = (lse - rlse).abs().max().item()
-            ms, plain_ms = time_pair(
-                lambda: fa.flash_attention_fwd(q, k, v),
-                lambda: fa.attention_fwd_reference(q, k, v))
+            del ro, rlse
             rec = {"phase": "kernel_check", "kernel": "attention_fwd",
                    "shape": list(shape), "dtype": str(dtype),
                    "max_abs_err": err_o, "lse_max_abs_err": err_lse,
-                   "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                   **attention_bound(shape, dtype, lse=True)}
+                   "tol": tol, **attention_bound(shape, dtype, lse=True)}
+            if timed:
+                rec["ms"], rec["plain_ms"] = time_pair(
+                    lambda: fa.flash_attention_fwd(q, k, v),
+                    lambda: fa.attention_fwd_reference(q, k, v))
             summary_row = s == 577 and dtype == torch.bfloat16
             if summary_row:
                 rec["library_ms"], lib_bwd_ms = library_attention(q, k, v, do)
@@ -580,25 +614,34 @@ def check_training_attention(randn, summary: dict) -> None:
             refs = fa.attention_bwd_reference(q, k, v, o, lse, do)
             torch.cuda.synchronize()
             errs = [rel_err(g, r) for g, r in zip(grads, refs)]
-            ms_b, plain_ms_b = time_pair(
-                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
-                lambda: fa.attention_bwd_reference(q, k, v, o, lse, do))
             rec_b = {"phase": "kernel_check", "kernel": "attention_bwd",
                      "shape": list(shape), "dtype": str(dtype),
                      "dq_dk_dv_rel_err": errs,
                      "max_abs_err": max((g.float() - r.float()).abs().max()
                                         .item() for g, r in zip(grads, refs)),
-                     "rel_tol": ATTN_GRAD_TOL[dtype], "ms": ms_b,
-                     "plain_ms": plain_ms_b,
+                     "rel_tol": ATTN_GRAD_TOL[dtype],
                      **attention_bound(shape, dtype, backward=True)}
+            finite = all(bool(torch.isfinite(g).all()) for g in grads)
+            del refs
+            if timed:
+                rec_b["ms"], rec_b["plain_ms"] = time_pair(
+                    lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                    lambda: fa.attention_bwd_reference(q, k, v, o, lse, do))
             if summary_row:
+                again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+                rec_b["equal_twice"] = all(torch.equal(a, b)
+                                           for a, b in zip(grads, again))
+                rec_b.update(backward_pass_ms(
+                    lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)))
+                rec_b["earlier_ms"] = EARLIER_BWD_MS["flash_attention_bwd"]
                 rec_b["library_ms"] = lib_bwd_ms
                 summary["flash_attention_fwd"] = rec
                 summary["flash_attention_bwd"] = rec_b
             emit(rec_b)
-            require(all(bool(torch.isfinite(g).all()) for g in grads)
-                    and max(errs) <= ATTN_GRAD_TOL[dtype],
+            require(finite and max(errs) <= ATTN_GRAD_TOL[dtype],
                     f"attention bwd S={s} {dtype}: {errs}")
+            require(rec_b.get("equal_twice", True),
+                    "attention bwd: two calls give the same bits")
 
 
 def check_layer_norm_bwd(randn, summary: dict) -> None:
@@ -665,6 +708,41 @@ def check_dropout_attention(randn, summary: dict) -> None:
     ``dropout_p = 0.1`` (the same work on another mask stream)."""
     from chestxray_vit_tpu_torch.ops import flash_attention as fa
 
+    for s in EDGE_LENGTHS:                 # checked, not timed
+        kw = {"block_q": fa.auto_block_q(s)}
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = (TRAIN_BATCH, 12, s, 64)
+            x = randn((TRAIN_BATCH, s, 3, 12, 64), dtype)
+            q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+            do = randn(shape, dtype)
+            o, lse = fa.flash_attention_dropout_fwd(q, k, v, DROP_SEED,
+                                                    DROP_RATE, **kw)
+            ro, rlse = fa.attention_dropout_fwd_reference(
+                q, k, v, DROP_SEED, DROP_RATE, **kw)
+            err_o = (o.float() - ro.float()).abs().max().item()
+            err_lse = (lse - rlse).abs().max().item()
+            del ro, rlse
+            grads = fa.flash_attention_dropout_bwd(q, k, v, o, lse, do,
+                                                   DROP_SEED, DROP_RATE, **kw)
+            refs = fa.attention_dropout_bwd_reference(
+                q, k, v, o, lse, do, DROP_SEED, DROP_RATE, **kw)
+            torch.cuda.synchronize()
+            errs = [rel_err(g, r) for g, r in zip(grads, refs)]
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in (o, lse, *grads))
+            del grads, refs
+            emit({"phase": "kernel_check", "kernel": "attention_dropout_bwd",
+                  "shape": list(shape), "dtype": str(dtype),
+                  "rate": DROP_RATE, "fwd_max_abs_err": err_o,
+                  "lse_max_abs_err": err_lse, "tol": ATTN_TOL[dtype],
+                  "dq_dk_dv_rel_err": errs,
+                  "rel_tol": ATTN_GRAD_TOL[dtype]})
+            require(finite and err_o <= ATTN_TOL[dtype]
+                    and err_lse <= ATTN_TOL[dtype]
+                    and max(errs) <= ATTN_GRAD_TOL[dtype],
+                    f"dropout fwd/bwd S={s} {dtype}: o {err_o}, lse "
+                    f"{err_lse}, grads {errs}")
+
     s = 577
     block_q = fa.auto_block_q(s)
     q_pad, s_pad = fa.mask_strides(s, block_q)
@@ -722,7 +800,10 @@ def check_dropout_attention(randn, summary: dict) -> None:
                     for g, r in zip(grads, refs))
         finite = all(bool(torch.isfinite(t).all())
                      for t in (o, lse, *grads))
-        del grads, refs
+        again = fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, *args,
+                                               **kw)
+        equal_twice = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del grads, refs, again
         ms_b, plain_ms_b = time_pair(
             lambda: fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, *args,
                                                    **kw),
@@ -740,6 +821,11 @@ def check_dropout_attention(randn, summary: dict) -> None:
             lib_fwd, lib_bwd = library_attention(q, k, v, do, DROP_RATE)
             rec_d["library_ms"] = rec["library_ms"] = lib_fwd
             rec_b["library_ms"] = lib_bwd
+            rec_b["equal_twice"] = equal_twice
+            rec_b.update(backward_pass_ms(
+                lambda: fa.flash_attention_dropout_bwd(q, k, v, o, lse, do,
+                                                       *args, **kw)))
+            rec_b["earlier_ms"] = EARLIER_BWD_MS["flash_attention_dropout_bwd"]
             summary["flash_attention_dropout_debug"] = rec_d
             summary["flash_attention_dropout_fwd"] = rec
             summary["flash_attention_dropout_bwd"] = rec_b
@@ -754,6 +840,8 @@ def check_dropout_attention(randn, summary: dict) -> None:
                 f"dropout fwd {dtype}: o {err_o}, lse {err_lse}")
         require(max(errs) <= ATTN_GRAD_TOL[dtype],
                 f"dropout bwd {dtype}: {errs}")
+        require(equal_twice, f"dropout bwd {dtype}: two calls give the same "
+                             f"bits")
 
 
 def library_packed_attention(q, k, v, seg, do, rate=0.0) -> tuple:

@@ -7,10 +7,13 @@ machine with a card and nvcc:
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
+from chestxray_vit_tpu_torch import kernels
 from chestxray_vit_tpu_torch.config import Config, ModelConfig, TrainConfig
 from chestxray_vit_tpu_torch.models import bridge, quantized, vit
 from chestxray_vit_tpu_torch.ops import flash_attention as fa
@@ -166,7 +169,30 @@ def _heads_views(b, s, dtype, dev, seed=0):
     return [t.transpose(1, 2) for t in x.unbind(2)]
 
 
-@pytest.mark.parametrize("s", [37, 64, 65, 577])
+# tile edges of the 64-row tiles, a tail of one row, the training length,
+# more tiles than the ring has stages
+_BWD_LENGTHS = [1, 16, 37, 63, 64, 65, 127, 128, 129, 576, 577, 640, 1025]
+
+
+def _assert_grads_close(grads, refs, dtype, s):
+    """Each gradient within _GRAD_TOL of its plain version, relative to the
+    plain version's largest magnitude. At S = 1 the softmax is the constant
+    1, so dQ and dK are zero up to rounding and no scale of their own: the
+    three are then measured against the largest of the three."""
+    scale = max(r.float().abs().max().item() for r in refs)
+    for g, r in zip(grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape
+        # [B, H, S, d] views of a [B, S, H, d] buffer
+        assert g.transpose(1, 2).is_contiguous()
+        assert torch.isfinite(g).all()
+        if s == 1:
+            err = (g.float() - r.float()).abs().max().item() / scale
+        else:
+            err = _rel(g, r)
+        assert err <= _GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("s", _BWD_LENGTHS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_fwd_bwd_kernels_match_plain(dev, s, dtype):
     q, k, v = _heads_views(2, s, dtype, dev)
@@ -183,11 +209,99 @@ def test_attention_fwd_bwd_kernels_match_plain(dev, s, dtype):
     torch.testing.assert_close(o.float(), ro.float(), atol=_ATTN_TOL[dtype],
                                rtol=0)
     torch.testing.assert_close(lse, rlse, atol=_ATTN_TOL[dtype], rtol=0)
-    for g, r in zip(grads, fa.attention_bwd_reference(q, k, v, o, lse, do)):
-        assert g.dtype == dtype and g.shape == q.shape
-        # [B, H, S, d] views of a [B, S, H, d] buffer
-        assert g.transpose(1, 2).is_contiguous()
-        assert _rel(g, r) <= _GRAD_TOL[dtype]
+    _assert_grads_close(grads, fa.attention_bwd_reference(q, k, v, o, lse,
+                                                          do), dtype, s)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("rows", [64, 48, 17, 1])
+def test_tile_helpers_multiply_like_matmul(dev, mode, rows):
+    """The backward's tile machinery alone (cp.async into 128-byte swizzled
+    tiles, B through a wgmma descriptor): a known 64 x 64 A times a known B,
+    B whole and with only its first rows present, against torch.matmul in
+    f32. Mode 0: A Bᵀ, A as ldmatrix fragments, B K-major; mode 1: A B, B in
+    the transposed (MN-major) form, only the k-steps that reach a row of B;
+    mode 2: A Bᵀ with A through a descriptor too. bf16 products are exact in
+    f32 and 64 of them sum to within a few f32 ulps of O(10)."""
+    a = _randn((64, 64), torch.bfloat16, dev, seed=1)
+    b = _randn((64, 64), torch.bfloat16, dev, seed=2)
+    c = torch.full((64, 64), float("nan"), device=dev)
+    kernels.check(kernels.library().cxr_tile_mma_selftest(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), mode, rows, dev.index or 0,
+        torch.cuda.current_stream().cuda_stream), "tile_mma_selftest")
+    torch.cuda.synchronize()
+    bz = b.float()
+    bz[rows:] = 0
+    ref = a.float() @ (bz if mode == 1 else bz.t())
+    torch.testing.assert_close(c, ref, atol=1e-4, rtol=0)
+
+
+def _bwd_into(bufs, s, dtype, dropout=None):
+    """The dense backward entry point on the first ``s`` rows of operands
+    and outputs that are [B, H, S_buf, 64] views of larger buffers."""
+    q, k, v, o, do, dq, dk, dv = bufs
+    b, h = q.shape[:2]
+    lse = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = [st for t in bufs for st in t.stride()[:3]]
+    strides_c = (ctypes.c_longlong * len(strides))(*strides)
+    args = (*(t.data_ptr() for t in (q, k, v, o, do)), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, s, 64, ctypes.addressof(strides_c), 0.125)
+    tail = ({torch.float32: 0, torch.bfloat16: 1}[dtype], q.device.index,
+            torch.cuda.current_stream().cuda_stream)
+    lib = kernels.library()
+    if dropout is None:
+        err = lib.cxr_attention_bwd(*args, *tail)
+    else:
+        err = lib.cxr_attention_bwd_dropout(*args, *dropout, *tail)
+    kernels.check(err, "attention_bwd")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 129])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_bwd_passes_leave_rows_past_s_untouched(dev, s, dtype,
+                                                          rate):
+    """dQ (the dQ pass), dK and dV (the dK/dV pass) of the first S rows of
+    buffers 192 rows long: every row at or past S keeps its sentinel, every
+    row below S is written, and rows past S of the inputs are never part of
+    the result (NaN there would spread)."""
+    s_buf = 192
+    bufs = [_randn((2, s_buf, 3, 64), dtype, dev, seed=i).transpose(1, 2)
+            for i in range(5)]
+    for t in bufs:
+        t[:, :, s:] = float("nan")
+    sentinel = 12345.0
+    outs = [torch.full((2, s_buf, 3, 64), sentinel, dtype=dtype, device=dev
+                       ).transpose(1, 2) for _ in range(3)]
+    dropout = None
+    if rate:
+        dropout = (*fa.dropout_constants(-123456789, rate),
+                   *fa.mask_strides(s, fa.auto_block_q(s)), 1.0 / (1.0 - rate))
+    _bwd_into([*bufs, *outs], s, dtype, dropout)
+    for g in outs:
+        assert (g[:, :, s:] == sentinel).all()
+        assert torch.isfinite(g[:, :, :s]).all()
+        assert (g[:, :, :s] != sentinel).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_bwd_reads_a_strided_upstream_gradient(dev, dtype):
+    """dO as a [B, H, S, d] view of a [B, S, H, d] tensor (what the output
+    projection's backward hands over) is read in place and gives what its
+    contiguous copy gives, bit for bit."""
+    q, k, v = _heads_views(2, 577, dtype, dev)
+    do = _randn((2, 577, 12, 64), dtype, dev, seed=5).transpose(1, 2)
+    assert not do.is_contiguous()
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    a = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    b = fa.flash_attention_bwd(q, k, v, o, lse, do.contiguous())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    _assert_grads_close(a, fa.attention_bwd_reference(q, k, v, o, lse, do),
+                        dtype, 577)
 
 
 def test_attention_bwd_kernel_is_deterministic(dev):
@@ -391,7 +505,7 @@ def test_dropout_debug_kernel_mask_is_keep_mask(dev, s, dtype, block_q):
                                rtol=0)
 
 
-@pytest.mark.parametrize("s", [37, 64, 65, 577])
+@pytest.mark.parametrize("s", _BWD_LENGTHS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dropout_fwd_bwd_kernels_match_plain(dev, s, dtype):
     q, k, v = _heads_views(2, s, dtype, dev)
@@ -414,9 +528,7 @@ def test_dropout_fwd_bwd_kernels_match_plain(dev, s, dtype):
     torch.testing.assert_close(lse, rlse, atol=_ATTN_TOL[dtype], rtol=0)
     refs = fa.attention_dropout_bwd_reference(q, k, v, o, lse, do, _SEED,
                                               _RATE, block_q=bq)
-    for g, r in zip(grads, refs):
-        assert g.dtype == dtype and g.transpose(1, 2).is_contiguous()
-        assert _rel(g, r) <= _GRAD_TOL[dtype]
+    _assert_grads_close(grads, refs, dtype, s)
 
 
 def test_dropout_bwd_kernel_is_deterministic_and_seeded(dev):
@@ -623,6 +735,8 @@ _SEG_LAYOUTS = {
     "all-pad": np.full(130, -1),
     "first-tiles-foreign": np.repeat([3, 0, 7], [128, 65, 64]),
     "unsorted": np.random.default_rng(0).integers(-1, 4, 333),
+    # 35 tiles: the backward scans the ids 32 tiles at a time
+    "long": np.repeat([0, 1, 2], [1100, 700, 377]),
 }
 
 
@@ -680,6 +794,29 @@ def test_packed_fwd_bwd_kernels_match_plain(dev, layout, dtype, rate):
         assert g.dtype == dtype and g.transpose(1, 2).is_contiguous()
         assert torch.isfinite(g).all()
         assert _rel(g, r) <= _GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("layout", ["two-segments", "interleaved-ragged",
+                                    "unsorted"])
+@pytest.mark.parametrize("rate", [0.0, _RATE])
+def test_packed_bwd_kernel_is_deterministic(dev, layout, rate):
+    """Two calls on the same inputs give the same bits: no atomics."""
+    seg = _seg_ids(layout, 2, dev)
+    s = seg.shape[1]
+    q, k, v = _heads_views(2, s, torch.bfloat16, dev)
+    do = _randn(q.shape, torch.bfloat16, dev, seed=5)
+    if rate:
+        extra = (_SEED, rate, None, fa.packed_block_q(s))
+        o, lse = fa.flash_attention_packed_dropout_fwd(q, k, v, seg, *extra)
+        bwd = fa.flash_attention_packed_dropout_bwd
+    else:
+        extra = ()
+        o, lse = fa.flash_attention_packed_fwd(q, k, v, seg)
+        bwd = fa.flash_attention_packed_bwd
+    a = bwd(q, k, v, seg, o, lse, do, *extra)
+    b = bwd(q, k, v, seg, o, lse, do, *extra)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_packed_kernels_one_segment_agree_with_dense_kernels(dev):

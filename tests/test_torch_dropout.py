@@ -144,10 +144,16 @@ def test_dropout_forward_matches_jax(block_q, dtype):
     assert tfa.flash_attention_dropout_fwd.launches == before
 
 
-@pytest.mark.parametrize("block_q", [128, 32])
+# S = 65 and 129: one row past an edge of the CUDA kernels' 64-row tiles
+# (the plain versions held here are those kernels' oracle on the card)
+@pytest.mark.parametrize("block_q,s", [
+    pytest.param(128, 77, id="128"), pytest.param(32, 77, id="32"),
+    pytest.param(128, 65, id="128-S65"), pytest.param(32, 65, id="32-S65"),
+    pytest.param(128, 129, id="128-S129"),
+    pytest.param(32, 129, id="32-S129")])
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
-def test_dropout_gradients_match_jax_grad(block_q, dtype):
-    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, dtype)
+def test_dropout_gradients_match_jax_grad(block_q, s, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, dtype, (2, 3, s, 64))
     do = np.random.default_rng(3).standard_normal(tq.shape).astype(
         np.float32)
     _, tdo = _pair(do, dtype)
