@@ -140,92 +140,6 @@ constexpr int kSmemBytes = kStages * kStageBytes + 1024;
 constexpr int kDkdvSmemBytes = kSmemBytes + 2 * cxr::kTileBytes;
 static_assert(kStages >= 2, "the ring overlaps a copy with a tile's products");
 
-// The tiles of the walked operand a block visits, in order. Dense: all of
-// them. kSegment: those with an id inside the range of the block's own ids
-// (conservative, ids in any order), found 32 tiles at a time from the ids in
-// device memory. Every warp computes the same answer from the same ids, so
-// the walk is block-uniform without a barrier or shared memory.
-template <bool kSegment>
-struct TileWalk {
-#ifdef CXR_NO_TILE_SKIP
-  static constexpr bool kSkip = false;
-#else
-  static constexpr bool kSkip = kSegment;
-#endif
-  const int* seg;
-  int S, tiles, lo, hi, base;
-  uint32_t mask;
-
-  // ``seg``: the ids of this batch row; r0: the first row of the own tile.
-  __device__ __forceinline__ TileWalk(const int* seg_, int S_, int r0)
-      : seg(seg_), S(S_), tiles((S_ + kTile - 1) / kTile), lo(0), hi(0),
-        base(kSkip ? -32 : 0), mask(0u) {
-    if (kSkip) {
-      const int lane = threadIdx.x & 31;
-      lo = INT_MAX;
-      hi = INT_MIN;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = r0 + lane + 32 * j;
-        if (r < S) {
-          const int id = seg[r];
-          lo = min(lo, id);
-          hi = max(hi, id);
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-      }
-    }
-  }
-
-  // Bit j: tile base + j holds an id in [lo, hi].
-  __device__ __forceinline__ uint32_t scan() const {
-    const int lane = threadIdx.x & 31;
-    uint32_t m = 0u;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      bool hit = false;
-      if (base + j < tiles) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = (base + j) * kTile + lane + 32 * half;
-          if (r < S) {
-            const int id = seg[r];
-            hit = hit || (id >= lo && id <= hi);
-          }
-        }
-      }
-      if (__any_sync(0xffffffffu, hit)) m |= 1u << j;
-    }
-    return m;
-  }
-
-  // The next tile to visit, or -1 when the walk is over.
-  __device__ __forceinline__ int next() {
-    if (kSkip) {
-      while (mask == 0u) {
-        base += 32;
-        if (base >= tiles) return -1;
-        mask = scan();
-      }
-      const int j = __ffs(mask) - 1;
-      mask &= mask - 1u;
-      return base + j;
-    }
-    return base < tiles ? base++ : -1;
-  }
-};
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xFFFF0000u);
-}
-
 template <bool kDropout, bool kSegment>
 __global__ void __launch_bounds__(128, kBlocksPerSm)
 attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
@@ -279,7 +193,7 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
   cxr::copy_tile_async(own + cxr::kTileBytes, v + b * vs.b + h * vs.h, vs.s,
                        n0, S);
   cxr::cp_async_commit();
-  TileWalk<kSegment> walk(segp, S, n0);
+  cxr::TileWalk<kSegment> walk(segp, S, n0);
   int fifo[kStages];  // fifo[0]: the tile to compute next; then those in flight
 #pragma unroll
   for (int d = 0; d < kStages - 1; ++d) {
@@ -402,7 +316,7 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const uint32_t w = pp[kk][hi + (e >> 1)];
-          const float p = e & 1 ? bf16_hi(w) : bf16_lo(w);
+          const float p = e & 1 ? cxr::bf16_hi(w) : cxr::bf16_lo(w);
           float dpe = dp[n][e];
           if (kDropout)
             dpe = (kmask >> (4 * n + e)) & 1u ? dpe * drop.inv_keep : 0.f;
@@ -490,7 +404,7 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
   cxr::copy_tile_async(own + cxr::kTileBytes, dout + b * dos.b + h * dos.h,
                        dos.s, m0, S);
   cxr::cp_async_commit();
-  TileWalk<kSegment> walk(segp, S, m0);
+  cxr::TileWalk<kSegment> walk(segp, S, m0);
   int fifo[kStages];  // fifo[0]: the tile to compute next; then those in flight
 #pragma unroll
   for (int d = 0; d < kStages - 1; ++d) {
@@ -624,7 +538,7 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int j = e & 1, r = e >> 1;
           const uint32_t w = pp[kk][hi + r];
-          const float p = j ? bf16_hi(w) : bf16_lo(w);
+          const float p = j ? cxr::bf16_hi(w) : cxr::bf16_lo(w);
           float dpe = dp[n][e];
           if (kDropout)
             dpe = cxr::kept(drop, dbase[r], n0 + kc + j) ? dpe * drop.inv_keep

@@ -8,22 +8,41 @@
 // carry different segment ids, for packed sequences). See those files for
 // which TPU kernel each replaces.
 //
-// A block owns 64 query rows of one (batch, head) and streams K/V through
-// shared memory in 64-row tiles with an online (running max / running sum)
-// softmax, so no score tile and no padded copy ever reaches device memory:
-// q, k, v are read in place through their strides and the ragged key tail
-// (S = 577 = 9 * 64 + 1 at ViT-B/16 @384) is masked to -inf in registers.
+// A warpgroup (128 threads) owns 64 query rows of one (batch, head) and
+// walks the key tiles with an online (running max / running sum) softmax,
+// so no score tile and no padded copy ever reaches device memory: q, k, v
+// are read in place through their strides and the ragged key tail (S = 577
+// = 9 * 64 + 1 at ViT-B/16 @384) is masked by index in registers.
 //
-// What bounds it on an H100: at head_dim 64 and S = 577 the block does
-// 4 * 64 * 577 * 64 flops over ~150 KB of K/V reads, so it is compute-bound
-// on paper (arithmetic intensity ~60 flop/byte from L2, K/V of a head is
-// re-read by the 10 query blocks). The bf16 path keeps both products on the
-// tensor cores (mma.sync m16n8k16, f32 accumulation) and the softmax in f32
-// registers; P is rounded to bf16 for the PV product and the normalizer
-// sums the rounded P, so the output is a convex combination of V rows (the
-// TPU kernel rounds the exp2 argument instead). The f32 path (used for
-// parity runs) is plain FMA. wgmma, TMA and a cp.async pipeline are later
-// work.
+// How the bf16 path feeds the tensor cores:
+// - The block's Q tile arrives once by cp.async into a 128-byte swizzled
+//   tile and stays there. K and V tiles (with kSegment their 64 ids) arrive
+//   by cp.async, zero-filled past S, into a two-stage ring in dynamic
+//   shared memory, each tile stored once under the 128-byte swizzle: the
+//   next tile's copies are issued before the current tile's products, and
+//   one cp.async wait and one barrier per tile order them.
+// - S = Q K^T is a wgmma with both operands read through descriptors (K-major
+//   tiles); O += P V a wgmma with P in registers and V read as it lies, in
+//   the transposed-B form, so no tile is copied transposed and no B
+//   fragment passes through registers. The PV product runs only the 16-deep
+//   steps that hold a key below S (one of four in the tail tile at S =
+//   577), and the softmax only the 8-wide column slices that do.
+// - The softmax stays in f32 registers in the accumulator layout; P is
+//   rounded to bf16 after the exp2 and packed as the A fragments of the PV
+//   product (acc_to_a), and the normalizer l sums the rounded P, so the
+//   output is a convex combination of V rows (the TPU kernel rounds the
+//   exp2 argument instead). The exp2 is the special-function unit's own
+//   (exp2_approx).
+// - O is staged through shared memory and written as 16-byte rows.
+// What bounds it on an H100: the serial chain of each block's tile (a
+// barrier, the S product, the softmax with one exp2 on the special-function
+// unit per score, the PV product), hidden only by the other three blocks of
+// the SM. At [36, 12, 577, 64] the tensor cores run at about 24 % of their
+// peak and the exp2 unit at about 22 %; 128-row blocks, which read K/V
+// from L2 half as often, were not faster (PERF.md). S reads Q and K (16 KB) from shared memory a tile, PV 8 KB of
+// V: Q held as register fragments across the walk was read no faster, and
+// ptxas reused those registers in one build.
+// The f32 path (used for parity runs) is plain FMA.
 //
 // The running max is kept in log2 units (score * scale * log2 e); the lse
 // written for the backward is natural: m * ln 2 + ln l. Rows whose valid
@@ -32,8 +51,8 @@
 // and exp2(-inf - m) is exactly 0 for masked columns. With kSegment a tile
 // may hold no key of a row's segment, so the running max can stay -inf past
 // the first tile: the rescale then takes 0 in its place (see safe_max), and
-// a tile none of whose ids lies within the block's range of ids is skipped
-// before it is loaded. Ids are never assumed sorted or contiguous.
+// a key tile none of whose ids lies within the block's range of ids is
+// never visited (TileWalk). Ids are never assumed sorted or contiguous.
 #pragma once
 
 #include <math.h>
@@ -45,7 +64,22 @@ namespace cxr {
 constexpr int kBlockM = 64;   // query rows per block
 constexpr int kBlockN = 64;   // keys per K/V tile
 constexpr int kHeadDim = 64;  // the only head dim built
-constexpr int kPad = 8;       // bf16 row padding in shared memory (16 bytes)
+
+// The bf16 forward's shared memory: a ring of two stages (the next tile's
+// copies fly under the current tile's products), each the K and V tiles
+// and 64 int32 ids, padded to keep every tile 1024-byte aligned, then the
+// block's Q tile; 1024 bytes of slack put the ring on a 1024-byte boundary.
+// The O tile passes through the first stage at the end.
+constexpr int kFwdStages = 2;
+constexpr int kFwdStageBytes = 2 * kTileBytes + 1024;
+constexpr int kFwdSmemBytes =
+    kFwdStages * kFwdStageBytes + kTileBytes + 1024;
+
+// Four blocks an SM (sixteen warps), so at most 128 registers a thread:
+// the four hide one another's barrier, wgmma and exp2 latencies. Three
+// (the backward's) read 16-18 % slower with dropout or segment ids, whose
+// threads then take 134-148 registers.
+constexpr int kFwdBlocksPerSm = 4;
 
 // The max to subtract in the exp2: 0 while a row has met no unmasked score
 // (kSegment only), so that exp2(-inf - 0) = 0 and not exp2(-inf + inf).
@@ -54,127 +88,193 @@ __device__ __forceinline__ float safe_max(float m) {
   return kSegment && m == -INFINITY ? 0.f : m;
 }
 
-// 128 threads = 4 warps; warp w owns query rows [16w, 16w + 16) of the
-// block. lse (kLse only) is [B * H, S] contiguous, f32. With kDropout the
-// normalizer l sums the clean P, the PV product takes the masked P, and the
-// output is divided by l * (1 - rate); kEmitKeep writes each element's
+// 128 threads = one warpgroup; warp w owns query rows [16w, 16w + 16) of
+// the block. lse (kLse only) is [B * H, S] contiguous, f32. With kDropout
+// the normalizer l sums the clean P, the PV product takes the masked P, and
+// the output is divided by l * (1 - rate); kEmitKeep writes each element's
 // keep bit to drop.keep. With kSegment, seg is int32 [B, S] contiguous and
 // a score counts only where its query's and key's ids are equal.
 template <bool kLse, bool kDropout, bool kEmitKeep, bool kSegment>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, kFwdBlocksPerSm)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
               float* __restrict__ lse, int H, int S, Strides qs, Strides ks,
               Strides vs, Strides os, float scale_log2, Dropout drop,
               const int* __restrict__ seg) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockM][kHeadDim + kPad];
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockN][kHeadDim + kPad];
-  __shared__ __align__(16) __nv_bfloat16 sVt[kHeadDim][kBlockN + kPad];
-  __shared__ __align__(8) int sSeg[kSegment ? kBlockN : 2];
-  __shared__ int sRange[2];
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  unsigned char* ring_ptr = smem_raw + (ring - raw);
 
   const int m0 = blockIdx.x * kBlockM;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int* segp = kSegment ? seg + static_cast<long long>(b) * S : nullptr;
-  const __nv_bfloat16* qp = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kp = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vp = v + b * vs.b + h * vs.h;
-  __nv_bfloat16* op = o + b * os.b + h * os.h;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const int row0 = m0 + wr + g;  // rows of accumulator rows g and g + 8
 
-  // Q tile: 64 rows x 8 vectors of 16 bytes; rows past S are zero
-  for (int i = tid; i < kBlockM * 8; i += 128) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 val = zero;
-    if (m0 + r < S)
-      val = *reinterpret_cast<const uint4*>(qp + (m0 + r) * qs.s + c);
-    *reinterpret_cast<uint4*>(&sQ[r][c]) = val;
-  }
-  __syncthreads();
+  // the copies of key tile ``tile`` (K, V, ids) into a stage
+  auto fetch = [&](int stage, int tile) {
+    const int n0 = tile * kBlockN;
+    const uint32_t st = ring + stage * kFwdStageBytes;
+    copy_tile_async(st, kp, ks.s, n0, S);
+    copy_tile_async(st + kTileBytes, vp, vs.s, n0, S);
+    if (kSegment && tid < kBlockN) {
+      const bool ok = n0 + tid < S;
+      cp_async_4(st + 2 * kTileBytes + 4 * tid, segp + (ok ? n0 + tid : 0),
+                 ok);
+    }
+  };
 
-  const int wr = warp * 16;
-  uint32_t qf[4][4];
-  load_a(sQ, wr, g, t, qf);
-  int seg_row[2] = {0, 0}, seg_lo = 0, seg_hi = 0;  // ids of rows g, g + 8
-  if (kSegment) {
-    load_block_ids(segp, m0, S, sSeg, sRange);
-    seg_row[0] = sSeg[wr + g];
-    seg_row[1] = sSeg[wr + g + 8];
-    seg_lo = sRange[0];
-    seg_hi = sRange[1];
+  // Q stays in shared memory behind the ring, the A operand of every S
+  // product (held as register fragments across the walk, those registers
+  // were reused by ptxas in one build)
+  const uint32_t qtile = ring + kFwdStages * kFwdStageBytes;
+  copy_tile_async(qtile, q + b * qs.b + h * qs.h, qs.s, m0, S);
+  cp_async_commit();
+  TileWalk<kSegment> walk(segp, S, m0);
+  int fifo[kFwdStages];  // fifo[0]: the tile to compute next; then those in flight
+#pragma unroll
+  for (int d = 0; d < kFwdStages - 1; ++d) {
+    fifo[d] = walk.next();
+    if (fifo[d] >= 0) fetch(d, fifo[d]);
+    cp_async_commit();
   }
+  fifo[kFwdStages - 1] = -1;
+
+  int seg_row[2] = {0, 0};       // ids of the two rows
+  uint32_t dbase[2] = {0u, 0u};  // dropout counters of the two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (kSegment) seg_row[r] = row < S ? segp[row] : kNoSegment;
+    if (kDropout) dbase[r] = drop_row(drop, bh, row);
+  }
+  // A non-positive scale reverses the order of the scores: it is applied
+  // to them before the max; a positive one is folded into the exp2's FMA.
+  const bool prescale = !(scale_log2 > 0.f);
+  const float c = prescale ? 1.f : scale_log2;
 
   float acc[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  acc_fence(acc);
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 (log2 units)
   float l_run[2] = {0.f, 0.f};              // this thread's share of the sum
-  const int row0 = m0 + wr + g, row1 = row0 + 8;
-  uint32_t dbase[2] = {0u, 0u};             // dropout counters of the rows
-  if (kDropout) {
-    dbase[0] = drop_row(drop, blockIdx.y, row0);
-    dbase[1] = drop_row(drop, blockIdx.y, row1);
-  }
 
-  for (int n0 = 0; n0 < S; n0 += kBlockN) {
-    __syncthreads();  // the previous tile is consumed
-    if (kSegment && !load_tile_ids(segp, n0, S, seg_lo, seg_hi, sSeg)) continue;
-    for (int i = tid; i < kBlockN * 8; i += 128) {
-      const int r = i >> 3, c = (i & 7) * 8;
-      uint4 kv = zero, vv = zero;
-      if (n0 + r < S) {
-        kv = *reinterpret_cast<const uint4*>(kp + (n0 + r) * ks.s + c);
-        vv = *reinterpret_cast<const uint4*>(vp + (n0 + r) * vs.s + c);
-      }
-      *reinterpret_cast<uint4*>(&sK[r][c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sVt[c + j][r] = ve[j];
-    }
+  int cs = 0;  // the stage of fifo[0]
+  while (fifo[0] >= 0) {
+    cp_async_wait<kFwdStages - 2>();
+    // tile fifo[0] (and Q) has arrived for every thread, and every thread
+    // is done with the stage before it, which the next copies overwrite
     __syncthreads();
+    fifo[kFwdStages - 1] = walk.next();
+    if (fifo[kFwdStages - 1] >= 0)
+      fetch(cs == 0 ? kFwdStages - 1 : cs - 1, fifo[kFwdStages - 1]);
+    cp_async_commit();
 
-    // scores for 16 rows x 64 keys: 8 accumulator tiles of 8 keys
+    const int n0 = fifo[0] * kBlockN, krows = min(kBlockN, S - n0);
+    const uint32_t sk = ring + cs * kFwdStageBytes, sv = sk + kTileBytes;
+    const int* sI = reinterpret_cast<const int*>(
+        ring_ptr + cs * kFwdStageBytes + 2 * kTileBytes);
+
+    // S = Q K^T: 16 rows x 64 keys per warp, raw scores
     float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        load_b(sK, n * 8, kk * 16, g, t, b0, b1);
-        mma_16816(s[n], qf[kk], b0, b1);
-      }
-    }
+    wgmma_fence();
+    tile_mma_ss(s, qtile, sk);
+    wgmma_commit();
+    wgmma_wait<0>(s);
 
-    float tile_max[2] = {-INFINITY, -INFINITY};
+    if (prescale) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kc = n * 8 + 2 * t + (e & 1);
-        bool ok = n0 + kc < S;
-        if (kSegment) ok = ok && sSeg[kc] == seg_row[e >> 1];
-        const float val = ok ? s[n][e] * scale_log2 : -INFINITY;
-        s[n][e] = val;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], val);
+        for (int e = 0; e < 4; ++e) s[n][e] *= scale_log2;
+    }
+    // pad keys (the tail tile) and other segments' keys to -inf; the
+    // 8-wide slices of keys at or past S are skipped (block-uniform)
+    if (kSegment || krows < kBlockN) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (n * 8 >= krows) continue;
+        const int kc = n * 8 + 2 * t;
+        int id[2] = {0, 0};
+        if (kSegment) {
+          const int2 i2 = *reinterpret_cast<const int2*>(sI + kc);
+          id[0] = i2.x;
+          id[1] = i2.y;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool ok = kc + (e & 1) < krows;
+          if (kSegment) ok = ok && id[e & 1] == seg_row[e >> 1];
+          if (!ok) s[n][e] = -INFINITY;
+        }
       }
     }
-    float alpha[2], m_sub[2];
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (n * 8 >= krows) continue;
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float msub[2], alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      const float m_new = fmaxf(m_run[r], tile_max[r]);
-      m_sub[r] = safe_max<kSegment>(m_new);
-      alpha[r] = exp2f(m_run[r] - m_sub[r]);
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r] * c);
+      msub[r] = safe_max<kSegment>(m_new);
+      alpha[r] = exp2_approx(m_run[r] - msub[r]);
       m_run[r] = m_new;
-      l_run[r] *= alpha[r];
     }
+
+    // P rounded to bf16, packed as the A fragments of the PV product; l
+    // sums the rounded values
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (n * 8 >= krows) {
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = exp2_approx(fmaf(s[n][e], c, -msub[e >> 1]));
+    }
+    uint32_t pf[4][4];
+    acc_to_a(s, pf);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk * 16 >= krows) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)  // j even: row g; odd: row g + 8
+        sum[j & 1] += bf16_lo(pf[kk][j]) + bf16_hi(pf[kk][j]);
+    }
+    if (kDropout) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (n * 8 >= krows) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n0 + n * 8 + 2 * t + (e & 1);
+          const bool keep = kept(drop, dbase[e >> 1], col);
+          const int row = row0 + 8 * (e >> 1);
+          if (kEmitKeep && row < S && col < S)
+            drop.keep[(static_cast<long long>(bh) * S + row) * S + col] = keep;
+          if (!keep) s[n][e] = 0.f;
+        }
+      }
+      acc_to_a(s, pf);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       acc[n][0] *= alpha[0];
@@ -183,36 +283,18 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       acc[n][3] *= alpha[1];
     }
 
-    // P in bf16, laid out directly as the A operand of the PV product
+    // O += P V, V as it lies (the transposed-B form), the k-steps of keys
+    // below S only
+    acc_fence(acc);
+    wgmma_fence(pf);
+    tile_mma_rs<true>(acc, pf, sv, krows);
+    wgmma_commit();
+    wgmma_wait<0>(acc);  // the stage is free once this is done
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = round_bf16(exp2f(s[n][e] - m_sub[e >> 1]));
-        l_run[e >> 1] += s[n][e];
-        if (kDropout) {
-          const int col = n0 + n * 8 + 2 * t + (e & 1);
-          const bool keep = kept(drop, dbase[e >> 1], col);
-          const int row = e < 2 ? row0 : row1;
-          if (kEmitKeep && row < S && col < S)
-            drop.keep[(static_cast<long long>(blockIdx.y) * S + row) * S +
-                      col] = keep;
-          if (!keep) s[n][e] = 0.f;
-        }
-      }
-    }
-    uint32_t pf[4][4];
-    acc_to_a(s, pf);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        load_b(sVt, n * 8, kk * 16, g, t, b0, b1);
-        mma_16816(acc[n], pf[kk], b0, b1);
-      }
-    }
+    for (int d = 0; d < kFwdStages - 1; ++d) fifo[d] = fifo[d + 1];
+    cs = cs + 1 == kFwdStages ? 0 : cs + 1;
   }
+  cp_async_wait<0>();  // copies never outlive the block
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -222,20 +304,31 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const float keep_prob = kDropout ? drop.keep_prob : 1.f;
   const float inv0 = 1.f / (l_run[0] * keep_prob);
   const float inv1 = 1.f / (l_run[1] * keep_prob);
+  // O through the ring (every warp is past its last product): each warp
+  // stages its own 16 rows of a swizzled tile and writes them as 16-byte
+  // rows
+  __syncthreads();
+  unsigned char* ot = ring_ptr;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (row0 < S)
-      *reinterpret_cast<uint32_t*>(op + row0 * os.s + c) =
-          pack_bf16x2(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (row1 < S)
-      *reinterpret_cast<uint32_t*>(op + row1 * os.s + c) =
-          pack_bf16x2(acc[n][2] * inv1, acc[n][3] * inv1);
+    *reinterpret_cast<uint32_t*>(ot + swizzled(wr + g, n) + 4 * t) =
+        pack_bf16x2(acc[n][0] * inv0, acc[n][1] * inv0);
+    *reinterpret_cast<uint32_t*>(ot + swizzled(wr + g + 8, n) + 4 * t) =
+        pack_bf16x2(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+  __syncwarp();
+  __nv_bfloat16* op = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int i = lane + 32 * j, r = wr + (i >> 3), ch = i & 7;
+    if (m0 + r < S)
+      *reinterpret_cast<uint4*>(op + (m0 + r) * os.s + ch * 8) =
+          *reinterpret_cast<const uint4*>(ot + swizzled(r, ch));
   }
   if (kLse && t == 0) {
-    float* lp = lse + static_cast<long long>(blockIdx.y) * S;
+    float* lp = lse + static_cast<long long>(bh) * S;
     if (row0 < S) lp[row0] = m_run[0] * kLn2 + logf(l_run[0]);
-    if (row1 < S) lp[row1] = m_run[1] * kLn2 + logf(l_run[1]);
+    if (row0 + 8 < S) lp[row0 + 8] = m_run[1] * kLn2 + logf(l_run[1]);
   }
 }
 
@@ -367,7 +460,10 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
   const float scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    attn_fwd_bf16<kLse, kDropout, kEmitKeep, kSegment><<<grid, 128, 0, st>>>(
+    // the ring fits the default dynamic shared memory limit of 48 KB
+    static_assert(kFwdSmemBytes <= 48 * 1024, "opt in above 48 KB");
+    attn_fwd_bf16<kLse, kDropout, kEmitKeep, kSegment>
+        <<<grid, 128, kFwdSmemBytes, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
         lse, heads, seq, qs, ks, vs, os, scale_log2, drop, seg);

@@ -1,8 +1,8 @@
 // Helpers shared by the kernels in this directory: strided [B, H, S, d]
-// addressing, bf16 packing, the m16n8k16 tensor-core product, warp sums,
-// the dropout hash, the segment ids of packed sequences, and the Hopper
-// tile machinery of the attention backward (cp.async into 128-byte
-// swizzled tiles, ldmatrix, wgmma with B read through a descriptor).
+// addressing, bf16 packing, warp sums, the dropout hash, the segment ids of
+// packed sequences, and the Hopper tile machinery of the bf16 attention
+// kernels (cp.async into 128-byte swizzled tiles, ldmatrix, wgmma with B
+// read through a descriptor).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,13 +34,26 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The two bf16 halves of a packed word as floats (exact).
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+
+// 2^x on the special-function unit alone (ex2.approx.ftz: about 2 ulp;
+// results below 2^-126 are flushed to 0, which is all exp2f adds the
+// instructions for).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -89,12 +102,13 @@ __device__ __forceinline__ bool kept(const Dropout& d, uint32_t row_base,
 }
 
 // Segment ids of packed sequences (the kSegment attention kernels): int32
-// [B, S], read in 64-row tiles into shared memory. A tile none of whose
-// ids lies in the block's id range is skipped. Compiled with
+// [B, S]. A 64-row tile none of whose ids lies in the range of the block's
+// own ids is skipped: the f32 kernels read the ids tile by tile into shared
+// memory and vote (load_block_ids, load_tile_ids), the bf16 ones find the
+// tiles to visit before their copies are issued (TileWalk). Compiled with
 // -DCXR_NO_TILE_SKIP (tile_skip_probe.py, to measure what the test costs
 // and saves) no tile is skipped and neither the range scan nor the
-// per-tile vote runs: the ids ride on the barrier that follows the tile's
-// own loads.
+// per-tile vote runs.
 constexpr int kNoSegment = INT_MIN;  // the id of rows and keys at or past S
 
 // The ids of the block's 64 rows starting at r0 into ``ids`` (kNoSegment at
@@ -139,47 +153,94 @@ __device__ __forceinline__ bool load_tile_ids(const int* __restrict__ seg,
 #endif
 }
 
-// D += A * B on the tensor cores, bf16 in, f32 accumulate. Fragment layout
-// (g = lane / 4, t = lane % 4): A rows g and g + 8, columns 2t, 2t + 1
-// (a0, a1) and 2t + 8, 2t + 9 (a2, a3); B column g, rows 2t, 2t + 1 (b0)
-// and 2t + 8, 2t + 9 (b1); D rows g (d0, d1) and g + 8 (d2, d3) at
-// columns 2t, 2t + 1.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// The 64-row tiles of the walked operand (keys for the forward and the dQ
+// pass, queries for the dK/dV pass) that a block of 64 own rows visits, in
+// order. Dense: all of them. kSegment: those with an id inside the range of
+// the block's own ids (conservative, ids in any order), found 32 tiles at a
+// time from the ids in device memory. Every warp computes the same answer
+// from the same ids, so the walk is block-uniform without a barrier or
+// shared memory.
+template <bool kSegment>
+struct TileWalk {
+#ifdef CXR_NO_TILE_SKIP
+  static constexpr bool kSkip = false;
+#else
+  static constexpr bool kSkip = kSegment;
+#endif
+  static constexpr int kTile = 64;
+  const int* seg;
+  int S, tiles, lo, hi, base;
+  uint32_t mask;
 
-// The B fragment of an [n][k] tile in shared memory (k contiguous), for
-// columns n0 + g and the 16-deep slice starting at k0.
-template <int kLd>
-__device__ __forceinline__ void load_b(const __nv_bfloat16 (*tile)[kLd], int n0,
-                                       int k0, int g, int t, uint32_t& b0,
-                                       uint32_t& b1) {
-  b0 = *reinterpret_cast<const uint32_t*>(&tile[n0 + g][k0 + 2 * t]);
-  b1 = *reinterpret_cast<const uint32_t*>(&tile[n0 + g][k0 + 2 * t + 8]);
-}
-
-// The A fragments of 16 rows [r0, r0 + 16) x 64 columns of a shared tile.
-template <int kLd>
-__device__ __forceinline__ void load_a(const __nv_bfloat16 (*tile)[kLd], int r0,
-                                       int g, int t, uint32_t (&a)[4][4]) {
+  // ``seg``: the ids of this batch row; r0: the block's first own row.
+  __device__ __forceinline__ TileWalk(const int* seg_, int S_, int r0)
+      : seg(seg_), S(S_), tiles((S_ + kTile - 1) / kTile), lo(0), hi(0),
+        base(kSkip ? -32 : 0), mask(0u) {
+    if (kSkip) {
+      const int lane = threadIdx.x & 31;
+      lo = INT_MAX;
+      hi = INT_MIN;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    a[kk][0] = *reinterpret_cast<const uint32_t*>(&tile[r0 + g][c]);
-    a[kk][1] = *reinterpret_cast<const uint32_t*>(&tile[r0 + g + 8][c]);
-    a[kk][2] = *reinterpret_cast<const uint32_t*>(&tile[r0 + g][c + 8]);
-    a[kk][3] = *reinterpret_cast<const uint32_t*>(&tile[r0 + g + 8][c + 8]);
+      for (int j = 0; j < 2; ++j) {
+        const int r = r0 + lane + 32 * j;
+        if (r < S) {
+          const int id = seg[r];
+          lo = min(lo, id);
+          hi = max(hi, id);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+      }
+    }
   }
-}
 
-// Accumulator tiles [16 x 64] (8 tiles of 8 columns) → A fragments of the
-// same 16 x 64 block rounded to bf16: the product's output feeds the next
-// product without a trip through shared memory.
+  // Bit j: tile base + j holds an id in [lo, hi].
+  __device__ __forceinline__ uint32_t scan() const {
+    const int lane = threadIdx.x & 31;
+    uint32_t m = 0u;
+#pragma unroll 8
+    for (int j = 0; j < 32; ++j) {
+      bool hit = false;
+      if (base + j < tiles) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = (base + j) * kTile + lane + 32 * half;
+          if (r < S) {
+            const int id = seg[r];
+            hit = hit || (id >= lo && id <= hi);
+          }
+        }
+      }
+      if (__any_sync(0xffffffffu, hit)) m |= 1u << j;
+    }
+    return m;
+  }
+
+  // The next tile to visit, or -1 when the walk is over.
+  __device__ __forceinline__ int next() {
+    if (kSkip) {
+      while (mask == 0u) {
+        base += 32;
+        if (base >= tiles) return -1;
+        mask = scan();
+      }
+      const int j = __ffs(mask) - 1;
+      mask &= mask - 1u;
+      return base + j;
+    }
+    return base < tiles ? base++ : -1;
+  }
+};
+
+// Accumulator tiles [16 x 64] (8 tiles of 8 columns: c[n] holds rows g and
+// g + 8 at columns 8n + 2t, 8n + 2t + 1, with g = lane / 4, t = lane % 4) →
+// the A fragments of the same 16 x 64 block rounded to bf16 (a[kk]: rows g,
+// g + 8 at columns 16kk + 2t, + 1 in a[kk][0], a[kk][1] and 8 further in
+// a[kk][2], a[kk][3]): the product's output feeds the next product without
+// a trip through shared memory.
 __device__ __forceinline__ void acc_to_a(const float (&c)[8][4],
                                          uint32_t (&a)[4][4]) {
 #pragma unroll
@@ -262,8 +323,8 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
       : "r"(addr));
 }
 
-// The A fragments (mma_16816's, which are also wgmma's per-warp A
-// fragments) of rows [r0, r0 + 16) x 64 columns of a swizzled tile.
+// wgmma's per-warp A fragments (acc_to_a's layout) of rows [r0, r0 + 16) x
+// 64 columns of a swizzled tile.
 __device__ __forceinline__ void load_a_swizzled(uint32_t tile, int r0,
                                                 int lane, uint32_t (&a)[4][4]) {
   const int i = lane >> 3, row = r0 + (lane & 7) + (i & 1) * 8;
@@ -340,10 +401,10 @@ __device__ __forceinline__ void wgmma_wait(float (&acc)[8][4]) {
   "%28, %29, %30, %31}, "
 
 // One asynchronous m64n64k16 step of a warpgroup: D (+)= A B with this
-// warp's 16 x 16 A fragment in registers (mma_16816's layout), B a 16-deep
-// slice of a swizzled tile through its descriptor (kTransB: MN-major), D the
-// warp's 16 x 64 accumulator in mma_16816's layout, d[n] being columns
-// [8n, 8n + 8). ``accumulate`` 0 overwrites D.
+// warp's 16 x 16 A fragment a[kk] in registers (acc_to_a's layout), B a
+// 16-deep slice of a swizzled tile through its descriptor (kTransB:
+// MN-major), D the warp's 16 x 64 accumulator in acc_to_a's input layout,
+// d[n] being columns [8n, 8n + 8). ``accumulate`` 0 overwrites D.
 template <int kTransB>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4],
                                                 const uint32_t (&a)[4],

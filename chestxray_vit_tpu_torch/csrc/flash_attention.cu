@@ -10,8 +10,10 @@
 // units and converts at the end (m_log2 * ln 2 + ln l); lse is written as
 // [B * H, S] f32, rows past S never touched, and q, k, v and o are read and
 // written in place through their strides, so the training path needs no
-// padded copies either. What bounds it is the inference kernel's bound
-// plus 4 bytes per query row.
+// padded copies either. On an H100 (see attention_fwd.cuh) it is bound by
+// each block's serial chain of barrier, S product, softmax and PV product,
+// which four blocks an SM overlap: the tensor cores run at about 24 % of
+// their peak, the exp2 unit at about 22 %; the lse costs 4 bytes a row.
 
 #include "attention_fwd.cuh"
 

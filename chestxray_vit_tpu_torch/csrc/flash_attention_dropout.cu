@@ -8,15 +8,16 @@
 // [bb, bq, S_pad] iota tile into the keep mask and select P with it. Here
 // the training forward of attention_fwd.cuh runs with kDropout: each thread
 // hashes the global (bh, row, col) of every score element it holds in its
-// mma.sync fragment (about ten integer operations per element, in
+// wgmma accumulator (about ten integer operations per element, in
 // registers), so the mask never reaches device memory and the backward
 // regenerates it from the same scalars. The normalizer l sums the clean P,
 // the PV product takes the kept P, and the output is divided by
 // l * (1 - rate); lse is the clean softmax's, as the TPU kernel writes it.
 // kEmitKeep (the debug variant) also writes each valid element's keep bit
 // as one byte of a [B * H, S, S] buffer, the oracle the tests hold the
-// mask against. What bounds it is the training forward's bound (tensor-core
-// products) plus the hash on the CUDA cores.
+// mask against. What bounds it is the training forward's chain with the hash
+// on the CUDA cores in it; the debug variant's byte-wise mask writes
+// ([B * H, S, S], scattered one byte a thread) take most of its time.
 
 #include "attention_fwd.cuh"
 

@@ -4,9 +4,13 @@
 // `_fwd_kernel_inf` (launched by `flash_attention_inference`). That kernel
 // holds a whole zero-padded K/V row of one batch-of-heads in VMEM and runs a
 // three-pass exact softmax over the full [Q_pad, S_pad] score tile. Here the
-// shared forward of attention_fwd.cuh (online softmax over 64-key tiles,
-// mma.sync for bf16) runs without the logsumexp write, which eval and
-// serving never read.
+// shared forward of attention_fwd.cuh runs without the logsumexp write,
+// which eval and serving never read: 64 query rows a block, an online
+// softmax over 64-key tiles that arrive by cp.async in a two-stage ring of
+// swizzled tiles, S = Q K^T and O += P V as wgmma (bf16) with V read as it
+// lies. What bounds it is the training forward's bound (flash_attention.cu);
+// at the serving batch of 8 (960 blocks, under two waves of four blocks an
+// SM) the tail of the last wave weighs more.
 
 #include "attention_fwd.cuh"
 

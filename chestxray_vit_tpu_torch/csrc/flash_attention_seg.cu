@@ -17,15 +17,17 @@
 // in place once for all heads (the TPU wrapper repeats them per head and
 // pads them to its block); nothing assumes them sorted or contiguous: after
 // a token merge they interleave. A key tile none of whose ids lies within
-// the range of the block's 64 row ids is skipped before its K/V are
-// loaded, by a test of the ids it holds.
+// the range of the block's 64 row ids is never visited: every warp scans
+// the ids of 32 tiles at a time into the same bit mask (TileWalk) before
+// the tile's copies are issued, and a visited tile's ids ride in its ring
+// stage.
 //
-// What bounds it on an H100: tensor-core products, 4 * 64 flops per
-// same-segment score element, as the dense forward, over only the tiles
-// that hold a same-segment pair; with kDropout the counter hash on the CUDA
-// cores beside them. The dropout counter is (bh * s_pad + i) * s_pad + j
-// with s_pad the sequence padded to the TPU wrapper's Q block (q_pad =
-// s_pad, unlike the dense kernels' strides). The normalizer sums the clean
+// What bounds it on an H100: the dense forward's chain of barrier, S
+// product, softmax and PV product, over only the tiles that hold a
+// same-segment pair, with the id compare in the softmax; with kDropout the
+// counter hash on the CUDA cores in it. The dropout counter is
+// (bh * s_pad + i) * s_pad + j with s_pad the sequence padded to the TPU
+// wrapper's Q block (q_pad = s_pad, unlike the dense kernels' strides). The normalizer sums the clean
 // P, the output is divided by l * (1 - rate), lse is the clean softmax's.
 
 #include "attention_fwd.cuh"

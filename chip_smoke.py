@@ -17,7 +17,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    plain version and of the one PyTorch call that computes the same
    function (timed only, never used by the port), and its bound. The
    dropout kernels at [36, 12, 577, 64], rate 0.1: the debug kernel's mask
-   against the plain counter hash (0 mismatches), o, lse and dq/dk/dv.
+   against the plain counter hash (0 mismatches), o, lse and dq/dk/dv. The
+   dense, inference and dropout attention kernels are also checked, not
+   timed, at the edges of their 64-row tiles (EDGE_LENGTHS); the dense
+   forwards and backwards carry ``earlier_ms``, their time before the
+   redesign (EARLIER_FWD_MS, EARLIER_BWD_MS).
 4. serving: a Predictor at full ViT-B/16 @384 width in bf16 (random
    weights from seed 0) behind the MicroBatcher answers concurrent
    requests from several threads; every request must be answered with 15
@@ -214,16 +218,20 @@ NOISE_STD = 1e-6
 INT8_PROB_TOL, INT8_MIN_CORR = 0.1, 0.995
 
 
-# Sequence lengths at which the dense backward kernels are held against
-# their plain versions beside the training lengths: the edges of their
-# 64-row tiles, a tail of one row, and more tiles than the copy ring has
-# stages (checked, not timed).
+# Sequence lengths at which the dense attention kernels are held against
+# their plain versions beside the serving and training lengths: the edges
+# of their 64-row tiles, a tail of one row, and more tiles than the copy
+# ring has stages (checked, not timed).
 EDGE_LENGTHS = (64, 128, 129, 576, 1025)
-# The two dense backward kernels before their redesign (mma.sync from
-# scalar shared-memory loads, synchronous tile loads, transposed copies), at
-# [36, 12, 577, 64] bf16 on an NVIDIA H100 80GB HBM3 at 700.00 W.
+# The dense attention kernels before their redesign (mma.sync from scalar
+# shared-memory loads, synchronous tile loads, transposed copies) on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: the backwards at [36, 12, 577, 64]
+# bf16, the training forward there and the inference forward at
+# [8, 12, 577, 64].
 EARLIER_BWD_MS = {"flash_attention_bwd": 1.7810,
                   "flash_attention_dropout_bwd": 1.9064}
+EARLIER_FWD_MS = {"flash_attention_fwd": 0.4434,
+                  "flash_attention_inference": 0.1046}
 
 
 def emit(obj: dict) -> None:
@@ -439,25 +447,27 @@ def phase_kernel_check() -> dict:
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    # attention: the serving shape, one S that 64 divides, one short odd S
-    for s in (577, 512, 37):
+    # attention: the serving shape, one S that 64 divides, one short odd S;
+    # the tile edges checked, not timed
+    for s in (577, 512, 37) + EDGE_LENGTHS:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (randn((BATCH, 12, s, 64), dtype) for _ in range(3))
             out = fa.flash_attention_inference(q, k, v)
             ref = fa.attention_reference(q, k, v)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
-            ms, plain_ms = time_pair(
-                lambda: fa.flash_attention_inference(q, k, v),
-                lambda: fa.attention_reference(q, k, v))
             rec = {"phase": "kernel_check", "kernel": "attention",
                    "shape": [BATCH, 12, s, 64], "dtype": str(dtype),
                    "max_abs_err": err, "tol": ATTN_TOL[dtype],
                    "finite": bool(torch.isfinite(out).all()),
-                   "ms": ms, "plain_ms": plain_ms,
                    **attention_bound(q.shape, dtype)}
+            if s not in EDGE_LENGTHS:
+                rec["ms"], rec["plain_ms"] = time_pair(
+                    lambda: fa.flash_attention_inference(q, k, v),
+                    lambda: fa.attention_reference(q, k, v))
             if s == 577 and dtype == torch.bfloat16:
                 rec["library_ms"] = library_attention(q, k, v)[0]
+                rec["earlier_ms"] = EARLIER_FWD_MS["flash_attention_inference"]
                 summary["flash_attention_inference"] = rec
             emit(rec)
             require(rec["finite"] and err <= ATTN_TOL[dtype],
@@ -605,6 +615,7 @@ def check_training_attention(randn, summary: dict) -> None:
             summary_row = s == 577 and dtype == torch.bfloat16
             if summary_row:
                 rec["library_ms"], lib_bwd_ms = library_attention(q, k, v, do)
+                rec["earlier_ms"] = EARLIER_FWD_MS["flash_attention_fwd"]
             emit(rec)
             require(bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
                     and err_o <= tol and err_lse <= tol,

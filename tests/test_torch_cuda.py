@@ -46,7 +46,12 @@ def _randn(shape, dtype, dev, seed=0):
 _ATTN_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-5}
 
 
-@pytest.mark.parametrize("s", [37, 64, 512, 577])
+# tile edges of the 64-row tiles, a tail of one row, the training length,
+# more tiles than the ring has stages
+_BWD_LENGTHS = [1, 16, 37, 63, 64, 65, 127, 128, 129, 576, 577, 640, 1025]
+
+
+@pytest.mark.parametrize("s", sorted({*_BWD_LENGTHS, 512}))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernel_matches_plain(dev, s, dtype):
     q, k, v = (_randn((2, 12, s, 64), dtype, dev, seed=i) for i in range(3))
@@ -81,6 +86,45 @@ def test_attention_kernel_strongly_negative_rows(dev, dtype):
     torch.testing.assert_close(out.float(),
                                fa.attention_reference(q, k, v).float(),
                                atol=_ATTN_TOL[dtype], rtol=_ATTN_TOL[dtype])
+
+
+def _forward(kind, q, k, v):
+    """The outputs of one forward entry point: the inference, training or
+    dropout forward."""
+    if kind == "inference":
+        return (fa.flash_attention_inference(q, k, v),)
+    if kind == "training":
+        return fa.flash_attention_fwd(q, k, v)
+    return fa.flash_attention_dropout_fwd(q, k, v, -123456789, 0.1,
+                                          block_q=fa.auto_block_q(q.shape[2]))
+
+
+@pytest.mark.parametrize("kind", ["inference", "training", "dropout"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [65, 577])
+def test_attention_fwd_reads_nothing_past_s(dev, kind, dtype, s):
+    """q, k, v as [:, :, :S] views of tensors 64 rows longer whose rows at
+    or past S are NaN: the outputs are finite and equal, bit for bit, to
+    those of contiguous copies (no copy reads a row past S, and no masked
+    row reaches a sum)."""
+    q, k, v = (_randn((2, 12, s + 64, 64), dtype, dev, seed=i)
+               for i in range(3))
+    for t in (q, k, v):
+        t[:, :, s:] = float("nan")
+    views = [t[:, :, :s] for t in (q, k, v)]
+    got = _forward(kind, *views)
+    ref = _forward(kind, *(t.contiguous() for t in views))
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
+def test_attention_fwd_kernel_is_deterministic(dev):
+    q, k, v = _randn((3, 2, 12, 577, 64), torch.bfloat16, dev).unbind(0)
+    o1, lse1 = fa.flash_attention_fwd(q, k, v)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 def test_attention_kernel_refuses_what_it_does_not_take(dev):
@@ -169,11 +213,6 @@ def _heads_views(b, s, dtype, dev, seed=0):
     return [t.transpose(1, 2) for t in x.unbind(2)]
 
 
-# tile edges of the 64-row tiles, a tail of one row, the training length,
-# more tiles than the ring has stages
-_BWD_LENGTHS = [1, 16, 37, 63, 64, 65, 127, 128, 129, 576, 577, 640, 1025]
-
-
 def _assert_grads_close(grads, refs, dtype, s):
     """Each gradient within _GRAD_TOL of its plain version, relative to the
     plain version's largest magnitude. At S = 1 the softmax is the constant
@@ -216,10 +255,10 @@ def test_attention_fwd_bwd_kernels_match_plain(dev, s, dtype):
 @pytest.mark.parametrize("mode", [0, 1, 2])
 @pytest.mark.parametrize("rows", [64, 48, 17, 1])
 def test_tile_helpers_multiply_like_matmul(dev, mode, rows):
-    """The backward's tile machinery alone (cp.async into 128-byte swizzled
-    tiles, B through a wgmma descriptor): a known 64 x 64 A times a known B,
-    B whole and with only its first rows present, against torch.matmul in
-    f32. Mode 0: A Bᵀ, A as ldmatrix fragments, B K-major; mode 1: A B, B in
+    """The attention kernels' tile machinery alone (cp.async into 128-byte
+    swizzled tiles, B through a wgmma descriptor): a known 64 x 64 A times a
+    known B, B whole and with only its first rows present, against
+    torch.matmul in f32. Mode 0: A Bᵀ, A as ldmatrix fragments, B K-major; mode 1: A B, B in
     the transposed (MN-major) form, only the k-steps that reach a row of B;
     mode 2: A Bᵀ with A through a descriptor too. bf16 products are exact in
     f32 and 64 of them sum to within a few f32 ulps of O(10)."""
@@ -483,7 +522,7 @@ def test_eval_step_on_card_matches_cpu(dev):
 _RATE, _SEED = 0.1, -123456789      # a negative int32 seed, as JAX allows
 
 
-@pytest.mark.parametrize("s", [37, 577])
+@pytest.mark.parametrize("s", [37, 64, 65, 129, 577, 1025])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("block_q", [0, 32])
 def test_dropout_debug_kernel_mask_is_keep_mask(dev, s, dtype, block_q):

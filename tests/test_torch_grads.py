@@ -69,7 +69,7 @@ def _strongly_negative(rng, dtype, s=65):
 # Attention forward with logsumexp
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("s", [17, 37, 65])
+@pytest.mark.parametrize("s", [17, 37, 64, 65, 128, 129])
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
 def test_attention_fwd_reference_matches_jax_fwd_rule(rng, s, dtype):
     (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, s, dtype)

@@ -53,7 +53,7 @@ SOURCES = sorted(
     + [os.path.join(REPO, f) for f in ("chip_smoke.py", "profile_step.py",
                                             "smoke_batches.py",
                                             "tile_skip_probe.py",
-                                            "attn_bwd_probe.py")])
+                                            "attn_probe.py")])
 
 
 @pytest.fixture(scope="module")

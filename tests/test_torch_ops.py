@@ -127,7 +127,7 @@ def _qkv(rng, s, dtype, b=1, h=2, d=64):
                   dtype) for _ in range(3)]
 
 
-@pytest.mark.parametrize("s", [37, 128, 137])
+@pytest.mark.parametrize("s", [37, 64, 65, 128, 129, 137])
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
 def test_attention_matches_jax_inference_kernel(rng, s, dtype):
     (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, s, dtype)
