@@ -1,19 +1,24 @@
-"""The bf16 attention kernels under several builds, on one NVIDIA GPU.
+"""The hand-written kernels under several builds, on one NVIDIA GPU.
 
-    python3 attn_probe.py [--only fwd|bwd] [--parent DIR] ["<nvcc flags>" ...]
+    python3 attn_probe.py [--only fwd|bwd|int8|ln] [--parent DIR]
+                          ["<nvcc flags>" ...]
 
 Each argument is one build's extra nvcc flags (``CXR_NVCC_FLAGS``; the
 empty string is the tree as it stands, and the only build when no argument
 is given), for example ``-DCXR_NO_TILE_SKIP``. ``--parent DIR`` adds one
 build of another checkout (say a ``git archive`` of the parent commit under
-``_scratch/``), whose package and ``chip_smoke.py`` are imported in place of
-this tree's. Every build runs in its own process (the library is loaded
-once per process), in the order given and then in reverse, so that each
-build is timed twice on the same card. A build:
+``_scratch/``), whose package is imported in place of this tree's (the
+timing helpers and shapes stay this tree's ``chip_smoke.py``). Every build
+runs in its own process (the library is loaded once per process), in the
+order given and then in reverse, so that each build is timed twice on the
+same card. A build:
 
 - multiplies through the tile helpers alone (``tile_mma_selftest.cu``) in
-  its three forms, whole and ragged, against ``torch.matmul``;
-- forward (``--only fwd``, or both): holds the inference, training and
+  its three bf16 forms, whole and ragged, against ``torch.matmul``, and in
+  its two int8 forms exactly against the integer product (a build without
+  them reports so);
+- forward (``--only fwd``; with no ``--only``, the two attention parts):
+  holds the inference, training and
   dropout forwards against their plain versions at S = 1 … 1025 (largest
   absolute error of o and lse), the debug kernel's mask against the plain
   hash (mismatches), the segment forwards in two layouts, calls the
@@ -27,7 +32,16 @@ build is timed twice on the same card. A build:
   (equal bits), times the dense and dropout backward at [36, 12, 577, 64]
   and the segment backward in two layouts, and the dK/dV and dQ kernels
   apart (``torch.profiler`` over ten calls);
-- reports each bf16 attention kernel's registers, spills and shared memory
+- int8 (``--only int8``): the int8 kernel in chip_smoke.py's five call
+  forms of the batch-32 int8 forward: mismatches against the plain version
+  (0 expected), equal bits twice, CUDA-event and profiler device times
+  beside ``torch._int_mm``'s; and its GELU bit for bit against the plain
+  version's on every float of |y| in [2^-24, 2^5) (``gelu_sweep``);
+- ln (``--only ln``): the LayerNorm forward at the serving, int8 serving
+  and training rows (x 768, bf16; the int8 rows with an f32 scale too):
+  error against the plain version, CUDA-event and device times beside
+  ``F.layer_norm``'s;
+- reports the registers, spills and shared memory of the part's kernels
   from the build log (``-Xptxas -v``).
 
 Prints one JSON line per run and a last line with the card's name and
@@ -50,10 +64,13 @@ LENGTHS = (1, 37, 64, 65, 128, 129, 577, 1025)
 
 
 def selftest(gen) -> dict:
-    """Largest |error| of the 64 x 64 x 64 product through the tile helpers
-    against ``torch.matmul`` in f32, per orientation and row count."""
+    """Largest |error| of the 64 x 64 x 64 bf16 products through the tile
+    helpers against ``torch.matmul`` in f32, per orientation and row count,
+    and the mismatches of the int8 ones (64 x 64 x 128 and a half k tile)
+    against the exact integer product."""
     from chestxray_vit_tpu_torch import kernels
 
+    lib, stream = kernels.library(), torch.cuda.current_stream().cuda_stream
     a = torch.randn((64, 64), generator=gen, device="cuda").to(torch.bfloat16)
     b = torch.randn((64, 64), generator=gen, device="cuda").to(torch.bfloat16)
     out = {}
@@ -61,29 +78,51 @@ def selftest(gen) -> dict:
     for mode in (0, 1, 2):
         for rows in (64, 17):
             c = torch.full((64, 64), float("nan"), device="cuda")
-            kernels.check(kernels.library().cxr_tile_mma_selftest(
+            kernels.check(lib.cxr_tile_mma_selftest(
                 a.data_ptr(), b.data_ptr(), c.data_ptr(), mode, rows, 0,
-                torch.cuda.current_stream().cuda_stream), "tile_mma_selftest")
+                stream), "tile_mma_selftest")
             torch.cuda.synchronize()
             bz = b.float().clone()
             bz[rows:] = 0
             ref = a.float() @ (bz if mode == 1 else bz.t())
             out[f"mode{mode}_rows{rows}"] = (c - ref).abs().max().item()
+    a8, b8 = (torch.randint(-128, 128, (64, 128), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    for mode, k in ((3, 128), (4, 64)):   # the int8 kernel's s8 wgmma
+        for rows in (64, 17):
+            c = torch.zeros((64, 64), device="cuda", dtype=torch.int32)
+            if lib.cxr_tile_mma_selftest(a8.data_ptr(), b8.data_ptr(),
+                                         c.data_ptr(), mode, rows, 0, stream):
+                out[f"mode{mode}_rows{rows}"] = "not in this build"
+                continue
+            torch.cuda.synchronize()
+            bz = b8.long().cpu()[:, :k]
+            bz[rows:] = 0
+            ref = a8.long().cpu()[:, :k] @ bz.t()
+            out[f"mode{mode}_rows{rows}"] = int((c.long().cpu() != ref).sum())
     return out
 
 
-def build_report() -> dict:
-    """{kernel: "registers, spills, shared"} of the bf16 attention kernels
-    from the build log."""
+# the kernels each part reports from the build log
+REPORTED = {"": r"attn_(?:fwd|bwd_d)\w*bf16", "fwd": r"attn_fwd\w*bf16",
+            "bwd": r"attn_bwd_d\w*bf16", "int8": r"int8_gemm_fused",
+            "ln": r"ln_fwd"}
+
+
+def build_report(only: str) -> dict:
+    """{kernel: "registers, spills, shared"} of the part's kernels from the
+    build log."""
     from chestxray_vit_tpu_torch import kernels
 
     text = kernels.library_path().with_suffix(".log").read_text()
     out = {}
     for m in re.finditer(
-            r"Compiling entry function '(\w*attn_(?:fwd|bwd_d)\w*bf16\w*)'"
+            r"Compiling entry function '(\w*(?:" + REPORTED[only] + r")\w*)'"
             r".*?\n(?:.*?\n)*?.*?(\d+) bytes spill stores, (\d+) bytes spill "
             r"loads\n.*?Used (\d+) registers(.*?)\n", text):
-        name = re.sub(r"^_ZN3cxr(?:3bwd)?\d+", "", m.group(1))
+        name = re.sub(r"^_ZN(?:3cxr(?:3bwd)?|12_GLOBAL__N_1)\d+", "",
+                      m.group(1))
         out[name] = (f"{m.group(4)} registers, spill {m.group(2)}/"
                      f"{m.group(3)}{m.group(5)}")
     warnings = sorted(set(re.findall(r"warning[^\n]*", text)))
@@ -254,7 +293,106 @@ def backward(gen, out: dict) -> None:
         out[f"packed_dropout_{name}"] = {"ms": time_ms(packed_dropout)}
 
 
+def int8(gen, out: dict) -> None:
+    from chestxray_vit_tpu_torch.ops import int8_matmul as i8
+    from chip_smoke import INT8_FORMS, device_ms, int8_operands, time_ms
+
+    for name, m, k, n, with_resid, gelu in INT8_FORMS:
+        xq, wq, scale, bias, kw = int8_operands(gen, m, k, n, with_resid,
+                                                gelu)
+
+        def kernel():
+            return i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
+
+        def library():
+            return torch._int_mm(xq, wq.t())
+
+        got, again = kernel(), kernel()
+        ref = i8.int8_matmul_fused_reference(xq, wq, scale, bias, **kw)
+        torch.cuda.synchronize()
+        out["errors"][f"int8_{name}"] = int((got != ref).sum())
+        out["equal_twice"] &= torch.equal(got, again)
+        del got, again, ref
+        out[f"int8_{name}"] = {
+            "ms": time_ms(kernel), **device_ms(kernel),
+            "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library)["device_ms"]}
+    out["gelu_sweep"] = gelu_sweep()
+
+
+def gelu_sweep() -> dict:
+    """The int8 kernel's exact-erf GELU against the plain version's, bit for
+    bit, on every float y with |y| in [2^-24, 2^5) (both signs) and a few
+    special values: an f32-out GELU call on xq = 0, so that y = bias."""
+    from chestxray_vit_tpu_torch.ops import int8_matmul as i8
+
+    dev = torch.device("cuda")
+    n = 1 << 23                       # the floats of one binade
+    xq = torch.zeros((1, 64), dtype=torch.int8, device=dev)
+    wq = torch.zeros((n, 64), dtype=torch.int8, device=dev)
+    scale = torch.ones(n, device=dev)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan"), 1e30, -1e30, 1e-40, -1e-40,
+                            3.4e38, -3.4e38, 2.0 ** -30, 40.0, -40.0,
+                            1e6, -1e6], device=dev)
+    values = mismatches = 0
+    for e in range(-24, 5):
+        y = (torch.arange(n, dtype=torch.int32, device=dev)
+             + ((e + 127) << 23)).view(torch.float32)
+        for bias in (y, -y):
+            got = i8.int8_matmul_fused(xq, wq, scale, bias, gelu=True,
+                                       out_dtype=torch.float32)
+            ref = i8.int8_matmul_fused_reference(xq, wq, scale, bias,
+                                                 gelu=True,
+                                                 out_dtype=torch.float32)
+            mismatches += int((got.view(torch.int32)
+                               != ref.view(torch.int32)).sum())
+            values += n
+    k = special.numel()
+    got = i8.int8_matmul_fused(xq, wq[:k], scale[:k], special, gelu=True,
+                               out_dtype=torch.float32)
+    ref = i8.int8_matmul_fused_reference(xq, wq[:k], scale[:k], special,
+                                         gelu=True, out_dtype=torch.float32)
+    same = (got == ref) | (got.isnan() & ref.isnan())
+    return {"values": values + k,
+            "mismatches": mismatches + int((~same).sum())}
+
+
+def layer_norm(gen, out: dict) -> None:
+    from chestxray_vit_tpu_torch.ops import layer_norm as ln
+    from chip_smoke import bf16_ulp, device_ms, time_ms
+
+    d = 768
+    for rows, w_dtype in ((8 * 577, torch.bfloat16),
+                          (32 * 577, torch.bfloat16),
+                          (32 * 577, torch.float32),
+                          (36 * 577, torch.bfloat16)):
+        x = (torch.randn((rows, d), generator=gen, device="cuda") * 3 + 1
+             ).to(torch.bfloat16)
+        s, b = (torch.randn((d,), generator=gen, device="cuda").to(w_dtype)
+                for _ in range(2))
+        ls, lb = s.to(torch.bfloat16), b.to(torch.bfloat16)
+
+        def kernel():
+            return ln.layer_norm_cuda(x, s, b, 1e-12)
+
+        def library():
+            return torch.nn.functional.layer_norm(x, (d,), ls, lb, 1e-12)
+
+        ref = ln.layer_norm_reference(x, s, b, 1e-12).float()
+        diff = (kernel().float() - ref).abs()
+        key = f"ln_{rows}_{str(w_dtype).split('.')[-1]}"
+        out["errors"][key] = {
+            "max_abs_err": diff.max().item(),
+            "within_1ulp_1e-5": bool((diff <= bf16_ulp(ref) + 1e-5).all())}
+        out[key] = {"ms": time_ms(kernel), **device_ms(kernel),
+                    "library_ms": time_ms(library),
+                    "library_device_ms": device_ms(library)["device_ms"]}
+
+
 def child(only: str) -> int:
+    import chip_smoke  # this tree's helpers, before DIR joins the path
+
     tree = os.environ.get("CXR_PROBE_TREE")
     if tree:                       # import another checkout's package
         sys.path.insert(0, tree)
@@ -262,11 +400,16 @@ def child(only: str) -> int:
     out = {"build": tree or os.environ.get("CXR_NVCC_FLAGS", ""),
            "selftest": selftest(gen), "errors": {}, "equal_twice": True,
            "fwd_ms": {}}
+    chip_smoke.warm_up()
     if only in ("", "fwd"):
         forward(gen, out)
     if only in ("", "bwd"):
         backward(gen, out)
-    out["kernels"] = build_report()
+    if only == "int8":
+        int8(gen, out)
+    if only == "ln":
+        layer_norm(gen, out)
+    out["kernels"] = build_report(only)
     print(json.dumps(out), flush=True)
     return 0
 

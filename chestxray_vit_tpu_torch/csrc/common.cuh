@@ -2,7 +2,8 @@
 // addressing, bf16 packing, warp sums, the dropout hash, the segment ids of
 // packed sequences, and the Hopper tile machinery of the bf16 attention
 // kernels (cp.async into 128-byte swizzled tiles, ldmatrix, wgmma with B
-// read through a descriptor).
+// read through a descriptor) and of the int8 kernel (the same tiles of int8,
+// the s8 wgmma).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -472,6 +473,89 @@ __device__ __forceinline__ void tile_mma_rs(float (&acc)[8][4],
       wgmma_m64n64k16<kTransB ? 1 : 0>(
           acc, a[kk], desc + ((kTransB ? kk * 2048 : kk * 32) >> 4),
           kTransB || kk > 0 ? 1 : 0);
+}
+
+// ---------------------------------------------------------------------------
+// int8 tiles for the s8 wgmma of the int8 kernel. A row of 128 int8 values
+// is 128 bytes, so a [rows x 128] K-major int8 tile under the 128-byte
+// swizzle has the geometry of the bf16 tiles above (swizzled, wgmma_desc),
+// and a k32 step is 32 bytes deep as a bf16 k16 step is: step kk starts at
+// descriptor + 2 kk. wgmma takes 8-bit operands K-major only.
+// ---------------------------------------------------------------------------
+
+// Starts the copies of a [kRows x 128-byte] int8 tile from ``src`` (its
+// first row and first byte of k; rows ``ld`` bytes apart) into the swizzled
+// tile at ``dst``, by the kThreads threads of the block: rows at or past
+// ``rows`` and bytes at or past ``kbytes`` of a row arrive as zeros and are
+// not read.
+template <int kRows, int kThreads>
+__device__ __forceinline__ void copy_s8_tile_async(uint32_t dst,
+                                                   const int8_t* src,
+                                                   long long ld, int rows,
+                                                   int kbytes) {
+  static_assert(kRows * 8 % kThreads == 0, "whole 16-byte chunks a thread");
+#pragma unroll
+  for (int j = 0; j < kRows * 8 / kThreads; ++j) {
+    const int i = threadIdx.x + kThreads * j, r = i >> 3, c = i & 7;
+    const bool valid = r < rows && c * 16 < kbytes;
+    cp_async_16(dst + swizzled(r, c), src + (valid ? r * ld + c * 16 : 0),
+                valid);
+  }
+}
+
+// The compiler keeps every ordinary read and write of an int32 accumulator
+// on its side of this point (acc_fence for the s8 products).
+__device__ __forceinline__ void acc_fence(int (&acc)[16][4]) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(acc[n][e])::"memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait(int (&acc)[16][4]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+  acc_fence(acc);
+}
+
+#define CXR_ACC4(d, n) \
+  "+r"(d[n][0]), "+r"(d[n][1]), "+r"(d[n][2]), "+r"(d[n][3])
+// One asynchronous m64n128k32 step of a warpgroup, int8 in, int32
+// accumulated: D += A B^T with A (64 rows) and B (128 rows) K-major
+// swizzled int8 tiles read through their descriptors. D is the warp's
+// 16 x 128 accumulator in the f32 layout: d[n] holds rows g and g + 8 at
+// columns 8n + 2t, 8n + 2t + 1 (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[16][4],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n"
+      "}\n"
+      : CXR_ACC4(d, 0), CXR_ACC4(d, 1), CXR_ACC4(d, 2), CXR_ACC4(d, 3),
+        CXR_ACC4(d, 4), CXR_ACC4(d, 5), CXR_ACC4(d, 6), CXR_ACC4(d, 7),
+        CXR_ACC4(d, 8), CXR_ACC4(d, 9), CXR_ACC4(d, 10), CXR_ACC4(d, 11),
+        CXR_ACC4(d, 12), CXR_ACC4(d, 13), CXR_ACC4(d, 14), CXR_ACC4(d, 15)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+#undef CXR_ACC4
+
+// acc += A B^T over one 128-byte-deep k tile: the first ``ksteps`` (1 to
+// 4, block-uniform) k32 steps, asynchronous (the caller fences before,
+// commits after and waits before it reads ``acc``).
+__device__ __forceinline__ void tile_mma_s8(int (&acc)[16][4], uint32_t a_tile,
+                                            uint32_t b_tile, int ksteps) {
+  const uint64_t da = wgmma_desc(a_tile), db = wgmma_desc(b_tile);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    if (kk < ksteps) wgmma_m64n128k32_s8(acc, da + 2 * kk, db + 2 * kk);
 }
 
 }  // namespace cxr

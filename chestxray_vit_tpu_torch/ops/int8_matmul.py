@@ -32,7 +32,7 @@ __all__ = ["int8_matmul_fused", "int8_matmul_fused_reference",
            "quantize_static"]
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-K_STEP = 64          # the kernel's K tile: K must be a multiple of it
+K_STEP = 64          # K must be a multiple of it (half the kernel's k tile)
 
 
 def int8_matmul_fused_reference(xq: torch.Tensor, wq: torch.Tensor,
@@ -118,6 +118,9 @@ def int8_matmul_fused(xq: torch.Tensor, wq: torch.Tensor,
     qs = (out_quant_scale.float().reshape(1).contiguous()
           if out_quant_scale is not None else None)
     _check(xq, wq, scale, bias, resid, qs, out_dtype)
+    # the kernel reads scale, bias and the residual in 16-byte pieces
+    scale, bias, resid = (t.clone() if t is not None and t.data_ptr() % 16
+                          else t for t in (scale, bias, resid))
     n, k = wq.shape
     out = torch.empty((*xq.shape[:-1], n), device=xq.device,
                       dtype=torch.int8 if qs is not None else out_dtype)

@@ -121,6 +121,9 @@ def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError("layer_norm_cuda builds no autograd graph; call "
                            "layer_norm for gradients")
     _check_params(x, ("scale", scale), ("bias", bias))
+    # the kernel reads scale and bias in 16-byte pieces
+    scale, bias = (t.clone() if t.data_ptr() % 16 else t
+                   for t in (scale, bias))
     d = x.shape[-1]
     y = torch.empty_like(x)
     err = kernels.library().cxr_layer_norm_fwd(

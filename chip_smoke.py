@@ -11,11 +11,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    result); its name and power limit as nvidia-smi prints them.
 2. build: the kernels in chestxray_vit_tpu_torch/csrc/ built with nvcc
    (one process per source, all at once).
-3. kernel_check: each kernel against its plain PyTorch version on the card,
-   at its path's shapes (ViT-B/16 @384: batch 8 for serving, batch 36 for
-   training), with the tolerance stated; the median time of each, of its
-   plain version and of the one PyTorch call that computes the same
-   function (timed only, never used by the port), and its bound. The
+3. kernel_check: after a second of products that brings the card to its
+   working clocks, each kernel against its plain PyTorch version on the
+   card, at its path's shapes (ViT-B/16 @384: batch 8 for serving, batch 32
+   for int8 serving, batch 36 for training), with the tolerance stated; the
+   median time of each, of its plain version and of the one PyTorch call
+   that computes the same function (timed only, never used by the port),
+   and its bound. The int8 kernel and the LayerNorm forward also give the
+   profiler's device time beside the CUDA-event time (``device_ms``: the
+   card alone, where events around a fast call also time the host), their
+   library call's too, and their time before their redesign
+   (``earlier_ms``, EARLIER_INT8_MS, EARLIER_LN_MS). The
    dropout kernels at [36, 12, 577, 64], rate 0.1: the debug kernel's mask
    against the plain counter hash (0 mismatches), o, lse and dq/dk/dv. The
    dense, inference and dropout attention kernels are also checked, not
@@ -88,8 +94,9 @@ kernel_check also holds the four segment kernels to their plain versions at
 576; mixed with padding (1024 + 128 pad, 576 + 256 + 256 + 64 pad,
 4 x 256 + 128 pad); and ragged with interleaved ids (S = 1136, the order a
 token merge leaves). It also holds the int8 kernel to its plain version at the batch-32
-serving shapes in its four call forms (patch embed, Q/K/V, the residual
-forms of wo and mlp_out, mlp_in with GELU and requantize).
+serving shapes in its five call forms (INT8_FORMS: patch embed, Q/K/V, the
+residual forms of wo and mlp_out, mlp_in with GELU and requantize), equal
+bits twice.
 
 The second-to-last line is the kernels summary, the last one the result.
 """
@@ -232,6 +239,29 @@ EARLIER_BWD_MS = {"flash_attention_bwd": 1.7810,
                   "flash_attention_dropout_bwd": 1.9064}
 EARLIER_FWD_MS = {"flash_attention_fwd": 0.4434,
                   "flash_attention_inference": 0.1046}
+# The int8 kernel before its redesign (mma.sync, two cp.async stages,
+# 2-element stores) and the LayerNorm forward before its own (registers
+# for D = 2048, one row a warp): (CUDA-event ms, profiler device ms), the
+# mean of two runs of attn_probe.py --parent on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, at check_int8_matmul's five forms and at check_layer_norm's
+# bf16 rows by the scale's dtype.
+EARLIER_INT8_MS = {"patch_embed": (0.07247200012207031, 0.06717615000000002),
+                   "q": (0.07384960055351257, 0.06727784999999997),
+                   "wo_resid": (0.09932319819927216, 0.09270415000000011),
+                   "mlp_in_gelu_requant": (0.341815996170044,
+                                           0.32579794999999995),
+                   "mlp_out_resid": (0.2323807954788208, 0.2212899)}
+EARLIER_LN_MS = {(4616, "torch.bfloat16"): (0.02654239982366562,
+                                            0.009964300000000027),
+                 (18464, "torch.bfloat16"): (0.044433599710464476,
+                                             0.04048999999999998),
+                 (18464, "torch.float32"): (0.05555679798126221,
+                                            0.05183605000000009),
+                 (20772, "torch.bfloat16"): (0.04831520020961762,
+                                             0.04487954999999995)}
+# Seconds of back-to-back products that bring the card to its working
+# clocks before the first kernel is timed.
+WARM_UP_S = 1.0
 
 
 def emit(obj: dict) -> None:
@@ -270,10 +300,12 @@ def time_pair(kernel, plain, plain_reps: int = 7,
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def backward_pass_ms(fn, calls: int = 10) -> dict:
-    """``dkdv_ms`` and ``dq_ms``: mean device milliseconds per call of an
-    attention backward's dK/dV kernel and dQ kernel (``delta_ms``: its
-    pre-pass), from a ``torch.profiler`` trace of ``calls`` calls."""
+def device_ms(fn, calls: int = 10, parts: tuple = ()) -> dict:
+    """``device_ms``: mean device milliseconds per call of every kernel
+    ``fn`` launches, from a ``torch.profiler`` trace of ``calls`` calls (the
+    card's time alone, where CUDA events around the calls also time a host
+    that cannot keep up); ``<part>_ms`` for each name fragment in
+    ``parts``: the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -282,12 +314,24 @@ def backward_pass_ms(fn, calls: int = 10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {"delta_ms": 0.0, "dkdv_ms": 0.0, "dq_ms": 0.0}
+    out = {"device_ms": 0.0, **{f"{part}_ms": 0.0 for part in parts}}
     for ev in prof.key_averages():
-        for part in ("delta", "dkdv", "dq"):
-            if f"attn_bwd_{part}" in ev.key:
-                out[f"{part}_ms"] += ev.device_time_total / 1e3 / calls
+        ms = ev.device_time_total / 1e3 / calls
+        out["device_ms"] += ms
+        for part in parts:
+            if part in ev.key:
+                out[f"{part}_ms"] += ms
     return out
+
+
+def backward_pass_ms(fn, calls: int = 10) -> dict:
+    """``dkdv_ms`` and ``dq_ms``: mean device milliseconds per call of an
+    attention backward's dK/dV kernel and dQ kernel (``delta_ms``: its
+    pre-pass)."""
+    got = device_ms(fn, calls, ("attn_bwd_delta", "attn_bwd_dkdv",
+                                "attn_bwd_dq"))
+    return {f"{part}_ms": got[f"attn_bwd_{part}_ms"]
+            for part in ("delta", "dkdv", "dq")}
 
 
 def bound(nbytes: float, flops: float, dtype, core_ops: float = 0.0,
@@ -436,13 +480,26 @@ def phase_build() -> None:
           "library": path.name})
 
 
+def warm_up() -> float:
+    """Busy the card with bf16 products for WARM_UP_S seconds, so that the
+    first kernel timed does not meet it at idle clocks; returns the
+    seconds spent."""
+    a = torch.ones((4096, 4096), device="cuda", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < WARM_UP_S:
+        for _ in range(20):
+            a @ a
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def phase_kernel_check() -> dict:
     from chestxray_vit_tpu_torch.ops import flash_attention as fa
-    from chestxray_vit_tpu_torch.ops import layer_norm as ln
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     summary = {}
+    emit({"phase": "kernel_check", "warm_up_s": warm_up()})
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -473,10 +530,31 @@ def phase_kernel_check() -> dict:
             require(rec["finite"] and err <= ATTN_TOL[dtype],
                     f"attention S={s} {dtype}: err {err}")
 
-    rows, d = BATCH * 577, 768
-    for x_dtype, w_dtype in ((torch.bfloat16, torch.bfloat16),
-                             (torch.bfloat16, torch.float32),
-                             (torch.float32, torch.float32)):
+    check_layer_norm(randn, summary)
+    check_int8_matmul(gen, summary)
+    check_training_attention(randn, summary)
+    check_layer_norm_bwd(randn, summary)
+    check_dropout_attention(randn, summary)
+    check_packed_attention(randn, summary)
+    return summary
+
+
+def check_layer_norm(randn, summary: dict) -> None:
+    """The LayerNorm forward kernel against its plain version at the
+    serving rows (8 × 577) in three dtype pairs, and in bf16 at the int8
+    serving rows (32 × 577: the summary row) and the training rows (36 ×
+    577); times by CUDA events and by the profiler's device time, beside
+    ``F.layer_norm``'s."""
+    from chestxray_vit_tpu_torch.ops import layer_norm as ln
+
+    d = 768
+    cases = [(BATCH * 577, torch.bfloat16, torch.bfloat16),
+             (BATCH * 577, torch.bfloat16, torch.float32),
+             (BATCH * 577, torch.float32, torch.float32),
+             (INT8_BATCH * 577, torch.bfloat16, torch.bfloat16),
+             (INT8_BATCH * 577, torch.bfloat16, torch.float32),
+             (TRAIN_BATCH * 577, torch.bfloat16, torch.bfloat16)]
+    for rows, x_dtype, w_dtype in cases:
         x = randn((rows, d), x_dtype) * 3 + 1
         s_, b_ = randn((d,), w_dtype), randn((d,), w_dtype)
         y = ln.layer_norm_cuda(x, s_, b_, 1e-12)
@@ -489,67 +567,84 @@ def phase_kernel_check() -> dict:
             tol = "1 bf16 ulp + 1e-5"
         else:
             ok, tol = err <= LN_F32_TOL, LN_F32_TOL
+
+        def kernel():
+            return ln.layer_norm_cuda(x, s_, b_, 1e-12)
+
         ms, plain_ms = time_pair(
-            lambda: ln.layer_norm_cuda(x, s_, b_, 1e-12),
-            lambda: ln.layer_norm_reference(x, s_, b_, 1e-12))
+            kernel, lambda: ln.layer_norm_reference(x, s_, b_, 1e-12))
         rec = {"phase": "kernel_check", "kernel": "layer_norm",
                "shape": [rows, d], "dtype": str(x_dtype),
                "scale_dtype": str(w_dtype), "max_abs_err": err, "tol": tol,
-               "ms": ms, "plain_ms": plain_ms,
+               "ms": ms, "plain_ms": plain_ms, **device_ms(kernel),
                **layer_norm_bound(rows, d, x_dtype, w_dtype)}
-        if x_dtype == w_dtype == torch.bfloat16:
-            rec["library_ms"] = time_ms(
-                lambda: torch.nn.functional.layer_norm(x, (d,), s_, b_,
-                                                       1e-12))
+        if x_dtype == torch.bfloat16:
+            def library():
+                return torch.nn.functional.layer_norm(x, (d,), s_.to(x_dtype),
+                                                      b_.to(x_dtype), 1e-12)
+            rec["library_ms"] = time_ms(library)
+            rec["library_device_ms"] = device_ms(library)["device_ms"]
+            earlier = EARLIER_LN_MS.get((rows, str(w_dtype)))
+            if earlier is not None:
+                rec["earlier_ms"], rec["earlier_device_ms"] = earlier
+        if rows == INT8_BATCH * 577 and w_dtype == torch.bfloat16:
             summary["layer_norm"] = rec
         emit(rec)
         require(ok, f"layer_norm {x_dtype}/{w_dtype}: err {err}")
-    check_int8_matmul(gen, summary)
-    check_training_attention(randn, summary)
-    check_layer_norm_bwd(randn, summary)
-    check_dropout_attention(randn, summary)
-    check_packed_attention(randn, summary)
-    return summary
+
+
+# The int8 kernel's call forms in the batch-32 static int8 forward: name,
+# M, K, N, residual, GELU + requantize.
+INT8_FORMS = (
+    ("patch_embed", INT8_BATCH * 576, 768, 768, False, False),
+    ("q", INT8_BATCH * 577, 768, 768, False, False),
+    ("wo_resid", INT8_BATCH * 577, 768, 768, True, False),
+    ("mlp_in_gelu_requant", INT8_BATCH * 577, 768, 3072, False, True),
+    ("mlp_out_resid", INT8_BATCH * 577, 3072, 768, True, False))
+
+
+def int8_operands(gen, m, k, n, with_resid, gelu) -> tuple:
+    """(xq, wq, scale, bias, keyword arguments) of one call form, drawn
+    from ``gen`` on the card."""
+    dev = torch.device("cuda")
+
+    def rint8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    xq, wq = rint8(m, k), rint8(n, k)
+    # scales that put y = acc·scale + bias at O(1), as calibration does
+    scale = (torch.rand(n, generator=gen, device=dev) + 0.5) \
+        / (127.0 * 127.0 * k ** 0.5)
+    bias = torch.randn(n, generator=gen, device=dev) * 0.1
+    kw = {}
+    if with_resid:
+        kw["resid"] = torch.randn(m, n, generator=gen, device=dev).to(
+            torch.bfloat16)
+    if gelu:
+        kw.update(gelu=True, out_quant_scale=torch.tensor(0.02, device=dev))
+    return xq, wq, scale, bias, kw
 
 
 def check_int8_matmul(gen, summary: dict) -> None:
     """The int8 kernel against its plain version at the batch-32 serving
-    shapes, in the four call forms of the fused route: outputs equal, int8
-    included; times beside ``torch._int_mm`` (the
-    int32 product alone, on the same operands). The mlp_in form is the
-    summary row."""
+    shapes, in the call forms of the fused route (INT8_FORMS): outputs
+    equal, int8 included; times by CUDA events and by the profiler's device
+    time beside ``torch._int_mm``'s (the int32 product alone, on the same
+    operands). The mlp_in form is the summary row."""
     from chestxray_vit_tpu_torch.ops import int8_matmul as i8
 
-    dev = torch.device("cuda")
-    tokens = INT8_BATCH * 577
-    forms = (  # name, M, K, N, residual, GELU + requantize
-        ("patch_embed", INT8_BATCH * 576, 768, 768, False, False),
-        ("q", tokens, 768, 768, False, False),
-        ("wo_resid", tokens, 768, 768, True, False),
-        ("mlp_in_gelu_requant", tokens, 768, 3072, False, True),
-        ("mlp_out_resid", tokens, 3072, 768, True, False))
-    for name, m, k, n, with_resid, gelu in forms:
-        def rint8(*shape):
-            return torch.randint(-127, 128, shape, generator=gen, device=dev,
-                                 dtype=torch.int8)
-
-        xq, wq = rint8(m, k), rint8(n, k)
-        # scales that put y = acc·scale + bias at O(1), as calibration does
-        scale = (torch.rand(n, generator=gen, device=dev) + 0.5) \
-            / (127.0 * 127.0 * k ** 0.5)
-        bias = torch.randn(n, generator=gen, device=dev) * 0.1
-        kw = {}
-        if with_resid:
-            kw["resid"] = torch.randn(m, n, generator=gen, device=dev).to(
-                torch.bfloat16)
-        if gelu:
-            kw.update(gelu=True,
-                      out_quant_scale=torch.tensor(0.02, device=dev))
+    for name, m, k, n, with_resid, gelu in INT8_FORMS:
+        xq, wq, scale, bias, kw = int8_operands(gen, m, k, n, with_resid,
+                                                gelu)
         out = i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
+        again = i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
         ref = i8.int8_matmul_fused_reference(xq, wq, scale, bias, **kw)
         torch.cuda.synchronize()
         diff = (out.float() - ref.float()).abs()
         flips = int((diff > 0).sum())
+        equal_twice = torch.equal(out, again)
+        del again
         ms, plain_ms = time_pair(
             lambda: i8.int8_matmul_fused(xq, wq, scale, bias, **kw),
             lambda: i8.int8_matmul_fused_reference(xq, wq, scale, bias,
@@ -561,9 +656,15 @@ def check_int8_matmul(gen, summary: dict) -> None:
         rec = {"phase": "kernel_check", "kernel": "int8_matmul_fused",
                "form": name, "m_k_n": [m, k, n],
                "out_dtype": str(out.dtype), "max_abs_err": diff.max().item(),
-               "mismatched": flips, "tol": "equal", "ms": ms,
-               "plain_ms": plain_ms,
+               "mismatched": flips, "equal_twice": equal_twice,
+               "tol": "equal", "ms": ms, "plain_ms": plain_ms,
+               **device_ms(lambda: i8.int8_matmul_fused(xq, wq, scale, bias,
+                                                         **kw)),
+               "earlier_ms": EARLIER_INT8_MS[name][0],
+               "earlier_device_ms": EARLIER_INT8_MS[name][1],
                "library_ms": time_ms(lambda: torch._int_mm(xq, wt)),
+               "library_device_ms": device_ms(
+                   lambda: torch._int_mm(xq, wt))["device_ms"],
                "tops": 2 * m * k * n / ms / 1e9,
                **bound(m * k + n * k + 8 * n + 2 * m * n * with_resid
                        + out_bytes, 2 * m * k * n, torch.int8,
@@ -571,9 +672,10 @@ def check_int8_matmul(gen, summary: dict) -> None:
         emit(rec)
         if gelu:
             summary["int8_matmul_fused"] = rec
-        require(bool(torch.isfinite(out.float()).all()) and flips == 0,
+        require(bool(torch.isfinite(out.float()).all()) and flips == 0
+                and equal_twice,
                 f"int8_matmul_fused {name}: {flips} mismatched, max "
-                f"{diff.max().item()}")
+                f"{diff.max().item()}, equal twice {equal_twice}")
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:

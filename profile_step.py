@@ -39,7 +39,8 @@ CATEGORIES = (
     ("int8_matmul", ("int8_gemm",)),
     ("attention_fwd", ("attn_fwd",)),
     ("attention_bwd", ("attn_bwd",)),
-    ("layer_norm", ("ln_fwd", "ln_bwd", "layer_norm")),
+    ("layer_norm_fwd", ("ln_fwd",)),
+    ("layer_norm_bwd", ("ln_bwd",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("random", ("philox", "distribution", "uniform", "bernoulli")),
     ("sort_scatter", ("sort", "scatter", "gather", "radix", "scan")),

@@ -141,9 +141,24 @@ def test_attention_kernel_refuses_what_it_does_not_take(dev):
         fa.flash_attention_fwd(q, q, q)
 
 
-@pytest.mark.parametrize("x_dtype,w_dtype", [
-    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
-    (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
+_LN_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+             (torch.float32, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+def _assert_ln_close(y, ref, x_dtype):
+    """f32: 1e-5. bf16: one bf16 ulp (the f32 statistics may round either
+    way at the end) plus 1e-5 for the f32 rounding of the affine step,
+    which shows where x̂·scale and bias cancel to a small output."""
+    ref = ref.float()
+    if x_dtype == torch.float32:
+        torch.testing.assert_close(y, ref, atol=1e-5, rtol=1e-5)
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30)))
+                         - 7)
+        assert ((y.float() - ref).abs() <= ulp + 1e-5).all()
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", _LN_PAIRS)
 def test_layer_norm_kernel_matches_plain(dev, x_dtype, w_dtype):
     x = _randn((8 * 577, 768), x_dtype, dev) * 3 + 1
     s, b = _randn((768,), w_dtype, dev, 1), _randn((768,), w_dtype, dev, 2)
@@ -151,16 +166,47 @@ def test_layer_norm_kernel_matches_plain(dev, x_dtype, w_dtype):
     y = ln.layer_norm(x, s, b, 1e-12)
     torch.cuda.synchronize()
     assert ln.layer_norm_cuda.launches == before + 1
-    ref = ln.layer_norm_reference(x, s, b, 1e-12).float()
-    if x_dtype == torch.float32:
-        torch.testing.assert_close(y, ref, atol=1e-5, rtol=1e-5)
-    else:
-        # one bf16 ulp (the f32 statistics may round either way at the end)
-        # plus 1e-5 for the f32 rounding of the affine step, which shows
-        # where x̂·scale and bias cancel to a small output
-        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30)))
-                         - 7)
-        assert ((y.float() - ref).abs() <= ulp + 1e-5).all()
+    _assert_ln_close(y, ln.layer_norm_reference(x, s, b, 1e-12), x_dtype)
+
+
+# every rung of the forward's register ladder (16-byte vectors a lane: 1, 2,
+# 3, 4, 6, 8 in bf16; f32 rows hold half the values and stop at D = 1024)
+_LN_WIDTHS = {torch.bfloat16: [16, 128, 512, 768, 1024, 1536, 2048],
+              torch.float32: [16, 128, 512, 768, 1024]}
+
+
+@pytest.mark.parametrize("rows", [1, 7, 32 * 577])
+@pytest.mark.parametrize("x_dtype,w_dtype,d", [
+    (x, w, d) for x, w in _LN_PAIRS for d in _LN_WIDTHS[x]])
+def test_layer_norm_kernel_matches_plain_at_every_width(dev, x_dtype, w_dtype,
+                                                        d, rows):
+    x = _randn((rows, d), x_dtype, dev) * 3 + 1
+    s, b = _randn((d,), w_dtype, dev, 1), _randn((d,), w_dtype, dev, 2)
+    y = ln.layer_norm_cuda(x, s, b, 1e-12)
+    torch.cuda.synchronize()
+    _assert_ln_close(y, ln.layer_norm_reference(x, s, b, 1e-12), x_dtype)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", _LN_PAIRS)
+@pytest.mark.parametrize("rows,d", [(1, 768), (7, 768), (65, 16),
+                                    (1000, 128)])
+def test_layer_norm_fwd_reads_and_writes_no_row_past_the_last(
+        dev, x_dtype, w_dtype, rows, d):
+    """The forward entry point on the first ``rows`` rows of buffers that
+    hold three more: NaN after the input, a sentinel after the output."""
+    x = torch.full((rows + 3, d), float("nan"), device=dev, dtype=x_dtype)
+    x[:rows] = _randn((rows, d), x_dtype, dev) * 3 + 1
+    s, b = _randn((d,), w_dtype, dev, 1), _randn((d,), w_dtype, dev, 2)
+    y = torch.full((rows + 3, d), 7.0, device=dev, dtype=x_dtype)
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    kernels.check(kernels.library().cxr_layer_norm_fwd(
+        x.data_ptr(), s.data_ptr(), b.data_ptr(), y.data_ptr(), rows, d,
+        1e-12, codes[x_dtype], codes[w_dtype], dev.index or 0,
+        torch.cuda.current_stream().cuda_stream), "layer_norm")
+    torch.cuda.synchronize()
+    _assert_ln_close(y[:rows], ln.layer_norm_reference(x[:rows], s, b, 1e-12),
+                     x_dtype)
+    assert bool((y[rows:] == 7.0).all())
 
 
 def test_layer_norm_kernel_refuses_what_it_does_not_take(dev):
@@ -252,23 +298,39 @@ def test_attention_fwd_bwd_kernels_match_plain(dev, s, dtype):
                                                           do), dtype, s)
 
 
-@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4])
 @pytest.mark.parametrize("rows", [64, 48, 17, 1])
 def test_tile_helpers_multiply_like_matmul(dev, mode, rows):
-    """The attention kernels' tile machinery alone (cp.async into 128-byte
-    swizzled tiles, B through a wgmma descriptor): a known 64 x 64 A times a
-    known B, B whole and with only its first rows present, against
-    torch.matmul in f32. Mode 0: A Bᵀ, A as ldmatrix fragments, B K-major; mode 1: A B, B in
-    the transposed (MN-major) form, only the k-steps that reach a row of B;
-    mode 2: A Bᵀ with A through a descriptor too. bf16 products are exact in
-    f32 and 64 of them sum to within a few f32 ulps of O(10)."""
-    a = _randn((64, 64), torch.bfloat16, dev, seed=1)
-    b = _randn((64, 64), torch.bfloat16, dev, seed=2)
-    c = torch.full((64, 64), float("nan"), device=dev)
+    """The kernels' tile machinery alone (cp.async into 128-byte swizzled
+    tiles, B through a wgmma descriptor): a known A times a known B, B whole
+    and with only its first rows present, against torch.matmul. bf16, in
+    f32: mode 0: A Bᵀ (64 x 64 x 64), A as ldmatrix fragments, B K-major;
+    mode 1: A B, B in the transposed (MN-major) form, only the k-steps that
+    reach a row of B; mode 2: A Bᵀ with A through a descriptor too. bf16
+    products are exact in f32 and 64 of them sum to within a few f32 ulps of
+    O(10). int8, exactly, against the int64 product: mode 3: A Bᵀ with A and
+    B [64, 128] int8 tiles through the int8 kernel's s8 wgmma (m64n128k32,
+    B's tile 128 rows, those past ``rows`` zero-filled); mode 4: the same
+    on the first 64 of the 128 bytes of k (a half k tile)."""
+    if mode >= 3:
+        g = torch.Generator(device=dev).manual_seed(1)
+        a, b = (torch.randint(-128, 128, (64, 128), generator=g, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+        c = torch.full((64, 64), -12345, device=dev, dtype=torch.int32)
+    else:
+        a = _randn((64, 64), torch.bfloat16, dev, seed=1)
+        b = _randn((64, 64), torch.bfloat16, dev, seed=2)
+        c = torch.full((64, 64), float("nan"), device=dev)
     kernels.check(kernels.library().cxr_tile_mma_selftest(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), mode, rows, dev.index or 0,
         torch.cuda.current_stream().cuda_stream), "tile_mma_selftest")
     torch.cuda.synchronize()
+    if mode >= 3:
+        k = 128 if mode == 3 else 64
+        a64, b64 = a.long().cpu()[:, :k], b.long().cpu()[:, :k]
+        b64[rows:] = 0
+        assert torch.equal(c.cpu().long(), a64 @ b64.t())
+        return
     bz = b.float()
     bz[rows:] = 0
     ref = a.float() @ (bz if mode == 1 else bz.t())
@@ -656,16 +718,9 @@ def _int8_operands(dev, m, k, n, seed=0):
             torch.randn(m, n, generator=g, device=dev))
 
 
-@pytest.mark.parametrize("m", [3 * 577, 5])
-@pytest.mark.parametrize("k,n", [(192, 768), (768, 768), (768, 3072),
-                                 (3072, 768)])
-@pytest.mark.parametrize("form", ["plain", "resid", "gelu_requant",
-                                  "plain_f32", "resid_f32"])
-def test_int8_kernel_matches_plain(dev, m, k, n, form):
-    """Every output equals the plain version's, int8 included: the integer
-    sums are exact and the epilogue rounds at the same points, its exp2f
-    included (libdevice's, as PyTorch's exp2 on the card)."""
-    xq, wq, scale, bias, resid = _int8_operands(dev, m, k, n)
+def _int8_call(dev, m, k, n, form, seed=0):
+    """(kernel output, plain output) of one call form on seeded operands."""
+    xq, wq, scale, bias, resid = _int8_operands(dev, m, k, n, seed)
     dtype = torch.float32 if form.endswith("f32") else torch.bfloat16
     kw = {"out_dtype": dtype}
     if form.startswith("resid"):
@@ -674,11 +729,37 @@ def test_int8_kernel_matches_plain(dev, m, k, n, form):
         kw.update(gelu=True, out_quant_scale=torch.tensor(0.02, device=dev))
     before = i8.int8_matmul_fused.launches
     out = i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
-    ref = i8.int8_matmul_fused_reference(xq, wq, scale, bias, **kw)
-    torch.cuda.synchronize()
     assert i8.int8_matmul_fused.launches == before + 1
+    return out, i8.int8_matmul_fused_reference(xq, wq, scale, bias, **kw)
+
+
+# rows: the batch-32 serving rows (144 tiles of 128 and a 32-row tail), a
+# few images, one tile, one tile and a row, a few rows. k, n: the model's
+# products, K = 192 (one and a half 128-byte k tiles) and 64 (half a tile),
+# N = 64 (half an output tile) and 136 (a tile and 8 columns: N % 16 = 8)
+@pytest.mark.parametrize("m", [32 * 577, 3 * 577, 64, 65, 5])
+@pytest.mark.parametrize("k,n", [(192, 768), (768, 768), (768, 3072),
+                                 (3072, 768), (64, 768), (768, 64),
+                                 (768, 136), (192, 136), (64, 64)])
+@pytest.mark.parametrize("form", ["plain", "resid", "gelu_requant",
+                                  "plain_f32", "resid_f32"])
+def test_int8_kernel_matches_plain(dev, m, k, n, form):
+    """Every output equals the plain version's, int8 included: the integer
+    sums are exact and the epilogue rounds at the same points, its exp2f
+    included (libdevice's, as PyTorch's exp2 on the card)."""
+    out, ref = _int8_call(dev, m, k, n, form)
+    torch.cuda.synchronize()
     assert out.dtype == ref.dtype and out.shape == (m, n)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("form", ["resid", "gelu_requant"])
+def test_int8_kernel_is_deterministic(dev, form):
+    """Two calls on the same operands give equal bits."""
+    first, _ = _int8_call(dev, 32 * 577, 768, 3072, form)
+    again, _ = _int8_call(dev, 32 * 577, 768, 3072, form)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 def test_int8_kernel_refuses_what_it_does_not_take(dev):
