@@ -40,7 +40,10 @@ same card. A build:
 - ln (``--only ln``): the LayerNorm forward at the serving, int8 serving
   and training rows (x 768, bf16; the int8 rows with an f32 scale too):
   error against the plain version, CUDA-event and device times beside
-  ``F.layer_norm``'s;
+  ``F.layer_norm``'s; the backward at the dense and packed training rows
+  (36 × 577, 32 × 1152) with a bf16 and an f32 scale: errors, equal bits
+  twice, event and device times (its column pass apart) beside
+  ``aten.native_layer_norm_backward``'s;
 - reports the registers, spills and shared memory of the part's kernels
   from the build log (``-Xptxas -v``).
 
@@ -107,7 +110,7 @@ def selftest(gen) -> dict:
 # the kernels each part reports from the build log
 REPORTED = {"": r"attn_(?:fwd|bwd_d)\w*bf16", "fwd": r"attn_fwd\w*bf16",
             "bwd": r"attn_bwd_d\w*bf16", "int8": r"int8_gemm_fused",
-            "ln": r"ln_fwd"}
+            "ln": r"ln_fwd|ln_bwd"}
 
 
 def build_report(only: str) -> dict:
@@ -388,6 +391,52 @@ def layer_norm(gen, out: dict) -> None:
         out[key] = {"ms": time_ms(kernel), **device_ms(kernel),
                     "library_ms": time_ms(library),
                     "library_device_ms": device_ms(library)["device_ms"]}
+    layer_norm_bwd(gen, out)
+
+
+def layer_norm_bwd(gen, out: dict) -> None:
+    """The LayerNorm backward at the dense and packed training rows (x 768,
+    bf16; the block LNs' bf16 scale and the final LN's f32 scale): errors
+    against the plain version, equal bits twice, CUDA-event and device
+    times (``second_pass_ms``: the device time of the kernel after the main
+    one, whose name starts ``ln_bwd_``), beside
+    ``aten.native_layer_norm_backward``'s with the scale in bf16."""
+    from chestxray_vit_tpu_torch.ops import layer_norm as ln
+    from chip_smoke import device_ms, rel_err, time_ms
+
+    d = 768
+    for rows in (36 * 577, 32 * 1152):
+        for w_dtype in (torch.bfloat16, torch.float32):
+            x, dy = ((torch.randn((rows, d), generator=gen, device="cuda")
+                      * k + m).to(torch.bfloat16) for k, m in ((3, 1), (1, 0)))
+            s = torch.randn((d,), generator=gen, device="cuda").to(w_dtype)
+
+            def kernel():
+                return ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
+
+            got, again = kernel(), kernel()
+            ref = ln.layer_norm_bwd_reference(x, s, dy, 1e-12)
+            torch.cuda.synchronize()
+            key = f"ln_bwd_{rows}_{str(w_dtype).split('.')[-1]}"
+            out["errors"][key] = {"dx": abs_err(got[0], ref[0]),
+                                  "dscale_dbias_rel": [rel_err(g, r) for g, r
+                                                       in zip(got[1:],
+                                                              ref[1:])]}
+            out["equal_twice"] &= all(torch.equal(a, b)
+                                      for a, b in zip(got, again))
+            dev = device_ms(kernel, parts=("ln_bwd_",))
+            out[key] = {"ms": time_ms(kernel), "device_ms": dev["device_ms"],
+                        "second_pass_ms": dev["ln_bwd__ms"]}
+            ls = s.to(torch.bfloat16)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(
+                x, [d], ls, torch.zeros_like(ls), 1e-12)
+
+            def library():
+                return torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [d], mean, rstd, ls, ls, [True] * 3)
+
+            out[key]["library_ms"] = time_ms(library)
+            out[key]["library_device_ms"] = device_ms(library)["device_ms"]
 
 
 def child(only: str) -> int:

@@ -71,6 +71,7 @@ _SIGNATURES = {
     "cxr_layer_norm_fwd": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
     "cxr_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I,
                            _I, _I, _I, _P],
+    "cxr_layer_norm_bwd_wave": [_I, _I, _I, _I, _P],
     "cxr_int8_matmul_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _P],
     "cxr_tile_mma_selftest": [_P, _P, _P, _I, _I, _I, _P],

@@ -16,6 +16,7 @@ x's dtype, with the memory-lean gradient of the JAX package's custom VJP.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -138,12 +139,27 @@ def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
 layer_norm_cuda.launches = 0     # kernel launches, read by chip_smoke.py
 
 
+_BWD_ROWS_PER_BLOCK = 8    # warps of a backward block (kBwdWarps)
+
+
+def _bwd_blocks(x: torch.Tensor, scale: torch.Tensor, rows: int) -> int:
+    """Blocks of the backward kernel for ``rows`` rows: one a
+    ``_BWD_ROWS_PER_BLOCK`` rows, at most one wave (the blocks resident on
+    the card at once, which the library finds once per device, D and
+    dtypes)."""
+    wave = ctypes.c_int(0)
+    kernels.check(kernels.library().cxr_layer_norm_bwd_wave(
+        x.shape[-1], _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
+        x.device.index, ctypes.byref(wave)), "layer_norm_bwd")
+    return max(1, min(-(-rows // _BWD_ROWS_PER_BLOCK), wave.value))
+
+
 def layer_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
                         dy: torch.Tensor, eps: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the LayerNorm backward kernel: (dx in x's dtype, dscale and
-    dbias in scale's dtype). Deterministic: each of at most two blocks per
-    SM writes f32 partial sums that a second pass adds in block order."""
+    dbias in scale's dtype). Deterministic: each block of one wave writes
+    f32 partial sums that a column pass adds in block order."""
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_bwd_cuda needs CUDA tensors, got "
                          f"{x.device}")
@@ -156,8 +172,7 @@ def layer_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
         dy = dy.clone()
     d = x.shape[-1]
     rows = x.numel() // d
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_blocks = max(1, min((rows + 7) // 8, 2 * sms))
+    n_blocks = _bwd_blocks(x, scale, rows)
     dx = torch.empty_like(x)
     dscale = torch.empty(d, dtype=scale.dtype, device=x.device)
     dbias = torch.empty(d, dtype=scale.dtype, device=x.device)

@@ -17,11 +17,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    for int8 serving, batch 36 for training), with the tolerance stated; the
    median time of each, of its plain version and of the one PyTorch call
    that computes the same function (timed only, never used by the port),
-   and its bound. The int8 kernel and the LayerNorm forward also give the
-   profiler's device time beside the CUDA-event time (``device_ms``: the
-   card alone, where events around a fast call also time the host), their
-   library call's too, and their time before their redesign
-   (``earlier_ms``, EARLIER_INT8_MS, EARLIER_LN_MS). The
+   and its bound. The int8 kernel and the LayerNorm forward and backward
+   also give the profiler's device time beside the CUDA-event time
+   (``device_ms``: the card alone, where events around a fast call also
+   time the host), their library call's too, and their time before their
+   redesign (``earlier_ms``, EARLIER_INT8_MS, EARLIER_LN_MS,
+   EARLIER_LN_BWD_MS). The
    dropout kernels at [36, 12, 577, 64], rate 0.1: the debug kernel's mask
    against the plain counter hash (0 mismatches), o, lse and dq/dk/dv. The
    dense, inference and dropout attention kernels are also checked, not
@@ -259,6 +260,19 @@ EARLIER_LN_MS = {(4616, "torch.bfloat16"): (0.02654239982366562,
                                             0.05183605000000009),
                  (20772, "torch.bfloat16"): (0.04831520020961762,
                                              0.04487954999999995)}
+# The LayerNorm backward before its redesign (one row a warp with no
+# prefetch, a serial block combine, a column pass on six SMs): (CUDA-event
+# ms, profiler device ms) by (rows, scale dtype) at check_layer_norm_bwd's
+# bf16 rows, the mean of two runs of attn_probe.py --only ln --parent on an
+# NVIDIA H100 80GB HBM3 at 700.00 W.
+EARLIER_LN_BWD_MS = {(20772, "torch.bfloat16"): (0.1004207968711853,
+                                                 0.09289450000000007),
+                     (20772, "torch.float32"): (0.10245119929313659,
+                                                0.09349860000000002),
+                     (36864, "torch.bfloat16"): (0.1443567991256714,
+                                                 0.13422415000000001),
+                     (36864, "torch.float32"): (0.14273279905319214,
+                                                0.13473835)}
 # Seconds of back-to-back products that bring the card to its working
 # clocks before the first kernel is timed.
 WARM_UP_S = 1.0
@@ -759,18 +773,31 @@ def check_training_attention(randn, summary: dict) -> None:
 
 def check_layer_norm_bwd(randn, summary: dict) -> None:
     """The LayerNorm backward kernel against its plain version at the
-    training rows (36 × 577), with the block LNs' bf16 scale, the final
-    LN's f32 scale and in f32; and that it gives the same bits twice."""
+    training rows (36 × 577: the summary row), with the block LNs' bf16
+    scale, the final LN's f32 scale and in f32, at the packed rows (32 ×
+    1152) and at a count of rows that is no multiple of a block's warps
+    (8 × 577 − 1); that it gives the same bits twice; times by CUDA events
+    and by the profiler's device time (the main kernel and the column pass
+    of one call), beside ``aten.native_layer_norm_backward``'s where x and
+    the scale share a dtype, and the kernel's time before its redesign
+    (EARLIER_LN_BWD_MS)."""
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
 
-    rows, d = TRAIN_BATCH * 577, 768
-    for x_dtype, w_dtype in ((torch.bfloat16, torch.bfloat16),
-                             (torch.bfloat16, torch.float32),
-                             (torch.float32, torch.float32)):
+    d = 768
+    cases = [(TRAIN_BATCH * 577, torch.bfloat16, torch.bfloat16),
+             (TRAIN_BATCH * 577, torch.bfloat16, torch.float32),
+             (TRAIN_BATCH * 577, torch.float32, torch.float32),
+             (PACKED_SEQS * 1152, torch.bfloat16, torch.bfloat16),
+             (PACKED_SEQS * 1152, torch.bfloat16, torch.float32),
+             (BATCH * 577 - 1, torch.bfloat16, torch.bfloat16)]
+    for rows, x_dtype, w_dtype in cases:
         x = randn((rows, d), x_dtype) * 3 + 1
         scale, dy = randn((d,), w_dtype), randn((rows, d), x_dtype)
-        got = ln.layer_norm_bwd_cuda(x, scale, dy, 1e-12)
-        again = ln.layer_norm_bwd_cuda(x, scale, dy, 1e-12)
+
+        def kernel():
+            return ln.layer_norm_bwd_cuda(x, scale, dy, 1e-12)
+
+        got, again = kernel(), kernel()
         refs = ln.layer_norm_bwd_reference(x, scale, dy, 1e-12)
         torch.cuda.synchronize()
         ok = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -787,8 +814,7 @@ def check_layer_norm_bwd(randn, summary: dict) -> None:
                 bound = bound + bf16_ulp(r)
             ok &= bool(((g - r).abs() <= bound).all())
         ms, plain_ms = time_pair(
-            lambda: ln.layer_norm_bwd_cuda(x, scale, dy, 1e-12),
-            lambda: ln.layer_norm_bwd_reference(x, scale, dy, 1e-12))
+            kernel, lambda: ln.layer_norm_bwd_reference(x, scale, dy, 1e-12))
         rec = {"phase": "kernel_check", "kernel": "layer_norm_bwd",
                "shape": [rows, d], "dtype": str(x_dtype),
                "scale_dtype": str(w_dtype),
@@ -800,17 +826,26 @@ def check_layer_norm_bwd(randn, summary: dict) -> None:
                                     for a, b in zip(got, again)),
                "tol": "dx as layer_norm; dscale/dbias 1e-5 rel (+1 ulp "
                       "in bf16)", "ms": ms, "plain_ms": plain_ms,
+               **device_ms(kernel, parts=("ln_bwd_cols",)),
                **layer_norm_bound(rows, d, x_dtype, w_dtype, backward=True)}
-        if x_dtype == w_dtype == torch.bfloat16:
+        if x_dtype == w_dtype:
             # the library's backward takes the forward's statistics
             _, mean, rstd = torch.ops.aten.native_layer_norm(
                 x, [d], scale, torch.zeros_like(scale), 1e-12)
-            rec["library_ms"] = time_ms(
-                lambda: torch.ops.aten.native_layer_norm_backward(
-                    dy, x, [d], mean, rstd, scale, scale, [True] * 3))
+
+            def library():
+                return torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [d], mean, rstd, scale, scale, [True] * 3)
+            rec["library_ms"] = time_ms(library)
+            rec["library_device_ms"] = device_ms(library)["device_ms"]
+        earlier = EARLIER_LN_BWD_MS.get((rows, str(w_dtype)))
+        if x_dtype == torch.bfloat16 and earlier is not None:
+            rec["earlier_ms"], rec["earlier_device_ms"] = earlier
+        if (rows == TRAIN_BATCH * 577
+                and x_dtype == w_dtype == torch.bfloat16):
             summary["layer_norm_bwd"] = rec
         emit(rec)
-        require(ok, f"layer_norm_bwd {x_dtype}/{w_dtype}: {rec}")
+        require(ok, f"layer_norm_bwd {rows} {x_dtype}/{w_dtype}: {rec}")
 
 
 def check_dropout_attention(randn, summary: dict) -> None:

@@ -460,21 +460,10 @@ def test_attention_kernels_strongly_negative_rows(dev, dtype):
         assert err <= max(_GRAD_TOL[dtype], 1e-4) * scale
 
 
-@pytest.mark.parametrize("x_dtype,w_dtype", [
-    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
-    (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("rows,d", [(36 * 577, 768), (37, 128)])
-def test_layer_norm_bwd_kernel_matches_plain(dev, x_dtype, w_dtype, rows, d):
-    x = _randn((rows, d), x_dtype, dev) * 3 + 1
-    s = _randn((d,), w_dtype, dev, 1)
-    dy = _randn((rows, d), x_dtype, dev, 2)
-    before = ln.layer_norm_bwd_cuda.launches
-    got = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
-    again = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
-    torch.cuda.synchronize()
-    assert ln.layer_norm_bwd_cuda.launches == before + 2
-    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
-    ref = ln.layer_norm_bwd_reference(x, s, dy, 1e-12)
+def _assert_ln_bwd_close(got, ref, x_dtype, w_dtype):
+    """dx as the forward's output (1 bf16 ulp + 1e-5, or 1e-5 in f32);
+    dscale and dbias, sums over the rows in another order, within 1e-5 of
+    the largest (plus one ulp of each element when cast to bf16)."""
     assert [t.dtype for t in got] == [x_dtype, w_dtype, w_dtype]
     dx, rdx = got[0].float(), ref[0].float()
     if x_dtype == torch.float32:
@@ -490,6 +479,86 @@ def test_layer_norm_bwd_kernel_matches_plain(dev, x_dtype, w_dtype, rows, d):
             bound = bound + torch.exp2(torch.floor(torch.log2(
                 r.abs().clamp_min(1e-30))) - 7)
         assert ((g - r).abs() <= bound).all()
+
+
+def _ln_bwd_inputs(rows, d, x_dtype, w_dtype, dev):
+    return (_randn((rows, d), x_dtype, dev) * 3 + 1,
+            _randn((d,), w_dtype, dev, 1), _randn((rows, d), x_dtype, dev, 2))
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", _LN_PAIRS)
+@pytest.mark.parametrize("rows,d", [(36 * 577, 768), (37, 128)])
+def test_layer_norm_bwd_kernel_matches_plain(dev, x_dtype, w_dtype, rows, d):
+    x, s, dy = _ln_bwd_inputs(rows, d, x_dtype, w_dtype, dev)
+    before = ln.layer_norm_bwd_cuda.launches
+    got = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
+    again = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_bwd_cuda.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+    _assert_ln_bwd_close(got, ln.layer_norm_bwd_reference(x, s, dy, 1e-12),
+                         x_dtype, w_dtype)
+
+
+# every rung of the backward's register ladder (16-byte vectors a lane: 1,
+# 2, 3, 4, 6, 8), D = 8 (one lane of a warp busy) and D = 520 (a rung's
+# last vectors on some lanes only)
+_LN_BWD_WIDTHS = {torch.bfloat16: [8, 256, 512, 520, 768, 1024, 1536, 2048],
+                  torch.float32: [8, 128, 256, 384, 512, 520, 768, 1024]}
+
+
+@pytest.mark.parametrize("rows", [1, 7, 32 * 577])
+@pytest.mark.parametrize("x_dtype,w_dtype,d", [
+    (x, w, d) for x, w in _LN_PAIRS for d in _LN_BWD_WIDTHS[x]])
+def test_layer_norm_bwd_kernel_matches_plain_at_every_width(
+        dev, x_dtype, w_dtype, d, rows):
+    x, s, dy = _ln_bwd_inputs(rows, d, x_dtype, w_dtype, dev)
+    got = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
+    torch.cuda.synchronize()
+    _assert_ln_bwd_close(got, ln.layer_norm_bwd_reference(x, s, dy, 1e-12),
+                         x_dtype, w_dtype)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", _LN_PAIRS)
+@pytest.mark.parametrize("rows,d", [(1, 768), (7, 768), (65, 16),
+                                    (1000, 128)])
+@pytest.mark.parametrize("blocks", ["wave", 1, 3000])
+def test_layer_norm_bwd_writes_no_row_past_the_last(dev, x_dtype, w_dtype,
+                                                    rows, d, blocks):
+    """The backward entry point on the first ``rows`` rows of buffers that
+    hold three more (NaN after x and dy, a sentinel after dx), with the
+    wrapper's block count, one block, and more blocks than rows."""
+    x = torch.full((rows + 3, d), float("nan"), device=dev, dtype=x_dtype)
+    dy = x.clone()
+    x[:rows], s, dy[:rows] = _ln_bwd_inputs(rows, d, x_dtype, w_dtype, dev)
+    dx = torch.full((rows + 3, d), 7.0, device=dev, dtype=x_dtype)
+    n_blocks = ln._bwd_blocks(x, s, rows) if blocks == "wave" else blocks
+    work = torch.empty((n_blocks, 2, d), device=dev)
+    ds, db = (torch.empty(d, device=dev, dtype=w_dtype) for _ in range(2))
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    kernels.check(kernels.library().cxr_layer_norm_bwd(
+        x.data_ptr(), s.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        ds.data_ptr(), db.data_ptr(), work.data_ptr(), rows, d, 1e-12,
+        n_blocks, codes[x_dtype], codes[w_dtype], dev.index or 0,
+        torch.cuda.current_stream().cuda_stream), "layer_norm_bwd")
+    torch.cuda.synchronize()
+    _assert_ln_bwd_close(
+        (dx[:rows], ds, db),
+        ln.layer_norm_bwd_reference(x[:rows], s, dy[:rows], 1e-12),
+        x_dtype, w_dtype)
+    assert bool((dx[rows:] == 7.0).all())
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_bwd_kernel_is_deterministic_at_the_packed_rows(dev,
+                                                                  w_dtype):
+    x, s, dy = _ln_bwd_inputs(32 * 1152, 768, torch.bfloat16, w_dtype, dev)
+    got = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
+    again = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_ln_bwd_close(got, ln.layer_norm_bwd_reference(x, s, dy, 1e-12),
+                         torch.bfloat16, w_dtype)
 
 
 def test_layer_norm_autograd_on_card_uses_both_kernels(dev):
