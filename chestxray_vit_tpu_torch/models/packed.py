@@ -27,7 +27,6 @@ import torch.utils.checkpoint
 from chestxray_vit_tpu_torch.config import ModelConfig
 from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.ops.flash_attention import attention_packed
-from chestxray_vit_tpu_torch.ops.gelu import gelu
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
 from chestxray_vit_tpu_torch.ops.tome import r_schedule, tome_merge_packed
 
@@ -68,16 +67,6 @@ def _packed_mha(x: torch.Tensor, bp: vit.Block, cfg: ModelConfig,
     return out
 
 
-def _mlp(x: torch.Tensor, bp: vit.Block, cfg: ModelConfig,
-         dt: torch.dtype, hidden: float, seed: Optional[int]) -> torch.Tensor:
-    """x + drop(MLP(LN2(x))) with erf GELU."""
-    m_in = layer_norm(x, bp.ln2.scale.to(dt), bp.ln2.bias.to(dt),
-                      cfg.layernorm_eps)
-    hmid = gelu(vit._linear(m_in, bp.mlp_in, dt),
-                approximate=cfg.gelu_approximate)
-    return x + vit._dropout(vit._linear(hmid, bp.mlp_out, dt), hidden, seed)
-
-
 def _packed_block(x: torch.Tensor, seg: torch.Tensor, bp: vit.Block,
                   cfg: ModelConfig, dt: torch.dtype, train: bool,
                   seeds: Optional[vit.LayerSeeds]) -> torch.Tensor:
@@ -87,7 +76,7 @@ def _packed_block(x: torch.Tensor, seg: torch.Tensor, bp: vit.Block,
                       cfg.layernorm_eps)
     attn_out = _packed_mha(a_in, bp, cfg, seg, dt, train, attn_seed)
     x = x + vit._dropout(attn_out, hidden, seed_attn_out)
-    return _mlp(x, bp, cfg, dt, hidden, seed_mlp_out)
+    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out)
 
 
 def _packed_tome_block(x: torch.Tensor, sizes: torch.Tensor,
@@ -106,7 +95,7 @@ def _packed_tome_block(x: torch.Tensor, sizes: torch.Tensor,
     r_l = min(r_i, (x.shape[1] + 1) // 2 - 1)
     if r_l > 0:
         x, sizes, seg, pw = tome_merge_packed(x, kmean, sizes, seg, pw, r_l)
-    return _mlp(x, bp, cfg, dt, hidden, seed_mlp_out), sizes, seg, pw
+    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out), sizes, seg, pw
 
 
 def _embed_packed(params: vit.ViT, tokens: torch.Tensor,
@@ -130,19 +119,6 @@ def _pooled_logits(params: vit.ViT, x: torch.Tensor,
     return vit._head(params, pooled)
 
 
-def _check(cfg: ModelConfig, train: bool, dropout_seeds, n_layers: int):
-    if cfg.fused_qkv:
-        raise NotImplementedError("fused_qkv (ROADMAP Queue 1 #2) is not "
-                                  "ported yet")
-    if train and cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} (only 'full' is ported; the "
-            f"selective policies are ROADMAP Queue 1 #2) is not ported yet")
-    if dropout_seeds is not None and len(dropout_seeds) != n_layers:
-        raise ValueError(f"{len(dropout_seeds)} dropout seed triples for "
-                         f"{n_layers} layers")
-
-
 def apply_packed(params: vit.ViT, tokens: torch.Tensor,
                  segment_ids: torch.Tensor, pos_indices: torch.Tensor,
                  pool_weights: torch.Tensor, cfg: ModelConfig,
@@ -154,7 +130,7 @@ def apply_packed(params: vit.ViT, tokens: torch.Tensor,
     [B, max_imgs, C]. Shares every weight with :func:`vit.apply` except
     the CLS token (pooled instead). ``train`` and ``dropout_seeds`` as in
     :func:`vit.apply`."""
-    _check(cfg, train, dropout_seeds, len(params.blocks))
+    vit._check_supported(cfg, train, dropout_seeds)
     dt = vit.torch_dtype(cfg.dtype)
     x = _embed_packed(params, tokens, segment_ids, pos_indices, cfg, grids,
                       dt)
@@ -193,7 +169,7 @@ def apply_packed_tome(params: vit.ViT, tokens: torch.Tensor,
                          f"apply_packed for the un-merged path)")
     if cfg.fused_qkv:
         raise ValueError("model.fused_qkv does not compose with tome_r")
-    _check(cfg, train, dropout_seeds, len(params.blocks))
+    vit._check_supported(cfg, train, dropout_seeds)
     dt = vit.torch_dtype(cfg.dtype)
     x = _embed_packed(params, tokens, segment_ids, pos_indices, cfg, grids,
                       dt)

@@ -38,7 +38,7 @@ import copy
 import hashlib
 import json
 import os
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +54,7 @@ from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
 from chestxray_vit_tpu_torch.ops.quant import (QuantizedWeight, int8_matmul,
                                                int8_matmul_static,
                                                quantize_weight)
+from chestxray_vit_tpu_torch.ops.tome import tome_merge_clamped
 
 _QUANT_BLOCK_KEYS = ("wq", "wk", "wv", "wo", "mlp_in", "mlp_out")
 # calibration site feeding each projection (wq/wk/wv share one input)
@@ -147,30 +148,37 @@ def _merge(o: torch.Tensor) -> torch.Tensor:
 
 
 def _encoder_scan(x: torch.Tensor, blocks, cfg: ModelConfig, proj,
-                  collect_amax: bool = False):
+                  collect_amax: bool = False,
+                  merges: Optional[Sequence[int]] = None):
     """One copy of the pre-LN block math (LN → QKV → attention → WO +
     residual → LN → GELU MLP + residual) shared by the "xla" quantized
-    forward and by static calibration, so the ranges calibration observes
-    are those of the forward it calibrates.
+    forward, static calibration and the token-merging serving forward
+    (``models/tome_forward.py``), so the ranges calibration observes are
+    those of the forward it calibrates.
 
     ``proj(y, bp, key)`` supplies the projection for block entry ``key``
     (dense weights during calibration, int8 matmuls when serving).
     ``collect_amax`` also returns per-layer max|x| at the four quantized
-    matmul inputs, as f32 ``[L]`` tensors per site. Returns
-    ``(x, sites-or-None)``."""
+    matmul inputs, as f32 ``[L]`` tensors per site. ``merges`` (per-layer
+    token-merge counts) merges tokens between the attention residual and
+    LN2 on the keys' mean over heads. Returns ``(x, sites-or-None)``."""
     eps = cfg.layernorm_eps
     sites = []
+    sizes = (torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+             if merges else None)
 
     def amax(y):
         return y.float().abs().amax()
 
-    for bp in blocks:                     # the JAX lax.scan over layers
+    for i, bp in enumerate(blocks):       # the JAX lax.scan over layers
         a_in = layer_norm(x, bp.ln1.scale, bp.ln1.bias, eps)
         q, k, v = (_heads(proj(a_in, bp, key), cfg)
                    for key in ("wq", "wk", "wv"))
         merged = _merge(attention(q, k, v, impl=cfg.attention_impl,
                                   inference=True))
         x = x + proj(merged, bp, "wo")
+        if merges:
+            x, sizes = tome_merge_clamped(x, k.mean(dim=1), sizes, merges[i])
         m_in = layer_norm(x, bp.ln2.scale, bp.ln2.bias, eps)
         mid = _gelu(proj(m_in, bp, "mlp_in"), approximate=cfg.gelu_approximate)
         x = x + proj(mid, bp, "mlp_out")
@@ -208,6 +216,31 @@ def embed_tokens(params, images: torch.Tensor, cfg: ModelConfig,
     return _cls_pos(params, x, cfg)
 
 
+def dense_proj(cfg: ModelConfig):
+    """The projection of a dense tree for :func:`_encoder_scan`: the
+    weights cast to the compute dtype at the call."""
+    cd = vit.torch_dtype(cfg.dtype)
+
+    def proj(y, bp, key):
+        e = getattr(bp, key)
+        return y.to(cd) @ e.kernel.to(cd) + e.bias.to(cd)
+    return proj
+
+
+def int8_proj(qparams: "QuantizedViT", cfg: ModelConfig):
+    """The projection of a quantized tree on the plain route: static
+    per-site or dynamic per-token activation scales."""
+    cd = vit.torch_dtype(cfg.dtype)
+
+    def proj(y, bp, key):
+        e = getattr(bp, key)
+        if qparams.static:
+            return int8_matmul_static(y, e.qw, getattr(bp.act, _SITE_OF[key]),
+                                      e.bias, out_dtype=cd)
+        return int8_matmul(y, e.qw, e.bias, out_dtype=cd)
+    return proj
+
+
 # ---------------------------------------------------------------------------
 # Calibration and quantization
 # ---------------------------------------------------------------------------
@@ -230,16 +263,10 @@ def calibrate_vit_scales(params: vit.ViT, images: torch.Tensor,
     trained f32 LayerNorm gains, and records max|x| at each site; returns
     ``{"patch": f32 scalar, "blocks": {site: f32 [L]}}`` CPU tensors
     (= max(amax·margin, 1e-6)/127) for :func:`quantize_vit_params`."""
-    cd = vit.torch_dtype(cfg.dtype)
     params = _on(params, images.device)
     s_patch = vit.patchify(images.float(), cfg.patch_size).abs().amax()
     x = embed_tokens(params, images, cfg, quantized=False)
-
-    def dense_proj(y, bp, key):
-        e = getattr(bp, key)
-        return y.to(cd) @ e.kernel.to(cd) + e.bias.to(cd)
-
-    _, sites = _encoder_scan(x, params.blocks, cfg, dense_proj,
+    _, sites = _encoder_scan(x, params.blocks, cfg, dense_proj(cfg),
                              collect_amax=True)
     # the few amax values come to the host; the scale math is f32 there,
     # as in the JAX package
@@ -297,15 +324,17 @@ def quantize_vit_params(params: vit.ViT,
 # ---------------------------------------------------------------------------
 
 def apply_quantized(qparams: QuantizedViT, images: torch.Tensor,
-                    cfg: ModelConfig, backend: str = "xla") -> torch.Tensor:
+                    cfg: ModelConfig, backend: str = "xla",
+                    merges: Optional[Sequence[int]] = None) -> torch.Tensor:
     """int8 forward: NHWC images → f32 logits [B, num_classes].
 
     ``backend="xla"`` runs the plain route (the JAX default); ``"pallas"``
     (static scales only) runs every int8 matmul through the fused kernel
     (``ops/int8_matmul.py``). The JAX package's default rests on TPU
     measurements; the port's static ``Predictor`` takes ``"pallas"``.
-    Run under ``torch.no_grad()`` or ``torch.inference_mode()``."""
-    cd = vit.torch_dtype(cfg.dtype)
+    ``merges`` (per-layer counts) merges tokens after every attention
+    block, on either route (``models/tome_forward.apply_tome``). Run under
+    ``torch.no_grad()`` or ``torch.inference_mode()``."""
     if backend == "pallas":
         if not qparams.static:
             raise ValueError(
@@ -314,30 +343,27 @@ def apply_quantized(qparams: QuantizedViT, images: torch.Tensor,
         if cfg.gelu_approximate:
             raise ValueError("backend='pallas' fuses the exact-erf GELU; "
                              "gelu_approximate is not supported")
-        return _apply_static_pallas(qparams, images, cfg)
+        return _apply_static_pallas(qparams, images, cfg, merges)
     if backend != "xla":
         raise ValueError(f"unknown quantized backend {backend!r}")
 
     x = embed_tokens(qparams, images, cfg, quantized=True)
-
-    def int8_proj(y, bp, key):
-        e = getattr(bp, key)
-        if qparams.static:
-            return int8_matmul_static(y, e.qw, getattr(bp.act, _SITE_OF[key]),
-                                      e.bias, out_dtype=cd)
-        return int8_matmul(y, e.qw, e.bias, out_dtype=cd)
-
-    x, _ = _encoder_scan(x, qparams.blocks, cfg, int8_proj)
+    x, _ = _encoder_scan(x, qparams.blocks, cfg, int8_proj(qparams, cfg),
+                         merges=merges)
     return vit.head_logits(qparams, x, cfg)
 
 
 def _apply_static_pallas(qparams: QuantizedViT, images: torch.Tensor,
-                         cfg: ModelConfig) -> torch.Tensor:
+                         cfg: ModelConfig,
+                         merges: Optional[Sequence[int]] = None
+                         ) -> torch.Tensor:
     """Static-int8 forward on the fused int8 kernel: the same math as the
     "xla" static route, with the residual adds in the matmul epilogue, the
     MLP hidden activation GELU'd and requantized in the kernel (it crosses
     memory once, as int8), and the attention input quantized once for the
-    three Q/K/V products. 73 kernel launches per forward at 12 layers."""
+    three Q/K/V products. 73 kernel launches per forward at 12 layers.
+    ``merges`` merges tokens between the ``wo`` residual product and LN2,
+    as :func:`_encoder_scan` does."""
     cd = vit.torch_dtype(cfg.dtype)
     eps = cfg.layernorm_eps
 
@@ -349,7 +375,9 @@ def _apply_static_pallas(qparams: QuantizedViT, images: torch.Tensor,
     pe = qparams.patch_embed
     x = _cls_pos(qparams, proj(quantize_static(patches, pe.xs), pe, pe.xs),
                  cfg)
-    for bp in qparams.blocks:
+    sizes = (torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+             if merges else None)
+    for i, bp in enumerate(qparams.blocks):
         act = bp.act
         a_in = layer_norm(x, bp.ln1.scale, bp.ln1.bias, eps)
         a8 = quantize_static(a_in, act.attn_in)          # shared by q/k/v
@@ -359,6 +387,8 @@ def _apply_static_pallas(qparams: QuantizedViT, images: torch.Tensor,
                                   inference=True))
         x = proj(quantize_static(merged, act.attn_out), bp.wo, act.attn_out,
                  resid=x)
+        if merges:
+            x, sizes = tome_merge_clamped(x, k.mean(dim=1), sizes, merges[i])
         m_in = layer_norm(x, bp.ln2.scale, bp.ln2.bias, eps)
         mid8 = proj(quantize_static(m_in, act.mlp_in), bp.mlp_in, act.mlp_in,
                     gelu=True, out_quant_scale=act.mlp_mid)

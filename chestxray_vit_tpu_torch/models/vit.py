@@ -23,9 +23,12 @@ kernels, whose counter-hash mask is the JAX package's bit for bit) and
 after the attention output and the MLP (``hidden_dropout``). Each takes a
 per-layer integer seed from the caller (``apply(dropout_seeds=...)``; the
 train step draws them), so a block recomputed under remat draws the same
-masks. Not ported yet, each raising ``NotImplementedError`` with its
-ROADMAP item: the other remat policies, the fused Q/K/V projection and
-token merging (``tome_r``).
+masks.
+
+With ``cfg.tome_r`` set, :func:`apply` runs the token-merging forward of
+``models/tome_forward.py`` (training and eval alike, as the reference
+does). Not ported yet, each raising ``NotImplementedError`` with its
+ROADMAP item: the other remat policies and the fused Q/K/V projection.
 """
 
 from __future__ import annotations
@@ -248,7 +251,7 @@ def embed(params: ViT, images: torch.Tensor, cfg: ModelConfig,
 
 def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
          compute_dtype: torch.dtype, train: bool = False,
-         seed: Optional[int] = None) -> torch.Tensor:
+         seed: Optional[int] = None, return_key_mean: bool = False):
     """Multi-head attention on the pre-LN input, non-fused Q/K/V.
 
     Each projection lands as a [B, H, S, hd] view of its [B, S, D] product
@@ -256,7 +259,9 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     already merged in memory for the output projection. A training forward
     with ``attention_dropout`` and a ``seed`` drops probabilities inside
     the attention (the dropout kernels on the card, their plain version on
-    the CPU or with ``impl='xla'``)."""
+    the CPU or with ``impl='xla'``). With ``return_key_mean`` also the
+    keys' mean over heads [B, S, hd] in the compute dtype, the
+    token-merging metric."""
     b, s, d = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
 
@@ -269,7 +274,10 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
                               impl=attn_impl)
     else:
         o = attention(q, k, v, impl=attn_impl, inference=not train)
-    return _linear(o.transpose(1, 2).reshape(b, s, d), bp.wo, compute_dtype)
+    out = _linear(o.transpose(1, 2).reshape(b, s, d), bp.wo, compute_dtype)
+    if return_key_mean:
+        return out, k.mean(dim=1)
+    return out
 
 
 def _dropout(x: torch.Tensor, rate: float,
@@ -286,38 +294,50 @@ def _dropout(x: torch.Tensor, rate: float,
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
+def _mlp(x: torch.Tensor, bp: Block, cfg: ModelConfig, dt: torch.dtype,
+         hidden: float, seed: Optional[int]) -> torch.Tensor:
+    """x + drop(MLP(LN2(x))) with erf GELU."""
+    m_in = layer_norm(x, bp.ln2.scale.to(dt), bp.ln2.bias.to(dt),
+                      cfg.layernorm_eps)
+    hmid = gelu(_linear(m_in, bp.mlp_in, dt),
+                approximate=cfg.gelu_approximate)
+    return x + _dropout(_linear(hmid, bp.mlp_out, dt), hidden, seed)
+
+
 def _block(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
            compute_dtype: torch.dtype, train: bool = False,
            seeds: Optional[LayerSeeds] = None) -> torch.Tensor:
     """One pre-LN encoder block (HF ViTLayer):
     x += drop(MHA(LN1(x))); x += drop(MLP(LN2(x))) with erf GELU."""
-    eps = cfg.layernorm_eps
     dt = compute_dtype
     attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
     hidden = cfg.hidden_dropout if train else 0.0
-    a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt), eps)
+    a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
+                      cfg.layernorm_eps)
     attn_out = _mha(a_in, bp, cfg, attn_impl, dt, train, attn_seed)
     x = x + _dropout(attn_out, hidden, seed_attn_out)
-    m_in = layer_norm(x, bp.ln2.scale.to(dt), bp.ln2.bias.to(dt), eps)
-    hmid = gelu(_linear(m_in, bp.mlp_in, dt),
-                approximate=cfg.gelu_approximate)
-    return x + _dropout(_linear(hmid, bp.mlp_out, dt), hidden, seed_mlp_out)
+    return _mlp(x, bp, cfg, dt, hidden, seed_mlp_out)
 
 
-def _check_supported(cfg: ModelConfig, train: bool) -> None:
+def _check_supported(cfg: ModelConfig, train: bool,
+                     dropout_seeds: Optional[Sequence[LayerSeeds]] = None
+                     ) -> None:
+    """Refuse what is not ported yet, and a seed list of the wrong
+    length."""
     # remat acts only when training, where the reference reads it; at
     # inference it is ignored, as there
     later = {
-        "tome_r (token merging is ROADMAP Queue 1 #7)":
-            getattr(cfg, "tome_r", 0),
-        "fused_qkv (ROADMAP Queue 1 #2)": cfg.fused_qkv,
+        "fused_qkv (ROADMAP Queue 1 #4)": cfg.fused_qkv,
         f"remat_policy={cfg.remat_policy!r} (only 'full' is ported; the "
-        f"selective policies are ROADMAP Queue 1 #2)":
+        f"selective policies are ROADMAP Queue 1 #4)":
             train and cfg.remat and cfg.remat_policy != "full",
     }
     for what, on in later.items():
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
+    if dropout_seeds is not None and len(dropout_seeds) != cfg.num_layers:
+        raise ValueError(f"{len(dropout_seeds)} dropout seed triples for "
+                         f"{cfg.num_layers} layers")
 
 
 # ---------------------------------------------------------------------------
@@ -356,15 +376,25 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
         reference's ``rng``: with ``train`` they switch on the configured
         dropout rates; None leaves dropout off, as ``rng=None`` does there.
 
+    With ``cfg.tome_r`` set (and no ``return_features``) the forward is
+    :func:`models.tome_forward.apply_tome_train`, for ``train`` True and
+    False alike, as in the reference: the model evaluated is the model
+    trained.
+
     Returns logits f32 [B, num_classes] (and features if requested).
     """
-    _check_supported(cfg, train)
+    if cfg.tome_r and not return_features:
+        # per-layer shapes: an unrolled loop of its own (imported here:
+        # tome_forward imports this module)
+        from chestxray_vit_tpu_torch.models.tome_forward import (
+            apply_tome_train)
+        return apply_tome_train(params, images, cfg, cfg.tome_r, train=train,
+                                dropout_seeds=dropout_seeds,
+                                schedule=cfg.tome_schedule)
+    _check_supported(cfg, train, dropout_seeds)
     compute_dtype = torch_dtype(cfg.dtype)
     x = embed(params, images, cfg, compute_dtype)
     remat = train and cfg.remat and torch.is_grad_enabled()
-    if dropout_seeds is not None and len(dropout_seeds) != len(params.blocks):
-        raise ValueError(f"{len(dropout_seeds)} dropout seed triples for "
-                         f"{len(params.blocks)} layers")
     for i, bp in enumerate(params.blocks):   # the JAX lax.scan over layers
         seeds = (tuple(dropout_seeds[i]) if dropout_seeds is not None
                  else None)

@@ -80,8 +80,8 @@ def _first_argmax(scores: torch.Tensor
     maxima the lowest index, on every device."""
     node_max = scores.max(dim=-1).values
     idx = torch.arange(scores.shape[-1], device=scores.device)
-    first = torch.where(scores == node_max[..., None], idx,
-                        scores.shape[-1]).min(dim=-1).values
+    first = idx.expand_as(scores).masked_fill(
+        scores != node_max[..., None], scores.shape[-1]).min(dim=-1).values
     return node_max, first
 
 
@@ -101,7 +101,7 @@ def bipartite_soft_matching(metric: torch.Tensor, r: int
     merged source's B-set destination. Requires 0 < r < ceil(S/2)."""
     _check_r(r, metric.shape[1])
     scores = _scores(metric)
-    scores[:, 0, :] = _NEG_INF                       # protect CLS
+    scores[:, 0, :].fill_(_NEG_INF)                  # protect CLS
     node_max, node_idx = _first_argmax(scores)
     edge_order = _best_first(node_max)
     src_idx = edge_order[:, :r]
@@ -136,7 +136,7 @@ def _match(scores: torch.Tensor, r: int) -> torch.Tensor:
     dst_idx = torch.gather(node_idx, 1, src_idx)
     kept = torch.ones((b, na), dtype=torch.int64, device=scores.device)
     kept.scatter_(1, src_idx, 0)
-    apos = torch.where(kept.bool(), torch.cumsum(kept, dim=1) - 1, 0)
+    apos = (torch.cumsum(kept, dim=1) - 1) * kept
     return apos.scatter(1, src_idx, na - r + dst_idx)
 
 
@@ -147,8 +147,21 @@ def tome_merge(x: torch.Tensor, metric: torch.Tensor, sizes: torch.Tensor,
     Returns ``(x', sizes')`` with r fewer tokens."""
     _check_r(r, x.shape[1])
     scores = _scores(metric)
-    scores[:, 0, :] = _NEG_INF                       # protect CLS
+    scores[:, 0, :].fill_(_NEG_INF)                  # protect CLS
     return _route_merge(x, sizes, _match(scores, r), r)
+
+
+def tome_merge_clamped(x: torch.Tensor, metric: torch.Tensor,
+                       sizes: torch.Tensor, r: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`tome_merge` with ``r`` clamped to the most the length allows,
+    ceil(S/2) − 1, as the merging forwards clamp every layer's count: deep
+    layers with few tokens left merge less instead of erroring, and none at
+    all once S ≤ 2."""
+    r = min(r, (x.shape[1] + 1) // 2 - 1)
+    if r <= 0:
+        return x, sizes
+    return tome_merge(x, metric, sizes, r)
 
 
 def _out_slots(apos: torch.Tensor, b: int, s: int, r: int) -> torch.Tensor:
@@ -214,10 +227,10 @@ def tome_merge_packed(x: torch.Tensor, metric: torch.Tensor,
     _check_r(r, s)
     scores = _scores(metric)
     seg_a, seg_b = seg_ids[:, 0::2], seg_ids[:, 1::2]
-    scores = torch.where(seg_a[:, :, None] == seg_b[:, None, :], scores,
-                         _NEG_INF)
+    scores = scores.masked_fill(seg_a[:, :, None] != seg_b[:, None, :],
+                                _NEG_INF)
     pad_pair = (seg_a < 0)[:, :, None] & (seg_b < 0)[:, None, :]
-    scores = torch.where(pad_pair, 2.0, scores)
+    scores = scores.masked_fill(pad_pair, 2.0)
     out_slot = _out_slots(_match(scores, r), b, s, r)
     so = s - r
     route = _route(out_slot, so)

@@ -1,5 +1,6 @@
 """Batched inference for serving, ported from
-``chestxray_vit_tpu/serve/inference.py`` (the dense and int8 paths).
+``chestxray_vit_tpu/serve/inference.py`` (the dense and int8 paths, with
+or without token merging).
 
 Images come in as encoded bytes or decoded u8 grayscale arrays. The host
 half (``stage_chunk``) decodes, crops, pads to a power-of-two bucket and
@@ -28,9 +29,10 @@ import torch
 from chestxray_vit_tpu_torch.config import ModelConfig
 from chestxray_vit_tpu_torch.data import decode as dec
 from chestxray_vit_tpu_torch.data import geometry as geo
-from chestxray_vit_tpu_torch.models import quantized, vit
+from chestxray_vit_tpu_torch.models import quantized, tome_forward, vit
 from chestxray_vit_tpu_torch.ops.preprocess import (fused_preprocess,
                                                     normalize_u8)
+from chestxray_vit_tpu_torch.ops.tome import r_schedule
 
 
 @dataclass
@@ -73,8 +75,16 @@ class Predictor:
     pass and, for static mode, the calibration forward; its mode must
     match ``quantize``.
 
-    Not ported yet, and refused: ``data_parallel``, ``tome_r`` (token
-    merging) and attention maps (``with_maps=True``).
+    ``tome_r`` merges up to r token pairs per layer (token merging,
+    ``models/tome_forward.apply_tome``; ``tome_schedule`` 'constant' or
+    'decreasing' spreads the r·L budget), composed with any ``quantize``:
+    static trees merge on the fused route, dynamic ones on the plain one.
+    Merging is lossy; validate it on your data. The dense tree's LayerNorm
+    gains are held in the compute dtype, as ``vit.apply`` rounds them (the
+    JAX Predictor's merged dense forward reads them in f32).
+
+    Not ported yet, and refused: ``data_parallel`` and attention maps
+    (``with_maps=True``).
     """
 
     def __init__(self, params: vit.ViT, cfg: ModelConfig,
@@ -83,11 +93,9 @@ class Predictor:
                  placement: str = "host", device="cuda",
                  quantize=False, calibration=None, data_parallel=False,
                  qparams: Optional[quantized.QuantizedViT] = None,
-                 tome_r: int = 0):
+                 tome_r: int = 0, tome_schedule: str = "constant"):
         if data_parallel:
-            raise _not_ported("data_parallel serving", "#5")
-        if tome_r:
-            raise _not_ported("tome_r (token merging)", "#7")
+            raise _not_ported("data_parallel serving", "#8")
         if placement not in ("host", "device"):
             raise ValueError(f"unknown placement {placement!r}")
         if quantize in (False, None):
@@ -136,6 +144,17 @@ class Predictor:
                     params, scales, device=self.device)
         # the fused kernel for static trees, the plain route for dynamic
         self._backend = "pallas" if qmode == "static" else "xla"
+        self.tome_r = int(tome_r or 0)
+        self.tome_schedule = tome_schedule
+        if self.tome_r:
+            r_schedule(self.tome_r, cfg.num_layers, tome_schedule)  # checks
+        if (self.quantize or self.tome_r) and batch_size < 16:
+            # the stack pays at batch >= 32 (the server's auto_accel_config
+            # crossover); configuring it below that should not be silent
+            print(f"[predictor] NOTE: quantize/tome_r with batch_size="
+                  f"{batch_size} < 16 may serve SLOWER than plain bf16: "
+                  f"the accelerated stack is meant for batch >= 32 (the "
+                  f"server's auto_accel_config crossover).", file=sys.stderr)
 
     def _calibrate(self, calibration) -> dict:
         """Static activation scales from the calibration images, staged
@@ -244,7 +263,7 @@ class Predictor:
         allocator's first blocks."""
         if with_maps:
             raise _not_ported("attention maps (with_maps=True)",
-                              "#8")
+                              "#10")
         b, candidates = 1, []
         while b < self.batch_size:
             candidates.append(b)
@@ -286,7 +305,12 @@ class Predictor:
         pull is the synchronization point)."""
         with torch.inference_mode(), self._on_stream():
             images = self._images_of(staged)
-            if self.quantize:
+            if self.tome_r:
+                logits = tome_forward.apply_tome(
+                    self._fwd_params, images, self.cfg, self.tome_r,
+                    quantized=self.quantize, schedule=self.tome_schedule,
+                    backend=self._backend)
+            elif self.quantize:
                 logits = quantized.apply_quantized(
                     self._fwd_params, images, self.cfg, backend=self._backend)
             else:
@@ -299,7 +323,7 @@ class Predictor:
         :meth:`stage_chunk`; the sigmoid runs on the host."""
         if with_maps:
             raise _not_ported("attention maps (with_maps=True)",
-                              "#8")
+                              "#10")
         logits_np = self._forward_logits(staged, valid)
         self.forwards += 1
         # overflow-free sigmoid: exp of a non-positive argument only

@@ -7,14 +7,18 @@ GET  /metrics          → request/error counts + latency quantiles (JSON)
 Stdlib only (ThreadingHTTPServer). Concurrent requests coalesce into shared
 forwards through the port's ``serve.batcher.MicroBatcher``. Attention maps
 (``?maps=1``) answer 501 until they are ported. Start with random weights
-(checkpoint loading is a later slice), dense or int8:
+(checkpoint loading is a later slice), dense, int8 or with token merging:
 
     python -m chestxray_vit_tpu_torch.serve.server --seed 0
     python -m chestxray_vit_tpu_torch.serve.server --seed 0 --batch-size 32 \
         --quantize static --calibration a.png b.png ...
+    python -m chestxray_vit_tpu_torch.serve.server --seed 0 \
+        --preset fast_serve --calibration synthetic
 
-The JAX server's token-merging options (``--preset fast_serve``,
-``--auto-accel``, ``--tome-r``) are refused until token merging is ported.
+``--preset fast_serve`` is batch 32, static int8 and ``tome_r`` 16 under
+the decreasing schedule; ``--auto-accel`` picks that stack or plain bf16
+by the batch size (:func:`auto_accel_config`). Explicit flags win over a
+preset, and ``--auto-accel`` refuses them, as in the JAX server.
 """
 
 from __future__ import annotations
@@ -36,6 +40,14 @@ from chestxray_vit_tpu_torch.serve.inference import Predictor
 
 # NIH natives are 1024² PNGs (< 1 MB); anything past this is not an X-ray
 MAX_BODY_BYTES = 32 * 1024 * 1024
+
+# The accelerated serving stack as one flag: static int8 and token merging
+# pay per image only when a forward carries many images, so the preset
+# pins batch 32.
+SERVE_PRESETS = {
+    "fast_serve": {"batch_size": 32, "quantize": "static", "tome_r": 16,
+                   "tome_schedule": "decreasing"},
+}
 
 
 class ServerStats:
@@ -151,16 +163,33 @@ def serve(predictor: Predictor, host: str = "127.0.0.1", port: int = 8000,
     return server
 
 
+def auto_accel_config(batch_size: int) -> dict:
+    """The forward stack for a batch size, by the JAX server's crossover:
+    static int8 with ``tome_r`` 16 under the decreasing schedule at batch
+    32 and above, plain bf16 below (the stack's fewer products outweigh
+    its extra launches only on large batches). Returns the Predictor
+    overrides."""
+    if batch_size >= 32:
+        return {"quantize": "static", "tome_r": 16,
+                "tome_schedule": "decreasing"}
+    return {"quantize": None, "tome_r": 0, "tome_schedule": "constant"}
+
+
 def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
-    """The server's flags; ``calibration`` comes back as None,
-    ``'synthetic'`` or the files' bytes, as ``Predictor`` takes it."""
+    """The server's flags, with ``--auto-accel`` and ``--preset`` resolved
+    into ``batch_size``, ``quantize``, ``tome_r`` and ``tome_schedule`` as
+    the JAX server resolves them (explicit flags win over a preset;
+    ``--auto-accel`` refuses explicit stack flags). ``calibration`` comes
+    back as None, ``'synthetic'`` or the files' bytes, as ``Predictor``
+    takes it."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random ViT-B/16 @384 weights "
                          "(loading a trained model is a later slice)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
-    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="images per forward (default 8, or the preset's)")
     ap.add_argument("--placement", choices=("host", "device"), default="host",
                     help="where crop/pad/resize runs (inference.Predictor)")
     ap.add_argument("--device", default="cuda")
@@ -176,19 +205,41 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                          "calibration; 'synthetic' opts into the seeded "
                          "noise batch without the warning")
     ap.add_argument("--preset", choices=("fast_serve",), default=None,
-                    help="refused: fast_serve carries token merging "
-                         "(tome_r=16), which is not ported yet")
+                    help="fast_serve: batch 32 + static int8 + tome_r 16 "
+                         "decreasing; explicit flags override its values")
     ap.add_argument("--auto-accel", action="store_true",
-                    help="refused: it picks token merging, which is not "
-                         "ported yet")
-    ap.add_argument("--tome-r", type=int, default=0,
-                    help="refused when > 0: token merging is not ported yet")
+                    help="pick the stack by the batch size "
+                         "(auto_accel_config: static int8 + tome_r 16 "
+                         "decreasing at batch >= 32, plain bf16 below); "
+                         "refuses --quantize/--tome-r/--tome-schedule/"
+                         "--preset")
+    ap.add_argument("--tome-r", type=int, default=None,
+                    help="merge up to r token pairs per layer (token "
+                         "merging: a speed/quality trade; validate it on "
+                         "your data). Composes with --quantize")
+    ap.add_argument("--tome-schedule", choices=("constant", "decreasing"),
+                    default=None,
+                    help="spread the r*L merge budget over the layers: "
+                         "'decreasing' merges most in the early layers")
     ns = ap.parse_args(argv)
-    if ns.preset or ns.auto_accel or ns.tome_r:
-        raise NotImplementedError(
-            "--preset fast_serve, --auto-accel and --tome-r serve token "
-            "merging, which is not ported to PyTorch yet (ROADMAP Queue 1 "
-            "#7)")
+    if ns.auto_accel:
+        if (ns.quantize is not None or ns.tome_r is not None
+                or ns.tome_schedule is not None or ns.preset):
+            ap.error("--auto-accel picks the stack itself: drop "
+                     "--quantize/--tome-r/--tome-schedule/--preset")
+        batch = ns.batch_size if ns.batch_size is not None else 8
+        vars(ns).update(auto_accel_config(batch))
+        stack = (f"int8-{ns.quantize} + tome r={ns.tome_r} "
+                 f"{ns.tome_schedule}" if ns.quantize else "plain bf16")
+        print(f"[server] auto-accel: batch {batch} "
+              f"{'>=' if batch >= 32 else '<'} 32 -> {stack}", flush=True)
+    # explicit flags win over the preset, the preset over the defaults
+    preset = SERVE_PRESETS.get(ns.preset, {})
+    defaults = {"batch_size": 8, "quantize": None, "tome_r": 0,
+                "tome_schedule": "constant"}
+    for key, default in defaults.items():
+        if getattr(ns, key) is None:
+            setattr(ns, key, preset.get(key, default))
     if ns.calibration == ["synthetic"]:
         ns.calibration = "synthetic"
     elif ns.calibration is not None:
@@ -209,7 +260,8 @@ def main(argv: Optional[list] = None) -> int:
     params = init_params(torch.Generator().manual_seed(ns.seed), cfg)
     predictor = Predictor(params, cfg, batch_size=ns.batch_size,
                           placement=ns.placement, device=ns.device,
-                          quantize=ns.quantize, calibration=ns.calibration)
+                          quantize=ns.quantize, calibration=ns.calibration,
+                          tome_r=ns.tome_r, tome_schedule=ns.tome_schedule)
     print("[server] warming up (building kernels, running each bucket)...",
           flush=True)
     predictor.warmup()

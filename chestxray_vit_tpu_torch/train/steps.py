@@ -16,18 +16,21 @@ per-layer dropout seeds when a dropout rate is set, then the mixup λ when
 ``data.mixup_alpha`` is. Tests inject the reference's own draws through
 ``train_step(..., draws=...)``.
 
-The int8 eval step (``make_inference_eval_step(quantized=True)``) runs a
-quantized tree: static trees through the fused int8 kernel, dynamic ones
-on the plain route.
+With ``model.tome_r`` set, the train and eval steps run the token-merging
+forward (``vit.apply`` dispatches to ``models/tome_forward.py``), with
+mixup, dropout, accumulation, clipping and AdamW unchanged.
+
+The serving-accelerated eval step (``make_inference_eval_step``) runs a
+quantized tree (static trees through the fused int8 kernel, dynamic ones
+on the plain route) and / or the token-merging serving forward.
 
 The packed step (``make_packed_train_step``) runs the packed forward of
 ``models/packed.py`` (with within-segment token merging when
 ``model.tome_r`` is set) under the same optimizer stack, with the loss's
 numerator and denominator accumulated apart.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: the int8 straight-through train forward and token merging on the
-dense steps.
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
+int8 straight-through train forward (``int8_scales``).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import torch
 from chestxray_vit_tpu_torch.config import Config
 from chestxray_vit_tpu_torch.models import packed as packed_model
 from chestxray_vit_tpu_torch.models import quantized as quantized_mod
-from chestxray_vit_tpu_torch.models import vit
+from chestxray_vit_tpu_torch.models import tome_forward, vit
 from chestxray_vit_tpu_torch.ops.preprocess import prepare_pixel_values
 from chestxray_vit_tpu_torch.train import optimizer as opt
 
@@ -132,13 +135,6 @@ def mixup(images: torch.Tensor, labels: torch.Tensor, lam
     return images, labels
 
 
-def _not_ported(cfg: Config) -> None:
-    if getattr(cfg.model, "tome_r", 0):
-        raise NotImplementedError(
-            "model.tome_r (token merging is ROADMAP Queue 1 #7) is not "
-            "ported yet")
-
-
 def _images(cfg: Config, batch: Batch) -> torch.Tensor:
     return prepare_pixel_values(batch, out_size=cfg.model.img_size,
                                 mean=cfg.data.image_mean,
@@ -186,8 +182,7 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None
     if int8_scales is not None:
         raise NotImplementedError(
             "int8_scales (the int8 straight-through train forward is "
-            "ROADMAP Queue 1 #10) is not ported yet")
-    _not_ported(cfg)
+            "ROADMAP Queue 1 #11) is not ported yet")
     schedule, adamw_cfg = _optimizer(cfg, total_steps)
     accum = max(cfg.train.gradient_accumulation_steps, 1)
 
@@ -242,8 +237,8 @@ def make_eval_step(cfg: Config) -> Callable[[vit.ViT, Batch],
                                                   torch.Tensor]]:
     """Forward-only step returning (f32 logits [B, C], per-row BCE element
     sums [B]). Runs without autograd, so attention takes the forward-only
-    kernel (``train=False``)."""
-    _not_ported(cfg)
+    kernel (``train=False``). ``model.tome_r`` evaluates the merged
+    model."""
 
     @torch.no_grad()
     def eval_step(params: vit.ViT, batch: Batch):
@@ -257,26 +252,27 @@ def make_eval_step(cfg: Config) -> Callable[[vit.ViT, Batch],
 
 def make_inference_eval_step(cfg: Config, quantized: bool = False,
                              tome_r: int = 0):
-    """``make_eval_step`` on the serving-accelerated forwards: with
-    ``quantized`` the step takes the quantized tree
-    (``models.quantized.QuantizedViT``) in place of the dense weights,
+    """``make_eval_step`` on the serving-accelerated forwards: int8 (the
+    step takes the quantized tree, ``models.quantized.QuantizedViT``, in
+    place of the dense weights) and / or token merging (``tome_r`` pairs
+    per layer under ``model.tome_schedule``, ``models/tome_forward.py``),
     with the same (logits, per-row BCE sums) contract. A static tree runs
     through the fused int8 kernel (``backend="pallas"``), a dynamic one on
-    the plain route (``"xla"``); the JAX step takes "xla" for both. Token
-    merging (ROADMAP Queue 1 #7) raises."""
-    if tome_r:
-        raise NotImplementedError(
-            "the token-merging eval forward (ROADMAP Queue 1 #7) is not "
-            "ported yet")
-    if not quantized:
-        return make_eval_step(cfg)
-    _not_ported(cfg)
+    the plain route (``"xla"``); the JAX step takes "xla" for both."""
 
     @torch.no_grad()
-    def eval_step(qparams: "quantized_mod.QuantizedViT", batch: Batch):
-        logits = quantized_mod.apply_quantized(
-            qparams, _images(cfg, batch), cfg.model,
-            backend="pallas" if qparams.static else "xla")
+    def eval_step(params, batch: Batch):
+        images = _images(cfg, batch)
+        backend = "pallas" if quantized and params.static else "xla"
+        if tome_r:
+            logits = tome_forward.apply_tome(
+                params, images, cfg.model, tome_r, quantized=quantized,
+                schedule=cfg.model.tome_schedule, backend=backend)
+        elif quantized:
+            logits = quantized_mod.apply_quantized(params, images, cfg.model,
+                                                   backend=backend)
+        else:
+            logits = vit.apply(params, images, cfg.model, train=False)
         return logits, torch.sum(bce_elements(logits, batch["labels"]),
                                  dim=-1)
 

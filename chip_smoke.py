@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: the serving path, the
 fine-tune step (dense, and with attention dropout, hidden dropout and
-mixup), the eval step and packed variable-resolution training (with and
-without within-segment token merging).
+mixup), the eval step, packed variable-resolution training (with and
+without within-segment token merging) and token merging on the dense
+forward (training, serving and eval).
 
     python3 chip_smoke.py
 
@@ -89,6 +90,26 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 17. train_packed_cross_check: depth 2, full width, one f32 step on the
    card against the CPU (plain versions), packed and packed with merging,
    with attention dropout on injected seeds.
+18. train_tome: bench.py's two merged steps (tome_r 16 constant, tome_r 32
+   decreasing) at batch 36, full remat: 3 warm-up and 10 timed steps each,
+   falling losses, the dense step's exact launch counts per step, each
+   layer's attention length (TOME_LENGTHS), images/s and peak memory beside
+   phase 6's; then 2 steps of tome_r 16 with both dropouts 0.1 and mixup
+   0.2 (train_tome_dropout).
+19. tome_cross_check: depth 2, full width, tome_r 16 decreasing: the merged
+   train step (full remat, attention dropout on injected seeds) on the
+   card in f32 against the CPU, and the merged serving forward (dense f32
+   and bf16, static int8 on the fused route) against the CPU; each layer's
+   merges that differ from the CPU's are counted, and none may in f32.
+20. serving_tome: the fast_serve stack (static int8, tome_r 16 decreasing,
+   batch 32) behind the MicroBatcher answering 128 concurrent requests,
+   and a dense bf16 tome_r 16 Predictor at batch 8 answering 32: exact
+   launches per forwarded batch; the b8 and b32 forward times of dense,
+   dense + tome, static int8 and static int8 + tome, which say whether
+   the server's auto_accel_config crossover holds on the card.
+21. eval_tome: make_inference_eval_step(tome_r=16) on phase 18's merged
+   weights, dense and on a static int8 tree, against the host's row
+   losses, with exact launch counts.
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -97,7 +118,11 @@ kernel_check also holds the four segment kernels to their plain versions at
 token merge leaves). It also holds the int8 kernel to its plain version at the batch-32
 serving shapes in its five call forms (INT8_FORMS: patch embed, Q/K/V, the
 residual forms of wo and mlp_out, mlp_in with GELU and requantize), equal
-bits twice.
+bits twice. At the lengths token merging leaves on the dense path
+(MERGED_LENGTHS: 561, 517, 401, 197) it checks the inference, training and
+dropout attention kernels at batch 36 (the debug kernel's mask: 0
+mismatches), the LayerNorm forward and backward at 36 · S rows and two
+int8 forms at 32 · S rows.
 
 The second-to-last line is the kernels summary, the last one the result.
 """
@@ -231,6 +256,23 @@ INT8_PROB_TOL, INT8_MIN_CORR = 0.1, 0.995
 # of their 64-row tiles, a tail of one row, and more tiles than the copy
 # ring has stages (checked, not timed).
 EDGE_LENGTHS = (64, 128, 129, 576, 1025)
+# Attention lengths of the merged dense forward (token merging leaves a
+# length no tile divides at every layer): tome_r 16 constant runs 561 and
+# 401, tome_r 32 decreasing 517 and 197 (see TOME_LENGTHS).
+MERGED_LENGTHS = (561, 517, 401, 197)
+# bench.py's two merged steps (tome_r, schedule), and each layer's
+# attention length in them at 577 tokens and 12 layers: r_schedule's
+# counts, each clamped to ceil(S/2) − 1.
+TOME_STEPS = ((16, "constant"), (32, "decreasing"))
+TOME_LENGTHS = {
+    (16, "constant"): tuple(range(577, 400, -16)),
+    (32, "decreasing"): (577, 517, 462, 412, 367, 327, 292, 263, 239, 220,
+                         206, 197),
+    (16, "decreasing"): (577, 547, 519, 494, 471, 451, 433, 419, 407, 398,
+                         391, 387)}
+TOME_DROPOUT_STEPS = 2
+# the server's fast_serve merging: tome_r 16 under the decreasing schedule
+TOME_SERVE = (16, "decreasing")
 # The dense attention kernels before their redesign (mma.sync from scalar
 # shared-memory loads, synchronous tile loads, transposed copies) on an
 # NVIDIA H100 80GB HBM3 at 700.00 W: the backwards at [36, 12, 577, 64]
@@ -302,6 +344,19 @@ def time_ms(fn, reps: int = 7, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def enqueue_ms(fn) -> float:
+    """Host milliseconds to issue one call of ``fn`` on an idle card (the
+    call returns before the card is done): where it is near the CUDA-event
+    time, the host sets the pace."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return ms
 
 
 def time_pair(kernel, plain, plain_reps: int = 7,
@@ -550,7 +605,105 @@ def phase_kernel_check() -> dict:
     check_layer_norm_bwd(randn, summary)
     check_dropout_attention(randn, summary)
     check_packed_attention(randn, summary)
+    check_merged_lengths(randn, gen)
     return summary
+
+
+def check_merged_lengths(randn, gen) -> None:
+    """The kernels of the merged dense path at lengths that token merging
+    leaves (MERGED_LENGTHS, no multiple of a tile), batch 36, against their
+    plain versions (checked, not timed): the inference, training-forward
+    and backward attention, the dropout forward and backward at rate 0.1
+    and the debug kernel's mask against the plain counter hash (0
+    mismatches), the LayerNorm forward and backward at 36 · S rows, and the
+    int8 kernel's residual and GELU-requantize forms at 32 · S rows (equal
+    outputs)."""
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
+    from chestxray_vit_tpu_torch.ops import int8_matmul as i8
+    from chestxray_vit_tpu_torch.ops import layer_norm as ln
+
+    for s in MERGED_LENGTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = (TRAIN_BATCH, 12, s, 64)
+            tol, gtol = ATTN_TOL[dtype], ATTN_GRAD_TOL[dtype]
+            x = randn((TRAIN_BATCH, s, 3, 12, 64), dtype)
+            q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+            do = randn(shape, dtype)
+            rec = {"phase": "kernel_check", "kernel": "merged_lengths",
+                   "shape": list(shape), "dtype": str(dtype), "tol": tol,
+                   "rel_tol": gtol}
+            rec["inference_err"] = (
+                fa.flash_attention_inference(q, k, v).float()
+                - fa.attention_reference(q, k, v).float()).abs().max().item()
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            ro, rlse = fa.attention_fwd_reference(q, k, v)
+            rec["fwd_err"] = [(o.float() - ro.float()).abs().max().item(),
+                              (lse - rlse).abs().max().item()]
+            rec["bwd_rel_err"] = [
+                rel_err(g, r) for g, r in zip(
+                    fa.flash_attention_bwd(q, k, v, o, lse, do),
+                    fa.attention_bwd_reference(q, k, v, o, lse, do))]
+            block_q = fa.auto_block_q(s)
+            args, kw = (DROP_SEED, DROP_RATE), {"block_q": block_q}
+            o, lse = fa.flash_attention_dropout_fwd(q, k, v, *args, **kw)
+            ro, rlse = fa.attention_dropout_fwd_reference(q, k, v, *args,
+                                                          **kw)
+            rec["dropout_fwd_err"] = [
+                (o.float() - ro.float()).abs().max().item(),
+                (lse - rlse).abs().max().item()]
+            rec["dropout_bwd_rel_err"] = [
+                rel_err(g, r) for g, r in zip(
+                    fa.flash_attention_dropout_bwd(q, k, v, o, lse, do,
+                                                   *args, **kw),
+                    fa.attention_dropout_bwd_reference(q, k, v, o, lse, do,
+                                                       *args, **kw))]
+            q_pad, s_pad = fa.mask_strides(s, block_q)
+            _, keep = fa.flash_attention_dropout_debug(q, k, v, *args, **kw)
+            ref_keep = fa.keep_mask(TRAIN_BATCH * 12, q_pad, s_pad, *args,
+                                    device=q.device)[:, :s, :s]
+            rec["q_pad_s_pad"] = [q_pad, s_pad]
+            rec["mask_mismatches"] = int(
+                (keep != ref_keep.reshape(keep.shape)).sum())
+            del x, q, k, v, do, o, lse, ro, rlse, keep, ref_keep
+            if dtype == torch.bfloat16:
+                rows = TRAIN_BATCH * s
+                xl, dy = randn((rows, 768), dtype) * 3 + 1, randn((rows, 768),
+                                                                  dtype)
+                sc, bi = randn((768,), dtype), randn((768,), dtype)
+                y, ry = (ln.layer_norm_cuda(xl, sc, bi, 1e-12).float(),
+                         ln.layer_norm_reference(xl, sc, bi, 1e-12).float())
+                ln_ok = bool(((y - ry).abs() <= bf16_ulp(ry) + LN_F32_TOL)
+                             .all())
+                got = ln.layer_norm_bwd_cuda(xl, sc, dy, 1e-12)
+                refs = ln.layer_norm_bwd_reference(xl, sc, dy, 1e-12)
+                ln_ok &= bool(((got[0].float() - refs[0].float()).abs()
+                               <= bf16_ulp(refs[0].float()) + LN_F32_TOL)
+                              .all())
+                for g, r in zip(got[1:], refs[1:]):
+                    g, r = g.float(), r.float()
+                    ln_ok &= bool(((g - r).abs() <= LN_BWD_REL_TOL
+                                   * r.abs().max() + bf16_ulp(r)).all())
+                rec["layer_norm_rows"], rec["layer_norm_fwd_bwd_ok"] = (
+                    rows, ln_ok)
+                int8_mismatched = {}
+                for name, _, k_, n_, resid, gelu in INT8_FORMS[2:4]:
+                    xq, wq, scale, bias, ikw = int8_operands(
+                        gen, INT8_BATCH * s, k_, n_, resid, gelu)
+                    int8_mismatched[name] = int(
+                        (i8.int8_matmul_fused(xq, wq, scale, bias, **ikw)
+                         .float() != i8.int8_matmul_fused_reference(
+                             xq, wq, scale, bias, **ikw).float()).sum())
+                rec["int8_rows"] = INT8_BATCH * s
+                rec["int8_mismatched"] = int8_mismatched
+            emit(rec)
+            require(rec["inference_err"] <= tol and max(rec["fwd_err"]) <= tol
+                    and max(rec["dropout_fwd_err"]) <= tol
+                    and max(rec["bwd_rel_err"]) <= gtol
+                    and max(rec["dropout_bwd_rel_err"]) <= gtol
+                    and rec["mask_mismatches"] == 0
+                    and rec.get("layer_norm_fwd_bwd_ok", True)
+                    and not any(rec.get("int8_mismatched", {}).values()),
+                    f"merged length S={s} {dtype}: {rec}")
 
 
 def check_layer_norm(randn, summary: dict) -> None:
@@ -1294,7 +1447,7 @@ def phase_serving_int8(params, cfg, images: list):
     emit(rec)
     del dense, dense_p, dyn
     torch.cuda.empty_cache()
-    return qp, imgs, fused_logits, launches
+    return qp, imgs, fused_logits, launches, rec
 
 
 def phase_int8_cross_check(params, cfg, qp, imgs, fused_logits) -> None:
@@ -1402,6 +1555,59 @@ def run_steps(train_step, state, batch, warmup: int, timed: int,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def dense_launches_per_step(n_layers: int, dropout: bool) -> dict:
+    """Launches per dense train step under full remat, merging or not:
+    every block's attention forward twice (forward and recompute), its
+    backward once; every LayerNorm forward twice but the final one; every
+    LayerNorm backward once; no other kernel."""
+    name = "flash_attention_dropout" if dropout else "flash_attention"
+    return {**dict.fromkeys(_wrappers(), 0),
+            f"{name}_fwd": 2 * n_layers, f"{name}_bwd": n_layers,
+            "layer_norm": 2 * (2 * n_layers + 1) - 1,
+            "layer_norm_bwd": 2 * n_layers + 1}
+
+
+def record_merges(fn) -> tuple:
+    """(``fn()``, one entry per merge the merging forwards made in it:
+    (the token count entering the merge, which is the length the layer's
+    attention ran at; each A token's destination in the B set, int64 [B,
+    |A|] on the host, −1 where it is kept, None where the clamp left no
+    merge)). Records around ``ops.tome.tome_merge_clamped`` in the two
+    modules that call it; the matching is recomputed on the same inputs."""
+    from chestxray_vit_tpu_torch.models import quantized, tome_forward
+    from chestxray_vit_tpu_torch.ops import tome
+
+    seen, merge = [], tome.tome_merge_clamped
+
+    def recording(x, metric, sizes, r):
+        s, r_l = x.shape[1], min(r, (x.shape[1] + 1) // 2 - 1)
+        dest = None
+        if r_l > 0:
+            _, src, dst = tome.bipartite_soft_matching(metric, r_l)
+            dest = torch.full((x.shape[0], (s + 1) // 2), -1,
+                              dtype=torch.int64, device=x.device
+                              ).scatter_(1, src, dst).cpu()
+        seen.append((s, dest))
+        return merge(x, metric, sizes, r)
+
+    tome_forward.tome_merge_clamped = recording
+    quantized.tome_merge_clamped = recording
+    try:
+        out = fn()
+    finally:
+        tome_forward.tome_merge_clamped = merge
+        quantized.tome_merge_clamped = merge
+    return out, seen
+
+
+def merges_differing(a: list, b: list) -> list:
+    """Per recorded merge of two runs: how many A tokens went elsewhere."""
+    require([s for s, _ in a] == [s for s, _ in b],
+            f"the same lengths: {[s for s, _ in a]} {[s for s, _ in b]}")
+    return [0 if da is None else int((da != db).sum())
+            for (_, da), (_, db) in zip(a, b)]
+
+
 def phase_train():
     """bench.py's train step on the card: ViT-B/16 @384, bf16, full remat,
     batch 36, TrainConfig defaults, over 10,000 scheduled steps."""
@@ -1410,12 +1616,7 @@ def phase_train():
 
     dev = torch.device("cuda")
     cfg = train_config(remat=True)
-    n_layers = cfg.model.num_layers
-    per_step = {**dict.fromkeys(_wrappers(), 0),  # every other kernel 0
-                "flash_attention_fwd": 2 * n_layers,   # forward + recompute
-                "flash_attention_bwd": n_layers,
-                "layer_norm": 2 * (2 * n_layers + 1) - 1,  # final LN once
-                "layer_norm_bwd": 2 * n_layers + 1}
+    per_step = dense_launches_per_step(cfg.model.num_layers, dropout=False)
     batch = bench_batch(TRAIN_BATCH, SEED, dev)
     params = init_params(torch.Generator().manual_seed(SEED), cfg.model, dev)
     state = steps.TrainState.create(params, seed=42)
@@ -1474,7 +1675,7 @@ def phase_train():
             f"remat vs no remat: loss {loss_diff}, grads {grad_diff}")
     del state_nr, params_nr
     torch.cuda.empty_cache()
-    return params, cfg, launches, rec["images_per_s"]
+    return params, cfg, launches, rec
 
 
 def phase_train_dropout() -> dict:
@@ -1489,12 +1690,7 @@ def phase_train_dropout() -> dict:
     dev = torch.device("cuda")
     drop = {"attention_dropout": DROP_RATE, "hidden_dropout": DROP_RATE}
     cfg = train_config(MIXUP_ALPHA, remat=True, **drop)
-    n_layers = cfg.model.num_layers
-    per_step = {**dict.fromkeys(_wrappers(), 0),  # dense attention too
-                "flash_attention_dropout_fwd": 2 * n_layers,
-                "flash_attention_dropout_bwd": n_layers,
-                "layer_norm": 2 * (2 * n_layers + 1) - 1,
-                "layer_norm_bwd": 2 * n_layers + 1}
+    per_step = dense_launches_per_step(cfg.model.num_layers, dropout=True)
     batch = bench_batch(TRAIN_BATCH, SEED, dev)
     params = init_params(torch.Generator().manual_seed(SEED), cfg.model, dev)
     state = steps.TrainState.create(params, seed=42)
@@ -1560,10 +1756,13 @@ def phase_train_dropout() -> dict:
 
 
 def phase_train_cross_check(phase: str = "train_cross_check",
-                            mixup_alpha: float = 0.0, **model) -> None:
+                            mixup_alpha: float = 0.0,
+                            dtypes: tuple = ("f32", "bf16"), **model) -> None:
     """One train step at full width, depth 2, batch 2: the card in f32 and
     in bf16 against the CPU in f32 (plain versions), same weights and the
-    same draws (dropout seeds, mixup λ) injected on both sides."""
+    same draws (dropout seeds, mixup λ) injected on both sides. With
+    ``tome_r`` also the merges of every layer (forward and recompute)
+    that differ from the CPU's: none in f32."""
     import dataclasses
 
     from chestxray_vit_tpu_torch.models import bridge
@@ -1580,20 +1779,28 @@ def phase_train_cross_check(phase: str = "train_cross_check",
 
     def run(cfg, params, device):
         dev_batch = {k: v.to(device) for k, v in batch.items()}
-        state, m = steps.make_train_step(cfg, total_steps=10_000)(
-            steps.TrainState.create(params, seed=0), dev_batch, draws)
+        (state, m), merges = record_merges(
+            lambda: steps.make_train_step(cfg, total_steps=10_000)(
+                steps.TrainState.create(params, seed=0), dev_batch, draws))
         return ({k: v.item() for k, v in m.items()},
                 _leaves(bridge.grads_to_numpy(state.params)),
-                _leaves(bridge.params_to_numpy(state.params)))
+                _leaves(bridge.params_to_numpy(state.params)), merges)
 
-    cpu_m, cpu_g, cpu_p = run(cfg32, cpu_params, "cpu")
+    cpu_m, cpu_g, cpu_p, cpu_merges = run(cfg32, cpu_params, "cpu")
     g_scale = max(float(np.abs(g).max()) for g in cpu_g)
     rec = {"phase": phase, "depth": 2, "batch": 2, "model": model,
-           "mixup_alpha": mixup_alpha, "cpu_f32_loss": cpu_m["loss"], "tol_f32": XCHECK_F32,
-           "tol_bf16": XCHECK_BF16}
+           "mixup_alpha": mixup_alpha, "cpu_f32_loss": cpu_m["loss"],
+           "tol_f32": XCHECK_F32, "tol_bf16": XCHECK_BF16}
+    if cpu_merges:
+        rec["merge_lengths"] = [n for n, _ in cpu_merges]
     for name, cfg in (("f32", cfg32), ("bf16", cfg16)):
+        if name not in dtypes:
+            continue
         card = bridge.params_from_jax(tree, cfg.model).to("cuda")
-        m, g, p = run(cfg, card, "cuda")
+        m, g, p, merges = run(cfg, card, "cuda")
+        if cpu_merges:
+            rec[f"card_{name}_merges_differing"] = merges_differing(
+                merges, cpu_merges)
         rec[f"card_{name}_loss_diff"] = abs(m["loss"] - cpu_m["loss"])
         rec[f"card_{name}_grad_norm_rel_diff"] = (
             abs(m["grad_norm"] - cpu_m["grad_norm"]) / cpu_m["grad_norm"])
@@ -1607,10 +1814,13 @@ def phase_train_cross_check(phase: str = "train_cross_check",
                      ("grads_rel_diff", XCHECK_F32["grads_rel"]),
                      ("params_max_abs_diff", XCHECK_F32["params"])):
         require(rec[f"card_f32_{key}"] <= tol, f"f32 {key}: {rec}")
-    for key, tol in (("loss_diff", XCHECK_BF16["loss"]),
-                     ("grads_rel_diff", XCHECK_BF16["grads_rel"]),
-                     ("params_max_abs_diff", XCHECK_BF16["params"])):
-        require(rec[f"card_bf16_{key}"] <= tol, f"bf16 {key}: {rec}")
+    require(not any(rec.get("card_f32_merges_differing", [])),
+            f"f32 merges as on the CPU: {rec}")
+    if "bf16" in dtypes:
+        for key, tol in (("loss_diff", XCHECK_BF16["loss"]),
+                         ("grads_rel_diff", XCHECK_BF16["grads_rel"]),
+                         ("params_max_abs_diff", XCHECK_BF16["params"])):
+            require(rec[f"card_bf16_{key}"] <= tol, f"bf16 {key}: {rec}")
 
 
 def packed_launches_per_step(n_layers: int, dropout: bool) -> dict:
@@ -1851,25 +2061,31 @@ def phase_eval(params, cfg) -> dict:
     return launches
 
 
-def phase_eval_int8(params, cfg) -> dict:
-    """The int8 eval step on a static tree of ``params`` (calibrated on the
-    first eval batch) over the eval batches: finite logits, row losses
-    against the host's, exact launch counts (73 int8, 12 attention and 25
-    LayerNorm per batch, nothing else)."""
-    from chestxray_vit_tpu_torch.models import quantized
+def phase_eval_accel(params, cfg, phase: str = "eval_int8",
+                     quantized: bool = True, tome_r: int = 0) -> dict:
+    """The serving-accelerated eval step (``make_inference_eval_step``)
+    over the eval batches of 8: int8 on a static tree of ``params``
+    (calibrated on the first eval batch) and / or token merging. Finite
+    logits, row losses against the host's, exact launch counts (12
+    attention and 25 LayerNorm per batch, 73 int8 on a static tree,
+    nothing else)."""
+    from chestxray_vit_tpu_torch.models import quantized as qmod
     from chestxray_vit_tpu_torch.train import steps
 
     dev = torch.device("cuda")
     batches = [bench_batch(TRAIN_BATCH, SEED + 10 + i, dev)
                for i in range(EVAL_BATCHES)]
-    qp = quantized.quantize_vit_params(
-        params, quantized.calibrate_vit_scales(
-            params, batches[0]["pixel_values"], cfg.model))
-    eval_step = steps.make_inference_eval_step(cfg, quantized=True)
+    tree = params
+    if quantized:
+        tree = qmod.quantize_vit_params(
+            params, qmod.calibrate_vit_scales(
+                params, batches[0]["pixel_values"], cfg.model))
+    eval_step = steps.make_inference_eval_step(cfg, quantized=quantized,
+                                               tome_r=tome_r)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    outs = [eval_step(qp, b) for b in batches]
+    outs = [eval_step(tree, b) for b in batches]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
@@ -1880,19 +2096,272 @@ def phase_eval_int8(params, cfg) -> dict:
     host_rows = (np.maximum(x, 0) - x * z
                  + np.log1p(np.exp(-np.abs(x)))).sum(axis=1)
     row_err = float(np.abs(rows - host_rows).max())
-    rec = {"phase": "eval_int8", "batches": EVAL_BATCHES,
-           "batch": TRAIN_BATCH, "logits_shape": list(logits.shape),
+    rec = {"phase": phase, "batches": EVAL_BATCHES, "batch": TRAIN_BATCH,
+           "quantized": quantized, "tome_r": tome_r,
+           "tome_schedule": cfg.model.tome_schedule,
+           "logits_shape": list(logits.shape),
            "finite": bool(torch.isfinite(logits).all()),
            "row_loss_max_abs_err": row_err, "ms_per_batch":
                1e3 * wall / EVAL_BATCHES, "launches": launches}
+    if tome_r:
+        with torch.no_grad():
+            _, seen = record_merges(lambda: eval_step(tree, batches[0]))
+        rec["attention_lengths"] = [n for n, _ in seen]
     emit(rec)
     require(rec["finite"] and logits.shape == (EVAL_BATCHES * TRAIN_BATCH,
                                                15),
-            "finite int8 eval logits of the expected shape")
-    require(row_err <= 1e-4, f"int8 row losses vs host: {row_err}")
-    require_forward_launches("eval_int8", launches, EVAL_BATCHES, cfg.model,
-                             int8=True)
+            f"{phase}: finite logits of the expected shape")
+    require(row_err <= 1e-4, f"{phase}: row losses vs host: {row_err}")
+    require_forward_launches(phase, launches, EVAL_BATCHES, cfg.model,
+                             int8=quantized)
+    if tome_r:
+        require(rec["attention_lengths"] == list(TOME_LENGTHS[
+            (tome_r, cfg.model.tome_schedule)]),
+            f"{phase}: attention lengths {rec['attention_lengths']}")
     return launches
+
+
+def phase_train_tome(dense_rec: dict):
+    """bench.py's two merged steps (tome_r 16 constant, 32 decreasing):
+    ViT-B/16 @384, bf16, full remat, batch 36, seed-0 weights, bench.py's
+    batch; 3 warm-up and 10 timed steps each, finite losses that fall, the
+    dense step's exact launch counts per step, and each layer's attention
+    length against TOME_LENGTHS; images/s and peak memory beside phase 6's
+    dense step. Then 2 steps of tome_r 16 with attention and hidden
+    dropout 0.1 and mixup 0.2: the dropout kernels at the merged lengths.
+    Returns (the launches of the timed runs, the tome_r 16 weights after
+    their steps)."""
+    from chestxray_vit_tpu_torch.models import vit
+    from chestxray_vit_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    batch = bench_batch(TRAIN_BATCH, SEED, dev)
+    launches, kept = {}, None
+    drop = {"attention_dropout": DROP_RATE, "hidden_dropout": DROP_RATE}
+    runs = [(r, schedule, 0.0, {}, WARMUP_STEPS, TIMED_STEPS)
+            for r, schedule in TOME_STEPS]
+    runs.append((16, "constant", MIXUP_ALPHA, drop, 0, TOME_DROPOUT_STEPS))
+    for r, schedule, alpha, extra, warmup, timed in runs:
+        cfg = train_config(alpha, remat=True, tome_r=r,
+                           tome_schedule=schedule, **extra)
+        per_step = dense_launches_per_step(cfg.model.num_layers,
+                                           dropout=bool(extra))
+        params = vit.init_params(torch.Generator().manual_seed(SEED),
+                                 cfg.model, dev)
+        state = steps.TrainState.create(params, seed=42)
+        run = run_steps(steps.make_train_step(cfg, total_steps=10_000),
+                        state, batch, warmup, timed)
+        with torch.no_grad():
+            _, seen = record_merges(lambda: vit.apply(
+                params, batch["pixel_values"][:2], cfg.model))
+        lengths = [n for n, _ in seen]
+        losses, norms = run["losses"], run["grad_norms"]
+        name = "train_tome" + ("_dropout" if extra else "")
+        rec = {"phase": name, "tome_r": r, "tome_schedule": schedule,
+               "batch": TRAIN_BATCH, "remat": "full",
+               "dtype": cfg.model.dtype, **extra, "mixup_alpha": alpha,
+               "warmup_steps": warmup, "timed_steps": timed,
+               "step_ms": run["step_ms"],
+               "images_per_s": TRAIN_BATCH * timed / run["wall"],
+               "max_memory_allocated_gb": run["peak_gb"],
+               "attention_lengths": lengths,
+               "attention_length_mean": sum(lengths) / len(lengths),
+               "losses": losses, "grad_norms": norms,
+               "launches_per_step": run["step_counts"][-1],
+               "launches": run["launches"]}
+        if not extra:
+            rec.update(dense_b36_images_per_s=dense_rec["images_per_s"],
+                       dense_b36_max_memory_gb=dense_rec[
+                           "max_memory_allocated_gb"],
+                       images_per_s_vs_dense=rec["images_per_s"]
+                       / dense_rec["images_per_s"])
+        emit(rec)
+        require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+                f"{name} r={r}: finite loss and grad_norm at every step")
+        require(extra or losses[-1] < losses[0],
+                f"{name} r={r}: loss went down: {losses}")
+        require(all(c == per_step for c in run["step_counts"]),
+                f"{name} r={r}: launches per step {run['step_counts']} != "
+                f"{per_step}")
+        require(lengths == list(TOME_LENGTHS[(r, schedule)]),
+                f"{name} r={r}: attention lengths {lengths}")
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        if (r, schedule, extra) == (16, "constant", {}):
+            kept = params
+        del state, run
+        torch.cuda.empty_cache()
+    return launches, kept
+
+
+def phase_tome_cross_check() -> None:
+    """Full width, depth 2, batch 2, merging tome_r 16 under the decreasing
+    schedule (577 → 555 → 545 tokens). The merged train step (full remat,
+    attention dropout on injected seeds) on the card in f32 against the CPU
+    (phase 7's comparison, each layer's merges in the forward and the
+    recompute: none may differ); then the merged serving forward: dense in
+    f32 (F32_LOGIT_TOL, no merge may differ) and bf16 (BF16_LOGIT_TOL; the
+    merges that differ are counted), and a static int8 tree on the fused
+    route, f32 and bf16, against the CPU's fused route (its plain twins)
+    and plain route (INT8_ROUTE_TOL, correlation above
+    INT8_ROUTE_MIN_CORR)."""
+    import copy
+    import dataclasses
+
+    import chestxray_vit_tpu_torch as cxr
+    from chestxray_vit_tpu_torch.models import quantized, tome_forward, vit
+
+    merge = {"tome_r": TOME_SERVE[0], "tome_schedule": TOME_SERVE[1]}
+    phase_train_cross_check("tome_cross_check_train", dtypes=("f32",),
+                            remat=True, attention_dropout=DROP_RATE, **merge)
+
+    cfg32 = cxr.ModelConfig(num_layers=2, dtype="float32")
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    params = vit.init_params(torch.Generator().manual_seed(SEED), cfg32)
+    x = bench_batch(2, SEED + 3, "cpu")["pixel_values"]
+    qp = quantized.quantize_vit_params(
+        params, quantized.calibrate_vit_scales(params, x, cfg32))
+    r, schedule = TOME_SERVE
+
+    def fwd(tree, c, quant=False, backend="xla", device="cpu"):
+        return record_merges(lambda: tome_forward.apply_tome(
+            tree, x.to(device), c, r, quantized=quant, schedule=schedule,
+            backend=backend).cpu())
+
+    def corr(a, b):
+        return float(np.corrcoef(a.numpy().ravel(), b.numpy().ravel())[0, 1])
+
+    rec = {"phase": "tome_cross_check_forward", "depth": 2, "batch": 2,
+           "tome_r": r, "tome_schedule": schedule, "tol_f32": F32_LOGIT_TOL,
+           "tol_bf16": BF16_LOGIT_TOL, "tol_int8": INT8_ROUTE_TOL,
+           "min_corr_int8": INT8_ROUTE_MIN_CORR}
+    with torch.inference_mode():
+        cpu, cpu_seen = fwd(params, cfg32)
+        cpu_fused, cpu_q_seen = fwd(qp, cfg32, True, "pallas")
+        cpu_plain, _ = fwd(qp, cfg32, True, "xla")
+        card_params = copy.deepcopy(params).to("cuda")
+        card_qp = copy.deepcopy(qp).to("cuda")
+        rec["attention_lengths"] = [n for n, _ in cpu_seen]
+        for name, c in (("f32", cfg32), ("bf16", cfg16)):
+            card, seen = fwd(card_params, c, device="cuda")
+            rec[f"dense_{name}_max_abs"] = (card - cpu).abs().max().item()
+            rec[f"dense_{name}_merges_differing"] = merges_differing(
+                seen, cpu_seen)
+            card, seen = fwd(card_qp, c, True, "pallas", "cuda")
+            for ref_name, ref in (("cpu_fused", cpu_fused),
+                                  ("cpu_plain", cpu_plain)):
+                rec[f"int8_{name}_vs_{ref_name}_max_abs"] = (
+                    card - ref).abs().max().item()
+                rec[f"int8_{name}_vs_{ref_name}_corr"] = corr(card, ref)
+            rec[f"int8_{name}_merges_differing"] = merges_differing(
+                seen, cpu_q_seen)
+    rec["cpu_f32_logits_absmax"] = cpu.abs().max().item()
+    emit(rec)
+    require(rec["dense_f32_max_abs"] <= F32_LOGIT_TOL
+            and not any(rec["dense_f32_merges_differing"]),
+            f"merged forward f32 card vs CPU: {rec}")
+    require(rec["dense_bf16_max_abs"] <= BF16_LOGIT_TOL,
+            f"merged forward bf16 card vs CPU f32: {rec}")
+    for name in ("f32", "bf16"):
+        for ref_name in ("cpu_fused", "cpu_plain"):
+            d = rec[f"int8_{name}_vs_{ref_name}_max_abs"]
+            c = rec[f"int8_{name}_vs_{ref_name}_corr"]
+            require(d <= INT8_ROUTE_TOL and c > INT8_ROUTE_MIN_CORR,
+                    f"merged int8 {name} vs {ref_name}: {d}, corr {c}")
+
+
+def phase_serving_tome(int8_rec: dict) -> dict:
+    """The fast_serve stack behind the MicroBatcher: a static-int8 Predictor
+    with tome_r 16 decreasing at batch 32 (calibrated on 8 of the request
+    images) answering 128 concurrent requests, and a dense bf16 tome_r 16
+    Predictor at batch 8 answering 32: 15 finite probabilities each, 12
+    attention, 25 LayerNorm (and 73 int8) launches per forwarded batch, the
+    attention lengths of the schedule. Then the b8 and b32 forward times
+    of dense bf16, dense + tome, static int8 and static int8 + tome on the
+    same images, in turns, which say whether ``auto_accel_config``'s
+    crossover (the stack at batch >= 32, plain bf16 below) holds on the
+    card; phase 11's b32 routes beside them. Returns the launches of the
+    two bursts."""
+    import chestxray_vit_tpu_torch as cxr
+    from chestxray_vit_tpu_torch.models import quantized, tome_forward, vit
+
+    cfg = cxr.ModelConfig()
+    params = vit.init_params(torch.Generator().manual_seed(SEED), cfg)
+    images = make_requests(INT8_REQUESTS)
+    r, schedule = TOME_SERVE
+    t0 = time.perf_counter()
+    pred = cxr.Predictor(params, cfg, batch_size=INT8_BATCH,
+                         placement="device", device="cuda",
+                         quantize="static", calibration=images[:8],
+                         tome_r=r, tome_schedule=schedule)
+    pred.warmup()
+    warm_s = time.perf_counter() - t0
+    results, submitted, done, launches = serve_burst(pred, images)
+    rec = {**burst_record("serving_tome", pred, images, results, submitted,
+                          done, cfg),
+           "quantize": "static", "tome_r": r, "tome_schedule": schedule,
+           "launches": launches, "warmup_s": warm_s,
+           "int8_b32_images_per_s": int8_rec["images_per_s"],
+           "dense_b32_images_per_s": int8_rec["dense_b32"]["images_per_s"]}
+    require_forward_launches("serving_tome", launches, pred.forwards, cfg,
+                             int8=True)
+
+    dense = cxr.Predictor(params, cfg, batch_size=BATCH, placement="device",
+                          device="cuda", tome_r=r, tome_schedule=schedule)
+    dense.warmup()
+    d_res, d_sub, d_done, d_launches = serve_burst(dense, images[:REQUESTS])
+    d_rec = burst_record("serving_tome_dense_b8", dense, images[:REQUESTS],
+                         d_res, d_sub, d_done, cfg)
+    rec["dense_tome_b8"] = {k: d_rec[k] for k in (
+        "images_per_s", "p50_latency_ms", "max_latency_ms", "forwards")}
+    require_forward_launches("serving_tome_dense_b8", d_launches,
+                             dense.forwards, cfg, int8=False)
+
+    qp, dense_p = pred._fwd_params, dense._fwd_params
+    staged = pred.stage_chunk(images[:INT8_BATCH])
+    torch.cuda.synchronize()        # the copy ran on the Predictor's stream
+    with torch.inference_mode():
+        imgs = pred._images_of(staged)
+        _, seen = record_merges(lambda: tome_forward.apply_tome(
+            qp, imgs, cfg, r, quantized=True, schedule=schedule,
+            backend="pallas"))
+        rec["attention_lengths"] = [n for n, _ in seen]
+        fwd = {
+            "dense_bf16": lambda x: vit.apply(dense_p, x, cfg),
+            "dense_tome": lambda x: tome_forward.apply_tome(
+                dense_p, x, cfg, r, schedule=schedule),
+            "static_fused": lambda x: quantized.apply_quantized(
+                qp, x, cfg, "pallas"),
+            "static_tome": lambda x: tome_forward.apply_tome(
+                qp, x, cfg, r, quantized=True, schedule=schedule,
+                backend="pallas")}
+        for b in (BATCH, INT8_BATCH):
+            x = imgs[:b]
+            # in turns, forward then backward through the stacks: the
+            # merged stacks can be host-bound, and the host's pace drifts
+            turns = {k: [] for k in fwd}
+            for order in (list(fwd), list(fwd)[::-1]):
+                for k in order:
+                    turns[k].append(time_ms(lambda f=fwd[k]: f(x), reps=5,
+                                            inner=3))
+            rec[f"forward_ms_b{b}"] = {k: sum(v) / 2
+                                       for k, v in turns.items()}
+            rec[f"forward_ms_b{b}_turns"] = turns
+            rec[f"enqueue_ms_b{b}"] = {k: enqueue_ms(lambda f=f: f(x))
+                                       for k, f in fwd.items()}
+    rec["forward_ms_b32_phase_11"] = int8_rec["forward_ms_b32"]
+    b8, b32 = rec[f"forward_ms_b{BATCH}"], rec[f"forward_ms_b{INT8_BATCH}"]
+    rec["auto_accel_crossover"] = {
+        "b32_stack_faster_than_dense": b32["static_tome"] < b32["dense_bf16"],
+        "b8_dense_faster_than_stack": b8["dense_bf16"] <= b8["static_tome"]}
+    rec["auto_accel_crossover"]["holds"] = all(
+        rec["auto_accel_crossover"].values())
+    emit(rec)
+    require(rec["attention_lengths"] == list(TOME_LENGTHS[TOME_SERVE]),
+            f"serving_tome: attention lengths {rec['attention_lengths']}")
+    del pred, dense, qp, dense_p, imgs
+    torch.cuda.empty_cache()
+    return {k: launches[k] + d_launches[k] for k in launches}
 
 
 KERNELS = (  # name (the kernel_check summary key), source, what it replaces
@@ -1950,16 +2419,16 @@ def main() -> int:
     card_logits, serve_launches = phase_serving(params, cfg,
                                                 images[:REQUESTS])
     phase_cross_check(params, cfg, images, card_logits)
-    qp, imgs, fused_logits, serve_int8_launches = phase_serving_int8(
-        params, cfg, images)
+    qp, imgs, fused_logits, serve_int8_launches, int8_rec = \
+        phase_serving_int8(params, cfg, images)
     phase_int8_cross_check(params, cfg, qp, imgs, fused_logits)
     del params, qp, imgs
     torch.cuda.empty_cache()
-    train_params, train_cfg, train_launches, dense_images_per_s = \
-        phase_train()
+    train_params, train_cfg, train_launches, train_rec = phase_train()
+    dense_images_per_s = train_rec["images_per_s"]
     phase_train_cross_check()
     eval_launches = phase_eval(train_params, train_cfg)
-    eval_int8_launches = phase_eval_int8(train_params, train_cfg)
+    eval_int8_launches = phase_eval_accel(train_params, train_cfg)
     del train_params
     torch.cuda.empty_cache()
     dropout_launches = phase_train_dropout()
@@ -1985,6 +2454,16 @@ def main() -> int:
         **drop)
     del mixed
     phase_train_packed_cross_check()
+    tome_train_launches, tome_params = phase_train_tome(train_rec)
+    phase_tome_cross_check()
+    serve_tome_launches = phase_serving_tome(int8_rec)
+    tome_cfg = train_config(tome_r=TOME_STEPS[0][0],
+                            tome_schedule=TOME_STEPS[0][1])
+    eval_tome_launches = [
+        phase_eval_accel(tome_params, tome_cfg, f"eval_tome_{name}",
+                         quantized=quant, tome_r=TOME_STEPS[0][0])
+        for name, quant in (("dense", False), ("int8", True))]
+    del tome_params
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "chestxray_vit_tpu")]
     require(not loaded, f"no JAX and no JAX-package module imported: "
@@ -1992,11 +2471,13 @@ def main() -> int:
 
     # launches: the sum over the main paths' runs (serving, int8 serving,
     # the timed train steps, eval, int8 eval, the timed dropout steps, the
-    # timed packed, merged and mixed-resolution steps), each counted from 0
+    # timed packed, merged and mixed-resolution steps, the timed merged
+    # dense steps, merged serving and merged eval), each counted from 0
     # just before it
     paths = (serve_launches, serve_int8_launches, train_launches,
              eval_launches, eval_int8_launches, dropout_launches,
-             packed_launches, tome_launches, mixed_launches)
+             packed_launches, tome_launches, mixed_launches,
+             tome_train_launches, serve_tome_launches, *eval_tome_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)

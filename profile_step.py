@@ -1,20 +1,31 @@
 """Device-time breakdown of the port's train step (dense or packed), or of
-its static int8 serving forward, on one NVIDIA GPU.
+its serving forward (dense or static int8), on one NVIDIA GPU.
 
-    python3 profile_step.py [--dropout | --int8 | --packed | --packed-tome]
+    python3 profile_step.py [--dropout | --int8 | --forward | --packed |
+                             --packed-tome] [--batch N]
+                            [--tome-r R [--tome-schedule decreasing]]
 
 bench.py's step (ViT-B/16 @384, bf16, full remat, batch 36, random weights
 from seed 0); ``--dropout`` adds attention dropout 0.1, hidden dropout 0.1
 and mixup α 0.2. ``--int8`` profiles the serving forward instead: the
 fused int8 route at batch 32 on a static tree calibrated on 8 images (the
-weights of seed 0, standard-normal images). ``--packed`` profiles the
+weights of seed 0, standard-normal images); ``--forward`` the dense bf16
+serving forward, at batch 8; ``--batch`` sets either batch. ``--packed``
+profiles the
 packed train step on smoke_batches.py's probe batch (32 sequences of 1152
 tokens, two 384 x 384 images each), ``--packed-tome`` the same with
-within-segment token merging (r = 16, decreasing). After 3 warm-up steps
+within-segment token merging (r = 16, decreasing). ``--tome-r`` merges
+tokens on the dense step (with or without ``--dropout``) or on the int8
+forward, under ``--tome-schedule``. After 3 warm-up steps
 ``torch.profiler`` traces 2 steps (forwards); the kernels of the trace are
 summed by category, and the busy share is the union of their intervals
-over the traced wall. Prints one JSON line (the trace is written beside
-the kernel build, read and removed).
+over the traced wall; ``syncs_per_step`` counts the host's waits on the
+card in the trace (CUDA runtime calls that synchronize), ``copies_per_step``
+its memory copies between host and card. Outside the
+profiler, ``event_ms`` is a step's time by CUDA events over 5 steps, and
+``enqueue_ms`` the host's time to issue one (the call returns before the
+card is done). Prints one JSON line (the trace is written beside the
+kernel build, read and removed).
 Needs a CUDA card.
 """
 
@@ -32,7 +43,7 @@ import torch
 
 from smoke_batches import bench_batch
 
-BATCH, INT8_BATCH, WARMUP_STEPS, STEPS = 36, 32, 3, 2
+BATCH, INT8_BATCH, SERVE_BATCH, WARMUP_STEPS, STEPS = 36, 32, 8, 3, 2
 
 # kernel-name fragments by category, first match wins
 CATEGORIES = (
@@ -74,8 +85,13 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--dropout", action="store_true")
     mode.add_argument("--int8", action="store_true")
+    mode.add_argument("--forward", action="store_true")
     mode.add_argument("--packed", action="store_true")
     mode.add_argument("--packed-tome", action="store_true")
+    ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--tome-r", type=int, default=0)
+    ap.add_argument("--tome-schedule", choices=("constant", "decreasing"),
+                    default="constant")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -88,15 +104,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     rate = 0.1 if args.dropout else 0.0
     cfg = cxr.Config(model=cxr.ModelConfig(remat=True, attention_dropout=rate,
-                                           hidden_dropout=rate),
+                                           hidden_dropout=rate,
+                                           tome_r=args.tome_r,
+                                           tome_schedule=args.tome_schedule),
                      data=cxr.DataConfig(
                          mixup_alpha=0.2 if args.dropout else 0.0))
     dev = torch.device("cuda")
     batch = bench_batch(BATCH, 0, dev)
     params = init_params(torch.Generator().manual_seed(0), cfg.model, dev)
-    if args.int8:
-        run, batch_size, config = int8_forward(params, cfg.model, dev), \
-            INT8_BATCH, "int8"
+    if args.int8 or args.forward:
+        batch_size = args.batch or (INT8_BATCH if args.int8 else SERVE_BATCH)
+        run = serving_forward(params, cfg.model, dev, batch_size, args.int8)
+        config = "int8" if args.int8 else "forward"
     elif args.packed or args.packed_tome:
         run, batch_size = packed_step(params, args.packed_tome, dev)
         config = "packed_tome" if args.packed_tome else "packed"
@@ -111,9 +130,23 @@ def main() -> int:
 
         batch_size = BATCH
         config = "dropout" if args.dropout else "dense"
+    if args.tome_r and not (args.packed or args.packed_tome):
+        config += f"_tome{args.tome_r}_{args.tome_schedule}"
     for _ in range(WARMUP_STEPS):
         out = run()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        run()
+    end.record()
+    end.synchronize()
+    event_ms = start.elapsed_time(end) / 5
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -129,6 +162,10 @@ def main() -> int:
         events = json.load(f)["traceEvents"]
     os.remove(path)
     launched = [e for e in events if e.get("cat") == "kernel"]
+    runtime = [e.get("name", "") for e in events
+               if e.get("cat") == "cuda_runtime"]
+    syncs = [n for n in runtime if "Synchronize" in n]
+    copies = [n for n in runtime if "Memcpy" in n]
     by_cat: dict = {}
     for e in launched:
         c = category(e["name"])
@@ -143,14 +180,17 @@ def main() -> int:
         "config": config, "batch": batch_size, "steps": STEPS,
         "nvidia_smi": smi,
         "wall_ms_per_step": wall_ms / STEPS,
+        "event_ms": event_ms, "enqueue_ms": enqueue_ms,
+        "syncs_per_step": len(syncs) / STEPS,
+        "copies_per_step": len(copies) / STEPS,
         "device_ms_per_step": busy / STEPS,
         "busy_share": busy / wall_ms,
         "kernels_per_step": len(launched) / STEPS,
         "ms_per_step_by_category": {k: round(v, 4) for k, v in
                                     sorted(by_cat.items(),
                                            key=lambda kv: -kv[1])},
-        **({"logits_absmax": out.abs().max().item()} if args.int8
-           else {"loss": out.item()})}))
+        **({"logits_absmax": out.abs().max().item()}
+           if args.int8 or args.forward else {"loss": out.item()})}))
     return 0
 
 
@@ -178,10 +218,12 @@ def packed_step(params, tome: bool, dev):
     return run, batch["n_images"]
 
 
-def int8_forward(params, cfg, dev):
-    """The static int8 serving forward at INT8_BATCH on the fused route,
-    as the ``Predictor`` runs it (under ``inference_mode``)."""
-    from chestxray_vit_tpu_torch.models import quantized
+def serving_forward(params, cfg, dev, batch: int, int8: bool):
+    """The serving forward at ``batch``, as the ``Predictor`` runs it
+    (under ``inference_mode``): dense bf16 on weights cast once, or static
+    int8 on the fused route (a tree calibrated on 8 images); merging with
+    ``cfg.tome_r``."""
+    from chestxray_vit_tpu_torch.models import quantized, tome_forward, vit
 
     rng = np.random.default_rng(1)
 
@@ -189,13 +231,23 @@ def int8_forward(params, cfg, dev):
         return torch.from_numpy(rng.standard_normal(
             (n, 384, 384, 3)).astype(np.float32)).to(dev, torch.bfloat16)
 
-    qp = quantized.quantize_vit_params(
-        params, quantized.calibrate_vit_scales(params, images(8), cfg))
-    x = images(INT8_BATCH)
+    if int8:
+        tree = quantized.quantize_vit_params(
+            params, quantized.calibrate_vit_scales(params, images(8), cfg))
+    else:
+        tree = vit.inference_params(params, dev)
+    x = images(batch)
+    backend = "pallas" if int8 else "xla"
 
     def run():
         with torch.inference_mode():
-            return quantized.apply_quantized(qp, x, cfg, backend="pallas")
+            if cfg.tome_r:
+                return tome_forward.apply_tome(
+                    tree, x, cfg, cfg.tome_r, quantized=int8,
+                    schedule=cfg.tome_schedule, backend=backend)
+            if int8:
+                return quantized.apply_quantized(tree, x, cfg, backend)
+            return vit.apply(tree, x, cfg)
 
     return run
 

@@ -1143,3 +1143,73 @@ def test_packed_train_step_on_card_matches_cpu(dev, tome_r):
     scale = max(float(np.abs(a).max()) for a in leaves(g0))
     for a, b in zip(leaves(g0), leaves(g1)):
         assert float(np.abs(a - b).max()) <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# Token merging on the dense forward
+# ---------------------------------------------------------------------------
+
+def _tome_cfg(**kw):
+    base = dict(img_size=64, patch_size=8, hidden_size=128, num_layers=2,
+                num_heads=2, mlp_dim=256, num_classes=5, dtype="float32",
+                tome_r=16, tome_schedule="decreasing")
+    return ModelConfig(**{**base, **kw})
+
+
+@pytest.mark.parametrize("quantize", [None, "static"])
+def test_tome_forward_on_card_matches_cpu(dev, quantize):
+    """The merged serving forward (65 → 43 → 33 tokens) on the card against
+    the CPU (plain versions), f32: dense, and static int8 on the fused
+    route; every attention and int8 product runs a kernel."""
+    import copy
+
+    from chestxray_vit_tpu_torch.models import tome_forward
+    cfg = _tome_cfg()
+    cpu = vit.init_params(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((3, 64, 64, 3), generator=torch.Generator()
+                    .manual_seed(1))
+    if quantize:
+        cpu = quantized.quantize_vit_params(
+            cpu, quantized.calibrate_vit_scales(cpu, x, cfg))
+    card = copy.deepcopy(cpu).to(dev)
+    kw = dict(quantized=bool(quantize), schedule="decreasing",
+              backend="pallas" if quantize else "xla")
+    n_attn, n_i8 = (fa.flash_attention_inference.launches,
+                    i8.int8_matmul_fused.launches)
+    with torch.inference_mode():
+        got = tome_forward.apply_tome(card, x.to(dev), cfg, 16, **kw).cpu()
+        want = tome_forward.apply_tome(cpu, x, cfg, 16, **kw)
+    assert fa.flash_attention_inference.launches == n_attn + 2
+    assert i8.int8_matmul_fused.launches == n_i8 + (13 if quantize else 0)
+    # f32: summation order; int8: a value that lands on a rounding
+    # boundary moves one int8 step (the bound of the int8 card tests
+    # above)
+    torch.testing.assert_close(got, want, atol=2e-2 if quantize else 1e-4,
+                               rtol=0)
+
+
+def test_tome_remat_step_on_card_is_deterministic(dev):
+    """The merged step under full remat recomputes each block's matching in
+    the backward; it equals the forward's only if every kernel before it
+    gives the same bits. Two steps from the same state, bf16: equal loss
+    and gradients, bit for bit."""
+    cfg = Config(model=_tome_cfg(dtype="bfloat16", remat=True),
+                 train=TrainConfig(warmup_steps=1))
+    rng = np.random.default_rng(0)
+    batch = {"pixel_values": torch.from_numpy(
+        rng.standard_normal((4, 64, 64, 3)).astype(np.float32)).to(dev),
+        "labels": torch.from_numpy(
+            (rng.random((4, 5)) < 0.3).astype(np.float32)).to(dev)}
+    out = []
+    for _ in range(2):
+        params = vit.init_params(torch.Generator().manual_seed(0), cfg.model,
+                                 dev)
+        before = fa.flash_attention_fwd.launches
+        _, m = steps.make_train_step(cfg, 10)(
+            steps.TrainState.create(params, 0), batch)
+        assert fa.flash_attention_fwd.launches == before + 4
+        out.append((m["loss"].item(),
+                    [p.grad.clone() for p in params.parameters()]))
+    (l0, g0), (l1, g1) = out
+    assert l0 == l1
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))

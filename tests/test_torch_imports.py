@@ -38,6 +38,7 @@ MODULES = [
     "chestxray_vit_tpu_torch.models.bridge",
     "chestxray_vit_tpu_torch.models.quantized",
     "chestxray_vit_tpu_torch.models.packed",
+    "chestxray_vit_tpu_torch.models.tome_forward",
     "chestxray_vit_tpu_torch.train.optimizer",
     "chestxray_vit_tpu_torch.train.steps",
     "chestxray_vit_tpu_torch.eval.metrics",

@@ -43,6 +43,7 @@ from chestxray_vit_tpu.train import steps as jsteps
 from chestxray_vit_tpu_torch.config import Config, ModelConfig
 from chestxray_vit_tpu_torch.models import bridge
 from chestxray_vit_tpu_torch.models import quantized as tq
+from chestxray_vit_tpu_torch.models import tome_forward
 from chestxray_vit_tpu_torch.ops import int8_matmul as tp8
 from chestxray_vit_tpu_torch.ops import quant as tquant
 from chestxray_vit_tpu_torch.serve import server
@@ -353,7 +354,7 @@ def test_predictor_static_synthetic_calibration(capsys):
     assert "WARNING" in capsys.readouterr().err
     quiet = Predictor(tp, cfg, device="cpu", quantize="static",
                       calibration="synthetic")
-    assert capsys.readouterr().err == ""
+    assert "WARNING" not in capsys.readouterr().err
     ref = JaxPredictor(jp, _jax(cfg), quantize="static",
                        calibration="synthetic")
     for p in (warned, quiet):
@@ -424,8 +425,16 @@ def test_quantized_eval_step_matches_jax(static):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=tol)
     # 15 BCE terms, each within tol · 1 of the other's
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=15 * tol)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_inference_eval_step(cfg, quantized=True, tome_r=2)
+    # with token merging, the merged int8 forward on the same route
+    # (against the reference: tests/test_torch_tome_dense.py)
+    ml, mr = tsteps.make_inference_eval_step(cfg, quantized=True, tome_r=2)(
+        tqp, {k: torch.from_numpy(v) for k, v in batch.items()})
+    with torch.no_grad():
+        want = tome_forward.apply_tome(
+            tqp, torch.from_numpy(x), cfg.model, 2, quantized=True,
+            backend="pallas" if static else "xla")
+    torch.testing.assert_close(ml, want, atol=0, rtol=0)
+    assert mr.shape == (4,) and (ml - tl).abs().max() > 0
 
 
 # ---------------------------------------------------------------------------
@@ -515,8 +524,13 @@ def test_server_parses_quantize_flags(tmp_path):
         server.parse_args(["--quantize", "static", "--calibration"])
 
 
-@pytest.mark.parametrize("flags", [["--preset", "fast_serve"],
-                                   ["--auto-accel"], ["--tome-r", "16"]])
-def test_server_refuses_token_merging(flags):
-    with pytest.raises(NotImplementedError, match="token merging"):
-        server.parse_args(flags)
+@pytest.mark.parametrize("flags,stack", [
+    (["--preset", "fast_serve"], (32, "static", 16, "decreasing")),
+    (["--auto-accel"], (8, None, 0, "constant")),
+    (["--tome-r", "16"], (8, None, 16, "constant"))])
+def test_server_resolves_token_merging(flags, stack):
+    """The token-merging flags resolve into the Predictor's arguments as
+    the JAX server resolves them (the rules in full:
+    tests/test_torch_tome_dense.py)."""
+    ns = server.parse_args(flags)
+    assert (ns.batch_size, ns.quantize, ns.tome_r, ns.tome_schedule) == stack

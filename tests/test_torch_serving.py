@@ -138,22 +138,43 @@ def test_predictor_warmup_runs_every_bucket():
     assert pred.forwards == 0       # warmup is not traffic
 
 
-# int8 serving is ported (tests/test_torch_quant.py); composed with token
-# merging, as the JAX fast_serve preset does, it is still refused
-@pytest.mark.parametrize("kw", [{"quantize": "static", "tome_r": 16},
-                                {"data_parallel": True}, {"tome_r": 4}])
+# int8 serving is ported (tests/test_torch_quant.py), and so is token
+# merging, alone and composed with int8 as the JAX fast_serve preset does
+# (tests/test_torch_tome_dense.py); data-parallel serving is refused
+@pytest.mark.parametrize("kw", [{"data_parallel": True}])
 def test_predictor_refuses_unported_options(kw):
     cfg = tiny_cfg()
     _, tp = _pair(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #8"):
         Predictor(tp, cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [{"quantize": "static", "tome_r": 16,
+                                 "tome_schedule": "decreasing"},
+                                {"tome_r": 4}])
+def test_predictor_serves_token_merging(rng, kw):
+    """The fast_serve stack and merging alone answer with probabilities
+    of the dense Predictor's shape, and their logits track the full-token
+    model's (at 5 tokens every layer merges as many pairs as it can)."""
+    cfg = tiny_cfg()
+    _, tp = _pair(cfg)
+    grays = _grays(rng, 3)
+    base = Predictor(tp, cfg, batch_size=4, canvas_size=64,
+                     device="cpu").predict_arrays(grays)
+    pred = Predictor(tp, cfg, batch_size=4, canvas_size=64, device="cpu",
+                     calibration="synthetic", **kw)
+    out = pred.predict_arrays(grays)
+    assert pred.tome_r == kw["tome_r"] and pred.forwards == 1
+    assert out.probs.shape == base.probs.shape
+    assert np.isfinite(out.logits).all()
+    assert np.corrcoef(base.logits.ravel(), out.logits.ravel())[0, 1] > 0.9
 
 
 def test_predictor_refuses_maps_and_missing_cuda(rng):
     cfg = tiny_cfg()
     _, tp = _pair(cfg)
     pred = Predictor(tp, cfg, batch_size=2, canvas_size=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #10"):
         pred.predict_arrays(_grays(rng, 1), with_maps=True)
     with pytest.raises(ValueError, match="placement"):
         Predictor(tp, cfg, device="cpu", placement="gpu")

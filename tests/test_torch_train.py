@@ -315,10 +315,11 @@ def test_train_step_bf16_close_to_jax():
 
 @pytest.mark.parametrize("field,value", [
     ("remat_policy", "mlp"), ("remat_policy", "dots"),
-    ("fused_qkv", True), ("tome_r", 2)])
+    ("fused_qkv", True)])
 def test_unported_training_options_raise(field, value):
     """Dropout is ported since and is held to the reference in
-    tests/test_torch_dropout.py; these options still raise."""
+    tests/test_torch_dropout.py, and so is token merging
+    (tests/test_torch_tome_dense.py); these options still raise."""
     cfg = tiny_cfg(remat=True)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, **{field: value}))
@@ -333,21 +334,42 @@ def test_mixup_int8_and_packed_raise():
     the reference), and so does the quantized eval step
     (tests/test_torch_quant.py), and the packed step
     (tests/test_torch_packed.py), with token merging too
-    (tests/test_torch_tome.py); the int8 train step, token merging on the
-    dense train step and the token-merging eval step still raise."""
+    (tests/test_torch_tome.py), and token merging on the dense train and
+    eval steps (tests/test_torch_tome_dense.py); the int8 train step
+    still raises."""
     cfg = tiny_cfg()
     tsteps.make_train_step(dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, mixup_alpha=0.2)), 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #11"):
         tsteps.make_train_step(cfg, 10, int8_scales={})
     tome = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, tome_r=2))
     assert callable(tsteps.make_packed_train_step(cfg, 10))
     assert callable(tsteps.make_packed_train_step(tome, 10))
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        tsteps.make_train_step(tome, 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_inference_eval_step(cfg, quantized=True, tome_r=2)
+    assert callable(tsteps.make_train_step(tome, 10))
+    assert callable(tsteps.make_inference_eval_step(cfg, quantized=True,
+                                                    tome_r=2))
+
+
+def test_tome_train_and_eval_steps_run_merged():
+    """With ``model.tome_r`` the train step trains the merged model and the
+    eval step evaluates it: its logits equal ``vit.apply``'s merged
+    forward and differ from the full-token model's (the merged forward
+    against the reference: tests/test_torch_tome_dense.py)."""
+    cfg = tiny_cfg()
+    tome = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, tome_r=2))
+    _, tp = _params(cfg)
+    batch = _torch(_batches(1)[0])
+    logits, rows = tsteps.make_eval_step(tome)(tp, batch)
+    plain, _ = tsteps.make_eval_step(cfg)(tp, batch)
+    assert logits.shape == (4, 15) and rows.shape == (4,)
+    assert (logits - plain).abs().max() > 1e-5
+    state, m = tsteps.make_train_step(tome, 10)(
+        tsteps.TrainState.create(tp, 0), batch)
+    assert state.step == 1 and torch.isfinite(m["loss"])
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in tp.parameters())
 
 
 # ---------------------------------------------------------------------------

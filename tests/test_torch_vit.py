@@ -149,14 +149,31 @@ def test_init_params_is_seeded_trunc_normal():
 
 
 @pytest.mark.parametrize("kw,train", [
-    ({"tome_r": 2}, False), ({"fused_qkv": True}, False),
+    ({"fused_qkv": True}, False),
     ({"remat": True, "remat_policy": "dots"}, True)])
 def test_unported_paths_raise(kw, train):
     cfg = small_cfg(**kw)
     _, tp = _pair(small_cfg())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #4"):
         tvit.apply(tp, torch.from_numpy(_images(cfg, n=1)), cfg,
                    train=train)
+
+
+def test_tome_r_runs_the_merged_forward():
+    """``tome_r`` is ported (tests/test_torch_tome_dense.py holds it to the
+    reference): ``vit.apply`` runs the merging forward, which differs from
+    the full-token one and equals ``apply_tome`` at eval."""
+    from chestxray_vit_tpu_torch.models.tome_forward import apply_tome
+    cfg = small_cfg(tome_r=2)
+    _, tp = _pair(small_cfg())
+    x = torch.from_numpy(_images(cfg, n=2))
+    with torch.no_grad():
+        merged = tvit.apply(tp, x, cfg)
+        plain = tvit.apply(tp, x, small_cfg())
+        torch.testing.assert_close(merged, apply_tome(tp, x, cfg, 2),
+                                   atol=1e-6, rtol=0)
+    assert merged.shape == plain.shape
+    assert (merged - plain).abs().max() > 1e-5
 
 
 def test_params_to_numpy_copies():
