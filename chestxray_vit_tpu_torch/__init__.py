@@ -15,9 +15,13 @@ Ported so far, at ViT-B/16 @384:
   and int8 (``quantize='static'`` through the fused int8 kernel, or
   ``'dynamic'``; ``models.quantized`` with the JAX package's artifact
   format);
+- attention-rollout maps and Grad-CAM (``serve.attention_maps``,
+  ``Predictor(..., with_maps=True)``, the server's ``?maps=1``) and their
+  host-side rendering (``serve.visualize``);
 - the fine-tune and eval steps (``train.steps.make_train_step``,
-  ``make_eval_step``) with AdamW, global-norm clipping, full remat and
-  gradient accumulation (``train.optimizer``), attention dropout (the
+  ``make_eval_step``) with AdamW, global-norm clipping, every remat
+  policy of the reference (``models.remat``), the fused Q/K/V projection
+  and gradient accumulation (``train.optimizer``), attention dropout (the
   fused dropout kernels), hidden dropout and per-sample mixup, and the
   on-device AUROC and F1 (``eval.metrics``), and the int8 eval step;
 - packed variable-resolution training (``data.packing``,

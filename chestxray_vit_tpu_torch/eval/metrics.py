@@ -4,7 +4,7 @@ midranks, sklearn's trapezoid AUC), its mean over valid classes, micro-F1
 and per-class precision / recall / F1 at a threshold, all on the logits'
 device. The host-side report (``classification_report``,
 ``calibrate_thresholds``, ``f1_micro_at``) waits for the trainer slice
-(ROADMAP Queue 1 #4).
+(ROADMAP Queue 1 #7).
 """
 
 from __future__ import annotations

@@ -14,7 +14,12 @@ block (``ops.tome.tome_merge_packed``), so later layers see a shorter
 sequence whose segment ids interleave.
 
 Dropout takes per-layer seed triples, as ``vit.apply(dropout_seeds=...)``
-does; full remat checkpoints each block.
+does. As in the reference, ``apply_packed`` checkpoints each block whole
+under ``cfg.remat`` whatever ``cfg.remat_policy`` says, and has no fused
+Q/K/V projection (``cfg.fused_qkv`` changes nothing there);
+``apply_packed_tome`` runs each block under ``vit.remat_policy`` and
+refuses ``fused_qkv``. The packed attention names no value: of the named
+values only the GELU output (``mlp_hidden``) is there to drop.
 """
 
 from __future__ import annotations
@@ -130,10 +135,12 @@ def apply_packed(params: vit.ViT, tokens: torch.Tensor,
     [B, max_imgs, C]. Shares every weight with :func:`vit.apply` except
     the CLS token (pooled instead). ``train`` and ``dropout_seeds`` as in
     :func:`vit.apply`."""
-    vit._check_supported(cfg, train, dropout_seeds)
+    vit._check_supported(cfg, dropout_seeds)
     dt = vit.torch_dtype(cfg.dtype)
     x = _embed_packed(params, tokens, segment_ids, pos_indices, cfg, grids,
                       dt)
+    # full remat whatever cfg.remat_policy says, as the reference's scan
+    # body is checkpointed without a policy
     remat = train and cfg.remat and torch.is_grad_enabled()
     for i, bp in enumerate(params.blocks):
         args = (x, segment_ids, bp, cfg, dt, train,
@@ -169,25 +176,23 @@ def apply_packed_tome(params: vit.ViT, tokens: torch.Tensor,
                          f"apply_packed for the un-merged path)")
     if cfg.fused_qkv:
         raise ValueError("model.fused_qkv does not compose with tome_r")
-    vit._check_supported(cfg, train, dropout_seeds)
+    vit._check_supported(cfg, dropout_seeds)
     dt = vit.torch_dtype(cfg.dtype)
     x = _embed_packed(params, tokens, segment_ids, pos_indices, cfg, grids,
                       dt)
     sizes = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
     seg, pw = segment_ids, pool_weights.float()
     rs = r_schedule(cfg.tome_r, cfg.num_layers, cfg.tome_schedule)
-    remat = train and cfg.remat and torch.is_grad_enabled()
+    policy = (vit.remat_policy(cfg)
+              if train and cfg.remat and torch.is_grad_enabled() else None)
     seen = []
     for i, (bp, r_i) in enumerate(zip(params.blocks, rs)):
         seen.append(seg)
         args = (x, sizes, seg, pw, bp, cfg, dt, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
                 else None, r_i)
-        if remat:
-            x, sizes, seg, pw = torch.utils.checkpoint.checkpoint(
-                _packed_tome_block, *args, use_reentrant=False)
-        else:
-            x, sizes, seg, pw = _packed_tome_block(*args)
+        x, sizes, seg, pw = (policy(_packed_tome_block, *args) if policy
+                             else _packed_tome_block(*args))
     logits = _pooled_logits(params, x, pw, cfg)
     return (logits, seen) if return_segment_ids else logits
 

@@ -14,9 +14,10 @@ the layers (``ops/tome.r_schedule``).
   ``vit.apply`` dispatches to when ``cfg.tome_r`` is set, for training and
   eval. Gradients flow through the size-weighted means (the one-hot
   routing product); the matching is piecewise constant, as in the paper's
-  training. With ``cfg.remat`` each block is checkpointed, the merge
-  included, so the backward recomputes the matching: it equals the
-  forward's because every kernel before it is deterministic.
+  training. With ``cfg.remat`` each block runs under
+  ``cfg.remat_policy`` (``vit.remat_policy``), the merge included; where
+  the policy recomputes it, the backward recomputes the matching, which
+  equals the forward's because every kernel before it is deterministic.
 - :func:`apply_tome`: the serving forward on the dense tree or on a
   ``QuantizedViT``, with the attention always the forward-only kernel.
 
@@ -30,7 +31,6 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
-import torch.utils.checkpoint
 
 from chestxray_vit_tpu_torch.config import ModelConfig
 from chestxray_vit_tpu_torch.models import quantized as quantized_mod
@@ -76,22 +76,20 @@ def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
         raise NotImplementedError(
             "int8_scales (the int8 straight-through train forward is "
             "ROADMAP Queue 1 #11) is not ported yet")
-    vit._check_supported(cfg, train, dropout_seeds)
+    vit._check_supported(cfg, dropout_seeds)
     dt = vit.torch_dtype(cfg.dtype)
     x = vit.embed(params, images, cfg, dt)
     sizes = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
-    remat = train and cfg.remat and torch.is_grad_enabled()
+    policy = (vit.remat_policy(cfg)
+              if train and cfg.remat and torch.is_grad_enabled() else None)
     for i, (bp, r_i) in enumerate(zip(params.blocks,
                                       r_schedule(r, cfg.num_layers,
                                                  schedule))):
         args = (x, sizes, bp, cfg, dt, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
                 else None, r_i)
-        if remat:
-            x, sizes = torch.utils.checkpoint.checkpoint(
-                _tome_block, *args, use_reentrant=False)
-        else:
-            x, sizes = _tome_block(*args)
+        x, sizes = policy(_tome_block, *args) if policy else _tome_block(
+            *args)
     return vit.head_logits(params, x, cfg)
 
 

@@ -15,36 +15,46 @@ and the classifier head runs in f32 on the CLS features.
 Training (``train=True``) runs the dense forward with gradients through
 the training attention and LayerNorm kernels; master parameters stay in
 ``param_dtype`` and are cast to the compute dtype inside every step, so
-gradients reach them through the casts. ``remat=True`` with the ``full``
-policy checkpoints each block (``jax.checkpoint(scan_body, policy=None)``
-in the reference). Dropout follows the reference's HF semantics: on the
-softmax probabilities (``attention_dropout``, through the dropout attention
-kernels, whose counter-hash mask is the JAX package's bit for bit) and
-after the attention output and the MLP (``hidden_dropout``). Each takes a
-per-layer integer seed from the caller (``apply(dropout_seeds=...)``; the
-train step draws them), so a block recomputed under remat draws the same
-masks.
+gradients reach them through the casts. ``remat=True`` runs each block
+under ``cfg.remat_policy`` (:func:`remat_policy`, ``models/remat.py``:
+``full`` checkpoints the block, as ``jax.checkpoint(scan_body,
+policy=None)`` does; the selective policies keep what the reference's
+keep, with the values named as there: ``attn_heads`` for q, k and v,
+``mlp_hidden`` for the GELU output). ``cfg.fused_qkv`` runs the three
+Q/K/V projections as one [D, 3D] product, the weights stacked once per
+forward outside the layer loop. Dropout follows the reference's HF
+semantics: on the softmax probabilities (``attention_dropout``, through the
+dropout attention kernels, whose counter-hash mask is the JAX package's
+bit for bit) and after the attention output and the MLP
+(``hidden_dropout``). Each takes a per-layer integer seed from the caller
+(``apply(dropout_seeds=...)``; the train step draws them), so a block
+recomputed under remat draws the same masks.
 
 With ``cfg.tome_r`` set, :func:`apply` runs the token-merging forward of
 ``models/tome_forward.py`` (training and eval alike, as the reference
-does). Not ported yet, each raising ``NotImplementedError`` with its
-ROADMAP item: the other remat policies and the fused Q/K/V projection.
+does).
+
+The unrolled form (:func:`unstack_blocks`, :func:`run_block`,
+:func:`apply_with_attention`) serves the attention maps: its attention is
+the plain one with f32 scores and softmax, returning the probabilities.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional, Sequence, Tuple
+import types
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.utils.checkpoint
 from torch import nn
 
 from chestxray_vit_tpu_torch.config import ModelConfig
+from chestxray_vit_tpu_torch.models import remat
+from chestxray_vit_tpu_torch.models.remat import checkpoint_name
 from chestxray_vit_tpu_torch.ops.flash_attention import (attention,
                                                          attention_dropout)
-from chestxray_vit_tpu_torch.ops.gelu import gelu
+from chestxray_vit_tpu_torch.ops.gelu import erf_gelu_factors, gelu
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -251,33 +261,74 @@ def embed(params: ViT, images: torch.Tensor, cfg: ModelConfig,
 
 def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
          compute_dtype: torch.dtype, train: bool = False,
-         seed: Optional[int] = None, return_key_mean: bool = False):
-    """Multi-head attention on the pre-LN input, non-fused Q/K/V.
+         seed: Optional[int] = None, return_key_mean: bool = False,
+         wqkv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+         return_probs: bool = False):
+    """Multi-head attention on the pre-LN input.
 
     Each projection lands as a [B, H, S, hd] view of its [B, S, D] product
-    (no copy); the kernel reads those strides in place and writes heads
-    already merged in memory for the output projection. A training forward
-    with ``attention_dropout`` and a ``seed`` drops probabilities inside
-    the attention (the dropout kernels on the card, their plain version on
-    the CPU or with ``impl='xla'``). With ``return_key_mean`` also the
-    keys' mean over heads [B, S, hd] in the compute dtype, the
-    token-merging metric."""
+    (no copy); with ``wqkv`` (the stacked [D, 3D] kernel and [3D] bias of
+    :func:`fused_qkv_weights`) the three are one product, and q, k, v are
+    views of its [B, S, 3, H, hd] result. The kernels read those strides
+    in place and write heads already merged in memory for the output
+    projection. q, k and v are named ``attn_heads`` for the remat
+    policies. A training forward with ``attention_dropout`` and a ``seed``
+    drops probabilities inside the attention (the dropout kernels on the
+    card, their plain version on the CPU or with ``impl='xla'``).
+    ``return_probs`` runs the plain attention with f32 scores and softmax
+    (the reference's ``"xla"`` route) and also returns the probabilities
+    [B, H, S, S] f32. With ``return_key_mean`` also the keys' mean over
+    heads [B, S, hd] in the compute dtype, the token-merging metric."""
     b, s, d = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
 
-    def heads(p: Dense) -> torch.Tensor:
-        return _linear(x, p, compute_dtype).view(b, s, h, hd).transpose(1, 2)
+    def heads():
+        if wqkv is not None:
+            qkv = torch.matmul(x, wqkv[0]) + wqkv[1]
+            return tuple(t.transpose(1, 2)
+                         for t in qkv.view(b, s, 3, h, hd).unbind(2))
+        return tuple(_linear(x, p, compute_dtype).view(b, s, h, hd)
+                     .transpose(1, 2) for p in (bp.wq, bp.wk, bp.wv))
 
-    q, k, v = heads(bp.wq), heads(bp.wk), heads(bp.wv)
-    if train and cfg.attention_dropout > 0.0 and seed is not None:
+    q, k, v = checkpoint_name("attn_heads", heads)
+    probs = None
+    if return_probs:
+        o, probs = _attention_probs(q, k, v)
+    elif train and cfg.attention_dropout > 0.0 and seed is not None:
         o = attention_dropout(q, k, v, seed, cfg.attention_dropout,
                               impl=attn_impl)
     else:
         o = attention(q, k, v, impl=attn_impl, inference=not train)
     out = _linear(o.transpose(1, 2).reshape(b, s, d), bp.wo, compute_dtype)
+    if return_probs:
+        return out, probs
     if return_key_mean:
         return out, k.mean(dim=1)
     return out
+
+
+def _attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o in v's dtype, probabilities f32 [B, H, S, S]): scores and softmax
+    in f32, the product with V in v's dtype, as the reference's unfused
+    branch computes them."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / (
+        q.shape[-1] ** 0.5)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs.to(v.dtype), v), probs
+
+
+def fused_qkv_weights(params: "ViT", compute_dtype: torch.dtype
+                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per layer, the Q/K/V kernels stacked into one [D, 3D] kernel (q's
+    columns, then k's, then v's) and their biases into one [3D] bias, in
+    the compute dtype: the reference's ``wqkv``, built once per forward
+    outside the layer loop. Differentiable in the three projections."""
+    return [(torch.cat([bp.wq.kernel, bp.wk.kernel, bp.wv.kernel],
+                       dim=1).to(compute_dtype),
+             torch.cat([bp.wq.bias, bp.wk.bias, bp.wv.bias]).to(
+                 compute_dtype))
+            for bp in params.blocks]
 
 
 def _dropout(x: torch.Tensor, rate: float,
@@ -294,19 +345,33 @@ def _dropout(x: torch.Tensor, rate: float,
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
+def _gelu_named(u: torch.Tensor, approximate: bool) -> torch.Tensor:
+    """GELU of the MLP's first product, named ``mlp_hidden``. Its rebuild
+    reads what the GELU's backward keeps anyway: the two f32 factors of
+    the exact form (their product's node saves both), the input of the
+    tanh form."""
+    if approximate:
+        return checkpoint_name("mlp_hidden", gelu, u, True)
+    half, cdf = erf_gelu_factors(u)
+    dt = u.dtype          # the rebuild must not hold u itself
+    return checkpoint_name("mlp_hidden", lambda a, c: (a * c).to(dt),
+                           half, cdf)
+
+
 def _mlp(x: torch.Tensor, bp: Block, cfg: ModelConfig, dt: torch.dtype,
          hidden: float, seed: Optional[int]) -> torch.Tensor:
     """x + drop(MLP(LN2(x))) with erf GELU."""
     m_in = layer_norm(x, bp.ln2.scale.to(dt), bp.ln2.bias.to(dt),
                       cfg.layernorm_eps)
-    hmid = gelu(_linear(m_in, bp.mlp_in, dt),
-                approximate=cfg.gelu_approximate)
+    hmid = _gelu_named(_linear(m_in, bp.mlp_in, dt), cfg.gelu_approximate)
     return x + _dropout(_linear(hmid, bp.mlp_out, dt), hidden, seed)
 
 
 def _block(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
            compute_dtype: torch.dtype, train: bool = False,
-           seeds: Optional[LayerSeeds] = None) -> torch.Tensor:
+           seeds: Optional[LayerSeeds] = None,
+           wqkv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+           ) -> torch.Tensor:
     """One pre-LN encoder block (HF ViTLayer):
     x += drop(MHA(LN1(x))); x += drop(MLP(LN2(x))) with erf GELU."""
     dt = compute_dtype
@@ -314,30 +379,30 @@ def _block(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     hidden = cfg.hidden_dropout if train else 0.0
     a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
                       cfg.layernorm_eps)
-    attn_out = _mha(a_in, bp, cfg, attn_impl, dt, train, attn_seed)
+    attn_out = _mha(a_in, bp, cfg, attn_impl, dt, train, attn_seed,
+                    wqkv=wqkv)
     x = x + _dropout(attn_out, hidden, seed_attn_out)
     return _mlp(x, bp, cfg, dt, hidden, seed_mlp_out)
 
 
-def _check_supported(cfg: ModelConfig, train: bool,
+def _check_supported(cfg: ModelConfig,
                      dropout_seeds: Optional[Sequence[LayerSeeds]] = None
                      ) -> None:
-    """Refuse what is not ported yet, and a seed list of the wrong
-    length."""
-    # remat acts only when training, where the reference reads it; at
-    # inference it is ignored, as there
-    later = {
-        "fused_qkv (ROADMAP Queue 1 #4)": cfg.fused_qkv,
-        f"remat_policy={cfg.remat_policy!r} (only 'full' is ported; the "
-        f"selective policies are ROADMAP Queue 1 #4)":
-            train and cfg.remat and cfg.remat_policy != "full",
-    }
-    for what, on in later.items():
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
+    """Refuse a seed list of the wrong length."""
     if dropout_seeds is not None and len(dropout_seeds) != cfg.num_layers:
         raise ValueError(f"{len(dropout_seeds)} dropout seed triples for "
                          f"{cfg.num_layers} layers")
+
+
+def remat_policy(cfg: ModelConfig) -> remat.Policy:
+    """The block remat of ``cfg.remat_policy`` with the reference's
+    meaning (``models/remat.py``): ``full`` recomputes the block; ``mlp``
+    saves anything except the GELU output, ``attn`` anything except q, k
+    and v (the attention kernel's operands), ``attn_mlp`` both;
+    ``flash_out`` saves only the attention kernel's o and lse, ``dots``
+    only matrix-product outputs. An unknown name raises (the reference
+    runs full remat for it)."""
+    return remat.Policy(cfg.remat_policy)
 
 
 # ---------------------------------------------------------------------------
@@ -366,10 +431,11 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
     Args:
       images: NHWC f32/bf16 [B, img, img, 3].
       train: the training forward (attention through the training
-        kernels, which keep what the backward needs; ``cfg.remat``
-        checkpoints each block). False takes the forward-only attention
-        kernel, which refuses tensors that need a gradient: run eval and
-        serving under ``torch.no_grad()`` or ``torch.inference_mode()``.
+        kernels, which keep what the backward needs; ``cfg.remat`` runs
+        each block under :func:`remat_policy`). False takes the
+        forward-only attention kernel, which refuses tensors that need a
+        gradient: run eval and serving under ``torch.no_grad()`` or
+        ``torch.inference_mode()``.
       return_features: also return the final-LN CLS features.
       dropout_seeds: one ``(attention, hidden after attention, hidden
         after MLP)`` triple of ints per layer, the counterpart of the
@@ -391,20 +457,18 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
         return apply_tome_train(params, images, cfg, cfg.tome_r, train=train,
                                 dropout_seeds=dropout_seeds,
                                 schedule=cfg.tome_schedule)
-    _check_supported(cfg, train, dropout_seeds)
+    _check_supported(cfg, dropout_seeds)
     compute_dtype = torch_dtype(cfg.dtype)
     x = embed(params, images, cfg, compute_dtype)
-    remat = train and cfg.remat and torch.is_grad_enabled()
+    policy = (remat_policy(cfg)
+              if train and cfg.remat and torch.is_grad_enabled() else None)
+    wqkv = (fused_qkv_weights(params, compute_dtype) if cfg.fused_qkv
+            else [None] * cfg.num_layers)
     for i, bp in enumerate(params.blocks):   # the JAX lax.scan over layers
-        seeds = (tuple(dropout_seeds[i]) if dropout_seeds is not None
-                 else None)
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _block, x, bp, cfg, cfg.attention_impl, compute_dtype, train,
-                seeds, use_reentrant=False)
-        else:
-            x = _block(x, bp, cfg, cfg.attention_impl, compute_dtype, train,
-                       seeds)
+        args = (x, bp, cfg, cfg.attention_impl, compute_dtype, train,
+                tuple(dropout_seeds[i]) if dropout_seeds is not None
+                else None, wqkv[i])
+        x = policy(_block, *args) if policy else _block(*args)
     fl = params.final_ln
     x = layer_norm(x, fl.scale, fl.bias, cfg.layernorm_eps)
     cls_features = x[:, 0, :]
@@ -412,3 +476,56 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
     if return_features:
         return logits, cls_features
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Unrolled form (attention maps)
+# ---------------------------------------------------------------------------
+
+def unstack_blocks(params: ViT, cfg: ModelConfig,
+                   compute_dtype: Optional[torch.dtype] = None) -> list:
+    """Per-layer parameter trees in the compute dtype (``cfg.dtype`` by
+    default): attribute trees shaped like a :class:`Block`, differentiable
+    in the parameters."""
+    dt = compute_dtype or torch_dtype(cfg.dtype)
+
+    def cast(module: nn.Module):
+        return types.SimpleNamespace(**{
+            name: cast(child) for name, child in module.named_children()},
+            **{name: p.to(dt) for name, p in
+               module.named_parameters(recurse=False)})
+    return [cast(bp) for bp in params.blocks]
+
+
+def run_block(x: torch.Tensor, bp, cfg: ModelConfig,
+              return_probs: bool = False):
+    """One encoder block, unrolled form (the introspection paths): (x,
+    probabilities [B, H, S, S] f32 with ``return_probs``, else None). The
+    attention is the plain one with f32 scores and softmax; LayerNorm is
+    the kernel. No dropout."""
+    dt = torch_dtype(cfg.dtype)
+    a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
+                      cfg.layernorm_eps)
+    if return_probs:
+        attn_out, probs = _mha(a_in, bp, cfg, "xla", dt, return_probs=True)
+    else:
+        attn_out, probs = _mha(a_in, bp, cfg, "xla", dt), None
+    return _mlp(x + attn_out, bp, cfg, dt, 0.0, None), probs
+
+
+def apply_with_attention(params: ViT, images: torch.Tensor,
+                         cfg: ModelConfig
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward pass that also returns every layer's attention
+    probabilities [L, B, H, S, S] f32, for attention-rollout maps (the
+    serving path): (logits f32 [B, C], probabilities)."""
+    dt = torch_dtype(cfg.dtype)
+    x = embed(params, images, cfg, dt)
+    blocks = unstack_blocks(params, cfg, dt)
+    all_probs = None
+    for i, bp in enumerate(blocks):
+        x, probs = run_block(x, bp, cfg, return_probs=True)
+        if all_probs is None:
+            all_probs = probs.new_empty((len(blocks), *probs.shape))
+        all_probs[i] = probs
+    return head_logits(params, x, cfg), all_probs

@@ -12,7 +12,11 @@
   (``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``, the
   ports of ``_fwd_kernel`` and ``_bwd_kernel``), joined by the autograd
   function ``FlashAttention``, which saves q, k, v, o and lse as the JAX
-  custom VJP does (``flash_residual`` and ``flash_out``).
+  custom VJP does (``flash_residual`` and ``flash_out``). Its forward
+  runs as the registered op ``cxr::attention_fwd`` (the dropout one as
+  ``cxr::attention_dropout_fwd``; ``ATTENTION_FWD_OPS``), so a selective
+  checkpoint sees the launch and can keep o and lse instead of launching
+  again in the recompute (the ``flash_out`` remat policy).
 - ``keep_mask``, ``attention_dropout_{fwd,bwd}_reference``: the dropout
   mask (the counter hash of ``_keep_mask`` / ``_fmix32``) and the plain
   math of ``_fwd_drop_impl`` and ``_bwd_kernel_drop``.
@@ -38,10 +42,14 @@
   ViT's ``_mha``.
 
 Each kernel wrapper runs its plain version for CPU tensors and launches its
-kernel (or raises) for CUDA tensors. The TPU wrapper's tiling
-(``_pick_block_bh``, ``_vmem_block_bh``, ``_q_blocking``, ``_prep`` and the
-16/128-row padding) has no counterpart: the kernels read q, k, v, o and dO
-in place through their strides and mask the ragged tail themselves.
+kernel (or raises) for CUDA tensors. The dense training paths run the
+autograd functions on both devices, so the CPU keeps what the card keeps
+(q, k, v, o and lse) and the remat policies act alike on both.
+
+The TPU wrapper's tiling (``_pick_block_bh``, ``_vmem_block_bh``,
+``_q_blocking``, ``_prep`` and the 16/128-row padding) has no counterpart:
+the kernels read q, k, v, o and dO in place through their strides and mask
+the ragged tail themselves.
 
 The bf16 kernels round P to bf16 after the exp2, where the TPU kernels
 round the exp2 argument (``flash_attention.py:332-334``); the plain
@@ -242,13 +250,22 @@ def _bwd_launch(q, k, v, o, lse, do, sm_scale, dropout=None,
     return dq, dk, dv
 
 
+@torch.library.custom_op("cxr::attention_fwd", mutates_args=())
+def _attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      sm_scale: Optional[float]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_fwd` as a registered op."""
+    return flash_attention_fwd(q, k, v, sm_scale)
+
+
 class FlashAttention(torch.autograd.Function):
-    """Attention with the training kernels in both directions. Saves q, k,
-    v, o and lse, the residuals of the JAX custom VJP."""
+    """Attention with the training kernels in both directions (their plain
+    versions for CPU tensors). Saves q, k, v, o and lse, the residuals of
+    the JAX custom VJP."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale=None):
-        o, lse = flash_attention_fwd(q, k, v, sm_scale)
+        o, lse = _attention_fwd_op(q, k, v, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.sm_scale = sm_scale
         return o
@@ -479,17 +496,34 @@ def flash_attention_dropout_bwd(q: torch.Tensor, k: torch.Tensor,
 flash_attention_dropout_bwd.launches = 0  # kernel launches (chip_smoke.py)
 
 
+@torch.library.custom_op("cxr::attention_dropout_fwd", mutates_args=())
+def _attention_dropout_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, seed: int, rate: float,
+                              sm_scale: Optional[float], block_q: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_dropout_fwd` as a registered op."""
+    return flash_attention_dropout_fwd(q, k, v, seed, rate, sm_scale,
+                                       block_q)
+
+
+# The registered forwards whose outputs (o and lse) the JAX package names
+# ``flash_out``.
+ATTENTION_FWD_OPS = (torch.ops.cxr.attention_fwd.default,
+                     torch.ops.cxr.attention_dropout_fwd.default)
+
+
 class FlashAttentionDropout(torch.autograd.Function):
     """Attention with dropout through the dropout kernels in both
-    directions. Saves q, k, v, o and lse, as :class:`FlashAttention`, and
-    the seed as a Python int: the backward regenerates the mask, so no
-    mask is stored and a recompute under remat replays it."""
+    directions (their plain versions for CPU tensors). Saves q, k, v, o
+    and lse, as :class:`FlashAttention`, and the seed as a Python int: the
+    backward regenerates the mask, so no mask is stored and a recompute
+    under remat replays it."""
 
     @staticmethod
     def forward(ctx, q, k, v, seed, rate, sm_scale=None,
                 block_q=DEFAULT_BLOCK_Q):
-        o, lse = flash_attention_dropout_fwd(q, k, v, seed, rate, sm_scale,
-                                             block_q)
+        o, lse = _attention_dropout_fwd_op(q, k, v, int(seed), rate,
+                                           sm_scale, block_q)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.seed, ctx.rate = int(seed), rate
         ctx.sm_scale, ctx.block_q = sm_scale, block_q
@@ -511,12 +545,9 @@ def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor,
     """Attention with in-kernel probability dropout, the signature of the
     JAX package's ``flash_attention_dropout`` (``seed`` an int32 value,
     ``block_q`` fixing only the mask's logical row stride): the autograd
-    function over the kernels for CUDA tensors, the plain forward under
-    plain autograd for CPU tensors. The same seed gives the same mask as
-    the JAX function, bit for bit."""
-    if q.device.type == "cpu":
-        return attention_dropout_fwd_reference(q, k, v, seed, rate,
-                                               sm_scale, block_q)[0]
+    function over the kernels for CUDA tensors, over their plain versions
+    for CPU tensors. The same seed gives the same mask as the JAX
+    function, bit for bit."""
     return FlashAttentionDropout.apply(q, k, v, seed, rate, sm_scale,
                                        block_q)
 
@@ -927,16 +958,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               impl: str = "auto", inference: bool = False) -> torch.Tensor:
     """Dispatch as in the JAX package: ``impl='xla'`` runs the plain version
-    on any device; ``'auto'`` and ``'pallas'`` run the kernels for CUDA
-    tensors (the forward-only one when ``inference``, else
-    :class:`FlashAttention`) and the plain version, under plain autograd,
-    for CPU tensors."""
+    under plain autograd on any device; ``'auto'`` and ``'pallas'`` run
+    the forward-only kernel when ``inference`` (its plain version for CPU
+    tensors), else :class:`FlashAttention` (the training kernels, or their
+    plain versions for CPU tensors)."""
     if impl == "xla":
         return attention_reference(q, k, v)
     if impl not in ("auto", "pallas"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v)
     if inference:
         return flash_attention_inference(q, k, v)
     return FlashAttention.apply(q, k, v)

@@ -8,6 +8,8 @@ by up to 2.7e-6.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 _LOG2E = 1.4426950408889634
@@ -26,10 +28,19 @@ def erf_fast(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * y
 
 
+def erf_gelu_factors(x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x/2, 1 + erf(x/√2)) in f32: the exact GELU is their product. The
+    product's autograd node keeps both, so a backward that drops the GELU
+    output (the ``mlp_hidden`` remat policies) rebuilds it from them."""
+    xf = x.float()
+    return xf * 0.5, 1.0 + erf_fast(xf * _INV_SQRT2)
+
+
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     """GELU with HF semantics: exact erf by default (via :func:`erf_fast`),
     tanh when ``approximate=True``. f32 internal math, output in x.dtype."""
     if approximate:
         return torch.nn.functional.gelu(x, approximate="tanh")
-    xf = x.float()
-    return (xf * 0.5 * (1.0 + erf_fast(xf * _INV_SQRT2))).to(x.dtype)
+    half, cdf = erf_gelu_factors(x)
+    return (half * cdf).to(x.dtype)

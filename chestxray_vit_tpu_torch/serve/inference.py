@@ -1,6 +1,6 @@
 """Batched inference for serving, ported from
 ``chestxray_vit_tpu/serve/inference.py`` (the dense and int8 paths, with
-or without token merging).
+or without token merging, and attention-rollout maps).
 
 Images come in as encoded bytes or decoded u8 grayscale arrays. The host
 half (``stage_chunk``) decodes, crops, pads to a power-of-two bucket and
@@ -33,6 +33,7 @@ from chestxray_vit_tpu_torch.models import quantized, tome_forward, vit
 from chestxray_vit_tpu_torch.ops.preprocess import (fused_preprocess,
                                                     normalize_u8)
 from chestxray_vit_tpu_torch.ops.tome import r_schedule
+from chestxray_vit_tpu_torch.serve import attention_maps
 
 
 @dataclass
@@ -40,6 +41,7 @@ class PredictOutput:
     probs: np.ndarray                       # [N, C]
     logits: np.ndarray                      # [N, C]
     classes: Optional[List[str]] = None
+    maps: Optional[np.ndarray] = None       # [N, g, g] attention rollout
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -83,8 +85,15 @@ class Predictor:
     gains are held in the compute dtype, as ``vit.apply`` rounds them (the
     JAX Predictor's merged dense forward reads them in f32).
 
-    Not ported yet, and refused: ``data_parallel`` and attention maps
-    (``with_maps=True``).
+    ``with_maps=True`` (``forward_staged``, ``predict_bytes``,
+    ``predict_arrays``, ``warmup``) runs the attention-rollout forward
+    (``serve/attention_maps.compute_rollout``) instead: the full-token
+    dense model whatever ``quantize`` and ``tome_r`` serve, its logits
+    returned beside [N, g, g] maps in [0, 1], as the JAX Predictor does. A
+    quantized Predictor builds that dense tree on its stream at the first
+    maps forward or at ``warmup(with_maps=True)``.
+
+    Not ported yet, and refused: ``data_parallel``.
     """
 
     def __init__(self, params: vit.ViT, cfg: ModelConfig,
@@ -123,6 +132,7 @@ class Predictor:
         self.quantize = qmode is not None
         self.quantize_mode = qmode
         self.forwards = 0           # forward_staged calls (batches)
+        self._maps_params: Optional[vit.ViT] = None
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         if qparams is not None:
@@ -260,10 +270,8 @@ class Predictor:
     def warmup(self, with_maps: bool = False) -> None:
         """Run every bucket size once on zero operands, so the first
         requests do not pay for the kernel build, library load and the
-        allocator's first blocks."""
-        if with_maps:
-            raise _not_ported("attention maps (with_maps=True)",
-                              "#10")
+        allocator's first blocks; with ``with_maps`` the rollout forward
+        (which builds a quantized Predictor's dense tree)."""
         b, candidates = 1, []
         while b < self.batch_size:
             candidates.append(b)
@@ -279,7 +287,10 @@ class Predictor:
                 boxes[:, 2:] = 1
                 c = self.canvas_size
                 staged = (np.zeros((b, c, c), np.uint8), boxes)
-            self._forward_logits(self._to_device(staged), b)
+            if with_maps:
+                self._forward_maps(self._to_device(staged), b)
+            else:
+                self._forward_logits(self._to_device(staged), b)
 
     def _bucket(self, valid: int, bs: int) -> int:
         """Smallest power-of-two batch ≥ valid, clamped to bs: log2(bs)+1
@@ -317,14 +328,36 @@ class Predictor:
                 logits = vit.apply(self._fwd_params, images, self.cfg)
             return logits[:valid].cpu().numpy()
 
+    def _dense_params(self) -> vit.ViT:
+        """The dense tree the attention maps run on: the serving tree of a
+        dense Predictor, else one built once from ``params``."""
+        if not self.quantize:
+            return self._fwd_params
+        if self._maps_params is None:
+            with self._on_stream():
+                self._maps_params = vit.inference_params(self.params,
+                                                         self.device)
+        return self._maps_params
+
+    def _forward_maps(self, staged, valid: int):
+        """(f32 logits, [valid, g, g] rollout maps) of the first ``valid``
+        rows from the full-token dense forward, pulled to the host."""
+        params = self._dense_params()
+        with torch.inference_mode(), self._on_stream():
+            logits, maps = attention_maps.compute_rollout(
+                params, self._images_of(staged), self.cfg)
+            return (logits[:valid].cpu().numpy(),
+                    maps[:valid].cpu().numpy())
+
     def forward_staged(self, staged, valid: int,
                        with_maps: bool = False) -> PredictOutput:
         """Device half of one micro-batch: the forward on operands from
-        :meth:`stage_chunk`; the sigmoid runs on the host."""
+        :meth:`stage_chunk`; the sigmoid runs on the host. ``with_maps``
+        runs the rollout forward and returns its logits and maps."""
         if with_maps:
-            raise _not_ported("attention maps (with_maps=True)",
-                              "#10")
-        logits_np = self._forward_logits(staged, valid)
+            logits_np, maps_np = self._forward_maps(staged, valid)
+        else:
+            logits_np, maps_np = self._forward_logits(staged, valid), None
         self.forwards += 1
         # overflow-free sigmoid: exp of a non-positive argument only
         z = np.exp(-np.abs(logits_np))
@@ -332,22 +365,27 @@ class Predictor:
             probs=np.where(logits_np >= 0, 1.0 / (1.0 + z), z / (1.0 + z)),
             logits=logits_np,
             classes=self.classes,
+            maps=maps_np,
         )
 
     def predict_bytes(self, images_bytes: Sequence,
                       with_maps: bool = False) -> PredictOutput:
         """Micro-batched inference over raw encoded images."""
         bs = self.batch_size
-        logits_out, probs_out = [], []
+        logits_out, probs_out, maps_out = [], [], []
         for lo in range(0, len(images_bytes), bs):
             chunk = list(images_bytes[lo:lo + bs])
             out = self.forward_staged(self.stage_chunk(chunk), len(chunk),
                                       with_maps=with_maps)
             logits_out.append(out.logits)
             probs_out.append(out.probs)
+            if out.maps is not None:
+                maps_out.append(out.maps)
         return PredictOutput(probs=np.concatenate(probs_out),
                              logits=np.concatenate(logits_out),
-                             classes=self.classes)
+                             classes=self.classes,
+                             maps=np.concatenate(maps_out) if maps_out
+                             else None)
 
     def predict_arrays(self, grays: Sequence[np.ndarray],
                        with_maps: bool = False) -> PredictOutput:

@@ -1,12 +1,14 @@
 """Minimal HTTP inference server around the port's :class:`Predictor`.
 
 POST /predict          body: raw PNG/JPEG bytes → JSON findings
+POST /predict?maps=1   → findings + "attention_map" (g × g rollout, [0, 1])
 GET  /healthz          → {"status": "ok"}
 GET  /metrics          → request/error counts + latency quantiles (JSON)
 
 Stdlib only (ThreadingHTTPServer). Concurrent requests coalesce into shared
-forwards through the port's ``serve.batcher.MicroBatcher``. Attention maps
-(``?maps=1``) answer 501 until they are ported. Start with random weights
+forwards through the port's ``serve.batcher.MicroBatcher``; requests with
+and without maps go in separate forwards (maps always run the full-token
+dense model, ``Predictor(with_maps=True)``). Start with random weights
 (checkpoint loading is a later slice), dense, int8 or with token merging:
 
     python -m chestxray_vit_tpu_torch.serve.server --seed 0
@@ -135,19 +137,19 @@ def make_handler(predictor: Predictor, max_body: int = MAX_BODY_BYTES,
                 return self._json(413, {
                     "error": f"body exceeds {max_body} bytes"})
             data = self.rfile.read(length)
-            if parse_qs(url.query).get("maps", ["0"])[-1] == "1":
-                return self._json(501, {
-                    "error": "attention maps are not ported yet"})
+            with_maps = parse_qs(url.query).get("maps", ["0"])[-1] == "1"
             t0 = time.perf_counter()
             try:
-                res = batcher.predict(data)
+                res = batcher.predict(data, with_maps=with_maps)
             except Exception as e:                     # noqa: BLE001
                 stats.observe(time.perf_counter() - t0, error=True)
                 return self._json(500, {"error": str(e)})
             stats.observe(time.perf_counter() - t0)
-            return self._json(200, {
-                "findings": predictor.top_findings(res.probs,
-                                                   k=len(res.probs))})
+            payload = {"findings": predictor.top_findings(
+                res.probs, k=len(res.probs))}
+            if with_maps and res.attn_map is not None:
+                payload["attention_map"] = res.attn_map.tolist()
+            return self._json(200, payload)
 
     return Handler
 

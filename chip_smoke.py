@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: the serving path, the
 fine-tune step (dense, and with attention dropout, hidden dropout and
 mixup), the eval step, packed variable-resolution training (with and
-without within-segment token merging) and token merging on the dense
-forward (training, serving and eval).
+without within-segment token merging), token merging on the dense
+forward (training, serving and eval), the remat policies, the fused Q/K/V
+projection and attention maps.
 
     python3 chip_smoke.py
 
@@ -110,6 +111,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 21. eval_tome: make_inference_eval_step(tome_r=16) on phase 18's merged
    weights, dense and on a static int8 tree, against the host's row
    losses, with exact launch counts.
+22. train_remat_policies: bench.py's b36 step under every remat policy
+   (full, mlp, attn, attn_mlp, flash_out, dots) and without remat, 1 + 3
+   steps each on the same batch from the same weights: step ms, images/s,
+   peak memory, exact launches per step (the attention forward twice a
+   layer where o and lse are recomputed, once where they are kept), each
+   first step against the full-remat step's, bit for bit or within
+   POLICY_GRAD_TOL; then flash_out with both dropouts 0.1 against full
+   remat on the same draws.
+23. train_fused_qkv: the b36 step with model.fused_qkv beside phase 22's
+   split step, exact launches; one f32 step fused against split
+   (FUSED_GRAD_TOL); the time of the stack autograd makes of the three
+   gradient buffers (dq, dk, dv) into the fused product's gradient.
+24. serving_maps: a dense b8 Predictor's attention-rollout forward
+   (with_maps=True): maps ms beside the plain forward's, peak memory, 25
+   LayerNorm launches and no attention kernel, the maps against the CPU's
+   f32 (MAPS_TOL, MAPS_MIN_CORR); MAPS_REQUESTS POST /predict?maps=1
+   requests through the port's server (200, a 24 x 24 map each); one
+   Grad-CAM call at batch GRAD_CAM_BATCH.
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -219,6 +238,20 @@ LN_BWD_REL_TOL = 1e-5
 #   the same inputs (the card's products may pick other algorithms for the
 #   recompute's shapes): loss 1e-3, gradients 1e-2 of the largest.
 REMAT_LOSS_TOL, REMAT_GRAD_TOL = 1e-3, 1e-2
+# - train_remat_policies: a policy changes what the backward keeps, not what
+#   it computes, so each policy's first step equals the full-remat step's
+#   bit for bit where the card's products repeat their bits; the largest
+#   gradient difference relative to the largest gradient is bounded at
+#   1e-5 in case cuBLAS does not.
+POLICY_GRAD_TOL = 1e-5
+# - train_fused_qkv, f32 with TF32 off: the one [D, 3D] product sums each
+#   Q/K/V weight gradient in another order than three [D, D] ones:
+#   gradients 1e-4 of the largest, loss 1e-5.
+FUSED_GRAD_TOL, FUSED_LOSS_TOL = 1e-4, 1e-5
+# - serving_maps: card bf16 rollout maps (in [0, 1]) against the CPU's f32
+#   on the same weights and images: bf16 activations through 12 layers and
+#   a min-max normalization per map. Bound 5e-2, correlation above 0.99.
+MAPS_TOL, MAPS_MIN_CORR = 5e-2, 0.99
 # - train_cross_check, f32 card vs f32 CPU: the same math in another
 #   summation order. bf16 card vs f32 CPU: bf16 activations; AdamW's first
 #   step moves each weight by about lr, so the updated weights can differ
@@ -271,6 +304,12 @@ TOME_LENGTHS = {
     (16, "decreasing"): (577, 547, 519, 494, 471, 451, 433, 419, 407, 398,
                          391, 387)}
 TOME_DROPOUT_STEPS = 2
+# train_remat_policies: every policy, then the step without remat (None)
+REMAT_POLICIES = ("full", "mlp", "attn", "attn_mlp", "flash_out", "dots",
+                  None)
+POLICY_WARMUP_STEPS, POLICY_TIMED_STEPS = 1, 3
+# serving_maps: requests sent with ?maps=1, and the Grad-CAM batch
+MAPS_REQUESTS, GRAD_CAM_BATCH = 4, 2
 # the server's fast_serve merging: tome_r 16 under the decreasing schedule
 TOME_SERVE = (16, "decreasing")
 # The dense attention kernels before their redesign (mma.sync from scalar
@@ -1555,15 +1594,21 @@ def run_steps(train_step, state, batch, warmup: int, timed: int,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def dense_launches_per_step(n_layers: int, dropout: bool) -> dict:
-    """Launches per dense train step under full remat, merging or not:
-    every block's attention forward twice (forward and recompute), its
-    backward once; every LayerNorm forward twice but the final one; every
-    LayerNorm backward once; no other kernel."""
+def dense_launches_per_step(n_layers: int, dropout: bool,
+                            policy: str = "full") -> dict:
+    """Launches per dense train step under a remat policy (None: no
+    remat), merging or not: every block's attention forward twice where
+    the backward recomputes it (``full``, ``dots``), once where o and lse
+    are kept; its backward once; every LayerNorm forward once, and again
+    but the final one where the block is checkpointed (``full``,
+    ``flash_out``, ``dots``); every LayerNorm backward once; no other
+    kernel."""
     name = "flash_attention_dropout" if dropout else "flash_attention"
+    attn = 2 if policy in ("full", "dots") else 1
+    ln = 2 if policy in ("full", "flash_out", "dots") else 1
     return {**dict.fromkeys(_wrappers(), 0),
-            f"{name}_fwd": 2 * n_layers, f"{name}_bwd": n_layers,
-            "layer_norm": 2 * (2 * n_layers + 1) - 1,
+            f"{name}_fwd": attn * n_layers, f"{name}_bwd": n_layers,
+            "layer_norm": ln * (2 * n_layers + 1) - (ln - 1),
             "layer_norm_bwd": 2 * n_layers + 1}
 
 
@@ -2364,6 +2409,304 @@ def phase_serving_tome(int8_rec: dict) -> dict:
     return {k: launches[k] + d_launches[k] for k in launches}
 
 
+def _first_step(step, params, batch, draws=None) -> tuple:
+    """(loss, the gradients on the host) of one step from fresh state."""
+    from chestxray_vit_tpu_torch.train import steps
+
+    _, m = step(steps.TrainState.create(params, seed=42), batch, draws)
+    return m["loss"].item(), {n: p.grad.cpu()
+                              for n, p in params.named_parameters()}
+
+
+def _against(got: tuple, ref: tuple) -> dict:
+    """A first step against the reference's: equal bits, and the largest
+    loss and relative gradient differences."""
+    scale = max(g.abs().max().item() for g in ref[1].values())
+    return {"bit_equal": got[0] == ref[0] and all(
+                torch.equal(got[1][n], g) for n, g in ref[1].items()),
+            "loss_diff": abs(got[0] - ref[0]),
+            "grad_rel_diff": max((got[1][n] - g).abs().max().item()
+                                 for n, g in ref[1].items()) / scale}
+
+
+def _same_step(cmp: dict) -> bool:
+    """Equal bits, or loss and gradients within POLICY_GRAD_TOL (the loss
+    is O(1))."""
+    return cmp["bit_equal"] or (cmp["loss_diff"] <= POLICY_GRAD_TOL and
+                                cmp["grad_rel_diff"] <= POLICY_GRAD_TOL)
+
+
+def phase_train_remat_policies(dense_rec: dict) -> tuple:
+    """bench.py's dense b36 step (ViT-B/16 @384, bf16) under every remat
+    policy and without remat, from the same weights on the same batch:
+    POLICY_WARMUP_STEPS + POLICY_TIMED_STEPS steps each, with step ms,
+    images/s, peak memory and the exact launches per step (the attention
+    forward twice a layer where o and lse are recomputed, once where they
+    are kept); each first step's loss and gradients against the
+    full-remat step's (bit for bit, or within POLICY_GRAD_TOL). Then
+    ``flash_out`` with attention and hidden dropout 0.1 (the dropout
+    kernels' saves) against full remat on the same draws. Returns (the
+    launches of the timed steps summed over the runs, the rows)."""
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    batch = bench_batch(TRAIN_BATCH, SEED, dev)
+    rows, total, ref = {}, {}, None
+    for policy in REMAT_POLICIES:
+        cfg = train_config(remat=policy is not None,
+                           remat_policy=policy or "full")
+        per_step = dense_launches_per_step(cfg.model.num_layers, False,
+                                           policy)
+        params = init_params(torch.Generator().manual_seed(SEED), cfg.model,
+                             dev)
+        step = steps.make_train_step(cfg, total_steps=10_000)
+        first = _first_step(step, params, batch)
+        ref = ref or first
+        torch.cuda.empty_cache()
+        run = run_steps(step, steps.TrainState.create(params, seed=42),
+                        batch, POLICY_WARMUP_STEPS, POLICY_TIMED_STEPS)
+        counts = run["step_counts"][-1]
+        rows[str(policy)] = {
+            "step_ms": run["step_ms"],
+            "images_per_s": TRAIN_BATCH * POLICY_TIMED_STEPS / run["wall"],
+            "max_memory_allocated_gb": run["peak_gb"],
+            "attention_fwd_per_step": counts["flash_attention_fwd"],
+            "attention_bwd_per_step": counts["flash_attention_bwd"],
+            "layer_norm_per_step": counts["layer_norm"],
+            "losses": run["losses"],
+            "vs_full_remat": _against(first, ref)}
+        require(all(np.isfinite(run["losses"])),
+                f"policy {policy}: finite losses")
+        require(all(c == per_step for c in run["step_counts"]),
+                f"policy {policy}: launches per step {run['step_counts']} "
+                f"!= {per_step}")
+        require(_same_step(rows[str(policy)]["vs_full_remat"]),
+                f"policy {policy} against full remat: "
+                f"{rows[str(policy)]['vs_full_remat']}")
+        total = {k: total.get(k, 0) + v for k, v in run["launches"].items()}
+        del params, step, run, first
+        torch.cuda.empty_cache()
+    rec = {"phase": "train_remat_policies", "batch": TRAIN_BATCH,
+           "dtype": "bfloat16", "warmup_steps": POLICY_WARMUP_STEPS,
+           "timed_steps": POLICY_TIMED_STEPS, "policies": rows,
+           "tol_grad_rel": POLICY_GRAD_TOL,
+           "phase_6_full_remat_images_per_s": dense_rec["images_per_s"]}
+    emit(rec)
+
+    # flash_out with both dropouts: its saves are the dropout kernels'
+    drop = {"attention_dropout": DROP_RATE, "hidden_dropout": DROP_RATE}
+    draws = [steps.draw(torch.Generator().manual_seed(SEED + 1),
+                        train_config(**drop), TRAIN_BATCH)]
+    firsts = {}
+    for policy in ("full", "flash_out"):
+        cfg = train_config(remat=True, remat_policy=policy, **drop)
+        params = init_params(torch.Generator().manual_seed(SEED), cfg.model,
+                             dev)
+        step = steps.make_train_step(cfg, total_steps=10_000)
+        firsts[policy] = _first_step(step, params, batch, draws)
+        del params
+        torch.cuda.empty_cache()
+    run = run_steps(step, steps.TrainState.create(
+        init_params(torch.Generator().manual_seed(SEED), cfg.model, dev),
+        seed=42), batch, POLICY_WARMUP_STEPS, POLICY_TIMED_STEPS)
+    per_step = dense_launches_per_step(cfg.model.num_layers, True,
+                                       "flash_out")
+    drec = {"phase": "train_remat_flash_out_dropout", "batch": TRAIN_BATCH,
+            **drop, "step_ms": run["step_ms"],
+            "images_per_s": TRAIN_BATCH * POLICY_TIMED_STEPS / run["wall"],
+            "max_memory_allocated_gb": run["peak_gb"],
+            "launches_per_step": run["step_counts"][-1],
+            "vs_full_remat_same_draws": _against(firsts["flash_out"],
+                                                 firsts["full"])}
+    emit(drec)
+    require(all(c == per_step for c in run["step_counts"]),
+            f"flash_out with dropout: launches per step "
+            f"{run['step_counts']} != {per_step}")
+    require(_same_step(drec["vs_full_remat_same_draws"]),
+            f"flash_out with dropout against full remat: "
+            f"{drec['vs_full_remat_same_draws']}")
+    total = {k: total.get(k, 0) + v for k, v in run["launches"].items()}
+    del run, step, firsts
+    torch.cuda.empty_cache()
+    return total, rows
+
+
+def phase_train_fused_qkv(rows: dict) -> dict:
+    """bench.py's b36 step (bf16, full remat) with ``fused_qkv``: step ms
+    beside phase 22's split full-remat step and exact launches; one f32
+    step (TF32 off) fused against split on the same weights and batch
+    (FUSED_GRAD_TOL); and the copy autograd makes of the kernels' three
+    separate dq, dk, dv buffers into the fused projection's gradient (the
+    stack of three [36, 577, 12, 64] bf16 gradients, 12 a step). Returns
+    the timed steps' launches."""
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    batch = bench_batch(TRAIN_BATCH, SEED, dev)
+    cfg = train_config(remat=True, fused_qkv=True)
+    per_step = dense_launches_per_step(cfg.model.num_layers, False)
+    params = init_params(torch.Generator().manual_seed(SEED), cfg.model, dev)
+    run = run_steps(steps.make_train_step(cfg, total_steps=10_000),
+                    steps.TrainState.create(params, seed=42), batch,
+                    POLICY_WARMUP_STEPS, POLICY_TIMED_STEPS)
+    del params
+    torch.cuda.empty_cache()
+    firsts = {}
+    for fused in (False, True):
+        c32 = train_config(remat=True, fused_qkv=fused, dtype="float32")
+        params = init_params(torch.Generator().manual_seed(SEED), c32.model,
+                             dev)
+        firsts[fused] = _first_step(
+            steps.make_train_step(c32, total_steps=10_000), params, batch)
+        del params
+        torch.cuda.empty_cache()
+    d = TRAIN_BATCH, cfg.model.seq_len, cfg.model.num_heads, \
+        cfg.model.head_dim
+    grads = [torch.randn(d, device=dev, dtype=torch.bfloat16)
+             for _ in range(3)]
+    stack_ms = time_ms(lambda: torch.stack(grads, dim=2))
+    nbytes = 2 * 3 * grads[0].numel() * grads[0].element_size()
+    rec = {"phase": "train_fused_qkv", "batch": TRAIN_BATCH,
+           "remat": "full", "step_ms": run["step_ms"],
+           "images_per_s": TRAIN_BATCH * POLICY_TIMED_STEPS / run["wall"],
+           "split_step_ms_phase_22": rows["full"]["step_ms"],
+           "max_memory_allocated_gb": run["peak_gb"],
+           "launches_per_step": run["step_counts"][-1],
+           "f32_fused_vs_split": _against(firsts[True], firsts[False]),
+           "tol_f32": [FUSED_LOSS_TOL, FUSED_GRAD_TOL],
+           "grad_stack_ms_per_layer": stack_ms,
+           "grad_stack_ms_per_step": cfg.model.num_layers * stack_ms,
+           "grad_stack_bound_ms_per_layer": 1e3 * nbytes / HBM_BYTES_PER_S}
+    emit(rec)
+    require(all(np.isfinite(run["losses"])), "fused_qkv: finite losses")
+    require(all(c == per_step for c in run["step_counts"]),
+            f"fused_qkv: launches per step {run['step_counts']} != "
+            f"{per_step}")
+    cmp = rec["f32_fused_vs_split"]
+    require(cmp["loss_diff"] <= FUSED_LOSS_TOL
+            and cmp["grad_rel_diff"] <= FUSED_GRAD_TOL,
+            f"fused_qkv against split in f32: {cmp}")
+    return run["launches"]
+
+
+def phase_serving_maps() -> dict:
+    """Attention-rollout maps through the port's entry points: a dense bf16
+    Predictor at batch 8 (ViT-B/16 @384, seed-0 weights) runs one maps
+    forward of 8 request images (the main path: 25 LayerNorm launches, the
+    plain attention with f32 scores and softmax, probabilities of every
+    layer kept), with its ms, the plain forward's ms and the peak memory;
+    the maps [8, 24, 24] in [0, 1] against the CPU's f32 on the same
+    weights (2 images, MAPS_TOL and MAPS_MIN_CORR); MAPS_REQUESTS
+    ``POST /predict?maps=1`` requests through the port's server; one
+    Grad-CAM call at batch GRAD_CAM_BATCH. Returns the maps forward's
+    launches."""
+    import dataclasses
+    import io
+    import urllib.request
+
+    from PIL import Image
+
+    import chestxray_vit_tpu_torch as cxr
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.serve import attention_maps
+    from chestxray_vit_tpu_torch.serve.server import serve
+
+    cfg = cxr.ModelConfig()
+    g = cfg.img_size // cfg.patch_size
+    params = init_params(torch.Generator().manual_seed(SEED), cfg)
+    images = make_requests(BATCH)
+    pred = cxr.Predictor(params, cfg, batch_size=BATCH, placement="device",
+                         device="cuda")
+    t0 = time.perf_counter()
+    pred.warmup(with_maps=True)
+    warm_s = time.perf_counter() - t0
+    staged = pred.stage_chunk(images)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = pred.forward_staged(staged, BATCH, with_maps=True)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    maps_ms = time_ms(lambda: pred.forward_staged(staged, BATCH,
+                                                  with_maps=True),
+                      reps=5, inner=2)
+    plain_ms = time_ms(lambda: pred.forward_staged(staged, BATCH),
+                       reps=5, inner=2)
+    cpu = cxr.Predictor(params, dataclasses.replace(cfg, dtype="float32"),
+                        batch_size=2, placement="device",
+                        device="cpu").predict_arrays(images[:2],
+                                                     with_maps=True)
+    card, ref = out.maps[:2].ravel(), cpu.maps.ravel()
+
+    def png(a) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(a, "L").save(buf, format="PNG")
+        return buf.getvalue()
+
+    server = serve(pred, host="127.0.0.1", port=0, block=False)
+    answers = []
+    try:
+        for img in images[:MAPS_REQUESTS]:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.server_port}/predict?maps=1",
+                data=png(img), method="POST")
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                answers.append((resp.status, json.loads(resp.read())))
+    finally:
+        server.shutdown()
+        server.server_close()
+    amaps = [np.asarray(a.get("attention_map", []), np.float32)
+             for _, a in answers]
+
+    with torch.inference_mode():
+        x = pred._images_of(pred.stage_chunk(images[:GRAD_CAM_BATCH]))
+    x = x.clone()
+    cam_ms = time_ms(lambda: attention_maps.grad_cam(
+        pred._fwd_params, x, cfg, 0), reps=3, inner=1)
+    _, cam = attention_maps.grad_cam(pred._fwd_params, x, cfg, 0)
+    rec = {"phase": "serving_maps", "batch": BATCH, "warmup_s": warm_s,
+           "maps_forward_ms": maps_ms, "plain_forward_ms": plain_ms,
+           "max_memory_allocated_gb": peak_gb, "base_memory_gb": base_gb,
+           "probabilities_gb": 4 * cfg.num_layers * BATCH * cfg.num_heads
+           * cfg.seq_len ** 2 / 1e9,
+           "maps_shape": list(out.maps.shape), "launches": launches,
+           "card_bf16_vs_cpu_f32_maps_max_abs": float(np.abs(card - ref)
+                                                      .max()),
+           "card_bf16_vs_cpu_f32_maps_corr": float(np.corrcoef(card, ref)
+                                                   [0, 1]),
+           "tol": [MAPS_TOL, MAPS_MIN_CORR],
+           "server_statuses": [st for st, _ in answers],
+           "server_map_shapes": [list(m.shape) for m in amaps],
+           "grad_cam_batch": GRAD_CAM_BATCH, "grad_cam_ms": cam_ms,
+           "grad_cam_shape": list(cam.shape)}
+    emit(rec)
+    maps_ok = (np.isfinite(out.maps).all() and out.maps.min() >= 0.0
+               and out.maps.max() <= 1.0 and np.isfinite(out.logits).all())
+    require(out.maps.shape == (BATCH, g, g) and maps_ok,
+            f"serving_maps: maps {out.maps.shape} finite in [0, 1]")
+    require(launches == {**dict.fromkeys(launches, 0),
+                         "layer_norm": 2 * cfg.num_layers + 1},
+            f"serving_maps: launches {launches}")
+    require(rec["card_bf16_vs_cpu_f32_maps_max_abs"] <= MAPS_TOL
+            and rec["card_bf16_vs_cpu_f32_maps_corr"] > MAPS_MIN_CORR,
+            f"serving_maps: card against CPU {rec}")
+    require(all(st == 200 for st, _ in answers)
+            and all(m.shape == (g, g) and np.isfinite(m).all()
+                    and m.min() >= 0.0 and m.max() <= 1.0 for m in amaps),
+            f"serving_maps: server answers {rec['server_statuses']} "
+            f"{rec['server_map_shapes']}")
+    require(tuple(cam.shape) == (GRAD_CAM_BATCH, g, g)
+            and bool(torch.isfinite(cam).all()),
+            f"serving_maps: Grad-CAM {tuple(cam.shape)}")
+    del pred, params, out
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = (  # name (the kernel_check summary key), source, what it replaces
     ("int8_matmul_fused", "csrc/int8_matmul.cu",
      "chestxray_vit_tpu/ops/int8_pallas.py:51"),
@@ -2464,6 +2807,10 @@ def main() -> int:
                          quantized=quant, tome_r=TOME_STEPS[0][0])
         for name, quant in (("dense", False), ("int8", True))]
     del tome_params
+    torch.cuda.empty_cache()
+    policy_launches, policy_rows = phase_train_remat_policies(train_rec)
+    fused_launches = phase_train_fused_qkv(policy_rows)
+    maps_launches = phase_serving_maps()
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "chestxray_vit_tpu")]
     require(not loaded, f"no JAX and no JAX-package module imported: "
@@ -2472,12 +2819,14 @@ def main() -> int:
     # launches: the sum over the main paths' runs (serving, int8 serving,
     # the timed train steps, eval, int8 eval, the timed dropout steps, the
     # timed packed, merged and mixed-resolution steps, the timed merged
-    # dense steps, merged serving and merged eval), each counted from 0
-    # just before it
+    # dense steps, merged serving and merged eval, the timed steps of
+    # every remat policy and of fused_qkv, the maps forward), each counted
+    # from 0 just before it
     paths = (serve_launches, serve_int8_launches, train_launches,
              eval_launches, eval_int8_launches, dropout_launches,
              packed_launches, tome_launches, mixed_launches,
-             tome_train_launches, serve_tome_launches, *eval_tome_launches)
+             tome_train_launches, serve_tome_launches, *eval_tome_launches,
+             policy_launches, fused_launches, maps_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)

@@ -4,6 +4,7 @@ its serving forward (dense or static int8), on one NVIDIA GPU.
     python3 profile_step.py [--dropout | --int8 | --forward | --packed |
                              --packed-tome] [--batch N]
                             [--tome-r R [--tome-schedule decreasing]]
+                            [--remat-policy POLICY]
 
 bench.py's step (ViT-B/16 @384, bf16, full remat, batch 36, random weights
 from seed 0); ``--dropout`` adds attention dropout 0.1, hidden dropout 0.1
@@ -16,7 +17,10 @@ packed train step on smoke_batches.py's probe batch (32 sequences of 1152
 tokens, two 384 x 384 images each), ``--packed-tome`` the same with
 within-segment token merging (r = 16, decreasing). ``--tome-r`` merges
 tokens on the dense step (with or without ``--dropout``) or on the int8
-forward, under ``--tome-schedule``. After 3 warm-up steps
+forward, under ``--tome-schedule``. ``--remat-policy`` runs the dense
+step (with or without ``--dropout`` or ``--tome-r``) under another remat
+policy (``full``, the default, ``mlp``, ``attn``, ``attn_mlp``,
+``flash_out``, ``dots``; ``none`` trains without remat). After 3 warm-up steps
 ``torch.profiler`` traces 2 steps (forwards); the kernels of the trace are
 summed by category, and the busy share is the union of their intervals
 over the traced wall; ``syncs_per_step`` counts the host's waits on the
@@ -92,6 +96,9 @@ def main() -> int:
     ap.add_argument("--tome-r", type=int, default=0)
     ap.add_argument("--tome-schedule", choices=("constant", "decreasing"),
                     default="constant")
+    ap.add_argument("--remat-policy", default="full",
+                    choices=("full", "mlp", "attn", "attn_mlp", "flash_out",
+                             "dots", "none"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -103,7 +110,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rate = 0.1 if args.dropout else 0.0
-    cfg = cxr.Config(model=cxr.ModelConfig(remat=True, attention_dropout=rate,
+    policy = args.remat_policy
+    cfg = cxr.Config(model=cxr.ModelConfig(remat=policy != "none",
+                                           remat_policy=(
+                                               "full" if policy == "none"
+                                               else policy),
+                                           attention_dropout=rate,
                                            hidden_dropout=rate,
                                            tome_r=args.tome_r,
                                            tome_schedule=args.tome_schedule),
@@ -132,6 +144,8 @@ def main() -> int:
         config = "dropout" if args.dropout else "dense"
     if args.tome_r and not (args.packed or args.packed_tome):
         config += f"_tome{args.tome_r}_{args.tome_schedule}"
+    if policy != "full" and config.startswith(("dense", "dropout")):
+        config += f"_remat_{policy}"
     for _ in range(WARMUP_STEPS):
         out = run()
     torch.cuda.synchronize()

@@ -1213,3 +1213,62 @@ def test_tome_remat_step_on_card_is_deterministic(dev):
     (l0, g0), (l1, g1) = out
     assert l0 == l1
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+def test_training_attention_reads_fused_qkv_views(dev):
+    """The fused projection hands the training kernels q, k, v as
+    [B, H, S, 64] views of one [B, S, 3, H, 64] product (row stride 3·D, k
+    and v D and 2·D elements on): forward and gradients against the plain
+    autograd on contiguous copies."""
+    qkv = _randn((2, 577, 3, 12, 64), torch.bfloat16, dev)
+    do = _randn((2, 12, 577, 64), torch.bfloat16, dev, seed=1)
+    leaf = qkv.clone().requires_grad_()
+    q, k, v = (t.transpose(1, 2) for t in leaf.unbind(2))
+    assert all(fa._fits(t) for t in (q, k, v))
+    before = fa.flash_attention_fwd.launches
+    o = fa.FlashAttention.apply(q, k, v)
+    (o.float() * do.float()).sum().backward()
+    assert fa.flash_attention_fwd.launches == before + 1
+    ref_leaf = qkv.clone().requires_grad_()
+    rq, rk, rv = (t.transpose(1, 2).contiguous()
+                  for t in ref_leaf.unbind(2))
+    ref = fa.attention_reference(rq, rk, rv)
+    (ref.float() * do.float()).sum().backward()
+    torch.testing.assert_close(o.float(), ref.float(), atol=3e-2, rtol=3e-2)
+    scale = ref_leaf.grad.float().abs().max()
+    assert (leaf.grad.float() - ref_leaf.grad.float()).abs().max() \
+        <= 1e-2 * scale
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused_qkv"])
+@pytest.mark.parametrize("policy", ["mlp", "attn", "attn_mlp", "flash_out",
+                                    "dots"])
+def test_remat_policy_step_on_card_equals_no_remat(dev, policy, fused):
+    """Each remat policy on the card, bf16: the step's loss and gradients
+    equal the step's without remat bit for bit (a policy changes what the
+    backward keeps, not what it computes), and the attention forward runs
+    once a layer where o and lse are kept, twice where they are not."""
+    rng = np.random.default_rng(0)
+    batch = {"pixel_values": torch.from_numpy(
+        rng.standard_normal((4, 64, 64, 3)).astype(np.float32)).to(dev),
+        "labels": torch.from_numpy(
+            (rng.random((4, 5)) < 0.3).astype(np.float32)).to(dev)}
+    out = []
+    for remat in (False, True):
+        model = ModelConfig(img_size=64, patch_size=8, hidden_size=128,
+                            num_layers=2, num_heads=2, mlp_dim=256,
+                            num_classes=5, dtype="bfloat16", remat=remat,
+                            remat_policy=policy, fused_qkv=fused)
+        params = vit.init_params(torch.Generator().manual_seed(0), model,
+                                 dev)
+        before = fa.flash_attention_fwd.launches
+        _, m = steps.make_train_step(
+            Config(model=model, train=TrainConfig(warmup_steps=1)), 10)(
+            steps.TrainState.create(params, 0), batch)
+        runs = 2 if remat and policy == "dots" else 1
+        assert fa.flash_attention_fwd.launches == before + 2 * runs
+        out.append((m["loss"].item(),
+                    [p.grad.clone() for p in params.parameters()]))
+    (l0, g0), (l1, g1) = out
+    assert l0 == l1
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))

@@ -178,8 +178,9 @@ def test_dropout_gradients_match_jax_grad(block_q, s, dtype):
         torch.testing.assert_close(again, got, atol=0, rtol=0)
         _close_scaled(got, r, tol)
 
-    # plain autograd (CPU tensors) and the autograd function (its plain
-    # wrappers on the CPU) give the same gradients
+    # the dispatch (the autograd function on CPU tensors too) and the
+    # autograd function (its plain wrappers on the CPU) give the same
+    # gradients
     for run in (lambda q, k, v: tfa.flash_attention_dropout(
                     q, k, v, SEED, RATE, block_q=block_q),
                 lambda q, k, v: tfa.FlashAttentionDropout.apply(

@@ -127,8 +127,9 @@ def _check_bwd(rng, qkv, dtype):
         assert got.dtype == tq.dtype
         _close_scaled(got, r, tol)
 
-    # the autograd paths: attention(inference=False) on the CPU (plain
-    # autograd) and the FlashAttention function (plain wrappers)
+    # the autograd paths: attention(inference=False), which runs the
+    # FlashAttention function on CPU tensors too, and the function itself
+    # (plain wrappers)
     for run in (lambda q, k, v: tfa.attention(q, k, v, inference=False),
                 tfa.FlashAttention.apply):
         leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]

@@ -34,6 +34,7 @@ MODULES = [
     "chestxray_vit_tpu_torch.ops.quant",
     "chestxray_vit_tpu_torch.ops.int8_matmul",
     "chestxray_vit_tpu_torch.ops.tome",
+    "chestxray_vit_tpu_torch.models.remat",
     "chestxray_vit_tpu_torch.models.vit",
     "chestxray_vit_tpu_torch.models.bridge",
     "chestxray_vit_tpu_torch.models.quantized",
@@ -43,6 +44,8 @@ MODULES = [
     "chestxray_vit_tpu_torch.train.steps",
     "chestxray_vit_tpu_torch.eval.metrics",
     "chestxray_vit_tpu_torch.serve.batcher",
+    "chestxray_vit_tpu_torch.serve.attention_maps",
+    "chestxray_vit_tpu_torch.serve.visualize",
     "chestxray_vit_tpu_torch.serve.inference",
     "chestxray_vit_tpu_torch.serve.server",
     "chip_smoke",

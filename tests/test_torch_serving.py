@@ -171,11 +171,17 @@ def test_predictor_serves_token_merging(rng, kw):
 
 
 def test_predictor_refuses_maps_and_missing_cuda(rng):
+    """Maps are ported (tests/test_torch_attention_maps.py holds them to
+    the reference): a maps forward answers with one [g, g] map in [0, 1]
+    per image beside the logits; a bad placement and a missing card are
+    still refused."""
     cfg = tiny_cfg()
     _, tp = _pair(cfg)
     pred = Predictor(tp, cfg, batch_size=2, canvas_size=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #10"):
-        pred.predict_arrays(_grays(rng, 1), with_maps=True)
+    out = pred.predict_arrays(_grays(rng, 3), with_maps=True)
+    g = cfg.img_size // cfg.patch_size
+    assert out.maps.shape == (3, g, g) and out.logits.shape == (3, 5)
+    assert out.maps.min() == 0.0 and out.maps.max() == 1.0
     with pytest.raises(ValueError, match="placement"):
         Predictor(tp, cfg, device="cpu", placement="gpu")
     if not torch.cuda.is_available():
@@ -262,11 +268,17 @@ def test_http_server_end_to_end(rng):
         assert status("/nope") == 404
         assert status("/nope", b"x") == 404
         assert status("/predict", b"") == 400
-        assert status("/predict?maps=1", _png(gray)) == 501
         m = json.loads(urllib.request.urlopen(base + "/metrics",
                                               timeout=60).read())
         assert m["requests_total"] == 1 and m["errors_total"] == 0
         assert m["latency_ms"]["p50"] > 0
+        maps = post("/predict?maps=1", _png(gray))
+        g = cfg.img_size // cfg.patch_size
+        assert len(maps["findings"]) == 5
+        assert np.asarray(maps["attention_map"]).shape == (g, g)
+        np.testing.assert_allclose(
+            maps["attention_map"],
+            pred.predict_arrays([gray], with_maps=True).maps[0], atol=1e-6)
     finally:
         server.shutdown()
         server.server_close()

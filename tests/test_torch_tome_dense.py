@@ -199,9 +199,17 @@ def test_apply_tome_train_refuses_what_the_reference_refuses():
         tvit.apply(tp, x, dataclasses.replace(cfg, fused_qkv=True))
     with pytest.raises(NotImplementedError, match="Queue 1 #11"):
         ttf.apply_tome_train(tp, x, cfg, 2, int8_scales={})
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
+    # the selective policies are ported (tests/test_torch_remat.py): the
+    # merged forward runs under one, with the forward's logits
+    with torch.no_grad():
+        plain = tvit.apply(tp, x, cfg)
+    torch.testing.assert_close(
         tvit.apply(tp, x, dataclasses.replace(cfg, remat=True,
                                               remat_policy="mlp"),
+                   train=True).detach(), plain, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="remat_policy"):
+        tvit.apply(tp, x, dataclasses.replace(cfg, remat=True,
+                                              remat_policy="mlp_hidden"),
                    train=True)
     with pytest.raises(ValueError, match="seed triples"):
         tvit.apply(tp, x, cfg, train=True, dropout_seeds=[(1, 2, 3)])

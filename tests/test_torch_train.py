@@ -317,16 +317,30 @@ def test_train_step_bf16_close_to_jax():
     ("remat_policy", "mlp"), ("remat_policy", "dots"),
     ("fused_qkv", True)])
 def test_unported_training_options_raise(field, value):
-    """Dropout is ported since and is held to the reference in
-    tests/test_torch_dropout.py, and so is token merging
-    (tests/test_torch_tome_dense.py); these options still raise."""
+    """These options raised until they were ported (as dropout and token
+    merging did: tests/test_torch_dropout.py,
+    tests/test_torch_tome_dense.py); each now trains a step that equals
+    the reference's (the JAX side on its "xla" attention, nothing
+    interpreted), with the step's tolerances of
+    test_train_steps_match_jax_over_three_steps."""
     cfg = tiny_cfg(remat=True)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, **{field: value}))
-    _, tp = _params(tiny_cfg())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step = tsteps.make_train_step(cfg, 10)
-        step(tsteps.TrainState.create(tp, 0), _torch(_batches(1)[0]))
+    jcfg = _jax_cfg(cfg)
+    jcfg = dataclasses.replace(jcfg, model=dataclasses.replace(
+        jcfg.model, attention_impl="xla"))
+    jp, tp = _params(tiny_cfg())
+    batch = _batches(1)[0]
+    jstate, jm = jax.jit(jsteps.make_train_step(jcfg, 10))(
+        jsteps.TrainState.create(jp, 0), _jax(batch))
+    tstate, tm = tsteps.make_train_step(cfg, 10)(
+        tsteps.TrainState.create(tp, 0), _torch(batch))
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               atol=1e-5)
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-4)
+    _assert_trees_close(bridge.params_to_numpy(tstate.params),
+                        jstate.params, rtol=1e-6, scale=1.0)
 
 
 def test_mixup_int8_and_packed_raise():

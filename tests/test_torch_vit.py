@@ -152,11 +152,18 @@ def test_init_params_is_seeded_trunc_normal():
     ({"fused_qkv": True}, False),
     ({"remat": True, "remat_policy": "dots"}, True)])
 def test_unported_paths_raise(kw, train):
+    """These two paths raised until they were ported; each now runs and
+    gives the reference's logits on the same weights (the policies and
+    the fused projection in full: tests/test_torch_remat.py)."""
     cfg = small_cfg(**kw)
-    _, tp = _pair(small_cfg())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #4"):
-        tvit.apply(tp, torch.from_numpy(_images(cfg, n=1)), cfg,
-                   train=train)
+    jp, tp = _pair(small_cfg())
+    x = _images(cfg, n=2)
+    ref = jvit.apply(jp, jnp.asarray(x), _jax(dataclasses.replace(
+        cfg, attention_impl="xla")), train=train)
+    with torch.set_grad_enabled(train):
+        got = tvit.apply(tp, torch.from_numpy(x), cfg, train=train)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               atol=1e-5, rtol=1e-5)
 
 
 def test_tome_r_runs_the_merged_forward():
