@@ -5,7 +5,9 @@ The JAX package beside it is the reference and stays unchanged; this
 package mirrors its layout module for module and imports nothing of it.
 Where the port needs a framework-free module of the JAX package, it keeps
 its own copy (``config``, ``data.decode``, ``data.geometry`` with
-``host_resize``, ``data.packing``, ``serve.batcher``). Every TPU (Pallas) kernel on a ported
+``host_resize``, ``data.packing``, ``data.storage``, ``data.metadata``,
+``data.testing``, ``serve.batcher``, ``utils.logging``,
+``utils.tfevents``, ``utils.flops``). Every TPU (Pallas) kernel on a ported
 path is a hand-written Hopper kernel in ``csrc/``, built at first use
 (``kernels``), with a plain PyTorch twin beside its wrapper.
 
@@ -27,7 +29,11 @@ Ported so far, at ViT-B/16 @384:
 - packed variable-resolution training (``data.packing``,
   ``models.packed``, ``train.steps.make_packed_train_step``) over the
   segment-masked attention kernels, with within-segment token merging
-  (``ops.tome``) when ``model.tome_r`` is set.
+  (``ops.tome``) when ``model.tome_r`` is set;
+- the training run (``train.trainer.Trainer``: cadences, checkpoints with
+  exact resume in ``train.checkpoint``, evaluate / predict / save_model),
+  its host data layer (``data.pipeline``) and logging (``utils``), and
+  ``Predictor.from_model_dir`` for the model it saves.
 
 Importing the package imports no JAX, no Triton and loads no compiled
 library.

@@ -5,20 +5,34 @@
 ``Config`` keep the JAX package's names, fields, defaults and
 construction-time checks, so a configuration written for one package means
 the same to the other (``tests/test_torch_config.py`` holds them equal),
-fields the port does not act on yet (storage, cadence, mesh) included. The
-presets, the JSON round trip and the command line stay with the JAX
-package until the CLI is ported.
+fields the port does not act on yet (mesh) included. The JSON round trip
+(``Config.to_json`` / ``from_json``, which ``save_model`` and
+``Predictor.from_model_dir`` use), the presets (``version_b_config``,
+``version_a_config``, ``fast_finetune_config``, ``_PRESETS``) and
+``_set_by_path`` are the JAX package's too; the command line
+(``parse_cli``) waits for the CLI (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 # The reference normalizes through HF ViTImageProcessor (google/vit values
 # 0.5 / 0.5); its ImageNet constants are defined but unused.
 PROCESSOR_MEAN: Tuple[float, float, float] = (0.5, 0.5, 0.5)
 PROCESSOR_STD: Tuple[float, float, float] = (0.5, 0.5, 0.5)
+
+# The NIH ChestX-ray14 vocabulary of the reference's label engine: 14
+# pathologies and 'No Finding', sorted.
+NIH_CLASSES: Tuple[str, ...] = (
+    "Atelectasis", "Cardiomegaly", "Consolidation", "Edema", "Effusion",
+    "Emphysema", "Fibrosis", "Hernia", "Infiltration", "Mass", "No Finding",
+    "Nodule", "Pleural_Thickening", "Pneumonia", "Pneumothorax",
+)
 
 
 @dataclass
@@ -172,3 +186,123 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+    @staticmethod
+    def from_json(text: str) -> "Config":
+        raw = json.loads(text)
+        return Config(
+            data=DataConfig(**raw.get("data", {})),
+            model=ModelConfig(**raw.get("model", {})),
+            train=TrainConfig(**raw.get("train", {})),
+            mesh=MeshConfig(**{k: tuple(v) if isinstance(v, list) else v
+                               for k, v in raw.get("mesh", {}).items()}),
+        )
+
+
+def version_b_config() -> Config:
+    """The production (GCS streaming) pipeline of the reference."""
+    return Config(
+        data=DataConfig(
+            backend="gcs",
+            gcs_bucket_name="chest-xray-samir",
+            split_scheme="official_lists",
+            use_bbox_roi=True,
+            augment=False,
+        ),
+        model=ModelConfig(num_classes=15),
+        train=TrainConfig(
+            batch_size_per_core=8,
+            learning_rate=1e-4,
+            weight_decay=0.01,
+            num_epochs=4,
+            eval_strategy="steps",
+            eval_steps=500,
+            save_steps=500,
+            logging_steps=50,
+            metric_for_best_model="avg_auroc",
+            report_to="tensorboard",
+            output_dir=os.path.expanduser("~/vit_finetune_results"),
+        ),
+    )
+
+
+def version_a_config() -> Config:
+    """The reference's HF-datasets variant: batch 32 train / 64 eval, lr
+    2e-5, 5 epochs, per-epoch eval and save, best by f1_micro."""
+    return Config(
+        data=DataConfig(
+            backend="local",
+            split_scheme="random_80_10_10",
+            use_bbox_roi=False,
+            augment=True,
+        ),
+        model=ModelConfig(num_classes=15),
+        train=TrainConfig(
+            batch_size_per_core=32,
+            eval_batch_size_per_core=64,
+            learning_rate=2e-5,
+            weight_decay=0.0,
+            num_epochs=5,
+            eval_strategy="epoch",
+            save_strategy="epoch",
+            logging_steps=100,
+            metric_for_best_model="f1_micro",
+            report_to="none",
+            output_dir="./nih-xray-vit-programmatic-finetuned",
+        ),
+    )
+
+
+def fast_finetune_config() -> Config:
+    """The JAX package's fast training recipe: version_b with batch 36 per
+    device, full remat, token merging at tome_r 16 under the decreasing
+    schedule, and a dense warmup over the first 37.5 % of the steps
+    (``train.tome_warmup``)."""
+    cfg = version_b_config()
+    cfg.model.remat = True
+    cfg.model.tome_r = 16
+    cfg.model.tome_schedule = "decreasing"
+    cfg.train.batch_size_per_core = 36
+    cfg.train.tome_warmup = 0.375
+    return cfg
+
+
+_PRESETS = {
+    "version_a": version_a_config,
+    "version_b": version_b_config,
+    "fast_finetune": fast_finetune_config,
+    "default": Config,
+}
+
+
+def _set_by_path(cfg: Config, dotted: str, value: str) -> None:
+    """Set cfg.<section>.<field> from a command-line string, coerced to the
+    field's type."""
+    parts = dotted.split(".")
+    obj: Any = cfg
+    for p in parts[:-1]:
+        obj = getattr(obj, p)
+    name = parts[-1]
+    if not hasattr(obj, name):
+        raise KeyError(f"unknown config key: {dotted}")
+    current = getattr(obj, name)
+    fields = {f.name: f for f in dataclasses.fields(obj)}
+    ftype = fields[name].type if name in fields else type(current)
+    text = str(ftype)
+    if value.lower() in ("none", "null"):
+        coerced: Any = None
+    elif "Tuple" in text or "tuple" in text:
+        # before the int/float checks: 'Tuple[int, int]' contains 'int'
+        coerced = tuple(json.loads(value))
+    elif "bool" in text:
+        coerced = value.lower() in ("1", "true", "yes", "on")
+    elif "int" in text:
+        coerced = int(value)
+    elif "float" in text:
+        coerced = float(value)
+    else:
+        coerced = value
+    setattr(obj, name, coerced)

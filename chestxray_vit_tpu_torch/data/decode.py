@@ -1,5 +1,6 @@
 """Image decode stage of the port: bytes → u8 grayscale array, a copy of
-``chestxray_vit_tpu/data/decode.py`` (the parts serving calls).
+``chestxray_vit_tpu/data/decode.py`` (the parts serving and the loader
+call; the batch decoder ``decode_batch_native`` is not copied: no caller).
 
 Same contract as the reference's PIL decode in ``__getitem__``
 (``Image.open(...).convert('L')``, a black dummy on any failure), with two
@@ -69,6 +70,10 @@ def _load_native() -> Optional[ctypes.CDLL]:
                   "`make -C native/decode`")
             _native_lib = None
         return _native_lib
+
+
+def native_available() -> bool:
+    return _load_native() is not None
 
 
 def decode_gray_pil(data: bytes) -> np.ndarray:

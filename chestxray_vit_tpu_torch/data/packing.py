@@ -1,5 +1,6 @@
 """NaViT-style packed variable-resolution batching: the port's own copy of
-``chestxray_vit_tpu/data/packing.py`` (numpy only, no framework).
+``chestxray_vit_tpu/data/packing.py`` (numpy arrays; the epoch order is
+``data/pipeline.py``'s).
 
 Multiple images of different resolutions share one token sequence,
 isolated by segment ids and block-diagonal attention
@@ -27,6 +28,7 @@ from chestxray_vit_tpu_torch.config import PROCESSOR_MEAN, PROCESSOR_STD
 from chestxray_vit_tpu_torch.data import decode as dec
 from chestxray_vit_tpu_torch.data import geometry as geo
 from chestxray_vit_tpu_torch.data.geometry import host_resize
+from chestxray_vit_tpu_torch.data.pipeline import epoch_order
 
 PAD_SEGMENT = -1
 
@@ -39,15 +41,6 @@ def grid_table_offsets(grids: Sequence[int]) -> Dict[int, int]:
         offsets[g] = cursor
         cursor += g * g
     return offsets
-
-
-def epoch_order(n: int, epoch: int, seed: int, shuffle: bool) -> np.ndarray:
-    """The image order of one epoch (the reference's
-    ``data/pipeline.py::epoch_order``): a permutation seeded with
-    ``seed + epoch``."""
-    if not shuffle:
-        return np.arange(n)
-    return np.random.default_rng(seed + epoch).permutation(n)
 
 
 def choose_grid(h: int, w: int, patch: int, grids: Sequence[int]) -> int:

@@ -18,6 +18,8 @@ that read it has finished.
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -26,7 +28,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from chestxray_vit_tpu_torch.config import ModelConfig
+from chestxray_vit_tpu_torch.config import Config, ModelConfig
 from chestxray_vit_tpu_torch.data import decode as dec
 from chestxray_vit_tpu_torch.data import geometry as geo
 from chestxray_vit_tpu_torch.models import quantized, tome_forward, vit
@@ -34,6 +36,7 @@ from chestxray_vit_tpu_torch.ops.preprocess import (fused_preprocess,
                                                     normalize_u8)
 from chestxray_vit_tpu_torch.ops.tome import r_schedule
 from chestxray_vit_tpu_torch.serve import attention_maps
+from chestxray_vit_tpu_torch.train.checkpoint import load_model
 
 
 @dataclass
@@ -92,6 +95,8 @@ class Predictor:
     returned beside [N, g, g] maps in [0, 1], as the JAX Predictor does. A
     quantized Predictor builds that dense tree on its stream at the first
     maps forward or at ``warmup(with_maps=True)``.
+
+    :meth:`from_model_dir` loads a ``Trainer.save_model()`` directory.
 
     Not ported yet, and refused: ``data_parallel``.
     """
@@ -192,6 +197,51 @@ class Predictor:
         images = self._images_of(self._to_device(
             self._stage(list(calibration), 0)))
         return quantized.calibrate_vit_scales(self.params, images, self.cfg)
+
+    @classmethod
+    def from_model_dir(cls, directory: str, batch_size: int = 8,
+                       placement: str = "host", quantize=False,
+                       data_parallel=False, tome_r: int = 0,
+                       tome_schedule: str = "constant",
+                       calibration=None, device="cuda") -> "Predictor":
+        """Load a ``Trainer.save_model()`` directory (``config.json``,
+        ``params.pt``, ``classes.json``). With ``quantize`` set, a
+        ``quantized/`` artifact in the directory (written by
+        :meth:`save_quantized`) is loaded instead of re-quantizing when its
+        mode is the one asked for and its fingerprint is the weights'; a
+        cold start then skips the quantize pass and the static calibration
+        forward. A mismatched artifact is reported and ignored."""
+        directory = os.path.expanduser(directory)
+        with open(os.path.join(directory, "config.json")) as f:
+            cfg = Config.from_json(f.read())
+        params, classes = load_model(directory, vit.ViT(cfg.model))
+        qparams = None
+        qdir = os.path.join(directory, "quantized")
+        if quantize and os.path.exists(os.path.join(qdir,
+                                                    "quantized.json")):
+            with open(os.path.join(qdir, "quantized.json")) as f:
+                meta = json.load(f)
+            saved_mode = meta.get("mode")
+            want = "dynamic" if quantize is True else quantize
+            if saved_mode != want:
+                print(f"[predictor] quantized/ artifact is {saved_mode!r} "
+                      f"but {want!r} was requested — re-quantizing from "
+                      f"the f32 weights", file=sys.stderr)
+            elif (meta.get("fingerprint") and meta["fingerprint"]
+                  != quantized.model_fingerprint(params)):
+                print("[predictor] quantized/ artifact was built from "
+                      "DIFFERENT weights (model retrained since it was "
+                      "saved?) — re-quantizing from the current f32 "
+                      "weights", file=sys.stderr)
+            else:
+                qparams = quantized.load_quantized(qdir, cfg.model)
+                print(f"[predictor] loaded int8 artifact ({saved_mode}) "
+                      f"from {qdir}", file=sys.stderr)
+        return cls(params, cfg.model, classes, batch_size,
+                   placement=placement, device=device, quantize=quantize,
+                   calibration=calibration, data_parallel=data_parallel,
+                   qparams=qparams, tome_r=tome_r,
+                   tome_schedule=tome_schedule)
 
     def save_quantized(self, directory: str) -> str:
         """Persist this Predictor's quantized tree (int8 weights, and the

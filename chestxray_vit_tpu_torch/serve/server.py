@@ -8,9 +8,12 @@ GET  /metrics          → request/error counts + latency quantiles (JSON)
 Stdlib only (ThreadingHTTPServer). Concurrent requests coalesce into shared
 forwards through the port's ``serve.batcher.MicroBatcher``; requests with
 and without maps go in separate forwards (maps always run the full-token
-dense model, ``Predictor(with_maps=True)``). Start with random weights
-(checkpoint loading is a later slice), dense, int8 or with token merging:
+dense model, ``Predictor(with_maps=True)``). Serve a model that
+``Trainer.save_model()`` wrote (``--model-dir``; with ``--quantize`` a
+matching ``quantized/`` artifact there is loaded), or random weights from
+``--seed``; dense, int8 or with token merging:
 
+    python -m chestxray_vit_tpu_torch.serve.server --model-dir outputs/model
     python -m chestxray_vit_tpu_torch.serve.server --seed 0
     python -m chestxray_vit_tpu_torch.serve.server --seed 0 --batch-size 32 \
         --quantize static --calibration a.png b.png ...
@@ -185,9 +188,13 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     back as None, ``'synthetic'`` or the files' bytes, as ``Predictor``
     takes it."""
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model-dir", default=None,
+                    help="a Trainer.save_model() directory to serve "
+                         "(Predictor.from_model_dir); without it, random "
+                         "weights from --seed")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random ViT-B/16 @384 weights "
-                         "(loading a trained model is a later slice)")
+                    help="seed of the random ViT-B/16 @384 weights served "
+                         "without --model-dir")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--batch-size", type=int, default=None,
@@ -258,12 +265,16 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
 
 def main(argv: Optional[list] = None) -> int:
     ns = parse_args(argv)
-    cfg = ModelConfig()
-    params = init_params(torch.Generator().manual_seed(ns.seed), cfg)
-    predictor = Predictor(params, cfg, batch_size=ns.batch_size,
-                          placement=ns.placement, device=ns.device,
-                          quantize=ns.quantize, calibration=ns.calibration,
-                          tome_r=ns.tome_r, tome_schedule=ns.tome_schedule)
+    kw = dict(batch_size=ns.batch_size, placement=ns.placement,
+              device=ns.device, quantize=ns.quantize,
+              calibration=ns.calibration, tome_r=ns.tome_r,
+              tome_schedule=ns.tome_schedule)
+    if ns.model_dir:
+        predictor = Predictor.from_model_dir(ns.model_dir, **kw)
+    else:
+        cfg = ModelConfig()
+        params = init_params(torch.Generator().manual_seed(ns.seed), cfg)
+        predictor = Predictor(params, cfg, **kw)
     print("[server] warming up (building kernels, running each bucket)...",
           flush=True)
     predictor.warmup()

@@ -3,7 +3,8 @@ fine-tune step (dense, and with attention dropout, hidden dropout and
 mixup), the eval step, packed variable-resolution training (with and
 without within-segment token merging), token merging on the dense
 forward (training, serving and eval), the remat policies, the fused Q/K/V
-projection and attention maps.
+projection, attention maps, and the Trainer entry point (a training run
+with checkpoints, exact resume and the saved model served).
 
     python3 chip_smoke.py
 
@@ -129,6 +130,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    f32 (MAPS_TOL, MAPS_MIN_CORR); MAPS_REQUESTS POST /predict?maps=1
    requests through the port's server (200, a 24 x 24 map each); one
    Grad-CAM call at batch GRAD_CAM_BATCH.
+25. trainer: ``Trainer`` at full width (bf16, full remat, batch 36,
+   random weights) on the fake NIH bucket (300 images of 512 px, memory
+   store, host placement, augmentation on): 12 steps, eval and a
+   checkpoint every 6, the best one restored; finite losses, the same
+   losses in metrics.jsonl and the tfevents file, exactly the saves of
+   steps 6 and 12 with their metrics; evaluate(); save_model() and
+   Predictor.from_model_dir() against the Trainer's eval logits
+   (BF16_LOGIT_TOL); a second Trainer resumed from step 6 gives steps
+   7-12, the eval metric and the step-12 checkpoint bit for bit; exact
+   launches (18 train steps, 6 forwards of 36). Beside the bare step's
+   images/s of phase 6: the Trainer's (ThroughputMeter and wall clock),
+   each step's wall time, the host's ms a batch alone, the card's idle
+   share over three steady steps, peak memory, the checkpoint's bytes
+   and write seconds, evaluate() ms.
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -357,6 +372,13 @@ EARLIER_LN_BWD_MS = {(20772, "torch.bfloat16"): (0.1004207968711853,
 # Seconds of back-to-back products that bring the card to its working
 # clocks before the first kernel is timed.
 WARM_UP_S = 1.0
+# phase 25 (trainer): the fake NIH bucket, the run and its cadences
+TRAINER_IMAGES, TRAINER_IMAGE_SIZE = 300, 512
+TRAINER_STEPS, TRAINER_EVERY = 12, 6
+# the idle share over steps 2-4: no epoch boundary (after 5 and 10), eval
+# or save (after 6 and 12) among them
+TRAINER_PROFILE = (2, 4)
+TRAINER_METER_WINDOW = 4
 
 
 def emit(obj: dict) -> None:
@@ -2706,6 +2728,306 @@ def phase_serving_maps() -> dict:
     torch.cuda.empty_cache()
     return launches
 
+def device_busy_ms(trace_path: str) -> tuple:
+    """(ms, count) of the union of the card's kernel, copy and set
+    intervals in a ``torch.profiler`` Chrome trace."""
+    with open(trace_path) as f:
+        trace = json.load(f)
+    device = sorted(
+        (e["ts"], e["ts"] + e["dur"])
+        for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
+        if e.get("ph") == "X"
+        and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, len(device)
+
+
+class StepClock:
+    """Wraps a Trainer's step function: the host clock at each step's
+    call (each logged step syncs, so the gap between two calls is one
+    step with what the loop did after it), and a CUDA-only profile from
+    the call of step ``window[0]`` to that of step ``window[1] + 1`` for
+    the card's busy share of that wall time (the trace is written and read
+    in :meth:`profiled`, after the run, off the clock)."""
+
+    def __init__(self, step_fn, trace_path: str = "", window=None):
+        self.step_fn, self.trace_path, self.window = (step_fn, trace_path,
+                                                      window)
+        self.calls, self.prof, self.wall_ms = [], None, None
+
+    def __call__(self, state, batch):
+        from torch.profiler import ProfilerActivity, profile
+        step = state.step + 1                   # the step this call runs
+        self.calls.append((step, time.perf_counter()))
+        if self.window and step == self.window[0]:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        elif self.window and step == self.window[1] + 1:
+            torch.cuda.synchronize()
+            self.wall_ms = 1e3 * (time.perf_counter() - self.t0)
+            self.prof.stop()
+        return self.step_fn(state, batch)
+
+    def profiled(self) -> dict:
+        """The profiled window's wall ms, the card's busy ms and its idle
+        share."""
+        self.prof.export_chrome_trace(self.trace_path)
+        busy, kernels = device_busy_ms(self.trace_path)
+        return {"profiled_steps": list(self.window),
+                "profile_wall_ms": self.wall_ms, "device_busy_ms": busy,
+                "device_kernels": kernels,
+                "device_idle_share": 1.0 - busy / self.wall_ms}
+
+    def step_ms(self) -> dict:
+        """{step: ms from its call to the next step's call}."""
+        return {a: 1e3 * (tb - ta) for (a, ta), (_, tb)
+                in zip(self.calls, self.calls[1:])}
+
+
+def _trainer_config(out_dir: str, **train):
+    import chestxray_vit_tpu_torch as cxr
+    return cxr.Config(
+        data=cxr.DataConfig(backend="memory", augment=True,
+                            preprocess_placement="host"),
+        model=cxr.ModelConfig(remat=True),      # ViT-B/16 @384 bf16, full
+        train=cxr.TrainConfig(
+            batch_size_per_core=TRAIN_BATCH, max_steps=TRAINER_STEPS,
+            eval_steps=TRAINER_EVERY, save_steps=TRAINER_EVERY,
+            save_total_limit=2, load_best_model_at_end=True,
+            logging_steps=1, report_to="tensorboard", output_dir=out_dir,
+            **train))
+
+
+def _logged(out_dir: str, prefix: str = "train", key: str = "loss") -> list:
+    import os
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [(r["step"], r[key]) for r in recs if r["prefix"] == prefix]
+
+
+def _quiet(fn):
+    """``fn()`` with what it prints captured: (result, the text). The text
+    goes to stderr, so stdout keeps one JSON line a phase."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    sys.stderr.write(buf.getvalue())
+    return out, buf.getvalue()
+
+
+def phase_trainer(dense_rec: dict) -> dict:
+    """The Trainer entry point on the card (ViT-B/16 @384 bf16, full
+    remat, batch 36) over the fake NIH bucket (TRAINER_IMAGES images of
+    TRAINER_IMAGE_SIZE px, memory backend, host placement, augmentation
+    on): TRAINER_STEPS steps with eval and a checkpoint every
+    TRAINER_EVERY, the best checkpoint restored at the end; then
+    evaluate(), save_model() and Predictor.from_model_dir() against the
+    Trainer's eval logits; then a second Trainer resumed from the step-6
+    checkpoint in a fresh directory, whose losses, eval metrics and step-12
+    checkpoint equal the first run's bit for bit (its step 7 traced through
+    ``train.profile_steps``); and the host's time to produce a batch alone.
+    The card's idle share over the first run's steps TRAINER_PROFILE comes
+    from a CUDA-only profile against the host clock. Each step's wall time is the gap between two
+    step calls (every step syncs to log its loss). Returns the launches of
+    all of it."""
+    import os
+    import shutil
+    import tempfile
+
+    from chestxray_vit_tpu_torch.data import pipeline as pipe
+    from chestxray_vit_tpu_torch.data.testing import build_fake_nih
+    from chestxray_vit_tpu_torch.serve.inference import Predictor
+    from chestxray_vit_tpu_torch.train.trainer import Trainer
+    from chestxray_vit_tpu_torch.utils.logging import ThroughputMeter
+    from chestxray_vit_tpu_torch.utils.tfevents import read_scalars
+
+    t0 = time.perf_counter()
+    fake = build_fake_nih(num_images=TRAINER_IMAGES,
+                          image_size=TRAINER_IMAGE_SIZE, seed=17)
+    fake_s = time.perf_counter() - t0
+    rec = {"phase": "trainer", "images": TRAINER_IMAGES,
+           "image_px": TRAINER_IMAGE_SIZE, "batch": TRAIN_BATCH,
+           "steps": TRAINER_STEPS, "fake_bucket_s": fake_s,
+           "bare_step_images_per_s": dense_rec["images_per_s"]}
+    with tempfile.TemporaryDirectory(prefix="cxr_trainer_") as tmp:
+        out_a, out_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        tr = Trainer(_trainer_config(out_a), store=fake.store,
+                     pretrained=False)
+        rec.update(train_images=len(tr.bundle.train),
+                   val_images=len(tr.bundle.val),
+                   steps_per_epoch=tr.steps_per_epoch)
+        # the default meter window (50 steps or 10 s) is longer than this
+        # run: a window of TRAINER_METER_WINDOW steps gives it a reading
+        tr._meter = ThroughputMeter(window=TRAINER_METER_WINDOW)
+        clock = tr._train_step = StepClock(
+            tr._train_step, os.path.join(tmp, "idle.json"), TRAINER_PROFILE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result, log_a = _quiet(tr.train)
+        torch.cuda.synchronize()
+        rec["train_wall_s"] = time.perf_counter() - t0
+        rec["train_result"] = result
+        rec["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        losses = _logged(out_a)
+        ips = [v for _, v in _logged(out_a, key="images_per_sec")]
+        rec["losses"] = [v for _, v in losses]
+        rec["step_ms"] = clock.step_ms()
+        rec.update(clock.profiled())
+        rec["meter_images_per_s"] = max(ips)
+        rec["meter_readings"] = sorted({round(v, 3) for v in ips if v})
+        rec["trainer_images_per_s_wall"] = result["train_samples_per_second"]
+        rec["checkpoint_save"] = tr.ckpt.last_save
+        require(result["train_steps"] == TRAINER_STEPS
+                and [s for s, _ in losses] == list(
+                    range(1, TRAINER_STEPS + 1))
+                and all(np.isfinite(v) for _, v in losses),
+                f"trainer: {TRAINER_STEPS} steps, every loss finite: "
+                f"{losses}")
+        require(rec["meter_images_per_s"] > 0, "trainer: the meter read")
+        (tb,) = os.listdir(os.path.join(out_a, "tb"))
+        tb_losses = [(s, v) for s, tag, v in read_scalars(
+            os.path.join(out_a, "tb", tb)) if tag == "train/loss"]
+        require([s for s, _ in tb_losses] == [s for s, _ in losses]
+                and np.array_equal(np.float32([v for _, v in tb_losses]),
+                                   np.float32([v for _, v in losses])),
+                "trainer: metrics.jsonl and tfevents hold the same losses")
+        ckdir = os.path.join(out_a, "checkpoints")
+        saves = sorted(os.listdir(ckdir), key=int)
+        metas = {}
+        for s in saves:
+            with open(os.path.join(ckdir, s, "meta.json")) as f:
+                metas[s] = json.load(f)
+        evals = dict(_logged(out_a, "eval", "avg_auroc"))
+        rec.update(saves=saves, eval_avg_auroc=evals,
+                   best_step=tr.ckpt.best_step())
+        require(saves == [str(TRAINER_EVERY), str(TRAINER_STEPS)]
+                and all(np.isfinite(m["metrics"]["avg_auroc"])
+                        and m["metrics"]["avg_auroc"] == evals[int(s)]
+                        for s, m in metas.items()),
+                f"trainer: saves {saves} carry their eval metrics")
+        printed = [int(line.split("(step ")[1].rstrip(")"))
+                   for line in log_a.splitlines()
+                   if "loaded best checkpoint" in line]
+        require(printed == [tr.ckpt.best_step()]
+                and tr.state.step == tr.ckpt.best_step(),
+                f"trainer: best checkpoint restored: printed {printed}, "
+                f"best {tr.ckpt.best_step()}, state {tr.state.step}")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = tr.evaluate()
+        torch.cuda.synchronize()
+        rec["evaluate_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["evaluate"] = {k: ev[k] for k in ("avg_auroc", "f1_micro",
+                                              "eval_loss")}
+        require(all(np.isfinite(v) for v in rec["evaluate"].values()),
+                f"trainer: evaluate() finite: {rec['evaluate']}")
+
+        want, _, _ = tr._forward_all(tr.bundle.val)
+        model_dir = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        _quiet(lambda: tr.save_model(model_dir))
+        rec["save_model_s"] = time.perf_counter() - t0
+        loader = tr._loader(tr.bundle.val, augment=False)
+        pixels = [loader.load(i)["pixel_values_u8"]
+                  for i in range(len(tr.bundle.val))]
+        pred = Predictor.from_model_dir(model_dir, batch_size=TRAIN_BATCH,
+                                        device="cuda")
+        got = pred.predict_arrays(pixels).logits
+        d = float(np.abs(got - want).max())
+        rec["predictor_vs_trainer_logits_max_abs"] = d
+        rec["predictor_tol"] = BF16_LOGIT_TOL
+        require(got.shape == want.shape and np.isfinite(got).all()
+                and d <= BF16_LOGIT_TOL,
+                f"trainer: Predictor.from_model_dir vs the Trainer's eval "
+                f"logits: {d}")
+        best_a = tr.ckpt.best_step()
+        tr.close()
+        del tr, pred
+        torch.cuda.empty_cache()
+
+        # exact resume: the step-6 checkpoint in a fresh directory
+        os.makedirs(os.path.join(out_b, "checkpoints"))
+        shutil.copytree(os.path.join(ckdir, str(TRAINER_EVERY)),
+                        os.path.join(out_b, "checkpoints",
+                                     str(TRAINER_EVERY)))
+        tr_b = Trainer(_trainer_config(
+            out_b, resume_from_checkpoint=str(TRAINER_EVERY),
+            profile_steps=(TRAINER_EVERY, TRAINER_EVERY + 1)),
+            store=fake.store, pretrained=False)
+        clock_b = tr_b._train_step = StepClock(tr_b._train_step)
+        _quiet(tr_b.train)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        resumed = _logged(out_b)
+        rec["resumed_losses"] = [v for _, v in resumed]
+        require(resumed == losses[TRAINER_EVERY:],
+                f"trainer: resumed losses equal bit for bit: {resumed} "
+                f"{losses[TRAINER_EVERY:]}")
+        require(_logged(out_b, "eval", "avg_auroc") == [
+            (TRAINER_STEPS, evals[TRAINER_STEPS])]
+            and tr_b.ckpt.best_step() == best_a,
+            "trainer: resumed eval metric and best step equal")
+        last = str(TRAINER_STEPS)
+        sa, sb = (torch.load(os.path.join(o, "checkpoints", last,
+                                          "state.pt"), weights_only=True)
+                  for o in (out_a, out_b))
+        same = all(torch.equal(sa[k][n], sb[k][n])
+                   for k in ("params", "mu", "nu") for n in sa[k])
+        require(same and sa["step"] == sb["step"] == TRAINER_STEPS,
+                "trainer: the resumed step-12 checkpoint equals the "
+                "uninterrupted one bit for bit")
+        del sa, sb
+        rec["resumed_step_ms"] = clock_b.step_ms()
+        # train.profile_steps traced step 7 of the resumed run
+        trace = os.path.join(out_b, "profile", "trace_{}_{}.json".format(
+            TRAINER_EVERY, TRAINER_EVERY + 1))
+        rec["profile_steps_trace_kernels"] = device_busy_ms(trace)[1]
+        require(rec["profile_steps_trace_kernels"] > 0,
+                "trainer: train.profile_steps wrote a trace with the "
+                "card's kernels")
+        tr_b.close()
+
+        # the host alone: batches from the decode pool, no device
+        loader = tr_b._loader(tr_b.bundle.train, augment=True)
+        cfg = tr_b.cfg
+        it = pipe.iterate_batches(
+            loader, TRAIN_BATCH, epoch=0, shuffle=True,
+            seed=cfg.data.shuffle_buffer_seed,
+            num_workers=cfg.data.num_workers,
+            prefetch_batches=cfg.data.prefetch_depth, drop_last=True)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in it)
+        rec["host_batch_ms"] = 1e3 * (time.perf_counter() - t0) / n
+        rec["host_batches"] = n
+        rec["host_workers"] = cfg.data.num_workers
+        del tr_b
+        torch.cuda.empty_cache()
+    rec["launches"] = launches
+    emit(rec)
+    # train steps: 12 in the first run, 6 resumed; forwards: the cadence
+    # evals (2 + 1), evaluate(), the cross-check's _forward_all and the
+    # Predictor's, one batch of 36 each
+    steps, forwards = TRAINER_STEPS + TRAINER_EVERY, 6
+    per_step = dense_launches_per_step(12, dropout=False)
+    want_l = {k: steps * v for k, v in per_step.items()}
+    want_l["flash_attention_inference"] += 12 * forwards
+    want_l["layer_norm"] += 25 * forwards
+    require(launches == want_l,
+            f"trainer: launches {launches}, expected {want_l}")
+    return launches
+
 
 KERNELS = (  # name (the kernel_check summary key), source, what it replaces
     ("int8_matmul_fused", "csrc/int8_matmul.cu",
@@ -2811,6 +3133,7 @@ def main() -> int:
     policy_launches, policy_rows = phase_train_remat_policies(train_rec)
     fused_launches = phase_train_fused_qkv(policy_rows)
     maps_launches = phase_serving_maps()
+    trainer_launches = phase_trainer(train_rec)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "chestxray_vit_tpu")]
     require(not loaded, f"no JAX and no JAX-package module imported: "
@@ -2820,13 +3143,14 @@ def main() -> int:
     # the timed train steps, eval, int8 eval, the timed dropout steps, the
     # timed packed, merged and mixed-resolution steps, the timed merged
     # dense steps, merged serving and merged eval, the timed steps of
-    # every remat policy and of fused_qkv, the maps forward), each counted
-    # from 0 just before it
+    # every remat policy and of fused_qkv, the maps forward, the Trainer's
+    # runs), each counted from 0 just before it
     paths = (serve_launches, serve_int8_launches, train_launches,
              eval_launches, eval_int8_launches, dropout_launches,
              packed_launches, tome_launches, mixed_launches,
              tome_train_launches, serve_tome_launches, *eval_tome_launches,
-             policy_launches, fused_launches, maps_launches)
+             policy_launches, fused_launches, maps_launches,
+             trainer_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)

@@ -71,3 +71,40 @@ def test_a_jax_config_converts_field_for_field():
     assert port.model.attention_dropout == 0.1
     assert port.data.mixup_alpha == 0.2
     assert port.train.gradient_accumulation_steps == 2
+
+
+@pytest.mark.parametrize("preset", sorted(jconfig._PRESETS))
+def test_presets_match_jax(preset):
+    assert sorted(tconfig._PRESETS) == sorted(jconfig._PRESETS)
+    assert dataclasses.asdict(tconfig._PRESETS[preset]()) == \
+        dataclasses.asdict(jconfig._PRESETS[preset]())
+
+
+@pytest.mark.parametrize("preset", ["default", "fast_finetune"])
+def test_json_round_trip_matches_jax(preset):
+    """The same text both ways: a config the JAX package saved loads in the
+    port and the port writes what the JAX package would."""
+    jcfg, tcfg = jconfig._PRESETS[preset](), tconfig._PRESETS[preset]()
+    tcfg.train.profile_steps = jcfg.train.profile_steps = (3, 5)
+    assert tcfg.to_json() == jcfg.to_json()
+    back = tconfig.Config.from_json(jcfg.to_json())
+    assert dataclasses.asdict(back) == dataclasses.asdict(
+        jconfig.Config.from_json(jcfg.to_json()))
+    assert back.to_json() == tcfg.to_json()
+
+
+@pytest.mark.parametrize("key,value", [
+    ("train.learning_rate", "3e-4"), ("train.max_steps", "none"),
+    ("train.profile_steps", "[2, 4]"), ("model.remat", "true"),
+    ("model.tome_r", "16"), ("data.backend", "memory")])
+def test_set_by_path_matches_jax(key, value):
+    jcfg, tcfg = jconfig.Config(), tconfig.Config()
+    jconfig._set_by_path(jcfg, key, value)
+    tconfig._set_by_path(tcfg, key, value)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    with pytest.raises(KeyError):
+        tconfig._set_by_path(tcfg, "train.no_such_key", "1")
+
+
+def test_nih_classes_match_jax():
+    assert tconfig.NIH_CLASSES == jconfig.NIH_CLASSES

@@ -1272,3 +1272,50 @@ def test_remat_policy_step_on_card_equals_no_remat(dev, policy, fused):
     (l0, g0), (l1, g1) = out
     assert l0 == l1
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+def test_trainer_on_card_resumes_bit_for_bit(dev, tmp_path):
+    """Two Trainer steps on the card at a small width (bf16, full remat,
+    host placement with augmentation, a checkpoint after step 1), then a
+    second Trainer resumed from step 1 in a fresh directory: its step-2
+    loss and weights equal the first run's bit for bit, because every
+    kernel on the path is deterministic."""
+    import json
+    import shutil
+
+    from chestxray_vit_tpu_torch.config import DataConfig
+    from chestxray_vit_tpu_torch.data.testing import build_fake_nih
+    from chestxray_vit_tpu_torch.train.trainer import Trainer
+
+    fake = build_fake_nih(num_images=40, image_size=96, seed=5)
+
+    def cfg(out, **kw):
+        return Config(
+            data=DataConfig(backend="memory", augment=True, num_workers=2),
+            model=ModelConfig(img_size=64, hidden_size=128, num_heads=2,
+                              num_layers=2, mlp_dim=256, remat=True),
+            train=TrainConfig(batch_size_per_core=8, max_steps=2,
+                              save_steps=1, eval_strategy="no",
+                              load_best_model_at_end=False, logging_steps=1,
+                              report_to="none", output_dir=str(out), **kw))
+
+    def losses(out):
+        with open(out / "metrics.jsonl") as f:
+            return [(r["step"], r["loss"]) for r in map(json.loads, f)
+                    if r["prefix"] == "train"]
+
+    first = Trainer(cfg(tmp_path / "a"), store=fake.store, pretrained=False)
+    first.train()
+    first.close()
+    assert next(first.state.params.parameters()).is_cuda
+    (tmp_path / "b" / "checkpoints").mkdir(parents=True)
+    shutil.copytree(tmp_path / "a" / "checkpoints" / "1",
+                    tmp_path / "b" / "checkpoints" / "1")
+    again = Trainer(cfg(tmp_path / "b", resume_from_checkpoint="1"),
+                    store=fake.store, pretrained=False)
+    again.train()
+    again.close()
+    assert losses(tmp_path / "b") == losses(tmp_path / "a")[1:]
+    for (n, p), q in zip(first.state.params.named_parameters(),
+                         again.state.params.parameters()):
+        assert torch.equal(p, q), n

@@ -27,6 +27,14 @@ MODULES = [
     "chestxray_vit_tpu_torch.data.decode",
     "chestxray_vit_tpu_torch.data.geometry",
     "chestxray_vit_tpu_torch.data.packing",
+    "chestxray_vit_tpu_torch.data.storage",
+    "chestxray_vit_tpu_torch.data.metadata",
+    "chestxray_vit_tpu_torch.data.pipeline",
+    "chestxray_vit_tpu_torch.data.testing",
+    "chestxray_vit_tpu_torch.utils.logging",
+    "chestxray_vit_tpu_torch.utils.tfevents",
+    "chestxray_vit_tpu_torch.utils.flops",
+    "chestxray_vit_tpu_torch.utils.profiling",
     "chestxray_vit_tpu_torch.ops.gelu",
     "chestxray_vit_tpu_torch.ops.layer_norm",
     "chestxray_vit_tpu_torch.ops.flash_attention",
@@ -40,8 +48,11 @@ MODULES = [
     "chestxray_vit_tpu_torch.models.quantized",
     "chestxray_vit_tpu_torch.models.packed",
     "chestxray_vit_tpu_torch.models.tome_forward",
+    "chestxray_vit_tpu_torch.models.export_hf",
     "chestxray_vit_tpu_torch.train.optimizer",
     "chestxray_vit_tpu_torch.train.steps",
+    "chestxray_vit_tpu_torch.train.checkpoint",
+    "chestxray_vit_tpu_torch.train.trainer",
     "chestxray_vit_tpu_torch.eval.metrics",
     "chestxray_vit_tpu_torch.serve.batcher",
     "chestxray_vit_tpu_torch.serve.attention_maps",
@@ -50,6 +61,14 @@ MODULES = [
     "chestxray_vit_tpu_torch.serve.server",
     "chip_smoke",
 ]
+# every module of the package with code (empty package markers are
+# imported with their modules)
+PACKAGE = sorted(
+    os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(
+        ".__init__")
+    for p in glob.glob(os.path.join(REPO, "chestxray_vit_tpu_torch", "**",
+                                    "*.py"), recursive=True)
+    if os.path.getsize(p))
 SOURCES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "chestxray_vit_tpu_torch", "**", "*.py"),
@@ -81,6 +100,12 @@ def imported():
                          text=True, cwd=REPO, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_every_module_of_the_port_is_walked():
+    """A module added to the package joins MODULES, so the fresh
+    interpreter imports it too."""
+    assert sorted(set(PACKAGE) - set(MODULES)) == []
 
 
 @pytest.mark.parametrize("module", MODULES)
