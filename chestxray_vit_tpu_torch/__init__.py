@@ -33,7 +33,13 @@ Ported so far, at ViT-B/16 @384:
 - the training run (``train.trainer.Trainer``: cadences, checkpoints with
   exact resume in ``train.checkpoint``, evaluate / predict / save_model),
   its host data layer (``data.pipeline``) and logging (``utils``), and
-  ``Predictor.from_model_dir`` for the model it saves.
+  ``Predictor.from_model_dir`` for the model it saves;
+- the packed training run (``train.packed_trainer.PackedTrainer``: the
+  token census, host-sharded packing streams, image-count cursors, the
+  packed eval);
+- data-parallel training of both trainers over ``torch.distributed``
+  (``parallel.distributed``, ``parallel.mesh``: one process per device
+  under ``torchrun``, NCCL on the card, gloo on the CPU).
 
 Importing the package imports no JAX, no Triton and loads no compiled
 library.
@@ -42,16 +48,20 @@ library.
 __version__ = "0.1.0"
 
 from chestxray_vit_tpu_torch.config import (  # noqa: F401
-    Config, DataConfig, ModelConfig, TrainConfig)
+    Config, DataConfig, MeshConfig, ModelConfig, TrainConfig)
 
 _LAZY = {
+    "Trainer": ("chestxray_vit_tpu_torch.train.trainer", "Trainer"),
+    "PackedTrainer": ("chestxray_vit_tpu_torch.train.packed_trainer",
+                      "PackedTrainer"),
+    "build_mesh": ("chestxray_vit_tpu_torch.parallel.mesh", "build_mesh"),
     "Predictor": ("chestxray_vit_tpu_torch.serve.inference", "Predictor"),
     "MicroBatcher": ("chestxray_vit_tpu_torch.serve.batcher", "MicroBatcher"),
 }
 
 
 def __getattr__(name):
-    """Lazy top-level serving API, as in the JAX package (keeps
+    """Lazy top-level API, as in the JAX package (keeps
     ``import chestxray_vit_tpu_torch`` light)."""
     if name in _LAZY:
         import importlib

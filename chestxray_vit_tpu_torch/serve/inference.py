@@ -98,7 +98,10 @@ class Predictor:
 
     :meth:`from_model_dir` loads a ``Trainer.save_model()`` directory.
 
-    Not ported yet, and refused: ``data_parallel``.
+    Not ported yet, and refused: ``data_parallel`` (one process serving
+    over several cards; ROADMAP Queue 1 #8). Training is data-parallel
+    across processes (``parallel/distributed.py``); serving stays one
+    process on one device.
     """
 
     def __init__(self, params: vit.ViT, cfg: ModelConfig,

@@ -27,6 +27,12 @@ metric counts as missing; with no more saves than the limit every save is
 kept, as orbax's ``BestN`` keeps them); without it, the latest
 ``save_total_limit`` saves.
 
+Across processes (data parallelism) every rank keeps the index, so every
+rank ranks the saves alike, but only the primary (``primary=True``)
+copies and writes the state; the others record the save's step and
+metrics. The trainer passes a barrier after ``wait`` and before a
+restore, so the files the others read are whole.
+
 ``gs://`` directories wait for the GCS checkpoints of ROADMAP Queue 1 #6.
 """
 
@@ -90,12 +96,14 @@ class CheckpointManager:
     ``metric_for_best`` + ``greater_is_better`` give HF's
     ``load_best_model_at_end`` semantics: :meth:`best_step` answers which
     save to restore at the end. Saves already in the directory (a resumed
-    run's) are indexed at construction."""
+    run's) are indexed at construction. ``primary=False`` indexes saves
+    without writing them (another process writes)."""
 
     def __init__(self, directory: str, save_total_limit: int = 2,
                  metric_for_best: Optional[str] = "avg_auroc",
-                 greater_is_better: bool = True):
+                 greater_is_better: bool = True, primary: bool = True):
         self.directory = _local(directory)
+        self.primary = primary
         os.makedirs(self.directory, exist_ok=True)
         self.save_total_limit = save_total_limit
         self.metric_for_best = metric_for_best
@@ -154,6 +162,12 @@ class CheckpointManager:
                  if math.isfinite(float(v))}
         meta = {"cursor": (cursor or DataCursor()).to_dict(),
                 "extra": extra or {}, "metrics": clean or None}
+        if not self.primary:
+            with self._lock:
+                self._index[step] = meta["metrics"]
+                for s in self._to_remove():
+                    del self._index[s]
+            return
         with torch.no_grad():
             snapshot = {
                 "step": int(state.step),

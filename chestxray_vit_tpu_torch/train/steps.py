@@ -29,6 +29,14 @@ The packed step (``make_packed_train_step``) runs the packed forward of
 ``model.tome_r`` is set) under the same optimizer stack, with the loss's
 numerator and denominator accumulated apart.
 
+In a process group (``parallel/distributed.py``) both train steps sum the
+gradients over the ranks in one all-reduce after the backward and before
+the clip, so the clip and AdamW see the global gradient. The dense step
+then divides by the world size (the ranks' batches are equal, so that is
+the global batch's mean); the packed step sums its loss's numerator and
+denominator in the same all-reduce and divides by the global denominator,
+since ranks pack unequal numbers of real images.
+
 Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
 int8 straight-through train forward (``int8_scales``).
 """
@@ -46,6 +54,7 @@ from chestxray_vit_tpu_torch.models import packed as packed_model
 from chestxray_vit_tpu_torch.models import quantized as quantized_mod
 from chestxray_vit_tpu_torch.models import tome_forward, vit
 from chestxray_vit_tpu_torch.ops.preprocess import prepare_pixel_values
+from chestxray_vit_tpu_torch.parallel import distributed as dist
 from chestxray_vit_tpu_torch.train import optimizer as opt
 
 Batch = Dict[str, torch.Tensor]
@@ -227,6 +236,8 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None
         if len(draws) != accum:
             raise ValueError(f"{len(draws)} draws for {accum} micro-batches")
         loss = grads_of(state.params, batch, draws)
+        # the global mean over equal local batches; no-op without a group
+        (loss,) = dist.all_reduce_grads(state.params, loss, average=True)
         return _update(state, loss, schedule, adamw_cfg)
 
     return train_step
@@ -312,9 +323,9 @@ def make_packed_train_step(cfg: Config, total_steps: int,
         """Loss, with the gradients left in ``.grad``. With accumulation
         the batch carries accum × batch_seqs sequences, split strided as
         the dense step splits it. The numerators' gradients add up in
-        ``.grad`` and are divided once by the summed denominator, so the
-        result equals one big batch even when micro-batches pack unequal
-        real-image counts."""
+        ``.grad`` (and over the ranks) and are divided once by the summed
+        denominator, so the result equals one big batch even when
+        micro-batches or ranks pack unequal real-image counts."""
         for p in params.parameters():
             p.grad = None
         num_sum = den_sum = None
@@ -326,12 +337,15 @@ def make_packed_train_step(cfg: Config, total_steps: int,
             num, den = num.detach(), den.detach()
             num_sum = num if num_sum is None else num_sum + num
             den_sum = den if den_sum is None else den_sum + den
-        d = den_sum.clamp_min(1.0)
         for p in params.parameters():
             if p.grad is None:      # the CLS token: pooled readout instead
                 p.grad = torch.zeros_like(p)
-            else:
-                p.grad.div_(d)
+        # the sums over the ranks before the division: ranks pack unequal
+        # real-image counts, so only Σnum / Σden is the global batch's loss
+        num_sum, den_sum = dist.all_reduce_grads(params, num_sum, den_sum)
+        d = den_sum.clamp_min(1.0)
+        for p in params.parameters():
+            p.grad.div_(d)
         return num_sum / d
 
     def train_step(state: TrainState, batch: Batch,

@@ -17,10 +17,22 @@ the step (``data/pipeline.py``). The step is ``train/steps.py``'s, so the
 Trainer runs the port's kernels on the card and their plain twins on the
 CPU.
 
+Data parallelism: started under ``torchrun --nproc_per_node N`` (after
+``parallel.distributed.initialize()``), N processes share each global
+batch of ``batch_size_per_core × N × accumulation`` samples. Each decodes
+only its slice (``host_batch_slice``), the step sums the gradients over
+the ranks before the clip, and eval gathers the logits, row losses and
+labels, so every rank computes the same metrics and makes the same
+best-model decision. The primary rank writes ``metrics.jsonl``,
+TensorBoard, the checkpoints, ``trainer_state.json`` and the saved model;
+the others log to ``metrics.rank{N}.jsonl``. A preemption stop is agreed
+on the sync cadence, so every rank stops at the same step.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-a mesh or process count beyond one device (Queue 1 #8), ``pretrained=True``
-(``import_hf``, #6), the ``hf_dataset`` backend (#12), and ``gs://``
-checkpoint directories (#6).
+``fsdp`` / ``tensor`` / ``dcn_data`` mesh axes (Queue 1 #12), one process
+driving several devices (#8), attention dropout, hidden dropout and mixup
+across processes (#14), ``pretrained=True`` (``import_hf``, #6), the
+``hf_dataset`` backend (#12), and ``gs://`` checkpoint directories (#6).
 """
 
 from __future__ import annotations
@@ -45,6 +57,8 @@ from chestxray_vit_tpu_torch.models import quantized as qmod
 from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.models.export_hf import write_preprocessor_config
 from chestxray_vit_tpu_torch.ops.preprocess import prepare_pixel_values
+from chestxray_vit_tpu_torch.parallel import distributed as dist
+from chestxray_vit_tpu_torch.parallel import mesh as mesh_lib
 from chestxray_vit_tpu_torch.train import checkpoint as ckpt
 from chestxray_vit_tpu_torch.train import steps as S
 from chestxray_vit_tpu_torch.utils import flops as F
@@ -85,13 +99,19 @@ def merged_floor_hint(history, step, total_steps, tome_r, warmup_steps,
             f"the takeoff window, then merge.")
 
 
-def _check_single_device(cfg: Config) -> None:
-    m = cfg.mesh
-    if (m.data not in (-1, 1) or m.fsdp != 1 or m.tensor != 1
-            or m.dcn_data != 1):
+def _check_data_parallel(cfg: Config, world: int) -> None:
+    """Across processes, refuse what would draw the same random numbers
+    on every rank or pair rows across the ranks' slices: the attention
+    dropout counter restarts at each rank's row 0, hidden dropout draws
+    from a generator every rank holds in one state, and mixup's partner
+    is the batch rolled by one."""
+    m = cfg.model
+    if world > 1 and (m.attention_dropout > 0 or m.hidden_dropout > 0
+                      or cfg.data.mixup_alpha > 0):
         raise _not_ported(
-            f"a mesh beyond one device (data={m.data}, fsdp={m.fsdp}, "
-            f"tensor={m.tensor}, dcn_data={m.dcn_data})", "#8")
+            f"attention_dropout={m.attention_dropout}, hidden_dropout="
+            f"{m.hidden_dropout} and mixup_alpha={cfg.data.mixup_alpha} "
+            f"across {world} processes", "#14")
 
 
 class Trainer:
@@ -104,7 +124,9 @@ class Trainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') but no CUDA device "
                                "is available")
-        _check_single_device(cfg)
+        self.mesh = mesh_lib.build_mesh(cfg.mesh)
+        self._world = mesh_lib.dp_size(self.mesh)
+        _check_data_parallel(cfg, self._world)
         if pretrained:
             raise _not_ported("pretrained=True (the HF weight import, "
                               "models/import_hf.py)", "#6")
@@ -131,11 +153,13 @@ class Trainer:
             cfg.train.seed), cfg.model, device=self.device)
         self.state = S.TrainState.create(params, cfg.train.seed)
 
-        # loader batch = micro-batch x accumulation steps (one optimizer
-        # update consumes the whole of it)
-        self.global_batch = (cfg.train.batch_size_per_core
-                             * max(cfg.train.gradient_accumulation_steps, 1))
-        self.eval_batch = cfg.train.eval_batch_size
+        # loader batch = micro-batch x processes x accumulation steps (one
+        # optimizer update consumes the whole of it; each process loads its
+        # slice)
+        self.global_batch = (mesh_lib.local_batch_to_global(
+            cfg.train.batch_size_per_core, self.mesh)
+            * max(cfg.train.gradient_accumulation_steps, 1))
+        self.eval_batch = cfg.train.eval_batch_size * self._world
 
         self.steps_per_epoch = max(
             len(self.bundle.train) // self.global_batch, 1)
@@ -143,17 +167,26 @@ class Trainer:
                             or int(math.ceil(self.steps_per_epoch
                                              * cfg.train.num_epochs)))
 
+        # merged_floor_hint: eval-metric history and the emitted-once latch
+        self._auroc_history: list = []
+        self._floor_hint_done = False
         self._build_steps()
 
         out_dir = os.path.expanduser(cfg.train.output_dir)
-        self.logger = MetricLogger(out_dir, cfg.train.report_to)
+        # one logical log: the other ranks keep their own jsonl only
+        primary = dist.is_primary()
+        self.logger = MetricLogger(
+            out_dir, cfg.train.report_to if primary else "none",
+            jsonl_name=("metrics.jsonl" if primary
+                        else f"metrics.rank{dist.rank()}.jsonl"))
         self.profiler = StepProfiler(out_dir, cfg.train.profile_steps)
         self.ckpt = ckpt.CheckpointManager(
             os.path.join(out_dir, "checkpoints"),
             save_total_limit=cfg.train.save_total_limit,
             metric_for_best=(cfg.train.metric_for_best_model
                              if cfg.train.load_best_model_at_end else None),
-            greater_is_better=cfg.train.greater_is_better)
+            greater_is_better=cfg.train.greater_is_better,
+            primary=primary)
         self._meter = ThroughputMeter()
         # live MFU accounting (utils/flops) against the card's bf16 peak;
         # none on the CPU
@@ -192,9 +225,6 @@ class Trainer:
                 f"AND evaluates with its own r; leave eval_tome_r unset "
                 f"(or equal) and use eval_quantize to accelerate")
         self._warmup_step = self._build_tome_warmup_step()
-        # merged_floor_hint: eval-metric history and the emitted-once latch
-        self._auroc_history: list = []
-        self._floor_hint_done = False
 
     def _maybe_floor_hint(self, step: int) -> None:
         """Track eval avg_auroc and emit merged_floor_hint's guidance at
@@ -203,7 +233,7 @@ class Trainer:
         if v is None or not math.isfinite(float(v)):
             return
         self._auroc_history.append((step, float(v)))
-        if self._floor_hint_done:
+        if self._floor_hint_done or not dist.is_primary():
             return
         hint = merged_floor_hint(
             self._auroc_history, step, self.total_steps,
@@ -273,6 +303,11 @@ class Trainer:
             images = prepare_pixel_values(
                 placed, out_size=self.cfg.model.img_size,
                 mean=self.cfg.data.image_mean, std=self.cfg.data.image_std)
+            if self._world > 1:
+                # calibrate on the global batch, as one process would: scales
+                # of each rank's slice would give the ranks other int8 trees
+                images = torch.from_numpy(
+                    dist.process_allgather(images)).to(self.device)
             scales = qmod.calibrate_vit_scales(self.state.params, images,
                                                self.cfg.model)
         qparams = qmod.quantize_vit_params(self.state.params, scales)
@@ -303,7 +338,9 @@ class Trainer:
             num_workers=self.cfg.data.num_workers,
             prefetch_batches=self.cfg.data.prefetch_depth,
             drop_last=True,
-            skip_batches=skip)   # resume skips before any fetch/decode
+            skip_batches=skip,   # resume skips before any fetch/decode
+            # across processes each decodes only its slice
+            host_range=dist.host_batch_slice(self.global_batch))
 
     # ------------------------------------------------------------------
     # train
@@ -350,7 +387,11 @@ class Trainer:
         if cfg.resume_from_checkpoint:
             step = (None if cfg.resume_from_checkpoint == "auto"
                     else int(cfg.resume_from_checkpoint))
+            dist.barrier("checkpoint written")
             self.state, cursor, _ = self.ckpt.restore(step, self.state)
+            # subclasses with richer cursors (the packed per-process image
+            # counts) read the whole of it from here
+            self._restored_cursor = cursor
             print(f"[trainer] resumed at step {int(self.state.step)} "
                   f"(epoch {cursor.epoch}, batch {cursor.batch_in_epoch})")
 
@@ -420,7 +461,8 @@ class Trainer:
                             "images_per_sec": ips,
                         }
                         if self._chip_peak is not None:
-                            record["mfu"] = (ips * self._flops_per_image
+                            record["mfu"] = (ips / self._world
+                                             * self._flops_per_image
                                              / self._chip_peak)
                         self.logger.log(step, record,
                                         progress=self._progress_text(step,
@@ -441,7 +483,14 @@ class Trainer:
                         done = True
                         epoch_exhausted = False
                         break
-                    if self._stop_requested:
+                    # saves gather across processes, so the stop is agreed
+                    # on the sync cadence: a signal lands on the ranks at
+                    # different steps, and every rank must stop at one
+                    stop = self._stop_requested
+                    if self._world > 1:
+                        stop = (step % sync_every == 0
+                                and dist.agree_flag(stop))
+                    if stop:
                         # preemption: persist the exact cursor, so
                         # resume_from_checkpoint=auto continues mid-epoch
                         self._save(step, epoch, batch_idx)
@@ -472,6 +521,7 @@ class Trainer:
 
         self.profiler.stop_if_active()
         self.ckpt.wait()
+        dist.barrier("checkpoints written")
 
         if cfg.load_best_model_at_end and self.ckpt.all_steps():
             best = self.ckpt.best_step() or self.ckpt.latest_step()
@@ -535,8 +585,9 @@ class Trainer:
                 loader, self.eval_batch,
                 num_workers=self.cfg.data.num_workers,
                 prefetch_batches=self.cfg.data.prefetch_depth,
-                pad_last=True):
-            n_valid = int(batch.pop("num_valid"))
+                pad_last=True,
+                host_range=dist.host_batch_slice(self.eval_batch)):
+            n_valid = int(batch.pop("num_valid"))     # of the global batch
             placed = pipe.to_device(batch, self.device)
             if qstep is None and (self.cfg.train.eval_quantize
                                   or self.cfg.train.eval_tome_r):
@@ -544,11 +595,14 @@ class Trainer:
             logits, row_loss = (
                 qstep(qparams, placed) if qstep is not None
                 else self._eval_step(self.state.params, placed))
-            logits = logits[:n_valid].cpu().numpy()
-            total_elem_loss += float(np.sum(row_loss[:n_valid].cpu().numpy()))
+            # every rank gathers the global batch's rows, in rank order
+            logits = dist.process_allgather(logits)[:n_valid]
+            row_loss = dist.process_allgather(row_loss)[:n_valid]
+            total_elem_loss += float(np.sum(row_loss))
             total_n += n_valid
             logits_all.append(logits)
-            labels_all.append(batch["labels"][:n_valid])
+            labels_all.append(
+                dist.process_allgather(batch["labels"])[:n_valid])
         c = max(self.cfg.model.num_classes, 1)
         return (np.concatenate(logits_all), np.concatenate(labels_all),
                 total_elem_loss / max(total_n * c, 1))
@@ -591,8 +645,11 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def save_model(self, directory: Optional[str] = None) -> None:
+        """Write the model directory (the primary rank only)."""
         directory = directory or os.path.join(
             os.path.expanduser(self.cfg.train.output_dir), "model")
+        if not dist.is_primary():
+            return
         ckpt.save_model(directory, self.state.params, self.cfg.to_json(),
                         self.bundle.classes)
         # HF's Trainer(tokenizer=processor).save_model() also writes the
@@ -605,9 +662,12 @@ class Trainer:
     def save_state(self, path: Optional[str] = None) -> str:
         """HF's ``trainer.save_state()``: write ``trainer_state.json`` —
         global step, epoch, best metric and checkpoint, and the log history
-        replayed from metrics.jsonl — in HF's shape."""
+        replayed from metrics.jsonl — in HF's shape. The primary rank
+        writes it; the others return the path."""
         out_dir = os.path.expanduser(self.cfg.train.output_dir)
         path = path or os.path.join(out_dir, "trainer_state.json")
+        if not dist.is_primary():
+            return path
         history = []
         jsonl = os.path.join(self.logger.output_dir, "metrics.jsonl")
         if os.path.exists(jsonl):

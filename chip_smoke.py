@@ -3,8 +3,10 @@ fine-tune step (dense, and with attention dropout, hidden dropout and
 mixup), the eval step, packed variable-resolution training (with and
 without within-segment token merging), token merging on the dense
 forward (training, serving and eval), the remat policies, the fused Q/K/V
-projection, attention maps, and the Trainer entry point (a training run
-with checkpoints, exact resume and the saved model served).
+projection, attention maps, the Trainer entry point (a training run
+with checkpoints, exact resume and the saved model served), the
+PackedTrainer (a packed run with its census, image-count cursor and exact
+resume), and the data-parallel path in an NCCL group of one process.
 
     python3 chip_smoke.py
 
@@ -144,6 +146,26 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    each step's wall time, the host's ms a batch alone, the card's idle
    share over three steady steps, peak memory, the checkpoint's bytes
    and write seconds, evaluate() ms.
+26. packed_trainer: ``PackedTrainer`` at full width (bf16, full remat, 32
+   sequences of 1152 tokens a step, grids 16 / 24 / 32, random weights)
+   over a fake bucket of 360 images (a third each at 256, 384 and 512 px,
+   memory store): 12 steps, eval and a checkpoint every 6, the best one
+   restored, evaluate(); a second PackedTrainer resumed from step 6 gives
+   steps 7-12, the eval metric and the step-12 checkpoint with its
+   image-count cursor bit for bit; exactly 24 segment forwards and 12
+   segment backwards a step, 12 segment forwards an eval batch, no dense
+   attention. Beside phase 14's bare packed step: the census's
+   steps_per_epoch and the full batches each epoch packs, tokens/s and
+   images/s over three steady steps, the pad share, the host's ms to pack
+   a batch alone, the census's seconds, the card's idle share, checkpoint
+   bytes and seconds, evaluate() ms, peak memory.
+27. ddp_world1: 3 steps of the dense Trainer (b36) and 3 of the
+   PackedTrainer without a process group, then the same in an NCCL group
+   of one process (``parallel.distributed.initialize`` on tcp://127.0.0.1,
+   a free port): losses, grad norms and the parameters after step 3 equal
+   bit for bit, exactly one all-reduce a step (the gradients with the
+   loss, or with the packed loss's numerator and denominator), the group
+   torn down.
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -379,6 +401,14 @@ TRAINER_STEPS, TRAINER_EVERY = 12, 6
 # or save (after 6 and 12) among them
 TRAINER_PROFILE = (2, 4)
 TRAINER_METER_WINDOW = 4
+# phase 26 (packed_trainer): the variable-resolution bucket (a third each
+# at 256, 384 and 512 px), the packed run and its cadences
+PACKED_TRAINER_IMAGES = 360
+PACKED_TRAINER_SEQ_LEN, PACKED_TRAINER_GRIDS = 1152, (16, 24, 32)
+PACKED_TRAINER_SEQS = 32
+PACKED_TRAINER_STEPS, PACKED_TRAINER_EVERY = 12, 6
+# phase 27 (ddp_world1): steps of each trainer, without and with the group
+DDP_STEPS = 3
 
 
 def emit(obj: dict) -> None:
@@ -2792,16 +2822,16 @@ class StepClock:
 
 def _trainer_config(out_dir: str, **train):
     import chestxray_vit_tpu_torch as cxr
+    kw = dict(batch_size_per_core=TRAIN_BATCH, max_steps=TRAINER_STEPS,
+              eval_steps=TRAINER_EVERY, save_steps=TRAINER_EVERY,
+              save_total_limit=2, load_best_model_at_end=True,
+              logging_steps=1, report_to="tensorboard", output_dir=out_dir)
+    kw.update(train)
     return cxr.Config(
         data=cxr.DataConfig(backend="memory", augment=True,
                             preprocess_placement="host"),
         model=cxr.ModelConfig(remat=True),      # ViT-B/16 @384 bf16, full
-        train=cxr.TrainConfig(
-            batch_size_per_core=TRAIN_BATCH, max_steps=TRAINER_STEPS,
-            eval_steps=TRAINER_EVERY, save_steps=TRAINER_EVERY,
-            save_total_limit=2, load_best_model_at_end=True,
-            logging_steps=1, report_to="tensorboard", output_dir=out_dir,
-            **train))
+        train=cxr.TrainConfig(**kw))
 
 
 def _logged(out_dir: str, prefix: str = "train", key: str = "loss") -> list:
@@ -3029,6 +3059,379 @@ def phase_trainer(dense_rec: dict) -> dict:
     return launches
 
 
+def varres_bucket():
+    """The fake NIH bucket of phases 26-27: PACKED_TRAINER_IMAGES images of
+    512 px, a third rewritten at 256 px and a third at 384 px (grids 16, 24
+    and 32 of ViT-B/16: 256, 576 and 1024 tokens), as
+    ``tests/test_packed_trainer.py`` does at its small size; and the seconds
+    it took to make."""
+    import io
+
+    from PIL import Image
+
+    from chestxray_vit_tpu_torch.data.testing import build_fake_nih
+
+    t0 = time.perf_counter()
+    fake = build_fake_nih(num_images=PACKED_TRAINER_IMAGES, image_size=512,
+                          seed=23)
+    rng = np.random.default_rng(0)
+    for i, name in enumerate(fake.image_names):
+        size = (256, 384, 512)[i % 3]
+        if size == 512:
+            continue
+        key = f"images_{(i % 12) + 1:03d}/images/{name}"
+        require(fake.store.exists(key), f"varres bucket: {key} exists")
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 255, (size, size), np.uint8),
+                        "L").save(buf, format="PNG")
+        fake.store.put(key, buf.getvalue())
+    return fake, time.perf_counter() - t0
+
+
+def _packed_trainer_config(out_dir: str, **train):
+    import chestxray_vit_tpu_torch as cxr
+    kw = dict(max_steps=PACKED_TRAINER_STEPS,
+              eval_steps=PACKED_TRAINER_EVERY,
+              save_steps=PACKED_TRAINER_EVERY, save_total_limit=2,
+              load_best_model_at_end=True, logging_steps=1,
+              report_to="none", output_dir=out_dir)
+    kw.update(train)
+    return cxr.Config(data=cxr.DataConfig(backend="memory"),
+                      model=cxr.ModelConfig(remat=True),   # ViT-B/16, bf16
+                      train=cxr.TrainConfig(**kw))
+
+
+def _packed_trainer(cfg, fake):
+    from chestxray_vit_tpu_torch.train.packed_trainer import PackedTrainer
+    return PackedTrainer(cfg, seq_len=PACKED_TRAINER_SEQ_LEN,
+                         grids=PACKED_TRAINER_GRIDS,
+                         batch_seqs=PACKED_TRAINER_SEQS, store=fake.store,
+                         pretrained=False)
+
+
+def packed_epochs(tr, steps: int) -> list:
+    """The host alone, through the PackedTrainer's own packer, for the
+    epochs that ``steps`` steps reach: per epoch the full batches it packs,
+    their images and pad share, and the ms a batch takes to pack (decode,
+    resize, patchify, pack)."""
+    out, epoch = [], 0
+    while sum(e["full_batches"] for e in out) < steps:
+        t0 = time.perf_counter()
+        full = images = pad = 0
+        n = 0
+        for b in tr._packed_iter(tr.bundle.train, epoch,
+                                 batch_seqs=tr._local_step_seqs):
+            n += 1
+            if int(b["n_seqs"]) == tr._local_step_seqs:
+                full += 1
+                images += int(b["n_images"])
+                pad += float((b["segment_ids"] < 0).mean())
+        require(full > 0, f"packed_trainer: epoch {epoch} packs a batch")
+        out.append({"epoch": epoch, "full_batches": full,
+                    "images": images, "pad_share": pad / full,
+                    "host_batch_ms": 1e3 * (time.perf_counter() - t0) / n})
+        epoch += 1
+    return out
+
+
+def phase_packed_trainer(fake, fake_s: float, packed_rec: dict) -> dict:
+    """The PackedTrainer entry point on the card (ViT-B/16 @384 bf16, full
+    remat, PACKED_TRAINER_SEQS sequences of 1152 tokens a step, grids 16,
+    24 and 32) over the variable-resolution bucket: PACKED_TRAINER_STEPS
+    steps with eval and a checkpoint every PACKED_TRAINER_EVERY, the best
+    one restored, evaluate(); then a second PackedTrainer resumed from the
+    step-6 checkpoint in a fresh directory, whose losses, eval metric and
+    step-12 checkpoint (the image-count cursor included) equal the first
+    run's bit for bit. Exact launches: 24 segment forwards and 12 segment
+    backwards a step, the eval forwards' 12, no dense attention. Reports
+    the census's steps_per_epoch beside the full batches each epoch
+    packed, tokens/s and images/s beside phase 14's bare packed step, the
+    pad share, the host's ms to pack a batch alone, the census's seconds,
+    the card's idle share over three steady steps, checkpoint bytes and
+    seconds, evaluate() ms, peak memory. Returns the launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from chestxray_vit_tpu_torch.data import packing as pk
+    from chestxray_vit_tpu_torch.utils.logging import ThroughputMeter
+
+    rec = {"phase": "packed_trainer", "images": PACKED_TRAINER_IMAGES,
+           "image_px": [256, 384, 512], "seq_len": PACKED_TRAINER_SEQ_LEN,
+           "batch_seqs": PACKED_TRAINER_SEQS,
+           "steps": PACKED_TRAINER_STEPS, "fake_bucket_s": fake_s,
+           "bare_step": {k: packed_rec[k] for k in (
+               "images_per_s", "tokens_per_s", "step_ms", "pad_share")}}
+    with tempfile.TemporaryDirectory(prefix="cxr_packed_") as tmp:
+        out_a, out_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        t0 = time.perf_counter()
+        tr = _packed_trainer(_packed_trainer_config(out_a), fake)
+        rec["init_s"] = time.perf_counter() - t0
+        cfg = tr.cfg
+        t0 = time.perf_counter()
+        pk.sample_token_counts(tr.bundle.train, tr.bundle.blob_map,
+                               tr.bundle.store, patch=cfg.model.patch_size,
+                               grids=PACKED_TRAINER_GRIDS, sample=128,
+                               num_workers=cfg.data.num_workers)
+        rec["census_s"] = time.perf_counter() - t0
+        spe = tr.steps_per_epoch
+        epochs = packed_epochs(tr, PACKED_TRAINER_STEPS)
+        rec.update(train_images=len(tr.bundle.train),
+                   val_images=len(tr.bundle.val), steps_per_epoch=spe,
+                   epochs_packed=epochs,
+                   host_batch_ms=statistics.median(
+                       e["host_batch_ms"] for e in epochs),
+                   pad_share=statistics.mean(e["pad_share"] for e in epochs),
+                   host_workers=cfg.data.num_workers)
+        # the steps after which the loop leaves the steady state: an epoch
+        # boundary (each epoch runs to the full batches it packs), an eval
+        # and a save; the idle share is read over three steps before none
+        bounds = set(np.cumsum([e["full_batches"] for e in epochs]).tolist())
+        bounds |= set(range(PACKED_TRAINER_EVERY, PACKED_TRAINER_STEPS + 1,
+                            PACKED_TRAINER_EVERY))
+        first = next((a for a in range(2, PACKED_TRAINER_STEPS - 2)
+                      if not bounds & {a, a + 1, a + 2}), None)
+        require(first is not None,
+                f"packed_trainer: three steady steps among {sorted(bounds)}")
+        window = (first, first + 2)
+        tr._meter = ThroughputMeter(window=TRAINER_METER_WINDOW)
+        clock = StepClock(tr._train_step, os.path.join(tmp, "idle.json"),
+                          window)
+        images = []
+
+        def step(state, batch):
+            images.append(int(batch["image_mask"].sum()))
+            return clock(state, batch)
+
+        tr._train_step = step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result, log_a = _quiet(tr.train)
+        torch.cuda.synchronize()
+        rec["train_wall_s"] = time.perf_counter() - t0
+        rec["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        losses = _logged(out_a)
+        rec["losses"] = [v for _, v in losses]
+        rec["images_per_step"] = images
+        ms = clock.step_ms()
+        rec["step_ms"] = ms
+        steady = [ms[s] for s in range(window[0], window[1] + 1)]
+        steady_ms = statistics.median(steady)
+        steady_images = statistics.mean(images[s - 1] for s in range(
+            window[0], window[1] + 1))
+        rec.update(clock.profiled())
+        rec["steady_step_ms"] = steady_ms
+        rec["tokens_per_s"] = (PACKED_TRAINER_SEQS * PACKED_TRAINER_SEQ_LEN
+                               / (steady_ms / 1e3))
+        rec["images_per_s"] = steady_images / (steady_ms / 1e3)
+        rec["run_images_per_s"] = sum(images) / rec["train_wall_s"]
+        rec["checkpoint_save"] = tr.ckpt.last_save
+        require(result["train_steps"] == PACKED_TRAINER_STEPS
+                and [s for s, _ in losses] == list(
+                    range(1, PACKED_TRAINER_STEPS + 1))
+                and all(np.isfinite(v) for _, v in losses),
+                f"packed_trainer: {PACKED_TRAINER_STEPS} steps, every loss "
+                f"finite: {losses}")
+        ckdir = os.path.join(out_a, "checkpoints")
+        saves = sorted(os.listdir(ckdir), key=int)
+        metas = {}
+        for s in saves:
+            with open(os.path.join(ckdir, s, "meta.json")) as f:
+                metas[s] = json.load(f)
+        evals = dict(_logged(out_a, "eval", "avg_auroc"))
+        rec.update(saves=saves, eval_avg_auroc=evals,
+                   cursors={s: m["cursor"] for s, m in metas.items()},
+                   best_step=tr.ckpt.best_step())
+        require(saves == [str(PACKED_TRAINER_EVERY),
+                          str(PACKED_TRAINER_STEPS)]
+                and all(m["metrics"]["avg_auroc"] == evals[int(s)]
+                        for s, m in metas.items()),
+                f"packed_trainer: saves {saves} carry their eval metrics")
+        require(tr.state.step == tr.ckpt.best_step()
+                and "loaded best checkpoint" in log_a,
+                "packed_trainer: the best checkpoint restored")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = tr.evaluate()
+        torch.cuda.synchronize()
+        rec["evaluate_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["evaluate"] = {k: ev[k] for k in ("avg_auroc", "f1_micro",
+                                              "eval_loss")}
+        require(all(np.isfinite(v) for v in rec["evaluate"].values()),
+                f"packed_trainer: evaluate() finite: {rec['evaluate']}")
+        eval_batches = sum(1 for _ in tr._packed_iter(
+            tr.bundle.val, 0, batch_seqs=PACKED_TRAINER_SEQS, shuffle=False))
+        best_a = tr.ckpt.best_step()
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+
+        # exact resume: the step-6 checkpoint in a fresh directory
+        os.makedirs(os.path.join(out_b, "checkpoints"))
+        shutil.copytree(os.path.join(ckdir, str(PACKED_TRAINER_EVERY)),
+                        os.path.join(out_b, "checkpoints",
+                                     str(PACKED_TRAINER_EVERY)))
+        tr_b = _packed_trainer(_packed_trainer_config(
+            out_b, resume_from_checkpoint=str(PACKED_TRAINER_EVERY)), fake)
+        _quiet(tr_b.train)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        resumed = _logged(out_b)
+        rec["resumed_losses"] = [v for _, v in resumed]
+        require(resumed == losses[PACKED_TRAINER_EVERY:],
+                f"packed_trainer: resumed losses equal bit for bit: "
+                f"{resumed} {losses[PACKED_TRAINER_EVERY:]}")
+        require(_logged(out_b, "eval", "avg_auroc") == [
+            (PACKED_TRAINER_STEPS, evals[PACKED_TRAINER_STEPS])]
+            and tr_b.ckpt.best_step() == best_a,
+            "packed_trainer: resumed eval metric and best step equal")
+        last = str(PACKED_TRAINER_STEPS)
+        with open(os.path.join(out_b, "checkpoints", last, "meta.json")) as f:
+            cursor_b = json.load(f)["cursor"]
+        sa, sb = (torch.load(os.path.join(o, "checkpoints", last,
+                                          "state.pt"), weights_only=True)
+                  for o in (out_a, out_b))
+        same = all(torch.equal(sa[k][n], sb[k][n])
+                   for k in ("params", "mu", "nu") for n in sa[k])
+        require(same and sa["step"] == sb["step"] == PACKED_TRAINER_STEPS
+                and cursor_b == metas[last]["cursor"],
+                f"packed_trainer: the resumed step-12 checkpoint and cursor "
+                f"equal the uninterrupted ones bit for bit: {cursor_b} "
+                f"{metas[last]['cursor']}")
+        del sa, sb
+        tr_b.close()
+        del tr_b
+        torch.cuda.empty_cache()
+    rec["launches"] = launches
+    emit(rec)
+    # train steps: 12 in the first run, 6 resumed; eval forwards: the
+    # cadence evals (2 + 1) and evaluate(), eval_batches each
+    steps = PACKED_TRAINER_STEPS + PACKED_TRAINER_EVERY
+    forwards = 4 * eval_batches
+    per_step = packed_launches_per_step(12, dropout=False)
+    want = {k: steps * v for k, v in per_step.items()}
+    want["flash_attention_packed_fwd"] += 12 * forwards
+    want["layer_norm"] += 25 * forwards
+    require(launches == want,
+            f"packed_trainer: launches {launches}, expected {want}")
+    return launches
+
+
+def phase_ddp_world1(fake) -> dict:
+    """The data-parallel path on the one card: DDP_STEPS steps of the
+    dense Trainer (batch 36) and of the PackedTrainer, first without a
+    process group, then in an NCCL group of one process
+    (``parallel.distributed.initialize`` at tcp://127.0.0.1 on a free
+    port), where every step sums its gradients (and its loss, or the packed
+    loss's numerator and denominator) in one all-reduce. The two runs'
+    losses, grad norms and parameters after the last step must be equal bit
+    for bit, with exactly one all-reduce a step. The group is torn down at
+    the end. Returns the launches of the four runs."""
+    import os
+    import socket
+    import tempfile
+
+    import torch.distributed as td
+
+    from chestxray_vit_tpu_torch.parallel import distributed as dist
+    from chestxray_vit_tpu_torch.train.trainer import Trainer
+
+    def dense(out):
+        cfg = _trainer_config(out, max_steps=DDP_STEPS, eval_strategy="no",
+                              save_strategy="no",
+                              load_best_model_at_end=False,
+                              report_to="none")
+        return Trainer(cfg, store=fake.store, pretrained=False)
+
+    def packed(out):
+        return _packed_trainer(_packed_trainer_config(
+            out, max_steps=DDP_STEPS, eval_strategy="no",
+            save_strategy="no", load_best_model_at_end=False), fake)
+
+    def run(make, out):
+        tr = make(out)
+        t0 = time.perf_counter()
+        _quiet(tr.train)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"losses": [v for _, v in _logged(out)],
+               "grad_norms": [v for _, v in _logged(out, key="grad_norm")],
+               "params": {n: p.detach().clone()
+                          for n, p in tr.state.params.named_parameters()},
+               "wall_s": wall}
+        tr.close()
+        return got
+
+    rec = {"phase": "ddp_world1", "steps": DDP_STEPS}
+    calls = []
+    real_all_reduce = td.all_reduce
+
+    def counting(tensor, *a, **kw):
+        calls.append(tensor.numel())
+        return real_all_reduce(tensor, *a, **kw)
+
+    runs = {}
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="cxr_ddp_") as tmp:
+        for mode in ("alone", "group"):
+            if mode == "group":
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", 0))
+                    port = s.getsockname()[1]
+                t0 = time.perf_counter()
+                device = dist.initialize(f"tcp://127.0.0.1:{port}", 1, 0,
+                                         device="cuda")
+                rec["init_s"] = time.perf_counter() - t0
+                rec["backend"] = td.get_backend()
+                require(dist.is_initialized() and dist.world() == 1
+                        and device == torch.device("cuda", 0)
+                        and rec["backend"] == "nccl",
+                        f"ddp_world1: an NCCL group of one on {device}")
+                td.all_reduce = counting
+            try:
+                runs[mode] = {name: run(make, os.path.join(tmp, mode, name))
+                              for name, make in (("dense", dense),
+                                                 ("packed", packed))}
+            finally:
+                td.all_reduce = real_all_reduce
+        torch.distributed.destroy_process_group()
+    launches = launch_counts()
+    require(not dist.is_initialized(), "ddp_world1: the group torn down")
+    n_params = sum(p.numel() for p in runs["alone"]["dense"]["params"]
+                   .values())
+    rec["all_reduce_numels"] = calls
+    for name in ("dense", "packed"):
+        a, g = runs["alone"][name], runs["group"][name]
+        rec[name] = {"losses": a["losses"], "grad_norms": a["grad_norms"],
+                     "wall_s": [a["wall_s"], g["wall_s"]]}
+        require(a["losses"] == g["losses"]
+                and a["grad_norms"] == g["grad_norms"]
+                and len(a["losses"]) == DDP_STEPS
+                and all(torch.equal(a["params"][n], g["params"][n])
+                        for n in a["params"]),
+                f"ddp_world1: {name}: the group's losses, grad norms and "
+                f"parameters equal the run without a group bit for bit: "
+                f"{a['losses']} {g['losses']} {a['grad_norms']} "
+                f"{g['grad_norms']}")
+    # one all-reduce a step: the gradients with the loss (dense), or with
+    # the numerator and denominator (packed), in one flat buffer
+    require(calls == [n_params + 1] * DDP_STEPS + [n_params + 2] * DDP_STEPS,
+            f"ddp_world1: all-reduce sizes {calls}")
+    emit(rec)
+    del runs
+    torch.cuda.empty_cache()
+    want = {k: 2 * DDP_STEPS * v for k, v in dense_launches_per_step(
+        12, dropout=False).items()}
+    for k, v in packed_launches_per_step(12, dropout=False).items():
+        want[k] += 2 * DDP_STEPS * v
+    require(launches == want,
+            f"ddp_world1: launches {launches}, expected {want}")
+    return launches
+
+
 KERNELS = (  # name (the kernel_check summary key), source, what it replaces
     ("int8_matmul_fused", "csrc/int8_matmul.cu",
      "chestxray_vit_tpu/ops/int8_pallas.py:51"),
@@ -3134,6 +3537,9 @@ def main() -> int:
     fused_launches = phase_train_fused_qkv(policy_rows)
     maps_launches = phase_serving_maps()
     trainer_launches = phase_trainer(train_rec)
+    fake, fake_s = varres_bucket()
+    packed_trainer_launches = phase_packed_trainer(fake, fake_s, packed_rec)
+    ddp_launches = phase_ddp_world1(fake)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "chestxray_vit_tpu")]
     require(not loaded, f"no JAX and no JAX-package module imported: "
@@ -3144,13 +3550,14 @@ def main() -> int:
     # timed packed, merged and mixed-resolution steps, the timed merged
     # dense steps, merged serving and merged eval, the timed steps of
     # every remat policy and of fused_qkv, the maps forward, the Trainer's
-    # runs), each counted from 0 just before it
+    # runs, the PackedTrainer's runs, the runs without and in a process
+    # group), each counted from 0 just before it
     paths = (serve_launches, serve_int8_launches, train_launches,
              eval_launches, eval_int8_launches, dropout_launches,
              packed_launches, tome_launches, mixed_launches,
              tome_train_launches, serve_tome_launches, *eval_tome_launches,
              policy_launches, fused_launches, maps_launches,
-             trainer_launches)
+             trainer_launches, packed_trainer_launches, ddp_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)

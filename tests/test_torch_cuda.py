@@ -1319,3 +1319,71 @@ def test_trainer_on_card_resumes_bit_for_bit(dev, tmp_path):
     for (n, p), q in zip(first.state.params.named_parameters(),
                          again.state.params.parameters()):
         assert torch.equal(p, q), n
+
+
+def test_packed_trainer_on_card_resumes_bit_for_bit(dev, tmp_path):
+    """Three PackedTrainer steps on the card at a small width (bf16, full
+    remat, segment-masked kernels, a third of the images at 32 or 48 px, a
+    checkpoint after step 1), then a second PackedTrainer resumed from
+    step 1 in a fresh directory: the cursor counts the images of the one
+    consumed batch, and steps 2-3 and the weights equal the first run's
+    bit for bit."""
+    import io
+    import json
+    import shutil
+
+    from PIL import Image
+
+    from chestxray_vit_tpu_torch.config import DataConfig
+    from chestxray_vit_tpu_torch.data.testing import build_fake_nih
+    from chestxray_vit_tpu_torch.train.packed_trainer import PackedTrainer
+
+    fake = build_fake_nih(num_images=120, image_size=64, seed=5)
+    rng = np.random.default_rng(0)
+    for i, name in enumerate(fake.image_names[::3]):
+        size = int(rng.choice([32, 48]))
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 255, (size, size), np.uint8),
+                        "L").save(buf, format="PNG")
+        fake.store.put(f"images_{(3 * i % 12) + 1:03d}/images/{name}",
+                       buf.getvalue())
+
+    def trainer(out, **kw):
+        cfg = Config(
+            data=DataConfig(backend="memory", num_workers=2),
+            model=ModelConfig(img_size=64, hidden_size=128, num_heads=2,
+                              num_layers=2, mlp_dim=256, remat=True),
+            train=TrainConfig(max_steps=3, save_steps=1, save_total_limit=3,
+                              eval_strategy="no",
+                              load_best_model_at_end=False, logging_steps=1,
+                              report_to="none", output_dir=str(out), **kw))
+        return PackedTrainer(cfg, seq_len=48, grids=(2, 3, 4), batch_seqs=8,
+                             store=fake.store, pretrained=False,
+                             census_sample=16)
+
+    def losses(out):
+        with open(out / "metrics.jsonl") as f:
+            return [(r["step"], r["loss"]) for r in map(json.loads, f)
+                    if r["prefix"] == "train"]
+
+    first = trainer(tmp_path / "a")
+    first.train()
+    first.close()
+    assert next(first.state.params.parameters()).is_cuda
+    meta = json.loads((tmp_path / "a" / "checkpoints" / "1" /
+                       "meta.json").read_text())
+    full = next(b for b in first._packed_iter(first.bundle.train, 0,
+                                              batch_seqs=8)
+                if int(b["n_seqs"]) == 8)
+    assert meta["cursor"] == {"epoch": 0,
+                              "batch_in_epoch": int(full["n_images"])}
+    (tmp_path / "b" / "checkpoints").mkdir(parents=True)
+    shutil.copytree(tmp_path / "a" / "checkpoints" / "1",
+                    tmp_path / "b" / "checkpoints" / "1")
+    again = trainer(tmp_path / "b", resume_from_checkpoint="1")
+    again.train()
+    again.close()
+    assert losses(tmp_path / "b") == losses(tmp_path / "a")[1:]
+    for (n, p), q in zip(first.state.params.named_parameters(),
+                         again.state.params.parameters()):
+        assert torch.equal(p, q), n

@@ -53,6 +53,9 @@ MODULES = [
     "chestxray_vit_tpu_torch.train.steps",
     "chestxray_vit_tpu_torch.train.checkpoint",
     "chestxray_vit_tpu_torch.train.trainer",
+    "chestxray_vit_tpu_torch.train.packed_trainer",
+    "chestxray_vit_tpu_torch.parallel.distributed",
+    "chestxray_vit_tpu_torch.parallel.mesh",
     "chestxray_vit_tpu_torch.eval.metrics",
     "chestxray_vit_tpu_torch.serve.batcher",
     "chestxray_vit_tpu_torch.serve.attention_maps",
