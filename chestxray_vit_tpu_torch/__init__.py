@@ -6,8 +6,9 @@ package mirrors its layout module for module and imports nothing of it.
 Where the port needs a framework-free module of the JAX package, it keeps
 its own copy (``config``, ``data.decode``, ``data.geometry`` with
 ``host_resize``, ``data.packing``, ``data.storage``, ``data.metadata``,
-``data.testing``, ``serve.batcher``, ``utils.logging``,
-``utils.tfevents``, ``utils.flops``). Every TPU (Pallas) kernel on a ported
+``data.testing``, ``data.processor``, ``data.hf_datasets``,
+``serve.batcher``, ``utils.logging``, ``utils.tfevents``,
+``utils.flops``). Every TPU (Pallas) kernel on a ported
 path is a hand-written Hopper kernel in ``csrc/``, built at first use
 (``kernels``), with a plain PyTorch twin beside its wrapper.
 
@@ -39,7 +40,13 @@ Ported so far, at ViT-B/16 @384:
   packed eval);
 - data-parallel training of both trainers over ``torch.distributed``
   (``parallel.distributed``, ``parallel.mesh``: one process per device
-  under ``torchrun``, NCCL on the card, gloo on the CPU).
+  under ``torchrun``, NCCL on the card, gloo on the CPU);
+- the command line (``cli``: train, eval, predict, smoke, maps, export,
+  quantize, serve, with ``--device``), HF weight import and export
+  (``models.import_hf``, ``models.export_hf``, over the port's own
+  safetensors reader and writer, ``utils.safetensors``), so the Trainer
+  starts from HF weights, the ``hf_dataset`` backend and ``gs://``
+  checkpoints.
 
 Importing the package imports no JAX, no Triton and loads no compiled
 library.

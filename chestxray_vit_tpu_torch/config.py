@@ -9,17 +9,19 @@ fields the port does not act on yet (mesh) included. The JSON round trip
 (``Config.to_json`` / ``from_json``, which ``save_model`` and
 ``Predictor.from_model_dir`` use), the presets (``version_b_config``,
 ``version_a_config``, ``fast_finetune_config``, ``_PRESETS``) and
-``_set_by_path`` are the JAX package's too; the command line
-(``parse_cli``) waits for the CLI (ROADMAP Queue 1 #9).
+``_set_by_path`` are the JAX package's too, and so are the ViT family
+(``VIT_VARIANTS``, ``vit_variant_config``, ``vit_large_config``) and the
+command line (``parse_cli``, which ``cli.py`` reads).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 # The reference normalizes through HF ViTImageProcessor (google/vit values
 # 0.5 / 0.5); its ImageNet constants are defined but unused.
@@ -122,6 +124,47 @@ class ModelConfig:
             raise ValueError(
                 f"model.tome_schedule must be 'constant' or 'decreasing', "
                 f"got {self.tome_schedule!r}")
+
+
+# The standard ViT family (An Image is Worth 16x16 Words, Table 1, plus the
+# Ti/S additions of the DeiT/AugReg line): name → (hidden, layers, heads,
+# mlp, patch, HF checkpoint when an official @384 one exists). The
+# reference uses only B/16.
+VIT_VARIANTS = {
+    "vit_ti16": (192, 12, 3, 768, 16, None),
+    "vit_s16": (384, 12, 6, 1536, 16, None),
+    "vit_b16": (768, 12, 12, 3072, 16, "google/vit-base-patch16-384"),
+    "vit_b32": (768, 12, 12, 3072, 32, "google/vit-base-patch32-384"),
+    "vit_l16": (1024, 24, 16, 4096, 16, "google/vit-large-patch16-384"),
+    "vit_h14": (1280, 32, 16, 5120, 14, "google/vit-huge-patch14-224-in21k"),
+}
+
+
+def vit_variant_config(variant: str, img_size: int = 384,
+                       num_classes: int = 15) -> ModelConfig:
+    """ModelConfig for a named ViT variant (``VIT_VARIANTS`` keys); L/H
+    default to remat (gradient checkpointing)."""
+    if variant not in VIT_VARIANTS:
+        raise KeyError(f"unknown variant {variant!r}; "
+                       f"one of {sorted(VIT_VARIANTS)}")
+    hidden, layers, heads, mlp, patch, hf_name = VIT_VARIANTS[variant]
+    return ModelConfig(
+        model_name=hf_name or f"scratch/{variant}",
+        img_size=img_size,
+        patch_size=patch,
+        hidden_size=hidden,
+        num_layers=layers,
+        num_heads=heads,
+        mlp_dim=mlp,
+        num_classes=num_classes,
+        remat=hidden >= 1024,
+    )
+
+
+def vit_large_config(img_size: int = 384, num_classes: int = 15
+                     ) -> ModelConfig:
+    """ViT-L/16."""
+    return vit_variant_config("vit_l16", img_size, num_classes)
 
 
 @dataclass
@@ -306,3 +349,36 @@ def _set_by_path(cfg: Config, dotted: str, value: str) -> None:
     else:
         coerced = value
     setattr(obj, name, coerced)
+
+
+def parse_cli(argv: Optional[Sequence[str]] = None) -> Config:
+    """CLI: ``--preset version_b --set train.learning_rate=3e-4 ...``"""
+    ap = argparse.ArgumentParser(prog="chestxray_vit_tpu_torch")
+    ap.add_argument("--preset", default="default", choices=sorted(_PRESETS))
+    ap.add_argument("--model", default=None, choices=sorted(VIT_VARIANTS),
+                    help="swap the model family variant (keeps img_size "
+                         "and num_classes from the preset)")
+    ap.add_argument("--config", default=None, help="path to a JSON config")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="override, e.g. --set train.learning_rate=1e-4")
+    ns = ap.parse_args(argv)
+    if ns.config:
+        with open(ns.config) as f:
+            cfg = Config.from_json(f.read())
+    else:
+        cfg = _PRESETS[ns.preset]()
+    overrides = []
+    for kv in ns.set:
+        key, _, value = kv.partition("=")
+        overrides.append((key.strip(), value.strip()))
+    if ns.model:
+        # the variant is built at the overridden geometry: vit_h14 (patch
+        # 14) cannot be built at a preset's img_size 384
+        pre = dict(overrides)
+        img_size = int(pre.get("model.img_size", cfg.model.img_size))
+        num_classes = int(pre.get("model.num_classes",
+                                  cfg.model.num_classes))
+        cfg.model = vit_variant_config(ns.model, img_size, num_classes)
+    for key, value in overrides:
+        _set_by_path(cfg, key, value)
+    return cfg

@@ -6,7 +6,9 @@ One client is shared with connection reuse (the reference made a client
 per sample), and the blob-name map is built once. ``LocalStore`` serves
 the bucket layout from disk; ``MemoryStore`` is the in-process fake that
 tests and smoke runs fill (``data/testing.py``). ``google.cloud.storage``
-is imported only when a ``GCSStore`` is built.
+is imported only when a ``GCSStore`` is built. ``GCSStore`` also writes
+and deletes objects (``put``, ``delete``): the port's ``gs://``
+checkpoints go through it (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -103,6 +105,14 @@ class GCSStore:
 
     def exists(self, name: str) -> bool:
         return self._bucket.blob(name).exists()
+
+    def put(self, name: str, data: bytes) -> None:
+        """Upload ``data`` as ``name`` (the checkpoint writer's only write;
+        the JAX package writes its checkpoints through orbax)."""
+        self._bucket.blob(name).upload_from_string(data)
+
+    def delete(self, name: str) -> None:
+        self._bucket.blob(name).delete()
 
 
 class RetryingStore:

@@ -36,7 +36,7 @@ from chestxray_vit_tpu_torch.ops.preprocess import (fused_preprocess,
                                                     normalize_u8)
 from chestxray_vit_tpu_torch.ops.tome import r_schedule
 from chestxray_vit_tpu_torch.serve import attention_maps
-from chestxray_vit_tpu_torch.train.checkpoint import load_model
+from chestxray_vit_tpu_torch.train.checkpoint import load_model, local_dir
 
 
 @dataclass
@@ -213,8 +213,9 @@ class Predictor:
         :meth:`save_quantized`) is loaded instead of re-quantizing when its
         mode is the one asked for and its fingerprint is the weights'; a
         cold start then skips the quantize pass and the static calibration
-        forward. A mismatched artifact is reported and ignored."""
-        directory = os.path.expanduser(directory)
+        forward. A mismatched artifact is reported and ignored. The
+        directory is local (a ``gs://`` one raises ``ValueError``)."""
+        directory = local_dir(directory)
         with open(os.path.join(directory, "config.json")) as f:
             cfg = Config.from_json(f.read())
         params, classes = load_model(directory, vit.ViT(cfg.model))

@@ -12,9 +12,17 @@ same layout of one directory per step::
                                    "generator" (uint8 state)
     <directory>/<step>/meta.json   {"cursor", "extra", "metrics"}
 
-read back with ``torch.load(weights_only=True)``. A save is written into
-``<directory>/.<step>.tmp`` and renamed into place, so a step directory
-exists only whole.
+read back with ``torch.load(weights_only=True)``. A local save is written
+into ``<directory>/.<step>.tmp`` and renamed into place, so a step
+directory exists only whole.
+
+A ``gs://bucket/prefix`` directory keeps the same layout as objects
+(``data/storage.GCSStore``; ``google.cloud.storage`` is imported when such
+a manager is built, and its absence raises ``ImportError`` there). The
+writer thread serialises the state into memory and uploads
+``state.pt``, then ``meta.json``: the meta object is the commit, so a step
+without it is not listed, and the primary deletes its objects when the
+manager is built. Retention deletes a step's objects by prefix.
 
 Saves are asynchronous: ``save`` copies the tensors (on their device, so
 the next train step may change the live ones) and hands them to a writer
@@ -33,12 +41,14 @@ copies and writes the state; the others record the save's step and
 metrics. The trainer passes a barrier after ``wait`` and before a
 restore, so the files the others read are whole.
 
-``gs://`` directories wait for the GCS checkpoints of ROADMAP Queue 1 #6.
+The final model (``save_model`` / ``load_model``) lives in a local
+directory; a ``gs://`` one is refused (:func:`local_dir`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import math
 import os
@@ -50,6 +60,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from chestxray_vit_tpu_torch.data.storage import GCSStore
 from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.train.steps import TrainState
 
@@ -58,13 +69,114 @@ META_FILE = "meta.json"
 PARAMS_FILE = "params.pt"
 
 
-def _local(directory: str) -> str:
+def local_dir(directory: str, what: str = "model directory") -> str:
+    """The absolute local path of ``directory``; a URI (``gs://…``) raises
+    ``ValueError``. Only checkpoints go to a bucket: the logs and the
+    saved model are written with local file calls, which would turn
+    ``gs://b/m`` into a directory named ``gs:`` under the working
+    directory (what the JAX package's ``os.path.abspath`` does)."""
     if "://" in directory:
-        raise NotImplementedError(
-            f"checkpoint directory {directory!r}: remote (gs://) "
-            f"checkpoints are not ported to PyTorch yet (ROADMAP Queue 1 "
-            f"#6); use a local path")
+        raise ValueError(
+            f"{what} {directory!r} is a URI; it must be a local path: the "
+            f"port writes it with local file calls, which would create a "
+            f"directory named 'gs:' under the working directory (only "
+            f"CheckpointManager writes to gs://)")
     return os.path.abspath(os.path.expanduser(directory))
+
+
+class _LocalSteps:
+    """Step directories on a local filesystem (``.<step>.tmp`` renamed
+    into place)."""
+
+    def __init__(self, directory: str):
+        self.directory = local_dir(directory, "checkpoint directory")
+        os.makedirs(self.directory, exist_ok=True)
+
+    def committed(self, primary: bool) -> Dict[int, Optional[Dict]]:
+        out = {}
+        for name in os.listdir(self.directory):
+            meta = os.path.join(self.directory, name, META_FILE)
+            if name.isdigit() and os.path.exists(meta):
+                with open(meta) as f:
+                    out[int(name)] = json.load(f).get("metrics")
+        return out
+
+    def write(self, step: int, host: Dict[str, Any],
+              meta: Dict[str, Any]) -> int:
+        tmp = os.path.join(self.directory, f".{step}.tmp")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(host, os.path.join(tmp, STATE_FILE))
+        with open(os.path.join(tmp, META_FILE), "w") as f:
+            json.dump(meta, f)
+        final = os.path.join(self.directory, str(step))
+        os.replace(tmp, final)
+        return os.path.getsize(os.path.join(final, STATE_FILE))
+
+    def read(self, step: int) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        path = os.path.join(self.directory, str(step))
+        saved = torch.load(os.path.join(path, STATE_FILE),
+                           map_location="cpu", weights_only=True)
+        with open(os.path.join(path, META_FILE)) as f:
+            return saved, json.load(f)
+
+    def delete(self, step: int) -> None:
+        shutil.rmtree(os.path.join(self.directory, str(step)))
+
+
+class _GCSSteps:
+    """Step directories as objects under ``gs://<bucket>/<prefix>``;
+    ``meta.json``, written last, commits a step."""
+
+    def __init__(self, directory: str):
+        bucket, _, prefix = directory[len("gs://"):].partition("/")
+        if not bucket:
+            raise ValueError(f"checkpoint directory {directory!r}: no "
+                             f"bucket")
+        self.directory = directory.rstrip("/")
+        self._prefix = prefix.strip("/")
+        self._store = GCSStore(bucket)
+
+    def _name(self, step, leaf: str = "") -> str:
+        return "/".join(p for p in (self._prefix, str(step), leaf) if p)
+
+    def committed(self, primary: bool) -> Dict[int, Optional[Dict]]:
+        root = self._name("") + "/" if self._prefix else ""
+        leaves: Dict[str, List[str]] = {}
+        for name in self._store.list(root):
+            step, _, leaf = name[len(root):].partition("/")
+            if step.isdigit() and leaf:
+                leaves.setdefault(step, []).append(leaf)
+        out = {}
+        for step, names in leaves.items():
+            if META_FILE in names:
+                meta = json.loads(self._store.get(
+                    self._name(step, META_FILE)))
+                out[int(step)] = meta.get("metrics")
+            elif primary:           # a write that never committed
+                self.delete(int(step))
+        return out
+
+    def write(self, step: int, host: Dict[str, Any],
+              meta: Dict[str, Any]) -> int:
+        buf = io.BytesIO()
+        torch.save(host, buf)
+        data = buf.getvalue()
+        self._store.put(self._name(step, STATE_FILE), data)
+        self._store.put(self._name(step, META_FILE),
+                        json.dumps(meta).encode())
+        return len(data)
+
+    def read(self, step: int) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        saved = torch.load(io.BytesIO(self._store.get(
+            self._name(step, STATE_FILE))), map_location="cpu",
+            weights_only=True)
+        return saved, json.loads(self._store.get(
+            self._name(step, META_FILE)))
+
+    def delete(self, step: int) -> None:
+        for name in self._store.list(self._name(step) + "/"):
+            self._store.delete(name)
 
 
 @dataclass
@@ -102,20 +214,17 @@ class CheckpointManager:
     def __init__(self, directory: str, save_total_limit: int = 2,
                  metric_for_best: Optional[str] = "avg_auroc",
                  greater_is_better: bool = True, primary: bool = True):
-        self.directory = _local(directory)
+        self._steps = (_GCSSteps(directory) if directory.startswith("gs://")
+                       else _LocalSteps(directory))
+        self.directory = self._steps.directory
         self.primary = primary
-        os.makedirs(self.directory, exist_ok=True)
         self.save_total_limit = save_total_limit
         self.metric_for_best = metric_for_best
         self.greater_is_better = greater_is_better
         self._lock = threading.Lock()
         # step → metrics dict (None without metrics), of the finished saves
-        self._index: Dict[int, Optional[Dict[str, float]]] = {}
-        for name in os.listdir(self.directory):
-            meta = os.path.join(self.directory, name, META_FILE)
-            if name.isdigit() and os.path.exists(meta):
-                with open(meta) as f:
-                    self._index[int(name)] = json.load(f).get("metrics")
+        self._index: Dict[int, Optional[Dict[str, float]]] = \
+            self._steps.committed(primary)
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self.last_save: Dict[str, float] = {}
@@ -195,24 +304,16 @@ class CheckpointManager:
             host = {k: ({n: t.cpu() for n, t in v.items()}
                         if isinstance(v, dict) else v)
                     for k, v in snapshot.items()}
-            tmp = os.path.join(self.directory, f".{step}.tmp")
-            shutil.rmtree(tmp, ignore_errors=True)
-            os.makedirs(tmp)
-            torch.save(host, os.path.join(tmp, STATE_FILE))
-            with open(os.path.join(tmp, META_FILE), "w") as f:
-                json.dump(meta, f)
-            os.replace(tmp, os.path.join(self.directory, str(step)))
+            nbytes = self._steps.write(step, host, meta)
             with self._lock:
                 self._index[step] = meta["metrics"]
                 removed = self._to_remove()
                 for s in removed:
                     del self._index[s]
             for s in removed:
-                shutil.rmtree(os.path.join(self.directory, str(s)))
-            self.last_save = {
-                "step": step, "seconds": time.perf_counter() - t0,
-                "bytes": os.path.getsize(os.path.join(
-                    self.directory, str(step), STATE_FILE))}
+                self._steps.delete(s)
+            self.last_save = {"step": step, "bytes": nbytes,
+                              "seconds": time.perf_counter() - t0}
         except BaseException as e:          # noqa: BLE001 — raised by wait()
             self._error = e
 
@@ -253,14 +354,10 @@ class CheckpointManager:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
-        path = os.path.join(self.directory, str(step))
         if step not in self._index:
             raise FileNotFoundError(f"no checkpoint at step {step} under "
                                     f"{self.directory}")
-        saved = torch.load(os.path.join(path, STATE_FILE),
-                           map_location="cpu", weights_only=True)
-        with open(os.path.join(path, META_FILE)) as f:
-            meta = json.load(f)
+        saved, meta = self._steps.read(step)
         params = template.params
         _load_params(params, saved["params"])
         opt_state = {key: {n: saved[key][n].to(p.device)
@@ -301,7 +398,7 @@ def save_model(directory: str, params: vit.ViT, config_json: str,
                classes: Optional[list] = None) -> None:
     """Write the final inference weights (``params.pt``: the f32 tensors by
     parameter name, on the CPU), ``config.json`` and ``classes.json``."""
-    directory = _local(directory)
+    directory = local_dir(directory)
     os.makedirs(directory, exist_ok=True)
     torch.save({n: p.detach().cpu() for n, p in params.named_parameters()},
                os.path.join(directory, PARAMS_FILE))
@@ -315,7 +412,7 @@ def save_model(directory: str, params: vit.ViT, config_json: str,
 def load_model(directory: str, params_template: vit.ViT):
     """Load ``save_model``'s weights into ``params_template`` (in place);
     returns (params, classes or None)."""
-    directory = _local(directory)
+    directory = local_dir(directory)
     path = os.path.join(directory, PARAMS_FILE)
     if not os.path.exists(path):
         raise FileNotFoundError(

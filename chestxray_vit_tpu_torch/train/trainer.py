@@ -28,11 +28,20 @@ TensorBoard, the checkpoints, ``trainer_state.json`` and the saved model;
 the others log to ``metrics.rank{N}.jsonl``. A preemption stop is agreed
 on the sync cadence, so every rank stops at the same step.
 
+``pretrained=True`` starts from the HF weights named by
+``model.model_name`` (a local HF folder or ``.safetensors`` file, or, with
+``transformers`` installed, the HF cache; ``models/import_hf.py``), their
+position embeddings resampled to ``model.img_size``; unreachable weights
+degrade to random init with a printed line, as in the reference. The
+``hf_dataset`` backend reads ``data.hf_dataset_name`` through
+``data/hf_datasets.py``. ``output_dir`` is a local directory: it holds the
+logs and the saved model, and a ``gs://`` one is refused
+(``checkpoint.local_dir``).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
 ``fsdp`` / ``tensor`` / ``dcn_data`` mesh axes (Queue 1 #12), one process
-driving several devices (#8), attention dropout, hidden dropout and mixup
-across processes (#14), ``pretrained=True`` (``import_hf``, #6), the
-``hf_dataset`` backend (#12), and ``gs://`` checkpoint directories (#6).
+driving several devices (#8), and attention dropout, hidden dropout and
+mixup across processes (#14).
 """
 
 from __future__ import annotations
@@ -53,8 +62,8 @@ from chestxray_vit_tpu_torch.config import Config
 from chestxray_vit_tpu_torch.data import pipeline as pipe
 from chestxray_vit_tpu_torch.data.storage import Store
 from chestxray_vit_tpu_torch.eval import metrics as M
+from chestxray_vit_tpu_torch.models import import_hf, vit
 from chestxray_vit_tpu_torch.models import quantized as qmod
-from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.models.export_hf import write_preprocessor_config
 from chestxray_vit_tpu_torch.ops.preprocess import prepare_pixel_values
 from chestxray_vit_tpu_torch.parallel import distributed as dist
@@ -127,12 +136,15 @@ class Trainer:
         self.mesh = mesh_lib.build_mesh(cfg.mesh)
         self._world = mesh_lib.dp_size(self.mesh)
         _check_data_parallel(cfg, self._world)
-        if pretrained:
-            raise _not_ported("pretrained=True (the HF weight import, "
-                              "models/import_hf.py)", "#6")
+        ckpt.local_dir(cfg.train.output_dir, "train.output_dir (the logs "
+                       "and the saved model)")
         self.cfg = cfg
         if datasets is None and cfg.data.backend == "hf_dataset":
-            raise _not_ported("the hf_dataset backend", "#12")
+            from chestxray_vit_tpu_torch.data.hf_datasets import (
+                load_hf_dataset)
+            datasets = load_hf_dataset(cfg.data.hf_dataset_name,
+                                       img_size=cfg.model.img_size,
+                                       augment_train=cfg.data.augment)
         if datasets is not None:
             train, val, test, classes = datasets
             self.bundle = pipe.DatasetBundle(
@@ -149,8 +161,18 @@ class Trainer:
         if not cfg.train.bf16 and cfg.model.dtype == "bfloat16":
             cfg.model.dtype = "float32"
 
-        params = vit.init_params(torch.Generator().manual_seed(
-            cfg.train.seed), cfg.model, device=self.device)
+        params = None
+        if pretrained:
+            params = import_hf.load_pretrained(
+                cfg.model.model_name, cfg.model, seed=cfg.train.seed,
+                device=self.device)
+        if params is None:
+            params = vit.init_params(torch.Generator().manual_seed(
+                cfg.train.seed), cfg.model, device=self.device)
+        else:
+            # @512-style fine-tunes reuse @384 checkpoints: resample the
+            # position embeddings to the configured grid
+            params = vit.adapt_params_to_img_size(params, cfg.model)
         self.state = S.TrainState.create(params, cfg.train.seed)
 
         # loader batch = micro-batch x processes x accumulation steps (one

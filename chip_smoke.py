@@ -6,7 +6,9 @@ forward (training, serving and eval), the remat policies, the fused Q/K/V
 projection, attention maps, the Trainer entry point (a training run
 with checkpoints, exact resume and the saved model served), the
 PackedTrainer (a packed run with its census, image-count cursor and exact
-resume), and the data-parallel path in an NCCL group of one process.
+resume), the data-parallel path in an NCCL group of one process, and the
+command line (train from an HF folder, eval, predict, quantize, export,
+maps, smoke).
 
     python3 chip_smoke.py
 
@@ -166,6 +168,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    bit for bit, exactly one all-reduce a step (the gradients with the
    loss, or with the packed loss's numerator and denominator), the group
    torn down.
+28. cli: the command line at full width, through ``cli.main`` in this
+   process. An HF folder (``export_hf_folder``) of seeded ViT-B/16 @384
+   weights with the fake bucket's 15 classes, read back bit for bit
+   (bytes, write and read seconds); ``train --preset version_b`` from it
+   on the memory backend's fake bucket (b8, bf16, 8 steps, one eval and
+   one save at step 8): its step-0 parameters equal the folder's bit for
+   bit (a local folder that fails to load would degrade to random init
+   silently), the attention forward and backward and LayerNorm forward and
+   backward kernels launched, steady step ms, images/s, peak memory and
+   wall seconds; ``eval`` and ``predict`` from the checkpoint (the report
+   written); ``quantize --mode static`` on 4 PNGs and a static int8
+   ``Predictor.from_model_dir`` forward on the fused kernel; ``export`` of
+   the saved model, read back equal to the trained parameters; ``maps``
+   with rollout and gradcam (4 overlays each); ``smoke`` (hidden 64, one
+   head of 64).
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -409,6 +426,10 @@ PACKED_TRAINER_SEQS = 32
 PACKED_TRAINER_STEPS, PACKED_TRAINER_EVERY = 12, 6
 # phase 27 (ddp_world1): steps of each trainer, without and with the group
 DDP_STEPS = 3
+# phase 28 (cli): train steps (version_b's b8; an epoch is 5 steps of the
+# CLI's 64-image bucket), the steady steps read (no eval, save or epoch
+# boundary after them), and the PNGs quantize, predict and maps read
+CLI_STEPS, CLI_STEADY, CLI_IMAGES = 8, (2, 3, 4), 4
 
 
 def emit(obj: dict) -> None:
@@ -3432,6 +3453,217 @@ def phase_ddp_world1(fake) -> dict:
     return launches
 
 
+def _equal_params(a, b) -> list:
+    """The names of the parameters of two ``ViT``s that differ (bits)."""
+    other = dict(b.named_parameters()) if hasattr(b, "named_parameters") \
+        else b
+    return [n for n, p in a.named_parameters()
+            if not torch.equal(p.detach(), other[n].detach().to(p.device))]
+
+
+def phase_cli() -> dict:
+    """The port's command line at full width on the card, through
+    ``cli.main([...])`` in this process: an HF folder written by
+    ``export_hf_folder`` from seeded ViT-B/16 @384 weights (the fake
+    bucket's 15 classes) and read back bit for bit; ``train`` from that
+    folder (``--preset version_b``, b8, bf16, the memory backend's fake
+    bucket: CLI_STEPS steps, one eval and one save), its step-0 parameters
+    equal to the folder's; ``eval`` and ``predict`` from the checkpoint;
+    ``quantize --mode static`` on CLI_IMAGES PNGs and an int8
+    ``Predictor.from_model_dir`` forward; ``export`` of the saved model,
+    read back equal to the trained parameters; ``maps`` with rollout and
+    gradcam; ``smoke``. Returns the launches of all of it."""
+    import os
+    import tempfile
+
+    from chestxray_vit_tpu_torch import cli
+    from chestxray_vit_tpu_torch.config import DataConfig, ModelConfig
+    from chestxray_vit_tpu_torch.data import pipeline as pipe
+    from chestxray_vit_tpu_torch.data.testing import build_fake_nih
+    from chestxray_vit_tpu_torch.models.export_hf import export_hf_folder
+    from chestxray_vit_tpu_torch.models.import_hf import (
+        params_from_safetensors)
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.serve.inference import Predictor
+
+    rec = {"phase": "cli"}
+    t_phase = time.perf_counter()
+    fake = build_fake_nih(num_images=64)       # the CLI's memory bucket
+    classes = pipe.build_datasets(DataConfig(backend="memory"),
+                                  fake.store).classes
+    cfg = ModelConfig(num_classes=len(classes))   # ViT-B/16 @384
+    launches: dict = {}
+
+    def run(name: str, argv: list) -> float:
+        """``cli.main(argv)`` with what it prints on stderr; its wall
+        seconds, and its launches added to the phase's."""
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, _ = _quiet(lambda: cli.main(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        rec[f"{name}_launches"] = {k: v for k, v in counts.items() if v}
+        rec[f"{name}_wall_s"] = wall
+        require(rc == 0, f"cli: {name} exit code {rc}")
+        return wall
+
+    with tempfile.TemporaryDirectory(prefix="cxr_cli_") as tmp:
+        # 1. the HF folder round trip
+        folder = os.path.join(tmp, "hf")
+        seeded = init_params(torch.Generator().manual_seed(SEED), cfg,
+                             device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_hf_folder(folder, seeded, cfg, classes)
+        rec["hf_write_s"] = time.perf_counter() - t0
+        rec["hf_bytes"] = os.path.getsize(
+            os.path.join(folder, "model.safetensors"))
+        t0 = time.perf_counter()
+        back = params_from_safetensors(folder, cfg, device="cuda")
+        torch.cuda.synchronize()
+        rec["hf_read_s"] = time.perf_counter() - t0
+        rec["hf_params"] = sum(p.numel() for p in back.parameters())
+        differ = _equal_params(seeded, back)
+        require(not differ, f"cli: HF folder read back bit for bit: "
+                            f"{differ[:3]}")
+        del seeded
+
+        # 2. train from the folder, the Trainer caught for its checks
+        out = os.path.join(tmp, "out")
+        common = ["--device", "cuda", "--preset", "version_b",
+                  "--set", "data.backend=memory",
+                  "--set", f"model.model_name={folder}",
+                  "--set", f"train.output_dir={out}"]
+        seen = []
+        build = cli._build_trainer
+
+        def caught(cfg_, device, pretrained=True):
+            tr = build(cfg_, device, pretrained)
+            if pretrained and not seen:
+                start = {n: p.detach().clone()
+                         for n, p in tr.state.params.named_parameters()}
+                tr._train_step = StepClock(tr._train_step)
+                seen.append((tr, start))
+            return tr
+
+        cli._build_trainer = caught
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            run("train", ["train", *common,
+                          "--set", f"train.max_steps={CLI_STEPS}",
+                          "--set", f"train.eval_steps={CLI_STEPS}",
+                          "--set", f"train.save_steps={CLI_STEPS}",
+                          "--set", "train.logging_steps=1"])
+            rec["train_max_memory_allocated_gb"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            cli._build_trainer = build
+        tr, start = seen[0]
+        differ = _equal_params(back, start)
+        require(not differ, f"cli: train's step-0 parameters are the "
+                            f"folder's bit for bit: {differ[:3]}")
+        step_ms = tr._train_step.step_ms()
+        steady = [step_ms[s] for s in CLI_STEADY if s in step_ms]
+        losses = [v for _, v in _logged(out)]
+        rec.update(batch=tr.global_batch, steps=int(tr.state.step),
+                   train_images=len(tr.bundle.train), losses=losses,
+                   step_ms=step_ms, steady_step_ms=statistics.median(steady),
+                   steady_images_per_s=tr.global_batch * 1e3
+                   / statistics.median(steady),
+                   eval_avg_auroc=_logged(out, "eval", "avg_auroc"),
+                   checkpoint_save=tr.ckpt.last_save)
+        require(len(losses) == CLI_STEPS and all(np.isfinite(losses))
+                and os.listdir(os.path.join(out, "checkpoints"))
+                == [str(CLI_STEPS)] and len(rec["eval_avg_auroc"]) == 2,
+                f"cli: train ran {CLI_STEPS} finite steps, one cadence "
+                f"eval (+ the final one) and one save: {rec}")
+        moved = rec["train_launches"]
+        require(all(moved.get(k, 0) > 0 for k in (
+            "flash_attention_fwd", "flash_attention_bwd", "layer_norm",
+            "layer_norm_bwd", "flash_attention_inference")),
+            f"cli: train launched the attention and LayerNorm kernels: "
+            f"{moved}")
+
+        # 3. eval and predict from the checkpoint
+        resume = ["--set", "train.resume_from_checkpoint=auto"]
+        run("eval", ["eval", *common, *resume])
+        run("predict", ["predict", *common, *resume])
+        report = os.path.join(out, "final_classification_report.txt")
+        with open(report) as f:
+            text = f.read()
+        require("samples avg" in text and os.path.exists(
+            os.path.join(out, "eval_results.json")),
+            "cli: eval_results.json and the classification report written")
+
+        # 4. quantize on PNGs, then an int8 Predictor from the directory
+        pngs = []
+        for i, name in enumerate(fake.image_names[:CLI_IMAGES]):
+            path = os.path.join(tmp, f"img{i}.png")
+            with open(path, "wb") as f:
+                f.write(fake.store.get(
+                    f"images_{i % 12 + 1:03d}/images/{name}"))
+            pngs.append(path)
+        model_dir = os.path.join(out, "model")
+        run("quantize", ["quantize", "--device", "cuda", "--model-dir",
+                         model_dir, "--mode", "static", "--calibration",
+                         *pngs])
+        reset_launch_counts()
+        pred = Predictor.from_model_dir(model_dir, quantize="static",
+                                        batch_size=8, device="cuda")
+        blobs = []
+        for path in pngs:
+            with open(path, "rb") as f:
+                blobs.append(f.read())
+        probs = pred.predict_bytes(blobs).probs
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        rec["int8_predictor_launches"] = {k: v for k, v in counts.items()
+                                          if v}
+        require(probs.shape == (CLI_IMAGES, len(classes))
+                and np.isfinite(probs).all()
+                and counts["int8_matmul_fused"] > 0,
+                f"cli: the int8 Predictor served on the fused kernel: "
+                f"{counts}")
+        del pred
+
+        # 5. export the saved model: equal to the trained parameters
+        hf2 = os.path.join(tmp, "hf2")
+        run("export", ["export", "--model-dir", model_dir, "--out", hf2])
+        exported = params_from_safetensors(hf2, cfg, device="cuda")
+        differ = _equal_params(tr.state.params, exported)
+        require(not differ, f"cli: the export equals the trained "
+                            f"parameters bit for bit: {differ[:3]}")
+        del exported, back, tr, start, seen
+
+        # 6. maps, both methods
+        for method in ("rollout", "gradcam"):
+            maps_dir = os.path.join(tmp, f"maps_{method}")
+            run(f"maps_{method}", ["maps", *pngs, "--model-dir", model_dir,
+                                   "--out-dir", maps_dir, "--method",
+                                   method, "--device", "cuda"])
+            written = sorted(os.listdir(maps_dir))
+            require(written == sorted(f"img{i}_attn.png"
+                                      for i in range(CLI_IMAGES)),
+                    f"cli: {method} overlays written: {written}")
+
+        # 7. smoke (hidden 64, one head of 64)
+        run("smoke", ["smoke", "--device", "cuda", "--set",
+                      f"train.output_dir={os.path.join(tmp, 'smoke')}"])
+        require(rec["smoke_launches"].get("flash_attention_bwd", 0) > 0,
+                f"cli: smoke ran the kernels: {rec['smoke_launches']}")
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["launches"] = launches
+    emit(rec)
+    return launches
+
+
 KERNELS = (  # name (the kernel_check summary key), source, what it replaces
     ("int8_matmul_fused", "csrc/int8_matmul.cu",
      "chestxray_vit_tpu/ops/int8_pallas.py:51"),
@@ -3540,6 +3772,8 @@ def main() -> int:
     fake, fake_s = varres_bucket()
     packed_trainer_launches = phase_packed_trainer(fake, fake_s, packed_rec)
     ddp_launches = phase_ddp_world1(fake)
+    del fake
+    cli_launches = phase_cli()
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "chestxray_vit_tpu")]
     require(not loaded, f"no JAX and no JAX-package module imported: "
@@ -3551,13 +3785,15 @@ def main() -> int:
     # dense steps, merged serving and merged eval, the timed steps of
     # every remat policy and of fused_qkv, the maps forward, the Trainer's
     # runs, the PackedTrainer's runs, the runs without and in a process
-    # group), each counted from 0 just before it
+    # group, the command line's commands), each counted from 0 just before
+    # it
     paths = (serve_launches, serve_int8_launches, train_launches,
              eval_launches, eval_int8_launches, dropout_launches,
              packed_launches, tome_launches, mixed_launches,
              tome_train_launches, serve_tome_launches, *eval_tome_launches,
              policy_launches, fused_launches, maps_launches,
-             trainer_launches, packed_trainer_launches, ddp_launches)
+             trainer_launches, packed_trainer_launches, ddp_launches,
+             cli_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)

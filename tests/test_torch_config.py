@@ -108,3 +108,47 @@ def test_set_by_path_matches_jax(key, value):
 
 def test_nih_classes_match_jax():
     assert tconfig.NIH_CLASSES == jconfig.NIH_CLASSES
+
+
+def test_vit_variants_match_jax():
+    assert tconfig.VIT_VARIANTS == jconfig.VIT_VARIANTS
+    for name in sorted(jconfig.VIT_VARIANTS):
+        img = 224 if name == "vit_h14" else 384
+        assert dataclasses.asdict(tconfig.vit_variant_config(name, img, 3)) \
+            == dataclasses.asdict(jconfig.vit_variant_config(name, img, 3))
+    assert dataclasses.asdict(tconfig.vit_large_config()) == \
+        dataclasses.asdict(jconfig.vit_large_config())
+    with pytest.raises(KeyError, match="unknown variant"):
+        tconfig.vit_variant_config("vit_x")
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--preset", "version_b"],
+    ["--preset", "version_a", "--set", "train.learning_rate=3e-4",
+     "--set", "data.augment=yes", "--set", "train.max_steps=none"],
+    ["--preset", "fast_finetune", "--set", "train.profile_steps=[3, 5]",
+     "--set", "model.tome_r=8"],
+    ["--model", "vit_h14", "--set", "model.img_size=224",
+     "--set", "model.num_classes=4"],
+    ["--preset", "version_b", "--model", "vit_s16"],
+    ["--config", "CONFIG", "--set", "train.seed=7"],
+], ids=["default", "preset", "sets", "tuple", "variant_geometry",
+        "variant", "json"])
+def test_parse_cli_matches_jax(argv, tmp_path):
+    """The same argv lists give the same configuration in both packages."""
+    path = tmp_path / "cfg.json"
+    path.write_text(jconfig.version_a_config().to_json())
+    argv = [str(path) if a == "CONFIG" else a for a in argv]
+    assert tconfig.parse_cli(argv).to_json() == \
+        jconfig.parse_cli(argv).to_json()
+
+
+def test_parse_cli_rejects_what_jax_rejects():
+    with pytest.raises(KeyError) as jerr:
+        jconfig.parse_cli(["--set", "train.nope=1"])
+    with pytest.raises(KeyError) as terr:
+        tconfig.parse_cli(["--set", "train.nope=1"])
+    assert str(terr.value) == str(jerr.value)
+    with pytest.raises(SystemExit):
+        tconfig.parse_cli(["--preset", "nope"])

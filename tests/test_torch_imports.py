@@ -1,6 +1,8 @@
 """The PyTorch port imports no JAX, no Triton, nothing of the JAX package
 (``chestxray_vit_tpu``) and no compiled library; neither does
-``chip_smoke.py``.
+``chip_smoke.py``. The HF and cloud packages the card's machine may lack
+(``transformers``, ``safetensors``, ``datasets``, ``google.cloud``) are
+imported only inside the functions that need them, never at import time.
 
 The modules are imported in a fresh interpreter, so that nothing the test
 process already imported (the JAX package's tests import JAX) can hide an
@@ -19,10 +21,13 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "triton", "chestxray_vit_tpu")
+# (torch itself loads the ``google`` namespace package)
+LAZY = ("transformers", "safetensors", "datasets", "google.cloud.storage")
 
 MODULES = [
     "chestxray_vit_tpu_torch",
     "chestxray_vit_tpu_torch.config",
+    "chestxray_vit_tpu_torch.cli",
     "chestxray_vit_tpu_torch.kernels",
     "chestxray_vit_tpu_torch.data.decode",
     "chestxray_vit_tpu_torch.data.geometry",
@@ -31,10 +36,13 @@ MODULES = [
     "chestxray_vit_tpu_torch.data.metadata",
     "chestxray_vit_tpu_torch.data.pipeline",
     "chestxray_vit_tpu_torch.data.testing",
+    "chestxray_vit_tpu_torch.data.processor",
+    "chestxray_vit_tpu_torch.data.hf_datasets",
     "chestxray_vit_tpu_torch.utils.logging",
     "chestxray_vit_tpu_torch.utils.tfevents",
     "chestxray_vit_tpu_torch.utils.flops",
     "chestxray_vit_tpu_torch.utils.profiling",
+    "chestxray_vit_tpu_torch.utils.safetensors",
     "chestxray_vit_tpu_torch.ops.gelu",
     "chestxray_vit_tpu_torch.ops.layer_norm",
     "chestxray_vit_tpu_torch.ops.flash_attention",
@@ -49,6 +57,7 @@ MODULES = [
     "chestxray_vit_tpu_torch.models.packed",
     "chestxray_vit_tpu_torch.models.tome_forward",
     "chestxray_vit_tpu_torch.models.export_hf",
+    "chestxray_vit_tpu_torch.models.import_hf",
     "chestxray_vit_tpu_torch.train.optimizer",
     "chestxray_vit_tpu_torch.train.steps",
     "chestxray_vit_tpu_torch.train.checkpoint",
@@ -85,8 +94,8 @@ SOURCES = sorted(
 @pytest.fixture(scope="module")
 def imported():
     """Import the modules one after another in one fresh interpreter and
-    record, after each, which JAX, Triton or JAX-package modules are loaded
-    and whether the kernel library is. A module that pulls one in shows it at its own step
+    record, after each, which JAX, Triton or JAX-package modules are loaded,
+    which of the LAZY packages are, and whether the kernel library is. A module that pulls one in shows it at its own step
     (what earlier steps loaded is already recorded against them)."""
     code = (
         "import importlib, json, sys\n"
@@ -96,7 +105,9 @@ def imported():
         "    from chestxray_vit_tpu_torch import kernels\n"
         "    out[name] = {'mods': sorted(m for m in sys.modules if "
         f"m.split('.')[0] in {FORBIDDEN!r}),"
-        " 'lib_loaded': kernels._lib is not None}\n"
+        " 'lib_loaded': kernels._lib is not None,"
+        " 'lazy': sorted(m for m in sys.modules if any("
+        f"(m + '.').startswith(p + '.') for p in {LAZY!r}))}}\n"
         "print(json.dumps(out))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -113,7 +124,8 @@ def test_every_module_of_the_port_is_walked():
 
 @pytest.mark.parametrize("module", MODULES)
 def test_module_imports_no_jax_or_triton(imported, module):
-    assert imported[module] == {"mods": [], "lib_loaded": False}
+    assert imported[module] == {"mods": [], "lib_loaded": False,
+                                "lazy": []}
 
 
 @pytest.mark.parametrize("source", SOURCES)

@@ -480,24 +480,54 @@ def test_nan_guard_raises_and_releases_the_loader(fake, tmp_path):
     tr.close()
 
 
+class _Reached(Exception):
+    pass
+
+
 @pytest.mark.parametrize("what", ["mesh", "pretrained", "gs", "hf_dataset",
                                   "eval_quantize", "eval_tome_r"])
-def test_refusals(what, fake, tmp_path):
+def test_refusals(what, fake, tmp_path, monkeypatch, capsys):
+    """What the Trainer refuses. ``pretrained``, ``hf_dataset`` and
+    ``gs://`` checkpoints are ported: ``pretrained`` now checks the
+    reference's degrade to random init for a local folder that cannot be
+    read, ``hf_dataset`` that the backend reaches ``load_hf_dataset``,
+    and ``gs`` that model and log directories stay local (a gs://
+    CheckpointManager is tested against the GCS emulator,
+    ``test_torch_gcs_checkpoint.py``)."""
     cfg = _cfg(tmp_path)
     kw = {"pretrained": False}
     err, match = NotImplementedError, "ROADMAP Queue 1 #"
     if what == "mesh":
         cfg.mesh.data, match = 2, "#8"
     elif what == "pretrained":
-        kw["pretrained"], match = True, "#6"
-    elif what == "gs":
-        with pytest.raises(NotImplementedError, match="#6"):
-            tckpt.CheckpointManager("gs://bucket/run/checkpoints")
-        with pytest.raises(NotImplementedError, match="#6"):
-            tckpt.save_model("gs://bucket/model", None, "{}")
+        cfg.model.model_name = str(tmp_path)      # no model.safetensors
+        tr = ttrainer.Trainer(cfg, store=fake.store, device="cpu",
+                              pretrained=True)
+        assert "[import_hf] local load failed" in capsys.readouterr().out
+        init = tvit.init_params(torch.Generator().manual_seed(
+            cfg.train.seed), cfg.model)
+        assert all(torch.equal(a, b) for a, b in zip(
+            tr.state.params.parameters(), init.parameters()))
+        tr.close()
         return
+    elif what == "gs":
+        with pytest.raises(ValueError, match="local path"):
+            tckpt.save_model("gs://bucket/model", None, "{}")
+        with pytest.raises(ValueError, match="local path"):
+            tckpt.load_model("gs://bucket/model", None)
+        with pytest.raises(ValueError, match="local path"):
+            Predictor.from_model_dir("gs://bucket/model", device="cpu")
+        cfg.train.output_dir, err, match = ("gs://bucket/out", ValueError,
+                                            "local path")
     elif what == "hf_dataset":
-        cfg.data.backend, match = "hf_dataset", "#12"
+        from chestxray_vit_tpu_torch.data import hf_datasets
+
+        def reached(*args, **kwargs):
+            raise _Reached(args, kwargs)
+
+        monkeypatch.setattr(hf_datasets, "load_hf_dataset", reached)
+        cfg.data.backend, err = "hf_dataset", _Reached
+        match = "kerem/nih-chest-xray-14.*'img_size': 64"
     elif what == "eval_quantize":
         cfg.train.eval_quantize, err, match = "int4", ValueError, "int4"
     else:
