@@ -18,6 +18,9 @@ the layers (``ops/tome.r_schedule``).
   ``cfg.remat_policy`` (``vit.remat_policy``), the merge included; where
   the policy recomputes it, the backward recomputes the matching, which
   equals the forward's because every kernel before it is deterministic.
+  With ``int8_scales`` its projections run on the int8 straight-through
+  product (``models/int8_train.py``), as the train step's int8 forward
+  does when ``model.tome_r`` is set.
 - :func:`apply_tome`: the serving forward on the dense tree or on a
   ``QuantizedViT``, with the attention always the forward-only kernel.
 
@@ -33,6 +36,7 @@ from typing import Optional, Sequence
 import torch
 
 from chestxray_vit_tpu_torch.config import ModelConfig
+from chestxray_vit_tpu_torch.models import int8_train
 from chestxray_vit_tpu_torch.models import quantized as quantized_mod
 from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
@@ -56,6 +60,19 @@ def _tome_block(x: torch.Tensor, sizes: torch.Tensor, bp: vit.Block,
     return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out), sizes
 
 
+def _tome_int8_block(x: torch.Tensor, sizes: torch.Tensor, bp: vit.Block,
+                     cfg: ModelConfig, dt: torch.dtype, train: bool,
+                     seeds: Optional[vit.LayerSeeds], r_i: int, act: dict):
+    """:func:`_tome_block` with every projection on the int8
+    straight-through product (``models/int8_train.py``) at this layer's
+    activation scales ``act``; the metric is the mean of its keys."""
+    x, kmean = int8_train.attention_residual(x, bp, cfg, dt, train, seeds,
+                                             act, return_key_mean=True)
+    x, sizes = tome_merge_clamped(x, kmean, sizes, r_i)
+    return int8_train.mlp_residual(x, bp, cfg, dt, train, seeds,
+                                   act), sizes
+
+
 def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
                      r: int, *, train: bool = True,
                      dropout_seeds: Optional[Sequence[vit.LayerSeeds]] = None,
@@ -66,19 +83,22 @@ def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
     The counterpart of :func:`vit.apply` (the same weights, casts, kernels
     and dropout): one ``(attention, hidden after attention, hidden after
     MLP)`` seed triple per layer in ``dropout_seeds`` takes the place of
-    the reference's per-layer key split. ``int8_scales`` (the int8
-    straight-through forward inside the merged one) is not ported yet."""
+    the reference's per-layer key split. ``int8_scales`` (a
+    ``calibrate_vit_scales`` tree) runs every projection, the patch
+    embedding included, on the int8 straight-through product of
+    ``models/int8_train.py`` inside the merged forward, at the layer's
+    calibrated scales."""
     if r <= 0:
         raise ValueError(f"tome r={r} must be positive")
     if cfg.fused_qkv:
         raise ValueError("model.fused_qkv does not compose with tome_r")
-    if int8_scales is not None:
-        raise NotImplementedError(
-            "int8_scales (the int8 straight-through train forward is "
-            "ROADMAP Queue 1 #11) is not ported yet")
     vit._check_supported(cfg, dropout_seeds)
     dt = vit.torch_dtype(cfg.dtype)
-    x = vit.embed(params, images, cfg, dt)
+    if int8_scales is None:
+        x = vit.embed(params, images, cfg, dt)
+    else:
+        int8_scales = int8_train.place_scales(int8_scales, images.device)
+        x = int8_train.embed(params, images, cfg, dt, int8_scales["patch"])
     sizes = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
     policy = (vit.remat_policy(cfg)
               if train and cfg.remat and torch.is_grad_enabled() else None)
@@ -88,8 +108,11 @@ def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
         args = (x, sizes, bp, cfg, dt, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
                 else None, r_i)
-        x, sizes = policy(_tome_block, *args) if policy else _tome_block(
-            *args)
+        block = _tome_block
+        if int8_scales is not None:
+            block = _tome_int8_block
+            args += (int8_train.layer_scales(int8_scales, i),)
+        x, sizes = policy(block, *args) if policy else block(*args)
     return vit.head_logits(params, x, cfg)
 
 

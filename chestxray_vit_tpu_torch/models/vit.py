@@ -294,17 +294,26 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     probs = None
     if return_probs:
         o, probs = _attention_probs(q, k, v)
-    elif train and cfg.attention_dropout > 0.0 and seed is not None:
-        o = attention_dropout(q, k, v, seed, cfg.attention_dropout,
-                              impl=attn_impl)
     else:
-        o = attention(q, k, v, impl=attn_impl, inference=not train)
+        o = attend(q, k, v, cfg, attn_impl, train, seed)
     out = _linear(o.transpose(1, 2).reshape(b, s, d), bp.wo, compute_dtype)
     if return_probs:
         return out, probs
     if return_key_mean:
         return out, k.mean(dim=1)
     return out
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cfg: ModelConfig, attn_impl: str, train: bool,
+           seed: Optional[int]) -> torch.Tensor:
+    """The attention of a block on [B, H, S, hd] heads: with ``train``,
+    ``attention_dropout`` and a ``seed`` the dropout kernels, else the
+    training kernels (``train``) or the forward-only one."""
+    if train and cfg.attention_dropout > 0.0 and seed is not None:
+        return attention_dropout(q, k, v, seed, cfg.attention_dropout,
+                                 impl=attn_impl)
+    return attention(q, k, v, impl=attn_impl, inference=not train)
 
 
 def _attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

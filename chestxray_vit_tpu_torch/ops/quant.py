@@ -49,14 +49,23 @@ def _to_int8(q: torch.Tensor) -> torch.Tensor:
     return torch.clamp(q, -127.0, 127.0).to(torch.int8)
 
 
-def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
-    """f32/bf16 ``[in, out]`` (the JAX orientation) → per-output-channel
-    symmetric int8, stored ``[out, in]``."""
+def quantize_weight_tensors(w: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32/bf16 ``[in, out]`` (the JAX orientation) → (int8 ``[out, in]``,
+    f32 per-output-channel scales ``[out]``): symmetric per-channel
+    quantization as tensors, for a caller that quantizes live weights every
+    step (the int8 training forward) and keeps no module."""
     w = w.float()
     amax = w.abs().amax(dim=0)                                # [out]
     scale = _div(torch.clamp_min(amax, 1e-8), 127.0)
     q = _to_int8(torch.round(w / scale))
-    return QuantizedWeight(q.t().contiguous(), scale)
+    return q.t().contiguous(), scale
+
+
+def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
+    """f32/bf16 ``[in, out]`` (the JAX orientation) → per-output-channel
+    symmetric int8, stored ``[out, in]``."""
+    return QuantizedWeight(*quantize_weight_tensors(w))
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -37,8 +37,10 @@ the global batch's mean); the packed step sums its loss's numerator and
 denominator in the same all-reduce and divides by the global denominator,
 since ranks pack unequal numbers of real images.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
-int8 straight-through train forward (``int8_scales``).
+``make_train_step(int8_scales=...)`` trains on the int8 straight-through
+forward (``models/int8_train.py``: int8 products forward, the dense
+linear's gradients backward), merged when ``model.tome_r`` is also set;
+mixup, dropout and accumulation are unchanged.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ import numpy as np
 import torch
 
 from chestxray_vit_tpu_torch.config import Config
+from chestxray_vit_tpu_torch.models import int8_train
 from chestxray_vit_tpu_torch.models import packed as packed_model
 from chestxray_vit_tpu_torch.models import quantized as quantized_mod
 from chestxray_vit_tpu_torch.models import tome_forward, vit
@@ -187,21 +190,38 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None
     and ``lr`` on the parameters' device. ``batch`` holds ``labels`` and
     one pixel placement (see ``prepare_pixel_values``), on the parameters'
     device. ``draws`` (one :class:`Draws` per micro-batch) replaces what
-    the step would draw from ``state.generator``."""
-    if int8_scales is not None:
-        raise NotImplementedError(
-            "int8_scales (the int8 straight-through train forward is "
-            "ROADMAP Queue 1 #11) is not ported yet")
+    the step would draw from ``state.generator``.
+
+    ``int8_scales`` (a ``calibrate_vit_scales`` tree) trains on the int8
+    straight-through forward, ``apply_int8_train``, or with
+    ``model.tome_r`` on the merged one, ``apply_tome_train(int8_scales=)``;
+    the tree is placed on the batch's device at the first step and kept
+    there."""
     schedule, adamw_cfg = _optimizer(cfg, total_steps)
     accum = max(cfg.train.gradient_accumulation_steps, 1)
+    placed = {}                            # device -> the scales there
+
+    def forward(params: vit.ViT, images: torch.Tensor, d: Draws):
+        if int8_scales is None:
+            return vit.apply(params, images, cfg.model, train=True,
+                             dropout_seeds=d.seeds)
+        if images.device not in placed:
+            placed[images.device] = int8_train.place_scales(int8_scales,
+                                                            images.device)
+        scales = placed[images.device]
+        if cfg.model.tome_r:
+            return tome_forward.apply_tome_train(
+                params, images, cfg.model, cfg.model.tome_r, train=True,
+                dropout_seeds=d.seeds, schedule=cfg.model.tome_schedule,
+                int8_scales=scales)
+        return int8_train.apply_int8_train(params, images, cfg.model, scales,
+                                           train=True, dropout_seeds=d.seeds)
 
     def loss_fn(params: vit.ViT, batch: Batch, d: Draws) -> torch.Tensor:
         images, labels = _images(cfg, batch), batch["labels"]
         if d.lam is not None:
             images, labels = mixup(images, labels, d.lam)
-        logits = vit.apply(params, images, cfg.model, train=True,
-                           dropout_seeds=d.seeds)
-        return bce_with_logits(logits, labels)
+        return bce_with_logits(forward(params, images, d), labels)
 
     def grads_of(params: vit.ViT, batch: Batch,
                  draws: Sequence[Draws]) -> torch.Tensor:

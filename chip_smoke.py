@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: the serving path, the
-fine-tune step (dense, and with attention dropout, hidden dropout and
-mixup), the eval step, packed variable-resolution training (with and
+fine-tune step (dense, with attention dropout, hidden dropout and mixup,
+and on the int8 straight-through forward), the eval step, packed variable-resolution training (with and
 without within-segment token merging), token merging on the dense
 forward (training, serving and eval), the remat policies, the fused Q/K/V
 projection, attention maps, the Trainer entry point (a training run
@@ -183,6 +183,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the saved model, read back equal to the trained parameters; ``maps``
    with rollout and gradcam (4 overlays each); ``smoke`` (hidden 64, one
    head of 64).
+29. train_int8: bench.py's step (b36, bf16, full remat) on the int8
+   straight-through forward (``make_train_step(int8_scales=)``, scales
+   calibrated on the batch): 3 warm-up and 10 timed steps, finite losses
+   that fall, exactly 145 int8 kernel launches a step (the patch
+   embedding, then 72 block products in the forward and the recompute)
+   beside the dense step's launches, step ms, images/s beside phase 6's,
+   peak memory; train_int8_tome, the same merging tome_r 16 (constant)
+   over 2 + 5 steps beside phase 18's merged step, each layer's attention
+   length; train_int8_remat, the first step under full remat, without
+   remat and under ``mlp``, without and with both dropouts 0.1 and mixup
+   0.2 on the same draws: equal bits and exact launches.
+30. train_int8_cross_check: depth 2, full width, batch 2, f32: the int8
+   train step on the card against the CPU's (the same weights, scales and
+   draws), without and with attention dropout 0.1 and mixup 0.2, and the
+   eval-mode int8 logits (INT8_XCHECK).
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -190,8 +205,10 @@ kernel_check also holds the four segment kernels to their plain versions at
 4 x 256 + 128 pad); and ragged with interleaved ids (S = 1136, the order a
 token merge leaves). It also holds the int8 kernel to its plain version at the batch-32
 serving shapes in its five call forms (INT8_FORMS: patch embed, Q/K/V, the
-residual forms of wo and mlp_out, mlp_in with GELU and requantize), equal
-bits twice. At the lengths token merging leaves on the dense path
+residual forms of wo and mlp_out, mlp_in with GELU and requantize), and at
+the b36 training shapes in the four forms of the int8 train forward
+(INT8_TRAIN_FORMS: bf16 out, no residual, GELU or requantize), equal bits
+twice. At the lengths token merging leaves on the dense path
 (MERGED_LENGTHS: 561, 517, 401, 197) it checks the inference, training and
 dropout attention kernels at batch 36 (the debug kernel's mask: 0
 mismatches), the LayerNorm forward and backward at 36 · S rows and two
@@ -208,6 +225,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -336,6 +354,19 @@ XCHECK_BF16 = {"loss": 5e-2, "grads_rel": 5e-2, "params": 2.1e-4}
 INT8_ROUTE_TOL, INT8_ROUTE_MIN_CORR = 0.15, 0.995
 NOISE_STD = 1e-6
 INT8_PROB_TOL, INT8_MIN_CORR = 0.1, 0.995
+# - train_int8_cross_check, the card's f32 int8 train step against the
+#   CPU's on the same weights, scales and draws: the int8 forward is not
+#   continuous (see INT8_ROUTE_TOL), so the eval-mode logits are held to
+#   INT8_ROUTE_TOL and INT8_ROUTE_MIN_CORR. The loss, a mean of BCE terms
+#   whose slope in their logit is below 1, moves by at most the mean logit
+#   difference: INT8_ROUTE_TOL holds it too. The gradients are the dense
+#   linear's at the forward's point, each logit's upstream gradient σ(l) − z
+#   moving by at most a quarter of its difference: 5e-2 of the largest
+#   gradient, XCHECK_BF16's bound for bf16 activations, which move the
+#   forward by as much. The weights after one AdamW step: XCHECK_BF16's
+#   2.1e-4 (about 2 lr where two gradients disagree in sign).
+INT8_XCHECK = {"logits": INT8_ROUTE_TOL, "logit_corr": INT8_ROUTE_MIN_CORR,
+               "loss": INT8_ROUTE_TOL, "grads_rel": 5e-2, "params": 2.1e-4}
 
 
 # Sequence lengths at which the dense attention kernels are held against
@@ -358,6 +389,8 @@ TOME_LENGTHS = {
     (16, "decreasing"): (577, 547, 519, 494, 471, 451, 433, 419, 407, 398,
                          391, 387)}
 TOME_DROPOUT_STEPS = 2
+# train_int8_tome: the int8 step merging tome_r 16 (constant), shorter
+INT8_TOME_WARMUP_STEPS, INT8_TOME_TIMED_STEPS = 2, 5
 # train_remat_policies: every policy, then the step without remat (None)
 REMAT_POLICIES = ("full", "mlp", "attn", "attn_mlp", "flash_out", "dots",
                   None)
@@ -880,6 +913,14 @@ INT8_FORMS = (
     ("wo_resid", INT8_BATCH * 577, 768, 768, True, False),
     ("mlp_in_gelu_requant", INT8_BATCH * 577, 768, 3072, False, True),
     ("mlp_out_resid", INT8_BATCH * 577, 3072, 768, True, False))
+# Its call forms in the b36 int8 straight-through train forward
+# (models/int8_train.py): no residual, GELU or requantize, bf16 out; q, k,
+# v and wo share one form.
+INT8_TRAIN_FORMS = (
+    ("train_patch_embed", TRAIN_BATCH * 576, 768, 768, False, False),
+    ("train_qkv_wo", TRAIN_BATCH * 577, 768, 768, False, False),
+    ("train_mlp_in", TRAIN_BATCH * 577, 768, 3072, False, False),
+    ("train_mlp_out", TRAIN_BATCH * 577, 3072, 768, False, False))
 
 
 def int8_operands(gen, m, k, n, with_resid, gelu) -> tuple:
@@ -907,13 +948,15 @@ def int8_operands(gen, m, k, n, with_resid, gelu) -> tuple:
 
 def check_int8_matmul(gen, summary: dict) -> None:
     """The int8 kernel against its plain version at the batch-32 serving
-    shapes, in the call forms of the fused route (INT8_FORMS): outputs
-    equal, int8 included; times by CUDA events and by the profiler's device
-    time beside ``torch._int_mm``'s (the int32 product alone, on the same
-    operands). The mlp_in form is the summary row."""
+    shapes, in the call forms of the fused route (INT8_FORMS), and at the
+    b36 training shapes in the call forms of the int8 train forward
+    (INT8_TRAIN_FORMS): outputs equal, int8 included; times by CUDA events
+    and by the profiler's device time beside ``torch._int_mm``'s (the int32
+    product alone, on the same operands). The serving mlp_in form is the
+    summary row."""
     from chestxray_vit_tpu_torch.ops import int8_matmul as i8
 
-    for name, m, k, n, with_resid, gelu in INT8_FORMS:
+    for name, m, k, n, with_resid, gelu in INT8_FORMS + INT8_TRAIN_FORMS:
         xq, wq, scale, bias, kw = int8_operands(gen, m, k, n, with_resid,
                                                 gelu)
         out = i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
@@ -939,8 +982,9 @@ def check_int8_matmul(gen, summary: dict) -> None:
                "tol": "equal", "ms": ms, "plain_ms": plain_ms,
                **device_ms(lambda: i8.int8_matmul_fused(xq, wq, scale, bias,
                                                          **kw)),
-               "earlier_ms": EARLIER_INT8_MS[name][0],
-               "earlier_device_ms": EARLIER_INT8_MS[name][1],
+               **({"earlier_ms": EARLIER_INT8_MS[name][0],
+                   "earlier_device_ms": EARLIER_INT8_MS[name][1]}
+                  if name in EARLIER_INT8_MS else {}),
                "library_ms": time_ms(lambda: torch._int_mm(xq, wt)),
                "library_device_ms": device_ms(
                    lambda: torch._int_mm(xq, wt))["device_ms"],
@@ -2248,13 +2292,13 @@ def phase_train_tome(dense_rec: dict):
     dense step. Then 2 steps of tome_r 16 with attention and hidden
     dropout 0.1 and mixup 0.2: the dropout kernels at the merged lengths.
     Returns (the launches of the timed runs, the tome_r 16 weights after
-    their steps)."""
+    their steps, images/s of the two merged steps by (tome_r, schedule))."""
     from chestxray_vit_tpu_torch.models import vit
     from chestxray_vit_tpu_torch.train import steps
 
     dev = torch.device("cuda")
     batch = bench_batch(TRAIN_BATCH, SEED, dev)
-    launches, kept = {}, None
+    launches, kept, rates = {}, None, {}
     drop = {"attention_dropout": DROP_RATE, "hidden_dropout": DROP_RATE}
     runs = [(r, schedule, 0.0, {}, WARMUP_STEPS, TIMED_STEPS)
             for r, schedule in TOME_STEPS]
@@ -2307,9 +2351,11 @@ def phase_train_tome(dense_rec: dict):
             launches[k] = launches.get(k, 0) + v
         if (r, schedule, extra) == (16, "constant", {}):
             kept = params
+        if not extra:
+            rates[(r, schedule)] = rec["images_per_s"]
         del state, run
         torch.cuda.empty_cache()
-    return launches, kept
+    return launches, kept, rates
 
 
 def phase_tome_cross_check() -> None:
@@ -3664,6 +3710,210 @@ def phase_cli() -> dict:
     return launches
 
 
+def int8_step_launches(n_layers: int, dropout: bool,
+                       policy: Optional[str] = "full") -> dict:
+    """Launches per int8 straight-through train step: the dense step's
+    (:func:`dense_launches_per_step`) and the int8 kernel's, once for the
+    patch embedding (outside the blocks), six times a block in the forward
+    and again where the backward recomputes the block (``full``,
+    ``flash_out``, ``dots``), or q, k and v again where it rebuilds them
+    (``attn``, ``attn_mlp``)."""
+    blocks = 2 if policy in ("full", "flash_out", "dots") else 1
+    rebuilt = 3 if policy in ("attn", "attn_mlp") else 0
+    return {**dense_launches_per_step(n_layers, dropout, policy),
+            "int8_matmul_fused": 1 + (6 * blocks + rebuilt) * n_layers}
+
+
+def calibrated_scales(params, cfg, batch: dict) -> dict:
+    """``calibrate_vit_scales`` on the batch's prepared pixels, as a user
+    calibrates the int8 train step on its first batch."""
+    from chestxray_vit_tpu_torch.models.quantized import calibrate_vit_scales
+    from chestxray_vit_tpu_torch.ops.preprocess import prepare_pixel_values
+
+    images = prepare_pixel_values(batch, out_size=cfg.model.img_size,
+                                  mean=cfg.data.image_mean,
+                                  std=cfg.data.image_std)
+    return calibrate_vit_scales(params, images, cfg.model)
+
+
+def phase_train_int8(dense_rec: dict, tome_rates: dict) -> dict:
+    """bench.py's step (ViT-B/16 @384, bf16, f32 masters, full remat, b36,
+    seed-0 weights) on the int8 straight-through forward
+    (``make_train_step(int8_scales=)``, scales calibrated on the batch):
+    3 warm-up and 10 timed steps, step ms, images/s beside phase 6's dense
+    step, peak memory, finite losses that fall, exact launches per step;
+    then ``train_int8_tome``, the same merging tome_r 16 (constant) over 2 +
+    5 steps beside phase 18's merged dense step, with each layer's
+    attention length. Then ``train_int8_remat``: the first step under full
+    remat, without remat and under ``mlp`` on the same weights and batch,
+    without and with attention and hidden dropout 0.1 and mixup 0.2 on the
+    same draws: equal bits, exact launches. Returns the launches of the
+    timed runs."""
+    from chestxray_vit_tpu_torch.models import tome_forward
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    batch = bench_batch(TRAIN_BATCH, SEED, dev)
+    launches, scales = {}, None
+    r16 = TOME_STEPS[0]
+    runs = (("train_int8", 0, "constant", WARMUP_STEPS, TIMED_STEPS,
+             "dense", dense_rec["images_per_s"]),
+            ("train_int8_tome", *r16, INT8_TOME_WARMUP_STEPS,
+             INT8_TOME_TIMED_STEPS, f"tome_{r16[0]}_{r16[1]}",
+             tome_rates[r16]))
+    for name, r, schedule, warmup, timed, ref_name, ref_rate in runs:
+        cfg = train_config(remat=True, tome_r=r, tome_schedule=schedule)
+        per_step = int8_step_launches(cfg.model.num_layers, False)
+        params = init_params(torch.Generator().manual_seed(SEED), cfg.model,
+                             dev)
+        if scales is None:
+            t0 = time.perf_counter()
+            scales = calibrated_scales(params, cfg, batch)
+            calibrate_s = time.perf_counter() - t0
+        run = run_steps(steps.make_train_step(cfg, total_steps=10_000,
+                                              int8_scales=scales),
+                        steps.TrainState.create(params, seed=42), batch,
+                        warmup, timed)
+        losses, norms = run["losses"], run["grad_norms"]
+        rec = {"phase": name, "batch": TRAIN_BATCH, "remat": "full",
+               "dtype": cfg.model.dtype, "tome_r": r,
+               "tome_schedule": schedule, "warmup_steps": warmup,
+               "timed_steps": timed, "step_ms": run["step_ms"],
+               "images_per_s": TRAIN_BATCH * timed / run["wall"],
+               f"{ref_name}_images_per_s": ref_rate,
+               f"images_per_s_vs_{ref_name}":
+                   TRAIN_BATCH * timed / run["wall"] / ref_rate,
+               "max_memory_allocated_gb": run["peak_gb"],
+               **({} if r else {"calibrate_s": calibrate_s}),
+               "losses": losses,
+               "grad_norms": norms,
+               "launches_per_step": run["step_counts"][-1],
+               "launches": run["launches"]}
+        if r:
+            with torch.no_grad():
+                _, seen = record_merges(lambda: tome_forward.apply_tome_train(
+                    params, batch["pixel_values"][:2], cfg.model, r,
+                    train=False, schedule=schedule, int8_scales=scales))
+            rec["attention_lengths"] = [n for n, _ in seen]
+        emit(rec)
+        require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+                f"{name}: finite loss and grad_norm at every step")
+        require(losses[-1] < losses[0], f"{name}: loss went down: {losses}")
+        require(all(c == per_step for c in run["step_counts"]),
+                f"{name}: launches per step {run['step_counts']} != "
+                f"{per_step}")
+        require(not r or rec["attention_lengths"] == list(
+            TOME_LENGTHS[(r, schedule)]),
+            f"{name}: attention lengths {rec.get('attention_lengths')}")
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        del params, run
+        torch.cuda.empty_cache()
+
+    # full remat, none and mlp: equal bits on the same draws
+    rows = {}
+    drop = {"attention_dropout": DROP_RATE, "hidden_dropout": DROP_RATE}
+    for label, alpha, extra in (("plain", 0.0, {}),
+                                ("dropout_mixup", MIXUP_ALPHA, drop)):
+        draws = [steps.draw(torch.Generator().manual_seed(SEED + 1),
+                            train_config(alpha, **extra), TRAIN_BATCH)]
+        ref = None
+        for policy in ("full", None, "mlp"):
+            cfg = train_config(alpha, remat=policy is not None,
+                               remat_policy=policy or "full", **extra)
+            params = init_params(torch.Generator().manual_seed(SEED),
+                                 cfg.model, dev)
+            step = steps.make_train_step(cfg, 10_000, int8_scales=scales)
+            before = launch_counts()
+            first = _first_step(step, params, batch, draws)
+            after = launch_counts()
+            counts = {k: after[k] - before[k] for k in after}
+            ref = ref or first
+            rows[f"{label}_{policy}"] = {
+                "loss": first[0], "vs_full_remat": _against(first, ref),
+                "launches": counts}
+            require(rows[f"{label}_{policy}"]["vs_full_remat"]["bit_equal"],
+                    f"int8 {label} remat {policy} against full remat: "
+                    f"{rows[f'{label}_{policy}']['vs_full_remat']}")
+            want = int8_step_launches(cfg.model.num_layers, bool(extra),
+                                      policy)
+            require(counts == want, f"int8 {label} remat {policy}: launches "
+                                    f"{counts} != {want}")
+            del params, step, first
+            torch.cuda.empty_cache()
+    emit({"phase": "train_int8_remat", "batch": TRAIN_BATCH,
+          "dtype": "bfloat16",
+          "dropout_mixup": {**drop, "mixup_alpha": MIXUP_ALPHA},
+          "steps": rows})
+    return launches
+
+
+def phase_train_int8_cross_check() -> None:
+    """Depth 2, full width, batch 2, f32: the int8 train step on the card
+    against the CPU (plain versions) on the same weights, scales
+    (calibrated on the CPU) and injected draws, without and with attention
+    dropout 0.1 and mixup 0.2 (hidden dropout draws from a generator of
+    the tensor's device, so train_int8_remat covers it); and the
+    eval-mode int8 forward's logits (the forward-only attention kernel)
+    against the CPU's, before the step. Bounds: INT8_XCHECK."""
+    from chestxray_vit_tpu_torch.models import bridge, int8_train
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.train import steps
+
+    rec = {"phase": "train_int8_cross_check", "depth": 2, "batch": 2,
+           "tol": INT8_XCHECK}
+    for label, alpha, extra in (("plain", 0.0, {}),
+                                ("dropout_mixup", MIXUP_ALPHA,
+                                 {"attention_dropout": DROP_RATE})):
+        cfg = train_config(alpha, num_layers=2, dtype="float32", **extra)
+        cpu_params = init_params(torch.Generator().manual_seed(SEED),
+                                 cfg.model)
+        tree = bridge.params_to_numpy(cpu_params)
+        batch = bench_batch(2, SEED + 1, "cpu")
+        scales = calibrated_scales(cpu_params, cfg, batch)
+        draws = [steps.draw(torch.Generator().manual_seed(SEED), cfg, 2)]
+
+        def run(params, device):
+            dev_batch = {k: v.to(device) for k, v in batch.items()}
+            with torch.no_grad():
+                logits = int8_train.apply_int8_train(
+                    params, dev_batch["pixel_values"], cfg.model, scales,
+                    train=False).cpu()
+            state, m = steps.make_train_step(cfg, 10_000,
+                                             int8_scales=scales)(
+                steps.TrainState.create(params, seed=0), dev_batch, draws)
+            return (logits, m["loss"].item(),
+                    _leaves(bridge.grads_to_numpy(state.params)),
+                    _leaves(bridge.params_to_numpy(state.params)))
+
+        c_logits, c_loss, c_g, c_p = run(cpu_params, "cpu")
+        logits, loss, g, p = run(
+            bridge.params_from_jax(tree, cfg.model).to("cuda"), "cuda")
+        g_scale = max(float(np.abs(a).max()) for a in c_g)
+        rec[label] = {
+            "cpu_loss": c_loss,
+            "logits_max_abs_diff": (logits - c_logits).abs().max().item(),
+            "logit_corr": float(np.corrcoef(logits.numpy().ravel(),
+                                            c_logits.numpy().ravel())[0, 1]),
+            "logits_absmax": c_logits.abs().max().item(),
+            "loss_diff": abs(loss - c_loss),
+            "grads_rel_diff": max(float(np.abs(a - b).max())
+                                  for a, b in zip(g, c_g)) / g_scale,
+            "params_max_abs_diff": max(float(np.abs(a - b).max())
+                                       for a, b in zip(p, c_p))}
+    emit(rec)
+    for label in ("plain", "dropout_mixup"):
+        r = rec[label]
+        require(bool(np.isfinite(r["cpu_loss"]))
+                and r["logits_max_abs_diff"] <= INT8_XCHECK["logits"]
+                and r["logit_corr"] > INT8_XCHECK["logit_corr"]
+                and r["loss_diff"] <= INT8_XCHECK["loss"]
+                and r["grads_rel_diff"] <= INT8_XCHECK["grads_rel"]
+                and r["params_max_abs_diff"] <= INT8_XCHECK["params"],
+                f"int8 train {label} card vs CPU: {r}")
+
+
 KERNELS = (  # name (the kernel_check summary key), source, what it replaces
     ("int8_matmul_fused", "csrc/int8_matmul.cu",
      "chestxray_vit_tpu/ops/int8_pallas.py:51"),
@@ -3754,7 +4004,8 @@ def main() -> int:
         **drop)
     del mixed
     phase_train_packed_cross_check()
-    tome_train_launches, tome_params = phase_train_tome(train_rec)
+    tome_train_launches, tome_params, tome_rates = phase_train_tome(
+        train_rec)
     phase_tome_cross_check()
     serve_tome_launches = phase_serving_tome(int8_rec)
     tome_cfg = train_config(tome_r=TOME_STEPS[0][0],
@@ -3774,6 +4025,8 @@ def main() -> int:
     ddp_launches = phase_ddp_world1(fake)
     del fake
     cli_launches = phase_cli()
+    int8_train_launches = phase_train_int8(train_rec, tome_rates)
+    phase_train_int8_cross_check()
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "chestxray_vit_tpu")]
     require(not loaded, f"no JAX and no JAX-package module imported: "
@@ -3785,15 +4038,15 @@ def main() -> int:
     # dense steps, merged serving and merged eval, the timed steps of
     # every remat policy and of fused_qkv, the maps forward, the Trainer's
     # runs, the PackedTrainer's runs, the runs without and in a process
-    # group, the command line's commands), each counted from 0 just before
-    # it
+    # group, the command line's commands, the timed int8 train steps,
+    # plain and merged), each counted from 0 just before it
     paths = (serve_launches, serve_int8_launches, train_launches,
              eval_launches, eval_int8_launches, dropout_launches,
              packed_launches, tome_launches, mixed_launches,
              tome_train_launches, serve_tome_launches, *eval_tome_launches,
              policy_launches, fused_launches, maps_launches,
              trainer_launches, packed_trainer_launches, ddp_launches,
-             cli_launches)
+             cli_launches, int8_train_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)

@@ -2,7 +2,7 @@
 its serving forward (dense or static int8), on one NVIDIA GPU.
 
     python3 profile_step.py [--dropout | --int8 | --forward | --packed |
-                             --packed-tome] [--batch N]
+                             --packed-tome] [--int8-train] [--batch N]
                             [--tome-r R [--tome-schedule decreasing]]
                             [--remat-policy POLICY]
 
@@ -20,7 +20,9 @@ tokens on the dense step (with or without ``--dropout``) or on the int8
 forward, under ``--tome-schedule``. ``--remat-policy`` runs the dense
 step (with or without ``--dropout`` or ``--tome-r``) under another remat
 policy (``full``, the default, ``mlp``, ``attn``, ``attn_mlp``,
-``flash_out``, ``dots``; ``none`` trains without remat). After 3 warm-up steps
+``flash_out``, ``dots``; ``none`` trains without remat). ``--int8-train``
+runs the dense step (with any of those) on the int8 straight-through
+forward, its scales calibrated on the step's batch. After 3 warm-up steps
 ``torch.profiler`` traces 2 steps (forwards); the kernels of the trace are
 summed by category, and the busy share is the union of their intervals
 over the traced wall; ``syncs_per_step`` counts the host's waits on the
@@ -92,6 +94,7 @@ def main() -> int:
     mode.add_argument("--forward", action="store_true")
     mode.add_argument("--packed", action="store_true")
     mode.add_argument("--packed-tome", action="store_true")
+    ap.add_argument("--int8-train", action="store_true")
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--tome-r", type=int, default=0)
     ap.add_argument("--tome-schedule", choices=("constant", "decreasing"),
@@ -100,6 +103,9 @@ def main() -> int:
                     choices=("full", "mlp", "attn", "attn_mlp", "flash_out",
                              "dots", "none"))
     args = ap.parse_args()
+    if args.int8_train and (args.int8 or args.forward or args.packed
+                            or args.packed_tome):
+        ap.error("--int8-train profiles the dense train step")
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
@@ -132,8 +138,15 @@ def main() -> int:
         run, batch_size = packed_step(params, args.packed_tome, dev)
         config = "packed_tome" if args.packed_tome else "packed"
     else:
+        scales = None
+        if args.int8_train:
+            from chestxray_vit_tpu_torch.models.quantized import (
+                calibrate_vit_scales)
+            scales = calibrate_vit_scales(params, batch["pixel_values"],
+                                          cfg.model)
         state = steps.TrainState.create(params, seed=42)
-        step = steps.make_train_step(cfg, total_steps=10_000)
+        step = steps.make_train_step(cfg, total_steps=10_000,
+                                     int8_scales=scales)
 
         def run():
             nonlocal state
@@ -141,10 +154,11 @@ def main() -> int:
             return m["loss"]
 
         batch_size = BATCH
-        config = "dropout" if args.dropout else "dense"
+        config = ("int8_" if args.int8_train else "") + (
+            "dropout" if args.dropout else "dense")
     if args.tome_r and not (args.packed or args.packed_tome):
         config += f"_tome{args.tome_r}_{args.tome_schedule}"
-    if policy != "full" and config.startswith(("dense", "dropout")):
+    if policy != "full" and ("dense" in config or "dropout" in config):
         config += f"_remat_{policy}"
     for _ in range(WARMUP_STEPS):
         out = run()

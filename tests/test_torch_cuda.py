@@ -901,6 +901,46 @@ def test_quantized_eval_step_on_card_matches_cpu(dev):
                                atol=5 * 2e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_ste_op_on_card(dev, dtype):
+    """The int8 straight-through linear at a training shape (4 images of
+    577 tokens, 768 → 3072): the forward launches the int8 kernel once and
+    equals its plain version (the kernel's plain twin on the same int8
+    operands, and the op on CPU copies) bit for bit; the gradients equal
+    the dense linear's on the card (f32: rtol 1e-5; bf16: 1e-2 of the
+    largest, cuBLAS may sum in another order for the other layouts)."""
+    from chestxray_vit_tpu_torch.models import int8_train
+    from chestxray_vit_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 577, 768, generator=g).to(dtype)
+    w = (torch.randn(768, 3072, generator=g) * 0.02).to(dtype)
+    b = torch.randn(3072, generator=g).to(dtype) * 0.1
+    dy = torch.randn(4, 577, 3072, generator=g).to(dtype)
+    xs = float(x.float().abs().max()) / 127.0
+    leaves = [t.to(dev).requires_grad_() for t in (x, w, b)]
+    before = i8.int8_matmul_fused.launches
+    y = int8_train.int8_linear_ste(*leaves, xs, dtype)
+    assert i8.int8_matmul_fused.launches == before + 1
+    wq, ws = quant.quantize_weight_tensors(leaves[1].detach())
+    s = torch.tensor(xs, device=dev)
+    plain = i8.int8_matmul_fused_reference(
+        quant.quantize_static(leaves[0].detach(), s), wq, s * ws,
+        leaves[2].detach().float(), out_dtype=dtype)
+    assert torch.equal(y.detach(), plain)
+    assert torch.equal(y.detach().cpu(), int8_train.int8_linear_ste(
+        x, w, b, xs, dtype))
+    (y * dy.to(dev)).sum().backward()
+    dense = [t.to(dev).requires_grad_() for t in (x, w, b)]
+    ((dense[0] @ dense[1] + dense[2]) * dy.to(dev)).sum().backward()
+    for got, want in zip(leaves, dense):
+        a, r = got.grad.float(), want.grad.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+        else:
+            assert float((a - r).abs().max()) <= 1e-2 * float(r.abs().max())
+
+
 # ---------------------------------------------------------------------------
 # Segment-masked (packed) attention
 # ---------------------------------------------------------------------------

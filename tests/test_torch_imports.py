@@ -56,6 +56,7 @@ MODULES = [
     "chestxray_vit_tpu_torch.models.quantized",
     "chestxray_vit_tpu_torch.models.packed",
     "chestxray_vit_tpu_torch.models.tome_forward",
+    "chestxray_vit_tpu_torch.models.int8_train",
     "chestxray_vit_tpu_torch.models.export_hf",
     "chestxray_vit_tpu_torch.models.import_hf",
     "chestxray_vit_tpu_torch.train.optimizer",

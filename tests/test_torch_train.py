@@ -24,6 +24,7 @@ from chestxray_vit_tpu.train import steps as jsteps
 from chestxray_vit_tpu_torch.config import Config, ModelConfig, TrainConfig
 from chestxray_vit_tpu_torch.eval import metrics as tmetrics
 from chestxray_vit_tpu_torch.models import bridge
+from chestxray_vit_tpu_torch.models import quantized as tq
 from chestxray_vit_tpu_torch.models import vit as tvit
 from chestxray_vit_tpu_torch.train import optimizer as topt
 from chestxray_vit_tpu_torch.train import steps as tsteps
@@ -349,13 +350,19 @@ def test_mixup_int8_and_packed_raise():
     (tests/test_torch_quant.py), and the packed step
     (tests/test_torch_packed.py), with token merging too
     (tests/test_torch_tome.py), and token merging on the dense train and
-    eval steps (tests/test_torch_tome_dense.py); the int8 train step
-    still raises."""
+    eval steps (tests/test_torch_tome_dense.py), and the int8
+    straight-through train step, which builds and takes a step here
+    (tests/test_torch_int8_train.py holds it to the reference)."""
     cfg = tiny_cfg()
     tsteps.make_train_step(dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, mixup_alpha=0.2)), 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #11"):
-        tsteps.make_train_step(cfg, 10, int8_scales={})
+    _, tp = _params(cfg)
+    batch = _torch(_batches(1)[0])
+    scales = tq.calibrate_vit_scales(tp, batch["pixel_values"], cfg.model)
+    state, m = tsteps.make_train_step(cfg, 10, int8_scales=scales)(
+        tsteps.TrainState.create(tp, 0), batch)
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
+    assert np.isfinite(float(m["grad_norm"]))
     tome = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, tome_r=2))
     assert callable(tsteps.make_packed_train_step(cfg, 10))
