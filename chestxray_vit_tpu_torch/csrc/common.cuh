@@ -68,14 +68,18 @@ __device__ __forceinline__ float warp_sum(float x) {
 // `_keep_mask` / `_fmix32` (chestxray_vit_tpu/ops/flash_attention.py),
 // hashed in registers from each score element's global index, so the
 // forward and the backward regenerate the same mask and none is stored.
-// Element (bh, row, col) hashes the counter (bh * q_pad + row) * s_pad + col
-// (uint32, wrapping; q_pad and s_pad are the TPU wrapper's padded strides,
-// logical constants here) XOR the mixed seed, and is kept when the murmur3
-// finalizer of that reaches the threshold min(rate * 2^32, 2^32 - 1).
+// Element (bh, row, col) hashes the counter
+// ((bh_base + bh) * q_pad + row) * s_pad + col (uint32, wrapping; q_pad and
+// s_pad are the TPU wrapper's padded strides, logical constants here;
+// bh_base is the global (batch * head) index of the call's first row, so a
+// data-parallel rank's slice draws the masks of its rows in the global
+// batch) XOR the mixed seed, and is kept when the murmur3 finalizer of that
+// reaches the threshold min(rate * 2^32, 2^32 - 1).
 struct Dropout {
   uint32_t seed_mix;    // int32 seed read as uint32, times 0x9E3779B9
   uint32_t threshold;
   uint32_t q_pad, s_pad;
+  uint32_t bh_base;     // the global index of bh 0 (batch rows times heads)
   float keep_prob;      // 1 - rate: the forward divides l by it
   float inv_keep;       // 1 / (1 - rate): the backward's scale
   unsigned char* keep;  // debug forward only: the mask out, [B * H, S, S]
@@ -92,7 +96,8 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
 // The counter of (bh, row, col 0); add the column.
 __device__ __forceinline__ uint32_t drop_row(const Dropout& d, int bh,
                                              int row) {
-  return (static_cast<uint32_t>(bh) * d.q_pad + static_cast<uint32_t>(row)) *
+  return ((d.bh_base + static_cast<uint32_t>(bh)) * d.q_pad +
+          static_cast<uint32_t>(row)) *
          d.s_pad;
 }
 

@@ -26,9 +26,10 @@
 // product, softmax and PV product, over only the tiles that hold a
 // same-segment pair, with the id compare in the softmax; with kDropout the
 // counter hash on the CUDA cores in it. The dropout counter is
-// (bh * s_pad + i) * s_pad + j with s_pad the sequence padded to the TPU
-// wrapper's Q block (q_pad = s_pad, unlike the dense kernels' strides). The normalizer sums the clean
-// P, the output is divided by l * (1 - rate), lse is the clean softmax's.
+// ((bh_base + bh) * s_pad + i) * s_pad + j with s_pad the sequence padded
+// to the TPU wrapper's Q block (q_pad = s_pad, unlike the dense kernels'
+// strides). The normalizer sums the clean P, the output is divided by
+// l * (1 - rate), lse is the clean softmax's.
 
 #include "attention_fwd.cuh"
 
@@ -50,8 +51,8 @@ extern "C" int cxr_attention_fwd_seg(
       static_cast<const int*>(seg));
 }
 
-// The dropout forward: seed_mix, threshold, q_pad and s_pad define the mask
-// (see cxr::Dropout); keep_prob is 1 - rate.
+// The dropout forward: seed_mix, threshold, q_pad, s_pad and bh_base define
+// the mask (see cxr::Dropout); keep_prob is 1 - rate.
 extern "C" int cxr_attention_fwd_seg_dropout(
     const void* q, const void* k, const void* v, const void* seg, void* o,
     void* lse, int batch, int heads, int seq, int head_dim, long long q_sb,
@@ -59,11 +60,11 @@ extern "C" int cxr_attention_fwd_seg_dropout(
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, float scale,
     unsigned seed_mix, unsigned threshold, int q_pad, int s_pad,
-    float keep_prob, int dtype, int device, void* stream) {
+    unsigned bh_base, float keep_prob, int dtype, int device, void* stream) {
   if (q_pad < seq || s_pad < seq || !(keep_prob > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const cxr::Dropout drop{seed_mix, threshold, static_cast<uint32_t>(q_pad),
-                          static_cast<uint32_t>(s_pad), keep_prob,
+                          static_cast<uint32_t>(s_pad), bh_base, keep_prob,
                           1.f / keep_prob, nullptr};
   const cxr::Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};

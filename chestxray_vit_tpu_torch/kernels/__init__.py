@@ -49,12 +49,13 @@ _SIGNATURES = {
     "cxr_attention_fwd_dropout": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _LL, _LL, _LL, _LL, _LL, _LL,
                                   _LL, _LL, _LL, _LL, _LL, _LL,
-                                  _F, _U, _U, _I, _I, _F, _I, _I, _P],
+                                  _F, _U, _U, _I, _I, _U, _F, _I, _I,
+                                  _P],
     "cxr_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _P, _F, _I, _I, _P],
     "cxr_attention_bwd_dropout": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P, _F, _U, _U, _I, _I,
-                                  _F, _I, _I, _P],
+                                  _U, _F, _I, _I, _P],
     "cxr_attention_fwd_seg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _LL, _LL, _LL, _LL, _LL, _LL,
                               _LL, _LL, _LL, _LL, _LL, _LL,
@@ -62,12 +63,13 @@ _SIGNATURES = {
     "cxr_attention_fwd_seg_dropout": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _LL, _LL, _LL, _LL, _LL, _LL,
                                       _LL, _LL, _LL, _LL, _LL, _LL,
-                                      _F, _U, _U, _I, _I, _F, _I, _I, _P],
+                                      _F, _U, _U, _I, _I, _U, _F, _I, _I,
+                                      _P],
     "cxr_attention_bwd_seg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _P, _F, _I, _I, _P],
     "cxr_attention_bwd_seg_dropout": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _P, _I, _I, _I, _I, _P, _F, _U,
-                                      _U, _I, _I, _F, _I, _I, _P],
+                                      _U, _I, _I, _U, _F, _I, _I, _P],
     "cxr_layer_norm_fwd": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
     "cxr_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I,
                            _I, _I, _I, _P],
@@ -75,6 +77,7 @@ _SIGNATURES = {
     "cxr_int8_matmul_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _P],
     "cxr_tile_mma_selftest": [_P, _P, _P, _I, _I, _I, _P],
+    "cxr_hidden_dropout": [_P, _P, _LL, _LL, _U, _U, _U, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -132,7 +132,7 @@ def attention_residual(x: torch.Tensor, bp, cfg: ModelConfig,
                        dt: torch.dtype, train: bool,
                        seeds: Optional[vit.LayerSeeds],
                        act: Dict[str, torch.Tensor],
-                       return_key_mean: bool = False):
+                       return_key_mean: bool = False, row_base: int = 0):
     """``x + drop(wo(attention(q, k, v)))`` on LN1(x), every projection on
     the int8 straight-through product. The attention input is quantized
     once for q, k and v (the reference quantizes it three times with the
@@ -154,16 +154,18 @@ def attention_residual(x: torch.Tensor, bp, cfg: ModelConfig,
                      for key in ("wq", "wk", "wv"))
 
     q, k, v = checkpoint_name("attn_heads", heads)
-    o = vit.attend(q, k, v, cfg, cfg.attention_impl, train, attn_seed)
+    o = vit.attend(q, k, v, cfg, cfg.attention_impl, train, attn_seed,
+                   row_base)
     attn_out = _proj(o.transpose(1, 2).reshape(b, s, d), bp.wo,
                      act["attn_out"], dt)
-    x = x + vit._dropout(attn_out, hidden, seed_attn_out)
+    x = x + vit._dropout(attn_out, hidden, seed_attn_out, row_base)
     return (x, k.mean(dim=1)) if return_key_mean else x
 
 
 def mlp_residual(x: torch.Tensor, bp, cfg: ModelConfig, dt: torch.dtype,
                  train: bool, seeds: Optional[vit.LayerSeeds],
-                 act: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 act: Dict[str, torch.Tensor],
+                 row_base: int = 0) -> torch.Tensor:
     """``x + drop(mlp_out(GELU(mlp_in(LN2(x)))))`` on the int8
     straight-through product, the GELU output named ``mlp_hidden``."""
     seed_mlp_out = seeds[2] if seeds else None
@@ -173,20 +175,21 @@ def mlp_residual(x: torch.Tensor, bp, cfg: ModelConfig, dt: torch.dtype,
     hmid = vit._gelu_named(_proj(m_in, bp.mlp_in, act["mlp_in"], dt),
                            cfg.gelu_approximate)
     out = _proj(hmid, bp.mlp_out, act["mlp_mid"], dt)
-    return x + vit._dropout(out, hidden, seed_mlp_out)
+    return x + vit._dropout(out, hidden, seed_mlp_out, row_base)
 
 
 def _block(x: torch.Tensor, bp, cfg: ModelConfig, dt: torch.dtype,
            train: bool, seeds: Optional[vit.LayerSeeds],
-           act: Dict[str, torch.Tensor]) -> torch.Tensor:
-    x = attention_residual(x, bp, cfg, dt, train, seeds, act)
-    return mlp_residual(x, bp, cfg, dt, train, seeds, act)
+           act: Dict[str, torch.Tensor], row_base: int) -> torch.Tensor:
+    x = attention_residual(x, bp, cfg, dt, train, seeds, act,
+                           row_base=row_base)
+    return mlp_residual(x, bp, cfg, dt, train, seeds, act, row_base)
 
 
 def apply_int8_train(params: vit.ViT, images: torch.Tensor,
                      cfg: ModelConfig, scales: Scales, *, train: bool = True,
-                     dropout_seeds: Optional[Sequence[vit.LayerSeeds]] = None
-                     ) -> torch.Tensor:
+                     dropout_seeds: Optional[Sequence[vit.LayerSeeds]] = None,
+                     row_base: int = 0) -> torch.Tensor:
     """:func:`vit.apply` with every projection on the int8 straight-through
     product: NHWC images → f32 logits [B, num_classes].
 
@@ -196,7 +199,8 @@ def apply_int8_train(params: vit.ViT, images: torch.Tensor,
     training kernels, the dropout ones with ``attention_dropout`` and a
     seed, the forward-only one with ``train=False``: run that under
     ``torch.no_grad()``), GELU and the head stay as in ``vit.apply``, as do
-    ``dropout_seeds`` and ``cfg.remat`` under every ``remat_policy``.
+    ``dropout_seeds``, ``row_base`` and ``cfg.remat`` under every
+    ``remat_policy``.
     ``cfg.fused_qkv`` is ignored, as the reference's int8 body never reads
     it: q, k and v are three products."""
     vit._check_supported(cfg, dropout_seeds)
@@ -208,7 +212,7 @@ def apply_int8_train(params: vit.ViT, images: torch.Tensor,
     for i, bp in enumerate(params.blocks):
         args = (x, bp, cfg, dt, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
-                else None, layer_scales(scales, i))
+                else None, layer_scales(scales, i), row_base)
         x = policy(_block, *args) if policy else _block(*args)
     return vit.head_logits(params, x, cfg)
 

@@ -13,8 +13,9 @@ allowed grid, so @384 weights serve 256/384/512-px images in one batch.
 block (``ops.tome.tome_merge_packed``), so later layers see a shorter
 sequence whose segment ids interleave.
 
-Dropout takes per-layer seed triples, as ``vit.apply(dropout_seeds=...)``
-does. As in the reference, ``apply_packed`` checkpoints each block whole
+Dropout takes per-layer seed triples and the global sequence of the
+batch's first one (``row_base``), as ``vit.apply(dropout_seeds=...,
+row_base=...)`` does. As in the reference, ``apply_packed`` checkpoints each block whole
 under ``cfg.remat`` whatever ``cfg.remat_policy`` says, and has no fused
 Q/K/V projection (``cfg.fused_qkv`` changes nothing there);
 ``apply_packed_tome`` runs each block under ``vit.remat_policy`` and
@@ -49,7 +50,7 @@ def build_pos_table(params: vit.ViT, cfg: ModelConfig,
 def _packed_mha(x: torch.Tensor, bp: vit.Block, cfg: ModelConfig,
                 seg_ids: torch.Tensor, compute_dtype: torch.dtype,
                 train: bool = False, seed: Optional[int] = None,
-                return_key_mean: bool = False):
+                return_key_mean: bool = False, row_base: int = 0):
     """Multi-head attention within segments on the pre-LN input. The
     projections land as [B, H, S, hd] views, as in ``vit._mha``. With
     ``return_key_mean`` also the keys' mean over heads [B, S, hd], the
@@ -64,7 +65,8 @@ def _packed_mha(x: torch.Tensor, bp: vit.Block, cfg: ModelConfig,
     q, k, v = heads(bp.wq), heads(bp.wk), heads(bp.wv)
     drop = train and cfg.attention_dropout > 0.0 and seed is not None
     o = attention_packed(q, k, v, seg_ids, cfg.attention_impl,
-                         seed if drop else None, cfg.attention_dropout)
+                         seed if drop else None, cfg.attention_dropout,
+                         row_base)
     out = vit._linear(o.transpose(1, 2).reshape(b, s, d), bp.wo,
                       compute_dtype)
     if return_key_mean:
@@ -74,20 +76,23 @@ def _packed_mha(x: torch.Tensor, bp: vit.Block, cfg: ModelConfig,
 
 def _packed_block(x: torch.Tensor, seg: torch.Tensor, bp: vit.Block,
                   cfg: ModelConfig, dt: torch.dtype, train: bool,
-                  seeds: Optional[vit.LayerSeeds]) -> torch.Tensor:
+                  seeds: Optional[vit.LayerSeeds],
+                  row_base: int) -> torch.Tensor:
     attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
     hidden = cfg.hidden_dropout if train else 0.0
     a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
                       cfg.layernorm_eps)
-    attn_out = _packed_mha(a_in, bp, cfg, seg, dt, train, attn_seed)
-    x = x + vit._dropout(attn_out, hidden, seed_attn_out)
-    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out)
+    attn_out = _packed_mha(a_in, bp, cfg, seg, dt, train, attn_seed,
+                           row_base=row_base)
+    x = x + vit._dropout(attn_out, hidden, seed_attn_out, row_base)
+    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base)
 
 
 def _packed_tome_block(x: torch.Tensor, sizes: torch.Tensor,
                        seg: torch.Tensor, pw: torch.Tensor, bp: vit.Block,
                        cfg: ModelConfig, dt: torch.dtype, train: bool,
-                       seeds: Optional[vit.LayerSeeds], r_i: int):
+                       seeds: Optional[vit.LayerSeeds], r_i: int,
+                       row_base: int):
     """One block with the merge between attention and MLP; the count is
     clamped to the feasible maximum, as in the dense merging forward."""
     attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
@@ -95,12 +100,13 @@ def _packed_tome_block(x: torch.Tensor, sizes: torch.Tensor,
     a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
                       cfg.layernorm_eps)
     attn_out, kmean = _packed_mha(a_in, bp, cfg, seg, dt, train, attn_seed,
-                                  return_key_mean=True)
-    x = x + vit._dropout(attn_out, hidden, seed_attn_out)
+                                  return_key_mean=True, row_base=row_base)
+    x = x + vit._dropout(attn_out, hidden, seed_attn_out, row_base)
     r_l = min(r_i, (x.shape[1] + 1) // 2 - 1)
     if r_l > 0:
         x, sizes, seg, pw = tome_merge_packed(x, kmean, sizes, seg, pw, r_l)
-    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out), sizes, seg, pw
+    return (vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base), sizes,
+            seg, pw)
 
 
 def _embed_packed(params: vit.ViT, tokens: torch.Tensor,
@@ -128,12 +134,13 @@ def apply_packed(params: vit.ViT, tokens: torch.Tensor,
                  segment_ids: torch.Tensor, pos_indices: torch.Tensor,
                  pool_weights: torch.Tensor, cfg: ModelConfig,
                  grids: Sequence[int] = (16, 24, 32), *, train: bool = False,
-                 dropout_seeds: Optional[Sequence[vit.LayerSeeds]] = None
-                 ) -> torch.Tensor:
+                 dropout_seeds: Optional[Sequence[vit.LayerSeeds]] = None,
+                 row_base: int = 0) -> torch.Tensor:
     """Packed forward: tokens [B, S, patch_dim], int32 ``segment_ids`` and
     ``pos_indices`` [B, S], ``pool_weights`` [B, max_imgs, S] → f32 logits
     [B, max_imgs, C]. Shares every weight with :func:`vit.apply` except
-    the CLS token (pooled instead). ``train`` and ``dropout_seeds`` as in
+    the CLS token (pooled instead). ``train``, ``dropout_seeds`` and
+    ``row_base`` (here the global sequence of the first one) as in
     :func:`vit.apply`."""
     vit._check_supported(cfg, dropout_seeds)
     dt = vit.torch_dtype(cfg.dtype)
@@ -145,7 +152,7 @@ def apply_packed(params: vit.ViT, tokens: torch.Tensor,
     for i, bp in enumerate(params.blocks):
         args = (x, segment_ids, bp, cfg, dt, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
-                else None)
+                else None, row_base)
         if remat:
             x = torch.utils.checkpoint.checkpoint(_packed_block, *args,
                                                   use_reentrant=False)
@@ -160,7 +167,7 @@ def apply_packed_tome(params: vit.ViT, tokens: torch.Tensor,
                       grids: Sequence[int] = (16, 24, 32), *,
                       train: bool = False,
                       dropout_seeds: Optional[Sequence[vit.LayerSeeds]] = None,
-                      return_segment_ids: bool = False):
+                      return_segment_ids: bool = False, row_base: int = 0):
     """Packed forward with within-segment token merging (``cfg.tome_r``
     pairs per layer under ``cfg.tome_schedule``): after every attention
     block the most similar same-segment pairs merge, and the segment ids
@@ -190,7 +197,7 @@ def apply_packed_tome(params: vit.ViT, tokens: torch.Tensor,
         seen.append(seg)
         args = (x, sizes, seg, pw, bp, cfg, dt, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
-                else None, r_i)
+                else None, r_i, row_base)
         x, sizes, seg, pw = (policy(_packed_tome_block, *args) if policy
                              else _packed_tome_block(*args))
     logits = _pooled_logits(params, x, pw, cfg)

@@ -45,39 +45,43 @@ from chestxray_vit_tpu_torch.ops.tome import r_schedule, tome_merge_clamped
 
 def _tome_block(x: torch.Tensor, sizes: torch.Tensor, bp: vit.Block,
                 cfg: ModelConfig, dt: torch.dtype, train: bool,
-                seeds: Optional[vit.LayerSeeds], r_i: int):
+                seeds: Optional[vit.LayerSeeds], r_i: int, row_base: int):
     """One pre-LN block with the merge between the attention residual and
     LN2 (the paper's placement); the metric is this layer's keys' mean
-    over heads, aligned with x before the merge."""
+    over heads, aligned with x before the merge. The dropout counters run
+    over each site's own token count."""
     attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
     hidden = cfg.hidden_dropout if train else 0.0
     a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
                       cfg.layernorm_eps)
     attn_out, kmean = vit._mha(a_in, bp, cfg, cfg.attention_impl, dt, train,
-                               attn_seed, return_key_mean=True)
-    x = x + vit._dropout(attn_out, hidden, seed_attn_out)
+                               attn_seed, return_key_mean=True,
+                               row_base=row_base)
+    x = x + vit._dropout(attn_out, hidden, seed_attn_out, row_base)
     x, sizes = tome_merge_clamped(x, kmean, sizes, r_i)
-    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out), sizes
+    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base), sizes
 
 
 def _tome_int8_block(x: torch.Tensor, sizes: torch.Tensor, bp: vit.Block,
                      cfg: ModelConfig, dt: torch.dtype, train: bool,
-                     seeds: Optional[vit.LayerSeeds], r_i: int, act: dict):
+                     seeds: Optional[vit.LayerSeeds], r_i: int,
+                     row_base: int, act: dict):
     """:func:`_tome_block` with every projection on the int8
     straight-through product (``models/int8_train.py``) at this layer's
     activation scales ``act``; the metric is the mean of its keys."""
     x, kmean = int8_train.attention_residual(x, bp, cfg, dt, train, seeds,
-                                             act, return_key_mean=True)
+                                             act, return_key_mean=True,
+                                             row_base=row_base)
     x, sizes = tome_merge_clamped(x, kmean, sizes, r_i)
-    return int8_train.mlp_residual(x, bp, cfg, dt, train, seeds,
-                                   act), sizes
+    return int8_train.mlp_residual(x, bp, cfg, dt, train, seeds, act,
+                                   row_base), sizes
 
 
 def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
                      r: int, *, train: bool = True,
                      dropout_seeds: Optional[Sequence[vit.LayerSeeds]] = None,
                      schedule: str = "constant",
-                     int8_scales=None) -> torch.Tensor:
+                     int8_scales=None, row_base: int = 0) -> torch.Tensor:
     """Differentiable token-merging forward: NHWC images → f32 logits.
 
     The counterpart of :func:`vit.apply` (the same weights, casts, kernels
@@ -87,7 +91,7 @@ def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
     ``calibrate_vit_scales`` tree) runs every projection, the patch
     embedding included, on the int8 straight-through product of
     ``models/int8_train.py`` inside the merged forward, at the layer's
-    calibrated scales."""
+    calibrated scales. ``row_base`` as in :func:`vit.apply`."""
     if r <= 0:
         raise ValueError(f"tome r={r} must be positive")
     if cfg.fused_qkv:
@@ -107,7 +111,7 @@ def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
                                                  schedule))):
         args = (x, sizes, bp, cfg, dt, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
-                else None, r_i)
+                else None, r_i, row_base)
         block = _tome_block
         if int8_scales is not None:
             block = _tome_int8_block

@@ -26,9 +26,12 @@ forward outside the layer loop. Dropout follows the reference's HF
 semantics: on the softmax probabilities (``attention_dropout``, through the
 dropout attention kernels, whose counter-hash mask is the JAX package's
 bit for bit) and after the attention output and the MLP
-(``hidden_dropout``). Each takes a per-layer integer seed from the caller
+(``hidden_dropout``, the counter-hash kernel of ``ops/hidden_dropout.py``).
+Each takes a per-layer integer seed from the caller
 (``apply(dropout_seeds=...)``; the train step draws them), so a block
-recomputed under remat draws the same masks.
+recomputed under remat draws the same masks, and both masks are keyed by
+the global batch row (``apply(row_base=...)``), so a data-parallel rank
+draws its slice of the global batch's masks.
 
 With ``cfg.tome_r`` set, :func:`apply` runs the token-merging forward of
 ``models/tome_forward.py`` (training and eval alike, as the reference
@@ -55,6 +58,7 @@ from chestxray_vit_tpu_torch.models.remat import checkpoint_name
 from chestxray_vit_tpu_torch.ops.flash_attention import (attention,
                                                          attention_dropout)
 from chestxray_vit_tpu_torch.ops.gelu import erf_gelu_factors, gelu
+from chestxray_vit_tpu_torch.ops.hidden_dropout import hidden_dropout
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -263,7 +267,7 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
          compute_dtype: torch.dtype, train: bool = False,
          seed: Optional[int] = None, return_key_mean: bool = False,
          wqkv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-         return_probs: bool = False):
+         return_probs: bool = False, row_base: int = 0):
     """Multi-head attention on the pre-LN input.
 
     Each projection lands as a [B, H, S, hd] view of its [B, S, D] product
@@ -274,7 +278,8 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     projection. q, k and v are named ``attn_heads`` for the remat
     policies. A training forward with ``attention_dropout`` and a ``seed``
     drops probabilities inside the attention (the dropout kernels on the
-    card, their plain version on the CPU or with ``impl='xla'``).
+    card, their plain version on the CPU or with ``impl='xla'``), x's first
+    row global batch row ``row_base``.
     ``return_probs`` runs the plain attention with f32 scores and softmax
     (the reference's ``"xla"`` route) and also returns the probabilities
     [B, H, S, S] f32. With ``return_key_mean`` also the keys' mean over
@@ -295,7 +300,7 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     if return_probs:
         o, probs = _attention_probs(q, k, v)
     else:
-        o = attend(q, k, v, cfg, attn_impl, train, seed)
+        o = attend(q, k, v, cfg, attn_impl, train, seed, row_base)
     out = _linear(o.transpose(1, 2).reshape(b, s, d), bp.wo, compute_dtype)
     if return_probs:
         return out, probs
@@ -306,13 +311,14 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            cfg: ModelConfig, attn_impl: str, train: bool,
-           seed: Optional[int]) -> torch.Tensor:
+           seed: Optional[int], row_base: int = 0) -> torch.Tensor:
     """The attention of a block on [B, H, S, hd] heads: with ``train``,
-    ``attention_dropout`` and a ``seed`` the dropout kernels, else the
-    training kernels (``train``) or the forward-only one."""
+    ``attention_dropout`` and a ``seed`` the dropout kernels (q's first
+    row global batch row ``row_base``), else the training kernels
+    (``train``) or the forward-only one."""
     if train and cfg.attention_dropout > 0.0 and seed is not None:
         return attention_dropout(q, k, v, seed, cfg.attention_dropout,
-                                 impl=attn_impl)
+                                 impl=attn_impl, row_base=row_base)
     return attention(q, k, v, impl=attn_impl, inference=not train)
 
 
@@ -340,18 +346,17 @@ def fused_qkv_weights(params: "ViT", compute_dtype: torch.dtype
             for bp in params.blocks]
 
 
-def _dropout(x: torch.Tensor, rate: float,
-             seed: Optional[int]) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, seed: Optional[int],
+             row_base: int = 0) -> torch.Tensor:
     """Hidden dropout, ``where(keep, x / (1 − rate), 0)`` in x's dtype
-    (the reference's ``_dropout``). keep ~ Bernoulli(1 − rate) comes from
-    a generator on x's device seeded with ``seed`` inside the call, so a
-    recompute under remat draws the same mask (checkpoint's RNG replay
-    covers only the default generators). Off at rate 0 or without a seed."""
+    (the reference's ``_dropout``), through ``ops.hidden_dropout``: keep
+    is a counter hash of ``seed`` and each element's global index (x's
+    first row global batch row ``row_base``), so a recompute under remat,
+    a data-parallel rank's slice and the card and the CPU draw the same
+    mask. Off at rate 0 or without a seed."""
     if rate == 0.0 or seed is None:
         return x
-    gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+    return hidden_dropout(x, seed, rate, row_base)
 
 
 def _gelu_named(u: torch.Tensor, approximate: bool) -> torch.Tensor:
@@ -368,19 +373,21 @@ def _gelu_named(u: torch.Tensor, approximate: bool) -> torch.Tensor:
 
 
 def _mlp(x: torch.Tensor, bp: Block, cfg: ModelConfig, dt: torch.dtype,
-         hidden: float, seed: Optional[int]) -> torch.Tensor:
+         hidden: float, seed: Optional[int],
+         row_base: int = 0) -> torch.Tensor:
     """x + drop(MLP(LN2(x))) with erf GELU."""
     m_in = layer_norm(x, bp.ln2.scale.to(dt), bp.ln2.bias.to(dt),
                       cfg.layernorm_eps)
     hmid = _gelu_named(_linear(m_in, bp.mlp_in, dt), cfg.gelu_approximate)
-    return x + _dropout(_linear(hmid, bp.mlp_out, dt), hidden, seed)
+    return x + _dropout(_linear(hmid, bp.mlp_out, dt), hidden, seed,
+                        row_base)
 
 
 def _block(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
            compute_dtype: torch.dtype, train: bool = False,
            seeds: Optional[LayerSeeds] = None,
-           wqkv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-           ) -> torch.Tensor:
+           wqkv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+           row_base: int = 0) -> torch.Tensor:
     """One pre-LN encoder block (HF ViTLayer):
     x += drop(MHA(LN1(x))); x += drop(MLP(LN2(x))) with erf GELU."""
     dt = compute_dtype
@@ -389,9 +396,9 @@ def _block(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
                       cfg.layernorm_eps)
     attn_out = _mha(a_in, bp, cfg, attn_impl, dt, train, attn_seed,
-                    wqkv=wqkv)
-    x = x + _dropout(attn_out, hidden, seed_attn_out)
-    return _mlp(x, bp, cfg, dt, hidden, seed_mlp_out)
+                    wqkv=wqkv, row_base=row_base)
+    x = x + _dropout(attn_out, hidden, seed_attn_out, row_base)
+    return _mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base)
 
 
 def _check_supported(cfg: ModelConfig,
@@ -434,7 +441,8 @@ def _head(params: ViT, cls_features: torch.Tensor) -> torch.Tensor:
 
 def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
           train: bool = False, return_features: bool = False,
-          dropout_seeds: Optional[Sequence[LayerSeeds]] = None):
+          dropout_seeds: Optional[Sequence[LayerSeeds]] = None,
+          row_base: int = 0):
     """Forward pass.
 
     Args:
@@ -450,6 +458,9 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
         after MLP)`` triple of ints per layer, the counterpart of the
         reference's ``rng``: with ``train`` they switch on the configured
         dropout rates; None leaves dropout off, as ``rng=None`` does there.
+      row_base: the global batch row of ``images``' first row (0 in one
+        process; a data-parallel rank's offset in the global batch), the
+        row the dropout masks are keyed by.
 
     With ``cfg.tome_r`` set (and no ``return_features``) the forward is
     :func:`models.tome_forward.apply_tome_train`, for ``train`` True and
@@ -465,7 +476,8 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
             apply_tome_train)
         return apply_tome_train(params, images, cfg, cfg.tome_r, train=train,
                                 dropout_seeds=dropout_seeds,
-                                schedule=cfg.tome_schedule)
+                                schedule=cfg.tome_schedule,
+                                row_base=row_base)
     _check_supported(cfg, dropout_seeds)
     compute_dtype = torch_dtype(cfg.dtype)
     x = embed(params, images, cfg, compute_dtype)
@@ -476,7 +488,7 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
     for i, bp in enumerate(params.blocks):   # the JAX lax.scan over layers
         args = (x, bp, cfg, cfg.attention_impl, compute_dtype, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
-                else None, wqkv[i])
+                else None, wqkv[i], row_base)
         x = policy(_block, *args) if policy else _block(*args)
     fl = params.final_ln
     x = layer_norm(x, fl.scale, fl.bias, cfg.layernorm_eps)

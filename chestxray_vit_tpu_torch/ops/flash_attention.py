@@ -19,7 +19,11 @@
   again in the recompute (the ``flash_out`` remat policy).
 - ``keep_mask``, ``attention_dropout_{fwd,bwd}_reference``: the dropout
   mask (the counter hash of ``_keep_mask`` / ``_fmix32``) and the plain
-  math of ``_fwd_drop_impl`` and ``_bwd_kernel_drop``.
+  math of ``_fwd_drop_impl`` and ``_bwd_kernel_drop``. Every dropout
+  function takes ``row_base``, the global batch row of its first row (0
+  in one process): the mask of a data-parallel rank's slice is then the
+  slice of the global batch's mask, as the JAX step's one jitted function
+  over the global batch draws it.
 - ``flash_attention_dropout_{fwd,bwd,debug}``: the dropout kernels
   (``csrc/flash_attention_dropout.cu`` and ``csrc/flash_attention_bwd.cu``,
   the ports of ``_fwd_kernel_drop``, ``_fwd_kernel_drop_debug`` and
@@ -213,7 +217,7 @@ flash_attention_bwd.launches = 0         # kernel launches (chip_smoke.py)
 def _bwd_launch(q, k, v, o, lse, do, sm_scale, dropout=None,
                 segment_ids=None):
     """Launch the backward kernels; ``dropout`` = (seed_mix, threshold,
-    q_pad, s_pad, 1/(1 − rate)) takes the dropout entry point,
+    q_pad, s_pad, bh_base, 1/(1 − rate)) takes the dropout entry point,
     ``segment_ids`` (int32 [B, S], checked by the caller) the segment
     ones."""
     do = do.to(q.dtype)
@@ -338,34 +342,44 @@ def dropout_constants(seed: int, rate: float) -> Tuple[int, int]:
 
 
 def keep_mask(bh: int, q_pad: int, s_pad: int, seed: int, rate: float,
-              device=None) -> torch.Tensor:
+              device=None, bh_base: int = 0) -> torch.Tensor:
     """The dropout keep mask, bool [bh, q_pad, s_pad], of the JAX package's
     ``_keep_mask`` / ``_fmix32``: element (b, i, j) hashes the counter
-    (b·q_pad + i)·s_pad + j (uint32, wrapping) XOR the mixed seed and is
-    kept when the hash reaches the threshold. Plain integer tensor code
-    (uint32 arithmetic in int64), so it runs on the CPU and the card."""
+    ((bh_base + b)·q_pad + i)·s_pad + j (uint32, wrapping) XOR the mixed
+    seed and is kept when the hash reaches the threshold. ``bh_base`` is
+    the global (batch · head) index of row 0, so the mask of rows
+    [bh_base, bh_base + bh) of a global batch is that batch's mask sliced.
+    Plain integer tensor code (uint32 arithmetic in int64), so it runs on
+    the CPU and the card."""
     seed_mix, threshold = dropout_constants(seed, rate)
     kw = {"dtype": torch.int64, "device": device}
-    row = (torch.arange(bh, **kw)[:, None] * q_pad
-           + torch.arange(q_pad, **kw)[None, :]) & _M32
+    row = (((torch.arange(bh, **kw) + (bh_base & _M32)) & _M32)[:, None]
+           * q_pad + torch.arange(q_pad, **kw)[None, :]) & _M32
     counter = (_mul32(row, s_pad)[:, :, None]
                + torch.arange(s_pad, **kw)) & _M32
     return _fmix32(counter ^ seed_mix) >= threshold
 
 
-def _keep(q: torch.Tensor, seed: int, rate: float,
-          block_q: int) -> torch.Tensor:
-    """The [B, H, S, S] keep mask of attention over q's shape."""
+def _bh_base(q: torch.Tensor, row_base: int) -> int:
+    """The counter's uint32 (batch · head) base of batch row ``row_base``."""
+    return (int(row_base) * q.shape[1]) & _M32
+
+
+def _keep(q: torch.Tensor, seed: int, rate: float, block_q: int,
+          row_base: int = 0) -> torch.Tensor:
+    """The [B, H, S, S] keep mask of attention over q's shape, its first
+    batch row global row ``row_base``."""
     b, h, s, _ = q.shape
     q_pad, s_pad = mask_strides(s, block_q)
-    return keep_mask(b * h, q_pad, s_pad, seed, rate,
-                     q.device)[:, :s, :s].reshape(b, h, s, s)
+    return keep_mask(b * h, q_pad, s_pad, seed, rate, q.device,
+                     _bh_base(q, row_base))[:, :s, :s].reshape(b, h, s, s)
 
 
 def attention_dropout_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                                     v: torch.Tensor, seed: int, rate: float,
                                     sm_scale: Optional[float] = None,
-                                    block_q: int = DEFAULT_BLOCK_Q
+                                    block_q: int = DEFAULT_BLOCK_Q,
+                                    row_base: int = 0
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward of ``_fwd_drop_impl``: the clean softmax P (its lse is
     returned as the dense forward's), kept probabilities scaled by
@@ -373,7 +387,7 @@ def attention_dropout_fwd_reference(q: torch.Tensor, k: torch.Tensor,
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _scale(
         q, sm_scale)
     p = torch.softmax(s, dim=-1)
-    p = torch.where(_keep(q, seed, rate, block_q), p, 0.0)
+    p = torch.where(_keep(q, seed, rate, block_q, row_base), p, 0.0)
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / (1.0 - rate)
     return o.to(q.dtype), torch.logsumexp(s, dim=-1)
 
@@ -383,7 +397,8 @@ def attention_dropout_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                     lse: torch.Tensor, do: torch.Tensor,
                                     seed: int, rate: float,
                                     sm_scale: Optional[float] = None,
-                                    block_q: int = DEFAULT_BLOCK_Q
+                                    block_q: int = DEFAULT_BLOCK_Q,
+                                    row_base: int = 0
                                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                                torch.Tensor]:
     """Plain backward of ``_bwd_kernel_drop``: P recomputed from lse and
@@ -394,7 +409,7 @@ def attention_dropout_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     inv = 1.0 / (1.0 - rate)
     qf, kf, vf = q.float(), k.float(), v.float()
     dof = do.to(q.dtype).float()
-    keep = _keep(q, seed, rate, block_q)
+    keep = _keep(q, seed, rate, block_q, row_base)
     s = torch.matmul(qf, kf.transpose(-1, -2))
     p = torch.exp(s * scale - lse.float()[..., None]).to(q.dtype).float()
     dv = torch.matmul(torch.where(keep, p, 0.0).transpose(-1, -2), dof) * inv
@@ -406,7 +421,8 @@ def attention_dropout_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep):
+def _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep,
+                        row_base):
     """Launch the dropout forward kernel; ``keep`` (u8 [B·H, S, S]) makes it
     the debug variant that also writes the mask."""
     _check(q, k, v)
@@ -420,7 +436,8 @@ def _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep):
         lse.data_ptr(), keep.data_ptr() if keep is not None else None,
         b, h, s, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], _scale(q, sm_scale), seed_mix, threshold, q_pad,
-        s_pad, 1.0 - rate, _DTYPE_CODES[q.dtype], q.device.index, _stream(q))
+        s_pad, _bh_base(q, row_base), 1.0 - rate, _DTYPE_CODES[q.dtype],
+        q.device.index, _stream(q))
     kernels.check(err, "flash_attention_dropout_fwd")
     return out, lse
 
@@ -428,7 +445,8 @@ def _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep):
 def flash_attention_dropout_fwd(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, seed: int, rate: float,
                                 sm_scale: Optional[float] = None,
-                                block_q: int = DEFAULT_BLOCK_Q
+                                block_q: int = DEFAULT_BLOCK_Q,
+                                row_base: int = 0
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward with dropout: (o, lse f32 [B, H, S]). CPU tensors
     take :func:`attention_dropout_fwd_reference`; CUDA tensors launch the
@@ -436,8 +454,9 @@ def flash_attention_dropout_fwd(q: torch.Tensor, k: torch.Tensor,
     :func:`flash_attention_fwd` takes and hashes the mask in registers."""
     if q.device.type == "cpu":
         return attention_dropout_fwd_reference(q, k, v, seed, rate,
-                                               sm_scale, block_q)
-    out = _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, None)
+                                               sm_scale, block_q, row_base)
+    out = _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, None,
+                              row_base)
     flash_attention_dropout_fwd.launches += 1
     return out
 
@@ -448,7 +467,8 @@ flash_attention_dropout_fwd.launches = 0  # kernel launches (chip_smoke.py)
 def flash_attention_dropout_debug(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, seed: int, rate: float,
                                   sm_scale: Optional[float] = None,
-                                  block_q: int = DEFAULT_BLOCK_Q
+                                  block_q: int = DEFAULT_BLOCK_Q,
+                                  row_base: int = 0
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, keep bool [B, H, S, S]): the dropout forward that also writes
     the mask it applied, the oracle of the mask as the JAX package's
@@ -456,11 +476,12 @@ def flash_attention_dropout_debug(q: torch.Tensor, k: torch.Tensor,
     forward and :func:`keep_mask`."""
     if q.device.type == "cpu":
         o, _ = attention_dropout_fwd_reference(q, k, v, seed, rate,
-                                               sm_scale, block_q)
-        return o, _keep(q, seed, rate, block_q)
+                                               sm_scale, block_q, row_base)
+        return o, _keep(q, seed, rate, block_q, row_base)
     b, h, s, _ = q.shape
     keep = torch.empty((b, h, s, s), dtype=torch.bool, device=q.device)
-    o, _ = _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep)
+    o, _ = _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep,
+                               row_base)
     flash_attention_dropout_debug.launches += 1
     return o, keep
 
@@ -473,7 +494,8 @@ def flash_attention_dropout_bwd(q: torch.Tensor, k: torch.Tensor,
                                 lse: torch.Tensor, do: torch.Tensor,
                                 seed: int, rate: float,
                                 sm_scale: Optional[float] = None,
-                                block_q: int = DEFAULT_BLOCK_Q
+                                block_q: int = DEFAULT_BLOCK_Q,
+                                row_base: int = 0
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """Training backward with dropout: (dq, dk, dv) in q's dtype, laid
@@ -482,13 +504,14 @@ def flash_attention_dropout_bwd(q: torch.Tensor, k: torch.Tensor,
     kernels of ``csrc/flash_attention_bwd.cu`` with the mask regenerated."""
     if q.device.type == "cpu":
         return attention_dropout_bwd_reference(q, k, v, o, lse, do, seed,
-                                               rate, sm_scale, block_q)
+                                               rate, sm_scale, block_q,
+                                               row_base)
     s = q.shape[2]
     q_pad, s_pad = mask_strides(s, block_q)
     seed_mix, threshold = dropout_constants(seed, rate)
     grads = _bwd_launch(q, k, v, o, lse, do, sm_scale,
                         (seed_mix, threshold, q_pad, s_pad,
-                         1.0 / (1.0 - rate)))
+                         _bh_base(q, row_base), 1.0 / (1.0 - rate)))
     flash_attention_dropout_bwd.launches += 1
     return grads
 
@@ -499,11 +522,12 @@ flash_attention_dropout_bwd.launches = 0  # kernel launches (chip_smoke.py)
 @torch.library.custom_op("cxr::attention_dropout_fwd", mutates_args=())
 def _attention_dropout_fwd_op(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, seed: int, rate: float,
-                              sm_scale: Optional[float], block_q: int
+                              sm_scale: Optional[float], block_q: int,
+                              row_base: int
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_dropout_fwd` as a registered op."""
     return flash_attention_dropout_fwd(q, k, v, seed, rate, sm_scale,
-                                       block_q)
+                                       block_q, row_base)
 
 
 # The registered forwards whose outputs (o and lse) the JAX package names
@@ -515,17 +539,17 @@ ATTENTION_FWD_OPS = (torch.ops.cxr.attention_fwd.default,
 class FlashAttentionDropout(torch.autograd.Function):
     """Attention with dropout through the dropout kernels in both
     directions (their plain versions for CPU tensors). Saves q, k, v, o
-    and lse, as :class:`FlashAttention`, and the seed as a Python int: the
-    backward regenerates the mask, so no mask is stored and a recompute
-    under remat replays it."""
+    and lse, as :class:`FlashAttention`, and the seed and row base as
+    Python ints: the backward regenerates the mask, so no mask is stored
+    and a recompute under remat replays it."""
 
     @staticmethod
     def forward(ctx, q, k, v, seed, rate, sm_scale=None,
-                block_q=DEFAULT_BLOCK_Q):
+                block_q=DEFAULT_BLOCK_Q, row_base=0):
         o, lse = _attention_dropout_fwd_op(q, k, v, int(seed), rate,
-                                           sm_scale, block_q)
+                                           sm_scale, block_q, int(row_base))
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.seed, ctx.rate = int(seed), rate
+        ctx.seed, ctx.rate, ctx.row_base = int(seed), rate, int(row_base)
         ctx.sm_scale, ctx.block_q = sm_scale, block_q
         return o
 
@@ -534,22 +558,24 @@ class FlashAttentionDropout(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_dropout_bwd(
             q, k, v, o, lse, do, ctx.seed, ctx.rate, ctx.sm_scale,
-            ctx.block_q)
-        return dq, dk, dv, None, None, None, None
+            ctx.block_q, ctx.row_base)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, seed: int, rate: float,
                             sm_scale: Optional[float] = None,
-                            block_q: int = DEFAULT_BLOCK_Q) -> torch.Tensor:
+                            block_q: int = DEFAULT_BLOCK_Q,
+                            row_base: int = 0) -> torch.Tensor:
     """Attention with in-kernel probability dropout, the signature of the
     JAX package's ``flash_attention_dropout`` (``seed`` an int32 value,
-    ``block_q`` fixing only the mask's logical row stride): the autograd
+    ``block_q`` fixing only the mask's logical row stride) and
+    ``row_base``, the global batch row of q's first row: the autograd
     function over the kernels for CUDA tensors, over their plain versions
     for CPU tensors. The same seed gives the same mask as the JAX
-    function, bit for bit."""
+    function over the global batch, bit for bit."""
     return FlashAttentionDropout.apply(q, k, v, seed, rate, sm_scale,
-                                       block_q)
+                                       block_q, row_base)
 
 
 # ---------------------------------------------------------------------------
@@ -579,13 +605,14 @@ def _same_segment(segment_ids: torch.Tensor) -> torch.Tensor:
     return segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
 
 
-def _packed_keep(q: torch.Tensor, seed: int, rate: float,
-                 block_q: int) -> torch.Tensor:
-    """The [B, H, S, S] keep mask of the segment dropout kernels."""
+def _packed_keep(q: torch.Tensor, seed: int, rate: float, block_q: int,
+                 row_base: int = 0) -> torch.Tensor:
+    """The [B, H, S, S] keep mask of the segment dropout kernels, the first
+    sequence global sequence ``row_base``."""
     b, h, s, _ = q.shape
     q_pad, s_pad = packed_mask_strides(s, block_q)
-    return keep_mask(b * h, q_pad, s_pad, seed, rate,
-                     q.device)[:, :s, :s].reshape(b, h, s, s)
+    return keep_mask(b * h, q_pad, s_pad, seed, rate, q.device,
+                     _bh_base(q, row_base))[:, :s, :s].reshape(b, h, s, s)
 
 
 def attention_packed_reference(q: torch.Tensor, k: torch.Tensor,
@@ -661,25 +688,28 @@ def attention_packed_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 def attention_packed_dropout_fwd_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         segment_ids: torch.Tensor, seed: int, rate: float,
-        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q,
+        row_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward of ``_fwd_kernel_seg_drop``: the clean segment softmax
     (its lse is returned), kept probabilities scaled by 1/(1 − rate), the
     mask of :func:`keep_mask` on :func:`packed_mask_strides`."""
     return _packed_fwd_plain(q, k, v, segment_ids, sm_scale,
-                             _packed_keep(q, seed, rate, block_q), rate)
+                             _packed_keep(q, seed, rate, block_q, row_base),
+                             rate)
 
 
 def attention_packed_dropout_bwd_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         segment_ids: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
         do: torch.Tensor, seed: int, rate: float,
-        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q
+        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q,
+        row_base: int = 0
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward of ``_bwd_kernel_seg_drop``: the same mask M
     regenerated, dV = (M∘P)ᵀ·dO/(1−r), dS = P∘(M∘dP/(1−r) − Δ)."""
     return _packed_bwd_plain(q, k, v, segment_ids, o, lse, do, sm_scale,
-                             _packed_keep(q, seed, rate, block_q), rate)
+                             _packed_keep(q, seed, rate, block_q, row_base),
+                             rate)
 
 
 def _check_segments(q: torch.Tensor, segment_ids: torch.Tensor) -> None:
@@ -693,14 +723,18 @@ def _check_segments(q: torch.Tensor, segment_ids: torch.Tensor) -> None:
             f"{segment_ids.device}")
 
 
-def _packed_dropout_args(s: int, seed: int, rate: float, block_q: int):
-    """(seed_mix, threshold, q_pad, s_pad) of the segment dropout kernels."""
-    return (*dropout_constants(seed, rate), *packed_mask_strides(s, block_q))
+def _packed_dropout_args(q: torch.Tensor, seed: int, rate: float,
+                         block_q: int, row_base: int):
+    """(seed_mix, threshold, q_pad, s_pad, bh_base) of the segment dropout
+    kernels."""
+    return (*dropout_constants(seed, rate),
+            *packed_mask_strides(q.shape[2], block_q),
+            _bh_base(q, row_base))
 
 
 def _packed_fwd_launch(q, k, v, segment_ids, sm_scale, dropout=None):
     """Launch a segment forward kernel; ``dropout`` = (seed_mix, threshold,
-    q_pad, s_pad, 1 − rate) takes the dropout entry point. The ids are read
+    q_pad, s_pad, bh_base, 1 − rate) takes the dropout entry point. The ids are read
     in place as [B, S], once for all heads."""
     _check(q, k, v)
     _check_segments(q, segment_ids)
@@ -765,17 +799,18 @@ flash_attention_packed_bwd.launches = 0   # kernel launches (chip_smoke.py)
 def flash_attention_packed_dropout_fwd(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         segment_ids: torch.Tensor, seed: int, rate: float,
-        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q,
+        row_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segment-masked training forward with dropout: (o, lse). CPU tensors
     take :func:`attention_packed_dropout_fwd_reference`; CUDA tensors
     launch the kernel, which hashes the mask in registers."""
     if q.device.type == "cpu":
         return attention_packed_dropout_fwd_reference(
-            q, k, v, segment_ids, seed, rate, sm_scale, block_q)
+            q, k, v, segment_ids, seed, rate, sm_scale, block_q, row_base)
     out = _packed_fwd_launch(
         q, k, v, segment_ids, sm_scale,
-        (*_packed_dropout_args(q.shape[2], seed, rate, block_q), 1.0 - rate))
+        (*_packed_dropout_args(q, seed, rate, block_q, row_base),
+         1.0 - rate))
     flash_attention_packed_dropout_fwd.launches += 1
     return out
 
@@ -787,7 +822,8 @@ def flash_attention_packed_dropout_bwd(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         segment_ids: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
         do: torch.Tensor, seed: int, rate: float,
-        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q
+        sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q,
+        row_base: int = 0
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Segment-masked training backward with dropout. CPU tensors take
     :func:`attention_packed_dropout_bwd_reference`; CUDA tensors launch the
@@ -795,11 +831,12 @@ def flash_attention_packed_dropout_bwd(
     regenerated."""
     if q.device.type == "cpu":
         return attention_packed_dropout_bwd_reference(
-            q, k, v, segment_ids, o, lse, do, seed, rate, sm_scale, block_q)
+            q, k, v, segment_ids, o, lse, do, seed, rate, sm_scale, block_q,
+            row_base)
     _check_segments(q, segment_ids)
     grads = _bwd_launch(
         q, k, v, o, lse, do, sm_scale,
-        (*_packed_dropout_args(q.shape[2], seed, rate, block_q),
+        (*_packed_dropout_args(q, seed, rate, block_q, row_base),
          1.0 / (1.0 - rate)), segment_ids)
     flash_attention_packed_dropout_bwd.launches += 1
     return grads
@@ -830,16 +867,17 @@ class FlashAttentionPacked(torch.autograd.Function):
 
 class FlashAttentionPackedDropout(torch.autograd.Function):
     """Segment-masked attention with dropout through the segment dropout
-    kernels. Saves what :class:`FlashAttentionPacked` saves and the seed as
-    a Python int, so a recompute under remat replays the mask."""
+    kernels. Saves what :class:`FlashAttentionPacked` saves and the seed and
+    row base as Python ints, so a recompute under remat replays the
+    mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, seed, rate, sm_scale=None,
-                block_q=DEFAULT_BLOCK_Q):
+                block_q=DEFAULT_BLOCK_Q, row_base=0):
         o, lse = flash_attention_packed_dropout_fwd(
-            q, k, v, segment_ids, seed, rate, sm_scale, block_q)
+            q, k, v, segment_ids, seed, rate, sm_scale, block_q, row_base)
         ctx.save_for_backward(q, k, v, segment_ids, o, lse)
-        ctx.seed, ctx.rate = int(seed), rate
+        ctx.seed, ctx.rate, ctx.row_base = int(seed), rate, int(row_base)
         ctx.sm_scale, ctx.block_q = sm_scale, block_q
         return o
 
@@ -848,8 +886,8 @@ class FlashAttentionPackedDropout(torch.autograd.Function):
         q, k, v, segment_ids, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_packed_dropout_bwd(
             q, k, v, segment_ids, o, lse, do, ctx.seed, ctx.rate,
-            ctx.sm_scale, ctx.block_q)
-        return dq, dk, dv, None, None, None, None, None
+            ctx.sm_scale, ctx.block_q, ctx.row_base)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -873,30 +911,34 @@ def flash_attention_packed_dropout(q: torch.Tensor, k: torch.Tensor,
                                    segment_ids: torch.Tensor, seed: int,
                                    rate: float,
                                    sm_scale: Optional[float] = None,
-                                   block_q: int = DEFAULT_BLOCK_Q
-                                   ) -> torch.Tensor:
+                                   block_q: int = DEFAULT_BLOCK_Q,
+                                   row_base: int = 0) -> torch.Tensor:
     """:func:`flash_attention_packed` with in-kernel probability dropout,
     the signature of the JAX package's ``flash_attention_packed_dropout``
     (``seed`` an int32 value; ``block_q`` fixes the mask's strides, see
-    :func:`packed_mask_strides`). The same seed gives the JAX function's
-    mask, bit for bit."""
+    :func:`packed_mask_strides`) and ``row_base``, the global sequence of
+    the first one. The same seed gives the JAX function's mask, bit for
+    bit."""
     if q.device.type == "cpu":
         return attention_packed_dropout_fwd_reference(
-            q, k, v, segment_ids, seed, rate, sm_scale, block_q)[0]
+            q, k, v, segment_ids, seed, rate, sm_scale, block_q,
+            row_base)[0]
     return FlashAttentionPackedDropout.apply(q, k, v, segment_ids, seed,
-                                             rate, sm_scale, block_q)
+                                             rate, sm_scale, block_q,
+                                             row_base)
 
 
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      segment_ids: torch.Tensor, impl: str = "auto",
                      seed: Optional[int] = None,
-                     rate: float = 0.0) -> torch.Tensor:
+                     rate: float = 0.0, row_base: int = 0) -> torch.Tensor:
     """The attention dispatch of the reference's ``_packed_mha``:
     ``'xla'`` runs the plain version on any device, ``'auto'`` and
     ``'pallas'`` the segment kernels for CUDA tensors. With a ``seed`` and
     ``rate > 0`` probabilities are dropped with the counter-hash mask on
-    the automatic Q block (:func:`packed_block_q`) on every path; the
-    reference's XLA path draws another mask stream (``jax.random``)."""
+    the automatic Q block (:func:`packed_block_q`) on every path, the
+    first sequence global sequence ``row_base``; the reference's XLA path
+    draws another mask stream (``jax.random``)."""
     if impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if seed is None or rate == 0.0:
@@ -906,9 +948,9 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block_q = packed_block_q(q.shape[2])
     if impl == "xla":
         return attention_packed_dropout_fwd_reference(
-            q, k, v, segment_ids, seed, rate, None, block_q)[0]
+            q, k, v, segment_ids, seed, rate, None, block_q, row_base)[0]
     return flash_attention_packed_dropout(q, k, v, segment_ids, seed, rate,
-                                          None, block_q)
+                                          None, block_q, row_base)
 
 
 def _fits(t: torch.Tensor) -> bool:
@@ -972,18 +1014,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      seed: int, rate: float,
-                      impl: str = "auto") -> torch.Tensor:
+                      seed: int, rate: float, impl: str = "auto",
+                      row_base: int = 0) -> torch.Tensor:
     """Training attention with probability dropout, as the reference ViT's
     ``_mha`` runs it: :func:`flash_attention_dropout` with the automatic
     Q block (the mask's row stride) for ``'auto'`` and ``'pallas'``; its
-    plain version under plain autograd for ``'xla'``. The reference's XLA
-    path draws another mask stream (``jax.random``); the port keeps the
-    counter hash on every path."""
+    plain version under plain autograd for ``'xla'``. ``row_base`` is the
+    global batch row of q's first row. The reference's XLA path draws
+    another mask stream (``jax.random``); the port keeps the counter hash
+    on every path."""
     if impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
     block_q = auto_block_q(q.shape[2])
     if impl == "xla":
         return attention_dropout_fwd_reference(q, k, v, seed, rate, None,
-                                               block_q)[0]
-    return flash_attention_dropout(q, k, v, seed, rate, None, block_q)
+                                               block_q, row_base)[0]
+    return flash_attention_dropout(q, k, v, seed, rate, None, block_q,
+                                   row_base)

@@ -19,6 +19,9 @@ on its own device by ``data.pipeline.to_device``. The JAX package's three
 gathers (``process_allgather``, ``gather_global_rows`` and
 ``allgather_host_rows``) are one operation here, :func:`process_allgather`:
 an ``all_gather`` of equal-size row blocks, concatenated in rank order.
+:func:`neighbour_last_row` has no counterpart either: the JAX step rolls
+the global micro-batch, which carries one row across each shard boundary
+(a ``ppermute``); here each rank asks for the previous rank's last row.
 
 Everything degrades to the identity without a process group, so the same
 trainer code runs in one process; with a group of one process the
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -162,6 +165,30 @@ def process_allgather(x) -> np.ndarray:
         td.all_gather(parts, t)
         t = torch.cat(parts)
     return t.cpu().numpy()
+
+
+def neighbour_last_row(*rows: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The previous rank's ``rows`` (rank 0 gets the last rank's, as a roll
+    wraps): mixup's partner of a rank's first row is the last row of the
+    previous rank's slice of the global micro-batch. One ``all_gather`` of
+    the tensors packed flat in f32 (exact for f32 and bf16 pixels and for
+    labels); every rank's tensors must have the same shapes. The identity
+    without a group. Nothing flows back: the pixels are no parameters, so
+    the backward needs no collective."""
+    if not is_initialized():
+        return rows
+    dev = _comm_device()
+    flat = torch.cat([r.detach().reshape(-1).to(dev, torch.float32)
+                      for r in rows])
+    parts = [torch.empty_like(flat) for _ in range(world())]
+    td.all_gather(parts, flat)
+    prev = parts[(rank() - 1) % world()]
+    out, offset = [], 0
+    for r in rows:
+        out.append(prev[offset:offset + r.numel()].view(r.shape)
+                   .to(r.device, r.dtype))
+        offset += r.numel()
+    return tuple(out)
 
 
 def all_reduce_grads(params, *scalars: torch.Tensor, average: bool = False

@@ -119,7 +119,8 @@ class PackedTrainer(Trainer):
         self._warmup_step = self._build_tome_warmup_step()
 
     def _make_step_fn(self, cfg):
-        return S.make_packed_train_step(cfg, self.total_steps, self.grids)
+        return S.make_packed_train_step(cfg, self.total_steps, self.grids,
+                                        rank=dist.rank(), world=self._world)
 
     # ------------------------------------------------------------------
 

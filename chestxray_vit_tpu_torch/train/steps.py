@@ -37,6 +37,20 @@ the global batch's mean); the packed step sums its loss's numerator and
 denominator in the same all-reduce and divides by the global denominator,
 since ranks pack unequal numbers of real images.
 
+A data-parallel step computes what one process computes on the global
+batch, random transforms included. Rank r of ``world`` holds global rows
+[r·b, (r+1)·b) of the global batch, and its micro-batch i (rows i, i + k,
+… under accumulation k) is positions [r·b/k, (r+1)·b/k) of the global
+micro-batch i. So each micro-batch has one row base, r·b/k (in sequences
+for the packed step): the dropout masks are keyed by it
+(:class:`Draws` ``row_base``), λ is drawn at the global micro-batch length
+and sliced (every rank's generator stays in one state), and mixup's
+partner of the first row is the previous rank's last row
+(``distributed.neighbour_last_row``). The builders take ``rank`` and
+``world`` (by default the process group's), so one process can compute
+any rank's share: an emulated rank passes the neighbour rows in
+(``train_step(..., neighbours=mixup_neighbours(cfg, previous_batch))``).
+
 ``make_train_step(int8_scales=...)`` trains on the int8 straight-through
 forward (``models/int8_train.py``: int8 products forward, the dense
 linear's gradients backward), merged when ``model.tome_r`` is also set;
@@ -111,14 +125,22 @@ class Draws:
     seeds: Optional[List[vit.LayerSeeds]] = None
     # mixup λ per sample, f32 [micro-batch]; None without mixup
     lam: Optional[np.ndarray] = None
+    # the global row (sequence) of the micro-batch's first one, which the
+    # dropout masks are keyed by
+    row_base: int = 0
 
 
-def draw(generator: torch.Generator, cfg: Config, batch_size: int) -> Draws:
-    """One micro-batch's draws from ``generator``: 3 seeds per layer when
-    a dropout rate is set (the attention one an int32, as the reference's
-    ``_dropout_seed`` gives), then λ ~ Beta(α, α) per sample, sampled on
-    the host by a numpy generator seeded from ``generator``."""
-    out = Draws()
+def draw(generator: torch.Generator, cfg: Config, batch_size: int,
+         rank: int = 0, world: int = 1) -> Draws:
+    """One micro-batch's draws from ``generator`` for rank ``rank`` of
+    ``world``, whose micro-batch of ``batch_size`` rows is positions
+    [rank·batch_size, (rank+1)·batch_size) of the global one: 3 seeds per
+    layer when a dropout rate is set (the attention one an int32, as the
+    reference's ``_dropout_seed`` gives), then λ ~ Beta(α, α) per sample
+    of the global micro-batch, sampled on the host by a numpy generator
+    seeded from ``generator``, and this rank's slice of it. Every rank
+    draws the same numbers, so the generators stay in one state."""
+    out = Draws(row_base=rank * batch_size)
     m = cfg.model
     if m.attention_dropout > 0.0 or m.hidden_dropout > 0.0:
         raw = torch.randint(0, 2 ** 32, (m.num_layers, 3),
@@ -128,22 +150,29 @@ def draw(generator: torch.Generator, cfg: Config, batch_size: int) -> Draws:
     alpha = cfg.data.mixup_alpha
     if alpha > 0.0:
         seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=generator))
-        out.lam = np.random.default_rng(seed).beta(
-            alpha, alpha, batch_size).astype(np.float32)
+        lam = np.random.default_rng(seed).beta(
+            alpha, alpha, batch_size * world).astype(np.float32)
+        out.lam = lam[rank * batch_size:(rank + 1) * batch_size]
     return out
 
 
-def mixup(images: torch.Tensor, labels: torch.Tensor, lam
+def mixup(images: torch.Tensor, labels: torch.Tensor, lam,
+          prev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample mixup (the reference's, ``train/steps.py``): sample i
     mixes with the batch rolled by one, ``λ_i·x_i + (1 − λ_i)·x_{i−1}``,
-    on the images and, as f32 soft labels, on the labels."""
+    on the images and, as f32 soft labels, on the labels. ``prev`` (image
+    [1, H, W, 3], labels [1, C]) is the row before the first in the global
+    micro-batch; without it the roll wraps within ``images``."""
     lam = torch.tensor(lam, dtype=torch.float32).to(images.device)
+    if prev is None:
+        prev = images[-1:], labels[-1:]
+    partner = torch.cat([prev[0].to(images.dtype), images[:-1]])
+    partner_labels = torch.cat([prev[1].to(labels.dtype), labels[:-1]])
     li = lam.view(-1, 1, 1, 1)
-    images = li * images + (1.0 - li) * torch.roll(images, 1, 0)
+    images = li * images + (1.0 - li) * partner
     ll = lam.view(-1, 1)
-    labels = (ll * labels.float()
-              + (1.0 - ll) * torch.roll(labels, 1, 0).float())
+    labels = ll * labels.float() + (1.0 - ll) * partner_labels.float()
     return images, labels
 
 
@@ -151,6 +180,28 @@ def _images(cfg: Config, batch: Batch) -> torch.Tensor:
     return prepare_pixel_values(batch, out_size=cfg.model.img_size,
                                 mean=cfg.data.image_mean,
                                 std=cfg.data.image_std)
+
+
+def micro_batches(batch: Batch, accum: int) -> List[Batch]:
+    """The strided split of accumulation: micro-batch i takes rows i,
+    i + accum, … (the reference's split), each made contiguous (the
+    segment kernels read the ids in place)."""
+    if accum == 1:
+        return [batch]
+    return [{key: val[i::accum].contiguous() for key, val in batch.items()}
+            for i in range(accum)]
+
+
+def mixup_neighbours(cfg: Config, batch: Batch
+                     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per micro-batch of ``batch`` (a rank's local batch), its last row as
+    the next rank's mixup partner: (the image after pixel prep [1, H, W,
+    3], the labels [1, C]). What ``distributed.neighbour_last_row`` brings
+    a rank from its predecessor, for a caller that emulates the ranks in
+    one process."""
+    accum = max(cfg.train.gradient_accumulation_steps, 1)
+    return [(_images(cfg, micro)[-1:], micro["labels"][-1:])
+            for micro in micro_batches(batch, accum)]
 
 
 def _optimizer(cfg: Config, total_steps: int):
@@ -182,15 +233,21 @@ def _update(state: TrainState, loss: torch.Tensor, schedule, adamw_cfg):
 # Step builders
 # ---------------------------------------------------------------------------
 
-def make_train_step(cfg: Config, total_steps: int, int8_scales=None
+def make_train_step(cfg: Config, total_steps: int, int8_scales=None,
+                    rank: Optional[int] = None, world: Optional[int] = None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """Build the train step ``(state, batch, draws=None) → (state,
-    metrics)``; ``metrics`` holds 0-d f32 tensors ``loss``, ``grad_norm``
-    and ``lr`` on the parameters' device. ``batch`` holds ``labels`` and
-    one pixel placement (see ``prepare_pixel_values``), on the parameters'
-    device. ``draws`` (one :class:`Draws` per micro-batch) replaces what
-    the step would draw from ``state.generator``.
+    """Build the train step ``(state, batch, draws=None, neighbours=None)
+    → (state, metrics)``; ``metrics`` holds 0-d f32 tensors ``loss``,
+    ``grad_norm`` and ``lr`` on the parameters' device. ``batch`` holds
+    ``labels`` and one pixel placement (see ``prepare_pixel_values``), on
+    the parameters' device: rank ``rank``'s slice of the global batch of
+    ``world`` equal slices (by default the process group's rank and size).
+    ``draws`` (one :class:`Draws` per micro-batch) replaces what the step
+    would draw from ``state.generator``. ``neighbours`` (one (image,
+    labels) per micro-batch, :func:`mixup_neighbours` of the previous
+    rank's batch) replaces what mixup would ask the previous rank for;
+    a rank emulated outside a process group must pass it.
 
     ``int8_scales`` (a ``calibrate_vit_scales`` tree) trains on the int8
     straight-through forward, ``apply_int8_train``, or with
@@ -199,12 +256,14 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None
     there."""
     schedule, adamw_cfg = _optimizer(cfg, total_steps)
     accum = max(cfg.train.gradient_accumulation_steps, 1)
+    rank = dist.rank() if rank is None else rank
+    world = dist.world() if world is None else world
     placed = {}                            # device -> the scales there
 
     def forward(params: vit.ViT, images: torch.Tensor, d: Draws):
         if int8_scales is None:
             return vit.apply(params, images, cfg.model, train=True,
-                             dropout_seeds=d.seeds)
+                             dropout_seeds=d.seeds, row_base=d.row_base)
         if images.device not in placed:
             placed[images.device] = int8_train.place_scales(int8_scales,
                                                             images.device)
@@ -213,49 +272,63 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None
             return tome_forward.apply_tome_train(
                 params, images, cfg.model, cfg.model.tome_r, train=True,
                 dropout_seeds=d.seeds, schedule=cfg.model.tome_schedule,
-                int8_scales=scales)
+                int8_scales=scales, row_base=d.row_base)
         return int8_train.apply_int8_train(params, images, cfg.model, scales,
-                                           train=True, dropout_seeds=d.seeds)
+                                           train=True, dropout_seeds=d.seeds,
+                                           row_base=d.row_base)
 
-    def loss_fn(params: vit.ViT, batch: Batch, d: Draws) -> torch.Tensor:
+    def loss_fn(params: vit.ViT, batch: Batch, d: Draws,
+                neighbour) -> torch.Tensor:
         images, labels = _images(cfg, batch), batch["labels"]
         if d.lam is not None:
-            images, labels = mixup(images, labels, d.lam)
+            if neighbour is None:
+                if world > 1 and not dist.is_initialized():
+                    raise ValueError(
+                        f"rank {rank} of {world} without a process group "
+                        f"needs the mixup neighbours passed in")
+                neighbour = dist.neighbour_last_row(images[-1:],
+                                                    labels[-1:])
+            images, labels = mixup(images, labels, d.lam, neighbour)
         return bce_with_logits(forward(params, images, d), labels)
 
-    def grads_of(params: vit.ViT, batch: Batch,
-                 draws: Sequence[Draws]) -> torch.Tensor:
+    def grads_of(params: vit.ViT, batch: Batch, draws: Sequence[Draws],
+                 neighbours) -> torch.Tensor:
         """Loss, with the gradients left in ``.grad``. With accumulation
         the batch is split strided (micro-batch i takes rows i, i + k,
         …, as the reference splits it), k forward/backward passes add
         their gradients, and the loss and gradients are scaled by 1/k.
-        Micro-batch i takes ``draws[i]``, so mixup pairs rows within it."""
+        Micro-batch i takes ``draws[i]``, so mixup pairs rows within the
+        global micro-batch i."""
         for p in params.parameters():
             p.grad = None
-        if accum == 1:
-            loss = loss_fn(params, batch, draws[0])
-            loss.backward()
-            return loss.detach()
         loss_sum = None
-        for i in range(accum):
-            micro = {key: val[i::accum] for key, val in batch.items()}
-            loss = loss_fn(params, micro, draws[i])
+        for i, micro in enumerate(micro_batches(batch, accum)):
+            loss = loss_fn(params, micro, draws[i],
+                           neighbours[i] if neighbours else None)
             loss.backward()
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
+        if accum == 1:
+            return loss_sum
         inv = 1.0 / accum
         for p in params.parameters():
             p.grad.mul_(inv)
         return loss_sum * inv
 
     def train_step(state: TrainState, batch: Batch,
-                   draws: Optional[Sequence[Draws]] = None):
+                   draws: Optional[Sequence[Draws]] = None,
+                   neighbours: Optional[Sequence[Tuple[torch.Tensor,
+                                                       torch.Tensor]]] = None):
         if draws is None:
             micro = batch["labels"].shape[0] // accum
-            draws = [draw(state.generator, cfg, micro) for _ in range(accum)]
+            draws = [draw(state.generator, cfg, micro, rank, world)
+                     for _ in range(accum)]
         if len(draws) != accum:
             raise ValueError(f"{len(draws)} draws for {accum} micro-batches")
-        loss = grads_of(state.params, batch, draws)
+        if neighbours is not None and len(neighbours) != accum:
+            raise ValueError(f"{len(neighbours)} neighbours for {accum} "
+                             f"micro-batches")
+        loss = grads_of(state.params, batch, draws, neighbours)
         # the global mean over equal local batches; no-op without a group
         (loss,) = dist.all_reduce_grads(state.params, loss, average=True)
         return _update(state, loss, schedule, adamw_cfg)
@@ -316,17 +389,22 @@ def make_quantized_eval_step(cfg: Config):
 
 
 def make_packed_train_step(cfg: Config, total_steps: int,
-                           grids=(16, 24, 32)):
+                           grids=(16, 24, 32), rank: Optional[int] = None,
+                           world: Optional[int] = None):
     """Build the train step over NaViT-style packed batches, ``(state,
     batch, draws=None) → (state, metrics)``: the optimizer stack of
     :func:`make_train_step`, segment-masked attention, per-image masked
     BCE. ``batch`` holds tokens, segment_ids, pos_indices, pool_weights,
     labels and image_mask (see ``data/packing.py``) on the parameters'
-    device. ``model.tome_r`` takes the within-segment merging forward.
-    ``draws`` as in :func:`make_train_step`; the packed step has no mixup,
-    so only the dropout seeds are read."""
+    device: rank ``rank``'s sequences of a global batch of ``world`` equal
+    shares (by default the process group's). ``model.tome_r`` takes the
+    within-segment merging forward. ``draws`` as in
+    :func:`make_train_step`; the packed step has no mixup, so only the
+    dropout seeds and the row base are read."""
     schedule, adamw_cfg = _optimizer(cfg, total_steps)
     accum = max(cfg.train.gradient_accumulation_steps, 1)
+    rank = dist.rank() if rank is None else rank
+    world = dist.world() if world is None else world
     fwd = (packed_model.apply_packed_tome if cfg.model.tome_r > 0
            else packed_model.apply_packed)
 
@@ -334,7 +412,8 @@ def make_packed_train_step(cfg: Config, total_steps: int,
         """(BCE element sum over real images, real images × classes)."""
         logits = fwd(params, batch["tokens"], batch["segment_ids"],
                      batch["pos_indices"], batch["pool_weights"], cfg.model,
-                     grids, train=True, dropout_seeds=d.seeds)
+                     grids, train=True, dropout_seeds=d.seeds,
+                     row_base=d.row_base)
         return packed_model.packed_bce_parts(logits, batch["labels"],
                                              batch["image_mask"])
 
@@ -349,9 +428,7 @@ def make_packed_train_step(cfg: Config, total_steps: int,
         for p in params.parameters():
             p.grad = None
         num_sum = den_sum = None
-        for i in range(accum):
-            micro = batch if accum == 1 else {
-                key: val[i::accum] for key, val in batch.items()}
+        for i, micro in enumerate(micro_batches(batch, accum)):
             num, den = loss_parts(params, micro, draws[i])
             num.backward()
             num, den = num.detach(), den.detach()
@@ -371,7 +448,9 @@ def make_packed_train_step(cfg: Config, total_steps: int,
     def train_step(state: TrainState, batch: Batch,
                    draws: Optional[Sequence[Draws]] = None):
         if draws is None:
-            draws = [draw(state.generator, cfg, 0) for _ in range(accum)]
+            micro = batch["tokens"].shape[0] // accum
+            draws = [draw(state.generator, cfg, micro, rank, world)
+                     for _ in range(accum)]
         if len(draws) != accum:
             raise ValueError(f"{len(draws)} draws for {accum} micro-batches")
         loss = grads_of(state.params, batch, draws)

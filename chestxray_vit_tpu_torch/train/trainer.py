@@ -38,10 +38,13 @@ degrade to random init with a printed line, as in the reference. The
 logs and the saved model, and a ``gs://`` one is refused
 (``checkpoint.local_dir``).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``fsdp`` / ``tensor`` / ``dcn_data`` mesh axes (Queue 1 #12), one process
-driving several devices (#8), and attention dropout, hidden dropout and
-mixup across processes (#14).
+Across processes, attention dropout, hidden dropout and mixup draw what
+one process draws on the global batch: the steps are built with this
+process's rank and the world size (``train/steps.py``).
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item
+(``parallel/mesh.py``): ``fsdp`` / ``tensor`` / ``dcn_data`` mesh axes
+(Queue 1 #12) and one process driving several devices (#8).
 """
 
 from __future__ import annotations
@@ -75,11 +78,6 @@ from chestxray_vit_tpu_torch.utils.logging import MetricLogger, ThroughputMeter
 from chestxray_vit_tpu_torch.utils.profiling import StepProfiler
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP Queue 1 {item})")
-
-
 def merged_floor_hint(history, step, total_steps, tome_r, warmup_steps,
                       *, after_frac=0.6, min_progress=0.02):
     """Measured-guidance check for merged training's bad init mode: the
@@ -108,21 +106,6 @@ def merged_floor_hint(history, step, total_steps, tome_r, warmup_steps,
             f"the takeoff window, then merge.")
 
 
-def _check_data_parallel(cfg: Config, world: int) -> None:
-    """Across processes, refuse what would draw the same random numbers
-    on every rank or pair rows across the ranks' slices: the attention
-    dropout counter restarts at each rank's row 0, hidden dropout draws
-    from a generator every rank holds in one state, and mixup's partner
-    is the batch rolled by one."""
-    m = cfg.model
-    if world > 1 and (m.attention_dropout > 0 or m.hidden_dropout > 0
-                      or cfg.data.mixup_alpha > 0):
-        raise _not_ported(
-            f"attention_dropout={m.attention_dropout}, hidden_dropout="
-            f"{m.hidden_dropout} and mixup_alpha={cfg.data.mixup_alpha} "
-            f"across {world} processes", "#14")
-
-
 class Trainer:
     def __init__(self, cfg: Config, store: Optional[Store] = None,
                  pretrained: bool = True, datasets=None, device="cuda"):
@@ -135,7 +118,6 @@ class Trainer:
                                "is available")
         self.mesh = mesh_lib.build_mesh(cfg.mesh)
         self._world = mesh_lib.dp_size(self.mesh)
-        _check_data_parallel(cfg, self._world)
         ckpt.local_dir(cfg.train.output_dir, "train.output_dir (the logs "
                        "and the saved model)")
         self.cfg = cfg
@@ -294,7 +276,8 @@ class Trainer:
 
     def _make_step_fn(self, cfg):
         """Train-step factory (subclass hook)."""
-        return S.make_train_step(cfg, self.total_steps)
+        return S.make_train_step(cfg, self.total_steps, rank=dist.rank(),
+                                 world=self._world)
 
     def _inference_eval(self, placed):
         """The accelerated eval path, built from the CURRENT parameters:

@@ -6,7 +6,8 @@ forward (training, serving and eval), the remat policies, the fused Q/K/V
 projection, attention maps, the Trainer entry point (a training run
 with checkpoints, exact resume and the saved model served), the
 PackedTrainer (a packed run with its census, image-count cursor and exact
-resume), the data-parallel path in an NCCL group of one process, and the
+resume), the data-parallel path in an NCCL group of one process and as
+two ranks emulated in one process (with both dropouts and mixup), and the
 command line (train from an HF folder, eval, predict, quantize, export,
 maps, smoke).
 
@@ -35,7 +36,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    dense, inference and dropout attention kernels are also checked, not
    timed, at the edges of their 64-row tiles (EDGE_LENGTHS); the dense
    forwards and backwards carry ``earlier_ms``, their time before the
-   redesign (EARLIER_FWD_MS, EARLIER_BWD_MS).
+   redesign (EARLIER_FWD_MS, EARLIER_BWD_MS). The dropout masks at a
+   rank's row base: the debug kernel's mask at ROW_BASE_PROBE against the
+   plain hash (0 mismatches), and the second half of the batch at its row
+   base equal to the whole call's second half bit for bit (dense forward
+   and backward at [36, 12, 577, 64], segment forward and backward at
+   [32, 12, 1152, 64]). The hidden-dropout kernel at [36, 577, 768] bf16
+   and f32 equal to its plain version bit for bit, forward and backward,
+   timed beside ``F.dropout`` and its bound.
 4. serving: a Predictor at full ViT-B/16 @384 width in bf16 (random
    weights from seed 0) behind the MicroBatcher answers concurrent
    requests from several threads; every request must be answered with 15
@@ -57,12 +65,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 9. train_dropout: the step of 6 with attention dropout 0.1, hidden
    dropout 0.1 and mixup α 0.2: 2 warm-up and 5 timed steps, finite
    losses, exact launch counts per step (24 dropout forwards, 12 dropout
-   backwards, no dense training attention), then one step with and one
-   without remat on the same weights, batch and draws.
-10. train_dropout_cross_check: 7 with attention dropout 0.1 and mixup on
-   the same injected draws (the attention mask is a counter hash, equal on
-   the card and the CPU; hidden dropout draws from a generator of the
-   tensor's device, so 9 and the CPU tests cover it).
+   backwards, 60 hidden-dropout kernels, no dense training attention),
+   the profiler's device ms a step and the hidden-dropout kernel's share,
+   then one step with and one without remat on the same weights, batch
+   and draws.
+10. train_dropout_cross_check: 7 with attention and hidden dropout 0.1
+   and mixup on the same injected draws (both masks are counter hashes,
+   equal on the card and the CPU).
 11. serving_int8: a static-int8 Predictor (calibrated on 8 of the request
    images, batch 32, the fused int8 kernel) behind the MicroBatcher answers
    128 concurrent requests: 15 finite probabilities each, exactly 73 int8
@@ -95,7 +104,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    decreasing schedule: 24 / 12 launches at twelve different lengths.
 17. train_packed_cross_check: depth 2, full width, one f32 step on the
    card against the CPU (plain versions), packed and packed with merging,
-   with attention dropout on injected seeds.
+   with attention and hidden dropout on injected seeds.
 18. train_tome: bench.py's two merged steps (tome_r 16 constant, tome_r 32
    decreasing) at batch 36, full remat: 3 warm-up and 10 timed steps each,
    falling losses, the dense step's exact launch counts per step, each
@@ -161,9 +170,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    images/s over three steady steps, the pad share, the host's ms to pack
    a batch alone, the census's seconds, the card's idle share, checkpoint
    bytes and seconds, evaluate() ms, peak memory.
-27. ddp_world1: 3 steps of the dense Trainer (b36) and 3 of the
-   PackedTrainer without a process group, then the same in an NCCL group
-   of one process (``parallel.distributed.initialize`` on tcp://127.0.0.1,
+27. ddp_world1: 3 steps of the dense Trainer (b36, both dropouts 0.1,
+   mixup 0.2) and 3 of the PackedTrainer (both dropouts) without a process
+   group, then the same in an NCCL group of one process (``parallel.distributed.initialize`` on tcp://127.0.0.1,
    a free port): losses, grad norms and the parameters after step 3 equal
    bit for bit, exactly one all-reduce a step (the gradients with the
    loss, or with the packed loss's numerator and denominator), the group
@@ -198,6 +207,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    train step on the card against the CPU's (the same weights, scales and
    draws), without and with attention dropout 0.1 and mixup 0.2, and the
    eval-mode int8 logits (INT8_XCHECK).
+31. train_dp_split (after 10): data parallelism with both dropouts 0.1,
+   mixup 0.2 and accumulation 2 at full width (b36, bf16, full remat):
+   one step over the global batch at a world of one against two ranks of
+   18 emulated in this process (each built with its rank, given the
+   previous rank's last rows as its mixup neighbours), their gradients
+   combined as the all-reduce combines them: loss and gradients within
+   REMAT_LOSS_TOL / REMAT_GRAD_TOL, every rank launching what the global
+   step launches; dense, merged (tome_r 16), int8 straight-through and
+   packed (32 × 1152 mixed-resolution sequences, the dropouts only). Then
+   micro-batch 0's first-layer draws and keep masks of each rank at its
+   row base against the global ones, bit for bit.
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -247,6 +267,9 @@ PACKED_WARMUP_STEPS, PACKED_TIMED_STEPS = 3, 8
 PACKED_F32_BATCH = 4                        # kernel_check's f32 batch
 DROP_RATE, DROP_SEED = 0.1, -123456789   # a negative int32 seed, as JAX's
 MIXUP_ALPHA = 0.2
+# kernel_check's row base for the dropout masks: a rank's batch offset far
+# enough out (row · 12 heads · 592 · 640 > 2^32) that the counter wraps
+ROW_BASE_PROBE = 100_003
 
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (each input read once, each output written once) over the memory
@@ -459,6 +482,14 @@ PACKED_TRAINER_SEQS = 32
 PACKED_TRAINER_STEPS, PACKED_TRAINER_EVERY = 12, 6
 # phase 27 (ddp_world1): steps of each trainer, without and with the group
 DDP_STEPS = 3
+# phase 31 (train_dp_split): the global batch's step against DP_WORLD ranks
+# emulated in one process, with accumulation DP_ACCUM. The ranks run the
+# same kernels on the same rows; their products run at 1 / DP_WORLD of the
+# rows, where cuBLAS may pick other algorithms and sum in another order,
+# and the bf16 activations round accordingly: the tolerance of one step
+# with and without remat (REMAT_LOSS_TOL, REMAT_GRAD_TOL), loss absolute,
+# gradients relative to the largest.
+DP_WORLD, DP_ACCUM = 2, 2
 # phase 28 (cli): train steps (version_b's b8; an epoch is 5 steps of the
 # CLI's 64-image bucket), the steady steps read (no eval, save or epoch
 # boundary after them), and the PNGs quantize, predict and maps read
@@ -645,6 +676,7 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from chestxray_vit_tpu_torch.ops import flash_attention as fa
+    from chestxray_vit_tpu_torch.ops import hidden_dropout as hd
     from chestxray_vit_tpu_torch.ops import int8_matmul as i8
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
     return {"int8_matmul_fused": i8.int8_matmul_fused,
@@ -661,7 +693,8 @@ def _wrappers() -> dict:
             "flash_attention_packed_dropout_fwd":
                 fa.flash_attention_packed_dropout_fwd,
             "flash_attention_packed_dropout_bwd":
-                fa.flash_attention_packed_dropout_bwd}
+                fa.flash_attention_packed_dropout_bwd,
+            "hidden_dropout": hd.hidden_dropout_cuda}
 
 
 def launch_counts() -> dict:
@@ -750,6 +783,7 @@ def phase_kernel_check() -> dict:
     check_layer_norm_bwd(randn, summary)
     check_dropout_attention(randn, summary)
     check_packed_attention(randn, summary)
+    check_hidden_dropout(randn, summary)
     check_merged_lengths(randn, gen)
     return summary
 
@@ -1218,6 +1252,16 @@ def check_dropout_attention(randn, summary: dict) -> None:
         mismatches = int((keep != ref_keep).sum())
         keep_share = keep.float().mean().item()
         del ref_keep
+        # a rank's row base: the debug kernel's mask at global batch row
+        # ROW_BASE_PROBE (far enough out that the uint32 counter wraps)
+        _, keep_b = fa.flash_attention_dropout_debug(
+            q, k, v, *args, **kw, row_base=ROW_BASE_PROBE)
+        ref_keep = fa.keep_mask(TRAIN_BATCH * 12, q_pad, s_pad, *args,
+                                device=q.device,
+                                bh_base=ROW_BASE_PROBE * 12)[:, :s, :s]
+        base_mismatches = int((keep_b != ref_keep.reshape(keep_b.shape))
+                              .sum())
+        del ref_keep, keep_b
         o, lse = fa.flash_attention_dropout_fwd(q, k, v, *args, **kw)
         ro, rlse = fa.attention_dropout_fwd_reference(q, k, v, *args, **kw)
         torch.cuda.synchronize()
@@ -1237,6 +1281,8 @@ def check_dropout_attention(randn, summary: dict) -> None:
                  "shape": list(shape), "dtype": str(dtype), "rate": DROP_RATE,
                  "seed": DROP_SEED, "q_pad_s_pad": [q_pad, s_pad],
                  "mask_mismatches": mismatches, "keep_share": keep_share,
+                 "row_base": ROW_BASE_PROBE,
+                 "row_base_mask_mismatches": base_mismatches,
                  "max_abs_err": err_dbg, "tol": tol,
                  "ms": ms_d, "plain_ms": plain_ms_d,
                  **attention_bound(shape, dtype, lse=True, hash_passes=1,
@@ -1260,7 +1306,18 @@ def check_dropout_attention(randn, summary: dict) -> None:
         again = fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, *args,
                                                **kw)
         equal_twice = all(torch.equal(a, b) for a, b in zip(grads, again))
-        del grads, refs, again
+        # the split: the second half of the batch with its row base equals
+        # the second half of the whole call, forward and backward
+        h = TRAIN_BATCH // 2
+        o_h, lse_h = fa.flash_attention_dropout_fwd(q[h:], k[h:], v[h:],
+                                                    *args, **kw, row_base=h)
+        grads_h = fa.flash_attention_dropout_bwd(
+            q[h:], k[h:], v[h:], o[h:], lse[h:], do[h:], *args, **kw,
+            row_base=h)
+        split_equal = (torch.equal(o_h, o[h:]) and torch.equal(lse_h, lse[h:])
+                       and all(torch.equal(a, b[h:])
+                               for a, b in zip(grads_h, grads)))
+        del grads, refs, again, grads_h, o_h, lse_h
         ms_b, plain_ms_b = time_pair(
             lambda: fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, *args,
                                                    **kw),
@@ -1271,6 +1328,7 @@ def check_dropout_attention(randn, summary: dict) -> None:
                  "dq_dk_dv_rel_err": errs, "max_abs_err": err_g,
                  "rel_tol": ATTN_GRAD_TOL[dtype], "ms": ms_b,
                  "plain_ms": plain_ms_b,
+                 "split_at_row_base_equal": split_equal,
                  **attention_bound(shape, dtype, backward=True,
                                    hash_passes=1)}
         if dtype == torch.bfloat16:
@@ -1288,8 +1346,12 @@ def check_dropout_attention(randn, summary: dict) -> None:
             summary["flash_attention_dropout_bwd"] = rec_b
         for r in (rec_d, rec, rec_b):
             emit(r)
-        require(mismatches == 0, f"dropout mask {dtype}: {mismatches} "
-                                 f"mismatches")
+        require(mismatches == 0 and base_mismatches == 0,
+                f"dropout mask {dtype}: {mismatches} mismatches, "
+                f"{base_mismatches} at row base {ROW_BASE_PROBE}")
+        require(split_equal, f"dropout fwd/bwd {dtype}: rows {h}-"
+                             f"{TRAIN_BATCH - 1} at row base {h} equal the "
+                             f"whole call's, bit for bit")
         require(err_dbg <= tol, f"dropout debug o {dtype}: {err_dbg}")
         require(abs(keep_share - (1 - DROP_RATE)) < 1e-3,
                 f"keep share {keep_share}")
@@ -1355,6 +1417,19 @@ def check_packed_attention(randn, summary: dict) -> None:
                 del ro, rlse
                 grads = bwd(q, k, v, seg, o, lse, do, *extra)
                 refs = rbwd(q, k, v, seg, o, lse, do, *extra)
+                split_equal = None
+                if rate and layout == "two_segments":
+                    # the second half of the sequences at their row base
+                    # equals the whole call's second half, bit for bit
+                    h = batch // 2
+                    o_h, lse_h = fwd(q[h:], k[h:], v[h:], seg[h:], *extra, h)
+                    grads_h = bwd(q[h:], k[h:], v[h:], seg[h:], o[h:],
+                                  lse[h:], do[h:], *extra, h)
+                    split_equal = (
+                        torch.equal(o_h, o[h:]) and torch.equal(lse_h, lse[h:])
+                        and all(torch.equal(a, b[h:])
+                                for a, b in zip(grads_h, grads)))
+                    del o_h, lse_h, grads_h
                 torch.cuda.synchronize()
                 errs = [rel_err(g, r) for g, r in zip(grads, refs)]
                 err_g = max((g.float() - r.float()).abs().max().item()
@@ -1367,6 +1442,7 @@ def check_packed_attention(randn, summary: dict) -> None:
                 rec = {"phase": "kernel_check", "kernel": fwd.__name__,
                        "layout": layout, "shape": list(shape),
                        "dtype": str(dtype), "rate": rate,
+                       "split_at_row_base_equal": split_equal,
                        "max_abs_err": err_o, "lse_max_abs_err": err_lse,
                        "tol": PACKED_TOL[dtype], **tiles,
                        **packed_attention_bound(seg, 12, dtype,
@@ -1409,6 +1485,84 @@ def check_packed_attention(randn, summary: dict) -> None:
                         f"{err_lse}, finite {finite}")
                 require(max(errs) <= ATTN_GRAD_TOL[dtype],
                         f"{bwd.__name__} {layout} {dtype}: {errs}")
+                require(split_equal is not False,
+                        f"{fwd.__name__} {layout} {dtype}: the second half "
+                        f"at its row base differs from the whole call's")
+
+
+def hidden_dropout_bound(shape, dtype) -> dict:
+    """The hidden-dropout kernel reads x and writes y once; per element the
+    hash (HASH_OPS integer operations) and one f32 divide."""
+    n = int(np.prod(shape))
+    e = torch.empty((), dtype=dtype).element_size()
+    return bound(2 * n * e, 0, dtype, core_ops=n, int_ops=HASH_OPS * n)
+
+
+def check_hidden_dropout(randn, summary: dict) -> None:
+    """The hidden-dropout kernel at the b36 step's sites ([36 · 577, 768] as
+    [36, 577, 768]), bf16 and f32, rate 0.1, at a row base: forward and
+    backward (the same kernel on the upstream gradient, through the
+    autograd function) equal the plain version bit for bit, twice; the
+    second half of the batch at its row base equals the whole call's
+    second half; times beside ``F.dropout`` (the same work on another mask
+    stream) and the bound."""
+    from chestxray_vit_tpu_torch.ops import hidden_dropout as hd
+
+    shape = (TRAIN_BATCH, 577, 768)
+    seed, base = 1234567, ROW_BASE_PROBE
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dy = randn(shape, dtype), randn(shape, dtype)
+        y = hd.hidden_dropout_cuda(x, seed, DROP_RATE, base)
+        ref = hd.hidden_dropout_reference(x, seed, DROP_RATE, base)
+        err = (y.float() - ref.float()).abs().max().item()
+        fwd_equal = torch.equal(y, ref) and torch.equal(
+            hd.hidden_dropout_cuda(x, seed, DROP_RATE, base), y)
+        keep_share = (ref != 0).float().mean().item()
+        del ref
+        xg = x.detach().requires_grad_()
+        hd.hidden_dropout(xg, seed, DROP_RATE, base).backward(dy)
+        bwd_equal = torch.equal(
+            xg.grad, hd.hidden_dropout_reference(dy, seed, DROP_RATE, base))
+        h = TRAIN_BATCH // 2
+        split_equal = torch.equal(
+            hd.hidden_dropout_cuda(x[h:], seed, DROP_RATE, base + h), y[h:])
+        del xg
+        torch.cuda.synchronize()
+        ms, plain_ms = time_pair(
+            lambda: hd.hidden_dropout_cuda(x, seed, DROP_RATE, base),
+            lambda: hd.hidden_dropout_reference(x, seed, DROP_RATE, base),
+            plain_reps=3, plain_inner=3)
+        rec = {"phase": "kernel_check", "kernel": "hidden_dropout",
+               "shape": list(shape), "dtype": str(dtype), "rate": DROP_RATE,
+               "row_base": base, "fwd_equal": fwd_equal,
+               "bwd_equal": bwd_equal, "split_at_row_base_equal": split_equal,
+               "keep_share": keep_share,
+               "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms,
+               **device_ms(lambda: hd.hidden_dropout_cuda(x, seed, DROP_RATE,
+                                                          base)),
+               **hidden_dropout_bound(shape, dtype)}
+        rec["library_ms"] = time_ms(lambda: torch.nn.functional.dropout(
+            x, DROP_RATE, training=True))
+        # x (32 or 64 MB) stays in the 50 MB L2 between back-to-back calls;
+        # a step's call finds it colder: the kernel alone after a write of
+        # 128 MB
+        flush = torch.empty(2 ** 25, dtype=torch.float32, device=x.device)
+        rec["cold_l2_device_ms"] = device_ms(
+            lambda: (flush.zero_(), hd.hidden_dropout_cuda(
+                x, seed, DROP_RATE, base)),
+            parts=("hidden_dropout",))["hidden_dropout_ms"]
+        del flush
+        emit(rec)
+        if dtype == torch.bfloat16:
+            summary["hidden_dropout"] = rec
+        del x, dy, y
+        torch.cuda.empty_cache()
+        require(fwd_equal and bwd_equal and split_equal,
+                f"hidden dropout {dtype}: forward {fwd_equal}, backward "
+                f"{bwd_equal}, split {split_equal}")
+        require(abs(keep_share - (1 - DROP_RATE)) < 1e-3,
+                f"hidden dropout keep share {keep_share}")
 
 
 def make_requests(n: int = REQUESTS) -> list:
@@ -1711,22 +1865,38 @@ def run_steps(train_step, state, batch, warmup: int, timed: int,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def hidden_launches_per_step(n_layers: int, policy: Optional[str]) -> int:
+    """The hidden-dropout kernel a step: two sites a block, each once in
+    the forward and once in the backward, and the first again where the
+    backward recomputes the block (``full``, ``flash_out``, ``dots``; the
+    saved-tensor policies rebuild only their named values). The recompute
+    stops at the last tensor the backward needs, which comes before the
+    block's closing dropout: that one saves nothing."""
+    recompute = 1 if policy in ("full", "flash_out", "dots") else 0
+    return (4 + recompute) * n_layers
+
+
 def dense_launches_per_step(n_layers: int, dropout: bool,
-                            policy: str = "full") -> dict:
+                            policy: str = "full",
+                            hidden: Optional[bool] = None) -> dict:
     """Launches per dense train step under a remat policy (None: no
     remat), merging or not: every block's attention forward twice where
     the backward recomputes it (``full``, ``dots``), once where o and lse
     are kept; its backward once; every LayerNorm forward once, and again
     but the final one where the block is checkpointed (``full``,
-    ``flash_out``, ``dots``); every LayerNorm backward once; no other
-    kernel."""
+    ``flash_out``, ``dots``); every LayerNorm backward once; with
+    ``hidden`` (by default ``dropout``: both dropouts on) the hidden-dropout
+    kernel (:func:`hidden_launches_per_step`); no other kernel."""
     name = "flash_attention_dropout" if dropout else "flash_attention"
     attn = 2 if policy in ("full", "dots") else 1
     ln = 2 if policy in ("full", "flash_out", "dots") else 1
+    hidden = dropout if hidden is None else hidden
     return {**dict.fromkeys(_wrappers(), 0),
             f"{name}_fwd": attn * n_layers, f"{name}_bwd": n_layers,
             "layer_norm": ln * (2 * n_layers + 1) - (ln - 1),
-            "layer_norm_bwd": 2 * n_layers + 1}
+            "layer_norm_bwd": 2 * n_layers + 1,
+            "hidden_dropout": (hidden_launches_per_step(n_layers, policy)
+                               if hidden else 0)}
 
 
 def record_merges(fn) -> tuple:
@@ -1863,7 +2033,13 @@ def phase_train_dropout() -> dict:
     losses, norms, step_counts, launches = (
         run["losses"], run["grad_norms"], run["step_counts"],
         run["launches"])
+    # the card's time a step (profiler, 2 steps after one), and the
+    # hidden-dropout kernel's share of it
+    prof = device_ms(lambda: train_step(state, batch), calls=2,
+                     parts=("hidden_dropout",))
     rec = {"phase": "train_dropout", "batch": TRAIN_BATCH, "remat": "full",
+           "device_ms_per_step": prof["device_ms"],
+           "hidden_dropout_device_ms_per_step": prof["hidden_dropout_ms"],
            "dtype": cfg.model.dtype, **drop, "mixup_alpha": MIXUP_ALPHA,
            "warmup_steps": DROPOUT_WARMUP_STEPS,
            "timed_steps": DROPOUT_TIMED_STEPS, "step_ms": run["step_ms"],
@@ -1913,6 +2089,154 @@ def phase_train_dropout() -> dict:
             f"dropout remat vs no remat: loss {loss_diff}, grads "
             f"{grad_diff}")
     del out, grads_r, grads_n
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_dp_split() -> dict:
+    """Data parallelism with both dropouts and mixup, on the one card: the
+    b36 step (ViT-B/16 @384, bf16, f32 masters, full remat, attention and
+    hidden dropout 0.1, mixup 0.2, accumulation DP_ACCUM) over the global
+    batch at a world of one, then as DP_WORLD ranks of 18 emulated in this
+    process, each built with its rank (so its row base and its slice of
+    λ) and given its mixup neighbour (``steps.mixup_neighbours`` of the
+    previous rank's batch), their gradients combined as the all-reduce
+    combines them. Loss and gradients within DP_SPLIT tolerances, each
+    rank launching what the global step launches; then merged (``tome_r``
+    16), on the int8 straight-through forward, and the packed step (32 ×
+    1152 mixed-resolution sequences, the two dropouts). The keep masks of
+    micro-batch 0's first layer, bit for bit: each rank's draws and the
+    dropout kernels' masks at its row base against the global ones.
+    Returns the launches (the global steps and the ranks', every count set
+    to 0 just before)."""
+    import copy
+
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
+    from chestxray_vit_tpu_torch.ops import hidden_dropout as hd
+    from chestxray_vit_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    drop = {"attention_dropout": DROP_RATE, "hidden_dropout": DROP_RATE}
+    keys = ("tokens", "segment_ids", "pos_indices", "pool_weights", "labels",
+            "image_mask")
+    reset_launch_counts()
+    for variant in ("dense", "tome", "int8", "packed"):
+        packed = variant == "packed"
+        model = dict(remat=True, **drop)
+        if variant == "tome":
+            model.update(tome_r=TOME_STEPS[0][0],
+                         tome_schedule=TOME_STEPS[0][1])
+        cfg = train_config(0.0 if packed else MIXUP_ALPHA, **model)
+        cfg.train.gradient_accumulation_steps = DP_ACCUM
+        if packed:
+            mixed = packed_mixed_batch("cuda")
+            batch = {k: mixed[k] for k in keys}
+        else:
+            batch = bench_batch(TRAIN_BATCH, SEED, dev)
+        n = next(iter(batch.values())).shape[0]
+        half = n // DP_WORLD
+        halves = [{k: v[r * half:(r + 1) * half] for k, v in batch.items()}
+                  for r in range(DP_WORLD)]
+        params0 = init_params(torch.Generator().manual_seed(SEED), cfg.model,
+                              dev)
+        scales = (calibrated_scales(params0, cfg, batch)
+                  if variant == "int8" else None)
+
+        def run(rank, world, data, **kw):
+            params = copy.deepcopy(params0)
+            if packed:
+                step = steps.make_packed_train_step(cfg, 10_000, rank=rank,
+                                                    world=world)
+            else:
+                step = steps.make_train_step(cfg, 10_000, int8_scales=scales,
+                                             rank=rank, world=world)
+            before = launch_counts()
+            _, m = step(steps.TrainState.create(params, seed=42), data, **kw)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            return (m["loss"].item(),
+                    {k: p.grad for k, p in params.named_parameters()},
+                    {k: after[k] - before[k] for k in after})
+
+        want_loss, want, want_launches = run(0, 1, batch)
+        parts = []
+        for r in range(DP_WORLD):
+            kw = {} if packed else {"neighbours": steps.mixup_neighbours(
+                cfg, halves[(r - 1) % DP_WORLD])}
+            parts.append(run(r, DP_WORLD, halves[r], **kw))
+        if packed:       # the all-reduce sums Σnum and Σden over the ranks
+            dens = [float(h["image_mask"].sum()) for h in halves]
+            w = [d / sum(dens) for d in dens]
+        else:            # the dense mean over equal slices
+            w = [1.0 / DP_WORLD] * DP_WORLD
+        loss = sum(wi * lo for wi, (lo, _, _) in zip(w, parts))
+        scale = max(g.abs().max().item() for g in want.values())
+        grad_rel = max((sum(wi * gr[k] for wi, (_, gr, _) in zip(w, parts))
+                        - g).abs().max().item()
+                       for k, g in want.items()) / scale
+        rec = {"phase": "train_dp_split", "variant": variant,
+               "global_batch": n, "world": DP_WORLD, "accum": DP_ACCUM,
+               "dtype": cfg.model.dtype, "remat": "full", **drop,
+               "mixup_alpha": cfg.data.mixup_alpha,
+               "tome_r": cfg.model.tome_r, "global_loss": want_loss,
+               "rank_losses": [lo for lo, _, _ in parts],
+               "loss_diff": abs(loss - want_loss), "grad_rel_diff": grad_rel,
+               "tol": [REMAT_LOSS_TOL, REMAT_GRAD_TOL],
+               "launches_per_step": want_launches,
+               "ranks_launch_as_global": all(
+                   c == want_launches for _, _, c in parts)}
+        emit(rec)
+        del parts, want, params0
+        torch.cuda.empty_cache()
+        require(np.isfinite(want_loss) and rec["loss_diff"] <= REMAT_LOSS_TOL
+                and grad_rel <= REMAT_GRAD_TOL,
+                f"train_dp_split {variant}: loss {rec['loss_diff']}, "
+                f"grads {grad_rel}")
+        require(rec["ranks_launch_as_global"] and all(
+            want_launches[k] > 0 for k in ("hidden_dropout",
+                                           "layer_norm_bwd")),
+                f"train_dp_split {variant}: launches {want_launches}")
+    launches = launch_counts()
+
+    # the keep masks of micro-batch 0's first layer: each rank's draws are
+    # the global draws at its row base, and the kernels' masks there are
+    # the global masks' rows
+    cfg = train_config(MIXUP_ALPHA, remat=True, **drop)
+    cfg.train.gradient_accumulation_steps = DP_ACCUM
+    micro = TRAIN_BATCH // DP_ACCUM
+    m = micro // DP_WORLD
+    glob = steps.draw(torch.Generator().manual_seed(42), cfg, micro)
+    ranks = [steps.draw(torch.Generator().manual_seed(42), cfg, m, r,
+                        DP_WORLD) for r in range(DP_WORLD)]
+    draws_ok = all(d.seeds == glob.seeds and d.row_base == r * m
+                   and np.array_equal(d.lam, glob.lam[r * m:(r + 1) * m])
+                   for r, d in enumerate(ranks))
+    attn_seed, hidden_seed, _ = glob.seeds[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    q, k, v = (torch.randn((micro, 12, 577, 64), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    bq = fa.auto_block_q(577)
+    _, keep = fa.flash_attention_dropout_debug(q, k, v, attn_seed, DROP_RATE,
+                                               block_q=bq)
+    ones = torch.ones((micro, 577, 768), dtype=torch.bfloat16, device=dev)
+    hidden = hd.hidden_dropout_cuda(ones, hidden_seed, DROP_RATE)
+    masks_ok = True
+    for r, d in enumerate(ranks):
+        sl = slice(r * m, (r + 1) * m)
+        _, keep_r = fa.flash_attention_dropout_debug(
+            q[sl], k[sl], v[sl], attn_seed, DROP_RATE, block_q=bq,
+            row_base=d.row_base)
+        masks_ok &= torch.equal(keep_r, keep[sl]) and torch.equal(
+            hd.hidden_dropout_cuda(ones[sl], hidden_seed, DROP_RATE,
+                                   d.row_base), hidden[sl])
+    torch.cuda.synchronize()
+    emit({"phase": "train_dp_split_masks", "micro_batch": micro,
+          "rank_rows": m, "row_bases": [d.row_base for d in ranks],
+          "draws_equal": draws_ok, "keep_masks_equal": masks_ok})
+    require(draws_ok and masks_ok,
+            f"train_dp_split: draws {draws_ok}, masks {masks_ok}")
+    del q, k, v, keep, ones, hidden
     torch.cuda.empty_cache()
     return launches
 
@@ -1985,15 +2309,21 @@ def phase_train_cross_check(phase: str = "train_cross_check",
             require(rec[f"card_bf16_{key}"] <= tol, f"bf16 {key}: {rec}")
 
 
-def packed_launches_per_step(n_layers: int, dropout: bool) -> dict:
+def packed_launches_per_step(n_layers: int, dropout: bool,
+                             hidden: Optional[bool] = None) -> dict:
     """Full remat: every block's attention forward runs twice, its backward
-    once; LayerNorm as in the dense step; no dense attention kernel."""
+    once; LayerNorm as in the dense step; with ``hidden`` (by default
+    ``dropout``) the hidden-dropout kernel as in the dense step; no dense
+    attention kernel."""
     name = "flash_attention_packed_dropout" if dropout \
         else "flash_attention_packed"
+    hidden = dropout if hidden is None else hidden
     return {**dict.fromkeys(_wrappers(), 0),
             f"{name}_fwd": 2 * n_layers, f"{name}_bwd": n_layers,
             "layer_norm": 2 * (2 * n_layers + 1) - 1,
-            "layer_norm_bwd": 2 * n_layers + 1}
+            "layer_norm_bwd": 2 * n_layers + 1,
+            "hidden_dropout": (hidden_launches_per_step(n_layers, "full")
+                               if hidden else 0)}
 
 
 def merged_layer_tiles(params, cfg, data: dict) -> list:
@@ -2026,7 +2356,8 @@ def phase_train_packed(phase: str, batch: dict, dense_images_per_s=None,
     dev = torch.device("cuda")
     cfg = train_config(remat=True, **model)
     dropout = cfg.model.attention_dropout > 0.0
-    per_step = packed_launches_per_step(cfg.model.num_layers, dropout)
+    per_step = packed_launches_per_step(cfg.model.num_layers, dropout,
+                                        cfg.model.hidden_dropout > 0.0)
     params = init_params(torch.Generator().manual_seed(SEED), cfg.model, dev)
     state = steps.TrainState.create(params, seed=42)
     train_step = steps.make_packed_train_step(cfg, total_steps=10_000)
@@ -2118,8 +2449,9 @@ def phase_packed_remat_vs_no_remat(batch: dict, **model) -> None:
 def phase_train_packed_cross_check() -> None:
     """One packed train step at full width, depth 2, f32, on the card
     against the CPU (plain versions): two sequences (1024 tokens + 128 pad;
-    576 + 576), attention dropout 0.1 on injected seeds (the counter-hash
-    mask is equal on both), without and with token merging."""
+    576 + 576), attention and hidden dropout 0.1 on injected seeds (the
+    counter-hash masks are equal on both), without and with token
+    merging."""
     from chestxray_vit_tpu_torch.models import bridge
     from chestxray_vit_tpu_torch.models.vit import init_params
     from chestxray_vit_tpu_torch.train import steps
@@ -2128,7 +2460,8 @@ def phase_train_packed_cross_check() -> None:
                          "cpu")
     for tome_r in (0, TOME_R):
         cfg = train_config(num_layers=2, dtype="float32", remat=True,
-                           attention_dropout=DROP_RATE, tome_r=tome_r,
+                           attention_dropout=DROP_RATE,
+                           hidden_dropout=DROP_RATE, tome_r=tome_r,
                            tome_schedule=TOME_SCHEDULE)
         draws = [steps.draw(torch.Generator().manual_seed(SEED), cfg, 0)]
         out = {}
@@ -3389,8 +3722,9 @@ def phase_packed_trainer(fake, fake_s: float, packed_rec: dict) -> dict:
 
 def phase_ddp_world1(fake) -> dict:
     """The data-parallel path on the one card: DDP_STEPS steps of the
-    dense Trainer (batch 36) and of the PackedTrainer, first without a
-    process group, then in an NCCL group of one process
+    dense Trainer (batch 36, attention and hidden dropout 0.1, mixup 0.2)
+    and of the PackedTrainer (both dropouts), first without a process
+    group, then in an NCCL group of one process
     (``parallel.distributed.initialize`` at tcp://127.0.0.1 on a free
     port), where every step sums its gradients (and its loss, or the packed
     loss's numerator and denominator) in one all-reduce. The two runs'
@@ -3411,12 +3745,16 @@ def phase_ddp_world1(fake) -> dict:
                               save_strategy="no",
                               load_best_model_at_end=False,
                               report_to="none")
+        cfg.model.attention_dropout = cfg.model.hidden_dropout = DROP_RATE
+        cfg.data.mixup_alpha = MIXUP_ALPHA
         return Trainer(cfg, store=fake.store, pretrained=False)
 
     def packed(out):
-        return _packed_trainer(_packed_trainer_config(
+        cfg = _packed_trainer_config(
             out, max_steps=DDP_STEPS, eval_strategy="no",
-            save_strategy="no", load_best_model_at_end=False), fake)
+            save_strategy="no", load_best_model_at_end=False)
+        cfg.model.attention_dropout = cfg.model.hidden_dropout = DROP_RATE
+        return _packed_trainer(cfg, fake)
 
     def run(make, out):
         tr = make(out)
@@ -3491,8 +3829,8 @@ def phase_ddp_world1(fake) -> dict:
     del runs
     torch.cuda.empty_cache()
     want = {k: 2 * DDP_STEPS * v for k, v in dense_launches_per_step(
-        12, dropout=False).items()}
-    for k, v in packed_launches_per_step(12, dropout=False).items():
+        12, dropout=True).items()}
+    for k, v in packed_launches_per_step(12, dropout=True).items():
         want[k] += 2 * DDP_STEPS * v
     require(launches == want,
             f"ddp_world1: launches {launches}, expected {want}")
@@ -3941,6 +4279,9 @@ KERNELS = (  # name (the kernel_check summary key), source, what it replaces
      "chestxray_vit_tpu/ops/flash_attention.py:140"),
     ("flash_attention_packed_dropout_bwd", "csrc/flash_attention_seg_bwd.cu",
      "chestxray_vit_tpu/ops/flash_attention.py:216"),
+    # no Pallas kernel: the JAX package draws jax.random.bernoulli in XLA
+    ("hidden_dropout", "csrc/hidden_dropout.cu",
+     "chestxray_vit_tpu/models/vit.py:222"),
 )
 
 
@@ -3983,7 +4324,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     dropout_launches = phase_train_dropout()
     phase_train_cross_check("train_dropout_cross_check", MIXUP_ALPHA,
-                            attention_dropout=DROP_RATE)
+                            attention_dropout=DROP_RATE,
+                            hidden_dropout=DROP_RATE)
+    dp_split_launches = phase_train_dp_split()
     probe = packed_probe_batch("cuda")
     packed_launches, packed_rec = phase_train_packed(
         "train_packed", probe, dense_images_per_s)
@@ -4034,6 +4377,7 @@ def main() -> int:
 
     # launches: the sum over the main paths' runs (serving, int8 serving,
     # the timed train steps, eval, int8 eval, the timed dropout steps, the
+    # global and emulated data-parallel steps, the
     # timed packed, merged and mixed-resolution steps, the timed merged
     # dense steps, merged serving and merged eval, the timed steps of
     # every remat policy and of fused_qkv, the maps forward, the Trainer's
@@ -4046,7 +4390,7 @@ def main() -> int:
              tome_train_launches, serve_tome_launches, *eval_tome_launches,
              policy_launches, fused_launches, maps_launches,
              trainer_launches, packed_trainer_launches, ddp_launches,
-             cli_launches, int8_train_launches)
+             cli_launches, int8_train_launches, dp_split_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)

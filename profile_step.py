@@ -58,6 +58,7 @@ CATEGORIES = (
     ("attention_bwd", ("attn_bwd",)),
     ("layer_norm_fwd", ("ln_fwd",)),
     ("layer_norm_bwd", ("ln_bwd",)),
+    ("hidden_dropout", ("hidden_dropout",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("random", ("philox", "distribution", "uniform", "bernoulli")),
     ("sort_scatter", ("sort", "scatter", "gather", "radix", "scan")),

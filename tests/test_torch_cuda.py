@@ -17,6 +17,7 @@ from chestxray_vit_tpu_torch import kernels
 from chestxray_vit_tpu_torch.config import Config, ModelConfig, TrainConfig
 from chestxray_vit_tpu_torch.models import bridge, quantized, vit
 from chestxray_vit_tpu_torch.ops import flash_attention as fa
+from chestxray_vit_tpu_torch.ops import hidden_dropout as hd
 from chestxray_vit_tpu_torch.ops import int8_matmul as i8
 from chestxray_vit_tpu_torch.ops import layer_norm as ln
 from chestxray_vit_tpu_torch.serve.inference import Predictor
@@ -380,7 +381,8 @@ def test_attention_bwd_passes_leave_rows_past_s_untouched(dev, s, dtype,
     dropout = None
     if rate:
         dropout = (*fa.dropout_constants(-123456789, rate),
-                   *fa.mask_strides(s, fa.auto_block_q(s)), 1.0 / (1.0 - rate))
+                   *fa.mask_strides(s, fa.auto_block_q(s)), 0,
+                   1.0 / (1.0 - rate))
     _bwd_into([*bufs, *outs], s, dtype, dropout)
     for g in outs:
         assert (g[:, :, s:] == sentinel).all()
@@ -675,6 +677,84 @@ def test_dropout_debug_kernel_mask_is_keep_mask(dev, s, dtype, block_q):
                                rtol=0)
 
 
+@pytest.mark.parametrize("row_base", [1, 100_000])
+def test_dropout_debug_kernel_mask_at_a_row_base(dev, row_base):
+    """With a row base the debug kernel's mask is keep_mask's at that base
+    (rows 2-3 of a batch of 4 hold the global mask's rows there), and a
+    large base wraps the uint32 counter as the plain hash does."""
+    q, k, v = _heads_views(4, 577, torch.bfloat16, dev)
+    bq = fa.auto_block_q(577)
+    _, whole = fa.flash_attention_dropout_debug(q, k, v, _SEED, _RATE,
+                                                block_q=bq)
+    _, part = fa.flash_attention_dropout_debug(q[2:], k[2:], v[2:], _SEED,
+                                               _RATE, block_q=bq, row_base=2)
+    torch.cuda.synchronize()
+    assert torch.equal(part, whole[2:])
+    _, keep = fa.flash_attention_dropout_debug(q, k, v, _SEED, _RATE,
+                                               block_q=bq, row_base=row_base)
+    ref = fa._keep(q, _SEED, _RATE, bq, row_base)
+    assert int((keep != ref).sum()) == 0
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_dropout_kernels_split_equals_whole(dev, packed):
+    """Forward and backward over batch rows 1-2 with row base 1 equal rows
+    1-2 of the call over the whole batch of 3, bit for bit."""
+    q, k, v = _heads_views(3, 577, torch.bfloat16, dev)
+    do = _randn(q.shape, torch.bfloat16, dev, seed=5)
+    if packed:
+        seg = torch.zeros((3, 577), dtype=torch.int32, device=dev)
+        seg[:, 300:] = 1
+        bq = fa.packed_block_q(577)
+        fwd = lambda sl, base: fa.flash_attention_packed_dropout_fwd(  # noqa
+            q[sl], k[sl], v[sl], seg[sl].contiguous(), _SEED, _RATE, None,
+            bq, base)
+        bwd = lambda sl, o, lse, base: fa.flash_attention_packed_dropout_bwd(  # noqa
+            q[sl], k[sl], v[sl], seg[sl].contiguous(), o, lse, do[sl], _SEED,
+            _RATE, None, bq, base)
+    else:
+        bq = fa.auto_block_q(577)
+        fwd = lambda sl, base: fa.flash_attention_dropout_fwd(  # noqa
+            q[sl], k[sl], v[sl], _SEED, _RATE, None, bq, base)
+        bwd = lambda sl, o, lse, base: fa.flash_attention_dropout_bwd(  # noqa
+            q[sl], k[sl], v[sl], o, lse, do[sl], _SEED, _RATE, None, bq,
+            base)
+    whole = slice(0, 3)
+    o, lse = fwd(whole, 0)
+    grads = bwd(whole, o, lse, 0)
+    sl = slice(1, 3)
+    o2, lse2 = fwd(sl, 1)
+    grads2 = bwd(sl, o[sl], lse[sl].contiguous(), 1)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o[sl]) and torch.equal(lse2, lse[sl])
+    assert all(torch.equal(a, b[sl]) for a, b in zip(grads2, grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(36, 577, 768), (3, 7, 5)],
+                         ids=["b36", "ragged"])
+def test_hidden_dropout_kernel_equals_plain(dev, dtype, shape):
+    """The kernel equals its plain version bit for bit, forward and
+    backward (the backward is the same kernel on the upstream gradient),
+    at a row base, also where the elements are no whole 16-byte vectors
+    (the element-wise path) and on a misaligned view."""
+    x = _randn(shape, dtype, dev, seed=3)
+    before = hd.hidden_dropout_cuda.launches
+    y = hd.hidden_dropout_cuda(x, 4321, 0.1, row_base=18)
+    torch.cuda.synchronize()
+    assert hd.hidden_dropout_cuda.launches == before + 1
+    assert torch.equal(y, hd.hidden_dropout_reference(x, 4321, 0.1, 18))
+    xg = x.detach().clone().requires_grad_()
+    dy = _randn(shape, dtype, dev, seed=4)
+    hd.hidden_dropout(xg, 4321, 0.1, row_base=18).backward(dy)
+    assert torch.equal(xg.grad, hd.hidden_dropout_reference(dy, 4321, 0.1,
+                                                            18))
+    flat = _randn((x.numel() + 1,), dtype, dev, seed=5)
+    view = flat[1:].view(shape)             # 2 or 4 bytes off a vector
+    assert torch.equal(hd.hidden_dropout_cuda(view, 7, 0.3),
+                       hd.hidden_dropout_reference(view, 7, 0.3))
+
+
 @pytest.mark.parametrize("s", _BWD_LENGTHS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dropout_fwd_bwd_kernels_match_plain(dev, s, dtype):
@@ -732,16 +812,15 @@ def test_dropout_autograd_on_card_matches_plain_autograd(dev, dtype):
 
 @pytest.mark.parametrize("remat", [False, True])
 def test_train_step_with_attention_dropout_on_card_matches_cpu(dev, remat):
-    """One f32 train step with attention dropout through both dropout
-    kernels on the card against the CPU's plain versions, on the same
-    seeds: the counter-hash masks are equal on both sides. (Hidden
-    dropout draws its masks from a generator of the tensor's device, so
-    card and CPU masks differ; the CPU tests cover it.)"""
+    """One f32 train step with attention and hidden dropout through the
+    dropout kernels on the card against the CPU's plain versions, on the
+    same seeds: the counter-hash masks are equal on both sides."""
     cfg = Config(model=ModelConfig(img_size=64, patch_size=16,
                                    hidden_size=128, num_layers=2,
                                    num_heads=2, mlp_dim=256, num_classes=5,
                                    dtype="float32", remat=remat,
-                                   attention_dropout=0.2),
+                                   attention_dropout=0.2,
+                                   hidden_dropout=0.2),
                  train=TrainConfig(warmup_steps=1))
     cpu = vit.init_params(torch.Generator().manual_seed(0), cfg.model)
     card = bridge.params_from_jax(bridge.params_to_numpy(cpu),
@@ -753,6 +832,7 @@ def test_train_step_with_attention_dropout_on_card_matches_cpu(dev, remat):
             (rng.random((4, 5)) < 0.3).astype(np.float32))}
     draws = [steps.draw(torch.Generator().manual_seed(9), cfg, 4)]
     n_fwd = fa.flash_attention_dropout_fwd.launches
+    n_hidden = hd.hidden_dropout_cuda.launches
     out = []
     for params, device in ((cpu, "cpu"), (card, dev)):
         state, m = steps.make_train_step(cfg, 10)(
@@ -761,6 +841,10 @@ def test_train_step_with_attention_dropout_on_card_matches_cpu(dev, remat):
         out.append((m, bridge.grads_to_numpy(params)))
     assert fa.flash_attention_dropout_fwd.launches - n_fwd == (
         4 if remat else 2)
+    # two sites a layer, forward and backward, and under remat the first
+    # again (the recompute stops before the block's closing dropout)
+    assert hd.hidden_dropout_cuda.launches - n_hidden == (
+        10 if remat else 8)
     (mc, gc), (mg, gg) = out
     np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
                                atol=1e-5)
@@ -1137,6 +1221,41 @@ def test_tome_tie_rules_on_card_equal_cpu(dev):
     for a, b in zip(cpu, card):
         torch.testing.assert_close(a, b.cpu(), atol=1e-6, rtol=1e-6)
     assert torch.equal(cpu[2], card[2].cpu())
+
+
+def test_packed_train_step_with_accumulation_on_card(dev):
+    """The packed step with gradient accumulation 2 on the card: its
+    strided micro-batches reach the segment kernels (which read the ids in
+    place) and the step equals the CPU's, with both dropouts at a rank's
+    row base."""
+    from chestxray_vit_tpu_torch.data import packing as pk
+    rng = np.random.default_rng(1)
+    sizes = [96, 64, 48, 64]
+    imgs = [rng.integers(0, 255, (s, s), np.uint8) for s in sizes]
+    labs = [(rng.random(15) < 0.3).astype(np.float32) for _ in sizes]
+    grids = (3, 4, 6)
+    pb = pk.pack_images(imgs, labs, patch=16, seq_len=70, grids=grids)
+    keys = ("tokens", "segment_ids", "pos_indices", "pool_weights", "labels",
+            "image_mask")
+    cfg = Config(model=ModelConfig(num_layers=2, img_size=96, dtype="float32",
+                                   remat=True, attention_dropout=0.1,
+                                   hidden_dropout=0.1),
+                 train=TrainConfig(gradient_accumulation_steps=2))
+    out = []
+    for device in ("cpu", dev):
+        params = vit.init_params(torch.Generator().manual_seed(0),
+                                 cfg.model).to(device)
+        batch = {k: torch.from_numpy(np.concatenate([getattr(pb, k)] * 2))
+                 .to(device) for k in keys}
+        state, m = steps.make_packed_train_step(cfg, 100, grids, rank=1,
+                                                world=2)(
+            steps.TrainState.create(params, 0), batch)
+        out.append((m["loss"].item(), bridge.grads_to_numpy(params)))
+    (l0, g0), (l1, g1) = out
+    assert abs(l0 - l1) <= 1e-5
+    scale = max(float(np.abs(a).max()) for a in _leaves(g0))
+    for a, b in zip(_leaves(g0), _leaves(g1)):
+        assert float(np.abs(a - b).max()) <= 1e-4 * scale
 
 
 @pytest.mark.parametrize("tome_r", [0, 6])

@@ -3,7 +3,7 @@ gloo processes against one process and against the JAX package.
 
 - The process layer's one-process defaults (the counterpart of
   ``tests/test_distributed.py``), an explicit group that cannot be joined,
-  and the refusals (#12 mesh axes, #14 randomness across processes).
+  and the refusals (#12 mesh axes).
 - The dense ``Trainer``: a two-rank run (each rank loading its slice of
   the global batch of 16) equals, on both ranks, the port's one-process
   run and the JAX package's one-process ``Trainer`` on the same weights
@@ -19,12 +19,21 @@ gloo processes against one process and against the JAX package.
 - One packed step whose ranks hold unequal real-image counts equals one
   step on the concatenated batch, which a mean of per-rank losses would
   not.
+- Attention dropout, hidden dropout and mixup across processes: a dense
+  two-rank Trainer run with both dropouts at 0.1, mixup 0.2 and
+  accumulation 2 equals the port's one-process run on the global batch
+  (losses and eval), and a two-rank PackedTrainer run with both dropouts
+  equals the port's packed step on the concatenated shards. Without a
+  group, two ranks emulated in one process (each with its rank, its row
+  base and its mixup neighbour passed in) equal the global step, dense,
+  merged, int8 straight-through and packed.
 
 The worker is this file run as a script (``python
 tests/test_torch_distributed.py <rank> <port> <dir>``); it imports no JAX
 and reads the JAX package's init from ``.npz`` files the test writes.
 """
 
+import copy
 import json
 import os
 import socket
@@ -45,6 +54,7 @@ from chestxray_vit_tpu_torch.data import packing as pk  # noqa: E402
 from chestxray_vit_tpu_torch.data.testing import build_fake_nih  # noqa: E402
 from chestxray_vit_tpu_torch.models import bridge  # noqa: E402
 from chestxray_vit_tpu_torch.models import packed as packed_model  # noqa: E402
+from chestxray_vit_tpu_torch.models import quantized  # noqa: E402
 from chestxray_vit_tpu_torch.parallel import distributed as dist  # noqa: E402
 from chestxray_vit_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from chestxray_vit_tpu_torch.train import steps as tsteps  # noqa: E402
@@ -64,6 +74,11 @@ DENSE_MODEL = dict(img_size=64, patch_size=16, hidden_size=64, num_layers=2,
 PACKED_MODEL = dict(img_size=64, patch_size=16, hidden_size=32,
                     num_layers=1, num_heads=2, mlp_dim=64, dtype="float32",
                     attention_impl="xla")
+# the random transforms across processes (ROADMAP Queue 1 #14)
+DROPOUT = dict(attention_dropout=0.1, hidden_dropout=0.1)
+MIXUP = 0.2
+PACKED_KEYS = ("tokens", "segment_ids", "pos_indices", "pool_weights",
+               "labels", "image_mask")
 
 
 def dense_train(out_dir, batch_size_per_core, **kw):
@@ -137,6 +152,17 @@ def packed_step_batch(rank):
             for k, v in out.items()}
 
 
+def dropout_config(out_dir, batch_size_per_core):
+    """The dense run with attention and hidden dropout 0.1, mixup 0.2 and
+    accumulation 2."""
+    return tconfig.Config(
+        data=tconfig.DataConfig(backend="memory", augment=True,
+                                mixup_alpha=MIXUP),
+        model=tconfig.ModelConfig(**DENSE_MODEL, **DROPOUT),
+        train=tconfig.TrainConfig(**dense_train(
+            out_dir, batch_size_per_core, gradient_accumulation_steps=2)))
+
+
 def packed_step(state, batch, total_steps=3):
     cfg = tconfig.Config(model=state.params.cfg,
                          train=tconfig.TrainConfig(learning_rate=2e-3))
@@ -162,22 +188,6 @@ def worker(rank: int, port: int, out: str) -> None:
            "gathered": dist.process_allgather(
                np.full((2, 3), rank, np.float32)).tolist()}
 
-    # the refusals at a world of two (ROADMAP Queue 1 #14)
-    res["refusals"] = []
-    for model, data in (({"attention_dropout": 0.1}, {}),
-                        ({"hidden_dropout": 0.1}, {}),
-                        ({}, {"mixup_alpha": 0.2})):
-        cfg = tconfig.Config(
-            data=tconfig.DataConfig(backend="memory", **data),
-            model=tconfig.ModelConfig(**{**DENSE_MODEL, **model}),
-            train=tconfig.TrainConfig(**dense_train(
-                os.path.join(out, "refused"), 8)))
-        try:
-            Trainer(cfg, store=dense_fake().store, pretrained=False,
-                    device="cpu")
-        except NotImplementedError as e:
-            res["refusals"].append(str(e))
-
     # the dense Trainer: 8 samples a rank, a global batch of 16
     dense_dir = os.path.join(out, "dense")
     cfg = tconfig.Config(
@@ -195,6 +205,20 @@ def worker(rank: int, port: int, out: str) -> None:
     tr.close()
     res["dense_losses"] = logged(
         dense_dir, "metrics.jsonl" if rank == 0 else f"metrics.rank{rank}.jsonl")
+
+    # the same with both dropouts, mixup and accumulation 2: 4 samples a
+    # micro-batch and rank, a global batch of 16
+    drop_dir = os.path.join(out, "dense_dropout")
+    tr = with_params(Trainer(
+        dropout_config(drop_dir, 4), store=dense_fake().store,
+        pretrained=False, device="cpu"), load_tree(os.path.join(
+            out, "dense.npz")))
+    assert tr.global_batch == 16
+    tr.train()
+    res["dropout_eval"] = tr.evaluate()
+    tr.close()
+    res["dropout_losses"] = logged(
+        drop_dir, "metrics.jsonl" if rank == 0 else f"metrics.rank{rank}.jsonl")
 
     # the PackedTrainer: host-sharded packing, 4 sequences a rank
     packed_dir = os.path.join(out, "packed")
@@ -219,6 +243,27 @@ def worker(rank: int, port: int, out: str) -> None:
         res["packed_cursor"] = json.load(f)["cursor"]
     res["packed_checkpoints"] = sorted(os.listdir(
         os.path.join(packed_dir, "checkpoints")))
+
+    # the PackedTrainer with both dropouts, no eval or save
+    drop_dir = os.path.join(out, "packed_dropout")
+    cfg = tconfig.Config(
+        data=tconfig.DataConfig(backend="memory", num_workers=2),
+        model=tconfig.ModelConfig(**PACKED_MODEL, **DROPOUT),
+        train=tconfig.TrainConfig(**{
+            **packed_train(drop_dir), "eval_strategy": "no",
+            "save_strategy": "no", "load_best_model_at_end": False}))
+    tr = with_params(PackedTrainer(
+        cfg, seq_len=SEQ_LEN, grids=GRIDS, batch_seqs=8,
+        store=packed_fake().store, pretrained=False, device="cpu",
+        census_sample=8), load_tree(os.path.join(out, "packed.npz")))
+    tr.train()
+    tr.close()
+    np.savez(os.path.join(out, f"packed_dropout_grads{rank}.npz"),
+             **{n: p.grad.numpy()
+                for n, p in tr.state.params.named_parameters()})
+    name = "metrics.jsonl" if rank == 0 else f"metrics.rank{rank}.jsonl"
+    res["packed_dropout_losses"] = logged(drop_dir, name)
+    res["packed_dropout_grad_norms"] = logged(drop_dir, name, "grad_norm")
 
     # one packed step, the ranks holding unequal real-image counts
     mcfg = tconfig.ModelConfig(**PACKED_MODEL, num_classes=15)
@@ -354,6 +399,16 @@ def refs(workers, tmp_path_factory):
     refs["port"]["eval_static"] = tr.evaluate()
     tr.close()
 
+    # the port's one process with both dropouts, mixup and accumulation 2
+    d = tmp_path_factory.mktemp("one_dropout")
+    tr = with_params(Trainer(dropout_config(d, 8), store=dense_fake().store,
+                             pretrained=False, device="cpu"),
+                     load_tree(out / "dense.npz"))
+    assert tr.global_batch == 16
+    tr.train()
+    refs["port_dropout"] = {"losses": logged(d), "eval": tr.evaluate()}
+    tr.close()
+
     # the JAX package's one process: 2 a device on its 8-device CPU mesh
     d = tmp_path_factory.mktemp("jax")
     jtr = JTrainer(jconfig.Config(
@@ -397,6 +452,27 @@ def refs(workers, tmp_path_factory):
                       "pool_weights", "labels", "image_mask")})
         losses.append(float(m["loss"]))
     refs["jax_packed_losses"] = losses
+
+    # the port's packed step with both dropouts on the same concatenated
+    # shards, in one process: the global batch of the two-rank run
+    pcfg = tconfig.Config(
+        model=tconfig.ModelConfig(**PACKED_MODEL, **DROPOUT,
+                                  num_classes=len(bundle.classes)),
+        train=tconfig.TrainConfig(learning_rate=2e-3, seed=0))
+    tstate = tsteps.TrainState.create(bridge.params_from_jax(
+        load_tree(out / "packed.npz"), pcfg.model), 0)
+    tstep = tsteps.make_packed_train_step(pcfg, 3, GRIDS)
+    losses, norms = [], []
+    for b0, b1 in pairs[:3]:
+        tstate, m = tstep(tstate, {
+            k: torch.from_numpy(np.concatenate([b0[k], b1[k]]))
+            for k in PACKED_KEYS})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    refs["port_packed_dropout"] = {
+        "losses": losses, "grad_norms": norms,
+        "grads": {n: p.grad.numpy()
+                  for n, p in tstate.params.named_parameters()}}
     return refs
 
 
@@ -479,14 +555,6 @@ def test_group_collectives(results):
         assert r["host_batch_slice"] == [8 * rank, 8 * rank + 8]
         assert r["agree"] == [True, False]
         assert r["gathered"] == [[0.0] * 3] * 2 + [[1.0] * 3] * 2
-
-
-def test_randomness_across_processes_refused(results):
-    """Attention dropout, hidden dropout and mixup at a world of two
-    raise, naming ROADMAP item #14."""
-    for r in results:
-        assert len(r["refusals"]) == 3
-        assert all("ROADMAP Queue 1 #14" in m for m in r["refusals"])
 
 
 # -- the dense Trainer -------------------------------------------------------
@@ -599,9 +667,158 @@ def test_packed_step_over_unequal_ranks_equals_the_concatenated_batch(
 
 
 def test_refusal_messages_name_roadmap_items():
-    """The port's refusals name the ROADMAP items that lift them."""
+    """The port's refusals name the ROADMAP items that lift them: #8 (one
+    process driving several devices) and #12 (the mesh axes beyond
+    data)."""
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
         roadmap = f.read()
-    for item, title in (("12", "The rest"), ("14", "Data parallelism with "
-                                                   "dropout and mixup")):
+    for item, title in (("8", "`parallel/` and serving across devices"),
+                        ("12", "The rest")):
         assert f"\n{item}. **{title}" in roadmap, item
+
+
+# -- attention dropout, hidden dropout and mixup across processes ------------
+
+def test_dropout_mixup_two_ranks_match_one_process(results, refs):
+    """Both dropouts, mixup and accumulation 2 at a world of two: each
+    rank keys its masks by its rows of the global batch, slices the
+    global λ and mixes its first row with the previous rank's last, so the
+    run equals the port's one process on the global batch."""
+    r0, r1 = results
+    assert len(r0["dropout_losses"]) == 4
+    assert r0["dropout_losses"] == r1["dropout_losses"]
+    assert r0["dropout_eval"] == r1["dropout_eval"]
+    want = refs["port_dropout"]
+    np.testing.assert_allclose(r0["dropout_losses"], want["losses"],
+                               rtol=2e-5, atol=1e-6)
+    for k in ("eval_loss", "avg_auroc"):
+        np.testing.assert_allclose(r0["dropout_eval"][k], want["eval"][k],
+                                   rtol=2e-5, atol=1e-6, err_msg=k)
+    # the transforms were on: the run differs from the one without them
+    assert abs(r0["dropout_losses"][-1] - r0["dense_losses"][-1]) > 1e-3
+
+
+def test_packed_dropout_two_ranks_match_one_process(results, refs,
+                                                   workers):
+    """Both dropouts in the PackedTrainer at a world of two: each rank keys
+    its masks by its sequences' places in the global batch, so the run
+    equals the port's packed step on the two ranks' shards concatenated:
+    losses, gradient norms and the last step's gradients."""
+    r0, r1 = results
+    assert len(r0["packed_dropout_losses"]) == 3
+    assert r0["packed_dropout_losses"] == r1["packed_dropout_losses"]
+    want = refs["port_packed_dropout"]
+    np.testing.assert_allclose(r0["packed_dropout_losses"], want["losses"],
+                               rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(r0["packed_dropout_grad_norms"],
+                               want["grad_norms"], rtol=2e-5, atol=1e-6)
+    # this small model's loss and gradient norm at its init barely feel the
+    # masks (the head's gradient dominates); the blocks' gradients do
+    out, _ = workers
+    for rank in (0, 1):
+        with np.load(out / f"packed_dropout_grads{rank}.npz") as z:
+            for n, g in want["grads"].items():
+                np.testing.assert_allclose(z[n], g, rtol=2e-5, atol=1e-6,
+                                           err_msg=n)
+
+
+def test_accumulation_micro_batches_are_contiguous():
+    """The strided split of accumulation hands every micro-batch over
+    contiguous: the segment kernels read the ids in place, so a strided
+    view would be refused on the card."""
+    batch = {k: torch.from_numpy(v) for k, v in packed_step_batch(0).items()}
+    micros = tsteps.micro_batches(batch, 2)
+    assert len(micros) == 2
+    for i, micro in enumerate(micros):
+        for k, v in micro.items():
+            assert v.is_contiguous(), k
+            assert torch.equal(v, batch[k][i::2])
+    assert tsteps.micro_batches(batch, 1) == [batch]
+
+
+EMU_MODEL = dict(img_size=32, patch_size=8, hidden_size=64, num_layers=2,
+                 num_heads=1, mlp_dim=128, num_classes=5, dtype="float32",
+                 **DROPOUT)
+
+
+def _emulated_cfg(kind):
+    model = {"tome": dict(EMU_MODEL, tome_r=2),
+             "packed": dict(PACKED_MODEL, num_classes=15, **DROPOUT)}.get(
+                 kind, EMU_MODEL)
+    return tconfig.Config(
+        model=tconfig.ModelConfig(**model),
+        data=tconfig.DataConfig(mixup_alpha=0.0 if kind == "packed"
+                                else MIXUP),
+        train=tconfig.TrainConfig(learning_rate=2e-3, warmup_steps=1,
+                                  gradient_accumulation_steps=(
+                                      1 if kind == "packed" else 2)))
+
+
+@pytest.mark.parametrize("kind", ["dense", "tome", "int8", "packed"])
+def test_emulated_ranks_equal_the_global_step(kind):
+    """No process group: the step of a global batch at a world of one, and
+    the same step as two ranks emulated in one process, each built with
+    its rank and given its half and (mixup) the previous rank's last rows.
+    The ranks' gradients combined as the all-reduce would (the dense mean;
+    the packed sums over the global denominator) equal the global step's,
+    and so does the loss."""
+    cfg = _emulated_cfg(kind)
+    init = packed_model.vit.init_params(torch.Generator().manual_seed(0),
+                                        cfg.model)
+    if kind == "packed":
+        halves = [{k: torch.from_numpy(v) for k, v in
+                   packed_step_batch(r).items()} for r in (0, 1)]
+        whole = {k: torch.cat([halves[0][k], halves[1][k]])
+                 for k in halves[0]}
+    else:
+        rng = np.random.default_rng(4)
+        whole = {"pixel_values": torch.from_numpy(rng.standard_normal(
+            (16, 32, 32, 3)).astype(np.float32)),
+            "labels": torch.from_numpy((rng.random((16, 5)) < 0.3)
+                                       .astype(np.float32))}
+        halves = [{k: v[8 * r:8 * r + 8] for k, v in whole.items()}
+                  for r in (0, 1)]
+
+    def build(rank, world):
+        if kind == "packed":
+            return tsteps.make_packed_train_step(cfg, 10, GRIDS, rank=rank,
+                                                 world=world)
+        scales = None
+        if kind == "int8":
+            scales = quantized.calibrate_vit_scales(
+                init, tsteps._images(cfg, whole), cfg.model)
+        return tsteps.make_train_step(cfg, 10, int8_scales=scales,
+                                      rank=rank, world=world)
+
+    def run(rank, world, batch, **kw):
+        params = copy.deepcopy(init)
+        _, m = build(rank, world)(tsteps.TrainState.create(params, 3),
+                                  batch, **kw)
+        return float(m["loss"]), {n: p.grad.clone()
+                                  for n, p in params.named_parameters()}
+
+    want_loss, want = run(0, 1, whole)
+    parts = []
+    for r in (0, 1):
+        kw = {}
+        if kind != "packed":
+            kw["neighbours"] = tsteps.mixup_neighbours(cfg, halves[1 - r])
+        parts.append(run(r, 2, halves[r], **kw))
+    if kind == "packed":
+        dens = [float(h["image_mask"].sum()) for h in halves]
+        w = [d / sum(dens) for d in dens]
+    else:
+        w = [0.5, 0.5]
+    loss = sum(wi * lo for wi, (lo, _) in zip(w, parts))
+    np.testing.assert_allclose(loss, want_loss, rtol=2e-5, atol=1e-6)
+    for n, g in want.items():
+        got = sum(wi * gr[n] for wi, (_, gr) in zip(w, parts))
+        np.testing.assert_allclose(got.numpy(), g.numpy(), rtol=2e-5,
+                                   atol=1e-6, err_msg=n)
+    if kind != "packed":
+        # a rank emulated without its neighbours cannot ask a group
+        with pytest.raises(ValueError, match="neighbours"):
+            run(1, 2, halves[1])
+    # rank 1 built as rank 0 keys its masks by the wrong rows
+    other = run(0, 2, halves[1], **kw)
+    assert other[0] != parts[1][0]

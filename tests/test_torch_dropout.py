@@ -8,8 +8,15 @@ is what its wrappers do for CPU tensors. The attention mask is a counter
 hash of the element index and the seed on both sides, so it is compared
 bit for bit, and the port's train step is given the seeds and mixup λ that
 the JAX step derives from its key. Hidden dropout draws from
-``jax.random`` there and from a torch generator here, so it is held to its
-statistics and to replaying under remat instead.
+``jax.random`` there and from the port's own counter hash
+(``ops/hidden_dropout.py``) here, so it is held to its statistics, to its
+definition and to replaying under remat instead.
+
+Every mask is keyed by the global batch row (``row_base``), so a
+data-parallel rank's slice draws the rows of the global batch's mask: the
+attention mask at an offset is held against the JAX package's debug kernel
+over the global batch, sliced, and the plain dropout functions and the
+hidden-dropout twin split against whole.
 """
 
 import dataclasses
@@ -29,6 +36,7 @@ from chestxray_vit_tpu_torch import config as tconfig
 from chestxray_vit_tpu_torch.models import bridge
 from chestxray_vit_tpu_torch.models import vit as tvit
 from chestxray_vit_tpu_torch.ops import flash_attention as tfa
+from chestxray_vit_tpu_torch.ops import hidden_dropout as thd
 from chestxray_vit_tpu_torch.train import steps as tsteps
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -203,6 +211,175 @@ def test_dropout_seed_changes_the_mask_deterministically():
     torch.testing.assert_close(tfa.attention_dropout(tq, tk, tv, SEED, RATE,
                                                      impl="xla"), a,
                                atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The row base: a rank's slice of the global batch's masks
+# ---------------------------------------------------------------------------
+
+def _np_keep(bh_base, bh, q_pad, s_pad, seed, rate):
+    """The counter hash in numpy uint32 arithmetic (wrapping), from its
+    definition: ((bh_base + b)·q_pad + i)·s_pad + j."""
+    u = np.uint32
+    with np.errstate(over="ignore"):
+        b = (np.arange(bh, dtype=np.uint64) + bh_base).astype(u)
+        row = b[:, None] * u(q_pad) + np.arange(q_pad, dtype=u)[None, :]
+        c = row[:, :, None] * u(s_pad) + np.arange(s_pad, dtype=u)
+        mix, thr = tfa.dropout_constants(seed, rate)
+        x = c ^ u(mix)
+        x ^= x >> u(16)
+        x *= u(0x85EBCA6B)
+        x ^= x >> u(13)
+        x *= u(0xC2B2AE35)
+        x ^= x >> u(16)
+    return x >= u(thr)
+
+
+@pytest.mark.parametrize("strides", [
+    tfa.mask_strides(77, 128), tfa.mask_strides(77, 32),
+    tfa.packed_mask_strides(77, tfa.packed_block_q(77)),
+    tfa.packed_mask_strides(400, tfa.packed_block_q(400))],
+    ids=["dense-single-block", "dense-multi-block", "segment-128",
+         "segment-384"])
+def test_keep_mask_with_bh_base_is_the_global_slice(strides):
+    q_pad, s_pad = strides
+    whole = tfa.keep_mask(12, q_pad, s_pad, SEED, RATE)
+    for base, n in ((0, 5), (5, 4), (9, 3)):
+        part = tfa.keep_mask(n, q_pad, s_pad, SEED, RATE, bh_base=base)
+        assert torch.equal(part, whole[base:base + n])
+    # far out, the counter wraps at 2^32 as the kernels' does
+    base = 2 ** 32 // (q_pad * s_pad) - 1
+    np.testing.assert_array_equal(
+        tfa.keep_mask(3, q_pad, s_pad, SEED, RATE, bh_base=base).numpy(),
+        _np_keep(base, 3, q_pad, s_pad, SEED, RATE))
+
+
+@pytest.mark.parametrize("block_q,row_base", [(128, 1), (32, 3)],
+                         ids=["single-block", "multi-block"])
+def test_keep_mask_at_a_batch_offset_equals_jax_global_mask(block_q,
+                                                            row_base):
+    """A rank holding batch rows [row_base, row_base + 1) of a global batch
+    of 4: the port's mask of its slice equals rows of the JAX debug
+    kernel's mask over the global batch (interpreted), bit for bit."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(5, shape=(4, 3, 77, 64))
+    _, jkeep = jfa.flash_attention_dropout_debug(
+        jq, jk, jv, jnp.asarray([SEED], jnp.int32), RATE, None, block_q)
+    want = np.asarray(jkeep)[row_base:row_base + 1] > 0.5
+    sl = slice(row_base, row_base + 1)
+    got = tfa._keep(tq[sl], SEED, RATE, block_q, row_base)
+    np.testing.assert_array_equal(got.numpy(), want)
+    _, tkeep = tfa.flash_attention_dropout_debug(
+        tq[sl], tk[sl], tv[sl], SEED, RATE, block_q=block_q,
+        row_base=row_base)
+    np.testing.assert_array_equal(tkeep.numpy(), want)
+
+
+def test_plain_dropout_attention_split_equals_whole():
+    """Forward and backward of the plain dense dropout attention over rows
+    [2, 4) with row base 2 equal rows [2, 4) of the call over the whole
+    batch, bit for bit."""
+    (_, tq), (_, tk), (_, tv) = _qkv(6, shape=(4, 3, 77, 64))
+    do = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        tq.shape).astype(np.float32))
+    bq = tfa.auto_block_q(77)
+    o, lse = tfa.attention_dropout_fwd_reference(tq, tk, tv, SEED, RATE,
+                                                 block_q=bq)
+    grads = tfa.attention_dropout_bwd_reference(tq, tk, tv, o, lse, do, SEED,
+                                                RATE, block_q=bq)
+    sl = slice(2, 4)
+    o2, lse2 = tfa.attention_dropout_fwd_reference(
+        tq[sl], tk[sl], tv[sl], SEED, RATE, block_q=bq, row_base=2)
+    torch.testing.assert_close(o2, o[sl], atol=0, rtol=0)
+    torch.testing.assert_close(lse2, lse[sl], atol=0, rtol=0)
+    grads2 = tfa.attention_dropout_bwd_reference(
+        tq[sl], tk[sl], tv[sl], o[sl], lse[sl], do[sl], SEED, RATE,
+        block_q=bq, row_base=2)
+    for a, b in zip(grads2, grads):
+        torch.testing.assert_close(a, b[sl], atol=0, rtol=0)
+    # without the base the slice draws the global batch's first rows
+    o3, _ = tfa.attention_dropout_fwd_reference(tq[sl], tk[sl], tv[sl], SEED,
+                                                RATE, block_q=bq)
+    assert not torch.equal(o3, o[sl])
+    # the autograd function carries the base to its backward
+    leaves = [t[sl].clone().requires_grad_() for t in (tq, tk, tv)]
+    (tfa.attention_dropout(*leaves, SEED, RATE, row_base=2)
+     * do[sl]).sum().backward()
+    for leaf, b in zip(leaves, grads):
+        torch.testing.assert_close(leaf.grad, b[sl], atol=0, rtol=0)
+
+
+def test_plain_packed_dropout_split_equals_whole_and_jax():
+    """The segment dropout forward and backward over sequences [1, 3) with
+    row base 1 equal sequences [1, 3) of the whole batch's; the forward
+    also equals the JAX packed dropout kernel over the whole batch
+    (interpreted), sliced."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(8, shape=(3, 2, 96, 64))
+    seg = np.repeat(np.array([[0, 1, 2]], np.int32), 32, axis=1)
+    seg = np.concatenate([seg, seg[:, ::-1], np.full_like(seg, -1)])
+    tseg = torch.from_numpy(np.ascontiguousarray(seg))
+    do = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        tq.shape).astype(np.float32))
+    bq = tfa.packed_block_q(96)
+    o, lse = tfa.attention_packed_dropout_fwd_reference(
+        tq, tk, tv, tseg, SEED, RATE, block_q=bq)
+    grads = tfa.attention_packed_dropout_bwd_reference(
+        tq, tk, tv, tseg, o, lse, do, SEED, RATE, block_q=bq)
+    sl = slice(1, 3)
+    o2, lse2 = tfa.attention_packed_dropout_fwd_reference(
+        tq[sl], tk[sl], tv[sl], tseg[sl], SEED, RATE, block_q=bq,
+        row_base=1)
+    torch.testing.assert_close(o2, o[sl], atol=0, rtol=0)
+    torch.testing.assert_close(lse2, lse[sl], atol=0, rtol=0)
+    grads2 = tfa.attention_packed_dropout_bwd_reference(
+        tq[sl], tk[sl], tv[sl], tseg[sl], o[sl], lse[sl], do[sl], SEED, RATE,
+        block_q=bq, row_base=1)
+    for a, b in zip(grads2, grads):
+        torch.testing.assert_close(a, b[sl], atol=0, rtol=0)
+    ref = jfa.flash_attention_packed_dropout(
+        jq, jk, jv, jnp.asarray(seg), jnp.asarray([SEED], jnp.int32), RATE,
+        None, bq)
+    real = seg[sl] >= 0                 # parity on rows with an id >= 0
+    got = tfa.attention_packed(tq[sl], tk[sl], tv[sl], tseg[sl], "xla",
+                               SEED, RATE, row_base=1)
+    np.testing.assert_allclose(
+        got.numpy().transpose(0, 2, 1, 3)[real],
+        np.asarray(ref)[sl].transpose(0, 2, 1, 3)[real], atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hidden_dropout_split_equals_whole(dtype):
+    x = torch.randn((6, 65, 96), generator=torch.Generator().manual_seed(1)
+                    ).to(dtype)
+    whole = thd.hidden_dropout_reference(x, 4321, 0.2)
+    for lo, hi in ((0, 2), (2, 5), (5, 6)):
+        torch.testing.assert_close(
+            thd.hidden_dropout_reference(x[lo:hi], 4321, 0.2, row_base=lo),
+            whole[lo:hi], atol=0, rtol=0)
+    # the mask from its definition: ((row_base + b)·S + t)·D + c
+    keep = thd.hidden_keep_mask((2, 65, 96), 4321, 0.2, row_base=3)
+    mix, thr = tfa.dropout_constants(4321, 0.2)
+    counter = (((3 + torch.arange(2))[:, None, None] * 65
+                + torch.arange(65)[:, None]) * 96 + torch.arange(96))
+    assert torch.equal(keep, tfa._fmix32((counter & tfa._M32) ^ mix) >= thr)
+    assert not torch.equal(
+        thd.hidden_dropout_reference(x[2:5], 4321, 0.2), whole[2:5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hidden_dropout_gradient_is_the_masked_scaled_upstream(dtype):
+    """The backward drops the upstream gradient with the forward's mask and
+    scale (dy / (1 − rate) where kept, 0 elsewhere), in both dtypes."""
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((3, 17, 64), generator=gen).to(dtype).requires_grad_()
+    dy = torch.randn((3, 17, 64), generator=gen).to(dtype)
+    y = thd.hidden_dropout(x, 99, 0.25, row_base=7)
+    keep = thd.hidden_keep_mask(x.shape, 99, 0.25, row_base=7)
+    torch.testing.assert_close(y, torch.where(keep, x / 0.75, 0.0).to(dtype),
+                               atol=0, rtol=0)
+    y.backward(dy)
+    torch.testing.assert_close(
+        x.grad, torch.where(keep, dy / 0.75, 0.0).to(dtype), atol=0, rtol=0)
+    assert abs(keep.float().mean().item() - 0.75) < 0.02
 
 
 # ---------------------------------------------------------------------------
@@ -429,8 +606,8 @@ def test_mixup_train_step_matches_jax(accum):
     mixed = []
     orig = tsteps.mixup
 
-    def spy(images, labels, lam):
-        out = orig(images, labels, lam)
+    def spy(images, labels, lam, prev=None):
+        out = orig(images, labels, lam, prev)
         mixed.append((images, lam, out[0]))
         return out
 

@@ -46,6 +46,7 @@ MODULES = [
     "chestxray_vit_tpu_torch.ops.gelu",
     "chestxray_vit_tpu_torch.ops.layer_norm",
     "chestxray_vit_tpu_torch.ops.flash_attention",
+    "chestxray_vit_tpu_torch.ops.hidden_dropout",
     "chestxray_vit_tpu_torch.ops.preprocess",
     "chestxray_vit_tpu_torch.ops.quant",
     "chestxray_vit_tpu_torch.ops.int8_matmul",
