@@ -41,6 +41,13 @@ Ported so far, at ViT-B/16 @384:
 - data-parallel training of both trainers over ``torch.distributed``
   (``parallel.distributed``, ``parallel.mesh``: one process per device
   under ``torchrun``, NCCL on the card, gloo on the CPU);
+- data-parallel serving from one process
+  (``Predictor(data_parallel=N)``, the server's ``--data-parallel N``:
+  one weight replica and one stream per card, the bucket's rows split
+  evenly and the outputs gathered in card order); ``device`` may list one
+  device per replica, repeats allowed, so the CPU tests hold
+  ``["cpu"] * N`` replicas against the JAX package's virtual devices and
+  the card's smoke run emulates two cards with ``["cuda:0", "cuda:0"]``;
 - the command line (``cli``: train, eval, predict, smoke, maps, export,
   quantize, serve, with ``--device``), HF weight import and export
   (``models.import_hf``, ``models.export_hf``, over the port's own

@@ -8,16 +8,18 @@ starts the host→device copy; the device half (``forward_staged``) runs the
 ViT forward and pulls the logits, and the host takes the sigmoid. The
 port's ``serve.batcher.MicroBatcher`` runs the two halves on two threads.
 
-Both halves enqueue their work on one CUDA stream that the Predictor owns,
-so the copy of a batch is ordered before the forward that reads it whatever
-thread calls either half. The copies read pinned host buffers; PyTorch's
-pinned-memory allocator does not hand a buffer out again before the copy
-that read it has finished.
+The Predictor holds one weight replica per device (one, or N under
+``data_parallel``) and one CUDA stream per replica. Both halves enqueue a
+replica's work on its stream, so the copy of a batch is ordered before the
+forward that reads it whatever thread calls either half. The copies read
+pinned host buffers; PyTorch's pinned-memory allocator does not hand a
+buffer out again before the copy that read it has finished.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import sys
@@ -47,9 +49,48 @@ class PredictOutput:
     maps: Optional[np.ndarray] = None       # [N, g, g] attention rollout
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP Queue 1 {item})")
+def _indexed(device: torch.device) -> torch.device:
+    """``device`` with its index: an unindexed card is the current one."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def replica_devices(device, data_parallel, batch_size: int
+                    ) -> List[torch.device]:
+    """The devices of a Predictor's weight replicas, one per replica.
+
+    ``device`` is one device, or a sequence of devices (repeats allowed),
+    one per replica; ``data_parallel`` is then unset (False, None, 0 or
+    True) or the sequence's length. With one device, ``data_parallel``
+    False, 0 or 1 gives that device alone, True every visible device of
+    its type and an int N the first N (``cuda:0`` … ``cuda:N-1``); the CPU
+    is one device. Refused as the JAX Predictor refuses: N < 1, more than
+    the visible devices, a batch size that N does not divide."""
+    if isinstance(device, (list, tuple)):
+        devices = [_indexed(torch.device(d)) for d in device]
+        unset = (data_parallel is None or isinstance(data_parallel, bool)
+                 or data_parallel == 0)
+        if not devices or (not unset and data_parallel != len(devices)):
+            raise ValueError(f"data_parallel={data_parallel!r} does not "
+                             f"match the {len(devices)} devices given")
+        if len({d.type for d in devices}) > 1:
+            raise ValueError(f"replica devices of several types: {devices}")
+    else:
+        dev = torch.device(device)
+        visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+        n = visible if data_parallel is True else int(data_parallel or 1)
+        if n < 1:
+            raise ValueError(f"data_parallel={n} must be >= 1 (or True for "
+                             f"all devices)")
+        if n > visible:
+            raise ValueError(f"data_parallel={n} > {visible} devices")
+        devices = ([_indexed(dev)] if n == 1 else
+                   [torch.device(dev.type, i) for i in range(n)])
+    if batch_size % len(devices):
+        raise ValueError(f"batch_size {batch_size} not divisible by "
+                         f"data_parallel {len(devices)}")
+    return devices
 
 
 class Predictor:
@@ -96,12 +137,21 @@ class Predictor:
     quantized Predictor builds that dense tree on its stream at the first
     maps forward or at ``warmup(with_maps=True)``.
 
-    :meth:`from_model_dir` loads a ``Trainer.save_model()`` directory.
+    ``data_parallel`` serves each micro-batch over several devices from
+    one process (``True`` = every visible card, an int = the first N; see
+    :func:`replica_devices`), as the JAX Predictor shards it over a
+    ``data`` mesh: one weight replica and one stream per device, replica
+    i takes rows [i·b/N, (i+1)·b/N) of the padded bucket b, the logits
+    (and maps) are gathered in replica order, and buckets round up to a
+    multiple of N. ``device`` may instead be a sequence of devices, one
+    per replica, repeats allowed: ``["cpu"] * 4`` holds four replicas on
+    the CPU (the tests' stand-in for the JAX package's virtual devices),
+    ``["cuda:0"] * 2`` two on one card, each on its own stream. Static
+    calibration runs once, on replica 0, and every replica serves a copy
+    of that one int8 tree. Composes with ``placement``, ``quantize``,
+    ``tome_r`` and ``with_maps``.
 
-    Not ported yet, and refused: ``data_parallel`` (one process serving
-    over several cards; ROADMAP Queue 1 #8). Training is data-parallel
-    across processes (``parallel/distributed.py``); serving stays one
-    process on one device.
+    :meth:`from_model_dir` loads a ``Trainer.save_model()`` directory.
     """
 
     def __init__(self, params: vit.ViT, cfg: ModelConfig,
@@ -111,8 +161,6 @@ class Predictor:
                  quantize=False, calibration=None, data_parallel=False,
                  qparams: Optional[quantized.QuantizedViT] = None,
                  tome_r: int = 0, tome_schedule: str = "constant"):
-        if data_parallel:
-            raise _not_ported("data_parallel serving", "#8")
         if placement not in ("host", "device"):
             raise ValueError(f"unknown placement {placement!r}")
         if quantize in (False, None):
@@ -127,10 +175,13 @@ class Predictor:
             raise ValueError("quantize='static' serves through the fused "
                              "int8 kernel, which computes the exact-erf "
                              "GELU; gelu_approximate is not supported")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        named = device if isinstance(device, (list, tuple)) else [device]
+        if (any(torch.device(d).type == "cuda" for d in named)
+                and not torch.cuda.is_available()):
             raise RuntimeError("Predictor(device='cuda') but no CUDA device "
                                "is available")
+        self.devices = replica_devices(device, data_parallel, batch_size)
+        self.device = self.devices[0]
         self.params = params
         self.cfg = cfg
         self.classes = list(classes) if classes else None
@@ -140,26 +191,36 @@ class Predictor:
         self.quantize = qmode is not None
         self.quantize_mode = qmode
         self.forwards = 0           # forward_staged calls (batches)
-        self._maps_params: Optional[vit.ViT] = None
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                         for d in self.devices]
+        self._maps_trees: List[Optional[vit.ViT]] = [None] * self.replicas
         if qparams is not None:
             saved = "static" if qparams.static else "dynamic"
             if saved != qmode:
                 raise ValueError(f"prebuilt qparams are {saved!r} but "
                                  f"quantize={qmode!r} was requested")
-        # on the Predictor's stream, which every forward runs on: the
-        # weights are ready before the first forward reads them
-        with self._on_stream():
+        # each replica's weights on its own stream, which every forward of
+        # that replica runs on: they are ready before its first forward
+        with self._on_stream(0):
             if qmode is None:
-                self._fwd_params = vit.inference_params(params, self.device)
+                tree = vit.inference_params(params, self.device)
             elif qparams is not None:
-                self._fwd_params = qparams.to(self.device)
+                tree = qparams.to(self.device)
             else:
                 scales = (self._calibrate(calibration) if qmode == "static"
                           else None)
-                self._fwd_params = quantized.quantize_vit_params(
-                    params, scales, device=self.device)
+                tree = quantized.quantize_vit_params(params, scales,
+                                                     device=self.device)
+            # one int8 tree for every replica: the same bits and scales
+            host = (copy.deepcopy(tree).to("cpu")
+                    if self.quantize and self.replicas > 1 else None)
+        self._trees = [tree]
+        for r, dev in enumerate(self.devices[1:], 1):
+            with self._on_stream(r):
+                self._trees.append(vit.inference_params(params, dev)
+                                   if host is None
+                                   else copy.deepcopy(host).to(dev))
+        self._fwd_params = tree     # replica 0's
         # the fused kernel for static trees, the plain route for dynamic
         self._backend = "pallas" if qmode == "static" else "xla"
         self.tome_r = int(tome_r or 0)
@@ -197,8 +258,8 @@ class Predictor:
                 f"quantize='static' got calibration={calibration!r}: pass "
                 f"real images (a non-EMPTY list), or "
                 f"calibration='synthetic' explicitly")
-        images = self._images_of(self._to_device(
-            self._stage(list(calibration), 0)))
+        images = self._images_of(self._copy(
+            self._stage(list(calibration), 0), 0))
         return quantized.calibrate_vit_scales(self.params, images, self.cfg)
 
     @classmethod
@@ -257,9 +318,21 @@ class Predictor:
             directory, self._fwd_params,
             fingerprint=quantized.model_fingerprint(self.params))
 
-    def _on_stream(self):
-        return (torch.cuda.stream(self._stream) if self._stream is not None
-                else contextlib.nullcontext())
+    @property
+    def replicas(self) -> int:
+        """Weight replicas, one per device; a forward runs each of them on
+        its share of the bucket's rows."""
+        return len(self.devices)
+
+    def _on_stream(self, r: int = 0):
+        """Replica ``r``'s device and stream (nothing on the CPU)."""
+        stream = self._streams[r]
+        if stream is None:
+            return contextlib.nullcontext()
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(torch.cuda.device(self.devices[r]))
+        ctx.enter_context(torch.cuda.stream(stream))
+        return ctx
 
     def _images_of(self, staged) -> torch.Tensor:
         dtype = vit.torch_dtype(self.cfg.dtype)
@@ -312,20 +385,49 @@ class Predictor:
             list(ex.map(stage_canvas, enumerate(images_bytes)))
         return canvases, boxes
 
-    def _to_device(self, arrays) -> tuple:
-        """Begin the host→device copy of staged host arrays on the
-        Predictor's stream."""
-        if self.device.type != "cuda":
+    def _copy(self, arrays, r: int) -> tuple:
+        """Begin the host→device copy of staged host arrays on replica
+        ``r``'s stream."""
+        dev = self.devices[r]
+        if dev.type != "cuda":
             return tuple(torch.from_numpy(a) for a in arrays)
-        with self._on_stream():
+        with self._on_stream(r):
             return tuple(torch.from_numpy(a).pin_memory().to(
-                self.device, non_blocking=True) for a in arrays)
+                dev, non_blocking=True) for a in arrays)
+
+    def _to_device(self, arrays):
+        """Begin the host→device copy of staged host arrays: one replica's
+        operand tuple, or with several replicas a list of them, replica i
+        holding rows [i·n/N, (i+1)·n/N)."""
+        if self.replicas == 1:
+            return self._copy(arrays, 0)
+        k = len(arrays[0]) // self.replicas
+        return [self._copy([a[r * k:(r + 1) * k] for a in arrays], r)
+                for r in range(self.replicas)]
+
+    def _shares(self, staged) -> list:
+        """The per-replica operand tuples of staged operands."""
+        return staged if self.replicas > 1 else [staged]
+
+    def _pull(self, outs: list, valid: int) -> tuple:
+        """The first ``valid`` rows of the replicas' outputs (a tuple of
+        tensors each), gathered on the host in replica order. Every
+        replica's forward is enqueued before the first pull waits."""
+        rows = len(outs[0][0])
+        parts = []
+        for r, out in enumerate(outs):
+            n = min(rows, max(valid - r * rows, 0))
+            with self._on_stream(r):
+                parts.append([t[:n].cpu().numpy() for t in out])
+        return tuple(np.concatenate(p) for p in zip(*parts))
 
     def warmup(self, with_maps: bool = False) -> None:
-        """Run every bucket size once on zero operands, so the first
-        requests do not pay for the kernel build, library load and the
-        allocator's first blocks; with ``with_maps`` the rollout forward
-        (which builds a quantized Predictor's dense tree)."""
+        """Run every bucket size once on zero operands (each on every
+        replica; buckets that round to the same multiple of the replicas
+        run once), so the first requests do not pay for the kernel build,
+        library load and the allocator's first blocks; with ``with_maps``
+        the rollout forward (which builds a quantized Predictor's dense
+        trees)."""
         b, candidates = 1, []
         while b < self.batch_size:
             candidates.append(b)
@@ -348,11 +450,13 @@ class Predictor:
 
     def _bucket(self, valid: int, bs: int) -> int:
         """Smallest power-of-two batch ≥ valid, clamped to bs: log2(bs)+1
-        bucket shapes in all."""
+        bucket shapes in all. With several replicas it rounds up to a
+        multiple of their number, so every replica gets equal rows."""
         b = 1
         while b < valid:
             b <<= 1
-        return min(b, bs)
+        n = self.replicas
+        return min(max(-(-b // n) * n, n), bs)
 
     def stage_chunk(self, chunk: Sequence):
         """Host half of one micro-batch: decode + crop/pad/resize, pad to the
@@ -365,43 +469,51 @@ class Predictor:
         return self._to_device(self._stage(
             list(chunk), self._bucket(valid, self.batch_size) - valid))
 
+    def _logits(self, r: int, images: torch.Tensor) -> torch.Tensor:
+        """Replica ``r``'s serving forward, enqueued on the current
+        stream."""
+        tree = self._trees[r]
+        if self.tome_r:
+            return tome_forward.apply_tome(
+                tree, images, self.cfg, self.tome_r,
+                quantized=self.quantize, schedule=self.tome_schedule,
+                backend=self._backend)
+        if self.quantize:
+            return quantized.apply_quantized(tree, images, self.cfg,
+                                             backend=self._backend)
+        return vit.apply(tree, images, self.cfg)
+
     def _forward_logits(self, staged, valid: int) -> np.ndarray:
         """f32 logits of the first ``valid`` rows, pulled to the host (the
         pull is the synchronization point)."""
-        with torch.inference_mode(), self._on_stream():
-            images = self._images_of(staged)
-            if self.tome_r:
-                logits = tome_forward.apply_tome(
-                    self._fwd_params, images, self.cfg, self.tome_r,
-                    quantized=self.quantize, schedule=self.tome_schedule,
-                    backend=self._backend)
-            elif self.quantize:
-                logits = quantized.apply_quantized(
-                    self._fwd_params, images, self.cfg, backend=self._backend)
-            else:
-                logits = vit.apply(self._fwd_params, images, self.cfg)
-            return logits[:valid].cpu().numpy()
+        outs = []
+        for r, share in enumerate(self._shares(staged)):
+            with torch.inference_mode(), self._on_stream(r):
+                outs.append((self._logits(r, self._images_of(share)),))
+        return self._pull(outs, valid)[0]
 
-    def _dense_params(self) -> vit.ViT:
-        """The dense tree the attention maps run on: the serving tree of a
-        dense Predictor, else one built once from ``params``."""
+    def _dense_params(self, r: int = 0) -> vit.ViT:
+        """Replica ``r``'s dense tree, which the attention maps run on: its
+        serving tree in a dense Predictor, else one built once from
+        ``params`` on its stream."""
         if not self.quantize:
-            return self._fwd_params
-        if self._maps_params is None:
-            with self._on_stream():
-                self._maps_params = vit.inference_params(self.params,
-                                                         self.device)
-        return self._maps_params
+            return self._trees[r]
+        if self._maps_trees[r] is None:
+            with self._on_stream(r):
+                self._maps_trees[r] = vit.inference_params(
+                    self.params, self.devices[r])
+        return self._maps_trees[r]
 
     def _forward_maps(self, staged, valid: int):
         """(f32 logits, [valid, g, g] rollout maps) of the first ``valid``
         rows from the full-token dense forward, pulled to the host."""
-        params = self._dense_params()
-        with torch.inference_mode(), self._on_stream():
-            logits, maps = attention_maps.compute_rollout(
-                params, self._images_of(staged), self.cfg)
-            return (logits[:valid].cpu().numpy(),
-                    maps[:valid].cpu().numpy())
+        outs = []
+        for r, share in enumerate(self._shares(staged)):
+            params = self._dense_params(r)
+            with torch.inference_mode(), self._on_stream(r):
+                outs.append(attention_maps.compute_rollout(
+                    params, self._images_of(share), self.cfg))
+        return self._pull(outs, valid)
 
     def forward_staged(self, staged, valid: int,
                        with_maps: bool = False) -> PredictOutput:

@@ -24,6 +24,18 @@ matching ``quantized/`` artifact there is loaded), or random weights from
 the decreasing schedule; ``--auto-accel`` picks that stack or plain bf16
 by the batch size (:func:`auto_accel_config`). Explicit flags win over a
 preset, and ``--auto-accel`` refuses them, as in the JAX server.
+
+``--data-parallel N`` serves each forward over the first N cards of this
+process (``Predictor(data_parallel=N)``: one weight replica and one stream
+a card, the bucket's rows split evenly and the logits gathered in card
+order); the batch size must be a multiple of N:
+
+    python -m chestxray_vit_tpu_torch.serve.server --seed 0 \
+        --batch-size 32 --data-parallel 2
+
+The CPU is one device, so ``--device cpu`` refuses N > 1. The tests hold
+the replicas on ``Predictor(device=["cpu"] * N)`` and the card's smoke
+run on ``["cuda:0", "cuda:0"]``, two streams on one card.
 """
 
 from __future__ import annotations
@@ -230,6 +242,10 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                     default=None,
                     help="spread the r*L merge budget over the layers: "
                          "'decreasing' merges most in the early layers")
+    ap.add_argument("--data-parallel", type=int, default=0,
+                    help="shard each micro-batch over the first N devices "
+                         "(0/1 = single-device; requires batch-size "
+                         "divisible by N)")
     ns = ap.parse_args(argv)
     if ns.auto_accel:
         if (ns.quantize is not None or ns.tome_r is not None
@@ -268,7 +284,8 @@ def main(argv: Optional[list] = None) -> int:
     kw = dict(batch_size=ns.batch_size, placement=ns.placement,
               device=ns.device, quantize=ns.quantize,
               calibration=ns.calibration, tome_r=ns.tome_r,
-              tome_schedule=ns.tome_schedule)
+              tome_schedule=ns.tome_schedule,
+              data_parallel=ns.data_parallel)
     if ns.model_dir:
         predictor = Predictor.from_model_dir(ns.model_dir, **kw)
     else:

@@ -218,6 +218,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    packed (32 × 1152 mixed-resolution sequences, the dropouts only). Then
    micro-batch 0's first-layer draws and keep masks of each rank at its
    row base against the global ones, bit for bit.
+32. serving_dp (after 20): data-parallel serving from one process at
+   full width (ViT-B/16 @384, seed-0 weights, placement "device"). The
+   card's machine has one card, so two replicas on cuda:0, each with its
+   own weights and stream (``Predictor(device=["cuda:0", "cuda:0"])``),
+   stand in for two cards (``emulated``); with two cards or more a real
+   ``data_parallel=torch.cuda.device_count()`` Predictor runs as well
+   (``cards``). For each stack, dense bf16, static int8 (fused kernel),
+   fast_serve (static int8 + tome_r 16 decreasing), each with 16 rows a
+   replica, and the rollout maps forward at 4 rows a replica (b8 on two):
+   128 concurrent requests through the MicroBatcher, with images/s, p50
+   and max latency beside a one-replica Predictor at the same batch on
+   the same requests, and each replica's ``enqueue_ms``; exactly
+   replicas x the per-forward launches (12 attention, 25 LayerNorm, 73
+   int8 on the fused route; maps 25 LayerNorm); each replica's rows of 32
+   images equal, bit for bit, a one-replica Predictor at the replica's
+   batch; the gathered logits (and maps) within BF16_LOGIT_TOL (MAPS_TOL)
+   of the one-replica Predictor at the same batch. Two streams on one
+   card share it: the emulated line measures no scaling.
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -422,6 +440,13 @@ POLICY_WARMUP_STEPS, POLICY_TIMED_STEPS = 1, 3
 MAPS_REQUESTS, GRAD_CAM_BATCH = 4, 2
 # the server's fast_serve merging: tome_r 16 under the decreasing schedule
 TOME_SERVE = (16, "decreasing")
+# serving_dp: replicas on one card, and each stack with its rows a replica
+DP_REPLICAS = 2
+DP_STACKS = (("dense_bf16", 16, {}),
+             ("static_int8", 16, {"quantize": "static"}),
+             ("fast_serve", 16, {"quantize": "static", "tome_r": TOME_SERVE[0],
+                                 "tome_schedule": TOME_SERVE[1]}),
+             ("maps", 4, {}))
 # The dense attention kernels before their redesign (mma.sync from scalar
 # shared-memory loads, synchronous tile loads, transposed copies) on an
 # NVIDIA H100 80GB HBM3 at 700.00 W: the backwards at [36, 12, 577, 64]
@@ -1580,11 +1605,12 @@ def make_requests(n: int = REQUESTS) -> list:
     return out
 
 
-def serve_burst(pred, images: list) -> tuple:
+def serve_burst(pred, images: list, with_maps: bool = False) -> tuple:
     """Every image submitted to a MicroBatcher over ``pred`` from
-    CLIENT_THREADS threads at once, with the launch counts and the
-    Predictor's forward count set to 0 just before: (results, submit
-    times, done times, launches)."""
+    CLIENT_THREADS threads at once (with ``with_maps``, as maps
+    requests), with the launch counts and the Predictor's forward count
+    set to 0 just before: (results, submit times, done times,
+    launches)."""
     import chestxray_vit_tpu_torch as cxr
 
     batcher = cxr.MicroBatcher(pred)
@@ -1595,7 +1621,7 @@ def serve_burst(pred, images: list) -> tuple:
     def client(idx):
         for i in idx:
             submitted[i] = time.perf_counter()
-            fut = batcher.submit(images[i])
+            fut = batcher.submit(images[i], with_maps=with_maps)
             fut.add_done_callback(
                 lambda _f, i=i: done.__setitem__(i, time.perf_counter()))
             futures[i] = fut
@@ -2859,6 +2885,136 @@ def phase_serving_tome(int8_rec: dict) -> dict:
     del pred, dense, qp, dense_p, imgs
     torch.cuda.empty_cache()
     return {k: launches[k] + d_launches[k] for k in launches}
+
+
+def dp_layouts() -> list:
+    """(name, Predictor device options, replicas) of the data-parallel
+    serving runs: two replicas on cuda:0, and every card where there are
+    two or more."""
+    cards = torch.cuda.device_count()
+    layouts = [("emulated", {"device": ["cuda:0"] * DP_REPLICAS},
+                DP_REPLICAS)]
+    if cards >= 2:
+        layouts.append(("cards", {"device": "cuda", "data_parallel": cards},
+                        cards))
+    return layouts
+
+
+def phase_serving_dp() -> dict:
+    """Data-parallel serving (phase 32): for each layout of
+    :func:`dp_layouts` and each stack of DP_STACKS, a Predictor over the
+    layout's replicas answers INT8_REQUESTS concurrent requests beside a
+    one-replica Predictor at the same batch; exact launches (replicas x the
+    per-forward rule), each replica's rows bit for bit against a
+    one-replica Predictor at the replica's batch, the gathered outputs
+    within BF16_LOGIT_TOL (maps MAPS_TOL) of the one-replica ones, and each
+    replica's enqueue_ms. Returns the data-parallel bursts' launches."""
+    import chestxray_vit_tpu_torch as cxr
+    from chestxray_vit_tpu_torch.serve import attention_maps
+    from chestxray_vit_tpu_torch.models import vit
+
+    cfg = cxr.ModelConfig()
+    params = vit.init_params(torch.Generator().manual_seed(SEED), cfg)
+    images = make_requests(INT8_REQUESTS)
+    held = images[:INT8_BATCH]
+    total = {}
+    for layout, where, n in dp_layouts():
+        for stack, share, kw in DP_STACKS:
+            maps = stack == "maps"
+            if kw.get("quantize") == "static":
+                kw = {**kw, "calibration": images[:8]}
+
+            def build(batch_size, **dev):
+                pred = cxr.Predictor(params, cfg, batch_size=batch_size,
+                                     placement="device", **dev, **kw)
+                pred.warmup(with_maps=maps)
+                return pred
+
+            t0 = time.perf_counter()
+            pred = build(share * n, **where)
+            warm_s = time.perf_counter() - t0
+            results, submitted, done, launches = serve_burst(
+                pred, images, with_maps=maps)
+            phase = f"serving_dp_{layout}_{stack}"
+            rec = {**burst_record(phase, pred, images, results, submitted,
+                                  done, cfg),
+                   "phase": "serving_dp", "layout": layout, "stack": stack,
+                   "cards": torch.cuda.device_count(),
+                   "emulated": layout == "emulated", "replicas": n,
+                   "devices": [str(d) for d in pred.devices],
+                   "rows_per_replica": share, "launches": launches,
+                   "warmup_s": warm_s}
+            if layout == "emulated":
+                rec["note"] = ("two replicas and two streams share one "
+                               "card: this measures no scaling")
+            forwards = pred.forwards * pred.replicas
+            if maps:
+                require(launches == {**dict.fromkeys(launches, 0),
+                                     "layer_norm": (2 * cfg.num_layers + 1)
+                                     * forwards},
+                        f"{phase}: launches {launches} for {forwards} "
+                        f"replica forwards")
+            else:
+                require_forward_launches(phase, launches, forwards, cfg,
+                                         int8=kw.get("quantize") == "static")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+
+            one = build(share * n, device=pred.devices[0])
+            o_res, o_sub, o_done, _ = serve_burst(one, images,
+                                                  with_maps=maps)
+            o_rec = burst_record(phase + "_one", one, images, o_res, o_sub,
+                                 o_done, cfg)
+            rec[f"one_replica_b{share * n}"] = {k: o_rec[k] for k in (
+                "images_per_s", "p50_latency_ms", "max_latency_ms",
+                "forwards")}
+            rec["gathered_vs_one_replica_max_abs"] = float(np.abs(
+                np.stack([r.logits for r in results])
+                - np.stack([r.logits for r in o_res])).max())
+            rec["tol"] = BF16_LOGIT_TOL
+            if maps:
+                rec["gathered_maps_vs_one_replica_max_abs"] = float(np.abs(
+                    np.stack([r.attn_map for r in results])
+                    - np.stack([r.attn_map for r in o_res])).max())
+                rec["maps_tol"] = MAPS_TOL
+            del one
+            torch.cuda.empty_cache()
+
+            # each replica's rows against one replica at its batch
+            part = build(share, device=pred.devices[0])
+            got = pred.predict_arrays(held, with_maps=maps)
+            want = part.predict_arrays(held, with_maps=maps)
+            rec["replica_rows_equal_bits"] = bool(
+                np.array_equal(got.logits, want.logits)
+                and (not maps or np.array_equal(got.maps, want.maps)))
+            del part
+            torch.cuda.empty_cache()
+
+            staged = pred.stage_chunk(images[:share * n])
+            torch.cuda.synchronize()
+            rec["enqueue_ms"] = []
+            with torch.inference_mode():
+                for r, operands in enumerate(staged):
+                    with pred._on_stream(r):
+                        x = pred._images_of(operands)
+                        fwd = ((lambda r=r, x=x: attention_maps
+                                .compute_rollout(pred._dense_params(r), x,
+                                                 cfg)) if maps else
+                               (lambda r=r, x=x: pred._logits(r, x)))
+                        rec["enqueue_ms"].append(enqueue_ms(fwd))
+            emit(rec)
+            require(rec["replica_rows_equal_bits"],
+                    f"{phase}: each replica's rows equal one replica at "
+                    f"batch {share}, bit for bit")
+            require(rec["gathered_vs_one_replica_max_abs"] <= BF16_LOGIT_TOL,
+                    f"{phase}: gathered logits against one replica "
+                    f"{rec['gathered_vs_one_replica_max_abs']}")
+            require(not maps or rec["gathered_maps_vs_one_replica_max_abs"]
+                    <= MAPS_TOL, f"{phase}: gathered maps against one "
+                                 f"replica")
+            del pred, staged
+            torch.cuda.empty_cache()
+    return total
 
 
 def _first_step(step, params, batch, draws=None) -> tuple:
@@ -4351,6 +4507,7 @@ def main() -> int:
         train_rec)
     phase_tome_cross_check()
     serve_tome_launches = phase_serving_tome(int8_rec)
+    serve_dp_launches = phase_serving_dp()
     tome_cfg = train_config(tome_r=TOME_STEPS[0][0],
                             tome_schedule=TOME_STEPS[0][1])
     eval_tome_launches = [
@@ -4377,7 +4534,7 @@ def main() -> int:
 
     # launches: the sum over the main paths' runs (serving, int8 serving,
     # the timed train steps, eval, int8 eval, the timed dropout steps, the
-    # global and emulated data-parallel steps, the
+    # global and emulated data-parallel steps, data-parallel serving, the
     # timed packed, merged and mixed-resolution steps, the timed merged
     # dense steps, merged serving and merged eval, the timed steps of
     # every remat policy and of fused_qkv, the maps forward, the Trainer's
@@ -4390,7 +4547,8 @@ def main() -> int:
              tome_train_launches, serve_tome_launches, *eval_tome_launches,
              policy_launches, fused_launches, maps_launches,
              trainer_launches, packed_trainer_launches, ddp_launches,
-             cli_launches, int8_train_launches, dp_split_launches)
+             cli_launches, int8_train_launches, dp_split_launches,
+             serve_dp_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)

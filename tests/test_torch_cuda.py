@@ -965,6 +965,35 @@ def test_quantized_predictor_on_card_matches_cpu(dev, quantize, tmp_path):
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("quantize", [False, "static"])
+def test_two_replicas_on_card_equal_one_at_their_batch(dev, quantize):
+    """Two replicas on cuda:0, each on its own stream (the one-card stand-in
+    for ``data_parallel=2``), at batch 8: each replica's rows equal, bit for
+    bit, a one-replica Predictor at batch 4 on those rows, and the kernels
+    launch twice what one forward launches. ViT-B/16 @384 width at depth
+    2, bf16; static int8 on the fused kernel."""
+    cfg = ModelConfig(num_layers=2)
+    params = vit.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    grays = [rng.integers(0, 256, (300 + 7 * i, 290), np.uint8)
+             for i in range(8)]
+    kw = dict(canvas_size=512, placement="device", quantize=quantize,
+              calibration=grays[:4])
+    two = Predictor(params, cfg, batch_size=8, device=["cuda:0"] * 2, **kw)
+    one = Predictor(params, cfg, batch_size=4, device="cuda", **kw)
+    assert two.replicas == 2 and two.devices == [torch.device("cuda:0")] * 2
+    counters = (fa.flash_attention_inference, ln.layer_norm_cuda,
+                i8.int8_matmul_fused)
+    before = [c.launches for c in counters]
+    out = two.predict_arrays(grays)
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    assert two.forwards == 1
+    assert launches == [2 * 2, 2 * 5, 2 * 13 if quantize else 0]
+    for r in range(2):
+        want = one.predict_arrays(grays[4 * r:4 * r + 4])
+        assert np.array_equal(out.logits[4 * r:4 * r + 4], want.logits), r
+
+
 def test_quantized_eval_step_on_card_matches_cpu(dev):
     cfg = Config(model=_int8_cfg("bfloat16"), train=TrainConfig())
     params = vit.init_params(torch.Generator().manual_seed(1), cfg.model)

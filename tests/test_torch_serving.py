@@ -138,17 +138,6 @@ def test_predictor_warmup_runs_every_bucket():
     assert pred.forwards == 0       # warmup is not traffic
 
 
-# int8 serving is ported (tests/test_torch_quant.py), and so is token
-# merging, alone and composed with int8 as the JAX fast_serve preset does
-# (tests/test_torch_tome_dense.py); data-parallel serving is refused
-@pytest.mark.parametrize("kw", [{"data_parallel": True}])
-def test_predictor_refuses_unported_options(kw):
-    cfg = tiny_cfg()
-    _, tp = _pair(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #8"):
-        Predictor(tp, cfg, device="cpu", **kw)
-
-
 @pytest.mark.parametrize("kw", [{"quantize": "static", "tome_r": 16,
                                  "tome_schedule": "decreasing"},
                                 {"tome_r": 4}])
