@@ -25,7 +25,8 @@ same card. A build:
   training forward twice (equal bits), and times the inference forward at
   [8, 12, 577, 64] and [32, 12, 577, 64], the training, dropout and debug
   forwards at [36, 12, 577, 64] and the segment forwards at [32, 12, S, 64]
-  (median of 7 x 10 calls, CUDA events);
+  (median of 7 x 10 calls, CUDA events; the inference and training
+  forwards also by the profiler's device time, ``fwd_device_ms``);
 - backward (``--only bwd``, or both): holds the dense, dropout and segment
   backward against their plain versions at a few sequence lengths (largest
   error relative to each gradient's largest magnitude), calls each twice
@@ -149,7 +150,7 @@ def abs_err(got, ref) -> float:
 
 def forward(gen, out: dict) -> None:
     from chestxray_vit_tpu_torch.ops import flash_attention as fa
-    from chip_smoke import time_ms
+    from chip_smoke import device_ms, time_ms
     from smoke_batches import PACKED_SEQS, packed_layouts
 
     for s in LENGTHS:
@@ -178,15 +179,19 @@ def forward(gen, out: dict) -> None:
                                     != ref_keep).sum())}
         out["equal_twice"] &= torch.equal(o, o2) and torch.equal(lse, lse2)
 
-    times = out["fwd_ms"]
+    times, device = out["fwd_ms"], out.setdefault("fwd_device_ms", {})
     for b in (8, 32):
         q, k, v = (torch.randn((b, 12, 577, 64), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
         times[f"inference_b{b}"] = time_ms(
             lambda: fa.flash_attention_inference(q, k, v))
+        device[f"inference_b{b}"] = device_ms(
+            lambda: fa.flash_attention_inference(q, k, v))["device_ms"]
     q, k, v, _ = operands(gen, *TRAIN_SHAPE[:1], TRAIN_SHAPE[2])
     bq = fa.auto_block_q(TRAIN_SHAPE[2])
     times["fwd_b36"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v))
+    device["fwd_b36"] = device_ms(
+        lambda: fa.flash_attention_fwd(q, k, v))["device_ms"]
     times["dropout_fwd_b36"] = time_ms(lambda: fa.flash_attention_dropout_fwd(
         q, k, v, SEED, RATE, block_q=bq))
     times["dropout_debug_b36"] = time_ms(

@@ -100,16 +100,14 @@ def cmd_predict(cfg: Config, device: str) -> int:
 
 
 def cmd_smoke(cfg: Config, device: str) -> int:
-    """Synthetic-bucket end-to-end sanity fine-tune. The model is narrowed
-    to hidden 64 with ONE head of dim 64 (the JAX smoke runs 4 heads of
-    16): the port's attention kernels take head dim 64 only (ROADMAP
-    Queue 1 #13)."""
+    """Synthetic-bucket end-to-end sanity fine-tune, narrowed as the JAX
+    smoke is: hidden 64 in four heads of 16, two layers, 64 px."""
     cfg.data.backend = "memory"
     cfg.data.use_subset_data = cfg.data.use_subset_data or 48
     cfg.model.img_size = min(cfg.model.img_size, 64)
     cfg.model.num_layers = min(cfg.model.num_layers, 2)
     cfg.model.hidden_size = min(cfg.model.hidden_size, 64)
-    cfg.model.num_heads = 1
+    cfg.model.num_heads = 4
     cfg.model.mlp_dim = min(cfg.model.mlp_dim, 128)
     cfg.model.attention_impl = "auto"
     cfg.train.num_epochs = min(cfg.train.num_epochs, 3)

@@ -44,6 +44,21 @@
 // ptxas reused those registers in one build.
 // The f32 path (used for parity runs) is plain FMA.
 //
+// Head dims: any d with d % 8 == 0 and 8 <= d <= 128 (head_dim_ok), built
+// at a padded width kD = 64 * ceil(d / 64), 64 or 128; d itself is a
+// runtime argument. Each 64-column chunk of a Q, K, V or O tile is one of
+// the swizzled 64 x 64 tiles above, so the copies, descriptors and the
+// m64n64k16 steps are those of d = 64: S sums the chunks' QK products, O
+// keeps one accumulator a V chunk. Columns at or past d arrive as zeros
+// and are never stored, which is exact: zero Q/K columns add nothing to
+// QK^T, zero V columns give zero O columns. The S product skips the
+// 16-deep steps of the last chunk that lie wholly past d; the PV product
+// runs whole chunks (d = 80 computes a 128-wide O, 37.5 % of it padding).
+// kD = 128 doubles the O accumulator (64 registers a thread) and the
+// stage, so it runs two blocks an SM (83 KB of shared memory each) where
+// kD = 64 runs four. The softmax scale is the caller's (d^-1/2 of the real
+// d).
+//
 // The running max is kept in log2 units (score * scale * log2 e); the lse
 // written for the backward is natural: m * ln 2 + ln l. Rows whose valid
 // scores are all strongly negative stay finite: every key tile holds at
@@ -63,23 +78,28 @@ namespace cxr {
 
 constexpr int kBlockM = 64;   // query rows per block
 constexpr int kBlockN = 64;   // keys per K/V tile
-constexpr int kHeadDim = 64;  // the only head dim built
 
-// The bf16 forward's shared memory: a ring of two stages (the next tile's
-// copies fly under the current tile's products), each the K and V tiles
-// and 64 int32 ids, padded to keep every tile 1024-byte aligned, then the
-// block's Q tile; 1024 bytes of slack put the ring on a 1024-byte boundary.
-// The O tile passes through the first stage at the end.
+
+// The bf16 forward's shared memory at padded head dim kD: a ring of two
+// stages (the next tile's copies fly under the current tile's products),
+// each the K and V tiles (kD / 64 chunks each) and 64 int32 ids, padded to
+// keep every tile 1024-byte aligned, then the block's Q tile; 1024 bytes of
+// slack put the ring on a 1024-byte boundary. The O tile passes through
+// the first stage at the end.
 constexpr int kFwdStages = 2;
-constexpr int kFwdStageBytes = 2 * kTileBytes + 1024;
-constexpr int kFwdSmemBytes =
-    kFwdStages * kFwdStageBytes + kTileBytes + 1024;
-
-// Four blocks an SM (sixteen warps), so at most 128 registers a thread:
-// the four hide one another's barrier, wgmma and exp2 latencies. Three
-// (the backward's) read 16-18 % slower with dropout or segment ids, whose
-// threads then take 134-148 registers.
-constexpr int kFwdBlocksPerSm = 4;
+template <int kD>
+struct FwdShape {
+  static constexpr int kChunks = kD / 64;
+  static constexpr int kStageBytes = 2 * kChunks * kTileBytes + 1024;
+  static constexpr int kSmemBytes =
+      kFwdStages * kStageBytes + kChunks * kTileBytes + 1024;
+  // kD = 64: four blocks an SM (sixteen warps), so at most 128 registers a
+  // thread: the four hide one another's barrier, wgmma and exp2 latencies.
+  // Three (the backward's) read 16-18 % slower with dropout or segment
+  // ids, whose threads then take 134-148 registers. kD = 128: two, for the
+  // 64 more accumulator registers and the 83 KB of shared memory.
+  static constexpr int kBlocksPerSm = kD == 64 ? 4 : 2;
+};
 
 // The max to subtract in the exp2: 0 while a row has met no unmasked score
 // (kSegment only), so that exp2(-inf - 0) = 0 and not exp2(-inf + inf).
@@ -93,15 +113,19 @@ __device__ __forceinline__ float safe_max(float m) {
 // the normalizer l sums the clean P, the PV product takes the masked P, and
 // the output is divided by l * (1 - rate); kEmitKeep writes each element's
 // keep bit to drop.keep. With kSegment, seg is int32 [B, S] contiguous and
-// a score counts only where its query's and key's ids are equal.
-template <bool kLse, bool kDropout, bool kEmitKeep, bool kSegment>
-__global__ void __launch_bounds__(128, kFwdBlocksPerSm)
+// a score counts only where its query's and key's ids are equal. hd is the
+// real head dim (at most kD); kPad masks the columns at or past it.
+template <int kD, bool kPad, bool kLse, bool kDropout, bool kEmitKeep,
+          bool kSegment>
+__global__ void __launch_bounds__(128, FwdShape<kD>::kBlocksPerSm)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-              float* __restrict__ lse, int H, int S, Strides qs, Strides ks,
-              Strides vs, Strides os, float scale_log2, Dropout drop,
-              const int* __restrict__ seg) {
+              float* __restrict__ lse, int H, int S, int hd, Strides qs,
+              Strides ks, Strides vs, Strides os, float scale_log2,
+              Dropout drop, const int* __restrict__ seg) {
+  using F = FwdShape<kD>;
+  constexpr int kC = F::kChunks;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -116,25 +140,34 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wr = warp * 16;
   const int row0 = m0 + wr + g;  // rows of accumulator rows g and g + 8
+  // the 16-deep steps of the last chunk that reach a column below hd
+  const int last_steps = kC > 1 ? (hd - 64 * (kC - 1) + 15) / 16 : 4;
 
-  // the copies of key tile ``tile`` (K, V, ids) into a stage
+  // the copies of key tile ``tile`` (K and V chunks, ids) into a stage
   auto fetch = [&](int stage, int tile) {
     const int n0 = tile * kBlockN;
-    const uint32_t st = ring + stage * kFwdStageBytes;
-    copy_tile_async(st, kp, ks.s, n0, S);
-    copy_tile_async(st + kTileBytes, vp, vs.s, n0, S);
+    const uint32_t st = ring + stage * F::kStageBytes;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      copy_chunk_async<kPad>(st + c * kTileBytes, kp, ks.s, n0, S, c, hd);
+      copy_chunk_async<kPad>(st + (kC + c) * kTileBytes, vp, vs.s, n0, S, c,
+                             hd);
+    }
     if (kSegment && tid < kBlockN) {
       const bool ok = n0 + tid < S;
-      cp_async_4(st + 2 * kTileBytes + 4 * tid, segp + (ok ? n0 + tid : 0),
-                 ok);
+      cp_async_4(st + 2 * kC * kTileBytes + 4 * tid,
+                 segp + (ok ? n0 + tid : 0), ok);
     }
   };
 
   // Q stays in shared memory behind the ring, the A operand of every S
   // product (held as register fragments across the walk, those registers
   // were reused by ptxas in one build)
-  const uint32_t qtile = ring + kFwdStages * kFwdStageBytes;
-  copy_tile_async(qtile, q + b * qs.b + h * qs.h, qs.s, m0, S);
+  const uint32_t qtile = ring + kFwdStages * F::kStageBytes;
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+    copy_chunk_async<kPad>(qtile + c * kTileBytes, q + b * qs.b + h * qs.h,
+                           qs.s, m0, S, c, hd);
   cp_async_commit();
   TileWalk<kSegment> walk(segp, S, m0);
   int fifo[kFwdStages];  // fifo[0]: the tile to compute next; then those in flight
@@ -159,10 +192,12 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const bool prescale = !(scale_log2 > 0.f);
   const float c = prescale ? 1.f : scale_log2;
 
-  float acc[8][4];
+  float acc[kC][8][4];  // O, one accumulator a 64-column chunk of V
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int ch = 0; ch < kC; ++ch)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      acc[ch][n][0] = acc[ch][n][1] = acc[ch][n][2] = acc[ch][n][3] = 0.f;
   acc_fence(acc);
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 (log2 units)
   float l_run[2] = {0.f, 0.f};              // this thread's share of the sum
@@ -179,14 +214,19 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
 
     const int n0 = fifo[0] * kBlockN, krows = min(kBlockN, S - n0);
-    const uint32_t sk = ring + cs * kFwdStageBytes, sv = sk + kTileBytes;
+    const uint32_t sk = ring + cs * F::kStageBytes,
+                   sv = sk + kC * kTileBytes;
     const int* sI = reinterpret_cast<const int*>(
-        ring_ptr + cs * kFwdStageBytes + 2 * kTileBytes);
+        ring_ptr + cs * F::kStageBytes + 2 * kC * kTileBytes);
 
-    // S = Q K^T: 16 rows x 64 keys per warp, raw scores
+    // S = Q K^T: 16 rows x 64 keys per warp, raw scores, summed over the
+    // head dim's chunks
     float s[8][4];
     wgmma_fence();
-    tile_mma_ss(s, qtile, sk);
+#pragma unroll
+    for (int ch = 0; ch < kC; ++ch)
+      tile_mma_ss(s, qtile + ch * kTileBytes, sk + ch * kTileBytes, ch > 0,
+                  ch == kC - 1 ? last_steps : 4);
     wgmma_commit();
     wgmma_wait<0>(s);
 
@@ -276,18 +316,22 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
+    for (int ch = 0; ch < kC; ++ch)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        acc[ch][n][0] *= alpha[0];
+        acc[ch][n][1] *= alpha[0];
+        acc[ch][n][2] *= alpha[1];
+        acc[ch][n][3] *= alpha[1];
+      }
 
-    // O += P V, V as it lies (the transposed-B form), the k-steps of keys
-    // below S only
+    // O += P V, V as it lies (the transposed-B form), chunk by chunk, the
+    // k-steps of keys below S only
     acc_fence(acc);
     wgmma_fence(pf);
-    tile_mma_rs<true>(acc, pf, sv, krows);
+#pragma unroll
+    for (int ch = 0; ch < kC; ++ch)
+      tile_mma_rs<true>(acc[ch], pf, sv + ch * kTileBytes, krows);
     wgmma_commit();
     wgmma_wait<0>(acc);  // the stage is free once this is done
 #pragma unroll
@@ -305,25 +349,29 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const float inv0 = 1.f / (l_run[0] * keep_prob);
   const float inv1 = 1.f / (l_run[1] * keep_prob);
   // O through the ring (every warp is past its last product): each warp
-  // stages its own 16 rows of a swizzled tile and writes them as 16-byte
-  // rows
+  // stages its own 16 rows of a swizzled tile a chunk and writes them as
+  // 16-byte rows, the columns below hd only
   __syncthreads();
-  unsigned char* ot = ring_ptr;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    *reinterpret_cast<uint32_t*>(ot + swizzled(wr + g, n) + 4 * t) =
-        pack_bf16x2(acc[n][0] * inv0, acc[n][1] * inv0);
-    *reinterpret_cast<uint32_t*>(ot + swizzled(wr + g + 8, n) + 4 * t) =
-        pack_bf16x2(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
-  __syncwarp();
   __nv_bfloat16* op = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int i = lane + 32 * j, r = wr + (i >> 3), ch = i & 7;
-    if (m0 + r < S)
-      *reinterpret_cast<uint4*>(op + (m0 + r) * os.s + ch * 8) =
-          *reinterpret_cast<const uint4*>(ot + swizzled(r, ch));
+  for (int ch = 0; ch < kC; ++ch) {
+    unsigned char* ot = ring_ptr + ch * kTileBytes;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<uint32_t*>(ot + swizzled(wr + g, n) + 4 * t) =
+          pack_bf16x2(acc[ch][n][0] * inv0, acc[ch][n][1] * inv0);
+      *reinterpret_cast<uint32_t*>(ot + swizzled(wr + g + 8, n) + 4 * t) =
+          pack_bf16x2(acc[ch][n][2] * inv1, acc[ch][n][3] * inv1);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = lane + 32 * j, r = wr + (i >> 3), x = i & 7;
+      const int col = ch * 64 + x * 8;
+      if (m0 + r < S && (!kPad || col < hd))
+        *reinterpret_cast<uint4*>(op + (m0 + r) * os.s + col) =
+            *reinterpret_cast<const uint4*>(ot + swizzled(r, x));
+    }
   }
   if (kLse && t == 0) {
     float* lp = lse + static_cast<long long>(bh) * S;
@@ -332,18 +380,21 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// f32 path: one thread per query row, K/V tiles in shared memory read as
-// broadcasts, online softmax over chunks of 16 keys. Dropout and the
-// segment mask as in the bf16 path.
-template <bool kLse, bool kDropout, bool kEmitKeep, bool kSegment>
-__global__ void __launch_bounds__(kBlockM)
+// f32 path: kP = kD / 64 threads per query row (thread ``part`` holds the
+// columns kP * i + part, 64 of them, so the registers stay those of d =
+// 64), K/V tiles in shared memory read as broadcasts (kBlockN / kP keys a
+// tile: 16 KB each), online softmax over chunks of 16 keys. Dropout and
+// the segment mask as in the bf16 path.
+template <int kD, bool kLse, bool kDropout, bool kEmitKeep, bool kSegment>
+__global__ void __launch_bounds__(kBlockM * (kD / 64))
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
-             float* __restrict__ lse, int H, int S, Strides qs, Strides ks,
-             Strides vs, Strides os, float scale_log2, Dropout drop,
-             const int* __restrict__ seg) {
-  __shared__ __align__(16) float sK[kBlockN][kHeadDim];
-  __shared__ __align__(16) float sV[kBlockN][kHeadDim];
+             float* __restrict__ lse, int H, int S, int hd, Strides qs,
+             Strides ks, Strides vs, Strides os, float scale_log2,
+             Dropout drop, const int* __restrict__ seg) {
+  constexpr int kP = kD / 64, kKeys = kBlockN / kP, kCols = kD / kP;
+  __shared__ __align__(16) float sK[kKeys][kD];
+  __shared__ __align__(16) float sV[kKeys][kD];
   __shared__ int sSeg[kSegment ? kBlockN : 2];
   __shared__ int sRange[2];
 
@@ -351,39 +402,48 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int* segp = kSegment ? seg + static_cast<long long>(b) * S : nullptr;
   const float* kp = k + b * ks.b + h * ks.h;
   const float* vp = v + b * vs.b + h * vs.h;
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x * kBlockM + tid;
+  const int tid = threadIdx.x, part = tid % kP;
+  const int row = blockIdx.x * kBlockM + tid / kP;
   const bool valid = row < S;
 
-  float qr[kHeadDim], acc[kHeadDim];
+  float qr[kCols], acc[kCols];
   const float* qrow = q + b * qs.b + h * qs.h + (valid ? row : 0) * qs.s;
-#pragma unroll
-  for (int d = 0; d < kHeadDim; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(qrow + d);
-    qr[d] = x.x;
-    qr[d + 1] = x.y;
-    qr[d + 2] = x.z;
-    qr[d + 3] = x.w;
-    acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
-  }
-  float m_run = -INFINITY, l_run = 0.f;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (kP == 1) {
+#pragma unroll
+    for (int d = 0; d < kCols; d += 4) {
+      const float4 x =
+          d < hd ? *reinterpret_cast<const float4*>(qrow + d) : zero;
+      qr[d] = x.x;
+      qr[d + 1] = x.y;
+      qr[d + 2] = x.z;
+      qr[d + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i)
+      qr[i] = kP * i + part < hd ? qrow[kP * i + part] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
+  float m_run = -INFINITY, l_run = 0.f;
   const uint32_t dbase = kDropout ? drop_row(drop, blockIdx.y, row) : 0u;
   int seg_row = 0, seg_lo = 0, seg_hi = 0;
   if (kSegment) {
     load_block_ids(segp, blockIdx.x * kBlockM, S, sSeg, sRange);
-    seg_row = sSeg[tid];
+    seg_row = sSeg[tid / kP];
     seg_lo = sRange[0];
     seg_hi = sRange[1];
   }
 
-  for (int n0 = 0; n0 < S; n0 += kBlockN) {
+  for (int n0 = 0; n0 < S; n0 += kKeys) {
     __syncthreads();
+    // (the vote reads 64 ids from n0: a conservative test of kKeys keys)
     if (kSegment && !load_tile_ids(segp, n0, S, seg_lo, seg_hi, sSeg)) continue;
-    for (int i = tid; i < kBlockN * (kHeadDim / 4); i += kBlockM) {
-      const int r = i / (kHeadDim / 4), c = (i % (kHeadDim / 4)) * 4;
+    for (int i = tid; i < kKeys * (kD / 4); i += kBlockM * kP) {
+      const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
       float4 kv = zero, vv = zero;
-      if (n0 + r < S) {
+      if (n0 + r < S && c < hd) {
         kv = *reinterpret_cast<const float4*>(kp + (n0 + r) * ks.s + c);
         vv = *reinterpret_cast<const float4*>(vp + (n0 + r) * vs.s + c);
       }
@@ -392,14 +452,16 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    for (int j0 = 0; j0 < kBlockN; j0 += 16) {
+    for (int j0 = 0; j0 < kKeys; j0 += 16) {
       float s[16];
       float m_new = m_run;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < kHeadDim; ++d) dot = fmaf(qr[d], sK[j0 + j][d], dot);
+        for (int i = 0; i < kCols; ++i)
+          dot = fmaf(qr[i], sK[j0 + j][kP * i + part], dot);
+        if constexpr (kP == 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);
         bool ok = n0 + j0 + j < S;
         if (kSegment) ok = ok && sSeg[j0 + j] == seg_row;
         s[j] = ok ? dot * scale_log2 : -INFINITY;
@@ -410,7 +472,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       m_run = m_new;
       l_run *= alpha;
 #pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) acc[d] *= alpha;
+      for (int i = 0; i < kCols; ++i) acc[i] *= alpha;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         float p = exp2f(s[j] - m_new);
@@ -418,13 +480,14 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         if (kDropout) {
           const int col = n0 + j0 + j;
           const bool keep = kept(drop, dbase, col);
-          if (kEmitKeep && valid && col < S)
+          if (kEmitKeep && valid && col < S && part == 0)
             drop.keep[(static_cast<long long>(blockIdx.y) * S + row) * S +
                       col] = keep;
           if (!keep) p = 0.f;
         }
 #pragma unroll
-        for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(p, sV[j0 + j][d], acc[d]);
+        for (int i = 0; i < kCols; ++i)
+          acc[i] = fmaf(p, sV[j0 + j][kP * i + part], acc[i]);
       }
     }
   }
@@ -432,18 +495,64 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (!valid) return;
   float* orow = o + b * os.b + h * os.h + row * os.s;
   const float inv = 1.f / (l_run * (kDropout ? drop.keep_prob : 1.f));
+  if constexpr (kP == 1) {
 #pragma unroll
-  for (int d = 0; d < kHeadDim; d += 4)
-    *reinterpret_cast<float4*>(orow + d) =
-        make_float4(acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv,
-                    acc[d + 3] * inv);
-  if (kLse)
+    for (int d = 0; d < kCols; d += 4)
+      if (d < hd)
+        *reinterpret_cast<float4*>(orow + d) =
+            make_float4(acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv,
+                        acc[d + 3] * inv);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i)
+      if (kP * i + part < hd) orow[kP * i + part] = acc[i] * inv;
+  }
+  if (kLse && part == 0)
     lse[static_cast<long long>(blockIdx.y) * S + row] =
         m_run * kLn2 + logf(l_run);
 }
 
+// Launches the kernel for the dtype (0 = float32, 1 = bfloat16) at padded
+// head dim kD on ``stream`` (the f32 kernel always masks by column).
+template <int kD, bool kPad, bool kLse, bool kDropout, bool kEmitKeep,
+          bool kSegment>
+int launch_attn_fwd_at(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int batch, int heads, int seq,
+                       int head_dim, Strides qs, Strides ks, Strides vs,
+                       Strides os, float scale, int dtype, cudaStream_t st,
+                       const Dropout& drop, const int* seg) {
+  const dim3 grid((seq + kBlockM - 1) / kBlockM, batch * heads);
+  const float scale_log2 = scale * kLog2e;
+  if (dtype == 1) {
+    constexpr int smem = FwdShape<kD>::kSmemBytes;
+    auto kernel =
+        attn_fwd_bf16<kD, kPad, kLse, kDropout, kEmitKeep, kSegment>;
+    if constexpr (smem > 48 * 1024) {
+      // more dynamic shared memory than the default limit: opt in (per
+      // device, so on every call)
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<grid, 128, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+        lse, heads, seq, head_dim, qs, ks, vs, os, scale_log2, drop, seg);
+  } else if (dtype == 0) {
+    attn_fwd_f32<kD, kLse, kDropout, kEmitKeep, kSegment>
+        <<<grid, kBlockM * (kD / 64), 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, heads, seq,
+        head_dim, qs, ks, vs, os, scale_log2, drop, seg);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Checks the shape, picks the kernel for the dtype (0 = float32,
-// 1 = bfloat16) and launches it on ``stream``.
+// 1 = bfloat16) and the padded head dim, and launches it on ``stream``.
 template <bool kLse, bool kDropout = false, bool kEmitKeep = false,
           bool kSegment = false>
 int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
@@ -451,31 +560,25 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
                     Strides qs, Strides ks, Strides vs, Strides os, float scale,
                     int dtype, int device, void* stream,
                     Dropout drop = Dropout{}, const int* seg = nullptr) {
-  if (head_dim != kHeadDim || seq <= 0 || batch <= 0 || heads <= 0 ||
+  if (!head_dim_ok(head_dim) || seq <= 0 || batch <= 0 || heads <= 0 ||
       kSegment != (seg != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + kBlockM - 1) / kBlockM, batch * heads);
-  const float scale_log2 = scale * kLog2e;
+  static_assert(FwdShape<64>::kSmemBytes <= 48 * 1024,
+                "d <= 64 fits the default dynamic shared memory limit");
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    // the ring fits the default dynamic shared memory limit of 48 KB
-    static_assert(kFwdSmemBytes <= 48 * 1024, "opt in above 48 KB");
-    attn_fwd_bf16<kLse, kDropout, kEmitKeep, kSegment>
-        <<<grid, 128, kFwdSmemBytes, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        lse, heads, seq, qs, ks, vs, os, scale_log2, drop, seg);
-  } else if (dtype == 0) {
-    attn_fwd_f32<kLse, kDropout, kEmitKeep, kSegment><<<grid, kBlockM, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, heads, seq,
-        qs, ks, vs, os, scale_log2, drop, seg);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (head_dim == 64)
+    return launch_attn_fwd_at<64, false, kLse, kDropout, kEmitKeep, kSegment>(
+        q, k, v, o, lse, batch, heads, seq, head_dim, qs, ks, vs, os, scale,
+        dtype, st, drop, seg);
+  if (padded_head_dim(head_dim) == 64)
+    return launch_attn_fwd_at<64, true, kLse, kDropout, kEmitKeep, kSegment>(
+        q, k, v, o, lse, batch, heads, seq, head_dim, qs, ks, vs, os, scale,
+        dtype, st, drop, seg);
+  return launch_attn_fwd_at<128, true, kLse, kDropout, kEmitKeep, kSegment>(
+      q, k, v, o, lse, batch, heads, seq, head_dim, qs, ks, vs, os, scale,
+      dtype, st, drop, seg);
 }
 
 }  // namespace cxr

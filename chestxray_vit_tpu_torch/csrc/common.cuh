@@ -16,6 +16,18 @@ namespace cxr {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// The head dims the attention kernels take (a multiple of 8 from 8 to
+// 128), and the padded width, 64 or 128, each is built at. d = 64 has an
+// instantiation of its own with no column masks (kPad false), the code the
+// kernels ran before other head dims; every other d masks the columns at or
+// past it (d = 128 too, which saves a fourth instantiation).
+__host__ __device__ constexpr bool head_dim_ok(int d) {
+  return d % 8 == 0 && d >= 8 && d <= 128;
+}
+__host__ __device__ constexpr int padded_head_dim(int d) {
+  return d <= 64 ? 64 : 128;
+}
+
 struct Strides {
   long long b, h, s;  // in elements; the head dim is contiguous
 };
@@ -320,6 +332,39 @@ __device__ __forceinline__ void copy_tile_async(uint32_t dst,
   }
 }
 
+// The same for the 64-column chunk ``chunk`` of a strided [S, d] operand
+// whose head dim d is padded (d % 64 != 0): columns at or past d arrive as
+// zeros and are not read (d is a multiple of 8, so a 16-byte piece is all
+// in or all out). A head dim above 64 is a row of such chunks, each its own
+// tile.
+__device__ __forceinline__ void copy_tile_async(uint32_t dst,
+                                                const __nv_bfloat16* src,
+                                                long long stride, int r0,
+                                                int S, int chunk, int d) {
+  const int c = threadIdx.x & 7, col = chunk * 64 + c * 8;
+  const bool col_ok = col < d;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = (threadIdx.x + 128 * j) >> 3;
+    const bool valid = col_ok && r0 + r < S;
+    cp_async_16(dst + swizzled(r, c),
+                src + (valid ? (r0 + r) * stride + col : 0), valid);
+  }
+}
+
+// The copy of chunk ``chunk`` of a d-wide operand: masked by column when the
+// head dim is padded (kPad), else the plain copy of the one chunk of d = 64.
+template <bool kPad>
+__device__ __forceinline__ void copy_chunk_async(uint32_t dst,
+                                                 const __nv_bfloat16* src,
+                                                 long long stride, int r0,
+                                                 int S, int chunk, int d) {
+  if constexpr (kPad)
+    copy_tile_async(dst, src, stride, r0, S, chunk, d);
+  else
+    copy_tile_async(dst, src, stride, r0, S);
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
                                             uint32_t& r1, uint32_t& r2,
                                             uint32_t& r3) {
@@ -381,10 +426,22 @@ __device__ __forceinline__ void acc_fence(float (&acc)[8][4]) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[n][e])::"memory");
 }
+template <int kN>
+__device__ __forceinline__ void acc_fence(float (&acc)[kN][8][4]) {
+#pragma unroll
+  for (int c = 0; c < kN; ++c) acc_fence(acc[c]);
+}
 // Waits until at most kPending committed groups are in flight; ``acc`` is
-// an accumulator of a group that has then finished.
+// an accumulator of a group that has then finished (or kN of them: the
+// 64-column chunks of a head dim above 64).
 template <int kPending>
 __device__ __forceinline__ void wgmma_wait(float (&acc)[8][4]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+  acc_fence(acc);
+}
+template <int kPending, int kN>
+__device__ __forceinline__ void wgmma_wait(float (&acc)[kN][8][4]) {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
                : "memory");
   acc_fence(acc);
@@ -451,12 +508,19 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[8][4],
 //
 // tile_mma_ss: acc = A B^T, both operands tiles in shared memory; A's rows
 // are the product's 64 rows, B's rows its 64 columns (S^T = K Q^T).
+// ``accumulate`` adds to acc instead (the second 64-column chunk of a head
+// dim above 64), and only the first ``ksteps`` (block-uniform) 16-deep
+// steps run: those past the head dim would add zeros.
 __device__ __forceinline__ void tile_mma_ss(float (&acc)[8][4], uint32_t a_tile,
-                                            uint32_t b_tile) {
+                                            uint32_t b_tile,
+                                            bool accumulate = false,
+                                            int ksteps = 4) {
   const uint64_t da = wgmma_desc(a_tile), db = wgmma_desc(b_tile);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_m64n64k16_ss(acc, da + 2 * kk, db + 2 * kk, kk == 0 ? 0 : 1);
+    if (kk < ksteps)
+      wgmma_m64n64k16_ss(acc, da + 2 * kk, db + 2 * kk,
+                         kk == 0 && !accumulate ? 0 : 1);
 }
 
 // tile_mma_rs: A is 64 x 64 with this warp's 16 rows as fragments ``a``, B

@@ -15,7 +15,8 @@
 #include "attention_fwd.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the wrapper
-// checks head_dim == 64, a contiguous head dim and 16-byte alignment.
+// checks the head dim (a multiple of 8 from 8 to 128), a contiguous head
+// dim and 16-byte alignment.
 extern "C" int cxr_attention_fwd_inf(
     const void* q, const void* k, const void* v, void* o, int batch, int heads,
     int seq, int head_dim, long long q_sb, long long q_sh, long long q_ss,

@@ -261,7 +261,8 @@ int launch(const void* xq, const void* wq, const void* scale, const void* bias,
 // rows; scale and bias f32 [n], resid [m, n] in res_dtype or null, out
 // [m, n], all four 16-byte aligned; qs a device f32 scalar (requantize to
 // int8) or null. Dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (out
-// only, with qs). k a multiple of 64, n of 8.
+// only, with qs). k a multiple of 64 (callers zero-pad K: ops/int8_matmul.py
+// pad_k), n of 8.
 extern "C" int cxr_int8_matmul_fused(const void* xq, const void* wq,
                                      const void* scale, const void* bias,
                                      const void* resid, const void* qs,

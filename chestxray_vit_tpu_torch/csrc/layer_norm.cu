@@ -40,6 +40,17 @@
 // in flight to cover the memory's latency: two rows a warp and as many
 // warps an SM as registers sized to D allow (in the backward at D = 768,
 // two blocks of eight warps). The backward's workspace is ~1.6 MB.
+//
+// D up to 2048 in both dtypes. In bf16 that is eight 16-byte vectors a
+// lane; an f32 row of more than 1024 columns (ViT-H/14's 1280) takes up to
+// sixteen, and then a lane's row, next row, scale and bias (forward) or
+// x, dy, their next row and its dscale / dbias sums (backward) no longer
+// fit in registers. Those rungs (kBig) keep one row a warp in flight, read
+// the forward's scale and bias where they are used (L1 hits: every warp
+// reads the same), and keep the backward's per-warp sums in shared memory
+// (lane-minor, so no bank conflicts), which the fixed tree then adds in
+// place. The f32 path serves parity runs; the rungs up to eight vectors
+// are unchanged.
 
 #include "common.cuh"
 
@@ -48,7 +59,8 @@ namespace {
 using cxr::from_f32;
 using cxr::warp_sum;
 
-constexpr int kMaxVecs = 8;          // 16-byte vectors per lane
+constexpr int kMaxVecs = 8;          // vectors per lane held with the next row
+constexpr int kMaxD = 2048;          // the widest row either dtype takes
 constexpr int kFwdWarps = 4;         // forward: warps of a block
 constexpr int kBwdWarps = 8;         // backward: warps of a block
 constexpr int kColWarps = 32;        // column pass: warps of a block
@@ -120,16 +132,20 @@ ln_fwd(const T* __restrict__ x, const W* __restrict__ scale,
        float eps) {
   constexpr int E = 16 / sizeof(T);               // elements per vector
   constexpr int kW = E * sizeof(W) / 4;           // words of E parameters
+  constexpr bool kBig = V > kMaxVecs;  // scale, bias read where used
+  constexpr int kHeld = kBig ? 1 : V;  // their vectors held in registers
   const int lane = threadIdx.x & 31;
   const int nvec = D / E;
 
-  uint32_t sw[V][kW], bw[V][kW];
+  uint32_t sw[kHeld][kW], bw[kHeld][kW];
+  if constexpr (!kBig) {
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int vi = lane + i * 32;
-    if (vi < nvec) {
-      load_words(scale + vi * E, sw[i]);
-      load_words(bias + vi * E, bw[i]);
+    for (int i = 0; i < V; ++i) {
+      const int vi = lane + i * 32;
+      if (vi < nvec) {
+        load_words(scale + vi * E, sw[i]);
+        load_words(bias + vi * E, bw[i]);
+      }
     }
   }
 
@@ -146,8 +162,9 @@ ln_fwd(const T* __restrict__ x, const W* __restrict__ scale,
   };
   if (row < rows) fetch(row, cur);
   for (; row < rows; row += step) {
-    uint32_t nxt[V][4];
-    if (row + step < rows) fetch(row + step, nxt);
+    uint32_t nxt[kBig ? 1 : V][4];
+    if constexpr (!kBig)
+      if (row + step < rows) fetch(row + step, nxt);
 
     float sum = 0.f;
 #pragma unroll
@@ -172,17 +189,31 @@ ln_fwd(const T* __restrict__ x, const W* __restrict__ scale,
       const int vi = lane + i * 32;
       if (vi < nvec) {
         float o[E];
+        if constexpr (kBig) {
+          uint32_t swb[kW], bwb[kW];
+          load_words(scale + vi * E, swb);
+          load_words(bias + vi * E, bwb);
 #pragma unroll
-        for (int j = 0; j < E; ++j)
-          o[j] = (elem<T>(cur[i], j) - mean) * rstd * elem<W>(sw[i], j) +
-                 elem<W>(bw[i], j);
+          for (int j = 0; j < E; ++j)
+            o[j] = (elem<T>(cur[i], j) - mean) * rstd * elem<W>(swb, j) +
+                   elem<W>(bwb, j);
+        } else {
+#pragma unroll
+          for (int j = 0; j < E; ++j)
+            o[j] = (elem<T>(cur[i], j) - mean) * rstd * elem<W>(sw[i], j) +
+                   elem<W>(bw[i], j);
+        }
         store_vec(yr + vi * E, o);
       }
     }
+    if constexpr (kBig) {
+      if (row + step < rows) fetch(row + step, cur);
+    } else {
 #pragma unroll
-    for (int i = 0; i < V; ++i)
+      for (int i = 0; i < V; ++i)
 #pragma unroll
-      for (int w = 0; w < 4; ++w) cur[i][w] = nxt[i][w];
+        for (int w = 0; w < 4; ++w) cur[i][w] = nxt[i][w];
+    }
   }
 }
 
@@ -192,16 +223,20 @@ struct Bwd {
   static constexpr int E = 16 / sizeof(T);      // elements per vector
   static constexpr int kW = E * sizeof(W) / 4;  // words of E scale values
   static constexpr int kAcc = 2 * V * E;        // a lane's dscale, dbias sums
+  // kBig: no next row in flight, and the sums in shared memory
+  static constexpr bool kBig = V > kMaxVecs;
   // Two blocks an SM (at most 128 registers a thread) where the row in
   // hand, the next row (x and dy, packed) and the sums take at most 96.
-  static constexpr int kMinBlocks = 16 * V + kAcc <= 96 ? 2 : 1;
-  // Dynamic shared memory: the scale, then kBwdWarps / 2 slots of the
-  // warps' sums for the tree, lane-minor ([slot][kAcc][32] floats).
+  static constexpr int kMinBlocks = !kBig && 16 * V + kAcc <= 96 ? 2 : 1;
+  // Dynamic shared memory: the scale, then the slots of the warps' sums,
+  // lane-minor ([slot][kAcc][32] floats): kBwdWarps / 2 for the tree, or
+  // one a warp where the sums live there (kBig).
+  static constexpr int kSlots = kBig ? kBwdWarps : kBwdWarps / 2;
   __host__ __device__ static constexpr int scale_bytes(int d) {
     return (d * static_cast<int>(sizeof(W)) + 15) / 16 * 16;
   }
   __host__ __device__ static constexpr int smem(int d) {
-    return scale_bytes(d) + kBwdWarps / 2 * kAcc * 32 * 4;
+    return scale_bytes(d) + kSlots * kAcc * 32 * 4;
   }
   static constexpr int kMaxD = 32 * V * E;
 };
@@ -213,11 +248,15 @@ ln_bwd(const T* __restrict__ x, const W* __restrict__ scale,
        long long rows, int D, float eps) {
   using L = Bwd<T, W, V>;
   constexpr int E = L::E, kAcc = L::kAcc;
+  constexpr bool kBig = L::kBig;
+  constexpr int kReg = kBig ? 1 : V;  // vectors of sums and of the next row
   extern __shared__ __align__(16) unsigned char smem[];
   W* s_scale = reinterpret_cast<W*>(smem);
   float* s_tree = reinterpret_cast<float*>(smem + L::scale_bytes(D));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nvec = D / E;
+  // kBig: this warp's sums, [kAcc][32] lane-minor (dscale, then dbias)
+  float* s_mine = s_tree + warp * kAcc * 32 + lane;
 
   const long long step = static_cast<long long>(gridDim.x) * kBwdWarps;
   long long row = static_cast<long long>(blockIdx.x) * kBwdWarps + warp;
@@ -235,17 +274,22 @@ ln_bwd(const T* __restrict__ x, const W* __restrict__ scale,
   if (row < rows) fetch(row, cx, cg);  // in flight while the scale is read
 
   for (int c = threadIdx.x; c < D; c += blockDim.x) s_scale[c] = scale[c];
+  if constexpr (kBig) {
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a) s_mine[a * 32] = 0.f;
+  }
   __syncthreads();
 
-  float ds[V][E], db[V][E];
+  float ds[kReg][E], db[kReg][E];
 #pragma unroll
-  for (int i = 0; i < V; ++i)
+  for (int i = 0; i < kReg; ++i)
 #pragma unroll
     for (int j = 0; j < E; ++j) ds[i][j] = db[i][j] = 0.f;
 
   for (; row < rows; row += step) {
-    uint32_t nx[V][4], ng[V][4];
-    if (row + step < rows) fetch(row + step, nx, ng);
+    uint32_t nx[kReg][4], ng[kReg][4];
+    if constexpr (!kBig)
+      if (row + step < rows) fetch(row + step, nx, ng);
 
     float sx = 0.f, sg = 0.f;
 #pragma unroll
@@ -293,48 +337,71 @@ ln_bwd(const T* __restrict__ x, const W* __restrict__ scale,
         for (int j = 0; j < E; ++j) {
           const float xh = (elem<T>(cx[i], j) - mean) * rstd;
           const float gy = elem<T>(cg[i], j);
-          ds[i][j] += gy * xh;
-          db[i][j] += gy;
+          if constexpr (kBig) {
+            s_mine[(i * E + j) * 32] += gy * xh;
+            s_mine[((V + i) * E + j) * 32] += gy;
+          } else {
+            ds[i][j] += gy * xh;
+            db[i][j] += gy;
+          }
           o[j] = (gy * elem<W>(sw, j) - mg - xh * mgx) * rstd;
         }
         store_vec(dxr + vi * E, o);
       }
     }
+    if constexpr (kBig) {
+      if (row + step < rows) fetch(row + step, cx, cg);
+    } else {
 #pragma unroll
-    for (int i = 0; i < V; ++i)
+      for (int i = 0; i < V; ++i)
 #pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        cx[i][w] = nx[i][w];
-        cg[i][w] = ng[i][w];
-      }
+        for (int w = 0; w < 4; ++w) {
+          cx[i][w] = nx[i][w];
+          cg[i][w] = ng[i][w];
+        }
+    }
   }
 
   // The block's sums, warps combined in a fixed tree: at each level the
   // upper half of the warps still holding sums writes to shared memory and
-  // the lower half adds them (warp w + half into warp w).
-#pragma unroll
-  for (int half = kBwdWarps / 2; half > 0; half /= 2) {
-    float* slot = s_tree + (warp & (half - 1)) * kAcc * 32 + lane;
-    if (warp >= half && warp < 2 * half) {
-#pragma unroll
-      for (int i = 0; i < V; ++i)
-#pragma unroll
-        for (int j = 0; j < E; ++j) {
-          slot[(i * E + j) * 32] = ds[i][j];
-          slot[((V + i) * E + j) * 32] = db[i][j];
-        }
-    }
+  // the lower half adds them (warp w + half into warp w). kBig: the sums
+  // are in shared memory already, and warp w adds warp w + half's in place.
+  if constexpr (kBig) {
     __syncthreads();
-    if (warp < half) {
 #pragma unroll
-      for (int i = 0; i < V; ++i)
-#pragma unroll
-        for (int j = 0; j < E; ++j) {
-          ds[i][j] += slot[(i * E + j) * 32];
-          db[i][j] += slot[((V + i) * E + j) * 32];
-        }
+    for (int half = kBwdWarps / 2; half > 0; half /= 2) {
+      if (warp < half) {
+        const float* other = s_mine + half * kAcc * 32;
+#pragma unroll 8
+        for (int a = 0; a < kAcc; ++a) s_mine[a * 32] += other[a * 32];
+      }
+      __syncthreads();
     }
-    __syncthreads();
+  } else {
+#pragma unroll
+    for (int half = kBwdWarps / 2; half > 0; half /= 2) {
+      float* slot = s_tree + (warp & (half - 1)) * kAcc * 32 + lane;
+      if (warp >= half && warp < 2 * half) {
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+#pragma unroll
+          for (int j = 0; j < E; ++j) {
+            slot[(i * E + j) * 32] = ds[i][j];
+            slot[((V + i) * E + j) * 32] = db[i][j];
+          }
+      }
+      __syncthreads();
+      if (warp < half) {
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+#pragma unroll
+          for (int j = 0; j < E; ++j) {
+            ds[i][j] += slot[(i * E + j) * 32];
+            db[i][j] += slot[((V + i) * E + j) * 32];
+          }
+      }
+      __syncthreads();
+    }
   }
   if (warp == 0) {
     float* pr = part + static_cast<long long>(blockIdx.x) * 2 * D;
@@ -342,14 +409,25 @@ ln_bwd(const T* __restrict__ x, const W* __restrict__ scale,
     for (int i = 0; i < V; ++i) {
       const int vi = lane + i * 32;
       if (vi < nvec) {
+        float sd[E], sb[E];
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          if constexpr (kBig) {
+            sd[j] = s_mine[(i * E + j) * 32];
+            sb[j] = s_mine[((V + i) * E + j) * 32];
+          } else {
+            sd[j] = ds[i][j];
+            sb[j] = db[i][j];
+          }
+        }
 #pragma unroll
         for (int h = 0; h < E / 4; ++h) {
           reinterpret_cast<float4*>(pr + vi * E)[h] =
-              make_float4(ds[i][4 * h], ds[i][4 * h + 1], ds[i][4 * h + 2],
-                          ds[i][4 * h + 3]);
+              make_float4(sd[4 * h], sd[4 * h + 1], sd[4 * h + 2],
+                          sd[4 * h + 3]);
           reinterpret_cast<float4*>(pr + D + vi * E)[h] =
-              make_float4(db[i][4 * h], db[i][4 * h + 1], db[i][4 * h + 2],
-                          db[i][4 * h + 3]);
+              make_float4(sb[4 * h], sb[4 * h + 1], sb[4 * h + 2],
+                          sb[4 * h + 3]);
         }
       }
     }
@@ -441,6 +519,10 @@ cudaError_t launch_fwd(const void* x, const void* s, const void* b, void* y,
   CXR_LN_FWD(4)
   CXR_LN_FWD(6)
   CXR_LN_FWD(8)
+  if constexpr (sizeof(T) == 4) {  // f32 rows of more than 1024 columns
+    CXR_LN_FWD(12)
+    CXR_LN_FWD(16)
+  }
 #undef CXR_LN_FWD
   return cudaErrorInvalidValue;
 }
@@ -494,6 +576,10 @@ cudaError_t run_bwd(const BwdCall& c) {
   CXR_LN_BWD(4)
   CXR_LN_BWD(6)
   CXR_LN_BWD(8)
+  if constexpr (sizeof(T) == 4) {  // f32 rows of more than 1024 columns
+    CXR_LN_BWD(12)
+    CXR_LN_BWD(16)
+  }
 #undef CXR_LN_BWD
   return cudaErrorInvalidValue;
 }
@@ -509,14 +595,14 @@ cudaError_t run_bwd_types(int x_dtype, int w_dtype, const BwdCall& c) {
 
 bool bad_shape(long long rows, int d, int x_dtype) {
   const int vec = x_dtype == 1 ? 8 : 4;
-  return rows <= 0 || d <= 0 || d % vec || d > 32 * kMaxVecs * vec;
+  return rows <= 0 || d <= 0 || d % vec || d > kMaxD;
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. x and y are contiguous [rows, d]
 // with 16-byte aligned rows, scale and bias [d] 16-byte aligned;
-// d <= 32 * 8 * (16 / sizeof(x)).
+// d <= 2048.
 extern "C" int cxr_layer_norm_fwd(const void* x, const void* scale,
                                   const void* bias, void* y, long long rows,
                                   int d, float eps, int x_dtype, int w_dtype,

@@ -14,7 +14,10 @@ The int8 serving tree crosses the same way (``qparams_from_jax`` /
 ``qtree["blocks"]["wq"]["qw"].q[3]``, static or dynamic alike. One leaf
 is not a copy: the port keeps int8 weights ``[out, in]`` (K-contiguous,
 what the int8 kernel reads) where the JAX ``QuantizedWeight.q`` is
-``[in, out]``, so ``*.qw.q`` leaves are transposed both ways.
+``[in, out]``, so ``*.qw.q`` leaves are transposed both ways; and a
+weight whose K the port stores zero-padded (the patch embedding's, see
+``quantized.QuantDense``) is padded on the way in and cut back to its
+``in_features`` on the way out, so the JAX layout never holds the padding.
 Leaves cross as numpy arrays: this module imports no JAX.
 """
 
@@ -149,6 +152,9 @@ def qparams_from_jax(qtree: Dict[str, Any], cfg: ModelConfig
         arr = _leaf(qtree, name)
         if _is_int8_weight(name):
             arr = arr.T
+            k = qp.get_submodule(name[:-len(".qw.q")]).in_features
+            if arr.shape[1] == k and buf.shape[1] > k:
+                arr = np.pad(arr, ((0, 0), (0, buf.shape[1] - k)))
         if tuple(arr.shape) != tuple(buf.shape):
             raise ValueError(f"{name}: shape {arr.shape} != "
                              f"{tuple(buf.shape)}")
@@ -164,5 +170,8 @@ def qparams_to_numpy(qparams: "quantized.QuantizedViT") -> Dict[str, Any]:
     named = {}
     for name, buf in qparams.named_buffers():
         t = buf.detach().cpu()
-        named[name] = (t.t() if _is_int8_weight(name) else t).numpy().copy()
+        if _is_int8_weight(name):
+            k = qparams.get_submodule(name[:-len(".qw.q")]).in_features
+            t = t[:, :k].t()
+        named[name] = t.numpy().copy()
     return _to_tree(named)

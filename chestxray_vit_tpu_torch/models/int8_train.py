@@ -42,7 +42,7 @@ from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.models.quantized import _cls_pos
 from chestxray_vit_tpu_torch.models.remat import checkpoint_name
 from chestxray_vit_tpu_torch.ops.int8_matmul import (int8_matmul_fused,
-                                                     quantize_static)
+                                                     pad_k, quantize_static)
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
 from chestxray_vit_tpu_torch.ops.quant import quantize_weight_tensors
 
@@ -58,6 +58,9 @@ class _Int8LinearSTE(torch.autograd.Function):
         wq, w_scale = quantize_weight_tensors(kernel)
         if xq is None:
             xq = quantize_static(x, x_scale)
+        # K zero-padded to the int8 kernel's step (the patch embedding's
+        # 588 at patch 14): exact, zero columns add nothing to the sums
+        wq, xq = pad_k(wq), pad_k(xq)
         ctx.save_for_backward(x, kernel)
         ctx.out_dtype, ctx.bias_dtype = out_dtype, bias.dtype
         return int8_matmul_fused(xq, wq, x_scale * w_scale, bias.float(),

@@ -49,6 +49,7 @@ from chestxray_vit_tpu_torch.models import bridge, vit
 from chestxray_vit_tpu_torch.ops.flash_attention import attention
 from chestxray_vit_tpu_torch.ops.gelu import gelu as _gelu
 from chestxray_vit_tpu_torch.ops.int8_matmul import (int8_matmul_fused,
+                                                     pad_k, padded_k,
                                                      quantize_static)
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
 from chestxray_vit_tpu_torch.ops.quant import (QuantizedWeight, int8_matmul,
@@ -77,11 +78,18 @@ class Buffers(nn.Module):
 
 
 class QuantDense(nn.Module):
-    """An int8 projection: ``qw`` (:class:`QuantizedWeight`) and ``bias``."""
+    """An int8 projection: ``qw`` (:class:`QuantizedWeight`) and ``bias``.
+    With ``pad`` the weight's K is stored zero-padded to a multiple of 64,
+    the int8 kernel's step (``ops/int8_matmul.pad_k``), and ``in_features``
+    keeps the real one: the bridge and the artifact see ``[in_features,
+    out]``."""
 
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype):
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
+                 pad: bool = False):
         super().__init__()
-        self.qw = QuantizedWeight(torch.zeros(d_out, d_in, dtype=torch.int8),
+        self.in_features = d_in
+        k = padded_k(d_in) if pad else d_in
+        self.qw = QuantizedWeight(torch.zeros(d_out, k, dtype=torch.int8),
                                   torch.zeros(d_out))
         self.register_buffer("bias", torch.zeros(d_out, dtype=dtype))
 
@@ -117,8 +125,9 @@ class QuantizedViT(nn.Module):
         self.cfg, self.static = cfg, static
         pdt = vit.torch_dtype(cfg.param_dtype)
         d = cfg.hidden_size
+        # K = 3 p² (588 at patch 14) padded for the int8 kernel
         self.patch_embed = QuantDense(cfg.patch_size * cfg.patch_size * 3, d,
-                                      pdt)
+                                      pdt, pad=True)
         if static:
             self.patch_embed.register_buffer("xs", torch.zeros(()))
         self.register_buffer("cls_token", torch.zeros(1, 1, d, dtype=pdt))
@@ -206,6 +215,7 @@ def embed_tokens(params, images: torch.Tensor, cfg: ModelConfig,
     patches = vit.patchify(images.float(), cfg.patch_size)
     pe = params.patch_embed
     if quantized:
+        patches = pad_k(patches, pe.qw.q.shape[1])
         if params.static:
             x = int8_matmul_static(patches, pe.qw, pe.xs, pe.bias,
                                    out_dtype=cd)
@@ -294,7 +304,7 @@ def quantize_vit_params(params: vit.ViT,
 
     def quantize_into(qd: QuantDense, dense: vit.Dense) -> None:
         qw = quantize_weight(dense.kernel.to(dev, torch.float32))
-        qd.qw.q.copy_(qw.q)
+        qd.qw.q.copy_(pad_k(qw.q, qd.qw.q.shape[1]))
         qd.qw.scale.copy_(qw.scale)
         qd.bias.copy_(dense.bias)
 
@@ -371,8 +381,9 @@ def _apply_static_pallas(qparams: QuantizedViT, images: torch.Tensor,
         return int8_matmul_fused(x8, entry.qw.q, x_scale * entry.qw.scale,
                                  entry.bias, out_dtype=cd, **kw)
 
-    patches = vit.patchify(images.float(), cfg.patch_size)
     pe = qparams.patch_embed
+    patches = pad_k(vit.patchify(images.float(), cfg.patch_size),
+                    pe.qw.q.shape[1])
     x = _cls_pos(qparams, proj(quantize_static(patches, pe.xs), pe, pe.xs),
                  cfg)
     sizes = (torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)

@@ -70,7 +70,14 @@ import torch
 from chestxray_vit_tpu_torch import kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64       # the one head dim the kernel is built for
+MAX_HEAD_DIM = 128  # the kernels take d % 8 == 0, 8 <= d <= 128
+
+
+def head_dim_supported(d: int) -> bool:
+    """Whether the kernels take head dim ``d``: a multiple of 8 from 8 to
+    128, built at the padded width 64 or 128 (``csrc/common.cuh``
+    ``head_dim_ok``); columns past d are zeros in shared memory only."""
+    return d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -146,8 +153,9 @@ def flash_attention_inference(q: torch.Tensor, k: torch.Tensor,
                               ) -> torch.Tensor:
     """Forward-only fused attention for eval/serving (no lse output).
 
-    q, k, v: [B, H, S, 64] in f32 or bf16, any strides with a contiguous
-    head dim (the projections' [B, S, H, d] views are read in place). CPU
+    q, k, v: [B, H, S, d] in f32 or bf16 (d a multiple of 8 from 8 to
+    128: :func:`head_dim_supported`), any strides with a contiguous head
+    dim (the projections' [B, S, H, d] views are read in place). CPU
     tensors take :func:`attention_reference`. The output is [B, H, S, d]
     in q's dtype, laid out as [B, S, H, d] in memory so that merging the
     heads for the output projection is a view.
@@ -896,7 +904,7 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            block_q: int = DEFAULT_BLOCK_Q) -> torch.Tensor:
     """Segment-masked (block-diagonal) attention for packed batches, the
     signature of the JAX package's ``flash_attention_packed``: q, k, v
-    [B, H, S, 64], ``segment_ids`` int32 [B, S]; token i attends token j
+    [B, H, S, d], ``segment_ids`` int32 [B, S]; token i attends token j
     iff their ids are equal, and pad slots (id −1) attend each other.
     ``block_q`` tiled the TPU kernel and changes nothing here. The autograd
     function over the kernels for CUDA tensors, the plain forward under
@@ -985,10 +993,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(q.shape)}")
     if q.dim() != 4:
         raise ValueError(f"expected [B, H, S, d], got {tuple(q.shape)}")
-    if q.shape[-1] != HEAD_DIM:
+    if not head_dim_supported(q.shape[-1]):
         raise NotImplementedError(
-            f"head dim {q.shape[-1]}: the kernel is built for d = "
-            f"{HEAD_DIM} only (other head dims are ROADMAP Queue 1 #13)")
+            f"head dim {q.shape[-1]}: the kernels take d % 8 == 0 and "
+            f"8 <= d <= {MAX_HEAD_DIM} (head dims above {MAX_HEAD_DIM} are "
+            f"ROADMAP Queue 1 #13)")
     for name, t in {"q": q, **operands}.items():
         if not _fits(t):
             raise ValueError(

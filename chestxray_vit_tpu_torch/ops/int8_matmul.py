@@ -29,10 +29,27 @@ from chestxray_vit_tpu_torch.ops.gelu import gelu as _gelu
 from chestxray_vit_tpu_torch.ops.quant import int8_product, quantize_static
 
 __all__ = ["int8_matmul_fused", "int8_matmul_fused_reference",
-           "quantize_static"]
+           "pad_k", "quantize_static"]
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 K_STEP = 64          # K must be a multiple of it (half the kernel's k tile)
+
+
+def padded_k(k: int) -> int:
+    """``k`` rounded up to a multiple of :data:`K_STEP`."""
+    return -(-k // K_STEP) * K_STEP
+
+
+def pad_k(t: torch.Tensor, k: Optional[int] = None) -> torch.Tensor:
+    """``t [..., K]`` with zero columns appended up to ``k`` (default: K
+    rounded up to a multiple of :data:`K_STEP`); ``t`` itself when it is
+    that wide already. Exact for the int8 product: a zero column adds
+    nothing to an integer sum and changes no absmax scale. A patch-14
+    patch has K = 3 · 14 · 14 = 588, padded to 640."""
+    k = padded_k(t.shape[-1]) if k is None else k
+    if t.shape[-1] == k:
+        return t
+    return torch.nn.functional.pad(t, (0, k - t.shape[-1]))
 
 
 def int8_matmul_fused_reference(xq: torch.Tensor, wq: torch.Tensor,
@@ -66,7 +83,8 @@ def _check(xq, wq, scale, bias, resid, qs, out_dtype) -> None:
     n, k = wq.shape
     if k % K_STEP or n % 8:
         raise ValueError(f"the int8 kernel takes K a multiple of {K_STEP} "
-                         f"and N a multiple of 8; got K={k}, N={n}")
+                         f"and N a multiple of 8; got K={k}, N={n} (pad K "
+                         f"with zero columns of xq and wq: pad_k)")
     for name, t in (("scale", scale), ("bias", bias)):
         if t.shape != (n,) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be f32 [{n}], got {t.dtype} "

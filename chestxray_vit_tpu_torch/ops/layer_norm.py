@@ -24,6 +24,7 @@ import torch
 from chestxray_vit_tpu_torch import kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_D = 2048        # the widest row the kernels take, in f32 and bf16
 
 
 def layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -103,10 +104,10 @@ def _check_params(x: torch.Tensor, *params: Tuple[str, torch.Tensor]
                         + ", ".join(f"{n} {t.dtype}" for n, t in params))
     vec = 16 // x.element_size()         # elements per 16-byte load
     if not x.is_contiguous() or x.data_ptr() % 16 or d % vec \
-            or d > 32 * 8 * vec:
+            or d > MAX_D:
         raise ValueError(
             f"layer_norm kernel needs a contiguous, 16-byte aligned x with "
-            f"D a multiple of {vec} and at most {32 * 8 * vec}; got shape "
+            f"D a multiple of {vec} and at most {MAX_D}; got shape "
             f"{tuple(x.shape)}")
 
 

@@ -190,8 +190,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    written); ``quantize --mode static`` on 4 PNGs and a static int8
    ``Predictor.from_model_dir`` forward on the fused kernel; ``export`` of
    the saved model, read back equal to the trained parameters; ``maps``
-   with rollout and gradcam (4 overlays each); ``smoke`` (hidden 64, one
-   head of 64).
+   with rollout and gradcam (4 overlays each); ``smoke`` (hidden 64 in
+   four heads of 16, as the JAX smoke: the attention kernels at d = 16).
 29. train_int8: bench.py's step (b36, bf16, full remat) on the int8
    straight-through forward (``make_train_step(int8_scales=)``, scales
    calibrated on the batch): 3 warm-up and 10 timed steps, finite losses
@@ -236,6 +236,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    batch; the gathered logits (and maps) within BF16_LOGIT_TOL (MAPS_TOL)
    of the one-replica Predictor at the same batch. Two streams on one
    card share it: the emulated line measures no scaling.
+33. vit_h14 (after 30): ViT-H/14 @224 (hidden 1280, 32 layers, 16 heads of
+   80, 257 tokens; seed-0 random weights) at full width and depth:
+   serving_vit_h14_b8 and _b32 (the dense bf16 Predictor, 64 requests,
+   exactly 32 attention and 65 LayerNorm launches a forward),
+   serving_int8_vit_h14 (static int8 at b32 calibrated on 8 requests, 193
+   int8 launches a forward, the patch embedding's K = 588 padded to 640;
+   beside it dense b32 and the b32 forward times of four stacks) with
+   int8_cross_check_vit_h14 (phase 12's bounds), train_vit_h14 (b32, bf16,
+   full remat, 3 + 8 steps: ms a step, images/s, MFU, peak GB, finite
+   losses, exact launches a step) and eval_vit_h14 (one b32 eval step,
+   AUROC and F1 against the CPU's).
+34. vit_h14_cross_check: depth 2 at full width in f32: logits card vs CPU
+   (F32_LOGIT_TOL) and one train step (vit_h14_train_cross_check,
+   XCHECK_F32), LayerNorm at 1280 in f32 on the card.
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -250,7 +264,15 @@ twice. At the lengths token merging leaves on the dense path
 (MERGED_LENGTHS: 561, 517, 401, 197) it checks the inference, training and
 dropout attention kernels at batch 36 (the debug kernel's mask: 0
 mismatches), the LayerNorm forward and backward at 36 · S rows and two
-int8 forms at 32 · S rows.
+int8 forms at 32 · S rows. At head dims other than 64 (HEAD_DIMS: 16, 80,
+128) it holds every attention kernel to its plain version in bf16 and f32
+at HEAD_DIM_LENGTHS (the debug kernel's mask equal to the plain hash and to
+its mask at d = 64), times the inference, training forward and backward at
+ViT-H/14's shapes (VITH_ATTN_SHAPES) beside SDPA's flash kernel, the
+LayerNorm forward and backward at ViT-H/14's 8 · 257 rows of 1280 in bf16
+and f32, and the int8 kernel at the patch embedding's K = 588 padded to 640
+(equal to the plain version on the unpadded operands). Those records join
+the summary line as each kernel's ``head_dims``.
 
 The second-to-last line is the kernels summary, the last one the result.
 """
@@ -343,6 +365,14 @@ F32_LOGIT_TOL = 1e-3
 #   bf16 rounds P and dS before their products at other points of the sum
 #   than the plain version and f32 differs in summation order only.
 ATTN_GRAD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+# - head dims other than 64 (check_head_dims, batch 2 of 4 heads): every
+#   output and gradient element within ATTN_TOL of the plain version,
+#   absolute; each gradient's error relative to its largest is recorded
+#   beside it. At this size a gradient's largest element may sit near 1.5,
+#   where ATTN_GRAD_TOL allows 1.95 bf16 ulps: one d = 80 case read 2 ulps
+#   (0.0102), while the d = 80 kernels equal the d = 128 ones on
+#   zero-padded operands bit for bit and d = 64 and 80 show the same error
+#   tail over 600 draws (≤ 0.0055; PERF.md §6, PR 18).
 # - LayerNorm backward: dx as the forward's output (1 bf16 ulp + 1e-5 in
 #   bf16); dscale and dbias sum 20,772 rows in another order: relative 1e-5
 #   of the largest in f32, plus one ulp of each element when cast to bf16.
@@ -373,6 +403,12 @@ MAPS_TOL, MAPS_MIN_CORR = 5e-2, 0.99
 XCHECK_F32 = {"loss": 1e-5, "grad_norm_rel": 1e-4, "grads_rel": 1e-4,
               "params": 1e-5}
 XCHECK_BF16 = {"loss": 5e-2, "grads_rel": 5e-2, "params": 2.1e-4}
+# - vit_h14_train_cross_check, f32: loss and gradients as XCHECK_F32; the
+#   updated weights by the rule above, ~2 lr (the bf16 bound): at hidden
+#   1280 more weights have a gradient near 0, where AdamW's first step
+#   (m / √v ≈ ±1) turns a summation-order difference of the gradient into
+#   up to 2 lr of the weight (read 1.23e-5 on an H100).
+VITH_XCHECK_PARAMS = XCHECK_BF16["params"]
 # - int8 kernel vs its plain version: every output equal, int8 included
 #   (the same exact integer sums, the epilogue rounded at the same points,
 #   its exp2f libdevice's as PyTorch's exp2 on the card).
@@ -415,6 +451,31 @@ INT8_XCHECK = {"logits": INT8_ROUTE_TOL, "logit_corr": INT8_ROUTE_MIN_CORR,
 # of their 64-row tiles, a tail of one row, and more tiles than the copy
 # ring has stages (checked, not timed).
 EDGE_LENGTHS = (64, 128, 129, 576, 1025)
+# Head dims other than 64 (the kernels pad d to 64 or 128 in shared memory):
+# the smoke's 16, ViT-H/14's 80 and the largest, 128; every attention
+# kernel at each, in bf16 and f32, at ViT-H/14's 257 tokens, ViT-B/16's
+# 577, a short odd 37 and EDGE_LENGTHS, batch 2 of 4 heads
+HEAD_DIMS = (16, 80, 128)
+HEAD_DIM_LENGTHS = (257, 577, 37) + EDGE_LENGTHS
+HEAD_DIM_BATCH, HEAD_DIM_HEADS = 2, 4
+# (d, wider d): the kernels at d equal, bit for bit, the kernels at the
+# wider d on operands zero-padded to it (the unmasked d = 64 instantiation
+# against the masked d = 16; a whole second chunk against its first 16
+# columns)
+HEAD_DIM_PADS = ((16, 64), (80, 128))
+# ViT-H/14 @224 (config.VIT_VARIANTS["vit_h14"]): hidden 1280 in 16 heads of
+# 80, 257 tokens; its attention timed at the serving and training batches,
+# its LayerNorm at the b8 serving rows in both dtypes, its patch embedding's
+# int8 product (K = 3 · 14 · 14 = 588, padded to 640) at the b32 rows
+VITH_HIDDEN, VITH_TOKENS = 1280, 257
+VITH_ATTN_SHAPES = ((8, 16, VITH_TOKENS, 80), (32, 16, VITH_TOKENS, 80))
+VITH_LN_CASES = ((8 * VITH_TOKENS, VITH_HIDDEN, torch.bfloat16,
+                  torch.bfloat16),
+                 (8 * VITH_TOKENS, VITH_HIDDEN, torch.float32,
+                  torch.float32))
+VITH_BATCH, VITH_INT8_BATCH, VITH_TRAIN_BATCH = 8, 32, 32
+VITH_REQUESTS = 64
+VITH_WARMUP_STEPS, VITH_TIMED_STEPS = 3, 8
 # Attention lengths of the merged dense forward (token merging leaves a
 # length no tile divides at every layer): tome_r 16 constant runs 561 and
 # 401, tome_r 32 decreasing 517 and 197 (see TOME_LENGTHS).
@@ -645,12 +706,11 @@ def attention_bound(shape, dtype, *, backward=False, lse=False,
 
 
 def packed_attention_bound(seg: torch.Tensor, heads: int, dtype, *,
-                           backward=False, hash_passes=0) -> dict:
+                           backward=False, hash_passes=0, d=64) -> dict:
     """The segment kernels' bound counts each input and output once (the
     ids too, once for all heads) and only same-segment products: the sum
-    over sequences and segments of len², not S²."""
+    over sequences and segments of len², not S²; d is the real head dim."""
     b, s = seg.shape
-    d = 64
     e = torch.empty((), dtype=dtype).element_size()
     ids = seg.cpu().numpy()
     pairs = heads * sum(int((np.unique(row, return_counts=True)[1] ** 2)
@@ -770,7 +830,7 @@ def phase_kernel_check() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    summary = {}
+    summary = {"head_dims": {}}     # the records at head dims other than 64
     emit({"phase": "kernel_check", "warm_up_s": warm_up()})
 
     def randn(shape, dtype):
@@ -797,6 +857,10 @@ def phase_kernel_check() -> dict:
             if s == 577 and dtype == torch.bfloat16:
                 rec["library_ms"] = library_attention(q, k, v)[0]
                 rec["earlier_ms"] = EARLIER_FWD_MS["flash_attention_inference"]
+                # the card's time alone: at 0.04 ms the events also time
+                # the host's launches
+                rec.update(device_ms(
+                    lambda: fa.flash_attention_inference(q, k, v)))
                 summary["flash_attention_inference"] = rec
             emit(rec)
             require(rec["finite"] and err <= ATTN_TOL[dtype],
@@ -810,6 +874,8 @@ def phase_kernel_check() -> dict:
     check_packed_attention(randn, summary)
     check_hidden_dropout(randn, summary)
     check_merged_lengths(randn, gen)
+    check_head_dims(randn, summary)
+    check_int8_patch14(gen, summary)
     return summary
 
 
@@ -918,14 +984,14 @@ def check_layer_norm(randn, summary: dict) -> None:
     ``F.layer_norm``'s."""
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
 
-    d = 768
-    cases = [(BATCH * 577, torch.bfloat16, torch.bfloat16),
-             (BATCH * 577, torch.bfloat16, torch.float32),
-             (BATCH * 577, torch.float32, torch.float32),
-             (INT8_BATCH * 577, torch.bfloat16, torch.bfloat16),
-             (INT8_BATCH * 577, torch.bfloat16, torch.float32),
-             (TRAIN_BATCH * 577, torch.bfloat16, torch.bfloat16)]
-    for rows, x_dtype, w_dtype in cases:
+    cases = [(BATCH * 577, 768, torch.bfloat16, torch.bfloat16),
+             (BATCH * 577, 768, torch.bfloat16, torch.float32),
+             (BATCH * 577, 768, torch.float32, torch.float32),
+             (INT8_BATCH * 577, 768, torch.bfloat16, torch.bfloat16),
+             (INT8_BATCH * 577, 768, torch.bfloat16, torch.float32),
+             (TRAIN_BATCH * 577, 768, torch.bfloat16, torch.bfloat16),
+             *VITH_LN_CASES]
+    for rows, d, x_dtype, w_dtype in cases:
         x = randn((rows, d), x_dtype) * 3 + 1
         s_, b_ = randn((d,), w_dtype), randn((d,), w_dtype)
         y = ln.layer_norm_cuda(x, s_, b_, 1e-12)
@@ -949,7 +1015,7 @@ def check_layer_norm(randn, summary: dict) -> None:
                "scale_dtype": str(w_dtype), "max_abs_err": err, "tol": tol,
                "ms": ms, "plain_ms": plain_ms, **device_ms(kernel),
                **layer_norm_bound(rows, d, x_dtype, w_dtype)}
-        if x_dtype == torch.bfloat16:
+        if x_dtype == torch.bfloat16 or d == VITH_HIDDEN:
             def library():
                 return torch.nn.functional.layer_norm(x, (d,), s_.to(x_dtype),
                                                       b_.to(x_dtype), 1e-12)
@@ -960,6 +1026,8 @@ def check_layer_norm(randn, summary: dict) -> None:
                 rec["earlier_ms"], rec["earlier_device_ms"] = earlier
         if rows == INT8_BATCH * 577 and w_dtype == torch.bfloat16:
             summary["layer_norm"] = rec
+        if d == VITH_HIDDEN:
+            summary["head_dims"].setdefault("layer_norm", []).append(rec)
         emit(rec)
         require(ok, f"layer_norm {x_dtype}/{w_dtype}: err {err}")
 
@@ -1151,14 +1219,14 @@ def check_layer_norm_bwd(randn, summary: dict) -> None:
     (EARLIER_LN_BWD_MS)."""
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
 
-    d = 768
-    cases = [(TRAIN_BATCH * 577, torch.bfloat16, torch.bfloat16),
-             (TRAIN_BATCH * 577, torch.bfloat16, torch.float32),
-             (TRAIN_BATCH * 577, torch.float32, torch.float32),
-             (PACKED_SEQS * 1152, torch.bfloat16, torch.bfloat16),
-             (PACKED_SEQS * 1152, torch.bfloat16, torch.float32),
-             (BATCH * 577 - 1, torch.bfloat16, torch.bfloat16)]
-    for rows, x_dtype, w_dtype in cases:
+    cases = [(TRAIN_BATCH * 577, 768, torch.bfloat16, torch.bfloat16),
+             (TRAIN_BATCH * 577, 768, torch.bfloat16, torch.float32),
+             (TRAIN_BATCH * 577, 768, torch.float32, torch.float32),
+             (PACKED_SEQS * 1152, 768, torch.bfloat16, torch.bfloat16),
+             (PACKED_SEQS * 1152, 768, torch.bfloat16, torch.float32),
+             (BATCH * 577 - 1, 768, torch.bfloat16, torch.bfloat16),
+             *VITH_LN_CASES]
+    for rows, d, x_dtype, w_dtype in cases:
         x = randn((rows, d), x_dtype) * 3 + 1
         scale, dy = randn((d,), w_dtype), randn((rows, d), x_dtype)
 
@@ -1212,6 +1280,8 @@ def check_layer_norm_bwd(randn, summary: dict) -> None:
         if (rows == TRAIN_BATCH * 577
                 and x_dtype == w_dtype == torch.bfloat16):
             summary["layer_norm_bwd"] = rec
+        if d == VITH_HIDDEN:
+            summary["head_dims"].setdefault("layer_norm_bwd", []).append(rec)
         emit(rec)
         require(ok, f"layer_norm_bwd {rows} {x_dtype}/{w_dtype}: {rec}")
 
@@ -1684,22 +1754,23 @@ def require_forward_launches(phase: str, launches: dict, forwards: int,
             f"expected {want}")
 
 
-def phase_serving(params, cfg, images: list):
+def phase_serving(params, cfg, images: list, phase: str = "serving",
+                  batch_size: int = BATCH):
     import chestxray_vit_tpu_torch as cxr
 
     t0 = time.perf_counter()
-    pred = cxr.Predictor(params, cfg, batch_size=BATCH, placement="device",
-                         device="cuda")
+    pred = cxr.Predictor(params, cfg, batch_size=batch_size,
+                         placement="device", device="cuda")
     pred.warmup()
     warm_s = time.perf_counter() - t0
     # the counts cover exactly the main path's run
     results, submitted, done, launches = serve_burst(pred, images)
-    rec = {**burst_record("serving", pred, images, results, submitted, done,
+    rec = {**burst_record(phase, pred, images, results, submitted, done,
                           cfg),
            "attention_launches": launches["flash_attention_inference"],
            "layer_norm_launches": launches["layer_norm"], "warmup_s": warm_s}
     emit(rec)
-    require_forward_launches("serving", launches, pred.forwards, cfg,
+    require_forward_launches(phase, launches, pred.forwards, cfg,
                              int8=False)
     return np.stack([r.logits for r in results]), launches
 
@@ -1729,7 +1800,8 @@ def phase_cross_check(params, cfg, images: list, card_logits) -> None:
     require(d_f32 <= F32_LOGIT_TOL, f"f32 card vs f32 CPU: {d_f32}")
 
 
-def phase_serving_int8(params, cfg, images: list):
+def phase_serving_int8(params, cfg, images: list,
+                       phase: str = "serving_int8"):
     """The static-int8 Predictor at batch 32 on the fused kernel, and beside
     it the dense bf16 Predictor at batch 32 on the same requests; then the
     b32 forward times of the fused route, the "xla" route, dynamic int8
@@ -1746,17 +1818,17 @@ def phase_serving_int8(params, cfg, images: list):
     pred.warmup()
     warm_s = time.perf_counter() - t0
     results, submitted, done, launches = serve_burst(pred, images)
-    rec = {**burst_record("serving_int8", pred, images, results, submitted,
+    rec = {**burst_record(phase, pred, images, results, submitted,
                           done, cfg),
            "quantize": "static", "launches": launches, "warmup_s": warm_s}
-    require_forward_launches("serving_int8", launches, pred.forwards, cfg,
+    require_forward_launches(phase, launches, pred.forwards, cfg,
                              int8=True)
 
     dense = cxr.Predictor(params, cfg, batch_size=INT8_BATCH,
                           placement="device", device="cuda")
     dense.warmup()
     d_res, d_sub, d_done, _ = serve_burst(dense, images)
-    d_rec = burst_record("serving_dense_b32", dense, images, d_res, d_sub,
+    d_rec = burst_record(f"{phase}_dense_b32", dense, images, d_res, d_sub,
                          d_done, cfg)
     rec["dense_b32"] = {k: d_rec[k] for k in ("images_per_s",
                                               "p50_latency_ms",
@@ -1786,7 +1858,8 @@ def phase_serving_int8(params, cfg, images: list):
     return qp, imgs, fused_logits, launches, rec
 
 
-def phase_int8_cross_check(params, cfg, qp, imgs, fused_logits) -> None:
+def phase_int8_cross_check(params, cfg, qp, imgs, fused_logits,
+                           phase: str = "int8_cross_check") -> None:
     """The fused route on the card against the port's CPU plain route (the
     same tree and images, 2 of them) and against the card's "xla" route,
     in f32 and in the serving bf16; and the bf16 fused route against the
@@ -1821,14 +1894,14 @@ def phase_int8_cross_check(params, cfg, qp, imgs, fused_logits) -> None:
     def corr(a, b):
         return float(np.corrcoef(a.numpy().ravel(), b.numpy().ravel())[0, 1])
 
-    rec = {"phase": "int8_cross_check", "images": INT8_BATCH,
+    rec = {"phase": phase, "images": INT8_BATCH,
            "cpu_images": pick, "tol": INT8_ROUTE_TOL,
            "min_corr": INT8_ROUTE_MIN_CORR,
            "noise_std": NOISE_STD,
            "noise_sensitivity": (out["f32"][0] - nudged).abs().max().item()}
     for dt, (card, cpu, xla) in out.items():
         require(bool(torch.isfinite(card).all()) and card.shape == (
-            INT8_BATCH, cfg.num_classes), f"finite {dt} int8 logits [32, 15]")
+            len(imgs), cfg.num_classes), f"finite {dt} int8 logits [32, 15]")
         rec[f"{dt}_fused_vs_cpu_plain_max_abs"] = \
             (card[:pick] - cpu).abs().max().item()
         rec[f"{dt}_fused_vs_xla_max_abs"] = (card - xla).abs().max().item()
@@ -2269,7 +2342,10 @@ def phase_train_dp_split() -> dict:
 
 def phase_train_cross_check(phase: str = "train_cross_check",
                             mixup_alpha: float = 0.0,
-                            dtypes: tuple = ("f32", "bf16"), **model) -> None:
+                            dtypes: tuple = ("f32", "bf16"),
+                            img_size: int = 384,
+                            params_tol: float = XCHECK_F32["params"],
+                            **model) -> None:
     """One train step at full width, depth 2, batch 2: the card in f32 and
     in bf16 against the CPU in f32 (plain versions), same weights and the
     same draws (dropout seeds, mixup λ) injected on both sides. With
@@ -2281,12 +2357,13 @@ def phase_train_cross_check(phase: str = "train_cross_check",
     from chestxray_vit_tpu_torch.models.vit import init_params
     from chestxray_vit_tpu_torch.train import steps
 
-    cfg32 = train_config(mixup_alpha, num_layers=2, dtype="float32", **model)
+    cfg32 = train_config(mixup_alpha, num_layers=2, dtype="float32",
+                         img_size=img_size, **model)
     cfg16 = dataclasses.replace(cfg32, model=dataclasses.replace(
         cfg32.model, dtype="bfloat16"))
     cpu_params = init_params(torch.Generator().manual_seed(SEED), cfg32.model)
     tree = bridge.params_to_numpy(cpu_params)
-    batch = bench_batch(2, SEED + 1, "cpu")
+    batch = bench_batch(2, SEED + 1, "cpu", img_size)
     draws = [steps.draw(torch.Generator().manual_seed(SEED), cfg32, 2)]
 
     def run(cfg, params, device):
@@ -2320,11 +2397,12 @@ def phase_train_cross_check(phase: str = "train_cross_check",
             float(np.abs(a - b).max()) for a, b in zip(g, cpu_g)) / g_scale
         rec[f"card_{name}_params_max_abs_diff"] = max(
             float(np.abs(a - b).max()) for a, b in zip(p, cpu_p))
+    rec["params_tol_f32"] = params_tol
     emit(rec)
     for key, tol in (("loss_diff", XCHECK_F32["loss"]),
                      ("grad_norm_rel_diff", XCHECK_F32["grad_norm_rel"]),
                      ("grads_rel_diff", XCHECK_F32["grads_rel"]),
-                     ("params_max_abs_diff", XCHECK_F32["params"])):
+                     ("params_max_abs_diff", params_tol)):
         require(rec[f"card_f32_{key}"] <= tol, f"f32 {key}: {rec}")
     require(not any(rec.get("card_f32_merges_differing", [])),
             f"f32 merges as on the CPU: {rec}")
@@ -4192,7 +4270,7 @@ def phase_cli() -> dict:
                                       for i in range(CLI_IMAGES)),
                     f"cli: {method} overlays written: {written}")
 
-        # 7. smoke (hidden 64, one head of 64)
+        # 7. smoke (hidden 64 in four heads of 16: d = 16 on the card)
         run("smoke", ["smoke", "--device", "cuda", "--set",
                       f"train.output_dir={os.path.join(tmp, 'smoke')}"])
         require(rec["smoke_launches"].get("flash_attention_bwd", 0) > 0,
@@ -4408,6 +4486,385 @@ def phase_train_int8_cross_check() -> None:
                 f"int8 train {label} card vs CPU: {r}")
 
 
+def vith_config(**model):
+    """ViT-H/14 @224 (``config.vit_variant_config("vit_h14")``: hidden 1280,
+    32 layers, 16 heads of 80, MLP 5120, patch 14, 257 tokens), 15 classes,
+    bf16 with f32 master weights and the variant's full remat; ``model``
+    overrides fields (depth, dtype)."""
+    import dataclasses
+
+    import chestxray_vit_tpu_torch as cxr
+    from chestxray_vit_tpu_torch.config import vit_variant_config
+
+    m = dataclasses.replace(vit_variant_config("vit_h14", img_size=224),
+                            **model)
+    return cxr.Config(model=m, data=cxr.DataConfig(),
+                      train=cxr.TrainConfig())
+
+
+def phase_vit_h14(images: list) -> tuple:
+    """ViT-H/14 @224 at full width and depth on the card, from seeded random
+    weights: the dense bf16 Predictor at b8 and b32 (64 requests each:
+    images/s, p50 ms, 32 attention and 65 LayerNorm launches a forward),
+    the static int8 Predictor at b32 calibrated on 8 of the requests (193
+    int8 launches a forward: the patch embedding's K = 588 padded to 640)
+    and its cross-check against the CPU's static route (INT8_ROUTE_TOL,
+    INT8_ROUTE_MIN_CORR), then the train step (VITH_TRAIN_BATCH, full remat:
+    VITH_WARMUP_STEPS + VITH_TIMED_STEPS steps, ms a step, images/s, MFU by
+    ``utils/flops``, peak GB, finite losses, exact launches a step) and one
+    eval step with AUROC and F1 against the CPU's. Returns the launches of
+    each main path's run."""
+    from chestxray_vit_tpu_torch.eval import metrics
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.train import steps
+    from chestxray_vit_tpu_torch.utils import flops
+
+    cfg = vith_config()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator().manual_seed(SEED), cfg.model)
+    emit({"phase": "vit_h14_init", "seconds": time.perf_counter() - t0,
+          "parameters": sum(p.numel() for p in params.parameters()),
+          "head_dim": cfg.model.head_dim, "tokens": cfg.model.seq_len})
+    reqs = images[:VITH_REQUESTS]
+    _, serve8 = phase_serving(params, cfg.model, reqs, "serving_vit_h14_b8",
+                              VITH_BATCH)
+    _, serve32 = phase_serving(params, cfg.model, reqs, "serving_vit_h14_b32",
+                               VITH_INT8_BATCH)
+    torch.cuda.empty_cache()
+    qp, imgs, fused_logits, serve_int8, _ = phase_serving_int8(
+        params, cfg.model, reqs, "serving_int8_vit_h14")
+    phase_int8_cross_check(params, cfg.model, qp, imgs, fused_logits,
+                           "int8_cross_check_vit_h14")
+    del qp, imgs, fused_logits
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    params = params.to(dev)
+    per_step = dense_launches_per_step(cfg.model.num_layers, dropout=False)
+    batch = bench_batch(VITH_TRAIN_BATCH, SEED, dev, cfg.model.img_size)
+    state = steps.TrainState.create(params, seed=42)
+    run = run_steps(steps.make_train_step(cfg, total_steps=10_000), state,
+                    batch, VITH_WARMUP_STEPS, VITH_TIMED_STEPS)
+    images_per_s = VITH_TRAIN_BATCH * VITH_TIMED_STEPS / run["wall"]
+    rec = {"phase": "train_vit_h14", "batch": VITH_TRAIN_BATCH,
+           "remat": cfg.model.remat_policy if cfg.model.remat else None,
+           "dtype": cfg.model.dtype, "warmup_steps": VITH_WARMUP_STEPS,
+           "timed_steps": VITH_TIMED_STEPS, "step_ms": run["step_ms"],
+           "images_per_s": images_per_s,
+           "model_flops_per_image": flops.model_flops_per_image(cfg.model),
+           "peak_flops": flops.chip_peak_flops(),
+           "mfu": flops.mfu(images_per_s, cfg.model),
+           "max_memory_allocated_gb": run["peak_gb"],
+           "losses": run["losses"], "grad_norms": run["grad_norms"],
+           "launches_per_step": run["step_counts"][-1],
+           "launches": run["launches"]}
+    emit(rec)
+    require(cfg.model.remat and all(np.isfinite(run["losses"]))
+            and all(np.isfinite(run["grad_norms"])),
+            f"train_vit_h14: full remat, finite losses: {rec}")
+    require(all(c == per_step for c in run["step_counts"]),
+            f"train_vit_h14 launches per step {run['step_counts']} != "
+            f"{per_step}")
+    train_launches = run["launches"]
+    del state, run
+    torch.cuda.empty_cache()
+
+    eval_batch = bench_batch(VITH_TRAIN_BATCH, SEED + 10, dev,
+                             cfg.model.img_size)
+    reset_launch_counts()
+    logits, rows = steps.make_eval_step(cfg)(params, eval_batch)
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    card = metrics.compute_metrics(logits, eval_batch["labels"])
+    cpu = metrics.compute_metrics(logits.cpu(), eval_batch["labels"].cpu())
+    layers = cfg.model.num_layers
+    rec = {"phase": "eval_vit_h14", "batch": VITH_TRAIN_BATCH,
+           "logits_shape": list(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()
+                          and torch.isfinite(rows).all()),
+           "metrics_card": card, "metrics_cpu": cpu,
+           "launches": eval_launches}
+    emit(rec)
+    require(rec["finite"] and logits.shape == (VITH_TRAIN_BATCH, 15),
+            "eval_vit_h14: finite logits [32, 15]")
+    require(all(abs(card[k] - cpu[k]) <= 1e-6 for k in card),
+            f"eval_vit_h14 metrics card vs CPU: {card} {cpu}")
+    require(eval_launches["flash_attention_inference"] == layers
+            and eval_launches["layer_norm"] == 2 * layers + 1,
+            f"eval_vit_h14 launches {eval_launches}")
+    del params
+    torch.cuda.empty_cache()
+    return serve8, serve32, serve_int8, train_launches, eval_launches
+
+
+def phase_vit_h14_cross_check() -> None:
+    """ViT-H/14 at full width and depth 2, in f32: the card's logits (the
+    inference kernel, LayerNorm at 1280 in f32) against the CPU's plain
+    versions on the same weights and images (F32_LOGIT_TOL), and one train
+    step's loss and gradients (phase_train_cross_check's bounds)."""
+    from chestxray_vit_tpu_torch.models import vit
+
+    cfg = vith_config(num_layers=2, dtype="float32").model
+    params = vit.init_params(torch.Generator().manual_seed(SEED), cfg)
+    x = bench_batch(2, SEED + 1, "cpu", cfg.img_size)["pixel_values"]
+    with torch.no_grad():
+        cpu = vit.apply(params, x, cfg, train=False)
+        card = vit.apply(params.to("cuda"), x.cuda(), cfg, train=False).cpu()
+    diff = (card - cpu).abs().max().item()
+    emit({"phase": "vit_h14_cross_check", "depth": 2, "batch": 2,
+          "dtype": "float32", "logits_max_abs_diff": diff,
+          "tol": F32_LOGIT_TOL, "cpu_logits_absmax": cpu.abs().max().item()})
+    require(bool(torch.isfinite(card).all()) and diff <= F32_LOGIT_TOL,
+            f"vit_h14 logits card vs CPU: {diff}")
+    del params
+    model = {k: getattr(cfg, k) for k in ("hidden_size", "num_heads",
+                                          "mlp_dim", "patch_size")}
+    phase_train_cross_check("vit_h14_train_cross_check", dtypes=("f32",),
+                            img_size=cfg.img_size,
+                            params_tol=VITH_XCHECK_PARAMS, **model)
+
+
+def head_dim_segments(b: int, s: int, dev) -> torch.Tensor:
+    """int32 [b, s] ids: two segments and a pad tail of s // 8 (id −1),
+    rolled by 7 · row so that the rows differ."""
+    ids = np.repeat([0, 1, -1], [s // 2, s - s // 2 - s // 8, s // 8])
+    return torch.tensor(np.stack([np.roll(ids, 7 * i) for i in range(b)]),
+                        dtype=torch.int32, device=dev)
+
+
+def check_head_dims(randn, summary: dict) -> None:
+    """Every attention kernel at the head dims of HEAD_DIMS, in bf16 and f32,
+    at HEAD_DIM_LENGTHS, within ATTN_TOL of its plain version: the
+    inference, training and dropout forwards (o, lse) and their backwards
+    (every element of dq, dk, dv; the relative error of each is recorded
+    beside it), the four segment kernels likewise on two segments and a pad
+    tail; the debug kernel's mask equal to the plain counter hash and to
+    its mask at d = 64 on the same S, seed and row base (the counter holds
+    no d). Then the padding itself, bit for bit (HEAD_DIM_PADS): the
+    training forward and backward, dense and packed, at d equal the same
+    kernels at a wider d on operands zero-padded to it, so the columns past
+    d add nothing and the last chunk's skipped steps change no bit. Then
+    the inference, training forward and backward timed at ViT-H/14's shapes
+    (VITH_ATTN_SHAPES) beside the plain versions, SDPA's flash kernel and
+    the bound by the real d (80: the kernels compute a 128-wide tile, the
+    bound does not count the padding)."""
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
+
+    b, h = HEAD_DIM_BATCH, HEAD_DIM_HEADS
+    worst = {}                       # kernel -> {d: largest error}
+
+    def note(name, d, err):
+        by_d = worst.setdefault(name, {})
+        by_d[d] = max(by_d.get(d, 0.0), err)
+
+    for d in HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = ATTN_TOL[dtype]
+            for s in HEAD_DIM_LENGTHS:
+                shape = (b, h, s, d)
+                x = randn((b, s, 3, h, d), dtype)
+                q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+                do = randn(shape, dtype)
+                seg = head_dim_segments(b, s, q.device)
+                bq, pbq = fa.auto_block_q(s), fa.packed_block_q(s)
+                drop = (DROP_SEED, DROP_RATE)
+                rec = {"phase": "kernel_check", "kernel": "head_dims",
+                       "shape": list(shape), "dtype": str(dtype)}
+
+                def fwd_err(name, got, ref):
+                    err = max((got[0].float() - ref[0].float()).abs().max()
+                              .item(), (got[1] - ref[1]).abs().max().item())
+                    rec[name] = err
+                    note(name, d, err)
+                    require(bool(torch.isfinite(got[0]).all())
+                            and err <= tol,
+                            f"{name} d={d} S={s} {dtype}: {err}")
+                    return got
+
+                def bwd_err(name, got, ref):
+                    err = max((g.float() - r.float()).abs().max().item()
+                              for g, r in zip(got, ref))
+                    rec[name] = err
+                    rec[f"{name}_rel"] = max(rel_err(g, r)
+                                             for g, r in zip(got, ref))
+                    note(name, d, err)
+                    require(all(bool(torch.isfinite(g).all()) for g in got)
+                            and err <= tol,
+                            f"{name} d={d} S={s} {dtype}: {err}")
+
+                out = fa.flash_attention_inference(q, k, v)
+                err = (out.float() - fa.attention_reference(q, k, v)
+                       .float()).abs().max().item()
+                rec["flash_attention_inference"] = err
+                note("flash_attention_inference", d, err)
+                require(bool(torch.isfinite(out).all()) and err <= tol,
+                        f"inference d={d} S={s} {dtype}: {err}")
+                o, lse = fwd_err("flash_attention_fwd",
+                                 fa.flash_attention_fwd(q, k, v),
+                                 fa.attention_fwd_reference(q, k, v))
+                bwd_err("flash_attention_bwd",
+                        fa.flash_attention_bwd(q, k, v, o, lse, do),
+                        fa.attention_bwd_reference(q, k, v, o, lse, do))
+                o, lse = fwd_err(
+                    "flash_attention_dropout_fwd",
+                    fa.flash_attention_dropout_fwd(q, k, v, *drop,
+                                                   block_q=bq),
+                    fa.attention_dropout_fwd_reference(q, k, v, *drop,
+                                                       block_q=bq))
+                bwd_err("flash_attention_dropout_bwd",
+                        fa.flash_attention_dropout_bwd(
+                            q, k, v, o, lse, do, *drop, block_q=bq),
+                        fa.attention_dropout_bwd_reference(
+                            q, k, v, o, lse, do, *drop, block_q=bq))
+                o_dbg, keep = fa.flash_attention_dropout_debug(
+                    q, k, v, *drop, block_q=bq, row_base=ROW_BASE_PROBE)
+                x64 = randn((b, s, 3, h, 64), dtype)
+                _, keep64 = fa.flash_attention_dropout_debug(
+                    *(t.transpose(1, 2) for t in x64.unbind(2)), *drop,
+                    block_q=bq, row_base=ROW_BASE_PROBE)
+                ref_keep = fa._keep(q, *drop, bq, ROW_BASE_PROBE)
+                err = (o_dbg.float() - fa.attention_dropout_fwd_reference(
+                    q, k, v, *drop, block_q=bq, row_base=ROW_BASE_PROBE)[0]
+                    .float()).abs().max().item()
+                rec["flash_attention_dropout_debug"] = err
+                note("flash_attention_dropout_debug", d, err)
+                rec["mask_mismatches"] = int((keep != ref_keep).sum())
+                rec["mask_equals_d64"] = torch.equal(keep, keep64)
+                require(err <= tol and rec["mask_mismatches"] == 0
+                        and rec["mask_equals_d64"],
+                        f"dropout debug d={d} S={s} {dtype}: {rec}")
+                for name, fwd, rfwd, bwd, rbwd, extra in (
+                        ("flash_attention_packed",
+                         fa.flash_attention_packed_fwd,
+                         fa.attention_packed_fwd_reference,
+                         fa.flash_attention_packed_bwd,
+                         fa.attention_packed_bwd_reference, ()),
+                        ("flash_attention_packed_dropout",
+                         fa.flash_attention_packed_dropout_fwd,
+                         fa.attention_packed_dropout_fwd_reference,
+                         fa.flash_attention_packed_dropout_bwd,
+                         fa.attention_packed_dropout_bwd_reference,
+                         (*drop, None, pbq))):
+                    o, lse = fwd_err(f"{name}_fwd",
+                                     fwd(q, k, v, seg, *extra),
+                                     rfwd(q, k, v, seg, *extra))
+                    bwd_err(f"{name}_bwd",
+                            bwd(q, k, v, seg, o, lse, do, *extra),
+                            rbwd(q, k, v, seg, o, lse, do, *extra))
+                emit(rec)
+                del x, q, k, v, do, o, lse, x64
+            torch.cuda.empty_cache()
+
+    for d, wide in HEAD_DIM_PADS:
+        s, dtype = VITH_TOKENS, torch.bfloat16
+        x = randn((b, s, 3, h, d), dtype)
+        q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+        do = randn((b, h, s, d), dtype)
+        seg = head_dim_segments(b, s, q.device)
+        padded = [torch.nn.functional.pad(t, (0, wide - d)).contiguous()
+                  for t in (q, k, v, do)]
+        scale = d ** -0.5
+        rec = {"phase": "kernel_check", "kernel": "head_dim_padding",
+               "shape": [b, h, s, d], "against_d": wide, "dtype": str(dtype)}
+        for name, fwd, bwd, extra in (
+                ("dense", fa.flash_attention_fwd, fa.flash_attention_bwd, ()),
+                ("packed", fa.flash_attention_packed_fwd,
+                 fa.flash_attention_packed_bwd, (seg,))):
+            o, lse = fwd(q, k, v, *extra, scale)
+            ow, lsew = fwd(*padded[:3], *extra, scale)
+            grads = bwd(q, k, v, *extra, o, lse, do, scale)
+            wgrads = bwd(*padded[:3], *extra, ow, lsew, padded[3], scale)
+            rec[name] = (torch.equal(o, ow[..., :d]) and torch.equal(lse, lsew)
+                         and not bool(ow[..., d:].any())
+                         and all(torch.equal(g, w[..., :d])
+                                 for g, w in zip(grads, wgrads)))
+        emit(rec)
+        require(rec["dense"] and rec["packed"],
+                f"head dim {d} against {wide} zero-padded: {rec}")
+        del x, q, k, v, do, padded
+
+    timed = {}
+    for shape in VITH_ATTN_SHAPES:
+        dtype = torch.bfloat16
+        x = randn((shape[0], shape[2], 3, shape[1], shape[3]), dtype)
+        q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+        do = randn(shape, dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        lib_fwd, lib_bwd = library_attention(q, k, v, do)
+        for name, kernel, plain, kw in (
+                ("flash_attention_inference",
+                 lambda: fa.flash_attention_inference(q, k, v),
+                 lambda: fa.attention_reference(q, k, v), {}),
+                ("flash_attention_fwd",
+                 lambda: fa.flash_attention_fwd(q, k, v),
+                 lambda: fa.attention_fwd_reference(q, k, v), {"lse": True}),
+                ("flash_attention_bwd",
+                 lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                 lambda: fa.attention_bwd_reference(q, k, v, o, lse, do),
+                 {"backward": True})):
+            ms, plain_ms = time_pair(kernel, plain)
+            rec = {"phase": "kernel_check", "kernel": name,
+                   "model": "vit_h14", "shape": list(shape),
+                   "dtype": str(dtype), "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_bwd if name.endswith("bwd")
+                   else lib_fwd,
+                   **attention_bound(shape, dtype, **kw)}
+            if name.endswith("bwd"):
+                rec.update(backward_pass_ms(kernel))
+            emit(rec)
+            timed.setdefault(name, []).append(
+                {k: rec[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")})
+        del x, q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    for name, by_d in worst.items():
+        entry = {"max_err_by_d": {str(d): e for d, e in by_d.items()}}
+        if name in timed:
+            entry["vit_h14"] = timed[name]
+        summary["head_dims"][name] = entry
+
+
+def check_int8_patch14(gen, summary: dict) -> None:
+    """The int8 kernel at ViT-H/14's patch embedding: K = 3 · 14 · 14 = 588,
+    xq and wq zero-padded to 640 (ops/int8_matmul.pad_k) as the int8 paths
+    pad them. The output equals the plain version's on the unpadded
+    operands (on the CPU: the card's plain product takes K a multiple of
+    8 only) at 8 images of 256 patches; timed at the b32 rows beside
+    ``torch._int_mm`` on the padded operands, the bound counting the real
+    K."""
+    from chestxray_vit_tpu_torch.ops import int8_matmul as i8
+
+    k, n = 3 * 14 * 14, VITH_HIDDEN
+    for m, timed in ((8 * 256, False), (VITH_INT8_BATCH * 256, True)):
+        xq, wq, scale, bias, _ = int8_operands(gen, m, k, n, False, False)
+        xp, wp = i8.pad_k(xq), i8.pad_k(wq)
+        out = i8.int8_matmul_fused(xp, wp, scale, bias)
+        rec = {"phase": "kernel_check", "kernel": "int8_matmul_fused",
+               "form": "vit_h14_patch_embed", "m_k_n": [m, k, n],
+               "k_padded": xp.shape[1]}
+        if not timed:
+            ref = i8.int8_matmul_fused_reference(xq.cpu(), wq.cpu(),
+                                                 scale.cpu(), bias.cpu())
+            rec["mismatched"] = int((out.cpu() != ref).sum())
+            emit(rec)
+            require(rec["mismatched"] == 0,
+                    f"int8 K=588 padded against unpadded: {rec}")
+            continue
+        wt = wp.t()
+        rec.update(ms=time_ms(lambda: i8.int8_matmul_fused(xp, wp, scale,
+                                                           bias)),
+                   plain_ms=time_ms(lambda: i8.int8_matmul_fused_reference(
+                       xp, wp, scale, bias)),
+                   library_ms=time_ms(lambda: torch._int_mm(xp, wt)),
+                   **bound(m * k + n * k + 8 * n + 2 * m * n, 2 * m * k * n,
+                           torch.int8, core_ops=INT8_EPI_OPS["base"] * m * n))
+        emit(rec)
+        summary["head_dims"]["int8_matmul_fused"] = {
+            key: rec[key] for key in ("form", "m_k_n", "k_padded", "ms",
+                                      "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by")}
+
+
 KERNELS = (  # name (the kernel_check summary key), source, what it replaces
     ("int8_matmul_fused", "csrc/int8_matmul.cu",
      "chestxray_vit_tpu/ops/int8_pallas.py:51"),
@@ -4527,6 +4984,8 @@ def main() -> int:
     cli_launches = phase_cli()
     int8_train_launches = phase_train_int8(train_rec, tome_rates)
     phase_train_int8_cross_check()
+    vit_h14_launches = phase_vit_h14(images)
+    phase_vit_h14_cross_check()
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "chestxray_vit_tpu")]
     require(not loaded, f"no JAX and no JAX-package module imported: "
@@ -4540,7 +4999,9 @@ def main() -> int:
     # every remat policy and of fused_qkv, the maps forward, the Trainer's
     # runs, the PackedTrainer's runs, the runs without and in a process
     # group, the command line's commands, the timed int8 train steps,
-    # plain and merged), each counted from 0 just before it
+    # plain and merged, ViT-H/14's dense b8, b32 and int8 b32 serving, its
+    # timed train steps and its eval step), each counted from 0 just
+    # before it
     paths = (serve_launches, serve_int8_launches, train_launches,
              eval_launches, eval_int8_launches, dropout_launches,
              packed_launches, tome_launches, mixed_launches,
@@ -4548,7 +5009,7 @@ def main() -> int:
              policy_launches, fused_launches, maps_launches,
              trainer_launches, packed_trainer_launches, ddp_launches,
              cli_launches, int8_train_launches, dp_split_launches,
-             serve_dp_launches)
+             serve_dp_launches, *vit_h14_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)
@@ -4565,6 +5026,13 @@ def main() -> int:
             "library_ms": rec.get("library_ms")})
         if name in oracle:
             summary[-1]["oracle_launches"] = oracle[name]
+        other = checked["head_dims"].get(name)
+        if isinstance(other, list):     # LayerNorm at ViT-H/14's 1280
+            other = [{k: r.get(k) for k in (
+                "shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")} for r in other]
+        if other is not None:
+            summary[-1]["head_dims"] = other
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -17,11 +17,13 @@ PACKED_KEYS = ("tokens", "segment_ids", "pos_indices", "pool_weights",
                "labels", "image_mask")
 
 
-def bench_batch(n: int, seed: int, device) -> dict:
+def bench_batch(n: int, seed: int, device, img_size: int = 384) -> dict:
     """bench.py's synthetic batch: standard-normal f32 NHWC pixels and
-    Bernoulli(0.2) labels over 15 classes, from numpy's generator."""
+    Bernoulli(0.2) labels over 15 classes, from numpy's generator
+    (``img_size`` pixels a side: 384 for ViT-B/16, 224 for ViT-H/14)."""
     rng = np.random.default_rng(seed)
-    pixels = rng.standard_normal((n, 384, 384, 3)).astype(np.float32)
+    pixels = rng.standard_normal((n, img_size, img_size, 3)).astype(
+        np.float32)
     labels = (rng.random((n, 15)) < 0.2).astype(np.float32)
     return {"pixel_values": torch.from_numpy(pixels).to(device),
             "labels": torch.from_numpy(labels).to(device)}

@@ -129,9 +129,10 @@ def test_attention_fwd_kernel_is_deterministic(dev):
 
 
 def test_attention_kernel_refuses_what_it_does_not_take(dev):
-    q = _randn((1, 2, 40, 80), torch.bfloat16, dev)
-    with pytest.raises(NotImplementedError, match="head dim"):
-        fa.flash_attention_inference(q, q, q)
+    for d in (136, 20):     # above 128; not a multiple of 8
+        q = _randn((1, 2, 40, d), torch.bfloat16, dev)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #13"):
+            fa.flash_attention_inference(q, q, q)
     q = _randn((1, 2, 40, 64), torch.float16, dev)
     with pytest.raises(TypeError):
         fa.flash_attention_inference(q, q, q)
@@ -171,9 +172,11 @@ def test_layer_norm_kernel_matches_plain(dev, x_dtype, w_dtype):
 
 
 # every rung of the forward's register ladder (16-byte vectors a lane: 1, 2,
-# 3, 4, 6, 8 in bf16; f32 rows hold half the values and stop at D = 1024)
+# 3, 4, 6, 8 in bf16; f32 rows hold half the values, and past D = 1024 take
+# the rungs of 12 and 16 vectors that read scale and bias where they use
+# them: 1280 is ViT-H/14's width)
 _LN_WIDTHS = {torch.bfloat16: [16, 128, 512, 768, 1024, 1536, 2048],
-              torch.float32: [16, 128, 512, 768, 1024]}
+              torch.float32: [16, 128, 512, 768, 1024, 1280, 1536, 2048]}
 
 
 @pytest.mark.parametrize("rows", [1, 7, 32 * 577])
@@ -503,10 +506,12 @@ def test_layer_norm_bwd_kernel_matches_plain(dev, x_dtype, w_dtype, rows, d):
 
 
 # every rung of the backward's register ladder (16-byte vectors a lane: 1,
-# 2, 3, 4, 6, 8), D = 8 (one lane of a warp busy) and D = 520 (a rung's
-# last vectors on some lanes only)
+# 2, 3, 4, 6, 8, and in f32 12 and 16 with the sums in shared memory),
+# D = 8 (one lane of a warp busy) and D = 520 (a rung's last vectors on
+# some lanes only)
 _LN_BWD_WIDTHS = {torch.bfloat16: [8, 256, 512, 520, 768, 1024, 1536, 2048],
-                  torch.float32: [8, 128, 256, 384, 512, 520, 768, 1024]}
+                  torch.float32: [8, 128, 256, 384, 512, 520, 768, 1024,
+                                  1280, 1544, 2048]}
 
 
 @pytest.mark.parametrize("rows", [1, 7, 32 * 577])
@@ -928,6 +933,21 @@ def test_int8_kernel_refuses_what_it_does_not_take(dev):
         i8.int8_matmul_fused(xq, wq, scale, bias, resid=resid)   # f32, bf16 out
     with pytest.raises(ValueError, match="contiguous"):
         i8.int8_matmul_fused(xq.t().contiguous().t(), wq, scale, bias)
+
+
+def test_int8_kernel_at_patch14_k(dev):
+    """K = 3 · 14 · 14 = 588 (a patch-14 patch embedding): refused as it
+    is, and with both operands zero-padded to 640 (pad_k) equal, bit for
+    bit, to the plain version on the unpadded operands (on the CPU: the
+    card's plain product, cuBLASLt's, takes K a multiple of 8 only)."""
+    xq, wq, scale, bias, _ = _int8_operands(dev, 8 * 256, 588, 1280)
+    with pytest.raises(ValueError, match="pad_k"):
+        i8.int8_matmul_fused(xq, wq, scale, bias)
+    out = i8.int8_matmul_fused(i8.pad_k(xq), i8.pad_k(wq), scale, bias)
+    ref = i8.int8_matmul_fused_reference(xq.cpu(), wq.cpu(), scale.cpu(),
+                                         bias.cpu())
+    assert i8.pad_k(xq).shape == (8 * 256, 640)
+    assert torch.equal(out.cpu(), ref)
 
 
 def _int8_cfg(dtype="float32"):
@@ -1575,3 +1595,164 @@ def test_packed_trainer_on_card_resumes_bit_for_bit(dev, tmp_path):
     for (n, p), q in zip(first.state.params.named_parameters(),
                          again.state.params.parameters()):
         assert torch.equal(p, q), n
+
+
+# ---------------------------------------------------------------------------
+# Head dims other than 64: the kernels at the padded width 64 (d = 16) and
+# 128 (d = 80, ViT-H/14's, and d = 128)
+# ---------------------------------------------------------------------------
+
+_HEAD_DIMS = [16, 80, 128]
+# a tail of one row, a short odd S, a tile and a row, ViT-H/14 @224, 384
+_HD_LENGTHS = [1, 37, 65, 257, 577]
+
+
+def _qkv_at(d, b, s, dtype, dev, heads=3, seed=0):
+    """q, k, v as [B, H, S, d] views of one [B, S, 3, H, d] product."""
+    x = _randn((b, s, 3, heads, d), dtype, dev, seed)
+    return [t.transpose(1, 2) for t in x.unbind(2)]
+
+
+@pytest.mark.parametrize("d", _HEAD_DIMS)
+@pytest.mark.parametrize("s", _HD_LENGTHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernels_at_head_dim(dev, d, s, dtype):
+    """The inference, training and dropout forwards and both backwards at
+    head dim d against their plain versions, with the tolerances of d =
+    64."""
+    q, k, v = _qkv_at(d, 2, s, dtype, dev)
+    do = _randn(q.shape, dtype, dev, seed=5)
+    torch.testing.assert_close(fa.flash_attention_inference(q, k, v).float(),
+                               fa.attention_reference(q, k, v).float(),
+                               atol=_ATTN_TOL[dtype], rtol=_ATTN_TOL[dtype])
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    ro, rlse = fa.attention_fwd_reference(q, k, v)
+    torch.testing.assert_close(o.float(), ro.float(), atol=_ATTN_TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=_ATTN_TOL[dtype], rtol=0)
+    _assert_grads_close(fa.flash_attention_bwd(q, k, v, o, lse, do),
+                        fa.attention_bwd_reference(q, k, v, o, lse, do),
+                        dtype, s)
+    bq = fa.auto_block_q(s)
+    o, lse = fa.flash_attention_dropout_fwd(q, k, v, _SEED, _RATE,
+                                            block_q=bq)
+    ro, rlse = fa.attention_dropout_fwd_reference(q, k, v, _SEED, _RATE,
+                                                  block_q=bq)
+    torch.testing.assert_close(o.float(), ro.float(), atol=_ATTN_TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=_ATTN_TOL[dtype], rtol=0)
+    _assert_grads_close(
+        fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, _SEED, _RATE,
+                                       block_q=bq),
+        fa.attention_dropout_bwd_reference(q, k, v, o, lse, do, _SEED,
+                                           _RATE, block_q=bq), dtype, s)
+
+
+@pytest.mark.parametrize("d", _HEAD_DIMS)
+def test_dropout_debug_mask_does_not_depend_on_head_dim(dev, d):
+    """The debug kernel's mask at head dim d equals its mask at d = 64 and
+    the plain counter hash: the counter holds no d."""
+    bq = fa.auto_block_q(257)
+    q, k, v = _qkv_at(d, 2, 257, torch.bfloat16, dev)
+    _, keep = fa.flash_attention_dropout_debug(q, k, v, _SEED, _RATE,
+                                               block_q=bq, row_base=3)
+    q64, k64, v64 = _qkv_at(64, 2, 257, torch.bfloat16, dev)
+    _, keep64 = fa.flash_attention_dropout_debug(q64, k64, v64, _SEED, _RATE,
+                                                 block_q=bq, row_base=3)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, keep64)
+    assert torch.equal(keep, fa._keep(q, _SEED, _RATE, bq, 3))
+
+
+@pytest.mark.parametrize("d", _HEAD_DIMS)
+@pytest.mark.parametrize("layout", ["odd-S", "interleaved-ragged",
+                                    "first-tiles-foreign"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate", [0.0, _RATE])
+def test_packed_kernels_at_head_dim(dev, d, layout, dtype, rate):
+    seg = _seg_ids(layout, 2, dev)
+    s = seg.shape[1]
+    q, k, v = _qkv_at(d, 2, s, dtype, dev)
+    do = _randn(q.shape, dtype, dev, seed=5)
+    if rate:
+        fwd, bwd = (fa.flash_attention_packed_dropout_fwd,
+                    fa.flash_attention_packed_dropout_bwd)
+        rfwd, rbwd = (fa.attention_packed_dropout_fwd_reference,
+                      fa.attention_packed_dropout_bwd_reference)
+        extra = (_SEED, rate, None, fa.packed_block_q(s))
+    else:
+        fwd, bwd = (fa.flash_attention_packed_fwd,
+                    fa.flash_attention_packed_bwd)
+        rfwd, rbwd = (fa.attention_packed_fwd_reference,
+                      fa.attention_packed_bwd_reference)
+        extra = ()
+    o, lse = fwd(q, k, v, seg, *extra)
+    grads = bwd(q, k, v, seg, o, lse, do, *extra)
+    ro, rlse = rfwd(q, k, v, seg, *extra)
+    torch.testing.assert_close(o.float(), ro.float(), **_SEG_O_TOL[dtype])
+    torch.testing.assert_close(lse, rlse, atol=_SEG_LSE_TOL[dtype], rtol=0)
+    for g, r in zip(grads, rbwd(q, k, v, seg, o, lse, do, *extra)):
+        assert g.dtype == dtype and g.shape == q.shape
+        assert torch.isfinite(g).all()
+        assert _rel(g, r) <= _GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("d", [16, 80])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernels_read_no_column_past_d(dev, d, dtype):
+    """q, k, v, o and dO as [..., :d] views of 128-wide buffers whose
+    columns at or past d are NaN: every output is finite and equal, bit for
+    bit, to that of contiguous copies (the padding to 64 or 128 columns
+    lives in shared memory only)."""
+    wide = [_randn((2, 3, 129, 128), dtype, dev, seed=i) for i in range(4)]
+    for t in wide:
+        t[..., d:] = float("nan")
+    q, k, v, do = (t[..., :d] for t in wide)
+    copies = [t.contiguous() for t in (q, k, v, do)]
+    got = fa.flash_attention_fwd(q, k, v)
+    ref = fa.flash_attention_fwd(*copies[:3])
+    assert all(torch.isfinite(a).all() and torch.equal(a, b)
+               for a, b in zip(got, ref))
+    o_wide = torch.full_like(wide[0], float("nan"))
+    o_wide[..., :d] = got[0]
+    o = o_wide[..., :d]
+    grads = fa.flash_attention_bwd(q, k, v, o, got[1], do)
+    refs = fa.flash_attention_bwd(*copies[:3], got[0].contiguous(), got[1],
+                                  copies[3])
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(a).all() and torch.equal(a, b)
+               for a, b in zip(grads, refs))
+
+
+@pytest.mark.parametrize("d,wide", [(16, 64), (80, 128), (80, 96)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("packed", [False, True])
+def test_head_dim_equals_zero_padded_wider_head_dim(dev, d, wide, dtype,
+                                                    packed):
+    """The training forward and backward at head dim d equal, bit for bit,
+    the same kernels at a wider head dim on operands zero-padded to it (at
+    the same scale): the columns past d add nothing, and the last chunk's
+    skipped 16-deep steps change no bit. (f32 splits a row over as many
+    threads as the padded width needs, so 16 against 128 would differ in
+    summation order; the pairs here share that split.)"""
+    seg = _seg_ids("odd-S", 2, dev)
+    s = seg.shape[1]
+    q, k, v = _qkv_at(d, 2, s, dtype, dev)
+    do = _randn(q.shape, dtype, dev, seed=5)
+    qw, kw, vw, dow = (torch.nn.functional.pad(t, (0, wide - d)).contiguous()
+                       for t in (q, k, v, do))
+    if packed:
+        fwd, bwd, extra = (fa.flash_attention_packed_fwd,
+                           fa.flash_attention_packed_bwd, (seg,))
+    else:
+        fwd, bwd, extra = fa.flash_attention_fwd, fa.flash_attention_bwd, ()
+    scale = d ** -0.5
+    o, lse = fwd(q, k, v, *extra, scale)
+    ow, lsew = fwd(qw, kw, vw, *extra, scale)
+    grads = bwd(q, k, v, *extra, o, lse, do, scale)
+    wgrads = bwd(qw, kw, vw, *extra, ow, lsew, dow, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(o, ow[..., :d]) and torch.equal(lse, lsew)
+    assert not ow[..., d:].any()
+    for g, w in zip(grads, wgrads):
+        assert torch.equal(g, w[..., :d]) and not w[..., d:].any()
