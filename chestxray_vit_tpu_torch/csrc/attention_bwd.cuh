@@ -194,6 +194,7 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
 
   const int n0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const uint32_t dbh = kDropout ? cxr::drop_base(drop, b, h) : 0u;
   const int* segp = kSegment ? seg + static_cast<long long>(b) * S : nullptr;
   const __nv_bfloat16* qp = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* dop = dout + b * dos.b + h * dos.h;
@@ -305,7 +306,7 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
       uint32_t pp[4][4], pf[4][4];
       uint32_t kmask = 0u;
       const uint32_t dbase =
-          kDropout ? cxr::drop_row(drop, bh, m0) + static_cast<uint32_t>(key0)
+          kDropout ? cxr::drop_row(drop, dbh, m0) + static_cast<uint32_t>(key0)
                    : 0u;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
@@ -442,6 +443,7 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
 
   const int m0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const uint32_t dbh = kDropout ? cxr::drop_base(drop, b, h) : 0u;
   const int* segp = kSegment ? seg + static_cast<long long>(b) * S : nullptr;
   const __nv_bfloat16* kp = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vp = v + b * vs.b + h * vs.h;
@@ -544,7 +546,7 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
     const long long idx = static_cast<long long>(bh) * S + row;
     l2[r] = row < S ? lse[idx] * kLog2e : INFINITY;  // pad rows: P = 0
     dl[r] = sDelta[wr + g + 8 * r];                  // pad rows: 0
-    dbase[r] = kDropout ? cxr::drop_row(drop, bh, row) : 0u;
+    dbase[r] = kDropout ? cxr::drop_row(drop, dbh, row) : 0u;
     if (kSegment) seg_row[r] = row < S ? segp[row] : cxr::kNoSegment;
   }
   float dqa[kC][8][4];
@@ -740,6 +742,8 @@ attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int* segp = kSegment ? seg + static_cast<long long>(b) * S : nullptr;
   const int key = blockIdx.x * kTile + static_cast<int>(threadIdx.x) / kP;
   const int part = threadIdx.x % kP;
+  // the dropout counter of (bh, query 0): a query row adds row * s_pad
+  const uint32_t dbh = kDropout ? cxr::drop_base(drop, b, h) : 0u;
   const bool key_ok = key < S;
   const float* kr = k + b * ks.b + h * ks.h + (key_ok ? key : 0) * ks.s;
   const float* vr = v + b * vs.b + h * vs.h + (key_ok ? key : 0) * vs.s;
@@ -785,7 +789,8 @@ attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
       float dp = part_dot<kD>(vv, sdO[j], part);
       float pv = p;  // M * P, the factor of dV
       if (kDropout) {
-        const bool keep = cxr::kept(drop, cxr::drop_row(drop, bh, m0 + j), key);
+        const bool keep =
+            cxr::kept(drop, cxr::drop_row(drop, dbh, m0 + j), key);
         dp = keep ? dp * drop.inv_keep : 0.f;
         pv = keep ? p : 0.f;
       }
@@ -842,7 +847,8 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   const long long idx = static_cast<long long>(bh) * S + (row_ok ? row : 0);
   const float l2 = lse[idx] * kLog2e, dl = delta[idx];
-  const uint32_t dbase = kDropout ? cxr::drop_row(drop, bh, row) : 0u;
+  const uint32_t dbase =
+      kDropout ? cxr::drop_row(drop, cxr::drop_base(drop, b, h), row) : 0u;
   const float* kp = k + b * ks.b + h * ks.h;
   const float* vp = v + b * vs.b + h * vs.h;
   int seg_row = 0, seg_lo = 0, seg_hi = 0;

@@ -185,7 +185,7 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (kSegment) seg_row[r] = row < S ? segp[row] : kNoSegment;
-    if (kDropout) dbase[r] = drop_row(drop, bh, row);
+    if (kDropout) dbase[r] = drop_row(drop, drop_base(drop, b, h), row);
   }
   // A non-positive scale reverses the order of the scores: it is applied
   // to them before the max; a positive one is folded into the exp2's FMA.
@@ -427,7 +427,8 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;
-  const uint32_t dbase = kDropout ? drop_row(drop, blockIdx.y, row) : 0u;
+  const uint32_t dbase =
+      kDropout ? drop_row(drop, drop_base(drop, b, h), row) : 0u;
   int seg_row = 0, seg_lo = 0, seg_hi = 0;
   if (kSegment) {
     load_block_ids(segp, blockIdx.x * kBlockM, S, sSeg, sRange);

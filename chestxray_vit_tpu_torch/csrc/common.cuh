@@ -80,22 +80,34 @@ __device__ __forceinline__ float warp_sum(float x) {
 // `_keep_mask` / `_fmix32` (chestxray_vit_tpu/ops/flash_attention.py),
 // hashed in registers from each score element's global index, so the
 // forward and the backward regenerate the same mask and none is stored.
-// Element (bh, row, col) hashes the counter
-// ((bh_base + bh) * q_pad + row) * s_pad + col (uint32, wrapping; q_pad and
-// s_pad are the TPU wrapper's padded strides, logical constants here;
-// bh_base is the global (batch * head) index of the call's first row, so a
-// data-parallel rank's slice draws the masks of its rows in the global
-// batch) XOR the mixed seed, and is kept when the murmur3 finalizer of that
-// reaches the threshold min(rate * 2^32, 2^32 - 1).
+// Element (bh, row, col) of the call hashes the counter
+// (g * q_pad + row) * s_pad + col (uint32, wrapping; q_pad and s_pad are the
+// TPU wrapper's padded strides, logical constants here) XOR the mixed seed,
+// and is kept when the murmur3 finalizer of that reaches the threshold
+// min(rate * 2^32, 2^32 - 1). g is the global (batch * head) index of the
+// call's (batch row b, head h): the call holds some of the model's
+// `heads_total` heads, from head `head_base` on, and its batch row b is
+// global row bh_base / heads_total + b, so g = bh_base + b * heads_total +
+// head_base + h. A data-parallel rank's rows and a tensor-parallel rank's
+// heads thus draw their slice of the global batch's mask; a whole-head call
+// (heads_total the call's heads, head_base 0) has g = bh_base + bh.
 struct Dropout {
   uint32_t seed_mix;    // int32 seed read as uint32, times 0x9E3779B9
   uint32_t threshold;
   uint32_t q_pad, s_pad;
-  uint32_t bh_base;     // the global index of bh 0 (batch rows times heads)
+  uint32_t bh_base;     // global index of batch row 0, head 0 (row * heads_total)
+  uint32_t heads_total; // heads of the model
+  uint32_t head_base;   // the call's first head in the model
   float keep_prob;      // 1 - rate: the forward divides l by it
   float inv_keep;       // 1 / (1 - rate): the backward's scale
   unsigned char* keep;  // debug forward only: the mask out, [B * H, S, S]
 };
+
+// The entry points' check of the head fields: the call's heads lie within
+// the model's.
+inline bool dropout_heads_ok(int heads, int heads_total, int head_base) {
+  return heads > 0 && head_base >= 0 && heads_total >= head_base + heads;
+}
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -105,12 +117,20 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// The counter of (bh, row, col 0); add the column.
-__device__ __forceinline__ uint32_t drop_row(const Dropout& d, int bh,
+// The counter of (batch row b, head h of the call, query 0, key 0), from
+// the b and h a kernel has already; a query row adds row * s_pad
+// (drop_row), a key its index.
+__device__ __forceinline__ uint32_t drop_base(const Dropout& d, int b,
+                                              int h) {
+  return (d.bh_base + static_cast<uint32_t>(b) * d.heads_total +
+          d.head_base + static_cast<uint32_t>(h)) *
+         d.q_pad * d.s_pad;
+}
+
+// The counter of (query row, key 0) from drop_base's; add the key.
+__device__ __forceinline__ uint32_t drop_row(const Dropout& d, uint32_t base,
                                              int row) {
-  return ((d.bh_base + static_cast<uint32_t>(bh)) * d.q_pad +
-          static_cast<uint32_t>(row)) *
-         d.s_pad;
+  return base + static_cast<uint32_t>(row) * d.s_pad;
 }
 
 __device__ __forceinline__ bool kept(const Dropout& d, uint32_t row_base,

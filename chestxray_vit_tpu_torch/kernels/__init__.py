@@ -49,13 +49,13 @@ _SIGNATURES = {
     "cxr_attention_fwd_dropout": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _LL, _LL, _LL, _LL, _LL, _LL,
                                   _LL, _LL, _LL, _LL, _LL, _LL,
-                                  _F, _U, _U, _I, _I, _U, _F, _I, _I,
-                                  _P],
+                                  _F, _U, _U, _I, _I, _U, _I, _I, _F,
+                                  _I, _I, _P],
     "cxr_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _P, _F, _I, _I, _P],
     "cxr_attention_bwd_dropout": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P, _F, _U, _U, _I, _I,
-                                  _U, _F, _I, _I, _P],
+                                  _U, _I, _I, _F, _I, _I, _P],
     "cxr_attention_fwd_seg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _LL, _LL, _LL, _LL, _LL, _LL,
                               _LL, _LL, _LL, _LL, _LL, _LL,
@@ -63,13 +63,14 @@ _SIGNATURES = {
     "cxr_attention_fwd_seg_dropout": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _LL, _LL, _LL, _LL, _LL, _LL,
                                       _LL, _LL, _LL, _LL, _LL, _LL,
-                                      _F, _U, _U, _I, _I, _U, _F, _I, _I,
-                                      _P],
+                                      _F, _U, _U, _I, _I, _U, _I, _I, _F,
+                                      _I, _I, _P],
     "cxr_attention_bwd_seg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _P, _F, _I, _I, _P],
     "cxr_attention_bwd_seg_dropout": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _P, _I, _I, _I, _I, _P, _F, _U,
-                                      _U, _I, _I, _U, _F, _I, _I, _P],
+                                      _U, _I, _I, _U, _I, _I, _F, _I, _I,
+                                      _P],
     "cxr_layer_norm_fwd": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
     "cxr_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I,
                            _I, _I, _I, _P],

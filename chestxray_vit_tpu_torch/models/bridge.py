@@ -19,6 +19,13 @@ weight whose K the port stores zero-padded (the patch embedding's, see
 ``quantized.QuantDense``) is padded on the way in and cut back to its
 ``in_features`` on the way out, so the JAX layout never holds the padding.
 Leaves cross as numpy arrays: this module imports no JAX.
+
+On a mesh with fsdp or tensor axes (``parallel/mesh.py``) a rank holds
+shards: :func:`shard_params` and :func:`shard_opt_state` carry a JAX tree
+(the same on every rank) onto this rank's shards of the port's layout, and
+:func:`gather_params` and :func:`gather_opt_state` carry the shards back
+into the full JAX layout on every rank (collectives: every rank calls
+them), so a sharded run is compared with the JAX package leaf for leaf.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 from chestxray_vit_tpu_torch.config import ModelConfig
 from chestxray_vit_tpu_torch.models import quantized
 from chestxray_vit_tpu_torch.models.vit import ViT
+from chestxray_vit_tpu_torch.parallel import fsdp
 
 
 def _child(node: Any, key: str) -> Any:
@@ -135,6 +143,44 @@ def opt_state_to_numpy(opt_state: Mapping[str, Mapping[str, torch.Tensor]]
     leaves in the JAX parameter layout."""
     return {key: _to_tree({n: _f32(t) for n, t in opt_state[key].items()})
             for key in ("mu", "nu")}
+
+
+def shard_params(tree: Dict[str, Any], cfg: ModelConfig, mesh) -> ViT:
+    """JAX parameter dict → this rank's shards of it on ``mesh`` (a
+    ``parallel.mesh.Mesh``), a ``ViT`` with ``params.layout``; the whole
+    tree without fsdp or tensor axes."""
+    return fsdp.shard_params(params_from_jax(tree, cfg), mesh)
+
+
+def gather_params(params: ViT) -> Dict[str, Any]:
+    """A sharded ``ViT``'s full JAX parameter dict (numpy), on every rank."""
+    return params_to_numpy(fsdp.gather_params(params))
+
+
+def shard_opt_state(opt_state: Dict[str, Any], params: ViT
+                    ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """JAX AdamW state → the port's moments of this rank's shards of
+    ``params`` (sharded as its ``layout`` says), on their devices."""
+    layout = params.layout
+    if layout is None:
+        return opt_state_from_jax(opt_state, params)
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key in ("mu", "nu"):
+        full = {n: torch.from_numpy(np.array(_leaf(opt_state[key], n),
+                                             np.float32))
+                for n in layout.shapes}
+        out[key] = {n: t.to(params.get_parameter(n).device)
+                    for n, t in fsdp.shard_named(layout, full).items()}
+    return out
+
+
+def gather_opt_state(opt_state: Mapping[str, Mapping[str, torch.Tensor]],
+                     params: ViT) -> Dict[str, Any]:
+    """The port's sharded moments → ``{"mu": tree, "nu": tree}`` in the
+    full JAX layout, on every rank."""
+    return opt_state_to_numpy({
+        key: fsdp.gather_named(params.layout, opt_state[key])
+        for key in ("mu", "nu")})
 
 
 def _is_int8_weight(name: str) -> bool:

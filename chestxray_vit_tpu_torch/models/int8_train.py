@@ -32,6 +32,7 @@ products are half of all the forward passes' products.
 
 from __future__ import annotations
 
+import types
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -45,6 +46,7 @@ from chestxray_vit_tpu_torch.ops.int8_matmul import (int8_matmul_fused,
                                                      pad_k, quantize_static)
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
 from chestxray_vit_tpu_torch.ops.quant import quantize_weight_tensors
+from chestxray_vit_tpu_torch.parallel import fsdp
 
 Scales = Dict[str, Any]
 
@@ -97,6 +99,18 @@ def int8_linear_ste(x: torch.Tensor, kernel: torch.Tensor,
     return _Int8LinearSTE.apply(x, kernel, bias, s, out_dtype, xq)
 
 
+def refuse_tensor_split(mesh) -> None:
+    """The int8 straight-through forward on a tensor axis of ``mesh`` (a
+    ``parallel.mesh.Mesh`` or None) is not ported: a row-split ``wo`` or
+    ``mlp_out`` quantized per output channel needs a max over the tensor
+    ranks."""
+    if mesh is not None and mesh.tensor > 1:
+        raise NotImplementedError(
+            f"int8 straight-through training (int8_scales) on a tensor "
+            f"axis of {mesh.tensor} is not ported to PyTorch yet (ROADMAP "
+            f"Queue 1 #12)")
+
+
 def place_scales(scales: Scales, device) -> Scales:
     """A ``calibrate_vit_scales`` tree (torch or numpy leaves) as f32
     tensors on ``device``: ``{"patch": [], "blocks": {site: [L]}}``. Leaves
@@ -117,11 +131,20 @@ def layer_scales(scales: Scales, i: int) -> Dict[str, torch.Tensor]:
 def embed(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
           compute_dtype: torch.dtype, patch_scale) -> torch.Tensor:
     """The patch embedding on the int8 straight-through product (from the
-    f32 patches and the f32 kernel), then CLS and position embeddings."""
+    f32 patches and the f32 kernel), then CLS and position embeddings (a
+    sharded tree's gathered at use, ``parallel/fsdp.py``)."""
+    layout = params.layout
     pe = params.patch_embed
     x = int8_linear_ste(vit.patchify(images.float(), cfg.patch_size),
-                        pe.kernel.float(), pe.bias, patch_scale,
-                        compute_dtype)
+                        fsdp.use(layout, "patch_embed.kernel", pe.kernel,
+                                 torch.float32),
+                        fsdp.use(layout, "patch_embed.bias", pe.bias,
+                                 pe.bias.dtype),
+                        patch_scale, compute_dtype)
+    if layout is not None:
+        params = types.SimpleNamespace(**{
+            n: fsdp.use(layout, n, getattr(params, n), compute_dtype)
+            for n in ("cls_token", "pos_embed")})
     return _cls_pos(params, x, cfg)
 
 
@@ -183,7 +206,10 @@ def mlp_residual(x: torch.Tensor, bp, cfg: ModelConfig, dt: torch.dtype,
 
 def _block(x: torch.Tensor, bp, cfg: ModelConfig, dt: torch.dtype,
            train: bool, seeds: Optional[vit.LayerSeeds],
-           act: Dict[str, torch.Tensor], row_base: int) -> torch.Tensor:
+           act: Dict[str, torch.Tensor], row_base: int,
+           layout=None) -> torch.Tensor:
+    if layout is not None:      # a sharded tree: gathered at use
+        bp = fsdp.gather_block(layout, bp, dt)
     x = attention_residual(x, bp, cfg, dt, train, seeds, act,
                            row_base=row_base)
     return mlp_residual(x, bp, cfg, dt, train, seeds, act, row_base)
@@ -205,8 +231,11 @@ def apply_int8_train(params: vit.ViT, images: torch.Tensor,
     ``dropout_seeds``, ``row_base`` and ``cfg.remat`` under every
     ``remat_policy``.
     ``cfg.fused_qkv`` is ignored, as the reference's int8 body never reads
-    it: q, k and v are three products."""
+    it: q, k and v are three products. A tree sharded over ``fsdp`` gathers
+    each layer at use; one split over ``tensor`` is refused."""
     vit._check_supported(cfg, dropout_seeds)
+    if params.layout is not None:
+        refuse_tensor_split(params.layout.mesh)
     dt = vit.torch_dtype(cfg.dtype)
     scales = place_scales(scales, images.device)
     x = embed(params, images, cfg, dt, scales["patch"])
@@ -215,7 +244,7 @@ def apply_int8_train(params: vit.ViT, images: torch.Tensor,
     for i, bp in enumerate(params.blocks):
         args = (x, bp, cfg, dt, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
-                else None, layer_scales(scales, i), row_base)
+                else None, layer_scales(scales, i), row_base, params.layout)
         x = policy(_block, *args) if policy else _block(*args)
     return vit.head_logits(params, x, cfg)
 

@@ -41,34 +41,45 @@ from chestxray_vit_tpu_torch.models import quantized as quantized_mod
 from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
 from chestxray_vit_tpu_torch.ops.tome import r_schedule, tome_merge_clamped
+from chestxray_vit_tpu_torch.parallel import fsdp
 
 
 def _tome_block(x: torch.Tensor, sizes: torch.Tensor, bp: vit.Block,
                 cfg: ModelConfig, dt: torch.dtype, train: bool,
-                seeds: Optional[vit.LayerSeeds], r_i: int, row_base: int):
+                seeds: Optional[vit.LayerSeeds], r_i: int, row_base: int,
+                layout=None):
     """One pre-LN block with the merge between the attention residual and
     LN2 (the paper's placement); the metric is this layer's keys' mean
     over heads, aligned with x before the merge. The dropout counters run
-    over each site's own token count."""
+    over each site's own token count. A sharded tree's block is gathered
+    here; on a tensor axis the metric is the mean over every head's keys,
+    gathered (``parallel/tensor.py``), so each rank merges as one process
+    does."""
+    tp = vit._tensor_axis(layout)
+    if layout is not None:
+        bp = fsdp.gather_block(layout, bp, dt)
     attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
     hidden = cfg.hidden_dropout if train else 0.0
     a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
                       cfg.layernorm_eps)
     attn_out, kmean = vit._mha(a_in, bp, cfg, cfg.attention_impl, dt, train,
                                attn_seed, return_key_mean=True,
-                               row_base=row_base)
+                               row_base=row_base, tp=tp)
     x = x + vit._dropout(attn_out, hidden, seed_attn_out, row_base)
     x, sizes = tome_merge_clamped(x, kmean, sizes, r_i)
-    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base), sizes
+    return (vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp),
+            sizes)
 
 
 def _tome_int8_block(x: torch.Tensor, sizes: torch.Tensor, bp: vit.Block,
                      cfg: ModelConfig, dt: torch.dtype, train: bool,
                      seeds: Optional[vit.LayerSeeds], r_i: int,
-                     row_base: int, act: dict):
+                     row_base: int, act: dict, layout=None):
     """:func:`_tome_block` with every projection on the int8
     straight-through product (``models/int8_train.py``) at this layer's
     activation scales ``act``; the metric is the mean of its keys."""
+    if layout is not None:
+        bp = fsdp.gather_block(layout, bp, dt)
     x, kmean = int8_train.attention_residual(x, bp, cfg, dt, train, seeds,
                                              act, return_key_mean=True,
                                              row_base=row_base)
@@ -98,9 +109,12 @@ def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
         raise ValueError("model.fused_qkv does not compose with tome_r")
     vit._check_supported(cfg, dropout_seeds)
     dt = vit.torch_dtype(cfg.dtype)
+    layout = params.layout
     if int8_scales is None:
         x = vit.embed(params, images, cfg, dt)
     else:
+        if layout is not None:
+            int8_train.refuse_tensor_split(layout.mesh)
         int8_scales = int8_train.place_scales(int8_scales, images.device)
         x = int8_train.embed(params, images, cfg, dt, int8_scales["patch"])
     sizes = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
@@ -116,6 +130,7 @@ def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
         if int8_scales is not None:
             block = _tome_int8_block
             args += (int8_train.layer_scales(int8_scales, i),)
+        args += (layout,)
         x, sizes = policy(block, *args) if policy else block(*args)
     return vit.head_logits(params, x, cfg)
 

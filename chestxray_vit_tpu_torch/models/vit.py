@@ -37,6 +37,18 @@ With ``cfg.tome_r`` set, :func:`apply` runs the token-merging forward of
 ``models/tome_forward.py`` (training and eval alike, as the reference
 does).
 
+A sharded tree (``parallel/fsdp.shard_params``: this rank's shards of a
+(dcn, data, fsdp, tensor) mesh, with ``params.layout``) runs the same
+forward: each layer gathers its ``fsdp`` shards at use, inside the block,
+so remat gathers again (``parallel/fsdp.py``), and on a ``tensor`` axis
+each block runs the rank's heads and MLP columns between the two
+conjugate collectives of ``parallel/tensor.py``: q, k and v are
+[B, H/t, S, hd] views of the local column products, the attention takes
+the heads' place in the model (``head_base``, ``heads_total``) so the
+dropout mask is the global one's slice, and the row products' partial
+sums are summed over the tensor ranks before their bias and the hidden
+dropout.
+
 The unrolled form (:func:`unstack_blocks`, :func:`run_block`,
 :func:`apply_with_attention`) serves the attention maps: its attention is
 the plain one with f32 scores and softmax, returning the probabilities.
@@ -60,6 +72,7 @@ from chestxray_vit_tpu_torch.ops.flash_attention import (attention,
 from chestxray_vit_tpu_torch.ops.gelu import erf_gelu_factors, gelu
 from chestxray_vit_tpu_torch.ops.hidden_dropout import hidden_dropout
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
+from chestxray_vit_tpu_torch.parallel import fsdp, tensor
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -109,6 +122,9 @@ class Block(nn.Module):
 class ViT(nn.Module):
     """The parameter tree of ``vit.init_params``; ``forward`` is
     :func:`apply`."""
+
+    # a sharded tree's ``parallel.mesh.Layout`` (parallel/fsdp.py)
+    layout = None
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -242,6 +258,24 @@ def _linear(x: torch.Tensor, p: Dense, dtype: torch.dtype) -> torch.Tensor:
     return torch.matmul(x, p.kernel.to(dtype)) + p.bias.to(dtype)
 
 
+def _row_linear(x: torch.Tensor, p: Dense, dtype: torch.dtype,
+                tp) -> torch.Tensor:
+    """:func:`_linear` of a row-parallel product on a tensor axis ``tp``
+    (a ``mesh.Axis``, or None): the partial products summed over the
+    tensor ranks, then the bias, once."""
+    if tp is None:
+        return _linear(x, p, dtype)
+    return (tensor.reduce_out(torch.matmul(x, p.kernel.to(dtype)), tp)
+            + p.bias.to(dtype))
+
+
+def _tensor_axis(layout):
+    """The tensor axis of a sharded tree's layout, None without one."""
+    if layout is None or layout.mesh.tensor == 1:
+        return None
+    return layout.mesh.axis("tensor")
+
+
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     """NHWC [B, H, W, 3] → [B, N, patch*patch*3], flattened per patch as
     (row-in-patch, col-in-patch, channel)."""
@@ -255,19 +289,21 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 def embed(params: ViT, images: torch.Tensor, cfg: ModelConfig,
           compute_dtype: torch.dtype) -> torch.Tensor:
     """Patch-embed + CLS + learned position embeddings (HF ViTEmbeddings)."""
-    patches = patchify(images.to(compute_dtype), cfg.patch_size)
-    x = _linear(patches, params.patch_embed, compute_dtype)
-    cls = params.cls_token.to(compute_dtype).expand(x.shape[0], 1,
-                                                    cfg.hidden_size)
+    layout, dt = getattr(params, "layout", None), compute_dtype
+    patches = patchify(images.to(dt), cfg.patch_size)
+    x = _linear(patches, fsdp.gather(layout, params.patch_embed,
+                                     "patch_embed", dt), dt)
+    cls = fsdp.use(layout, "cls_token", params.cls_token, dt).expand(
+        x.shape[0], 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1)
-    return x + params.pos_embed.to(compute_dtype)
+    return x + fsdp.use(layout, "pos_embed", params.pos_embed, dt)
 
 
 def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
          compute_dtype: torch.dtype, train: bool = False,
          seed: Optional[int] = None, return_key_mean: bool = False,
          wqkv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-         return_probs: bool = False, row_base: int = 0):
+         return_probs: bool = False, row_base: int = 0, tp=None):
     """Multi-head attention on the pre-LN input.
 
     Each projection lands as a [B, H, S, hd] view of its [B, S, D] product
@@ -283,9 +319,17 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     ``return_probs`` runs the plain attention with f32 scores and softmax
     (the reference's ``"xla"`` route) and also returns the probabilities
     [B, H, S, S] f32. With ``return_key_mean`` also the keys' mean over
-    heads [B, S, hd] in the compute dtype, the token-merging metric."""
-    b, s, d = x.shape
+    heads [B, S, hd] in the compute dtype, the token-merging metric.
+    On a tensor axis ``tp`` (a ``mesh.Axis``) ``bp`` holds this rank's
+    columns and rows: its H/t heads from head H/t·index on, the keys of
+    every head gathered for the metric."""
+    b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
+    head_base = 0
+    if tp is not None:
+        h //= tp.size
+        head_base = tp.index * h
+        x = tensor.copy_in(x, tp)
 
     def heads():
         if wqkv is not None:
@@ -300,25 +344,32 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     if return_probs:
         o, probs = _attention_probs(q, k, v)
     else:
-        o = attend(q, k, v, cfg, attn_impl, train, seed, row_base)
-    out = _linear(o.transpose(1, 2).reshape(b, s, d), bp.wo, compute_dtype)
+        o = attend(q, k, v, cfg, attn_impl, train, seed, row_base,
+                   head_base)
+    out = _row_linear(o.transpose(1, 2).reshape(b, s, h * hd), bp.wo,
+                      compute_dtype, tp)
     if return_probs:
         return out, probs
     if return_key_mean:
-        return out, k.mean(dim=1)
+        keys = k if tp is None else tensor.gather_heads(k, tp)
+        return out, keys.mean(dim=1)
     return out
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            cfg: ModelConfig, attn_impl: str, train: bool,
-           seed: Optional[int], row_base: int = 0) -> torch.Tensor:
+           seed: Optional[int], row_base: int = 0,
+           head_base: int = 0) -> torch.Tensor:
     """The attention of a block on [B, H, S, hd] heads: with ``train``,
     ``attention_dropout`` and a ``seed`` the dropout kernels (q's first
-    row global batch row ``row_base``), else the training kernels
+    row global batch row ``row_base``, its first head the model's head
+    ``head_base`` of ``cfg.num_heads``), else the training kernels
     (``train``) or the forward-only one."""
     if train and cfg.attention_dropout > 0.0 and seed is not None:
         return attention_dropout(q, k, v, seed, cfg.attention_dropout,
-                                 impl=attn_impl, row_base=row_base)
+                                 impl=attn_impl, row_base=row_base,
+                                 head_base=head_base,
+                                 heads_total=cfg.num_heads)
     return attention(q, k, v, impl=attn_impl, inference=not train)
 
 
@@ -339,11 +390,17 @@ def fused_qkv_weights(params: "ViT", compute_dtype: torch.dtype
     columns, then k's, then v's) and their biases into one [3D] bias, in
     the compute dtype: the reference's ``wqkv``, built once per forward
     outside the layer loop. Differentiable in the three projections."""
-    return [(torch.cat([bp.wq.kernel, bp.wk.kernel, bp.wv.kernel],
-                       dim=1).to(compute_dtype),
-             torch.cat([bp.wq.bias, bp.wk.bias, bp.wv.bias]).to(
-                 compute_dtype))
-            for bp in params.blocks]
+    return [_stacked_qkv(bp, compute_dtype) for bp in params.blocks]
+
+
+def _stacked_qkv(bp, compute_dtype: torch.dtype
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block's [D, 3D] kernel and [3D] bias of :func:`fused_qkv_weights`
+    (of a tensor rank's columns: [D, 3D/t])."""
+    return (torch.cat([bp.wq.kernel, bp.wk.kernel, bp.wv.kernel],
+                      dim=1).to(compute_dtype),
+            torch.cat([bp.wq.bias, bp.wk.bias, bp.wv.bias]).to(
+                compute_dtype))
 
 
 def _dropout(x: torch.Tensor, rate: float, seed: Optional[int],
@@ -374,12 +431,15 @@ def _gelu_named(u: torch.Tensor, approximate: bool) -> torch.Tensor:
 
 def _mlp(x: torch.Tensor, bp: Block, cfg: ModelConfig, dt: torch.dtype,
          hidden: float, seed: Optional[int],
-         row_base: int = 0) -> torch.Tensor:
-    """x + drop(MLP(LN2(x))) with erf GELU."""
+         row_base: int = 0, tp=None) -> torch.Tensor:
+    """x + drop(MLP(LN2(x))) with erf GELU (on a tensor axis ``tp``, this
+    rank's MLP columns, the output summed over the tensor ranks)."""
     m_in = layer_norm(x, bp.ln2.scale.to(dt), bp.ln2.bias.to(dt),
                       cfg.layernorm_eps)
+    if tp is not None:
+        m_in = tensor.copy_in(m_in, tp)
     hmid = _gelu_named(_linear(m_in, bp.mlp_in, dt), cfg.gelu_approximate)
-    return x + _dropout(_linear(hmid, bp.mlp_out, dt), hidden, seed,
+    return x + _dropout(_row_linear(hmid, bp.mlp_out, dt, tp), hidden, seed,
                         row_base)
 
 
@@ -387,18 +447,25 @@ def _block(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
            compute_dtype: torch.dtype, train: bool = False,
            seeds: Optional[LayerSeeds] = None,
            wqkv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-           row_base: int = 0) -> torch.Tensor:
+           row_base: int = 0, layout=None) -> torch.Tensor:
     """One pre-LN encoder block (HF ViTLayer):
-    x += drop(MHA(LN1(x))); x += drop(MLP(LN2(x))) with erf GELU."""
+    x += drop(MHA(LN1(x))); x += drop(MLP(LN2(x))) with erf GELU. With a
+    sharded tree's ``layout`` the block's shards are gathered here (and
+    with ``cfg.fused_qkv`` stacked), so that a recompute gathers again."""
     dt = compute_dtype
+    tp = _tensor_axis(layout)
+    if layout is not None:
+        bp = fsdp.gather_block(layout, bp, dt)
+        if cfg.fused_qkv:
+            wqkv = _stacked_qkv(bp, dt)
     attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
     hidden = cfg.hidden_dropout if train else 0.0
     a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
                       cfg.layernorm_eps)
     attn_out = _mha(a_in, bp, cfg, attn_impl, dt, train, attn_seed,
-                    wqkv=wqkv, row_base=row_base)
+                    wqkv=wqkv, row_base=row_base, tp=tp)
     x = x + _dropout(attn_out, hidden, seed_attn_out, row_base)
-    return _mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base)
+    return _mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp)
 
 
 def _check_supported(cfg: ModelConfig,
@@ -435,8 +502,9 @@ def head_logits(params: ViT, tokens: torch.Tensor,
 
 def _head(params: ViT, cls_features: torch.Tensor) -> torch.Tensor:
     head = params.head
-    return (torch.matmul(cls_features.float(), head.kernel.float())
-            + head.bias.float())
+    kernel = fsdp.use(getattr(params, "layout", None), "head.kernel",
+                      head.kernel, torch.float32)
+    return torch.matmul(cls_features.float(), kernel) + head.bias.float()
 
 
 def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
@@ -483,12 +551,14 @@ def apply(params: ViT, images: torch.Tensor, cfg: ModelConfig, *,
     x = embed(params, images, cfg, compute_dtype)
     policy = (remat_policy(cfg)
               if train and cfg.remat and torch.is_grad_enabled() else None)
-    wqkv = (fused_qkv_weights(params, compute_dtype) if cfg.fused_qkv
+    layout = params.layout
+    wqkv = (fused_qkv_weights(params, compute_dtype)
+            if cfg.fused_qkv and layout is None
             else [None] * cfg.num_layers)
     for i, bp in enumerate(params.blocks):   # the JAX lax.scan over layers
         args = (x, bp, cfg, cfg.attention_impl, compute_dtype, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
-                else None, wqkv[i], row_base)
+                else None, wqkv[i], row_base, layout)
         x = policy(_block, *args) if policy else _block(*args)
     fl = params.final_ln
     x = layer_norm(x, fl.scale, fl.bias, cfg.layernorm_eps)

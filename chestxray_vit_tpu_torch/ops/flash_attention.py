@@ -21,9 +21,12 @@
   mask (the counter hash of ``_keep_mask`` / ``_fmix32``) and the plain
   math of ``_fwd_drop_impl`` and ``_bwd_kernel_drop``. Every dropout
   function takes ``row_base``, the global batch row of its first row (0
-  in one process): the mask of a data-parallel rank's slice is then the
-  slice of the global batch's mask, as the JAX step's one jitted function
-  over the global batch draws it.
+  in one process), and ``head_base`` / ``heads_total``, the first of its
+  heads in the model and the model's head count (a whole-head call by
+  default): the mask of a data-parallel rank's rows and of a
+  tensor-parallel rank's heads is then the slice of the global batch's
+  mask, as the JAX step's one jitted function over the global batch draws
+  it.
 - ``flash_attention_dropout_{fwd,bwd,debug}``: the dropout kernels
   (``csrc/flash_attention_dropout.cu`` and ``csrc/flash_attention_bwd.cu``,
   the ports of ``_fwd_kernel_drop``, ``_fwd_kernel_drop_debug`` and
@@ -225,7 +228,8 @@ flash_attention_bwd.launches = 0         # kernel launches (chip_smoke.py)
 def _bwd_launch(q, k, v, o, lse, do, sm_scale, dropout=None,
                 segment_ids=None):
     """Launch the backward kernels; ``dropout`` = (seed_mix, threshold,
-    q_pad, s_pad, bh_base, 1/(1 − rate)) takes the dropout entry point,
+    q_pad, s_pad, bh_base, heads_total, head_base, 1/(1 − rate)) takes the
+    dropout entry point,
     ``segment_ids`` (int32 [B, S], checked by the caller) the segment
     ones."""
     do = do.to(q.dtype)
@@ -359,35 +363,83 @@ def keep_mask(bh: int, q_pad: int, s_pad: int, seed: int, rate: float,
     [bh_base, bh_base + bh) of a global batch is that batch's mask sliced.
     Plain integer tensor code (uint32 arithmetic in int64), so it runs on
     the CPU and the card."""
-    seed_mix, threshold = dropout_constants(seed, rate)
     kw = {"dtype": torch.int64, "device": device}
-    row = (((torch.arange(bh, **kw) + (bh_base & _M32)) & _M32)[:, None]
-           * q_pad + torch.arange(q_pad, **kw)[None, :]) & _M32
+    return _keep_rows((torch.arange(bh, **kw) + (bh_base & _M32)) & _M32,
+                      q_pad, s_pad, seed, rate)
+
+
+def _keep_rows(bh_ids: torch.Tensor, q_pad: int, s_pad: int, seed: int,
+               rate: float) -> torch.Tensor:
+    """:func:`keep_mask` of the global (batch · head) indices ``bh_ids``
+    (int64 [n], each in [0, 2³²)): bool [n, q_pad, s_pad]."""
+    seed_mix, threshold = dropout_constants(seed, rate)
+    kw = {"dtype": torch.int64, "device": bh_ids.device}
+    row = (bh_ids[:, None] * q_pad
+           + torch.arange(q_pad, **kw)[None, :]) & _M32
     counter = (_mul32(row, s_pad)[:, :, None]
                + torch.arange(s_pad, **kw)) & _M32
     return _fmix32(counter ^ seed_mix) >= threshold
 
 
-def _bh_base(q: torch.Tensor, row_base: int) -> int:
-    """The counter's uint32 (batch · head) base of batch row ``row_base``."""
-    return (int(row_base) * q.shape[1]) & _M32
+def _heads_total(q: torch.Tensor, head_base: int,
+                 heads_total: Optional[int]) -> int:
+    """The model's head count of a call on q's heads, the first of them
+    head ``head_base`` (None: q holds every head); raises when q's heads do
+    not lie within the model's."""
+    h = q.shape[1]
+    total = h if heads_total is None else int(heads_total)
+    if head_base < 0 or head_base + h > total:
+        raise ValueError(f"heads [{head_base}, {head_base + h}) of a "
+                         f"{total}-head model")
+    return total
+
+
+def _bh_base(q: torch.Tensor, row_base: int,
+             heads_total: Optional[int] = None) -> int:
+    """The counter's uint32 (batch · head) base of batch row ``row_base``,
+    head 0."""
+    total = q.shape[1] if heads_total is None else int(heads_total)
+    return (int(row_base) * total) & _M32
+
+
+def _bh_ids(q: torch.Tensor, row_base: int, head_base: int,
+            heads_total: Optional[int]) -> torch.Tensor:
+    """The global (batch · head) index of each of q's B·H (batch, head)
+    pairs, int64 [B·H] in uint32: (row_base + b)·heads_total + head_base +
+    h, what the kernels' ``drop_row`` computes."""
+    b, h = q.shape[:2]
+    total = _heads_total(q, head_base, heads_total)
+    kw = {"dtype": torch.int64, "device": q.device}
+    rows = (torch.arange(b, **kw) + int(row_base)) * total + int(head_base)
+    return ((rows[:, None] + torch.arange(h, **kw)[None, :])
+            .reshape(-1)) & _M32
+
+
+def _drop_heads(q: torch.Tensor, row_base: int, head_base: int,
+                heads_total: Optional[int]) -> Tuple[int, int, int]:
+    """(bh_base, heads_total, head_base): the kernels' head arguments."""
+    total = _heads_total(q, head_base, heads_total)
+    return _bh_base(q, row_base, total), total, int(head_base)
 
 
 def _keep(q: torch.Tensor, seed: int, rate: float, block_q: int,
-          row_base: int = 0) -> torch.Tensor:
+          row_base: int = 0, head_base: int = 0,
+          heads_total: Optional[int] = None) -> torch.Tensor:
     """The [B, H, S, S] keep mask of attention over q's shape, its first
-    batch row global row ``row_base``."""
+    batch row global row ``row_base`` and its first head the model's head
+    ``head_base`` of ``heads_total`` (None: q holds every head)."""
     b, h, s, _ = q.shape
     q_pad, s_pad = mask_strides(s, block_q)
-    return keep_mask(b * h, q_pad, s_pad, seed, rate, q.device,
-                     _bh_base(q, row_base))[:, :s, :s].reshape(b, h, s, s)
+    return _keep_rows(_bh_ids(q, row_base, head_base, heads_total), q_pad,
+                      s_pad, seed, rate)[:, :s, :s].reshape(b, h, s, s)
 
 
 def attention_dropout_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                                     v: torch.Tensor, seed: int, rate: float,
                                     sm_scale: Optional[float] = None,
                                     block_q: int = DEFAULT_BLOCK_Q,
-                                    row_base: int = 0
+                                    row_base: int = 0, head_base: int = 0,
+                                    heads_total: Optional[int] = None
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward of ``_fwd_drop_impl``: the clean softmax P (its lse is
     returned as the dense forward's), kept probabilities scaled by
@@ -395,7 +447,8 @@ def attention_dropout_fwd_reference(q: torch.Tensor, k: torch.Tensor,
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _scale(
         q, sm_scale)
     p = torch.softmax(s, dim=-1)
-    p = torch.where(_keep(q, seed, rate, block_q, row_base), p, 0.0)
+    p = torch.where(_keep(q, seed, rate, block_q, row_base, head_base,
+                          heads_total), p, 0.0)
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / (1.0 - rate)
     return o.to(q.dtype), torch.logsumexp(s, dim=-1)
 
@@ -406,7 +459,8 @@ def attention_dropout_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                     seed: int, rate: float,
                                     sm_scale: Optional[float] = None,
                                     block_q: int = DEFAULT_BLOCK_Q,
-                                    row_base: int = 0
+                                    row_base: int = 0, head_base: int = 0,
+                                    heads_total: Optional[int] = None
                                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                                torch.Tensor]:
     """Plain backward of ``_bwd_kernel_drop``: P recomputed from lse and
@@ -417,7 +471,7 @@ def attention_dropout_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     inv = 1.0 / (1.0 - rate)
     qf, kf, vf = q.float(), k.float(), v.float()
     dof = do.to(q.dtype).float()
-    keep = _keep(q, seed, rate, block_q, row_base)
+    keep = _keep(q, seed, rate, block_q, row_base, head_base, heads_total)
     s = torch.matmul(qf, kf.transpose(-1, -2))
     p = torch.exp(s * scale - lse.float()[..., None]).to(q.dtype).float()
     dv = torch.matmul(torch.where(keep, p, 0.0).transpose(-1, -2), dof) * inv
@@ -430,7 +484,7 @@ def attention_dropout_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep,
-                        row_base):
+                        row_base, head_base=0, heads_total=None):
     """Launch the dropout forward kernel; ``keep`` (u8 [B·H, S, S]) makes it
     the debug variant that also writes the mask."""
     _check(q, k, v)
@@ -444,7 +498,8 @@ def _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep,
         lse.data_ptr(), keep.data_ptr() if keep is not None else None,
         b, h, s, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], _scale(q, sm_scale), seed_mix, threshold, q_pad,
-        s_pad, _bh_base(q, row_base), 1.0 - rate, _DTYPE_CODES[q.dtype],
+        s_pad, *_drop_heads(q, row_base, head_base, heads_total),
+        1.0 - rate, _DTYPE_CODES[q.dtype],
         q.device.index, _stream(q))
     kernels.check(err, "flash_attention_dropout_fwd")
     return out, lse
@@ -454,7 +509,8 @@ def flash_attention_dropout_fwd(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, seed: int, rate: float,
                                 sm_scale: Optional[float] = None,
                                 block_q: int = DEFAULT_BLOCK_Q,
-                                row_base: int = 0
+                                row_base: int = 0, head_base: int = 0,
+                                heads_total: Optional[int] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward with dropout: (o, lse f32 [B, H, S]). CPU tensors
     take :func:`attention_dropout_fwd_reference`; CUDA tensors launch the
@@ -462,9 +518,10 @@ def flash_attention_dropout_fwd(q: torch.Tensor, k: torch.Tensor,
     :func:`flash_attention_fwd` takes and hashes the mask in registers."""
     if q.device.type == "cpu":
         return attention_dropout_fwd_reference(q, k, v, seed, rate,
-                                               sm_scale, block_q, row_base)
+                                               sm_scale, block_q, row_base,
+                                               head_base, heads_total)
     out = _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, None,
-                              row_base)
+                              row_base, head_base, heads_total)
     flash_attention_dropout_fwd.launches += 1
     return out
 
@@ -476,7 +533,8 @@ def flash_attention_dropout_debug(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, seed: int, rate: float,
                                   sm_scale: Optional[float] = None,
                                   block_q: int = DEFAULT_BLOCK_Q,
-                                  row_base: int = 0
+                                  row_base: int = 0, head_base: int = 0,
+                                  heads_total: Optional[int] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, keep bool [B, H, S, S]): the dropout forward that also writes
     the mask it applied, the oracle of the mask as the JAX package's
@@ -484,12 +542,14 @@ def flash_attention_dropout_debug(q: torch.Tensor, k: torch.Tensor,
     forward and :func:`keep_mask`."""
     if q.device.type == "cpu":
         o, _ = attention_dropout_fwd_reference(q, k, v, seed, rate,
-                                               sm_scale, block_q, row_base)
-        return o, _keep(q, seed, rate, block_q, row_base)
+                                               sm_scale, block_q, row_base,
+                                               head_base, heads_total)
+        return o, _keep(q, seed, rate, block_q, row_base, head_base,
+                        heads_total)
     b, h, s, _ = q.shape
     keep = torch.empty((b, h, s, s), dtype=torch.bool, device=q.device)
     o, _ = _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep,
-                               row_base)
+                               row_base, head_base, heads_total)
     flash_attention_dropout_debug.launches += 1
     return o, keep
 
@@ -503,7 +563,8 @@ def flash_attention_dropout_bwd(q: torch.Tensor, k: torch.Tensor,
                                 seed: int, rate: float,
                                 sm_scale: Optional[float] = None,
                                 block_q: int = DEFAULT_BLOCK_Q,
-                                row_base: int = 0
+                                row_base: int = 0, head_base: int = 0,
+                                heads_total: Optional[int] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """Training backward with dropout: (dq, dk, dv) in q's dtype, laid
@@ -513,13 +574,15 @@ def flash_attention_dropout_bwd(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return attention_dropout_bwd_reference(q, k, v, o, lse, do, seed,
                                                rate, sm_scale, block_q,
-                                               row_base)
+                                               row_base, head_base,
+                                               heads_total)
     s = q.shape[2]
     q_pad, s_pad = mask_strides(s, block_q)
     seed_mix, threshold = dropout_constants(seed, rate)
     grads = _bwd_launch(q, k, v, o, lse, do, sm_scale,
                         (seed_mix, threshold, q_pad, s_pad,
-                         _bh_base(q, row_base), 1.0 / (1.0 - rate)))
+                         *_drop_heads(q, row_base, head_base, heads_total),
+                         1.0 / (1.0 - rate)))
     flash_attention_dropout_bwd.launches += 1
     return grads
 
@@ -531,11 +594,13 @@ flash_attention_dropout_bwd.launches = 0  # kernel launches (chip_smoke.py)
 def _attention_dropout_fwd_op(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, seed: int, rate: float,
                               sm_scale: Optional[float], block_q: int,
-                              row_base: int
+                              row_base: int, head_base: int,
+                              heads_total: int
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_dropout_fwd` as a registered op."""
     return flash_attention_dropout_fwd(q, k, v, seed, rate, sm_scale,
-                                       block_q, row_base)
+                                       block_q, row_base, head_base,
+                                       heads_total)
 
 
 # The registered forwards whose outputs (o and lse) the JAX package names
@@ -547,17 +612,21 @@ ATTENTION_FWD_OPS = (torch.ops.cxr.attention_fwd.default,
 class FlashAttentionDropout(torch.autograd.Function):
     """Attention with dropout through the dropout kernels in both
     directions (their plain versions for CPU tensors). Saves q, k, v, o
-    and lse, as :class:`FlashAttention`, and the seed and row base as
-    Python ints: the backward regenerates the mask, so no mask is stored
-    and a recompute under remat replays it."""
+    and lse, as :class:`FlashAttention`, and the seed, the row base and
+    the head fields as Python ints: the backward regenerates the mask, so
+    no mask is stored and a recompute under remat replays it."""
 
     @staticmethod
     def forward(ctx, q, k, v, seed, rate, sm_scale=None,
-                block_q=DEFAULT_BLOCK_Q, row_base=0):
+                block_q=DEFAULT_BLOCK_Q, row_base=0, head_base=0,
+                heads_total=None):
+        total = _heads_total(q, head_base, heads_total)
         o, lse = _attention_dropout_fwd_op(q, k, v, int(seed), rate,
-                                           sm_scale, block_q, int(row_base))
+                                           sm_scale, block_q, int(row_base),
+                                           int(head_base), total)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.seed, ctx.rate, ctx.row_base = int(seed), rate, int(row_base)
+        ctx.heads = (int(head_base), total)
         ctx.sm_scale, ctx.block_q = sm_scale, block_q
         return o
 
@@ -566,24 +635,28 @@ class FlashAttentionDropout(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_dropout_bwd(
             q, k, v, o, lse, do, ctx.seed, ctx.rate, ctx.sm_scale,
-            ctx.block_q, ctx.row_base)
-        return dq, dk, dv, None, None, None, None, None
+            ctx.block_q, ctx.row_base, *ctx.heads)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, seed: int, rate: float,
                             sm_scale: Optional[float] = None,
                             block_q: int = DEFAULT_BLOCK_Q,
-                            row_base: int = 0) -> torch.Tensor:
+                            row_base: int = 0, head_base: int = 0,
+                            heads_total: Optional[int] = None
+                            ) -> torch.Tensor:
     """Attention with in-kernel probability dropout, the signature of the
     JAX package's ``flash_attention_dropout`` (``seed`` an int32 value,
-    ``block_q`` fixing only the mask's logical row stride) and
-    ``row_base``, the global batch row of q's first row: the autograd
+    ``block_q`` fixing only the mask's logical row stride), ``row_base``,
+    the global batch row of q's first row, and ``head_base`` /
+    ``heads_total``, where q's heads lie in the model's: the autograd
     function over the kernels for CUDA tensors, over their plain versions
     for CPU tensors. The same seed gives the same mask as the JAX
     function over the global batch, bit for bit."""
     return FlashAttentionDropout.apply(q, k, v, seed, rate, sm_scale,
-                                       block_q, row_base)
+                                       block_q, row_base, head_base,
+                                       heads_total)
 
 
 # ---------------------------------------------------------------------------
@@ -614,13 +687,15 @@ def _same_segment(segment_ids: torch.Tensor) -> torch.Tensor:
 
 
 def _packed_keep(q: torch.Tensor, seed: int, rate: float, block_q: int,
-                 row_base: int = 0) -> torch.Tensor:
+                 row_base: int = 0, head_base: int = 0,
+                 heads_total: Optional[int] = None) -> torch.Tensor:
     """The [B, H, S, S] keep mask of the segment dropout kernels, the first
-    sequence global sequence ``row_base``."""
+    sequence global sequence ``row_base``, the first head the model's head
+    ``head_base`` of ``heads_total``."""
     b, h, s, _ = q.shape
     q_pad, s_pad = packed_mask_strides(s, block_q)
-    return keep_mask(b * h, q_pad, s_pad, seed, rate, q.device,
-                     _bh_base(q, row_base))[:, :s, :s].reshape(b, h, s, s)
+    return _keep_rows(_bh_ids(q, row_base, head_base, heads_total), q_pad,
+                      s_pad, seed, rate)[:, :s, :s].reshape(b, h, s, s)
 
 
 def attention_packed_reference(q: torch.Tensor, k: torch.Tensor,
@@ -697,12 +772,15 @@ def attention_packed_dropout_fwd_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         segment_ids: torch.Tensor, seed: int, rate: float,
         sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q,
-        row_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        row_base: int = 0, head_base: int = 0,
+        heads_total: Optional[int] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward of ``_fwd_kernel_seg_drop``: the clean segment softmax
     (its lse is returned), kept probabilities scaled by 1/(1 − rate), the
     mask of :func:`keep_mask` on :func:`packed_mask_strides`."""
     return _packed_fwd_plain(q, k, v, segment_ids, sm_scale,
-                             _packed_keep(q, seed, rate, block_q, row_base),
+                             _packed_keep(q, seed, rate, block_q, row_base,
+                                          head_base, heads_total),
                              rate)
 
 
@@ -711,12 +789,14 @@ def attention_packed_dropout_bwd_reference(
         segment_ids: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
         do: torch.Tensor, seed: int, rate: float,
         sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q,
-        row_base: int = 0
+        row_base: int = 0, head_base: int = 0,
+        heads_total: Optional[int] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward of ``_bwd_kernel_seg_drop``: the same mask M
     regenerated, dV = (M∘P)ᵀ·dO/(1−r), dS = P∘(M∘dP/(1−r) − Δ)."""
     return _packed_bwd_plain(q, k, v, segment_ids, o, lse, do, sm_scale,
-                             _packed_keep(q, seed, rate, block_q, row_base),
+                             _packed_keep(q, seed, rate, block_q, row_base,
+                                          head_base, heads_total),
                              rate)
 
 
@@ -732,17 +812,19 @@ def _check_segments(q: torch.Tensor, segment_ids: torch.Tensor) -> None:
 
 
 def _packed_dropout_args(q: torch.Tensor, seed: int, rate: float,
-                         block_q: int, row_base: int):
-    """(seed_mix, threshold, q_pad, s_pad, bh_base) of the segment dropout
-    kernels."""
+                         block_q: int, row_base: int, head_base: int = 0,
+                         heads_total: Optional[int] = None):
+    """(seed_mix, threshold, q_pad, s_pad, bh_base, heads_total,
+    head_base) of the segment dropout kernels."""
     return (*dropout_constants(seed, rate),
             *packed_mask_strides(q.shape[2], block_q),
-            _bh_base(q, row_base))
+            *_drop_heads(q, row_base, head_base, heads_total))
 
 
 def _packed_fwd_launch(q, k, v, segment_ids, sm_scale, dropout=None):
     """Launch a segment forward kernel; ``dropout`` = (seed_mix, threshold,
-    q_pad, s_pad, bh_base, 1 − rate) takes the dropout entry point. The ids are read
+    q_pad, s_pad, bh_base, heads_total, head_base, 1 − rate) takes the
+    dropout entry point. The ids are read
     in place as [B, S], once for all heads."""
     _check(q, k, v)
     _check_segments(q, segment_ids)
@@ -808,17 +890,20 @@ def flash_attention_packed_dropout_fwd(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         segment_ids: torch.Tensor, seed: int, rate: float,
         sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q,
-        row_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        row_base: int = 0, head_base: int = 0,
+        heads_total: Optional[int] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segment-masked training forward with dropout: (o, lse). CPU tensors
     take :func:`attention_packed_dropout_fwd_reference`; CUDA tensors
     launch the kernel, which hashes the mask in registers."""
     if q.device.type == "cpu":
         return attention_packed_dropout_fwd_reference(
-            q, k, v, segment_ids, seed, rate, sm_scale, block_q, row_base)
+            q, k, v, segment_ids, seed, rate, sm_scale, block_q, row_base,
+            head_base, heads_total)
     out = _packed_fwd_launch(
         q, k, v, segment_ids, sm_scale,
-        (*_packed_dropout_args(q, seed, rate, block_q, row_base),
-         1.0 - rate))
+        (*_packed_dropout_args(q, seed, rate, block_q, row_base, head_base,
+                               heads_total), 1.0 - rate))
     flash_attention_packed_dropout_fwd.launches += 1
     return out
 
@@ -831,7 +916,8 @@ def flash_attention_packed_dropout_bwd(
         segment_ids: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
         do: torch.Tensor, seed: int, rate: float,
         sm_scale: Optional[float] = None, block_q: int = DEFAULT_BLOCK_Q,
-        row_base: int = 0
+        row_base: int = 0, head_base: int = 0,
+        heads_total: Optional[int] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Segment-masked training backward with dropout. CPU tensors take
     :func:`attention_packed_dropout_bwd_reference`; CUDA tensors launch the
@@ -840,12 +926,13 @@ def flash_attention_packed_dropout_bwd(
     if q.device.type == "cpu":
         return attention_packed_dropout_bwd_reference(
             q, k, v, segment_ids, o, lse, do, seed, rate, sm_scale, block_q,
-            row_base)
+            row_base, head_base, heads_total)
     _check_segments(q, segment_ids)
     grads = _bwd_launch(
         q, k, v, o, lse, do, sm_scale,
-        (*_packed_dropout_args(q, seed, rate, block_q, row_base),
-         1.0 / (1.0 - rate)), segment_ids)
+        (*_packed_dropout_args(q, seed, rate, block_q, row_base, head_base,
+                               heads_total), 1.0 / (1.0 - rate)),
+        segment_ids)
     flash_attention_packed_dropout_bwd.launches += 1
     return grads
 
@@ -1024,12 +1111,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       seed: int, rate: float, impl: str = "auto",
-                      row_base: int = 0) -> torch.Tensor:
+                      row_base: int = 0, head_base: int = 0,
+                      heads_total: Optional[int] = None) -> torch.Tensor:
     """Training attention with probability dropout, as the reference ViT's
     ``_mha`` runs it: :func:`flash_attention_dropout` with the automatic
     Q block (the mask's row stride) for ``'auto'`` and ``'pallas'``; its
     plain version under plain autograd for ``'xla'``. ``row_base`` is the
-    global batch row of q's first row. The reference's XLA path draws
+    global batch row of q's first row, ``head_base`` the model's head of
+    q's first (of ``heads_total``; None: q holds every head). The reference's XLA path draws
     another mask stream (``jax.random``); the port keeps the counter hash
     on every path."""
     if impl not in ("auto", "pallas", "xla"):
@@ -1037,6 +1126,7 @@ def attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block_q = auto_block_q(q.shape[2])
     if impl == "xla":
         return attention_dropout_fwd_reference(q, k, v, seed, rate, None,
-                                               block_q, row_base)[0]
+                                               block_q, row_base, head_base,
+                                               heads_total)[0]
     return flash_attention_dropout(q, k, v, seed, rate, None, block_q,
-                                   row_base)
+                                   row_base, head_base, heads_total)

@@ -35,10 +35,13 @@ metric counts as missing; with no more saves than the limit every save is
 kept, as orbax's ``BestN`` keeps them); without it, the latest
 ``save_total_limit`` saves.
 
-Across processes (data parallelism) every rank keeps the index, so every
-rank ranks the saves alike, but only the primary (``primary=True``)
-copies and writes the state; the others record the save's step and
-metrics. The trainer passes a barrier after ``wait`` and before a
+Across processes every rank keeps the index, so every rank ranks the
+saves alike, but only the primary (``primary=True``) copies and writes
+the state; the others record the save's step and metrics. A sharded tree
+(``parallel/fsdp.py``) is saved whole: every rank takes part in gathering
+the parameters and moments before the primary copies them, and a restore
+cuts each rank's shards from the whole tree, so any mesh resumes a
+checkpoint of any other. The trainer passes a barrier after ``wait`` and before a
 restore, so the files the others read are whole.
 
 The final model (``save_model`` / ``load_model``) lives in a local
@@ -62,6 +65,7 @@ import torch
 
 from chestxray_vit_tpu_torch.data.storage import GCSStore
 from chestxray_vit_tpu_torch.models import vit
+from chestxray_vit_tpu_torch.parallel import fsdp
 from chestxray_vit_tpu_torch.train.steps import TrainState
 
 STATE_FILE = "state.pt"
@@ -271,6 +275,12 @@ class CheckpointManager:
                  if math.isfinite(float(v))}
         meta = {"cursor": (cursor or DataCursor()).to_dict(),
                 "extra": extra or {}, "metrics": clean or None}
+        # a sharded tree is saved whole: every rank takes part in the
+        # gathers, the primary writes
+        layout = getattr(state.params, "layout", None)
+        named = fsdp.gather_named(layout, dict(state.params.named_parameters()))
+        moments = {key: fsdp.gather_named(layout, state.opt_state[key])
+                   for key in ("mu", "nu")}
         if not self.primary:
             with self._lock:
                 self._index[step] = meta["metrics"]
@@ -280,10 +290,9 @@ class CheckpointManager:
         with torch.no_grad():
             snapshot = {
                 "step": int(state.step),
-                "params": {n: p.detach().clone()
-                           for n, p in state.params.named_parameters()},
-                "mu": {n: t.clone() for n, t in state.opt_state["mu"].items()},
-                "nu": {n: t.clone() for n, t in state.opt_state["nu"].items()},
+                "params": {n: p.detach().clone() for n, p in named.items()},
+                "mu": {n: t.clone() for n, t in moments["mu"].items()},
+                "nu": {n: t.clone() for n, t in moments["nu"].items()},
                 "generator": state.generator.get_state(),
             }
         copied = None
@@ -348,7 +357,8 @@ class CheckpointManager:
                 ) -> Tuple[TrainState, DataCursor, Dict[str, Any]]:
         """Restore into ``template``: its parameters are overwritten in
         place, its moments and generator state replaced. ``step=None`` →
-        latest."""
+        latest. A sharded template (``params.layout``) reads its shards of
+        the saved full tree, whatever mesh wrote it."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -360,9 +370,13 @@ class CheckpointManager:
         saved, meta = self._steps.read(step)
         params = template.params
         _load_params(params, saved["params"])
-        opt_state = {key: {n: saved[key][n].to(p.device)
-                           for n, p in params.named_parameters()}
-                     for key in ("mu", "nu")}
+        own = dict(params.named_parameters())
+        opt_state = {}
+        for key in ("mu", "nu"):
+            shards = fsdp.shard_named(params.layout,
+                                      {n: saved[key][n] for n in own})
+            opt_state[key] = {n: shards[n].to(p.device)
+                              for n, p in own.items()}
         generator = template.generator
         generator.set_state(saved["generator"])
         state = TrainState(step=int(saved["step"]), params=params,
@@ -375,13 +389,14 @@ class CheckpointManager:
 
 
 def _load_params(params: vit.ViT, named: Dict[str, torch.Tensor]) -> None:
-    """Copy saved tensors into ``params`` in place; a missing, extra or
-    misshapen leaf raises."""
+    """Copy saved tensors into ``params`` in place (a sharded tree its
+    shards of them); a missing, extra or misshapen leaf raises."""
     own = dict(params.named_parameters())
     if set(own) != set(named):
         missing, extra = set(own) - set(named), set(named) - set(own)
         raise ValueError(f"saved parameters differ: missing "
                          f"{sorted(missing)[:3]}, extra {sorted(extra)[:3]}")
+    named = fsdp.shard_named(getattr(params, "layout", None), named)
     with torch.no_grad():
         for n, p in own.items():
             if tuple(named[n].shape) != tuple(p.shape):

@@ -6,16 +6,23 @@ compute it (``torch.optim.AdamW`` is not used: its parity with the JAX
 update is unverified). Parameters, gradients and moments are keyed by the
 port's parameter names; the update runs in place under ``torch.no_grad()``
 (the JAX version returns new trees).
+
+On a sharded tree (``parallel/fsdp.py``) each rank updates its shards
+elementwise, and the global norm counts every element of the full tree
+once: a leaf's squares on the ranks that hold distinct parts of it,
+summed over the group.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Mapping, Tuple
+from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+
+from chestxray_vit_tpu_torch.parallel import distributed as dist
 
 OptState = Dict[str, Dict[str, torch.Tensor]]
 Schedule = Callable[[int], torch.Tensor]
@@ -112,11 +119,37 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
                           for t in tensors))
 
 
-def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
+def sharded_global_norm(grads: Mapping[str, torch.Tensor], layout
+                        ) -> torch.Tensor:
+    """:func:`global_norm` of the full tree whose shards ``grads`` holds
+    (by name, as ``layout`` splits them): each rank sums the squares of
+    the leaves it owns (a leaf split on an axis is owned by every rank of
+    that axis, one whole on it by the axis's index 0, and the tree by the
+    first dcn × data replica), then one all-reduce over the group."""
+    mesh = layout.mesh
+    c, d, f, t = mesh.coords
+    parts = []
+    if c == 0 and d == 0:
+        for name, g in grads.items():
+            fd, tdim = layout.of(name)
+            if (fd is not None or f == 0) and (tdim is not None or t == 0):
+                parts.append(torch.sum(torch.square(g.float())))
+    dev = next(iter(grads.values())).device
+    total = (sum(parts) if parts
+             else torch.zeros((), dtype=torch.float32, device=dev))
+    return torch.sqrt(dist.world_axis().all_reduce(total.reshape(1))
+                      .reshape(()))
+
+
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
+                        layout: Optional[object] = None
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Scale every gradient by min(1, max_norm / (norm + 1e-6)); returns
-    the scaled gradients and the norm before clipping."""
-    norm = global_norm(grads.values())
+    the scaled gradients and the norm before clipping. With a sharded
+    tree's ``layout`` the norm is the full tree's
+    (:func:`sharded_global_norm`)."""
+    norm = (global_norm(grads.values()) if layout is None
+            else sharded_global_norm(grads, layout))
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return {n: g * scale for n, g in grads.items()}, norm
 

@@ -120,7 +120,7 @@ class PackedTrainer(Trainer):
 
     def _make_step_fn(self, cfg):
         return S.make_packed_train_step(cfg, self.total_steps, self.grids,
-                                        rank=dist.rank(), world=self._world)
+                                        mesh=self.mesh)
 
     # ------------------------------------------------------------------
 

@@ -51,6 +51,17 @@ partner of the first row is the previous rank's last row
 any rank's share: an emulated rank passes the neighbour rows in
 (``train_step(..., neighbours=mixup_neighbours(cfg, previous_batch))``).
 
+On a mesh with ``fsdp`` or ``tensor`` axes (``parallel/mesh.py``; the
+state's parameters this rank's shards, ``parallel/fsdp.shard_params``)
+the same step runs on the shards: the forward gathers each layer's fsdp
+shards and splits each block over the tensor ranks (``models/vit.py``),
+"rank" and "world" above are the batch slot (``Mesh.dp_index``) and the
+number of slots (dcn × data × fsdp), the mixup neighbour and the
+gradient and loss sums run over the batch group, the clip takes the full
+tree's norm and AdamW updates each shard. The result is what one process
+computes on the global batch. The packed step on such a mesh is refused
+(ROADMAP Queue 1 #12).
+
 ``make_train_step(int8_scales=...)`` trains on the int8 straight-through
 forward (``models/int8_train.py``: int8 products forward, the dense
 linear's gradients backward), merged when ``model.tome_r`` is also set;
@@ -72,6 +83,7 @@ from chestxray_vit_tpu_torch.models import quantized as quantized_mod
 from chestxray_vit_tpu_torch.models import tome_forward, vit
 from chestxray_vit_tpu_torch.ops.preprocess import prepare_pixel_values
 from chestxray_vit_tpu_torch.parallel import distributed as dist
+from chestxray_vit_tpu_torch.parallel import mesh as mesh_lib
 from chestxray_vit_tpu_torch.train import optimizer as opt
 
 Batch = Dict[str, torch.Tensor]
@@ -220,7 +232,7 @@ def _update(state: TrainState, loss: torch.Tensor, schedule, adamw_cfg):
     params = state.params
     grads, grad_norm = opt.clip_by_global_norm(
         {n: p.grad for n, p in params.named_parameters()},
-        adamw_cfg.max_grad_norm)
+        adamw_cfg.max_grad_norm, params.layout)
     lr = schedule(state.step)
     opt.adamw_update(grads, state.opt_state, params, state.step, lr,
                      adamw_cfg, opt.default_decay_mask(params))
@@ -233,8 +245,19 @@ def _update(state: TrainState, loss: torch.Tensor, schedule, adamw_cfg):
 # Step builders
 # ---------------------------------------------------------------------------
 
+def _batch_slots(mesh, rank: Optional[int], world: Optional[int]):
+    """(this rank's batch slot, the slots, the batch axis or None): the
+    mesh's when one is given, else ``rank`` / ``world`` (by default the
+    process group's) over the whole group."""
+    if mesh is not None:
+        return mesh.dp_index, mesh_lib.dp_size(mesh), mesh.axis("batch")
+    return (dist.rank() if rank is None else rank,
+            dist.world() if world is None else world, None)
+
+
 def make_train_step(cfg: Config, total_steps: int, int8_scales=None,
-                    rank: Optional[int] = None, world: Optional[int] = None
+                    rank: Optional[int] = None, world: Optional[int] = None,
+                    mesh: Optional[mesh_lib.Mesh] = None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build the train step ``(state, batch, draws=None, neighbours=None)
@@ -247,17 +270,20 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None,
     would draw from ``state.generator``. ``neighbours`` (one (image,
     labels) per micro-batch, :func:`mixup_neighbours` of the previous
     rank's batch) replaces what mixup would ask the previous rank for;
-    a rank emulated outside a process group must pass it.
+    a rank emulated outside a process group must pass it. On ``mesh`` (a
+    ``parallel.mesh.Mesh``; the state's parameters sharded on it) the rank
+    is its batch slot and the world the number of slots.
 
     ``int8_scales`` (a ``calibrate_vit_scales`` tree) trains on the int8
     straight-through forward, ``apply_int8_train``, or with
     ``model.tome_r`` on the merged one, ``apply_tome_train(int8_scales=)``;
     the tree is placed on the batch's device at the first step and kept
-    there."""
+    there; on a tensor axis it is refused (ROADMAP Queue 1 #12)."""
     schedule, adamw_cfg = _optimizer(cfg, total_steps)
     accum = max(cfg.train.gradient_accumulation_steps, 1)
-    rank = dist.rank() if rank is None else rank
-    world = dist.world() if world is None else world
+    rank, world, batch_axis = _batch_slots(mesh, rank, world)
+    if int8_scales is not None:
+        int8_train.refuse_tensor_split(mesh)
     placed = {}                            # device -> the scales there
 
     def forward(params: vit.ViT, images: torch.Tensor, d: Draws):
@@ -287,7 +313,8 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None,
                         f"rank {rank} of {world} without a process group "
                         f"needs the mixup neighbours passed in")
                 neighbour = dist.neighbour_last_row(images[-1:],
-                                                    labels[-1:])
+                                                    labels[-1:],
+                                                    axis=batch_axis)
             images, labels = mixup(images, labels, d.lam, neighbour)
         return bce_with_logits(forward(params, images, d), labels)
 
@@ -330,7 +357,8 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None,
                              f"micro-batches")
         loss = grads_of(state.params, batch, draws, neighbours)
         # the global mean over equal local batches; no-op without a group
-        (loss,) = dist.all_reduce_grads(state.params, loss, average=True)
+        (loss,) = dist.all_reduce_grads(state.params, loss, average=True,
+                                        mesh=mesh)
         return _update(state, loss, schedule, adamw_cfg)
 
     return train_step
@@ -388,9 +416,19 @@ def make_quantized_eval_step(cfg: Config):
     return make_inference_eval_step(cfg, quantized=True)
 
 
+def refuse_packed_mesh(mesh) -> None:
+    """Packed training on a mesh with fsdp or tensor axes is not ported."""
+    if mesh is not None and mesh.sharded:
+        raise NotImplementedError(
+            f"packed training on a mesh with fsdp={mesh.fsdp}, "
+            f"tensor={mesh.tensor} is not ported to PyTorch yet (ROADMAP "
+            f"Queue 1 #12); the packed step runs on the dcn and data axes")
+
+
 def make_packed_train_step(cfg: Config, total_steps: int,
                            grids=(16, 24, 32), rank: Optional[int] = None,
-                           world: Optional[int] = None):
+                           world: Optional[int] = None,
+                           mesh: Optional[mesh_lib.Mesh] = None):
     """Build the train step over NaViT-style packed batches, ``(state,
     batch, draws=None) → (state, metrics)``: the optimizer stack of
     :func:`make_train_step`, segment-masked attention, per-image masked
@@ -400,11 +438,13 @@ def make_packed_train_step(cfg: Config, total_steps: int,
     shares (by default the process group's). ``model.tome_r`` takes the
     within-segment merging forward. ``draws`` as in
     :func:`make_train_step`; the packed step has no mixup, so only the
-    dropout seeds and the row base are read."""
+    dropout seeds and the row base are read. ``mesh`` as in
+    :func:`make_train_step`, with no fsdp or tensor axis: the packed step
+    on those is refused (ROADMAP Queue 1 #12)."""
+    refuse_packed_mesh(mesh)
     schedule, adamw_cfg = _optimizer(cfg, total_steps)
     accum = max(cfg.train.gradient_accumulation_steps, 1)
-    rank = dist.rank() if rank is None else rank
-    world = dist.world() if world is None else world
+    rank, world, _ = _batch_slots(mesh, rank, world)
     fwd = (packed_model.apply_packed_tome if cfg.model.tome_r > 0
            else packed_model.apply_packed)
 
@@ -447,6 +487,8 @@ def make_packed_train_step(cfg: Config, total_steps: int,
 
     def train_step(state: TrainState, batch: Batch,
                    draws: Optional[Sequence[Draws]] = None):
+        if state.params.layout is not None:
+            refuse_packed_mesh(state.params.layout.mesh)
         if draws is None:
             micro = batch["tokens"].shape[0] // accum
             draws = [draw(state.generator, cfg, micro, rank, world)

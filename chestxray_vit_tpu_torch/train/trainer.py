@@ -17,13 +17,22 @@ the step (``data/pipeline.py``). The step is ``train/steps.py``'s, so the
 Trainer runs the port's kernels on the card and their plain twins on the
 CPU.
 
-Data parallelism: started under ``torchrun --nproc_per_node N`` (after
-``parallel.distributed.initialize()``), N processes share each global
-batch of ``batch_size_per_core × N × accumulation`` samples. Each decodes
-only its slice (``host_batch_slice``), the step sums the gradients over
-the ranks before the clip, and eval gathers the logits, row losses and
-labels, so every rank computes the same metrics and makes the same
-best-model decision. The primary rank writes ``metrics.jsonl``,
+Across processes: started under ``torchrun --nproc_per_node N`` (after
+``parallel.distributed.initialize()``), the N processes form the mesh of
+``cfg.mesh`` (``parallel/mesh.py``: dcn_data × data × fsdp × tensor = N,
+data -1 taking the rest). The batch slots (dcn × data × fsdp) share each
+global batch of ``batch_size_per_core × slots × accumulation`` samples;
+each decodes only its slot's rows (``host_batch_slice``; the tensor ranks
+of a slot load the same ones). The state is placed by ``param_layout``:
+on an fsdp or tensor axis each rank holds its shards of the parameters
+and of both AdamW moments (``parallel/fsdp.shard_params``), and the step
+gathers and splits as ``train/steps.py`` says. The step sums the
+gradients over the batch group before the clip, and eval gathers the
+logits, row losses and labels over it, so every rank computes the same
+metrics and makes the same best-model decision. Checkpoints and the saved
+model hold the full tree, gathered from every rank and written by rank 0,
+so a checkpoint from any mesh resumes on any other (each rank reads its
+shards of it), as orbax restores into any sharding. The primary rank writes ``metrics.jsonl``,
 TensorBoard, the checkpoints, ``trainer_state.json`` and the saved model;
 the others log to ``metrics.rank{N}.jsonl``. A preemption stop is agreed
 on the sync cadence, so every rank stops at the same step.
@@ -42,9 +51,9 @@ Across processes, attention dropout, hidden dropout and mixup draw what
 one process draws on the global batch: the steps are built with this
 process's rank and the world size (``train/steps.py``).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item
-(``parallel/mesh.py``): ``fsdp`` / ``tensor`` / ``dcn_data`` mesh axes
-(Queue 1 #12) and one process driving several devices (#8).
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
+one process driving several devices (``parallel/mesh.py``, Queue 1 #8),
+and the PackedTrainer on a mesh with fsdp or tensor axes (#12).
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from chestxray_vit_tpu_torch.models import quantized as qmod
 from chestxray_vit_tpu_torch.models.export_hf import write_preprocessor_config
 from chestxray_vit_tpu_torch.ops.preprocess import prepare_pixel_values
 from chestxray_vit_tpu_torch.parallel import distributed as dist
+from chestxray_vit_tpu_torch.parallel import fsdp
 from chestxray_vit_tpu_torch.parallel import mesh as mesh_lib
 from chestxray_vit_tpu_torch.train import checkpoint as ckpt
 from chestxray_vit_tpu_torch.train import steps as S
@@ -118,6 +128,8 @@ class Trainer:
                                "is available")
         self.mesh = mesh_lib.build_mesh(cfg.mesh)
         self._world = mesh_lib.dp_size(self.mesh)
+        # the batch group: eval gathers over it
+        self._batch_axis = self.mesh.axis("batch")
         ckpt.local_dir(cfg.train.output_dir, "train.output_dir (the logs "
                        "and the saved model)")
         self.cfg = cfg
@@ -155,6 +167,9 @@ class Trainer:
             # @512-style fine-tunes reuse @384 checkpoints: resample the
             # position embeddings to the configured grid
             params = vit.adapt_params_to_img_size(params, cfg.model)
+        # every rank drew or read the same full tree: keep this rank's
+        # shards (the moments follow their shapes)
+        params = fsdp.shard_params(params, self.mesh)
         self.state = S.TrainState.create(params, cfg.train.seed)
 
         # loader batch = micro-batch x processes x accumulation steps (one
@@ -276,8 +291,7 @@ class Trainer:
 
     def _make_step_fn(self, cfg):
         """Train-step factory (subclass hook)."""
-        return S.make_train_step(cfg, self.total_steps, rank=dist.rank(),
-                                 world=self._world)
+        return S.make_train_step(cfg, self.total_steps, mesh=self.mesh)
 
     def _inference_eval(self, placed):
         """The accelerated eval path, built from the CURRENT parameters:
@@ -297,12 +311,19 @@ class Trainer:
             self._inference_eval_step = S.make_inference_eval_step(
                 self.cfg, quantized=bool(quantize), tome_r=eval_r)
         step = self._inference_eval_step
-        if not quantize:
+        sharded = self.state.params.layout is not None
+        if not quantize and not sharded:
             return self.state.params, step
         ck = (int(self.state.step), quantize, eval_r)
         cached = getattr(self, "_qeval_cache", None)
         if cached is not None and cached[0] == ck:
             return cached[1], step
+        # the serving forwards run the full tree: a sharded one is gathered
+        # on every rank, and each runs its slot's rows on it
+        params = fsdp.gather_params(self.state.params)
+        if not quantize:
+            self._qeval_cache = (ck, params)
+            return params, step
         scales = None
         if quantize == "static":
             images = prepare_pixel_values(
@@ -311,11 +332,11 @@ class Trainer:
             if self._world > 1:
                 # calibrate on the global batch, as one process would: scales
                 # of each rank's slice would give the ranks other int8 trees
-                images = torch.from_numpy(
-                    dist.process_allgather(images)).to(self.device)
-            scales = qmod.calibrate_vit_scales(self.state.params, images,
+                images = torch.from_numpy(dist.process_allgather(
+                    images, self._batch_axis)).to(self.device)
+            scales = qmod.calibrate_vit_scales(params, images,
                                                self.cfg.model)
-        qparams = qmod.quantize_vit_params(self.state.params, scales)
+        qparams = qmod.quantize_vit_params(params, scales)
         self._qeval_cache = (ck, qparams)
         return qparams, step
 
@@ -345,7 +366,7 @@ class Trainer:
             drop_last=True,
             skip_batches=skip,   # resume skips before any fetch/decode
             # across processes each decodes only its slice
-            host_range=dist.host_batch_slice(self.global_batch))
+            host_range=dist.host_batch_slice(self.global_batch, self.mesh))
 
     # ------------------------------------------------------------------
     # train
@@ -591,7 +612,8 @@ class Trainer:
                 num_workers=self.cfg.data.num_workers,
                 prefetch_batches=self.cfg.data.prefetch_depth,
                 pad_last=True,
-                host_range=dist.host_batch_slice(self.eval_batch)):
+                host_range=dist.host_batch_slice(self.eval_batch,
+                                                 self.mesh)):
             n_valid = int(batch.pop("num_valid"))     # of the global batch
             placed = pipe.to_device(batch, self.device)
             if qstep is None and (self.cfg.train.eval_quantize
@@ -600,14 +622,15 @@ class Trainer:
             logits, row_loss = (
                 qstep(qparams, placed) if qstep is not None
                 else self._eval_step(self.state.params, placed))
-            # every rank gathers the global batch's rows, in rank order
-            logits = dist.process_allgather(logits)[:n_valid]
-            row_loss = dist.process_allgather(row_loss)[:n_valid]
+            # every rank gathers the global batch's rows, in slot order
+            axis = self._batch_axis
+            logits = dist.process_allgather(logits, axis)[:n_valid]
+            row_loss = dist.process_allgather(row_loss, axis)[:n_valid]
             total_elem_loss += float(np.sum(row_loss))
             total_n += n_valid
             logits_all.append(logits)
             labels_all.append(
-                dist.process_allgather(batch["labels"])[:n_valid])
+                dist.process_allgather(batch["labels"], axis)[:n_valid])
         c = max(self.cfg.model.num_classes, 1)
         return (np.concatenate(logits_all), np.concatenate(labels_all),
                 total_elem_loss / max(total_n * c, 1))
@@ -653,9 +676,10 @@ class Trainer:
         """Write the model directory (the primary rank only)."""
         directory = directory or os.path.join(
             os.path.expanduser(self.cfg.train.output_dir), "model")
+        params = fsdp.gather_params(self.state.params)   # every rank
         if not dist.is_primary():
             return
-        ckpt.save_model(directory, self.state.params, self.cfg.to_json(),
+        ckpt.save_model(directory, params, self.cfg.to_json(),
                         self.bundle.classes)
         # HF's Trainer(tokenizer=processor).save_model() also writes the
         # processor's config, so the directory loads with preprocessing

@@ -7,9 +7,10 @@ projection, attention maps, the Trainer entry point (a training run
 with checkpoints, exact resume and the saved model served), the
 PackedTrainer (a packed run with its census, image-count cursor and exact
 resume), the data-parallel path in an NCCL group of one process and as
-two ranks emulated in one process (with both dropouts and mixup), and the
+two ranks emulated in one process (with both dropouts and mixup), the
 command line (train from an HF folder, eval, predict, quantize, export,
-maps, smoke).
+maps, smoke), ViT-H/14, the fsdp and tensor mesh axes (four ranks on the
+card), the examples and the multi-rank dry run.
 
     python3 chip_smoke.py
 
@@ -250,6 +251,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 34. vit_h14_cross_check: depth 2 at full width in f32: logits card vs CPU
    (F32_LOGIT_TOL) and one train step (vit_h14_train_cross_check,
    XCHECK_F32), LayerNorm at 1280 in f32 on the card.
+35. train_mesh: the fsdp and tensor axes. Four ranks (this file run with
+   ``--mesh-worker``) on cuda:0 in a gloo group, mesh data x fsdp x tensor
+   1 x 2 x 2 (ZeRO-3 shards, the Megatron split, the dropout kernels keyed
+   by global head), ViT-B/16 @384 at full width and depth, bf16, full
+   remat, attention and hidden dropout 0.1, mixup 0.2, global batch 8: 3
+   steps and one eval step against this process taking them on the global
+   batch, within MESH_BF16_TOL (stated on the phase's first line); then at
+   depth 2 in f32 (MESH_F32_TOL). Step ms and images/s beside the
+   one-process step, the collectives a step by kind and bytes, exact
+   launches a step on every rank. Four ranks share the card: no scaling
+   is measured.
+36. examples: ``examples/finetune_nih_torch.py --dry-run`` (version_b:
+   ViT-B/16 @384, 20 steps) and ``examples/train_smoke_torch.py``, each
+   in its own process, with their wall seconds.
+37. dryrun: ``python -m chestxray_vit_tpu_torch.dryrun 4`` on cuda:0.
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -272,7 +288,11 @@ ViT-H/14's shapes (VITH_ATTN_SHAPES) beside SDPA's flash kernel, the
 LayerNorm forward and backward at ViT-H/14's 8 · 257 rows of 1280 in bf16
 and f32, and the int8 kernel at the patch embedding's K = 588 padded to 640
 (equal to the plain version on the unpadded operands). Those records join
-the summary line as each kernel's ``head_dims``.
+the summary line as each kernel's ``head_dims``. Last, the head split
+(``check_head_split``): every dropout entry point and the training and
+inference kernels on a tensor rank's heads, with ``head_base`` and
+``heads_total``, equal to the whole-head call's slice bit for bit, at
+d = 64 and 80.
 
 The second-to-last line is the kernels summary, the last one the result.
 """
@@ -582,6 +602,39 @@ DP_WORLD, DP_ACCUM = 2, 2
 CLI_STEPS, CLI_STEADY, CLI_IMAGES = 8, (2, 3, 4), 4
 
 
+# kernel_check's head split: (d, H, S) at ViT-B/16 @384 and ViT-H/14 @224,
+# each rank of each tensor size t, at a row base
+HEAD_SPLIT_CASES = ((64, 12, 577), (80, 16, 257))
+HEAD_SPLIT_TENSOR = (2, 4)
+HEAD_SPLIT_BATCH, HEAD_SPLIT_ROW_BASE = 4, 3
+# phase 35 (train_mesh): MESH_RANKS ranks on cuda:0, (dcn, data, fsdp,
+# tensor); the bf16 run at full depth, then the f32 one at depth 2
+MESH_RANKS, MESH_SHAPE, MESH_BATCH = 4, (1, 1, 2, 2), 8
+MESH_LAYERS, MESH_STEPS, MESH_TIMEOUT_S = 12, 3, 400
+MESH_RUNS = (
+    ("bf16", dict(remat=True, attention_dropout=DROP_RATE,
+                  hidden_dropout=DROP_RATE), MESH_STEPS),
+    ("f32", dict(remat=True, attention_dropout=DROP_RATE,
+                 hidden_dropout=DROP_RATE, dtype="float32", num_layers=2),
+     2))
+# - train_mesh, bf16, stated before the run: the ranks run the one-process
+#   step's kernels on their heads and rows. What differs is where a row
+#   product's K is split over the two tensor ranks: each partial is rounded
+#   to bf16, the two are summed in f32 and rounded again, where one process
+#   rounds the whole sum once, so each of the 24 row products of a forward
+#   may land one bf16 ulp away; and the products run at half the rows,
+#   where cuBLAS may pick other algorithms (as in train_dp_split). The loss,
+#   a mean of BCE terms of f32 logits, is held to one bf16 ulp of itself a
+#   step; the eval logits after the steps to 4 bf16 ulps of the largest
+#   (AdamW carries the gradients' sign differences into the weights).
+# - train_mesh, f32 at depth 2: the same math in another summation order:
+#   losses 1e-5 relative, parameters 2e-5 of the largest.
+MESH_BF16_TOL = {"loss_ulps": 1, "logit_ulps": 4}
+MESH_F32_TOL = {"loss_rel": 1e-5, "params_of_largest": 2e-5}
+# phases 36-37: the examples and the dry run, each in its own processes
+EXAMPLES_TIMEOUT_S, DRYRUN_RANKS = 300, 4
+
+
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -876,6 +929,7 @@ def phase_kernel_check() -> dict:
     check_merged_lengths(randn, gen)
     check_head_dims(randn, summary)
     check_int8_patch14(gen, summary)
+    check_head_split(randn, summary)
     return summary
 
 
@@ -4865,6 +4919,405 @@ def check_int8_patch14(gen, summary: dict) -> None:
                                       "bound_by")}
 
 
+# ---------------------------------------------------------------------------
+# The fsdp, tensor and dcn mesh axes (phases 35-37, kernel_check's head split)
+# ---------------------------------------------------------------------------
+
+def check_head_split(randn, summary: dict) -> None:
+    """A tensor-parallel rank's call on heads [h0, h0 + H/t) of H, with
+    ``head_base`` and ``heads_total``: every dropout entry point (the
+    forward, the debug mask, the backward, the segment forward and
+    backward) and the training forward, backward and inference kernels
+    give, bit for bit, the slice of the whole-head call (o, lse, the mask,
+    dq, dk, dv), at a row base, at d = 64 and 80 (HEAD_SPLIT_CASES), in
+    bf16 and f32, for every rank of t = 2 and 4."""
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
+
+    drop, rb = (DROP_SEED, DROP_RATE), HEAD_SPLIT_ROW_BASE
+    records = []
+    for d, h, s in HEAD_SPLIT_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            b = HEAD_SPLIT_BATCH
+            x = randn((b, s, 3, h, d), dtype)
+            q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+            do = randn((b, h, s, d), dtype)
+            seg = head_dim_segments(b, s, q.device)
+            bq, pbq = fa.auto_block_q(s), fa.packed_block_q(s)
+
+            def calls(q, k, v, do, sl=slice(None), **heads):
+                """Every kernel on (q, k, v); the backwards on the whole
+                call's o and lse, sliced."""
+                out = {"inference": (fa.flash_attention_inference(q, k, v),),
+                       "fwd": fa.flash_attention_fwd(q, k, v),
+                       "dropout_fwd": fa.flash_attention_dropout_fwd(
+                           q, k, v, *drop, block_q=bq, row_base=rb, **heads),
+                       "dropout_debug": fa.flash_attention_dropout_debug(
+                           q, k, v, *drop, block_q=bq, row_base=rb,
+                           **heads),
+                       "packed_dropout_fwd":
+                           fa.flash_attention_packed_dropout_fwd(
+                               q, k, v, seg, *drop, block_q=pbq, row_base=rb,
+                               **heads)}
+                o, lse = (t[:, sl] for t in whole["fwd"]) if whole else \
+                    out["fwd"]
+                out["bwd"] = fa.flash_attention_bwd(q, k, v, o,
+                                                    lse.contiguous(), do)
+                o, lse = ((t[:, sl] for t in whole["dropout_fwd"]) if whole
+                          else out["dropout_fwd"])
+                out["dropout_bwd"] = fa.flash_attention_dropout_bwd(
+                    q, k, v, o, lse.contiguous(), do, *drop, block_q=bq,
+                    row_base=rb, **heads)
+                o, lse = ((t[:, sl] for t in whole["packed_dropout_fwd"])
+                          if whole else out["packed_dropout_fwd"])
+                out["packed_dropout_bwd"] = \
+                    fa.flash_attention_packed_dropout_bwd(
+                        q, k, v, seg, o, lse.contiguous(), do, *drop,
+                        block_q=pbq, row_base=rb, **heads)
+                return out
+
+            whole = None
+            whole = calls(q, k, v, do)
+            equal = {}
+            for t in HEAD_SPLIT_TENSOR:
+                n = h // t
+                for r in range(t):
+                    sl = slice(r * n, (r + 1) * n)
+                    part = calls(q[:, sl], k[:, sl], v[:, sl], do[:, sl], sl,
+                                 head_base=r * n, heads_total=h)
+                    for name, got in part.items():
+                        equal[name] = equal.get(name, True) and all(
+                            torch.equal(a, w[:, sl])
+                            for a, w in zip(got, whole[name]))
+            torch.cuda.synchronize()
+            rec = {"phase": "kernel_check", "kernel": "head_split",
+                   "shape": [b, h, s, d], "dtype": str(dtype),
+                   "tensor": list(HEAD_SPLIT_TENSOR), "row_base": rb,
+                   "equal": equal}
+            emit(rec)
+            records.append(rec)
+            require(all(equal.values()),
+                    f"head split d={d} {dtype}: {equal}")
+            del whole, x, q, k, v, do
+    summary["head_split"] = records
+
+
+def _collective_counter():
+    """Wrap the torch.distributed collectives the mesh runs, counting the
+    calls and bytes of each kind; returns the tally dict (reset it by
+    clearing)."""
+    import torch.distributed as td
+
+    tally: dict = {}
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def wrap(name, size_of):
+        real = getattr(td, name)
+
+        def counted(*args, **kw):
+            rec = tally.setdefault(name, {"calls": 0, "bytes": 0})
+            rec["calls"] += 1
+            rec["bytes"] += size_of(*args)
+            return real(*args, **kw)
+        setattr(td, name, counted)
+
+    wrap("all_reduce", lambda t, *a: nbytes(t))
+    wrap("all_gather_into_tensor", lambda out, inp, *a: nbytes(out))
+    wrap("reduce_scatter_tensor", lambda out, inp, *a: nbytes(inp))
+    wrap("all_gather", lambda parts, t, *a: nbytes(t) * len(parts))
+    return tally
+
+
+def mesh_worker(rank: int, out: str) -> None:
+    """One rank of phase train_mesh, on cuda:0 in a gloo group of
+    MESH_RANKS: the bf16 run (MESH_STEPS steps, then one eval step) and the
+    f32 depth-2 run on the 1 x 2 x 2 mesh; writes result<rank>.json and,
+    on rank 0, the f32 run's gathered parameters."""
+    import torch.distributed as td
+
+    import chestxray_vit_tpu_torch as cxr
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.parallel import distributed as dist
+    from chestxray_vit_tpu_torch.parallel import fsdp
+    from chestxray_vit_tpu_torch.parallel import mesh as mesh_lib
+    from chestxray_vit_tpu_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init = f"file://{out}/rendezvous"        # the ranks meet at a file
+    td.init_process_group("gloo", init_method=init, world_size=MESH_RANKS,
+                          rank=rank, timeout=dist.TIMEOUT)
+    dev = dist.initialize(init, MESH_RANKS, rank, device="cuda")
+    c, d, f, t = MESH_SHAPE
+    mesh = mesh_lib.build_mesh(cxr.MeshConfig(dcn_data=c, data=d, fsdp=f,
+                                              tensor=t))
+    per = MESH_BATCH // mesh_lib.dp_size(mesh)
+    rows = slice(mesh.dp_index * per, (mesh.dp_index + 1) * per)
+    tally = _collective_counter()
+    res = {"rank": rank, "coords": mesh.coords, "dp_index": mesh.dp_index}
+    for kind, model, n_steps in MESH_RUNS:
+        cfg = train_config(MIXUP_ALPHA, **model)
+        batch = {k: v[rows] for k, v in bench_batch(MESH_BATCH, SEED,
+                                                    dev).items()}
+        params = fsdp.shard_params(init_params(
+            torch.Generator().manual_seed(SEED), cfg.model, dev), mesh)
+        state = steps.TrainState.create(params, seed=42)
+        step = steps.make_train_step(cfg, 10_000, mesh=mesh)
+        rec = res[kind] = {"losses": [], "step_ms": [], "launches": [],
+                           "collectives": []}
+        for _ in range(n_steps):
+            td.barrier()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            tally.clear()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["losses"].append(loss)
+            rec["launches"].append(launch_counts())
+            rec["collectives"].append({k: dict(v) for k, v in tally.items()})
+        tally.clear()
+        if kind == "bf16":
+            reset_launch_counts()
+            with torch.no_grad():
+                logits, _ = steps.make_eval_step(cfg)(state.params, batch)
+            rec["eval_launches"] = launch_counts()
+            rec["eval_collectives"] = {k: dict(v) for k, v in tally.items()}
+            rec["eval_logits"] = dist.process_allgather(
+                logits.float(), mesh.axis("batch")).tolist()
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        else:
+            full = fsdp.gather_params(state.params)
+            if rank == 0:
+                torch.save({n: p.detach().cpu()
+                            for n, p in full.named_parameters()},
+                           f"{out}/f32_params.pt")
+        del state, params, step
+        torch.cuda.empty_cache()
+    dist.barrier("train_mesh done")
+    td.destroy_process_group()
+    with open(f"{out}/result{rank}.json", "w") as fh:
+        json.dump(res, fh)
+
+
+def phase_train_mesh(dense_rec: dict) -> dict:
+    """The fsdp and tensor axes on the card: MESH_RANKS ranks on cuda:0 in
+    a gloo group (NCCL refuses two ranks on one card), mesh data x fsdp x
+    tensor 1 x 2 x 2, ViT-B/16 @384 at full width and depth, bf16, full
+    remat, attention and hidden dropout 0.1, mixup 0.2, global batch
+    MESH_BATCH: MESH_STEPS steps and one eval step, against this process
+    taking the same steps on the global batch. The bf16 bound
+    (MESH_BF16_TOL) is stated in the first line, before the ranks run.
+    Then the f32 check at depth 2: losses within 1e-5 relative, the
+    parameters after the steps within 2e-5 of the largest. Each rank's
+    step ms, images/s beside the one-process step's, the collectives a step
+    by kind with their bytes, and the kernel launches a step (exact: each
+    rank launches what one process does, on its heads). Four ranks sharing
+    one card measure correctness and collective counts, not scaling.
+    Returns the ranks' launches (train steps and eval) summed."""
+    import os
+    import tempfile
+
+    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    emit({"phase": "train_mesh", "stated_before_the_run": True,
+          "mesh": "x".join(map(str, MESH_SHAPE[1:])), "ranks": MESH_RANKS,
+          "global_batch": MESH_BATCH, "bf16_bound": MESH_BF16_TOL,
+          "f32_bound": MESH_F32_TOL})
+    refs = {}
+    for kind, model, n_steps in MESH_RUNS:
+        cfg = train_config(MIXUP_ALPHA, **model)
+        batch = bench_batch(MESH_BATCH, SEED, dev)
+        params = init_params(torch.Generator().manual_seed(SEED), cfg.model,
+                             dev)
+        state = steps.TrainState.create(params, seed=42)
+        step = steps.make_train_step(cfg, 10_000)
+        rec = refs[kind] = {"losses": [], "step_ms": []}
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            rec["losses"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        if kind == "bf16":
+            with torch.no_grad():
+                rec["eval_logits"] = steps.make_eval_step(cfg)(
+                    state.params, batch)[0].float().cpu().numpy()
+        else:
+            rec["params"] = {n: p.detach().cpu()
+                             for n, p in state.params.named_parameters()}
+        del state, params, step
+        torch.cuda.empty_cache()
+
+    out = tempfile.mkdtemp(prefix="train_mesh_")
+    t0 = time.perf_counter()
+    logs = [open(f"{out}/log{r}.txt", "w") for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+         str(r), out], stdout=log, stderr=subprocess.STDOUT)
+        for r, log in enumerate(logs)]
+    wait_all(procs, MESH_TIMEOUT_S)
+    for log in logs:
+        log.close()
+    logs = [open(f"{out}/log{r}.txt").read() for r in range(MESH_RANKS)]
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0,
+                f"train_mesh rank {r} exit {p.returncode}: {log[-3000:]}")
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(f"{out}/result{r}.json") as fh:
+            ranks.append(json.load(fh))
+
+    # bf16: every rank's losses and the gathered eval logits
+    ref = refs["bf16"]
+    loss_diff = max(abs(a - b) for rk in ranks
+                    for a, b in zip(rk["bf16"]["losses"], ref["losses"]))
+    logit_diff = float(np.abs(np.asarray(ranks[0]["bf16"]["eval_logits"])
+                              - ref["eval_logits"]).max())
+    loss_bound = MESH_BF16_TOL["loss_ulps"] * float(
+        bf16_ulp(torch.tensor(max(ref["losses"]))))
+    logit_bound = MESH_BF16_TOL["logit_ulps"] * float(
+        bf16_ulp(torch.tensor(float(np.abs(ref["eval_logits"]).max()))))
+    # launches a step: each rank what one process launches
+    want = dense_launches_per_step(MESH_LAYERS, dropout=True)
+    exact = all(c == want for rk in ranks for c in rk["bf16"]["launches"])
+    eval_want = {**dict.fromkeys(_wrappers(), 0),
+                 "flash_attention_inference": MESH_LAYERS,
+                 "layer_norm": 2 * MESH_LAYERS + 1}
+    eval_exact = all(rk["bf16"]["eval_launches"] == eval_want for rk in ranks)
+    steady = slice(1, None)          # the first step builds the groups' use
+    mesh_ms = max(float(np.median(rk["bf16"]["step_ms"][steady]))
+                  for rk in ranks)
+    one_ms = float(np.median(ref["step_ms"][steady]))
+    rec = {"phase": "train_mesh", "dtype": "bf16", "remat": "full",
+           "attention_dropout": DROP_RATE, "hidden_dropout": DROP_RATE,
+           "mixup_alpha": MIXUP_ALPHA, "layers": MESH_LAYERS,
+           "mesh_losses": ranks[0]["bf16"]["losses"],
+           "one_process_losses": ref["losses"], "loss_diff": loss_diff,
+           "loss_bound": loss_bound, "eval_logit_diff": logit_diff,
+           "eval_logit_bound": logit_bound,
+           "rank_coords": [rk["coords"] for rk in ranks],
+           "step_ms_per_rank": [rk["bf16"]["step_ms"] for rk in ranks],
+           "step_ms": mesh_ms, "one_process_step_ms": one_ms,
+           "images_per_s": MESH_BATCH / mesh_ms * 1e3,
+           "one_process_images_per_s": MESH_BATCH / one_ms * 1e3,
+           "dense_b36_images_per_s": dense_rec["images_per_s"],
+           "collectives_per_step": ranks[0]["bf16"]["collectives"][-1],
+           "eval_collectives": ranks[0]["bf16"]["eval_collectives"],
+           "launches_per_step": ranks[0]["bf16"]["launches"][-1],
+           "launches_exact": exact, "eval_launches_exact": eval_exact,
+           "peak_gb_per_rank": [rk["bf16"]["peak_gb"] for rk in ranks],
+           "ranks_wall_s": wall, "shared_card": True}
+    emit(rec)
+    require(all(np.isfinite(rk["bf16"]["losses"]).all() for rk in ranks),
+            "train_mesh: finite losses")
+    require(loss_diff <= loss_bound and logit_diff <= logit_bound,
+            f"train_mesh bf16: loss {loss_diff} (bound {loss_bound}), "
+            f"logits {logit_diff} (bound {logit_bound})")
+    require(exact and eval_exact,
+            f"train_mesh launches: {rec['launches_per_step']} != {want}")
+
+    # f32 at depth 2: losses relative, parameters of the largest
+    ref = refs["f32"]
+    got = torch.load(f"{out}/f32_params.pt")
+    scale = max(float(p.abs().max()) for p in ref["params"].values())
+    param_diff = max(float((got[n] - p).abs().max())
+                     for n, p in ref["params"].items()) / scale
+    loss_rel = max(abs(a - b) / abs(b) for rk in ranks
+                   for a, b in zip(rk["f32"]["losses"], ref["losses"]))
+    rec32 = {"phase": "train_mesh", "dtype": "f32",
+             "layers": MESH_RUNS[1][1]["num_layers"],
+             "mesh_losses": ranks[0]["f32"]["losses"],
+             "one_process_losses": ref["losses"], "loss_rel_diff": loss_rel,
+             "param_diff_of_largest": param_diff, "bound": MESH_F32_TOL,
+             "collectives_per_step": ranks[0]["f32"]["collectives"][-1]}
+    emit(rec32)
+    require(loss_rel <= MESH_F32_TOL["loss_rel"]
+            and param_diff <= MESH_F32_TOL["params_of_largest"],
+            f"train_mesh f32: loss {loss_rel}, params {param_diff}")
+    launches = dict.fromkeys(_wrappers(), 0)
+    for rk in ranks:
+        for counts in rk["bf16"]["launches"] + [rk["bf16"]["eval_launches"]]:
+            for k, n in counts.items():
+                launches[k] += n
+    return launches
+
+
+def wait_all(procs: list, timeout_s: float) -> None:
+    """Wait for every process, killing them all when one fails or the time
+    is up."""
+    deadline = time.monotonic() + timeout_s
+    while any(p.poll() is None for p in procs):
+        if (any(p.poll() not in (None, 0) for p in procs)
+                or time.monotonic() > deadline):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def phase_examples() -> None:
+    """The port's two examples as a user runs them, each in its own
+    process on the card: ``finetune_nih_torch.py --dry-run`` (the
+    version_b preset: ViT-B/16 @384, bf16, b8, 20 steps with an eval and a
+    save at 10 and 20, the int8 and merged-eval fidelity gates, the report)
+    and ``train_smoke_torch.py``; their wall seconds."""
+    import os
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"finetune_nih_torch": ["--dry-run", "--preset", "version_b",
+                                   "--output-dir", "ft",
+                                   "--expect-quant-band", "1.0",
+                                   "--expect-tome-band", "16:1.0"],
+            "train_smoke_torch": []}
+    for name, args in runs.items():
+        work = tempfile.mkdtemp(prefix=f"{name}_")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, os.path.join(here, "examples", f"{name}.py"),
+             *args], cwd=work, capture_output=True, text=True,
+            timeout=EXAMPLES_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        lines = p.stdout.strip().splitlines()
+        emit({"phase": "examples", "example": name, "args": args,
+              "exit": p.returncode, "wall_s": wall,
+              "last_lines": lines[-3:]})
+        require(p.returncode == 0,
+                f"{name} exit {p.returncode}: {p.stderr[-3000:]}")
+
+
+def phase_dryrun() -> dict:
+    """``python -m chestxray_vit_tpu_torch.dryrun 4``: four ranks on cuda:0
+    in a gloo group, the data x fsdp 2 x 2 and dcn 2 x 1 x 2 meshes, each
+    one's train step, merged step and static int8 eval against one
+    process."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "chestxray_vit_tpu_torch.dryrun",
+                        str(DRYRUN_RANKS)], cwd=here, capture_output=True,
+                       text=True, timeout=EXAMPLES_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    require(p.returncode == 0, f"dryrun exit {p.returncode}: "
+                               f"{p.stdout[-2000:]} {p.stderr[-3000:]}")
+    summary = json.loads(p.stdout.strip().splitlines()[-1])
+    emit({"phase": "dryrun", "ranks": DRYRUN_RANKS, "wall_s": wall,
+          **summary})
+    require(summary["ok"], f"dryrun: {summary}")
+    return summary
+
+
 KERNELS = (  # name (the kernel_check summary key), source, what it replaces
     ("int8_matmul_fused", "csrc/int8_matmul.cu",
      "chestxray_vit_tpu/ops/int8_pallas.py:51"),
@@ -4986,6 +5439,9 @@ def main() -> int:
     phase_train_int8_cross_check()
     vit_h14_launches = phase_vit_h14(images)
     phase_vit_h14_cross_check()
+    mesh_launches = phase_train_mesh(train_rec)
+    phase_examples()
+    phase_dryrun()
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "chestxray_vit_tpu")]
     require(not loaded, f"no JAX and no JAX-package module imported: "
@@ -5000,8 +5456,8 @@ def main() -> int:
     # runs, the PackedTrainer's runs, the runs without and in a process
     # group, the command line's commands, the timed int8 train steps,
     # plain and merged, ViT-H/14's dense b8, b32 and int8 b32 serving, its
-    # timed train steps and its eval step), each counted from 0 just
-    # before it
+    # timed train steps and its eval step, the mesh ranks' train steps and
+    # eval step), each counted from 0 just before it
     paths = (serve_launches, serve_int8_launches, train_launches,
              eval_launches, eval_int8_launches, dropout_launches,
              packed_launches, tome_launches, mixed_launches,
@@ -5009,7 +5465,7 @@ def main() -> int:
              policy_launches, fused_launches, maps_launches,
              trainer_launches, packed_trainer_launches, ddp_launches,
              cli_launches, int8_train_launches, dp_split_launches,
-             serve_dp_launches, *vit_h14_launches)
+             serve_dp_launches, *vit_h14_launches, mesh_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)
@@ -5041,4 +5497,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(int(sys.argv[2]), sys.argv[3])
+        raise SystemExit(0)
     raise SystemExit(main())

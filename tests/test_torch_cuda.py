@@ -383,8 +383,9 @@ def test_attention_bwd_passes_leave_rows_past_s_untouched(dev, s, dtype,
                        ).transpose(1, 2) for _ in range(3)]
     dropout = None
     if rate:
+        # bh_base 0, the call's 3 heads of 3 from head 0, 1 / (1 - rate)
         dropout = (*fa.dropout_constants(-123456789, rate),
-                   *fa.mask_strides(s, fa.auto_block_q(s)), 0,
+                   *fa.mask_strides(s, fa.auto_block_q(s)), 0, 3, 0,
                    1.0 / (1.0 - rate))
     _bwd_into([*bufs, *outs], s, dtype, dropout)
     for g in outs:

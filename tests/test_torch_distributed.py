@@ -3,7 +3,8 @@ gloo processes against one process and against the JAX package.
 
 - The process layer's one-process defaults (the counterpart of
   ``tests/test_distributed.py``), an explicit group that cannot be joined,
-  and the refusals (#12 mesh axes).
+  and the refusals (#12: the packed step and int8 straight-through
+  training on the fsdp and tensor axes).
 - The dense ``Trainer``: a two-rank run (each rank loading its slice of
   the global batch of 16) equals, on both ranks, the port's one-process
   run and the JAX package's one-process ``Trainer`` on the same weights
@@ -531,11 +532,21 @@ def test_explicit_group_that_cannot_be_joined_raises(monkeypatch):
     assert not dist.is_initialized()
 
 
-@pytest.mark.parametrize("axis", ["fsdp", "tensor", "dcn_data"])
-def test_mesh_axes_beyond_data_refused(axis):
-    cfg = tconfig.MeshConfig(**{axis: 2})
+@pytest.mark.parametrize("what,axis", [("packed", "fsdp"),
+                                       ("packed", "tensor"),
+                                       ("int8_scales", "tensor")])
+def test_mesh_axes_beyond_data_refused(what, axis):
+    """What the fsdp and tensor axes do not take yet: the packed step, and
+    int8 straight-through training on a tensor axis (a row-split product
+    quantized per output channel needs a max over the tensor ranks)."""
+    mesh = mesh_lib.build_mesh(tconfig.MeshConfig(data=1, **{axis: 2}),
+                               world=2)
+    cfg = tconfig.Config(model=tconfig.ModelConfig(**DENSE_MODEL))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #12"):
-        mesh_lib.build_mesh(cfg)
+        if what == "packed":
+            tsteps.make_packed_train_step(cfg, 10, GRIDS, mesh=mesh)
+        else:
+            tsteps.make_train_step(cfg, 10, int8_scales={}, mesh=mesh)
 
 
 def test_mesh_data_axis():

@@ -67,6 +67,9 @@ MODULES = [
     "chestxray_vit_tpu_torch.train.packed_trainer",
     "chestxray_vit_tpu_torch.parallel.distributed",
     "chestxray_vit_tpu_torch.parallel.mesh",
+    "chestxray_vit_tpu_torch.parallel.fsdp",
+    "chestxray_vit_tpu_torch.parallel.tensor",
+    "chestxray_vit_tpu_torch.dryrun",
     "chestxray_vit_tpu_torch.eval.metrics",
     "chestxray_vit_tpu_torch.serve.batcher",
     "chestxray_vit_tpu_torch.serve.attention_maps",
@@ -90,7 +93,10 @@ SOURCES = sorted(
     + [os.path.join(REPO, f) for f in ("chip_smoke.py", "profile_step.py",
                                             "smoke_batches.py",
                                             "tile_skip_probe.py",
-                                            "attn_probe.py")])
+                                            "attn_probe.py",
+                                            "examples/train_smoke_torch.py",
+                                            "examples/finetune_nih_torch.py"
+                                            )])
 
 
 @pytest.fixture(scope="module")
