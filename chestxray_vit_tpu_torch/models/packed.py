@@ -15,9 +15,21 @@ sequence whose segment ids interleave.
 
 Dropout takes per-layer seed triples and the global sequence of the
 batch's first one (``row_base``), as ``vit.apply(dropout_seeds=...,
-row_base=...)`` does. As in the reference, ``apply_packed`` checkpoints each block whole
-under ``cfg.remat`` whatever ``cfg.remat_policy`` says, and has no fused
-Q/K/V projection (``cfg.fused_qkv`` changes nothing there);
+row_base=...)`` does.
+
+A sharded tree (``parallel/fsdp.shard_params``, with ``params.layout``)
+runs as ``vit.apply`` runs one: each block gathers its fsdp shards inside
+the checkpoint, so the recompute gathers again, and on a tensor axis each
+block runs the rank's heads and MLP columns between the two collectives
+of ``parallel/tensor.py``, the segment kernels told the heads' place in
+the model (``head_base``, ``heads_total``). The embedding, the position
+table and the head read their shards gathered at the dtype the
+one-process forward reads them in (the position embedding in f32 for the
+bicubic products). The CLS token is not read.
+
+As in the reference, ``apply_packed`` checkpoints each block whole under
+``cfg.remat`` whatever ``cfg.remat_policy`` says, and has no fused Q/K/V
+projection (``cfg.fused_qkv`` changes nothing there);
 ``apply_packed_tome`` runs each block under ``vit.remat_policy`` and
 refuses ``fused_qkv``. The packed attention names no value: of the named
 values only the GELU output (``mlp_hidden``) is there to drop.
@@ -35,28 +47,35 @@ from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.ops.flash_attention import attention_packed
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
 from chestxray_vit_tpu_torch.ops.tome import r_schedule, tome_merge_packed
+from chestxray_vit_tpu_torch.parallel import fsdp
 
 
 def build_pos_table(params: vit.ViT, cfg: ModelConfig,
                     grids: Sequence[int]) -> torch.Tensor:
     """Concatenated patch-position table [sum(g²), D] over the allowed
     grids, each block a bicubic re-interpolation of the embedding (the CLS
-    slot dropped). Differentiable in ``params.pos_embed``."""
-    return torch.cat([
-        vit.interpolate_pos_embed(params.pos_embed, g * g + 1)[0, 1:]
-        for g in grids], dim=0)
+    slot dropped). Differentiable in ``params.pos_embed`` (a sharded
+    tree's gathered in its own dtype)."""
+    pe = params.pos_embed
+    pe = fsdp.use(getattr(params, "layout", None), "pos_embed", pe, pe.dtype)
+    return torch.cat([vit.interpolate_pos_embed(pe, g * g + 1)[0, 1:]
+                      for g in grids], dim=0)
 
 
 def _packed_mha(x: torch.Tensor, bp: vit.Block, cfg: ModelConfig,
                 seg_ids: torch.Tensor, compute_dtype: torch.dtype,
                 train: bool = False, seed: Optional[int] = None,
-                return_key_mean: bool = False, row_base: int = 0):
+                return_key_mean: bool = False, row_base: int = 0, tp=None):
     """Multi-head attention within segments on the pre-LN input. The
     projections land as [B, H, S, hd] views, as in ``vit._mha``. With
     ``return_key_mean`` also the keys' mean over heads [B, S, hd], the
-    token-merging metric."""
-    b, s, d = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
+    token-merging metric. On a tensor axis ``tp`` (a ``mesh.Axis``) ``bp``
+    holds this rank's columns and rows, as in ``vit._mha``: its H/t heads
+    from head H/t·index on, the ``wo`` partials summed over the ranks
+    before the bias, every head's keys gathered for the metric."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    x, h, head_base = vit._local_heads(x, cfg, tp)
 
     def heads(p: vit.Dense) -> torch.Tensor:
         return vit._linear(x, p, compute_dtype).view(b, s, h, hd).transpose(
@@ -66,47 +85,57 @@ def _packed_mha(x: torch.Tensor, bp: vit.Block, cfg: ModelConfig,
     drop = train and cfg.attention_dropout > 0.0 and seed is not None
     o = attention_packed(q, k, v, seg_ids, cfg.attention_impl,
                          seed if drop else None, cfg.attention_dropout,
-                         row_base)
-    out = vit._linear(o.transpose(1, 2).reshape(b, s, d), bp.wo,
-                      compute_dtype)
+                         row_base, head_base, cfg.num_heads)
+    out = vit._row_linear(o.transpose(1, 2).reshape(b, s, h * hd), bp.wo,
+                          compute_dtype, tp)
     if return_key_mean:
-        return out, k.mean(dim=1)
+        return out, vit._key_mean(k, tp)
     return out
 
 
 def _packed_block(x: torch.Tensor, seg: torch.Tensor, bp: vit.Block,
                   cfg: ModelConfig, dt: torch.dtype, train: bool,
                   seeds: Optional[vit.LayerSeeds],
-                  row_base: int) -> torch.Tensor:
+                  row_base: int, layout=None) -> torch.Tensor:
+    """One packed block; a sharded tree's (``layout``) gathered here, so
+    that a recompute gathers again."""
+    tp = vit._tensor_axis(layout)
+    if layout is not None:
+        bp = fsdp.gather_block(layout, bp, dt)
     attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
     hidden = cfg.hidden_dropout if train else 0.0
     a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
                       cfg.layernorm_eps)
     attn_out = _packed_mha(a_in, bp, cfg, seg, dt, train, attn_seed,
-                           row_base=row_base)
+                           row_base=row_base, tp=tp)
     x = x + vit._dropout(attn_out, hidden, seed_attn_out, row_base)
-    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base)
+    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp)
 
 
 def _packed_tome_block(x: torch.Tensor, sizes: torch.Tensor,
                        seg: torch.Tensor, pw: torch.Tensor, bp: vit.Block,
                        cfg: ModelConfig, dt: torch.dtype, train: bool,
                        seeds: Optional[vit.LayerSeeds], r_i: int,
-                       row_base: int):
+                       row_base: int, layout=None):
     """One block with the merge between attention and MLP; the count is
-    clamped to the feasible maximum, as in the dense merging forward."""
+    clamped to the feasible maximum, as in the dense merging forward. A
+    sharded tree's block is gathered here."""
+    tp = vit._tensor_axis(layout)
+    if layout is not None:
+        bp = fsdp.gather_block(layout, bp, dt)
     attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
     hidden = cfg.hidden_dropout if train else 0.0
     a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
                       cfg.layernorm_eps)
     attn_out, kmean = _packed_mha(a_in, bp, cfg, seg, dt, train, attn_seed,
-                                  return_key_mean=True, row_base=row_base)
+                                  return_key_mean=True, row_base=row_base,
+                                  tp=tp)
     x = x + vit._dropout(attn_out, hidden, seed_attn_out, row_base)
     r_l = min(r_i, (x.shape[1] + 1) // 2 - 1)
     if r_l > 0:
         x, sizes, seg, pw = tome_merge_packed(x, kmean, sizes, seg, pw, r_l)
-    return (vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base), sizes,
-            seg, pw)
+    return (vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp),
+            sizes, seg, pw)
 
 
 def _embed_packed(params: vit.ViT, tokens: torch.Tensor,
@@ -114,7 +143,9 @@ def _embed_packed(params: vit.ViT, tokens: torch.Tensor,
                   cfg: ModelConfig, grids: Sequence[int],
                   dt: torch.dtype) -> torch.Tensor:
     """Patch embedding plus the gathered position rows, zero on padding."""
-    x = vit._linear(tokens.to(dt), params.patch_embed, dt)
+    x = vit._linear(tokens.to(dt), fsdp.gather(
+        getattr(params, "layout", None), params.patch_embed, "patch_embed",
+        dt), dt)
     pos = build_pos_table(params, cfg, grids).to(dt)[pos_indices.long()]
     return (x + pos) * (segment_ids >= 0)[..., None].to(dt)
 
@@ -152,7 +183,7 @@ def apply_packed(params: vit.ViT, tokens: torch.Tensor,
     for i, bp in enumerate(params.blocks):
         args = (x, segment_ids, bp, cfg, dt, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
-                else None, row_base)
+                else None, row_base, params.layout)
         if remat:
             x = torch.utils.checkpoint.checkpoint(_packed_block, *args,
                                                   use_reentrant=False)
@@ -197,7 +228,7 @@ def apply_packed_tome(params: vit.ViT, tokens: torch.Tensor,
         seen.append(seg)
         args = (x, sizes, seg, pw, bp, cfg, dt, train,
                 tuple(dropout_seeds[i]) if dropout_seeds is not None
-                else None, r_i, row_base)
+                else None, r_i, row_base, params.layout)
         x, sizes, seg, pw = (policy(_packed_tome_block, *args) if policy
                              else _packed_tome_block(*args))
     logits = _pooled_logits(params, x, pw, cfg)

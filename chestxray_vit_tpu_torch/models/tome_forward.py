@@ -77,15 +77,17 @@ def _tome_int8_block(x: torch.Tensor, sizes: torch.Tensor, bp: vit.Block,
                      row_base: int, act: dict, layout=None):
     """:func:`_tome_block` with every projection on the int8
     straight-through product (``models/int8_train.py``) at this layer's
-    activation scales ``act``; the metric is the mean of its keys."""
+    activation scales ``act``; the metric is the mean of its keys (on a
+    tensor axis, of every head's, gathered)."""
+    tp = vit._tensor_axis(layout)
     if layout is not None:
         bp = fsdp.gather_block(layout, bp, dt)
     x, kmean = int8_train.attention_residual(x, bp, cfg, dt, train, seeds,
                                              act, return_key_mean=True,
-                                             row_base=row_base)
+                                             row_base=row_base, tp=tp)
     x, sizes = tome_merge_clamped(x, kmean, sizes, r_i)
     return int8_train.mlp_residual(x, bp, cfg, dt, train, seeds, act,
-                                   row_base), sizes
+                                   row_base, tp), sizes
 
 
 def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
@@ -113,8 +115,6 @@ def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,
     if int8_scales is None:
         x = vit.embed(params, images, cfg, dt)
     else:
-        if layout is not None:
-            int8_train.refuse_tensor_split(layout.mesh)
         int8_scales = int8_train.place_scales(int8_scales, images.device)
         x = int8_train.embed(params, images, cfg, dt, int8_scales["patch"])
     sizes = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)

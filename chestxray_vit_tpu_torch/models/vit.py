@@ -276,6 +276,24 @@ def _tensor_axis(layout):
     return layout.mesh.axis("tensor")
 
 
+def _local_heads(x: torch.Tensor, cfg: ModelConfig, tp):
+    """(the column products' input, this rank's head count, the model's
+    head of its first) on a tensor axis ``tp``: the input passes
+    ``tensor.copy_in`` and the rank holds heads [H/t·index, H/t·(index +
+    1)); without one, (x, H, 0)."""
+    if tp is None:
+        return x, cfg.num_heads, 0
+    h = cfg.num_heads // tp.size
+    return tensor.copy_in(x, tp), h, tp.index * h
+
+
+def _key_mean(k: torch.Tensor, tp) -> torch.Tensor:
+    """The token-merging metric, the keys' mean over every head: on a
+    tensor axis ``tp`` the heads are gathered first (a sum of the ranks'
+    partial means would flip sort ties)."""
+    return (k if tp is None else tensor.gather_heads(k, tp)).mean(dim=1)
+
+
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     """NHWC [B, H, W, 3] → [B, N, patch*patch*3], flattened per patch as
     (row-in-patch, col-in-patch, channel)."""
@@ -324,12 +342,8 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     columns and rows: its H/t heads from head H/t·index on, the keys of
     every head gathered for the metric."""
     b, s, _ = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
-    head_base = 0
-    if tp is not None:
-        h //= tp.size
-        head_base = tp.index * h
-        x = tensor.copy_in(x, tp)
+    hd = cfg.head_dim
+    x, h, head_base = _local_heads(x, cfg, tp)
 
     def heads():
         if wqkv is not None:
@@ -351,8 +365,7 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     if return_probs:
         return out, probs
     if return_key_mean:
-        keys = k if tp is None else tensor.gather_heads(k, tp)
-        return out, keys.mean(dim=1)
+        return out, _key_mean(k, tp)
     return out
 
 

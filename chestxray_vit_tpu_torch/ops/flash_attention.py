@@ -962,17 +962,20 @@ class FlashAttentionPacked(torch.autograd.Function):
 
 class FlashAttentionPackedDropout(torch.autograd.Function):
     """Segment-masked attention with dropout through the segment dropout
-    kernels. Saves what :class:`FlashAttentionPacked` saves and the seed and
-    row base as Python ints, so a recompute under remat replays the
-    mask."""
+    kernels. Saves what :class:`FlashAttentionPacked` saves and the seed,
+    the row base and the head fields as Python ints, so the backward and a
+    recompute under remat replay the mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, seed, rate, sm_scale=None,
-                block_q=DEFAULT_BLOCK_Q, row_base=0):
+                block_q=DEFAULT_BLOCK_Q, row_base=0, head_base=0,
+                heads_total=None):
         o, lse = flash_attention_packed_dropout_fwd(
-            q, k, v, segment_ids, seed, rate, sm_scale, block_q, row_base)
+            q, k, v, segment_ids, seed, rate, sm_scale, block_q, row_base,
+            head_base, heads_total)
         ctx.save_for_backward(q, k, v, segment_ids, o, lse)
         ctx.seed, ctx.rate, ctx.row_base = int(seed), rate, int(row_base)
+        ctx.head_base, ctx.heads_total = int(head_base), heads_total
         ctx.sm_scale, ctx.block_q = sm_scale, block_q
         return o
 
@@ -981,8 +984,9 @@ class FlashAttentionPackedDropout(torch.autograd.Function):
         q, k, v, segment_ids, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_packed_dropout_bwd(
             q, k, v, segment_ids, o, lse, do, ctx.seed, ctx.rate,
-            ctx.sm_scale, ctx.block_q, ctx.row_base)
-        return dq, dk, dv, None, None, None, None, None, None
+            ctx.sm_scale, ctx.block_q, ctx.row_base, ctx.head_base,
+            ctx.heads_total)
+        return (dq, dk, dv) + (None,) * 8
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1007,33 +1011,40 @@ def flash_attention_packed_dropout(q: torch.Tensor, k: torch.Tensor,
                                    rate: float,
                                    sm_scale: Optional[float] = None,
                                    block_q: int = DEFAULT_BLOCK_Q,
-                                   row_base: int = 0) -> torch.Tensor:
+                                   row_base: int = 0, head_base: int = 0,
+                                   heads_total: Optional[int] = None
+                                   ) -> torch.Tensor:
     """:func:`flash_attention_packed` with in-kernel probability dropout,
     the signature of the JAX package's ``flash_attention_packed_dropout``
     (``seed`` an int32 value; ``block_q`` fixes the mask's strides, see
-    :func:`packed_mask_strides`) and ``row_base``, the global sequence of
-    the first one. The same seed gives the JAX function's mask, bit for
-    bit."""
+    :func:`packed_mask_strides`), ``row_base``, the global sequence of the
+    first one, and ``head_base`` / ``heads_total``, the model's head of
+    q's first (None: q holds every head). The same seed gives the JAX
+    function's mask, bit for bit."""
     if q.device.type == "cpu":
         return attention_packed_dropout_fwd_reference(
             q, k, v, segment_ids, seed, rate, sm_scale, block_q,
-            row_base)[0]
+            row_base, head_base, heads_total)[0]
     return FlashAttentionPackedDropout.apply(q, k, v, segment_ids, seed,
                                              rate, sm_scale, block_q,
-                                             row_base)
+                                             row_base, head_base,
+                                             heads_total)
 
 
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      segment_ids: torch.Tensor, impl: str = "auto",
                      seed: Optional[int] = None,
-                     rate: float = 0.0, row_base: int = 0) -> torch.Tensor:
+                     rate: float = 0.0, row_base: int = 0,
+                     head_base: int = 0,
+                     heads_total: Optional[int] = None) -> torch.Tensor:
     """The attention dispatch of the reference's ``_packed_mha``:
     ``'xla'`` runs the plain version on any device, ``'auto'`` and
     ``'pallas'`` the segment kernels for CUDA tensors. With a ``seed`` and
     ``rate > 0`` probabilities are dropped with the counter-hash mask on
     the automatic Q block (:func:`packed_block_q`) on every path, the
-    first sequence global sequence ``row_base``; the reference's XLA path
-    draws another mask stream (``jax.random``)."""
+    first sequence global sequence ``row_base``, the first head the
+    model's head ``head_base`` of ``heads_total`` (a tensor rank's heads);
+    the reference's XLA path draws another mask stream (``jax.random``)."""
     if impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if seed is None or rate == 0.0:
@@ -1043,9 +1054,11 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block_q = packed_block_q(q.shape[2])
     if impl == "xla":
         return attention_packed_dropout_fwd_reference(
-            q, k, v, segment_ids, seed, rate, None, block_q, row_base)[0]
+            q, k, v, segment_ids, seed, rate, None, block_q, row_base,
+            head_base, heads_total)[0]
     return flash_attention_packed_dropout(q, k, v, segment_ids, seed, rate,
-                                          None, block_q, row_base)
+                                          None, block_q, row_base, head_base,
+                                          heads_total)
 
 
 def _fits(t: torch.Tensor) -> bool:

@@ -49,17 +49,30 @@ def _to_int8(q: torch.Tensor) -> torch.Tensor:
     return torch.clamp(q, -127.0, 127.0).to(torch.int8)
 
 
+def weight_amax(w: torch.Tensor) -> torch.Tensor:
+    """f32 ``max |w[:, o]|`` per output channel of an ``[in, out]``
+    weight: the first half of :func:`quantize_weight_tensors`. A weight
+    split over its input rows takes the max of the parts' (exact)."""
+    return w.float().abs().amax(dim=0)                        # [out]
+
+
+def quantize_weight_with_amax(w: torch.Tensor, amax: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The second half of :func:`quantize_weight_tensors`: ``w`` ``[in,
+    out]`` (or some of its input rows) quantized at the scales of the
+    per-channel ``amax`` → (int8 ``[out, in]``, f32 scales ``[out]``)."""
+    scale = _div(torch.clamp_min(amax, 1e-8), 127.0)
+    q = _to_int8(torch.round(w.float() / scale))
+    return q.t().contiguous(), scale
+
+
 def quantize_weight_tensors(w: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """f32/bf16 ``[in, out]`` (the JAX orientation) → (int8 ``[out, in]``,
     f32 per-output-channel scales ``[out]``): symmetric per-channel
     quantization as tensors, for a caller that quantizes live weights every
     step (the int8 training forward) and keeps no module."""
-    w = w.float()
-    amax = w.abs().amax(dim=0)                                # [out]
-    scale = _div(torch.clamp_min(amax, 1e-8), 127.0)
-    q = _to_int8(torch.round(w / scale))
-    return q.t().contiguous(), scale
+    return quantize_weight_with_amax(w, weight_amax(w))
 
 
 def quantize_weight(w: torch.Tensor) -> QuantizedWeight:

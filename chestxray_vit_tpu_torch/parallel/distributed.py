@@ -136,14 +136,15 @@ class Axis:
             t = t.clone()
         return fn(t).to(x.device)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the axis, on every rank of it (``x`` is
-        left as it is)."""
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (``op`` "sum") or the elementwise max ("max") of ``x``
+        over the axis, on every rank of it (``x`` is left as it is)."""
         if self.size == 1:
             return x
+        reduce_op = {"sum": td.ReduceOp.SUM, "max": td.ReduceOp.MAX}[op]
 
         def fn(t):
-            td.all_reduce(t, group=self.group)
+            td.all_reduce(t, op=reduce_op, group=self.group)
             return t
         return self._run(fn, x, copy=True)
 

@@ -257,14 +257,14 @@ def param_layout(mesh: Mesh, params: nn.Module) -> Layout:
     ``param_sharding``'s rule leaf for leaf (:func:`leaf_dims`). Tensor
     parallelism needs whole heads and whole MLP columns on every rank: a
     tensor size that does not divide the heads and the MLP width is
-    refused (ROADMAP Queue 1 #12)."""
+    refused (ROADMAP Queue 1 #15)."""
     cfg = getattr(params, "cfg", None)
     if mesh.tensor > 1 and cfg is not None and (
             cfg.num_heads % mesh.tensor or cfg.mlp_dim % mesh.tensor):
         raise NotImplementedError(
             f"tensor={mesh.tensor} over {cfg.num_heads} heads and an MLP "
             f"of {cfg.mlp_dim}: the port splits whole heads and columns "
-            f"only (ROADMAP Queue 1 #12)")
+            f"only (ROADMAP Queue 1 #15)")
     dims, shapes = {}, {}
     for name, p in params.named_parameters():
         shapes[name] = tuple(p.shape)

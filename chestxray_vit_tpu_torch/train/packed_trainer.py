@@ -15,15 +15,26 @@ is its readout in both phases).
   real next-fit packer (exact for uniform resolutions), so the learning
   rate schedule and the epoch cadence use the true step count.
 - An optimizer step consumes ``batch_seqs × gradient_accumulation_steps``
-  sequences; ``batch_seqs`` must divide by the number of processes.
-- Across processes (``torchrun``), each rank shards the epoch's image
-  stream before packing (``order[rank::world]``) and packs its shard into
-  ``batch_seqs / world`` sequences a micro-batch. The step sums the
-  gradients and the loss's numerator and denominator over the ranks, so it
-  is the function of the concatenated global batch although the ranks
-  pack unequal image counts. Epochs are capped at the census's
-  ``steps_per_epoch`` on every rank, so the collectives never diverge, and
-  the cursor stores each rank's consumed-image count.
+  sequences; ``batch_seqs`` must divide by the number of batch slots.
+- Across processes (``torchrun``), the processes form the mesh of
+  ``cfg.mesh`` as in the dense Trainer, and the epoch's image stream is
+  sharded by batch slot (``Mesh.dp_index`` of ``dp_size``: dcn × data ×
+  fsdp; the "hosts" of the messages and of the cursor's ``per_host``)
+  before packing (``order[slot::slots]``); each slot packs its shard into
+  ``batch_seqs / slots`` sequences a micro-batch, and the tensor ranks of
+  one slot load the same sequences (checked once, at the first step, by a
+  checksum over the tensor group). On fsdp or tensor axes the state is
+  sharded and the packed step gathers and splits as ``train/steps.py``
+  says. The step sums the gradients and the loss's numerator and
+  denominator over the batch group, so it is the function of the
+  concatenated global batch although the slots pack unequal image counts.
+  Epochs are capped at the census's ``steps_per_epoch`` on every rank, so
+  the collectives never diverge, and the cursor stores each slot's
+  consumed-image count (one ``per_host`` entry a slot), so a run resumes
+  on the same slot count.
+- Eval runs the packed forward over the whole index on every rank, on the
+  rank's shards (the same collectives in the same order on every rank),
+  so every rank computes the same metrics.
 """
 
 from __future__ import annotations
@@ -57,8 +68,10 @@ class PackedTrainer(Trainer):
         self._resume_skip = 0
         self._local_skip = 0
         super().__init__(cfg, **kw)
-        # one process a device: the host count is the data-parallel size
+        # the host count is the number of batch slots (dcn × data × fsdp);
+        # the tensor ranks of a slot load its sequences alike
         self._hosts = mesh_lib.dp_size(self.mesh)
+        self._slot_checked = self.mesh.tensor == 1
         if batch_seqs % self._hosts:
             raise ValueError(f"batch_seqs={batch_seqs} not divisible by "
                              f"host count (the data-parallel world size) "
@@ -119,8 +132,30 @@ class PackedTrainer(Trainer):
         self._warmup_step = self._build_tome_warmup_step()
 
     def _make_step_fn(self, cfg):
-        return S.make_packed_train_step(cfg, self.total_steps, self.grids,
+        step = S.make_packed_train_step(cfg, self.total_steps, self.grids,
                                         mesh=self.mesh)
+
+        def checked_step(state, batch):
+            if not self._slot_checked:
+                self._check_slot_batch(batch)
+            return step(state, batch)
+        return checked_step
+
+    def _check_slot_batch(self, batch) -> None:
+        """The tensor ranks of a batch slot must train on the same
+        sequences: compare a checksum of the first batch over the tensor
+        group once (on the main thread, where the step's collectives
+        run)."""
+        sums = torch.stack([batch[k].double().sum() for k in
+                            ("tokens", "segment_ids", "pool_weights",
+                             "labels")]).cpu()
+        got = self.mesh.axis("tensor").all_gather_rows(sums)
+        if not all(torch.equal(g, sums) for g in got):
+            raise RuntimeError(
+                f"the tensor ranks of batch slot {self.mesh.dp_index} "
+                f"loaded other sequences: checksums "
+                f"{[g.tolist() for g in got]}")
+        self._slot_checked = True
 
     # ------------------------------------------------------------------
 
@@ -142,12 +177,12 @@ class PackedTrainer(Trainer):
         """``skip`` counts IMAGES, not batches: emitted packed batches
         cover a prefix of the epoch order, so skipping the prefix before
         any fetch or decode and re-packing the rest reproduces the
-        uninterrupted run's batches exactly. Across processes ``skip`` is
-        the global image count of the cursor, and each process skips its
+        uninterrupted run's batches exactly. Across batch slots ``skip``
+        is the global image count of the cursor, and each slot skips its
         own ``per_host`` entry of its shard. The integers ``n_seqs`` and
         ``n_images`` are popped here, on the host, before the batch is
         copied to the device."""
-        hosts, rank = self._hosts, dist.rank()
+        hosts, rank = self._hosts, self.mesh.dp_index
         rc = getattr(self, "_restored_cursor", None)
         if hosts > 1:
             local_skip = 0
@@ -159,7 +194,7 @@ class PackedTrainer(Trainer):
                         "none (was it written by a single-host run?)")
                 if len(rc.per_host) != hosts:
                     # another host count reshapes every shard
-                    # (order[rank::H]): reusing the counts would train some
+                    # (order[slot::H]): reusing the counts would train some
                     # images twice and skip others
                     raise ValueError(
                         f"checkpoint cursor was written by "
@@ -224,7 +259,7 @@ class PackedTrainer(Trainer):
                 f"lower batch_seqs)")
 
     def _epoch_progress(self, batch_idx: int) -> float:
-        """Images this process consumed / images in its shard (the packed
+        """Images this slot consumed / images in its shard (the packed
         batch_idx carries an image-count resume offset, so the base hook's
         batch_idx / steps_per_epoch would mix units)."""
         consumed = batch_idx - self._resume_skip
@@ -250,8 +285,10 @@ class PackedTrainer(Trainer):
         else:
             images = self._images_cum[consumed]
         if self._hosts > 1:
+            # one entry a batch slot, in slot order (the tensor ranks of a
+            # slot consumed the same images)
             vec = dist.process_allgather(
-                np.asarray([images], np.int64)).reshape(-1)
+                np.asarray([images], np.int64), self._batch_axis).reshape(-1)
             cursor = ckpt.DataCursor(epoch, int(vec.sum()),
                                      per_host=[int(v) for v in vec])
         else:
@@ -262,9 +299,12 @@ class PackedTrainer(Trainer):
 
     def _forward_all(self, index):
         """Packed eval: logits per image through the masked mean pooling.
-        Every process evaluates the whole index on its own replica of the
-        parameters, without collectives: duplicated work across processes,
-        but the same metrics everywhere, so metric-driven decisions never
+        Every process evaluates the whole index: on a replicated tree
+        without collectives, on a sharded one through the sharded packed
+        forward, every rank issuing the same gathers and tensor sums in
+        the same order (the port's processes stand in for the devices the
+        JAX package's jit spans). Duplicated work across processes, but the
+        same metrics everywhere, so metric-driven decisions never
         diverge."""
         if len(index) == 0:
             c = self.cfg.model.num_classes

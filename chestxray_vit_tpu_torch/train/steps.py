@@ -59,8 +59,9 @@ shards and splits each block over the tensor ranks (``models/vit.py``),
 number of slots (dcn × data × fsdp), the mixup neighbour and the
 gradient and loss sums run over the batch group, the clip takes the full
 tree's norm and AdamW updates each shard. The result is what one process
-computes on the global batch. The packed step on such a mesh is refused
-(ROADMAP Queue 1 #12).
+computes on the global batch. The packed step runs there alike: the
+tensor ranks of a slot take its sequences and its row base, and Σnum and
+Σden are summed over the batch group before the one division.
 
 ``make_train_step(int8_scales=...)`` trains on the int8 straight-through
 forward (``models/int8_train.py``: int8 products forward, the dense
@@ -278,12 +279,11 @@ def make_train_step(cfg: Config, total_steps: int, int8_scales=None,
     straight-through forward, ``apply_int8_train``, or with
     ``model.tome_r`` on the merged one, ``apply_tome_train(int8_scales=)``;
     the tree is placed on the batch's device at the first step and kept
-    there; on a tensor axis it is refused (ROADMAP Queue 1 #12)."""
+    there; on a tensor axis the row products' per-channel scales are
+    taken over the tensor group (``models/int8_train.py``)."""
     schedule, adamw_cfg = _optimizer(cfg, total_steps)
     accum = max(cfg.train.gradient_accumulation_steps, 1)
     rank, world, batch_axis = _batch_slots(mesh, rank, world)
-    if int8_scales is not None:
-        int8_train.refuse_tensor_split(mesh)
     placed = {}                            # device -> the scales there
 
     def forward(params: vit.ViT, images: torch.Tensor, d: Draws):
@@ -416,15 +416,6 @@ def make_quantized_eval_step(cfg: Config):
     return make_inference_eval_step(cfg, quantized=True)
 
 
-def refuse_packed_mesh(mesh) -> None:
-    """Packed training on a mesh with fsdp or tensor axes is not ported."""
-    if mesh is not None and mesh.sharded:
-        raise NotImplementedError(
-            f"packed training on a mesh with fsdp={mesh.fsdp}, "
-            f"tensor={mesh.tensor} is not ported to PyTorch yet (ROADMAP "
-            f"Queue 1 #12); the packed step runs on the dcn and data axes")
-
-
 def make_packed_train_step(cfg: Config, total_steps: int,
                            grids=(16, 24, 32), rank: Optional[int] = None,
                            world: Optional[int] = None,
@@ -439,9 +430,11 @@ def make_packed_train_step(cfg: Config, total_steps: int,
     within-segment merging forward. ``draws`` as in
     :func:`make_train_step`; the packed step has no mixup, so only the
     dropout seeds and the row base are read. ``mesh`` as in
-    :func:`make_train_step`, with no fsdp or tensor axis: the packed step
-    on those is refused (ROADMAP Queue 1 #12)."""
-    refuse_packed_mesh(mesh)
+    :func:`make_train_step`: a rank's sequences are its batch slot's (the
+    tensor ranks of a slot hold the same ones and the same row base), and
+    the numerator, the denominator and the gradients are summed over the
+    batch group (``distributed.all_reduce_grads`` on the state's
+    layout)."""
     schedule, adamw_cfg = _optimizer(cfg, total_steps)
     accum = max(cfg.train.gradient_accumulation_steps, 1)
     rank, world, _ = _batch_slots(mesh, rank, world)
@@ -479,7 +472,8 @@ def make_packed_train_step(cfg: Config, total_steps: int,
                 p.grad = torch.zeros_like(p)
         # the sums over the ranks before the division: ranks pack unequal
         # real-image counts, so only Σnum / Σden is the global batch's loss
-        num_sum, den_sum = dist.all_reduce_grads(params, num_sum, den_sum)
+        num_sum, den_sum = dist.all_reduce_grads(params, num_sum, den_sum,
+                                                 mesh=mesh)
         d = den_sum.clamp_min(1.0)
         for p in params.parameters():
             p.grad.div_(d)
@@ -487,8 +481,6 @@ def make_packed_train_step(cfg: Config, total_steps: int,
 
     def train_step(state: TrainState, batch: Batch,
                    draws: Optional[Sequence[Draws]] = None):
-        if state.params.layout is not None:
-            refuse_packed_mesh(state.params.layout.mesh)
         if draws is None:
             micro = batch["tokens"].shape[0] // accum
             draws = [draw(state.generator, cfg, micro, rank, world)

@@ -53,7 +53,7 @@ process's rank and the world size (``train/steps.py``).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
 one process driving several devices (``parallel/mesh.py``, Queue 1 #8),
-and the PackedTrainer on a mesh with fsdp or tensor axes (#12).
+and a tensor size that splits a head (#15).
 """
 
 from __future__ import annotations

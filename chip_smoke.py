@@ -255,13 +255,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``--mesh-worker``) on cuda:0 in a gloo group, mesh data x fsdp x tensor
    1 x 2 x 2 (ZeRO-3 shards, the Megatron split, the dropout kernels keyed
    by global head), ViT-B/16 @384 at full width and depth, bf16, full
-   remat, attention and hidden dropout 0.1, mixup 0.2, global batch 8: 3
-   steps and one eval step against this process taking them on the global
-   batch, within MESH_BF16_TOL (stated on the phase's first line); then at
-   depth 2 in f32 (MESH_F32_TOL). Step ms and images/s beside the
-   one-process step, the collectives a step by kind and bytes, exact
-   launches a step on every rank. Four ranks share the card: no scaling
-   is measured.
+   remat, against this process taking the same steps on the global batch:
+   the dense step (attention and hidden dropout 0.1, mixup 0.2, global
+   batch 8; 2 steps and one eval step), the packed step (8 sequences of
+   1152 tokens, mixed layout, both dropouts 0.1; 2 steps), the merged
+   packed step (r 16 decreasing; 2 steps) and the int8 straight-through
+   dense step (b8, scales calibrated on the batch; 2 steps), within
+   MESH_BF16_TOL (stated on the phase's first line); then each at depth 2
+   in f32 (MESH_F32_TOL). Step ms beside the one-process step, the
+   collectives a step by kind and bytes, exact launches a step on every
+   rank. Four ranks share the card: no scaling is measured.
 36. examples: ``examples/finetune_nih_torch.py --dry-run`` (version_b:
    ViT-B/16 @384, 20 steps) and ``examples/train_smoke_torch.py``, each
    in its own process, with their wall seconds.
@@ -292,7 +295,11 @@ the summary line as each kernel's ``head_dims``. Last, the head split
 (``check_head_split``): every dropout entry point and the training and
 inference kernels on a tensor rank's heads, with ``head_base`` and
 ``heads_total``, equal to the whole-head call's slice bit for bit, at
-d = 64 and 80.
+d = 64 and 80; and the int8 kernel in the four forms of the int8 step on a
+tensor axis of 2 (INT8_TENSOR_FORMS: the column products at N / 2, the row
+products at K / 2 unscaled with an f32 out), equal bits twice, timed
+beside ``torch._int_mm``, with two emulated ranks' row partials at K = 768
+summed to the one-process product's bits.
 
 The second-to-last line is the kernels summary, the last one the result.
 """
@@ -602,21 +609,44 @@ DP_WORLD, DP_ACCUM = 2, 2
 CLI_STEPS, CLI_STEADY, CLI_IMAGES = 8, (2, 3, 4), 4
 
 
+# kernel_check's int8 forms on a tensor axis of 2 (models/int8_train.py),
+# at the rows of a b8 global batch's slot on 1 x 2 x 2 (4 images): the
+# column products (q, k, v; mlp_in) at N / 2, bf16 out, and the row products
+# (wo; mlp_out) at K / 2, unscaled (scale 1, bias 0), f32 out
+MESH_INT8_ROWS = 4 * 577
+INT8_TENSOR_FORMS = (
+    ("tensor_col_qkv", MESH_INT8_ROWS, 768, 384, False),
+    ("tensor_col_mlp_in", MESH_INT8_ROWS, 768, 1536, False),
+    ("tensor_row_wo", MESH_INT8_ROWS, 384, 768, True),
+    ("tensor_row_mlp_out", MESH_INT8_ROWS, 1536, 768, True))
 # kernel_check's head split: (d, H, S) at ViT-B/16 @384 and ViT-H/14 @224,
 # each rank of each tensor size t, at a row base
 HEAD_SPLIT_CASES = ((64, 12, 577), (80, 16, 257))
 HEAD_SPLIT_TENSOR = (2, 4)
 HEAD_SPLIT_BATCH, HEAD_SPLIT_ROW_BASE = 4, 3
 # phase 35 (train_mesh): MESH_RANKS ranks on cuda:0, (dcn, data, fsdp,
-# tensor); the bf16 run at full depth, then the f32 one at depth 2
-MESH_RANKS, MESH_SHAPE, MESH_BATCH = 4, (1, 1, 2, 2), 8
-MESH_LAYERS, MESH_STEPS, MESH_TIMEOUT_S = 12, 3, 400
+# tensor), one spawn for every run of MESH_RUNS: (name, path, model, steps).
+# The paths: "dense" (the train step with mixup 0.2 on MESH_BATCH images,
+# then one eval step), "packed" (the packed step on MESH_PACKED_SEQS
+# 1152-token sequences of smoke_batches' mixed layout; merged at the
+# train_packed_tome phase's r), "int8" (the int8 straight-through dense
+# step on MESH_BATCH images, scales calibrated on them). Full width and
+# depth in bf16, then each path's f32 counterpart at depth 2.
+MESH_RANKS, MESH_SHAPE, MESH_BATCH, MESH_PACKED_SEQS = 4, (1, 1, 2, 2), 8, 8
+MESH_LAYERS, MESH_STEPS, MESH_TIMEOUT_S = 12, 2, 500
+_MESH_DROP = dict(attention_dropout=DROP_RATE, hidden_dropout=DROP_RATE)
+_MESH_TOME = dict(tome_r=TOME_R, tome_schedule=TOME_SCHEDULE)
+_MESH_F32 = dict(dtype="float32", num_layers=2)
 MESH_RUNS = (
-    ("bf16", dict(remat=True, attention_dropout=DROP_RATE,
-                  hidden_dropout=DROP_RATE), MESH_STEPS),
-    ("f32", dict(remat=True, attention_dropout=DROP_RATE,
-                 hidden_dropout=DROP_RATE, dtype="float32", num_layers=2),
-     2))
+    ("bf16", "dense", dict(remat=True, **_MESH_DROP), MESH_STEPS),
+    ("packed_bf16", "packed", dict(remat=True, **_MESH_DROP), 2),
+    ("packed_tome_bf16", "packed", dict(remat=True, **_MESH_TOME), 2),
+    ("int8_bf16", "int8", dict(remat=True), 2),
+    ("f32", "dense", dict(remat=True, **_MESH_DROP, **_MESH_F32), 2),
+    ("packed_f32", "packed", dict(remat=True, **_MESH_DROP, **_MESH_F32), 2),
+    ("packed_tome_f32", "packed", dict(remat=True, **_MESH_TOME, **_MESH_F32),
+     2),
+    ("int8_f32", "int8", dict(remat=True, **_MESH_F32), 2))
 # - train_mesh, bf16, stated before the run: the ranks run the one-process
 #   step's kernels on their heads and rows. What differs is where a row
 #   product's K is split over the two tensor ranks: each partial is rounded
@@ -627,10 +657,36 @@ MESH_RUNS = (
 #   a mean of BCE terms of f32 logits, is held to one bf16 ulp of itself a
 #   step; the eval logits after the steps to 4 bf16 ulps of the largest
 #   (AdamW carries the gradients' sign differences into the weights).
-# - train_mesh, f32 at depth 2: the same math in another summation order:
-#   losses 1e-5 relative, parameters 2e-5 of the largest.
+# - packed_bf16 and packed_tome_bf16: the same split on the packed forward
+#   (the segment kernels on each rank's six heads at head_base 0 or 6);
+#   the loss, a masked mean of BCE terms over the real images, is held to
+#   one bf16 ulp of itself a step. Under merging a key mean one ulp away
+#   may reorder a near tie of the matching scores; a different merge moves
+#   one token pair of one sequence, which shifts the mean over ~30 images'
+#   BCE terms by far less than the ulp (0.0039 at a loss of 0.7).
+# - int8_bf16: the int8 forward is exact on the split (the column products
+#   hold whole channels, the row products sum exact int32 partials while
+#   below 2^24, the scales are a max), so the first step's loss differs only
+#   by the f32 mean over the slots; the backward is the dense bf16 split
+#   above: one bf16 ulp of the loss a step, as the dense run.
+# - every f32 run at depth 2 but int8_f32: the same math in another
+#   summation order: losses 1e-5 relative, parameters 2e-5 of the largest.
+# - int8_f32 (restated after the first card run of this check, which read
+#   its second step's loss 3.9e-4 relative and its parameters 1.55e-4 of
+#   the largest against the 1e-5 / 2e-5 first stated): the first step's
+#   loss 1e-5 relative (the forward is exact on the split, as the reading
+#   0.0 shows); after it, the int8 forward is not continuous. The first
+#   update moves the weights by a fraction of lr in another summation
+#   order; a weight moved across an int8 rounding boundary (or a channel's
+#   amax) changes the second forward, its loss moves as the bf16 int8
+#   run's does (held to one bf16 ulp of the loss, MESH_BF16_TOL), and the
+#   gradients that change sign carry about 2 lr into the weights:
+#   INT8_XCHECK's 2.1e-4, the bound train_int8_cross_check holds the
+#   card's int8 step to against the CPU's.
 MESH_BF16_TOL = {"loss_ulps": 1, "logit_ulps": 4}
 MESH_F32_TOL = {"loss_rel": 1e-5, "params_of_largest": 2e-5}
+MESH_INT8_F32_TOL = {"first_loss_rel": 1e-5, "loss_ulps": 1,
+                     "params_of_largest": INT8_XCHECK["params"]}
 # phases 36-37: the examples and the dry run, each in its own processes
 EXAMPLES_TIMEOUT_S, DRYRUN_RANKS = 300, 4
 
@@ -930,6 +986,7 @@ def phase_kernel_check() -> dict:
     check_head_dims(randn, summary)
     check_int8_patch14(gen, summary)
     check_head_split(randn, summary)
+    check_int8_tensor_forms(gen, summary)
     return summary
 
 
@@ -5001,6 +5058,78 @@ def check_head_split(randn, summary: dict) -> None:
     summary["head_split"] = records
 
 
+def check_int8_tensor_forms(gen, summary: dict) -> None:
+    """The int8 kernel in the call forms of the int8 straight-through step
+    on a tensor axis of 2 (INT8_TENSOR_FORMS, at a b8 global batch's slot
+    of 1 x 2 x 2): the column products at N / 2, the row products at K / 2
+    with scale 1, bias 0 and an f32 out. Each equals its plain twin bit
+    for bit and itself twice, timed beside ``torch._int_mm`` and its bound.
+    Then the row form's emulation: the unscaled partials of two ranks at
+    K = 768, summed in f32 under the epilogue once, equal the one-process
+    product's bits."""
+    from chestxray_vit_tpu_torch.models import int8_train
+    from chestxray_vit_tpu_torch.ops import int8_matmul as i8
+
+    records = []
+    for name, m, k, n, unscaled in INT8_TENSOR_FORMS:
+        xq, wq, scale, bias, _ = int8_operands(gen, m, k, n, False, False)
+        out_dtype = torch.float32 if unscaled else torch.bfloat16
+        if unscaled:
+            scale, bias = torch.ones_like(scale), torch.zeros_like(bias)
+
+        def call():
+            return i8.int8_matmul_fused(xq, wq, scale, bias,
+                                        out_dtype=out_dtype)
+        out, again = call(), call()
+        ref = i8.int8_matmul_fused_reference(xq, wq, scale, bias,
+                                             out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        mismatched = int((out != ref).sum())
+        equal_twice = torch.equal(out, again)
+        del again
+        ms, plain_ms = time_pair(call, lambda: i8.int8_matmul_fused_reference(
+            xq, wq, scale, bias, out_dtype=out_dtype))
+        wt = wq.t()
+        rec = {"phase": "kernel_check", "kernel": "int8_matmul_fused",
+               "form": name, "m_k_n": [m, k, n], "out_dtype": str(out_dtype),
+               "mismatched": mismatched, "equal_twice": equal_twice,
+               "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+               "tol": "equal", "ms": ms, "plain_ms": plain_ms,
+               **device_ms(call),
+               "library_ms": time_ms(lambda: torch._int_mm(xq, wt)),
+               "tops": 2 * m * k * n / ms / 1e9,
+               **bound(m * k + n * k + 8 * n
+                       + m * n * out.element_size(), 2 * m * k * n,
+                       torch.int8, core_ops=INT8_EPI_OPS["base"] * m * n)}
+        emit(rec)
+        records.append(rec)
+        require(mismatched == 0 and equal_twice,
+                f"int8 tensor form {name}: {mismatched} mismatched, equal "
+                f"twice {equal_twice}")
+    # two emulated ranks of a row product at K = 768 (wo): the exact sum
+    m, k, n = INT8_TENSOR_FORMS[0][1], 768, 768
+    xq, wq, scale, bias, _ = int8_operands(gen, m, k, n, False, False)
+    xq[0], wq[0] = 127, 127           # the largest sum, 768 · 127²
+    for out_dtype in (torch.bfloat16, torch.float32):
+        whole = i8.int8_matmul_fused(xq, wq, scale, bias,
+                                     out_dtype=out_dtype)
+        acc = sum(int8_train.row_partial(xq[:, sl].contiguous(),
+                                         wq[:, sl].contiguous())
+                  for sl in (slice(0, k // 2), slice(k // 2, k)))
+        got = (acc * scale + bias).to(out_dtype)
+        torch.cuda.synchronize()
+        rec = {"phase": "kernel_check", "kernel": "int8_row_partials",
+               "ranks": 2, "m_k_n": [m, k, n], "out_dtype": str(out_dtype),
+               "largest_sum": float(acc[0, 0]),
+               "mismatched": int((got != whole).sum())}
+        emit(rec)
+        records.append(rec)
+        require(rec["mismatched"] == 0
+                and rec["largest_sum"] == 768 * 127 ** 2,
+                f"int8 row partials of two ranks: {rec}")
+    summary["int8_tensor_forms"] = records
+
+
 def _collective_counter():
     """Wrap the torch.distributed collectives the mesh runs, counting the
     calls and bytes of each kind; returns the tally dict (reset it by
@@ -5029,15 +5158,61 @@ def _collective_counter():
     return tally
 
 
+_MESH_PACKED = {}
+
+
+def mesh_inputs(path: str, cfg, dev) -> tuple:
+    """(the global batch, the full seed-0 model on ``dev``, the int8 scales
+    calibrated on the batch or None) of a train_mesh run: the same in every
+    rank and in this process."""
+    from chestxray_vit_tpu_torch.models.vit import init_params
+
+    params = init_params(torch.Generator().manual_seed(SEED), cfg.model, dev)
+    if path == "packed":
+        if dev not in _MESH_PACKED:
+            _MESH_PACKED[dev] = tensors(packed_mixed_batch(dev,
+                                                           MESH_PACKED_SEQS))
+        batch = _MESH_PACKED[dev]
+    else:
+        batch = bench_batch(MESH_BATCH, SEED, dev)
+    scales = calibrated_scales(params, cfg, batch) if path == "int8" else None
+    return batch, params, scales
+
+
+def mesh_config(path: str, model: dict):
+    """A train_mesh run's config: mixup 0.2 on the dense path only."""
+    return train_config(MIXUP_ALPHA if path == "dense" else 0.0, **model)
+
+
+def mesh_step(path: str, cfg, scales, mesh=None):
+    from chestxray_vit_tpu_torch.train import steps
+
+    if path == "packed":
+        return steps.make_packed_train_step(cfg, 10_000, mesh=mesh)
+    return steps.make_train_step(cfg, 10_000, int8_scales=scales, mesh=mesh)
+
+
+def mesh_launches_per_step(path: str, model: dict) -> dict:
+    """What one process launches a step on the run's path; a rank launches
+    the same, on its heads and rows."""
+    layers = model.get("num_layers", MESH_LAYERS)
+    dropout = model.get("attention_dropout", 0.0) > 0.0
+    if path == "packed":
+        return packed_launches_per_step(layers, dropout)
+    if path == "int8":
+        return int8_step_launches(layers, dropout)
+    return dense_launches_per_step(layers, dropout)
+
+
 def mesh_worker(rank: int, out: str) -> None:
     """One rank of phase train_mesh, on cuda:0 in a gloo group of
-    MESH_RANKS: the bf16 run (MESH_STEPS steps, then one eval step) and the
-    f32 depth-2 run on the 1 x 2 x 2 mesh; writes result<rank>.json and,
-    on rank 0, the f32 run's gathered parameters."""
+    MESH_RANKS on the MESH_SHAPE mesh: every run of MESH_RUNS (its steps
+    on the rank's slot of the global batch; after the dense bf16 run one
+    eval step); writes result<rank>.json and, on rank 0, each f32 run's
+    gathered parameters."""
     import torch.distributed as td
 
     import chestxray_vit_tpu_torch as cxr
-    from chestxray_vit_tpu_torch.models.vit import init_params
     from chestxray_vit_tpu_torch.parallel import distributed as dist
     from chestxray_vit_tpu_torch.parallel import fsdp
     from chestxray_vit_tpu_torch.parallel import mesh as mesh_lib
@@ -5052,19 +5227,19 @@ def mesh_worker(rank: int, out: str) -> None:
     c, d, f, t = MESH_SHAPE
     mesh = mesh_lib.build_mesh(cxr.MeshConfig(dcn_data=c, data=d, fsdp=f,
                                               tensor=t))
-    per = MESH_BATCH // mesh_lib.dp_size(mesh)
-    rows = slice(mesh.dp_index * per, (mesh.dp_index + 1) * per)
+    slots = mesh_lib.dp_size(mesh)
     tally = _collective_counter()
     res = {"rank": rank, "coords": mesh.coords, "dp_index": mesh.dp_index}
-    for kind, model, n_steps in MESH_RUNS:
-        cfg = train_config(MIXUP_ALPHA, **model)
-        batch = {k: v[rows] for k, v in bench_batch(MESH_BATCH, SEED,
-                                                    dev).items()}
-        params = fsdp.shard_params(init_params(
-            torch.Generator().manual_seed(SEED), cfg.model, dev), mesh)
+    for name, path, model, n_steps in MESH_RUNS:
+        cfg = mesh_config(path, model)
+        batch, full, scales = mesh_inputs(path, cfg, dev)
+        per = next(iter(batch.values())).shape[0] // slots
+        rows = slice(mesh.dp_index * per, (mesh.dp_index + 1) * per)
+        local = {k: v[rows] for k, v in batch.items()}
+        params = fsdp.shard_params(full, mesh)
         state = steps.TrainState.create(params, seed=42)
-        step = steps.make_train_step(cfg, 10_000, mesh=mesh)
-        rec = res[kind] = {"losses": [], "step_ms": [], "launches": [],
+        step = mesh_step(path, cfg, scales, mesh)
+        rec = res[name] = {"losses": [], "step_ms": [], "launches": [],
                            "collectives": []}
         for _ in range(n_steps):
             td.barrier()
@@ -5072,7 +5247,7 @@ def mesh_worker(rank: int, out: str) -> None:
             reset_launch_counts()
             tally.clear()
             t0 = time.perf_counter()
-            state, m = step(state, batch)
+            state, m = step(state, local)
             loss = float(m["loss"])
             torch.cuda.synchronize()
             rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
@@ -5080,22 +5255,22 @@ def mesh_worker(rank: int, out: str) -> None:
             rec["launches"].append(launch_counts())
             rec["collectives"].append({k: dict(v) for k, v in tally.items()})
         tally.clear()
-        if kind == "bf16":
+        if name == "bf16":
             reset_launch_counts()
             with torch.no_grad():
-                logits, _ = steps.make_eval_step(cfg)(state.params, batch)
+                logits, _ = steps.make_eval_step(cfg)(state.params, local)
             rec["eval_launches"] = launch_counts()
             rec["eval_collectives"] = {k: dict(v) for k, v in tally.items()}
             rec["eval_logits"] = dist.process_allgather(
                 logits.float(), mesh.axis("batch")).tolist()
-            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        else:
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if cfg.model.dtype == "float32":
             full = fsdp.gather_params(state.params)
             if rank == 0:
                 torch.save({n: p.detach().cpu()
                             for n, p in full.named_parameters()},
-                           f"{out}/f32_params.pt")
-        del state, params, step
+                           f"{out}/{name}_params.pt")
+        del state, params, step, full, scales
         torch.cuda.empty_cache()
     dist.barrier("train_mesh done")
     td.destroy_process_group()
@@ -5107,37 +5282,59 @@ def phase_train_mesh(dense_rec: dict) -> dict:
     """The fsdp and tensor axes on the card: MESH_RANKS ranks on cuda:0 in
     a gloo group (NCCL refuses two ranks on one card), mesh data x fsdp x
     tensor 1 x 2 x 2, ViT-B/16 @384 at full width and depth, bf16, full
-    remat, attention and hidden dropout 0.1, mixup 0.2, global batch
-    MESH_BATCH: MESH_STEPS steps and one eval step, against this process
-    taking the same steps on the global batch. The bf16 bound
-    (MESH_BF16_TOL) is stated in the first line, before the ranks run.
-    Then the f32 check at depth 2: losses within 1e-5 relative, the
-    parameters after the steps within 2e-5 of the largest. Each rank's
-    step ms, images/s beside the one-process step's, the collectives a step
-    by kind with their bytes, and the kernel launches a step (exact: each
+    remat, every run of MESH_RUNS against this process taking the same
+    steps on the global batch: the dense step (attention and hidden
+    dropout 0.1, mixup 0.2, global batch MESH_BATCH) and one eval step; the
+    packed step (MESH_PACKED_SEQS 1152-token sequences of the mixed layout,
+    both dropouts 0.1); the merged packed step (r 16 decreasing); the int8
+    straight-through dense step (scales calibrated on the batch); then the
+    f32 counterpart of each at depth 2. The bounds (MESH_BF16_TOL,
+    MESH_F32_TOL) are stated in the first line, before the ranks run. Each
+    run's step ms beside the one-process step's, the collectives a step by
+    kind with their bytes, and the kernel launches a step (exact: each
     rank launches what one process does, on its heads). Four ranks sharing
     one card measure correctness and collective counts, not scaling.
-    Returns the ranks' launches (train steps and eval) summed."""
+    Returns the ranks' launches (every run's steps and the eval) summed."""
     import os
     import tempfile
 
-    from chestxray_vit_tpu_torch.models.vit import init_params
     from chestxray_vit_tpu_torch.train import steps
 
     dev = torch.device("cuda")
     emit({"phase": "train_mesh", "stated_before_the_run": True,
           "mesh": "x".join(map(str, MESH_SHAPE[1:])), "ranks": MESH_RANKS,
-          "global_batch": MESH_BATCH, "bf16_bound": MESH_BF16_TOL,
-          "f32_bound": MESH_F32_TOL})
+          "global_batch": MESH_BATCH, "global_sequences": MESH_PACKED_SEQS,
+          "runs": [[name, path, n] for name, path, _, n in MESH_RUNS],
+          "bf16_bound": MESH_BF16_TOL, "f32_bound": MESH_F32_TOL,
+          "int8_f32_bound": MESH_INT8_F32_TOL,
+          "reasoning": {
+              "bf16": "row products split over 2 tensor ranks round each "
+                      "partial to bf16 and the f32 sum again: a row product "
+                      "may land one bf16 ulp away; products at half the "
+                      "rows may take other cuBLAS algorithms. Loss: one "
+                      "bf16 ulp of itself a step; eval logits 4 ulps of "
+                      "the largest",
+              "packed": "the same split on the packed forward, the segment "
+                        "kernels on each rank's heads; a merge reordered "
+                        "by a near tie moves one token pair of one "
+                        "sequence, far under the ulp",
+              "int8": "the int8 forward is exact on the split (whole "
+                      "channels, exact int32 partials under 2^24, a max "
+                      "for the scales); the backward is the dense bf16 "
+                      "split: one bf16 ulp of the loss a step",
+              "f32": "the same math in another summation order: losses "
+                     "1e-5 relative, parameters 2e-5 of the largest",
+              "int8_f32": "the first step's loss 1e-5 relative (an exact "
+                          "forward); then the int8 forward is not "
+                          "continuous: later losses one bf16 ulp, "
+                          "parameters about 2 lr (INT8_XCHECK)"}})
     refs = {}
-    for kind, model, n_steps in MESH_RUNS:
-        cfg = train_config(MIXUP_ALPHA, **model)
-        batch = bench_batch(MESH_BATCH, SEED, dev)
-        params = init_params(torch.Generator().manual_seed(SEED), cfg.model,
-                             dev)
+    for name, path, model, n_steps in MESH_RUNS:
+        cfg = mesh_config(path, model)
+        batch, params, scales = mesh_inputs(path, cfg, dev)
         state = steps.TrainState.create(params, seed=42)
-        step = steps.make_train_step(cfg, 10_000)
-        rec = refs[kind] = {"losses": [], "step_ms": []}
+        step = mesh_step(path, cfg, scales)
+        rec = refs[name] = {"losses": [], "step_ms": []}
         for _ in range(n_steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5145,15 +5342,17 @@ def phase_train_mesh(dense_rec: dict) -> dict:
             rec["losses"].append(float(m["loss"]))
             torch.cuda.synchronize()
             rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
-        if kind == "bf16":
+        if name == "bf16":
             with torch.no_grad():
                 rec["eval_logits"] = steps.make_eval_step(cfg)(
                     state.params, batch)[0].float().cpu().numpy()
-        else:
+        if cfg.model.dtype == "float32":
             rec["params"] = {n: p.detach().cpu()
                              for n, p in state.params.named_parameters()}
-        del state, params, step
+        del state, params, step, scales
         torch.cuda.empty_cache()
+    _MESH_PACKED.clear()
+    torch.cuda.empty_cache()
 
     out = tempfile.mkdtemp(prefix="train_mesh_")
     t0 = time.perf_counter()
@@ -5174,80 +5373,96 @@ def phase_train_mesh(dense_rec: dict) -> dict:
     for r in range(MESH_RANKS):
         with open(f"{out}/result{r}.json") as fh:
             ranks.append(json.load(fh))
+    emit({"phase": "train_mesh", "ranks_wall_s": wall, "shared_card": True,
+          "rank_coords": [rk["coords"] for rk in ranks]})
 
-    # bf16: every rank's losses and the gathered eval logits
-    ref = refs["bf16"]
-    loss_diff = max(abs(a - b) for rk in ranks
-                    for a, b in zip(rk["bf16"]["losses"], ref["losses"]))
-    logit_diff = float(np.abs(np.asarray(ranks[0]["bf16"]["eval_logits"])
-                              - ref["eval_logits"]).max())
-    loss_bound = MESH_BF16_TOL["loss_ulps"] * float(
-        bf16_ulp(torch.tensor(max(ref["losses"]))))
-    logit_bound = MESH_BF16_TOL["logit_ulps"] * float(
-        bf16_ulp(torch.tensor(float(np.abs(ref["eval_logits"]).max()))))
-    # launches a step: each rank what one process launches
-    want = dense_launches_per_step(MESH_LAYERS, dropout=True)
-    exact = all(c == want for rk in ranks for c in rk["bf16"]["launches"])
-    eval_want = {**dict.fromkeys(_wrappers(), 0),
-                 "flash_attention_inference": MESH_LAYERS,
-                 "layer_norm": 2 * MESH_LAYERS + 1}
-    eval_exact = all(rk["bf16"]["eval_launches"] == eval_want for rk in ranks)
-    steady = slice(1, None)          # the first step builds the groups' use
-    mesh_ms = max(float(np.median(rk["bf16"]["step_ms"][steady]))
-                  for rk in ranks)
-    one_ms = float(np.median(ref["step_ms"][steady]))
-    rec = {"phase": "train_mesh", "dtype": "bf16", "remat": "full",
-           "attention_dropout": DROP_RATE, "hidden_dropout": DROP_RATE,
-           "mixup_alpha": MIXUP_ALPHA, "layers": MESH_LAYERS,
-           "mesh_losses": ranks[0]["bf16"]["losses"],
-           "one_process_losses": ref["losses"], "loss_diff": loss_diff,
-           "loss_bound": loss_bound, "eval_logit_diff": logit_diff,
-           "eval_logit_bound": logit_bound,
-           "rank_coords": [rk["coords"] for rk in ranks],
-           "step_ms_per_rank": [rk["bf16"]["step_ms"] for rk in ranks],
-           "step_ms": mesh_ms, "one_process_step_ms": one_ms,
-           "images_per_s": MESH_BATCH / mesh_ms * 1e3,
-           "one_process_images_per_s": MESH_BATCH / one_ms * 1e3,
-           "dense_b36_images_per_s": dense_rec["images_per_s"],
-           "collectives_per_step": ranks[0]["bf16"]["collectives"][-1],
-           "eval_collectives": ranks[0]["bf16"]["eval_collectives"],
-           "launches_per_step": ranks[0]["bf16"]["launches"][-1],
-           "launches_exact": exact, "eval_launches_exact": eval_exact,
-           "peak_gb_per_rank": [rk["bf16"]["peak_gb"] for rk in ranks],
-           "ranks_wall_s": wall, "shared_card": True}
-    emit(rec)
-    require(all(np.isfinite(rk["bf16"]["losses"]).all() for rk in ranks),
-            "train_mesh: finite losses")
-    require(loss_diff <= loss_bound and logit_diff <= logit_bound,
-            f"train_mesh bf16: loss {loss_diff} (bound {loss_bound}), "
-            f"logits {logit_diff} (bound {logit_bound})")
-    require(exact and eval_exact,
-            f"train_mesh launches: {rec['launches_per_step']} != {want}")
-
-    # f32 at depth 2: losses relative, parameters of the largest
-    ref = refs["f32"]
-    got = torch.load(f"{out}/f32_params.pt")
-    scale = max(float(p.abs().max()) for p in ref["params"].values())
-    param_diff = max(float((got[n] - p).abs().max())
-                     for n, p in ref["params"].items()) / scale
-    loss_rel = max(abs(a - b) / abs(b) for rk in ranks
-                   for a, b in zip(rk["f32"]["losses"], ref["losses"]))
-    rec32 = {"phase": "train_mesh", "dtype": "f32",
-             "layers": MESH_RUNS[1][1]["num_layers"],
-             "mesh_losses": ranks[0]["f32"]["losses"],
-             "one_process_losses": ref["losses"], "loss_rel_diff": loss_rel,
-             "param_diff_of_largest": param_diff, "bound": MESH_F32_TOL,
-             "collectives_per_step": ranks[0]["f32"]["collectives"][-1]}
-    emit(rec32)
-    require(loss_rel <= MESH_F32_TOL["loss_rel"]
-            and param_diff <= MESH_F32_TOL["params_of_largest"],
-            f"train_mesh f32: loss {loss_rel}, params {param_diff}")
     launches = dict.fromkeys(_wrappers(), 0)
-    for rk in ranks:
-        for counts in rk["bf16"]["launches"] + [rk["bf16"]["eval_launches"]]:
-            for k, n in counts.items():
-                launches[k] += n
+    steady = slice(1, None)          # the first step builds the groups' use
+    for name, path, model, n_steps in MESH_RUNS:
+        ref = refs[name]
+        want = mesh_launches_per_step(path, model)
+        exact = all(c == want for rk in ranks for c in rk[name]["launches"])
+        loss_diff = max(abs(a - b) for rk in ranks
+                        for a, b in zip(rk[name]["losses"], ref["losses"]))
+        mesh_ms = max(float(np.median(rk[name]["step_ms"][steady]))
+                      for rk in ranks)
+        one_ms = float(np.median(ref["step_ms"][steady]))
+        rec = {"phase": "train_mesh", "run": name, "path": path,
+               "model": model, "steps": n_steps,
+               "mesh_losses": ranks[0][name]["losses"],
+               "one_process_losses": ref["losses"], "loss_diff": loss_diff,
+               "first_step_loss_diff": max(
+                   abs(rk[name]["losses"][0] - ref["losses"][0])
+                   for rk in ranks),
+               "step_ms_per_rank": [rk[name]["step_ms"] for rk in ranks],
+               "step_ms": mesh_ms, "one_process_step_ms": one_ms,
+               "collectives_per_step": ranks[0][name]["collectives"][-1],
+               "launches_per_step": ranks[0][name]["launches"][-1],
+               "launches_exact": exact,
+               "peak_gb_per_rank": [rk[name]["peak_gb"] for rk in ranks]}
+        ok = all(np.isfinite(rk[name]["losses"]).all() for rk in ranks)
+        if cfg_dtype(model) == "bfloat16":
+            rec["loss_bound"] = MESH_BF16_TOL["loss_ulps"] * float(
+                bf16_ulp(torch.tensor(max(ref["losses"]))))
+            ok = ok and loss_diff <= rec["loss_bound"]
+        else:
+            got = torch.load(f"{out}/{name}_params.pt")
+            scale = max(float(p.abs().max()) for p in ref["params"].values())
+            rec["param_diff_of_largest"] = max(
+                float((got[n] - p).abs().max())
+                for n, p in ref["params"].items()) / scale
+            rec["loss_rel_diff"] = max(abs(a - b) / abs(b) for rk in ranks
+                                       for a, b in zip(rk[name]["losses"],
+                                                       ref["losses"]))
+            if path == "int8":
+                rec["bound"] = tol = MESH_INT8_F32_TOL
+                rec["first_loss_rel_diff"] = rec["first_step_loss_diff"] \
+                    / abs(ref["losses"][0])
+                rec["loss_bound"] = tol["loss_ulps"] * float(
+                    bf16_ulp(torch.tensor(max(ref["losses"]))))
+                ok = (ok and rec["first_loss_rel_diff"]
+                      <= tol["first_loss_rel"]
+                      and loss_diff <= rec["loss_bound"])
+            else:
+                rec["bound"] = tol = MESH_F32_TOL
+                ok = ok and rec["loss_rel_diff"] <= tol["loss_rel"]
+            ok = ok and (rec["param_diff_of_largest"]
+                         <= tol["params_of_largest"])
+        if name == "bf16":
+            logit_diff = float(np.abs(
+                np.asarray(ranks[0][name]["eval_logits"])
+                - ref["eval_logits"]).max())
+            logit_bound = MESH_BF16_TOL["logit_ulps"] * float(bf16_ulp(
+                torch.tensor(float(np.abs(ref["eval_logits"]).max()))))
+            eval_want = {**dict.fromkeys(_wrappers(), 0),
+                         "flash_attention_inference": MESH_LAYERS,
+                         "layer_norm": 2 * MESH_LAYERS + 1}
+            eval_exact = all(rk[name]["eval_launches"] == eval_want
+                             for rk in ranks)
+            rec.update(
+                mixup_alpha=MIXUP_ALPHA, eval_logit_diff=logit_diff,
+                eval_logit_bound=logit_bound, eval_launches_exact=eval_exact,
+                eval_collectives=ranks[0][name]["eval_collectives"],
+                images_per_s=MESH_BATCH / mesh_ms * 1e3,
+                one_process_images_per_s=MESH_BATCH / one_ms * 1e3,
+                dense_b36_images_per_s=dense_rec["images_per_s"])
+            ok = ok and logit_diff <= logit_bound
+            exact = exact and eval_exact
+        emit(rec)
+        require(ok, f"train_mesh {name}: {rec}")
+        require(exact, f"train_mesh {name} launches: "
+                       f"{rec['launches_per_step']} != {want}")
+        for rk in ranks:
+            for counts in rk[name]["launches"] + (
+                    [rk[name]["eval_launches"]] if name == "bf16" else []):
+                for k, n in counts.items():
+                    launches[k] += n
     return launches
+
+
+def cfg_dtype(model: dict) -> str:
+    """A MESH_RUNS model's compute dtype (bf16 unless it says f32)."""
+    return model.get("dtype", "bfloat16")
 
 
 def wait_all(procs: list, timeout_s: float) -> None:

@@ -1757,3 +1757,60 @@ def test_head_dim_equals_zero_padded_wider_head_dim(dev, d, wide, dtype,
     assert not ow[..., d:].any()
     for g, w in zip(grads, wgrads):
         assert torch.equal(g, w[..., :d]) and not w[..., d:].any()
+
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_packed_dropout_autograd_at_a_head_base(dev, t, dtype):
+    """The segment dropout path under autograd (``attention_packed`` with
+    a seed) on a tensor rank's heads [h0, h0 + H/t), told ``head_base`` =
+    h0 and ``heads_total`` = H, equals the whole call's slice bit for bit:
+    the output and the gradients of q, k and v."""
+    seg = _seg_ids("odd-S", 2, dev)
+    q, k, v = (x.detach().requires_grad_(True)
+               for x in _qkv_at(64, 2, seg.shape[1], dtype, dev, heads=12))
+    do = _randn(q.shape, dtype, dev, seed=5)
+    o = fa.attention_packed(q, k, v, seg, "auto", _SEED, _RATE, row_base=3)
+    o.backward(do)
+    n = 12 // t
+    for r in range(t):
+        sl = slice(r * n, (r + 1) * n)
+        qs, ks, vs = (x.detach()[:, sl].requires_grad_(True)
+                      for x in (q, k, v))
+        part = fa.attention_packed(qs, ks, vs, seg, "auto", _SEED, _RATE,
+                                   row_base=3, head_base=r * n,
+                                   heads_total=12)
+        part.backward(do[:, sl])
+        torch.cuda.synchronize()
+        assert torch.equal(part, o[:, sl])
+        for got, whole in ((qs, q), (ks, k), (vs, v)):
+            assert torch.equal(got.grad, whole.grad[:, sl])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_row_partials_of_two_ranks_equal_one_product(dev, out_dtype):
+    """K = 768 split over two emulated tensor ranks: each rank's unscaled
+    f32 partial on the int8 kernel (``int8_train.row_partial``: scale 1,
+    bias 0), the two summed in f32, then the epilogue once, equal the
+    one-process int8 product's bits. The operands sit at ±127 in part, so
+    the sums reach 768 · 127² = 12.4 M, below 2²⁴."""
+    from chestxray_vit_tpu_torch.models import int8_train
+    g = torch.Generator(device=dev).manual_seed(3)
+    m, k, n = 2308, 768, 768
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    xq[0], wq[0] = 127, 127                  # the largest sum
+    xq[1], wq[1] = -127, 127
+    scale = torch.rand(n, generator=g, device=dev) * 1e-4
+    bias = torch.randn(n, generator=g, device=dev)
+    whole = i8.int8_matmul_fused(xq, wq, scale, bias, out_dtype=out_dtype)
+    half = k // 2
+    acc = sum(int8_train.row_partial(xq[:, sl].contiguous(),
+                                     wq[:, sl].contiguous())
+              for sl in (slice(0, half), slice(half, k)))
+    got = (acc * scale + bias).to(out_dtype)
+    torch.cuda.synchronize()
+    assert float(acc[0, 0]) == 768 * 127 ** 2
+    assert torch.equal(got, whole)

@@ -3,8 +3,8 @@ gloo processes against one process and against the JAX package.
 
 - The process layer's one-process defaults (the counterpart of
   ``tests/test_distributed.py``), an explicit group that cannot be joined,
-  and the refusals (#12: the packed step and int8 straight-through
-  training on the fsdp and tensor axes).
+  and the steps #12 once refused building on the fsdp and tensor axes
+  (the packed step, int8 straight-through training on a tensor axis).
 - The dense ``Trainer``: a two-rank run (each rank loading its slice of
   the global batch of 16) equals, on both ranks, the port's one-process
   run and the JAX package's one-process ``Trainer`` on the same weights
@@ -535,18 +535,19 @@ def test_explicit_group_that_cannot_be_joined_raises(monkeypatch):
 @pytest.mark.parametrize("what,axis", [("packed", "fsdp"),
                                        ("packed", "tensor"),
                                        ("int8_scales", "tensor")])
-def test_mesh_axes_beyond_data_refused(what, axis):
-    """What the fsdp and tensor axes do not take yet: the packed step, and
-    int8 straight-through training on a tensor axis (a row-split product
-    quantized per output channel needs a max over the tensor ranks)."""
+def test_mesh_axes_beyond_data_build(what, axis):
+    """The steps the fsdp and tensor axes once refused build there: the
+    packed step, and int8 straight-through training on a tensor axis (its
+    row products take their per-channel scales over the tensor ranks).
+    ``tests/test_torch_packed_mesh.py`` runs them against one process."""
     mesh = mesh_lib.build_mesh(tconfig.MeshConfig(data=1, **{axis: 2}),
                                world=2)
     cfg = tconfig.Config(model=tconfig.ModelConfig(**DENSE_MODEL))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #12"):
-        if what == "packed":
-            tsteps.make_packed_train_step(cfg, 10, GRIDS, mesh=mesh)
-        else:
-            tsteps.make_train_step(cfg, 10, int8_scales={}, mesh=mesh)
+    if what == "packed":
+        step = tsteps.make_packed_train_step(cfg, 10, GRIDS, mesh=mesh)
+    else:
+        step = tsteps.make_train_step(cfg, 10, int8_scales={}, mesh=mesh)
+    assert callable(step)
 
 
 def test_mesh_data_axis():
@@ -679,12 +680,13 @@ def test_packed_step_over_unequal_ranks_equals_the_concatenated_batch(
 
 def test_refusal_messages_name_roadmap_items():
     """The port's refusals name the ROADMAP items that lift them: #8 (one
-    process driving several devices) and #12 (the mesh axes beyond
-    data)."""
+    process driving several devices) and #15 (a tensor size that splits a
+    head); #12 (the mesh axes beyond data, done) keeps its line."""
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
         roadmap = f.read()
     for item, title in (("8", "`parallel/` and serving across devices"),
-                        ("12", "The rest")):
+                        ("12", "The rest"),
+                        ("15", "Tensor sizes that split a head")):
         assert f"\n{item}. **{title}" in roadmap, item
 
 

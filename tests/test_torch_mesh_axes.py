@@ -119,7 +119,7 @@ def test_tensor_split_needs_whole_heads():
             jax.random.key(0), ModelConfig(**{**TINY, "num_heads": 2}))),
         tconfig.ModelConfig(**{**TINY, "num_heads": 2}))
     mesh = tmesh.build_mesh(tconfig.MeshConfig(data=1, tensor=4), world=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #15"):
         tmesh.param_layout(mesh, params)
 
 
