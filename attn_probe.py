@@ -14,9 +14,9 @@ order given and then in reverse, so that each build is timed twice on the
 same card. A build:
 
 - multiplies through the tile helpers alone (``tile_mma_selftest.cu``) in
-  its three bf16 forms, whole and ragged, against ``torch.matmul``, and in
-  its two int8 forms exactly against the integer product (a build without
-  them reports so);
+  its three bf16 forms and the two 16-wide forms of the forward at kD = 80,
+  whole and ragged, against ``torch.matmul``, and in its two int8 forms
+  exactly against the integer product (a build without them reports so);
 - forward (``--only fwd``; with no ``--only``, the two attention parts):
   holds the inference, training and
   dropout forwards against their plain versions at S = 1 … 1025 (largest
@@ -24,9 +24,11 @@ same card. A build:
   hash (mismatches), the segment forwards in two layouts, calls the
   training forward twice (equal bits), and times the inference forward at
   [8, 12, 577, 64] and [32, 12, 577, 64], the training, dropout and debug
-  forwards at [36, 12, 577, 64] and the segment forwards at [32, 12, S, 64]
-  (median of 7 x 10 calls, CUDA events; the inference and training
-  forwards also by the profiler's device time, ``fwd_device_ms``);
+  forwards at [36, 12, 577, 64], the inference and training forwards at
+  ViT-H/14's [8 | 32, 16, 257, 80] (``vith_*``) and the segment forwards
+  at [32, 12, S, 64] (median of 7 x 10 calls, CUDA events; the inference
+  and training forwards also by the profiler's device time,
+  ``fwd_device_ms``);
 - backward (``--only bwd``, or both): holds the dense, dropout and segment
   backward against their plain versions at a few sequence lengths (largest
   error relative to each gradient's largest magnitude), calls each twice
@@ -70,8 +72,10 @@ LENGTHS = (1, 37, 64, 65, 128, 129, 577, 1025)
 def selftest(gen) -> dict:
     """Largest |error| of the 64 x 64 x 64 bf16 products through the tile
     helpers against ``torch.matmul`` in f32, per orientation and row count,
-    and the mismatches of the int8 ones (64 x 64 x 128 and a half k tile)
-    against the exact integer product."""
+    the same of the 16-wide ones (mode 5: 64 x 64 x 16 through K-major
+    32-byte swizzled tiles; mode 6: 64 x 16 x 64, m64n16k16 on an MN-major
+    one), and the mismatches of the int8 ones (64 x 64 x 128 and a half k
+    tile) against the exact integer product."""
     from chestxray_vit_tpu_torch import kernels
 
     lib, stream = kernels.library(), torch.cuda.current_stream().cuda_stream
@@ -89,6 +93,20 @@ def selftest(gen) -> dict:
             bz = b.float().clone()
             bz[rows:] = 0
             ref = a.float() @ (bz if mode == 1 else bz.t())
+            out[f"mode{mode}_rows{rows}"] = (c - ref).abs().max().item()
+    a16, b16 = (torch.randn((64, 16), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+    for mode, lhs, cols in ((5, a16, 64), (6, a, 16)):
+        for rows in (64, 17):
+            c = torch.full((64, cols), float("nan"), device="cuda")
+            if lib.cxr_tile_mma_selftest(lhs.data_ptr(), b16.data_ptr(),
+                                         c.data_ptr(), mode, rows, 0, stream):
+                out[f"mode{mode}_rows{rows}"] = "not in this build"
+                continue
+            torch.cuda.synchronize()
+            bz = b16.float().clone()
+            bz[rows:] = 0
+            ref = lhs.float() @ (bz.t() if mode == 5 else bz)
             out[f"mode{mode}_rows{rows}"] = (c - ref).abs().max().item()
     a8, b8 = (torch.randint(-128, 128, (64, 128), generator=gen,
                             device="cuda", dtype=torch.int8)
@@ -150,7 +168,7 @@ def abs_err(got, ref) -> float:
 
 def forward(gen, out: dict) -> None:
     from chestxray_vit_tpu_torch.ops import flash_attention as fa
-    from chip_smoke import device_ms, time_ms
+    from chip_smoke import VITH_ATTN_SHAPES, device_ms, time_ms
     from smoke_batches import PACKED_SEQS, packed_layouts
 
     for s in LENGTHS:
@@ -198,6 +216,16 @@ def forward(gen, out: dict) -> None:
         lambda: fa.flash_attention_dropout_debug(q, k, v, SEED, RATE,
                                                  block_q=bq))
     del q, k, v
+    for b, h, s, d in VITH_ATTN_SHAPES:
+        x = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+        for name, fn in (("inference", fa.flash_attention_inference),
+                         ("fwd", fa.flash_attention_fwd)):
+            times[f"vith_{name}_b{b}"] = time_ms(lambda: fn(q, k, v))
+            device[f"vith_{name}_b{b}"] = device_ms(
+                lambda: fn(q, k, v))["device_ms"]
+        del x, q, k, v
 
     for name, seg in packed_layouts(PACKED_SEQS).items():
         if name == "mixed_pad":

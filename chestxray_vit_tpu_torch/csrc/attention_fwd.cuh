@@ -45,19 +45,25 @@
 // The f32 path (used for parity runs) is plain FMA.
 //
 // Head dims: any d with d % 8 == 0 and 8 <= d <= 128 (head_dim_ok), built
-// at a padded width kD = 64 * ceil(d / 64), 64 or 128; d itself is a
-// runtime argument. Each 64-column chunk of a Q, K, V or O tile is one of
-// the swizzled 64 x 64 tiles above, so the copies, descriptors and the
-// m64n64k16 steps are those of d = 64: S sums the chunks' QK products, O
-// keeps one accumulator a V chunk. Columns at or past d arrive as zeros
-// and are never stored, which is exact: zero Q/K columns add nothing to
-// QK^T, zero V columns give zero O columns. The S product skips the
-// 16-deep steps of the last chunk that lie wholly past d; the PV product
-// runs whole chunks (d = 80 computes a 128-wide O, 37.5 % of it padding).
-// kD = 128 doubles the O accumulator (64 registers a thread) and the
-// stage, so it runs two blocks an SM (83 KB of shared memory each) where
-// kD = 64 runs four. The softmax scale is the caller's (d^-1/2 of the real
-// d).
+// at a padded width kD (fwd_head_dim): 64, 80 (bf16, 64 < d <= 80) or 128;
+// d itself is a runtime argument. Each 64-column chunk of a Q, K, V or O
+// tile is one of the swizzled 64 x 64 tiles above, so the copies,
+// descriptors and the m64n64k16 steps are those of d = 64: S sums the
+// chunks' QK products, O keeps one accumulator a V chunk. At kD = 80 the
+// columns 64-79 are a 64 x 16 tile of their own under the 32-byte swizzle
+// (common.cuh): S adds its one 16-deep step, O += P V_16 runs m64n16k16
+// on V's 16 columns as they lie, so the O accumulator is 40 registers a
+// thread and no column past 80 is computed. Columns at or past d arrive as
+// zeros and are never stored, which is exact: zero Q/K columns add nothing
+// to QK^T, zero V columns give zero O columns. The S product skips the
+// 16-deep steps of the last chunk that lie wholly past d. The 16-deep
+// steps, their order and their operands are those of kD = 128 on the same
+// d, so the two widths give the same bits (a d = 80 call equals a d = 128
+// call on operands zero-padded to 128). kD = 128 doubles the O
+// accumulator (64 registers a thread) and the stage, so it runs two blocks
+// an SM (83 KB of shared memory each); kD = 64 (43 KB) and kD = 80 (53 KB)
+// run four. The f32 forward is built at 64 or 128 (padded_head_dim). The
+// softmax scale is the caller's (d^-1/2 of the real d).
 //
 // The running max is kept in log2 units (score * scale * log2 e); the lse
 // written for the backward is natural: m * ln 2 + ln l. Rows whose valid
@@ -82,24 +88,40 @@ constexpr int kBlockN = 64;   // keys per K/V tile
 
 // The bf16 forward's shared memory at padded head dim kD: a ring of two
 // stages (the next tile's copies fly under the current tile's products),
-// each the K and V tiles (kD / 64 chunks each) and 64 int32 ids, padded to
-// keep every tile 1024-byte aligned, then the block's Q tile; 1024 bytes of
-// slack put the ring on a 1024-byte boundary. The O tile passes through
-// the first stage at the end.
+// each the K and V tiles (kD / 64 chunks each, and at kD = 80 a 64 x 16
+// tile after them) and 64 int32 ids, padded to keep every tile 1024-byte
+// aligned, then the block's Q tile; 1024 bytes of slack put the ring on a
+// 1024-byte boundary. The O tile passes through the first stage at the
+// end.
 constexpr int kFwdStages = 2;
 template <int kD>
 struct FwdShape {
   static constexpr int kChunks = kD / 64;
-  static constexpr int kStageBytes = 2 * kChunks * kTileBytes + 1024;
+  static constexpr bool kTail = kD % 64 != 0;   // kD = 80: columns 64-79
+  static_assert(kD % 64 == 0 || kD % 64 == 16, "64-column chunks and a 16");
+  // one operand's tile: its chunks, then the 16-column tile
+  static constexpr int kOperandBytes =
+      kChunks * kTileBytes + (kTail ? kTile16Bytes : 0);
+  static constexpr int kIdsOffset = 2 * kOperandBytes;   // in a stage
+  static constexpr int kStageBytes = (kIdsOffset + 256 + 1023) / 1024 * 1024;
   static constexpr int kSmemBytes =
-      kFwdStages * kStageBytes + kChunks * kTileBytes + 1024;
-  // kD = 64: four blocks an SM (sixteen warps), so at most 128 registers a
-  // thread: the four hide one another's barrier, wgmma and exp2 latencies.
-  // Three (the backward's) read 16-18 % slower with dropout or segment
-  // ids, whose threads then take 134-148 registers. kD = 128: two, for the
-  // 64 more accumulator registers and the 83 KB of shared memory.
-  static constexpr int kBlocksPerSm = kD == 64 ? 4 : 2;
+      kFwdStages * kStageBytes + kOperandBytes + 1024;
+  // kD = 64 and 80: four blocks an SM (sixteen warps), so at most 128
+  // registers a thread: the four hide one another's barrier, wgmma and
+  // exp2 latencies. Three (the backward's) read 16-18 % slower with
+  // dropout or segment ids, whose threads then take 134-148 registers.
+  // kD = 128: two, for the 64 more accumulator registers and the 83 KB of
+  // shared memory.
+  static constexpr int kBlocksPerSm = kD == 128 ? 2 : 4;
 };
+
+// The blocks an SM a forward is built for: FwdShape's, but three for the
+// segment dropout form at kD = 80, which at 128 registers spilled 12 bytes
+// (its 8 more O registers beside the ids and the hash).
+template <int kD, bool kDropout, bool kSegment>
+constexpr int fwd_blocks_per_sm() {
+  return kD == 80 && kDropout && kSegment ? 3 : FwdShape<kD>::kBlocksPerSm;
+}
 
 // The max to subtract in the exp2: 0 while a row has met no unmasked score
 // (kSegment only), so that exp2(-inf - 0) = 0 and not exp2(-inf + inf).
@@ -117,7 +139,8 @@ __device__ __forceinline__ float safe_max(float m) {
 // real head dim (at most kD); kPad masks the columns at or past it.
 template <int kD, bool kPad, bool kLse, bool kDropout, bool kEmitKeep,
           bool kSegment>
-__global__ void __launch_bounds__(128, FwdShape<kD>::kBlocksPerSm)
+__global__ void __launch_bounds__(
+    128, (fwd_blocks_per_sm<kD, kDropout, kSegment>()))
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -126,6 +149,7 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
               Dropout drop, const int* __restrict__ seg) {
   using F = FwdShape<kD>;
   constexpr int kC = F::kChunks;
+  constexpr int kTailCol = 64 * kC;  // the 16-column tile's first column
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -150,13 +174,18 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
       copy_chunk_async<kPad>(st + c * kTileBytes, kp, ks.s, n0, S, c, hd);
-      copy_chunk_async<kPad>(st + (kC + c) * kTileBytes, vp, vs.s, n0, S, c,
-                             hd);
+      copy_chunk_async<kPad>(st + F::kOperandBytes + c * kTileBytes, vp, vs.s,
+                             n0, S, c, hd);
+    }
+    if constexpr (F::kTail) {
+      copy_tile16_async(st + kC * kTileBytes, kp, ks.s, n0, S, kTailCol, hd);
+      copy_tile16_async(st + F::kOperandBytes + kC * kTileBytes, vp, vs.s, n0,
+                        S, kTailCol, hd);
     }
     if (kSegment && tid < kBlockN) {
       const bool ok = n0 + tid < S;
-      cp_async_4(st + 2 * kC * kTileBytes + 4 * tid,
-                 segp + (ok ? n0 + tid : 0), ok);
+      cp_async_4(st + F::kIdsOffset + 4 * tid, segp + (ok ? n0 + tid : 0),
+                 ok);
     }
   };
 
@@ -164,10 +193,12 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   // product (held as register fragments across the walk, those registers
   // were reused by ptxas in one build)
   const uint32_t qtile = ring + kFwdStages * F::kStageBytes;
+  const __nv_bfloat16* qp = q + b * qs.b + h * qs.h;
 #pragma unroll
   for (int c = 0; c < kC; ++c)
-    copy_chunk_async<kPad>(qtile + c * kTileBytes, q + b * qs.b + h * qs.h,
-                           qs.s, m0, S, c, hd);
+    copy_chunk_async<kPad>(qtile + c * kTileBytes, qp, qs.s, m0, S, c, hd);
+  if constexpr (F::kTail)
+    copy_tile16_async(qtile + kC * kTileBytes, qp, qs.s, m0, S, kTailCol, hd);
   cp_async_commit();
   TileWalk<kSegment> walk(segp, S, m0);
   int fifo[kFwdStages];  // fifo[0]: the tile to compute next; then those in flight
@@ -193,12 +224,19 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const float c = prescale ? 1.f : scale_log2;
 
   float acc[kC][8][4];  // O, one accumulator a 64-column chunk of V
+  float acc16[2][4];    // kTail: O's columns 64-79
 #pragma unroll
   for (int ch = 0; ch < kC; ++ch)
 #pragma unroll
     for (int n = 0; n < 8; ++n)
       acc[ch][n][0] = acc[ch][n][1] = acc[ch][n][2] = acc[ch][n][3] = 0.f;
   acc_fence(acc);
+  if constexpr (F::kTail) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      acc16[n][0] = acc16[n][1] = acc16[n][2] = acc16[n][3] = 0.f;
+    acc_fence(acc16);
+  }
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 (log2 units)
   float l_run[2] = {0.f, 0.f};              // this thread's share of the sum
 
@@ -215,18 +253,20 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 
     const int n0 = fifo[0] * kBlockN, krows = min(kBlockN, S - n0);
     const uint32_t sk = ring + cs * F::kStageBytes,
-                   sv = sk + kC * kTileBytes;
+                   sv = sk + F::kOperandBytes;
     const int* sI = reinterpret_cast<const int*>(
-        ring_ptr + cs * F::kStageBytes + 2 * kC * kTileBytes);
+        ring_ptr + cs * F::kStageBytes + F::kIdsOffset);
 
     // S = Q K^T: 16 rows x 64 keys per warp, raw scores, summed over the
-    // head dim's chunks
+    // head dim's chunks (and the 16-column tile's one step)
     float s[8][4];
     wgmma_fence();
 #pragma unroll
     for (int ch = 0; ch < kC; ++ch)
       tile_mma_ss(s, qtile + ch * kTileBytes, sk + ch * kTileBytes, ch > 0,
                   ch == kC - 1 ? last_steps : 4);
+    if constexpr (F::kTail)
+      tile16_mma_ss(s, qtile + kC * kTileBytes, sk + kC * kTileBytes);
     wgmma_commit();
     wgmma_wait<0>(s);
 
@@ -324,6 +364,16 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
         acc[ch][n][2] *= alpha[1];
         acc[ch][n][3] *= alpha[1];
       }
+    if constexpr (F::kTail) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        acc16[n][0] *= alpha[0];
+        acc16[n][1] *= alpha[0];
+        acc16[n][2] *= alpha[1];
+        acc16[n][3] *= alpha[1];
+      }
+      acc_fence(acc16);
+    }
 
     // O += P V, V as it lies (the transposed-B form), chunk by chunk, the
     // k-steps of keys below S only
@@ -332,8 +382,11 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int ch = 0; ch < kC; ++ch)
       tile_mma_rs<true>(acc[ch], pf, sv + ch * kTileBytes, krows);
+    if constexpr (F::kTail)
+      tile16_mma_rs(acc16, pf, sv + kC * kTileBytes, krows);
     wgmma_commit();
     wgmma_wait<0>(acc);  // the stage is free once this is done
+    if constexpr (F::kTail) acc_fence(acc16);
 #pragma unroll
     for (int d = 0; d < kFwdStages - 1; ++d) fifo[d] = fifo[d + 1];
     cs = cs + 1 == kFwdStages ? 0 : cs + 1;
@@ -371,6 +424,21 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       if (m0 + r < S && (!kPad || col < hd))
         *reinterpret_cast<uint4*>(op + (m0 + r) * os.s + col) =
             *reinterpret_cast<const uint4*>(ot + swizzled(r, x));
+    }
+  }
+  if constexpr (F::kTail) {
+    // columns 64-79 straight from the registers: a quarter warp writes a
+    // row's 32 bytes (the columns below hd only)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int col = kTailCol + n * 8 + 2 * t;
+      if (col >= hd) continue;
+      if (row0 < S)
+        *reinterpret_cast<uint32_t*>(op + row0 * os.s + col) =
+            pack_bf16x2(acc16[n][0] * inv0, acc16[n][1] * inv0);
+      if (row0 + 8 < S)
+        *reinterpret_cast<uint32_t*>(op + (row0 + 8) * os.s + col) =
+            pack_bf16x2(acc16[n][2] * inv1, acc16[n][3] * inv1);
     }
   }
   if (kLse && t == 0) {
@@ -514,7 +582,8 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // Launches the kernel for the dtype (0 = float32, 1 = bfloat16) at padded
-// head dim kD on ``stream`` (the f32 kernel always masks by column).
+// head dim kD on ``stream`` (the f32 kernel always masks by column and is
+// not built at kD = 80).
 template <int kD, bool kPad, bool kLse, bool kDropout, bool kEmitKeep,
           bool kSegment>
 int launch_attn_fwd_at(const void* q, const void* k, const void* v, void* o,
@@ -541,11 +610,14 @@ int launch_attn_fwd_at(const void* q, const void* k, const void* v, void* o,
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
         lse, heads, seq, head_dim, qs, ks, vs, os, scale_log2, drop, seg);
   } else if (dtype == 0) {
-    attn_fwd_f32<kD, kLse, kDropout, kEmitKeep, kSegment>
-        <<<grid, kBlockM * (kD / 64), 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, heads, seq,
-        head_dim, qs, ks, vs, os, scale_log2, drop, seg);
+    if constexpr (FwdShape<kD>::kTail)
+      return static_cast<int>(cudaErrorInvalidValue);
+    else
+      attn_fwd_f32<kD, kLse, kDropout, kEmitKeep, kSegment>
+          <<<grid, kBlockM * (kD / 64), 0, st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), lse, heads,
+          seq, head_dim, qs, ks, vs, os, scale_log2, drop, seg);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -553,7 +625,8 @@ int launch_attn_fwd_at(const void* q, const void* k, const void* v, void* o,
 }
 
 // Checks the shape, picks the kernel for the dtype (0 = float32,
-// 1 = bfloat16) and the padded head dim, and launches it on ``stream``.
+// 1 = bfloat16) and the padded head dim (bf16: fwd_head_dim; f32:
+// padded_head_dim), and launches it on ``stream``.
 template <bool kLse, bool kDropout = false, bool kEmitKeep = false,
           bool kSegment = false>
 int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
@@ -575,6 +648,10 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
         dtype, st, drop, seg);
   if (padded_head_dim(head_dim) == 64)
     return launch_attn_fwd_at<64, true, kLse, kDropout, kEmitKeep, kSegment>(
+        q, k, v, o, lse, batch, heads, seq, head_dim, qs, ks, vs, os, scale,
+        dtype, st, drop, seg);
+  if (dtype == 1 && fwd_head_dim(head_dim) == 80)
+    return launch_attn_fwd_at<80, true, kLse, kDropout, kEmitKeep, kSegment>(
         q, k, v, o, lse, batch, heads, seq, head_dim, qs, ks, vs, os, scale,
         dtype, st, drop, seg);
   return launch_attn_fwd_at<128, true, kLse, kDropout, kEmitKeep, kSegment>(

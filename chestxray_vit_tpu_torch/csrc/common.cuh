@@ -17,15 +17,21 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // The head dims the attention kernels take (a multiple of 8 from 8 to
-// 128), and the padded width, 64 or 128, each is built at. d = 64 has an
+// 128), and the padded width each is built at: 64 or 128 for the backward
+// and the f32 forward (padded_head_dim), 64, 80 or 128 for the bf16
+// forward (fwd_head_dim: 64 < d <= 80, ViT-H/14's 80, is a 64-column chunk
+// and a 16-column one, so no column past 80 is computed). d = 64 has an
 // instantiation of its own with no column masks (kPad false), the code the
 // kernels ran before other head dims; every other d masks the columns at or
-// past it (d = 128 too, which saves a fourth instantiation).
+// past it (d = 80 and 128 too, which saves instantiations).
 __host__ __device__ constexpr bool head_dim_ok(int d) {
   return d % 8 == 0 && d >= 8 && d <= 128;
 }
 __host__ __device__ constexpr int padded_head_dim(int d) {
   return d <= 64 ? 64 : 128;
+}
+__host__ __device__ constexpr int fwd_head_dim(int d) {
+  return d <= 64 ? 64 : d <= 80 ? 80 : 128;
 }
 
 struct Strides {
@@ -439,10 +445,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 // The compiler keeps every ordinary read and write of ``acc`` on its side
 // of this point: after a wait, before the fence of an accumulator that
-// ordinary instructions have set.
-__device__ __forceinline__ void acc_fence(float (&acc)[8][4]) {
+// ordinary instructions have set (kN 8: 64 columns; 2: the 16 of a 64 x 16
+// tile's product).
+template <int kN>
+__device__ __forceinline__ void acc_fence(float (&acc)[kN][4]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < kN; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[n][e])::"memory");
 }
@@ -452,10 +460,10 @@ __device__ __forceinline__ void acc_fence(float (&acc)[kN][8][4]) {
   for (int c = 0; c < kN; ++c) acc_fence(acc[c]);
 }
 // Waits until at most kPending committed groups are in flight; ``acc`` is
-// an accumulator of a group that has then finished (or kN of them: the
-// 64-column chunks of a head dim above 64).
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait(float (&acc)[8][4]) {
+// an accumulator of a group that has then finished (64 or 16 columns, or
+// kN 64-column ones: the chunks of a head dim above 64).
+template <int kPending, int kN>
+__device__ __forceinline__ void wgmma_wait(float (&acc)[kN][4]) {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
                : "memory");
   acc_fence(acc);
@@ -562,6 +570,98 @@ __device__ __forceinline__ void tile_mma_rs(float (&acc)[8][4],
       wgmma_m64n64k16<kTransB ? 1 : 0>(
           acc, a[kk], desc + ((kTransB ? kk * 2048 : kk * 32) >> 4),
           kTransB || kk > 0 ? 1 : 0);
+}
+
+// ---------------------------------------------------------------------------
+// 64 x 16 bf16 tiles under the 32-byte swizzle: the 16-column chunk of a
+// forward built at kD = 80 (attention_fwd.cuh). A tile is 64 rows of 32
+// bytes (2048 bytes at a 256-byte aligned shared address); the 16-byte half
+// c of row r lies at half c ^ ((r >> 2) & 1), the layout a wgmma
+// descriptor with the 32-byte swizzle reads. Groups of 8 rows are 256 bytes
+// apart. K-major (rows are m or n, the 32 bytes run along k: Q and K in S =
+// Q K^T) the tile is one 16-deep step. MN-major (rows are k, the 32 bytes
+// the 16 values of n: V in O += P V, read as it lies) step kk starts 512 kk
+// bytes further, and the leading offset, which would step to a second
+// 16-wide n block, is not used.
+// ---------------------------------------------------------------------------
+
+constexpr int kTile16Bytes = kTileRows * 32;
+
+__device__ __forceinline__ uint32_t swizzled16(int row, int half) {
+  return static_cast<uint32_t>(row * 32 + ((half ^ ((row >> 2) & 1)) << 4));
+}
+
+// Starts the copies of columns [col0, col0 + 16) of the 64 rows from r0 of
+// a strided [S, d] operand into the 32-byte swizzled tile at ``dst``: one
+// 16-byte copy per thread of a 128-thread block; rows at or past S and
+// columns at or past d arrive as zeros and are not read.
+__device__ __forceinline__ void copy_tile16_async(uint32_t dst,
+                                                  const __nv_bfloat16* src,
+                                                  long long stride, int r0,
+                                                  int S, int col0, int d) {
+  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const int col = col0 + 8 * half;
+  const bool valid = col < d && r0 + r < S;
+  cp_async_16(dst + swizzled16(r, half),
+              src + (valid ? (r0 + r) * stride + col : 0), valid);
+}
+
+// wgmma's descriptor of a 32-byte swizzled 64 x 16 tile (either major):
+// start address, leading offset 1 (unused), 8-row groups 256 bytes apart,
+// the 32-byte swizzle mode (3) in bits 62-63.
+__device__ __forceinline__ uint64_t wgmma_desc16(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) |
+         (static_cast<uint64_t>(3) << 62);
+}
+
+// One asynchronous m64n16k16 step of a warpgroup: D (+)= A B with this
+// warp's 16 x 16 A fragment a[kk] in registers (acc_to_a's layout), B a
+// 16-deep slice of a 64 x 16 tile through its descriptor (kTransB:
+// MN-major), D the warp's 16 x 16 accumulator, d[n] columns [8n, 8n + 8)
+// of rows g and g + 8 as in the 64-wide step.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[2][4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(kTransB));
+}
+
+// The 16-column chunk's products, asynchronous like tile_mma_ss / _rs.
+// tile16_mma_ss: acc += A B^T over the one 16-deep step of two K-major
+// 64 x 16 tiles (the last step of S = Q K^T at kD = 80).
+__device__ __forceinline__ void tile16_mma_ss(float (&acc)[8][4],
+                                              uint32_t a_tile,
+                                              uint32_t b_tile) {
+  wgmma_m64n64k16_ss(acc, wgmma_desc16(a_tile), wgmma_desc16(b_tile), 1);
+}
+
+// tile16_mma_rs: acc += A tile, A 64 x 64 as this warp's fragments ``a``,
+// the tile's 64 rows the k index (MN-major: O_16 += P V_16); only the
+// 16-deep steps that reach one of its first ``rows`` (block-uniform) rows
+// run.
+__device__ __forceinline__ void tile16_mma_rs(float (&acc)[2][4],
+                                              const uint32_t (&a)[4][4],
+                                              uint32_t tile,
+                                              int rows = kTileRows) {
+  const uint64_t desc = wgmma_desc16(tile);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    if (kk * 16 < rows)
+      wgmma_m64n16k16<1>(acc, a[kk], desc + ((kk * 512) >> 4), 1);
 }
 
 // ---------------------------------------------------------------------------

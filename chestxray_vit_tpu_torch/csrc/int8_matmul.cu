@@ -1,6 +1,9 @@
 // int8 x int8 -> int32 matrix product with the static-int8 serving epilogue
 // fused: out = act(f32(xq @ wq^T) * scale + bias) [+ resid], written in the
-// compute dtype or requantized to int8.
+// compute dtype or requantized to int8; or the raw int32 sums (out code 3,
+// no epilogue: the partial of a row product split over a tensor axis,
+// summed over the ranks as int32 before the one epilogue, as one card's
+// int32 sum is, models/int8_train.py).
 //
 // Replaces the TPU kernel chestxray_vit_tpu/ops/int8_pallas.py `_kernel`
 // (launched by `int8_matmul_fused`), which takes one image's whole
@@ -48,6 +51,8 @@
 // products. Warp-specialised forms (a TMA producer and two consumer
 // warpgroups in turns, one block an SM), 256- and 64-row tiles and a
 // branch-free reciprocal were measured slower or no faster (PERF.md).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -117,6 +122,10 @@ __device__ __forceinline__ void store8(__nv_bfloat16* o, const float (&y)[8],
   *reinterpret_cast<uint4*>(o) =
       make_uint4(cxr::pack_bf16x2(y[0], y[1]), cxr::pack_bf16x2(y[2], y[3]),
                  cxr::pack_bf16x2(y[4], y[5]), cxr::pack_bf16x2(y[6], y[7]));
+}
+__device__ __forceinline__ void store8(int* o, const int (&v)[8]) {
+  *reinterpret_cast<int4*>(o) = make_int4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<int4*>(o + 4) = make_int4(v[4], v[5], v[6], v[7]);
 }
 __device__ __forceinline__ void store8(int8_t* o, const float (&y)[8],
                                        float inv) {
@@ -200,9 +209,12 @@ int8_gemm_fused(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   // thread: columns 8 cc ... 8 cc + 7 of rows r0, r0 + 16, ..., r0 + 112
   const int cc = tid & 15, r0 = tid >> 4, col = n0 + 8 * cc;
   if (col >= N) return;  // N is a multiple of 8: the 8 columns are all in
+  constexpr bool kRaw = std::is_same<OutT, int>::value;  // int32 out
   float sc[8], bi[8];
-  load8(scale + col, sc);
-  load8(bias + col, bi);
+  if constexpr (!kRaw) {
+    load8(scale + col, sc);
+    load8(bias + col, bi);
+  }
   // 1 / qs once, as the JAX kernel computes `inv` before its multiply
   const float inv = qs != nullptr ? __fdiv_rn(1.0f, *qs) : 0.f;
   // the two 16-byte halves of the 8 words, in an order that puts the 8
@@ -220,14 +232,18 @@ int8_gemm_fused(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     const int4 hi = *reinterpret_cast<const int4*>(s + 4 * (h0 ^ 1));
     const int4 q0 = h0 ? hi : lo, q1 = h0 ? lo : hi;
     const int v[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
-    float y[8];
+    if constexpr (kRaw) {
+      store8(out + off, v);
+    } else {
+      float y[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      y[j] = __fadd_rn(__fmul_rn(__int2float_rn(v[j]), sc[j]), bi[j]);
-      if (do_gelu) y[j] = gelu(y[j]);
-      if (resid != nullptr) y[j] = __fadd_rn(y[j], res[j]);
+      for (int j = 0; j < 8; ++j) {
+        y[j] = __fadd_rn(__fmul_rn(__int2float_rn(v[j]), sc[j]), bi[j]);
+        if (do_gelu) y[j] = gelu(y[j]);
+        if (resid != nullptr) y[j] = __fadd_rn(y[j], res[j]);
+      }
+      store8(out + off, y, inv);
     }
-    store8(out + off, y, inv);
   }
 }
 
@@ -261,8 +277,10 @@ int launch(const void* xq, const void* wq, const void* scale, const void* bias,
 // rows; scale and bias f32 [n], resid [m, n] in res_dtype or null, out
 // [m, n], all four 16-byte aligned; qs a device f32 scalar (requantize to
 // int8) or null. Dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (out
-// only, with qs). k a multiple of 64 (callers zero-pad K: ops/int8_matmul.py
-// pad_k), n of 8.
+// only, with qs), 3 = int32 (out only: the raw sums, with no scale, bias,
+// GELU, residual or qs). k a multiple of 64 (callers zero-pad K:
+// ops/int8_matmul.py pad_k), n of 8. At k <= 2^31 / 127^2 (133,143) no
+// int32 sum of int8 in [-127, 127] can overflow.
 extern "C" int cxr_int8_matmul_fused(const void* xq, const void* wq,
                                      const void* scale, const void* bias,
                                      const void* resid, const void* qs,
@@ -270,7 +288,10 @@ extern "C" int cxr_int8_matmul_fused(const void* xq, const void* wq,
                                      int do_gelu, int out_dtype, int res_dtype,
                                      int device, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || k % 64 || n % 8 ||
-      (out_dtype == 2) != (qs != nullptr))
+      (out_dtype == 2) != (qs != nullptr) ||
+      (out_dtype == 3) != (scale == nullptr) ||
+      (out_dtype == 3) != (bias == nullptr) ||
+      (out_dtype == 3 && (resid != nullptr || do_gelu)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -291,5 +312,8 @@ extern "C" int cxr_int8_matmul_fused(const void* xq, const void* wq,
   if (out_dtype == 2)
     return launch<int8_t, __nv_bfloat16>(xq, wq, scale, bias, resid, qs, out, m,
                                          n, k, do_gelu, device, st);
+  if (out_dtype == 3)
+    return launch<int, float>(xq, wq, nullptr, nullptr, nullptr, nullptr, out,
+                              m, n, k, 0, device, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -37,14 +37,14 @@ block splits as ``vit._block`` splits it:
   input passes ``tensor.copy_in`` before its one shared quantize;
 - the row products (``wo``, ``mlp_out``) take the max of their local rows'
   per-channel amax over the tensor group (exact: the scales equal one
-  process's bit for bit), quantize their rows, run the int8 kernel on the
-  local K slice at scale 1 and bias 0 with an f32 output (the exact int32
-  partial while |acc| < 2²⁴), sum the partials over the group in f32
-  (``tensor.reduce_out``'s sum) and apply the reference's epilogue once,
-  ``acc · (x_scale · w_scale) + bias``, cast to the compute dtype. That
-  equals the one-process product bit for bit whenever the partial and
-  whole sums stay below 2²⁴ (always for K = 768 at 127²; not certain for
-  the largest K = 3072 sums);
+  process's bit for bit), quantize their rows, run the int8 kernel's
+  int32 out form on the local K slice (the raw sums, no epilogue), sum
+  the int32 partials over the group (exact in any order, as the one int32
+  sum of the reference's ``dot_general`` is) and apply the reference's
+  epilogue once, ``f32(acc) · (x_scale · w_scale) + bias``, cast to the
+  compute dtype. That equals the one-process product bit for bit at every
+  K (|acc| ≤ 3072 · 127² < 2³¹ at the largest, ``mlp_out``); partials
+  rounded to f32 and summed in f32 would not, once a sum passes 2²⁴;
 - the backward is the dense Megatron pair.
 """
 
@@ -112,22 +112,19 @@ def _dense_grads(ctx, g):
 
 
 def row_partial(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """The exact f32 ``xq @ wqᵀ`` partial of a row-split product on the int8
-    kernel: scale 1, bias 0, f32 out (exact while |acc| < 2²⁴). K is
-    zero-padded to the kernel's step (a local slice of 32 at width 64)."""
+    """The exact int32 ``xq @ wqᵀ`` partial of a row-split product on the
+    int8 kernel's int32 out form. K is zero-padded to the kernel's step (a
+    local slice of 32 at width 64)."""
     wq, xq = pad_k(wq), pad_k(xq)
-    n = wq.shape[0]
-    ones = torch.ones(n, dtype=torch.float32, device=xq.device)
-    return int8_matmul_fused(xq, wq, ones, torch.zeros_like(ones),
-                             out_dtype=torch.float32)
+    return int8_matmul_fused(xq, wq, out_dtype=torch.int32)
 
 
 class _Int8RowSTE(torch.autograd.Function):
     """The row-parallel int8 straight-through linear on a tensor axis:
     forward, the per-channel scales over the tensor group (a max), the
-    local int8 partials summed in f32 over the group, one epilogue; the
-    dense row product's gradients backward (the identity of
-    ``tensor.reduce_out`` before it)."""
+    local int8 partials summed as int32 over the group, one epilogue in the
+    reference's order; the dense row product's gradients backward (the
+    identity of ``tensor.reduce_out`` before it)."""
 
     @staticmethod
     def forward(ctx, x, kernel, bias, x_scale, out_dtype, axis):
@@ -136,7 +133,8 @@ class _Int8RowSTE(torch.autograd.Function):
         acc = axis.all_reduce(row_partial(quantize_static(x, x_scale), wq))
         ctx.save_for_backward(x, kernel)
         ctx.out_dtype, ctx.bias_dtype = out_dtype, bias.dtype
-        return (acc * (x_scale * w_scale) + bias.float()).to(out_dtype)
+        return (acc.float() * (x_scale * w_scale)
+                + bias.float()).to(out_dtype)
 
     @staticmethod
     def backward(ctx, g):

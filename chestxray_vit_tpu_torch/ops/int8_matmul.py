@@ -4,7 +4,10 @@
 ``int8_matmul_fused`` computes ``act(xq @ wqᵀ · scale + bias) [+ resid]``
 with the int8 × int8 → int32 product, the per-channel dequantize, the bias,
 an optional exact-erf GELU, an optional residual add and an optional
-requantize to int8 for the next matmul, in one pass:
+requantize to int8 for the next matmul, in one pass; with ``out_dtype``
+int32 and no scale or bias it returns the exact int32 sums themselves (the
+partial of a row product split over a tensor axis, summed over the ranks
+as int32 before its one epilogue: ``models/int8_train.row_partial``):
 
 - CUDA tensors launch the hand-written Hopper kernel
   (``csrc/int8_matmul.cu``, the port of ``_kernel``), with a launch
@@ -26,12 +29,14 @@ import torch
 
 from chestxray_vit_tpu_torch import kernels
 from chestxray_vit_tpu_torch.ops.gelu import gelu as _gelu
-from chestxray_vit_tpu_torch.ops.quant import int8_product, quantize_static
+from chestxray_vit_tpu_torch.ops.quant import (int8_product, int8_sums,
+                                               quantize_static)
 
 __all__ = ["int8_matmul_fused", "int8_matmul_fused_reference",
            "pad_k", "quantize_static"]
 
-_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+              torch.int32: 3}
 K_STEP = 64          # K must be a multiple of it (half the kernel's k tile)
 
 
@@ -52,15 +57,36 @@ def pad_k(t: torch.Tensor, k: Optional[int] = None) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, k - t.shape[-1]))
 
 
+def _check_int32_out(scale, bias, resid, gelu, qs, out_dtype) -> None:
+    """The int32 out form takes no epilogue operand, every other form
+    takes a scale and a bias."""
+    if out_dtype == torch.int32:
+        given = [name for name, t in (("scale", scale), ("bias", bias),
+                                      ("resid", resid),
+                                      ("out_quant_scale", qs))
+                 if t is not None] + (["gelu"] if gelu else [])
+        if given:
+            raise ValueError(f"the int32 out form writes the raw sums and "
+                             f"takes no {', '.join(given)}")
+    elif scale is None or bias is None:
+        raise ValueError(f"out_dtype {out_dtype} needs a scale and a bias "
+                         f"(only the int32 out form takes neither)")
+
+
 def int8_matmul_fused_reference(xq: torch.Tensor, wq: torch.Tensor,
-                                scale: torch.Tensor, bias: torch.Tensor, *,
+                                scale: Optional[torch.Tensor] = None,
+                                bias: Optional[torch.Tensor] = None, *,
                                 resid: Optional[torch.Tensor] = None,
                                 gelu: bool = False,
                                 out_quant_scale: Optional[torch.Tensor] = None,
                                 out_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain PyTorch version of :func:`int8_matmul_fused`, in the epilogue
     order of the TPU kernel: ``acc · scale + bias``, GELU, ``+ resid``,
-    then ``clip(round(y · (1 / qs)))`` to int8 or a cast to ``out_dtype``."""
+    then ``clip(round(y · (1 / qs)))`` to int8 or a cast to ``out_dtype``;
+    with ``out_dtype`` int32 the exact sums (``ops.quant.int8_sums``)."""
+    _check_int32_out(scale, bias, resid, gelu, out_quant_scale, out_dtype)
+    if out_dtype == torch.int32:
+        return int8_sums(xq, wq)
     y = int8_product(xq, wq) * scale.float() + bias.float()
     if gelu:
         y = _gelu(y)
@@ -86,12 +112,12 @@ def _check(xq, wq, scale, bias, resid, qs, out_dtype) -> None:
                          f"and N a multiple of 8; got K={k}, N={n} (pad K "
                          f"with zero columns of xq and wq: pad_k)")
     for name, t in (("scale", scale), ("bias", bias)):
-        if t.shape != (n,) or t.dtype != torch.float32:
+        if t is not None and (t.shape != (n,) or t.dtype != torch.float32):
             raise ValueError(f"{name} must be f32 [{n}], got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"out_dtype {out_dtype}: the kernel writes f32 or "
-                        f"bf16 (or int8 with out_quant_scale)")
+    if out_dtype not in (torch.float32, torch.bfloat16, torch.int32):
+        raise TypeError(f"out_dtype {out_dtype}: the kernel writes f32, "
+                        f"bf16 or int32 (or int8 with out_quant_scale)")
     if resid is not None and (resid.shape != (*xq.shape[:-1], n)
                               or resid.dtype != out_dtype):
         raise ValueError(f"resid must be {out_dtype} {[*xq.shape[:-1], n]}, "
@@ -113,7 +139,8 @@ def _check(xq, wq, scale, bias, resid, qs, out_dtype) -> None:
 
 
 def int8_matmul_fused(xq: torch.Tensor, wq: torch.Tensor,
-                      scale: torch.Tensor, bias: torch.Tensor, *,
+                      scale: Optional[torch.Tensor] = None,
+                      bias: Optional[torch.Tensor] = None, *,
                       resid: Optional[torch.Tensor] = None,
                       gelu: bool = False,
                       out_quant_scale: Optional[torch.Tensor] = None,
@@ -127,12 +154,16 @@ def int8_matmul_fused(xq: torch.Tensor, wq: torch.Tensor,
     (``[..., N]`` in ``out_dtype``) fuses the skip-connection add;
     ``out_quant_scale`` (f32 scalar tensor) requantizes the result to int8
     for the next matmul. Returns ``[..., N]`` in ``out_dtype`` or int8.
+    ``out_dtype`` int32 takes none of scale, bias, resid, gelu and
+    ``out_quant_scale`` and returns the exact sums ``xq @ wqᵀ``.
     CPU tensors take :func:`int8_matmul_fused_reference`."""
     if xq.device.type == "cpu":
         return int8_matmul_fused_reference(
             xq, wq, scale, bias, resid=resid, gelu=gelu,
             out_quant_scale=out_quant_scale, out_dtype=out_dtype)
-    scale, bias = scale.float(), bias.float()
+    _check_int32_out(scale, bias, resid, gelu, out_quant_scale, out_dtype)
+    if out_dtype != torch.int32:
+        scale, bias = scale.float(), bias.float()
     qs = (out_quant_scale.float().reshape(1).contiguous()
           if out_quant_scale is not None else None)
     _check(xq, wq, scale, bias, resid, qs, out_dtype)
@@ -143,7 +174,9 @@ def int8_matmul_fused(xq: torch.Tensor, wq: torch.Tensor,
     out = torch.empty((*xq.shape[:-1], n), device=xq.device,
                       dtype=torch.int8 if qs is not None else out_dtype)
     err = kernels.library().cxr_int8_matmul_fused(
-        xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        xq.data_ptr(), wq.data_ptr(),
+        scale.data_ptr() if scale is not None else None,
+        bias.data_ptr() if bias is not None else None,
         resid.data_ptr() if resid is not None else None,
         qs.data_ptr() if qs is not None else None, out.data_ptr(),
         xq.numel() // k, n, k, int(gelu), _OUT_CODES[out.dtype],

@@ -90,21 +90,27 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _to_int8(torch.round(xf / scale)), scale
 
 
-def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+def int8_sums(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """Exact ``xq @ wqᵀ`` for int8 ``xq [..., K]`` and ``wq [N, K]``, as
-    f32 ``[..., N]`` (the int32 sums rounded to f32, as ``acc.astype(f32)``
-    does). A plain product outside any kernel: ``torch._int_mm`` on the
-    card, float64 on the CPU."""
+    int32 ``[..., N]`` (the ``preferred_element_type=int32`` sums). A plain
+    product outside any kernel: ``torch._int_mm`` on the card, float64 on
+    the CPU (exact, see the module docstring) cast to int32."""
     lead, k = xq.shape[:-1], xq.shape[-1]
     x2 = xq.reshape(-1, k)
     if xq.device.type == "cpu":
-        acc = torch.matmul(x2.double(), wq.double().t())
+        acc = torch.matmul(x2.double(), wq.double().t()).to(torch.int32)
     else:
         m = x2.shape[0]
         if m <= 16:     # cuBLASLt's int8 product takes more than 16 rows
             x2 = torch.cat([x2, x2.new_zeros(32 - m, k)])
         acc = torch._int_mm(x2.contiguous(), wq.t())[:m]
-    return acc.float().reshape(*lead, wq.shape[0])
+    return acc.reshape(*lead, wq.shape[0])
+
+
+def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """:func:`int8_sums` as f32 (the int32 sums rounded to f32 once, as
+    ``acc.astype(f32)`` does)."""
+    return int8_sums(xq, wq).float()
 
 
 def _epilogue(acc: torch.Tensor, scale: torch.Tensor,

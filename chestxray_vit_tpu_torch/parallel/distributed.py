@@ -123,9 +123,10 @@ def comm_device() -> torch.device:
 class Axis:
     """One mesh axis as this rank sees it: its size, this rank's index on
     it and the process group of the ranks that differ only there (None:
-    the whole group). The collectives run in f32 or the tensor's own dtype
-    as given, staged through the host under gloo, and are the identity on
-    an axis of one."""
+    the whole group). The collectives run in the tensor's own dtype as
+    given (f32; int32 for the int8 row partials, whose sums are exact in
+    any order), staged through the host under gloo (the copy keeps the
+    dtype), and are the identity on an axis of one."""
     size: int = 1
     index: int = 0
     group: Optional[object] = field(default=None, repr=False)

@@ -297,9 +297,12 @@ inference kernels on a tensor rank's heads, with ``head_base`` and
 ``heads_total``, equal to the whole-head call's slice bit for bit, at
 d = 64 and 80; and the int8 kernel in the four forms of the int8 step on a
 tensor axis of 2 (INT8_TENSOR_FORMS: the column products at N / 2, the row
-products at K / 2 unscaled with an f32 out), equal bits twice, timed
-beside ``torch._int_mm``, with two emulated ranks' row partials at K = 768
-summed to the one-process product's bits.
+products at K / 2 as raw int32 sums), equal bits twice, timed beside
+``torch._int_mm`` (events and device time), with two emulated ranks' int32
+row partials at K = 768 and 3072 (odd partials past 2²⁴) summed to the
+one-process product's bits. Before every kernel, the tile helpers alone
+(``tile_mma_selftest.cu``, ``check_tile_mma``): each bf16 and int8 form,
+the 16-wide tiles of the kD = 80 forward among them, against the matmul.
 
 The second-to-last line is the kernels summary, the last one the result.
 """
@@ -612,7 +615,7 @@ CLI_STEPS, CLI_STEADY, CLI_IMAGES = 8, (2, 3, 4), 4
 # kernel_check's int8 forms on a tensor axis of 2 (models/int8_train.py),
 # at the rows of a b8 global batch's slot on 1 x 2 x 2 (4 images): the
 # column products (q, k, v; mlp_in) at N / 2, bf16 out, and the row products
-# (wo; mlp_out) at K / 2, unscaled (scale 1, bias 0), f32 out
+# (wo; mlp_out) at K / 2, the int32 out form (the raw sums, no epilogue)
 MESH_INT8_ROWS = 4 * 577
 INT8_TENSOR_FORMS = (
     ("tensor_col_qkv", MESH_INT8_ROWS, 768, 384, False),
@@ -745,33 +748,51 @@ def device_ms(fn, calls: int = 10, parts: tuple = ()) -> dict:
     ``fn`` launches, from a ``torch.profiler`` trace of ``calls`` calls (the
     card's time alone, where CUDA events around the calls also time a host
     that cannot keep up); ``<part>_ms`` for each name fragment in
-    ``parts``: the kernels whose name holds it."""
+    ``parts``: the kernels whose name holds it. Late in a long process the
+    trace can miss some of a kernel's records (whole calls read 0), so each
+    kernel counts at its mean time a record times its launches a call
+    (``round(records / calls)``), and a kernel with fewer records than
+    half the calls, a stray, not at all; ``device_records`` is the share
+    of the expected records the trace held. A trace that held none is
+    taken again, twice at most, and then reads None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {"device_ms": 0.0, **{f"{part}_ms": 0.0 for part in parts}}
-    for ev in prof.key_averages():
-        ms = ev.device_time_total / 1e3 / calls
-        out["device_ms"] += ms
-        for part in parts:
-            if part in ev.key:
-                out[f"{part}_ms"] += ms
-    return out
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {"device_ms": 0.0, **{f"{part}_ms": 0.0 for part in parts}}
+        held = expected = 0
+        for ev in prof.key_averages():
+            per_call = round(ev.count / calls)
+            if ev.device_time_total <= 0 or per_call < 1:
+                continue
+            ms = ev.device_time_total / 1e3 / ev.count * per_call
+            held += ev.count
+            expected += per_call * calls
+            out["device_ms"] += ms
+            for part in parts:
+                if part in ev.key:
+                    out[f"{part}_ms"] += ms
+        if expected:
+            out["device_records"] = held / expected
+            return out
+    return {"device_ms": None, **{f"{part}_ms": None for part in parts},
+            "device_records": 0.0}
 
 
 def backward_pass_ms(fn, calls: int = 10) -> dict:
     """``dkdv_ms`` and ``dq_ms``: mean device milliseconds per call of an
     attention backward's dK/dV kernel and dQ kernel (``delta_ms``: its
-    pre-pass)."""
+    pre-pass), and ``device_ms``, all of them."""
     got = device_ms(fn, calls, ("attn_bwd_delta", "attn_bwd_dkdv",
                                 "attn_bwd_dq"))
-    return {f"{part}_ms": got[f"attn_bwd_{part}_ms"]
-            for part in ("delta", "dkdv", "dq")}
+    return {"device_ms": got["device_ms"],
+            **{f"{part}_ms": got[f"attn_bwd_{part}_ms"]
+               for part in ("delta", "dkdv", "dq")}}
 
 
 def bound(nbytes: float, flops: float, dtype, core_ops: float = 0.0,
@@ -862,6 +883,20 @@ def library_attention(q, k, v, do=None, rate=0.0) -> tuple:
                                              mk, rate, False, seed, offset))
 
 
+def library_attention_device_ms(q, k, v, do) -> tuple:
+    """(forward, backward) device milliseconds of PyTorch's flash SDPA on
+    the operands of :func:`library_attention` (the profiler's time of every
+    kernel a call launches)."""
+    flash = torch.ops.aten._scaled_dot_product_flash_attention
+    flash_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    o, lse, cq, ck, mq, mk, seed, offset, _ = flash(q, k, v, 0.0)
+    return (device_ms(lambda: flash(q, k, v, 0.0))["device_ms"],
+            device_ms(lambda: flash_bwd(do, q, k, v, o, lse, cq, ck, mq, mk,
+                                        0.0, False, seed,
+                                        offset))["device_ms"])
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
                       - 7)
@@ -934,6 +969,56 @@ def warm_up() -> float:
     return time.perf_counter() - t0
 
 
+def check_tile_mma(gen) -> None:
+    """The tile helpers alone (``tile_mma_selftest.cu``) before any kernel
+    that uses them: the bf16 forms (modes 0-2, 64 x 64 x 64; 5-6, the
+    16-wide tiles of the forward at kD = 80) within 1e-4 of the f32 matmul
+    (bf16 products are exact in f32; only the summation order differs),
+    the int8 forms (3-4) equal to the exact integer product, each with B
+    whole and with only its first 17 rows."""
+    from chestxray_vit_tpu_torch import kernels
+
+    lib, stream = kernels.library(), torch.cuda.current_stream().cuda_stream
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    rec = {"phase": "kernel_check", "kernel": "tile_mma_selftest"}
+    for mode in range(7):
+        if mode in (3, 4):
+            a, b = (torch.randint(-128, 128, (64, 128), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                    for _ in range(2))
+            c = torch.zeros((64, 64), device="cuda", dtype=torch.int32)
+        else:
+            a = bf16(64, 16 if mode == 5 else 64)
+            b = bf16(64, 16 if mode >= 5 else 64)
+            c = torch.full((64, 16 if mode == 6 else 64), float("nan"),
+                           device="cuda")
+        for rows in (64, 17):
+            kernels.check(lib.cxr_tile_mma_selftest(
+                a.data_ptr(), b.data_ptr(), c.data_ptr(), mode, rows, 0,
+                stream), f"tile_mma_selftest mode {mode}")
+            torch.cuda.synchronize()
+            if mode in (3, 4):
+                kb = 128 if mode == 3 else 64
+                bz = b.long().cpu()[:, :kb]
+                bz[rows:] = 0
+                ref = a.long().cpu()[:, :kb] @ bz.t()
+                err = int((c.long().cpu() != ref).sum())
+                ok = err == 0
+            else:
+                bz = b.float().clone()
+                bz[rows:] = 0
+                ref = a.float() @ (bz if mode in (1, 6) else bz.t())
+                err = (c - ref).abs().max().item()
+                ok = err <= 1e-4
+            rec[f"mode{mode}_rows{rows}"] = err
+            require(ok, f"tile_mma_selftest mode {mode} rows {rows}: {err}")
+    emit(rec)
+
+
 def phase_kernel_check() -> dict:
     from chestxray_vit_tpu_torch.ops import flash_attention as fa
 
@@ -941,6 +1026,7 @@ def phase_kernel_check() -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     summary = {"head_dims": {}}     # the records at head dims other than 64
     emit({"phase": "kernel_check", "warm_up_s": warm_up()})
+    check_tile_mma(gen)
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -4902,6 +4988,7 @@ def check_head_dims(randn, summary: dict) -> None:
         do = randn(shape, dtype)
         o, lse = fa.flash_attention_fwd(q, k, v)
         lib_fwd, lib_bwd = library_attention(q, k, v, do)
+        lib_fwd_dev, lib_bwd_dev = library_attention_device_ms(q, k, v, do)
         for name, kernel, plain, kw in (
                 ("flash_attention_inference",
                  lambda: fa.flash_attention_inference(q, k, v),
@@ -4919,12 +5006,15 @@ def check_head_dims(randn, summary: dict) -> None:
                    "dtype": str(dtype), "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_bwd if name.endswith("bwd")
                    else lib_fwd,
+                   "library_device_ms": lib_bwd_dev if name.endswith("bwd")
+                   else lib_fwd_dev,
                    **attention_bound(shape, dtype, **kw)}
-            if name.endswith("bwd"):
-                rec.update(backward_pass_ms(kernel))
+            rec.update(backward_pass_ms(kernel) if name.endswith("bwd")
+                       else device_ms(kernel))
             emit(rec)
             timed.setdefault(name, []).append(
-                {k: rec[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                {k: rec[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                     "library_ms", "library_device_ms",
                                      "bound_ms", "bound_by")})
         del x, q, k, v, do, o, lse
         torch.cuda.empty_cache()
@@ -5062,71 +5152,82 @@ def check_int8_tensor_forms(gen, summary: dict) -> None:
     """The int8 kernel in the call forms of the int8 straight-through step
     on a tensor axis of 2 (INT8_TENSOR_FORMS, at a b8 global batch's slot
     of 1 x 2 x 2): the column products at N / 2, the row products at K / 2
-    with scale 1, bias 0 and an f32 out. Each equals its plain twin bit
-    for bit and itself twice, timed beside ``torch._int_mm`` and its bound.
-    Then the row form's emulation: the unscaled partials of two ranks at
-    K = 768, summed in f32 under the epilogue once, equal the one-process
+    in the int32 out form (the raw sums). Each equals its plain twin bit
+    for bit and itself twice, timed (events and device) beside
+    ``torch._int_mm`` and its bound. Then the row form's emulation: the
+    int32 partials of two ranks at K = 768 (``wo``) and 3072 (``mlp_out``,
+    row 0's partials odd and past 2²⁴, where f32 partials would round),
+    summed as int32 under the epilogue once, equal the one-process
     product's bits."""
     from chestxray_vit_tpu_torch.models import int8_train
     from chestxray_vit_tpu_torch.ops import int8_matmul as i8
 
     records = []
-    for name, m, k, n, unscaled in INT8_TENSOR_FORMS:
+    for name, m, k, n, raw in INT8_TENSOR_FORMS:
         xq, wq, scale, bias, _ = int8_operands(gen, m, k, n, False, False)
-        out_dtype = torch.float32 if unscaled else torch.bfloat16
-        if unscaled:
-            scale, bias = torch.ones_like(scale), torch.zeros_like(bias)
+        kw = ({"out_dtype": torch.int32} if raw else
+              {"scale": scale, "bias": bias, "out_dtype": torch.bfloat16})
 
         def call():
-            return i8.int8_matmul_fused(xq, wq, scale, bias,
-                                        out_dtype=out_dtype)
+            return i8.int8_matmul_fused(xq, wq, **kw)
         out, again = call(), call()
-        ref = i8.int8_matmul_fused_reference(xq, wq, scale, bias,
-                                             out_dtype=out_dtype)
+        ref = i8.int8_matmul_fused_reference(xq, wq, **kw)
         torch.cuda.synchronize()
         mismatched = int((out != ref).sum())
         equal_twice = torch.equal(out, again)
         del again
-        ms, plain_ms = time_pair(call, lambda: i8.int8_matmul_fused_reference(
-            xq, wq, scale, bias, out_dtype=out_dtype))
+        ms, plain_ms = time_pair(
+            call, lambda: i8.int8_matmul_fused_reference(xq, wq, **kw))
         wt = wq.t()
         rec = {"phase": "kernel_check", "kernel": "int8_matmul_fused",
-               "form": name, "m_k_n": [m, k, n], "out_dtype": str(out_dtype),
+               "form": name, "m_k_n": [m, k, n], "out_dtype": str(out.dtype),
                "mismatched": mismatched, "equal_twice": equal_twice,
                "max_abs_err": (out.float() - ref.float()).abs().max().item(),
                "tol": "equal", "ms": ms, "plain_ms": plain_ms,
                **device_ms(call),
                "library_ms": time_ms(lambda: torch._int_mm(xq, wt)),
+               "library_device_ms": device_ms(
+                   lambda: torch._int_mm(xq, wt))["device_ms"],
                "tops": 2 * m * k * n / ms / 1e9,
-               **bound(m * k + n * k + 8 * n
+               **bound(m * k + n * k + (0 if raw else 8 * n)
                        + m * n * out.element_size(), 2 * m * k * n,
-                       torch.int8, core_ops=INT8_EPI_OPS["base"] * m * n)}
+                       torch.int8,
+                       core_ops=0 if raw else INT8_EPI_OPS["base"] * m * n)}
         emit(rec)
         records.append(rec)
         require(mismatched == 0 and equal_twice,
                 f"int8 tensor form {name}: {mismatched} mismatched, equal "
                 f"twice {equal_twice}")
-    # two emulated ranks of a row product at K = 768 (wo): the exact sum
-    m, k, n = INT8_TENSOR_FORMS[0][1], 768, 768
-    xq, wq, scale, bias, _ = int8_operands(gen, m, k, n, False, False)
-    xq[0], wq[0] = 127, 127           # the largest sum, 768 · 127²
-    for out_dtype in (torch.bfloat16, torch.float32):
-        whole = i8.int8_matmul_fused(xq, wq, scale, bias,
-                                     out_dtype=out_dtype)
-        acc = sum(int8_train.row_partial(xq[:, sl].contiguous(),
-                                         wq[:, sl].contiguous())
-                  for sl in (slice(0, k // 2), slice(k // 2, k)))
-        got = (acc * scale + bias).to(out_dtype)
-        torch.cuda.synchronize()
-        rec = {"phase": "kernel_check", "kernel": "int8_row_partials",
-               "ranks": 2, "m_k_n": [m, k, n], "out_dtype": str(out_dtype),
-               "largest_sum": float(acc[0, 0]),
-               "mismatched": int((got != whole).sum())}
-        emit(rec)
-        records.append(rec)
-        require(rec["mismatched"] == 0
-                and rec["largest_sum"] == 768 * 127 ** 2,
-                f"int8 row partials of two ranks: {rec}")
+    # two emulated ranks of a row product at K = 768 (wo) and 3072
+    # (mlp_out): the exact int32 sum
+    m, n = INT8_TENSOR_FORMS[0][1], 768
+    for k in (768, 3072):
+        xq, wq, scale, bias, _ = int8_operands(gen, m, k, n, False, False)
+        xq[0], wq[0] = 127, 127       # the largest sum, k · 127²
+        half = k // 2
+        if k == 3072:                 # odd partials past 2²⁴
+            wq[0, 0], wq[0, half:half + 2] = 126, 126
+        largest = k * 127 ** 2 - (3 * 127 if k == 3072 else 0)
+        parts = [int8_train.row_partial(xq[:, sl].contiguous(),
+                                        wq[:, sl].contiguous())
+                 for sl in (slice(0, half), slice(half, k))]
+        acc = parts[0] + parts[1]
+        for out_dtype in (torch.bfloat16, torch.float32):
+            whole = i8.int8_matmul_fused(xq, wq, scale, bias,
+                                         out_dtype=out_dtype)
+            got = (acc.float() * scale + bias).to(out_dtype)
+            torch.cuda.synchronize()
+            rec = {"phase": "kernel_check", "kernel": "int8_row_partials",
+                   "ranks": 2, "m_k_n": [m, k, n],
+                   "out_dtype": str(out_dtype),
+                   "partials": [int(p[0, 0]) for p in parts],
+                   "largest_sum": int(acc[0, 0]),
+                   "mismatched": int((got != whole).sum())}
+            emit(rec)
+            records.append(rec)
+            require(acc.dtype == torch.int32 and rec["mismatched"] == 0
+                    and rec["largest_sum"] == largest,
+                    f"int8 row partials of two ranks: {rec}")
     summary["int8_tensor_forms"] = records
 
 

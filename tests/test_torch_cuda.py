@@ -302,6 +302,29 @@ def test_attention_fwd_bwd_kernels_match_plain(dev, s, dtype):
                                                           do), dtype, s)
 
 
+@pytest.mark.parametrize("mode", [5, 6])
+@pytest.mark.parametrize("rows", [64, 48, 17, 1])
+def test_16_wide_tiles_multiply_like_matmul(dev, mode, rows):
+    """The 32-byte swizzled 64 x 16 tiles of the forward at kD = 80
+    (columns 64-79 of a head dim of 80), alone, against torch.matmul in
+    f32. mode 5: A Bᵀ (64 x 64 x 16) with A and B [64, 16] through
+    K-major descriptors, the one 16-deep step S = Q Kᵀ adds for them;
+    mode 6: A B (64 x 16 x 64) with A as register fragments and B [64, 16]
+    in the transposed (MN-major) form, m64n16k16, only the k-steps that
+    reach one of B's first ``rows`` rows: O += P V on V's 16 columns."""
+    a = _randn((64, 16 if mode == 5 else 64), torch.bfloat16, dev, seed=1)
+    b = _randn((64, 16), torch.bfloat16, dev, seed=2)
+    c = torch.full((64, 64 if mode == 5 else 16), float("nan"), device=dev)
+    kernels.check(kernels.library().cxr_tile_mma_selftest(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), mode, rows, dev.index or 0,
+        torch.cuda.current_stream().cuda_stream), "tile_mma_selftest")
+    torch.cuda.synchronize()
+    bz = b.float()
+    bz[rows:] = 0
+    ref = a.float() @ (bz.t() if mode == 5 else bz)
+    torch.testing.assert_close(c, ref, atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("mode", [0, 1, 2, 3, 4])
 @pytest.mark.parametrize("rows", [64, 48, 17, 1])
 def test_tile_helpers_multiply_like_matmul(dev, mode, rows):
@@ -880,6 +903,12 @@ def _int8_operands(dev, m, k, n, seed=0):
 def _int8_call(dev, m, k, n, form, seed=0):
     """(kernel output, plain output) of one call form on seeded operands."""
     xq, wq, scale, bias, resid = _int8_operands(dev, m, k, n, seed)
+    if form == "sums_i32":          # the raw int32 sums, no epilogue
+        before = i8.int8_matmul_fused.launches
+        out = i8.int8_matmul_fused(xq, wq, out_dtype=torch.int32)
+        assert i8.int8_matmul_fused.launches == before + 1
+        return out, i8.int8_matmul_fused_reference(xq, wq,
+                                                   out_dtype=torch.int32)
     dtype = torch.float32 if form.endswith("f32") else torch.bfloat16
     kw = {"out_dtype": dtype}
     if form.startswith("resid"):
@@ -901,11 +930,12 @@ def _int8_call(dev, m, k, n, form, seed=0):
                                  (3072, 768), (64, 768), (768, 64),
                                  (768, 136), (192, 136), (64, 64)])
 @pytest.mark.parametrize("form", ["plain", "resid", "gelu_requant",
-                                  "plain_f32", "resid_f32"])
+                                  "plain_f32", "resid_f32", "sums_i32"])
 def test_int8_kernel_matches_plain(dev, m, k, n, form):
-    """Every output equals the plain version's, int8 included: the integer
-    sums are exact and the epilogue rounds at the same points, its exp2f
-    included (libdevice's, as PyTorch's exp2 on the card)."""
+    """Every output equals the plain version's, int8 and the int32 sums
+    included: the integer sums are exact and the epilogue rounds at the
+    same points, its exp2f included (libdevice's, as PyTorch's exp2 on the
+    card)."""
     out, ref = _int8_call(dev, m, k, n, form)
     torch.cuda.synchronize()
     assert out.dtype == ref.dtype and out.shape == (m, n)
@@ -934,6 +964,20 @@ def test_int8_kernel_refuses_what_it_does_not_take(dev):
         i8.int8_matmul_fused(xq, wq, scale, bias, resid=resid)   # f32, bf16 out
     with pytest.raises(ValueError, match="contiguous"):
         i8.int8_matmul_fused(xq.t().contiguous().t(), wq, scale, bias)
+    with pytest.raises(ValueError, match="takes no scale, bias"):
+        i8.int8_matmul_fused(xq, wq, scale, bias, out_dtype=torch.int32)
+    # the launch itself refuses an epilogue operand with the int32 out
+    # code (3), and a missing scale with any other
+    out = torch.empty((40, 64), device=dev, dtype=torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = kernels.library()
+    for sc, bi, code in ((scale, None, 3), (None, bias, 3), (None, None, 0)):
+        assert lib.cxr_int8_matmul_fused(
+            xq.data_ptr(), wq.data_ptr(),
+            sc.data_ptr() if sc is not None else None,
+            bi.data_ptr() if bi is not None else None, None, None,
+            out.data_ptr(), 40, 64, 768, 0, code, -1, dev.index or 0,
+            stream) != 0
 
 
 def test_int8_kernel_at_patch14_k(dev):
@@ -1787,30 +1831,37 @@ def test_packed_dropout_autograd_at_a_head_base(dev, t, dtype):
             assert torch.equal(got.grad, whole.grad[:, sl])
 
 
+@pytest.mark.parametrize("k", [768, 3072])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_int8_row_partials_of_two_ranks_equal_one_product(dev, out_dtype):
-    """K = 768 split over two emulated tensor ranks: each rank's unscaled
-    f32 partial on the int8 kernel (``int8_train.row_partial``: scale 1,
-    bias 0), the two summed in f32, then the epilogue once, equal the
-    one-process int8 product's bits. The operands sit at ±127 in part, so
-    the sums reach 768 · 127² = 12.4 M, below 2²⁴."""
+def test_int8_row_partials_of_two_ranks_equal_one_product(dev, out_dtype, k):
+    """K = 768 (``wo``) and 3072 (``mlp_out``) split over two emulated
+    tensor ranks: each rank's int32 partial on the int8 kernel's int32 out
+    form (``int8_train.row_partial``), the two summed as int32, then the
+    epilogue once, equal the one-process int8 product's bits. The operands
+    sit at ±127 in part, so the sums reach k · 127²; at K = 3072 row 0's
+    partials are odd and past 2²⁴ (one and two weights at 126), where
+    partials rounded to f32 would miss the int32 sum."""
     from chestxray_vit_tpu_torch.models import int8_train
     g = torch.Generator(device=dev).manual_seed(3)
-    m, k, n = 2308, 768, 768
+    m, n = 2308, 768
     xq = torch.randint(-127, 128, (m, k), generator=g, device=dev,
                        dtype=torch.int8)
     wq = torch.randint(-127, 128, (n, k), generator=g, device=dev,
                        dtype=torch.int8)
     xq[0], wq[0] = 127, 127                  # the largest sum
     xq[1], wq[1] = -127, 127
+    half = k // 2
+    if k == 3072:
+        wq[0, 0], wq[0, half:half + 2] = 126, 126
     scale = torch.rand(n, generator=g, device=dev) * 1e-4
     bias = torch.randn(n, generator=g, device=dev)
     whole = i8.int8_matmul_fused(xq, wq, scale, bias, out_dtype=out_dtype)
-    half = k // 2
-    acc = sum(int8_train.row_partial(xq[:, sl].contiguous(),
-                                     wq[:, sl].contiguous())
-              for sl in (slice(0, half), slice(half, k)))
-    got = (acc * scale + bias).to(out_dtype)
+    parts = [int8_train.row_partial(xq[:, sl].contiguous(),
+                                    wq[:, sl].contiguous())
+             for sl in (slice(0, half), slice(half, k))]
+    acc = parts[0] + parts[1]
+    got = (acc.float() * scale + bias).to(out_dtype)
     torch.cuda.synchronize()
-    assert float(acc[0, 0]) == 768 * 127 ** 2
+    assert acc.dtype == torch.int32
+    assert int(acc[0, 0]) == k * 127 ** 2 - (3 * 127 if k == 3072 else 0)
     assert torch.equal(got, whole)

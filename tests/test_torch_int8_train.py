@@ -193,6 +193,45 @@ def test_ste_op_backward_is_dense_linear():
     assert scale.grad is None
 
 
+@pytest.mark.parametrize("t", [2, 4])
+def test_row_partials_are_int32_and_sum_to_the_whole_product(t):
+    """``row_partial`` on each of t K slices (K = 3072, ``mlp_out``'s)
+    returns int32, and the int32 partials sum to the exact whole product,
+    odd and past 2²⁴ in row 0 where f32 partials would round."""
+    rng = np.random.default_rng(t)
+    xq = rng.integers(-127, 128, (3, 3072)).astype(np.int8)
+    wq = rng.integers(-127, 128, (8, 3072)).astype(np.int8)
+    xq[0], wq[0] = 127, 127
+    wq[0, ::1000] = 126
+    n = 3072 // t
+    parts = [ti8.row_partial(torch.from_numpy(xq[:, i * n:(i + 1) * n]
+                                              .copy()),
+                             torch.from_numpy(wq[:, i * n:(i + 1) * n]
+                                              .copy()))
+             for i in range(t)]
+    assert all(p.dtype == torch.int32 for p in parts)
+    exact = xq.astype(np.int64) @ wq.T.astype(np.int64)
+    np.testing.assert_array_equal(sum(parts).numpy(), exact)
+    assert exact[0, 0] == 3072 * 127 ** 2 - 4 * 127
+
+
+def test_row_ste_on_an_axis_of_one_equals_the_linear_ste():
+    """``int8_row_linear_ste`` on a tensor axis of one (its all-reduces
+    the identity) equals ``int8_linear_ste`` bit for bit in f32 and bf16,
+    at K = 3072."""
+    from chestxray_vit_tpu_torch.parallel.distributed import Axis
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 3072))
+                         .astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3072, 16)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    scale = float(x.abs().max()) / 127.0
+    for dt in (torch.float32, torch.bfloat16):
+        args = (x.to(dt), w.to(dt), b.to(dt), scale, dt)
+        assert torch.equal(ti8.int8_row_linear_ste(*args, Axis()),
+                           ti8.int8_linear_ste(*args))
+
+
 def test_ste_op_gradients_keep_the_operands_dtypes():
     """bf16 x and kernel with an f32 bias and out_dtype bf16: dx and dW
     leave in bf16, db in f32 (the reference's casts), and a bf16 kernel

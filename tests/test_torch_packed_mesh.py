@@ -24,7 +24,10 @@ int8 straight-through training (``int8_scales``, the dense tiny model of
 ``tests/test_torch_fsdp_tp.py``) on 1 × 2 × 2, 1 × 1 × 4 and 2 × 1 × 2
 (and merged, ``tome_r`` 2, on 1 × 1 × 4) equals the port's one process;
 the row products (``wo``, ``mlp_out``), split over the tensor ranks and
-summed unscaled, equal one process's product bit for bit.
+summed unscaled, equal one process's product bit for bit. So do the
+adversarial row products at K = 3072 (ADV_126), whose int32 partials
+rounded to f32 and summed in f32 would miss the int32 sum, against the
+JAX package's one-device ``int8_matmul_static`` with an f32 out.
 
 The ``PackedTrainer`` (a fake bucket, a third of it at 32 / 48 px): on
 1 × 1 × 4 (one slot) it equals the one-process PackedTrainer; on 1 × 4 × 1
@@ -93,6 +96,18 @@ DROPOUT = dict(attention_dropout=0.1, hidden_dropout=0.1)
 # at 2 (a constant learning rate)
 TRAINER_SEQ_LEN, TRAINER_SEQS, TRAINER_STEPS, TRAINER_RESUME = 48, 8, 4, 2
 TRAINER_MODEL = dict(PACKED_MODEL, num_classes=15)
+# The adversarial row products: every activation quantizes to 127 (x at
+# 127 · ADV_X_SCALE), every weight to 127 (ADV_W, so w_scale is 2⁻⁷ and
+# the f32 out acc · 2⁻¹³ + bias is exact) but for ADV_126[t][r] weights
+# at 126 in the rows of rank r of a tensor axis of t. At t = 2 (K / 2 =
+# 1536 a rank) the partials are 24,774,017 and 24,773,890, odd and past
+# 2²⁴: rounded to f32 and summed they give 49,547,904, the int32 sum's f32
+# is 49,547,908. At t = 4 (768 a rank, each partial exact in f32) the four
+# partials summed in f32 in any ring order that gloo takes miss the int32
+# sum's f32 value (a search over the deficits, checked on four gloo ranks).
+ADV_K, ADV_N = 3072, 8
+ADV_126 = {2: (1, 2), 4: (0, 1, 0, 5)}
+ADV_X_SCALE, ADV_W = 2.0 ** -6, 127 / 128
 
 
 def mesh_name(m) -> str:
@@ -276,6 +291,7 @@ def worker(rank: int, out: str) -> None:
                 batch, mesh=mesh, int8_scales=scales)
             save(f"{kind}_{name}", state)
         res[name]["row_products"] = row_products(mesh)
+        res[name]["adversarial_row_product"] = adversarial_row_products(mesh)
 
     res["trainer"] = run_trainers(rank, out)
     dist.barrier("done")
@@ -311,6 +327,31 @@ def row_products(mesh) -> dict:
             "max_abs": float((part.float() - whole.float()).abs().max()),
             "grad_equal": bool(torch.equal(xl.grad, xw.grad[..., sl]))}
     return out
+
+
+def adversarial_row_product(t: int) -> tuple:
+    """(x [2, ADV_K], kernel [ADV_K, ADV_N], bias [ADV_N]) f32 of the
+    adversarial row product on a tensor axis of t (ADV_126): row 1 of x is
+    row 0 negated."""
+    x = np.full((2, ADV_K), 127 * ADV_X_SCALE, np.float32)
+    x[1] = -x[0]
+    w = np.full((ADV_K, ADV_N), ADV_W, np.float32)
+    per = ADV_K // t
+    for r, n in enumerate(ADV_126[t]):
+        w[r * per:r * per + n] = 126 / 128
+    return x, w, (0.5 * np.arange(ADV_N)).astype(np.float32)
+
+
+def adversarial_row_products(mesh) -> list:
+    """The adversarial row product of the mesh's tensor size, split over
+    its tensor ranks, f32 out (as nested lists)."""
+    tp = mesh.axis("tensor")
+    x, w, b = (torch.from_numpy(a) for a in adversarial_row_product(tp.size))
+    n = ADV_K // tp.size
+    sl = slice(tp.index * n, (tp.index + 1) * n)
+    return int8_train.int8_row_linear_ste(
+        x[:, sl].contiguous(), w[sl], b, ADV_X_SCALE, torch.float32,
+        tp).tolist()
 
 
 def run_trainers(rank: int, out: str) -> dict:
@@ -649,6 +690,40 @@ def test_int8_row_products_equal_one_process_bit_for_bit(m, results):
     for r in results:
         for case, rec in r[mesh_name(m)]["row_products"].items():
             assert rec["equal"] and rec["grad_equal"], (case, rec)
+
+
+@pytest.mark.parametrize("m", INT8_MESHES, ids=mesh_name)
+def test_int8_row_partials_past_2_24_equal_jax_bit_for_bit(m, results):
+    """The adversarial row products (ADV_126: tensor 2 at K = 3072, tensor
+    4 at 768 a rank) split over the tensor ranks equal, bit for bit in f32,
+    the JAX package's one-device ``int8_matmul_static`` and the port's
+    one-process ``int8_linear_ste``: the partials are summed as int32, as
+    the one int32 sum is, before the epilogue. The case is adversarial:
+    the partials rounded to f32 and summed in f32, in rank order, miss."""
+    import jax.numpy as jnp
+
+    from chestxray_vit_tpu.ops import quant as jquant
+
+    t = m[3]
+    x, w, b = adversarial_row_product(t)
+    want = np.asarray(jquant.int8_matmul_static(
+        jnp.asarray(x), jquant.quantize_weight(jnp.asarray(w)),
+        jnp.float32(ADV_X_SCALE), jnp.asarray(b), out_dtype=jnp.float32))
+    one = int8_train.int8_linear_ste(
+        *(torch.from_numpy(a) for a in (x, w, b)), ADV_X_SCALE,
+        torch.float32).numpy()
+    np.testing.assert_array_equal(one, want)
+    per = ADV_K // t
+    partials = [127 * (127 * per - n) for n in ADV_126[t]]
+    f32_sum = np.float32(partials[0])
+    for p in partials[1:]:
+        f32_sum = np.float32(f32_sum + np.float32(p))
+    assert f32_sum != np.float32(sum(partials))
+    assert want[0, 0] == np.float32(sum(partials)) * (ADV_X_SCALE / 128)
+    for r in results:
+        got = np.asarray(r[mesh_name(m)]["adversarial_row_product"],
+                         np.float32)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_packed_trainer_one_slot_equals_one_process(results, refs):

@@ -175,6 +175,46 @@ def test_int8_product_is_exact_past_f32(rng):
     np.testing.assert_array_equal(got.numpy(), exact.astype(np.float32))
 
 
+def test_int32_out_form_is_exact_int32(rng):
+    """The int8 kernel's int32 out form, plain twin: the exact sums as
+    int32 (past 2²⁴ and odd, where f32 would round) equal to the int64
+    product and to JAX's ``dot_general`` with an int32 accumulator."""
+    xq = rng.integers(-127, 128, (5, 3072)).astype(np.int8)
+    wq = rng.integers(-127, 128, (8, 3072)).astype(np.int8)
+    xq[0], wq[0] = 127, 127
+    wq[0, :3] = 126                        # 49,548,288 - 3 · 127, odd
+    got = tp8.int8_matmul_fused(torch.from_numpy(xq), torch.from_numpy(wq),
+                                out_dtype=torch.int32)
+    assert got.dtype == torch.int32
+    exact = xq.astype(np.int64) @ wq.T.astype(np.int64)
+    np.testing.assert_array_equal(got.numpy(), exact)
+    assert int(got[0, 0]) == 3072 * 127 ** 2 - 3 * 127
+    jsum = jax.lax.dot_general(jnp.asarray(xq), jnp.asarray(wq.T),
+                               (((1,), (0,)), ((), ())),
+                               preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jsum))
+
+
+@pytest.mark.parametrize("operand", ["scale", "bias", "resid", "gelu",
+                                     "out_quant_scale"])
+def test_int32_out_form_refuses_an_epilogue(operand):
+    """The int32 out form writes the raw sums: a scale, bias, residual,
+    GELU or requantize scale is refused (the card's launch refuses them
+    with out code 3 too), and the other forms still need scale and bias."""
+    xq = torch.ones((2, 64), dtype=torch.int8)
+    wq = torch.ones((8, 64), dtype=torch.int8)
+    kw = {"scale": torch.ones(8), "bias": torch.zeros(8),
+          "resid": torch.zeros((2, 8), dtype=torch.int32), "gelu": True,
+          "out_quant_scale": torch.tensor(1.0)}
+    with pytest.raises(ValueError, match=f"takes no {operand}"):
+        tp8.int8_matmul_fused(xq, wq, out_dtype=torch.int32,
+                              **{operand: kw[operand]})
+    if operand in ("scale", "bias"):
+        with pytest.raises(ValueError, match="needs a scale and a bias"):
+            tp8.int8_matmul_fused(xq, wq, **{operand: kw[operand]},
+                                  out_dtype=torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # (c) the fused kernel's plain version against the JAX kernel, interpreted
 # ---------------------------------------------------------------------------
