@@ -32,20 +32,27 @@ same card. A build:
 - backward (``--only bwd``, or both): holds the dense, dropout and segment
   backward against their plain versions at a few sequence lengths (largest
   error relative to each gradient's largest magnitude), calls each twice
-  (equal bits), times the dense and dropout backward at [36, 12, 577, 64]
-  and the segment backward in two layouts, and the dK/dV and dQ kernels
-  apart (``torch.profiler`` over ten calls);
+  (equal bits), times the dense and dropout backward at [36, 12, 577, 64],
+  the dense backward at ViT-H/14's [8 | 32, 16, 257, 80] (``vith_bwd_b*``,
+  held against the plain version and beside SDPA's device time) and the
+  segment backward in two layouts, and the dK/dV and dQ kernels apart
+  (``torch.profiler`` over ten calls);
 - int8 (``--only int8``): the int8 kernel in chip_smoke.py's five call
   forms of the batch-32 int8 forward: mismatches against the plain version
   (0 expected), equal bits twice, CUDA-event and profiler device times
   beside ``torch._int_mm``'s; and its GELU bit for bit against the plain
   version's on every float of |y| in [2^-24, 2^5) (``gelu_sweep``);
 - ln (``--only ln``): the LayerNorm forward at the serving, int8 serving
-  and training rows (x 768, bf16; the int8 rows with an f32 scale too):
-  error against the plain version, CUDA-event and device times beside
-  ``F.layer_norm``'s; the backward at the dense and packed training rows
-  (36 × 577, 32 × 1152) with a bf16 and an f32 scale: errors, equal bits
-  twice, event and device times (its column pass apart) beside
+  and training rows (x 768, bf16; the int8 rows with an f32 scale too) and
+  at ViT-H/14's serving and training rows (8 | 32 × 257, x 1280; the
+  training rows with an f32 scale too): error against the plain version,
+  CUDA-event and device times beside ``F.layer_norm``'s; the backward at
+  the dense and packed training rows (36 × 577, 32 × 1152, x 768) and at
+  ViT-H/14's serving and training rows (8 | 32 × 257, x 1280) with a bf16
+  and an f32 scale: errors, equal bits twice, event and device times (its
+  column pass apart), the host's µs a call (``host_us``: 200 calls
+  enqueued, a sync after) and of the wrapper's block count alone
+  (``blocks_us``: ``_bwd_blocks``, 2000 calls) beside
   ``aten.native_layer_norm_backward``'s;
 - reports the registers, spills and shared memory of the part's kernels
   from the build log (``-Xptxas -v``).
@@ -61,6 +68,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -254,7 +262,8 @@ def forward(gen, out: dict) -> None:
 
 def backward(gen, out: dict) -> None:
     from chestxray_vit_tpu_torch.ops import flash_attention as fa
-    from chip_smoke import backward_pass_ms, rel_err, time_ms
+    from chip_smoke import (VITH_ATTN_SHAPES, backward_pass_ms,
+                            library_attention_device_ms, rel_err, time_ms)
     from smoke_batches import PACKED_SEQS, packed_layouts
 
     for s in (1, 37, 64, 65, 129, 577, 1025):
@@ -293,6 +302,30 @@ def backward(gen, out: dict) -> None:
     out["dense"] = {"ms": time_ms(dense), **backward_pass_ms(dense)}
     out["dropout"] = {"ms": time_ms(dropout), **backward_pass_ms(dropout)}
     del q, k, v, do, o, lse, od, lsed
+
+    for b, h, s, d in VITH_ATTN_SHAPES:
+        x = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+        do = torch.randn((b, h, s, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+
+        def vith():
+            return fa.flash_attention_bwd(q, k, v, o, lse, do)
+
+        got, again = vith(), vith()
+        ref = fa.attention_bwd_reference(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        out["errors"][f"vith_bwd_b{b}"] = [rel_err(g, r)
+                                           for g, r in zip(got, ref)]
+        out["equal_twice"] &= all(torch.equal(a, b)
+                                  for a, b in zip(got, again))
+        del got, again, ref
+        out[f"vith_bwd_b{b}"] = {
+            "ms": time_ms(vith), **backward_pass_ms(vith),
+            "library_device_ms": library_attention_device_ms(q, k, v, do)[1]}
+        del x, q, k, v, do, o, lse
 
     for name, seg in packed_layouts(PACKED_SEQS).items():
         if name == "mixed_pad":
@@ -398,11 +431,13 @@ def layer_norm(gen, out: dict) -> None:
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
     from chip_smoke import bf16_ulp, device_ms, time_ms
 
-    d = 768
-    for rows, w_dtype in ((8 * 577, torch.bfloat16),
-                          (32 * 577, torch.bfloat16),
-                          (32 * 577, torch.float32),
-                          (36 * 577, torch.bfloat16)):
+    for rows, d, w_dtype in ((8 * 577, 768, torch.bfloat16),
+                             (32 * 577, 768, torch.bfloat16),
+                             (32 * 577, 768, torch.float32),
+                             (36 * 577, 768, torch.bfloat16),
+                             (8 * 257, 1280, torch.bfloat16),
+                             (32 * 257, 1280, torch.bfloat16),
+                             (32 * 257, 1280, torch.float32)):
         x = (torch.randn((rows, d), generator=gen, device="cuda") * 3 + 1
              ).to(torch.bfloat16)
         s, b = (torch.randn((d,), generator=gen, device="cuda").to(w_dtype)
@@ -417,7 +452,7 @@ def layer_norm(gen, out: dict) -> None:
 
         ref = ln.layer_norm_reference(x, s, b, 1e-12).float()
         diff = (kernel().float() - ref).abs()
-        key = f"ln_{rows}_{str(w_dtype).split('.')[-1]}"
+        key = f"ln_{rows}_{d}_{str(w_dtype).split('.')[-1]}"
         out["errors"][key] = {
             "max_abs_err": diff.max().item(),
             "within_1ulp_1e-5": bool((diff <= bf16_ulp(ref) + 1e-5).all())}
@@ -427,9 +462,24 @@ def layer_norm(gen, out: dict) -> None:
     layer_norm_bwd(gen, out)
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` over ``calls`` calls enqueued back
+    to back (a sync before and after; where the card is the slower, the
+    launch queue fills and this reads the card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
 def layer_norm_bwd(gen, out: dict) -> None:
     """The LayerNorm backward at the dense and packed training rows (x 768,
-    bf16; the block LNs' bf16 scale and the final LN's f32 scale): errors
+    bf16; the block LNs' bf16 scale and the final LN's f32 scale) and at
+    ViT-H/14's b32 training rows (x 1280, the same two scales): errors
     against the plain version, equal bits twice, CUDA-event and device
     times (``second_pass_ms``: the device time of the kernel after the main
     one, whose name starts ``ln_bwd_``), beside
@@ -437,8 +487,8 @@ def layer_norm_bwd(gen, out: dict) -> None:
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
     from chip_smoke import device_ms, rel_err, time_ms
 
-    d = 768
-    for rows in (36 * 577, 32 * 1152):
+    for rows, d in ((36 * 577, 768), (32 * 1152, 768), (8 * 257, 1280),
+                    (32 * 257, 1280)):
         for w_dtype in (torch.bfloat16, torch.float32):
             x, dy = ((torch.randn((rows, d), generator=gen, device="cuda")
                       * k + m).to(torch.bfloat16) for k, m in ((3, 1), (1, 0)))
@@ -450,7 +500,7 @@ def layer_norm_bwd(gen, out: dict) -> None:
             got, again = kernel(), kernel()
             ref = ln.layer_norm_bwd_reference(x, s, dy, 1e-12)
             torch.cuda.synchronize()
-            key = f"ln_bwd_{rows}_{str(w_dtype).split('.')[-1]}"
+            key = f"ln_bwd_{rows}_{d}_{str(w_dtype).split('.')[-1]}"
             out["errors"][key] = {"dx": abs_err(got[0], ref[0]),
                                   "dscale_dbias_rel": [rel_err(g, r) for g, r
                                                        in zip(got[1:],
@@ -459,7 +509,10 @@ def layer_norm_bwd(gen, out: dict) -> None:
                                       for a, b in zip(got, again))
             dev = device_ms(kernel, parts=("ln_bwd_",))
             out[key] = {"ms": time_ms(kernel), "device_ms": dev["device_ms"],
-                        "second_pass_ms": dev["ln_bwd__ms"]}
+                        "second_pass_ms": dev["ln_bwd__ms"],
+                        "host_us": host_us(kernel),
+                        "blocks_us": host_us(
+                            lambda: ln._bwd_blocks(x, s, rows), 2000)}
             ls = s.to(torch.bfloat16)
             _, mean, rstd = torch.ops.aten.native_layer_norm(
                 x, [d], ls, torch.zeros_like(ls), 1e-12)

@@ -75,17 +75,28 @@
 // copies are issued (TileWalk). Ids are never assumed sorted or contiguous.
 //
 // Head dims: those of the forward (cxr::head_dim_ok), at the padded width
-// kD = 64 or 128 with the real d a runtime argument, every 64-column chunk
-// of a Q, K, V, dO, dQ, dK or dV tile one swizzled 64 x 64 tile: S, dP,
-// S^T and dP^T sum the chunks' products, dQ, dK and dV keep one
-// accumulator a chunk (dQ += dS K_c, dV_c += P^T dO_c, dK_c += dS^T Q_c).
-// Columns at or past d arrive as zeros and are never stored, and Delta
-// sums the columns below d, so the result is d's exactly. At kD = 128 the
-// dQ pass reads its own Q and dO through descriptors from tiles behind the
-// ring, as the dK/dV pass reads its K and V (as fragments they would cost
-// 64 more registers a thread), and both passes run two blocks an SM: the
-// dK/dV pass carries 2 x 2 x 32 accumulator registers a thread and both
-// use 99 KB of shared memory.
+// of the forward (cxr::bf16_head_dim: kD = 64, 80 or 128; the f32 passes
+// at 64 or 128) with the real d a runtime argument. Every 64-column chunk
+// of a Q, K, V, dO, dQ, dK or dV tile is one swizzled 64 x 64 tile, and at
+// kD = 80 the columns 64-79 are a 64 x 16 tile under the 32-byte swizzle
+// (common.cuh), as in the forward: S, dP, S^T and dP^T sum the chunks'
+// products and the 16-column tiles' one 16-deep step; dQ, dK and dV keep
+// one accumulator a chunk (dQ += dS K_c, dV_c += P^T dO_c, dK_c += dS^T
+// Q_c) and at kD = 80 one of 16 columns (m64n16k16 on the tile as it
+// lies), so no column past 80 is computed. Columns at or past d arrive as
+// zeros and are never stored, and Delta sums the columns below d, so the
+// result is d's exactly. At kD = 80 the 16-deep steps, their order and
+// their operands are those of kD = 128 on the same d, and Delta is summed
+// in kD = 128's sixteen lanes a row, so the two widths give the same bits.
+// At kD = 80 and 128 the dQ pass reads its own Q and dO through
+// descriptors from tiles behind the ring, as the dK/dV pass reads its K
+// and V (as fragments they would cost 32 or 64 more registers a thread,
+// and at kD = 80 an ldmatrix of the 32-byte swizzle). kD = 128 runs two
+// blocks an SM: the dK/dV pass carries 2 x 2 x 32 accumulator registers a
+// thread and both passes use 99 KB of shared memory. kD = 80 carries
+// 2 x 40 and uses 63 KB, and runs three, as kD = 64 does: its dK/dV pass
+// issues dP^T once P is in registers (BwdShape::kLateDp), so S^T's and
+// dP^T's accumulators are never live together.
 #pragma once
 
 #include <math.h>
@@ -149,26 +160,46 @@ static_assert(kStages >= 2, "the ring overlaps a copy with a tile's products");
 template <int kD>
 struct BwdShape {
   static constexpr int kChunks = kD / 64;
-  static constexpr int kBlocksPerSm = kD == 64 ? 3 : 2;
+  static constexpr bool kTail = kD % 64 != 0;   // kD = 80: columns 64-79
+  static_assert(kD % 64 == 0 || kD % 64 == 16, "64-column chunks and a 16");
+  static constexpr int kBlocksPerSm = kD == 128 ? 2 : 3;
+  // The dK/dV pass issues dP^T = V dO^T once P is in registers, not beside
+  // S^T: S^T's accumulator is then dead before dP^T's is live, which keeps
+  // kD = 80 (16 more accumulator registers than kD = 64) within 168
+  // registers at three blocks an SM. Beside S^T it spilled 160-188 bytes
+  // at 168, and at two blocks an SM (183-198 registers) it ran 10 % slower.
+  static constexpr bool kLateDp = kD == 80;
   // the dQ pass holds its own Q and dO as A fragments (at kD = 64, loaded
   // through the last stage) or reads them from tiles behind the ring
   static constexpr bool kOwnFrags = kD == 64;
-  static constexpr int kStageAux = 2 * kChunks * cxr::kTileBytes;
+  // Two operands' tiles (a stage's walked pair, or the block's own pair):
+  // the first operand's chunks, the second's, then (kTail) the first's
+  // 16-column tile at kTail16 and the second's after it.
+  static constexpr int kTail16 = 2 * kChunks * cxr::kTileBytes;
+  static constexpr int kPairBytes =
+      kTail16 + (kTail ? 2 * cxr::kTile16Bytes : 0);
+  static constexpr int kStageAux = kPairBytes;
   static constexpr int kStageBytes = kStageAux + 1024;
+  static_assert(kStageBytes % 1024 == 0, "every stage on a 1024-byte line");
   // 1024 bytes of slack: the ring starts at the next 1024-byte boundary
   static constexpr int kSmemBytes = kStages * kStageBytes + 1024;
-  static constexpr int kOwnBytes = 2 * kChunks * cxr::kTileBytes;
+  static constexpr int kOwnBytes = kPairBytes;
   // the dK/dV pass keeps its own K and V tiles behind the ring
   static constexpr int kDkdvSmemBytes = kSmemBytes + kOwnBytes;
   // the dQ pass without fragments: its Q and dO tiles and 64 Delta values
   static constexpr int kDqSmemBytes =
       kOwnFrags ? kSmemBytes : kSmemBytes + kOwnBytes + 256;
+  // the dQ pass's Delta: 16-byte pieces a row in a power-of-two shuffle
+  // tree, kD = 128's sixteen at kD = 80 (lanes past d add 0)
+  static constexpr int kDeltaLanes = (kD == 64 ? 64 : 128) / 8;
 };
 
-// The 16-deep steps of chunk ``c`` that reach a column below hd.
+// The 16-deep steps of 64-column chunk ``c`` that reach a column below hd:
+// fewer than four only in the last chunk of kD = 128 (at kD = 80 the
+// columns past 64 are the 16-column tile's one step).
 template <int kD>
 __device__ __forceinline__ int chunk_steps(int c, int hd) {
-  return kD == 64 || c < kD / 64 - 1 ? 4 : (hd - 64 * c + 15) / 16;
+  return kD != 128 || c < kD / 64 - 1 ? 4 : (hd - 64 * c + 15) / 16;
 }
 
 template <int kD, bool kPad, bool kDropout, bool kSegment>
@@ -186,7 +217,7 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
                    cxr::Dropout drop, const int* __restrict__ seg) {
   using L = BwdShape<kD>;
   constexpr int kC = L::kChunks;
-  constexpr int T = cxr::kTileBytes;
+  constexpr int T = cxr::kTileBytes, T16 = cxr::kTile16Bytes;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = cxr::smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -215,6 +246,11 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
       cxr::copy_chunk_async<kPad>(st + (kC + c) * T, dop, dos.s, m0, S, c,
                                   hd);
     }
+    if constexpr (L::kTail) {
+      cxr::copy_tile16_async(st + L::kTail16, qp, qs.s, m0, S, 64 * kC, hd);
+      cxr::copy_tile16_async(st + L::kTail16 + T16, dop, dos.s, m0, S,
+                             64 * kC, hd);
+    }
     if (tid < kTile) {
       const bool ok = m0 + tid < S;
       const int r = ok ? m0 + tid : 0;
@@ -235,6 +271,12 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
                                 n0, S, c, hd);
     cxr::copy_chunk_async<kPad>(own + (kC + c) * T, v + b * vs.b + h * vs.h,
                                 vs.s, n0, S, c, hd);
+  }
+  if constexpr (L::kTail) {
+    cxr::copy_tile16_async(own + L::kTail16, k + b * ks.b + h * ks.h, ks.s,
+                           n0, S, 64 * kC, hd);
+    cxr::copy_tile16_async(own + L::kTail16 + T16, v + b * vs.b + h * vs.h,
+                           vs.s, n0, S, 64 * kC, hd);
   }
   cxr::cp_async_commit();
   cxr::TileWalk<kSegment> walk(segp, S, n0);
@@ -258,6 +300,15 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) dka[c][n][e] = dva[c][n][e] = 0.f;
   cxr::acc_fence(dka);
   cxr::acc_fence(dva);
+  float dka16[2][4], dva16[2][4];  // kTail: dK's and dV's columns 64-79
+  if constexpr (L::kTail) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka16[n][e] = dva16[n][e] = 0.f;
+    cxr::acc_fence(dka16);
+    cxr::acc_fence(dva16);
+  }
   const int key0 = n0 + wr + g;  // key of accumulator rows g; +8 for c2, c3
   const bool key_ok[2] = {key0 < S, key0 + 8 < S};
   int seg_key[2] = {0, 0};  // ids of the two keys
@@ -286,20 +337,33 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
 
     {
       // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries per warp,
-      // summed over the head dim's chunks
+      // summed over the head dim's chunks (and the 16-column tiles' step);
+      // dP^T beside S^T, or (kLateDp) beside dV
       float sp[8][4], dp[8][4];
       cxr::wgmma_fence();
 #pragma unroll
       for (int c = 0; c < kC; ++c)
         cxr::tile_mma_ss(sp, own + c * T, sq + c * T, c > 0,
                          chunk_steps<kD>(c, hd));
+      if constexpr (L::kTail)
+        cxr::tile16_mma_ss(sp, own + L::kTail16, sq + L::kTail16);
       cxr::wgmma_commit();
+      auto issue_dp = [&]() {
 #pragma unroll
-      for (int c = 0; c < kC; ++c)
-        cxr::tile_mma_ss(dp, own + (kC + c) * T, sdo + c * T, c > 0,
-                         chunk_steps<kD>(c, hd));
-      cxr::wgmma_commit();
-      cxr::wgmma_wait<1>(sp);
+        for (int c = 0; c < kC; ++c)
+          cxr::tile_mma_ss(dp, own + (kC + c) * T, sdo + c * T, c > 0,
+                           chunk_steps<kD>(c, hd));
+        if constexpr (L::kTail)
+          cxr::tile16_mma_ss(dp, own + L::kTail16 + T16,
+                             sq + L::kTail16 + T16);
+        cxr::wgmma_commit();
+      };
+      if constexpr (L::kLateDp) {
+        cxr::wgmma_wait<0>(sp);
+      } else {
+        issue_dp();
+        cxr::wgmma_wait<1>(sp);
+      }
 
       // P^T rounded to bf16, packed as the A fragments of the next product;
       // keep bit of element (query m0 + 8n + 2t + (e & 1), key): bit 4n + e
@@ -351,10 +415,14 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
       }
       // dV += (M * P)^T dO (the 1 / (1 - rate) is applied at the end)
       cxr::wgmma_fence(kDropout ? pf : pp);
+      if constexpr (L::kLateDp) issue_dp();
 #pragma unroll
       for (int c = 0; c < kC; ++c)
         cxr::tile_mma_rs<true>(dva[c], kDropout ? pf : pp, sdo + c * T,
                                qrows);
+      if constexpr (L::kTail)
+        cxr::tile16_mma_rs(dva16, kDropout ? pf : pp, sq + L::kTail16 + T16,
+                           qrows);
       cxr::wgmma_commit();
       cxr::wgmma_wait<1>(dp);
 
@@ -386,10 +454,16 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < kC; ++c)
         cxr::tile_mma_rs<true>(dka[c], dsf, sq + c * T, qrows);
+      if constexpr (L::kTail)
+        cxr::tile16_mma_rs(dka16, dsf, sq + L::kTail16, qrows);
       cxr::wgmma_commit();
       // the stage is free, and pp, pf, dsf may change, once these are done
       cxr::wgmma_wait<0>(dva);
       cxr::acc_fence(dka);
+      if constexpr (L::kTail) {
+        cxr::acc_fence(dva16);
+        cxr::acc_fence(dka16);
+      }
     }
 #pragma unroll
     for (int d = 0; d < kStages - 1; ++d) fifo[d] = fifo[d + 1];
@@ -419,6 +493,25 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
+  if constexpr (L::kTail) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int c = 64 * kC + n * 8 + 2 * t;
+      if (c >= hd) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key_ok[r]) {
+          *reinterpret_cast<uint32_t*>(dkp + key * dks.s + c) =
+              cxr::pack_bf16x2(dka16[n][2 * r] * scale,
+                               dka16[n][2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dvp + key * dvs.s + c) =
+              cxr::pack_bf16x2(dva16[n][2 * r] * vscale,
+                               dva16[n][2 * r + 1] * vscale);
+        }
+      }
+    }
+  }
 }
 
 template <int kD, bool kPad, bool kDropout, bool kSegment>
@@ -435,7 +528,7 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
                  cxr::Dropout drop, const int* __restrict__ seg) {
   using L = BwdShape<kD>;
   constexpr int kC = L::kChunks;
-  constexpr int T = cxr::kTileBytes;
+  constexpr int T = cxr::kTileBytes, T16 = cxr::kTile16Bytes;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = cxr::smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -460,6 +553,11 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
       cxr::copy_chunk_async<kPad>(st + c * T, kp, ks.s, n0, S, c, hd);
       cxr::copy_chunk_async<kPad>(st + (kC + c) * T, vp, vs.s, n0, S, c, hd);
     }
+    if constexpr (L::kTail) {
+      cxr::copy_tile16_async(st + L::kTail16, kp, ks.s, n0, S, 64 * kC, hd);
+      cxr::copy_tile16_async(st + L::kTail16 + T16, vp, vs.s, n0, S, 64 * kC,
+                             hd);
+    }
     if (kSegment && tid < kTile) {
       const bool ok = n0 + tid < S;
       cxr::cp_async_4(st + L::kStageAux + 512 + 4 * tid,
@@ -479,6 +577,13 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
                                 dout + b * dos.b + h * dos.h, dos.s, m0, S,
                                 c, hd);
   }
+  if constexpr (L::kTail) {
+    cxr::copy_tile16_async(own + L::kTail16, q + b * qs.b + h * qs.h, qs.s,
+                           m0, S, 64 * kC, hd);
+    cxr::copy_tile16_async(own + L::kTail16 + T16,
+                           dout + b * dos.b + h * dos.h, dos.s, m0, S,
+                           64 * kC, hd);
+  }
   cxr::cp_async_commit();
   cxr::TileWalk<kSegment> walk(segp, S, m0);
   int fifo[kStages];  // fifo[0]: the tile to compute next; then those in flight
@@ -490,8 +595,8 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
   }
   fifo[kStages - 1] = -1;
 
-  // Delta = rowsum(dO * O) of the block's 64 rows, under the copies: kD / 8
-  // lanes a row, summed in attn_bwd_delta's order. It goes to device memory
+  // Delta = rowsum(dO * O) of the block's 64 rows, under the copies:
+  // kDeltaLanes lanes a row, summed in attn_bwd_delta's order. It goes to device memory
   // for the dK/dV pass, which runs after this one, and through shared
   // memory (the own stage's spare words, or 256 bytes behind the own
   // tiles) to this block's warps.
@@ -500,11 +605,11 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
           ? ring_ptr + (kStages - 1) * L::kStageBytes + L::kStageAux
           : ring_ptr + kStages * L::kStageBytes + L::kOwnBytes);
   {
-    constexpr int kLanes = kD / 8;  // 16-byte pieces of a row
+    constexpr int kLanes = L::kDeltaLanes;  // 16-byte pieces of a row
     const __nv_bfloat16* op = o + b * os.b + h * os.h;
     const __nv_bfloat16* dop = dout + b * dos.b + h * dos.h;
 #pragma unroll
-    for (int j = 0; j < kD / 16; ++j) {
+    for (int j = 0; j < kLanes / 2; ++j) {
       const int i = tid + 128 * j, r = i / kLanes, part = i % kLanes;
       const int row = m0 + r;
       float acc = 0.f;
@@ -556,6 +661,13 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < 8; ++n)
       dqa[c][n][0] = dqa[c][n][1] = dqa[c][n][2] = dqa[c][n][3] = 0.f;
   cxr::acc_fence(dqa);
+  float dqa16[2][4];  // kTail: dQ's columns 64-79
+  if constexpr (L::kTail) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      dqa16[n][0] = dqa16[n][1] = dqa16[n][2] = dqa16[n][3] = 0.f;
+    cxr::acc_fence(dqa16);
+  }
 
   int cs = 0;  // the stage of fifo[0]
   while (fifo[0] >= 0) {
@@ -585,11 +697,16 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
         for (int c = 0; c < kC; ++c)
           cxr::tile_mma_ss(sp, own + c * T, sk + c * T, c > 0,
                            chunk_steps<kD>(c, hd));
+        if constexpr (L::kTail)
+          cxr::tile16_mma_ss(sp, own + L::kTail16, sk + L::kTail16);
         cxr::wgmma_commit();
 #pragma unroll
         for (int c = 0; c < kC; ++c)
           cxr::tile_mma_ss(dp, own + (kC + c) * T, sv + c * T, c > 0,
                            chunk_steps<kD>(c, hd));
+        if constexpr (L::kTail)
+          cxr::tile16_mma_ss(dp, own + L::kTail16 + T16,
+                             sk + L::kTail16 + T16);
         cxr::wgmma_commit();
       }
       cxr::wgmma_wait<1>(sp);
@@ -651,8 +768,11 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < kC; ++c)
         cxr::tile_mma_rs<true>(dqa[c], dsf, sk + c * T, krows);
+      if constexpr (L::kTail)
+        cxr::tile16_mma_rs(dqa16, dsf, sk + L::kTail16, krows);
       cxr::wgmma_commit();
       cxr::wgmma_wait<0>(dqa);  // the stage is free once this is done
+      if constexpr (L::kTail) cxr::acc_fence(dqa16);
     }
 #pragma unroll
     for (int d = 0; d < kStages - 1; ++d) fifo[d] = fifo[d + 1];
@@ -676,6 +796,21 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
                                dqa[ch][n][2 * r + 1] * scale);
       }
     }
+  if constexpr (L::kTail) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int c = 64 * kC + n * 8 + 2 * t;
+      if (c >= hd) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < S)
+          *reinterpret_cast<uint32_t*>(dqp + row * dqs.s + c) =
+              cxr::pack_bf16x2(dqa16[n][2 * r] * scale,
+                               dqa16[n][2 * r + 1] * scale);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -888,7 +1023,8 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // The two passes (bf16) or the three kernels (f32, which always mask by
-// column) at padded head dim kD.
+// column and are not built at kD = 80: F32Shape splits a row over kD / 32
+// threads) at padded head dim kD.
 template <int kD, bool kPad, bool kDropout, bool kSegment>
 int launch_bwd_at(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const float* l, float* dl, void* dq,
@@ -927,6 +1063,8 @@ int launch_bwd_at(const void* q, const void* k, const void* v, const void* o,
         static_cast<bf*>(dk), static_cast<bf*>(dv), heads, seq, head_dim,
         st[0], st[1], st[2], st[4], st[6], st[7], scale, scale_log2, drop,
         seg);
+  } else if constexpr (L::kTail) {
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     using F = F32Shape<kD>;
     constexpr int kLanes = kD / 4;  // attn_bwd_delta's lanes a row
@@ -953,7 +1091,8 @@ int launch_bwd_at(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16. ``strides`` holds (batch, head, seq)
+// dtype: 0 = float32, 1 = bfloat16 (the width: cxr::bf16_head_dim in bf16,
+// cxr::padded_head_dim in f32). ``strides`` holds (batch, head, seq)
 // element strides of q, k, v, o, dout, dq, dk, dv in that order (24
 // values); every head dim is contiguous with 16-byte aligned rows (the
 // wrapper checks), head_dim as cxr::head_dim_ok takes it. lse and the
@@ -981,6 +1120,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
         scale, dtype, cs, drop, seg);
   if (cxr::padded_head_dim(head_dim) == 64)
     return launch_bwd_at<64, true, kDropout, kSegment>(
+        q, k, v, o, dout, l, dl, dq, dk, dv, batch, heads, seq, head_dim, st,
+        scale, dtype, cs, drop, seg);
+  if (dtype == 1 && cxr::bf16_head_dim(head_dim) == 80)
+    return launch_bwd_at<80, true, kDropout, kSegment>(
         q, k, v, o, dout, l, dl, dq, dk, dv, batch, heads, seq, head_dim, st,
         scale, dtype, cs, drop, seg);
   return launch_bwd_at<128, true, kDropout, kSegment>(

@@ -45,7 +45,7 @@
 // The f32 path (used for parity runs) is plain FMA.
 //
 // Head dims: any d with d % 8 == 0 and 8 <= d <= 128 (head_dim_ok), built
-// at a padded width kD (fwd_head_dim): 64, 80 (bf16, 64 < d <= 80) or 128;
+// at a padded width kD (bf16_head_dim): 64, 80 (bf16, 64 < d <= 80) or 128;
 // d itself is a runtime argument. Each 64-column chunk of a Q, K, V or O
 // tile is one of the swizzled 64 x 64 tiles above, so the copies,
 // descriptors and the m64n64k16 steps are those of d = 64: S sums the
@@ -625,7 +625,7 @@ int launch_attn_fwd_at(const void* q, const void* k, const void* v, void* o,
 }
 
 // Checks the shape, picks the kernel for the dtype (0 = float32,
-// 1 = bfloat16) and the padded head dim (bf16: fwd_head_dim; f32:
+// 1 = bfloat16) and the padded head dim (bf16: bf16_head_dim; f32:
 // padded_head_dim), and launches it on ``stream``.
 template <bool kLse, bool kDropout = false, bool kEmitKeep = false,
           bool kSegment = false>
@@ -650,7 +650,7 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
     return launch_attn_fwd_at<64, true, kLse, kDropout, kEmitKeep, kSegment>(
         q, k, v, o, lse, batch, heads, seq, head_dim, qs, ks, vs, os, scale,
         dtype, st, drop, seg);
-  if (dtype == 1 && fwd_head_dim(head_dim) == 80)
+  if (dtype == 1 && bf16_head_dim(head_dim) == 80)
     return launch_attn_fwd_at<80, true, kLse, kDropout, kEmitKeep, kSegment>(
         q, k, v, o, lse, batch, heads, seq, head_dim, qs, ks, vs, os, scale,
         dtype, st, drop, seg);

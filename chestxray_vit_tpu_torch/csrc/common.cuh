@@ -17,20 +17,21 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // The head dims the attention kernels take (a multiple of 8 from 8 to
-// 128), and the padded width each is built at: 64 or 128 for the backward
-// and the f32 forward (padded_head_dim), 64, 80 or 128 for the bf16
-// forward (fwd_head_dim: 64 < d <= 80, ViT-H/14's 80, is a 64-column chunk
-// and a 16-column one, so no column past 80 is computed). d = 64 has an
-// instantiation of its own with no column masks (kPad false), the code the
-// kernels ran before other head dims; every other d masks the columns at or
-// past it (d = 80 and 128 too, which saves instantiations).
+// 128), and the padded width each is built at: 64 or 128 for the f32
+// kernels (padded_head_dim: their row splits over kD / 64 or kD / 32
+// threads need a whole count), 64, 80 or 128 for every bf16 forward and
+// backward (bf16_head_dim: 64 < d <= 80, ViT-H/14's 80, is a 64-column
+// chunk and a 16-column one, so no column past 80 is computed). d = 64 has
+// an instantiation of its own with no column masks (kPad false), the code
+// the kernels ran before other head dims; every other d masks the columns
+// at or past it (d = 80 and 128 too, which saves instantiations).
 __host__ __device__ constexpr bool head_dim_ok(int d) {
   return d % 8 == 0 && d >= 8 && d <= 128;
 }
 __host__ __device__ constexpr int padded_head_dim(int d) {
   return d <= 64 ? 64 : 128;
 }
-__host__ __device__ constexpr int fwd_head_dim(int d) {
+__host__ __device__ constexpr int bf16_head_dim(int d) {
   return d <= 64 ? 64 : d <= 80 ? 80 : 128;
 }
 
@@ -574,15 +575,17 @@ __device__ __forceinline__ void tile_mma_rs(float (&acc)[8][4],
 
 // ---------------------------------------------------------------------------
 // 64 x 16 bf16 tiles under the 32-byte swizzle: the 16-column chunk of a
-// forward built at kD = 80 (attention_fwd.cuh). A tile is 64 rows of 32
-// bytes (2048 bytes at a 256-byte aligned shared address); the 16-byte half
-// c of row r lies at half c ^ ((r >> 2) & 1), the layout a wgmma
-// descriptor with the 32-byte swizzle reads. Groups of 8 rows are 256 bytes
-// apart. K-major (rows are m or n, the 32 bytes run along k: Q and K in S =
-// Q K^T) the tile is one 16-deep step. MN-major (rows are k, the 32 bytes
-// the 16 values of n: V in O += P V, read as it lies) step kk starts 512 kk
-// bytes further, and the leading offset, which would step to a second
-// 16-wide n block, is not used.
+// forward or backward built at kD = 80 (attention_fwd.cuh,
+// attention_bwd.cuh). A tile is 64 rows of 32 bytes (2048 bytes at a
+// 256-byte aligned shared address); the 16-byte half c of row r lies at
+// half c ^ ((r >> 2) & 1), the layout a wgmma descriptor with the 32-byte
+// swizzle reads. Groups of 8 rows are 256 bytes apart. K-major (rows are m
+// or n, the 32 bytes run along k: Q and K in S = Q K^T, and in the
+// backward's S^T, dP and dP^T) the tile is one 16-deep step. MN-major
+// (rows are k, the 32 bytes the 16 values of n: V in O += P V, and K, Q
+// and dO in dQ += dS K, dK += dS^T Q and dV += P^T dO, read as they lie)
+// step kk starts 512 kk bytes further, and the leading offset, which would
+// step to a second 16-wide n block, is not used.
 // ---------------------------------------------------------------------------
 
 constexpr int kTile16Bytes = kTileRows * 32;

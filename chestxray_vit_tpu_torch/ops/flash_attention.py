@@ -79,8 +79,8 @@ MAX_HEAD_DIM = 128  # the kernels take d % 8 == 0, 8 <= d <= 128
 def head_dim_supported(d: int) -> bool:
     """Whether the kernels take head dim ``d``: a multiple of 8 from 8 to
     128, built at a padded width of 64 or 128, or 80 for the bf16 forwards
-    at 64 < d ≤ 80 (``csrc/common.cuh`` ``head_dim_ok``,
-    ``padded_head_dim``, ``fwd_head_dim``); columns past d are zeros in
+    and backwards at 64 < d ≤ 80 (``csrc/common.cuh`` ``head_dim_ok``,
+    ``padded_head_dim``, ``bf16_head_dim``); columns past d are zeros in
     shared memory only."""
     return d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
 

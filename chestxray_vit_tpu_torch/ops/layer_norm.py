@@ -141,18 +141,24 @@ layer_norm_cuda.launches = 0     # kernel launches, read by chip_smoke.py
 
 
 _BWD_ROWS_PER_BLOCK = 8    # warps of a backward block (kBwdWarps)
+# the backward's wave (its blocks resident on the card at once) by (device
+# index, D, x dtype, scale dtype): asked of the library once, so that a
+# launch makes one ctypes call
+_BWD_WAVES: dict = {}
 
 
 def _bwd_blocks(x: torch.Tensor, scale: torch.Tensor, rows: int) -> int:
     """Blocks of the backward kernel for ``rows`` rows: one a
-    ``_BWD_ROWS_PER_BLOCK`` rows, at most one wave (the blocks resident on
-    the card at once, which the library finds once per device, D and
-    dtypes)."""
-    wave = ctypes.c_int(0)
-    kernels.check(kernels.library().cxr_layer_norm_bwd_wave(
-        x.shape[-1], _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
-        x.device.index, ctypes.byref(wave)), "layer_norm_bwd")
-    return max(1, min(-(-rows // _BWD_ROWS_PER_BLOCK), wave.value))
+    ``_BWD_ROWS_PER_BLOCK`` rows, at most one wave (``_BWD_WAVES``)."""
+    key = (x.device.index, x.shape[-1], x.dtype, scale.dtype)
+    wave = _BWD_WAVES.get(key)
+    if wave is None:
+        got = ctypes.c_int(0)
+        kernels.check(kernels.library().cxr_layer_norm_bwd_wave(
+            x.shape[-1], _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
+            x.device.index, ctypes.byref(got)), "layer_norm_bwd")
+        wave = _BWD_WAVES[key] = got.value
+    return max(1, min(-(-rows // _BWD_ROWS_PER_BLOCK), wave))
 
 
 def layer_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,

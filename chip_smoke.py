@@ -495,13 +495,19 @@ HEAD_DIM_BATCH, HEAD_DIM_HEADS = 2, 4
 HEAD_DIM_PADS = ((16, 64), (80, 128))
 # ViT-H/14 @224 (config.VIT_VARIANTS["vit_h14"]): hidden 1280 in 16 heads of
 # 80, 257 tokens; its attention timed at the serving and training batches,
-# its LayerNorm at the b8 serving rows in both dtypes, its patch embedding's
-# int8 product (K = 3 · 14 · 14 = 588, padded to 640) at the b32 rows
+# its LayerNorm (forward and backward) at the b8 serving rows in both dtypes
+# and at the b32 train step's rows with the block LNs' bf16 scale and the
+# final LN's f32 one, its patch embedding's int8 product (K = 3 · 14 · 14 =
+# 588, padded to 640) at the b32 rows
 VITH_HIDDEN, VITH_TOKENS = 1280, 257
 VITH_ATTN_SHAPES = ((8, 16, VITH_TOKENS, 80), (32, 16, VITH_TOKENS, 80))
 VITH_LN_CASES = ((8 * VITH_TOKENS, VITH_HIDDEN, torch.bfloat16,
                   torch.bfloat16),
                  (8 * VITH_TOKENS, VITH_HIDDEN, torch.float32,
+                  torch.float32),
+                 (32 * VITH_TOKENS, VITH_HIDDEN, torch.bfloat16,
+                  torch.bfloat16),
+                 (32 * VITH_TOKENS, VITH_HIDDEN, torch.bfloat16,
                   torch.float32))
 VITH_BATCH, VITH_INT8_BATCH, VITH_TRAIN_BATCH = 8, 32, 32
 VITH_REQUESTS = 64
@@ -1412,7 +1418,8 @@ def check_layer_norm_bwd(randn, summary: dict) -> None:
     (8 × 577 − 1); that it gives the same bits twice; times by CUDA events
     and by the profiler's device time (the main kernel and the column pass
     of one call), beside ``aten.native_layer_norm_backward``'s where x and
-    the scale share a dtype, and the kernel's time before its redesign
+    the scale share a dtype or x is bf16 (the library then takes the scale
+    in bf16: it takes one dtype), and the kernel's time before its redesign
     (EARLIER_LN_BWD_MS)."""
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
 
@@ -1461,16 +1468,20 @@ def check_layer_norm_bwd(randn, summary: dict) -> None:
                       "in bf16)", "ms": ms, "plain_ms": plain_ms,
                **device_ms(kernel, parts=("ln_bwd_cols",)),
                **layer_norm_bound(rows, d, x_dtype, w_dtype, backward=True)}
-        if x_dtype == w_dtype:
-            # the library's backward takes the forward's statistics
+        if x_dtype == w_dtype or x_dtype == torch.bfloat16:
+            # the library's backward takes the forward's statistics; for an
+            # f32 scale with bf16 x it takes the scale cast to bf16, so its
+            # dscale / dbias come out in bf16, not the kernel's f32
+            ls = scale.to(x_dtype)
             _, mean, rstd = torch.ops.aten.native_layer_norm(
-                x, [d], scale, torch.zeros_like(scale), 1e-12)
+                x, [d], ls, torch.zeros_like(ls), 1e-12)
 
             def library():
                 return torch.ops.aten.native_layer_norm_backward(
-                    dy, x, [d], mean, rstd, scale, scale, [True] * 3)
+                    dy, x, [d], mean, rstd, ls, ls, [True] * 3)
             rec["library_ms"] = time_ms(library)
             rec["library_device_ms"] = device_ms(library)["device_ms"]
+            rec["library_scale_dtype"] = str(ls.dtype)
         earlier = EARLIER_LN_BWD_MS.get((rows, str(w_dtype)))
         if x_dtype == torch.bfloat16 and earlier is not None:
             rec["earlier_ms"], rec["earlier_device_ms"] = earlier
@@ -5801,8 +5812,10 @@ def main() -> int:
         other = checked["head_dims"].get(name)
         if isinstance(other, list):     # LayerNorm at ViT-H/14's 1280
             other = [{k: r.get(k) for k in (
-                "shape", "dtype", "max_abs_err", "ms", "plain_ms",
-                "library_ms", "bound_ms", "bound_by")} for r in other]
+                "shape", "dtype", "scale_dtype", "max_abs_err", "ms",
+                "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                "library_scale_dtype", "bound_ms", "bound_by")}
+                for r in other]
         if other is not None:
             summary[-1]["head_dims"] = other
     emit({"kernels": summary})

@@ -174,8 +174,8 @@ def test_layer_norm_kernel_matches_plain(dev, x_dtype, w_dtype):
 # every rung of the forward's register ladder (16-byte vectors a lane: 1, 2,
 # 3, 4, 6, 8 in bf16; f32 rows hold half the values, and past D = 1024 take
 # the rungs of 12 and 16 vectors that read scale and bias where they use
-# them: 1280 is ViT-H/14's width)
-_LN_WIDTHS = {torch.bfloat16: [16, 128, 512, 768, 1024, 1536, 2048],
+# them: 1280 is ViT-H/14's width, in both dtypes)
+_LN_WIDTHS = {torch.bfloat16: [16, 128, 512, 768, 1024, 1280, 1536, 2048],
               torch.float32: [16, 128, 512, 768, 1024, 1280, 1536, 2048]}
 
 
@@ -532,8 +532,9 @@ def test_layer_norm_bwd_kernel_matches_plain(dev, x_dtype, w_dtype, rows, d):
 # every rung of the backward's register ladder (16-byte vectors a lane: 1,
 # 2, 3, 4, 6, 8, and in f32 12 and 16 with the sums in shared memory),
 # D = 8 (one lane of a warp busy) and D = 520 (a rung's last vectors on
-# some lanes only)
-_LN_BWD_WIDTHS = {torch.bfloat16: [8, 256, 512, 520, 768, 1024, 1536, 2048],
+# some lanes only); 1280 is ViT-H/14's width, in both dtypes
+_LN_BWD_WIDTHS = {torch.bfloat16: [8, 256, 512, 520, 768, 1024, 1280, 1536,
+                                   2048],
                   torch.float32: [8, 128, 256, 384, 512, 520, 768, 1024,
                                   1280, 1544, 2048]}
 
@@ -578,6 +579,26 @@ def test_layer_norm_bwd_writes_no_row_past_the_last(dev, x_dtype, w_dtype,
         ln.layer_norm_bwd_reference(x[:rows], s, dy[:rows], 1e-12),
         x_dtype, w_dtype)
     assert bool((dx[rows:] == 7.0).all())
+
+
+def test_layer_norm_bwd_launch_makes_one_library_call(dev, monkeypatch):
+    """After the first call at a width and dtypes (which finds the wave), a
+    backward launch makes one ctypes call: the kernel's entry point."""
+    x, s, dy = _ln_bwd_inputs(32 * 257, 1280, torch.bfloat16, torch.bfloat16,
+                              dev)
+    first = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
+    lib, calls = kernels.library(), []
+
+    class Counting:
+        def __getattr__(self, name):
+            calls.append(name)
+            return getattr(lib, name)
+
+    monkeypatch.setattr(kernels, "library", Counting)
+    again = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
+    torch.cuda.synchronize()
+    assert calls == ["cxr_layer_norm_bwd"]
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
@@ -1769,33 +1790,48 @@ def test_attention_kernels_read_no_column_past_d(dev, d, dtype):
                for a, b in zip(grads, refs))
 
 
+@pytest.mark.parametrize("rate", [0.0, _RATE])
 @pytest.mark.parametrize("d,wide", [(16, 64), (80, 128), (80, 96)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("packed", [False, True])
 def test_head_dim_equals_zero_padded_wider_head_dim(dev, d, wide, dtype,
-                                                    packed):
+                                                    packed, rate):
     """The training forward and backward at head dim d equal, bit for bit,
     the same kernels at a wider head dim on operands zero-padded to it (at
     the same scale): the columns past d add nothing, and the last chunk's
-    skipped 16-deep steps change no bit. (f32 splits a row over as many
-    threads as the padded width needs, so 16 against 128 would differ in
-    summation order; the pairs here share that split.)"""
+    skipped 16-deep steps change no bit; with a rate, the dropout kernels
+    (dense or segment), whose mask holds no d. In bf16, d = 80 runs at
+    kD = 80 and 96 and 128 at kD = 128, so the 16-column tiles meet the
+    64-column chunk. (f32 splits a row over as many threads as the padded
+    width needs, so 16 against 128 would differ in summation order; the
+    pairs here share that split.)"""
     seg = _seg_ids("odd-S", 2, dev)
     s = seg.shape[1]
     q, k, v = _qkv_at(d, 2, s, dtype, dev)
     do = _randn(q.shape, dtype, dev, seed=5)
     qw, kw, vw, dow = (torch.nn.functional.pad(t, (0, wide - d)).contiguous()
                        for t in (q, k, v, do))
+    scale = d ** -0.5
     if packed:
         fwd, bwd, extra = (fa.flash_attention_packed_fwd,
                            fa.flash_attention_packed_bwd, (seg,))
+        if rate:
+            fwd, bwd = (fa.flash_attention_packed_dropout_fwd,
+                        fa.flash_attention_packed_dropout_bwd)
     else:
         fwd, bwd, extra = fa.flash_attention_fwd, fa.flash_attention_bwd, ()
-    scale = d ** -0.5
-    o, lse = fwd(q, k, v, *extra, scale)
-    ow, lsew = fwd(qw, kw, vw, *extra, scale)
-    grads = bwd(q, k, v, *extra, o, lse, do, scale)
-    wgrads = bwd(qw, kw, vw, *extra, ow, lsew, dow, scale)
+        if rate:
+            fwd, bwd = (fa.flash_attention_dropout_fwd,
+                        fa.flash_attention_dropout_bwd)
+    # the arguments after the operands: the scale, or the mask's seed and
+    # rate, the scale and the block the mask's strides are padded to
+    tail = ((_SEED, rate, scale,
+             fa.packed_block_q(s) if packed else fa.auto_block_q(s))
+            if rate else (scale,))
+    o, lse = fwd(q, k, v, *extra, *tail)
+    ow, lsew = fwd(qw, kw, vw, *extra, *tail)
+    grads = bwd(q, k, v, *extra, o, lse, do, *tail)
+    wgrads = bwd(qw, kw, vw, *extra, ow, lsew, dow, *tail)
     torch.cuda.synchronize()
     assert torch.equal(o, ow[..., :d]) and torch.equal(lse, lsew)
     assert not ow[..., d:].any()

@@ -193,13 +193,19 @@ def _assert_ln_grads(got, ref, dtypes):
                 1.0, np.abs(r).max())).all()
 
 
+# the width of the LayerNorm tests against JAX: 256, and ViT-H/14's 1280
+_LN_TEST_WIDTHS = [256, 1280]
+
+
+@pytest.mark.parametrize("d", _LN_TEST_WIDTHS)
 @pytest.mark.parametrize("reference", ["xla", "pallas_interpret"])
 @pytest.mark.parametrize("x_dtype,w_dtype", [
     (np.float32, np.float32), ("bfloat16", "bfloat16"),
     ("bfloat16", np.float32)])
 def test_layer_norm_bwd_reference_matches_jax(rng, reference, x_dtype,
-                                              w_dtype):
-    (jx, tx), (js, ts), _, (jdy, tdy) = _ln_inputs(rng, x_dtype, w_dtype)
+                                              w_dtype, d):
+    (jx, tx), (js, ts), _, (jdy, tdy) = _ln_inputs(rng, x_dtype, w_dtype,
+                                                   (3, 37, d))
     fn = jln._bwd_xla if reference == "xla" else jln._bwd_pallas
     ref = fn(1e-12, jx, js, jdy)
     got = tln.layer_norm_bwd_reference(tx, ts, tdy, 1e-12)
@@ -208,12 +214,13 @@ def test_layer_norm_bwd_reference_matches_jax(rng, reference, x_dtype,
     _assert_ln_grads(got, ref, (x_dtype, w_dtype, w_dtype))
 
 
+@pytest.mark.parametrize("d", _LN_TEST_WIDTHS)
 @pytest.mark.parametrize("x_dtype,w_dtype", [
     (np.float32, np.float32), ("bfloat16", "bfloat16"),
     ("bfloat16", np.float32)])
-def test_layer_norm_autograd_matches_jax_grad(rng, x_dtype, w_dtype):
-    (jx, tx), (js, ts), (jb, tb), (jdy, tdy) = _ln_inputs(rng, x_dtype,
-                                                          w_dtype)
+def test_layer_norm_autograd_matches_jax_grad(rng, x_dtype, w_dtype, d):
+    (jx, tx), (js, ts), (jb, tb), (jdy, tdy) = _ln_inputs(
+        rng, x_dtype, w_dtype, (3, 37, d))
 
     def f(x, s, b):
         y = jln.layer_norm(x, s, b, 1e-12)

@@ -83,12 +83,14 @@ def _ln_inputs(rng, x_dtype, w_dtype, shape=(3, 37, 256)):
     return _pair(x, x_dtype), _pair(s, w_dtype), _pair(b, w_dtype)
 
 
+@pytest.mark.parametrize("d", [256, 1280])     # 1280: ViT-H/14's width
 @pytest.mark.parametrize("reference", ["xla", "pallas_interpret"])
 @pytest.mark.parametrize("x_dtype,w_dtype", [
     (np.float32, np.float32), ("bfloat16", "bfloat16"),
     ("bfloat16", np.float32)])
-def test_layer_norm_matches_jax(rng, reference, x_dtype, w_dtype):
-    (jx, tx), (js, ts), (jb, tb) = _ln_inputs(rng, x_dtype, w_dtype)
+def test_layer_norm_matches_jax(rng, reference, x_dtype, w_dtype, d):
+    (jx, tx), (js, ts), (jb, tb) = _ln_inputs(rng, x_dtype, w_dtype,
+                                              (3, 37, d))
     fn = (jln._forward_xla if reference == "xla" else jln._forward_pallas)
     ref = np.asarray(fn(jx, js, jb, 1e-12).astype(jnp.float32))
     out = tln.layer_norm(tx, ts, tb, 1e-12)
@@ -99,7 +101,50 @@ def test_layer_norm_matches_jax(rng, reference, x_dtype, w_dtype):
     else:
         # f32 statistics on both sides, one rounding to bf16 at the end:
         # a different f32 summation order may flip that rounding by 1 ulp
-        assert (np.abs(got - ref) <= _bf16_ulp(ref)).all()
+        diff, ulp = np.abs(got - ref), _bf16_ulp(ref)
+        # Only where x̂·s + b cancels (float64 |y| below 2^-14 of
+        # |x̂·s| + |b|) can the two f32 values differ by the rounding of
+        # the terms rather than of y: there 2^-22 of the terms is allowed
+        # on top, and the port must be no farther than JAX from the
+        # float64 value (at 1280 one element of 142,080 cancels, to
+        # y ≈ -1.5e-5). Every other element keeps the 1-ulp bound.
+        x64 = _np(tx).astype(np.float64)
+        xhat = (x64 - x64.mean(-1, keepdims=True)) / np.sqrt(
+            x64.var(-1, keepdims=True) + 1e-12)
+        s64, b64 = (_np(t).astype(np.float64) for t in (ts, tb))
+        y64 = xhat * s64 + b64
+        terms = np.abs(xhat * s64) + np.abs(b64)
+        cancels = np.abs(y64) < 2.0 ** -14 * terms
+        assert (diff[~cancels] <= ulp[~cancels]).all()
+        assert (diff[cancels] <= (ulp + 2.0 ** -22 * terms)[cancels]).all()
+        assert (np.abs(got - y64) <= np.abs(ref - y64))[cancels].all()
+
+
+def test_layer_norm_bwd_asks_its_wave_once_per_width_and_dtypes(
+        monkeypatch):
+    """The backward wrapper's block count asks the library for the wave (its
+    blocks resident at once) once per (device, D, x dtype, scale dtype):
+    a launch then makes one ctypes call, the kernel's own."""
+    asked = []
+
+    class Library:
+        def cxr_layer_norm_bwd_wave(self, d, x_code, w_code, device, blocks):
+            asked.append((d, x_code, w_code))
+            blocks._obj.value = 264
+            return 0
+
+    monkeypatch.setattr(tln.kernels, "library", Library)
+    monkeypatch.setattr(tln, "_BWD_WAVES", {})
+    meta = dict(device="meta")
+    x = torch.empty((32 * 257, 1280), dtype=torch.bfloat16, **meta)
+    bf16, f32 = (torch.empty(1280, dtype=t, **meta)
+                 for t in (torch.bfloat16, torch.float32))
+    assert [tln._bwd_blocks(x, bf16, 32 * 257) for _ in range(3)] == [264] * 3
+    assert tln._bwd_blocks(x, bf16, 7) == 1
+    assert tln._bwd_blocks(x, f32, 32 * 257) == 264
+    x768 = torch.empty((8, 768), dtype=torch.bfloat16, **meta)
+    assert tln._bwd_blocks(x768, bf16[:768], 8) == 1
+    assert asked == [(1280, 1, 1), (1280, 1, 0), (768, 1, 1)]
 
 
 def test_layer_norm_cpu_path_is_plain_and_counts_no_launch(rng):
