@@ -13,25 +13,32 @@
         --calibration a.png b.png
     python -m chestxray_vit_tpu_torch.cli serve --model-dir outputs/model
 
-``--device DEVICE`` (default ``cuda``; ``cpu`` runs the plain kernel
-twins) may stand anywhere after the command, for every command; ``serve``
-takes it as the server's own flag. ``train`` starts from the HF weights
-that ``model.model_name`` names (a local HF folder, e.g. one ``export``
-wrote, or a ``.safetensors`` file; hub names need ``transformers`` and a
-cache), and from random weights where they cannot be read.
+``--device DEVICE`` (default ``cuda``: every visible card, as the JAX CLI
+trains on every local device; ``cuda:k`` one card; ``cpu`` runs the plain
+kernel twins; a comma-separated list such as ``cuda:0,cuda:0`` one rank
+each) may stand anywhere after the command, for every command; ``serve``
+takes it as the server's own flag. ``train``, ``eval``, ``predict`` and
+``smoke`` on several devices start one rank a device
+(``parallel/launch.py``) over the mesh of ``--set mesh.*``. ``train``
+starts from the HF weights that ``model.model_name`` names (a local HF
+folder, e.g. one ``export`` wrote, or a ``.safetensors`` file; hub names
+need ``transformers`` and a cache), and from random weights where they
+cannot be read.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 from chestxray_vit_tpu_torch.config import Config, parse_cli
 
 
-def _pop_device(argv: List[str]) -> Tuple[str, List[str]]:
-    """(the ``--device`` value or 'cuda', argv without the option)."""
+def _pop_device(argv: List[str]) -> Tuple[Union[str, List[str]],
+                                           List[str]]:
+    """(the ``--device`` value or 'cuda', argv without the option); a
+    comma-separated value is a list of devices."""
     device, rest, i = "cuda", [], 0
     while i < len(argv):
         if argv[i] == "--device" and i + 1 < len(argv):
@@ -42,7 +49,7 @@ def _pop_device(argv: List[str]) -> Tuple[str, List[str]]:
         else:
             rest.append(argv[i])
         i += 1
-    return device, rest
+    return (device.split(",") if "," in device else device), rest
 
 
 def _build_trainer(cfg: Config, device: str, pretrained: bool = True):
@@ -57,9 +64,8 @@ def _build_trainer(cfg: Config, device: str, pretrained: bool = True):
 
 def _restore(trainer, cfg: Config) -> None:
     if cfg.train.resume_from_checkpoint:
-        step = (None if cfg.train.resume_from_checkpoint == "auto"
-                else int(cfg.train.resume_from_checkpoint))
-        trainer.state, _, _ = trainer.ckpt.restore(step, trainer.state)
+        trainer.restore(None if cfg.train.resume_from_checkpoint == "auto"
+                        else int(cfg.train.resume_from_checkpoint))
 
 
 def cmd_train(cfg: Config, device: str) -> int:
@@ -67,8 +73,7 @@ def cmd_train(cfg: Config, device: str) -> int:
     metrics = trainer.train()
     trainer.save_model()
     eval_metrics = trainer.evaluate()
-    trainer.logger.log(int(trainer.state.step), eval_metrics, "eval")
-    trainer.logger.save_results("eval", eval_metrics)
+    trainer.save_metrics("eval", eval_metrics, log=True)
     trainer.save_state()       # trainer_state.json
     trainer.close()
     print({**metrics, **eval_metrics})
@@ -79,7 +84,7 @@ def cmd_eval(cfg: Config, device: str) -> int:
     trainer = _build_trainer(cfg, device)
     _restore(trainer, cfg)
     metrics = trainer.evaluate()
-    trainer.logger.save_results("eval", metrics)
+    trainer.save_metrics("eval", metrics)
     trainer.close()
     print(metrics)
     return 0

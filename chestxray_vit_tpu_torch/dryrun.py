@@ -3,8 +3,9 @@ package's ``__graft_entry__.dryrun_multichip``.
 
     python -m chestxray_vit_tpu_torch.dryrun N [--device cpu]
 
-Spawns N ranks (one process each, in a gloo group) over the
-mesh the JAX dry run picks: fsdp = 2 when N ≥ 4 and even, tensor = 2 when
+Starts N ranks (one process each, through the launcher's spawn and
+``file://`` rendezvous, ``parallel/launch.py``) over the mesh the JAX dry
+run picks: fsdp = 2 when N ≥ 4 and even, tensor = 2 when
 N ≥ 8 as well, data the rest; with N ≥ 4 also a dcn mesh (dcn_data = 2).
 On each mesh the ranks run, on a tiny bf16 model with every axis's
 collectives in it, what the launcher runs in one process on the global
@@ -16,9 +17,10 @@ batch, and the launcher compares:
   batch, each batch slot its rows): logits within 1e-4.
 
 Ranks run on the cards unless ``--device cpu`` is given: rank r on
-``cuda:r % cards`` (several ranks may share a card: the group is gloo,
-staged through the host, so it needs no card a rank). Without a card the
-run stops with an error; it never falls back to the CPU. Exit code 0 when
+``cuda:r % cards``. The group's backend follows the placement: NCCL with
+a card a rank, gloo where ranks share a card (staged through the host, so
+it needs no card a rank) or run on the CPU. Without a card the run stops
+with an error; it never falls back to the CPU. Exit code 0 when
 every check passes; the last line of the output is a JSON summary.
 """
 
@@ -26,10 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
 import sys
-import tempfile
 import time
 from typing import Dict, List, Tuple
 
@@ -42,7 +41,6 @@ from chestxray_vit_tpu_torch.config import (Config, MeshConfig, ModelConfig,
 LOSS_TOL, LOGIT_TOL = 5e-5, 1e-4
 PER_SLOT = 2                 # the JAX dry run's batch_size_per_core
 TOTAL_STEPS = 10
-TIMEOUT_S = 600
 
 
 def _config(**model) -> Config:
@@ -100,23 +98,15 @@ def _int8_logits(cfg: Config, params, images, batch) -> torch.Tensor:
         return S.make_quantized_eval_step(cfg)(qp, batch)[0]
 
 
-def worker(rank: int, world: int, out: str, device: str) -> None:
-    """One rank: every mesh's three checks; rank 0 writes the results. The
-    ranks meet at a file in ``out`` (no port to race for)."""
-    import torch.distributed as td
-
+def worker(dev: torch.device, world: int) -> list:
+    """One rank (the launcher's object for it is its device): every mesh's
+    three checks; rank 0's results are the call's value."""
     from chestxray_vit_tpu_torch.parallel import distributed as dist
     from chestxray_vit_tpu_torch.parallel import fsdp
     from chestxray_vit_tpu_torch.parallel import mesh as mesh_lib
     from chestxray_vit_tpu_torch.train import steps as S
 
     torch.set_num_threads(1)
-    # a gloo group first: ranks may share a card, which NCCL refuses;
-    # initialize then only picks this rank's device
-    init = f"file://{os.path.join(out, 'rendezvous')}"
-    td.init_process_group("gloo", init_method=init, world_size=world,
-                          rank=rank, timeout=dist.TIMEOUT)
-    dev = dist.initialize(init, world, rank, device=device)
     glob = _batch(world, dev)
     res = []
     for c, d, f, t in meshes(world):
@@ -138,61 +128,32 @@ def worker(rank: int, world: int, out: str, device: str) -> None:
             logits, mesh.axis("batch")).tolist()
         res.append(rec)
     dist.barrier("dry run done")
-    td.destroy_process_group()
-    if rank == 0:
-        with open(os.path.join(out, "ranks.json"), "w") as fh:
-            json.dump(res, fh)
+    return res
 
 
 def dryrun(n: int, device: str = "cuda") -> dict:
     """Run the dry run over ``n`` ranks on ``device``; returns the summary
     (``ok`` and each mesh's differences) and raises when a check fails or
     a rank does."""
+    from chestxray_vit_tpu_torch.parallel import launch
+
     if n < 1:
         raise ValueError(f"the dry run needs a rank at least, got {n}")
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the dry run runs on the cards (no CUDA device "
                            "is available); pass --device cpu for the CPU")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
-                        "MASTER_PORT")}
-    env["PYTHONPATH"] = os.pathsep.join(
-        [root] + [p for p in [env.get("PYTHONPATH")] if p])
+    cards = torch.cuda.device_count() if device == "cuda" else 1
+    devices = [torch.device(device, r % cards) if device == "cuda"
+               else torch.device(device) for r in range(n)]
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as out:
-        procs = []
-        for rank in range(n):
-            log = open(os.path.join(out, f"log{rank}.txt"), "w")
-            procs.append((subprocess.Popen(
-                [sys.executable, "-m", "chestxray_vit_tpu_torch.dryrun",
-                 "--worker", str(rank), str(n), out, device],
-                env=env, cwd=root, stdout=log, stderr=subprocess.STDOUT),
-                log))
-        try:
-            refs = _references(n, device)
-            deadline = time.monotonic() + TIMEOUT_S
-            while any(p.poll() is None for p, _ in procs):
-                if (any(p.poll() not in (None, 0) for p, _ in procs)
-                        or time.monotonic() > deadline):
-                    break
-                time.sleep(0.2)
-        finally:
-            for p, log in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-                log.close()
-        for rank, (p, _) in enumerate(procs):
-            if p.returncode != 0:
-                with open(os.path.join(out, f"log{rank}.txt")) as fh:
-                    tail = fh.read()[-3000:]
-                raise RuntimeError(f"dry run rank {rank} failed (exit "
-                                   f"{p.returncode}):\n{tail}")
-        with open(os.path.join(out, "ranks.json")) as fh:
-            ranks = json.load(fh)
+    ranks = launch.Ranks(devices, what=f"the dry run's {n} ranks")
+    try:
+        refs = _references(n, device)     # while the ranks start
+        ranks_res = ranks.call(worker, n)
+    finally:
+        ranks.close()
     summary = {"ranks": n, "device": device, "meshes": [], "ok": True}
-    for rec in ranks:
+    for rec in ranks_res:
         row = {"mesh": "x".join(map(str, rec["mesh"])),
                "dense_loss_delta": abs(rec["dense_loss"] - refs["dense"]),
                "tome_loss_delta": abs(rec["tome_loss"] - refs["tome"]),
@@ -234,10 +195,6 @@ def _references(n: int, device: str) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] == "--worker":
-        rank, world, out, device = argv[1:5]
-        worker(int(rank), int(world), out, device)
-        return 0
     ap = argparse.ArgumentParser(
         prog="python -m chestxray_vit_tpu_torch.dryrun",
         description="multi-rank dry run of the train step over a "

@@ -3,7 +3,8 @@
 
 The JAX package runs one process per host over a global device mesh and
 lets XLA derive the gradient all-reduce from the shardings. The port runs
-one process per device (``torchrun --nproc_per_node N``), each holding its
+one process per device (``torchrun --nproc_per_node N``, or the ranks a
+lone process starts, ``parallel/launch.py``), each holding its
 slice of every global batch, and sums the gradients itself
 (:func:`all_reduce_grads`) after the backward and before the clip:
 distributed data parallelism (DDP) written out, without
@@ -46,23 +47,41 @@ import torch.distributed as td
 TIMEOUT = datetime.timedelta(minutes=10)
 
 
+def backend_for(devices: Sequence) -> str:
+    """The backend of a group whose ranks drive ``devices`` (rank order):
+    NCCL where every rank has a card of its own, gloo where ranks share a
+    card (NCCL refuses two ranks on one) or run on the CPU; a gloo group of
+    ranks on cards stages its collectives through the host
+    (:func:`comm_device`)."""
+    devs = [torch.device(d) for d in devices]
+    cards = [d.index for d in devs if d.type == "cuda"]
+    own = (len(cards) == len(devs) and None not in cards
+           and len(set(cards)) == len(cards))
+    return "nccl" if own else "gloo"
+
+
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               device="cuda") -> torch.device:
+               device="cuda", placement: Optional[Sequence] = None
+               ) -> torch.device:
     """Join a process group when one is configured and return the device
     this process drives.
 
     A group is configured by the arguments (``coordinator_address`` as
-    ``tcp://host:port``, with the world size and this process's rank) or
-    by the environment ``torchrun`` sets (``WORLD_SIZE`` > 1 with
-    ``MASTER_ADDR`` and ``MASTER_PORT``). The backend is NCCL for a
-    ``cuda`` device and gloo for the CPU; a ``cuda`` process drives
-    ``cuda:LOCAL_RANK`` (else its rank modulo the local cards). A
-    configured group that cannot be joined raises: the process never
-    carries on alone. Without a configured group nothing is joined; an
-    environment that names a world size but no address says so once.
-    Calling it again in a joined process changes nothing."""
+    ``tcp://host:port`` or ``file://path``, with the world size and this
+    process's rank) or by the environment ``torchrun`` sets (``WORLD_SIZE``
+    > 1 with ``MASTER_ADDR`` and ``MASTER_PORT``). ``placement`` lists
+    every rank's device in rank order (``parallel/launch.py`` passes it);
+    without it a ``cuda`` process drives ``cuda:LOCAL_RANK`` (else its rank
+    modulo the local cards), over the ``LOCAL_WORLD_SIZE`` ranks of its
+    host (else all of them). The backend follows the placement
+    (:func:`backend_for`): NCCL when each rank has a card of its own, gloo
+    when ranks share a card or run on the CPU. A configured group that
+    cannot be joined raises: the process never carries on alone. Without a
+    configured group nothing is joined; an environment that names a world
+    size but no address says so once. Calling it again in a joined
+    process changes nothing."""
     device = torch.device(device)
     env_world = int(os.environ.get("WORLD_SIZE", "1"))
     from_env = (env_world > 1 and bool(os.environ.get("MASTER_ADDR"))
@@ -72,16 +91,26 @@ def initialize(coordinator_address: Optional[str] = None,
             print(f"[distributed] single-process mode (WORLD_SIZE="
                   f"{env_world} without MASTER_ADDR / MASTER_PORT)")
         return device
+    rank_ = (process_id if coordinator_address
+             else int(os.environ.get("RANK", "0")))
+    if placement is None:
+        local_world = int(os.environ.get(
+            "LOCAL_WORLD_SIZE",
+            num_processes if coordinator_address else env_world))
+        cards = max(torch.cuda.device_count(), 1)
+        placement = ([torch.device("cuda", r % cards)
+                      for r in range(local_world)]
+                     if device.type == "cuda" else [device] * local_world)
+        if device.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", rank_ % cards))
+            device = torch.device("cuda", local)
+    else:
+        device = torch.device(placement[rank_])
     if device.type == "cuda":
-        rank_ = (process_id if coordinator_address
-                 else int(os.environ.get("RANK", "0")))
-        local = int(os.environ.get("LOCAL_RANK",
-                                   rank_ % max(torch.cuda.device_count(), 1)))
-        device = torch.device("cuda", local)
         torch.cuda.set_device(device)
     if is_initialized():
         return device
-    backend = "nccl" if device.type == "cuda" else "gloo"
+    backend = backend_for(placement)
     if coordinator_address:
         td.init_process_group(backend, init_method=coordinator_address,
                               world_size=num_processes, rank=process_id,

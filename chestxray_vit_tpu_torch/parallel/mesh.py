@@ -20,14 +20,20 @@ over process subgroups that :func:`build_mesh` creates once:
 :func:`param_layout` is ``param_sharding``'s rule applied to the port's
 per-layer parameters. ``batch_sharding``, ``replicated`` and
 ``shard_batch`` have no counterpart: each process loads and places only
-its own rows (``distributed.host_batch_slice``). One process driving
-several devices is refused (ROADMAP Queue 1 #8).
+its own rows (``distributed.host_batch_slice``).
+
+The mesh's shape follows the JAX ``build_mesh``'s rule over the devices
+(:func:`mesh_shape`): ``data = -1`` takes what the fixed axes leave, and a
+shape that does not tile the devices raises. A process outside a group
+that is given several devices starts one rank a device
+(``parallel/launch.py``), so the JAX package's one process over every
+device becomes one rank a device here.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch.distributed as td
 from torch import nn
@@ -144,37 +150,47 @@ def _groups(dcn: int, data: int, fsdp: int, tensor: int
     return _GROUP_CACHE[key]
 
 
+def mesh_shape(cfg: Optional[MeshConfig], devices: Union[int, Sequence]
+               ) -> Tuple[int, int, int, int]:
+    """(dcn, data, fsdp, tensor) of ``cfg`` over ``devices`` (a sequence,
+    or their number), by the JAX ``build_mesh``'s rule
+    (``chestxray_vit_tpu/parallel/mesh.py``) over n devices: ``data = -1``
+    takes ``n // (dcn · fsdp · tensor)``, and a shape whose product is not
+    ``n`` raises ``ValueError("mesh AxBxC != n devices")``."""
+    cfg = cfg or MeshConfig()
+    n = devices if isinstance(devices, int) else len(devices)
+    dcn = max(cfg.dcn_data, 1)
+    fixed = cfg.fsdp * cfg.tensor
+    data = cfg.data if cfg.data != -1 else n // (fixed * dcn)
+    if dcn * data * fixed != n:
+        raise ValueError(
+            f"mesh {'%dx' % dcn if dcn > 1 else ''}{data}x{cfg.fsdp}"
+            f"x{cfg.tensor} != {n} devices")
+    return dcn, data, cfg.fsdp, cfg.tensor
+
+
 def build_mesh(cfg: Optional[MeshConfig] = None,
                world: Optional[int] = None,
                rank: Optional[int] = None) -> Mesh:
-    """The mesh of ``cfg`` over ``world`` processes (the process group's
-    size by default), seen from ``rank`` (the group's rank by default):
-    dcn · data · fsdp · tensor = world, ``data = -1`` taking the rest. A
-    mesh of more devices than processes is refused (one process drives one
-    device; ROADMAP Queue 1 #8), as is one that does not tile the
-    processes. In a process group the subgroups are created here, by
-    every rank."""
-    cfg = cfg or MeshConfig()
+    """The mesh of ``cfg`` over ``world`` ranks, one device each (the
+    process group's size by default), seen from ``rank`` (the group's
+    rank by default), shaped by :func:`mesh_shape`. A group that does not
+    tile the mesh raises its ``ValueError``. In a process group the
+    subgroups are created here, by every rank."""
     world = dist.world() if world is None else world
     rank = dist.rank() if rank is None else rank
-    dcn = max(cfg.dcn_data, 1)
-    fixed = dcn * cfg.fsdp * cfg.tensor
-    data = cfg.data if cfg.data != -1 else max(world // fixed, 1)
-    shape = (f"{'%dx' % dcn if dcn > 1 else ''}{data}x{cfg.fsdp}"
-             f"x{cfg.tensor}")
-    if data * fixed > world:
-        raise NotImplementedError(
-            f"a mesh of {shape} = {data * fixed} devices over {world} "
-            f"process(es): the port runs one process per device (start "
-            f"{data * fixed} with torchrun --nproc_per_node "
-            f"{data * fixed}); one process driving several devices is not "
-            f"ported to PyTorch yet (ROADMAP Queue 1 #8)")
-    if data * fixed != world:
-        raise ValueError(f"mesh {shape} != {world} processes")
-    groups = (_groups(dcn, data, cfg.fsdp, cfg.tensor)
+    try:
+        dcn, data, fsdp, tensor = mesh_shape(cfg, world)
+    except ValueError as e:
+        raise ValueError(
+            f"{e}: the group's processes drive one device each ({world} in "
+            f"all); a process outside a group trains on several devices by "
+            f"starting one rank a device (Trainer(cfg, device=[...]), or "
+            f"device='cuda' for every card)") from None
+    groups = (_groups(dcn, data, fsdp, tensor)
               if world == dist.world() else {})
-    return Mesh(data=data, fsdp=cfg.fsdp, tensor=cfg.tensor, dcn=dcn,
-                rank=rank, groups=groups)
+    return Mesh(data=data, fsdp=fsdp, tensor=tensor, dcn=dcn, rank=rank,
+                groups=groups)
 
 
 def dp_axes(mesh: Mesh) -> tuple:

@@ -16,8 +16,10 @@ is its readout in both phases).
   rate schedule and the epoch cadence use the true step count.
 - An optimizer step consumes ``batch_seqs × gradient_accumulation_steps``
   sequences; ``batch_seqs`` must divide by the number of batch slots.
-- Across processes (``torchrun``), the processes form the mesh of
-  ``cfg.mesh`` as in the dense Trainer, and the epoch's image stream is
+- Across processes (``torchrun``, or one rank a device when a lone
+  process is given several: ``device=["cuda:0"] * 4`` runs 1 × 2 × 2 on
+  one card), the ranks form the mesh of ``cfg.mesh`` as in the dense
+  Trainer, and the epoch's image stream is
   sharded by batch slot (``Mesh.dp_index`` of ``dp_size``: dcn × data ×
   fsdp; the "hosts" of the messages and of the cursor's ``per_host``)
   before packing (``order[slot::slots]``); each slot packs its shard into
@@ -113,6 +115,10 @@ class PackedTrainer(Trainer):
 
     def _has_full_batch(self) -> bool:
         return len(self.bundle.train) > 0
+
+    def _view(self):
+        return {**super()._view(), "seq_len": self.seq_len,
+                "grids": self.grids, "batch_seqs": self.batch_seqs}
 
     def _build_steps(self) -> None:
         # the accelerated eval knobs run the dense CLS-readout forward; a

@@ -10,18 +10,29 @@ with the classification report and optional calibrated thresholds;
 holds the parameters, the AdamW moments, the generator and the data cursor,
 and the loader skips the consumed batches before any decode.
 
-One process drives one device (``device``, 'cuda' unless the caller asks
-for the CPU, as the tests do; 'cuda' without a card raises). Batches are
-decoded on host threads and copied to the card on a side stream ahead of
-the step (``data/pipeline.py``). The step is ``train/steps.py``'s, so the
-Trainer runs the port's kernels on the card and their plain twins on the
-CPU.
+``device`` names the devices as the JAX package's ``jax.devices()`` does
+(``parallel/launch.train_devices``): 'cuda' (the default) is every visible
+card, 'cuda:k' one, 'cpu' the CPU (as the tests ask), a sequence those
+devices, repeats allowed; a card asked for without one raises. One device
+runs here. Several devices, in a process outside any group, run as one
+rank a device (``parallel/launch.py``): ``Trainer(...)`` then returns a
+:class:`SpawnedTrainer`, which relays ``train``, ``evaluate``,
+``predict``, ``save_model``, ``save_state``, ``save_metrics``,
+``restore``, ``request_stop`` and ``close`` to the ranks, reads ``cfg``,
+``mesh`` and the batch and step counts as rank 0 has them, and moves the
+full ``state`` between this host and the ranks; its output directory holds
+what one process writes, file for file. Batches are decoded on host
+threads and copied to the card on a side stream ahead of the step
+(``data/pipeline.py``). The step is ``train/steps.py``'s, so the Trainer
+runs the port's kernels on the card and their plain twins on the CPU.
 
-Across processes: started under ``torchrun --nproc_per_node N`` (after
-``parallel.distributed.initialize()``), the N processes form the mesh of
-``cfg.mesh`` (``parallel/mesh.py``: dcn_data × data × fsdp × tensor = N,
-data -1 taking the rest). The batch slots (dcn × data × fsdp) share each
-global batch of ``batch_size_per_core × slots × accumulation`` samples;
+Across processes: the ranks a lone process starts, or N processes started
+under ``torchrun --nproc_per_node N`` (after
+``parallel.distributed.initialize()``; one device each), form the mesh of
+``cfg.mesh`` over their devices (``parallel/mesh.py``: dcn_data × data ×
+fsdp × tensor = N, data -1 taking the rest, as the JAX ``build_mesh``).
+The batch slots (dcn × data × fsdp) share each global batch of
+``batch_size_per_core × slots × accumulation`` samples;
 each decodes only its slot's rows (``host_batch_slice``; the tensor ranks
 of a slot load the same ones). The state is placed by ``param_layout``:
 on an fsdp or tensor axis each rank holds its shards of the parameters
@@ -34,8 +45,10 @@ model hold the full tree, gathered from every rank and written by rank 0,
 so a checkpoint from any mesh resumes on any other (each rank reads its
 shards of it), as orbax restores into any sharding. The primary rank writes ``metrics.jsonl``,
 TensorBoard, the checkpoints, ``trainer_state.json`` and the saved model;
-the others log to ``metrics.rank{N}.jsonl``. A preemption stop is agreed
-on the sync cadence, so every rank stops at the same step.
+the others log to ``metrics.rank{N}.jsonl`` (in the ranks' own directory
+when a lone process started them: the JAX package's one process writes
+none). A preemption stop is agreed on the sync cadence, so every rank
+stops at the same step.
 
 ``pretrained=True`` starts from the HF weights named by
 ``model.model_name`` (a local HF folder or ``.safetensors`` file, or, with
@@ -51,21 +64,22 @@ Across processes, attention dropout, hidden dropout and mixup draw what
 one process draws on the global batch: the steps are built with this
 process's rank and the world size (``train/steps.py``).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-one process driving several devices (``parallel/mesh.py``, Queue 1 #8),
-and a tensor size that splits a head (#15).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: a
+tensor size that splits a head (#15).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
 import os
+import pickle
 import signal
 import threading
 import time
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +94,7 @@ from chestxray_vit_tpu_torch.models.export_hf import write_preprocessor_config
 from chestxray_vit_tpu_torch.ops.preprocess import prepare_pixel_values
 from chestxray_vit_tpu_torch.parallel import distributed as dist
 from chestxray_vit_tpu_torch.parallel import fsdp
+from chestxray_vit_tpu_torch.parallel import launch
 from chestxray_vit_tpu_torch.parallel import mesh as mesh_lib
 from chestxray_vit_tpu_torch.train import checkpoint as ckpt
 from chestxray_vit_tpu_torch.train import steps as S
@@ -116,13 +131,36 @@ def merged_floor_hint(history, step, total_steps, tome_r, warmup_steps,
             f"the takeoff window, then merge.")
 
 
+def _group_device(device) -> torch.device:
+    """The one device a rank of a process group drives; a sequence of
+    several is refused there."""
+    if isinstance(device, (list, tuple)):
+        if len(device) != 1:
+            raise ValueError(
+                f"device={device!r} in a process group: one rank drives "
+                f"one device (start one process a device, or call from a "
+                f"process outside any group to start them)")
+        device = device[0]
+    return torch.device(device)
+
+
 class Trainer:
+    def __new__(cls, *args, device="cuda", **kw):
+        """Several devices in a process outside any group: one rank a
+        device, driven through a :class:`SpawnedTrainer`."""
+        if not dist.is_initialized():
+            devices = launch.train_devices(device)
+            if len(devices) > 1:
+                return SpawnedTrainer(cls, devices, args, kw)
+        return super().__new__(cls)
+
     def __init__(self, cfg: Config, store: Optional[Store] = None,
-                 pretrained: bool = True, datasets=None, device="cuda"):
+                 pretrained: bool = True, datasets=None, *, device="cuda"):
         """``datasets`` optionally injects (train, val, test, classes)
         loader adapters directly (objects that ``iterate_batches`` can
         iterate: ``index`` with ``len`` and ``augment``, and ``load``)."""
-        self.device = torch.device(device)
+        self.device = (_group_device(device) if dist.is_initialized()
+                       else launch.train_devices(device)[0])
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') but no CUDA device "
                                "is available")
@@ -192,13 +230,15 @@ class Trainer:
         self._build_steps()
 
         out_dir = os.path.expanduser(cfg.train.output_dir)
-        # one logical log: the other ranks keep their own jsonl only
+        # one logical log: the other ranks keep their own jsonl only, in
+        # the ranks' own directory when a lone process started them
         primary = dist.is_primary()
+        side = None if primary else launch.rank_directory()
         self.logger = MetricLogger(
-            out_dir, cfg.train.report_to if primary else "none",
+            side or out_dir, cfg.train.report_to if primary else "none",
             jsonl_name=("metrics.jsonl" if primary
                         else f"metrics.rank{dist.rank()}.jsonl"))
-        self.profiler = StepProfiler(out_dir, cfg.train.profile_steps)
+        self.profiler = StepProfiler(side or out_dir, cfg.train.profile_steps)
         self.ckpt = ckpt.CheckpointManager(
             os.path.join(out_dir, "checkpoints"),
             save_total_limit=cfg.train.save_total_limit,
@@ -566,6 +606,20 @@ class Trainer:
         self.logger.save_results("train", train_metrics)
         return train_metrics
 
+    def save_metrics(self, split: str, metrics: Dict[str, float],
+                     log: bool = False) -> None:
+        """HF's ``save_metrics``: ``{split}_results.json``; with ``log``
+        also the record in ``metrics.jsonl`` at the current step, under
+        the prefix ``split``."""
+        if log:
+            self.logger.log(int(self.state.step), metrics, split)
+        self.logger.save_results(split, metrics)
+
+    def restore(self, step: Optional[int] = None) -> None:
+        """Load the checkpoint at ``step`` (the latest for None) into the
+        state, this rank's shards of it on a mesh."""
+        self.state, _, _ = self.ckpt.restore(step, self.state)
+
     def _progress_text(self, step: int, images_per_sec: float) -> str:
         """``step/total (pct%, eta)`` on the logging cadence."""
         pct = 100.0 * step / max(self.total_steps, 1)
@@ -647,7 +701,8 @@ class Trainer:
                 calibrate: bool = False
                 ) -> Tuple[np.ndarray, np.ndarray, Dict[str, float]]:
         """The final test pass: predict on test, with the classification
-        report written to ``report_path`` when given.
+        report written to ``report_path`` when given (by the primary
+        rank).
 
         ``calibrate=True`` fits per-class decision thresholds on the
         VALIDATION split (max per-class F1) and applies them to the test
@@ -663,7 +718,7 @@ class Trainer:
             threshold = M.calibrate_thresholds(val_logits, val_labels)
             metrics["f1_micro_calibrated"] = M.f1_micro_at(
                 logits, labels, threshold)
-        if report_path:
+        if report_path and dist.is_primary():
             text = M.write_classification_report(
                 os.path.expanduser(report_path), logits,
                 labels.astype(np.int64), self.bundle.classes, threshold)
@@ -747,3 +802,132 @@ class Trainer:
     def close(self) -> None:
         self.ckpt.close()
         self.logger.close()
+
+    # -- what a SpawnedTrainer reads and writes on its ranks ----------------
+
+    def _view(self) -> Dict[str, Any]:
+        """The attributes a :class:`SpawnedTrainer` reads in the caller."""
+        return {"cfg": self.cfg, "global_batch": self.global_batch,
+                "total_steps": self.total_steps,
+                "steps_per_epoch": self.steps_per_epoch,
+                "mesh": dataclasses.replace(self.mesh, groups={})}
+
+    def _set_config(self, cfg: Config) -> None:
+        """Take the caller's edits of ``cfg`` in place, as a one-process
+        Trainer sees an edit of its ``cfg`` at its next call."""
+        def assign(dst, src):
+            for f in dataclasses.fields(src):
+                value = getattr(src, f.name)
+                if dataclasses.is_dataclass(value):
+                    assign(getattr(dst, f.name), value)
+                else:
+                    setattr(dst, f.name, value)
+        assign(self.cfg, cfg)
+
+    def _host_state(self) -> Optional[S.TrainState]:
+        """The full state on the host (a collective: every rank gathers;
+        the primary's copy is returned)."""
+        layout = self.state.params.layout
+        params = fsdp.gather_params(self.state.params)
+        moments = {k: fsdp.gather_named(layout, self.state.opt_state[k])
+                   for k in ("mu", "nu")}
+        if not dist.is_primary():
+            return None
+        generator = torch.Generator()
+        generator.set_state(self.state.generator.get_state())
+        return S.TrainState(
+            step=int(self.state.step), params=copy.deepcopy(params).cpu(),
+            opt_state={k: {n: t.detach().cpu() for n, t in m.items()}
+                       for k, m in moments.items()},
+            generator=generator)
+
+    def _place_state(self, full: S.TrainState) -> None:
+        """Take a full state from the host: this rank's shards of it, on
+        its device."""
+        params = fsdp.shard_params(full.params.to(self.device), self.mesh)
+        self.state = S.TrainState(
+            step=full.step, params=params,
+            opt_state={k: {n: t.to(self.device) for n, t in fsdp.shard_named(
+                params.layout, full.opt_state[k]).items()}
+                for k in ("mu", "nu")},
+            generator=full.generator)
+
+
+class SpawnedTrainer:
+    """A Trainer (``cls``, or a subclass) over several devices, driven from
+    this process: one rank a device (``parallel/launch.Ranks``), each
+    building ``cls(*args, device=<its device>, **kw)``, in one group over
+    the mesh of ``cfg.mesh``. ``train``, ``evaluate``, ``predict``,
+    ``save_model``, ``save_state``, ``save_metrics``, ``restore``,
+    ``request_stop`` and ``close`` behave as a one-process Trainer's;
+    ``cfg``, ``mesh``, ``global_batch``, ``total_steps`` and
+    ``steps_per_epoch`` (and a PackedTrainer's ``seq_len``, ``grids`` and
+    ``batch_seqs``) are rank 0's, and an edit of ``cfg`` here reaches the
+    ranks before the next call. ``state`` is the full gathered
+    ``TrainState`` on this host; assigning one gives every rank its shards.
+    :meth:`call` runs a picklable function with each rank's trainer. While
+    ``train`` runs, SIGTERM and SIGINT sent here are forwarded to the
+    ranks, whose handlers agree the stop and checkpoint; ``train`` returns
+    once the checkpoint is written."""
+
+    def __init__(self, cls, devices, args: tuple, kw: dict):
+        self.devices = list(devices)
+        self.ranks = launch.Ranks(
+            devices, cls, args, kw,
+            what=f"{cls.__name__}(device=[{len(devices)} devices])")
+        self.__dict__.update(self.ranks.call("_view"))
+        self._cfg_sent = pickle.dumps(self.cfg)
+
+    def call(self, fn: Callable, *args, **kw):
+        """``fn(trainer, *args, **kw)`` on every rank (``fn`` picklable);
+        rank 0's value."""
+        blob = pickle.dumps(self.cfg)
+        if blob != self._cfg_sent:
+            self.ranks.call("_set_config", self.cfg)
+            self._cfg_sent = blob
+        return self.ranks.call(fn, *args, **kw)
+
+    def train(self) -> Dict[str, float]:
+        restore = (launch.forward_signals(self.ranks)
+                   if self.cfg.train.save_on_preemption else lambda: None)
+        try:
+            return self.call("train")
+        finally:
+            restore()
+
+    def evaluate(self, *args, **kw) -> Dict[str, float]:
+        return self.call("evaluate", *args, **kw)
+
+    def predict(self, *args, **kw):
+        return self.call("predict", *args, **kw)
+
+    def save_model(self, *args, **kw) -> None:
+        return self.call("save_model", *args, **kw)
+
+    def save_state(self, *args, **kw) -> str:
+        return self.call("save_state", *args, **kw)
+
+    def save_metrics(self, *args, **kw) -> None:
+        return self.call("save_metrics", *args, **kw)
+
+    def restore(self, *args, **kw) -> None:
+        return self.call("restore", *args, **kw)
+
+    def request_stop(self) -> None:
+        """Ask every rank to checkpoint and stop (safe from any thread)."""
+        self.ranks.notify("request_stop")
+
+    @property
+    def state(self) -> S.TrainState:
+        return self.call("_host_state")
+
+    @state.setter
+    def state(self, full: S.TrainState) -> None:
+        self.call("_place_state", full)
+
+    def close(self) -> None:
+        try:
+            if self.ranks.alive:
+                self.call("close")
+        finally:
+            self.ranks.close()

@@ -251,8 +251,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 34. vit_h14_cross_check: depth 2 at full width in f32: logits card vs CPU
    (F32_LOGIT_TOL) and one train step (vit_h14_train_cross_check,
    XCHECK_F32), LayerNorm at 1280 in f32 on the card.
-35. train_mesh: the fsdp and tensor axes. Four ranks (this file run with
-   ``--mesh-worker``) on cuda:0 in a gloo group, mesh data x fsdp x tensor
+35. train_mesh: the fsdp and tensor axes. Four ranks (started through
+   the launcher, ``parallel/launch.py``) on cuda:0 in a gloo group, mesh data x fsdp x tensor
    1 x 2 x 2 (ZeRO-3 shards, the Megatron split, the dropout kernels keyed
    by global head), ViT-B/16 @384 at full width and depth, bf16, full
    remat, against this process taking the same steps on the global batch:
@@ -269,6 +269,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ViT-B/16 @384, 20 steps) and ``examples/train_smoke_torch.py``, each
    in its own process, with their wall seconds.
 37. dryrun: ``python -m chestxray_vit_tpu_torch.dryrun 4`` on cuda:0.
+38. trainer_spawn (run after 35): one process driving several devices
+   (``parallel/launch.py``). A lone Trainer on ``["cuda:0"] * 2`` (2 x 1 x
+   1, data -1; ViT-B/16 @384 bf16, full remat, global batch 8, 3 steps)
+   against the one-process Trainer at the same global batch, one bf16 ulp
+   of the loss a step; a lone PackedTrainer on ``["cuda:0"] * 4`` (1 x 2 x
+   2 at depth 4, 8 sequences of 1152) uninterrupted, then stopped at step
+   2 by ``request_stop`` and resumed by a fresh one, bit for bit. The
+   seconds from the call to the first step, step ms beside one process,
+   the group's backend, exact launches a step on every rank.
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -642,7 +651,7 @@ HEAD_SPLIT_BATCH, HEAD_SPLIT_ROW_BASE = 4, 3
 # step on MESH_BATCH images, scales calibrated on them). Full width and
 # depth in bf16, then each path's f32 counterpart at depth 2.
 MESH_RANKS, MESH_SHAPE, MESH_BATCH, MESH_PACKED_SEQS = 4, (1, 1, 2, 2), 8, 8
-MESH_LAYERS, MESH_STEPS, MESH_TIMEOUT_S = 12, 2, 500
+MESH_LAYERS, MESH_STEPS = 12, 2
 _MESH_DROP = dict(attention_dropout=DROP_RATE, hidden_dropout=DROP_RATE)
 _MESH_TOME = dict(tome_r=TOME_R, tome_schedule=TOME_SCHEDULE)
 _MESH_F32 = dict(dtype="float32", num_layers=2)
@@ -698,6 +707,29 @@ MESH_INT8_F32_TOL = {"first_loss_rel": 1e-5, "loss_ulps": 1,
                      "params_of_largest": INT8_XCHECK["params"]}
 # phases 36-37: the examples and the dry run, each in its own processes
 EXAMPLES_TIMEOUT_S, DRYRUN_RANKS = 300, 4
+# phase 38 (trainer_spawn): a lone Trainer and PackedTrainer given several
+# devices start one rank a device (parallel/launch.py); the ranks share
+# cuda:0, so the group is gloo. (a) Dense: SPAWN_RANKS ranks on 2 x 1 x 1
+# (data -1), SPAWN_STEPS steps at a global batch of SPAWN_BATCH (a fake
+# bucket of SPAWN_IMAGES), against the one-process Trainer on the same
+# global batch: the ranks run the one-process step's kernels on half the
+# rows, where cuBLAS may pick other algorithms and the bf16 activations
+# round accordingly, so the loss is held to MESH_BF16_TOL's one bf16 ulp of
+# itself a step. (b) Packed: SPAWN_PACKED_RANKS ranks on 1 x 2 x 2 (data
+# -1, fsdp 2, tensor 2), SPAWN_PACKED_STEPS steps of SPAWN_PACKED_SEQS
+# 1152-token sequences over a variable-resolution bucket of
+# SPAWN_PACKED_IMAGES, uninterrupted; then stopped at SPAWN_PACKED_STOP by a
+# stop request and resumed by a fresh PackedTrainer: losses and the final
+# tree bit for bit the uninterrupted run's. Its depth is cut to
+# SPAWN_PACKED_LAYERS of 12 (the script's time aim: three spawns of four
+# ranks, each step's collectives staged through the host).
+SPAWN_IMAGES, SPAWN_RANKS, SPAWN_BATCH, SPAWN_STEPS = 64, 2, 8, 3
+SPAWN_PACKED_IMAGES, SPAWN_PACKED_RANKS, SPAWN_PACKED_SEQS = 200, 4, 8
+SPAWN_PACKED_LAYERS, SPAWN_PACKED_STEPS, SPAWN_PACKED_STOP = 4, 4, 2
+# the census's decodes, on every rank of every spawn (the runs share it, so
+# their epochs agree)
+SPAWN_CENSUS = 32
+SPAWN_HOLD_S = 120
 
 
 def emit(obj: dict) -> None:
@@ -3901,9 +3933,9 @@ def phase_trainer(dense_rec: dict) -> dict:
     return launches
 
 
-def varres_bucket():
-    """The fake NIH bucket of phases 26-27: PACKED_TRAINER_IMAGES images of
-    512 px, a third rewritten at 256 px and a third at 384 px (grids 16, 24
+def varres_bucket(images: int = PACKED_TRAINER_IMAGES):
+    """The fake NIH bucket of phases 26-27 (38: ``images`` of them):
+    PACKED_TRAINER_IMAGES images of 512 px, a third rewritten at 256 px and a third at 384 px (grids 16, 24
     and 32 of ViT-B/16: 256, 576 and 1024 tokens), as
     ``tests/test_packed_trainer.py`` does at its small size; and the seconds
     it took to make."""
@@ -3914,8 +3946,7 @@ def varres_bucket():
     from chestxray_vit_tpu_torch.data.testing import build_fake_nih
 
     t0 = time.perf_counter()
-    fake = build_fake_nih(num_images=PACKED_TRAINER_IMAGES, image_size=512,
-                          seed=23)
+    fake = build_fake_nih(num_images=images, image_size=512, seed=23)
     rng = np.random.default_rng(0)
     for i, name in enumerate(fake.image_names):
         size = (256, 384, 512)[i % 3]
@@ -5316,12 +5347,13 @@ def mesh_launches_per_step(path: str, model: dict) -> dict:
     return dense_launches_per_step(layers, dropout)
 
 
-def mesh_worker(rank: int, out: str) -> None:
-    """One rank of phase train_mesh, on cuda:0 in a gloo group of
-    MESH_RANKS on the MESH_SHAPE mesh: every run of MESH_RUNS (its steps
-    on the rank's slot of the global batch; after the dense bf16 run one
-    eval step); writes result<rank>.json and, on rank 0, each f32 run's
-    gathered parameters."""
+def mesh_worker(dev) -> dict:
+    """One rank of phase train_mesh (the launcher's object for it is its
+    device, cuda:0; a gloo group of MESH_RANKS on the MESH_SHAPE mesh):
+    every run of MESH_RUNS (its steps on the rank's slot of the global
+    batch; after the dense bf16 run one eval step). Returns (as the call's
+    value, rank 0's) every rank's records and rank 0's gathered parameters
+    of each f32 run."""
     import torch.distributed as td
 
     import chestxray_vit_tpu_torch as cxr
@@ -5332,16 +5364,13 @@ def mesh_worker(rank: int, out: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    init = f"file://{out}/rendezvous"        # the ranks meet at a file
-    td.init_process_group("gloo", init_method=init, world_size=MESH_RANKS,
-                          rank=rank, timeout=dist.TIMEOUT)
-    dev = dist.initialize(init, MESH_RANKS, rank, device="cuda")
     c, d, f, t = MESH_SHAPE
     mesh = mesh_lib.build_mesh(cxr.MeshConfig(dcn_data=c, data=d, fsdp=f,
                                               tensor=t))
-    slots = mesh_lib.dp_size(mesh)
+    rank, slots = dist.rank(), mesh_lib.dp_size(mesh)
     tally = _collective_counter()
     res = {"rank": rank, "coords": mesh.coords, "dp_index": mesh.dp_index}
+    params_out = {}
     for name, path, model, n_steps in MESH_RUNS:
         cfg = mesh_config(path, model)
         batch, full, scales = mesh_inputs(path, cfg, dev)
@@ -5379,15 +5408,13 @@ def mesh_worker(rank: int, out: str) -> None:
         if cfg.model.dtype == "float32":
             full = fsdp.gather_params(state.params)
             if rank == 0:
-                torch.save({n: p.detach().cpu()
-                            for n, p in full.named_parameters()},
-                           f"{out}/{name}_params.pt")
+                params_out[name] = {n: p.detach().cpu()
+                                    for n, p in full.named_parameters()}
         del state, params, step, full, scales
         torch.cuda.empty_cache()
-    dist.barrier("train_mesh done")
-    td.destroy_process_group()
-    with open(f"{out}/result{rank}.json", "w") as fh:
-        json.dump(res, fh)
+    ranks = [None] * dist.world()
+    td.all_gather_object(ranks, res)
+    return {"ranks": ranks, "params": params_out}
 
 
 def phase_train_mesh(dense_rec: dict) -> dict:
@@ -5407,9 +5434,7 @@ def phase_train_mesh(dense_rec: dict) -> dict:
     rank launches what one process does, on its heads). Four ranks sharing
     one card measure correctness and collective counts, not scaling.
     Returns the ranks' launches (every run's steps and the eval) summed."""
-    import os
-    import tempfile
-
+    from chestxray_vit_tpu_torch.parallel import launch
     from chestxray_vit_tpu_torch.train import steps
 
     dev = torch.device("cuda")
@@ -5466,25 +5491,17 @@ def phase_train_mesh(dense_rec: dict) -> dict:
     _MESH_PACKED.clear()
     torch.cuda.empty_cache()
 
-    out = tempfile.mkdtemp(prefix="train_mesh_")
+    # the ranks through the launcher (parallel/launch.py): a rank's
+    # failure is raised here with its output's tail
     t0 = time.perf_counter()
-    logs = [open(f"{out}/log{r}.txt", "w") for r in range(MESH_RANKS)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--mesh-worker",
-         str(r), out], stdout=log, stderr=subprocess.STDOUT)
-        for r, log in enumerate(logs)]
-    wait_all(procs, MESH_TIMEOUT_S)
-    for log in logs:
-        log.close()
-    logs = [open(f"{out}/log{r}.txt").read() for r in range(MESH_RANKS)]
+    ranks_of, _ = _quiet(lambda: launch.Ranks(
+        ["cuda:0"] * MESH_RANKS, what="train_mesh's ranks"))
+    try:
+        got, _ = _quiet(lambda: ranks_of.call(mesh_worker))
+    finally:
+        ranks_of.close()
     wall = time.perf_counter() - t0
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        require(p.returncode == 0,
-                f"train_mesh rank {r} exit {p.returncode}: {log[-3000:]}")
-    ranks = []
-    for r in range(MESH_RANKS):
-        with open(f"{out}/result{r}.json") as fh:
-            ranks.append(json.load(fh))
+    ranks = got["ranks"]
     emit({"phase": "train_mesh", "ranks_wall_s": wall, "shared_card": True,
           "rank_coords": [rk["coords"] for rk in ranks]})
 
@@ -5518,10 +5535,10 @@ def phase_train_mesh(dense_rec: dict) -> dict:
                 bf16_ulp(torch.tensor(max(ref["losses"]))))
             ok = ok and loss_diff <= rec["loss_bound"]
         else:
-            got = torch.load(f"{out}/{name}_params.pt")
+            got_params = got["params"][name]
             scale = max(float(p.abs().max()) for p in ref["params"].values())
             rec["param_diff_of_largest"] = max(
-                float((got[n] - p).abs().max())
+                float((got_params[n] - p).abs().max())
                 for n, p in ref["params"].items()) / scale
             rec["loss_rel_diff"] = max(abs(a - b) / abs(b) for rk in ranks
                                        for a, b in zip(rk[name]["losses"],
@@ -5577,21 +5594,6 @@ def cfg_dtype(model: dict) -> str:
     return model.get("dtype", "bfloat16")
 
 
-def wait_all(procs: list, timeout_s: float) -> None:
-    """Wait for every process, killing them all when one fails or the time
-    is up."""
-    deadline = time.monotonic() + timeout_s
-    while any(p.poll() is None for p in procs):
-        if (any(p.poll() not in (None, 0) for p in procs)
-                or time.monotonic() > deadline):
-            break
-        time.sleep(0.2)
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-        p.wait()
-
-
 def phase_examples() -> None:
     """The port's two examples as a user runs them, each in its own
     process on the card: ``finetune_nih_torch.py --dry-run`` (the
@@ -5643,6 +5645,266 @@ def phase_dryrun() -> dict:
           **summary})
     require(summary["ok"], f"dryrun: {summary}")
     return summary
+
+
+class SpawnClock:
+    """Wraps a Trainer's step function on a rank (or in this process): the
+    wall clock at each step's call (``time.time()``, comparable across the
+    processes of one host; each logged step syncs, so the gap between two
+    calls is one step with what the loop did after it) and the kernel
+    launches of each step, counted from 0 at its call."""
+
+    def __init__(self, step_fn):
+        self.step_fn, self.calls, self.launches = step_fn, [], []
+
+    def __call__(self, state, batch):
+        self.calls.append(time.time())
+        reset_launch_counts()
+        out = self.step_fn(state, batch)
+        self.launches.append(launch_counts())
+        return out
+
+
+def spawn_clock(tr) -> None:
+    """On every rank: clock the trainer's steps (:class:`SpawnClock`)."""
+    tr._train_step = SpawnClock(tr._train_step)
+
+
+def spawn_readings(tr, want: dict) -> dict:
+    """On every rank: the clock's readings, the group's backend, the
+    peak memory; ``all_ranks_exact``: every step of every rank launched
+    ``want`` (agreed over the group)."""
+    import torch.distributed as td
+
+    from chestxray_vit_tpu_torch.parallel import distributed as dist
+
+    clock = tr._train_step
+    exact = all(c == want for c in clock.launches)
+    return {"calls": clock.calls, "launches": clock.launches,
+            "backend": td.get_backend(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "all_ranks_exact": not dist.agree_flag(not exact)}
+
+
+def hold_until_stop(tr, step: int) -> None:
+    """On every rank: the step that reaches ``step`` returns only once a
+    stop was requested (within SPAWN_HOLD_S), so the caller's request lands
+    there."""
+    inner = tr._train_step
+
+    def held(state, batch):
+        out = inner(state, batch)
+        deadline = time.monotonic() + SPAWN_HOLD_S
+        while (out[0].step == step and not tr._stop_requested
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        return out
+    tr._train_step = held
+
+
+def _spawn_config(out_dir: str, batch: int):
+    return _trainer_config(out_dir, batch_size_per_core=batch,
+                           max_steps=SPAWN_STEPS, eval_strategy="no",
+                           save_strategy="no", load_best_model_at_end=False,
+                           report_to="none")
+
+
+def _spawn_packed(fake, out_dir: str, **train):
+    import chestxray_vit_tpu_torch as cxr
+    from chestxray_vit_tpu_torch.train.packed_trainer import PackedTrainer
+    cfg = _packed_trainer_config(
+        out_dir, max_steps=SPAWN_PACKED_STEPS, eval_strategy="no",
+        save_strategy="no", load_best_model_at_end=False,
+        lr_schedule="constant", **train)
+    cfg.model.num_layers = SPAWN_PACKED_LAYERS
+    cfg.mesh = cxr.MeshConfig(data=-1, fsdp=2, tensor=2)
+    return PackedTrainer(cfg, seq_len=PACKED_TRAINER_SEQ_LEN,
+                         grids=PACKED_TRAINER_GRIDS,
+                         batch_seqs=SPAWN_PACKED_SEQS,
+                         census_sample=SPAWN_CENSUS, store=fake.store,
+                         pretrained=False,
+                         device=["cuda:0"] * SPAWN_PACKED_RANKS)
+
+
+def _spawn_steps(readings: dict, t_call: float) -> dict:
+    calls = readings["calls"]
+    return {"call_to_first_step_s": calls[0] - t_call,
+            "step_ms": [1e3 * (b - a) for a, b in zip(calls, calls[1:])]}
+
+
+def phase_trainer_spawn() -> dict:
+    """A lone Trainer and PackedTrainer given several devices
+    (``device=["cuda:0"] * n``: one rank a device through
+    ``parallel/launch.py``, the ranks sharing the one card in a gloo
+    group). (a) Dense, ViT-B/16 @384 bf16 full remat on 2 x 1 x 1:
+    SPAWN_STEPS steps against the one-process Trainer on the same global
+    batch within one bf16 ulp of the loss a step. (b) Packed on 1 x 2 x 2
+    at SPAWN_PACKED_LAYERS layers: an uninterrupted run, then a run stopped
+    at SPAWN_PACKED_STOP by ``request_stop`` and resumed by a fresh
+    PackedTrainer, equal to it bit for bit. For each: the seconds from the
+    call to the first step, step ms (beside the one-process Trainer's),
+    the group's backend, and one rank's launches a step, which every rank
+    must match exactly (the ranks run the kernels, never the plain
+    versions). A failed rank fails the phase. Returns rank 0's launches
+    of the timed runs with this process's."""
+    import concurrent.futures
+    import os
+    import tempfile
+
+    from chestxray_vit_tpu_torch.data.testing import build_fake_nih
+    from chestxray_vit_tpu_torch.train.trainer import SpawnedTrainer, Trainer
+
+    emit({"phase": "trainer_spawn", "stated_before_the_run": True,
+          "dense": {"ranks": SPAWN_RANKS, "mesh": "2x1x1 (data -1)",
+                    "global_batch": SPAWN_BATCH, "steps": SPAWN_STEPS,
+                    "against": "the one-process Trainer at batch "
+                               f"{SPAWN_BATCH}",
+                    "loss_bound": "MESH_BF16_TOL: one bf16 ulp of the "
+                                  "loss a step"},
+          "packed": {"ranks": SPAWN_PACKED_RANKS,
+                     "mesh": "1x2x2 (data -1, fsdp 2, tensor 2)",
+                     "sequences": SPAWN_PACKED_SEQS,
+                     "steps": SPAWN_PACKED_STEPS,
+                     "stop_at": SPAWN_PACKED_STOP,
+                     "bound": "bit for bit the uninterrupted run",
+                     "depth_cut": f"{SPAWN_PACKED_LAYERS} of 12 layers "
+                                  f"(the script's time aim)"},
+          "devices": "ranks sharing cuda:0 (one card on this machine)"})
+    launches = dict.fromkeys(_wrappers(), 0)
+
+    def add(counts_list):
+        for counts in counts_list:
+            for k, n in counts.items():
+                launches[k] += n
+
+    fake = build_fake_nih(num_images=SPAWN_IMAGES,
+                          image_size=TRAINER_IMAGE_SIZE, seed=17)
+    want = dense_launches_per_step(12, dropout=False)
+    with tempfile.TemporaryDirectory(prefix="cxr_spawn_") as tmp:
+        one = Trainer(_spawn_config(os.path.join(tmp, "one"), SPAWN_BATCH),
+                      store=fake.store, pretrained=False, device="cuda:0")
+        clock = one._train_step = SpawnClock(one._train_step)
+        _quiet(one.train)
+        one.close()
+        del one
+        torch.cuda.empty_cache()
+        one_losses = [v for _, v in _logged(os.path.join(tmp, "one"))]
+        one_ms = [1e3 * (b - a) for a, b in zip(clock.calls, clock.calls[1:])]
+        add(clock.launches)
+
+        t_call = time.time()
+        tr, _ = _quiet(lambda: Trainer(
+            _spawn_config(os.path.join(tmp, "spawned"),
+                          SPAWN_BATCH // SPAWN_RANKS),
+            store=fake.store, pretrained=False,
+            device=["cuda:0"] * SPAWN_RANKS))
+        try:
+            ready_s = time.time() - t_call
+            require(isinstance(tr, SpawnedTrainer)
+                    and (tr.mesh.data, tr.mesh.fsdp, tr.mesh.tensor)
+                    == (SPAWN_RANKS, 1, 1)
+                    and tr.global_batch == SPAWN_BATCH,
+                    f"trainer_spawn: {SPAWN_RANKS} ranks on "
+                    f"{SPAWN_RANKS}x1x1, global batch {SPAWN_BATCH}")
+            tr.call(spawn_clock)
+            _quiet(tr.train)
+            got = tr.call(spawn_readings, want)
+        finally:
+            _quiet(tr.close)
+        losses = [v for _, v in _logged(os.path.join(tmp, "spawned"))]
+    add(got["launches"])
+    bound = MESH_BF16_TOL["loss_ulps"] * float(
+        bf16_ulp(torch.tensor(max(one_losses))))
+    diff = max(abs(a - b) for a, b in zip(losses, one_losses))
+    rec = {"phase": "trainer_spawn", "run": "dense", "ranks": SPAWN_RANKS,
+           "construct_s": ready_s, **_spawn_steps(got, t_call),
+           "one_process_step_ms": one_ms, "backend": got["backend"],
+           "losses": losses, "one_process_losses": one_losses,
+           "loss_diff": diff, "loss_bound": bound,
+           "launches_per_step": got["launches"][-1],
+           "launches_exact": got["all_ranks_exact"],
+           "rank0_peak_gb": got["peak_gb"]}
+    emit(rec)
+    require(len(losses) == SPAWN_STEPS and np.isfinite(losses).all()
+            and diff <= bound, f"trainer_spawn dense: {rec}")
+    require(got["all_ranks_exact"], f"trainer_spawn dense launches: "
+                                    f"{got['launches']} != {want}")
+
+    fake, _ = varres_bucket(SPAWN_PACKED_IMAGES)
+    want = packed_launches_per_step(SPAWN_PACKED_LAYERS, dropout=False)
+    with tempfile.TemporaryDirectory(prefix="cxr_spawn_packed_") as tmp:
+        run_dir, stop_dir = os.path.join(tmp, "run"), os.path.join(tmp, "stop")
+        t_call = time.time()
+        run, _ = _quiet(lambda: _spawn_packed(fake, run_dir))
+        try:
+            ready_s = time.time() - t_call
+            require((run.mesh.data, run.mesh.fsdp, run.mesh.tensor)
+                    == (1, 2, 2) and run.steps_per_epoch > SPAWN_PACKED_STEPS,
+                    f"trainer_spawn packed: 1x2x2 and an epoch of more than "
+                    f"{SPAWN_PACKED_STEPS} steps ({run.steps_per_epoch})")
+            run.call(spawn_clock)
+            _quiet(run.train)
+            packed_got = run.call(spawn_readings, want)
+            full = run.state
+        finally:
+            _quiet(run.close)
+        add(packed_got["launches"])
+
+        def stop_and_resume():
+            stopped = _spawn_packed(fake, stop_dir)
+            try:
+                stopped.call(hold_until_stop, SPAWN_PACKED_STOP)
+                with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                    result = pool.submit(stopped.train)
+                    jsonl = os.path.join(stop_dir, "metrics.jsonl")
+                    while not (os.path.exists(jsonl)
+                               and os.path.getsize(jsonl)):
+                        if result.done():       # raises a rank's error
+                            require(False, f"trainer_spawn stop: the run "
+                                           f"ended first: {result.result()}")
+                        time.sleep(0.05)
+                    stopped.request_stop()
+                    steps = result.result()["train_steps"]
+            finally:
+                stopped.close()
+            resumed = _spawn_packed(fake, stop_dir,
+                                    resume_from_checkpoint="auto")
+            try:
+                resumed.train()
+                return steps, resumed.state
+            finally:
+                resumed.close()
+        (stop_steps, again), _ = _quiet(stop_and_resume)
+        with open(os.path.join(stop_dir, "checkpoints",
+                               str(SPAWN_PACKED_STOP), "meta.json")) as fh:
+            cursor = json.load(fh)["cursor"]
+        run_losses = [v for _, v in _logged(run_dir)]
+        stop_losses = [v for _, v in _logged(stop_dir)]
+    want_params = dict(full.params.named_parameters())
+    unequal = [n for n, p in again.params.named_parameters()
+               if not torch.equal(p, want_params[n])]
+    rec = {"phase": "trainer_spawn", "run": "packed",
+           "ranks": SPAWN_PACKED_RANKS, "layers": SPAWN_PACKED_LAYERS,
+           "construct_s": ready_s, **_spawn_steps(packed_got, t_call),
+           "backend": packed_got["backend"], "losses": run_losses,
+           "stopped_at": stop_steps, "cursor": cursor,
+           "resumed_losses": stop_losses,
+           "resumed_params_unequal": unequal,
+           "launches_per_step": packed_got["launches"][-1],
+           "launches_exact": packed_got["all_ranks_exact"],
+           "rank0_peak_gb": packed_got["peak_gb"]}
+    emit(rec)
+    require(stop_steps == SPAWN_PACKED_STOP
+            and len(cursor.get("per_host") or []) == 2
+            and cursor["batch_in_epoch"] > 0,
+            f"trainer_spawn packed: stopped mid-epoch at "
+            f"{SPAWN_PACKED_STOP}: {rec}")
+    require(np.isfinite(run_losses).all() and stop_losses == run_losses
+            and not unequal, f"trainer_spawn packed resume: {rec}")
+    require(packed_got["all_ranks_exact"],
+            f"trainer_spawn packed launches: {packed_got['launches']} != "
+            f"{want}")
+    return launches
 
 
 KERNELS = (  # name (the kernel_check summary key), source, what it replaces
@@ -5767,6 +6029,7 @@ def main() -> int:
     vit_h14_launches = phase_vit_h14(images)
     phase_vit_h14_cross_check()
     mesh_launches = phase_train_mesh(train_rec)
+    spawn_launches = phase_trainer_spawn()
     phase_examples()
     phase_dryrun()
     loaded = [m for m in sys.modules
@@ -5784,7 +6047,8 @@ def main() -> int:
     # group, the command line's commands, the timed int8 train steps,
     # plain and merged, ViT-H/14's dense b8, b32 and int8 b32 serving, its
     # timed train steps and its eval step, the mesh ranks' train steps and
-    # eval step), each counted from 0 just before it
+    # eval step, the spawned ranks' steps (rank 0's) and the one-process
+    # Trainer beside them), each counted from 0 just before it
     paths = (serve_launches, serve_int8_launches, train_launches,
              eval_launches, eval_int8_launches, dropout_launches,
              packed_launches, tome_launches, mixed_launches,
@@ -5792,7 +6056,8 @@ def main() -> int:
              policy_launches, fused_launches, maps_launches,
              trainer_launches, packed_trainer_launches, ddp_launches,
              cli_launches, int8_train_launches, dp_split_launches,
-             serve_dp_launches, *vit_h14_launches, mesh_launches)
+             serve_dp_launches, *vit_h14_launches, mesh_launches,
+             spawn_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)
@@ -5826,7 +6091,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-worker"]:
-        mesh_worker(int(sys.argv[2]), sys.argv[3])
-        raise SystemExit(0)
     raise SystemExit(main())

@@ -14,7 +14,13 @@ Usage (after staging data + weights as described in the .md):
         --weights /data/weights/vit-base-patch16-384 \
         --preset version_b [--subset 1000] [--dry-run]
 
-Across cards (one process a card; the mesh of ``--set mesh.*``):
+On every card of the host (``--device cuda``, the default, is every
+visible card: this process starts one rank a card over the mesh of
+``--set mesh.*``, data -1 taking the cards the other axes leave):
+
+    python examples/finetune_nih_torch.py ... --set mesh.fsdp=2
+
+or under ``torchrun``, one process a card, as before:
 
     torchrun --nproc_per_node 4 examples/finetune_nih_torch.py ... \
         --set mesh.fsdp=2 --set mesh.tensor=2
@@ -89,8 +95,9 @@ def main(argv=None) -> int:
         ap.error(f"--weights {ns.weights!r} is not a local folder or file: "
                  f"the port fetches nothing from the hub — stage the "
                  f"checkpoint first (examples/finetune_nih.md §2)")
-    # joins the group torchrun describes (else runs alone) and returns this
-    # process's device
+    # joins the group torchrun describes and returns this rank's card;
+    # alone, "cuda" stays every visible card and the Trainer starts one
+    # rank a card
     device = dist.initialize(device=ns.device)
 
     cfg = _PRESETS[ns.preset]()
@@ -185,7 +192,7 @@ def main(argv=None) -> int:
         accel_fail |= not ok
     # reference parity artifacts (pyc L482-L491): train_results.json is
     # written by train(); eval_results.json here; report + saved model next
-    tr.logger.save_results("eval", {
+    tr.save_metrics("eval", {
         k: v for k, v in eval_metrics.items()
         if isinstance(v, (int, float)) and v == v})
     tr.save_model()

@@ -551,12 +551,16 @@ def test_mesh_axes_beyond_data_build(what, axis):
 
 
 def test_mesh_data_axis():
+    """data -1 takes the ranks the other axes leave; a group smaller than
+    its mesh raises the JAX ``build_mesh``'s ValueError, with the hint that
+    a lone process starts one rank a device."""
     assert mesh_lib.build_mesh().data == 1
     mesh = mesh_lib.build_mesh(tconfig.MeshConfig(data=-1), world=4)
     assert mesh_lib.dp_size(mesh) == 4
     assert mesh_lib.local_batch_to_global(8, mesh) == 32
     assert mesh_lib.build_mesh(tconfig.MeshConfig(data=2), world=2).data == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #8"):
+    with pytest.raises(ValueError, match=r"mesh 2x1x1 != 1 devices: .*"
+                                         r"one rank a device"):
         mesh_lib.build_mesh(tconfig.MeshConfig(data=2), world=1)
 
 
@@ -679,9 +683,10 @@ def test_packed_step_over_unequal_ranks_equals_the_concatenated_batch(
 
 
 def test_refusal_messages_name_roadmap_items():
-    """The port's refusals name the ROADMAP items that lift them: #8 (one
-    process driving several devices) and #15 (a tensor size that splits a
-    head); #12 (the mesh axes beyond data, done) keeps its line."""
+    """The port's refusals name the ROADMAP items that lift them: #15 (a
+    tensor size that splits a head); #8 (across devices: one process
+    driving several is done, several cards wait for hardware) and #12 (the
+    mesh axes beyond data, done) keep their lines."""
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
         roadmap = f.read()
     for item, title in (("8", "`parallel/` and serving across devices"),

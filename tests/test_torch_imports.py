@@ -69,6 +69,7 @@ MODULES = [
     "chestxray_vit_tpu_torch.parallel.mesh",
     "chestxray_vit_tpu_torch.parallel.fsdp",
     "chestxray_vit_tpu_torch.parallel.tensor",
+    "chestxray_vit_tpu_torch.parallel.launch",
     "chestxray_vit_tpu_torch.dryrun",
     "chestxray_vit_tpu_torch.eval.metrics",
     "chestxray_vit_tpu_torch.serve.batcher",

@@ -12,7 +12,7 @@ mesh's coordinates and what stays refused.
   and a whole-head call keeps today's mask; the plain dropout attention
   and its gradients on a head slice equal the whole call's slice.
 - ``build_mesh``: the coordinates of ``reshape(dcn, data, fsdp, tensor)``,
-  the batch slot, and the refusals (#8: more devices than processes).
+  the batch slot, and a group smaller than its mesh (the JAX ValueError).
 """
 
 import numpy as np
@@ -232,11 +232,15 @@ def test_data_axis_takes_the_rest():
     assert tmesh.dp_axes(m) == ("dcn", "data", "fsdp")
 
 
-@pytest.mark.parametrize("cfg,world", [
-    (dict(fsdp=2), 1), (dict(tensor=2), 1), (dict(dcn_data=2), 1),
-    (dict(data=2, fsdp=2), 2)])
-def test_more_devices_than_processes_refused(cfg, world):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #8"):
+@pytest.mark.parametrize("cfg,world,shape", [
+    (dict(fsdp=2), 1, "0x2x1"), (dict(tensor=2), 1, "0x1x2"),
+    (dict(dcn_data=2), 1, "2x0x1x1"), (dict(data=2, fsdp=2), 2, "2x2x1")])
+def test_more_devices_than_processes_refused(cfg, world, shape):
+    """A group smaller than its mesh raises the JAX ``build_mesh``'s
+    ValueError over its ranks (data -1 takes ``world // fixed``, here 0),
+    with the hint that a lone process starts one rank a device."""
+    with pytest.raises(ValueError, match=rf"mesh {shape} != {world} devices: "
+                                         rf".*one rank a device"):
         tmesh.build_mesh(tconfig.MeshConfig(**cfg), world=world)
 
 

@@ -487,7 +487,10 @@ class _Reached(Exception):
 @pytest.mark.parametrize("what", ["mesh", "pretrained", "gs", "hf_dataset",
                                   "eval_quantize", "eval_tome_r"])
 def test_refusals(what, fake, tmp_path, monkeypatch, capsys):
-    """What the Trainer refuses. ``pretrained``, ``hf_dataset`` and
+    """What the Trainer refuses. ``mesh``: a mesh that does not tile the
+    devices raises the JAX ``build_mesh``'s ValueError (one CPU device
+    against a data axis of 2), with the hint that a lone process starts one
+    rank a device (``tests/test_torch_launch.py`` runs that). ``pretrained``, ``hf_dataset`` and
     ``gs://`` checkpoints are ported: ``pretrained`` now checks the
     reference's degrade to random init for a local folder that cannot be
     read, ``hf_dataset`` that the backend reaches ``load_hf_dataset``,
@@ -498,7 +501,8 @@ def test_refusals(what, fake, tmp_path, monkeypatch, capsys):
     kw = {"pretrained": False}
     err, match = NotImplementedError, "ROADMAP Queue 1 #"
     if what == "mesh":
-        cfg.mesh.data, match = 2, "#8"
+        cfg.mesh.data, err = 2, ValueError
+        match = r"mesh 2x1x1 != 1 devices: .*one rank a device"
     elif what == "pretrained":
         cfg.model.model_name = str(tmp_path)      # no model.safetensors
         tr = ttrainer.Trainer(cfg, store=fake.store, device="cpu",
