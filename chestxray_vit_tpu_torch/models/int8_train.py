@@ -45,7 +45,11 @@ block splits as ``vit._block`` splits it:
   compute dtype. That equals the one-process product bit for bit at every
   K (|acc| ≤ 3072 · 127² < 2³¹ at the largest, ``mlp_out``); partials
   rounded to f32 and summed in f32 would not, once a sum passes 2²⁴;
-- the backward is the dense Megatron pair.
+- the backward is the dense Megatron pair;
+- a pair whose width the tensor size does not divide runs whole on every
+  tensor rank, as one process runs it (no collective); q, k and v columns
+  that cut a head are gathered into whole heads before the attention
+  (``vit.RankHeads``), the int8 products staying on the rank's columns.
 """
 
 from __future__ import annotations
@@ -232,30 +236,28 @@ def attention_residual(x: torch.Tensor, bp, cfg: ModelConfig,
     for the remat policies (the reference's ``attn`` policies drop them as
     the attention kernel's ``flash_residual``). With ``return_key_mean``
     also the keys' mean over heads, the token-merging metric. On a tensor
-    axis ``tp`` ``bp`` holds the rank's columns and rows: its H/t heads
-    from head H/t·index on, ``wo`` the row product, every head's keys
-    gathered for the metric."""
+    axis ``tp`` ``bp`` holds the rank's columns and rows
+    (``vit.RankHeads``): its whole heads, or the heads its columns touch
+    after a gather, ``wo`` the row product, every head's keys for the
+    metric."""
     attn_seed, seed_attn_out, _ = seeds or (None, None, None)
     hidden = cfg.hidden_dropout if train else 0.0
     a_in = layer_norm(x, bp.ln1.scale.to(dt), bp.ln1.bias.to(dt),
                       cfg.layernorm_eps)
-    b, s, _ = a_in.shape
-    hd = cfg.head_dim
-    a_in, h, head_base = vit._local_heads(a_in, cfg, tp)
+    a_in, rh = vit._local_heads(a_in, cfg, tp)
 
     def heads():
         a8 = quantize_static(a_in, act["attn_in"])
-        return tuple(_proj(a_in, getattr(bp, key), act["attn_in"], dt, a8)
-                     .view(b, s, h, hd).transpose(1, 2)
+        return tuple(rh.heads(_proj(a_in, getattr(bp, key), act["attn_in"],
+                                    dt, a8))
                      for key in ("wq", "wk", "wv"))
 
     q, k, v = checkpoint_name("attn_heads", heads)
-    o = vit.attend(q, k, v, cfg, cfg.attention_impl, train, attn_seed,
-                   row_base, head_base)
-    attn_out = _row_proj(o.transpose(1, 2).reshape(b, s, h * hd), bp.wo,
-                         act["attn_out"], dt, tp)
+    o = vit.attend(rh.own(q), rh.own(k), rh.own(v), cfg, cfg.attention_impl,
+                   train, attn_seed, row_base, rh.h0)
+    attn_out = _row_proj(rh.merge(o), bp.wo, act["attn_out"], dt, tp)
     x = x + vit._dropout(attn_out, hidden, seed_attn_out, row_base)
-    return (x, vit._key_mean(k, tp)) if return_key_mean else x
+    return (x, rh.key_mean(k)) if return_key_mean else x
 
 
 def mlp_residual(x: torch.Tensor, bp, cfg: ModelConfig, dt: torch.dtype,
@@ -282,12 +284,12 @@ def _block(x: torch.Tensor, bp, cfg: ModelConfig, dt: torch.dtype,
            train: bool, seeds: Optional[vit.LayerSeeds],
            act: Dict[str, torch.Tensor], row_base: int,
            layout=None) -> torch.Tensor:
-    tp = vit._tensor_axis(layout)
     if layout is not None:      # a sharded tree: gathered at use
         bp = fsdp.gather_block(layout, bp, dt)
     x = attention_residual(x, bp, cfg, dt, train, seeds, act,
-                           row_base=row_base, tp=tp)
-    return mlp_residual(x, bp, cfg, dt, train, seeds, act, row_base, tp)
+                           row_base=row_base, tp=vit._tensor_axis(layout))
+    return mlp_residual(x, bp, cfg, dt, train, seeds, act, row_base,
+                        vit._tensor_axis(layout, "mlp_in"))
 
 
 def apply_int8_train(params: vit.ViT, images: torch.Tensor,

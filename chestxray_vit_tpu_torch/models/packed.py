@@ -70,26 +70,21 @@ def _packed_mha(x: torch.Tensor, bp: vit.Block, cfg: ModelConfig,
     projections land as [B, H, S, hd] views, as in ``vit._mha``. With
     ``return_key_mean`` also the keys' mean over heads [B, S, hd], the
     token-merging metric. On a tensor axis ``tp`` (a ``mesh.Axis``) ``bp``
-    holds this rank's columns and rows, as in ``vit._mha``: its H/t heads
-    from head H/t·index on, the ``wo`` partials summed over the ranks
-    before the bias, every head's keys gathered for the metric."""
-    b, s, _ = x.shape
-    hd = cfg.head_dim
-    x, h, head_base = vit._local_heads(x, cfg, tp)
-
-    def heads(p: vit.Dense) -> torch.Tensor:
-        return vit._linear(x, p, compute_dtype).view(b, s, h, hd).transpose(
-            1, 2)
-
-    q, k, v = heads(bp.wq), heads(bp.wk), heads(bp.wv)
+    holds this rank's columns and rows, as in ``vit._mha``
+    (``vit.RankHeads``): its whole heads, or the heads its columns touch
+    after a gather, the ``wo`` partials summed over the ranks before the
+    bias, every head's keys for the metric."""
+    x, rh = vit._local_heads(x, cfg, tp)
+    q, k, v = (rh.heads(vit._linear(x, p, compute_dtype))
+               for p in (bp.wq, bp.wk, bp.wv))
     drop = train and cfg.attention_dropout > 0.0 and seed is not None
-    o = attention_packed(q, k, v, seg_ids, cfg.attention_impl,
-                         seed if drop else None, cfg.attention_dropout,
-                         row_base, head_base, cfg.num_heads)
-    out = vit._row_linear(o.transpose(1, 2).reshape(b, s, h * hd), bp.wo,
-                          compute_dtype, tp)
+    o = attention_packed(rh.own(q), rh.own(k), rh.own(v), seg_ids,
+                         cfg.attention_impl, seed if drop else None,
+                         cfg.attention_dropout, row_base, rh.h0,
+                         cfg.num_heads)
+    out = vit._row_linear(rh.merge(o), bp.wo, compute_dtype, tp)
     if return_key_mean:
-        return out, vit._key_mean(k, tp)
+        return out, rh.key_mean(k)
     return out
 
 
@@ -100,6 +95,7 @@ def _packed_block(x: torch.Tensor, seg: torch.Tensor, bp: vit.Block,
     """One packed block; a sharded tree's (``layout``) gathered here, so
     that a recompute gathers again."""
     tp = vit._tensor_axis(layout)
+    tp_mlp = vit._tensor_axis(layout, "mlp_in")
     if layout is not None:
         bp = fsdp.gather_block(layout, bp, dt)
     attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
@@ -109,7 +105,7 @@ def _packed_block(x: torch.Tensor, seg: torch.Tensor, bp: vit.Block,
     attn_out = _packed_mha(a_in, bp, cfg, seg, dt, train, attn_seed,
                            row_base=row_base, tp=tp)
     x = x + vit._dropout(attn_out, hidden, seed_attn_out, row_base)
-    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp)
+    return vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp_mlp)
 
 
 def _packed_tome_block(x: torch.Tensor, sizes: torch.Tensor,
@@ -121,6 +117,7 @@ def _packed_tome_block(x: torch.Tensor, sizes: torch.Tensor,
     clamped to the feasible maximum, as in the dense merging forward. A
     sharded tree's block is gathered here."""
     tp = vit._tensor_axis(layout)
+    tp_mlp = vit._tensor_axis(layout, "mlp_in")
     if layout is not None:
         bp = fsdp.gather_block(layout, bp, dt)
     attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
@@ -134,7 +131,7 @@ def _packed_tome_block(x: torch.Tensor, sizes: torch.Tensor,
     r_l = min(r_i, (x.shape[1] + 1) // 2 - 1)
     if r_l > 0:
         x, sizes, seg, pw = tome_merge_packed(x, kmean, sizes, seg, pw, r_l)
-    return (vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp),
+    return (vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp_mlp),
             sizes, seg, pw)
 
 

@@ -56,6 +56,7 @@ def _tome_block(x: torch.Tensor, sizes: torch.Tensor, bp: vit.Block,
     gathered (``parallel/tensor.py``), so each rank merges as one process
     does."""
     tp = vit._tensor_axis(layout)
+    tp_mlp = vit._tensor_axis(layout, "mlp_in")
     if layout is not None:
         bp = fsdp.gather_block(layout, bp, dt)
     attn_seed, seed_attn_out, seed_mlp_out = seeds or (None, None, None)
@@ -67,7 +68,7 @@ def _tome_block(x: torch.Tensor, sizes: torch.Tensor, bp: vit.Block,
                                row_base=row_base, tp=tp)
     x = x + vit._dropout(attn_out, hidden, seed_attn_out, row_base)
     x, sizes = tome_merge_clamped(x, kmean, sizes, r_i)
-    return (vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp),
+    return (vit._mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp_mlp),
             sizes)
 
 
@@ -80,6 +81,7 @@ def _tome_int8_block(x: torch.Tensor, sizes: torch.Tensor, bp: vit.Block,
     activation scales ``act``; the metric is the mean of its keys (on a
     tensor axis, of every head's, gathered)."""
     tp = vit._tensor_axis(layout)
+    tp_mlp = vit._tensor_axis(layout, "mlp_in")
     if layout is not None:
         bp = fsdp.gather_block(layout, bp, dt)
     x, kmean = int8_train.attention_residual(x, bp, cfg, dt, train, seeds,
@@ -87,7 +89,7 @@ def _tome_int8_block(x: torch.Tensor, sizes: torch.Tensor, bp: vit.Block,
                                              row_base=row_base, tp=tp)
     x, sizes = tome_merge_clamped(x, kmean, sizes, r_i)
     return int8_train.mlp_residual(x, bp, cfg, dt, train, seeds, act,
-                                   row_base, tp), sizes
+                                   row_base, tp_mlp), sizes
 
 
 def apply_tome_train(params: vit.ViT, images: torch.Tensor, cfg: ModelConfig,

@@ -43,11 +43,15 @@ forward: each layer gathers its ``fsdp`` shards at use, inside the block,
 so remat gathers again (``parallel/fsdp.py``), and on a ``tensor`` axis
 each block runs the rank's heads and MLP columns between the two
 conjugate collectives of ``parallel/tensor.py``: q, k and v are
-[B, H/t, S, hd] views of the local column products, the attention takes
-the heads' place in the model (``head_base``, ``heads_total``) so the
-dropout mask is the global one's slice, and the row products' partial
+[B, H/t, S, hd] views of the local column products (:class:`RankHeads`;
+where t divides the width but not the heads, the columns of every rank are
+gathered and the rank runs the heads its columns touch), the attention
+takes the heads' place in the model (``head_base``, ``heads_total``) so
+the dropout mask is the global one's slice, and the row products' partial
 sums are summed over the tensor ranks before their bias and the hidden
-dropout.
+dropout. A pair whose width t does not divide (q, k, v with ``wo``;
+``mlp_in`` with ``mlp_out``) is not split: it runs whole on every tensor
+rank, as one process runs it, with no collective (:func:`_tensor_axis`).
 
 The unrolled form (:func:`unstack_blocks`, :func:`run_block`,
 :func:`apply_with_attention`) serves the attention maps: its attention is
@@ -269,29 +273,79 @@ def _row_linear(x: torch.Tensor, p: Dense, dtype: torch.dtype,
             + p.bias.to(dtype))
 
 
-def _tensor_axis(layout):
-    """The tensor axis of a sharded tree's layout, None without one."""
+def _tensor_axis(layout, pair: str = "wq"):
+    """The tensor axis a sharded tree's layout splits a block's Megatron
+    pair over (``pair`` "wq": the attention's, "mlp_in": the MLP's), None
+    without one or where the tensor size does not divide the pair's width:
+    that pair runs whole on every tensor rank, with no collective."""
     if layout is None or layout.mesh.tensor == 1:
+        return None
+    if layout.of(f"blocks.0.{pair}.kernel")[1] is None:
         return None
     return layout.mesh.axis("tensor")
 
 
+class RankHeads:
+    """Where a rank's q, k and v columns lie among the model's heads.
+
+    Without a tensor axis (or with the attention pair whole on it) the rank
+    holds every head. On a tensor axis ``tp`` of t it holds the D/t columns
+    [c0, c0 + D/t) of q, k and v and the matching rows of ``wo``. When t
+    divides the heads those columns are whole heads [H/t·index, H/t·(index
+    + 1)); when it does not, they may cut a head: the columns of every rank
+    are gathered (``tensor.gather_columns``), the rank runs the heads
+    [h0, h1) its columns touch, and its ``wo`` rows read their columns of
+    the heads' output back."""
+
+    def __init__(self, cfg: ModelConfig, tp):
+        d, hd = cfg.hidden_size, cfg.head_dim
+        self.tp, self.hd = tp, hd
+        self.cols = d if tp is None else d // tp.size
+        self.c0 = 0 if tp is None else tp.index * self.cols
+        self.gather = self.cols % hd != 0
+        self.h0 = self.c0 // hd
+        self.h1 = -(-(self.c0 + self.cols) // hd)
+
+    def heads(self, t: torch.Tensor) -> torch.Tensor:
+        """A [B, S, D/t] column product as heads [B, h, S, hd]: the rank's
+        whole heads, or, when its columns cut a head, every head (the
+        columns gathered over the tensor ranks)."""
+        b, s, _ = t.shape
+        if self.gather:
+            t = tensor.gather_columns(t, self.tp)
+        return t.view(b, s, -1, self.hd).transpose(1, 2)
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """The heads the rank runs attention on, from :meth:`heads`."""
+        return t[:, self.h0:self.h1] if self.gather else t
+
+    def merge(self, o: torch.Tensor) -> torch.Tensor:
+        """[B, h, S, hd] attention output → [B, S, D/t], the columns the
+        rank's ``wo`` rows read."""
+        b, h, s, hd = o.shape
+        o = o.transpose(1, 2).reshape(b, s, h * hd)
+        if self.gather:
+            lo = self.c0 - self.h0 * hd
+            o = o[..., lo:lo + self.cols]
+        return o
+
+    def key_mean(self, k: torch.Tensor) -> torch.Tensor:
+        """The token-merging metric from :meth:`heads`' keys, the mean over
+        every head: on a rank of whole heads every head's keys are gathered
+        first (a sum of the ranks' partial means would flip sort ties);
+        gathered columns already hold every head."""
+        if self.tp is not None and not self.gather:
+            k = tensor.gather_heads(k, self.tp)
+        return k.mean(dim=1)
+
+
 def _local_heads(x: torch.Tensor, cfg: ModelConfig, tp):
-    """(the column products' input, this rank's head count, the model's
-    head of its first) on a tensor axis ``tp``: the input passes
-    ``tensor.copy_in`` and the rank holds heads [H/t·index, H/t·(index +
-    1)); without one, (x, H, 0)."""
-    if tp is None:
-        return x, cfg.num_heads, 0
-    h = cfg.num_heads // tp.size
-    return tensor.copy_in(x, tp), h, tp.index * h
-
-
-def _key_mean(k: torch.Tensor, tp) -> torch.Tensor:
-    """The token-merging metric, the keys' mean over every head: on a
-    tensor axis ``tp`` the heads are gathered first (a sum of the ranks'
-    partial means would flip sort ties)."""
-    return (k if tp is None else tensor.gather_heads(k, tp)).mean(dim=1)
+    """(the column products' input, the rank's :class:`RankHeads`) on a
+    tensor axis ``tp`` (None: the attention pair runs whole here): on a
+    split pair the input passes ``tensor.copy_in``."""
+    if tp is not None:
+        x = tensor.copy_in(x, tp)
+    return x, RankHeads(cfg, tp)
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -339,33 +393,33 @@ def _mha(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     [B, H, S, S] f32. With ``return_key_mean`` also the keys' mean over
     heads [B, S, hd] in the compute dtype, the token-merging metric.
     On a tensor axis ``tp`` (a ``mesh.Axis``) ``bp`` holds this rank's
-    columns and rows: its H/t heads from head H/t·index on, the keys of
-    every head gathered for the metric."""
+    columns and rows (:class:`RankHeads`): its H/t heads from head
+    H/t·index on, or, when its columns cut a head, the heads they touch
+    after a gather of every rank's columns; the keys of every head for the
+    metric."""
     b, s, _ = x.shape
-    hd = cfg.head_dim
-    x, h, head_base = _local_heads(x, cfg, tp)
+    x, rh = _local_heads(x, cfg, tp)
 
     def heads():
         if wqkv is not None:
             qkv = torch.matmul(x, wqkv[0]) + wqkv[1]
-            return tuple(t.transpose(1, 2)
-                         for t in qkv.view(b, s, 3, h, hd).unbind(2))
-        return tuple(_linear(x, p, compute_dtype).view(b, s, h, hd)
-                     .transpose(1, 2) for p in (bp.wq, bp.wk, bp.wv))
+            return tuple(rh.heads(t)
+                         for t in qkv.view(b, s, 3, rh.cols).unbind(2))
+        return tuple(rh.heads(_linear(x, p, compute_dtype))
+                     for p in (bp.wq, bp.wk, bp.wv))
 
     q, k, v = checkpoint_name("attn_heads", heads)
     probs = None
     if return_probs:
         o, probs = _attention_probs(q, k, v)
     else:
-        o = attend(q, k, v, cfg, attn_impl, train, seed, row_base,
-                   head_base)
-    out = _row_linear(o.transpose(1, 2).reshape(b, s, h * hd), bp.wo,
-                      compute_dtype, tp)
+        o = attend(rh.own(q), rh.own(k), rh.own(v), cfg, attn_impl, train,
+                   seed, row_base, rh.h0)
+    out = _row_linear(rh.merge(o), bp.wo, compute_dtype, tp)
     if return_probs:
         return out, probs
     if return_key_mean:
-        return out, _key_mean(k, tp)
+        return out, rh.key_mean(k)
     return out
 
 
@@ -466,7 +520,7 @@ def _block(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     sharded tree's ``layout`` the block's shards are gathered here (and
     with ``cfg.fused_qkv`` stacked), so that a recompute gathers again."""
     dt = compute_dtype
-    tp = _tensor_axis(layout)
+    tp, tp_mlp = _tensor_axis(layout), _tensor_axis(layout, "mlp_in")
     if layout is not None:
         bp = fsdp.gather_block(layout, bp, dt)
         if cfg.fused_qkv:
@@ -478,7 +532,7 @@ def _block(x: torch.Tensor, bp: Block, cfg: ModelConfig, attn_impl: str,
     attn_out = _mha(a_in, bp, cfg, attn_impl, dt, train, attn_seed,
                     wqkv=wqkv, row_base=row_base, tp=tp)
     x = x + _dropout(attn_out, hidden, seed_attn_out, row_base)
-    return _mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp)
+    return _mlp(x, bp, cfg, dt, hidden, seed_mlp_out, row_base, tp_mlp)
 
 
 def _check_supported(cfg: ModelConfig,

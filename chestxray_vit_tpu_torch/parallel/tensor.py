@@ -17,7 +17,17 @@ matching rows of ``wo`` and ``mlp_out``. In a block:
 - :func:`gather_heads`: the keys of every head, gathered in head order, so
   that the token-merging metric (their mean over heads) is computed as one
   process computes it. A partial-sum all-reduce of the mean would not do:
-  matching sorts its scores, and a one-ulp change flips ties.
+  matching sorts its scores, and a one-ulp change flips ties;
+- :func:`gather_columns`: where the tensor size divides the width but not
+  the heads, a rank's D/t columns of q, k or v may cut a head; the columns
+  of every rank are gathered into whole heads, and the backward is the
+  conjugate reduce-scatter (each rank keeps its columns' slice of the
+  gradient summed over the ranks).
+
+A Megatron pair (q, k, v with ``wo``; ``mlp_in`` with ``mlp_out``) whose
+width the tensor size does not divide is not split at all: it runs whole
+on every tensor rank, with none of these collectives, as the JAX rule
+leaves its leaves replicated.
 
 The sums run in f32 and round once to the activations' dtype.
 """
@@ -62,6 +72,18 @@ class _GatherHeads(torch.autograd.Function):
         return grad[:, h0:h0 + ctx.heads], None
 
 
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis: Axis):
+        ctx.axis = axis
+        return axis.all_gather(x, x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.axis.reduce_scatter(grad.float(), grad.dim() - 1)
+        return g.to(grad.dtype), None
+
+
 def copy_in(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """The input of the column products (identity; gradient summed)."""
     return _CopyIn.apply(x, axis)
@@ -75,3 +97,10 @@ def reduce_out(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 def gather_heads(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """[B, H/t, ...] local heads → [B, H, ...] every head, in order."""
     return _GatherHeads.apply(x, axis)
+
+
+def gather_columns(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """[..., D/t] this rank's columns → [..., D] every rank's, in order;
+    the backward sums the gradient over the ranks in f32 and keeps this
+    rank's columns."""
+    return _GatherColumns.apply(x, axis)

@@ -63,9 +63,6 @@ logs and the saved model, and a ``gs://`` one is refused
 Across processes, attention dropout, hidden dropout and mixup draw what
 one process draws on the global batch: the steps are built with this
 process's rank and the world size (``train/steps.py``).
-
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: a
-tensor size that splits a head (#15).
 """
 
 from __future__ import annotations

@@ -9,8 +9,11 @@ PackedTrainer (a packed run with its census, image-count cursor and exact
 resume), the data-parallel path in an NCCL group of one process and as
 two ranks emulated in one process (with both dropouts and mixup), the
 command line (train from an HF folder, eval, predict, quantize, export,
-maps, smoke), ViT-H/14, the fsdp and tensor mesh axes (four ranks on the
-card), the examples and the multi-rank dry run.
+maps, smoke), ViT-H/14 and the other named variants (ViT-L/16, ViT-B/16
+@512, ViT-B/32, ViT-S/16, ViT-Ti/16), the fsdp and tensor mesh axes (four
+ranks on the card, with tensor sizes that cut a head), the examples and
+the multi-rank dry run. Every phase's line carries the card's name and
+power limit (``nvidia_smi``).
 
     python3 chip_smoke.py
 
@@ -262,13 +265,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    packed step (r 16 decreasing; 2 steps) and the int8 straight-through
    dense step (b8, scales calibrated on the batch; 2 steps), within
    MESH_BF16_TOL (stated on the phase's first line); then each at depth 2
-   in f32 (MESH_F32_TOL). Step ms beside the one-process step, the
-   collectives a step by kind and bytes, exact launches a step on every
-   rank. Four ranks share the card: no scaling is measured.
+   in f32 (MESH_F32_TOL). Then the tensor sizes that cut a head
+   (MESH_SPLIT_RUNS): ViT-S/16 at full width on 1 x 1 x 4 and ViT-Ti/16
+   on 1 x 2 x 2, depth 2, the dense, dropout and packed steps in bf16 and
+   f32 within the same bounds, and what the cut costs a rank
+   (train_mesh_head_split_cost: the heads it runs against its share, their
+   attention ms a step, the gathers' collectives). Step ms beside the
+   one-process step, the collectives a step by kind and bytes, exact
+   launches a step on every rank. Four ranks share the card: no scaling
+   is measured.
 36. examples: ``examples/finetune_nih_torch.py --dry-run`` (version_b:
    ViT-B/16 @384, 20 steps) and ``examples/train_smoke_torch.py``, each
-   in its own process, with their wall seconds.
-37. dryrun: ``python -m chestxray_vit_tpu_torch.dryrun 4`` on cuda:0.
+   in its own process, with their wall seconds; started at once, and
+37. dryrun: ``python -m chestxray_vit_tpu_torch.dryrun 4`` on cuda:0
+   beside them (the three share the card and the host).
 38. trainer_spawn (run after 35): one process driving several devices
    (``parallel/launch.py``). A lone Trainer on ``["cuda:0"] * 2`` (2 x 1 x
    1, data -1; ViT-B/16 @384 bf16, full remat, global batch 8, 3 steps)
@@ -278,6 +288,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    2 by ``request_stop`` and resumed by a fresh one, bit for bit. The
    seconds from the call to the first step, step ms beside one process,
    the group's backend, exact launches a step on every rank.
+39. variants (after 34): the named variants at full width and depth from
+   seeded weights (VARIANT_RUNS, phase_variant): ViT-L/16 @384 (24 layers,
+   16 heads of 64, width 1024; dense bf16 serving at b8 and b32, static
+   int8 at b32 with its CPU cross-check, the b32 train step with the
+   variant's full remat), ViT-B/16 @512 (a 384-grid tree adapted on the
+   card to 1025 tokens against the CPU's adaptation; the b32 step with full
+   remat and one with attention and hidden dropout 0.1 at Q blocks of
+   auto_block_q(1025) = 384), ViT-B/32, ViT-S/16 and ViT-Ti/16 @384 (the
+   b36 step): VARIANT_WARMUP_STEPS + VARIANT_TIMED_STEPS steps, ms a step,
+   images/s, MFU, peak GB, finite losses, exact launches a step; one eval
+   step each with AUROC and F1 against the CPU's; then each one's depth-2
+   f32 check against the CPU (<name>_cross_check: logits within
+   F32_LOGIT_TOL; one train step within phase_train_cross_check's bounds,
+   ViT-B/16 @512 with both dropouts).
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -309,7 +333,15 @@ tensor axis of 2 (INT8_TENSOR_FORMS: the column products at N / 2, the row
 products at K / 2 as raw int32 sums), equal bits twice, timed beside
 ``torch._int_mm`` (events and device time), with two emulated ranks' int32
 row partials at K = 768 and 3072 (odd partials past 2²⁴) summed to the
-one-process product's bits. Before every kernel, the tile helpers alone
+one-process product's bits. At the variants' shapes (``check_variants``):
+every attention kernel at (heads, tokens) of VARIANT_ATTN (the dropout
+mask at auto_block_q: 0 mismatches), the training forward, backward and
+dropout forward timed at ViT-B/16 @512's [36, 12, 1025, 64]; the
+LayerNorm forward and backward at VARIANT_LN_CASES (ViT-L/16's 1024,
+ViT-S/16's 384, ViT-Ti/16's 192, bf16 and f32); the int8 kernel in
+VARIANT_INT8_FORMS (ViT-L/16's b32 forms, ViT-B/32's K = 3072 patch
+embedding, ViT-Ti/16's N = 192): those records join the summary line as
+each kernel's ``variants``. Before every kernel, the tile helpers alone
 (``tile_mma_selftest.cu``, ``check_tile_mma``): each bf16 and int8 form,
 the 16-wide tiles of the kD = 80 forward among them, against the matmul.
 
@@ -399,6 +431,10 @@ LN_F32_TOL = 1e-5
 BF16_LOGIT_TOL = 5e-2
 # - card f32 vs CPU f32: the same math in another summation order.
 F32_LOGIT_TOL = 1e-3
+# - variants' adapt, the position table resampled on the card against the
+#   CPU's (two f32 products by the bicubic matrix, TF32 off, entries of
+#   O(0.02)): summation order only.
+F32_ADAPT_TOL = 1e-6
 # - training attention: o and lse (natural log, O(10)) against ATTN_TOL,
 #   absolute; dq, dk, dv relative to each one's largest magnitude, where
 #   bf16 rounds P and dS before their products at other points of the sum
@@ -521,6 +557,53 @@ VITH_LN_CASES = ((8 * VITH_TOKENS, VITH_HIDDEN, torch.bfloat16,
 VITH_BATCH, VITH_INT8_BATCH, VITH_TRAIN_BATCH = 8, 32, 32
 VITH_REQUESTS = 64
 VITH_WARMUP_STEPS, VITH_TIMED_STEPS = 3, 8
+# phase 39 (variants): the named variants (config.VIT_VARIANTS) beside
+# ViT-B/16 @384 and ViT-H/14 @224, at full width and depth from seeded
+# weights: (phase name, variant, image px, what runs). "serve": dense bf16
+# serving at b8 and b32 and static int8 at b32 with its cross-check;
+# "train": the train step at that batch (the variant's own remat: full for
+# ViT-L/16, none for the narrower ones; "remat" switches it on); "adapt":
+# the tree drawn at that grid's image size and adapted on the card;
+# "dropout": one more step with attention and hidden dropout. Each runs one
+# eval step, then its depth-2 f32 check against the CPU (with
+# "xcheck_dropout" at both dropouts' rate).
+VARIANT_RUNS = (
+    ("vit_l16", "vit_l16", 384, dict(serve=True, train=32)),
+    ("vit_b16_512", "vit_b16", 512, dict(train=32, remat=True, adapt=384,
+                                         dropout=True, xcheck_dropout=True)),
+    ("vit_b32", "vit_b32", 384, dict(train=TRAIN_BATCH)),
+    ("vit_s16", "vit_s16", 384, dict(train=TRAIN_BATCH)),
+    ("vit_ti16", "vit_ti16", 384, dict(train=TRAIN_BATCH)))
+VARIANT_WARMUP_STEPS, VARIANT_TIMED_STEPS, VARIANT_REQUESTS = 2, 4, 64
+# kernel_check at the variants' shapes (check_variants): the inference
+# kernel at each serving batch of 8, the training, dropout (its Q block by
+# auto_block_q) and segment kernels at each train batch, as (heads,
+# tokens): ViT-Ti/16 and ViT-S/16 @384, ViT-B/32 @384, ViT-L/16 @384,
+# ViT-B/16 @512; the training forward, backward and dropout forward timed
+# at ViT-B/16 @512's b36 [36, 12, 1025, 64]. LayerNorm forward and backward
+# at ViT-L/16's b32 rows of 1024 (the block LNs' bf16 scale, the final LN's
+# f32 one) and at the b36 rows of 384 (ViT-S/16) and 192 (ViT-Ti/16) in
+# bf16 and in f32. The int8 kernel in ViT-L/16's five b32 serving forms,
+# ViT-B/32's patch embedding at K = 3 · 32 · 32 = 3072 and ViT-Ti/16's
+# forms at N = 192 (a ragged 128-wide tile).
+VARIANT_ATTN = ((3, 577), (6, 577), (12, 145), (16, 577), (12, 1025))
+VARIANT_TIMED_ATTN = (TRAIN_BATCH, 12, 1025, 64)
+VARIANT_LN_CASES = ((32 * 577, 1024, torch.bfloat16, torch.bfloat16),
+                    (32 * 577, 1024, torch.bfloat16, torch.float32),
+                    (TRAIN_BATCH * 577, 384, torch.bfloat16, torch.bfloat16),
+                    (TRAIN_BATCH * 577, 384, torch.float32, torch.float32),
+                    (TRAIN_BATCH * 577, 192, torch.bfloat16, torch.bfloat16),
+                    (TRAIN_BATCH * 577, 192, torch.float32, torch.float32))
+VARIANT_INT8_FORMS = (
+    ("vit_l16_patch_embed", 32 * 576, 768, 1024, False, False),
+    ("vit_l16_q", 32 * 577, 1024, 1024, False, False),
+    ("vit_l16_wo_resid", 32 * 577, 1024, 1024, True, False),
+    ("vit_l16_mlp_in_gelu_requant", 32 * 577, 1024, 4096, False, True),
+    ("vit_l16_mlp_out_resid", 32 * 577, 4096, 1024, True, False),
+    ("vit_b32_patch_embed", 32 * 144, 3072, 768, False, False),
+    ("vit_ti16_q", 32 * 577, 192, 192, False, False),
+    ("vit_ti16_mlp_in_gelu_requant", 32 * 577, 192, 768, False, True),
+    ("vit_ti16_mlp_out_resid", 32 * 577, 768, 192, True, False))
 # Attention lengths of the merged dense forward (token merging leaves a
 # length no tile divides at every layer): tome_r 16 constant runs 561 and
 # 401, tome_r 32 decreasing 517 and 197 (see TOME_LENGTHS).
@@ -665,6 +748,28 @@ MESH_RUNS = (
     ("packed_tome_f32", "packed", dict(remat=True, **_MESH_TOME, **_MESH_F32),
      2),
     ("int8_f32", "int8", dict(remat=True, **_MESH_F32), 2))
+# train_mesh's tensor sizes the JAX rule accepts that cut a head (ROADMAP
+# #15), in the same spawn: ViT-S/16 at full width (384 in 6 heads of 64,
+# MLP 1536) on 1 x 1 x 4 (96 columns a rank: a head and a half, gathered
+# into the two heads they touch) and ViT-Ti/16 at full width (192 in 3
+# heads, MLP 768) on 1 x 2 x 2 (3 heads over tensor 2), depth 2, 384 px,
+# full remat: the dense step (mixup 0.2), the dense step with both
+# dropouts 0.1 and the packed step with both dropouts, in bf16 and f32,
+# each within MESH_BF16_TOL / MESH_F32_TOL of this process. (name, path,
+# model, steps, (dcn, data, fsdp, tensor)); MESH_RUNS run on MESH_SHAPE.
+MESH_SPLIT_RUNS = tuple(
+    (f"{v}_{kind}_{dt}", path,
+     dict(remat=True, num_layers=2, **width, **extra,
+          **({"dtype": "float32"} if dt == "f32" else {})), 2, shape)
+    for v, width, shape in (
+        ("s16", dict(hidden_size=384, num_heads=6, mlp_dim=1536),
+         (1, 1, 1, 4)),
+        ("ti16", dict(hidden_size=192, num_heads=3, mlp_dim=768),
+         (1, 1, 2, 2)))
+    for dt in ("bf16", "f32")
+    for kind, path, extra in (("dense", "dense", {}),
+                              ("dropout", "dense", _MESH_DROP),
+                              ("packed", "packed", _MESH_DROP)))
 # - train_mesh, bf16, stated before the run: the ranks run the one-process
 #   step's kernels on their heads and rows. What differs is where a row
 #   product's K is split over the two tensor ranks: each partial is rounded
@@ -732,7 +837,14 @@ SPAWN_CENSUS = 32
 SPAWN_HOLD_S = 120
 
 
+# the card's name and power limit as nvidia-smi prints them (phase_device):
+# every phase's line carries them
+CARD = {}
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj and CARD and "nvidia_smi" not in obj:
+        obj = {**obj, "nvidia_smi": CARD["nvidia_smi"]}
     print(json.dumps(obj), flush=True)
 
 
@@ -979,6 +1091,7 @@ def phase_device() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
+    CARD["nvidia_smi"] = smi.splitlines()[0]
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -1062,7 +1175,8 @@ def phase_kernel_check() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    summary = {"head_dims": {}}     # the records at head dims other than 64
+    # the records at head dims other than 64, and at the variants' shapes
+    summary = {"head_dims": {}, "variants": {}}
     emit({"phase": "kernel_check", "warm_up_s": warm_up()})
     check_tile_mma(gen)
 
@@ -1111,6 +1225,7 @@ def phase_kernel_check() -> dict:
     check_int8_patch14(gen, summary)
     check_head_split(randn, summary)
     check_int8_tensor_forms(gen, summary)
+    check_variants(randn, gen, summary)
     return summary
 
 
@@ -1225,7 +1340,7 @@ def check_layer_norm(randn, summary: dict) -> None:
              (INT8_BATCH * 577, 768, torch.bfloat16, torch.bfloat16),
              (INT8_BATCH * 577, 768, torch.bfloat16, torch.float32),
              (TRAIN_BATCH * 577, 768, torch.bfloat16, torch.bfloat16),
-             *VITH_LN_CASES]
+             *VITH_LN_CASES, *VARIANT_LN_CASES]
     for rows, d, x_dtype, w_dtype in cases:
         x = randn((rows, d), x_dtype) * 3 + 1
         s_, b_ = randn((d,), w_dtype), randn((d,), w_dtype)
@@ -1250,7 +1365,8 @@ def check_layer_norm(randn, summary: dict) -> None:
                "scale_dtype": str(w_dtype), "max_abs_err": err, "tol": tol,
                "ms": ms, "plain_ms": plain_ms, **device_ms(kernel),
                **layer_norm_bound(rows, d, x_dtype, w_dtype)}
-        if x_dtype == torch.bfloat16 or d == VITH_HIDDEN:
+        variant = (rows, d, x_dtype, w_dtype) in VARIANT_LN_CASES
+        if x_dtype == torch.bfloat16 or d == VITH_HIDDEN or variant:
             def library():
                 return torch.nn.functional.layer_norm(x, (d,), s_.to(x_dtype),
                                                       b_.to(x_dtype), 1e-12)
@@ -1263,6 +1379,8 @@ def check_layer_norm(randn, summary: dict) -> None:
             summary["layer_norm"] = rec
         if d == VITH_HIDDEN:
             summary["head_dims"].setdefault("layer_norm", []).append(rec)
+        if variant:
+            summary["variants"].setdefault("layer_norm", []).append(rec)
         emit(rec)
         require(ok, f"layer_norm {x_dtype}/{w_dtype}: err {err}")
 
@@ -1316,51 +1434,58 @@ def check_int8_matmul(gen, summary: dict) -> None:
     and by the profiler's device time beside ``torch._int_mm``'s (the int32
     product alone, on the same operands). The serving mlp_in form is the
     summary row."""
+    for form in INT8_FORMS + INT8_TRAIN_FORMS:
+        rec = int8_form_check(gen, *form)
+        if form[-1]:
+            summary["int8_matmul_fused"] = rec
+
+
+def int8_form_check(gen, name: str, m: int, k: int, n: int,
+                    with_resid: bool, gelu: bool) -> dict:
+    """One call form of the int8 kernel against its plain version (every
+    output equal, twice the same bits), timed by CUDA events and by the
+    profiler's device time beside ``torch._int_mm``; its record."""
     from chestxray_vit_tpu_torch.ops import int8_matmul as i8
 
-    for name, m, k, n, with_resid, gelu in INT8_FORMS + INT8_TRAIN_FORMS:
-        xq, wq, scale, bias, kw = int8_operands(gen, m, k, n, with_resid,
-                                                gelu)
-        out = i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
-        again = i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
-        ref = i8.int8_matmul_fused_reference(xq, wq, scale, bias, **kw)
-        torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        flips = int((diff > 0).sum())
-        equal_twice = torch.equal(out, again)
-        del again
-        ms, plain_ms = time_pair(
-            lambda: i8.int8_matmul_fused(xq, wq, scale, bias, **kw),
-            lambda: i8.int8_matmul_fused_reference(xq, wq, scale, bias,
-                                                   **kw))
-        wt = wq.t()
-        out_bytes = m * n * (1 if gelu else 2)
-        ops = (INT8_EPI_OPS["base"] + INT8_EPI_OPS["resid"] * with_resid
-               + (INT8_EPI_OPS["gelu"] + INT8_EPI_OPS["requant"]) * gelu)
-        rec = {"phase": "kernel_check", "kernel": "int8_matmul_fused",
-               "form": name, "m_k_n": [m, k, n],
-               "out_dtype": str(out.dtype), "max_abs_err": diff.max().item(),
-               "mismatched": flips, "equal_twice": equal_twice,
-               "tol": "equal", "ms": ms, "plain_ms": plain_ms,
-               **device_ms(lambda: i8.int8_matmul_fused(xq, wq, scale, bias,
-                                                         **kw)),
-               **({"earlier_ms": EARLIER_INT8_MS[name][0],
-                   "earlier_device_ms": EARLIER_INT8_MS[name][1]}
-                  if name in EARLIER_INT8_MS else {}),
-               "library_ms": time_ms(lambda: torch._int_mm(xq, wt)),
-               "library_device_ms": device_ms(
-                   lambda: torch._int_mm(xq, wt))["device_ms"],
-               "tops": 2 * m * k * n / ms / 1e9,
-               **bound(m * k + n * k + 8 * n + 2 * m * n * with_resid
-                       + out_bytes, 2 * m * k * n, torch.int8,
-                       core_ops=ops * m * n)}
-        emit(rec)
-        if gelu:
-            summary["int8_matmul_fused"] = rec
-        require(bool(torch.isfinite(out.float()).all()) and flips == 0
-                and equal_twice,
-                f"int8_matmul_fused {name}: {flips} mismatched, max "
-                f"{diff.max().item()}, equal twice {equal_twice}")
+    xq, wq, scale, bias, kw = int8_operands(gen, m, k, n, with_resid, gelu)
+    out = i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
+    again = i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
+    ref = i8.int8_matmul_fused_reference(xq, wq, scale, bias, **kw)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    flips = int((diff > 0).sum())
+    equal_twice = torch.equal(out, again)
+    del again
+    ms, plain_ms = time_pair(
+        lambda: i8.int8_matmul_fused(xq, wq, scale, bias, **kw),
+        lambda: i8.int8_matmul_fused_reference(xq, wq, scale, bias, **kw))
+    wt = wq.t()
+    out_bytes = m * n * (1 if gelu else 2)
+    ops = (INT8_EPI_OPS["base"] + INT8_EPI_OPS["resid"] * with_resid
+           + (INT8_EPI_OPS["gelu"] + INT8_EPI_OPS["requant"]) * gelu)
+    rec = {"phase": "kernel_check", "kernel": "int8_matmul_fused",
+           "form": name, "m_k_n": [m, k, n],
+           "out_dtype": str(out.dtype), "max_abs_err": diff.max().item(),
+           "mismatched": flips, "equal_twice": equal_twice,
+           "tol": "equal", "ms": ms, "plain_ms": plain_ms,
+           **device_ms(lambda: i8.int8_matmul_fused(xq, wq, scale, bias,
+                                                     **kw)),
+           **({"earlier_ms": EARLIER_INT8_MS[name][0],
+               "earlier_device_ms": EARLIER_INT8_MS[name][1]}
+              if name in EARLIER_INT8_MS else {}),
+           "library_ms": time_ms(lambda: torch._int_mm(xq, wt)),
+           "library_device_ms": device_ms(
+               lambda: torch._int_mm(xq, wt))["device_ms"],
+           "tops": 2 * m * k * n / ms / 1e9,
+           **bound(m * k + n * k + 8 * n + 2 * m * n * with_resid
+                   + out_bytes, 2 * m * k * n, torch.int8,
+                   core_ops=ops * m * n)}
+    emit(rec)
+    require(bool(torch.isfinite(out.float()).all()) and flips == 0
+            and equal_twice,
+            f"int8_matmul_fused {name}: {flips} mismatched, max "
+            f"{diff.max().item()}, equal twice {equal_twice}")
+    return rec
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -1461,7 +1586,7 @@ def check_layer_norm_bwd(randn, summary: dict) -> None:
              (PACKED_SEQS * 1152, 768, torch.bfloat16, torch.bfloat16),
              (PACKED_SEQS * 1152, 768, torch.bfloat16, torch.float32),
              (BATCH * 577 - 1, 768, torch.bfloat16, torch.bfloat16),
-             *VITH_LN_CASES]
+             *VITH_LN_CASES, *VARIANT_LN_CASES]
     for rows, d, x_dtype, w_dtype in cases:
         x = randn((rows, d), x_dtype) * 3 + 1
         scale, dy = randn((d,), w_dtype), randn((rows, d), x_dtype)
@@ -1522,6 +1647,8 @@ def check_layer_norm_bwd(randn, summary: dict) -> None:
             summary["layer_norm_bwd"] = rec
         if d == VITH_HIDDEN:
             summary["head_dims"].setdefault("layer_norm_bwd", []).append(rec)
+        if (rows, d, x_dtype, w_dtype) in VARIANT_LN_CASES:
+            summary["variants"].setdefault("layer_norm_bwd", []).append(rec)
         emit(rec)
         require(ok, f"layer_norm_bwd {rows} {x_dtype}/{w_dtype}: {rec}")
 
@@ -4730,12 +4857,19 @@ def vith_config(**model):
     32 layers, 16 heads of 80, MLP 5120, patch 14, 257 tokens), 15 classes,
     bf16 with f32 master weights and the variant's full remat; ``model``
     overrides fields (depth, dtype)."""
+    return variant_config("vit_h14", 224, **model)
+
+
+def variant_config(variant: str, img_size: int, **model):
+    """A named variant's config (``config.vit_variant_config``: its width,
+    depth, heads, MLP, patch and remat) at ``img_size``, 15 classes, bf16
+    with f32 master weights; ``model`` overrides fields."""
     import dataclasses
 
     import chestxray_vit_tpu_torch as cxr
     from chestxray_vit_tpu_torch.config import vit_variant_config
 
-    m = dataclasses.replace(vit_variant_config("vit_h14", img_size=224),
+    m = dataclasses.replace(vit_variant_config(variant, img_size=img_size),
                             **model)
     return cxr.Config(model=m, data=cxr.DataConfig(),
                       train=cxr.TrainConfig())
@@ -4753,42 +4887,101 @@ def phase_vit_h14(images: list) -> tuple:
     ``utils/flops``, peak GB, finite losses, exact launches a step) and one
     eval step with AUROC and F1 against the CPU's. Returns the launches of
     each main path's run."""
+    return phase_variant("vit_h14", vith_config(), images[:VITH_REQUESTS],
+                         serve=True, train=VITH_TRAIN_BATCH,
+                         warmup=VITH_WARMUP_STEPS, timed=VITH_TIMED_STEPS)
+
+
+def phase_variant(name: str, cfg, images: list, *, serve: bool = False,
+                  train: int = TRAIN_BATCH, remat: bool = False,
+                  adapt: Optional[int] = None, dropout: bool = False,
+                  warmup: int = VARIANT_WARMUP_STEPS,
+                  timed: int = VARIANT_TIMED_STEPS,
+                  xcheck_dropout: bool = False) -> tuple:
+    """One named variant at full width and depth on the card, from seeded
+    random weights (``<name>_init``): with ``adapt`` the tree is drawn at
+    that image size and its position embeddings resampled on the card to
+    ``cfg``'s grid (``<name>_adapt``: seconds, and the table against the
+    CPU's adaptation of the same tree); with ``serve`` the dense bf16
+    Predictor at b8 and b32 (images/s, p50 ms, exact launches a forward)
+    and the static int8 Predictor at b32 calibrated on 8 of the requests
+    with its cross-check against the CPU's static route (INT8_ROUTE_TOL,
+    INT8_ROUTE_MIN_CORR); the train step at batch ``train`` (``remat``
+    turns full remat on where the variant runs without it), ``warmup`` +
+    ``timed`` steps: ms a step, images/s, MFU by ``utils/flops``, peak GB,
+    finite losses, exact launches a step; with ``dropout`` two more steps
+    with attention and hidden dropout 0.1 (the mask strides of
+    ``auto_block_q`` at the model's length; exact launches); one eval step
+    with AUROC and F1 against the CPU's. Returns the launches of each main
+    path's run."""
+    import dataclasses
+
     from chestxray_vit_tpu_torch.eval import metrics
-    from chestxray_vit_tpu_torch.models.vit import init_params
+    from chestxray_vit_tpu_torch.models import vit
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
     from chestxray_vit_tpu_torch.train import steps
     from chestxray_vit_tpu_torch.utils import flops
 
-    cfg = vith_config()
-    t0 = time.perf_counter()
-    params = init_params(torch.Generator().manual_seed(SEED), cfg.model)
-    emit({"phase": "vit_h14_init", "seconds": time.perf_counter() - t0,
-          "parameters": sum(p.numel() for p in params.parameters()),
-          "head_dim": cfg.model.head_dim, "tokens": cfg.model.seq_len})
-    reqs = images[:VITH_REQUESTS]
-    _, serve8 = phase_serving(params, cfg.model, reqs, "serving_vit_h14_b8",
-                              VITH_BATCH)
-    _, serve32 = phase_serving(params, cfg.model, reqs, "serving_vit_h14_b32",
-                               VITH_INT8_BATCH)
-    torch.cuda.empty_cache()
-    qp, imgs, fused_logits, serve_int8, _ = phase_serving_int8(
-        params, cfg.model, reqs, "serving_int8_vit_h14")
-    phase_int8_cross_check(params, cfg.model, qp, imgs, fused_logits,
-                           "int8_cross_check_vit_h14")
-    del qp, imgs, fused_logits
-    torch.cuda.empty_cache()
-
     dev = torch.device("cuda")
+    if remat:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, remat=True))
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    drawn = (dataclasses.replace(cfg.model, img_size=adapt) if adapt
+             else cfg.model)
+    params = vit.init_params(gen, drawn)
+    emit({"phase": f"{name}_init", "seconds": time.perf_counter() - t0,
+          "parameters": sum(p.numel() for p in params.parameters()),
+          "head_dim": cfg.model.head_dim, "tokens": drawn.seq_len})
+    if adapt:
+        want = vit.adapt_params_to_img_size(params, cfg.model).pos_embed
+        params = params.to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = vit.adapt_params_to_img_size(params, cfg.model)
+        torch.cuda.synchronize()
+        rec = {"phase": f"{name}_adapt", "from_img_size": adapt,
+               "img_size": cfg.model.img_size, "from_tokens": drawn.seq_len,
+               "tokens": cfg.model.seq_len,
+               "seconds": time.perf_counter() - t0,
+               "pos_embed_shape": list(params.pos_embed.shape),
+               "pos_embed_vs_cpu_max_abs": (params.pos_embed.detach().cpu()
+                                            - want).abs().max().item(),
+               "tol": F32_ADAPT_TOL}
+        emit(rec)
+        require(rec["pos_embed_shape"] == [1, cfg.model.seq_len,
+                                           cfg.model.hidden_size]
+                and rec["pos_embed_vs_cpu_max_abs"] <= F32_ADAPT_TOL,
+                f"{name}: the adapted position table: {rec}")
+        params = params.cpu()
+    launches = []
+    if serve:
+        for batch in (VITH_BATCH, VITH_INT8_BATCH):
+            launches.append(phase_serving(
+                params, cfg.model, images, f"serving_{name}_b{batch}",
+                batch)[1])
+        torch.cuda.empty_cache()
+        qp, imgs, fused_logits, serve_int8, _ = phase_serving_int8(
+            params, cfg.model, images, f"serving_int8_{name}")
+        phase_int8_cross_check(params, cfg.model, qp, imgs, fused_logits,
+                               f"int8_cross_check_{name}")
+        launches.append(serve_int8)
+        del qp, imgs, fused_logits
+        torch.cuda.empty_cache()
+
     params = params.to(dev)
-    per_step = dense_launches_per_step(cfg.model.num_layers, dropout=False)
-    batch = bench_batch(VITH_TRAIN_BATCH, SEED, dev, cfg.model.img_size)
+    layers = cfg.model.num_layers
+    policy = cfg.model.remat_policy if cfg.model.remat else None
+    per_step = dense_launches_per_step(layers, dropout=False, policy=policy)
+    batch = bench_batch(train, SEED, dev, cfg.model.img_size)
     state = steps.TrainState.create(params, seed=42)
     run = run_steps(steps.make_train_step(cfg, total_steps=10_000), state,
-                    batch, VITH_WARMUP_STEPS, VITH_TIMED_STEPS)
-    images_per_s = VITH_TRAIN_BATCH * VITH_TIMED_STEPS / run["wall"]
-    rec = {"phase": "train_vit_h14", "batch": VITH_TRAIN_BATCH,
-           "remat": cfg.model.remat_policy if cfg.model.remat else None,
-           "dtype": cfg.model.dtype, "warmup_steps": VITH_WARMUP_STEPS,
-           "timed_steps": VITH_TIMED_STEPS, "step_ms": run["step_ms"],
+                    batch, warmup, timed)
+    images_per_s = train * timed / run["wall"]
+    rec = {"phase": f"train_{name}", "batch": train, "remat": policy,
+           "dtype": cfg.model.dtype, "warmup_steps": warmup,
+           "timed_steps": timed, "step_ms": run["step_ms"],
            "images_per_s": images_per_s,
            "model_flops_per_image": flops.model_flops_per_image(cfg.model),
            "peak_flops": flops.chip_peak_flops(),
@@ -4797,43 +4990,75 @@ def phase_vit_h14(images: list) -> tuple:
            "losses": run["losses"], "grad_norms": run["grad_norms"],
            "launches_per_step": run["step_counts"][-1],
            "launches": run["launches"]}
+    if name != "vit_h14":
+        rec.update(variant=name, tokens=cfg.model.seq_len,
+                   hidden=cfg.model.hidden_size, layers=layers,
+                   heads=cfg.model.num_heads, mlp=cfg.model.mlp_dim,
+                   patch=cfg.model.patch_size)
     emit(rec)
-    require(cfg.model.remat and all(np.isfinite(run["losses"]))
+    require(all(np.isfinite(run["losses"]))
             and all(np.isfinite(run["grad_norms"])),
-            f"train_vit_h14: full remat, finite losses: {rec}")
+            f"train_{name}: finite losses: {rec}")
+    require(name != "vit_h14" or cfg.model.remat,
+            f"train_{name}: full remat: {rec}")
     require(all(c == per_step for c in run["step_counts"]),
-            f"train_vit_h14 launches per step {run['step_counts']} != "
+            f"train_{name} launches per step {run['step_counts']} != "
             f"{per_step}")
-    train_launches = run["launches"]
+    launches.append(run["launches"])
     del state, run
     torch.cuda.empty_cache()
 
-    eval_batch = bench_batch(VITH_TRAIN_BATCH, SEED + 10, dev,
-                             cfg.model.img_size)
+    if dropout:
+        drop_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, attention_dropout=DROP_RATE,
+            hidden_dropout=DROP_RATE))
+        want = dense_launches_per_step(layers, dropout=True, policy=policy)
+        state = steps.TrainState.create(params, seed=42)
+        run = run_steps(steps.make_train_step(drop_cfg, total_steps=10_000),
+                        state, batch, 1, 1)
+        s = cfg.model.seq_len
+        rec = {"phase": f"train_{name}_dropout", "batch": train,
+               "rate": DROP_RATE, "tokens": s, "block_q": fa.auto_block_q(s),
+               "mask_strides": list(fa.mask_strides(s, fa.auto_block_q(s))),
+               "step_ms": run["step_ms"], "losses": run["losses"],
+               "max_memory_allocated_gb": run["peak_gb"],
+               "launches_per_step": run["step_counts"][-1]}
+        emit(rec)
+        require(all(np.isfinite(run["losses"])),
+                f"train_{name}_dropout: finite losses: {rec}")
+        require(all(c == want for c in run["step_counts"]),
+                f"train_{name}_dropout launches {run['step_counts']} != "
+                f"{want}")
+        launches.append(run["launches"])
+        del state, run
+        torch.cuda.empty_cache()
+    del batch
+
+    eval_batch = bench_batch(train, SEED + 10, dev, cfg.model.img_size)
     reset_launch_counts()
     logits, rows = steps.make_eval_step(cfg)(params, eval_batch)
     torch.cuda.synchronize()
     eval_launches = launch_counts()
     card = metrics.compute_metrics(logits, eval_batch["labels"])
     cpu = metrics.compute_metrics(logits.cpu(), eval_batch["labels"].cpu())
-    layers = cfg.model.num_layers
-    rec = {"phase": "eval_vit_h14", "batch": VITH_TRAIN_BATCH,
+    rec = {"phase": f"eval_{name}", "batch": train,
            "logits_shape": list(logits.shape),
            "finite": bool(torch.isfinite(logits).all()
                           and torch.isfinite(rows).all()),
            "metrics_card": card, "metrics_cpu": cpu,
            "launches": eval_launches}
     emit(rec)
-    require(rec["finite"] and logits.shape == (VITH_TRAIN_BATCH, 15),
-            "eval_vit_h14: finite logits [32, 15]")
+    require(rec["finite"] and logits.shape == (train, 15),
+            f"eval_{name}: finite logits [{train}, 15]")
     require(all(abs(card[k] - cpu[k]) <= 1e-6 for k in card),
-            f"eval_vit_h14 metrics card vs CPU: {card} {cpu}")
+            f"eval_{name} metrics card vs CPU: {card} {cpu}")
     require(eval_launches["flash_attention_inference"] == layers
             and eval_launches["layer_norm"] == 2 * layers + 1,
-            f"eval_vit_h14 launches {eval_launches}")
-    del params
+            f"eval_{name} launches {eval_launches}")
+    launches.append(eval_launches)
+    del params, eval_batch, logits, rows
     torch.cuda.empty_cache()
-    return serve8, serve32, serve_int8, train_launches, eval_launches
+    return tuple(launches)
 
 
 def phase_vit_h14_cross_check() -> None:
@@ -4841,26 +5066,63 @@ def phase_vit_h14_cross_check() -> None:
     inference kernel, LayerNorm at 1280 in f32) against the CPU's plain
     versions on the same weights and images (F32_LOGIT_TOL), and one train
     step's loss and gradients (phase_train_cross_check's bounds)."""
+    phase_variant_cross_check("vit_h14", vith_config(num_layers=2,
+                                                     dtype="float32"))
+
+
+def phase_variant_cross_check(name: str, cfg, dropout: bool = False) -> None:
+    """A variant at full width and depth 2, in f32: the card's logits
+    against the CPU's plain versions on the same weights and images
+    (F32_LOGIT_TOL), and one train step's loss, gradients and parameters
+    (phase_train_cross_check's bounds; the parameters by VITH_XCHECK_PARAMS'
+    ~2 lr: a wide model has weights whose gradient is near 0, where AdamW's
+    first step turns a summation-order difference into up to 2 lr). With
+    ``dropout``, the train step with attention and hidden dropout 0.1 on
+    injected seeds."""
     from chestxray_vit_tpu_torch.models import vit
 
-    cfg = vith_config(num_layers=2, dtype="float32").model
+    cfg = cfg.model if hasattr(cfg, "model") else cfg
     params = vit.init_params(torch.Generator().manual_seed(SEED), cfg)
     x = bench_batch(2, SEED + 1, "cpu", cfg.img_size)["pixel_values"]
     with torch.no_grad():
         cpu = vit.apply(params, x, cfg, train=False)
         card = vit.apply(params.to("cuda"), x.cuda(), cfg, train=False).cpu()
     diff = (card - cpu).abs().max().item()
-    emit({"phase": "vit_h14_cross_check", "depth": 2, "batch": 2,
-          "dtype": "float32", "logits_max_abs_diff": diff,
-          "tol": F32_LOGIT_TOL, "cpu_logits_absmax": cpu.abs().max().item()})
+    rec = {"phase": f"{name}_cross_check", "depth": 2, "batch": 2,
+           "dtype": "float32", "logits_max_abs_diff": diff,
+           "tol": F32_LOGIT_TOL, "cpu_logits_absmax": cpu.abs().max().item()}
+    if name != "vit_h14":
+        rec.update(img_size=cfg.img_size, hidden=cfg.hidden_size,
+                   heads=cfg.num_heads)
+    emit(rec)
     require(bool(torch.isfinite(card).all()) and diff <= F32_LOGIT_TOL,
-            f"vit_h14 logits card vs CPU: {diff}")
+            f"{name} logits card vs CPU: {diff}")
     del params
     model = {k: getattr(cfg, k) for k in ("hidden_size", "num_heads",
                                           "mlp_dim", "patch_size")}
-    phase_train_cross_check("vit_h14_train_cross_check", dtypes=("f32",),
+    if dropout:
+        model.update(attention_dropout=DROP_RATE, hidden_dropout=DROP_RATE)
+    phase_train_cross_check(f"{name}_train_cross_check", dtypes=("f32",),
                             img_size=cfg.img_size,
                             params_tol=VITH_XCHECK_PARAMS, **model)
+
+
+def phase_variants(images: list) -> list:
+    """Phase 39: every run of VARIANT_RUNS (:func:`phase_variant`), each
+    followed by its depth-2 f32 check against the CPU
+    (:func:`phase_variant_cross_check`). Returns the launches of every main
+    path's run."""
+    launches = []
+    for name, variant, img, kw in VARIANT_RUNS:
+        kw = dict(kw)
+        xcheck_dropout = kw.pop("xcheck_dropout", False)
+        cfg = variant_config(variant, img)
+        launches += phase_variant(name, cfg, images[:VARIANT_REQUESTS],
+                                  **kw)
+        phase_variant_cross_check(
+            name, variant_config(variant, img, num_layers=2,
+                                 dtype="float32"), dropout=xcheck_dropout)
+    return launches
 
 
 def head_dim_segments(b: int, s: int, dev) -> torch.Tensor:
@@ -5108,6 +5370,151 @@ def check_int8_patch14(gen, summary: dict) -> None:
                                       "bound_by")}
 
 
+def check_variants(randn, gen, summary: dict) -> None:
+    """The attention kernels at the variants' shapes (VARIANT_ATTN), bf16,
+    against their plain versions: the inference kernel at b8 (ATTN_TOL);
+    at the train batch the training forward (o, lse within ATTN_TOL) and
+    backward (dq, dk, dv within ATTN_GRAD_TOL of the largest), the dropout
+    forward and backward at ``auto_block_q`` (the debug kernel's mask
+    against the plain counter hash: 0 mismatches) and the segment forward
+    and backward, with and without dropout, on two segments and a pad
+    tail. Then the training forward, backward and dropout forward timed at
+    VARIANT_TIMED_ATTN beside their plain versions, SDPA's flash kernel
+    (``dropout_p`` 0.1 for the dropout forward: another mask stream) and
+    their bounds, and the int8 kernel in VARIANT_INT8_FORMS
+    (:func:`int8_form_check`). The LayerNorm rows at the variants' widths
+    are check_layer_norm's and check_layer_norm_bwd's (VARIANT_LN_CASES).
+    The records join the summary line as each kernel's ``variants``."""
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
+
+    dtype = torch.bfloat16
+    tol, gtol = ATTN_TOL[dtype], ATTN_GRAD_TOL[dtype]
+    drop = (DROP_SEED, DROP_RATE)
+    worst: dict = {}
+
+    def heads(b, h, s):
+        x = randn((b, s, 3, h, 64), dtype)
+        return tuple(t.transpose(1, 2) for t in x.unbind(2))
+
+    def fwd_err(got, ref):
+        return max((got[0].float() - ref[0].float()).abs().max().item(),
+                   (got[1] - ref[1]).abs().max().item())
+
+    def bwd_err(got, ref):
+        return max(rel_err(g, r) for g, r in zip(got, ref))
+
+    for h, s in VARIANT_ATTN:
+        rec = {"phase": "kernel_check", "kernel": "variant_attention",
+               "heads": h, "tokens": s, "dtype": str(dtype),
+               "serving_batch": BATCH, "train_batch": TRAIN_BATCH}
+        q, k, v = heads(BATCH, h, s)
+        out = fa.flash_attention_inference(q, k, v)
+        rec["flash_attention_inference"] = (
+            out.float() - fa.attention_reference(q, k, v).float()
+        ).abs().max().item()
+        q, k, v = heads(TRAIN_BATCH, h, s)
+        do = randn((TRAIN_BATCH, h, s, 64), dtype)
+        bq, pbq = fa.auto_block_q(s), fa.packed_block_q(s)
+        seg = head_dim_segments(TRAIN_BATCH, s, q.device)
+        rec["block_q"], rec["packed_block_q"] = bq, pbq
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        rec["flash_attention_fwd"] = fwd_err(
+            (o, lse), fa.attention_fwd_reference(q, k, v))
+        rec["flash_attention_bwd"] = bwd_err(
+            fa.flash_attention_bwd(q, k, v, o, lse, do),
+            fa.attention_bwd_reference(q, k, v, o, lse, do))
+        o, lse = fa.flash_attention_dropout_fwd(q, k, v, *drop, block_q=bq)
+        rec["flash_attention_dropout_fwd"] = fwd_err(
+            (o, lse), fa.attention_dropout_fwd_reference(q, k, v, *drop,
+                                                         block_q=bq))
+        rec["flash_attention_dropout_bwd"] = bwd_err(
+            fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, *drop,
+                                           block_q=bq),
+            fa.attention_dropout_bwd_reference(q, k, v, o, lse, do, *drop,
+                                               block_q=bq))
+        _, keep = fa.flash_attention_dropout_debug(q, k, v, *drop,
+                                                   block_q=bq)
+        rec["mask_mismatches"] = int((keep != fa._keep(q, *drop, bq)).sum())
+        del keep
+        for name, fwd, rfwd, bwd, rbwd, extra in (
+                ("flash_attention_packed", fa.flash_attention_packed_fwd,
+                 fa.attention_packed_fwd_reference,
+                 fa.flash_attention_packed_bwd,
+                 fa.attention_packed_bwd_reference, ()),
+                ("flash_attention_packed_dropout",
+                 fa.flash_attention_packed_dropout_fwd,
+                 fa.attention_packed_dropout_fwd_reference,
+                 fa.flash_attention_packed_dropout_bwd,
+                 fa.attention_packed_dropout_bwd_reference,
+                 (*drop, None, pbq))):
+            o, lse = fwd(q, k, v, seg, *extra)
+            rec[f"{name}_fwd"] = fwd_err((o, lse), rfwd(q, k, v, seg, *extra))
+            rec[f"{name}_bwd"] = bwd_err(
+                bwd(q, k, v, seg, o, lse, do, *extra),
+                rbwd(q, k, v, seg, o, lse, do, *extra))
+        torch.cuda.synchronize()
+        emit(rec)
+        for name, err in rec.items():
+            if name.endswith(("_inference", "_fwd", "_bwd")):
+                worst[name] = max(worst.get(name, 0.0), err)
+                limit = gtol if name.endswith("_bwd") else tol
+                require(err <= limit, f"{name} at {h} heads, S={s}: {err}")
+        require(rec["mask_mismatches"] == 0,
+                f"dropout mask at S={s}: {rec['mask_mismatches']}")
+        del q, k, v, do, o, lse, seg
+        torch.cuda.empty_cache()
+
+    shape = VARIANT_TIMED_ATTN
+    b, h, s, _ = shape
+    q, k, v = heads(b, h, s)
+    do = randn(shape, dtype)
+    bq = fa.auto_block_q(s)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    lib_fwd, lib_bwd = library_attention(q, k, v, do)
+    lib_fwd_dev, lib_bwd_dev = library_attention_device_ms(q, k, v, do)
+    lib_drop = library_attention(q, k, v, rate=DROP_RATE)[0]
+    for name, kernel, plain, kw, lib, lib_dev in (
+            ("flash_attention_fwd", lambda: fa.flash_attention_fwd(q, k, v),
+             lambda: fa.attention_fwd_reference(q, k, v), {"lse": True},
+             lib_fwd, lib_fwd_dev),
+            ("flash_attention_bwd",
+             lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+             lambda: fa.attention_bwd_reference(q, k, v, o, lse, do),
+             {"backward": True}, lib_bwd, lib_bwd_dev),
+            ("flash_attention_dropout_fwd",
+             lambda: fa.flash_attention_dropout_fwd(q, k, v, *drop,
+                                                    block_q=bq),
+             lambda: fa.attention_dropout_fwd_reference(q, k, v, *drop,
+                                                        block_q=bq),
+             {"lse": True, "hash_passes": 1}, lib_drop, None)):
+        ms, plain_ms = time_pair(kernel, plain, plain_reps=3, plain_inner=3)
+        rec = {"phase": "kernel_check", "kernel": name,
+               "model": "vit_b16_512", "shape": list(shape),
+               "dtype": str(dtype), "block_q": bq, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib,
+               "library_device_ms": lib_dev,
+               **attention_bound(shape, dtype, **kw)}
+        rec.update(backward_pass_ms(kernel) if name.endswith("bwd")
+                   else device_ms(kernel))
+        emit(rec)
+        summary["variants"].setdefault(name, []).append(
+            {key: rec[key] for key in (
+                "model", "shape", "ms", "device_ms", "plain_ms",
+                "library_ms", "library_device_ms", "bound_ms", "bound_by")})
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    for name, err in worst.items():
+        summary["variants"].setdefault(name, []).append(
+            {"max_err_at": [list(a) for a in VARIANT_ATTN],
+             "max_err": err})
+    for form in VARIANT_INT8_FORMS:
+        rec = int8_form_check(gen, *form)
+        summary["variants"].setdefault("int8_matmul_fused", []).append(
+            {key: rec[key] for key in (
+                "form", "m_k_n", "ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by")})
+
+
 # ---------------------------------------------------------------------------
 # The fsdp, tensor and dcn mesh axes (phases 35-37, kernel_check's head split)
 # ---------------------------------------------------------------------------
@@ -5347,11 +5754,17 @@ def mesh_launches_per_step(path: str, model: dict) -> dict:
     return dense_launches_per_step(layers, dropout)
 
 
+def mesh_runs() -> tuple:
+    """Every train_mesh run as (name, path, model, steps, mesh shape)."""
+    return tuple((*run, MESH_SHAPE) for run in MESH_RUNS) + MESH_SPLIT_RUNS
+
+
 def mesh_worker(dev) -> dict:
     """One rank of phase train_mesh (the launcher's object for it is its
     device, cuda:0; a gloo group of MESH_RANKS on the MESH_SHAPE mesh):
-    every run of MESH_RUNS (its steps on the rank's slot of the global
-    batch; after the dense bf16 run one eval step). Returns (as the call's
+    every run of MESH_RUNS and MESH_SPLIT_RUNS (its steps on the rank's
+    slot of the global batch, each on its own mesh; after the dense bf16
+    run one eval step). Returns (as the call's
     value, rank 0's) every rank's records and rank 0's gathered parameters
     of each f32 run."""
     import torch.distributed as td
@@ -5364,14 +5777,23 @@ def mesh_worker(dev) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    c, d, f, t = MESH_SHAPE
-    mesh = mesh_lib.build_mesh(cxr.MeshConfig(dcn_data=c, data=d, fsdp=f,
-                                              tensor=t))
-    rank, slots = dist.rank(), mesh_lib.dp_size(mesh)
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:     # every rank builds them in one order
+            c, d, f, t = shape
+            meshes[shape] = mesh_lib.build_mesh(cxr.MeshConfig(
+                dcn_data=c, data=d, fsdp=f, tensor=t))
+        return meshes[shape]
+
+    mesh = mesh_of(MESH_SHAPE)
+    rank = dist.rank()
     tally = _collective_counter()
     res = {"rank": rank, "coords": mesh.coords, "dp_index": mesh.dp_index}
     params_out = {}
-    for name, path, model, n_steps in MESH_RUNS:
+    for name, path, model, n_steps, shape in mesh_runs():
+        mesh = mesh_of(shape)
+        slots = mesh_lib.dp_size(mesh)
         cfg = mesh_config(path, model)
         batch, full, scales = mesh_inputs(path, cfg, dev)
         per = next(iter(batch.values())).shape[0] // slots
@@ -5441,7 +5863,8 @@ def phase_train_mesh(dense_rec: dict) -> dict:
     emit({"phase": "train_mesh", "stated_before_the_run": True,
           "mesh": "x".join(map(str, MESH_SHAPE[1:])), "ranks": MESH_RANKS,
           "global_batch": MESH_BATCH, "global_sequences": MESH_PACKED_SEQS,
-          "runs": [[name, path, n] for name, path, _, n in MESH_RUNS],
+          "runs": [[name, path, n, "x".join(map(str, shape[1:]))]
+                   for name, path, _, n, shape in mesh_runs()],
           "bf16_bound": MESH_BF16_TOL, "f32_bound": MESH_F32_TOL,
           "int8_f32_bound": MESH_INT8_F32_TOL,
           "reasoning": {
@@ -5466,7 +5889,7 @@ def phase_train_mesh(dense_rec: dict) -> dict:
                           "continuous: later losses one bf16 ulp, "
                           "parameters about 2 lr (INT8_XCHECK)"}})
     refs = {}
-    for name, path, model, n_steps in MESH_RUNS:
+    for name, path, model, n_steps, _ in mesh_runs():
         cfg = mesh_config(path, model)
         batch, params, scales = mesh_inputs(path, cfg, dev)
         state = steps.TrainState.create(params, seed=42)
@@ -5507,7 +5930,7 @@ def phase_train_mesh(dense_rec: dict) -> dict:
 
     launches = dict.fromkeys(_wrappers(), 0)
     steady = slice(1, None)          # the first step builds the groups' use
-    for name, path, model, n_steps in MESH_RUNS:
+    for name, path, model, n_steps, shape in mesh_runs():
         ref = refs[name]
         want = mesh_launches_per_step(path, model)
         exact = all(c == want for rk in ranks for c in rk[name]["launches"])
@@ -5518,6 +5941,7 @@ def phase_train_mesh(dense_rec: dict) -> dict:
         one_ms = float(np.median(ref["step_ms"][steady]))
         rec = {"phase": "train_mesh", "run": name, "path": path,
                "model": model, "steps": n_steps,
+               "mesh": "x".join(map(str, shape[1:])),
                "mesh_losses": ranks[0][name]["losses"],
                "one_process_losses": ref["losses"], "loss_diff": loss_diff,
                "first_step_loss_diff": max(
@@ -5586,7 +6010,66 @@ def phase_train_mesh(dense_rec: dict) -> dict:
                     [rk[name]["eval_launches"]] if name == "bf16" else []):
                 for k, n in counts.items():
                     launches[k] += n
+    head_split_cost(ranks)
     return launches
+
+
+def head_split_cost(ranks: list) -> None:
+    """What cutting heads costs a rank on the dense bf16 split runs
+    (MESH_SPLIT_RUNS): the heads the busiest rank runs (``vit.RankHeads``:
+    every head its columns touch) against its share of the model's (H / t),
+    the attention forward and backward timed at the rank's heads and at
+    the whole model's heads over the per-slot batch (device ms; a step runs
+    the forward twice under full remat and the backward once a layer), the
+    extra attention ms a step that follows, and the collectives a step the
+    gathers add (the ranks' tally) beside the step ms."""
+    import types
+
+    from chestxray_vit_tpu_torch.config import ModelConfig
+    from chestxray_vit_tpu_torch.models.vit import RankHeads
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for name, path, model, _, shape in MESH_SPLIT_RUNS:
+        if path != "dense" or "dtype" in model or "attention_dropout" in model:
+            continue
+        cfg = ModelConfig(**{k: v for k, v in model.items()
+                             if k in ("hidden_size", "num_heads", "mlp_dim",
+                                      "num_layers")})
+        t = shape[3]
+        busiest = max((RankHeads(cfg, types.SimpleNamespace(size=t, index=i))
+                       for i in range(t)), key=lambda r: r.h1 - r.h0)
+        b = MESH_BATCH // (shape[0] * shape[1] * shape[2])
+        ms = {}
+        for key, h in (("rank", busiest.h1 - busiest.h0),
+                       ("model", cfg.num_heads)):
+            q, k, v, do = (torch.randn((b, h, 577, 64), generator=gen,
+                                       device=dev).to(torch.bfloat16)
+                           for _ in range(4))
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            ms[key] = (
+                device_ms(lambda: fa.flash_attention_fwd(q, k, v))
+                ["device_ms"],
+                device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse,
+                                                         do))["device_ms"])
+        layers = cfg.num_layers
+        per_step = {key: layers * (2 * f + bw) for key, (f, bw) in ms.items()}
+        rec = {"phase": "train_mesh_head_split_cost", "run": name,
+               "mesh": "x".join(map(str, shape[1:])),
+               "heads": cfg.num_heads, "tensor": t,
+               "columns_a_rank": busiest.cols,
+               "heads_run_by_busiest_rank": busiest.h1 - busiest.h0,
+               "heads_share": cfg.num_heads / t, "batch_a_slot": b,
+               "attention_fwd_bwd_device_ms": {k: list(v)
+                                               for k, v in ms.items()},
+               "attention_ms_a_step_rank": per_step["rank"],
+               "attention_ms_a_step_share": per_step["model"] / t,
+               "extra_attention_ms_a_step": per_step["rank"]
+               - per_step["model"] / t,
+               "collectives_per_step": ranks[0][name]["collectives"][-1],
+               "step_ms_per_rank": [rk[name]["step_ms"] for rk in ranks]}
+        emit(rec)
 
 
 def cfg_dtype(model: dict) -> str:
@@ -5594,12 +6077,45 @@ def cfg_dtype(model: dict) -> str:
     return model.get("dtype", "bfloat16")
 
 
-def phase_examples() -> None:
+def _started(args: list, cwd: str) -> tuple:
+    """A subprocess started now in ``cwd``, its output to temporary files:
+    (process, start time, the two files)."""
+    import tempfile
+
+    out, err = (tempfile.TemporaryFile("w+") for _ in range(2))
+    p = subprocess.Popen(args, cwd=cwd, stdout=out, stderr=err, text=True)
+    return p, time.perf_counter(), out, err
+
+
+def _finished(run: tuple, what: str) -> tuple:
+    """(exit code, stdout, stderr, wall s) of a :func:`_started` process,
+    waited for up to EXAMPLES_TIMEOUT_S from its start, killed past it."""
+    p, t0, out, err = run
+    try:
+        p.wait(timeout=max(1.0, EXAMPLES_TIMEOUT_S
+                           - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+    wall = time.perf_counter() - t0
+    texts = []
+    for f in (out, err):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    require(p.returncode is not None, f"{what}: not ended")
+    return p.returncode, texts[0], texts[1], wall
+
+
+def phase_examples() -> dict:
     """The port's two examples as a user runs them, each in its own
     process on the card: ``finetune_nih_torch.py --dry-run`` (the
     version_b preset: ViT-B/16 @384, bf16, b8, 20 steps with an eval and a
     save at 10 and 20, the int8 and merged-eval fidelity gates, the report)
-    and ``train_smoke_torch.py``; their wall seconds."""
+    and ``train_smoke_torch.py``; their wall seconds. They run at once, and
+    beside them the multi-rank dry run (:func:`phase_dryrun`): the three
+    share the card and the host, so each wall time holds the others' load.
+    Returns the dry run's summary."""
     import os
     import tempfile
 
@@ -5609,38 +6125,37 @@ def phase_examples() -> None:
                                    "--expect-quant-band", "1.0",
                                    "--expect-tome-band", "16:1.0"],
             "train_smoke_torch": []}
+    started = {name: _started(
+        [sys.executable, os.path.join(here, "examples", f"{name}.py"), *args],
+        tempfile.mkdtemp(prefix=f"{name}_")) for name, args in runs.items()}
+    dryrun = _dryrun_started()
     for name, args in runs.items():
-        work = tempfile.mkdtemp(prefix=f"{name}_")
-        t0 = time.perf_counter()
-        p = subprocess.run(
-            [sys.executable, os.path.join(here, "examples", f"{name}.py"),
-             *args], cwd=work, capture_output=True, text=True,
-            timeout=EXAMPLES_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        lines = p.stdout.strip().splitlines()
+        code, out, err, wall = _finished(started[name], name)
+        lines = out.strip().splitlines()
         emit({"phase": "examples", "example": name, "args": args,
-              "exit": p.returncode, "wall_s": wall,
-              "last_lines": lines[-3:]})
-        require(p.returncode == 0,
-                f"{name} exit {p.returncode}: {p.stderr[-3000:]}")
+              "exit": code, "wall_s": wall, "last_lines": lines[-3:],
+              "beside": "the other example and the dry run"})
+        require(code == 0, f"{name} exit {code}: {err[-3000:]}")
+    return phase_dryrun(dryrun)
 
 
-def phase_dryrun() -> dict:
+def _dryrun_started() -> tuple:
+    import os
+
+    return _started([sys.executable, "-m", "chestxray_vit_tpu_torch.dryrun",
+                     str(DRYRUN_RANKS)],
+                    os.path.dirname(os.path.abspath(__file__)))
+
+
+def phase_dryrun(run: Optional[tuple] = None) -> dict:
     """``python -m chestxray_vit_tpu_torch.dryrun 4``: four ranks on cuda:0
     in a gloo group, the data x fsdp 2 x 2 and dcn 2 x 1 x 2 meshes, each
     one's train step, merged step and static int8 eval against one
-    process."""
-    import os
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-m", "chestxray_vit_tpu_torch.dryrun",
-                        str(DRYRUN_RANKS)], cwd=here, capture_output=True,
-                       text=True, timeout=EXAMPLES_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    require(p.returncode == 0, f"dryrun exit {p.returncode}: "
-                               f"{p.stdout[-2000:]} {p.stderr[-3000:]}")
-    summary = json.loads(p.stdout.strip().splitlines()[-1])
+    process. ``run``: the process already started (:func:`phase_examples`
+    starts it beside the examples), else it starts here."""
+    code, out, err, wall = _finished(run or _dryrun_started(), "dryrun")
+    require(code == 0, f"dryrun exit {code}: {out[-2000:]} {err[-3000:]}")
+    summary = json.loads(out.strip().splitlines()[-1])
     emit({"phase": "dryrun", "ranks": DRYRUN_RANKS, "wall_s": wall,
           **summary})
     require(summary["ok"], f"dryrun: {summary}")
@@ -6028,10 +6543,10 @@ def main() -> int:
     phase_train_int8_cross_check()
     vit_h14_launches = phase_vit_h14(images)
     phase_vit_h14_cross_check()
+    variant_launches = phase_variants(images)
     mesh_launches = phase_train_mesh(train_rec)
     spawn_launches = phase_trainer_spawn()
-    phase_examples()
-    phase_dryrun()
+    phase_examples()                    # and the dry run beside them
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "chestxray_vit_tpu")]
     require(not loaded, f"no JAX and no JAX-package module imported: "
@@ -6046,9 +6561,10 @@ def main() -> int:
     # runs, the PackedTrainer's runs, the runs without and in a process
     # group, the command line's commands, the timed int8 train steps,
     # plain and merged, ViT-H/14's dense b8, b32 and int8 b32 serving, its
-    # timed train steps and its eval step, the mesh ranks' train steps and
-    # eval step, the spawned ranks' steps (rank 0's) and the one-process
-    # Trainer beside them), each counted from 0 just before it
+    # timed train steps and its eval step, the same of every variant run
+    # (ViT-L/16's serving; ViT-B/16 @512's dropout steps), the mesh ranks'
+    # train steps and eval step, the spawned ranks' steps (rank 0's) and the
+    # one-process Trainer beside them), each counted from 0 just before it
     paths = (serve_launches, serve_int8_launches, train_launches,
              eval_launches, eval_int8_launches, dropout_launches,
              packed_launches, tome_launches, mixed_launches,
@@ -6056,8 +6572,8 @@ def main() -> int:
              policy_launches, fused_launches, maps_launches,
              trainer_launches, packed_trainer_launches, ddp_launches,
              cli_launches, int8_train_launches, dp_split_launches,
-             serve_dp_launches, *vit_h14_launches, mesh_launches,
-             spawn_launches)
+             serve_dp_launches, *vit_h14_launches, *variant_launches,
+             mesh_launches, spawn_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)
@@ -6083,6 +6599,15 @@ def main() -> int:
                 for r in other]
         if other is not None:
             summary[-1]["head_dims"] = other
+        other = checked["variants"].get(name)
+        if other is not None:           # at the variants' shapes
+            summary[-1]["variants"] = [
+                {k: r.get(k) for k in (
+                    "model", "form", "m_k_n", "shape", "dtype", "scale_dtype",
+                    "max_err", "max_err_at", "max_abs_err", "ms",
+                    "device_ms", "plain_ms", "library_ms",
+                    "library_device_ms", "bound_ms", "bound_by")
+                 if k in r} for r in other]
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

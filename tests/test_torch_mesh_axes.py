@@ -5,15 +5,21 @@ mesh's coordinates and what stays refused.
 
 - ``param_layout`` gives each port parameter the fsdp and tensor dims of
   ``param_sharding``'s spec for its JAX leaf (block leaves one dim down),
-  leaf for leaf, on the meshes 2 × 4 × 1, 2 × 1 × 4 and 1 × 2 × 2.
+  leaf for leaf, on the meshes 2 × 4 × 1, 2 × 1 × 4 and 1 × 2 × 2, and on
+  tensor sizes that cut a head (3 heads of 16 on tensor 2 and 4) or that
+  do not divide a pair's width (tensor 3: the pair stays whole).
 - ``_keep`` with ``head_base`` and ``heads_total``: the mask of heads
   [h0, h0 + H/t) is the slice of the whole-head mask bit for bit (at a row
   base too), equals the JAX debug kernel's mask over the global batch,
   and a whole-head call keeps today's mask; the plain dropout attention
-  and its gradients on a head slice equal the whole call's slice.
+  and its gradients on a head slice equal the whole call's slice; the
+  heads a rank runs where its columns cut a head draw the global mask's
+  slice.
 - ``build_mesh``: the coordinates of ``reshape(dcn, data, fsdp, tensor)``,
   the batch slot, and a group smaller than its mesh (the JAX ValueError).
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -50,18 +56,41 @@ def _spec_dims(spec, ndim):
             next((i for i, a in enumerate(names) if a == "tensor"), None))
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 1), (2, 1, 4), (1, 2, 2)],
-                         ids=["2x4x1", "2x1x4", "1x2x2"])
-def test_param_layout_equals_jax_param_sharding(shape, jax_tree):
-    data, f, t = shape
+# (mesh data x fsdp x tensor, model overrides of TINY): TINY on three
+# meshes, then tensor sizes that split a head or leave a pair whole: 3
+# heads of 16 (width 48, MLP 96) on tensor 2 and 4 (the width divides, the
+# heads do not), TINY on tensor 3 (neither width divides: both pairs whole)
+# and width 48 with an MLP of 104 on tensor 3 (the MLP pair whole)
+H3 = dict(hidden_size=48, num_heads=3, mlp_dim=96)
+LAYOUT_CASES = (((2, 4, 1), {}), ((2, 1, 4), {}), ((1, 2, 2), {}),
+                ((1, 1, 2), H3), ((1, 2, 2), H3), ((1, 1, 4), H3),
+                ((2, 1, 4), H3), ((1, 1, 3), {}), ((2, 1, 3), {}),
+                ((1, 1, 3), dict(H3, mlp_dim=104)))
+
+
+def _layout_id(case) -> str:
+    shape, model = case
+    name = "x".join(map(str, shape))
+    if model:
+        name = (f"w{model['hidden_size']}h{model['num_heads']}"
+                f"m{model['mlp_dim']}-{name}")
+    return name
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES, ids=_layout_id)
+def test_param_layout_equals_jax_param_sharding(case, jax_tree):
+    (data, f, t), model = case
     n = data * f * t
+    if model:
+        jax_tree = jvit.init_params(jax.random.key(0),
+                                    ModelConfig(**{**TINY, **model}))
     jm = jmesh.build_mesh(MeshConfig(data=data, fsdp=f, tensor=t),
                           devices=jax.devices()[:n])
     shardings = jmesh.param_sharding(jm, jax_tree)
     tm = tmesh.build_mesh(tconfig.MeshConfig(data=data, fsdp=f, tensor=t),
                           world=n, rank=0)
-    params = bridge.params_from_jax(jax.tree.map(np.asarray, jax_tree),
-                                    tconfig.ModelConfig(**TINY))
+    tcfg = tconfig.ModelConfig(**{**TINY, **model})
+    params = bridge.params_from_jax(jax.tree.map(np.asarray, jax_tree), tcfg)
     layout = tmesh.param_layout(tm, params)
     assert set(layout.dims) == {n for n, _ in params.named_parameters()}
     sharded = 0
@@ -80,15 +109,24 @@ def test_param_layout_equals_jax_param_sharding(shape, jax_tree):
             td = None if td is None else td - 1
         assert layout.dims[name] == (fd, td), name
         sharded += layout.dims[name] != (None, None)
-    assert sharded > 0
+    # nothing is split only where no fsdp axis runs and both pairs are whole
+    assert sharded > 0 or (f == 1 and tcfg.hidden_size % t
+                           and tcfg.mlp_dim % t)
     # JAX's own pins: mlp_in's kernel is fsdp-sharded; q columns and wo
-    # rows are tensor-split
+    # rows are tensor-split when the width divides, whole (both) when not;
+    # the MLP pair likewise by the MLP's width
     if f > 1:
         assert layout.dims["blocks.0.mlp_in.kernel"][0] is not None
     if t > 1:
-        assert layout.dims["blocks.1.wq.kernel"][1] == 1
-        assert layout.dims["blocks.1.wo.kernel"][1] == 0
-        assert layout.dims["blocks.1.wq.bias"][1] == 0
+        split = tcfg.hidden_size % t == 0
+        assert layout.dims["blocks.1.wq.kernel"][1] == (1 if split else None)
+        assert layout.dims["blocks.1.wo.kernel"][1] == (0 if split else None)
+        assert layout.dims["blocks.1.wq.bias"][1] == (0 if split else None)
+        split = tcfg.mlp_dim % t == 0
+        assert layout.dims["blocks.1.mlp_in.kernel"][1] == (
+            1 if split else None)
+        assert layout.dims["blocks.1.mlp_out.kernel"][1] == (
+            0 if split else None)
 
 
 def test_local_slices_rebuild_the_full_tree(jax_tree):
@@ -111,16 +149,6 @@ def test_local_slices_rebuild_the_full_tree(jax_tree):
             rows.append(torch.cat(part, td) if td is not None else part[0])
         full = torch.cat(rows, fd) if fd is not None else rows[0]
         assert torch.equal(full, p.detach()), name
-
-
-def test_tensor_split_needs_whole_heads():
-    params = bridge.params_from_jax(
-        jax.tree.map(np.asarray, jvit.init_params(
-            jax.random.key(0), ModelConfig(**{**TINY, "num_heads": 2}))),
-        tconfig.ModelConfig(**{**TINY, "num_heads": 2}))
-    mesh = tmesh.build_mesh(tconfig.MeshConfig(data=1, tensor=4), world=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #15"):
-        tmesh.param_layout(mesh, params)
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +178,30 @@ def test_head_slice_mask_is_the_global_slice(t, row_base, block_q):
     whole = tfa._packed_keep(q, SEED, RATE, block_q, row_base)
     part = tfa._packed_keep(q[:, 2:], SEED, RATE, block_q, row_base, 2, 4)
     assert torch.equal(part, whole[:, 2:])
+
+
+@pytest.mark.parametrize("heads,t", [(3, 2), (3, 4), (6, 4), (12, 8)])
+def test_cut_head_ranks_mask_is_the_global_slice(heads, t):
+    """Where a rank's D/t columns cut a head (``vit.RankHeads``), it runs
+    the heads [h0, h1) its columns touch at ``head_base`` h0: each mask is
+    the whole-head mask's slice bit for bit, so two ranks that run the same
+    cut head draw the same mask."""
+    from chestxray_vit_tpu_torch.models.vit import RankHeads
+
+    q = torch.zeros(2, heads, 77, 16)
+    whole = tfa._keep(q, SEED, RATE, 32, 5)
+    cfg = tconfig.ModelConfig(hidden_size=16 * heads, num_heads=heads,
+                              mlp_dim=64)
+    covered = set()
+    for r in range(t):
+        rh = RankHeads(cfg, types.SimpleNamespace(size=t, index=r))
+        assert rh.gather and rh.cols == 16 * heads // t
+        assert rh.h0 * 16 <= rh.c0 and rh.c0 + rh.cols <= rh.h1 * 16
+        part = tfa._keep(q[:, rh.h0:rh.h1], SEED, RATE, 32, 5,
+                         head_base=rh.h0, heads_total=heads)
+        assert torch.equal(part, whole[:, rh.h0:rh.h1])
+        covered.update(range(rh.c0, rh.c0 + rh.cols))
+    assert covered == set(range(16 * heads))
 
 
 def test_whole_head_mask_is_unchanged():
