@@ -74,7 +74,8 @@
 // ids lies within the range of the block's own 64 ids is skipped before its
 // copies are issued (TileWalk). Ids are never assumed sorted or contiguous.
 //
-// Head dims: those of the forward (cxr::head_dim_ok), at the padded width
+// Head dims: those of the forward up to 128 (cxr::head_dim_ok; above it
+// attention_bwd_wide.cuh splits the output columns), at the padded width
 // of the forward (cxr::bf16_head_dim: kD = 64, 80 or 128; the f32 passes
 // at 64 or 128) with the real d a runtime argument. Every 64-column chunk
 // of a Q, K, V, dO, dQ, dK or dV tile is one swizzled 64 x 64 tile, and at
@@ -101,6 +102,7 @@
 
 #include <math.h>
 
+#include "attention_bwd_wide.cuh"
 #include "common.cuh"
 
 namespace cxr {
@@ -1114,6 +1116,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  if (head_dim > cxr::kWideHeadDim)
+    return cxr::wide::launch_bwd<kDropout, kSegment>(
+        q, k, v, o, dout, l, dl, dq, dk, dv, batch, heads, seq, head_dim, st,
+        scale, dtype, device, cs, drop, seg);
   if (head_dim == 64)
     return launch_bwd_at<64, false, kDropout, kSegment>(
         q, k, v, o, dout, l, dl, dq, dk, dv, batch, heads, seq, head_dim, st,

@@ -44,7 +44,8 @@
 // ptxas reused those registers in one build.
 // The f32 path (used for parity runs) is plain FMA.
 //
-// Head dims: any d with d % 8 == 0 and 8 <= d <= 128 (head_dim_ok), built
+// Head dims: any d with d % 8 == 0 and 8 <= d <= 128 here (d above 128
+// goes to attention_fwd_wide.cuh, which splits O's columns), built
 // at a padded width kD (bf16_head_dim): 64, 80 (bf16, 64 < d <= 80) or 128;
 // d itself is a runtime argument. Each 64-column chunk of a Q, K, V or O
 // tile is one of the swizzled 64 x 64 tiles above, so the copies,
@@ -78,6 +79,7 @@
 
 #include <math.h>
 
+#include "attention_fwd_wide.cuh"
 #include "common.cuh"
 
 namespace cxr {
@@ -121,13 +123,6 @@ struct FwdShape {
 template <int kD, bool kDropout, bool kSegment>
 constexpr int fwd_blocks_per_sm() {
   return kD == 80 && kDropout && kSegment ? 3 : FwdShape<kD>::kBlocksPerSm;
-}
-
-// The max to subtract in the exp2: 0 while a row has met no unmasked score
-// (kSegment only), so that exp2(-inf - 0) = 0 and not exp2(-inf + inf).
-template <bool kSegment>
-__device__ __forceinline__ float safe_max(float m) {
-  return kSegment && m == -INFINITY ? 0.f : m;
 }
 
 // 128 threads = one warpgroup; warp w owns query rows [16w, 16w + 16) of
@@ -642,6 +637,10 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
   static_assert(FwdShape<64>::kSmemBytes <= 48 * 1024,
                 "d <= 64 fits the default dynamic shared memory limit");
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim > kWideHeadDim)
+    return wide::launch_fwd<kLse, kDropout, kEmitKeep, kSegment>(
+        q, k, v, o, lse, batch, heads, seq, head_dim, qs, ks, vs, os, scale,
+        dtype, st, drop, seg);
   if (head_dim == 64)
     return launch_attn_fwd_at<64, false, kLse, kDropout, kEmitKeep, kSegment>(
         q, k, v, o, lse, batch, heads, seq, head_dim, qs, ks, vs, os, scale,

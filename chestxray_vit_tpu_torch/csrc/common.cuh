@@ -9,6 +9,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace cxr {
@@ -16,17 +17,21 @@ namespace cxr {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// The head dims the attention kernels take (a multiple of 8 from 8 to
-// 128), and the padded width each is built at: 64 or 128 for the f32
-// kernels (padded_head_dim: their row splits over kD / 64 or kD / 32
-// threads need a whole count), 64, 80 or 128 for every bf16 forward and
-// backward (bf16_head_dim: 64 < d <= 80, ViT-H/14's 80, is a 64-column
-// chunk and a 16-column one, so no column past 80 is computed). d = 64 has
-// an instantiation of its own with no column masks (kPad false), the code
-// the kernels ran before other head dims; every other d masks the columns
-// at or past it (d = 80 and 128 too, which saves instantiations).
+// The head dims the attention kernels take: any multiple of 8 (the
+// wrappers zero-pad every other d to one). Up to 128, the padded width
+// each is built at: 64 or 128 for the f32 kernels (padded_head_dim: their
+// row splits over kD / 64 or kD / 32 threads need a whole count), 64, 80
+// or 128 for every bf16 forward and backward (bf16_head_dim: 64 < d <= 80,
+// ViT-H/14's 80, is a 64-column chunk and a 16-column one, so no column
+// past 80 is computed). d = 64 has an instantiation of its own with no
+// column masks (kPad false), the code the kernels ran before other head
+// dims; every other d masks the columns at or past it (d = 80 and 128 too,
+// which saves instantiations). Above 128 the kernels of
+// attention_fwd_wide.cuh and attention_bwd_wide.cuh split the output
+// columns (kWideHeadDim).
+constexpr int kWideHeadDim = 128;  // the widest d of the one-block kernels
 __host__ __device__ constexpr bool head_dim_ok(int d) {
-  return d % 8 == 0 && d >= 8 && d <= 128;
+  return d % 8 == 0 && d >= 8;
 }
 __host__ __device__ constexpr int padded_head_dim(int d) {
   return d <= 64 ? 64 : 128;
@@ -34,6 +39,40 @@ __host__ __device__ constexpr int padded_head_dim(int d) {
 __host__ __device__ constexpr int bf16_head_dim(int d) {
   return d <= 64 ? 64 : d <= 80 ? 80 : 128;
 }
+
+// The max to subtract in the exp2 of an online softmax: 0 while a row has
+// met no unmasked score (kSegment only), so that exp2(-inf - 0) = 0 and not
+// exp2(-inf + inf).
+template <bool kSegment>
+__device__ __forceinline__ float safe_max(float m) {
+  return kSegment && m == -INFINITY ? 0.f : m;
+}
+
+// The wide attention kernels (attention_fwd_wide.cuh, attention_bwd_wide.cuh)
+namespace wide {
+// Output-column blocks (the grid's third axis) of a d-wide head at chunk
+// width ``width``.
+__host__ __device__ constexpr int out_blocks(int d, int width) {
+  return (d + width - 1) / width;
+}
+// The 16-deep steps of 64-column chunk ``c`` that reach a column below d.
+__device__ __forceinline__ int chunk_steps(int c, int d) {
+  return min(4, (d - 64 * c + 15) / 16);
+}
+// Allows kKernel kBytes of dynamic shared memory, above the 48 KB default,
+// once on ``device`` (the attribute is the device's): a later launch there
+// makes no driver call.
+template <auto kKernel, int kBytes>
+cudaError_t allow_smem(int device) {
+  static bool allowed[64] = {};
+  if (device < 0 || device >= 64) return cudaErrorInvalidValue;
+  if (allowed[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err == cudaSuccess) allowed[device] = true;
+  return err;
+}
+}  // namespace wide
 
 struct Strides {
   long long b, h, s;  // in elements; the head dim is contiguous

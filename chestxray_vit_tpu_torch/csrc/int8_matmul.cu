@@ -23,7 +23,11 @@
 // current one multiplies. Rows past M, columns past N and the upper half of
 // a last tile when K % 128 = 64 are zero-filled on load (and that half's
 // k-steps are not issued); rows and columns past the end are skipped on
-// store, since B * 577 is never a multiple of 128.
+// store, since B * 577 is never a multiple of 128. An N that is no
+// multiple of 8 (a model of any width, as the JAX kernel takes it) leaves
+// rows that are not whole 16-byte pieces: that instantiation (kTail) reads
+// the residual and writes the output element by element, and the scale
+// and bias of the columns below N only.
 //
 // The epilogue is that of the JAX kernel and of the plain twin
 // `int8_matmul_fused_reference`, in its order, each operation rounded on
@@ -127,6 +131,19 @@ __device__ __forceinline__ void store8(int* o, const int (&v)[8]) {
   *reinterpret_cast<int4*>(o) = make_int4(v[0], v[1], v[2], v[3]);
   *reinterpret_cast<int4*>(o + 4) = make_int4(v[4], v[5], v[6], v[7]);
 }
+// One value of a row (kTail), as load8 / store8 write eight.
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store1(float* o, float y, float) { *o = y; }
+__device__ __forceinline__ void store1(__nv_bfloat16* o, float y, float) {
+  *o = __float2bfloat16_rn(y);
+}
+__device__ __forceinline__ void store1(int8_t* o, float y, float inv) {
+  *o = requant(y, inv);
+}
+
 __device__ __forceinline__ void store8(int8_t* o, const float (&y)[8],
                                        float inv) {
   uint32_t w[2];
@@ -141,7 +158,7 @@ __device__ __forceinline__ void store8(int8_t* o, const float (&y)[8],
   *reinterpret_cast<uint2*>(o) = make_uint2(w[0], w[1]);
 }
 
-template <typename OutT, typename ResT>
+template <typename OutT, typename ResT, bool kTail>
 __global__ void __launch_bounds__(kThreads, 2)
 int8_gemm_fused(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                 const float* __restrict__ scale, const float* __restrict__ bias,
@@ -208,12 +225,21 @@ int8_gemm_fused(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 
   // thread: columns 8 cc ... 8 cc + 7 of rows r0, r0 + 16, ..., r0 + 112
   const int cc = tid & 15, r0 = tid >> 4, col = n0 + 8 * cc;
-  if (col >= N) return;  // N is a multiple of 8: the 8 columns are all in
+  if (col >= N) return;  // !kTail: N is a multiple of 8, all 8 are in
+  const int ncols = kTail ? min(8, N - col) : 8;
   constexpr bool kRaw = std::is_same<OutT, int>::value;  // int32 out
   float sc[8], bi[8];
   if constexpr (!kRaw) {
-    load8(scale + col, sc);
-    load8(bias + col, bi);
+    if constexpr (kTail) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sc[j] = j < ncols ? scale[col + j] : 0.f;
+        bi[j] = j < ncols ? bias[col + j] : 0.f;
+      }
+    } else {
+      load8(scale + col, sc);
+      load8(bias + col, bi);
+    }
   }
   // 1 / qs once, as the JAX kernel computes `inv` before its multiply
   const float inv = qs != nullptr ? __fdiv_rn(1.0f, *qs) : 0.f;
@@ -226,14 +252,28 @@ int8_gemm_fused(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     if (row >= M) continue;
     const long long off = static_cast<long long>(row) * N + col;
     float res[8];
-    if (resid != nullptr) load8(resid + off, res);
+    if (resid != nullptr) {
+      if constexpr (kTail) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          res[j] = j < ncols ? load1(resid + off + j) : 0.f;
+      } else {
+        load8(resid + off, res);
+      }
+    }
     const int* s = stage + r * kEpiLd + 8 * cc;
     const int4 lo = *reinterpret_cast<const int4*>(s + 4 * h0);
     const int4 hi = *reinterpret_cast<const int4*>(s + 4 * (h0 ^ 1));
     const int4 q0 = h0 ? hi : lo, q1 = h0 ? lo : hi;
     const int v[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
     if constexpr (kRaw) {
-      store8(out + off, v);
+      if constexpr (kTail) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j < ncols) out[off + j] = v[j];
+      } else {
+        store8(out + off, v);
+      }
     } else {
       float y[8];
 #pragma unroll
@@ -242,28 +282,35 @@ int8_gemm_fused(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
         if (do_gelu) y[j] = gelu(y[j]);
         if (resid != nullptr) y[j] = __fadd_rn(y[j], res[j]);
       }
-      store8(out + off, y, inv);
+      if constexpr (kTail) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j < ncols) store1(out + off + j, y[j], inv);
+      } else {
+        store8(out + off, y, inv);
+      }
     }
   }
 }
 
-template <typename OutT, typename ResT>
-int launch(const void* xq, const void* wq, const void* scale, const void* bias,
-           const void* resid, const void* qs, void* out, int m, int n, int k,
-           int do_gelu, int device, cudaStream_t stream) {
+template <typename OutT, typename ResT, bool kTail>
+int launch_at(const void* xq, const void* wq, const void* scale,
+              const void* bias, const void* resid, const void* qs, void* out,
+              int m, int n, int k, int do_gelu, int device,
+              cudaStream_t stream) {
   // above 48 KB of dynamic shared memory a kernel must be allowed it, once
   // per device (a repeated call is harmless)
   static bool allowed[64] = {};
   if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidValue);
   if (!allowed[device]) {
     cudaError_t err = cudaFuncSetAttribute(
-        int8_gemm_fused<OutT, ResT>,
+        int8_gemm_fused<OutT, ResT, kTail>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     allowed[device] = true;
   }
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  int8_gemm_fused<OutT, ResT><<<grid, kThreads, kSmemBytes, stream>>>(
+  int8_gemm_fused<OutT, ResT, kTail><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wq),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<const ResT*>(resid), static_cast<const float*>(qs),
@@ -271,15 +318,27 @@ int launch(const void* xq, const void* wq, const void* scale, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// launch_at for the N at hand: whole 16-byte row pieces or a tail.
+template <typename OutT, typename ResT>
+int launch(const void* xq, const void* wq, const void* scale, const void* bias,
+           const void* resid, const void* qs, void* out, int m, int n, int k,
+           int do_gelu, int device, cudaStream_t stream) {
+  if (n % 8)
+    return launch_at<OutT, ResT, true>(xq, wq, scale, bias, resid, qs, out,
+                                       m, n, k, do_gelu, device, stream);
+  return launch_at<OutT, ResT, false>(xq, wq, scale, bias, resid, qs, out, m,
+                                      n, k, do_gelu, device, stream);
+}
+
 }  // namespace
 
 // xq int8 [m, k] and wq int8 [n, k], both contiguous with 16-byte aligned
 // rows; scale and bias f32 [n], resid [m, n] in res_dtype or null, out
-// [m, n], all four 16-byte aligned; qs a device f32 scalar (requantize to
-// int8) or null. Dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (out
+// [m, n], all four 16-byte aligned (rows of them too when n % 8 == 0); qs a
+// device f32 scalar (requantize to int8) or null. Dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (out
 // only, with qs), 3 = int32 (out only: the raw sums, with no scale, bias,
 // GELU, residual or qs). k a multiple of 64 (callers zero-pad K:
-// ops/int8_matmul.py pad_k), n of 8. At k <= 2^31 / 127^2 (133,143) no
+// ops/int8_matmul.py pad_k), any n >= 1. At k <= 2^31 / 127^2 (133,143) no
 // int32 sum of int8 in [-127, 127] can overflow.
 extern "C" int cxr_int8_matmul_fused(const void* xq, const void* wq,
                                      const void* scale, const void* bias,
@@ -287,7 +346,7 @@ extern "C" int cxr_int8_matmul_fused(const void* xq, const void* wq,
                                      void* out, int m, int n, int k,
                                      int do_gelu, int out_dtype, int res_dtype,
                                      int device, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || k % 64 || n % 8 ||
+  if (m <= 0 || n <= 0 || k <= 0 || k % 64 ||
       (out_dtype == 2) != (qs != nullptr) ||
       (out_dtype == 3) != (scale == nullptr) ||
       (out_dtype == 3) != (bias == nullptr) ||

@@ -51,6 +51,16 @@
 // (lane-minor, so no bank conflicts), which the fixed tree then adds in
 // place. The f32 path serves parity runs; the rungs up to eight vectors
 // are unchanged.
+//
+// Any other D (wider than 2048, or not a whole number of 16-byte vectors,
+// which the JAX kernels take as one block too) runs the kernels of
+// ln_fwd_any / ln_bwd_any: a block owns a row at a time (a wave of blocks
+// walks the rows) and reads it from L1 / L2 once a pass (the sum, the
+// centered sum of squares, the output: the two-pass statistics of the
+// rungs), in 16-byte vectors when D is a whole number of them, else
+// element by element; the backward keeps its block's dscale / dbias sums in
+// the block's own row of the [n_blocks, 2, D] workspace (each thread owns
+// fixed columns, so no atomics), which the same column pass adds.
 
 #include "common.cuh"
 
@@ -60,7 +70,7 @@ using cxr::from_f32;
 using cxr::warp_sum;
 
 constexpr int kMaxVecs = 8;          // vectors per lane held with the next row
-constexpr int kMaxD = 2048;          // the widest row either dtype takes
+constexpr int kMaxD = 2048;          // the widest row the rungs take
 constexpr int kFwdWarps = 4;         // forward: warps of a block
 constexpr int kBwdWarps = 8;         // backward: warps of a block
 constexpr int kColWarps = 32;        // column pass: warps of a block
@@ -463,6 +473,170 @@ ln_bwd_cols(const float* __restrict__ part, int n_blocks, int D,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Any D: a block a row at a time
+// ---------------------------------------------------------------------------
+
+constexpr int kAnyThreads = 256;
+constexpr int kAnyWarps = kAnyThreads / 32;
+
+// Piece p of a row: with kVec a 16-byte vector (E elements), else one
+// element, as floats.
+template <typename T, bool kVec>
+struct Piece {
+  static constexpr int kE = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
+  __device__ __forceinline__ static void load(const T* row, int p,
+                                              float (&v)[kE]) {
+    if constexpr (kVec) {
+      uint32_t w[4];
+      load_words(row + p * kE, w);
+#pragma unroll
+      for (int j = 0; j < kE; ++j) v[j] = elem<T>(w, j);
+    } else {
+      v[0] = cxr::to_f32(row[p]);
+    }
+  }
+  __device__ __forceinline__ static void store(T* row, int p,
+                                               const float (&v)[kE]) {
+    if constexpr (kVec)
+      store_vec(row + p * kE, v);
+    else
+      row[p] = from_f32<T>(v[0]);
+  }
+};
+
+// The block's sums of a and b (every thread gets them), in a fixed order:
+// warp sums, then warp 0 ... kAnyWarps - 1. ``red`` holds 2 * kAnyWarps
+// floats; every thread must call it.
+__device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
+  warp_sum2(a, b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // the previous call's reads of red are done
+  if (lane == 0) {
+    red[warp] = a;
+    red[kAnyWarps + warp] = b;
+  }
+  __syncthreads();
+  a = b = 0.f;
+#pragma unroll
+  for (int w = 0; w < kAnyWarps; ++w) {
+    a += red[w];
+    b += red[kAnyWarps + w];
+  }
+}
+
+template <typename T, typename W, bool kVec>
+__global__ void __launch_bounds__(kAnyThreads)
+ln_fwd_any(const T* __restrict__ x, const W* __restrict__ scale,
+           const W* __restrict__ bias, T* __restrict__ y, long long rows,
+           int D, float eps) {
+  using P = Piece<T, kVec>;
+  constexpr int E = P::kE;
+  __shared__ float red[2 * kAnyWarps];
+  const int np = D / E;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + row * D;
+    float sum = 0.f, unused = 0.f;
+    for (int p = threadIdx.x; p < np; p += kAnyThreads) {
+      float v[E];
+      P::load(xr, p, v);
+#pragma unroll
+      for (int j = 0; j < E; ++j) sum += v[j];
+    }
+    block_sum2(sum, unused, red);
+    const float mean = sum / D;
+    float sq = 0.f;
+    unused = 0.f;
+    for (int p = threadIdx.x; p < np; p += kAnyThreads) {
+      float v[E];
+      P::load(xr, p, v);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float d = v[j] - mean;
+        sq += d * d;
+      }
+    }
+    block_sum2(sq, unused, red);
+    const float rstd = rsqrtf(sq / D + eps);
+    T* yr = y + row * D;
+    for (int p = threadIdx.x; p < np; p += kAnyThreads) {
+      float v[E];
+      P::load(xr, p, v);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const int c = p * E + j;
+        v[j] = (v[j] - mean) * rstd * cxr::to_f32(scale[c]) +
+               cxr::to_f32(bias[c]);
+      }
+      P::store(yr, p, v);
+    }
+  }
+}
+
+template <typename T, typename W, bool kVec>
+__global__ void __launch_bounds__(kAnyThreads)
+ln_bwd_any(const T* __restrict__ x, const W* __restrict__ scale,
+           const T* __restrict__ dy, T* __restrict__ dx,
+           float* __restrict__ part, long long rows, int D, float eps) {
+  using P = Piece<T, kVec>;
+  constexpr int E = P::kE;
+  __shared__ float red[2 * kAnyWarps];
+  const int np = D / E;
+  // this block's [2, D] partial: dscale's sums, then dbias's; a thread
+  // owns the columns of its pieces
+  float* pr = part + static_cast<long long>(blockIdx.x) * 2 * D;
+  for (int p = threadIdx.x; p < np; p += kAnyThreads)
+#pragma unroll
+    for (int j = 0; j < E; ++j) pr[p * E + j] = pr[D + p * E + j] = 0.f;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + row * D;
+    const T* gr = dy + row * D;
+    float sx = 0.f, sg = 0.f;
+    for (int p = threadIdx.x; p < np; p += kAnyThreads) {
+      float xv[E], gv[E];
+      P::load(xr, p, xv);
+      P::load(gr, p, gv);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        sx += xv[j];
+        sg += gv[j] * cxr::to_f32(scale[p * E + j]);
+      }
+    }
+    block_sum2(sx, sg, red);
+    const float mean = sx / D;
+    float sq = 0.f, sgx = 0.f;
+    for (int p = threadIdx.x; p < np; p += kAnyThreads) {
+      float xv[E], gv[E];
+      P::load(xr, p, xv);
+      P::load(gr, p, gv);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float d = xv[j] - mean;
+        sq += d * d;
+        sgx += gv[j] * cxr::to_f32(scale[p * E + j]) * d;
+      }
+    }
+    block_sum2(sq, sgx, red);
+    const float rstd = rsqrtf(sq / D + eps);
+    const float mg = sg / D, mgx = sgx * rstd / D;  // mean(g), mean(g x_hat)
+    T* dxr = dx + row * D;
+    for (int p = threadIdx.x; p < np; p += kAnyThreads) {
+      float xv[E], gv[E];
+      P::load(xr, p, xv);
+      P::load(gr, p, gv);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const int c = p * E + j;
+        const float xh = (xv[j] - mean) * rstd;
+        pr[c] += gv[j] * xh;
+        pr[D + c] += gv[j];
+        xv[j] = (gv[j] * cxr::to_f32(scale[c]) - mg - xh * mgx) * rstd;
+      }
+      P::store(dxr, p, xv);
+    }
+  }
+}
+
 // Blocks of `kernel` resident on the card at once, with `smem` bytes of
 // dynamic shared memory (allowed first), found once per kernel and device
 // into `cache`.
@@ -506,10 +680,40 @@ cudaError_t launch_fwd_v(const void* x, const void* s, const void* b, void* y,
   return cudaGetLastError();
 }
 
+// The any-D forward (ln_fwd_any) on one wave, fewer blocks for fewer rows.
+template <typename T, typename W, bool kVec>
+cudaError_t launch_fwd_any(const void* x, const void* s, const void* b,
+                           void* y, long long rows, int d, float eps,
+                           int device, cudaStream_t st) {
+  static int cache[64] = {};
+  int wave = 0;
+  cudaError_t err = wave_of(ln_fwd_any<T, W, kVec>, kAnyThreads, 0, device,
+                            cache, &wave);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>(rows < wave ? rows : wave);
+  ln_fwd_any<T, W, kVec><<<blocks, kAnyThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const W*>(s),
+      static_cast<const W*>(b), static_cast<T*>(y), rows, d, eps);
+  return cudaGetLastError();
+}
+
+// Whether d takes the rungs (a whole number of 16-byte vectors, at most
+// kMaxD) or the any-D kernels.
+template <typename T>
+bool on_rungs(int d) {
+  return d <= kMaxD && d % (16 / static_cast<int>(sizeof(T))) == 0;
+}
+
 template <typename T, typename W>
 cudaError_t launch_fwd(const void* x, const void* s, const void* b, void* y,
                        long long rows, int d, float eps, int device,
                        cudaStream_t st) {
+  if (!on_rungs<T>(d))
+    return d % (16 / static_cast<int>(sizeof(T))) == 0
+               ? launch_fwd_any<T, W, true>(x, s, b, y, rows, d, eps, device,
+                                            st)
+               : launch_fwd_any<T, W, false>(x, s, b, y, rows, d, eps, device,
+                                             st);
   const int v = (d / (16 / static_cast<int>(sizeof(T))) + 31) / 32;
 #define CXR_LN_FWD(V) \
   if (v <= V) return launch_fwd_v<T, W, V>(x, s, b, y, rows, d, eps, device, st);
@@ -565,8 +769,36 @@ cudaError_t run_bwd_v(const BwdCall& c) {
   return cudaGetLastError();
 }
 
+// The any-D backward (ln_bwd_any) and the column pass, or its wave.
+template <typename T, typename W, bool kVec>
+cudaError_t run_bwd_any(const BwdCall& c) {
+  static int cache[64] = {};
+  int wave = 0;
+  cudaError_t err = wave_of(ln_bwd_any<T, W, kVec>, kAnyThreads, 0, c.device,
+                            cache, &wave);
+  if (err != cudaSuccess) return err;
+  if (c.wave) {
+    *c.wave = wave;
+    return cudaSuccess;
+  }
+  ln_bwd_any<T, W, kVec><<<c.n_blocks, kAnyThreads, 0, c.st>>>(
+      static_cast<const T*>(c.x), static_cast<const W*>(c.scale),
+      static_cast<const T*>(c.dy), static_cast<T*>(c.dx), c.part, c.rows,
+      c.d, c.eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ln_bwd_cols<W><<<(2 * c.d + 31) / 32, 32 * kColWarps, 0, c.st>>>(
+      c.part, c.n_blocks, c.d, static_cast<W*>(c.dscale),
+      static_cast<W*>(c.dbias));
+  return cudaGetLastError();
+}
+
 template <typename T, typename W>
 cudaError_t run_bwd(const BwdCall& c) {
+  if (!on_rungs<T>(c.d))
+    return c.d % (16 / static_cast<int>(sizeof(T))) == 0
+               ? run_bwd_any<T, W, true>(c)
+               : run_bwd_any<T, W, false>(c);
   const int v = (c.d / (16 / static_cast<int>(sizeof(T))) + 31) / 32;
 #define CXR_LN_BWD(V) \
   if (v <= V) return run_bwd_v<T, W, V>(c);
@@ -593,21 +825,18 @@ cudaError_t run_bwd_types(int x_dtype, int w_dtype, const BwdCall& c) {
   return cudaErrorInvalidValue;
 }
 
-bool bad_shape(long long rows, int d, int x_dtype) {
-  const int vec = x_dtype == 1 ? 8 : 4;
-  return rows <= 0 || d <= 0 || d % vec || d > kMaxD;
-}
+bool bad_shape(long long rows, int d) { return rows <= 0 || d <= 0; }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. x and y are contiguous [rows, d]
-// with 16-byte aligned rows, scale and bias [d] 16-byte aligned;
-// d <= 2048.
+// from a 16-byte aligned address, scale and bias [d] 16-byte aligned; any
+// d >= 1.
 extern "C" int cxr_layer_norm_fwd(const void* x, const void* scale,
                                   const void* bias, void* y, long long rows,
                                   int d, float eps, int x_dtype, int w_dtype,
                                   int device, void* stream) {
-  if (bad_shape(rows, d, x_dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(rows, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -627,7 +856,7 @@ extern "C" int cxr_layer_norm_fwd(const void* x, const void* scale,
   return static_cast<int>(err);
 }
 
-// x, dy, dx contiguous [rows, d] in x_dtype with 16-byte aligned rows;
+// x, dy, dx contiguous [rows, d] in x_dtype from 16-byte aligned addresses;
 // scale, dscale, dbias [d] in w_dtype; workspace f32 [n_blocks, 2, d],
 // 16-byte aligned (n_blocks >= 1, chosen by the caller, best
 // cxr_layer_norm_bwd_wave's or fewer; the result depends on it only
@@ -638,7 +867,7 @@ extern "C" int cxr_layer_norm_bwd(const void* x, const void* scale,
                                   long long rows, int d, float eps,
                                   int n_blocks, int x_dtype, int w_dtype,
                                   int device, void* stream) {
-  if (bad_shape(rows, d, x_dtype) || n_blocks <= 0)
+  if (bad_shape(rows, d) || n_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -652,7 +881,7 @@ extern "C" int cxr_layer_norm_bwd(const void* x, const void* scale,
 // and these dtypes: one wave, the workspace's size for any row count.
 extern "C" int cxr_layer_norm_bwd_wave(int d, int x_dtype, int w_dtype,
                                        int device, int* blocks) {
-  if (bad_shape(1, d, x_dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(1, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const BwdCall c{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,

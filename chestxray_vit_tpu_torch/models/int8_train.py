@@ -65,7 +65,7 @@ from chestxray_vit_tpu_torch.models import vit
 from chestxray_vit_tpu_torch.models.quantized import _cls_pos
 from chestxray_vit_tpu_torch.models.remat import checkpoint_name
 from chestxray_vit_tpu_torch.ops.int8_matmul import (int8_matmul_fused,
-                                                     pad_k, quantize_static)
+                                                     quantize_static)
 from chestxray_vit_tpu_torch.ops.layer_norm import layer_norm
 from chestxray_vit_tpu_torch.ops.quant import (quantize_weight_tensors,
                                                quantize_weight_with_amax,
@@ -84,9 +84,6 @@ class _Int8LinearSTE(torch.autograd.Function):
         wq, w_scale = quantize_weight_tensors(kernel)
         if xq is None:
             xq = quantize_static(x, x_scale)
-        # K zero-padded to the int8 kernel's step (the patch embedding's
-        # 588 at patch 14): exact, zero columns add nothing to the sums
-        wq, xq = pad_k(wq), pad_k(xq)
         ctx.save_for_backward(x, kernel)
         ctx.out_dtype, ctx.bias_dtype = out_dtype, bias.dtype
         return int8_matmul_fused(xq, wq, x_scale * w_scale, bias.float(),
@@ -117,9 +114,8 @@ def _dense_grads(ctx, g):
 
 def row_partial(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """The exact int32 ``xq @ wqᵀ`` partial of a row-split product on the
-    int8 kernel's int32 out form. K is zero-padded to the kernel's step (a
-    local slice of 32 at width 64)."""
-    wq, xq = pad_k(wq), pad_k(xq)
+    int8 kernel's int32 out form (which pads a local K off its step, as a
+    slice of 32 at width 64)."""
     return int8_matmul_fused(xq, wq, out_dtype=torch.int32)
 
 

@@ -79,18 +79,19 @@ class Buffers(nn.Module):
 
 class QuantDense(nn.Module):
     """An int8 projection: ``qw`` (:class:`QuantizedWeight`) and ``bias``.
-    With ``pad`` the weight's K is stored zero-padded to a multiple of 64,
-    the int8 kernel's step (``ops/int8_matmul.pad_k``), and ``in_features``
-    keeps the real one: the bridge and the artifact see ``[in_features,
-    out]``."""
+    The weight's K is stored zero-padded to a multiple of 64, the int8
+    kernel's step (``ops/int8_matmul.pad_k``: the patch-14 embedding's 588,
+    a hidden or MLP width off 64), and ``in_features`` keeps the real one:
+    the bridge and the artifact see ``[in_features, out]``. The plain
+    route pads the activation (:func:`padded_input`); the fused kernel's
+    wrapper pads it itself."""
 
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
-                 pad: bool = False):
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype):
         super().__init__()
         self.in_features = d_in
-        k = padded_k(d_in) if pad else d_in
-        self.qw = QuantizedWeight(torch.zeros(d_out, k, dtype=torch.int8),
-                                  torch.zeros(d_out))
+        self.qw = QuantizedWeight(
+            torch.zeros(d_out, padded_k(d_in), dtype=torch.int8),
+            torch.zeros(d_out))
         self.register_buffer("bias", torch.zeros(d_out, dtype=dtype))
 
 
@@ -127,7 +128,7 @@ class QuantizedViT(nn.Module):
         d = cfg.hidden_size
         # K = 3 p² (588 at patch 14) padded for the int8 kernel
         self.patch_embed = QuantDense(cfg.patch_size * cfg.patch_size * 3, d,
-                                      pdt, pad=True)
+                                      pdt)
         if static:
             self.patch_embed.register_buffer("xs", torch.zeros(()))
         self.register_buffer("cls_token", torch.zeros(1, 1, d, dtype=pdt))
@@ -143,6 +144,13 @@ class QuantizedViT(nn.Module):
 # ---------------------------------------------------------------------------
 # Shared forward pieces
 # ---------------------------------------------------------------------------
+
+def padded_input(x: torch.Tensor, entry: QuantDense) -> torch.Tensor:
+    """``x [..., in_features]`` zero-padded to ``entry``'s stored K (itself
+    where no padding is needed): exact, a zero column adds nothing to the
+    integer sums and changes no absmax scale."""
+    return pad_k(x, entry.qw.q.shape[1])
+
 
 def _heads(y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """[B, S, D] → a [B, H, S, hd] view."""
@@ -215,7 +223,7 @@ def embed_tokens(params, images: torch.Tensor, cfg: ModelConfig,
     patches = vit.patchify(images.float(), cfg.patch_size)
     pe = params.patch_embed
     if quantized:
-        patches = pad_k(patches, pe.qw.q.shape[1])
+        patches = padded_input(patches, pe)
         if params.static:
             x = int8_matmul_static(patches, pe.qw, pe.xs, pe.bias,
                                    out_dtype=cd)
@@ -244,6 +252,7 @@ def int8_proj(qparams: "QuantizedViT", cfg: ModelConfig):
 
     def proj(y, bp, key):
         e = getattr(bp, key)
+        y = padded_input(y, e)
         if qparams.static:
             return int8_matmul_static(y, e.qw, getattr(bp.act, _SITE_OF[key]),
                                       e.bias, out_dtype=cd)
@@ -382,8 +391,7 @@ def _apply_static_pallas(qparams: QuantizedViT, images: torch.Tensor,
                                  entry.bias, out_dtype=cd, **kw)
 
     pe = qparams.patch_embed
-    patches = pad_k(vit.patchify(images.float(), cfg.patch_size),
-                    pe.qw.q.shape[1])
+    patches = vit.patchify(images.float(), cfg.patch_size)
     x = _cls_pos(qparams, proj(quantize_static(patches, pe.xs), pe, pe.xs),
                  cfg)
     sizes = (torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)

@@ -53,6 +53,13 @@ kernel (or raises) for CUDA tensors. The dense training paths run the
 autograd functions on both devices, so the CPU keeps what the card keeps
 (q, k, v, o and lse) and the remat policies act alike on both.
 
+Head dims: any d ≥ 1, as the JAX kernels take any. A multiple of 8 up to
+128 runs the one-block kernels at a padded width of 64, 80 or 128; above
+128 the wide kernels (``csrc/attention_fwd_wide.cuh``,
+``attention_bwd_wide.cuh``) split the output columns; any other d is
+zero-padded to a multiple of 8 (:func:`kernel_head_dim`, :func:`_padded`)
+and the outputs sliced back, the scale the real d's.
+
 The TPU wrapper's tiling (``_pick_block_bh``, ``_vmem_block_bh``,
 ``_q_blocking``, ``_prep`` and the 16/128-row padding) has no counterpart:
 the kernels read q, k, v, o and dO in place through their strides and mask
@@ -73,16 +80,40 @@ import torch
 from chestxray_vit_tpu_torch import kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128  # the kernels take d % 8 == 0, 8 <= d <= 128
+HEAD_DIM_STEP = 8   # the kernels take d a multiple of 8 (16-byte rows)
 
 
-def head_dim_supported(d: int) -> bool:
-    """Whether the kernels take head dim ``d``: a multiple of 8 from 8 to
-    128, built at a padded width of 64 or 128, or 80 for the bf16 forwards
-    and backwards at 64 < d ≤ 80 (``csrc/common.cuh`` ``head_dim_ok``,
-    ``padded_head_dim``, ``bf16_head_dim``); columns past d are zeros in
-    shared memory only."""
-    return d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim ``d`` at: ``d`` rounded up
+    to a multiple of :data:`HEAD_DIM_STEP` (``csrc/common.cuh``
+    ``head_dim_ok``). Up to 128 a kernel is built at a padded width of 64,
+    80 or 128 with the columns past d zeros in shared memory only; above
+    128 the wide kernels (``csrc/attention_fwd_wide.cuh``,
+    ``attention_bwd_wide.cuh``) split the output columns. Any other d is
+    zero-padded by the wrappers (:func:`_padded`)."""
+    if d < 1:
+        raise ValueError(f"head dim must be >= 1, got {d}")
+    return -(-d // HEAD_DIM_STEP) * HEAD_DIM_STEP
+
+
+def _padded(d: int, *ts: torch.Tensor) -> tuple:
+    """``ts`` with the head dim zero-padded from ``d`` to
+    :func:`kernel_head_dim` (a tensor of that width already is returned as
+    it is). Exact: zero columns add nothing to QKᵀ, to rowsum(dO∘O) or to
+    any product, give zero output columns, and the callers pass the scale
+    of the real d. The cost is one copy of each operand at the padded
+    width (q, k, v; with o and dO in the backward) and the outputs sliced
+    back, only for d off the multiple of 8."""
+    dk = kernel_head_dim(d)
+    return tuple(t if t.shape[-1] == dk
+                 else torch.nn.functional.pad(t, (0, dk - t.shape[-1]))
+                 for t in ts)
+
+
+def _sliced(t: torch.Tensor, d: int) -> torch.Tensor:
+    """A kernel's output at head dim ``d``: itself, or the first d columns
+    of its zero-padded width."""
+    return t if t.shape[-1] == d else t[..., :d]
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -158,26 +189,29 @@ def flash_attention_inference(q: torch.Tensor, k: torch.Tensor,
                               ) -> torch.Tensor:
     """Forward-only fused attention for eval/serving (no lse output).
 
-    q, k, v: [B, H, S, d] in f32 or bf16 (d a multiple of 8 from 8 to
-    128: :func:`head_dim_supported`), any strides with a contiguous head
+    q, k, v: [B, H, S, d] in f32 or bf16 (any d ≥ 1; d off a multiple of
+    8 is zero-padded, :func:`_padded`), any strides with a contiguous head
     dim (the projections' [B, S, H, d] views are read in place). CPU
     tensors take :func:`attention_reference`. The output is [B, H, S, d]
     in q's dtype, laid out as [B, S, H, d] in memory so that merging the
-    heads for the output projection is a view.
+    heads for the output projection is a view (at a padded d, a slice of
+    the padded output).
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, sm_scale)
+    d, scale = q.shape[-1], _scale(q, sm_scale)
+    q, k, v = _padded(d, q, k, v)
     _check(q, k, v)
-    b, h, s, d = q.shape
+    b, h, s, dk = q.shape
     out = _heads_merged(q)
     err = kernels.library().cxr_attention_fwd_inf(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        _scale(q, sm_scale), _DTYPE_CODES[q.dtype], q.device.index,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s,
+        dk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], scale, _DTYPE_CODES[q.dtype], q.device.index,
         _stream(q))
     kernels.check(err, "flash_attention_inference")
     flash_attention_inference.launches += 1
-    return out
+    return _sliced(out, d)
 
 
 flash_attention_inference.launches = 0   # kernel launches (chip_smoke.py)
@@ -192,18 +226,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, S, H, d] in memory."""
     if q.device.type == "cpu":
         return attention_fwd_reference(q, k, v, sm_scale)
+    d, scale = q.shape[-1], _scale(q, sm_scale)
+    q, k, v = _padded(d, q, k, v)
     _check(q, k, v)
-    b, h, s, d = q.shape
+    b, h, s, dk = q.shape
     out = _heads_merged(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = kernels.library().cxr_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, s, d, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3], _scale(q, sm_scale),
+        lse.data_ptr(), b, h, s, dk, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *out.stride()[:3], scale,
         _DTYPE_CODES[q.dtype], q.device.index, _stream(q))
     kernels.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
-    return out, lse
+    return _sliced(out, d), lse
 
 
 flash_attention_fwd.launches = 0         # kernel launches (chip_smoke.py)
@@ -233,12 +269,15 @@ def _bwd_launch(q, k, v, o, lse, do, sm_scale, dropout=None,
     q_pad, s_pad, bh_base, heads_total, head_base, 1/(1 − rate)) takes the
     dropout entry point,
     ``segment_ids`` (int32 [B, S], checked by the caller) the segment
-    ones."""
+    ones. A head dim off the multiple of 8 is zero-padded (q, k, v, o, dO)
+    and the gradients sliced back."""
     do = do.to(q.dtype)
     if not _fits(do):
         do = do.contiguous()
+    d, scale = q.shape[-1], _scale(q, sm_scale)
+    q, k, v, o, do = _padded(d, q, k, v, o, do)
     _check(q, k, v, o=o, do=do)
-    b, h, s, d = q.shape
+    b, h, s, width = q.shape
     if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous f32 [{b}, {h}, {s}], got "
@@ -250,8 +289,8 @@ def _bwd_launch(q, k, v, o, lse, do, sm_scale, dropout=None,
     strides_c = (ctypes.c_longlong * len(strides))(*strides)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, h, s, d,
-            ctypes.addressof(strides_c), _scale(q, sm_scale))
+            dk.data_ptr(), dv.data_ptr(), b, h, s, width,
+            ctypes.addressof(strides_c), scale)
     tail = (_DTYPE_CODES[q.dtype], q.device.index, _stream(q))
     lib = kernels.library()
     if segment_ids is not None:
@@ -265,7 +304,7 @@ def _bwd_launch(q, k, v, o, lse, do, sm_scale, dropout=None,
     else:
         err = fn_drop(*args, *dropout, *tail)
     kernels.check(err, "flash_attention_bwd")
-    return dq, dk, dv
+    return _sliced(dq, d), _sliced(dk, d), _sliced(dv, d)
 
 
 @torch.library.custom_op("cxr::attention_fwd", mutates_args=())
@@ -489,8 +528,10 @@ def _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep,
                         row_base, head_base=0, heads_total=None):
     """Launch the dropout forward kernel; ``keep`` (u8 [B·H, S, S]) makes it
     the debug variant that also writes the mask."""
+    d, scale = q.shape[-1], _scale(q, sm_scale)
+    q, k, v = _padded(d, q, k, v)
     _check(q, k, v)
-    b, h, s, d = q.shape
+    b, h, s, width = q.shape
     q_pad, s_pad = mask_strides(s, block_q)
     seed_mix, threshold = dropout_constants(seed, rate)
     out = _heads_merged(q)
@@ -498,13 +539,13 @@ def _dropout_fwd_launch(q, k, v, seed, rate, sm_scale, block_q, keep,
     err = kernels.library().cxr_attention_fwd_dropout(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), keep.data_ptr() if keep is not None else None,
-        b, h, s, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], _scale(q, sm_scale), seed_mix, threshold, q_pad,
+        b, h, s, width, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], scale, seed_mix, threshold, q_pad,
         s_pad, *_drop_heads(q, row_base, head_base, heads_total),
         1.0 - rate, _DTYPE_CODES[q.dtype],
         q.device.index, _stream(q))
     kernels.check(err, "flash_attention_dropout_fwd")
-    return out, lse
+    return _sliced(out, d), lse
 
 
 def flash_attention_dropout_fwd(q: torch.Tensor, k: torch.Tensor,
@@ -828,15 +869,16 @@ def _packed_fwd_launch(q, k, v, segment_ids, sm_scale, dropout=None):
     q_pad, s_pad, bh_base, heads_total, head_base, 1 − rate) takes the
     dropout entry point. The ids are read
     in place as [B, S], once for all heads."""
+    d, scale = q.shape[-1], _scale(q, sm_scale)
+    q, k, v = _padded(d, q, k, v)
     _check(q, k, v)
     _check_segments(q, segment_ids)
-    b, h, s, d = q.shape
+    b, h, s, width = q.shape
     out = _heads_merged(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, h, s, d, *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            _scale(q, sm_scale))
+            out.data_ptr(), lse.data_ptr(), b, h, s, width, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], scale)
     tail = (_DTYPE_CODES[q.dtype], q.device.index, _stream(q))
     lib = kernels.library()
     if dropout is None:
@@ -844,7 +886,7 @@ def _packed_fwd_launch(q, k, v, segment_ids, sm_scale, dropout=None):
     else:
         err = lib.cxr_attention_fwd_seg_dropout(*args, *dropout, *tail)
     kernels.check(err, "flash_attention_packed_fwd")
-    return out, lse
+    return _sliced(out, d), lse
 
 
 def flash_attention_packed_fwd(q: torch.Tensor, k: torch.Tensor,
@@ -1095,11 +1137,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(q.shape)}")
     if q.dim() != 4:
         raise ValueError(f"expected [B, H, S, d], got {tuple(q.shape)}")
-    if not head_dim_supported(q.shape[-1]):
-        raise NotImplementedError(
-            f"head dim {q.shape[-1]}: the kernels take d % 8 == 0 and "
-            f"8 <= d <= {MAX_HEAD_DIM} (head dims above {MAX_HEAD_DIM} are "
-            f"ROADMAP Queue 1 #13)")
     for name, t in {"q": q, **operands}.items():
         if not _fits(t):
             raise ValueError(

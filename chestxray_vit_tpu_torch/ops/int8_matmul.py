@@ -37,7 +37,7 @@ __all__ = ["int8_matmul_fused", "int8_matmul_fused_reference",
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
               torch.int32: 3}
-K_STEP = 64          # K must be a multiple of it (half the kernel's k tile)
+K_STEP = 64          # the kernel's K step (half its k tile): K is padded to it
 
 
 def padded_k(k: int) -> int:
@@ -55,6 +55,20 @@ def pad_k(t: torch.Tensor, k: Optional[int] = None) -> torch.Tensor:
     if t.shape[-1] == k:
         return t
     return torch.nn.functional.pad(t, (0, k - t.shape[-1]))
+
+
+def _at_one_k(xq: torch.Tensor, wq: torch.Tensor) -> tuple:
+    """``xq`` and ``wq`` at one K that is a multiple of :data:`K_STEP`: a
+    ``wq`` stored padded (``models/quantized.QuantDense``) takes ``xq``
+    zero-padded up to it; operands that share a K off the step are both
+    padded (one copy of each). Exact: a zero column adds nothing to an
+    integer sum. Operands that fit neither are left for the check."""
+    kx, kw = xq.shape[-1], wq.shape[-1]
+    if kx == kw:
+        return (xq, wq) if kx % K_STEP == 0 else (pad_k(xq), pad_k(wq))
+    if kw == padded_k(kx):
+        return pad_k(xq, kw), wq
+    return xq, wq
 
 
 def _check_int32_out(scale, bias, resid, gelu, qs, out_dtype) -> None:
@@ -107,10 +121,9 @@ def _check(xq, wq, scale, bias, resid, qs, out_dtype) -> None:
         raise ValueError(f"xq {tuple(xq.shape)} and wq [N, K] "
                          f"{tuple(wq.shape)} do not share K")
     n, k = wq.shape
-    if k % K_STEP or n % 8:
-        raise ValueError(f"the int8 kernel takes K a multiple of {K_STEP} "
-                         f"and N a multiple of 8; got K={k}, N={n} (pad K "
-                         f"with zero columns of xq and wq: pad_k)")
+    if k % K_STEP:
+        raise ValueError(f"the int8 kernel takes K a multiple of {K_STEP}, "
+                         f"got {k}: int8_matmul_fused pads it (pad_k)")
     for name, t in (("scale", scale), ("bias", bias)):
         if t is not None and (t.shape != (n,) or t.dtype != torch.float32):
             raise ValueError(f"{name} must be f32 [{n}], got {t.dtype} "
@@ -156,7 +169,13 @@ def int8_matmul_fused(xq: torch.Tensor, wq: torch.Tensor,
     for the next matmul. Returns ``[..., N]`` in ``out_dtype`` or int8.
     ``out_dtype`` int32 takes none of scale, bias, resid, gelu and
     ``out_quant_scale`` and returns the exact sums ``xq @ wqᵀ``.
+    Any N and K: xq's K may be wq's real K or, where wq is stored padded
+    (``models/quantized.QuantDense``), that K before padding; a K off
+    :data:`K_STEP` costs a zero-padded copy of xq, and of a wq not stored
+    padded, a call (:func:`_at_one_k`); an N off 8 runs the kernel's
+    element-wise tail epilogue.
     CPU tensors take :func:`int8_matmul_fused_reference`."""
+    xq, wq = _at_one_k(xq, wq)
     if xq.device.type == "cpu":
         return int8_matmul_fused_reference(
             xq, wq, scale, bias, resid=resid, gelu=gelu,

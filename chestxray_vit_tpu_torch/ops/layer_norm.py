@@ -24,7 +24,6 @@ import torch
 from chestxray_vit_tpu_torch import kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_D = 2048        # the widest row the kernels take, in f32 and bf16
 
 
 def layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -102,20 +101,19 @@ def _check_params(x: torch.Tensor, *params: Tuple[str, torch.Tensor]
     if x.dtype not in _DTYPE_CODES or len({t.dtype for _, t in params}) > 1:
         raise TypeError(f"unsupported dtypes x {x.dtype}, "
                         + ", ".join(f"{n} {t.dtype}" for n, t in params))
-    vec = 16 // x.element_size()         # elements per 16-byte load
-    if not x.is_contiguous() or x.data_ptr() % 16 or d % vec \
-            or d > MAX_D:
+    if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(
-            f"layer_norm kernel needs a contiguous, 16-byte aligned x with "
-            f"D a multiple of {vec} and at most {MAX_D}; got shape "
-            f"{tuple(x.shape)}")
+            f"layer_norm kernel needs a contiguous, 16-byte aligned x; got "
+            f"shape {tuple(x.shape)}, strides {x.stride()}")
 
 
 def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
                     bias: torch.Tensor, eps: float) -> torch.Tensor:
     """Launch the LayerNorm forward kernel: x contiguous [..., D] in f32 or
-    bf16, scale/bias contiguous [D] in f32 or bf16 on x's device. Builds no
-    graph: gradients go through :func:`layer_norm`."""
+    bf16 (any D ≥ 1: rows of up to 2048 columns in whole 16-byte vectors
+    run the register rungs, any other D the row-a-block kernel of
+    ``csrc/layer_norm.cu``), scale/bias contiguous [D] in f32 or bf16 on
+    x's device. Builds no graph: gradients go through :func:`layer_norm`."""
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_cuda needs CUDA tensors, got {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad

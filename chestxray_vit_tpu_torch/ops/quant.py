@@ -96,6 +96,7 @@ def int8_sums(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     product outside any kernel: ``torch._int_mm`` on the card, float64 on
     the CPU (exact, see the module docstring) cast to int32."""
     lead, k = xq.shape[:-1], xq.shape[-1]
+    n = wq.shape[0]
     x2 = xq.reshape(-1, k)
     if xq.device.type == "cpu":
         acc = torch.matmul(x2.double(), wq.double().t()).to(torch.int32)
@@ -103,8 +104,14 @@ def int8_sums(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
         m = x2.shape[0]
         if m <= 16:     # cuBLASLt's int8 product takes more than 16 rows
             x2 = torch.cat([x2, x2.new_zeros(32 - m, k)])
-        acc = torch._int_mm(x2.contiguous(), wq.t())[:m]
-    return acc.reshape(*lead, wq.shape[0])
+        # ... and K and N multiples of 8: zero columns add nothing, zero
+        # weight rows give columns that are sliced off
+        pk, pn = -k % 8, -n % 8
+        if pk or pn:
+            x2 = torch.nn.functional.pad(x2, (0, pk))
+            wq = torch.nn.functional.pad(wq, (0, pk, 0, pn))
+        acc = torch._int_mm(x2.contiguous(), wq.t())[:m, :n]
+    return acc.reshape(*lead, n)
 
 
 def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,8 @@ resume), the data-parallel path in an NCCL group of one process and as
 two ranks emulated in one process (with both dropouts and mixup), the
 command line (train from an HF folder, eval, predict, quantize, export,
 maps, smoke), ViT-H/14 and the other named variants (ViT-L/16, ViT-B/16
-@512, ViT-B/32, ViT-S/16, ViT-Ti/16), the fsdp and tensor mesh axes (four
+@512, ViT-B/32, ViT-S/16, ViT-Ti/16), ViT-B/16 in three heads of 256 and
+a model off every multiple of 8, the fsdp and tensor mesh axes (four
 ranks on the card, with tensor sizes that cut a head), the examples and
 the multi-rank dry run. Every phase's line carries the card's name and
 power limit (``nvidia_smi``).
@@ -302,6 +303,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    f32 check against the CPU (<name>_cross_check: logits within
    F32_LOGIT_TOL; one train step within phase_train_cross_check's bounds,
    ViT-B/16 @512 with both dropouts).
+40. vit_b16_h3 (after 39): ViT-B/16 @384 in three heads of 256 (the wide
+   attention kernels) at full width and depth: dense bf16 serving at b8,
+   static int8 at b32 with its forward times and CPU cross-check, the b36
+   full-remat train step (3 + 8 steps: ms a step, images/s, MFU, peak GB,
+   exact launches a step), an eval step, the depth-2 f32 check.
+41. off8_model (after 40): hidden 50 in two heads of 25, MLP 100, 64 px,
+   depth 2 (the zero-padded head dim, LayerNorm off the vector, int8 N and
+   K off 8 and 64): the f32 forward and train step, the eval step and the
+   static int8 Predictor and the int8 straight-through train step, each
+   against the CPU, with their launches.
 
 kernel_check also holds the four segment kernels to their plain versions at
 [32, 12, 1152, 64] bf16 (f32 at batch 4) in three layouts: two segments of
@@ -317,10 +328,15 @@ twice. At the lengths token merging leaves on the dense path
 dropout attention kernels at batch 36 (the debug kernel's mask: 0
 mismatches), the LayerNorm forward and backward at 36 · S rows and two
 int8 forms at 32 · S rows. At head dims other than 64 (HEAD_DIMS: 16, 80,
-128) it holds every attention kernel to its plain version in bf16 and f32
-at HEAD_DIM_LENGTHS (the debug kernel's mask equal to the plain hash and to
-its mask at d = 64), times the inference, training forward and backward at
-ViT-H/14's shapes (VITH_ATTN_SHAPES) beside SDPA's flash kernel, the
+128 at HEAD_DIM_LENGTHS; 4, 12, 136, 256, 768 at WIDE_HEAD_DIM_LENGTHS)
+it holds every attention kernel to its plain version in bf16 and f32
+(the debug kernel's mask equal to the plain hash and to its mask at
+d = 64), times the inference, training forward and backward at ViT-B/16's
+three heads of 256 (WIDE_ATTN_SHAPES, beside SDPA's backend that takes
+them) and ViT-H/14's shapes (VITH_ATTN_SHAPES) beside SDPA's flash kernel,
+the LayerNorm forward and backward off the vector and past 2048
+(WIDE_LN_CASES), the int8 kernel at N and K off 8 and 64
+(OFF8_INT8_FORMS), the
 LayerNorm forward and backward at ViT-H/14's 8 · 257 rows of 1280 in bf16
 and f32, and the int8 kernel at the patch embedding's K = 588 padded to 640
 (equal to the plain version on the unpadded operands). Those records join
@@ -530,14 +546,36 @@ EDGE_LENGTHS = (64, 128, 129, 576, 1025)
 # the smoke's 16, ViT-H/14's 80 and the largest, 128; every attention
 # kernel at each, in bf16 and f32, at ViT-H/14's 257 tokens, ViT-B/16's
 # 577, a short odd 37 and EDGE_LENGTHS, batch 2 of 4 heads
-HEAD_DIMS = (16, 80, 128)
+# Then the head dims the JAX kernels take past those: 4 and 12 (off the
+# multiple of 8: zero-padded to 8 and 16 by the wrappers), 136, 256 and 768
+# (the wide kernels, one, two and six 128-column output chunks), at the
+# lengths of WIDE_HEAD_DIM_LENGTHS
+HEAD_DIMS = (16, 80, 128, 4, 12, 136, 256, 768)
 HEAD_DIM_LENGTHS = (257, 577, 37) + EDGE_LENGTHS
+WIDE_HEAD_DIM_LENGTHS = (37, 577, 1025)
 HEAD_DIM_BATCH, HEAD_DIM_HEADS = 2, 4
 # (d, wider d): the kernels at d equal, bit for bit, the kernels at the
 # wider d on operands zero-padded to it (the unmasked d = 64 instantiation
 # against the masked d = 16; a whole second chunk against its first 16
-# columns)
-HEAD_DIM_PADS = ((16, 64), (80, 128))
+# columns; d = 12 is the d = 16 call on the wrappers' own padding; the wide
+# kernels' last 128-column chunk at 8 columns against a whole one, and two
+# 16-deep steps of S against their zero steps)
+HEAD_DIM_PADS = ((16, 64), (80, 128), (12, 16), (136, 256))
+# ViT-B/16 @384 in three heads of 256 (model.num_heads=3): its attention
+# timed at the serving and training batches beside the plain version and
+# SDPA (the backend that takes d = 256, if any), by the real d's bound
+WIDE_ATTN_SHAPES = ((8, 3, 577, 256), (TRAIN_BATCH, 3, 577, 256))
+# LayerNorm off the 16-byte vector (the off-8 model's width 50, at the b36
+# train rows) and past the register rungs (2560, 6144 at the b8 serving
+# rows), forward and backward, bf16 rows with a bf16 and an f32 scale, the
+# width 50 in f32 too
+WIDE_LN_CASES = ((TRAIN_BATCH * 577, 50, torch.bfloat16, torch.bfloat16),
+                 (TRAIN_BATCH * 577, 50, torch.bfloat16, torch.float32),
+                 (TRAIN_BATCH * 577, 50, torch.float32, torch.float32),
+                 (8 * 577, 2560, torch.bfloat16, torch.bfloat16),
+                 (8 * 577, 2560, torch.bfloat16, torch.float32),
+                 (8 * 577, 6144, torch.bfloat16, torch.bfloat16),
+                 (8 * 577, 6144, torch.bfloat16, torch.float32))
 # ViT-H/14 @224 (config.VIT_VARIANTS["vit_h14"]): hidden 1280 in 16 heads of
 # 80, 257 tokens; its attention timed at the serving and training batches,
 # its LayerNorm (forward and backward) at the b8 serving rows in both dtypes
@@ -604,6 +642,18 @@ VARIANT_INT8_FORMS = (
     ("vit_ti16_q", 32 * 577, 192, 192, False, False),
     ("vit_ti16_mlp_in_gelu_requant", 32 * 577, 192, 768, False, True),
     ("vit_ti16_mlp_out_resid", 32 * 577, 768, 192, True, False))
+# The int8 kernel at N and K off 8 and 64: the off-8 model's (hidden 50,
+# MLP 100) b8 serving forms, K padded to 64 or 128 inside the wrapper, N a
+# tail of 2 or 4 columns; and its int32 out form.
+OFF8_INT8_FORMS = (
+    ("off8_q", 8 * 577, 50, 50, False, False),
+    ("off8_wo_resid", 8 * 577, 50, 50, True, False),
+    ("off8_mlp_in_gelu_requant", 8 * 577, 50, 100, False, True),
+    ("off8_mlp_out_resid", 8 * 577, 100, 50, True, False))
+# The off-8 model on the card (phase off8_model): hidden 50 in two heads of
+# 25, MLP 100, patch 16, 64 px, depth 2
+OFF8_MODEL = dict(hidden_size=50, num_heads=2, mlp_dim=100, patch_size=16,
+                  img_size=64, num_layers=2)
 # Attention lengths of the merged dense forward (token merging leaves a
 # length no tile divides at every layer): tome_r 16 constant runs 561 and
 # 401, tome_r 32 decreasing 517 and 197 (see TOME_LENGTHS).
@@ -1176,7 +1226,7 @@ def phase_kernel_check() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     # the records at head dims other than 64, and at the variants' shapes
-    summary = {"head_dims": {}, "variants": {}}
+    summary = {"head_dims": {}, "variants": {}, "wide": {}}
     emit({"phase": "kernel_check", "warm_up_s": warm_up()})
     check_tile_mma(gen)
 
@@ -1222,6 +1272,7 @@ def phase_kernel_check() -> dict:
     check_hidden_dropout(randn, summary)
     check_merged_lengths(randn, gen)
     check_head_dims(randn, summary)
+    check_int8_off8(gen, summary)
     check_int8_patch14(gen, summary)
     check_head_split(randn, summary)
     check_int8_tensor_forms(gen, summary)
@@ -1340,7 +1391,7 @@ def check_layer_norm(randn, summary: dict) -> None:
              (INT8_BATCH * 577, 768, torch.bfloat16, torch.bfloat16),
              (INT8_BATCH * 577, 768, torch.bfloat16, torch.float32),
              (TRAIN_BATCH * 577, 768, torch.bfloat16, torch.bfloat16),
-             *VITH_LN_CASES, *VARIANT_LN_CASES]
+             *VITH_LN_CASES, *VARIANT_LN_CASES, *WIDE_LN_CASES]
     for rows, d, x_dtype, w_dtype in cases:
         x = randn((rows, d), x_dtype) * 3 + 1
         s_, b_ = randn((d,), w_dtype), randn((d,), w_dtype)
@@ -1366,7 +1417,8 @@ def check_layer_norm(randn, summary: dict) -> None:
                "ms": ms, "plain_ms": plain_ms, **device_ms(kernel),
                **layer_norm_bound(rows, d, x_dtype, w_dtype)}
         variant = (rows, d, x_dtype, w_dtype) in VARIANT_LN_CASES
-        if x_dtype == torch.bfloat16 or d == VITH_HIDDEN or variant:
+        wide = (rows, d, x_dtype, w_dtype) in WIDE_LN_CASES
+        if x_dtype == torch.bfloat16 or d == VITH_HIDDEN or variant or wide:
             def library():
                 return torch.nn.functional.layer_norm(x, (d,), s_.to(x_dtype),
                                                       b_.to(x_dtype), 1e-12)
@@ -1381,6 +1433,8 @@ def check_layer_norm(randn, summary: dict) -> None:
             summary["head_dims"].setdefault("layer_norm", []).append(rec)
         if variant:
             summary["variants"].setdefault("layer_norm", []).append(rec)
+        if wide:
+            summary["wide"].setdefault("layer_norm", []).append(rec)
         emit(rec)
         require(ok, f"layer_norm {x_dtype}/{w_dtype}: err {err}")
 
@@ -1473,9 +1527,12 @@ def int8_form_check(gen, name: str, m: int, k: int, n: int,
            **({"earlier_ms": EARLIER_INT8_MS[name][0],
                "earlier_device_ms": EARLIER_INT8_MS[name][1]}
               if name in EARLIER_INT8_MS else {}),
-           "library_ms": time_ms(lambda: torch._int_mm(xq, wt)),
+           # torch._int_mm takes K and N multiples of 8 only
+           "library_ms": time_ms(lambda: torch._int_mm(xq, wt))
+           if k % 8 == 0 and n % 8 == 0 else None,
            "library_device_ms": device_ms(
-               lambda: torch._int_mm(xq, wt))["device_ms"],
+               lambda: torch._int_mm(xq, wt))["device_ms"]
+           if k % 8 == 0 and n % 8 == 0 else None,
            "tops": 2 * m * k * n / ms / 1e9,
            **bound(m * k + n * k + 8 * n + 2 * m * n * with_resid
                    + out_bytes, 2 * m * k * n, torch.int8,
@@ -1586,7 +1643,7 @@ def check_layer_norm_bwd(randn, summary: dict) -> None:
              (PACKED_SEQS * 1152, 768, torch.bfloat16, torch.bfloat16),
              (PACKED_SEQS * 1152, 768, torch.bfloat16, torch.float32),
              (BATCH * 577 - 1, 768, torch.bfloat16, torch.bfloat16),
-             *VITH_LN_CASES, *VARIANT_LN_CASES]
+             *VITH_LN_CASES, *VARIANT_LN_CASES, *WIDE_LN_CASES]
     for rows, d, x_dtype, w_dtype in cases:
         x = randn((rows, d), x_dtype) * 3 + 1
         scale, dy = randn((d,), w_dtype), randn((rows, d), x_dtype)
@@ -1649,6 +1706,8 @@ def check_layer_norm_bwd(randn, summary: dict) -> None:
             summary["head_dims"].setdefault("layer_norm_bwd", []).append(rec)
         if (rows, d, x_dtype, w_dtype) in VARIANT_LN_CASES:
             summary["variants"].setdefault("layer_norm_bwd", []).append(rec)
+        if (rows, d, x_dtype, w_dtype) in WIDE_LN_CASES:
+            summary["wide"].setdefault("layer_norm_bwd", []).append(rec)
         emit(rec)
         require(ok, f"layer_norm_bwd {rows} {x_dtype}/{w_dtype}: {rec}")
 
@@ -4787,8 +4846,10 @@ def phase_train_int8(dense_rec: dict, tome_rates: dict) -> dict:
     return launches
 
 
-def phase_train_int8_cross_check() -> None:
-    """Depth 2, full width, batch 2, f32: the int8 train step on the card
+def phase_train_int8_cross_check(phase: str = "train_int8_cross_check",
+                                 **model) -> None:
+    """Depth 2, full width, batch 2, f32 (``model`` overrides fields, as
+    phase_off8_model's OFF8_MODEL): the int8 train step on the card
     against the CPU (plain versions) on the same weights, scales
     (calibrated on the CPU) and injected draws, without and with attention
     dropout 0.1 and mixup 0.2 (hidden dropout draws from a generator of
@@ -4799,16 +4860,17 @@ def phase_train_int8_cross_check() -> None:
     from chestxray_vit_tpu_torch.models.vit import init_params
     from chestxray_vit_tpu_torch.train import steps
 
-    rec = {"phase": "train_int8_cross_check", "depth": 2, "batch": 2,
-           "tol": INT8_XCHECK}
+    rec = {"phase": phase, "depth": 2, "batch": 2, "tol": INT8_XCHECK,
+           **({"model": model} if model else {})}
     for label, alpha, extra in (("plain", 0.0, {}),
                                 ("dropout_mixup", MIXUP_ALPHA,
                                  {"attention_dropout": DROP_RATE})):
-        cfg = train_config(alpha, num_layers=2, dtype="float32", **extra)
+        cfg = train_config(alpha, **{"num_layers": 2, "dtype": "float32",
+                                     **extra, **model})
         cpu_params = init_params(torch.Generator().manual_seed(SEED),
                                  cfg.model)
         tree = bridge.params_to_numpy(cpu_params)
-        batch = bench_batch(2, SEED + 1, "cpu")
+        batch = bench_batch(2, SEED + 1, "cpu", cfg.model.img_size)
         scales = calibrated_scales(cpu_params, cfg, batch)
         draws = [steps.draw(torch.Generator().manual_seed(SEED), cfg, 2)]
 
@@ -4849,7 +4911,7 @@ def phase_train_int8_cross_check() -> None:
                 and r["loss_diff"] <= INT8_XCHECK["loss"]
                 and r["grads_rel_diff"] <= INT8_XCHECK["grads_rel"]
                 and r["params_max_abs_diff"] <= INT8_XCHECK["params"],
-                f"int8 train {label} card vs CPU: {r}")
+                f"int8 train {label} {phase} card vs CPU: {r}")
 
 
 def vith_config(**model):
@@ -4897,13 +4959,16 @@ def phase_variant(name: str, cfg, images: list, *, serve: bool = False,
                   adapt: Optional[int] = None, dropout: bool = False,
                   warmup: int = VARIANT_WARMUP_STEPS,
                   timed: int = VARIANT_TIMED_STEPS,
-                  xcheck_dropout: bool = False) -> tuple:
+                  xcheck_dropout: bool = False,
+                  serve_batches: tuple = (VITH_BATCH, VITH_INT8_BATCH)
+                  ) -> tuple:
     """One named variant at full width and depth on the card, from seeded
     random weights (``<name>_init``): with ``adapt`` the tree is drawn at
     that image size and its position embeddings resampled on the card to
     ``cfg``'s grid (``<name>_adapt``: seconds, and the table against the
     CPU's adaptation of the same tree); with ``serve`` the dense bf16
-    Predictor at b8 and b32 (images/s, p50 ms, exact launches a forward)
+    Predictor at each of ``serve_batches`` (b8 and b32: images/s, p50 ms,
+    exact launches a forward)
     and the static int8 Predictor at b32 calibrated on 8 of the requests
     with its cross-check against the CPU's static route (INT8_ROUTE_TOL,
     INT8_ROUTE_MIN_CORR); the train step at batch ``train`` (``remat``
@@ -4957,7 +5022,7 @@ def phase_variant(name: str, cfg, images: list, *, serve: bool = False,
         params = params.cpu()
     launches = []
     if serve:
-        for batch in (VITH_BATCH, VITH_INT8_BATCH):
+        for batch in serve_batches:
             launches.append(phase_serving(
                 params, cfg.model, images, f"serving_{name}_b{batch}",
                 batch)[1])
@@ -5125,6 +5190,106 @@ def phase_variants(images: list) -> list:
     return launches
 
 
+def phase_vit_b16_h3(images: list) -> tuple:
+    """Phase 40: ViT-B/16 @384 in three heads of 256 at full width and depth
+    (the JAX CLI's ``--model vit_b16 --set model.num_heads=3``), from
+    seeded weights, on the wide attention kernels: the dense bf16
+    Predictor at b8, the static int8 Predictor at b32 with its forward
+    times and its cross-check against the CPU, bench.py's train step (b36,
+    full remat, 3 + 8 steps: ms a step, images/s, MFU, peak GB, exact
+    launches a step), one eval step, then the depth-2 f32 check against
+    the CPU (logits, loss, gradients, parameters after one step). Returns
+    the launches of each main path's run."""
+    launches = phase_variant(
+        "vit_b16_h3", variant_config("vit_b16", 384, num_heads=3),
+        images[:VARIANT_REQUESTS], serve=True, serve_batches=(VITH_BATCH,),
+        train=TRAIN_BATCH, remat=True, warmup=3, timed=8)
+    phase_variant_cross_check(
+        "vit_b16_h3", variant_config("vit_b16", 384, num_heads=3,
+                                     num_layers=2, dtype="float32"))
+    return launches
+
+
+def phase_off8_model(images: list) -> tuple:
+    """Phase 41: a model off every multiple of 8 on the card (OFF8_MODEL:
+    hidden 50 in two heads of 25, MLP 100, patch 16, 64 px, depth 2), which
+    needs the zero-padded head dim, the any-width LayerNorm and the int8
+    tail and K padding together: the f32 forward and one f32 train step
+    against the CPU (phase_variant_cross_check, train_cross_check's
+    bounds), the f32 eval step's logits and metrics against the CPU's, and
+    the static int8 Predictor (bf16, b8, calibrated on 8 requests) against
+    the CPU's on the same weights and calibration (INT8_ROUTE_TOL), and
+    the int8 straight-through train step against the CPU
+    (phase_train_int8_cross_check's INT8_XCHECK, without and with dropout
+    and mixup). Each card run's launches are counted from 0 and returned:
+    the attention, LayerNorm and int8 kernels must all have run."""
+    import dataclasses
+
+    import chestxray_vit_tpu_torch as cxr
+    from chestxray_vit_tpu_torch.eval import metrics
+    from chestxray_vit_tpu_torch.models import vit
+    from chestxray_vit_tpu_torch.train import steps
+
+    cfg = train_config(dtype="float32", **OFF8_MODEL)
+    reset_launch_counts()
+    phase_variant_cross_check("off8", cfg)
+    fwd_launches = launch_counts()
+    params = vit.init_params(torch.Generator().manual_seed(SEED), cfg.model)
+    batch = bench_batch(8, SEED + 2, "cpu", OFF8_MODEL["img_size"])
+    cpu_logits, _ = steps.make_eval_step(cfg)(params, batch)
+    reset_launch_counts()
+    card_logits, rows = steps.make_eval_step(cfg)(
+        params.to("cuda"), {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    diff = (card_logits.cpu() - cpu_logits).abs().max().item()
+    card = metrics.compute_metrics(card_logits, batch["labels"].cuda())
+    cpu = metrics.compute_metrics(cpu_logits, batch["labels"])
+    rec = {"phase": "eval_off8", "model": OFF8_MODEL, "batch": 8,
+           "logits_max_abs_diff": diff, "tol": F32_LOGIT_TOL,
+           "metrics_card": card, "metrics_cpu": cpu,
+           "launches": eval_launches}
+    emit(rec)
+    require(bool(torch.isfinite(card_logits).all()) and diff <= F32_LOGIT_TOL
+            and all(abs(card[k] - cpu[k]) <= 1e-6 for k in card),
+            f"eval_off8 card vs CPU: {rec}")
+
+    bf16 = dataclasses.replace(cfg.model, dtype="bfloat16")
+    params = params.cpu()
+    kw = dict(batch_size=BATCH, placement="device", quantize="static",
+              calibration=images[:8])
+    reset_launch_counts()
+    pred = cxr.Predictor(params, bf16, device="cuda", **kw)
+    got = pred.predict_arrays(images[:BATCH]).logits
+    torch.cuda.synchronize()
+    int8_launches = launch_counts()
+    want = cxr.Predictor(params, bf16, device="cpu", **kw).predict_arrays(
+        images[:BATCH]).logits
+    diff = float(np.abs(got - want).max())
+    shapes = {key: list(getattr(pred._fwd_params.blocks[0], key).qw.q.shape)
+              for key in ("wq", "wo", "mlp_in", "mlp_out")}
+    rec = {"phase": "serving_int8_off8", "model": OFF8_MODEL, "batch": BATCH,
+           "logits_max_abs_diff": diff, "tol": INT8_ROUTE_TOL,
+           "int8_weight_shapes": shapes, "launches": int8_launches}
+    emit(rec)
+    require(np.isfinite(got).all() and diff <= INT8_ROUTE_TOL,
+            f"serving_int8_off8 card vs CPU: {rec}")
+    reset_launch_counts()
+    phase_train_int8_cross_check("train_int8_off8", **OFF8_MODEL)
+    int8_train_launches = launch_counts()
+    for name, runs in (("flash_attention_inference", (fwd_launches,
+                                                      eval_launches,
+                                                      int8_launches,
+                                                      int8_train_launches)),
+                       ("layer_norm", (fwd_launches, eval_launches,
+                                       int8_launches, int8_train_launches)),
+                       ("int8_matmul_fused", (int8_launches,
+                                              int8_train_launches))):
+        require(all(r.get(name, 0) > 0 for r in runs),
+                f"off8 runs launched {name}: {runs}")
+    return fwd_launches, eval_launches, int8_launches, int8_train_launches
+
+
 def head_dim_segments(b: int, s: int, dev) -> torch.Tensor:
     """int32 [b, s] ids: two segments and a pad tail of s // 8 (id −1),
     rolled by 7 · row so that the rows differ."""
@@ -5159,9 +5324,11 @@ def check_head_dims(randn, summary: dict) -> None:
         by_d[d] = max(by_d.get(d, 0.0), err)
 
     for d in HEAD_DIMS:
+        lengths = (HEAD_DIM_LENGTHS if d % 8 == 0 and d <= 128
+                   else WIDE_HEAD_DIM_LENGTHS)
         for dtype in (torch.bfloat16, torch.float32):
             tol = ATTN_TOL[dtype]
-            for s in HEAD_DIM_LENGTHS:
+            for s in lengths:
                 shape = (b, h, s, d)
                 x = randn((b, s, 3, h, d), dtype)
                 q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
@@ -5285,6 +5452,8 @@ def check_head_dims(randn, summary: dict) -> None:
         del x, q, k, v, do, padded
 
     timed = {}
+    for shape in WIDE_ATTN_SHAPES:
+        time_wide_attention(randn, shape, summary)
     for shape in VITH_ATTN_SHAPES:
         dtype = torch.bfloat16
         x = randn((shape[0], shape[2], 3, shape[1], shape[3]), dtype)
@@ -5327,6 +5496,131 @@ def check_head_dims(randn, summary: dict) -> None:
         if name in timed:
             entry["vit_h14"] = timed[name]
         summary["head_dims"][name] = entry
+
+
+def library_sdpa(q, k, v, do) -> dict:
+    """The first of SDPA's fused backends (flash, memory-efficient, cuDNN)
+    that takes the shape: its name and its forward and backward times (CUDA
+    events and the profiler's device time) on contiguous copies of the
+    operands; backend "—" and no times where none takes it. A yardstick,
+    never called by the port: a backend that refuses the shape raises at
+    its first call, and the next one is asked."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        backend = getattr(SDPBackend, name)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        try:
+            with sdpa_kernel(backend):
+                o = sdpa(*leaves)
+            torch.autograd.grad(o, leaves, do, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def fwd():
+            with sdpa_kernel(backend), torch.no_grad():
+                return sdpa(q, k, v)
+
+        def bwd():
+            return torch.autograd.grad(o, leaves, do, retain_graph=True)
+        return {"library_backend": name.lower(), "library_ms": time_ms(fwd),
+                "library_bwd_ms": time_ms(bwd),
+                "library_device_ms": device_ms(fwd)["device_ms"],
+                "library_bwd_device_ms": device_ms(bwd)["device_ms"]}
+    return {"library_backend": "—", "library_ms": None,
+            "library_bwd_ms": None, "library_device_ms": None,
+            "library_bwd_device_ms": None}
+
+
+def time_wide_attention(randn, shape, summary: dict) -> None:
+    """The wide attention kernels at a WIDE_ATTN_SHAPES shape (q, k, v as
+    the projections' [B, S, H, d] views): the inference kernel at the
+    serving batch, the training forward and backward at the train batch,
+    each held against its plain version on the same inputs (the output
+    and lse within ATTN_TOL, dq, dk, dv within ATTN_GRAD_TOL of the
+    largest), then timed by CUDA events and the profiler's device time
+    (the backward by pass) beside the plain version, SDPA (library_sdpa:
+    the backend that ran) and the bound by the real d."""
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
+
+    dtype = torch.bfloat16
+    tol, gtol = ATTN_TOL[dtype], ATTN_GRAD_TOL[dtype]
+    x = randn((shape[0], shape[2], 3, shape[1], shape[3]), dtype)
+    q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+    do = randn(shape, dtype)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    lib = library_sdpa(q, k, v, do)
+    if shape[0] == TRAIN_BATCH:
+        cases = (("flash_attention_fwd",
+                  lambda: fa.flash_attention_fwd(q, k, v),
+                  lambda: fa.attention_fwd_reference(q, k, v), {"lse": True}),
+                 ("flash_attention_bwd",
+                  lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                  lambda: fa.attention_bwd_reference(q, k, v, o, lse, do),
+                  {"backward": True}))
+    else:
+        cases = (("flash_attention_inference",
+                  lambda: fa.flash_attention_inference(q, k, v),
+                  lambda: fa.attention_reference(q, k, v), {}),)
+    for name, kernel, plain, kw in cases:
+        bwd = name.endswith("bwd")
+        got, ref = kernel(), plain()
+        if bwd:
+            err = max(rel_err(g, r) for g, r in zip(got, ref))
+        elif isinstance(got, tuple):
+            err = max((got[0].float() - ref[0].float()).abs().max().item(),
+                      (got[1] - ref[1]).abs().max().item())
+        else:
+            err = (got.float() - ref.float()).abs().max().item()
+        del got, ref
+        require(err <= (gtol if bwd else tol),
+                f"{name} at {list(shape)} against its plain version: {err}")
+        ms, plain_ms = time_pair(kernel, plain)
+        rec = {"phase": "kernel_check", "kernel": name, "model": "vit_b16_h3",
+               "shape": list(shape), "dtype": str(dtype), "max_err": err,
+               "ms": ms,
+               "plain_ms": plain_ms, "library_backend": lib["library_backend"],
+               "library_ms": lib["library_bwd_ms" if bwd else "library_ms"],
+               "library_device_ms": lib["library_bwd_device_ms" if bwd
+                                         else "library_device_ms"],
+               **attention_bound(shape, dtype, **kw)}
+        rec.update(backward_pass_ms(kernel) if bwd else device_ms(kernel))
+        emit(rec)
+        summary["wide"].setdefault(name, []).append(
+            {k: rec[k] for k in ("shape", "max_err", "ms", "device_ms",
+                                 "plain_ms", "library_backend", "library_ms",
+                                 "library_device_ms", "bound_ms",
+                                 "bound_by")})
+    del x, q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+
+def check_int8_off8(gen, summary: dict) -> None:
+    """The int8 kernel at N and K off 8 and 64 (OFF8_INT8_FORMS: the
+    wrapper pads K with zero columns, the kernel's tail epilogue writes N
+    element by element) against its plain version, every output equal and
+    the same bits twice, timed beside the plain version (torch._int_mm
+    takes no such K or N: no library time), and the int32 out form at
+    N = 50."""
+    from chestxray_vit_tpu_torch.ops import int8_matmul as i8
+
+    for form in OFF8_INT8_FORMS:
+        rec = int8_form_check(gen, *form)
+        summary["wide"].setdefault("int8_matmul_fused", []).append(
+            {k: rec[k] for k in ("form", "m_k_n", "mismatched", "ms",
+                                 "device_ms", "plain_ms", "library_ms",
+                                 "bound_ms", "bound_by")})
+    xq, wq, _, _, _ = int8_operands(gen, 8 * 577, 100, 50, False, False)
+    got = i8.int8_matmul_fused(xq, wq, out_dtype=torch.int32)
+    ref = i8.int8_matmul_fused_reference(xq, wq, out_dtype=torch.int32)
+    rec = {"phase": "kernel_check", "kernel": "int8_matmul_fused",
+           "form": "off8_int32", "m_k_n": [8 * 577, 100, 50],
+           "mismatched": int((got != ref).sum())}
+    emit(rec)
+    require(rec["mismatched"] == 0, f"int8 int32 out at N = 50: {rec}")
 
 
 def check_int8_patch14(gen, summary: dict) -> None:
@@ -6544,6 +6838,8 @@ def main() -> int:
     vit_h14_launches = phase_vit_h14(images)
     phase_vit_h14_cross_check()
     variant_launches = phase_variants(images)
+    b16_h3_launches = phase_vit_b16_h3(images)
+    off8_launches = phase_off8_model(images)
     mesh_launches = phase_train_mesh(train_rec)
     spawn_launches = phase_trainer_spawn()
     phase_examples()                    # and the dry run beside them
@@ -6573,7 +6869,8 @@ def main() -> int:
              trainer_launches, packed_trainer_launches, ddp_launches,
              cli_launches, int8_train_launches, dp_split_launches,
              serve_dp_launches, *vit_h14_launches, *variant_launches,
-             mesh_launches, spawn_launches)
+             *b16_h3_launches, *off8_launches, mesh_launches,
+             spawn_launches)
     summary = []
     for name, source, replaces in KERNELS:
         launches = sum(p.get(name, 0) for p in paths)
@@ -6599,6 +6896,9 @@ def main() -> int:
                 for r in other]
         if other is not None:
             summary[-1]["head_dims"] = other
+        other = checked["wide"].get(name)
+        if other is not None:           # the widths of ViT-B/16 in 3 heads,
+            summary[-1]["wide"] = other  # LayerNorm and int8 off the vector
         other = checked["variants"].get(name)
         if other is not None:           # at the variants' shapes
             summary[-1]["variants"] = [

@@ -4,7 +4,7 @@ its serving forward (dense or static int8), on one NVIDIA GPU.
     python3 profile_step.py [--dropout | --int8 | --forward | --packed |
                              --packed-tome] [--int8-train] [--batch N]
                             [--tome-r R [--tome-schedule decreasing]]
-                            [--remat-policy POLICY]
+                            [--remat-policy POLICY] [--heads H]
 
 bench.py's step (ViT-B/16 @384, bf16, full remat, batch 36, random weights
 from seed 0); ``--dropout`` adds attention dropout 0.1, hidden dropout 0.1
@@ -22,7 +22,9 @@ step (with or without ``--dropout`` or ``--tome-r``) under another remat
 policy (``full``, the default, ``mlp``, ``attn``, ``attn_mlp``,
 ``flash_out``, ``dots``; ``none`` trains without remat). ``--int8-train``
 runs the dense step (with any of those) on the int8 straight-through
-forward, its scales calibrated on the step's batch. After 3 warm-up steps
+forward, its scales calibrated on the step's batch. ``--heads`` splits the
+hidden 768 into that many heads (3: heads of 256, on the wide attention
+kernels; default 12). After 3 warm-up steps
 ``torch.profiler`` traces 2 steps (forwards); the kernels of the trace are
 summed by category, and the busy share is the union of their intervals
 over the traced wall; ``syncs_per_step`` counts the host's waits on the
@@ -97,6 +99,7 @@ def main() -> int:
     mode.add_argument("--packed-tome", action="store_true")
     ap.add_argument("--int8-train", action="store_true")
     ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--heads", type=int, default=12)
     ap.add_argument("--tome-r", type=int, default=0)
     ap.add_argument("--tome-schedule", choices=("constant", "decreasing"),
                     default="constant")
@@ -118,7 +121,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     rate = 0.1 if args.dropout else 0.0
     policy = args.remat_policy
-    cfg = cxr.Config(model=cxr.ModelConfig(remat=policy != "none",
+    cfg = cxr.Config(model=cxr.ModelConfig(num_heads=args.heads,
+                                           remat=policy != "none",
                                            remat_policy=(
                                                "full" if policy == "none"
                                                else policy),
@@ -161,6 +165,8 @@ def main() -> int:
         config += f"_tome{args.tome_r}_{args.tome_schedule}"
     if policy != "full" and ("dense" in config or "dropout" in config):
         config += f"_remat_{policy}"
+    if args.heads != 12:
+        config += f"_heads{args.heads}"
     for _ in range(WARMUP_STEPS):
         out = run()
     torch.cuda.synchronize()

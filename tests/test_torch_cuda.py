@@ -129,10 +129,25 @@ def test_attention_fwd_kernel_is_deterministic(dev):
 
 
 def test_attention_kernel_refuses_what_it_does_not_take(dev):
+    """Every head dim runs: d = 136 (the wide kernels) and d = 20 (zero-
+    padded to 24) equal their plain versions, forward and backward, in
+    bf16 and f32. Refused still: other dtypes, and operands that need
+    gradients outside the autograd functions."""
     for d in (136, 20):     # above 128; not a multiple of 8
-        q = _randn((1, 2, 40, d), torch.bfloat16, dev)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #13"):
-            fa.flash_attention_inference(q, q, q)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (_randn((1, 2, 40, d), dtype, dev, seed=i)
+                           for i in range(4))
+            out = fa.flash_attention_inference(q, k, v)
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+            ref_o, ref_lse = fa.attention_fwd_reference(q, k, v)
+            ref = fa.attention_bwd_reference(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            assert out.shape == o.shape == (1, 2, 40, d)
+            for got, want in ((out, ref_o), (o, ref_o), (lse, ref_lse),
+                              *zip(grads, ref)):
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=_ATTN_TOL[dtype], rtol=0)
     q = _randn((1, 2, 40, 64), torch.float16, dev)
     with pytest.raises(TypeError):
         fa.flash_attention_inference(q, q, q)
@@ -211,6 +226,34 @@ def test_layer_norm_fwd_reads_and_writes_no_row_past_the_last(
     _assert_ln_close(y[:rows], ln.layer_norm_reference(x[:rows], s, b, 1e-12),
                      x_dtype)
     assert bool((y[rows:] == 7.0).all())
+
+
+@pytest.mark.parametrize("d", [50, 2560, 6144])
+@pytest.mark.parametrize("x_dtype,w_dtype", _LN_PAIRS)
+def test_layer_norm_kernel_at_any_width(dev, x_dtype, w_dtype, d):
+    """Widths off the 16-byte vector (50) and past the register rungs
+    (2560, 6144): the row-a-block kernels, forward and backward, against
+    the plain versions (dscale and dbias 1e-5 of the largest, plus one
+    ulp in bf16), the backward's bits the same twice."""
+    rows = 8 * 577
+    x = _randn((rows, d), x_dtype, dev) * 3 + 1
+    s, b = _randn((d,), w_dtype, dev, 1), _randn((d,), w_dtype, dev, 2)
+    dy = _randn((rows, d), x_dtype, dev, 3)
+    y = ln.layer_norm_cuda(x, s, b, 1e-12)
+    got = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
+    again = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
+    ref = ln.layer_norm_bwd_reference(x, s, dy, 1e-12)
+    torch.cuda.synchronize()
+    _assert_ln_close(y, ln.layer_norm_reference(x, s, b, 1e-12), x_dtype)
+    _assert_ln_close(got[0], ref[0], x_dtype)
+    for g, r in zip(got[1:], ref[1:]):
+        r = r.float()
+        bound = 1e-5 * r.abs().max()
+        if w_dtype == torch.bfloat16:
+            bound = bound + torch.exp2(torch.floor(torch.log2(
+                r.abs().clamp_min(1e-30))) - 7)
+        assert ((g.float() - r).abs() <= bound).all()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 def test_layer_norm_kernel_refuses_what_it_does_not_take(dev):
@@ -973,12 +1016,16 @@ def test_int8_kernel_is_deterministic(dev, form):
 
 
 def test_int8_kernel_refuses_what_it_does_not_take(dev):
+    """K off 64 (zero-padded by the wrapper) and N off 8 (the tail
+    epilogue) run and equal the plain version on the CPU; the dtype,
+    residual, layout and int32-form refusals stay."""
     xq, wq, scale, bias, resid = _int8_operands(dev, 40, 768, 64)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        i8.int8_matmul_fused(xq[:, :100].contiguous(), wq[:, :100]
-                             .contiguous(), scale, bias)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        i8.int8_matmul_fused(xq, wq[:60].contiguous(), scale[:60], bias[:60])
+    for x, w, n in ((xq[:, :100].contiguous(), wq[:, :100].contiguous(), 64),
+                    (xq, wq[:60].contiguous(), 60)):
+        out = i8.int8_matmul_fused(x, w, scale[:n], bias[:n])
+        assert out.shape == (40, n)
+        assert torch.equal(out.cpu(), i8.int8_matmul_fused_reference(
+            x.cpu(), w.cpu(), scale[:n].cpu(), bias[:n].cpu()))
     with pytest.raises(TypeError):
         i8.int8_matmul_fused(xq.float(), wq, scale, bias)
     with pytest.raises(ValueError, match="resid"):
@@ -1002,17 +1049,42 @@ def test_int8_kernel_refuses_what_it_does_not_take(dev):
 
 
 def test_int8_kernel_at_patch14_k(dev):
-    """K = 3 · 14 · 14 = 588 (a patch-14 patch embedding): refused as it
-    is, and with both operands zero-padded to 640 (pad_k) equal, bit for
-    bit, to the plain version on the unpadded operands (on the CPU: the
-    card's plain product, cuBLASLt's, takes K a multiple of 8 only)."""
+    """K = 3 · 14 · 14 = 588 (a patch-14 patch embedding): as it is (the
+    wrapper pads it) and with both operands zero-padded to 640 (pad_k),
+    equal, bit for bit, to the plain version on the unpadded operands (on
+    the CPU)."""
     xq, wq, scale, bias, _ = _int8_operands(dev, 8 * 256, 588, 1280)
-    with pytest.raises(ValueError, match="pad_k"):
-        i8.int8_matmul_fused(xq, wq, scale, bias)
     out = i8.int8_matmul_fused(i8.pad_k(xq), i8.pad_k(wq), scale, bias)
     ref = i8.int8_matmul_fused_reference(xq.cpu(), wq.cpu(), scale.cpu(),
                                          bias.cpu())
     assert i8.pad_k(xq).shape == (8 * 256, 640)
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(i8.int8_matmul_fused(xq, wq, scale, bias), out)
+
+
+@pytest.mark.parametrize("n", [50, 100, 130])
+@pytest.mark.parametrize("form", ["plain", "resid", "gelu_requant", "int32"])
+def test_int8_kernel_at_n_off_8(dev, n, form):
+    """N off the multiple of 8 (a hidden 50 or MLP 100; 130: a full 128-wide
+    tile and a tail of 2), K = 50 padded by the wrapper, in every epilogue
+    form: equal to the plain version on the CPU bit for bit."""
+    xq, wq, scale, bias, _ = _int8_operands(dev, 8 * 577, 50, n)
+    kw = {}
+    if form == "resid":
+        kw["resid"] = _randn((8 * 577, n), torch.bfloat16, dev, 5)
+    elif form == "gelu_requant":
+        kw.update(gelu=True, out_quant_scale=torch.tensor(0.02, device=dev))
+    if form == "int32":
+        out = i8.int8_matmul_fused(xq, wq, out_dtype=torch.int32)
+        ref = i8.int8_matmul_fused_reference(xq.cpu(), wq.cpu(),
+                                             out_dtype=torch.int32)
+    else:
+        out = i8.int8_matmul_fused(xq, wq, scale, bias, **kw)
+        ref = i8.int8_matmul_fused_reference(
+            xq.cpu(), wq.cpu(), scale.cpu(), bias.cpu(),
+            **{k: v.cpu() if isinstance(v, torch.Tensor) else v
+               for k, v in kw.items()})
+    assert out.shape == (8 * 577, n)
     assert torch.equal(out.cpu(), ref)
 
 

@@ -1,22 +1,31 @@
-"""Head dims other than 64: the port against the JAX package on the CPU.
+"""Head dims other than 64, and the widths off the kernels' vectors: the
+port against the JAX package on the CPU.
 
-The port's attention kernels take any head dim d with d % 8 == 0 and
-8 <= d <= 128 (built at a padded width of 64 or 128 whose extra columns
-live in shared memory only). On the CPU its wrappers run their plain
-versions; here they are held against the JAX package's Pallas kernels,
-interpreted as the JAX tests run them, at the dims of the CLI smoke (16,
-four heads of hidden 64) and of ViT-H/14 (80, sixteen heads of hidden 1280),
-with the tolerances of the d = 64 tests of the same functions
-(tests/test_torch_grads.py, tests/test_torch_dropout.py,
-tests/test_torch_packed.py).
+The port's attention kernels take any head dim d (a multiple of 8 up to
+128 at a padded width of 64, 80 or 128 whose extra columns live in shared
+memory only; above 128 the wide kernels that split the output columns;
+any other d zero-padded to a multiple of 8 by the wrappers). On the CPU its
+wrappers run their plain versions; here they are held against the JAX
+package's Pallas kernels, interpreted as the JAX tests run them, at the
+dims of the CLI smoke (16, four heads of hidden 64), of ViT-H/14 (80,
+sixteen heads of hidden 1280), at 12 (off the multiple of 8) and at 256
+(ViT-B/16's width in three heads), with the tolerances of the d = 64 tests
+of the same functions (tests/test_torch_grads.py,
+tests/test_torch_dropout.py, tests/test_torch_packed.py). The wrappers'
+zero-padding is held to the plain math it relies on. LayerNorm at D = 50
+(off the 16-byte vector) and 2560 (past the register rungs) against the
+interpreted ``_forward_pallas`` / ``_bwd_pallas``.
 
-Then a ViT-H-shaped narrow model (hidden 160 in two heads of 80, MLP 320,
-patch 14, 56 px, two layers; its patch embedding has K = 3 · 14 · 14 = 588,
-which the int8 serving tree pads to 640) carried across with
-``models/bridge.py``: logits, one train step's loss and gradients, the eval
-step and the static int8 Predictor against the JAX package; ViT-H/14's
-parameter shapes at 224 px read from meta tensors and ``jax.eval_shape``
-(nothing allocated); and the port's smoke model against the JAX smoke's.
+Then two narrow models carried across with ``models/bridge.py``: a
+ViT-H-shaped one (hidden 160 in two heads of 80, MLP 320, patch 14, 56 px,
+two layers; its patch embedding has K = 3 · 14 · 14 = 588, which the int8
+serving tree pads to 640) and one off every multiple of 8 (hidden 50 in two
+heads of 25, MLP 100, patch 16, 32 px: every int8 projection's K padded to
+64 or 128, N = 50 and 100): logits, one train step's loss and gradients,
+the eval step and the static int8 Predictor against the JAX package;
+ViT-H/14's parameter shapes at 224 px read from meta tensors and
+``jax.eval_shape`` (nothing allocated); and the port's smoke model against
+the JAX smoke's.
 
 Inputs are seeded numpy arrays handed to both sides.
 """
@@ -33,6 +42,7 @@ from chestxray_vit_tpu import cli as jcli
 from chestxray_vit_tpu import config as jconfig
 from chestxray_vit_tpu.models import vit as jvit
 from chestxray_vit_tpu.ops import flash_attention as jfa
+from chestxray_vit_tpu.ops import layer_norm as jln
 from chestxray_vit_tpu.serve.inference import Predictor as JaxPredictor
 from chestxray_vit_tpu.train import steps as jsteps
 from chestxray_vit_tpu_torch import cli as tcli
@@ -41,13 +51,14 @@ from chestxray_vit_tpu_torch.config import Config, ModelConfig, TrainConfig
 from chestxray_vit_tpu_torch.models import bridge
 from chestxray_vit_tpu_torch.models import vit as tvit
 from chestxray_vit_tpu_torch.ops import flash_attention as tfa
+from chestxray_vit_tpu_torch.ops import layer_norm as tln
 from chestxray_vit_tpu_torch.serve.inference import Predictor
 from chestxray_vit_tpu_torch.train import steps as tsteps
 from test_torch_packed import attention_inputs, close_on_real_rows, pair
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
-HEAD_DIMS = [16, 80]
+HEAD_DIMS = [16, 80, 12, 256]
 DTYPES = ["float32", "bfloat16"]
 # f32: summation order only; bf16: P and dS round at other points than in
 # the interpreted TPU kernel (the d = 64 bound, tests/test_torch_grads.py)
@@ -196,18 +207,99 @@ def test_packed_attention_matches_jax(d, dtype, rate):
 
 
 # ---------------------------------------------------------------------------
-# A ViT-H-shaped narrow model: heads of 80, patch 14
+# The wrappers' zero-padding of a head dim off the multiple of 8
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,want", [(1, 8), (4, 8), (8, 8), (12, 16),
+                                    (25, 32), (80, 80), (136, 136),
+                                    (250, 256), (768, 768)])
+def test_kernel_head_dim_rounds_up_to_the_step(d, want):
+    assert tfa.kernel_head_dim(d) == want
+    assert tfa.kernel_head_dim(d) % tfa.HEAD_DIM_STEP == 0
+
+
+def test_kernel_head_dim_refuses_nothing_but_empty_heads():
+    with pytest.raises(ValueError, match="head dim must be >= 1"):
+        tfa.kernel_head_dim(0)
+
+
+@pytest.mark.parametrize("d", [4, 12, 25])
+def test_zero_padded_head_dim_is_the_real_one(d):
+    """What the CUDA wrappers do for d off 8: the plain forward and backward
+    on q, k, v, o, dO zero-padded by ``_padded`` with the real d's scale
+    equal the real d's sliced back (1e-6: the padded products sum the same
+    terms and some zeros, possibly in another order), and every padded
+    column of o, dq, dk, dv is exactly 0."""
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 3, S, d))
+                                    .astype(np.float32)) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = tfa.attention_fwd_reference(q, k, v)
+    grads = tfa.attention_bwd_reference(q, k, v, o, lse, do)
+    pq, pk, pv, po, pdo = tfa._padded(d, q, k, v, o, do)
+    width = tfa.kernel_head_dim(d)
+    assert pq.shape[-1] == width and tfa._padded(width, pq)[0] is pq
+    o_pad, lse_pad = tfa.attention_fwd_reference(pq, pk, pv, scale)
+    torch.testing.assert_close(o_pad[..., :d], o, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(lse_pad, lse, atol=1e-6, rtol=1e-6)
+    assert not o_pad[..., d:].any()
+    padded = tfa.attention_bwd_reference(pq, pk, pv, po, lse, pdo, scale)
+    for g, gp in zip(grads, padded):
+        torch.testing.assert_close(gp[..., :d], g, atol=1e-6, rtol=1e-6)
+        assert not gp[..., d:].any()
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm off the vector width and past the register rungs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [50, 2560])
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_layer_norm_any_width_matches_jax(d, w_dtype):
+    """The port's LayerNorm forward and backward (their plain versions on
+    the CPU, the oracles of the any-width kernels) against the interpreted
+    ``_forward_pallas`` and ``_bwd_pallas``, f32 rows with an f32 or bf16
+    scale; within 1e-5 of the largest value (f32 summation order)."""
+    rng = np.random.default_rng(d)
+    x = (rng.standard_normal((3, 37, d)) * 3 + 1).astype(np.float32)
+    sb = [rng.standard_normal(d).astype(np.float32) for _ in range(2)]
+    dy = rng.standard_normal((3, 37, d)).astype(np.float32)
+    (jx, tx), (jdy, tdy) = pair(x, "float32"), pair(dy, "float32")
+    (js, ts), (jb, tb) = (pair(a, w_dtype) for a in sb)
+    _close(tln.layer_norm(tx, ts, tb, 1e-12),
+           jln._forward_pallas(jx, js, jb, 1e-12), 1e-5)
+    got = tln.layer_norm_bwd_reference(tx, ts, tdy, 1e-12)
+    ref = jln._bwd_pallas(1e-12, jx, js, jdy)
+    assert [g.dtype for g in got] == [tx.dtype, ts.dtype, ts.dtype]
+    for g, r in zip(got, ref):
+        assert tuple(g.shape) == tuple(r.shape)
+        _close(g, r, 1e-5 if w_dtype == "float32" or g is got[0] else 8e-3)
+
+
+# ---------------------------------------------------------------------------
+# Narrow models: ViT-H-shaped (heads of 80, patch 14) and off 8
+# ---------------------------------------------------------------------------
+
+# the narrow models' widths: ViT-H/14's head dim and patch (17 tokens),
+# and every width off the multiple of 8 (5 tokens)
+NARROW = {"vith": dict(img_size=56, patch_size=14, hidden_size=160,
+                       num_heads=2, mlp_dim=320),
+          "off8": dict(img_size=32, patch_size=16, hidden_size=50,
+                       num_heads=2, mlp_dim=100)}
+
+
+def narrow_cfg(shape: str, dtype="float32") -> Config:
+    """A two-layer narrow model of NARROW, 15 classes."""
+    return Config(
+        model=ModelConfig(**NARROW[shape], num_layers=2, num_classes=15,
+                          dtype=dtype, attention_impl="pallas"),
+        train=TrainConfig(warmup_steps=1))
+
 
 def vith_cfg(dtype="float32") -> Config:
     """ViT-H/14's head dim and patch at a narrow width: hidden 160 in two
     heads of 80, MLP 320, two layers, 56 px (17 tokens)."""
-    return Config(
-        model=ModelConfig(img_size=56, patch_size=14, hidden_size=160,
-                          num_layers=2, num_heads=2, mlp_dim=320,
-                          num_classes=15, dtype=dtype,
-                          attention_impl="pallas"),
-        train=TrainConfig(warmup_steps=1))
+    return narrow_cfg("vith", dtype)
 
 
 def _jcfg(cfg: Config) -> jconfig.Config:
@@ -223,9 +315,9 @@ def _params(cfg: Config, seed=0):
                                       cfg.model)
 
 
-def _batch(b=4, seed=0):
+def _batch(b=4, seed=0, px=56):
     rng = np.random.default_rng(seed)
-    return {"pixel_values": rng.standard_normal((b, 56, 56, 3))
+    return {"pixel_values": rng.standard_normal((b, px, px, 3))
             .astype(np.float32),
             "labels": (rng.random((b, 15)) < 0.2).astype(np.float32)}
 
@@ -234,8 +326,22 @@ def _batch(b=4, seed=0):
 def test_vith_shaped_logits_match_jax(dtype):
     cfg = vith_cfg(dtype)
     assert cfg.model.head_dim == 80
+    _logits_match_jax(cfg)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_off8_narrow_logits_match_jax(dtype):
+    """Hidden 50 in two heads of 25, MLP 100: the head dim, the LayerNorm
+    width and the int8 N off the multiple of 8."""
+    cfg = narrow_cfg("off8", dtype)
+    assert cfg.model.head_dim == 25
+    _logits_match_jax(cfg)
+
+
+def _logits_match_jax(cfg: Config):
     jp, tp = _params(cfg)
-    x = _batch()["pixel_values"]
+    dtype = cfg.model.dtype
+    x = _batch(px=cfg.model.img_size)["pixel_values"]
     ref = jvit.apply(jp, jnp.asarray(x), _jcfg(cfg).model, train=False)
     with torch.no_grad():
         got = tvit.apply(tp, torch.from_numpy(x), cfg.model, train=False)
@@ -250,9 +356,17 @@ def test_vith_shaped_logits_match_jax(dtype):
 def test_vith_shaped_train_step_matches_jax():
     """One f32 train step: the loss, the gradient norm and every gradient
     leaf (within 1e-4 of the largest, tests/test_torch_train.py's bound)."""
-    cfg = vith_cfg()
+    _train_step_matches_jax(vith_cfg())
+
+
+def test_off8_narrow_train_step_matches_jax():
+    """The train step of the off-8 model, as the ViT-H-shaped one's."""
+    _train_step_matches_jax(narrow_cfg("off8"))
+
+
+def _train_step_matches_jax(cfg: Config):
     jp, tp = _params(cfg)
-    batch = _batch(seed=1)
+    batch = _batch(seed=1, px=cfg.model.img_size)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jcfg = _jcfg(cfg)
 
@@ -278,9 +392,16 @@ def test_vith_shaped_train_step_matches_jax():
 
 
 def test_vith_shaped_eval_step_matches_jax():
-    cfg = vith_cfg()
+    _eval_step_matches_jax(vith_cfg())
+
+
+def test_off8_narrow_eval_step_matches_jax():
+    _eval_step_matches_jax(narrow_cfg("off8"))
+
+
+def _eval_step_matches_jax(cfg: Config):
     jp, tp = _params(cfg, seed=1)
-    batch = _batch(b=5, seed=3)
+    batch = _batch(b=5, seed=3, px=cfg.model.img_size)
     jl, jr = jax.jit(jsteps.make_eval_step(_jcfg(cfg)))(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     tl, tr = tsteps.make_eval_step(cfg)(
@@ -302,20 +423,40 @@ def test_vith_shaped_static_int8_predictor_matches_jax():
     K = 588 padded to 640 in the tree and in the patches) against the
     JAX Predictor (its "xla" route), within tests/test_torch_quant.py's
     route bound; the tree crosses the bridge at the JAX layout, 588."""
-    cfg = vith_cfg("bfloat16")
+    tree = _static_int8_matches_jax(vith_cfg("bfloat16"))
+    assert tuple(tree.patch_embed.qw.q.shape) == (160, 640)
+    assert not tree.patch_embed.qw.q[:, 588:].any()
+    assert bridge.qparams_to_numpy(tree)["patch_embed"]["qw"]["q"].shape \
+        == (588, 160)
+
+
+def test_off8_narrow_static_int8_predictor_matches_jax():
+    """The off-8 model's static int8 Predictor: every block projection's
+    K (50, and 100 for mlp_out) padded to 64 or 128 in the tree, N = 50
+    and 100; the tree crosses the bridge at the JAX layout."""
+    tree = _static_int8_matches_jax(narrow_cfg("off8", "bfloat16"))
+    block = tree.blocks[0]
+    for key, shape in (("wq", (50, 64)), ("wo", (50, 64)),
+                       ("mlp_in", (100, 64)), ("mlp_out", (50, 128))):
+        q = getattr(block, key).qw.q
+        assert tuple(q.shape) == shape, key
+        assert not q[:, getattr(block, key).in_features:].any(), key
+    jtree = bridge.qparams_to_numpy(tree)["blocks"]
+    assert jtree["mlp_out"]["qw"]["q"].shape == (2, 100, 50)
+
+
+def _static_int8_matches_jax(cfg: Config):
+    """The static int8 Predictor against the JAX one on the same weights
+    and calibration images; returns the port's quantized tree."""
     jp, tp = _params(cfg, seed=2)
     kw = dict(batch_size=4, canvas_size=64, placement="device",
               quantize="static", calibration=_grays(4, seed=7))
     ref = JaxPredictor(jp, _jcfg(cfg).model, **kw)
     pred = Predictor(tp, cfg.model, device="cpu", **kw)
-    tree = pred._fwd_params
-    assert tuple(tree.patch_embed.qw.q.shape) == (160, 640)
-    assert not tree.patch_embed.qw.q[:, 588:].any()
-    assert bridge.qparams_to_numpy(tree)["patch_embed"]["qw"]["q"].shape \
-        == (588, 160)
     grays = _grays()
     out, want = pred.predict_arrays(grays), ref.predict_arrays(grays)
     np.testing.assert_allclose(out.logits, want.logits, atol=2e-2)
+    return pred._fwd_params
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +471,7 @@ def test_vit_h14_parameter_shapes_match_jax():
     jcfg = jconfig.vit_variant_config("vit_h14", img_size=224)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert cfg.head_dim == 80 and cfg.seq_len == 257 and cfg.remat
-    assert tfa.head_dim_supported(cfg.head_dim)
+    assert tfa.kernel_head_dim(cfg.head_dim) == cfg.head_dim
     with torch.device("meta"):
         model = tvit.ViT(cfg)
     shapes = jax.eval_shape(lambda: jvit.init_params(jax.random.key(0),

@@ -96,11 +96,19 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+# the model at widths off 8 and 64: hidden 50 in two heads of 25, MLP 100
+# (the int8 products' N = 50, 100 and K = 50, 100, padded to 64, 128)
+OFF8 = dict(hidden_size=50, num_heads=2, mlp_dim=100)
+
+
 @pytest.fixture(scope="module")
 def setup():
     """(JAX params, port params, images [4, 64, 64, 3], the JAX package's
     calibrated scales as numpy leaves)."""
-    cfg = small_cfg()
+    return _setup(small_cfg())
+
+
+def _setup(cfg):
     jp = jvit.init_params(jax.random.key(0), jax_cfg(cfg))
     tp = bridge.params_from_jax(_np(jp), cfg)
     imgs = (np.random.default_rng(0).standard_normal((4, 64, 64, 3)) * 0.5
@@ -419,13 +427,16 @@ def _batch(imgs, n=8):
             "labels": labels(n, 5)}
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_train_step_matches_jax(setup, accum):
+@pytest.mark.parametrize("accum,widths", [
+    pytest.param(1, {}, id="1"), pytest.param(2, {}, id="2"),
+    pytest.param(1, OFF8, id="off8")])
+def test_train_step_matches_jax(setup, accum, widths):
     """Six steps of make_train_step(int8_scales=) on a fixed batch: losses
     against the JAX step's (LOSS_RTOL), finite and falling; with gradient
-    accumulation the micro-batches split as there."""
-    jp, tp, imgs, scales = setup
-    cfg = step_cfg(accum)
+    accumulation the micro-batches split as there; at OFF8's widths the
+    int8 products pad K and write N off 8."""
+    cfg = step_cfg(accum, **widths)
+    jp, tp, imgs, scales = _setup(cfg.model) if widths else setup
     batch = _batch(imgs)
     got = _port_step_losses(tp, cfg, batch, scales)
     ref = _jax_step_losses(jp, cfg, batch, scales)

@@ -195,6 +195,24 @@ def test_int32_out_form_is_exact_int32(rng):
     np.testing.assert_array_equal(got.numpy(), np.asarray(jsum))
 
 
+@pytest.mark.parametrize("kx,kw,k", [(64, 64, 64), (50, 50, 64),
+                                     (100, 128, 128), (588, 640, 640)])
+def test_fused_wrapper_brings_xq_and_wq_to_one_k(rng, kx, kw, k):
+    """``int8_matmul_fused`` takes xq at wq's K, or at the K a padded wq
+    (QuantDense's storage) held before padding, and brings both to one
+    multiple of K_STEP with zero columns: the sums are the unpadded
+    product's, at N = 10 (off 8)."""
+    xq = rng.integers(-127, 128, (3, kx)).astype(np.int8)
+    wq = np.zeros((10, kw), np.int8)
+    wq[:, :kx] = rng.integers(-127, 128, (10, kx))
+    xt, wt = tp8._at_one_k(torch.from_numpy(xq), torch.from_numpy(wq))
+    assert xt.shape == (3, k) and wt.shape == (10, k)
+    got = tp8.int8_matmul_fused(torch.from_numpy(xq), torch.from_numpy(wq),
+                                out_dtype=torch.int32)
+    np.testing.assert_array_equal(
+        got.numpy(), xq.astype(np.int64) @ wq[:, :kx].T.astype(np.int64))
+
+
 @pytest.mark.parametrize("operand", ["scale", "bias", "resid", "gelu",
                                      "out_quant_scale"])
 def test_int32_out_form_refuses_an_epilogue(operand):

@@ -337,7 +337,7 @@ def test_full_variant_parameter_shapes_match_jax(variant, img):
     jcfg = jconfig.vit_variant_config(variant, img_size=img)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert cfg.head_dim == (80 if variant == "vit_h14" else 64)
-    assert tfa.head_dim_supported(cfg.head_dim)
+    assert tfa.kernel_head_dim(cfg.head_dim) == cfg.head_dim
     assert cfg.remat == (cfg.hidden_size >= 1024)
     with torch.device("meta"):
         model = tvit.ViT(cfg)
