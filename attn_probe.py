@@ -14,7 +14,8 @@ order given and then in reverse, so that each build is timed twice on the
 same card. A build:
 
 - multiplies through the tile helpers alone (``tile_mma_selftest.cu``) in
-  its three bf16 forms and the two 16-wide forms of the forward at kD = 80,
+  its three bf16 forms, the fragments stored into a tile and read back
+  (mode 7), the two 16-wide forms of the forward at kD = 80,
   whole and ragged, against ``torch.matmul``, and in its two int8 forms
   exactly against the integer product (a build without them reports so);
 - forward (``--only fwd``; with no ``--only``, the two attention parts):
@@ -34,7 +35,9 @@ same card. A build:
   error relative to each gradient's largest magnitude), calls each twice
   (equal bits), times the dense and dropout backward at [36, 12, 577, 64],
   the dense backward at ViT-H/14's [8 | 32, 16, 257, 80] (``vith_bwd_b*``,
-  held against the plain version and beside SDPA's device time) and the
+  held against the plain version and beside SDPA's device time), the
+  wide backward at the three-head step's [36, 3, 577, 256]
+  (``wide_bwd_b36``, the same, with its Delta pass apart) and the
   segment backward in two layouts, and the dK/dV and dQ kernels apart
   (``torch.profiler`` over ten calls);
 - int8 (``--only int8``): the int8 kernel in chip_smoke.py's five call
@@ -43,14 +46,16 @@ same card. A build:
   beside ``torch._int_mm``'s; and its GELU bit for bit against the plain
   version's on every float of |y| in [2^-24, 2^5) (``gelu_sweep``);
 - ln (``--only ln``): the LayerNorm forward at the serving, int8 serving
-  and training rows (x 768, bf16; the int8 rows with an f32 scale too) and
-  at ViT-H/14's serving and training rows (8 | 32 × 257, x 1280; the
-  training rows with an f32 scale too): error against the plain version,
-  CUDA-event and device times beside ``F.layer_norm``'s; the backward at
-  the dense and packed training rows (36 × 577, 32 × 1152, x 768) and at
-  ViT-H/14's serving and training rows (8 | 32 × 257, x 1280) with a bf16
-  and an f32 scale: errors, equal bits twice, event and device times (its
-  column pass apart), the host's µs a call (``host_us``: 200 calls
+  and training rows (x 768, bf16; the int8 rows with an f32 scale too), at
+  ViT-H/14's serving and training rows (8 | 32 × 257, x 1280; the
+  training rows with an f32 scale too) and at chip_smoke.py's
+  WIDE_LN_CASES (the any-D kernels: 50, 2560, 6144): error against the
+  plain version, CUDA-event and device times beside ``F.layer_norm``'s;
+  the backward at the dense and packed training rows (36 × 577, 32 ×
+  1152, x 768) and at ViT-H/14's serving and training rows (8 | 32 × 257,
+  x 1280) with a bf16 and an f32 scale, and at WIDE_LN_CASES: errors,
+  equal bits twice, event and device times (its column pass apart), the
+  host's µs a call (``host_us``: 200 calls
   enqueued, a sync after) and of the wrapper's block count alone
   (``blocks_us``: ``_bwd_blocks``, 2000 calls) beside
   ``aten.native_layer_norm_backward``'s;
@@ -79,8 +84,9 @@ LENGTHS = (1, 37, 64, 65, 128, 129, 577, 1025)
 
 def selftest(gen) -> dict:
     """Largest |error| of the 64 x 64 x 64 bf16 products through the tile
-    helpers against ``torch.matmul`` in f32, per orientation and row count,
-    the same of the 16-wide ones (mode 5: 64 x 64 x 16 through K-major
+    helpers against ``torch.matmul`` in f32, per orientation and row count
+    (mode 7: A's fragments stored into a tile and read back first), the
+    same of the 16-wide ones (mode 5: 64 x 64 x 16 through K-major
     32-byte swizzled tiles; mode 6: 64 x 16 x 64, m64n16k16 on an MN-major
     one), and the mismatches of the int8 ones (64 x 64 x 128 and a half k
     tile) against the exact integer product."""
@@ -90,17 +96,19 @@ def selftest(gen) -> dict:
     a = torch.randn((64, 64), generator=gen, device="cuda").to(torch.bfloat16)
     b = torch.randn((64, 64), generator=gen, device="cuda").to(torch.bfloat16)
     out = {}
-    # A Bᵀ; A B (the transposed-B form); A Bᵀ with A from shared memory
-    for mode in (0, 1, 2):
+    # A Bᵀ; A B (the transposed-B form); A Bᵀ with A from shared memory;
+    # A B with A's fragments stored into a tile and read back
+    for mode in (0, 1, 2, 7):
         for rows in (64, 17):
             c = torch.full((64, 64), float("nan"), device="cuda")
-            kernels.check(lib.cxr_tile_mma_selftest(
-                a.data_ptr(), b.data_ptr(), c.data_ptr(), mode, rows, 0,
-                stream), "tile_mma_selftest")
+            if lib.cxr_tile_mma_selftest(a.data_ptr(), b.data_ptr(),
+                                         c.data_ptr(), mode, rows, 0, stream):
+                out[f"mode{mode}_rows{rows}"] = "not in this build"
+                continue
             torch.cuda.synchronize()
             bz = b.float().clone()
             bz[rows:] = 0
-            ref = a.float() @ (bz if mode == 1 else bz.t())
+            ref = a.float() @ (bz if mode in (1, 7) else bz.t())
             out[f"mode{mode}_rows{rows}"] = (c - ref).abs().max().item()
     a16, b16 = (torch.randn((64, 16), generator=gen, device="cuda")
                 .to(torch.bfloat16) for _ in range(2))
@@ -327,6 +335,8 @@ def backward(gen, out: dict) -> None:
             "library_device_ms": library_attention_device_ms(q, k, v, do)[1]}
         del x, q, k, v, do, o, lse
 
+    wide_backward(gen, out)
+
     for name, seg in packed_layouts(PACKED_SEQS).items():
         if name == "mixed_pad":
             continue
@@ -360,6 +370,39 @@ def backward(gen, out: dict) -> None:
         out[f"packed_{name}"] = {"ms": time_ms(packed),
                                  **backward_pass_ms(packed)}
         out[f"packed_dropout_{name}"] = {"ms": time_ms(packed_dropout)}
+
+
+def wide_backward(gen, out: dict) -> None:
+    """The wide backward (d = 256) at the three-head train step's
+    [36, 3, 577, 256] (``wide_bwd_b36``; q, k, v as [B, S, 3, H, d]
+    views): relative errors against the plain version, equal bits twice,
+    CUDA-event ms and device ms by pass (Delta, dK/dV, dQ), beside flash
+    SDPA's device time on contiguous copies."""
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
+    from chip_smoke import (TRAIN_BATCH, backward_pass_ms,
+                            library_attention_device_ms, rel_err, time_ms)
+
+    b, h, s, d = TRAIN_BATCH, 3, 577, 256
+    x = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+    do = torch.randn((b, h, s, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+
+    def wide():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do)
+
+    got, again = wide(), wide()
+    ref = fa.attention_bwd_reference(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    out["errors"]["wide_bwd_b36"] = [rel_err(g, r) for g, r in zip(got, ref)]
+    out["equal_twice"] &= all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, again, ref
+    out["wide_bwd_b36"] = {
+        "ms": time_ms(wide), **backward_pass_ms(wide),
+        "library_device_ms": library_attention_device_ms(q, k, v, do)[1]}
+    del x, q, k, v, do, o, lse
 
 
 def int8(gen, out: dict) -> None:
@@ -427,22 +470,31 @@ def gelu_sweep() -> dict:
             "mismatches": mismatches + int((~same).sum())}
 
 
+def ln_key(prefix: str, rows: int, d: int, x_dtype, w_dtype) -> str:
+    """``<prefix>_<rows>_<d>_<scale dtype>``, ``_x_float32`` after it for
+    f32 rows."""
+    key = f"{prefix}_{rows}_{d}_{str(w_dtype).split('.')[-1]}"
+    return key + ("_x_float32" if x_dtype == torch.float32 else "")
+
+
 def layer_norm(gen, out: dict) -> None:
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
-    from chip_smoke import bf16_ulp, device_ms, time_ms
+    from chip_smoke import WIDE_LN_CASES, bf16_ulp, device_ms, time_ms
 
-    for rows, d, w_dtype in ((8 * 577, 768, torch.bfloat16),
-                             (32 * 577, 768, torch.bfloat16),
-                             (32 * 577, 768, torch.float32),
-                             (36 * 577, 768, torch.bfloat16),
-                             (8 * 257, 1280, torch.bfloat16),
-                             (32 * 257, 1280, torch.bfloat16),
-                             (32 * 257, 1280, torch.float32)):
+    bf16 = torch.bfloat16
+    for rows, d, x_dtype, w_dtype in ((8 * 577, 768, bf16, bf16),
+                                      (32 * 577, 768, bf16, bf16),
+                                      (32 * 577, 768, bf16, torch.float32),
+                                      (36 * 577, 768, bf16, bf16),
+                                      (8 * 257, 1280, bf16, bf16),
+                                      (32 * 257, 1280, bf16, bf16),
+                                      (32 * 257, 1280, bf16, torch.float32),
+                                      *WIDE_LN_CASES):
         x = (torch.randn((rows, d), generator=gen, device="cuda") * 3 + 1
-             ).to(torch.bfloat16)
+             ).to(x_dtype)
         s, b = (torch.randn((d,), generator=gen, device="cuda").to(w_dtype)
                 for _ in range(2))
-        ls, lb = s.to(torch.bfloat16), b.to(torch.bfloat16)
+        ls, lb = s.to(x_dtype), b.to(x_dtype)
 
         def kernel():
             return ln.layer_norm_cuda(x, s, b, 1e-12)
@@ -452,10 +504,11 @@ def layer_norm(gen, out: dict) -> None:
 
         ref = ln.layer_norm_reference(x, s, b, 1e-12).float()
         diff = (kernel().float() - ref).abs()
-        key = f"ln_{rows}_{d}_{str(w_dtype).split('.')[-1]}"
+        key = ln_key("ln", rows, d, x_dtype, w_dtype)
+        ulp = bf16_ulp(ref) if x_dtype == bf16 else 1e-5 * ref.abs()
         out["errors"][key] = {
             "max_abs_err": diff.max().item(),
-            "within_1ulp_1e-5": bool((diff <= bf16_ulp(ref) + 1e-5).all())}
+            "within_1ulp_1e-5": bool((diff <= ulp + 1e-5).all())}
         out[key] = {"ms": time_ms(kernel), **device_ms(kernel),
                     "library_ms": time_ms(library),
                     "library_device_ms": device_ms(library)["device_ms"]}
@@ -478,51 +531,55 @@ def host_us(fn, calls: int = 200) -> float:
 
 def layer_norm_bwd(gen, out: dict) -> None:
     """The LayerNorm backward at the dense and packed training rows (x 768,
-    bf16; the block LNs' bf16 scale and the final LN's f32 scale) and at
-    ViT-H/14's b32 training rows (x 1280, the same two scales): errors
-    against the plain version, equal bits twice, CUDA-event and device
-    times (``second_pass_ms``: the device time of the kernel after the main
-    one, whose name starts ``ln_bwd_``), beside
-    ``aten.native_layer_norm_backward``'s with the scale in bf16."""
+    bf16; the block LNs' bf16 scale and the final LN's f32 scale), at
+    ViT-H/14's b32 training rows (x 1280, the same two scales) and at
+    chip_smoke.py's WIDE_LN_CASES (the any-D kernel: width 50, 2560, 6144):
+    errors against the plain version, equal bits twice, CUDA-event and
+    device times (``second_pass_ms``: the column pass, ``ln_bwd_cols``),
+    beside
+    ``aten.native_layer_norm_backward``'s with the scale in x's dtype."""
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
-    from chip_smoke import device_ms, rel_err, time_ms
+    from chip_smoke import WIDE_LN_CASES, device_ms, rel_err, time_ms
 
-    for rows, d in ((36 * 577, 768), (32 * 1152, 768), (8 * 257, 1280),
-                    (32 * 257, 1280)):
-        for w_dtype in (torch.bfloat16, torch.float32):
-            x, dy = ((torch.randn((rows, d), generator=gen, device="cuda")
-                      * k + m).to(torch.bfloat16) for k, m in ((3, 1), (1, 0)))
-            s = torch.randn((d,), generator=gen, device="cuda").to(w_dtype)
+    bf16 = torch.bfloat16
+    cases = [(rows, d, bf16, w_dtype)
+             for rows, d in ((36 * 577, 768), (32 * 1152, 768),
+                             (8 * 257, 1280), (32 * 257, 1280))
+             for w_dtype in (bf16, torch.float32)]
+    for rows, d, x_dtype, w_dtype in (*cases, *WIDE_LN_CASES):
+        x, dy = ((torch.randn((rows, d), generator=gen, device="cuda")
+                  * k + m).to(x_dtype) for k, m in ((3, 1), (1, 0)))
+        s = torch.randn((d,), generator=gen, device="cuda").to(w_dtype)
 
-            def kernel():
-                return ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
+        def kernel():
+            return ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
 
-            got, again = kernel(), kernel()
-            ref = ln.layer_norm_bwd_reference(x, s, dy, 1e-12)
-            torch.cuda.synchronize()
-            key = f"ln_bwd_{rows}_{d}_{str(w_dtype).split('.')[-1]}"
-            out["errors"][key] = {"dx": abs_err(got[0], ref[0]),
-                                  "dscale_dbias_rel": [rel_err(g, r) for g, r
-                                                       in zip(got[1:],
-                                                              ref[1:])]}
-            out["equal_twice"] &= all(torch.equal(a, b)
-                                      for a, b in zip(got, again))
-            dev = device_ms(kernel, parts=("ln_bwd_",))
-            out[key] = {"ms": time_ms(kernel), "device_ms": dev["device_ms"],
-                        "second_pass_ms": dev["ln_bwd__ms"],
-                        "host_us": host_us(kernel),
-                        "blocks_us": host_us(
-                            lambda: ln._bwd_blocks(x, s, rows), 2000)}
-            ls = s.to(torch.bfloat16)
-            _, mean, rstd = torch.ops.aten.native_layer_norm(
-                x, [d], ls, torch.zeros_like(ls), 1e-12)
+        got, again = kernel(), kernel()
+        ref = ln.layer_norm_bwd_reference(x, s, dy, 1e-12)
+        torch.cuda.synchronize()
+        key = ln_key("ln_bwd", rows, d, x_dtype, w_dtype)
+        out["errors"][key] = {"dx": abs_err(got[0], ref[0]),
+                              "dscale_dbias_rel": [rel_err(g, r) for g, r
+                                                   in zip(got[1:],
+                                                          ref[1:])]}
+        out["equal_twice"] &= all(torch.equal(a, b)
+                                  for a, b in zip(got, again))
+        dev = device_ms(kernel, parts=("ln_bwd_cols",))
+        out[key] = {"ms": time_ms(kernel), "device_ms": dev["device_ms"],
+                    "second_pass_ms": dev["ln_bwd_cols_ms"],
+                    "host_us": host_us(kernel),
+                    "blocks_us": host_us(
+                        lambda: ln._bwd_blocks(x, s, rows), 2000)}
+        ls = s.to(x_dtype)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(
+            x, [d], ls, torch.zeros_like(ls), 1e-12)
 
-            def library():
-                return torch.ops.aten.native_layer_norm_backward(
-                    dy, x, [d], mean, rstd, ls, ls, [True] * 3)
+        def library():
+            return torch.ops.aten.native_layer_norm_backward(
+                dy, x, [d], mean, rstd, ls, ls, [True] * 3)
 
-            out[key]["library_ms"] = time_ms(library)
-            out[key]["library_device_ms"] = device_ms(library)["device_ms"]
+        out[key]["library_ms"] = time_ms(library)
+        out[key]["library_device_ms"] = device_ms(library)["device_ms"]
 
 
 def child(only: str) -> int:

@@ -1,28 +1,42 @@
 // The attention backward at head dims above 128 (attention_bwd.cuh takes
 // d <= 128): dQ, dK, dV from the forward's O and lse with P recomputed,
 // with and without dropout and segment ids (launch_bwd sends d > 128 here).
+// It replaces the same TPU kernels as attention_bwd.cuh at these widths:
+// chestxray_vit_tpu/ops/flash_attention.py `_bwd_kernel`, `_bwd_kernel_drop`,
+// `_bwd_kernel_seg` and `_bwd_kernel_seg_drop`, which take the head dim
+// whole.
 //
-// The column split of attention_fwd_wide.cuh: dQ = dS K, dK = dS^T Q and
-// dV = P^T dO split by output column once P and dS are known, and those
-// need all of d only through S = Q K^T, dP = dO V^T and Delta =
-// rowsum(dO * O). So:
+// dQ = dS K, dK = dS^T Q and dV = P^T dO split by output column once P and
+// dS are known, and those need all of d only through S = Q K^T, dP = dO V^T
+// and Delta = rowsum(dO * O). So:
 // 1. attn_bwd_delta_wide: Delta over the whole d, a warp a row (before the
 //    passes, which read it; at d <= 128 the dQ pass sums it itself).
-// 2. attn_bwd_dq_wide_bf16: a block owns 64 query rows and one output chunk
-//    of 128 dQ columns (the grid's third axis); for every key tile it forms
-//    S by streaming Q and K in 64-column chunks through two swizzled tiles,
-//    rounds P, then forms dP streaming dO and V the same way (so S's and
-//    dP's accumulators are never live together), and adds dS K_chunk, K's
-//    chunk columns read as they lie.
-// 3. attn_bwd_dkdv_wide_bf16: a block owns 64 keys and one output chunk of
-//    128 dK and dV columns; for every query tile S^T from K and Q chunks,
-//    P^T, dP^T from V and dO chunks, then dV_chunk += P^T dO_chunk and
-//    dK_chunk += dS^T Q_chunk.
-// S and dP are recomputed once per output chunk (ceil(d / 128) times), the
-// copies are not overlapped with a block's products (the SM's other blocks
-// hide them), and no atomics are used: every output element is written
-// once by one block. The arithmetic of P, dS and the dropout mask is that
-// of attention_bwd.cuh.
+// 2. attn_bwd_dq_wide_bf16: a block of two warpgroups owns 64 query rows
+//    and 256 dQ columns (the grid's third axis), 128 a warpgroup. For
+//    every key tile warpgroup 0 forms S while warpgroup 1 forms dP, each
+//    over the whole d from 64-column chunk tiles; warpgroup 0 rounds P and
+//    hands it to warpgroup 1 through a swizzled tile in shared memory,
+//    which forms dS (the dropout mask hashed there) and hands it back the
+//    same way; each then adds dS K_chunk to its own two 64-column chunks,
+//    and while those products run the next tile's S and dP are issued.
+// 3. attn_bwd_dkdv_wide_bf16: a block owns 64 keys and 256 dK and dV
+//    columns. Warpgroup 0 forms S^T, rounds P^T, hashes the keep mask,
+//    hands both to warpgroup 1 and adds (M P)^T dO_chunk to dV over all
+//    256 columns; warpgroup 1 forms dP^T, then dS^T, and adds dS^T
+//    Q_chunk to dK. One hand-over a tile, and each warpgroup's 128
+//    accumulator registers hold one output.
+// What bounds it on an H100: operations, 10 S^2 d flops a head (S, dP, dV,
+// dQ, dK); a two-pass design without atomics forms S and dP in both
+// passes, 14. S and dP are formed once per (query tile, key tile) for 256
+// output columns, so at d = 256 once in all. Up to 256 columns
+// the block's own operands (Q and dO in the dQ pass, K and V in the dK/dV
+// pass) stay in shared memory, and the walked ones stream through two
+// stages, the next tile's copies issued before the current tile's products.
+// Past 256 columns the walk goes through d in blocks of four chunks, one
+// stage, the own output block's walked chunks read again after the others
+// where it is not the last, so nothing grows with d. No atomics: every
+// output element is written once by one block. The arithmetic of P, dS
+// and the dropout mask is that of attention_bwd.cuh.
 //
 // f32 (parity runs): plain FMA with a 32-column output chunk a block, a
 // thread a row (query for dQ, key for dK/dV), S and dP summed over
@@ -40,8 +54,10 @@ namespace cxr {
 namespace wide {
 
 constexpr int kBwdRows = 64;      // rows (queries or keys) a block owns
-constexpr int kBwdCols = 128;     // output columns a bf16 block owns
+constexpr int kBwdCols = 256;     // output columns a bf16 block owns
 constexpr int kBwdF32Cols = 32;   // output columns an f32 block owns
+constexpr int kBwdThreads = 256;  // two warpgroups
+constexpr int kBwdChunks = kBwdCols / 64;  // an operand block's chunk tiles
 
 // Delta = rowsum(dO * O) over the whole head dim, a warp a row.
 template <typename T>
@@ -64,16 +80,64 @@ attn_bwd_delta_wide(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = acc;
 }
 
-// Shared memory of the bf16 passes: two chunk tiles, the two output tiles
-// of each of the walked pair's operands they multiply (dQ: K's; dK/dV: Q's
-// and dO's), 64 lse, 64 Delta and 64 ids, and 1024 bytes of alignment.
-// The dQ pass fits the 48 KB default; the dK/dV pass is allowed more.
-constexpr int kDqSmem = 4 * kTileBytes + 768 + 1024;
-constexpr int kDkdvSmem = 6 * kTileBytes + 768 + 1024;
-static_assert(kDqSmem <= 48 * 1024, "the wide dQ pass fits 48 KB");
+// Shared memory of the bf16 passes, from a 1024-byte aligned base: the
+// block's own operands (two of four chunk tiles each), two stages of the
+// walked pair, the P and dS tiles, each stage's 64 lse, Delta and ids, the
+// 128 keep-mask words, and 1024 bytes of alignment.
+constexpr int kOpBytes = kBwdChunks * kTileBytes;   // an operand's block
+constexpr int kStageBytes = 2 * kOpBytes;
+constexpr int kOwnOff = 0;
+constexpr int kStageOff = kOwnOff + 2 * kOpBytes;
+constexpr int kPOff = kStageOff + 2 * kStageBytes;
+constexpr int kDsOff = kPOff + kTileBytes;
+constexpr int kAuxOff = kDsOff + kTileBytes;
+constexpr int kAuxBytes = 3 * kBwdRows * 4;
+constexpr int kMaskOff = kAuxOff + 2 * kAuxBytes;
+constexpr int kWideBwdSmem = kMaskOff + 128 * 4 + 1024;
+static_assert(kWideBwdSmem <= 227 * 1024, "the wide backward fits an SM");
+constexpr int kBarP = 1, kBarDs = 2;  // named barriers: P, then dS handed over
+
+// Starts one warpgroup's copies (t: the thread's index in it) of the chunk
+// tiles c0 .. c0 + 3 below nq of the 64 rows from r0 of a strided [S, d]
+// operand into consecutive swizzled tiles from dst: rows at or past S and
+// columns at or past d arrive as zeros.
+__device__ __forceinline__ void wg_copy_block(uint32_t dst,
+                                              const __nv_bfloat16* src,
+                                              long long stride, int r0, int S,
+                                              int c0, int nq, int d, int t) {
+  const int cc = t & 7;
+#pragma unroll
+  for (int j = 0; j < kBwdChunks; ++j) {
+    const int col = (c0 + j) * 64 + cc * 8;
+    if (c0 + j >= nq) break;
+    const bool col_ok = col < d;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (t + 128 * i) >> 3;
+      const bool valid = col_ok && r0 + r < S;
+      cp_async_16(dst + j * kTileBytes + swizzled(r, cc),
+                  src + (valid ? (r0 + r) * stride + col : 0), valid);
+    }
+  }
+}
+
+// The S-like product of one block of chunks, issued and committed: acc
+// (+)= A B^T over the chunk tiles c0 .. c0 + 3 below nq (A's at a, B's at
+// b), the first chunk of d overwriting acc. The caller waits.
+__device__ __forceinline__ void block_mma(float (&acc)[8][4], uint32_t a,
+                                          uint32_t b, int c0, int nq,
+                                          int hd) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kBwdChunks; ++j)
+    if (c0 + j < nq)
+      tile_mma_ss(acc, a + j * kTileBytes, b + j * kTileBytes, c0 + j > 0,
+                  chunk_steps(c0 + j, hd));
+  wgmma_commit();
+}
 
 template <bool kDropout, bool kSegment>
-__global__ void __launch_bounds__(128, 2)
+__global__ void __launch_bounds__(kBwdThreads, 1)
 attn_bwd_dq_wide_bf16(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -88,15 +152,12 @@ attn_bwd_dq_wide_bf16(const __nv_bfloat16* __restrict__ q,
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const unsigned char* base_ptr = smem_raw + (base - raw);
-  const uint32_t ua = base, ub = base + T, ko = base + 2 * T;
-  const int* sI = reinterpret_cast<const int*>(base_ptr + 4 * T);
+  unsigned char* base_ptr = smem_raw + (base - raw);
 
   const int m0 = blockIdx.x * kBwdRows;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int col0 = blockIdx.z * kBwdCols;
-  const int ocols = min(kBwdCols, hd - col0);
-  const int nq = (hd + 63) / 64;
+  const int oc = blockIdx.z;  // output columns [256 oc, 256 oc + 256)
+  const int nq = (hd + 63) / 64, nb = (nq + kBwdChunks - 1) / kBwdChunks;
   const uint32_t dbh = kDropout ? drop_base(drop, b, h) : 0u;
   const int* segp = kSegment ? seg + static_cast<long long>(b) * S : nullptr;
   const __nv_bfloat16* qp = q + b * qs.b + h * qs.h;
@@ -104,9 +165,18 @@ attn_bwd_dq_wide_bf16(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vp = v + b * vs.b + h * vs.h;
   const __nv_bfloat16* dop = dout + b * dos.b + h * dos.h;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warpgroup, read from lane 0 so that the compiler knows it uniform
+  // over each warp (wgmma under a branch on it is then not serialized)
+  const int tid = threadIdx.x, t128 = tid & 127;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = t128 >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wr = warp * 16;
   const int row0 = m0 + wr + g;
+  // warpgroup 0: S from Q and K; 1: dP from dO and V
+  const __nv_bfloat16* own = wg ? dop : qp;
+  const __nv_bfloat16* walked = wg ? vp : kp;
+  const long long own_s = wg ? dos.s : qs.s, walked_s = wg ? vs.s : ks.s;
+  const int cown = kBwdChunks * oc + 2 * wg;  // this warpgroup's first chunk
   float l2[2], dl[2];
   uint32_t dbase[2];
   int seg_row[2] = {0, 0};
@@ -127,126 +197,188 @@ attn_bwd_dq_wide_bf16(const __nv_bfloat16* __restrict__ q,
       dqa[c][n][0] = dqa[c][n][1] = dqa[c][n][2] = dqa[c][n][3] = 0.f;
   acc_fence(dqa);
 
-  TileWalk<kSegment> walk(segp, S, m0);
-  for (int tile = walk.next(); tile >= 0; tile = walk.next()) {
-    const int n0 = tile * kBwdRows, krows = min(kBwdRows, S - n0);
-    __syncthreads();  // every thread is done with the previous tile
-#pragma unroll
-    for (int ch = 0; ch < 2; ++ch)
-      copy_tile_async(ko + ch * T, kp + col0, ks.s, n0, S, ch, ocols);
+  const uint32_t own_tiles = base + kOwnOff + wg * kOpBytes;
+  auto stage = [&](int st) { return base + kStageOff + st * kStageBytes; };
+  // the walked tile's chunk block c0 (this warpgroup's operand) and, from
+  // warpgroup 0, the key ids into stage st
+  auto load_walked = [&](int n0, int st, int c0) {
+    wg_copy_block(stage(st) + wg * kOpBytes, walked, walked_s, n0, S, c0, nq,
+                  hd, t128);
     if (kSegment && tid < kBwdRows) {
       const bool ok = n0 + tid < S;
-      cp_async_4(base + 4 * T + 512 + 4 * tid, segp + (ok ? n0 + tid : 0),
-                 ok);
+      cp_async_4(base + kAuxOff + st * kAuxBytes + 4 * tid,
+                 segp + (ok ? n0 + tid : 0), ok);
     }
+  };
 
-    // S = Q K^T, chunk by chunk
-    float sp[8][4];
-    for (int c = 0; c < nq; ++c) {
-      if (c > 0) __syncthreads();
-      copy_tile_async(ua, qp, qs.s, m0, S, c, hd);
-      copy_tile_async(ub, kp, ks.s, n0, S, c, hd);
+  // The tile at n0 in stage st, S (warpgroup 0) or dP (1) in sp: P and dS
+  // handed over, then dQ_chunk += dS K_chunk on this warpgroup's two
+  // chunks, issued and committed.
+  auto finish_tile = [&](int n0, int st, float (&sp)[8][4]) {
+    const int krows = min(kBwdRows, S - n0);
+    const uint32_t ktiles = stage(st);  // K's chunks of the output block
+    const int* sIt = reinterpret_cast<const int*>(base_ptr + kAuxOff +
+                                                  st * kAuxBytes);
+    uint32_t pp[4][4], dsf[4][4];
+    if (wg == 0) {
+      // P rounded to bf16, handed over
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int kc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
+        if (n * 8 >= krows) {
+          pp[kk][hi] = pp[kk][hi + 1] = 0u;
+          continue;
+        }
+        int id[2] = {0, 0};
+        if (kSegment) {
+          const int2 i2 = *reinterpret_cast<const int2*>(sIt + kc);
+          id[0] = i2.x;
+          id[1] = i2.y;
+        }
+        float pe[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e & 1, r = e >> 1;
+          bool ok = kc + j < krows;
+          if (kSegment) ok = ok && id[j] == seg_row[r];
+          pe[e] = ok ? exp2f(sp[n][e] * scale_log2 - l2[r]) : 0.f;
+        }
+        pp[kk][hi] = pack_bf16x2(pe[0], pe[1]);
+        pp[kk][hi + 1] = pack_bf16x2(pe[2], pe[3]);
+      }
+      store_a_swizzled(base_ptr + kPOff, wr, lane, pp);
+      bar_arrive(kBarP, kBwdThreads);
+      bar_sync(kBarDs, kBwdThreads);
+      load_a_swizzled(base + kDsOff, wr, lane, dsf);
+    } else {
+      bar_sync(kBarP, kBwdThreads);
+      load_a_swizzled(base + kPOff, wr, lane, pp);
+      // dS = P * (M * dP / (1 - rate) - Delta), rounded to bf16
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int kc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
+        if (n * 8 >= krows) {
+          dsf[kk][hi] = dsf[kk][hi + 1] = 0u;
+          continue;
+        }
+        float de[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e & 1, r = e >> 1;
+          const uint32_t w = pp[kk][hi + r];
+          const float p = j ? bf16_hi(w) : bf16_lo(w);
+          float dpe = sp[n][e];
+          if (kDropout)
+            dpe = kept(drop, dbase[r], n0 + kc + j) ? dpe * drop.inv_keep
+                                                    : 0.f;
+          de[e] = p * (dpe - dl[r]);
+        }
+        dsf[kk][hi] = pack_bf16x2(de[0], de[1]);
+        dsf[kk][hi + 1] = pack_bf16x2(de[2], de[3]);
+      }
+      store_a_swizzled(base_ptr + kDsOff, wr, lane, dsf);
+      bar_arrive(kBarDs, kBwdThreads);
+    }
+    wgmma_fence(dsf);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (cown + i < nq)
+        tile_mma_rs<true>(dqa[i], dsf, ktiles + (2 * wg + i) * T, krows);
+    wgmma_commit();
+  };
+
+  TileWalk<kSegment> walk(segp, S, m0);
+  int tile = walk.next();
+  float sp[8][4];  // warpgroup 0: S; 1: dP
+  if (nb == 1 && tile >= 0) {
+    // The walk, pipelined: the own block stays; while a tile's dQ products
+    // run, the next tile's S and dP are issued, and the tile after it is
+    // copied into the stage the products are done with (here, unlike in
+    // the dK/dV pass, that fits the registers without a spill).
+    wg_copy_block(own_tiles, own, own_s, m0, S, 0, nq, hd, t128);
+    load_walked(tile * kBwdRows, 0, 0);
+    cp_async_commit();
+    int next = walk.next();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (next >= 0) load_walked(next * kBwdRows, 1, 0);
+    cp_async_commit();
+    block_mma(sp, own_tiles, stage(0) + wg * kOpBytes, 0, nq, hd);
+    wgmma_wait<0>(sp);
+    int st = 0;
+    while (tile >= 0) {
+      finish_tile(tile * kBwdRows, st, sp);
+      cp_async_wait<0>();
+      __syncthreads();  // the next tile arrived; the hand-over tiles are free
+      if (next >= 0)
+        block_mma(sp, own_tiles, stage(st ^ 1) + wg * kOpBytes, 0, nq, hd);
+      wgmma_wait<0>(dqa);
+      acc_fence(sp);
+      __syncthreads();  // both warpgroups' products are done with stage st
+      int after = -1;
+      if (next >= 0) {
+        after = walk.next();
+        if (after >= 0) load_walked(after * kBwdRows, st, 0);
+      }
+      cp_async_commit();
+      tile = next;
+      next = after;
+      st ^= 1;
+    }
+  }
+  // Past 256 columns: d in blocks of four chunks through stage 0, a tile at
+  // a time.
+  for (; nb > 1 && tile >= 0; tile = walk.next()) {
+    const int n0 = tile * kBwdRows;
+    for (int cb = 0; cb < nb; ++cb) {
+      __syncthreads();  // every thread is done with the previous block
+      wg_copy_block(own_tiles, own, own_s, m0, S, cb * kBwdChunks, nq, hd,
+                    t128);
+      if (cb == 0)
+        load_walked(n0, 0, 0);
+      else
+        wg_copy_block(stage(0) + wg * kOpBytes, walked, walked_s, n0, S,
+                      cb * kBwdChunks, nq, hd, t128);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      wgmma_fence();
-      tile_mma_ss(sp, ua, ub, c > 0, chunk_steps(c, hd));
-      wgmma_commit();
+      block_mma(sp, own_tiles, stage(0) + wg * kOpBytes, cb * kBwdChunks, nq,
+                hd);
       wgmma_wait<0>(sp);
     }
-    const int* sIt = sI + 128;  // the ids behind lse and Delta's slots
-    uint32_t pp[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int kc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
-      if (n * 8 >= krows) {
-        pp[kk][hi] = pp[kk][hi + 1] = 0u;
-        continue;
-      }
-      int id[2] = {0, 0};
-      if (kSegment) {
-        const int2 i2 = *reinterpret_cast<const int2*>(sIt + kc);
-        id[0] = i2.x;
-        id[1] = i2.y;
-      }
-      float pe[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = e & 1, r = e >> 1;
-        bool ok = kc + j < krows;
-        if (kSegment) ok = ok && id[j] == seg_row[r];
-        pe[e] = ok ? exp2f(sp[n][e] * scale_log2 - l2[r]) : 0.f;
-      }
-      pp[kk][hi] = pack_bf16x2(pe[0], pe[1]);
-      pp[kk][hi + 1] = pack_bf16x2(pe[2], pe[3]);
-    }
-
-    // dP = dO V^T, chunk by chunk
-    float dp[8][4];
-    for (int c = 0; c < nq; ++c) {
-      __syncthreads();  // the previous chunk's product is done
-      copy_tile_async(ua, dop, dos.s, m0, S, c, hd);
-      copy_tile_async(ub, vp, vs.s, n0, S, c, hd);
+    if (oc != nb - 1) {  // K's chunks of this block's output columns
+      __syncthreads();
+      if (wg == 0)
+        wg_copy_block(stage(0), kp, ks.s, n0, S, oc * kBwdChunks, nq, hd,
+                      t128);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      wgmma_fence();
-      tile_mma_ss(dp, ua, ub, c > 0, chunk_steps(c, hd));
-      wgmma_commit();
-      wgmma_wait<0>(dp);
     }
-
-    // dS = P * (M * dP / (1 - rate) - Delta), rounded to bf16
-    uint32_t dsf[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int kc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
-      if (n * 8 >= krows) {
-        dsf[kk][hi] = dsf[kk][hi + 1] = 0u;
-        continue;
-      }
-      float de[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = e & 1, r = e >> 1;
-        const uint32_t w = pp[kk][hi + r];
-        const float p = j ? bf16_hi(w) : bf16_lo(w);
-        float dpe = dp[n][e];
-        if (kDropout)
-          dpe = kept(drop, dbase[r], n0 + kc + j) ? dpe * drop.inv_keep : 0.f;
-        de[e] = p * (dpe - dl[r]);
-      }
-      dsf[kk][hi] = pack_bf16x2(de[0], de[1]);
-      dsf[kk][hi + 1] = pack_bf16x2(de[2], de[3]);
-    }
-    // dQ_chunk += dS K_chunk
-    wgmma_fence(dsf);
-    tile_mma_rs<true>(dqa[0], dsf, ko, krows);
-    if (ocols > 64) tile_mma_rs<true>(dqa[1], dsf, ko + T, krows);
-    wgmma_commit();
+    finish_tile(n0, 0, sp);
     wgmma_wait<0>(dqa);
   }
 
-  __nv_bfloat16* dqp = dq + b * dqs.b + h * dqs.h + col0;
+  __nv_bfloat16* dqp = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
-  for (int ch = 0; ch < 2; ++ch)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      const int c = ch * 64 + n * 8 + 2 * t;
-      if (c >= ocols) continue;
+      const int c = (cown + i) * 64 + n * 8 + 2 * t;
+      if (c >= hd) continue;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
         if (row < S)
           *reinterpret_cast<uint32_t*>(dqp + row * dqs.s + c) =
-              pack_bf16x2(dqa[ch][n][2 * r] * scale,
-                          dqa[ch][n][2 * r + 1] * scale);
+              pack_bf16x2(dqa[i][n][2 * r] * scale,
+                          dqa[i][n][2 * r + 1] * scale);
       }
     }
 }
 
 template <bool kDropout, bool kSegment>
-__global__ void __launch_bounds__(128, 2)
+__global__ void __launch_bounds__(kBwdThreads, 1)
 attn_bwd_dkdv_wide_bf16(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
@@ -263,18 +395,13 @@ attn_bwd_dkdv_wide_bf16(const __nv_bfloat16* __restrict__ q,
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const unsigned char* base_ptr = smem_raw + (base - raw);
-  const uint32_t ua = base, ub = base + T, qo = base + 2 * T,
-                 doo = base + 4 * T, aux = base + 6 * T;
-  const float* sL = reinterpret_cast<const float*>(base_ptr + 6 * T);
-  const float* sD = sL + kBwdRows;
-  const int* sI = reinterpret_cast<const int*>(sD + kBwdRows);
+  unsigned char* base_ptr = smem_raw + (base - raw);
+  uint32_t* sMask = reinterpret_cast<uint32_t*>(base_ptr + kMaskOff);
 
   const int n0 = blockIdx.x * kBwdRows;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int col0 = blockIdx.z * kBwdCols;
-  const int ocols = min(kBwdCols, hd - col0);
-  const int nq = (hd + 63) / 64;
+  const int oc = blockIdx.z;  // output columns [256 oc, 256 oc + 256)
+  const int nq = (hd + 63) / 64, nb = (nq + kBwdChunks - 1) / kBwdChunks;
   const uint32_t dbh = kDropout ? drop_base(drop, b, h) : 0u;
   const int* segp = kSegment ? seg + static_cast<long long>(b) * S : nullptr;
   const __nv_bfloat16* qp = q + b * qs.b + h * qs.h;
@@ -284,7 +411,11 @@ attn_bwd_dkdv_wide_bf16(const __nv_bfloat16* __restrict__ q,
   const float* lp = lse + static_cast<long long>(bh) * S;
   const float* dlp = delta + static_cast<long long>(bh) * S;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warpgroup, read from lane 0 so that the compiler knows it uniform
+  // over each warp (wgmma under a branch on it is then not serialized)
+  const int tid = threadIdx.x, t128 = tid & 127;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = t128 >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wr = warp * 16;
   const int key0 = n0 + wr + g;
   const bool key_ok[2] = {key0 < S, key0 + 8 < S};
@@ -293,165 +424,215 @@ attn_bwd_dkdv_wide_bf16(const __nv_bfloat16* __restrict__ q,
     seg_key[0] = key_ok[0] ? segp[key0] : kNoSegment;
     seg_key[1] = key_ok[1] ? segp[key0 + 8] : kNoSegment;
   }
-  float dka[2][8][4], dva[2][8][4];
+  // warpgroup 0: S^T from K and Q, then dV from (M * P)^T and dO;
+  // warpgroup 1: dP^T from V and dO, then dK from dS^T and Q
+  const __nv_bfloat16* own = wg ? vp : kp;
+  const __nv_bfloat16* walked = wg ? dop : qp;
+  const long long own_s = wg ? vs.s : ks.s, walked_s = wg ? dos.s : qs.s;
+  const int c0 = kBwdChunks * oc;  // the output block's first chunk
+  float acc[kBwdChunks][8][4];     // warpgroup 0: dV; 1: dK
 #pragma unroll
-  for (int c = 0; c < 2; ++c)
+  for (int c = 0; c < kBwdChunks; ++c)
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dka[c][n][e] = dva[c][n][e] = 0.f;
-  acc_fence(dka);
-  acc_fence(dva);
+      for (int e = 0; e < 4; ++e) acc[c][n][e] = 0.f;
+  acc_fence(acc);
 
-  TileWalk<kSegment> walk(segp, S, n0);
-  for (int tile = walk.next(); tile >= 0; tile = walk.next()) {
-    const int m0 = tile * kBwdRows, qrows = min(kBwdRows, S - m0);
-    __syncthreads();  // every thread is done with the previous tile
-#pragma unroll
-    for (int ch = 0; ch < 2; ++ch) {
-      copy_tile_async(qo + ch * T, qp + col0, qs.s, m0, S, ch, ocols);
-      copy_tile_async(doo + ch * T, dop + col0, dos.s, m0, S, ch, ocols);
-    }
+  const uint32_t own_tiles = base + kOwnOff + wg * kOpBytes;
+  auto stage = [&](int st) { return base + kStageOff + st * kStageBytes; };
+  // the walked tile's chunk block c0 (this warpgroup's operand) and, from
+  // warpgroup 0, its lse, Delta and ids into stage st
+  auto load_walked = [&](int m0, int st, int cb0) {
+    wg_copy_block(stage(st) + wg * kOpBytes, walked, walked_s, m0, S, cb0,
+                  nq, hd, t128);
     if (tid < kBwdRows) {
       const bool ok = m0 + tid < S;
       const int r = ok ? m0 + tid : 0;
+      const uint32_t aux = base + kAuxOff + st * kAuxBytes;
       cp_async_4(aux + 4 * tid, lp + r, ok);
       cp_async_4(aux + 256 + 4 * tid, dlp + r, ok);
       if (kSegment) cp_async_4(aux + 512 + 4 * tid, segp + r, ok);
     }
+  };
 
-    // S^T = K Q^T, chunk by chunk
-    float sp[8][4];
-    for (int c = 0; c < nq; ++c) {
-      if (c > 0) __syncthreads();
-      copy_tile_async(ua, kp, ks.s, n0, S, c, hd);
-      copy_tile_async(ub, qp, qs.s, m0, S, c, hd);
+  // The tile at m0 in stage st, S^T (warpgroup 0) or dP^T (1) in sp:
+  // warpgroup 0 rounds P^T and hashes the keep mask, hands both over and
+  // adds (M * P)^T dO_chunk to dV; warpgroup 1 forms dS^T from them and
+  // adds dS^T Q_chunk to dK, over the output block's chunks, issued and
+  // committed.
+  auto finish_tile = [&](int m0, int st, float (&sp)[8][4]) {
+    const int qrows = min(kBwdRows, S - m0);
+    const float* sL = reinterpret_cast<const float*>(base_ptr + kAuxOff +
+                                                     st * kAuxBytes);
+    const float* sD = sL + kBwdRows;
+    const int* sI = reinterpret_cast<const int*>(sD + kBwdRows);
+    uint32_t a[4][4];  // warpgroup 0: M * P^T; 1: dS^T
+    if (wg == 0) {
+      uint32_t kmask = 0u;  // keep bit of element (query 8n + 2t + (e & 1),
+                            // key): bit 4n + e
+      const uint32_t dbase =
+          kDropout ? drop_row(drop, dbh, m0) + static_cast<uint32_t>(key0)
+                   : 0u;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int qc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
+        if (n * 8 >= qrows) {
+          a[kk][hi] = a[kk][hi + 1] = 0u;
+          continue;
+        }
+        const float2 l = *reinterpret_cast<const float2*>(sL + qc);
+        const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
+        int id[2] = {0, 0};
+        if (kSegment) {
+          const int2 i2 = *reinterpret_cast<const int2*>(sI + qc);
+          id[0] = i2.x;
+          id[1] = i2.y;
+        }
+        float pe[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e & 1, r = e >> 1;
+          bool ok = key_ok[r] && qc + j < qrows;
+          if (kSegment) ok = ok && id[j] == seg_key[r];
+          pe[e] = ok ? exp2f(sp[n][e] * scale_log2 - l2[j]) : 0.f;
+          const uint32_t counter =
+              dbase + static_cast<uint32_t>(qc + j) * drop.s_pad;
+          if (kDropout && kept(drop, counter, r * 8))
+            kmask |= 1u << (4 * n + e);
+        }
+        a[kk][hi] = pack_bf16x2(pe[0], pe[1]);
+        a[kk][hi + 1] = pack_bf16x2(pe[2], pe[3]);
+      }
+      store_a_swizzled(base_ptr + kPOff, wr, lane, a);
+      if (kDropout) {
+        sMask[t128] = kmask;
+        // M * P^T, in place
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int bit = 4 * (2 * kk + (j >> 1)) + 2 * (j & 1);
+            a[kk][j] &= ((kmask >> bit) & 1u ? 0xFFFFu : 0u) |
+                        ((kmask >> (bit + 1)) & 1u ? 0xFFFF0000u : 0u);
+          }
+      }
+      bar_arrive(kBarP, kBwdThreads);
+    } else {
+      bar_sync(kBarP, kBwdThreads);
+      const uint32_t kmask = kDropout ? sMask[t128] : 0u;
+      // dS^T = P^T * (M * dP^T / (1 - rate) - Delta), rounded to bf16; P^T
+      // read back 16 columns at a time
+      uint32_t pk[4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int qc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
+        if (hi == 0) load_a_swizzled(base + kPOff, wr, lane, kk, pk);
+        if (n * 8 >= qrows) {
+          a[kk][hi] = a[kk][hi + 1] = 0u;
+          continue;
+        }
+        const float2 dl = *reinterpret_cast<const float2*>(sD + qc);
+        float de[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t w = pk[hi + (e >> 1)];
+          const float p = e & 1 ? bf16_hi(w) : bf16_lo(w);
+          float dpe = sp[n][e];
+          if (kDropout)
+            dpe = (kmask >> (4 * n + e)) & 1u ? dpe * drop.inv_keep : 0.f;
+          de[e] = p * (dpe - (e & 1 ? dl.y : dl.x));
+        }
+        a[kk][hi] = pack_bf16x2(de[0], de[1]);
+        a[kk][hi + 1] = pack_bf16x2(de[2], de[3]);
+      }
+    }
+    // dV_chunk += (M * P)^T dO_chunk (0) or dK_chunk += dS^T Q_chunk (1):
+    // the other operand of the walked pair's chunks in this stage
+    const uint32_t btiles = stage(st) + (1 - wg) * kOpBytes;
+    wgmma_fence(a);
+#pragma unroll
+    for (int c = 0; c < kBwdChunks; ++c)
+      if (c0 + c < nq)
+        tile_mma_rs<true>(acc[c], a, btiles + c * T, qrows);
+    wgmma_commit();
+  };
+
+  TileWalk<kSegment> walk(segp, S, n0);
+  int tile = walk.next();
+  float sp[8][4];  // warpgroup 0: S^T; 1: dP^T
+  if (nb == 1 && tile >= 0) {
+    // The own block stays; the next tile is copied into the other stage
+    // while this one's products run.
+    wg_copy_block(own_tiles, own, own_s, n0, S, 0, nq, hd, t128);
+    load_walked(tile * kBwdRows, 0, 0);
+    cp_async_commit();
+    int st = 0;
+    while (tile >= 0) {
+      const int next = walk.next();
+      cp_async_wait<0>();
+      __syncthreads();  // the tile arrived; the other stage is free
+      if (next >= 0) load_walked(next * kBwdRows, st ^ 1, 0);
+      cp_async_commit();
+      block_mma(sp, own_tiles, stage(st) + wg * kOpBytes, 0, nq, hd);
+      wgmma_wait<0>(sp);
+      finish_tile(tile * kBwdRows, st, sp);
+      wgmma_wait<0>(acc);
+      st ^= 1;
+      tile = next;
+    }
+  }
+  // Past 256 columns: d in blocks of four chunks through stage 0, a tile at
+  // a time.
+  for (; nb > 1 && tile >= 0; tile = walk.next()) {
+    const int m0 = tile * kBwdRows;
+    for (int cb = 0; cb < nb; ++cb) {
+      __syncthreads();  // every thread is done with the previous block
+      wg_copy_block(own_tiles, own, own_s, n0, S, cb * kBwdChunks, nq, hd,
+                    t128);
+      if (cb == 0)
+        load_walked(m0, 0, 0);
+      else
+        wg_copy_block(stage(0) + wg * kOpBytes, walked, walked_s, m0, S,
+                      cb * kBwdChunks, nq, hd, t128);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      wgmma_fence();
-      tile_mma_ss(sp, ua, ub, c > 0, chunk_steps(c, hd));
-      wgmma_commit();
+      block_mma(sp, own_tiles, stage(0) + wg * kOpBytes, cb * kBwdChunks, nq,
+                hd);
       wgmma_wait<0>(sp);
     }
-
-    // P^T rounded to bf16; keep bit of element (query m0 + 8n + 2t +
-    // (e & 1), key): bit 4n + e
-    uint32_t pp[4][4], pf[4][4];
-    uint32_t kmask = 0u;
-    const uint32_t dbase =
-        kDropout ? drop_row(drop, dbh, m0) + static_cast<uint32_t>(key0) : 0u;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int qc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
-      if (n * 8 >= qrows) {
-        pp[kk][hi] = pp[kk][hi + 1] = 0u;
-        continue;
-      }
-      const float2 l = *reinterpret_cast<const float2*>(sL + qc);
-      const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
-      int id[2] = {0, 0};
-      if (kSegment) {
-        const int2 i2 = *reinterpret_cast<const int2*>(sI + qc);
-        id[0] = i2.x;
-        id[1] = i2.y;
-      }
-      float pe[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = e & 1, r = e >> 1;
-        bool ok = key_ok[r] && qc + j < qrows;
-        if (kSegment) ok = ok && id[j] == seg_key[r];
-        pe[e] = ok ? exp2f(sp[n][e] * scale_log2 - l2[j]) : 0.f;
-        const uint32_t counter =
-            dbase + static_cast<uint32_t>(qc + j) * drop.s_pad;
-        if (kDropout && kept(drop, counter, r * 8)) kmask |= 1u << (4 * n + e);
-      }
-      pp[kk][hi] = pack_bf16x2(pe[0], pe[1]);
-      pp[kk][hi + 1] = pack_bf16x2(pe[2], pe[3]);
-    }
-    if (kDropout) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int bit = 4 * (2 * kk + (j >> 1)) + 2 * (j & 1);
-          pf[kk][j] = pp[kk][j] & (((kmask >> bit) & 1u ? 0xFFFFu : 0u) |
-                                   ((kmask >> (bit + 1)) & 1u ? 0xFFFF0000u
-                                                              : 0u));
-        }
-    }
-
-    // dP^T = V dO^T, chunk by chunk
-    float dp[8][4];
-    for (int c = 0; c < nq; ++c) {
+    if (oc != nb - 1) {  // Q's and dO's chunks of the output columns
       __syncthreads();
-      copy_tile_async(ua, vp, vs.s, n0, S, c, hd);
-      copy_tile_async(ub, dop, dos.s, m0, S, c, hd);
+      wg_copy_block(stage(0) + wg * kOpBytes, walked, walked_s, m0, S, c0, nq,
+                    hd, t128);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      wgmma_fence();
-      tile_mma_ss(dp, ua, ub, c > 0, chunk_steps(c, hd));
-      wgmma_commit();
-      wgmma_wait<0>(dp);
     }
-
-    // dS^T = P^T * (M * dP^T / (1 - rate) - Delta), rounded to bf16
-    uint32_t dsf[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int qc = n * 8 + 2 * t, kk = n >> 1, hi = (n & 1) * 2;
-      if (n * 8 >= qrows) {
-        dsf[kk][hi] = dsf[kk][hi + 1] = 0u;
-        continue;
-      }
-      const float2 dl = *reinterpret_cast<const float2*>(sD + qc);
-      float de[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t w = pp[kk][hi + (e >> 1)];
-        const float p = e & 1 ? bf16_hi(w) : bf16_lo(w);
-        float dpe = dp[n][e];
-        if (kDropout)
-          dpe = (kmask >> (4 * n + e)) & 1u ? dpe * drop.inv_keep : 0.f;
-        de[e] = p * (dpe - (e & 1 ? dl.y : dl.x));
-      }
-      dsf[kk][hi] = pack_bf16x2(de[0], de[1]);
-      dsf[kk][hi + 1] = pack_bf16x2(de[2], de[3]);
-    }
-    // dV_chunk += (M * P)^T dO_chunk, dK_chunk += dS^T Q_chunk
-    wgmma_fence(dsf);
-    wgmma_fence(kDropout ? pf : pp);
-    tile_mma_rs<true>(dva[0], kDropout ? pf : pp, doo, qrows);
-    if (ocols > 64) tile_mma_rs<true>(dva[1], kDropout ? pf : pp, doo + T, qrows);
-    tile_mma_rs<true>(dka[0], dsf, qo, qrows);
-    if (ocols > 64) tile_mma_rs<true>(dka[1], dsf, qo + T, qrows);
-    wgmma_commit();
-    wgmma_wait<0>(dva);
-    acc_fence(dka);
+    finish_tile(m0, 0, sp);
+    wgmma_wait<0>(acc);
   }
 
-  __nv_bfloat16* dkp = dk + b * dks.b + h * dks.h + col0;
-  __nv_bfloat16* dvp = dv + b * dvs.b + h * dvs.h + col0;
-  const float vscale = kDropout ? drop.inv_keep : 1.f;
+  // warpgroup 0 writes dV (times 1 / (1 - rate)), 1 writes dK (times the
+  // softmax scale)
+  __nv_bfloat16* out = wg ? dk + b * dks.b + h * dks.h
+                          : dv + b * dvs.b + h * dvs.h;
+  const long long out_s = wg ? dks.s : dvs.s;
+  const float oscale = wg ? scale : kDropout ? drop.inv_keep : 1.f;
 #pragma unroll
-  for (int ch = 0; ch < 2; ++ch)
+  for (int c = 0; c < kBwdChunks; ++c)
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      const int c = ch * 64 + n * 8 + 2 * t;
-      if (c >= ocols) continue;
+      const int col = (c0 + c) * 64 + n * 8 + 2 * t;
+      if (col >= hd) continue;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
-        if (key_ok[r]) {
-          *reinterpret_cast<uint32_t*>(dkp + key * dks.s + c) =
-              pack_bf16x2(dka[ch][n][2 * r] * scale,
-                          dka[ch][n][2 * r + 1] * scale);
-          *reinterpret_cast<uint32_t*>(dvp + key * dvs.s + c) =
-              pack_bf16x2(dva[ch][n][2 * r] * vscale,
-                          dva[ch][n][2 * r + 1] * vscale);
-        }
+        if (key_ok[r])
+          *reinterpret_cast<uint32_t*>(out + key * out_s + col) =
+              pack_bf16x2(acc[c][n][2 * r] * oscale,
+                          acc[c][n][2 * r + 1] * oscale);
       }
     }
 }
@@ -691,21 +872,23 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
     using bf = __nv_bfloat16;
     auto dqk = attn_bwd_dq_wide_bf16<kDropout, kSegment>;
     auto dkdv = attn_bwd_dkdv_wide_bf16<kDropout, kSegment>;
-    if ((err = allow_smem<attn_bwd_dkdv_wide_bf16<kDropout, kSegment>,
-                          kDkdvSmem>(device)) != cudaSuccess)
+    if ((err = allow_smem<attn_bwd_dq_wide_bf16<kDropout, kSegment>,
+                          kWideBwdSmem>(device)) != cudaSuccess ||
+        (err = allow_smem<attn_bwd_dkdv_wide_bf16<kDropout, kSegment>,
+                          kWideBwdSmem>(device)) != cudaSuccess)
       return static_cast<int>(err);
     attn_bwd_delta_wide<bf><<<delta_blocks, 256, 0, cs>>>(
         static_cast<const bf*>(o), static_cast<const bf*>(dout), dl, heads,
         seq, head_dim, rows, st[3], st[4]);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(tiles, bh, out_blocks(head_dim, kBwdCols));
-    dqk<<<grid, 128, kDqSmem, cs>>>(
+    dqk<<<grid, kBwdThreads, kWideBwdSmem, cs>>>(
         static_cast<const bf*>(q), static_cast<const bf*>(k),
         static_cast<const bf*>(v), static_cast<const bf*>(dout), l, dl,
         static_cast<bf*>(dq), heads, seq, head_dim, st[0], st[1], st[2],
         st[4], st[5], scale, scale_log2, drop, seg);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    dkdv<<<grid, 128, kDkdvSmem, cs>>>(
+    dkdv<<<grid, kBwdThreads, kWideBwdSmem, cs>>>(
         static_cast<const bf*>(q), static_cast<const bf*>(k),
         static_cast<const bf*>(v), static_cast<const bf*>(dout), l, dl,
         static_cast<bf*>(dk), static_cast<bf*>(dv), heads, seq, head_dim,

@@ -441,14 +441,49 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
 }
 
 // wgmma's per-warp A fragments (acc_to_a's layout) of rows [r0, r0 + 16) x
-// 64 columns of a swizzled tile.
+// 64 columns of a swizzled tile; or of its 16 columns from 16 kk alone.
+__device__ __forceinline__ void load_a_swizzled(uint32_t tile, int r0,
+                                                int lane, int kk,
+                                                uint32_t (&a)[4]) {
+  const int i = lane >> 3, row = r0 + (lane & 7) + (i & 1) * 8;
+  ldmatrix_x4(tile + swizzled(row, kk * 2 + (i >> 1)), a[0], a[1], a[2],
+              a[3]);
+}
 __device__ __forceinline__ void load_a_swizzled(uint32_t tile, int r0,
                                                 int lane, uint32_t (&a)[4][4]) {
-  const int i = lane >> 3, row = r0 + (lane & 7) + (i & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) load_a_swizzled(tile, r0, lane, kk, a[kk]);
+}
+
+// The inverse of load_a_swizzled: this warp's A fragments (acc_to_a's
+// layout) of rows [r0, r0 + 16) x 64 columns into a swizzled tile at the
+// generic address ``tile``, as 4-byte stores (at each store the swizzle
+// puts the warp's 32 words in 32 different banks), so that another warp
+// reads them back with load_a_swizzled.
+__device__ __forceinline__ void store_a_swizzled(unsigned char* tile, int r0,
+                                                 int lane,
+                                                 const uint32_t (&a)[4][4]) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(tile + swizzled(row, kk * 2 + (i >> 1)), a[kk][0], a[kk][1],
-                a[kk][2], a[kk][3]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = r0 + g + (j & 1) * 8;
+      const int col = 16 * kk + (j >> 1) * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(tile + swizzled(row, col >> 3) +
+                                   (col & 7) * 2) = a[kk][j];
+    }
+}
+
+// Named barriers of ``threads`` threads (a multiple of 32; id 0 is
+// __syncthreads'): bar_sync waits until ``threads`` have arrived or synced
+// at ``id``, bar_arrive counts this warp in and goes on. Shared-memory
+// writes before an arrive are seen by the threads past the sync.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma's shared-memory descriptor of a swizzled tile: start address,

@@ -53,14 +53,25 @@
 // are unchanged.
 //
 // Any other D (wider than 2048, or not a whole number of 16-byte vectors,
-// which the JAX kernels take as one block too) runs the kernels of
-// ln_fwd_any / ln_bwd_any: a block owns a row at a time (a wave of blocks
-// walks the rows) and reads it from L1 / L2 once a pass (the sum, the
-// centered sum of squares, the output: the two-pass statistics of the
-// rungs), in 16-byte vectors when D is a whole number of them, else
-// element by element; the backward keeps its block's dscale / dbias sums in
-// the block's own row of the [n_blocks, 2, D] workspace (each thread owns
-// fixed columns, so no atomics), which the same column pass adds.
+// which the JAX kernels take as one block too): the forward runs ln_fwd_any,
+// a block a row at a time (a wave of blocks walks the rows), reading it from
+// L1 / L2 once a pass (the sum, the centered sum of squares, the output:
+// the two-pass statistics of the rungs), in 16-byte vectors when D is a
+// whole number of them, else element by element. The backward runs
+// ln_bwd_any, which keeps what the rungs keep on chip at any width its
+// rows fit in registers: a row of whole vectors (D past 2048) is owned by a
+// block, 2 to 4 vectors a thread (bf16 D <= 8192, f32 D <= 4096), a row off
+// the vector by a warp (up to 256 elements) or a block (up to 4096); the
+// row's x and dy are read from device memory once into registers, the
+// next row's loads are issued before the current row's two reductions
+// (the block form's through shared memory, one barrier each), the scale is
+// read once a block into shared memory, and each thread's dscale / dbias
+// sums of its own columns stay in registers across all its rows and are
+// written once a block into the [n_blocks, 2, D] workspace that the same
+// column pass adds. So the kernel moves x, dy and dx once, and the
+// workspace, one wave of rows, is written once. Wider rows take
+// ln_bwd_rowloop (a block a row read once a pass, its sums in its own row
+// of the workspace).
 
 #include "common.cuh"
 
@@ -481,20 +492,36 @@ constexpr int kAnyThreads = 256;
 constexpr int kAnyWarps = kAnyThreads / 32;
 
 // Piece p of a row: with kVec a 16-byte vector (E elements), else one
-// element, as floats.
+// element; as raw 32-bit words (the element in the low bits of a word) or
+// as floats.
 template <typename T, bool kVec>
 struct Piece {
   static constexpr int kE = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
+  static constexpr int kWords = kVec ? 4 : 1;
+  __device__ __forceinline__ static void load(const T* row, int p,
+                                              uint32_t (&w)[kWords]) {
+    if constexpr (kVec)
+      load_words(row + p * kE, w);
+    else if constexpr (sizeof(T) == 4)
+      w[0] = __float_as_uint(row[p]);
+    else
+      w[0] = static_cast<uint32_t>(__bfloat16_as_ushort(row[p]));
+  }
+  __device__ __forceinline__ static float at(const uint32_t (&w)[kWords],
+                                             int j) {
+    if constexpr (kVec)
+      return elem<T>(w, j);
+    else if constexpr (sizeof(T) == 4)
+      return __uint_as_float(w[0]);
+    else
+      return cxr::bf16_lo(w[0]);
+  }
   __device__ __forceinline__ static void load(const T* row, int p,
                                               float (&v)[kE]) {
-    if constexpr (kVec) {
-      uint32_t w[4];
-      load_words(row + p * kE, w);
+    uint32_t w[kWords];
+    load(row, p, w);
 #pragma unroll
-      for (int j = 0; j < kE; ++j) v[j] = elem<T>(w, j);
-    } else {
-      v[0] = cxr::to_f32(row[p]);
-    }
+    for (int j = 0; j < kE; ++j) v[j] = at(w, j);
   }
   __device__ __forceinline__ static void store(T* row, int p,
                                                const float (&v)[kE]) {
@@ -573,9 +600,248 @@ ln_fwd_any(const T* __restrict__ x, const W* __restrict__ scale,
   }
 }
 
+// The kE scale values of piece p, from the block's copy in shared memory.
+template <typename W, int kE>
+__device__ __forceinline__ void scale_piece(const W* s, int p,
+                                            float (&v)[kE]) {
+  if constexpr (kE == 1) {
+    v[0] = cxr::to_f32(s[p]);
+  } else {
+    uint32_t w[kE * static_cast<int>(sizeof(W)) / 4];
+    load_words(s + p * kE, w);
+#pragma unroll
+    for (int j = 0; j < kE; ++j) v[j] = elem<W>(w, j);
+  }
+}
+
+// The any-D backward's layout: kWarpRow, a warp a row (rows of at most
+// 32 V elements off the vector), 256 threads a block; else a block a row,
+// V pieces a thread, as many whole warps as that takes (at most 256
+// threads: 160 for a bf16 row of 2560, so three blocks fit an SM).
+template <typename T, typename W, bool kVec, bool kWarpRow, int V>
+struct AnyBwd {
+  using R = Piece<T, kVec>;
+  static constexpr int kE = R::kE;
+  static constexpr int kMaxD = (kWarpRow ? 32 : kAnyThreads) * V * kE;
+  __host__ __device__ static constexpr int threads(int d) {
+    return kWarpRow ? kAnyThreads
+                    : ((d / kE + V - 1) / V + 31) / 32 * 32;
+  }
+  // the row in hand and the next (x and dy, raw) and the sums, in registers
+  static constexpr int kRegs = 4 * V * R::kWords + 2 * V * kE;
+  static constexpr int kMinBlocks =
+      kWarpRow ? (kRegs <= 32 ? 4 : 3) : kRegs <= 96 ? 2 : 1;
+  __host__ __device__ static constexpr int scale_bytes(int d) {
+    return (d * static_cast<int>(sizeof(W)) + 15) / 16 * 16;
+  }
+  // the scale, then kWarpRow: the warps' sums, [warp][2 V kE][32]
+  // lane-minor; else two buffers of the warps' two partial sums
+  static constexpr int kAux =
+      kWarpRow ? kAnyWarps * 2 * V * kE * 32 * 4 : 2 * 2 * kAnyWarps * 4;
+  __host__ __device__ static constexpr int smem(int d) {
+    return scale_bytes(d) + kAux;
+  }
+};
+
+// Rows walked by warps (kWarpRow) or by whole blocks, each held in
+// registers as raw words from one read of x and dy, with the next row's
+// loads issued before the current row's two reductions; the scale read
+// once a block into shared memory; each thread's dscale / dbias sums of
+// its own columns kept in registers across all its rows and written once
+// (kWarpRow: the warps added in warp order first) into the block's row of
+// the [n_blocks, 2, D] workspace.
+template <typename T, typename W, bool kVec, bool kWarpRow, int V>
+__global__ void __launch_bounds__(
+    kAnyThreads, (AnyBwd<T, W, kVec, kWarpRow, V>::kMinBlocks))
+ln_bwd_any(const T* __restrict__ x, const W* __restrict__ scale,
+           const T* __restrict__ dy, T* __restrict__ dx,
+           float* __restrict__ part, long long rows, int D, float eps) {
+  using L = AnyBwd<T, W, kVec, kWarpRow, V>;
+  using R = typename L::R;
+  static_assert(!(kWarpRow && kVec), "a warp a row off the vector only");
+  constexpr int E = L::kE, kWd = R::kWords;
+  extern __shared__ __align__(16) unsigned char smem[];
+  W* s_scale = reinterpret_cast<W*>(smem);
+  float* s_aux = reinterpret_cast<float*>(smem + L::scale_bytes(D));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int me = kWarpRow ? lane : threadIdx.x;  // within the row's threads
+  const int row_threads = kWarpRow ? 32 : static_cast<int>(blockDim.x);
+  const int nw = blockDim.x >> 5;  // warps of the block
+  const int np = D / E;
+
+  const long long step =
+      kWarpRow ? static_cast<long long>(gridDim.x) * kAnyWarps : gridDim.x;
+  long long row = kWarpRow
+                      ? static_cast<long long>(blockIdx.x) * kAnyWarps + warp
+                      : static_cast<long long>(blockIdx.x);
+  uint32_t cx[V][kWd], cg[V][kWd];
+  auto fetch = [&](long long r, uint32_t (&xw)[V][kWd],
+                   uint32_t (&gw)[V][kWd]) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int p = me + i * row_threads;
+      if (p < np) {
+        R::load(x + r * D, p, xw[i]);
+        R::load(dy + r * D, p, gw[i]);
+      }
+    }
+  };
+  if (row < rows) fetch(row, cx, cg);  // in flight while the scale is read
+  for (int c = threadIdx.x; c < D; c += blockDim.x) s_scale[c] = scale[c];
+  __syncthreads();
+
+  // Two sums over the row's threads: a warp's butterfly, and in the block
+  // form the warps' partials through one of two buffers in turn (the
+  // barrier of one reduction orders the reads of the buffer before it
+  // against the writes of the one after it), added in warp order.
+  int buf = 0;
+  auto row_sum2 = [&](float& a, float& b) {
+    warp_sum2(a, b);
+    if constexpr (!kWarpRow) {
+      float* red = s_aux + buf * 2 * kAnyWarps;
+      if (lane == 0) {
+        red[warp] = a;
+        red[kAnyWarps + warp] = b;
+      }
+      __syncthreads();
+      a = b = 0.f;
+#pragma unroll
+      for (int w = 0; w < kAnyWarps; ++w)
+        if (w < nw) {
+          a += red[w];
+          b += red[kAnyWarps + w];
+        }
+      buf ^= 1;
+    }
+  };
+
+  float ds[V][E], db[V][E];
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+#pragma unroll
+    for (int j = 0; j < E; ++j) ds[i][j] = db[i][j] = 0.f;
+
+  for (; row < rows; row += step) {  // uniform over the row's threads
+    uint32_t nx[V][kWd], ng[V][kWd];
+    if (row + step < rows) fetch(row + step, nx, ng);
+
+    float sx = 0.f, sg = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int p = me + i * row_threads;
+      if (p < np) {
+        float sv[E];
+        scale_piece(s_scale, p, sv);
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          sx += R::at(cx[i], j);
+          sg += R::at(cg[i], j) * sv[j];
+        }
+      }
+    }
+    row_sum2(sx, sg);
+    const float mean = sx / D;
+    float sq = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int p = me + i * row_threads;
+      if (p < np) {
+        float sv[E];
+        scale_piece(s_scale, p, sv);
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const float d = R::at(cx[i], j) - mean;
+          sq += d * d;
+          sgx += R::at(cg[i], j) * sv[j] * d;
+        }
+      }
+    }
+    row_sum2(sq, sgx);
+    const float rstd = rsqrtf(sq / D + eps);
+    const float mg = sg / D, mgx = sgx * rstd / D;  // mean(g), mean(g x_hat)
+    T* dxr = dx + row * D;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int p = me + i * row_threads;
+      if (p < np) {
+        float sv[E], o[E];
+        scale_piece(s_scale, p, sv);
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const float xh = (R::at(cx[i], j) - mean) * rstd;
+          const float gy = R::at(cg[i], j);
+          ds[i][j] += gy * xh;
+          db[i][j] += gy;
+          o[j] = (gy * sv[j] - mg - xh * mgx) * rstd;
+        }
+        R::store(dxr, p, o);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+#pragma unroll
+      for (int w = 0; w < kWd; ++w) {
+        cx[i][w] = nx[i][w];
+        cg[i][w] = ng[i][w];
+      }
+  }
+
+  float* pr = part + static_cast<long long>(blockIdx.x) * 2 * D;
+  if constexpr (kWarpRow) {
+    // the warps' sums added in warp order by warp 0
+    float* mine = s_aux + warp * 2 * V * 32 + lane;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      mine[i * 32] = ds[i][0];
+      mine[(V + i) * 32] = db[i][0];
+    }
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int p = lane + i * 32;
+        float sd = 0.f, sb = 0.f;
+#pragma unroll
+        for (int w = 0; w < kAnyWarps; ++w) {
+          sd += s_aux[(w * 2 * V + i) * 32 + lane];
+          sb += s_aux[(w * 2 * V + V + i) * 32 + lane];
+        }
+        if (p < np) {
+          pr[p] = sd;
+          pr[D + p] = sb;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int p = me + i * row_threads;
+      if (p < np) {
+        if constexpr (kVec) {
+#pragma unroll
+          for (int h = 0; h < E / 4; ++h) {
+            reinterpret_cast<float4*>(pr + p * E)[h] =
+                make_float4(ds[i][4 * h], ds[i][4 * h + 1], ds[i][4 * h + 2],
+                            ds[i][4 * h + 3]);
+            reinterpret_cast<float4*>(pr + D + p * E)[h] =
+                make_float4(db[i][4 * h], db[i][4 * h + 1], db[i][4 * h + 2],
+                            db[i][4 * h + 3]);
+          }
+        } else {
+          pr[p] = ds[i][0];
+          pr[D + p] = db[i][0];
+        }
+      }
+    }
+  }
+}
+
+// Past the widths whose rows fit in registers (ln_bwd_any's), a block a
+// row read from L1 / L2 once a pass, its dscale / dbias sums in its own row
+// of the workspace (each thread owns fixed columns, so no atomics).
 template <typename T, typename W, bool kVec>
 __global__ void __launch_bounds__(kAnyThreads)
-ln_bwd_any(const T* __restrict__ x, const W* __restrict__ scale,
+ln_bwd_rowloop(const T* __restrict__ x, const W* __restrict__ scale,
            const T* __restrict__ dy, T* __restrict__ dx,
            float* __restrict__ part, long long rows, int D, float eps) {
   using P = Piece<T, kVec>;
@@ -745,6 +1011,15 @@ struct BwdCall {
   int* wave;
 };
 
+// The column pass over a backward's n_blocks partials.
+template <typename W>
+cudaError_t launch_cols(const BwdCall& c) {
+  ln_bwd_cols<W><<<(2 * c.d + 31) / 32, 32 * kColWarps, 0, c.st>>>(
+      c.part, c.n_blocks, c.d, static_cast<W*>(c.dscale),
+      static_cast<W*>(c.dbias));
+  return cudaGetLastError();
+}
+
 template <typename T, typename W, int V>
 cudaError_t run_bwd_v(const BwdCall& c) {
   using L = Bwd<T, W, V>;
@@ -763,42 +1038,90 @@ cudaError_t run_bwd_v(const BwdCall& c) {
       c.d, c.eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_bwd_cols<W><<<(2 * c.d + 31) / 32, 32 * kColWarps, 0, c.st>>>(
-      c.part, c.n_blocks, c.d, static_cast<W*>(c.dscale),
-      static_cast<W*>(c.dbias));
-  return cudaGetLastError();
+  return launch_cols<W>(c);
 }
 
-// The any-D backward (ln_bwd_any) and the column pass, or its wave.
-template <typename T, typename W, bool kVec>
+// The any-D backward at a width its rows fit in registers (ln_bwd_any) and
+// the column pass, or its wave.
+template <typename T, typename W, bool kVec, bool kWarpRow, int V>
 cudaError_t run_bwd_any(const BwdCall& c) {
-  static int cache[64] = {};
-  int wave = 0;
-  cudaError_t err = wave_of(ln_bwd_any<T, W, kVec>, kAnyThreads, 0, c.device,
-                            cache, &wave);
+  using L = AnyBwd<T, W, kVec, kWarpRow, V>;
+  static int cache[kAnyWarps][64] = {};  // by the block's warps
+  const int threads = L::threads(c.d);
+  int wave = 0;  // also allows the widest row's shared memory
+  cudaError_t err =
+      wave_of(ln_bwd_any<T, W, kVec, kWarpRow, V>, threads,
+              L::smem(L::kMaxD), c.device, cache[threads / 32 - 1], &wave);
   if (err != cudaSuccess) return err;
   if (c.wave) {
     *c.wave = wave;
     return cudaSuccess;
   }
-  ln_bwd_any<T, W, kVec><<<c.n_blocks, kAnyThreads, 0, c.st>>>(
+  ln_bwd_any<T, W, kVec, kWarpRow, V>
+      <<<c.n_blocks, threads, L::smem(c.d), c.st>>>(
+          static_cast<const T*>(c.x), static_cast<const W*>(c.scale),
+          static_cast<const T*>(c.dy), static_cast<T*>(c.dx), c.part, c.rows,
+          c.d, c.eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_cols<W>(c);
+}
+
+// Past ln_bwd_any's widths: ln_bwd_rowloop and the column pass, or its
+// wave.
+template <typename T, typename W, bool kVec>
+cudaError_t run_bwd_rowloop(const BwdCall& c) {
+  static int cache[64] = {};
+  int wave = 0;
+  cudaError_t err = wave_of(ln_bwd_rowloop<T, W, kVec>, kAnyThreads, 0,
+                            c.device, cache, &wave);
+  if (err != cudaSuccess) return err;
+  if (c.wave) {
+    *c.wave = wave;
+    return cudaSuccess;
+  }
+  ln_bwd_rowloop<T, W, kVec><<<c.n_blocks, kAnyThreads, 0, c.st>>>(
       static_cast<const T*>(c.x), static_cast<const W*>(c.scale),
       static_cast<const T*>(c.dy), static_cast<T*>(c.dx), c.part, c.rows,
       c.d, c.eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_bwd_cols<W><<<(2 * c.d + 31) / 32, 32 * kColWarps, 0, c.st>>>(
-      c.part, c.n_blocks, c.d, static_cast<W*>(c.dscale),
-      static_cast<W*>(c.dbias));
-  return cudaGetLastError();
+  return launch_cols<W>(c);
+}
+
+// Any D off the rungs: whole 16-byte vectors (D past 2048) take a block a
+// row, 2 to 4 vectors a thread (bf16 D <= 8192, f32 D <= 4096); a D off
+// the vector takes a warp a row up to 256 elements (1, 2, 4 or 8 a lane),
+// a block a row up to 4096 (2, 4, 8 or 16 a thread); wider rows
+// ln_bwd_rowloop.
+template <typename T, typename W>
+cudaError_t run_bwd_off_rungs(const BwdCall& c) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  if (c.d % E == 0) {
+    const int v = (c.d / E + kAnyThreads - 1) / kAnyThreads;
+    if (v <= 2) return run_bwd_any<T, W, true, false, 2>(c);
+    if (v <= 3) return run_bwd_any<T, W, true, false, 3>(c);
+    if (v <= 4) return run_bwd_any<T, W, true, false, 4>(c);
+    return run_bwd_rowloop<T, W, true>(c);
+  }
+  if (c.d <= 32 * 8) {
+    const int v = (c.d + 31) / 32;
+    if (v <= 1) return run_bwd_any<T, W, false, true, 1>(c);
+    if (v <= 2) return run_bwd_any<T, W, false, true, 2>(c);
+    if (v <= 4) return run_bwd_any<T, W, false, true, 4>(c);
+    return run_bwd_any<T, W, false, true, 8>(c);
+  }
+  const int v = (c.d + kAnyThreads - 1) / kAnyThreads;
+  if (v <= 2) return run_bwd_any<T, W, false, false, 2>(c);
+  if (v <= 4) return run_bwd_any<T, W, false, false, 4>(c);
+  if (v <= 8) return run_bwd_any<T, W, false, false, 8>(c);
+  if (v <= 16) return run_bwd_any<T, W, false, false, 16>(c);
+  return run_bwd_rowloop<T, W, false>(c);
 }
 
 template <typename T, typename W>
 cudaError_t run_bwd(const BwdCall& c) {
-  if (!on_rungs<T>(c.d))
-    return c.d % (16 / static_cast<int>(sizeof(T))) == 0
-               ? run_bwd_any<T, W, true>(c)
-               : run_bwd_any<T, W, false>(c);
+  if (!on_rungs<T>(c.d)) return run_bwd_off_rungs<T, W>(c);
   const int v = (c.d / (16 / static_cast<int>(sizeof(T))) + 31) / 32;
 #define CXR_LN_BWD(V) \
   if (v <= V) return run_bwd_v<T, W, V>(c);

@@ -28,7 +28,9 @@ namespace {
 // read. mode 6: c [64, 16] = a b with a [64, 64] bf16 as register
 // fragments and b [64, 16] bf16 a 64 x 16 tile whose rows are the k index
 // (MN-major, the transposed-B form), only the k-steps that reach one of its
-// first ``rows`` rows.
+// first ``rows`` rows. mode 7: mode 1's c = a b with a's fragments first
+// stored into a third tile by store_a_swizzled and read back by
+// load_a_swizzled (the wide attention backward's P and dS hand-over).
 __global__ void __launch_bounds__(128)
 tile_mma_selftest(const void* __restrict__ a, const void* __restrict__ b,
                   void* __restrict__ c, int mode, int rows) {
@@ -72,7 +74,7 @@ tile_mma_selftest(const void* __restrict__ a, const void* __restrict__ b,
     cxr::copy_tile16_async(ta, ab, 16, 0, 64, 0, 16);
   else
     cxr::copy_tile_async(ta, ab, 64, 0, 64);
-  if (mode >= 5)
+  if (mode == 5 || mode == 6)
     cxr::copy_tile16_async(tb, bb, 16, 0, rows, 0, 16);
   else
     cxr::copy_tile_async(tb, bb, 64, 0, rows);
@@ -82,6 +84,12 @@ tile_mma_selftest(const void* __restrict__ a, const void* __restrict__ b,
 
   uint32_t af[4][4];
   cxr::load_a_swizzled(ta, warp * 16, lane, af);
+  if (mode == 7) {
+    const uint32_t tc = tb + cxr::kTileBytes;
+    cxr::store_a_swizzled(smem_raw + (tc - raw), warp * 16, lane, af);
+    __syncthreads();
+    cxr::load_a_swizzled(tc, warp * 16, lane, af);
+  }
   float* cf = static_cast<float*>(c);
   if (mode == 6) {
     float acc[2][4];
@@ -107,7 +115,7 @@ tile_mma_selftest(const void* __restrict__ a, const void* __restrict__ b,
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   cxr::acc_fence(acc);
   cxr::wgmma_fence(af);
-  if (mode == 1)
+  if (mode == 1 || mode == 7)
     cxr::tile_mma_rs<true>(acc, af, tb, rows);
   else if (mode == 0)
     cxr::tile_mma_rs<false>(acc, af, tb);
@@ -130,12 +138,12 @@ tile_mma_selftest(const void* __restrict__ a, const void* __restrict__ b,
 extern "C" int cxr_tile_mma_selftest(const void* a, const void* b, void* c,
                                      int mode, int rows, int device,
                                      void* stream) {
-  if (rows < 1 || rows > 64 || mode < 0 || mode > 6)
+  if (rows < 1 || rows > 64 || mode < 0 || mode > 7)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // bf16: two tiles (64 x 64 or 64 x 16); int8: a 64-row and a 128-row
-  // tile
+  // bf16: two tiles (64 x 64 or 64 x 16), a third in mode 7; int8: a
+  // 64-row and a 128-row tile
   tile_mma_selftest<<<1, 128, 3 * cxr::kTileBytes + 1024,
                       static_cast<cudaStream_t>(stream)>>>(a, b, c, mode,
                                                            rows);

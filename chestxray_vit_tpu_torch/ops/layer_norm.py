@@ -138,7 +138,10 @@ def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
 layer_norm_cuda.launches = 0     # kernel launches, read by chip_smoke.py
 
 
-_BWD_ROWS_PER_BLOCK = 8    # warps of a backward block (kBwdWarps)
+# rows of a backward block's first turn: its eight warps' (a row a warp on
+# the rungs and off the vector up to 256 columns; a block a row past them
+# takes them one after another)
+_BWD_ROWS_PER_BLOCK = 8
 # the backward's wave (its blocks resident on the card at once) by (device
 # index, D, x dtype, scale dtype): asked of the library once, so that a
 # launch makes one ctypes call
@@ -163,8 +166,9 @@ def layer_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
                         dy: torch.Tensor, eps: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the LayerNorm backward kernel: (dx in x's dtype, dscale and
-    dbias in scale's dtype). Deterministic: each block of one wave writes
-    f32 partial sums that a column pass adds in block order."""
+    dbias in scale's dtype). Deterministic: each block of one wave keeps
+    its rows' f32 sums on chip and writes them once, and a column pass
+    adds the blocks' sums in block order."""
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_bwd_cuda needs CUDA tensors, got "
                          f"{x.device}")

@@ -1175,8 +1175,10 @@ def check_tile_mma(gen) -> None:
     that uses them: the bf16 forms (modes 0-2, 64 x 64 x 64; 5-6, the
     16-wide tiles of the forward at kD = 80) within 1e-4 of the f32 matmul
     (bf16 products are exact in f32; only the summation order differs),
-    the int8 forms (3-4) equal to the exact integer product, each with B
-    whole and with only its first 17 rows."""
+    the int8 forms (3-4) equal to the exact integer product, and mode 1
+    with the A fragments stored into a tile and read back (7: the wide
+    attention backward's hand-over of P and dS), each with B whole and
+    with only its first 17 rows."""
     from chestxray_vit_tpu_torch import kernels
 
     lib, stream = kernels.library(), torch.cuda.current_stream().cuda_stream
@@ -1186,7 +1188,7 @@ def check_tile_mma(gen) -> None:
             torch.bfloat16)
 
     rec = {"phase": "kernel_check", "kernel": "tile_mma_selftest"}
-    for mode in range(7):
+    for mode in range(8):
         if mode in (3, 4):
             a, b = (torch.randint(-128, 128, (64, 128), generator=gen,
                                   device="cuda", dtype=torch.int8)
@@ -1194,7 +1196,7 @@ def check_tile_mma(gen) -> None:
             c = torch.zeros((64, 64), device="cuda", dtype=torch.int32)
         else:
             a = bf16(64, 16 if mode == 5 else 64)
-            b = bf16(64, 16 if mode >= 5 else 64)
+            b = bf16(64, 16 if mode in (5, 6) else 64)
             c = torch.full((64, 16 if mode == 6 else 64), float("nan"),
                            device="cuda")
         for rows in (64, 17):
@@ -1212,7 +1214,7 @@ def check_tile_mma(gen) -> None:
             else:
                 bz = b.float().clone()
                 bz[rows:] = 0
-                ref = a.float() @ (bz if mode in (1, 6) else bz.t())
+                ref = a.float() @ (bz if mode in (1, 6, 7) else bz.t())
                 err = (c - ref).abs().max().item()
                 ok = err <= 1e-4
             rec[f"mode{mode}_rows{rows}"] = err
@@ -6495,18 +6497,34 @@ def spawn_readings(tr, want: dict) -> dict:
             "all_ranks_exact": not dist.agree_flag(not exact)}
 
 
+def held_marker(out_dir: str, step: int) -> str:
+    """The file that ``hold_until_stop``'s rank 0 writes in the run's
+    output directory once it holds ``step``."""
+    import os
+    return os.path.join(out_dir, f"held_step_{step}")
+
+
 def hold_until_stop(tr, step: int) -> None:
     """On every rank: the step that reaches ``step`` returns only once a
     stop was requested (within SPAWN_HOLD_S), so the caller's request lands
-    there."""
+    there. Rank 0 writes ``held_marker`` as it starts to hold: every rank
+    has then passed the stop check of the step before, so a request sent
+    after the marker appears lands on ``step``."""
+    import os
+
+    from chestxray_vit_tpu_torch.parallel import distributed as dist
     inner = tr._train_step
+    marker = held_marker(os.path.expanduser(tr.cfg.train.output_dir), step)
 
     def held(state, batch):
         out = inner(state, batch)
-        deadline = time.monotonic() + SPAWN_HOLD_S
-        while (out[0].step == step and not tr._stop_requested
-               and time.monotonic() < deadline):
-            time.sleep(0.01)
+        if out[0].step == step:
+            if dist.rank() == 0:
+                open(marker, "w").close()
+            deadline = time.monotonic() + SPAWN_HOLD_S
+            while (not tr._stop_requested
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
         return out
     tr._train_step = held
 
@@ -6665,9 +6683,8 @@ def phase_trainer_spawn() -> dict:
                 stopped.call(hold_until_stop, SPAWN_PACKED_STOP)
                 with concurrent.futures.ThreadPoolExecutor(1) as pool:
                     result = pool.submit(stopped.train)
-                    jsonl = os.path.join(stop_dir, "metrics.jsonl")
-                    while not (os.path.exists(jsonl)
-                               and os.path.getsize(jsonl)):
+                    marker = held_marker(stop_dir, SPAWN_PACKED_STOP)
+                    while not os.path.exists(marker):
                         if result.done():       # raises a rank's error
                             require(False, f"trainer_spawn stop: the run "
                                            f"ended first: {result.result()}")

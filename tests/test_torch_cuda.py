@@ -228,14 +228,18 @@ def test_layer_norm_fwd_reads_and_writes_no_row_past_the_last(
     assert bool((y[rows:] == 7.0).all())
 
 
-@pytest.mark.parametrize("d", [50, 2560, 6144])
+@pytest.mark.parametrize("rows", [1, 37, 8 * 577])
+@pytest.mark.parametrize("d", [50, 250, 1001, 2560, 6144, 9000])
 @pytest.mark.parametrize("x_dtype,w_dtype", _LN_PAIRS)
-def test_layer_norm_kernel_at_any_width(dev, x_dtype, w_dtype, d):
-    """Widths off the 16-byte vector (50) and past the register rungs
-    (2560, 6144): the row-a-block kernels, forward and backward, against
-    the plain versions (dscale and dbias 1e-5 of the largest, plus one
-    ulp in bf16), the backward's bits the same twice."""
-    rows = 8 * 577
+def test_layer_norm_kernel_at_any_width(dev, x_dtype, w_dtype, d, rows):
+    """Widths off the 16-byte vector (50, 250: a warp a row, 2 and 8
+    elements a lane; 1001: a block a row, 4 elements a thread) and past the
+    register rungs (2560, 6144: a block a row from registers; 9000: read
+    once a pass, ``ln_bwd_rowloop``), forward and backward,
+    against the plain versions (dscale and dbias 1e-5 of the largest, plus
+    one ulp in bf16), the backward's bits the same twice; at one row, at
+    37 (fewer blocks than a wave, the last one short of the others' rows)
+    and at the b8 serving rows."""
     x = _randn((rows, d), x_dtype, dev) * 3 + 1
     s, b = _randn((d,), w_dtype, dev, 1), _randn((d,), w_dtype, dev, 2)
     dy = _randn((rows, d), x_dtype, dev, 3)
@@ -368,7 +372,7 @@ def test_16_wide_tiles_multiply_like_matmul(dev, mode, rows):
     torch.testing.assert_close(c, ref, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4, 7])
 @pytest.mark.parametrize("rows", [64, 48, 17, 1])
 def test_tile_helpers_multiply_like_matmul(dev, mode, rows):
     """The kernels' tile machinery alone (cp.async into 128-byte swizzled
@@ -381,8 +385,10 @@ def test_tile_helpers_multiply_like_matmul(dev, mode, rows):
     O(10). int8, exactly, against the int64 product: mode 3: A Bᵀ with A and
     B [64, 128] int8 tiles through the int8 kernel's s8 wgmma (m64n128k32,
     B's tile 128 rows, those past ``rows`` zero-filled); mode 4: the same
-    on the first 64 of the 128 bytes of k (a half k tile)."""
-    if mode >= 3:
+    on the first 64 of the 128 bytes of k (a half k tile). mode 7: mode 1
+    with A's fragments stored into a tile (``store_a_swizzled``) and read
+    back first, the wide backward's hand-over of P and dS."""
+    if mode in (3, 4):
         g = torch.Generator(device=dev).manual_seed(1)
         a, b = (torch.randint(-128, 128, (64, 128), generator=g, device=dev,
                               dtype=torch.int8) for _ in range(2))
@@ -395,7 +401,7 @@ def test_tile_helpers_multiply_like_matmul(dev, mode, rows):
         a.data_ptr(), b.data_ptr(), c.data_ptr(), mode, rows, dev.index or 0,
         torch.cuda.current_stream().cuda_stream), "tile_mma_selftest")
     torch.cuda.synchronize()
-    if mode >= 3:
+    if mode in (3, 4):
         k = 128 if mode == 3 else 64
         a64, b64 = a.long().cpu()[:, :k], b.long().cpu()[:, :k]
         b64[rows:] = 0
@@ -403,7 +409,7 @@ def test_tile_helpers_multiply_like_matmul(dev, mode, rows):
         return
     bz = b.float()
     bz[rows:] = 0
-    ref = a.float() @ (bz if mode == 1 else bz.t())
+    ref = a.float() @ (bz if mode in (1, 7) else bz.t())
     torch.testing.assert_close(c, ref, atol=1e-4, rtol=0)
 
 
@@ -1740,9 +1746,10 @@ def test_packed_trainer_on_card_resumes_bit_for_bit(dev, tmp_path):
 # 128 (d = 80, ViT-H/14's, and d = 128)
 # ---------------------------------------------------------------------------
 
-_HEAD_DIMS = [16, 80, 128]
-# a tail of one row, a short odd S, a tile and a row, ViT-H/14 @224, 384
-_HD_LENGTHS = [1, 37, 65, 257, 577]
+_HEAD_DIMS = [16, 80, 128, 264]
+# a tail of one row, a short odd S, a tile and a row, ViT-H/14 @224, 384,
+# @512
+_HD_LENGTHS = [1, 37, 65, 257, 577, 1025]
 
 
 def _qkv_at(d, b, s, dtype, dev, heads=3, seed=0):
@@ -1757,7 +1764,8 @@ def _qkv_at(d, b, s, dtype, dev, heads=3, seed=0):
 def test_attention_kernels_at_head_dim(dev, d, s, dtype):
     """The inference, training and dropout forwards and both backwards at
     head dim d against their plain versions, with the tolerances of d =
-    64."""
+    64, each backward's bits the same twice (d = 264: the wide kernels'
+    second 256-column block holds 8 columns)."""
     q, k, v = _qkv_at(d, 2, s, dtype, dev)
     do = _randn(q.shape, dtype, dev, seed=5)
     torch.testing.assert_close(fa.flash_attention_inference(q, k, v).float(),
@@ -1768,9 +1776,12 @@ def test_attention_kernels_at_head_dim(dev, d, s, dtype):
     torch.testing.assert_close(o.float(), ro.float(), atol=_ATTN_TOL[dtype],
                                rtol=0)
     torch.testing.assert_close(lse, rlse, atol=_ATTN_TOL[dtype], rtol=0)
-    _assert_grads_close(fa.flash_attention_bwd(q, k, v, o, lse, do),
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    _assert_grads_close(grads,
                         fa.attention_bwd_reference(q, k, v, o, lse, do),
                         dtype, s)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
     bq = fa.auto_block_q(s)
     o, lse = fa.flash_attention_dropout_fwd(q, k, v, _SEED, _RATE,
                                             block_q=bq)
@@ -1779,11 +1790,15 @@ def test_attention_kernels_at_head_dim(dev, d, s, dtype):
     torch.testing.assert_close(o.float(), ro.float(), atol=_ATTN_TOL[dtype],
                                rtol=0)
     torch.testing.assert_close(lse, rlse, atol=_ATTN_TOL[dtype], rtol=0)
+    grads = fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, _SEED,
+                                           _RATE, block_q=bq)
+    again = fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, _SEED,
+                                           _RATE, block_q=bq)
     _assert_grads_close(
-        fa.flash_attention_dropout_bwd(q, k, v, o, lse, do, _SEED, _RATE,
-                                       block_q=bq),
+        grads,
         fa.attention_dropout_bwd_reference(q, k, v, o, lse, do, _SEED,
                                            _RATE, block_q=bq), dtype, s)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 @pytest.mark.parametrize("d", _HEAD_DIMS)
@@ -1826,6 +1841,8 @@ def test_packed_kernels_at_head_dim(dev, d, layout, dtype, rate):
         extra = ()
     o, lse = fwd(q, k, v, seg, *extra)
     grads = bwd(q, k, v, seg, o, lse, do, *extra)
+    again = bwd(q, k, v, seg, o, lse, do, *extra)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
     ro, rlse = rfwd(q, k, v, seg, *extra)
     torch.testing.assert_close(o.float(), ro.float(), **_SEG_O_TOL[dtype])
     torch.testing.assert_close(lse, rlse, atol=_SEG_LSE_TOL[dtype], rtol=0)
@@ -1863,7 +1880,8 @@ def test_attention_kernels_read_no_column_past_d(dev, d, dtype):
 
 
 @pytest.mark.parametrize("rate", [0.0, _RATE])
-@pytest.mark.parametrize("d,wide", [(16, 64), (80, 128), (80, 96)])
+@pytest.mark.parametrize("d,wide", [(16, 64), (80, 128), (80, 96),
+                                    (136, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("packed", [False, True])
 def test_head_dim_equals_zero_padded_wider_head_dim(dev, d, wide, dtype,
@@ -1874,7 +1892,8 @@ def test_head_dim_equals_zero_padded_wider_head_dim(dev, d, wide, dtype,
     skipped 16-deep steps change no bit; with a rate, the dropout kernels
     (dense or segment), whose mask holds no d. In bf16, d = 80 runs at
     kD = 80 and 96 and 128 at kD = 128, so the 16-column tiles meet the
-    64-column chunk. (f32 splits a row over as many threads as the padded
+    64-column chunk; 136 and 256 run the wide kernels, 136's last chunk 8
+    columns (one 16-deep step of S) against two whole chunks. (f32 splits a row over as many threads as the padded
     width needs, so 16 against 128 would differ in summation order; the
     pairs here share that split.)"""
     seg = _seg_ids("odd-S", 2, dev)

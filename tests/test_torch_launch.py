@@ -47,7 +47,8 @@ from chestxray_vit_tpu_torch.parallel import mesh as tmesh
 from chestxray_vit_tpu_torch.train import steps as tsteps
 from chestxray_vit_tpu_torch.train.packed_trainer import PackedTrainer
 from chestxray_vit_tpu_torch.train.trainer import SpawnedTrainer, Trainer
-from _launch_hooks import exit_on_rank_1, hold_until_stop, raise_on_rank_1
+from _launch_hooks import (exit_on_rank_1, held_marker, hold_until_stop,
+                           raise_on_rank_1)
 from test_torch_packed_mesh import (TRAINER_SEQ_LEN, TRAINER_SEQS, GRIDS,
                                     trainer_config)
 from test_torch_trainer import GOLDEN, _cfg, _jax_params
@@ -303,8 +304,8 @@ def test_lone_packed_trainer_on_a_mesh_and_its_resume(tmp_path):
             stopped.call(hold_until_stop, PACKED_STOP)
             result = pool.submit(stopped.train)
             deadline = time.monotonic() + 60
-            while (not os.path.exists(tmp_path / "stop" / "metrics.jsonl")
-                   or not _losses(tmp_path / "stop")):
+            while not os.path.exists(held_marker(tmp_path / "stop",
+                                                 PACKED_STOP)):
                 assert time.monotonic() < deadline and not result.done()
                 time.sleep(0.05)
             stopped.request_stop()
@@ -406,8 +407,7 @@ def test_sigterm_reaches_the_ranks_and_checkpoints(tmp_path):
         def kill_when_training():
             deadline = time.monotonic() + 60
             while time.monotonic() < deadline:
-                path = tmp_path / "metrics.jsonl"
-                if path.exists() and path.read_text():
+                if os.path.exists(held_marker(tmp_path, 2)):
                     os.kill(os.getpid(), signal.SIGTERM)
                     return
                 time.sleep(0.05)
