@@ -29,7 +29,12 @@ same card. A build:
   ViT-H/14's [8 | 32, 16, 257, 80] (``vith_*``) and the segment forwards
   at [32, 12, S, 64] (median of 7 x 10 calls, CUDA events; the inference
   and training forwards also by the profiler's device time,
-  ``fwd_device_ms``);
+  ``fwd_device_ms``); then the wide forwards (d > 128,
+  ``wide_forward``): every form against its plain version at d = 136 ...
+  768, each form's bits twice, and their times at ViT-B/16 @384 in three
+  heads of 256 (``wide_inf_b8``, ``wide_fwd_b36`` beside SDPA's device
+  time in the same process; ``wide_dropout_b36``, ``wide_debug_b36``,
+  ``wide_packed_b32``, ``wide_packed_dropout_b32``);
 - backward (``--only bwd``, or both): holds the dense, dropout and segment
   backward against their plain versions at a few sequence lengths (largest
   error relative to each gradient's largest magnitude), calls each twice
@@ -266,6 +271,151 @@ def forward(gen, out: dict) -> None:
         times[f"packed_dropout_{name}"] = time_ms(
             lambda: fa.flash_attention_packed_dropout_fwd(q, k, v, seg,
                                                           *drop))
+    del q, k, v
+    wide_forward(gen, out)
+
+
+# the wide forwards' head dims (three and four 64-column chunks, a last
+# chunk of 8 columns, 256, and two and three 256-column blocks) and lengths
+# (a row, a short odd S, the 128-row block's edge, 577)
+WIDE_HEAD_DIMS = (136, 192, 200, 256, 264, 768)
+WIDE_LENGTHS = (1, 37, 128, 129, 577)
+
+
+def wide_forward(gen, out: dict) -> None:
+    """The wide forwards (d > 128, ``attention_fwd_wide.cuh``): every form
+    (inference, lse, dropout, the debug mask, segment ids with and without
+    dropout) against its plain version at WIDE_HEAD_DIMS x WIDE_LENGTHS
+    (batch 2, three heads, two segments; the largest absolute error of o
+    and lse and the mask's mismatches under ``errors["wide_d<d>_S<s>"]``,
+    and each form's bits twice), then timed at ViT-B/16 @384 in three
+    heads of 256 (q, k, v as [B, S, 3, H, d] views): ``wide_inf_b8``
+    (inference, [8, 3, 577, 256]), ``wide_fwd_b36`` (lse, [36, 3, 577,
+    256]), ``wide_dropout_b36`` and ``wide_debug_b36`` (rate 0.1), and the
+    packed forms at 32 x 1152 in two segments of 576 (``wide_packed_b32``,
+    ``wide_packed_dropout_b32``): CUDA-event and device ms, the bound by
+    the real d, and beside the first two SDPA's backend and its event and
+    device ms in the same process."""
+    from chestxray_vit_tpu_torch.ops import flash_attention as fa
+    from chip_smoke import (ATTN_TOL, TRAIN_BATCH, attention_bound,
+                            device_ms, library_sdpa, packed_attention_bound,
+                            time_ms)
+    from smoke_batches import PACKED_SEQS, packed_layouts
+
+    bf16 = torch.bfloat16
+    tol = ATTN_TOL[bf16]
+
+    def views(b, s, h, d):
+        x = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(
+            bf16)
+        return [t.transpose(1, 2) for t in x.unbind(2)]
+
+    def two_segments(b, s):
+        ids = (torch.arange(s, device="cuda") >= s // 2).to(torch.int32)
+        return ids.expand(b, s).contiguous()
+
+    within = True
+    for d in WIDE_HEAD_DIMS:
+        for s in WIDE_LENGTHS:
+            q, k, v = views(2, s, 3, d)
+            seg = two_segments(2, s)
+            bq, pbq = fa.auto_block_q(s), fa.packed_block_q(s)
+
+            def run():
+                return {
+                    "inference": (fa.flash_attention_inference(q, k, v),),
+                    "fwd": fa.flash_attention_fwd(q, k, v),
+                    "dropout": fa.flash_attention_dropout_fwd(
+                        q, k, v, SEED, RATE, block_q=bq),
+                    "debug": fa.flash_attention_dropout_debug(
+                        q, k, v, SEED, RATE, block_q=bq),
+                    "packed": fa.flash_attention_packed_fwd(q, k, v, seg),
+                    "packed_dropout": fa.flash_attention_packed_dropout_fwd(
+                        q, k, v, seg, SEED, RATE, None, pbq)}
+
+            got, again = run(), run()
+            drop_ref = fa.attention_dropout_fwd_reference(
+                q, k, v, SEED, RATE, block_q=bq)
+            ref = {"inference": (fa.attention_reference(q, k, v),),
+                   "fwd": fa.attention_fwd_reference(q, k, v),
+                   "dropout": drop_ref,
+                   "debug": (drop_ref[0], fa._keep(q, SEED, RATE, bq)),
+                   "packed": fa.attention_packed_fwd_reference(q, k, v, seg),
+                   "packed_dropout": fa.attention_packed_dropout_fwd_reference(
+                       q, k, v, seg, SEED, RATE, None, pbq)}
+            torch.cuda.synchronize()
+            errs = {}
+            for form, outs in got.items():
+                errs[form] = [int((g != r).sum()) if g.dtype == torch.bool
+                              else abs_err(g, r)
+                              for g, r in zip(outs, ref[form])]
+                within &= all(e <= (0 if isinstance(e, int) else tol)
+                              for e in errs[form])
+                out["equal_twice"] &= all(torch.equal(a, b) for a, b
+                                          in zip(outs, again[form]))
+            out["errors"][f"wide_d{d}_S{s}"] = errs
+            del q, k, v, got, again, ref, drop_ref
+    out["wide_within_tol"] = within
+
+    h, s, d = 3, 577, 256
+    for key, b, kw in (("wide_inf_b8", 8, {}),
+                       ("wide_fwd_b36", TRAIN_BATCH, {"lse": True})):
+        shape = (b, h, s, d)
+        q, k, v = views(b, s, h, d)
+        do = torch.randn(shape, generator=gen, device="cuda").to(bf16)
+        fn = ((lambda: fa.flash_attention_inference(q, k, v)) if not kw
+              else (lambda: fa.flash_attention_fwd(q, k, v)))
+        bound = attention_bound(shape, bf16, **kw)
+        lib = library_sdpa(q, k, v, do)
+        out[key] = {"ms": time_ms(fn), **device_ms(fn),
+                    "library_backend": lib["library_backend"],
+                    "library_ms": lib["library_ms"],
+                    "library_device_ms": lib["library_device_ms"],
+                    "bound_ms": bound["bound_ms"],
+                    "bound_by": bound["bound_by"]}
+        del q, k, v, do
+    shape = (TRAIN_BATCH, h, s, d)
+    q, k, v = views(TRAIN_BATCH, s, h, d)
+    bq = fa.auto_block_q(s)
+    for key, fn, kw in (
+            ("wide_dropout_b36",
+             lambda: fa.flash_attention_dropout_fwd(q, k, v, SEED, RATE,
+                                                    block_q=bq),
+             {"lse": True, "hash_passes": 1}),
+            ("wide_debug_b36",
+             lambda: fa.flash_attention_dropout_debug(q, k, v, SEED, RATE,
+                                                      block_q=bq),
+             {"hash_passes": 1, "mask_out": True})):
+        bound = attention_bound(shape, bf16, **kw)
+        out[key] = {"ms": time_ms(fn), **device_ms(fn),
+                    "bound_ms": bound["bound_ms"],
+                    "bound_by": bound["bound_by"]}
+    del q, k, v
+    seg = packed_layouts(PACKED_SEQS)["two_segments"]
+    b, s = seg.shape
+    q, k, v = views(b, s, h, d)
+    drop = (SEED, RATE, None, fa.packed_block_q(s))
+    small = slice(0, 2)
+    for key, fn, plain, kw in (
+            ("wide_packed_b32",
+             lambda: fa.flash_attention_packed_fwd(q, k, v, seg),
+             lambda: fa.attention_packed_fwd_reference(
+                 q[small], k[small], v[small], seg[small]), {}),
+            ("wide_packed_dropout_b32",
+             lambda: fa.flash_attention_packed_dropout_fwd(q, k, v, seg,
+                                                           *drop),
+             lambda: fa.attention_packed_dropout_fwd_reference(
+                 q[small], k[small], v[small], seg[small], *drop),
+             {"hash_passes": 1})):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        out["errors"][key] = [abs_err(g[small], r) for g, r in zip(got, ref)]
+        del got, ref
+        bound = packed_attention_bound(seg, h, bf16, d=d, **kw)
+        out[key] = {"ms": time_ms(fn), **device_ms(fn),
+                    "bound_ms": bound["bound_ms"],
+                    "bound_by": bound["bound_by"]}
+    del q, k, v
 
 
 def backward(gen, out: dict) -> None:

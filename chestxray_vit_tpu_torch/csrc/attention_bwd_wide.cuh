@@ -58,6 +58,7 @@ constexpr int kBwdCols = 256;     // output columns a bf16 block owns
 constexpr int kBwdF32Cols = 32;   // output columns an f32 block owns
 constexpr int kBwdThreads = 256;  // two warpgroups
 constexpr int kBwdChunks = kBwdCols / 64;  // an operand block's chunk tiles
+static_assert(kBwdChunks == kBlockChunks, "wg_copy_block's blocks");
 
 // Delta = rowsum(dO * O) over the whole head dim, a warp a row.
 template <typename T>
@@ -96,45 +97,6 @@ constexpr int kMaskOff = kAuxOff + 2 * kAuxBytes;
 constexpr int kWideBwdSmem = kMaskOff + 128 * 4 + 1024;
 static_assert(kWideBwdSmem <= 227 * 1024, "the wide backward fits an SM");
 constexpr int kBarP = 1, kBarDs = 2;  // named barriers: P, then dS handed over
-
-// Starts one warpgroup's copies (t: the thread's index in it) of the chunk
-// tiles c0 .. c0 + 3 below nq of the 64 rows from r0 of a strided [S, d]
-// operand into consecutive swizzled tiles from dst: rows at or past S and
-// columns at or past d arrive as zeros.
-__device__ __forceinline__ void wg_copy_block(uint32_t dst,
-                                              const __nv_bfloat16* src,
-                                              long long stride, int r0, int S,
-                                              int c0, int nq, int d, int t) {
-  const int cc = t & 7;
-#pragma unroll
-  for (int j = 0; j < kBwdChunks; ++j) {
-    const int col = (c0 + j) * 64 + cc * 8;
-    if (c0 + j >= nq) break;
-    const bool col_ok = col < d;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (t + 128 * i) >> 3;
-      const bool valid = col_ok && r0 + r < S;
-      cp_async_16(dst + j * kTileBytes + swizzled(r, cc),
-                  src + (valid ? (r0 + r) * stride + col : 0), valid);
-    }
-  }
-}
-
-// The S-like product of one block of chunks, issued and committed: acc
-// (+)= A B^T over the chunk tiles c0 .. c0 + 3 below nq (A's at a, B's at
-// b), the first chunk of d overwriting acc. The caller waits.
-__device__ __forceinline__ void block_mma(float (&acc)[8][4], uint32_t a,
-                                          uint32_t b, int c0, int nq,
-                                          int hd) {
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < kBwdChunks; ++j)
-    if (c0 + j < nq)
-      tile_mma_ss(acc, a + j * kTileBytes, b + j * kTileBytes, c0 + j > 0,
-                  chunk_steps(c0 + j, hd));
-  wgmma_commit();
-}
 
 template <bool kDropout, bool kSegment>
 __global__ void __launch_bounds__(kBwdThreads, 1)

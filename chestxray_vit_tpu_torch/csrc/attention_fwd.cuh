@@ -640,7 +640,7 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
   if (head_dim > kWideHeadDim)
     return wide::launch_fwd<kLse, kDropout, kEmitKeep, kSegment>(
         q, k, v, o, lse, batch, heads, seq, head_dim, qs, ks, vs, os, scale,
-        dtype, st, drop, seg);
+        dtype, device, st, drop, seg);
   if (head_dim == 64)
     return launch_attn_fwd_at<64, false, kLse, kDropout, kEmitKeep, kSegment>(
         q, k, v, o, lse, batch, heads, seq, head_dim, qs, ks, vs, os, scale,

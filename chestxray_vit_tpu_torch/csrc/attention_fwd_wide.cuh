@@ -1,25 +1,53 @@
 // The attention forward at head dims above 128 (attention_fwd.cuh takes
 // d <= 128): the same function, O = softmax(Q K^T * scale) V with the
 // natural-log lse, dropout, the debug mask and segment ids, for every form
-// of attention_fwd.cuh (launch_attn_fwd sends d > 128 here).
+// of attention_fwd.cuh (launch_attn_fwd sends d > 128 here). It replaces
+// the same TPU kernels as attention_fwd.cuh at these widths:
+// chestxray_vit_tpu/ops/flash_attention.py `_fwd_kernel_inf`,
+// `_fwd_kernel`, `_fwd_kernel_drop`, `_fwd_kernel_drop_debug`,
+// `_fwd_kernel_seg` and `_fwd_kernel_seg_drop`, which take the head dim
+// whole.
 //
-// What is hard at a wide head dim: a block's O accumulator grows with d
-// (64 registers a thread at 128 columns already), and the resident Q tile
-// and the K and V stages grow with it in shared memory (83 KB at d = 128),
-// so a whole row of d = 256 or 768 fits in neither. The design splits the
-// output columns: O = P V splits by column once P is known, and P needs
-// all of d only through S = Q K^T. A block owns 64 query rows of one
-// (batch, head) and one output chunk of kWideCols columns (a third grid
-// axis), and for every key tile forms the whole S by streaming Q and K in
-// 64-column chunks through two swizzled tiles (one wgmma m64n64k16 chain
-// per chunk, summed in the S accumulator), then runs the online softmax of
-// attention_fwd.cuh and O_chunk += P V_chunk with V's chunk columns as they
-// lie. S is thus recomputed once per output chunk (ceil(d / 128) times),
-// which the simple design accepts; every block's S is the same bits, so
-// lse (and the debug mask) are written by the blocks of chunk 0 only. The
-// copies are not overlapped with the products inside a block (each chunk
-// waits for its tiles): the other blocks of the SM hide that, as the
-// shared memory (34 KB) and about 170 registers leave two resident.
+// What bounds it on an H100: at S = 577 and d = 256 the bytes (q, k, v
+// read once, o written once) and the operations (4 S^2 d flops a head, S =
+// Q K^T and O = P V, at the bf16 tensor-core peak) take about the same
+// time. The kernel runs at about four times that: within a block the
+// tensor cores wait on the softmax (an exp2 per score, O rescaled between
+// the products), and the grid's blocks leave a tail (PERF.md). What is
+// hard at a wide head dim: O's accumulator grows with d (128 f32 registers
+// a thread for 64 rows at d = 256), and Q and a K/V stage grow with it in
+// shared memory (Q 32 KB and a stage 64 KB for 64 rows at d = 256).
+//
+// The bf16 design, for 128 < d <= 256: a block of two warpgroups (256
+// threads, one block an SM) owns 128 query rows of one (batch, head), 64 a
+// warpgroup, and all of d's output columns, each warpgroup's 64 x 256 O
+// accumulator in its registers. Both share every K and V tile, so a query
+// row reads K and V from L2 half as often as with 64-row blocks. Each
+// warpgroup's Q rows arrive once and stay in shared memory (four 64-column
+// chunk tiles each, 64 KB); K and V stream through a ring of two stages
+// (the K and V chunk tiles of 64 keys, 64 KB a stage), the next tile's
+// copies issued before the current tile's products. For every key tile a
+// warpgroup forms S = Q K^T once over the whole d (one wgmma m64n64k16
+// chain over the chunks' 16-deep steps, in chunk order, so S has the bits
+// of a chunk-by-chunk sum), runs the online softmax of attention_fwd.cuh
+// (exp2, P rounded to bf16 and summed so, safe_max, the dropout hash of
+// each score's counter), then O += P V over the four 64-column chunks: four
+// m64n64k16 chains with P from registers and V's chunk tiles read as they
+// lie (the transposed-B form), the same wgmma forms as attention_fwd.cuh,
+// only the 16-deep steps that hold a key below S. One barrier a tile
+// orders the ring; between barriers the two warpgroups share the tensor
+// cores as the warp schedulers issue them (ordering warpgroup 1's S after
+// warpgroup 0's on a named barrier, and one m64n256k16 a step for P V in
+// place of the four chains, were both slower). 198 KB of shared memory,
+// 254-255 registers a thread.
+//
+// Past 256 columns (d = 264 ... 768) a block keeps 256 output columns (the
+// grid's third axis, out_blocks(d, 256)) and forms S from Q and K streamed
+// in blocks of four chunks through the Q tiles and stage 0, one block at a
+// time, with V's output columns copied beside the first: S once per
+// 256-column block, ceil(d / 256) times in all, and nothing grows with d.
+// Every block's S has the same bits, so lse and the debug mask are
+// written by the blocks of output block 0 only.
 //
 // The f32 path (parity runs) is plain FMA: a thread owns a query row and a
 // 64-column output chunk, S is summed over 32-column chunks of Q (in
@@ -36,18 +64,26 @@
 namespace cxr {
 namespace wide {
 
-constexpr int kRows = 64;        // query rows (or keys) a block owns
-constexpr int kWideCols = 128;   // output columns a bf16 block owns
-constexpr int kF32Cols = 64;     // output columns an f32 block owns
+constexpr int kRows = 64;         // query rows of a warpgroup (bf16) or of
+                                  // an f32 block; keys a K/V tile
+constexpr int kFwdRows = 2 * kRows;  // query rows a bf16 block owns
+constexpr int kFwdCols = 64 * kBlockChunks;  // output columns a bf16 block owns
+constexpr int kFwdThreads = 256;  // two warpgroups
+constexpr int kF32Cols = 64;      // output columns an f32 block owns
 
-// Shared memory of the bf16 forward: the Q and K chunk tiles, V's two
-// output tiles, 64 key ids, and 1024 bytes to put the tiles on a 1024-byte
-// boundary: under the 48 KB default, so a launch asks for no more.
-constexpr int kFwdSmem = 4 * kTileBytes + 256 + 1024;
-static_assert(kFwdSmem <= 48 * 1024, "the wide forward fits 48 KB");
+// Shared memory of the bf16 forward, from a 1024-byte aligned base: each
+// warpgroup's Q block (four chunk tiles of its 64 rows), two stages of a
+// key tile's K and V blocks, each stage's 64 key ids, and 1024 bytes to
+// put the tiles on a 1024-byte boundary.
+constexpr int kFwdOpBytes = kBlockChunks * kTileBytes;  // a 64-row block
+constexpr int kFwdStageBytes = 2 * kFwdOpBytes;         // K, then V
+constexpr int kFwdStageOff = 2 * kFwdOpBytes;
+constexpr int kFwdIdsOff = kFwdStageOff + 2 * kFwdStageBytes;
+constexpr int kFwdSmem = kFwdIdsOff + 2 * kRows * 4 + 1024;
+static_assert(kFwdSmem <= 227 * 1024, "the wide forward fits an SM");
 
 template <bool kLse, bool kDropout, bool kEmitKeep, bool kSegment>
-__global__ void __launch_bounds__(128, 2)
+__global__ void __launch_bounds__(kFwdThreads, 1)
 attn_fwd_wide_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
@@ -60,23 +96,30 @@ attn_fwd_wide_bf16(const __nv_bfloat16* __restrict__ q,
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* base_ptr = smem_raw + (base - raw);
-  const uint32_t sq = base, sk = base + T, sv = base + 2 * T;
-  const int* sI = reinterpret_cast<const int*>(base_ptr + 4 * T);
 
-  const int m0 = blockIdx.x * kRows;
+  const int m0 = blockIdx.x * kFwdRows;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int col0 = blockIdx.z * kWideCols;
-  const int ocols = min(kWideCols, hd - col0);
-  const int nq = (hd + 63) / 64;
-  const bool first = blockIdx.z == 0;  // writes lse and the mask
+  const int oc = blockIdx.z;            // output columns [256 oc, + 256)
+  const int c0 = kBlockChunks * oc;     // their first chunk
+  const int nq = (hd + 63) / 64, nb = (nq + kBlockChunks - 1) / kBlockChunks;
+  const bool first = oc == 0;  // writes lse and the mask
   const int* segp = kSegment ? seg + static_cast<long long>(b) * S : nullptr;
   const __nv_bfloat16* qp = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kp = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vp = v + b * vs.b + h * vs.h + col0;
+  const __nv_bfloat16* vp = v + b * vs.b + h * vs.h;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warpgroup, read from lane 0 so that the compiler knows it uniform
+  // over each warp (wgmma under a branch on it is then not serialized)
+  const int tid = threadIdx.x, t128 = tid & 127;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = t128 >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wr = warp * 16;
-  const int row0 = m0 + wr + g;
+  const int q0 = m0 + kRows * wg;  // the warpgroup's first query row
+  const int row0 = q0 + wr + g;
+  const uint32_t qtiles = base + wg * kFwdOpBytes;
+  auto stage = [&](int st) {
+    return base + kFwdStageOff + st * kFwdStageBytes;
+  };
 
   int seg_row[2] = {0, 0};
   uint32_t dbase[2] = {0u, 0u};
@@ -86,53 +129,51 @@ attn_fwd_wide_bf16(const __nv_bfloat16* __restrict__ q,
     if (kSegment) seg_row[r] = row < S ? segp[row] : kNoSegment;
     if (kDropout) dbase[r] = drop_row(drop, drop_base(drop, b, h), row);
   }
+  // A non-positive scale reverses the order of the scores: it is applied
+  // to them before the max; a positive one is folded into the exp2's FMA.
   const bool prescale = !(scale_log2 > 0.f);
   const float c = prescale ? 1.f : scale_log2;
 
-  float acc[2][8][4];
+  float acc[kBlockChunks][8][4];  // O, one accumulator a 64-column chunk
 #pragma unroll
-  for (int ch = 0; ch < 2; ++ch)
+  for (int ch = 0; ch < kBlockChunks; ++ch)
 #pragma unroll
     for (int n = 0; n < 8; ++n)
       acc[ch][n][0] = acc[ch][n][1] = acc[ch][n][2] = acc[ch][n][3] = 0.f;
   acc_fence(acc);
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 (log2 units)
+  float l_run[2] = {0.f, 0.f};              // this thread's share of the sum
 
-  TileWalk<kSegment> walk(segp, S, m0);
-  for (int tile = walk.next(); tile >= 0; tile = walk.next()) {
-    const int n0 = tile * kRows, krows = min(kRows, S - n0);
-    // every thread is done with the previous tile's V, ids and last chunk
-    __syncthreads();
-#pragma unroll
-    for (int ch = 0; ch < 2; ++ch)
-      copy_tile_async(sv + ch * T, vp, vs.s, n0, S, ch, ocols);
-    if (kSegment && tid < kRows) {
+  // The copies of the key tile at n0 into stage st: warpgroup 0 K's chunk
+  // block cb, warpgroup 1 V's output block (with cb 0 only), and the ids.
+  auto fetch = [&](int n0, int st, int cb) {
+    if (wg == 0)
+      wg_copy_block(stage(st), kp, ks.s, n0, S, cb * kBlockChunks, nq, hd,
+                    t128);
+    else if (cb == 0)
+      wg_copy_block(stage(st) + kFwdOpBytes, vp, vs.s, n0, S, c0, nq, hd,
+                    t128);
+    if (kSegment && cb == 0 && tid < kRows) {
       const bool ok = n0 + tid < S;
-      cp_async_4(base + 4 * T + 4 * tid, segp + (ok ? n0 + tid : 0), ok);
+      cp_async_4(base + kFwdIdsOff + st * kRows * 4 + 4 * tid,
+                 segp + (ok ? n0 + tid : 0), ok);
     }
+  };
 
-    // S = Q K^T over the head dim's 64-column chunks
-    float s[8][4];
-    for (int cq = 0; cq < nq; ++cq) {
-      if (cq > 0) __syncthreads();  // chunk cq - 1's product is done
-      copy_tile_async(sq, qp, qs.s, m0, S, cq, hd);
-      copy_tile_async(sk, kp, ks.s, n0, S, cq, hd);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      wgmma_fence();
-      tile_mma_ss(s, sq, sk, cq > 0, chunk_steps(cq, hd));
-      wgmma_commit();
-      wgmma_wait<0>(s);
-    }
-
+  // The key tile at n0 in stage st, its raw scores in s: the online
+  // softmax, then O += P V over the output block's chunks, waited for.
+  auto finish_tile = [&](int n0, int st, float (&s)[8][4]) {
+    const int krows = min(kRows, S - n0);
+    const int* sI =
+        reinterpret_cast<const int*>(base_ptr + kFwdIdsOff + st * kRows * 4);
     if (prescale) {
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] *= scale_log2;
     }
+    // pad keys (the tail tile) and other segments' keys to -inf; the
+    // 8-wide slices of keys at or past S are skipped (block-uniform)
     if (kSegment || krows < kRows) {
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
@@ -169,6 +210,8 @@ attn_fwd_wide_bf16(const __nv_bfloat16* __restrict__ q,
       alpha[r] = exp2_approx(m_run[r] - msub[r]);
       m_run[r] = m_new;
     }
+    // P rounded to bf16, packed as the A fragments of the PV product; l
+    // sums the rounded values
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       if (n * 8 >= krows) {
@@ -186,7 +229,7 @@ attn_fwd_wide_bf16(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < 4; ++kk) {
       if (kk * 16 >= krows) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j)  // j even: row g; odd: row g + 8
         sum[j & 1] += bf16_lo(pf[kk][j]) + bf16_hi(pf[kk][j]);
     }
     if (kDropout) {
@@ -208,7 +251,7 @@ attn_fwd_wide_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
 #pragma unroll
-    for (int ch = 0; ch < 2; ++ch)
+    for (int ch = 0; ch < kBlockChunks; ++ch)
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         acc[ch][n][0] *= alpha[0];
@@ -216,16 +259,61 @@ attn_fwd_wide_bf16(const __nv_bfloat16* __restrict__ q,
         acc[ch][n][2] *= alpha[1];
         acc[ch][n][3] *= alpha[1];
       }
-
-    // O_chunk += P V_chunk (the second 64 columns only where the chunk
-    // reaches them)
+    // O += P V, V's chunks as they lie (the transposed-B form), the k-steps
+    // of keys below S only
+    const uint32_t vtiles = stage(st) + kFwdOpBytes;
     acc_fence(acc);
     wgmma_fence(pf);
-    tile_mma_rs<true>(acc[0], pf, sv, krows);
-    if (ocols > 64) tile_mma_rs<true>(acc[1], pf, sv + T, krows);
+#pragma unroll
+    for (int ch = 0; ch < kBlockChunks; ++ch)
+      if (c0 + ch < nq) tile_mma_rs<true>(acc[ch], pf, vtiles + ch * T, krows);
     wgmma_commit();
     wgmma_wait<0>(acc);
+  };
+
+  TileWalk<kSegment, kFwdRows> walk(segp, S, m0);
+  int tile = walk.next();
+  if (nb == 1) {
+    // The Q blocks stay; the next key tile is copied into the other stage
+    // while this one's products run.
+    wg_copy_block(qtiles, qp, qs.s, q0, S, 0, nq, hd, t128);
+    if (tile >= 0) fetch(tile * kRows, 0, 0);
+    cp_async_commit();
+    int st = 0;
+    while (tile >= 0) {
+      cp_async_wait<0>();
+      // the tile (and Q) arrived for every thread, and every thread is
+      // done with the other stage, which the next copies overwrite
+      __syncthreads();
+      const int next = walk.next();
+      if (next >= 0) fetch(next * kRows, st ^ 1, 0);
+      cp_async_commit();
+      float s[8][4];
+      block_mma(s, qtiles, stage(st), 0, nq, hd);
+      wgmma_wait<0>(s);
+      finish_tile(tile * kRows, st, s);
+      tile = next;
+      st ^= 1;
+    }
   }
+  // Past 256 columns: Q and K in blocks of four chunks through the Q tiles
+  // and stage 0, a block at a time; V's output block beside the first.
+  for (; nb > 1 && tile >= 0; tile = walk.next()) {
+    const int n0 = tile * kRows;
+    float s[8][4];
+    for (int cb = 0; cb < nb; ++cb) {
+      __syncthreads();  // every thread is done with the previous block
+      wg_copy_block(qtiles, qp, qs.s, q0, S, cb * kBlockChunks, nq, hd, t128);
+      fetch(n0, 0, cb);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      block_mma(s, qtiles, stage(0), cb * kBlockChunks, nq, hd);
+      wgmma_wait<0>(s);
+    }
+    finish_tile(n0, 0, s);
+  }
+  cp_async_wait<0>();  // copies never outlive the block
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -235,12 +323,15 @@ attn_fwd_wide_bf16(const __nv_bfloat16* __restrict__ q,
   const float keep_prob = kDropout ? drop.keep_prob : 1.f;
   const float inv0 = 1.f / (l_run[0] * keep_prob);
   const float inv1 = 1.f / (l_run[1] * keep_prob);
-  // O through the Q/K tiles, as attention_fwd.cuh stages it
+  // O through the warpgroup's Q tiles (every warp is past its last
+  // product): each warp stages its own 16 rows of a swizzled tile a chunk
+  // and writes them as 16-byte rows, the columns below hd only
   __syncthreads();
-  __nv_bfloat16* op = o + b * os.b + h * os.h + col0;
+  __nv_bfloat16* op = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int ch = 0; ch < 2; ++ch) {
-    unsigned char* ot = base_ptr + ch * T;
+  for (int ch = 0; ch < kBlockChunks; ++ch) {
+    if (c0 + ch >= nq) break;
+    unsigned char* ot = base_ptr + wg * kFwdOpBytes + ch * T;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       *reinterpret_cast<uint32_t*>(ot + swizzled(wr + g, n) + 4 * t) =
@@ -252,9 +343,9 @@ attn_fwd_wide_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int i = lane + 32 * j, r = wr + (i >> 3), x = i & 7;
-      const int col = ch * 64 + x * 8;
-      if (m0 + r < S && col < ocols)
-        *reinterpret_cast<uint4*>(op + (m0 + r) * os.s + col) =
+      const int col = (c0 + ch) * 64 + x * 8;
+      if (q0 + r < S && col < hd)
+        *reinterpret_cast<uint4*>(op + (q0 + r) * os.s + col) =
             *reinterpret_cast<const uint4*>(ot + swizzled(r, x));
     }
   }
@@ -386,24 +477,32 @@ attn_fwd_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
       m_run * kLn2 + logf(l_run);
 }
 
-// Launches the wide forward for the dtype (0 = float32, 1 = bfloat16).
+// Launches the wide forward for the dtype (0 = float32, 1 = bfloat16) on
+// ``device``, the current one.
 template <bool kLse, bool kDropout, bool kEmitKeep, bool kSegment>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int batch, int heads, int seq, int head_dim,
                Strides qs, Strides ks, Strides vs, Strides os, float scale,
-               int dtype, cudaStream_t st, const Dropout& drop,
+               int dtype, int device, cudaStream_t st, const Dropout& drop,
                const int* seg) {
   const float scale_log2 = scale * kLog2e;
-  const unsigned rows = (seq + kRows - 1) / kRows, bh = batch * heads;
+  const unsigned bh = batch * heads;
   if (dtype == 1) {
+    const cudaError_t err =
+        allow_smem<attn_fwd_wide_bf16<kLse, kDropout, kEmitKeep, kSegment>,
+                   kFwdSmem>(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((seq + kFwdRows - 1) / kFwdRows, bh,
+                    out_blocks(head_dim, kFwdCols));
     attn_fwd_wide_bf16<kLse, kDropout, kEmitKeep, kSegment>
-        <<<dim3(rows, bh, out_blocks(head_dim, kWideCols)), 128, kFwdSmem,
-             st>>>(static_cast<const __nv_bfloat16*>(q),
-                   static_cast<const __nv_bfloat16*>(k),
-                   static_cast<const __nv_bfloat16*>(v),
-                   static_cast<__nv_bfloat16*>(o), lse, heads, seq, head_dim,
-                   qs, ks, vs, os, scale_log2, drop, seg);
+        <<<grid, kFwdThreads, kFwdSmem, st>>>(
+            static_cast<const __nv_bfloat16*>(q),
+            static_cast<const __nv_bfloat16*>(k),
+            static_cast<const __nv_bfloat16*>(v),
+            static_cast<__nv_bfloat16*>(o), lse, heads, seq, head_dim, qs, ks,
+            vs, os, scale_log2, drop, seg);
   } else if (dtype == 0) {
+    const unsigned rows = (seq + kRows - 1) / kRows;
     attn_fwd_wide_f32<kLse, kDropout, kEmitKeep, kSegment>
         <<<dim3(rows, bh, out_blocks(head_dim, kF32Cols)), kRows, 0, st>>>(
             static_cast<const float*>(q), static_cast<const float*>(k),

@@ -238,13 +238,14 @@ __device__ __forceinline__ bool load_tile_ids(const int* __restrict__ seg,
 }
 
 // The 64-row tiles of the walked operand (keys for the forward and the dQ
-// pass, queries for the dK/dV pass) that a block of 64 own rows visits, in
-// order. Dense: all of them. kSegment: those with an id inside the range of
-// the block's own ids (conservative, ids in any order), found 32 tiles at a
-// time from the ids in device memory. Every warp computes the same answer
-// from the same ids, so the walk is block-uniform without a barrier or
-// shared memory.
-template <bool kSegment>
+// pass, queries for the dK/dV pass) that a block of kOwnRows own rows (64,
+// or 128 in the wide forward: the union of its two warpgroups' tiles)
+// visits, in order. Dense: all of them. kSegment: those with an id inside
+// the range of the block's own ids (conservative, ids in any order), found
+// 32 tiles at a time from the ids in device memory. Every warp computes the
+// same answer from the same ids, so the walk is block-uniform without a
+// barrier or shared memory.
+template <bool kSegment, int kOwnRows = 64>
 struct TileWalk {
 #ifdef CXR_NO_TILE_SKIP
   static constexpr bool kSkip = false;
@@ -265,7 +266,7 @@ struct TileWalk {
       lo = INT_MAX;
       hi = INT_MIN;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < kOwnRows / 32; ++j) {
         const int r = r0 + lane + 32 * j;
         if (r < S) {
           const int id = seg[r];
@@ -646,6 +647,52 @@ __device__ __forceinline__ void tile_mma_rs(float (&acc)[8][4],
           acc, a[kk], desc + ((kTransB ? kk * 2048 : kk * 32) >> 4),
           kTransB || kk > 0 ? 1 : 0);
 }
+
+// The wide attention kernels' blocks of four 64-column chunks (256 output
+// columns, attention_fwd_wide.cuh and attention_bwd_wide.cuh).
+namespace wide {
+constexpr int kBlockChunks = 4;  // chunk tiles of an operand block
+
+// Starts one warpgroup's copies (t: the thread's index in it) of the chunk
+// tiles c0 .. c0 + 3 below nq of the 64 rows from r0 of a strided [S, d]
+// operand into consecutive swizzled tiles from dst: rows at or past S and
+// columns at or past d arrive as zeros.
+__device__ __forceinline__ void wg_copy_block(uint32_t dst,
+                                              const __nv_bfloat16* src,
+                                              long long stride, int r0, int S,
+                                              int c0, int nq, int d, int t) {
+  const int cc = t & 7;
+#pragma unroll
+  for (int j = 0; j < kBlockChunks; ++j) {
+    const int col = (c0 + j) * 64 + cc * 8;
+    if (c0 + j >= nq) break;
+    const bool col_ok = col < d;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (t + 128 * i) >> 3;
+      const bool valid = col_ok && r0 + r < S;
+      cp_async_16(dst + j * kTileBytes + swizzled(r, cc),
+                  src + (valid ? (r0 + r) * stride + col : 0), valid);
+    }
+  }
+}
+
+// The S-like product of one block of chunks, issued and committed: acc
+// (+)= A B^T over the chunk tiles c0 .. c0 + 3 below nq (A's at a, B's at
+// b), the first chunk of d overwriting acc, each chunk's 16-deep steps in
+// order. The caller waits.
+__device__ __forceinline__ void block_mma(float (&acc)[8][4], uint32_t a,
+                                          uint32_t b, int c0, int nq,
+                                          int hd) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kBlockChunks; ++j)
+    if (c0 + j < nq)
+      tile_mma_ss(acc, a + j * kTileBytes, b + j * kTileBytes, c0 + j > 0,
+                  chunk_steps(c0 + j, hd));
+  wgmma_commit();
+}
+}  // namespace wide
 
 // ---------------------------------------------------------------------------
 // 64 x 16 bf16 tiles under the 32-byte swizzle: the 16-column chunk of a

@@ -548,8 +548,8 @@ EDGE_LENGTHS = (64, 128, 129, 576, 1025)
 # 577, a short odd 37 and EDGE_LENGTHS, batch 2 of 4 heads
 # Then the head dims the JAX kernels take past those: 4 and 12 (off the
 # multiple of 8: zero-padded to 8 and 16 by the wrappers), 136, 256 and 768
-# (the wide kernels, one, two and six 128-column output chunks), at the
-# lengths of WIDE_HEAD_DIM_LENGTHS
+# (the wide kernels: three and four 64-column chunks of one 256-column
+# output block, and three blocks), at the lengths of WIDE_HEAD_DIM_LENGTHS
 HEAD_DIMS = (16, 80, 128, 4, 12, 136, 256, 768)
 HEAD_DIM_LENGTHS = (257, 577, 37) + EDGE_LENGTHS
 WIDE_HEAD_DIM_LENGTHS = (37, 577, 1025)
@@ -558,9 +558,10 @@ HEAD_DIM_BATCH, HEAD_DIM_HEADS = 2, 4
 # wider d on operands zero-padded to it (the unmasked d = 64 instantiation
 # against the masked d = 16; a whole second chunk against its first 16
 # columns; d = 12 is the d = 16 call on the wrappers' own padding; the wide
-# kernels' last 128-column chunk at 8 columns against a whole one, and two
-# 16-deep steps of S against their zero steps)
-HEAD_DIM_PADS = ((16, 64), (80, 128), (12, 16), (136, 256))
+# kernels' last 64-column chunk at 8 columns (d = 136 and 200) against
+# whole chunks of one 256-column block, their 16-deep steps of S past d
+# against zero steps)
+HEAD_DIM_PADS = ((16, 64), (80, 128), (12, 16), (136, 256), (200, 256))
 # ViT-B/16 @384 in three heads of 256 (model.num_heads=3): its attention
 # timed at the serving and training batches beside the plain version and
 # SDPA (the backend that takes d = 256, if any), by the real d's bound
@@ -888,13 +889,17 @@ SPAWN_HOLD_S = 120
 
 
 # the card's name and power limit as nvidia-smi prints them (phase_device):
-# every phase's line carries them
+# every phase's line carries them, and the seconds since the script started
+# (``t_s``: where the run's time goes)
 CARD = {}
+STARTED = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
     if "phase" in obj and CARD and "nvidia_smi" not in obj:
         obj = {**obj, "nvidia_smi": CARD["nvidia_smi"]}
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - STARTED, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -968,6 +973,8 @@ def device_ms(fn, calls: int = 10, parts: tuple = ()) -> dict:
         held = expected = 0
         for ev in prof.key_averages():
             per_call = round(ev.count / calls)
+            if 2 * ev.count >= calls:  # half the records (round(0.5) is 0)
+                per_call = max(per_call, 1)
             if ev.device_time_total <= 0 or per_call < 1:
                 continue
             ms = ev.device_time_total / 1e3 / ev.count * per_call
@@ -982,6 +989,14 @@ def device_ms(fn, calls: int = 10, parts: tuple = ()) -> dict:
             return out
     return {"device_ms": None, **{f"{part}_ms": None for part in parts},
             "device_records": 0.0}
+
+
+def device_or_event_ms(fn) -> tuple:
+    """(ms, source) of one call of ``fn``: the profiler's device time
+    (source "device"), or, where its trace held no kernel of the call, the
+    CUDA-event time of :func:`time_ms` (source "events")."""
+    ms = device_ms(fn)["device_ms"]
+    return (ms, "device") if ms is not None else (time_ms(fn), "events")
 
 
 def backward_pass_ms(fn, calls: int = 10) -> dict:
@@ -6315,10 +6330,12 @@ def head_split_cost(ranks: list) -> None:
     (MESH_SPLIT_RUNS): the heads the busiest rank runs (``vit.RankHeads``:
     every head its columns touch) against its share of the model's (H / t),
     the attention forward and backward timed at the rank's heads and at
-    the whole model's heads over the per-slot batch (device ms; a step runs
-    the forward twice under full remat and the backward once a layer), the
-    extra attention ms a step that follows, and the collectives a step the
-    gathers add (the ranks' tally) beside the step ms."""
+    the whole model's heads over the per-slot batch (device ms, or CUDA
+    events where the profiler's trace held none: ``attention_ms_from``; a
+    step runs the forward twice under full remat and the backward once a
+    layer), the extra attention ms a step that follows, and the
+    collectives a step the gathers add (the ranks' tally) beside the step
+    ms."""
     import types
 
     from chestxray_vit_tpu_torch.config import ModelConfig
@@ -6337,18 +6354,18 @@ def head_split_cost(ranks: list) -> None:
         busiest = max((RankHeads(cfg, types.SimpleNamespace(size=t, index=i))
                        for i in range(t)), key=lambda r: r.h1 - r.h0)
         b = MESH_BATCH // (shape[0] * shape[1] * shape[2])
-        ms = {}
+        ms, sources = {}, set()
         for key, h in (("rank", busiest.h1 - busiest.h0),
                        ("model", cfg.num_heads)):
             q, k, v, do = (torch.randn((b, h, 577, 64), generator=gen,
                                        device=dev).to(torch.bfloat16)
                            for _ in range(4))
             o, lse = fa.flash_attention_fwd(q, k, v)
-            ms[key] = (
-                device_ms(lambda: fa.flash_attention_fwd(q, k, v))
-                ["device_ms"],
-                device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse,
-                                                         do))["device_ms"])
+            timed = [device_or_event_ms(fn) for fn in (
+                lambda: fa.flash_attention_fwd(q, k, v),
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))]
+            ms[key] = tuple(t for t, _ in timed)
+            sources.update(src for _, src in timed)
         layers = cfg.num_layers
         per_step = {key: layers * (2 * f + bw) for key, (f, bw) in ms.items()}
         rec = {"phase": "train_mesh_head_split_cost", "run": name,
@@ -6357,8 +6374,8 @@ def head_split_cost(ranks: list) -> None:
                "columns_a_rank": busiest.cols,
                "heads_run_by_busiest_rank": busiest.h1 - busiest.h0,
                "heads_share": cfg.num_heads / t, "batch_a_slot": b,
-               "attention_fwd_bwd_device_ms": {k: list(v)
-                                               for k, v in ms.items()},
+               "attention_fwd_bwd_ms": {k: list(v) for k, v in ms.items()},
+               "attention_ms_from": sorted(sources),
                "attention_ms_a_step_rank": per_step["rank"],
                "attention_ms_a_step_share": per_step["model"] / t,
                "extra_attention_ms_a_step": per_step["rank"]

@@ -1743,13 +1743,18 @@ def test_packed_trainer_on_card_resumes_bit_for_bit(dev, tmp_path):
 
 # ---------------------------------------------------------------------------
 # Head dims other than 64: the kernels at the padded width 64 (d = 16) and
-# 128 (d = 80, ViT-H/14's, and d = 128)
+# 128 (d = 80, ViT-H/14's, and d = 128), and the wide kernels (d = 192 and
+# 256: three and four 64-column chunks of one 256-column block with Q
+# resident; d = 264: a second block of 8 columns)
 # ---------------------------------------------------------------------------
 
-_HEAD_DIMS = [16, 80, 128, 264]
-# a tail of one row, a short odd S, a tile and a row, ViT-H/14 @224, 384,
-# @512
-_HD_LENGTHS = [1, 37, 65, 257, 577, 1025]
+_HEAD_DIMS = [16, 80, 128, 192, 256, 264]
+# a tail of one row, a short odd S, a tile and a row, the wide forward's
+# 128-row block and a row past it, ViT-H/14 @224, 384, @512
+_HD_LENGTHS = [1, 37, 65, 128, 129, 257, 577, 1025]
+# the wide forwards' head dims: three and four chunks, a last chunk of 8
+# columns, two and three 256-column blocks
+_WIDE_HEAD_DIMS = [136, 192, 200, 256, 264, 768]
 
 
 def _qkv_at(d, b, s, dtype, dev, heads=3, seed=0):
@@ -1799,6 +1804,56 @@ def test_attention_kernels_at_head_dim(dev, d, s, dtype):
         fa.attention_dropout_bwd_reference(q, k, v, o, lse, do, _SEED,
                                            _RATE, block_q=bq), dtype, s)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("d", _WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("s", _HD_LENGTHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_forward_forms_match_plain_with_equal_bits_twice(dev, d, s,
+                                                             dtype):
+    """Every form of the wide forward (d > 128): inference, with lse,
+    dropout, the debug kernel (its mask bit for bit against the plain
+    hash), segment ids (two segments) with and without dropout, each
+    within the tolerance of d = 64 of its plain version and the same bits
+    on a second call."""
+    q, k, v = _qkv_at(d, 2, s, dtype, dev)
+    seg = (torch.arange(s, device=dev) >= s // 2).to(torch.int32)
+    seg = seg.expand(2, s).contiguous()
+    bq, pbq = fa.auto_block_q(s), fa.packed_block_q(s)
+    drop = (_SEED, _RATE)
+
+    def run():
+        return {
+            "inference": (fa.flash_attention_inference(q, k, v),),
+            "lse": fa.flash_attention_fwd(q, k, v),
+            "dropout": fa.flash_attention_dropout_fwd(q, k, v, *drop,
+                                                      block_q=bq),
+            "debug": fa.flash_attention_dropout_debug(q, k, v, *drop,
+                                                      block_q=bq),
+            "segment": fa.flash_attention_packed_fwd(q, k, v, seg),
+            "segment_dropout": fa.flash_attention_packed_dropout_fwd(
+                q, k, v, seg, *drop, None, pbq)}
+
+    got, again = run(), run()
+    dropped = fa.attention_dropout_fwd_reference(q, k, v, *drop, block_q=bq)
+    ref = {"inference": (fa.attention_reference(q, k, v),),
+           "lse": fa.attention_fwd_reference(q, k, v),
+           "dropout": dropped,
+           "debug": (dropped[0], fa._keep(q, *drop, bq)),
+           "segment": fa.attention_packed_fwd_reference(q, k, v, seg),
+           "segment_dropout": fa.attention_packed_dropout_fwd_reference(
+               q, k, v, seg, *drop, None, pbq)}
+    torch.cuda.synchronize()
+    for form, outs in got.items():
+        assert all(torch.equal(a, b) for a, b in zip(outs, again[form])), form
+        for g, r in zip(outs, ref[form]):
+            if g.dtype == torch.bool:
+                assert torch.equal(g, r), form
+                continue
+            assert torch.isfinite(g).all(), form
+            torch.testing.assert_close(g.float(), r.float(),
+                                       atol=_ATTN_TOL[dtype], rtol=0,
+                                       msg=form)
 
 
 @pytest.mark.parametrize("d", _HEAD_DIMS)
@@ -1881,7 +1936,7 @@ def test_attention_kernels_read_no_column_past_d(dev, d, dtype):
 
 @pytest.mark.parametrize("rate", [0.0, _RATE])
 @pytest.mark.parametrize("d,wide", [(16, 64), (80, 128), (80, 96),
-                                    (136, 256)])
+                                    (136, 256), (200, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("packed", [False, True])
 def test_head_dim_equals_zero_padded_wider_head_dim(dev, d, wide, dtype,
@@ -1892,10 +1947,11 @@ def test_head_dim_equals_zero_padded_wider_head_dim(dev, d, wide, dtype,
     skipped 16-deep steps change no bit; with a rate, the dropout kernels
     (dense or segment), whose mask holds no d. In bf16, d = 80 runs at
     kD = 80 and 96 and 128 at kD = 128, so the 16-column tiles meet the
-    64-column chunk; 136 and 256 run the wide kernels, 136's last chunk 8
-    columns (one 16-deep step of S) against two whole chunks. (f32 splits a row over as many threads as the padded
-    width needs, so 16 against 128 would differ in summation order; the
-    pairs here share that split.)"""
+    64-column chunk; 136, 200 and 256 run the wide kernels, 136's and
+    200's last chunk 8 columns (one 16-deep step of S) against whole
+    chunks of one 256-column block. (f32 splits a row over as many threads
+    as the padded width needs, so 16 against 128 would differ in
+    summation order; the pairs here share that split.)"""
     seg = _seg_ids("odd-S", 2, dev)
     s = seg.shape[1]
     q, k, v = _qkv_at(d, 2, s, dtype, dev)
