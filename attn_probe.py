@@ -53,9 +53,10 @@ same card. A build:
 - ln (``--only ln``): the LayerNorm forward at the serving, int8 serving
   and training rows (x 768, bf16; the int8 rows with an f32 scale too), at
   ViT-H/14's serving and training rows (8 | 32 × 257, x 1280; the
-  training rows with an f32 scale too) and at chip_smoke.py's
-  WIDE_LN_CASES (the any-D kernels: 50, 2560, 6144): error against the
-  plain version, CUDA-event and device times beside ``F.layer_norm``'s;
+  training rows with an f32 scale too), at chip_smoke.py's
+  VARIANT_LN_CASES (1024, 384, 192) and WIDE_LN_CASES (the any-D kernels:
+  50, 1001, 2560, 6144, 9000): error against the plain version, equal
+  bits twice, CUDA-event and device times beside ``F.layer_norm``'s;
   the backward at the dense and packed training rows (36 × 577, 32 ×
   1152, x 768) and at ViT-H/14's serving and training rows (8 | 32 × 257,
   x 1280) with a bf16 and an f32 scale, and at WIDE_LN_CASES: errors,
@@ -629,7 +630,8 @@ def ln_key(prefix: str, rows: int, d: int, x_dtype, w_dtype) -> str:
 
 def layer_norm(gen, out: dict) -> None:
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
-    from chip_smoke import WIDE_LN_CASES, bf16_ulp, device_ms, time_ms
+    from chip_smoke import (VARIANT_LN_CASES, WIDE_LN_CASES, bf16_ulp,
+                            device_ms, time_ms)
 
     bf16 = torch.bfloat16
     for rows, d, x_dtype, w_dtype in ((8 * 577, 768, bf16, bf16),
@@ -639,7 +641,7 @@ def layer_norm(gen, out: dict) -> None:
                                       (8 * 257, 1280, bf16, bf16),
                                       (32 * 257, 1280, bf16, bf16),
                                       (32 * 257, 1280, bf16, torch.float32),
-                                      *WIDE_LN_CASES):
+                                      *VARIANT_LN_CASES, *WIDE_LN_CASES):
         x = (torch.randn((rows, d), generator=gen, device="cuda") * 3 + 1
              ).to(x_dtype)
         s, b = (torch.randn((d,), generator=gen, device="cuda").to(w_dtype)
@@ -653,7 +655,9 @@ def layer_norm(gen, out: dict) -> None:
             return torch.nn.functional.layer_norm(x, (d,), ls, lb, 1e-12)
 
         ref = ln.layer_norm_reference(x, s, b, 1e-12).float()
-        diff = (kernel().float() - ref).abs()
+        y = kernel()
+        out["equal_twice"] &= torch.equal(y, kernel())
+        diff = (y.float() - ref).abs()
         key = ln_key("ln", rows, d, x_dtype, w_dtype)
         ulp = bf16_ulp(ref) if x_dtype == bf16 else 1e-5 * ref.abs()
         out["errors"][key] = {
@@ -683,7 +687,8 @@ def layer_norm_bwd(gen, out: dict) -> None:
     """The LayerNorm backward at the dense and packed training rows (x 768,
     bf16; the block LNs' bf16 scale and the final LN's f32 scale), at
     ViT-H/14's b32 training rows (x 1280, the same two scales) and at
-    chip_smoke.py's WIDE_LN_CASES (the any-D kernel: width 50, 2560, 6144):
+    chip_smoke.py's WIDE_LN_CASES (the any-D kernel: width 50, 1001, 2560,
+    6144, 9000):
     errors against the plain version, equal bits twice, CUDA-event and
     device times (``second_pass_ms``: the column pass, ``ln_bwd_cols``),
     beside

@@ -17,9 +17,20 @@
 // as one byte of a [B * H, S, S] buffer, the oracle the tests hold the
 // mask against. What bounds it is the training forward's chain with the hash
 // on the CUDA cores in it; the debug variant's byte-wise mask writes
-// ([B * H, S, S], scattered one byte a thread) take most of its time.
+// ([B * H, S, S], scattered one byte a thread) take most of its time. The
+// debug variant is compiled in flash_attention_dropout_debug.cu, so that
+// the two build at once.
 
 #include "attention_fwd.cuh"
+
+namespace cxr {
+// flash_attention_dropout_debug.cu: launch_attn_fwd with kEmitKeep
+int launch_attn_fwd_keep(const void* q, const void* k, const void* v,
+                         void* o, float* lse, int batch, int heads, int seq,
+                         int head_dim, Strides qs, Strides ks, Strides vs,
+                         Strides os, float scale, int dtype, int device,
+                         void* stream, Dropout drop);
+}  // namespace cxr
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; lse is a
 // contiguous f32 [batch * heads, seq] buffer; keep is a u8
@@ -47,9 +58,9 @@ extern "C" int cxr_attention_fwd_dropout(
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   float* l = static_cast<float*>(lse);
   if (keep != nullptr)
-    return cxr::launch_attn_fwd<true, true, true>(
-        q, k, v, o, l, batch, heads, seq, head_dim, qs, ks, vs, os, scale,
-        dtype, device, stream, drop);
+    return cxr::launch_attn_fwd_keep(q, k, v, o, l, batch, heads, seq,
+                                     head_dim, qs, ks, vs, os, scale, dtype,
+                                     device, stream, drop);
   return cxr::launch_attn_fwd<true, true, false>(
       q, k, v, o, l, batch, heads, seq, head_dim, qs, ks, vs, os, scale, dtype,
       device, stream, drop);

@@ -20,7 +20,9 @@
 // sequence padded to the TPU wrapper's Q block).
 //
 // What bounds them on an H100: tensor-core throughput over the
-// same-segment tiles only (see attention_bwd.cuh).
+// same-segment tiles only (see attention_bwd.cuh). The dropout entry point
+// is compiled in flash_attention_seg_bwd_dropout.cu, so that the two build
+// at once.
 
 #include "attention_bwd.cuh"
 
@@ -35,29 +37,5 @@ extern "C" int cxr_attention_bwd_seg(
   return cxr::bwd::launch_bwd<false, true>(
       q, k, v, o, dout, lse, delta, dq, dk, dv, batch, heads, seq, head_dim,
       strides, scale, dtype, device, stream, cxr::Dropout{},
-      static_cast<const int*>(seg));
-}
-
-// The dropout backward: also the mask's scalars (see cxr::Dropout) and
-// 1 / (1 - rate).
-extern "C" int cxr_attention_bwd_seg_dropout(
-    const void* seg, const void* q, const void* k, const void* v,
-    const void* o, const void* dout, const void* lse, void* delta, void* dq,
-    void* dk, void* dv, int batch, int heads, int seq, int head_dim,
-    const long long* strides, float scale, unsigned seed_mix,
-    unsigned threshold, int q_pad, int s_pad, unsigned bh_base,
-    int heads_total, int head_base, float inv_keep, int dtype, int device,
-    void* stream) {
-  if (q_pad < seq || s_pad < seq || !(inv_keep >= 1.f) ||
-      !cxr::dropout_heads_ok(heads, heads_total, head_base))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cxr::Dropout drop{seed_mix, threshold, static_cast<uint32_t>(q_pad),
-                          static_cast<uint32_t>(s_pad), bh_base,
-                          static_cast<uint32_t>(heads_total),
-                          static_cast<uint32_t>(head_base), 1.f / inv_keep,
-                          inv_keep, nullptr};
-  return cxr::bwd::launch_bwd<true, true>(
-      q, k, v, o, dout, lse, delta, dq, dk, dv, batch, heads, seq, head_dim,
-      strides, scale, dtype, device, stream, drop,
       static_cast<const int*>(seg));
 }

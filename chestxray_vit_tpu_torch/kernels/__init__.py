@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -83,6 +84,10 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# seconds from the start of this process's last build to the end of each
+# source's nvcc (they run at once: the largest is the build's critical
+# path), the slowest first; empty where the library was found built
+BUILD_SECONDS: dict = {}
 
 
 def _sources() -> list:
@@ -121,21 +126,38 @@ def build() -> Path:
     """Compile csrc/*.cu into the keyed library unless it exists already:
     one ``nvcc -c`` per source, all running at once, then one link. The
     compilers' output (``-Xptxas -v``: registers, shared memory, spills
-    per kernel) is kept beside the library as ``.log``."""
+    per kernel) and each source's seconds (``BUILD_SECONDS``) are kept
+    beside the library as ``.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *_flags(), "-c", "-o", str(obj),
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(_sources(), objs)]
-    logs = [(src.name, *p.communicate()) for src, p in zip(_sources(), procs)]
+    logs = {}
+
+    def finish(src, p):
+        text, _ = p.communicate()
+        logs[src.name] = (text, time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=finish, args=pair)
+               for pair in zip(_sources(), procs)]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    BUILD_SECONDS.clear()
+    BUILD_SECONDS.update((name, round(s, 1)) for name, (_, s) in
+                         sorted(logs.items(), key=lambda kv: -kv[1][1]))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    failed = [name for (name, _, _), p in zip(logs, procs) if p.returncode]
-    report = "".join(f"== {name}\n{text}" for name, text, _ in logs)
+    failed = [src.name for src, p in zip(_sources(), procs) if p.returncode]
+    report = "".join(f"== {name} ({logs[name][1]:.1f} s)\n{logs[name][0]}"
+                     for name in sorted(logs))
     if not failed:
         link = subprocess.run([nvcc, *GENCODE, "-shared", "-o", str(tmp),
                                *map(str, objs)], capture_output=True,

@@ -28,8 +28,8 @@
   mask, as the JAX step's one jitted function over the global batch draws
   it.
 - ``flash_attention_dropout_{fwd,bwd,debug}``: the dropout kernels
-  (``csrc/flash_attention_dropout.cu`` and ``csrc/flash_attention_bwd.cu``,
-  the ports of ``_fwd_kernel_drop``, ``_fwd_kernel_drop_debug`` and
+  (``csrc/flash_attention_dropout.cu``, ``flash_attention_dropout_debug.cu``
+  and ``flash_attention_bwd_dropout.cu``, the ports of ``_fwd_kernel_drop``, ``_fwd_kernel_drop_debug`` and
   ``_bwd_kernel_drop``), joined by ``FlashAttentionDropout``;
   ``flash_attention_dropout`` has the JAX function's signature.
 - ``attention_packed_reference``, ``attention_packed_{fwd,bwd}_reference``,
@@ -37,8 +37,9 @@
   attention over segment ids (packed sequences), the math of
   ``attention_xla_packed``, ``_fwd_seg_impl`` and ``_bwd_seg_impl``.
 - ``flash_attention_packed_{fwd,bwd}``, ``flash_attention_packed_dropout_
-  {fwd,bwd}``: the segment kernels (``csrc/flash_attention_seg.cu`` and
-  ``csrc/flash_attention_seg_bwd.cu``, the ports of ``_fwd_kernel_seg``,
+  {fwd,bwd}``: the segment kernels (``csrc/flash_attention_seg.cu``,
+  ``flash_attention_seg_bwd.cu`` and their ``_dropout`` forms, the ports
+  of ``_fwd_kernel_seg``,
   ``_bwd_kernel_seg``, ``_fwd_kernel_seg_drop`` and
   ``_bwd_kernel_seg_drop``), joined by ``FlashAttentionPacked`` and
   ``FlashAttentionPackedDropout``; ``flash_attention_packed`` and
@@ -613,7 +614,8 @@ def flash_attention_dropout_bwd(q: torch.Tensor, k: torch.Tensor,
     """Training backward with dropout: (dq, dk, dv) in q's dtype, laid
     out as :func:`flash_attention_bwd` lays them out. CPU tensors take
     :func:`attention_dropout_bwd_reference`; CUDA tensors launch the
-    kernels of ``csrc/flash_attention_bwd.cu`` with the mask regenerated."""
+    kernels of ``csrc/flash_attention_bwd_dropout.cu`` with the mask
+    regenerated."""
     if q.device.type == "cpu":
         return attention_dropout_bwd_reference(q, k, v, o, lse, do, seed,
                                                rate, sm_scale, block_q,
@@ -965,7 +967,7 @@ def flash_attention_packed_dropout_bwd(
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Segment-masked training backward with dropout. CPU tensors take
     :func:`attention_packed_dropout_bwd_reference`; CUDA tensors launch the
-    kernels of ``csrc/flash_attention_seg_bwd.cu`` with the mask
+    kernels of ``csrc/flash_attention_seg_bwd_dropout.cu`` with the mask
     regenerated."""
     if q.device.type == "cpu":
         return attention_packed_dropout_bwd_reference(

@@ -4,9 +4,9 @@ x's dtype, with the memory-lean gradient of the JAX package's custom VJP.
 - ``layer_norm``: a ``torch.autograd.Function`` that saves only ``x`` and
   ``scale`` (as ``chestxray_vit_tpu/ops/layer_norm.py``'s ``_fwd`` does) and
   recomputes mean, var and x̂ in the backward. CUDA tensors take the
-  hand-written kernels in both directions (``csrc/layer_norm.cu``: the
-  ports of ``_ln_fwd_kernel`` and ``_ln_bwd_kernel``); CPU tensors take the
-  plain versions.
+  hand-written kernels in both directions (``csrc/layer_norm.cu`` and
+  ``csrc/layer_norm_bwd.cu``: the ports of ``_ln_fwd_kernel`` and
+  ``_ln_bwd_kernel``); CPU tensors take the plain versions.
 - ``layer_norm_reference`` / ``layer_norm_bwd_reference``: plain PyTorch,
   the math of ``_forward_xla`` / ``_bwd_xla``, and the oracles the kernels
   are held against.
@@ -111,9 +111,12 @@ def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
                     bias: torch.Tensor, eps: float) -> torch.Tensor:
     """Launch the LayerNorm forward kernel: x contiguous [..., D] in f32 or
     bf16 (any D ≥ 1: rows of up to 2048 columns in whole 16-byte vectors
-    run the register rungs, any other D the row-a-block kernel of
-    ``csrc/layer_norm.cu``), scale/bias contiguous [D] in f32 or bf16 on
-    x's device. Builds no graph: gradients go through :func:`layer_norm`."""
+    run the register rungs, any other D the any-D kernel of
+    ``csrc/layer_norm.cu``: a warp a row off the vector up to 256 columns,
+    else a block a row from registers, read once a pass past 4096 columns
+    off the vector, 8192 bf16 or 4096 f32 in whole vectors), scale/bias
+    contiguous [D] in f32 or bf16 on x's device. Builds no graph: gradients
+    go through :func:`layer_norm`."""
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_cuda needs CUDA tensors, got {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad

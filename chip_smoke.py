@@ -23,7 +23,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 1. device: a CUDA card is required (exit 2 without one, before any
    result); its name and power limit as nvidia-smi prints them.
 2. build: the kernels in chestxray_vit_tpu_torch/csrc/ built with nvcc
-   (one process per source, all at once).
+   (one process per source, all at once; each source's seconds).
 3. kernel_check: after a second of products that brings the card to its
    working clocks, each kernel against its plain PyTorch version on the
    card, at its path's shapes (ViT-B/16 @384: batch 8 for serving, batch 32
@@ -258,8 +258,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 35. train_mesh: the fsdp and tensor axes. Four ranks (started through
    the launcher, ``parallel/launch.py``) on cuda:0 in a gloo group, mesh data x fsdp x tensor
    1 x 2 x 2 (ZeRO-3 shards, the Megatron split, the dropout kernels keyed
-   by global head), ViT-B/16 @384 at full width and depth, bf16, full
-   remat, against this process taking the same steps on the global batch:
+   by global head), ViT-B/16 @384 at full width and 4 of its 12 layers,
+   bf16, full remat, against this process taking the same steps on the
+   global batch:
    the dense step (attention and hidden dropout 0.1, mixup 0.2, global
    batch 8; 2 steps and one eval step), the packed step (8 sequences of
    1152 tokens, mixed layout, both dropouts 0.1; 2 steps), the merged
@@ -566,17 +567,20 @@ HEAD_DIM_PADS = ((16, 64), (80, 128), (12, 16), (136, 256), (200, 256))
 # timed at the serving and training batches beside the plain version and
 # SDPA (the backend that takes d = 256, if any), by the real d's bound
 WIDE_ATTN_SHAPES = ((8, 3, 577, 256), (TRAIN_BATCH, 3, 577, 256))
-# LayerNorm off the 16-byte vector (the off-8 model's width 50, at the b36
-# train rows) and past the register rungs (2560, 6144 at the b8 serving
-# rows), forward and backward, bf16 rows with a bf16 and an f32 scale, the
-# width 50 in f32 too
+# LayerNorm off the 16-byte vector (the off-8 model's width 50 at the b36
+# train rows: a warp a row; 1001 at the b8 serving rows: a block a row)
+# and past the register rungs (2560, 6144 at the b8 serving rows: a block
+# a row from registers; 9000: the row read once a pass), forward and
+# backward, bf16 rows with a bf16 and an f32 scale, the width 50 in f32 too
 WIDE_LN_CASES = ((TRAIN_BATCH * 577, 50, torch.bfloat16, torch.bfloat16),
                  (TRAIN_BATCH * 577, 50, torch.bfloat16, torch.float32),
                  (TRAIN_BATCH * 577, 50, torch.float32, torch.float32),
+                 (8 * 577, 1001, torch.bfloat16, torch.bfloat16),
                  (8 * 577, 2560, torch.bfloat16, torch.bfloat16),
                  (8 * 577, 2560, torch.bfloat16, torch.float32),
                  (8 * 577, 6144, torch.bfloat16, torch.bfloat16),
-                 (8 * 577, 6144, torch.bfloat16, torch.float32))
+                 (8 * 577, 6144, torch.bfloat16, torch.float32),
+                 (8 * 577, 9000, torch.bfloat16, torch.bfloat16))
 # ViT-H/14 @224 (config.VIT_VARIANTS["vit_h14"]): hidden 1280 in 16 heads of
 # 80, 257 tokens; its attention timed at the serving and training batches,
 # its LayerNorm (forward and backward) at the b8 serving rows in both dtypes
@@ -782,18 +786,23 @@ HEAD_SPLIT_BATCH, HEAD_SPLIT_ROW_BASE = 4, 3
 # then one eval step), "packed" (the packed step on MESH_PACKED_SEQS
 # 1152-token sequences of smoke_batches' mixed layout; merged at the
 # train_packed_tome phase's r), "int8" (the int8 straight-through dense
-# step on MESH_BATCH images, scales calibrated on them). Full width and
-# depth in bf16, then each path's f32 counterpart at depth 2.
+# step on MESH_BATCH images, scales calibrated on them). Full width in bf16
+# at MESH_LAYERS of ViT-B/16's 12 layers (the script's time limit: four
+# ranks share the card and a full-depth bf16 step took 3.5-5.7 s), then
+# each path's f32 counterpart at depth 2.
 MESH_RANKS, MESH_SHAPE, MESH_BATCH, MESH_PACKED_SEQS = 4, (1, 1, 2, 2), 8, 8
-MESH_LAYERS, MESH_STEPS = 12, 2
+MESH_LAYERS, MESH_STEPS = 4, 2
 _MESH_DROP = dict(attention_dropout=DROP_RATE, hidden_dropout=DROP_RATE)
 _MESH_TOME = dict(tome_r=TOME_R, tome_schedule=TOME_SCHEDULE)
 _MESH_F32 = dict(dtype="float32", num_layers=2)
 MESH_RUNS = (
-    ("bf16", "dense", dict(remat=True, **_MESH_DROP), MESH_STEPS),
-    ("packed_bf16", "packed", dict(remat=True, **_MESH_DROP), 2),
-    ("packed_tome_bf16", "packed", dict(remat=True, **_MESH_TOME), 2),
-    ("int8_bf16", "int8", dict(remat=True), 2),
+    ("bf16", "dense", dict(remat=True, num_layers=MESH_LAYERS, **_MESH_DROP),
+     MESH_STEPS),
+    ("packed_bf16", "packed",
+     dict(remat=True, num_layers=MESH_LAYERS, **_MESH_DROP), 2),
+    ("packed_tome_bf16", "packed",
+     dict(remat=True, num_layers=MESH_LAYERS, **_MESH_TOME), 2),
+    ("int8_bf16", "int8", dict(remat=True, num_layers=MESH_LAYERS), 2),
     ("f32", "dense", dict(remat=True, **_MESH_DROP, **_MESH_F32), 2),
     ("packed_f32", "packed", dict(remat=True, **_MESH_DROP, **_MESH_F32), 2),
     ("packed_tome_f32", "packed", dict(remat=True, **_MESH_TOME, **_MESH_F32),
@@ -938,10 +947,13 @@ def enqueue_ms(fn) -> float:
     return ms
 
 
-def time_pair(kernel, plain, plain_reps: int = 7,
-              plain_inner: int = 10) -> tuple:
+def time_pair(kernel, plain, plain_reps: int = 3,
+              plain_inner: int = 3) -> tuple:
     """(kernel ms, plain ms), measured in turns: plain, kernel, kernel,
-    plain. A plain version that takes tens of ms is given fewer calls."""
+    plain. The plain version repeats the kernel's arithmetic in plain
+    PyTorch (up to ~100 ms a call in the attention forms) and is no
+    yardstick of speed: it is timed over 3 x 3 calls a turn, the kernel
+    over 7 x 10."""
     p1 = time_ms(plain, plain_reps, plain_inner)
     k1, k2 = time_ms(kernel), time_ms(kernel)
     p2 = time_ms(plain, plain_reps, plain_inner)
@@ -1169,7 +1181,7 @@ def phase_build() -> None:
     path = kernels.build()
     kernels.library()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "library": path.name})
+          "library": path.name, "source_s": dict(kernels.BUILD_SECONDS)})
 
 
 def warm_up() -> float:
@@ -2068,8 +2080,7 @@ def check_hidden_dropout(randn, summary: dict) -> None:
         torch.cuda.synchronize()
         ms, plain_ms = time_pair(
             lambda: hd.hidden_dropout_cuda(x, seed, DROP_RATE, base),
-            lambda: hd.hidden_dropout_reference(x, seed, DROP_RATE, base),
-            plain_reps=3, plain_inner=3)
+            lambda: hd.hidden_dropout_reference(x, seed, DROP_RATE, base))
         rec = {"phase": "kernel_check", "kernel": "hidden_dropout",
                "shape": list(shape), "dtype": str(dtype), "rate": DROP_RATE,
                "row_base": base, "fwd_equal": fwd_equal,
@@ -5798,7 +5809,7 @@ def check_variants(randn, gen, summary: dict) -> None:
              lambda: fa.attention_dropout_fwd_reference(q, k, v, *drop,
                                                         block_q=bq),
              {"lse": True, "hash_passes": 1}, lib_drop, None)):
-        ms, plain_ms = time_pair(kernel, plain, plain_reps=3, plain_inner=3)
+        ms, plain_ms = time_pair(kernel, plain)
         rec = {"phase": "kernel_check", "kernel": name,
                "model": "vit_b16_512", "shape": list(shape),
                "dtype": str(dtype), "block_q": bq, "ms": ms,
@@ -6153,9 +6164,9 @@ def mesh_worker(dev) -> dict:
 def phase_train_mesh(dense_rec: dict) -> dict:
     """The fsdp and tensor axes on the card: MESH_RANKS ranks on cuda:0 in
     a gloo group (NCCL refuses two ranks on one card), mesh data x fsdp x
-    tensor 1 x 2 x 2, ViT-B/16 @384 at full width and depth, bf16, full
-    remat, every run of MESH_RUNS against this process taking the same
-    steps on the global batch: the dense step (attention and hidden
+    tensor 1 x 2 x 2, ViT-B/16 @384 at full width and MESH_LAYERS layers,
+    bf16, full remat, every run of MESH_RUNS against this process taking
+    the same steps on the global batch: the dense step (attention and hidden
     dropout 0.1, mixup 0.2, global batch MESH_BATCH) and one eval step; the
     packed step (MESH_PACKED_SEQS 1152-token sequences of the mixed layout,
     both dropouts 0.1); the merged packed step (r 16 decreasing); the int8
@@ -6761,21 +6772,23 @@ KERNELS = (  # name (the kernel_check summary key), source, what it replaces
      "chestxray_vit_tpu/ops/flash_attention.py:267"),
     ("flash_attention_bwd", "csrc/flash_attention_bwd.cu",
      "chestxray_vit_tpu/ops/flash_attention.py:755"),
-    ("layer_norm_bwd", "csrc/layer_norm.cu",
+    ("layer_norm_bwd", "csrc/layer_norm_bwd.cu",
      "chestxray_vit_tpu/ops/layer_norm.py:103"),
     ("flash_attention_dropout_fwd", "csrc/flash_attention_dropout.cu",
      "chestxray_vit_tpu/ops/flash_attention.py:500"),
-    ("flash_attention_dropout_debug", "csrc/flash_attention_dropout.cu",
+    ("flash_attention_dropout_debug", "csrc/flash_attention_dropout_debug.cu",
      "chestxray_vit_tpu/ops/flash_attention.py:508"),
-    ("flash_attention_dropout_bwd", "csrc/flash_attention_bwd.cu",
+    ("flash_attention_dropout_bwd", "csrc/flash_attention_bwd_dropout.cu",
      "chestxray_vit_tpu/ops/flash_attention.py:516"),
     ("flash_attention_packed_fwd", "csrc/flash_attention_seg.cu",
      "chestxray_vit_tpu/ops/flash_attention.py:134"),
     ("flash_attention_packed_bwd", "csrc/flash_attention_seg_bwd.cu",
      "chestxray_vit_tpu/ops/flash_attention.py:208"),
-    ("flash_attention_packed_dropout_fwd", "csrc/flash_attention_seg.cu",
+    ("flash_attention_packed_dropout_fwd",
+     "csrc/flash_attention_seg_dropout.cu",
      "chestxray_vit_tpu/ops/flash_attention.py:140"),
-    ("flash_attention_packed_dropout_bwd", "csrc/flash_attention_seg_bwd.cu",
+    ("flash_attention_packed_dropout_bwd",
+     "csrc/flash_attention_seg_bwd_dropout.cu",
      "chestxray_vit_tpu/ops/flash_attention.py:216"),
     # no Pallas kernel: the JAX package draws jax.random.bernoulli in XLA
     ("hidden_dropout", "csrc/hidden_dropout.cu",

@@ -208,11 +208,15 @@ def test_layer_norm_kernel_matches_plain_at_every_width(dev, x_dtype, w_dtype,
 
 @pytest.mark.parametrize("x_dtype,w_dtype", _LN_PAIRS)
 @pytest.mark.parametrize("rows,d", [(1, 768), (7, 768), (65, 16),
-                                    (1000, 128)])
+                                    (1000, 128), (65, 50), (37, 1001),
+                                    (37, 2560), (5, 9000)])
 def test_layer_norm_fwd_reads_and_writes_no_row_past_the_last(
         dev, x_dtype, w_dtype, rows, d):
     """The forward entry point on the first ``rows`` rows of buffers that
-    hold three more: NaN after the input, a sentinel after the output."""
+    hold three more: NaN after the input, a sentinel after the output; on
+    the rungs and in each branch of the any-D forward (50: a warp a row;
+    1001: a block a row off the vector; 2560: a block a row of whole
+    vectors, bf16; 9000: the row read once a pass, bf16)."""
     x = torch.full((rows + 3, d), float("nan"), device=dev, dtype=x_dtype)
     x[:rows] = _randn((rows, d), x_dtype, dev) * 3 + 1
     s, b = _randn((d,), w_dtype, dev, 1), _randn((d,), w_dtype, dev, 2)
@@ -229,26 +233,31 @@ def test_layer_norm_fwd_reads_and_writes_no_row_past_the_last(
 
 
 @pytest.mark.parametrize("rows", [1, 37, 8 * 577])
-@pytest.mark.parametrize("d", [50, 250, 1001, 2560, 6144, 9000])
+@pytest.mark.parametrize("d", [50, 250, 255, 256, 258, 1001, 2056, 2560,
+                               4096, 4100, 6144, 8192, 8200, 9000])
 @pytest.mark.parametrize("x_dtype,w_dtype", _LN_PAIRS)
 def test_layer_norm_kernel_at_any_width(dev, x_dtype, w_dtype, d, rows):
-    """Widths off the 16-byte vector (50, 250: a warp a row, 2 and 8
-    elements a lane; 1001: a block a row, 4 elements a thread) and past the
-    register rungs (2560, 6144: a block a row from registers; 9000: read
-    once a pass, ``ln_bwd_rowloop``), forward and backward,
-    against the plain versions (dscale and dbias 1e-5 of the largest, plus
-    one ulp in bf16), the backward's bits the same twice; at one row, at
-    37 (fewer blocks than a wave, the last one short of the others' rows)
-    and at the b8 serving rows."""
+    """Widths off the 16-byte vector (50, 250, 255: a warp a row, 2 and 8
+    elements a lane; 258, 1001: a block a row, 2 and 4 elements a thread)
+    and past the register rungs (2056, 2560, 6144, bf16 8192, f32 4096: a
+    block a row from registers, 2-4 vectors a thread; bf16 8200, f32 4100
+    and 9000: read once a pass, ``ln_fwd_rowloop`` / ``ln_bwd_rowloop``),
+    with 256 on the rungs beside them, forward and backward, against the
+    plain versions (dscale and dbias 1e-5 of the largest, plus one ulp in
+    bf16), the bits of both the same twice; at one row, at 37 (fewer
+    blocks than a wave, the last one short of the others' rows) and at
+    the b8 serving rows."""
     x = _randn((rows, d), x_dtype, dev) * 3 + 1
     s, b = _randn((d,), w_dtype, dev, 1), _randn((d,), w_dtype, dev, 2)
     dy = _randn((rows, d), x_dtype, dev, 3)
     y = ln.layer_norm_cuda(x, s, b, 1e-12)
+    y_again = ln.layer_norm_cuda(x, s, b, 1e-12)
     got = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
     again = ln.layer_norm_bwd_cuda(x, s, dy, 1e-12)
     ref = ln.layer_norm_bwd_reference(x, s, dy, 1e-12)
     torch.cuda.synchronize()
     _assert_ln_close(y, ln.layer_norm_reference(x, s, b, 1e-12), x_dtype)
+    assert torch.equal(y, y_again)
     _assert_ln_close(got[0], ref[0], x_dtype)
     for g, r in zip(got[1:], ref[1:]):
         r = r.float()

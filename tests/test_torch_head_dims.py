@@ -253,13 +253,16 @@ def test_zero_padded_head_dim_is_the_real_one(d):
 # LayerNorm off the vector width and past the register rungs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("d", [50, 2560])
+@pytest.mark.parametrize("d", [50, 1001, 2560, 9000])
 @pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
 def test_layer_norm_any_width_matches_jax(d, w_dtype):
     """The port's LayerNorm forward and backward (their plain versions on
     the CPU, the oracles of the any-width kernels) against the interpreted
     ``_forward_pallas`` and ``_bwd_pallas``, f32 rows with an f32 or bf16
-    scale; within 1e-5 of the largest value (f32 summation order)."""
+    scale, at a width of each branch of the any-D kernels (50: a warp a
+    row; 1001: a block a row off the vector; 2560: a block a row of whole
+    vectors; 9000: past the register widths); within 1e-5 of the largest
+    value (f32 summation order)."""
     rng = np.random.default_rng(d)
     x = (rng.standard_normal((3, 37, d)) * 3 + 1).astype(np.float32)
     sb = [rng.standard_normal(d).astype(np.float32) for _ in range(2)]
