@@ -55,12 +55,15 @@ same card. A build:
   ViT-H/14's serving and training rows (8 | 32 × 257, x 1280; the
   training rows with an f32 scale too), at chip_smoke.py's
   VARIANT_LN_CASES (1024, 384, 192) and WIDE_LN_CASES (the any-D kernels:
-  50, 1001, 2560, 6144, 9000): error against the plain version, equal
+  50, 1001, 2560, 6144, 9000; the backward's cluster of blocks a row at
+  9000, f32 6144 and 4100): error against the plain version, equal
   bits twice, CUDA-event and device times beside ``F.layer_norm``'s;
   the backward at the dense and packed training rows (36 × 577, 32 ×
   1152, x 768) and at ViT-H/14's serving and training rows (8 | 32 × 257,
   x 1280) with a bf16 and an f32 scale, and at WIDE_LN_CASES: errors,
-  equal bits twice, event and device times (its column pass apart), the
+  equal bits twice, event and device times (its column pass apart, and
+  the two-pass form's statistics pass: a build with
+  ``-DCXR_LN_BWD_TWO_PASS`` takes it at every width past ln_bwd_any's), the
   host's µs a call (``host_us``: 200 calls
   enqueued, a sync after) and of the wrapper's block count alone
   (``blocks_us``: ``_bwd_blocks``, 2000 calls) beside
@@ -687,10 +690,11 @@ def layer_norm_bwd(gen, out: dict) -> None:
     """The LayerNorm backward at the dense and packed training rows (x 768,
     bf16; the block LNs' bf16 scale and the final LN's f32 scale), at
     ViT-H/14's b32 training rows (x 1280, the same two scales) and at
-    chip_smoke.py's WIDE_LN_CASES (the any-D kernel: width 50, 1001, 2560,
-    6144, 9000):
+    chip_smoke.py's WIDE_LN_CASES (the any-D kernels: width 50, 1001, 2560,
+    6144, 9000, 4100):
     errors against the plain version, equal bits twice, CUDA-event and
-    device times (``second_pass_ms``: the column pass, ``ln_bwd_cols``),
+    device times (``second_pass_ms``: the column pass, ``ln_bwd_cols``;
+    ``stats_ms``: the two-pass form's statistics pass, ``ln_bwd_stats``),
     beside
     ``aten.native_layer_norm_backward``'s with the scale in x's dtype."""
     from chestxray_vit_tpu_torch.ops import layer_norm as ln
@@ -719,9 +723,10 @@ def layer_norm_bwd(gen, out: dict) -> None:
                                                           ref[1:])]}
         out["equal_twice"] &= all(torch.equal(a, b)
                                   for a, b in zip(got, again))
-        dev = device_ms(kernel, parts=("ln_bwd_cols",))
+        dev = device_ms(kernel, parts=("ln_bwd_cols", "ln_bwd_stats"))
         out[key] = {"ms": time_ms(kernel), "device_ms": dev["device_ms"],
                     "second_pass_ms": dev["ln_bwd_cols_ms"],
+                    "stats_ms": dev["ln_bwd_stats_ms"],
                     "host_us": host_us(kernel),
                     "blocks_us": host_us(
                         lambda: ln._bwd_blocks(x, s, rows), 2000)}

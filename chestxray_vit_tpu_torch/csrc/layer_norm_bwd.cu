@@ -43,18 +43,20 @@
 // a block into shared memory, and each thread's dscale / dbias sums of its
 // own columns stay in registers across all its rows and are written once
 // a block into the [n_blocks, 2, D] workspace that the same column pass
-// adds. Wider rows take ln_bwd_rowloop (a block a row read once a pass,
-// its sums in its own row of the workspace).
+// adds.
+//
+// Wider rows (bf16 D > 8192 in whole vectors, any other D > 4096) take
+// layer_norm_bwd_wide.cu: a Hopper thread block cluster a row, or past a
+// cluster of eight two passes; layer_norm_bwd.cuh has what the two units
+// share (the call, the any-D layout, the column pass).
 
-#include "layer_norm.cuh"
+#include "layer_norm_bwd.cuh"
 
 namespace {
 
 using namespace cxr::ln;
-using cxr::from_f32;
 
 constexpr int kBwdWarps = 8;         // backward: warps of a block
-constexpr int kColWarps = 32;        // column pass: warps of a block
 
 // The backward's layout at V 16-byte vectors a lane.
 template <typename T, typename W, int V>
@@ -273,57 +275,6 @@ ln_bwd(const T* __restrict__ x, const W* __restrict__ scale,
   }
 }
 
-// dscale and dbias from the [n_blocks, 2 * D] partials: a block owns 32
-// columns; warp w sums partials w, w + kColWarps, ... in order (each a
-// 128-byte row piece), then warp 0 adds the warps' sums in warp order.
-template <typename W>
-__global__ void __launch_bounds__(32 * kColWarps)
-ln_bwd_cols(const float* __restrict__ part, int n_blocks, int D,
-            W* __restrict__ dscale, W* __restrict__ dbias) {
-  __shared__ float s_sum[kColWarps][32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * 32 + lane;
-  float acc = 0.f;
-  if (c < 2 * D) {
-#pragma unroll 4
-    for (int b = warp; b < n_blocks; b += kColWarps)
-      acc += part[static_cast<long long>(b) * 2 * D + c];
-  }
-  s_sum[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0 && c < 2 * D) {
-    float t = s_sum[0][lane];
-#pragma unroll
-    for (int w = 1; w < kColWarps; ++w) t += s_sum[w][lane];
-    if (c < D)
-      dscale[c] = from_f32<W>(t);
-    else
-      dbias[c - D] = from_f32<W>(t);
-  }
-}
-
-// The any-D backward's layout: the rows of AnyRows, and in registers the
-// row in hand and the next (x and dy, raw) and the thread's sums.
-template <typename T, typename W, bool kVec, bool kWarpRow, int V>
-struct AnyBwd : AnyRows<T, kVec, kWarpRow, V> {
-  using Base = AnyRows<T, kVec, kWarpRow, V>;
-  using R = typename Base::R;
-  static constexpr int kE = Base::kE;
-  static constexpr int kRegs = 4 * V * R::kWords + 2 * V * kE;
-  static constexpr int kMinBlocks =
-      kWarpRow ? (kRegs <= 32 ? 4 : 3) : kRegs <= 96 ? 2 : 1;
-  __host__ __device__ static constexpr int scale_bytes(int d) {
-    return (d * static_cast<int>(sizeof(W)) + 15) / 16 * 16;
-  }
-  // the scale, then kWarpRow: the warps' sums, [warp][2 V kE][32]
-  // lane-minor; else two buffers of the warps' two partial sums
-  static constexpr int kAux =
-      kWarpRow ? kAnyWarps * 2 * V * kE * 32 * 4 : 2 * 2 * kAnyWarps * 4;
-  __host__ __device__ static constexpr int smem(int d) {
-    return scale_bytes(d) + kAux;
-  }
-};
-
 // Rows walked by warps (kWarpRow) or by whole blocks, each held in
 // registers as raw words from one read of x and dy, with the next row's
 // loads issued before the current row's two reductions; the scale read
@@ -519,96 +470,6 @@ ln_bwd_any(const T* __restrict__ x, const W* __restrict__ scale,
   }
 }
 
-// Past the widths whose rows fit in registers (ln_bwd_any's), a block a
-// row read from L1 / L2 once a pass, its dscale / dbias sums in its own row
-// of the workspace (each thread owns fixed columns, so no atomics).
-template <typename T, typename W, bool kVec>
-__global__ void __launch_bounds__(kAnyThreads)
-ln_bwd_rowloop(const T* __restrict__ x, const W* __restrict__ scale,
-           const T* __restrict__ dy, T* __restrict__ dx,
-           float* __restrict__ part, long long rows, int D, float eps) {
-  using P = Piece<T, kVec>;
-  constexpr int E = P::kE;
-  __shared__ float red[2 * kAnyWarps];
-  const int np = D / E;
-  // this block's [2, D] partial: dscale's sums, then dbias's; a thread
-  // owns the columns of its pieces
-  float* pr = part + static_cast<long long>(blockIdx.x) * 2 * D;
-  for (int p = threadIdx.x; p < np; p += kAnyThreads)
-#pragma unroll
-    for (int j = 0; j < E; ++j) pr[p * E + j] = pr[D + p * E + j] = 0.f;
-  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
-    const T* xr = x + row * D;
-    const T* gr = dy + row * D;
-    float sx = 0.f, sg = 0.f;
-    for (int p = threadIdx.x; p < np; p += kAnyThreads) {
-      float xv[E], gv[E];
-      P::load(xr, p, xv);
-      P::load(gr, p, gv);
-#pragma unroll
-      for (int j = 0; j < E; ++j) {
-        sx += xv[j];
-        sg += gv[j] * cxr::to_f32(scale[p * E + j]);
-      }
-    }
-    block_sum2(sx, sg, red);
-    const float mean = sx / D;
-    float sq = 0.f, sgx = 0.f;
-    for (int p = threadIdx.x; p < np; p += kAnyThreads) {
-      float xv[E], gv[E];
-      P::load(xr, p, xv);
-      P::load(gr, p, gv);
-#pragma unroll
-      for (int j = 0; j < E; ++j) {
-        const float d = xv[j] - mean;
-        sq += d * d;
-        sgx += gv[j] * cxr::to_f32(scale[p * E + j]) * d;
-      }
-    }
-    block_sum2(sq, sgx, red);
-    const float rstd = rsqrtf(sq / D + eps);
-    const float mg = sg / D, mgx = sgx * rstd / D;  // mean(g), mean(g x_hat)
-    T* dxr = dx + row * D;
-    for (int p = threadIdx.x; p < np; p += kAnyThreads) {
-      float xv[E], gv[E];
-      P::load(xr, p, xv);
-      P::load(gr, p, gv);
-#pragma unroll
-      for (int j = 0; j < E; ++j) {
-        const int c = p * E + j;
-        const float xh = (xv[j] - mean) * rstd;
-        pr[c] += gv[j] * xh;
-        pr[D + c] += gv[j];
-        xv[j] = (gv[j] * cxr::to_f32(scale[c]) - mg - xh * mgx) * rstd;
-      }
-      P::store(dxr, p, xv);
-    }
-  }
-}
-
-// A backward call, or with `wave` set only the number of its blocks that
-// are resident at once.
-struct BwdCall {
-  const void *x, *scale, *dy;
-  void *dx, *dscale, *dbias;
-  float* part;
-  long long rows;
-  int d;
-  float eps;
-  int n_blocks, device;
-  cudaStream_t st;
-  int* wave;
-};
-
-// The column pass over a backward's n_blocks partials.
-template <typename W>
-cudaError_t launch_cols(const BwdCall& c) {
-  ln_bwd_cols<W><<<(2 * c.d + 31) / 32, 32 * kColWarps, 0, c.st>>>(
-      c.part, c.n_blocks, c.d, static_cast<W*>(c.dscale),
-      static_cast<W*>(c.dbias));
-  return cudaGetLastError();
-}
-
 template <typename T, typename W, int V>
 cudaError_t run_bwd_v(const BwdCall& c) {
   using L = Bwd<T, W, V>;
@@ -656,33 +517,11 @@ cudaError_t run_bwd_any(const BwdCall& c) {
   return launch_cols<W>(c);
 }
 
-// Past ln_bwd_any's widths: ln_bwd_rowloop and the column pass, or its
-// wave.
-template <typename T, typename W, bool kVec>
-cudaError_t run_bwd_rowloop(const BwdCall& c) {
-  static int cache[64] = {};
-  int wave = 0;
-  cudaError_t err = wave_of(ln_bwd_rowloop<T, W, kVec>, kAnyThreads, 0,
-                            c.device, cache, &wave);
-  if (err != cudaSuccess) return err;
-  if (c.wave) {
-    *c.wave = wave;
-    return cudaSuccess;
-  }
-  ln_bwd_rowloop<T, W, kVec><<<c.n_blocks, kAnyThreads, 0, c.st>>>(
-      static_cast<const T*>(c.x), static_cast<const W*>(c.scale),
-      static_cast<const T*>(c.dy), static_cast<T*>(c.dx), c.part, c.rows,
-      c.d, c.eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_cols<W>(c);
-}
-
 // Any D off the rungs: whole 16-byte vectors (D past 2048) take a block a
 // row, 2 to 4 vectors a thread (bf16 D <= 8192, f32 D <= 4096); a D off
 // the vector takes a warp a row up to 256 elements (1, 2, 4 or 8 a lane),
-// a block a row up to 4096 (2, 4, 8 or 16 a thread); wider rows
-// ln_bwd_rowloop.
+// a block a row up to 4096 (2, 4, 8 or 16 a thread); wider rows a cluster
+// of blocks a row, or the two-pass form (run_bwd_wide).
 template <typename T, typename W>
 cudaError_t run_bwd_off_rungs(const BwdCall& c) {
   constexpr int E = 16 / static_cast<int>(sizeof(T));
@@ -691,7 +530,7 @@ cudaError_t run_bwd_off_rungs(const BwdCall& c) {
     if (v <= 2) return run_bwd_any<T, W, true, false, 2>(c);
     if (v <= 3) return run_bwd_any<T, W, true, false, 3>(c);
     if (v <= 4) return run_bwd_any<T, W, true, false, 4>(c);
-    return run_bwd_rowloop<T, W, true>(c);
+    return run_bwd_wide<T, W, true>(c);
   }
   if (c.d <= 32 * 8) {
     const int v = (c.d + 31) / 32;
@@ -705,7 +544,7 @@ cudaError_t run_bwd_off_rungs(const BwdCall& c) {
   if (v <= 4) return run_bwd_any<T, W, false, false, 4>(c);
   if (v <= 8) return run_bwd_any<T, W, false, false, 8>(c);
   if (v <= 16) return run_bwd_any<T, W, false, false, 16>(c);
-  return run_bwd_rowloop<T, W, false>(c);
+  return run_bwd_wide<T, W, false>(c);
 }
 
 template <typename T, typename W>
@@ -740,10 +579,14 @@ cudaError_t run_bwd_types(int x_dtype, int w_dtype, const BwdCall& c) {
 }  // namespace
 
 // x, dy, dx contiguous [rows, d] in x_dtype from 16-byte aligned addresses;
-// scale, dscale, dbias [d] in w_dtype; workspace f32 [n_blocks, 2, d],
+// scale, dscale, dbias [d] in w_dtype; workspace f32 [n_blocks, 2, d] then
+// [rows, 4] (the two-pass form's row statistics, unused at other widths),
 // 16-byte aligned (n_blocks >= 1, chosen by the caller, best
 // cxr_layer_norm_bwd_wave's or fewer; the result depends on it only
-// through the f32 summation order).
+// through the f32 summation order). n_blocks counts blocks on the rungs
+// and in ln_bwd_any, clusters of blocks past ln_bwd_any's widths (bf16 d
+// > 8192 in whole vectors, any other d > 4096), and ranges of rows past a
+// cluster of eight (bf16 d > 65536, any other d > 32768).
 extern "C" int cxr_layer_norm_bwd(const void* x, const void* scale,
                                   const void* dy, void* dx, void* dscale,
                                   void* dbias, void* workspace,
@@ -760,8 +603,9 @@ extern "C" int cxr_layer_norm_bwd(const void* x, const void* scale,
   return static_cast<int>(run_bwd_types(x_dtype, w_dtype, c));
 }
 
-// *blocks = the backward's blocks resident on `device` at once for this d
-// and these dtypes: one wave, the workspace's size for any row count.
+// *blocks = the backward's blocks (clusters, ranges: as n_blocks counts
+// them) resident on `device` at once for this d and these dtypes: one
+// wave, the workspace's size for any row count.
 extern "C" int cxr_layer_norm_bwd_wave(int d, int x_dtype, int w_dtype,
                                        int device, int* blocks) {
   if (bad_shape(1, d)) return static_cast<int>(cudaErrorInvalidValue);

@@ -142,8 +142,9 @@ layer_norm_cuda.launches = 0     # kernel launches, read by chip_smoke.py
 
 
 # rows of a backward block's first turn: its eight warps' (a row a warp on
-# the rungs and off the vector up to 256 columns; a block a row past them
-# takes them one after another)
+# the rungs and off the vector up to 256 columns; a block a row past them,
+# and a cluster of blocks a row past 8192 bf16 / 4096 other columns, take
+# them one after another)
 _BWD_ROWS_PER_BLOCK = 8
 # the backward's wave (its blocks resident on the card at once) by (device
 # index, D, x dtype, scale dtype): asked of the library once, so that a
@@ -152,8 +153,10 @@ _BWD_WAVES: dict = {}
 
 
 def _bwd_blocks(x: torch.Tensor, scale: torch.Tensor, rows: int) -> int:
-    """Blocks of the backward kernel for ``rows`` rows: one a
-    ``_BWD_ROWS_PER_BLOCK`` rows, at most one wave (``_BWD_WAVES``)."""
+    """Blocks of the backward kernel for ``rows`` rows (clusters of blocks
+    or ranges of rows at the widest rows: what the library's wave counts):
+    one a ``_BWD_ROWS_PER_BLOCK`` rows, at most one wave
+    (``_BWD_WAVES``)."""
     key = (x.device.index, x.shape[-1], x.dtype, scale.dtype)
     wave = _BWD_WAVES.get(key)
     if wave is None:
@@ -165,13 +168,24 @@ def _bwd_blocks(x: torch.Tensor, scale: torch.Tensor, rows: int) -> int:
     return max(1, min(-(-rows // _BWD_ROWS_PER_BLOCK), wave))
 
 
+def _bwd_workspace(n_blocks: int, rows: int, d: int,
+                   device: torch.device) -> torch.Tensor:
+    """The backward's f32 workspace: ``n_blocks`` partial [2, d] rows, then
+    four statistics a row (read past a cluster of eight blocks a row, bf16
+    rows past 65536 columns in whole vectors and any other past 32768)."""
+    return torch.empty(n_blocks * 2 * d + 4 * rows, dtype=torch.float32,
+                       device=device)
+
+
 def layer_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
                         dy: torch.Tensor, eps: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the LayerNorm backward kernel: (dx in x's dtype, dscale and
-    dbias in scale's dtype). Deterministic: each block of one wave keeps
-    its rows' f32 sums on chip and writes them once, and a column pass
-    adds the blocks' sums in block order."""
+    dbias in scale's dtype). Deterministic: each block of one wave (a
+    cluster of blocks a row past 8192 bf16 or 4096 other columns) keeps its
+    rows' f32 sums on chip and writes them once, and a column pass adds the
+    blocks' sums in block order; past a cluster of eight, a pass writes each
+    row's statistics and column-tiled blocks walk ranges of rows."""
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_bwd_cuda needs CUDA tensors, got "
                          f"{x.device}")
@@ -188,7 +202,7 @@ def layer_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
     dx = torch.empty_like(x)
     dscale = torch.empty(d, dtype=scale.dtype, device=x.device)
     dbias = torch.empty(d, dtype=scale.dtype, device=x.device)
-    work = torch.empty((n_blocks, 2, d), dtype=torch.float32, device=x.device)
+    work = _bwd_workspace(n_blocks, rows, d, x.device)
     err = kernels.library().cxr_layer_norm_bwd(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         dscale.data_ptr(), dbias.data_ptr(), work.data_ptr(), rows, d, eps,

@@ -570,8 +570,10 @@ WIDE_ATTN_SHAPES = ((8, 3, 577, 256), (TRAIN_BATCH, 3, 577, 256))
 # LayerNorm off the 16-byte vector (the off-8 model's width 50 at the b36
 # train rows: a warp a row; 1001 at the b8 serving rows: a block a row)
 # and past the register rungs (2560, 6144 at the b8 serving rows: a block
-# a row from registers; 9000: the row read once a pass), forward and
-# backward, bf16 rows with a bf16 and an f32 scale, the width 50 in f32 too
+# a row from registers), forward and backward, bf16 rows with a bf16 and
+# an f32 scale, the width 50 in f32 too; past ln_bwd_any's widths (the
+# forward: the row read once a pass; the backward: a cluster of two blocks
+# a row) bf16 9000 with either scale, f32 6144 and bf16 4100 off the vector
 WIDE_LN_CASES = ((TRAIN_BATCH * 577, 50, torch.bfloat16, torch.bfloat16),
                  (TRAIN_BATCH * 577, 50, torch.bfloat16, torch.float32),
                  (TRAIN_BATCH * 577, 50, torch.float32, torch.float32),
@@ -580,7 +582,10 @@ WIDE_LN_CASES = ((TRAIN_BATCH * 577, 50, torch.bfloat16, torch.bfloat16),
                  (8 * 577, 2560, torch.bfloat16, torch.float32),
                  (8 * 577, 6144, torch.bfloat16, torch.bfloat16),
                  (8 * 577, 6144, torch.bfloat16, torch.float32),
-                 (8 * 577, 9000, torch.bfloat16, torch.bfloat16))
+                 (8 * 577, 9000, torch.bfloat16, torch.bfloat16),
+                 (8 * 577, 9000, torch.bfloat16, torch.float32),
+                 (8 * 577, 6144, torch.float32, torch.float32),
+                 (8 * 577, 4100, torch.bfloat16, torch.bfloat16))
 # ViT-H/14 @224 (config.VIT_VARIANTS["vit_h14"]): hidden 1280 in 16 heads of
 # 80, 257 tokens; its attention timed at the serving and training batches,
 # its LayerNorm (forward and backward) at the b8 serving rows in both dtypes
