@@ -1,14 +1,15 @@
 """The hand-written kernels under several builds, on one NVIDIA GPU.
 
-    python3 attn_probe.py [--only fwd|bwd|int8|ln] [--parent DIR]
+    python3 attn_probe.py [--only fwd|bwd|int8|ln] [--parent DIR ...]
                           ["<nvcc flags>" ...]
 
 Each argument is one build's extra nvcc flags (``CXR_NVCC_FLAGS``; the
 empty string is the tree as it stands, and the only build when no argument
-is given), for example ``-DCXR_NO_TILE_SKIP``. ``--parent DIR`` adds one
-build of another checkout (say a ``git archive`` of the parent commit under
-``_scratch/``), whose package is imported in place of this tree's (the
-timing helpers and shapes stay this tree's ``chip_smoke.py``). Every build
+is given), for example ``-DCXR_NO_TILE_SKIP``. ``--parent DIR`` (which
+may be given more than once) adds one build of another checkout (say a
+``git archive`` of the parent commit under ``_scratch/``), whose package is
+imported in place of this tree's (the timing helpers and shapes stay this
+tree's ``chip_smoke.py``). Every build
 runs in its own process (the library is loaded once per process), in the
 order given and then in reverse, so that each build is timed twice on the
 same card. A build:
@@ -55,15 +56,15 @@ same card. A build:
   ViT-H/14's serving and training rows (8 | 32 × 257, x 1280; the
   training rows with an f32 scale too), at chip_smoke.py's
   VARIANT_LN_CASES (1024, 384, 192) and WIDE_LN_CASES (the any-D kernels:
-  50, 1001, 2560, 6144, 9000; the backward's cluster of blocks a row at
-  9000, f32 6144 and 4100): error against the plain version, equal
+  50, 1001, 2560, 6144, 9000; past ln_bwd_any's widths 9000, f32 6144
+  and 4100 off the vector): error against the plain version, equal
   bits twice, CUDA-event and device times beside ``F.layer_norm``'s;
   the backward at the dense and packed training rows (36 × 577, 32 ×
   1152, x 768) and at ViT-H/14's serving and training rows (8 | 32 × 257,
-  x 1280) with a bf16 and an f32 scale, and at WIDE_LN_CASES: errors,
-  equal bits twice, event and device times (its column pass apart, and
-  the two-pass form's statistics pass: a build with
-  ``-DCXR_LN_BWD_TWO_PASS`` takes it at every width past ln_bwd_any's), the
+  x 1280) with a bf16 and an f32 scale, at WIDE_LN_CASES and at
+  WIDER_BWD_CASES (the two-pass form: rows off the vector past 4096
+  columns, and bf16 65544): errors, equal bits twice, event and device times
+  (its column pass apart, and the two-pass form's statistics pass), the
   host's µs a call (``host_us``: 200 calls
   enqueued, a sync after) and of the wrapper's block count alone
   (``blocks_us``: ``_bwd_blocks``, 2000 calls) beside
@@ -89,6 +90,12 @@ import torch
 RATE, SEED = 0.1, -123456789
 TRAIN_SHAPE = (36, 12, 577, 64)
 LENGTHS = (1, 37, 64, 65, 128, 129, 577, 1025)
+# the LayerNorm backward's two-pass form past WIDE_LN_CASES: off the
+# 16-byte vector (as wide as a cluster of 5 and of 8 blocks a row would be
+# in whole vectors) and past a cluster of eight in whole vectors
+WIDER_BWD_CASES = ((8 * 577, 16390, torch.bfloat16, torch.bfloat16),
+                   (8 * 577, 32766, torch.bfloat16, torch.bfloat16),
+                   (8 * 577, 65544, torch.bfloat16, torch.bfloat16))
 
 
 def selftest(gen) -> dict:
@@ -691,7 +698,7 @@ def layer_norm_bwd(gen, out: dict) -> None:
     bf16; the block LNs' bf16 scale and the final LN's f32 scale), at
     ViT-H/14's b32 training rows (x 1280, the same two scales) and at
     chip_smoke.py's WIDE_LN_CASES (the any-D kernels: width 50, 1001, 2560,
-    6144, 9000, 4100):
+    6144, 9000, 4100) and at WIDER_BWD_CASES:
     errors against the plain version, equal bits twice, CUDA-event and
     device times (``second_pass_ms``: the column pass, ``ln_bwd_cols``;
     ``stats_ms``: the two-pass form's statistics pass, ``ln_bwd_stats``),
@@ -705,7 +712,8 @@ def layer_norm_bwd(gen, out: dict) -> None:
              for rows, d in ((36 * 577, 768), (32 * 1152, 768),
                              (8 * 257, 1280), (32 * 257, 1280))
              for w_dtype in (bf16, torch.float32)]
-    for rows, d, x_dtype, w_dtype in (*cases, *WIDE_LN_CASES):
+    for rows, d, x_dtype, w_dtype in (*cases, *WIDE_LN_CASES,
+                                      *WIDER_BWD_CASES):
         x, dy = ((torch.randn((rows, d), generator=gen, device="cuda")
                   * k + m).to(x_dtype) for k, m in ((3, 1), (1, 0)))
         s = torch.randn((d,), generator=gen, device="cuda").to(w_dtype)
@@ -779,7 +787,7 @@ def main() -> int:
     if "--child" in args:
         return child(only)
     builds = []                    # (environment additions, label)
-    if "--parent" in args:
+    while "--parent" in args:
         i = args.index("--parent")
         tree = os.path.abspath(args[i + 1])
         builds.append(({"CXR_PROBE_TREE": tree, "CXR_NVCC_FLAGS": ""},

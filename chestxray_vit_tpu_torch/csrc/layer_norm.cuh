@@ -10,10 +10,10 @@
 // (1, 2, 4 or 8 a lane) and a block a row up to 4096 (2, 4, 8 or 16 a
 // thread); whole vectors past 2048 a block a row, 2 to 4 vectors a thread
 // (bf16 D <= 8192, f32 D <= 4096); wider rows a block a row read once a
-// pass forward (ln_fwd_rowloop), a cluster of blocks a row backward (two
-// passes past a cluster of eight). What bounds both directions on an H100
-// is the memory's bandwidth: ~10-20 flops an element, far below the
-// card's ~295 flop/byte ridge.
+// pass forward (ln_fwd_rowloop), a cluster of blocks a row of whole vectors
+// backward (two passes off the vector and past a cluster of eight). What
+// bounds both directions on an H100 is the memory's bandwidth: ~10-20
+// flops an element, far below the card's ~295 flop/byte ridge.
 
 #pragma once
 

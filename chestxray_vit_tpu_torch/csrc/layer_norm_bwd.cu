@@ -46,9 +46,10 @@
 // adds.
 //
 // Wider rows (bf16 D > 8192 in whole vectors, any other D > 4096) take
-// layer_norm_bwd_wide.cu: a Hopper thread block cluster a row, or past a
-// cluster of eight two passes; layer_norm_bwd.cuh has what the two units
-// share (the call, the any-D layout, the column pass).
+// layer_norm_bwd_wide.cu: a Hopper thread block cluster a row of whole
+// vectors, or (off the vector, or past a cluster of eight) two passes;
+// layer_norm_bwd.cuh has what the two units share (the call, the any-D
+// layout, the column pass).
 
 #include "layer_norm_bwd.cuh"
 
@@ -521,7 +522,8 @@ cudaError_t run_bwd_any(const BwdCall& c) {
 // row, 2 to 4 vectors a thread (bf16 D <= 8192, f32 D <= 4096); a D off
 // the vector takes a warp a row up to 256 elements (1, 2, 4 or 8 a lane),
 // a block a row up to 4096 (2, 4, 8 or 16 a thread); wider rows a cluster
-// of blocks a row, or the two-pass form (run_bwd_wide).
+// of blocks a row (whole vectors up to a cluster of eight), or the
+// two-pass form (run_bwd_wide).
 template <typename T, typename W>
 cudaError_t run_bwd_off_rungs(const BwdCall& c) {
   constexpr int E = 16 / static_cast<int>(sizeof(T));
@@ -579,14 +581,17 @@ cudaError_t run_bwd_types(int x_dtype, int w_dtype, const BwdCall& c) {
 }  // namespace
 
 // x, dy, dx contiguous [rows, d] in x_dtype from 16-byte aligned addresses;
-// scale, dscale, dbias [d] in w_dtype; workspace f32 [n_blocks, 2, d] then
-// [rows, 4] (the two-pass form's row statistics, unused at other widths),
+// scale, dscale, dbias [d] in w_dtype; workspace f32 [n_blocks, 2, d],
 // 16-byte aligned (n_blocks >= 1, chosen by the caller, best
 // cxr_layer_norm_bwd_wave's or fewer; the result depends on it only
 // through the f32 summation order). n_blocks counts blocks on the rungs
-// and in ln_bwd_any, clusters of blocks past ln_bwd_any's widths (bf16 d
-// > 8192 in whole vectors, any other d > 4096), and ranges of rows past a
-// cluster of eight (bf16 d > 65536, any other d > 32768).
+// and in ln_bwd_any, clusters of blocks past ln_bwd_any's widths (bf16 d >
+// 8192 in whole vectors, f32 d > 4096 in whole vectors), and ranges of
+// rows in the two-pass form (d > 4096 off the vector; bf16 d > 65536, f32
+// d > 32768). The two-pass form also writes four f32 a row after the
+// partials: there, and only there, the workspace must hold [n_blocks, 2,
+// d] then [rows, 4] (ops/layer_norm._bwd_workspace); the library cannot
+// see its size.
 extern "C" int cxr_layer_norm_bwd(const void* x, const void* scale,
                                   const void* dy, void* dx, void* dscale,
                                   void* dbias, void* workspace,

@@ -47,7 +47,7 @@ struct BwdCall {
 };
 
 // Past ln_bwd_any's widths (layer_norm_bwd_wide.cu): a cluster of blocks a
-// row, or the two-pass form; with `wave` set, its wave.
+// row of whole vectors, or the two-pass form; with `wave` set, its wave.
 template <typename T, typename W, bool kVec>
 cudaError_t run_bwd_wide(const BwdCall& c);
 

@@ -9,24 +9,27 @@
 // What bounds it on an H100: bandwidth (x and dy in, dx out: 249 MB at
 // [4616, 9000] bf16, 0.074 ms at 3.35 TB/s), so each row should be read
 // once and the dscale / dbias sums kept on chip, as ln_bwd_any does; but a
-// block's registers hold at most 1024 vectors (4096 elements off the
-// vector) of a row beside the next row in flight. A Hopper thread block
-// cluster of k = ceil(D / that width) blocks, 2 to 8, holds the row
-// instead (ln_bwd_cluster): each block a fixed slice of the columns in
-// registers (3 or 4 vectors a thread, 16 elements off the vector) and its
-// slice of the scale in shared memory, the two row reductions across the
-// cluster through distributed shared memory with one cluster barrier
-// each, the sums in registers across all of a cluster's rows and written
-// once into its row of an [n_clusters, 2, D] workspace that the column
-// pass adds. No atomics: every sum is taken in a fixed order.
+// block's registers hold at most 1024 vectors of a row beside the next row
+// in flight. A Hopper thread block cluster of k = ceil(D / that width)
+// blocks, 2 to 8, holds a row of whole vectors instead (ln_bwd_cluster):
+// each block a fixed slice of the columns in registers (3 or 4 vectors a
+// thread), the next rows of that slice staged in shared memory by cp.async
+// (so that the bytes in flight cost no registers), and its slice of the
+// scale in shared memory; the two row reductions across the cluster
+// through distributed shared memory with one cluster barrier each, the
+// sums in registers across all of a cluster's rows and written once into
+// its row of an [n_clusters, 2, D] workspace that the column pass adds. No
+// atomics: every sum is taken in a fixed order.
 //
-// Past a cluster of eight (bf16 D > 65536 in whole vectors, any other D >
-// 32768; no model reaches it) two passes take any width: ln_bwd_stats (a
-// block a row: mean, rstd, mean(g) and mean(g x_hat), four f32 a row after
-// the workspace's partials) and ln_bwd_tiles (column slices times ranges
-// of rows: dx, and each range's sums in registers, written once). They
-// read x and dy three times. A build with -DCXR_LN_BWD_TWO_PASS takes the
-// two-pass form at every width here, to time one against the other.
+// Rows off the vector (a register holds one element there, so a cluster
+// keeps too few bytes in flight: 0.189 device ms at [4616, 4100] bf16
+// against 0.150 for the two passes) and rows past a cluster of eight (bf16
+// D > 65536 in whole vectors, f32 D > 32768; no model reaches them) take
+// two passes, at any width: ln_bwd_stats (a block a row: mean, rstd,
+// mean(g) and mean(g x_hat), four f32 a row after the workspace's
+// partials) and ln_bwd_tiles (column slices times ranges of rows: dx, and
+// each range's sums in registers, written once). They read x and dy three
+// times.
 
 #include "layer_norm_bwd.cuh"
 
@@ -105,38 +108,61 @@ __device__ __forceinline__ void store_sums(float* pr, int D, int p,
   }
 }
 
-// A cluster of k blocks a row: block r of the cluster owns pieces [r span,
-// (r + 1) span) of every row and holds them in registers as raw words in
-// AnyRows' block layout (V pieces a thread), the next row's loads issued
-// before the current row's two reductions; its columns of the scale sit in
-// shared memory. Each reduction adds the warps' partials of all k blocks
-// through distributed shared memory after one cluster barrier: two
-// buffers in turn, so that the barrier of one reduction orders the reads
-// of the buffer before it against the writes of the one after it, and
-// dbias's sums are taken between its arrive and its wait. Every warp adds
-// the k * warps partials in one fixed order (partial w of rank r is slot
-// 8 r + w; lane l adds slots l and l + 32, then the butterfly), so every
-// block gets the same bits, run after run.
+// Rows a cluster's blocks stage ahead of the row in hand, and the blocks
+// each SM should hold (a block of 4 vectors a thread holds more than half
+// an SM's registers).
+constexpr int kStages = 3;
+template <int V>
+constexpr int kClusterMinBlocks = V < 4 ? 2 : 1;
+
+// The cluster form's dynamic shared memory: the block's slice of the scale
+// (span pieces), then kStages rows of x and dy, V 16-byte pieces of each a
+// thread of nt.
+template <typename W, int E, int V>
+__host__ __device__ constexpr int cluster_smem(int span, int nt) {
+  return (span * E * static_cast<int>(sizeof(W)) + 15) / 16 * 16 +
+         kStages * 2 * V * nt * 16;
+}
+
+// A cluster of k blocks a row of whole vectors: block r of the cluster
+// owns pieces [r span, (r + 1) span) of every row, V vectors a thread in
+// AnyRows' block layout. Each thread stages its own pieces of x and dy of
+// the next kStages rows in shared memory by cp.async (16 bytes a copy, one
+// commit group a row, no registers held), reads the row in hand into
+// registers once it has landed and, once its first sums have used them,
+// starts the copies of the row kStages on into the same slots; its
+// columns of the scale sit in shared memory. Each reduction adds the
+// warps' partials of all k blocks through distributed shared memory after
+// one cluster barrier: two buffers in turn, so that the barrier of one
+// reduction orders the reads of the buffer before it against the writes
+// of the one after it, and dbias's sums are taken between its arrive and
+// its wait. Every warp adds the k * warps partials in one fixed order
+// (partial w of rank r is slot 8 r + w; lane l adds slots l and l + 32,
+// then the butterfly), so every block gets the same bits, run after run.
 // Each thread's dscale / dbias sums of its own columns stay in registers
 // across all its rows and are written once into its cluster's row of the
 // [n_clusters, 2, D] workspace; a last arrive / wait keeps every block's
 // shared memory alive until the other blocks' reads of it are done.
-template <typename T, typename W, bool kVec, int V>
-__global__ void __launch_bounds__(
-    kAnyThreads, (AnyBwd<T, W, kVec, false, V>::kMinBlocks))
+template <typename T, typename W, int V>
+__global__ void __launch_bounds__(kAnyThreads, (kClusterMinBlocks<V>))
 ln_bwd_cluster(const T* __restrict__ x, const W* __restrict__ scale,
                const T* __restrict__ dy, T* __restrict__ dx,
                float* __restrict__ part, long long rows, int D, int span,
                float eps) {
-  using L = AnyBwd<T, W, kVec, false, V>;
-  using R = typename L::R;
-  using Q = Params<W, L::kE>;  // the scale's pieces, from shared memory
-  constexpr int E = L::kE, kWd = R::kWords;
+  using R = Piece<T, true>;
+  constexpr int E = R::kE, kWd = R::kWords;
+  using Q = Params<W, E>;  // the scale's pieces, from shared memory
   extern __shared__ __align__(16) unsigned char smem[];
   W* s_scale = reinterpret_cast<W*>(smem);  // the block's columns
   __shared__ float2 s_part[2][kAnyWarps];   // the warps' partial sums
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nt = blockDim.x, nw = nt >> 5;
+  // this thread's slots after the scale: [stage][x, dy][piece][thread]
+  const uint32_t slots = cxr::smem_addr(smem) +
+                         cluster_smem<W, E, 0>(span, nt) + 16 * threadIdx.x;
+  auto slot = [&](int stage, int t, int i) {
+    return slots + static_cast<uint32_t>(((stage * 2 + t) * V + i) * nt * 16);
+  };
   const int k = cluster_size();
   const int first = cluster_rank() * span;  // the block's first piece
   const int np = min(D / E - first, span);  // and its count
@@ -148,19 +174,21 @@ ln_bwd_cluster(const T* __restrict__ x, const W* __restrict__ scale,
   const long long step = cluster_count();
   long long row = cluster_index();
 
-  uint32_t cx[V][kWd], cg[V][kWd];
-  auto fetch = [&](long long r, uint32_t (&xw)[V][kWd],
-                   uint32_t (&gw)[V][kWd]) {
+  auto stage_row = [&](long long r, int stage) {  // one commit group
+    if (r < rows) {
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int p = threadIdx.x + i * nt;
-      if (p < np) {
-        R::load(x + r * D, p, xw[i]);
-        R::load(dy + r * D, p, gw[i]);
+      for (int i = 0; i < V; ++i) {
+        const int p = threadIdx.x + i * nt;
+        if (p < np) {
+          cxr::cp_async_16(slot(stage, 0, i), x + r * D + p * E, true);
+          cxr::cp_async_16(slot(stage, 1, i), dy + r * D + p * E, true);
+        }
       }
     }
+    cxr::cp_async_commit();
   };
-  if (row < rows) fetch(row, cx, cg);  // in flight while the scale is read
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) stage_row(row + st * step, st);
   for (int c = threadIdx.x; c < np * E; c += nt) s_scale[c] = scale[c];
   __syncthreads();
 
@@ -191,15 +219,23 @@ ln_bwd_cluster(const T* __restrict__ x, const W* __restrict__ scale,
 #pragma unroll
     for (int j = 0; j < E; ++j) ds[i][j] = db[i][j] = 0.f;
 
+  int stage = 0;
   for (; row < rows; row += step) {  // uniform over the cluster
-    uint32_t nx[V][kWd], ng[V][kWd];
-    if (row + step < rows) fetch(row + step, nx, ng);
-
+    cxr::cp_async_wait<kStages - 1>();  // this row's copies have landed
+    uint32_t cx[V][kWd], cg[V][kWd];
     float sx = 0.f, sg = 0.f;
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       const int p = threadIdx.x + i * nt;
       if (p < np) {
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(cx[i][0]), "=r"(cx[i][1]), "=r"(cx[i][2]),
+                       "=r"(cx[i][3])
+                     : "r"(slot(stage, 0, i)));
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(cg[i][0]), "=r"(cg[i][1]), "=r"(cg[i][2]),
+                       "=r"(cg[i][3])
+                     : "r"(slot(stage, 1, i)));
         uint32_t sv[Q::kWords];
         Q::load(s_scale, p, sv);
 #pragma unroll
@@ -209,6 +245,12 @@ ln_bwd_cluster(const T* __restrict__ x, const W* __restrict__ scale,
         }
       }
     }
+    // every piece of the row in hand is in registers and used (the sums
+    // are formed before the copies start): its slots take the row kStages
+    // on
+    asm volatile("" ::"f"(sx), "f"(sg));
+    stage_row(row + kStages * step, stage);
+    stage = stage + 1 < kStages ? stage + 1 : 0;
     row_sum2(sx, sg, [&] {
 #pragma unroll
       for (int i = 0; i < V; ++i) {
@@ -255,14 +297,8 @@ ln_bwd_cluster(const T* __restrict__ x, const W* __restrict__ scale,
         R::store(dxr, p, o);
       }
     }
-#pragma unroll
-    for (int i = 0; i < V; ++i)
-#pragma unroll
-      for (int w = 0; w < kWd; ++w) {
-        cx[i][w] = nx[i][w];
-        cg[i][w] = ng[i][w];
-      }
   }
+  cxr::cp_async_wait<0>();  // the groups past the last row are empty
 
   cluster_arrive();  // this block reads no other block's shared memory now
   float* pr = part + cluster_index() * 2 * D + col;
@@ -396,9 +432,20 @@ ln_bwd_tiles(const T* __restrict__ x, const W* __restrict__ scale,
 // ln_bwd_cluster at k blocks a cluster and span pieces a block, then the
 // column pass; or its wave, in clusters. A refused launch (say
 // cudaErrorClusterOutOfResources) is returned as it is.
-template <typename T, typename W, bool kVec, int V>
+template <typename T, typename W, int V>
 cudaError_t run_bwd_cluster(const BwdCall& c, int k, int span) {
-  using L = AnyBwd<T, W, kVec, false, V>;
+  constexpr int E = Piece<T, true>::kE;
+  auto* kernel = ln_bwd_cluster<T, W, V>;
+  static bool opted_in[64] = {};  // the most shared memory it may take
+  if (c.device < 0 || c.device >= 64) return cudaErrorInvalidValue;
+  if (!opted_in[c.device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cluster_smem<W, E, V>(V * kAnyThreads, kAnyThreads));
+    if (err != cudaSuccess) return err;
+    opted_in[c.device] = true;
+  }
+  const int threads = ((span + V - 1) / V + 31) / 32 * 32;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = k;
@@ -406,12 +453,11 @@ cudaError_t run_bwd_cluster(const BwdCall& c, int k, int span) {
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(c.wave ? k : c.n_blocks * k);
-  cfg.blockDim = dim3(((span + V - 1) / V + 31) / 32 * 32);
-  cfg.dynamicSmemBytes = L::scale_bytes(span * L::kE);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = cluster_smem<W, E, V>(span, threads);
   cfg.stream = c.st;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  auto* kernel = ln_bwd_cluster<T, W, kVec, V>;
   if (c.wave) return cudaOccupancyMaxActiveClusters(c.wave, kernel, &cfg);
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(c.x),
@@ -461,28 +507,22 @@ cudaError_t run_bwd_two_pass(const BwdCall& c) {
 namespace cxr {
 namespace ln {
 
-// Past ln_bwd_any's widths: k = ceil(pieces / the pieces ln_bwd_any holds
-// in a block) blocks a cluster, 2 to 8, each 3 or 4 vectors a thread (16
-// elements off the vector); past 8 the two-pass form. With
-// -DCXR_LN_BWD_TWO_PASS (a measurement build) every such width takes the
-// two-pass form.
+// Past ln_bwd_any's widths: whole vectors k = ceil(vectors / 1024) blocks
+// a cluster, 2 to 8, each 3 or 4 vectors a thread; past 8, and any row off
+// the vector, the two-pass form.
 template <typename T, typename W, bool kVec>
 cudaError_t run_bwd_wide(const BwdCall& c) {
-  constexpr int kHeld = (kVec ? 4 : 16) * kAnyThreads;
-  const int np = c.d / Piece<T, kVec>::kE;
-  const int k = (np + kHeld - 1) / kHeld;
-#ifndef CXR_LN_BWD_TWO_PASS
-  if (k <= kMaxCluster) {
-    const int span = (np + k - 1) / k;
-    if constexpr (kVec) {
+  if constexpr (kVec) {
+    constexpr int kHeld = 4 * kAnyThreads;
+    const int np = c.d / Piece<T, true>::kE;
+    const int k = (np + kHeld - 1) / kHeld;
+    if (k <= kMaxCluster) {
+      const int span = (np + k - 1) / k;
       if (span <= 3 * kAnyThreads)
-        return run_bwd_cluster<T, W, true, 3>(c, k, span);
-      return run_bwd_cluster<T, W, true, 4>(c, k, span);
-    } else {
-      return run_bwd_cluster<T, W, false, 16>(c, k, span);
+        return run_bwd_cluster<T, W, 3>(c, k, span);
+      return run_bwd_cluster<T, W, 4>(c, k, span);
     }
   }
-#endif
   return run_bwd_two_pass<T, W, kVec>(c);
 }
 

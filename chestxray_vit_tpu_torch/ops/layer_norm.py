@@ -143,8 +143,9 @@ layer_norm_cuda.launches = 0     # kernel launches, read by chip_smoke.py
 
 # rows of a backward block's first turn: its eight warps' (a row a warp on
 # the rungs and off the vector up to 256 columns; a block a row past them,
-# and a cluster of blocks a row past 8192 bf16 / 4096 other columns, take
-# them one after another)
+# a cluster of blocks a row of whole vectors past 8192 bf16 / 4096 f32
+# columns, and a range of rows of the two-pass form take them one after
+# another)
 _BWD_ROWS_PER_BLOCK = 8
 # the backward's wave (its blocks resident on the card at once) by (device
 # index, D, x dtype, scale dtype): asked of the library once, so that a
@@ -168,12 +169,24 @@ def _bwd_blocks(x: torch.Tensor, scale: torch.Tensor, rows: int) -> int:
     return max(1, min(-(-rows // _BWD_ROWS_PER_BLOCK), wave))
 
 
-def _bwd_workspace(n_blocks: int, rows: int, d: int,
+def _bwd_two_pass(d: int, x_dtype: torch.dtype) -> bool:
+    """Whether the backward at width ``d`` takes the library's two-pass
+    form, which writes four f32 statistics a row after the partials: rows
+    off the 16-byte vector past 4096 columns, and rows of whole vectors
+    past a cluster of eight blocks (bf16 d > 65536, f32 d > 32768)."""
+    per_vector = 128 // torch.finfo(x_dtype).bits
+    if d % per_vector:
+        return d > 4096
+    return d // per_vector > 8 * 1024
+
+
+def _bwd_workspace(n_blocks: int, rows: int, d: int, x_dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
     """The backward's f32 workspace: ``n_blocks`` partial [2, d] rows, then
-    four statistics a row (read past a cluster of eight blocks a row, bf16
-    rows past 65536 columns in whole vectors and any other past 32768)."""
-    return torch.empty(n_blocks * 2 * d + 4 * rows, dtype=torch.float32,
+    four statistics a row where the two-pass form runs
+    (``_bwd_two_pass``)."""
+    stats = 4 * rows if _bwd_two_pass(d, x_dtype) else 0
+    return torch.empty(n_blocks * 2 * d + stats, dtype=torch.float32,
                        device=device)
 
 
@@ -182,10 +195,11 @@ def layer_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the LayerNorm backward kernel: (dx in x's dtype, dscale and
     dbias in scale's dtype). Deterministic: each block of one wave (a
-    cluster of blocks a row past 8192 bf16 or 4096 other columns) keeps its
-    rows' f32 sums on chip and writes them once, and a column pass adds the
-    blocks' sums in block order; past a cluster of eight, a pass writes each
-    row's statistics and column-tiled blocks walk ranges of rows."""
+    cluster of blocks a row of whole vectors past 8192 bf16 or 4096 f32
+    columns) keeps its rows' f32 sums on chip and writes them once, and a
+    column pass adds the blocks' sums in block order; off the vector past
+    4096 columns and past a cluster of eight, a pass writes each row's
+    statistics and column-tiled blocks walk ranges of rows."""
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_bwd_cuda needs CUDA tensors, got "
                          f"{x.device}")
@@ -202,7 +216,7 @@ def layer_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
     dx = torch.empty_like(x)
     dscale = torch.empty(d, dtype=scale.dtype, device=x.device)
     dbias = torch.empty(d, dtype=scale.dtype, device=x.device)
-    work = _bwd_workspace(n_blocks, rows, d, x.device)
+    work = _bwd_workspace(n_blocks, rows, d, x.dtype, x.device)
     err = kernels.library().cxr_layer_norm_bwd(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         dscale.data_ptr(), dbias.data_ptr(), work.data_ptr(), rows, d, eps,

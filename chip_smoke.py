@@ -573,7 +573,8 @@ WIDE_ATTN_SHAPES = ((8, 3, 577, 256), (TRAIN_BATCH, 3, 577, 256))
 # a row from registers), forward and backward, bf16 rows with a bf16 and
 # an f32 scale, the width 50 in f32 too; past ln_bwd_any's widths (the
 # forward: the row read once a pass; the backward: a cluster of two blocks
-# a row) bf16 9000 with either scale, f32 6144 and bf16 4100 off the vector
+# a row) bf16 9000 with either scale and f32 6144, and bf16 4100 off the
+# vector (the backward's two-pass form)
 WIDE_LN_CASES = ((TRAIN_BATCH * 577, 50, torch.bfloat16, torch.bfloat16),
                  (TRAIN_BATCH * 577, 50, torch.bfloat16, torch.float32),
                  (TRAIN_BATCH * 577, 50, torch.float32, torch.float32),

@@ -235,7 +235,7 @@ def test_layer_norm_fwd_reads_and_writes_no_row_past_the_last(
 # the any-D widths of test_layer_norm_kernel_at_any_width; those past
 # 16392 at 1 and 37 rows only, to keep the run short
 _ANY_WIDTHS = [50, 250, 255, 256, 258, 1001, 2056, 2560, 4096, 4100, 6144,
-               8192, 8200, 9000, 16392, 32768, 32772, 65536, 65544]
+               8192, 8200, 9000, 16390, 16392, 32768, 32772, 65536, 65544]
 
 
 @pytest.mark.parametrize("d,rows", [(d, rows) for d in _ANY_WIDTHS
@@ -248,11 +248,12 @@ def test_layer_norm_kernel_at_any_width(dev, x_dtype, w_dtype, d, rows):
     and past the register rungs (2056, 2560, 6144, bf16 8192, f32 4096: a
     block a row from registers, 2-4 vectors a thread), with 256 on the
     rungs beside them; past those (forward: ``ln_fwd_rowloop``; backward: a
-    cluster of k blocks a row, ``ln_bwd_cluster``) at each branch and edge
-    of k: bf16 8200 and 9000 (k = 2), 16392 (3), 32768 (4), 65536 (8) and
-    4100 off the vector (2); f32 4100 to 8192 (2), 8200 and 9000 (3),
-    16392 (5), 32768 (8); past a cluster of eight the two-pass form (bf16
-    32772 off the vector and 65544; f32 32772, 65536 and 65544); forward
+    cluster of k blocks a row of whole vectors, ``ln_bwd_cluster``) at each
+    branch and edge of k: bf16 8200 and 9000 (k = 2), 16392 (3), 32768
+    (4), 65536 (8); f32 4100 to 8192 (2), 8200 and 9000 (3), 16392 (5),
+    32768 (8); off the vector past 4096 and past a cluster of eight the
+    two-pass form (bf16 4100, 16390 and 32772 off the vector, and 65544;
+    f32 16390 off the vector, 32772, 65536 and 65544); forward
     and backward, against the plain versions (dscale and dbias 1e-5 of the
     largest, plus one ulp in bf16), the bits of both the same twice; at
     one row, at 37 (fewer blocks than a wave, the last one short of the
@@ -650,21 +651,21 @@ def test_layer_norm_bwd_writes_no_row_past_the_last(dev, x_dtype, w_dtype,
 
 
 @pytest.mark.parametrize("x_dtype,w_dtype", _LN_PAIRS)
-@pytest.mark.parametrize("rows,d", [(5, 9000), (37, 6144), (3, 32772),
-                                    (2, 65544)])
+@pytest.mark.parametrize("rows,d", [(5, 9000), (37, 6144), (7, 4100),
+                                    (3, 32772), (2, 65544)])
 def test_layer_norm_bwd_reads_and_writes_no_row_past_the_last(
         dev, x_dtype, w_dtype, rows, d):
     """The backward entry point on the first ``rows`` rows of buffers that
     hold three more (NaN after x and dy, a sentinel after dx), with the
     wrapper's block count and workspace, past ln_bwd_any's widths: a
     cluster of blocks a row (bf16 9000, f32 6144) and the two-pass form
-    (32772, 65544)."""
+    (bf16 4100 off the vector, 32772, 65544)."""
     x = torch.full((rows + 3, d), float("nan"), device=dev, dtype=x_dtype)
     dy = x.clone()
     x[:rows], s, dy[:rows] = _ln_bwd_inputs(rows, d, x_dtype, w_dtype, dev)
     dx = torch.full((rows + 3, d), 7.0, device=dev, dtype=x_dtype)
     n_blocks = ln._bwd_blocks(x, s, rows)
-    work = ln._bwd_workspace(n_blocks, rows, d, dev)
+    work = ln._bwd_workspace(n_blocks, rows, d, x_dtype, dev)
     ds, db = (torch.empty(d, device=dev, dtype=w_dtype) for _ in range(2))
     codes = {torch.float32: 0, torch.bfloat16: 1}
     kernels.check(kernels.library().cxr_layer_norm_bwd(

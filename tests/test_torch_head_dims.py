@@ -280,6 +280,23 @@ def test_layer_norm_any_width_matches_jax(d, w_dtype):
         _close(g, r, 1e-5 if w_dtype == "float32" or g is got[0] else 8e-3)
 
 
+@pytest.mark.parametrize("d,x_dtype,two_pass", [
+    (768, torch.bfloat16, False), (4096, torch.bfloat16, False),
+    (4100, torch.bfloat16, True), (9000, torch.bfloat16, False),
+    (65536, torch.bfloat16, False), (65544, torch.bfloat16, True),
+    (4097, torch.float32, True), (32768, torch.float32, False),
+    (32772, torch.float32, True)])
+def test_layer_norm_bwd_workspace_holds_row_statistics_only_for_two_passes(
+        d, x_dtype, two_pass):
+    """The backward's workspace: [n_blocks, 2, d] partials, and four f32
+    statistics a row after them only at the widths of the library's
+    two-pass form (off the 16-byte vector past 4096 columns; whole vectors
+    past a cluster of eight blocks, bf16 65536 and f32 32768)."""
+    work = tln._bwd_workspace(3, 5, d, x_dtype, torch.device("cpu"))
+    assert work.dtype == torch.float32
+    assert work.numel() == 3 * 2 * d + (4 * 5 if two_pass else 0)
+
+
 # ---------------------------------------------------------------------------
 # Narrow models: ViT-H-shaped (heads of 80, patch 14) and off 8
 # ---------------------------------------------------------------------------
